@@ -1,0 +1,24 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
+
+A second package beside `paddle_tpu` (the JAX reference, which stays as
+it is): the same Paddle-style API written in PyTorch, with every Pallas
+kernel of the ported paths rewritten by hand for NVIDIA Hopper
+(`sm_90a`). It imports `torch` and never `jax`, and nothing of
+`paddle_tpu`: what it needs from there it keeps as its own copy.
+
+Module names mirror `paddle_tpu` where that helps a reader find the
+counterpart (`models/gpt.py`, `ops/paged_attention.py`,
+`inference/serving.py`, ...). Kernels live under `csrc/` and are built
+with `nvcc` at first use (`ops/kernels/_build.py`); each has a plain
+PyTorch twin beside its wrapper, which the wrapper takes only for
+tensors on the CPU.
+
+The ported slice so far is GPT serving: `GenerationEngine` over
+`GPTForCausalLM.paged_ragged_step` and the ragged paged-attention
+kernel. Entry points run on CUDA unless the caller passes
+`device="cpu"` (see `device.py`).
+"""
+from .device import resolve_device
+from .framework import dtype
+
+__all__ = ["resolve_device", "dtype"]

@@ -1,0 +1,285 @@
+"""GPT for serving: the ragged continuous-batching step.
+
+Counterpart: paddle_tpu/models/gpt.py, the part the serving path runs.
+Parameter names and shapes equal the reference's (`Linear` keeps the
+[in, out] layout), so models/convert.py carries a paddle_tpu state dict
+over one to one.
+
+- pre-norm decoder blocks (LayerNorm in float32, tanh GELU), learned
+  positions, weight-tied LM head (`logits = h @ wte.weight.T`);
+- `GPTForCausalLM.paged_ragged_step` advances a mixed batch of decode
+  rows and prefill chunks in one pass over the layers, each token
+  attending only its own paged history through the hand-written
+  ragged paged-attention kernel (ops/kernels/paged_attention.py);
+- decoding is greedy (`sample_token_rows`).
+
+Not ported yet (ROADMAP.md queue A): the no-cache forward and its flash
+attention (training), the static and legacy cache branches, seeded
+sampling, speculative decoding.
+"""
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..framework.dtype import convert_dtype
+from ..nn import Dropout, Embedding, LayerNorm, Linear
+from ..nn import functional as F
+from ..ops.kernels.paged_attention import ragged_paged_attention
+from ..ops.paged_attention import PagedKVCache
+
+__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "RaggedSlot",
+           "sample_token_rows", "gpt_tiny", "gpt_medium"]
+
+_NOT_PORTED = ("only the ragged paged-cache path is ported; the no-cache "
+               "forward (training attention) and the static/legacy cache "
+               "branches are ROADMAP.md queue A items")
+
+
+class GPTConfig:
+    def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
+                 num_heads=12, intermediate_size=None,
+                 max_position_embeddings=1024, dropout=0.0,
+                 layer_norm_epsilon=1e-5, initializer_range=0.02,
+                 use_bias=True):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.intermediate_size = intermediate_size or 4 * hidden_size
+        self.max_position_embeddings = max_position_embeddings
+        self.dropout = dropout
+        self.layer_norm_epsilon = layer_norm_epsilon
+        self.initializer_range = initializer_range
+        self.use_bias = use_bias
+
+
+class RaggedSlot:
+    """One layer's state for the ragged step: that layer's k/v page
+    pools (updated in place) and the step's device plan from
+    PagedKVCache.plan_ragged: per-token scatter coordinates and causal
+    bounds, the per-row page tables. `block_plan` is the host q-block
+    plan, passed to the kernel wrapper as the reference passes it."""
+
+    __slots__ = ("k", "v", "tok_pages", "tok_in_pages", "page_table",
+                 "token_seq", "bounds", "block_plan")
+
+    def __init__(self, k, v, tok_pages, tok_in_pages, page_table,
+                 token_seq, bounds, block_plan=None):
+        self.k = k
+        self.v = v
+        self.tok_pages = tok_pages
+        self.tok_in_pages = tok_in_pages
+        self.page_table = page_table
+        self.token_seq = token_seq
+        self.bounds = bounds
+        self.block_plan = block_plan
+
+
+def sample_token_rows(last):
+    """Greedy next tokens of [B, vocab] logits: argmax, ties to the
+    first index (as the reference's argmax lane). Returns int32 [B] on
+    the logits' device."""
+    return torch.argmax(last, dim=-1).to(torch.int32)
+
+
+class GPTAttention(nn.Module):
+    def __init__(self, cfg, device=None, dtype=None, generator=None):
+        super().__init__()
+        h, nh = cfg.hidden_size, cfg.num_heads
+        self.num_heads = nh
+        self.head_dim = h // nh
+        kw = dict(bias=cfg.use_bias, weight_std=cfg.initializer_range,
+                  device=device, dtype=dtype, generator=generator)
+        self.qkv_proj = Linear(h, 3 * h, **kw)
+        self.out_proj = Linear(h, h, **kw)
+
+    def forward(self, x, cache):
+        B, T, _ = x.shape
+        # the fused projection is laid out (3, heads, head_dim)
+        qkv = self.qkv_proj(x).reshape(B, T, 3, self.num_heads,
+                                       self.head_dim)
+        q, k, v = qkv.unbind(dim=2)
+        if not isinstance(cache, RaggedSlot):
+            raise NotImplementedError(_NOT_PORTED)
+        return self._forward_paged_ragged(x, q, k, v, cache)
+
+    def _forward_paged_ragged(self, x, q, k, v, slot):
+        """One batched scatter writes every token's k/v row into its
+        planned (page, slot) of the pools, in place; then ONE ragged
+        paged-attention call reads each token's own history under its
+        causal bound. Pad tokens all write pad page 0, slot 0: duplicate
+        indices are harmless because no real token's bound reaches page
+        0."""
+        _, T, H = x.shape  # batch 1: the token axis carries the batch
+        kd = slot.k.dtype
+        where = (slot.tok_pages, slot.tok_in_pages)
+        slot.k.index_put_(where, k[0].to(kd))
+        slot.v.index_put_(where, v[0].to(kd))
+        out = ragged_paged_attention(
+            q[0].contiguous(), slot.k, slot.v, slot.page_table,
+            slot.token_seq, slot.bounds, block_plan=slot.block_plan)
+        return self.out_proj(out.reshape(1, T, H).to(x.dtype)), slot
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, cfg, device=None, dtype=None, generator=None):
+        super().__init__()
+        kw = dict(bias=cfg.use_bias, weight_std=cfg.initializer_range,
+                  device=device, dtype=dtype, generator=generator)
+        self.fc_in = Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.fc_out = Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+        self.drop = Dropout(cfg.dropout)
+
+    def forward(self, x):
+        return self.drop(self.fc_out(F.gelu(self.fc_in(x),
+                                            approximate=True)))
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, cfg, device=None, dtype=None, generator=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.ln_1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, **kw)
+        self.attn = GPTAttention(cfg, generator=generator, **kw)
+        self.ln_2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, **kw)
+        self.mlp = GPTMLP(cfg, generator=generator, **kw)
+
+    def forward(self, x, cache):
+        a, cache = self.attn(self.ln_1(x), cache)
+        x = x + a
+        x = x + self.mlp(self.ln_2(x))
+        return x, cache
+
+
+class GPTModel(nn.Module):
+    def __init__(self, cfg, device=None, dtype=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(weight_std=cfg.initializer_range, device=device,
+                  dtype=dtype, generator=generator)
+        self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.wpe = Embedding(cfg.max_position_embeddings, cfg.hidden_size,
+                             **kw)
+        self.drop = Dropout(cfg.dropout)
+        self.h = nn.ModuleList([
+            GPTBlock(cfg, device=device, dtype=dtype, generator=generator)
+            for _ in range(cfg.num_layers)])
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
+                              device=device, dtype=dtype)
+
+    def forward(self, input_ids, position_ids, caches):
+        """input_ids/position_ids [1, T]; caches: one RaggedSlot per
+        layer. Returns (hidden [1, T, H], caches)."""
+        if caches is None or position_ids is None:
+            raise NotImplementedError(_NOT_PORTED)
+        x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+        new_caches = []
+        for block, cache in zip(self.h, caches):
+            x, cache = block(x, cache)
+            new_caches.append(cache)
+        return self.ln_f(x), new_caches
+
+
+class GPTForCausalLM(nn.Module):
+    """GPT with the weight-tied LM head. Built on `device` (default
+    CUDA; "cpu" only when asked) in `dtype` (default float32), its
+    weights drawn from Normal(0, initializer_range) by a torch.Generator
+    seeded with `seed`; load real or reference weights with
+    models/convert.py. The module is in eval mode: serving never
+    trains."""
+
+    def __init__(self, cfg, device=None, dtype=None, seed=0):
+        super().__init__()
+        device = resolve_device(device)
+        dtype = convert_dtype(dtype) or torch.float32
+        generator = torch.Generator(device=device).manual_seed(int(seed))
+        self.cfg = cfg
+        self.gpt = GPTModel(cfg, device=device, dtype=dtype,
+                            generator=generator)
+        self.eval()
+
+    @property
+    def device(self):
+        return self.gpt.wte.weight.device
+
+    def forward(self, input_ids, position_ids, caches):
+        hidden, caches = self.gpt(input_ids, position_ids, caches)
+        # weight-tied LM head
+        return hidden @ self.gpt.wte.weight.T, caches
+
+    def make_paged_cache(self, n_pages, page_size=16, dtype=None):
+        """Shared page pool sized for this model, on its device, in its
+        dtype unless `dtype` says otherwise."""
+        cfg = self.cfg
+        return PagedKVCache(
+            cfg.num_layers, n_pages, page_size, cfg.num_heads,
+            cfg.hidden_size // cfg.num_heads,
+            dtype=convert_dtype(dtype) or self.gpt.wte.weight.dtype,
+            device=self.device)
+
+    @torch.no_grad()
+    def paged_ragged_step(self, cache, rows, pad_to_tokens=None,
+                          pad_to_rows=None):
+        """ONE continuous-batching step over mixed rows: `rows` is a list
+        of (seq_id, token_ids) where decode rows carry one token and
+        prefill-chunk rows a slice of their prompt, all advanced in one
+        pass, each token attending only its own paged history (pad
+        tokens do no attention work).
+
+        Returns (logits [n_rows, vocab] — each row's LAST token's
+        next-token logits — and next_tokens, int32 [n_rows] greedy
+        samples), both on the model's device: the caller's host read of
+        the tokens is the step's only synchronization.
+        pad_to_tokens/pad_to_rows pad the step to fixed shapes."""
+        limit = self.cfg.max_position_embeddings
+        over = [s for s, t in rows if cache.length(s) + len(t) > limit]
+        if over:
+            # the wpe gather would index past its table
+            raise ValueError(
+                f"sequences {over!r} would exceed "
+                f"max_position_embeddings={limit}; free them or raise "
+                "the limit")
+        with cache.lock:
+            plan = cache.plan_ragged([(s, len(t)) for s, t in rows],
+                                     pad_to_tokens=pad_to_tokens,
+                                     pad_to_rows=pad_to_rows,
+                                     q_heads=self.cfg.num_heads)
+            T = plan["tok_pages"].shape[0]
+            B, W = plan["page_table"].shape
+            toks = np.zeros((T,), np.int32)
+            off = 0
+            for _, t in rows:
+                toks[off:off + len(t)] = np.asarray(t, np.int32).reshape(-1)
+                off += len(t)
+            # the whole int32 plan crosses to the device in ONE copy
+            host = np.concatenate([
+                toks, plan["positions"], plan["token_seq"],
+                plan["tok_pages"], plan["tok_in_pages"], plan["bounds"],
+                plan["out_idx"], plan["page_table"].reshape(-1)])
+            dev = torch.from_numpy(host).to(self.device, non_blocking=True)
+            ids, pos, seq, pages, in_pages, bounds = dev[:6 * T].view(6, T)
+            out_idx = dev[6 * T:6 * T + B]
+            page_table = dev[6 * T + B:].view(B, W)
+            block_plan = (plan["blk_pages"], plan["blk_seq"],
+                          plan["blk_start"], plan["blk_n"])
+            slots = [RaggedSlot(cache.k[l], cache.v[l], pages, in_pages,
+                                page_table, seq, bounds, block_plan)
+                     for l in range(self.cfg.num_layers)]
+            hidden, _ = self.gpt(ids[None], pos[None], slots)
+            last = hidden[0].index_select(0, out_idx) \
+                @ self.gpt.wte.weight.T
+            nxt = sample_token_rows(last)
+            for s, t in rows:
+                cache.advance(s, len(t))
+            n = plan["n_rows"]
+        return last[:n], nxt[:n]
+
+
+def gpt_tiny(vocab=1024):
+    return GPTConfig(vocab_size=vocab, hidden_size=64, num_layers=2,
+                     num_heads=4, max_position_embeddings=128)
+
+
+def gpt_medium():
+    return GPTConfig(hidden_size=1024, num_layers=24, num_heads=16)
