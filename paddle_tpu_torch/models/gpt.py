@@ -1,6 +1,7 @@
-"""GPT for serving: the ragged continuous-batching step.
+"""GPT: training and the ragged continuous-batching serving step.
 
-Counterpart: paddle_tpu/models/gpt.py, the part the serving path runs.
+Counterpart: paddle_tpu/models/gpt.py, the parts the training and
+serving paths run.
 Parameter names and shapes equal the reference's (`Linear` keeps the
 [in, out] layout), so models/convert.py carries a paddle_tpu state dict
 over one to one.
@@ -11,11 +12,17 @@ over one to one.
   rows and prefill chunks in one pass over the layers, each token
   attending only its own paged history through the hand-written
   ragged paged-attention kernel (ops/kernels/paged_attention.py);
-- decoding is greedy (`sample_token_rows`).
+- decoding is greedy (`sample_token_rows`);
+- `GPTForCausalLM(input_ids)` (no caches) is the training forward:
+  causal attention through `F.scaled_dot_product_attention`, which
+  routes to the hand-written flash kernels
+  (ops/kernels/flash_attention.py); logits come out alone. The layer
+  stack is a plain loop (the reference's `scan_layers` is an XLA
+  compile-time device).
 
-Not ported yet (ROADMAP.md queue A): the no-cache forward and its flash
-attention (training), the static and legacy cache branches, seeded
-sampling, speculative decoding.
+Not ported yet (ROADMAP.md queue A): the `scan_remat` policies, the
+static and legacy cache branches, seeded sampling, speculative
+decoding.
 """
 import numpy as np
 import torch
@@ -31,8 +38,8 @@ from ..ops.paged_attention import PagedKVCache
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "RaggedSlot",
            "sample_token_rows", "gpt_tiny", "gpt_medium"]
 
-_NOT_PORTED = ("only the ragged paged-cache path is ported; the no-cache "
-               "forward (training attention) and the static/legacy cache "
+_NOT_PORTED = ("only the no-cache (training) forward and the ragged "
+               "paged-cache path are ported; the static/legacy cache "
                "branches are ROADMAP.md queue A items")
 
 
@@ -41,7 +48,7 @@ class GPTConfig:
                  num_heads=12, intermediate_size=None,
                  max_position_embeddings=1024, dropout=0.0,
                  layer_norm_epsilon=1e-5, initializer_range=0.02,
-                 use_bias=True):
+                 use_bias=True, scan_layers=True, scan_remat=False):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -52,6 +59,11 @@ class GPTConfig:
         self.layer_norm_epsilon = layer_norm_epsilon
         self.initializer_range = initializer_range
         self.use_bias = use_bias
+        # scan_layers is accepted for the reference's signature: the port
+        # always runs the stack as a plain loop. A truthy scan_remat
+        # (activation recomputation) raises when the model is built.
+        self.scan_layers = scan_layers
+        self.scan_remat = scan_remat
 
 
 class RaggedSlot:
@@ -93,16 +105,23 @@ class GPTAttention(nn.Module):
                   device=device, dtype=dtype, generator=generator)
         self.qkv_proj = Linear(h, 3 * h, **kw)
         self.out_proj = Linear(h, h, **kw)
+        self.dropout = cfg.dropout
 
-    def forward(self, x, cache):
-        B, T, _ = x.shape
-        # the fused projection is laid out (3, heads, head_dim)
+    def forward(self, x, cache=None):
+        B, T, H = x.shape
+        # the fused projection is laid out (3, heads, head_dim); q, k and
+        # v are strided views of it, which the flash kernels read in place
         qkv = self.qkv_proj(x).reshape(B, T, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv.unbind(dim=2)
-        if not isinstance(cache, RaggedSlot):
+        if isinstance(cache, RaggedSlot):
+            return self._forward_paged_ragged(x, q, k, v, cache)
+        if cache is not None:
             raise NotImplementedError(_NOT_PORTED)
-        return self._forward_paged_ragged(x, q, k, v, cache)
+        out = F.scaled_dot_product_attention(
+            q, k, v, is_causal=True,
+            dropout_p=self.dropout if self.training else 0.0)
+        return self.out_proj(out.reshape(B, T, H))
 
     def _forward_paged_ragged(self, x, q, k, v, slot):
         """One batched scatter writes every token's k/v row into its
@@ -129,7 +148,7 @@ class GPTMLP(nn.Module):
                   device=device, dtype=dtype, generator=generator)
         self.fc_in = Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.fc_out = Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
-        self.drop = Dropout(cfg.dropout)
+        self.drop = Dropout(cfg.dropout, generator=generator)
 
     def forward(self, x):
         return self.drop(self.fc_out(F.gelu(self.fc_in(x),
@@ -145,7 +164,10 @@ class GPTBlock(nn.Module):
         self.ln_2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, **kw)
         self.mlp = GPTMLP(cfg, generator=generator, **kw)
 
-    def forward(self, x, cache):
+    def forward(self, x, cache=None):
+        if cache is None:
+            x = x + self.attn(self.ln_1(x))
+            return x + self.mlp(self.ln_2(x))
         a, cache = self.attn(self.ln_1(x), cache)
         x = x + a
         x = x + self.mlp(self.ln_2(x))
@@ -155,25 +177,38 @@ class GPTBlock(nn.Module):
 class GPTModel(nn.Module):
     def __init__(self, cfg, device=None, dtype=None, generator=None):
         super().__init__()
+        if cfg.scan_remat:
+            raise NotImplementedError(
+                f"scan_remat={cfg.scan_remat!r}: activation recomputation "
+                "(torch.utils.checkpoint with the true/'names'/'dots' "
+                "policies) is not ported yet (ROADMAP.md queue A, item 11)")
         self.cfg = cfg
         kw = dict(weight_std=cfg.initializer_range, device=device,
                   dtype=dtype, generator=generator)
         self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.wpe = Embedding(cfg.max_position_embeddings, cfg.hidden_size,
                              **kw)
-        self.drop = Dropout(cfg.dropout)
+        self.drop = Dropout(cfg.dropout, generator=generator)
         self.h = nn.ModuleList([
             GPTBlock(cfg, device=device, dtype=dtype, generator=generator)
             for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
                               device=device, dtype=dtype)
 
-    def forward(self, input_ids, position_ids, caches):
-        """input_ids/position_ids [1, T]; caches: one RaggedSlot per
-        layer. Returns (hidden [1, T, H], caches)."""
-        if caches is None or position_ids is None:
-            raise NotImplementedError(_NOT_PORTED)
+    def forward(self, input_ids, position_ids=None, caches=None):
+        """Training: input_ids [B, T], positions default to arange(T);
+        returns hidden [B, T, H]. Serving: input_ids/position_ids [1, T]
+        and one RaggedSlot per layer; returns (hidden, caches)."""
+        if position_ids is None:
+            if caches is not None:
+                raise NotImplementedError(_NOT_PORTED)
+            position_ids = torch.arange(
+                input_ids.shape[1], device=input_ids.device)[None]
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+        if caches is None:
+            for block in self.h:
+                x = block(x)
+            return self.ln_f(x)
         new_caches = []
         for block, cache in zip(self.h, caches):
             x, cache = block(x, cache)
@@ -186,8 +221,8 @@ class GPTForCausalLM(nn.Module):
     CUDA; "cpu" only when asked) in `dtype` (default float32), its
     weights drawn from Normal(0, initializer_range) by a torch.Generator
     seeded with `seed`; load real or reference weights with
-    models/convert.py. The module is in eval mode: serving never
-    trains."""
+    models/convert.py. The module starts in eval mode, as serving wants
+    it; call `.train()` to train (TrainStep does so for its forward)."""
 
     def __init__(self, cfg, device=None, dtype=None, seed=0):
         super().__init__()
@@ -203,10 +238,13 @@ class GPTForCausalLM(nn.Module):
     def device(self):
         return self.gpt.wte.weight.device
 
-    def forward(self, input_ids, position_ids, caches):
-        hidden, caches = self.gpt(input_ids, position_ids, caches)
-        # weight-tied LM head
-        return hidden @ self.gpt.wte.weight.T, caches
+    def forward(self, input_ids, position_ids=None, caches=None):
+        """Logits [B, T, vocab] (weight-tied LM head); with caches,
+        (logits, caches)."""
+        out = self.gpt(input_ids, position_ids, caches)
+        hidden = out[0] if caches is not None else out
+        logits = hidden @ self.gpt.wte.weight.T
+        return (logits, out[1]) if caches is not None else logits
 
     def make_paged_cache(self, n_pages, page_size=16, dtype=None):
         """Shared page pool sized for this model, on its device, in its

@@ -1,5 +1,7 @@
-"""nn layers and functionals of the ported slice."""
+"""nn layers, functionals and gradient clipping of the ported slices."""
 from . import functional
+from .clip import ClipGradByGlobalNorm, ClipGradByValue
 from .layer import Dropout, Embedding, LayerNorm, Linear
 
-__all__ = ["functional", "Dropout", "Embedding", "LayerNorm", "Linear"]
+__all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByValue",
+           "Dropout", "Embedding", "LayerNorm", "Linear"]

@@ -1,5 +1,8 @@
-"""Functionals of the ported slice."""
+"""Functionals of the ported slices."""
 from .activation import gelu
+from .attention import scaled_dot_product_attention
+from .loss import cross_entropy
 from .norm import layer_norm
 
-__all__ = ["gelu", "layer_norm"]
+__all__ = ["cross_entropy", "gelu", "layer_norm",
+           "scaled_dot_product_attention"]

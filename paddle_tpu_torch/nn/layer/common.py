@@ -64,17 +64,26 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Upscale-in-train dropout; the identity at eval and at p == 0,
-    which is all the serving path runs."""
+    """Upscale-in-train dropout (Paddle's default mode): in training,
+    each element is kept with probability 1 - p, by a mask drawn from
+    `generator` (the global default generator when None), and kept
+    elements are scaled by 1 / (1 - p). The identity at eval and at
+    p == 0. Masks cannot match the reference's (another random stream),
+    so parity holds at p == 0 only."""
 
-    def __init__(self, p=0.5):
+    def __init__(self, p=0.5, generator=None):
         super().__init__()
         self.p = float(p)
+        self.generator = generator
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        return torch.nn.functional.dropout(x, self.p, training=True)
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
 
     def extra_repr(self):
         return f"p={self.p}"

@@ -29,7 +29,8 @@ SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 # library name -> source file under csrc/
-SOURCES = {"paged_attention": "paged_attention.cu"}
+SOURCES = {"paged_attention": "paged_attention.cu",
+           "flash_attention": "flash_attention.cu"}
 
 # -Xptxas -v puts each kernel's registers, shared memory and spills in
 # the build log (build/kernels/<library>.log)

@@ -1,0 +1,235 @@
+"""Parity of the port's flash attention with the JAX package.
+
+The plain twins (`flash_attention_*_reference`, which the port's
+wrappers run for CPU tensors) against the reference's Pallas kernels in
+interpret mode on the same numpy inputs:
+
+- forward: out and lse against `_flash_fwd_impl(..., interpret=True)`;
+- backward: dq, dk and dv through the port's autograd function
+  (`flash_attention`, its `_FlashAttention`) against `jax.vjp` of
+  `flash_attention_arrays(..., interpret=True)`;
+
+causal and full, T 32 and 64, and Tq != Tk (both top-left causal, as
+the reference's kernel). Tolerance 2e-5 absolute in float32: both sides
+compute float32 softmax and products of O(1) values over at most 64
+keys, the Pallas kernel blockwise and online, the twin densely, so they
+differ only in summation order (a few ulps of sums of up to 64 terms).
+
+Also: `torch.autograd.gradcheck` of `_FlashAttention` in float64, the
+twins' routing (CPU tensors run the twin and count no launch), and
+that a non-CPU tensor never reaches a twin.
+
+The kernels themselves run only on a card:
+tests/test_torch_kernels_cuda.py holds them against the twins there.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.ops.pallas import flash_attention as ref_fa
+
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.ops import flash_attention as port_flash
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+ATOL = 2e-5
+B, H, D = 2, 2, 16
+# (Tq, Tk, causal)
+CASES = [(32, 32, True), (64, 64, True), (64, 64, False), (32, 64, False),
+         (32, 64, True)]
+
+
+def _inputs(tq, tk, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, tq, H, D).astype(np.float32)
+    k = rng.randn(B, tk, H, D).astype(np.float32)
+    v = rng.randn(B, tk, H, D).astype(np.float32)
+    do = rng.randn(B, tq, H, D).astype(np.float32)
+    return q, k, v, do
+
+
+def _fold(x):
+    """[B, T, H, D] -> [B*H, T, D], the reference kernels' layout."""
+    return jnp.asarray(np.swapaxes(x, 1, 2).reshape(B * H, x.shape[1], D))
+
+
+@pytest.mark.parametrize("tq,tk,causal", CASES)
+def test_forward_twin_matches_pallas(tq, tk, causal):
+    q, k, v, _ = _inputs(tq, tk)
+    scale = 1.0 / np.sqrt(D)
+    ref_out, ref_lse = ref_fa._flash_fwd_impl(
+        _fold(q), _fold(k), _fold(v), causal, scale, True)
+    out, lse = fa.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)),
+                                      causal=causal)
+    want = np.swapaxes(np.asarray(ref_out).reshape(B, H, tq, D), 1, 2)
+    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=ATOL)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, tq)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(ref_lse).reshape(B, H, tq),
+                               rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("tq,tk,causal", CASES)
+def test_backward_matches_pallas_vjp(tq, tk, causal):
+    q, k, v, do = _inputs(tq, tk, seed=1)
+    ref_out, vjp = jax.vjp(
+        lambda a, b, c: ref_fa.flash_attention_arrays(
+            a, b, c, causal=causal, interpret=True),
+        *map(jnp.asarray, (q, k, v)))
+    ref_grads = vjp(jnp.asarray(do))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = port_flash(*ts, causal=causal)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out),
+                               rtol=0, atol=ATOL)
+    for t, want in zip(ts, ref_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
+                                   rtol=0, atol=ATOL)
+
+
+def test_backward_twins_take_reference_residuals():
+    """dq/dk/dv twins fed the Pallas forward's own lse and delta."""
+    q, k, v, do = _inputs(64, 64, seed=2)
+    scale = 1.0 / np.sqrt(D)
+    ref_out, ref_lse = ref_fa._flash_fwd_impl(
+        _fold(q), _fold(k), _fold(v), True, scale, True)
+    out = np.swapaxes(np.asarray(ref_out).reshape(B, H, 64, D), 1, 2)
+    lse = torch.from_numpy(np.array(ref_lse).reshape(B, H, 64))
+    delta = torch.from_numpy((out * do).sum(-1).transpose(0, 2, 1).copy())
+    args = [torch.from_numpy(a) for a in (q, k, v, do)]
+    dq = fa.flash_attention_dq(*args, lse, delta, causal=True)
+    dk, dv = fa.flash_attention_dkv(*args, lse, delta, causal=True)
+    _, vjp = jax.vjp(lambda a, b, c: ref_fa.flash_attention_arrays(
+        a, b, c, causal=True, interpret=True), *map(jnp.asarray, (q, k, v)))
+    for got, want in zip((dq, dk, dv), vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_autograd_function_gradcheck_float64(causal):
+    rng = np.random.RandomState(3)
+    ts = [torch.from_numpy(rng.randn(1, n, 2, 4)).requires_grad_()
+          for n in (5, 7, 7)]
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: fa._FlashAttention.apply(a, b, c, causal, 0.5),
+        ts, eps=1e-6, atol=1e-5)
+
+
+def test_unbind_views_of_fused_qkv_get_their_gradients():
+    """q, k, v as strided views of one [B, T, 3, H, D] tensor (GPT's
+    fused projection): their grads land in the right slots."""
+    rng = np.random.RandomState(4)
+    qkv = torch.from_numpy(rng.randn(B, 32, 3, H, D).astype(np.float32))
+    qkv.requires_grad_()
+    do = torch.from_numpy(rng.randn(B, 32, H, D).astype(np.float32))
+    port_flash(*qkv.unbind(dim=2), causal=True).backward(do)
+    parts = [t.detach().clone().requires_grad_()
+             for t in qkv.detach().unbind(dim=2)]
+    port_flash(*parts, causal=True).backward(do)
+    want = torch.stack([p.grad for p in parts], dim=2)
+    torch.testing.assert_close(qkv.grad, want, rtol=0, atol=0)
+
+
+def test_sdpa_routes_to_flash_without_mask_or_dropout(monkeypatch):
+    q, k, v, _ = _inputs(32, 32, seed=5)
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    calls = []
+    real = fa.flash_attention_fwd
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_fwd", spy)
+    out = F.scaled_dot_product_attention(*args, is_causal=True)
+    assert calls == [1]
+    want = F.attention._sdpa_reference(*args, is_causal=True)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=ATOL)
+    mask = torch.ones(32, 32, dtype=torch.bool).tril()
+    F.scaled_dot_product_attention(*args, attn_mask=mask)
+    F.scaled_dot_product_attention(*args, dropout_p=0.1)
+    assert calls == [1]  # the mask and dropout calls take the composition
+
+
+def test_sdpa_composition_matches_reference_bottom_right_causal():
+    from paddle_tpu.nn.functional.attention import _sdpa_reference as ref
+    q, k, v, _ = _inputs(16, 32, seed=6)
+    got = F.attention._sdpa_reference(
+        *map(torch.from_numpy, (q, k, v)), is_causal=True)
+    want = ref(*map(jnp.asarray, (q, k, v)), is_causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+
+
+def test_cpu_wrappers_run_twins_and_count_no_launch():
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(32, 64, seed=7))
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+    want, want_lse = fa.flash_attention_fwd_reference(q, k, v, False)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    delta = (out * do).sum(-1).transpose(1, 2)
+    assert torch.equal(fa.flash_attention_dq(q, k, v, do, lse, delta),
+                       fa.flash_attention_dq_reference(q, k, v, do, lse,
+                                                       delta))
+    for g, w in zip(fa.flash_attention_dkv(q, k, v, do, lse, delta),
+                    fa.flash_attention_dkv_reference(q, k, v, do, lse,
+                                                     delta)):
+        assert torch.equal(g, w)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == before
+
+
+def test_twin_bfloat16_keeps_dtype():
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(32, 32, seed=8))
+    out, lse = fa.flash_attention_fwd(q.bfloat16(), k.bfloat16(),
+                                      v.bfloat16(), causal=True)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    want, _ = fa.flash_attention_fwd_reference(
+        q.bfloat16().float(), k.bfloat16().float(), v.bfloat16().float(),
+        True)
+    # inputs rounded identically on both sides; out rounds once (2^-8)
+    np.testing.assert_allclose(out.float().numpy(), want.numpy(), rtol=0,
+                               atol=1e-2)
+
+
+# -- no silent fallback -------------------------------------------------
+
+def test_non_cpu_tensors_never_reach_the_twins(monkeypatch):
+    """A tensor off the CPU (here `meta`, standing in for CUDA on a
+    machine without a card) must go to a kernel or raise, never to a
+    twin."""
+    def boom(*a, **kw):
+        raise AssertionError("twin reached for a non-CPU tensor")
+
+    for name in ("flash_attention_fwd_reference",
+                 "flash_attention_dq_reference",
+                 "flash_attention_dkv_reference"):
+        monkeypatch.setattr(fa, name, boom)
+    q, k, v, do = (torch.from_numpy(a).to("meta")
+                   for a in _inputs(32, 32))
+    lse = torch.empty(B, H, 32, device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        fa.flash_attention_fwd(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="cuda"):
+        fa.flash_attention_dq(q, k, v, do, lse, lse)
+    with pytest.raises(ValueError, match="cuda"):
+        fa.flash_attention_dkv(q, k, v, do, lse, lse)
+
+
+def test_wrappers_check_shapes_and_dtypes():
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(32, 64))
+    with pytest.raises(TypeError, match="share"):
+        fa.flash_attention_fwd(q, k.double(), v)
+    with pytest.raises(ValueError, match="fit"):
+        fa.flash_attention_fwd(q, k[:, :, :1], v)
+    with pytest.raises(ValueError, match="expected"):
+        fa.flash_attention_dq(q, k, v, do, torch.zeros(B, H, 31),
+                              torch.zeros(B, H, 32))
+    with pytest.raises(ValueError, match="Tq > 0"):
+        fa.flash_attention_fwd(q[:, :0], k, v)
