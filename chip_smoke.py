@@ -40,20 +40,42 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    (scaled_dot_product_attention forward, or its backward) and the
    bound;
 7. GPT-medium at full width in bfloat16 (the phase-4 weights) trained by
-   TrainStep(fused_update=False, monitor_health=True) with
+   TrainStep(monitor_health=True), with no fused_update argument, with
    AdamW(lr=1e-4, multi_precision=True) on bench.py's batch (8 x 1024,
    ids from RandomState(0), labels = ids): 3 warm-up, 10 timed and 1
-   profiled step. Losses and health vectors finite, found_inf 0, the
-   loss falling, each flash kernel launched steps x 24 times and the
-   serving kernel never; ms/step, tokens/s, MFU, peak memory and where
-   the device time goes;
+   profiled step. This main path must take the fused epilogue (kernels
+   #9-#10, one launch of each per step) and launch each flash kernel
+   steps x 24 times. Then the same 14 steps with fused_update=False
+   from the same weights (the tree epilogue). For each run: losses and
+   health vectors finite, found_inf 0, the loss falling; ms/step,
+   tokens/s, MFU, peak memory, device ms, idle share, the epilogue's
+   device ms and the CUDA kernel launches of the profiled step;
 8. GPT-medium width with 2 layers in float32, 3 train steps (batch
    2 x 256) on the card (kernels) and on the CPU (twins) from the same
-   weights: losses and health vectors agree to rtol 1e-3;
-9. the kernels line, then, last, {"ok": true, "device": {...}}.
+   weights, on each epilogue: losses and health vectors agree to rtol
+   1e-3;
+9. the fused epilogue's kernels against their twins on the card at
+   GPT-medium's layout (16 buckets, 354,871,296 parameters), bf16 with
+   f32 masters, AdamW, stats on: with a live GradScaler (pass 1 writes
+   the unscaled grads), with found_inf = 1 (every buffer must keep its
+   input bit for bit), without a scaler (the main path's passes, timed
+   with their twins, their byte bounds and a library yardstick:
+   torch._foreach_norm for pass 1, torch._fused_adamw_ over the f32
+   master buckets for pass 2), with ClipGradByGlobalNorm, with
+   ClipGradByValue, under Momentum-Nesterov and SGD, and on an f32
+   model without masters; then a small ragged layout with a
+   need_clip=False, a decay=False and an lr_scale=0.5 leaf and buckets
+   that are not a multiple of the chunk. Written buffers must equal the
+   twin's bit for bit; sums agree to 1e-4 relative;
+10. 2-layer float32 steps with a GradScaler on the card, on each
+   epilogue, with one batch whose loss is not finite: params and
+   moments stay bit-equal, the scale halves, the next good step
+   updates;
+11. the kernels line, then, last, {"ok": true, "device": {...}}.
 
-Each main path (serving in phase 4, training in phase 7) runs with the
-launch counts set to 0 just before it and read just after.
+Each main path (serving in phase 4, training in phase 7's first run)
+runs with the launch counts set to 0 just before it and read just
+after.
 Times are CUDA-event times with the 50 MB L2 flushed before each
 launch, as the serving loop finds it cold (each layer has its own
 pools). Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM,
@@ -409,7 +431,9 @@ def device_us_by_name(prof):
     from torch.autograd import DeviceType
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # the epilogue's record_function range also shows on the device
+        # as an annotation spanning its kernels: not a kernel
+        if e.device_type == DeviceType.CUDA and e.name != EPILOGUE:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
     return by_name
@@ -499,6 +523,7 @@ FLASH_KERNELS = (
 # order; bfloat16 adds one output rounding (2^-8) on each side
 FLASH_REL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-2}
 TRAIN = dict(batch=8, seq=1024, lr=1e-4, warmup=3, timed=10)
+EPILOGUE = "TrainStep.epilogue"  # TrainStep's record_function range
 AGREE = dict(layers=2, batch=2, seq=256, steps=3, rtol=1e-3)
 
 
@@ -637,28 +662,63 @@ def phase_flash(torch, fa, flush):
     return main
 
 
-def lm_loss(F):
+def lm_loss(F, poison=None):
+    """Cross-entropy of logits [B, T, V] against labels [B, T]. With
+    `poison` (a 0-dim tensor) the logits are multiplied by it first: a
+    poison of inf makes the loss and every grad non-finite."""
     def loss_fn(logits, labels):
         V = logits.shape[-1]
+        if poison is not None:
+            logits = logits * poison
         return F.cross_entropy(logits.reshape(-1, V), labels.reshape(-1))
     return loss_fn
+
+
+FUSED_KERNELS = (
+    ("fused_pass1", "paddle_tpu/ops/pallas/fused_update.py:502"),
+    ("fused_pass2", "paddle_tpu/ops/pallas/fused_update.py:525"),
+)
 
 
 def count_flash(fa):
     return {name: getattr(fa, name).launches for name, _ in FLASH_KERNELS}
 
 
-def zero_counts(fa, pa):
+def counts(km):
+    """Every kernel wrapper's launch count."""
+    fa, pa, fk = km
+    out = count_flash(fa)
+    out.update({name: getattr(fk, name).launches
+                for name, _ in FUSED_KERNELS})
+    out["ragged_paged_attention"] = pa.ragged_paged_attention.launches
+    return out
+
+
+def zero_counts(km):
+    fa, pa, fk = km
     for name, _ in FLASH_KERNELS:
         getattr(fa, name).launches = 0
+    for name, _ in FUSED_KERNELS:
+        getattr(fk, name).launches = 0
     pa.ragged_paged_attention.launches = 0
 
 
-def phase_train(torch, fa, pa, tmods, state):
+def n_groups(step):
+    """Launch groups of a fused TrainStep's epilogue (one launch of each
+    pass per group a step)."""
+    return len(step._fused.bucket_set(step._grad_store, step._params_store,
+                                      step._opt_store).groups)
+
+
+def train_run(torch, km, tmods, state, fused):
     """GPT-medium at full width in bf16, AdamW(lr=1e-4, multi_precision)
-    with f32 masters, TrainStep(fused_update=False, monitor_health=True)
-    on bench.py's batch (ids from RandomState(0), labels = ids): 3
-    warm-up steps, 10 timed, 1 profiled. Returns the flash launches."""
+    with f32 masters, TrainStep(monitor_health=True) on bench.py's batch
+    (ids from RandomState(0), labels = ids): 3 warm-up steps, 10 timed,
+    1 profiled. fused=True passes no fused_update argument (the default
+    path, which must be the fused epilogue); fused=False passes
+    fused_update=False. The launch counts are set to 0 just before the
+    run. Returns the run's measurements."""
+    from torch.autograd import DeviceType
     from paddle_tpu_torch.jit.api import HEALTH_KEYS
     GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
     cfg = gpt_medium()
@@ -670,14 +730,19 @@ def phase_train(torch, fa, pa, tmods, state):
         0, cfg.vocab_size, size=(B, T)).astype(np.int32)).to(model.device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    label = "fused (default)" if fused else "tree (fused_update=False)"
 
-    # the main path, counted
-    zero_counts(fa, pa)
+    zero_counts(km)
     step = TrainStep(model, lm_loss(F),
                      AdamW(learning_rate=TRAIN["lr"],
                            parameters=model.parameters(),
                            multi_precision=True),
-                     monitor_health=True, fused_update=False)
+                     monitor_health=True,
+                     **({} if fused else {"fused_update": False}))
+    check((step._fused is not None) == fused,
+          f"{label}: TrainStep took the {'fused' if step._fused else 'tree'}"
+          " epilogue")
+    groups = n_groups(step) if fused else 0
     losses = []
 
     def run(n):
@@ -697,77 +762,132 @@ def phase_train(torch, fa, pa, tmods, state):
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         run(1)
         torch.cuda.synchronize()
-    launches = count_flash(fa)
-    paged = pa.ragged_paged_attention.launches
+    launches = counts(km)
     n_steps = TRAIN["warmup"] + TRAIN["timed"] + 1
     health = step.flush_health()
     vals = torch.stack(losses).tolist()
     hv = np.array([[h[k] for k in HEALTH_KEYS] for h in step.health_log])
-    check(len(hv) == n_steps, f"{len(hv)} health vectors for {n_steps} "
-                              "steps")
+    check(len(hv) == n_steps, f"{label}: {len(hv)} health vectors for "
+                              f"{n_steps} steps")
     check(np.isfinite(vals).all() and np.isfinite(hv).all(),
-          f"non-finite loss or health: {vals} / {hv}")
-    check((hv[:, 4] == 0).all(), f"found_inf set: {hv[:, 4]}")
+          f"{label}: non-finite loss or health: {vals} / {hv}")
+    check((hv[:, 4] == 0).all(), f"{label}: found_inf set: {hv[:, 4]}")
     first, last = vals[0], vals[TRAIN["warmup"] + TRAIN["timed"] - 1]
-    check(last < first, f"loss did not fall: {first} -> {last}")
-    for name, n in launches.items():
-        check(n == n_steps * cfg.num_layers,
-              f"{name}: {n} launches, want {n_steps} steps x "
-              f"{cfg.num_layers}")
-    check(paged == 0, f"the serving kernel ran {paged} times in training")
+    check(last < first, f"{label}: loss did not fall: {first} -> {last}")
+    for name, _ in FLASH_KERNELS:
+        check(launches[name] == n_steps * cfg.num_layers,
+              f"{label}: {name}: {launches[name]} launches, want "
+              f"{n_steps} steps x {cfg.num_layers}")
+    for name, _ in FUSED_KERNELS:
+        check(launches[name] == n_steps * groups,
+              f"{label}: {name}: {launches[name]} launches, want "
+              f"{n_steps} steps x {groups} groups")
+    check(launches["ragged_paged_attention"] == 0,
+          f"{label}: the serving kernel ran in training")
     check(all(p.dtype == torch.bfloat16 for p in step.params.values()),
-          "a parameter left bfloat16")
+          f"{label}: a parameter left bfloat16")
     tokens = B * T
     flop = 6 * n_params * tokens + 6 * cfg.num_layers * B * T * T \
         * cfg.hidden_size
-    print(f"  {n_params} parameters; {n_steps} steps, loss {first:.4f} -> "
-          f"{last:.4f} (last health {health})")
-    print(f"  {step_s * 1e3:.1f} ms/step over {TRAIN['timed']} steps "
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ops = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and e.name != EPILOGUE]
+    n_kernels = sum(1 for e in ops
+                    if not e.name.startswith(("Memcpy", "Memset")))
+    epi_us, epi_how = epilogue_us(prof, ops)
+    res = dict(label=label, ms=step_s * 1e3, tokens_s=tokens / step_s,
+               mfu=flop / step_s / 989e12, peak_gib=peak,
+               kernels=n_kernels, device_ops=len(ops),
+               epilogue_ms=epi_us / 1e3 if epi_us else None,
+               launches=launches, groups=groups, first=first, last=last)
+    print(f"  {label}: {n_params} parameters; {n_steps} steps, loss "
+          f"{first:.4f} -> {last:.4f} (last health {health})")
+    print(f"  {label}: {res['ms']:.1f} ms/step over {TRAIN['timed']} steps "
           f"(warm-up {warm_s:.1f}s for {TRAIN['warmup']}), "
-          f"{tokens / step_s:.0f} tokens/s, MFU {flop / step_s / 989e12:.4f}"
-          f" ({flop:.4g} FLOP/step over 989 TFLOP/s); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"  launches per kernel: {launches} ({n_steps} steps x "
-          f"{cfg.num_layers})")
-    train_time_goes(prof, step_s)
+          f"{res['tokens_s']:.0f} tokens/s, MFU {res['mfu']:.4f} "
+          f"({flop:.4g} FLOP/step over 989 TFLOP/s); peak memory "
+          f"{peak:.2f} GiB")
+    print(f"  {label}: launches per kernel {launches} ({n_steps} steps x "
+          f"{cfg.num_layers} layers; fused passes x {groups} groups)")
+    print(f"  {label}: profiled step: {n_kernels} CUDA kernel launches "
+          f"({len(ops)} device operations with copies and memsets); "
+          f"epilogue device time "
+          + (f"{res['epilogue_ms']:.2f}ms ({epi_how})" if epi_us
+             else "not measured"))
+    res["device_ms"], res["idle"] = train_time_goes(prof, step_s)
     del step, model
     torch.cuda.empty_cache()
-    return launches
+    return res
+
+
+def epilogue_us(prof, ops):
+    """(device microseconds of the kernels that ran inside TrainStep's
+    epilogue range, how it was found). The range's device-side
+    annotation spans its kernels, whether torch ops launched them or the
+    port's ctypes wrappers did; without one, the CPU range's
+    device_time_total counts the kernels of the torch ops inside it."""
+    from torch.autograd import DeviceType
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.name == EPILOGUE and e.device_type == DeviceType.CUDA]
+    if spans:
+        return sum(e.time_range.elapsed_us() for e in ops
+                   if any(a <= e.time_range.start < b for a, b in spans)), \
+            "device operations inside the range's device-side span"
+    return sum(getattr(e, "device_time_total", 0) for e in prof.events()
+               if e.name == EPILOGUE and e.device_type == DeviceType.CPU), \
+        "torch ops inside the CPU range; ctypes launches not linked"
 
 
 def train_time_goes(prof, wall_s):
     """Device time of the profiled step by kernel: the flash kernels,
-    cuBLAS products, the rest; idle share against the timed steps' wall
-    time."""
+    the fused epilogue, cuBLAS products, the rest; idle share against
+    the timed steps' wall time. Returns (device ms, idle share) or
+    (None, None)."""
     by_name = device_us_by_name(prof)
     total = sum(by_name.values()) / 1e3
     if not total:
         print("  device time per step: not measured (the profiler saw no "
               "device events)")
-        return
-    flash = {k: sum(v for n, v in by_name.items() if k in n) / 1e3
-             for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+        return None, None
+    parts = {k: sum(v for n, v in by_name.items() if k in n) / 1e3
+             for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_pass",
+                       "fused_finalize")}
     gemm = sum(v for n, v in by_name.items()
                if any(s in n.lower() for s in ("gemm", "xmma", "cutlass",
                                                 "nvjet", "sm90"))) / 1e3
     wall = wall_s * 1e3
+    idle = max(0.0, 1 - total / wall)
     print(f"  per step: wall {wall:.2f}ms (timed steps), device kernels "
-          f"{total:.2f}ms (profiled step), idle share "
-          f"{max(0.0, 1 - total / wall):.3f}")
-    print("  flash " + ", ".join(f"{k} {v:.2f}ms ({v / total:.3f})"
-                                 for k, v in flash.items())
+          f"{total:.2f}ms (profiled step), idle share {idle:.3f}")
+    print("  " + ", ".join(f"{k} {v:.2f}ms ({v / total:.3f})"
+                           for k, v in parts.items())
           + f"; cuBLAS products {gemm:.2f}ms ({gemm / total:.3f}); other "
-          f"{total - gemm - sum(flash.values()):.2f}ms")
+          f"{total - gemm - sum(parts.values()):.2f}ms")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us / 1e3:8.3f}ms  {name[:90]}")
+    return total, idle
 
 
-def phase_train_agreement(torch, fa, tmods, state):
+def phase_train(torch, km, tmods, state):
+    """The main path (the default, fused epilogue), then the tree path
+    from the same weights. Returns both runs' measurements."""
+    main = train_run(torch, km, tmods, state, fused=True)
+    tree = train_run(torch, km, tmods, state, fused=False)
+    for key in ("ms", "tokens_s", "mfu", "device_ms", "idle", "peak_gib",
+                "epilogue_ms", "kernels"):
+        a, b = main[key], tree[key]
+        print(f"  {key:12s} fused {a if a is None else round(a, 4)}  "
+              f"tree {b if b is None else round(b, 4)}")
+    return main, tree
+
+
+def phase_train_agreement(torch, km, tmods, state):
     """GPT-medium width, 2 layers, float32, batch 2 x 256, 3 AdamW steps
     from the same weights, on the card (kernels) and on the CPU (plain
-    twins). TF32 is off, so the card's float32 products are float32.
-    Losses and health vectors agree to rtol 1e-3 (float32 sums in other
-    orders, amplified where Adam divides small moments)."""
+    twins), on each epilogue. TF32 is off, so the card's float32
+    products are float32. Losses and health vectors agree to rtol 1e-3
+    (float32 sums in other orders, amplified where Adam divides small
+    moments)."""
     from paddle_tpu_torch.jit.api import HEALTH_KEYS
     GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -778,38 +898,347 @@ def phase_train_agreement(torch, fa, tmods, state):
     ids = np.random.RandomState(1).randint(
         0, cfg.vocab_size, size=(AGREE["batch"], AGREE["seq"]))
     print("  TF32 off: the card's float32 products run in float32")
-    runs = {}
-    for device in ("cuda", "cpu"):
-        model = GPTForCausalLM(cfg, device=device)
+    for fused in (True, False):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            model = GPTForCausalLM(cfg, device=device)
+            load_state(model, small)
+            step = TrainStep(model, lm_loss(F),
+                             AdamW(learning_rate=TRAIN["lr"],
+                                   parameters=model.parameters()),
+                             monitor_health=True, fused_update=fused)
+            x = torch.from_numpy(ids).to(model.device)
+            before = counts(km)
+            for _ in range(AGREE["steps"]):
+                step(x, x)
+            step.flush_health()
+            after = counts(km)
+            hv = [[h[k] for k in HEALTH_KEYS] for h in step.health_log]
+            on_card = device == "cuda"
+            want = {name: AGREE["steps"] * cfg.num_layers * on_card
+                    for name, _ in FLASH_KERNELS}
+            groups = n_groups(step) if fused else 0
+            want.update({name: AGREE["steps"] * groups * on_card
+                         for name, _ in FUSED_KERNELS})
+            got = {n: after[n] - before[n] for n in want}
+            check(got == want, f"{device}, fused={fused}: launches {got}, "
+                               f"want {want}")
+            runs[device] = (np.stack(hv), {k: p.float().cpu() for k, p
+                                           in step.params.items()})
+        (gh, gp), (ch, cp) = runs["cuda"], runs["cpu"]
+        rel = np.abs(gh - ch) / np.maximum(np.abs(ch), 1e-6)
+        name = "fused" if fused else "tree"
+        print(f"  {name}: losses card {gh[:, 0].tolist()} cpu "
+              f"{ch[:, 0].tolist()}")
+        print(f"  {name}: health [loss, grad_norm, param_norm, "
+              f"update_ratio, found_inf] largest relative difference "
+              f"{rel.max():.3g} (limit {AGREE['rtol']})")
+        dmax = max((gp[k] - cp[k]).abs().max().item() for k in gp)
+        print(f"  {name}: largest parameter difference after "
+              f"{AGREE['steps']} steps: {dmax:.3g}")
+        check(np.allclose(gh, ch, rtol=AGREE["rtol"], atol=1e-6),
+              f"{name}: card and CPU training disagree: {gh} vs {ch}")
+
+
+# -- the fused epilogue's kernels against their twins -----------------------
+
+# f32 sums of up to 3.5e8 positive terms in two orders: the kernel adds
+# runs of ~1.3e3 terms a thread, so its rounding error is at most about
+# 1.3e3 * 2^-24 ~ 8e-5 relative; the twin's pairwise sums add less
+FUSED_SUM_RTOL = 1e-4
+FUSED_LR = 1e-4
+
+
+def fused_stores(torch, fu, named, dtype, master, opt, meta=None,
+                 chunk=None, inf=False):
+    """(epilogue, [grads, params, opt store]) on the card for the leaves
+    `named` [(name, shape)] in `dtype`: params ~ N(0, 0.02), grads ~
+    N(0, 1e-3), m ~ N(0, 1e-3), v = (N(0, 1e-3))^2, masters the f32
+    params (the bf16 params their rounding), drawn from a seeded
+    generator on the card. inf puts one inf into the first grad bucket."""
+    layout = fu.BucketLayout([(k, s, dtype) for k, s in named], chunk=chunk,
+                             meta=meta)
+    epi = fu.FusedEpilogue(layout, opt.fused_spec())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def draw(n, std):
+        return torch.randn(n, generator=gen, device="cuda") * std
+
+    p32 = {key: draw(b.total, 0.02) for key, b in layout.buckets.items()}
+    params = {key: t.to(dtype) for key, t in p32.items()}
+    masters = {key: t for key, t in p32.items()} \
+        if master and dtype != torch.float32 else {}
+    moments = tuple({key: draw(b.total, 1e-3) ** (j + 1)
+                     for key, b in layout.buckets.items()}
+                    for j in range(epi.spec["n_moments"]))
+    grads = {key: draw(b.total, 1e-3).to(dtype)
+             for key, b in layout.buckets.items()}
+    if inf:
+        first = next(iter(grads))
+        grads[first][12345 % grads[first].numel()] = float("inf")
+    return epi, [grads, params, {"moments": moments, "masters": masters}]
+
+
+def clone_stores(stores):
+    grads, params, opt = stores
+    c = lambda d: {k: v.clone() for k, v in d.items()}  # noqa: E731
+    return [c(grads), c(params), {"moments": tuple(c(m) for m in
+                                                   opt["moments"]),
+                                  "masters": c(opt["masters"])}]
+
+
+def store_buffers(stores, grads=True):
+    """[(label, tensor)] of every buffer the passes write."""
+    g, params, opt = stores
+    out = [("grad " + k, v) for k, v in g.items()] if grads else []
+    out += [("param " + k, v) for k, v in params.items()]
+    for j, m in enumerate(opt["moments"]):
+        out += [(f"moment{j} " + k, v) for k, v in m.items()]
+    return out + [("master " + k, v) for k, v in opt["masters"].items()]
+
+
+def pass_args(epi, clip, scaled, out1):
+    lr_t = epi._rate(FUSED_LR, 3)
+    return dict(spec=epi.spec, lr=FUSED_LR, lr_t=lr_t,
+                clip_norm=1.0 if clip == "global" else None,
+                clip_value=(-1e-3, 1e-3) if clip == "value" else None,
+                sumsq=out1[0], found=out1[1] if scaled else None,
+                with_stats=True)
+
+
+def hold_fused(torch, fk, label, epi, stores, scaled=False, clip=None,
+               skip=False):
+    """Both passes by the kernels on `stores` and by the twins on a copy;
+    pass 2 on both sides takes the kernel's pass-1 sums, so both clip
+    and skip alike. Written buffers must be bit-equal, sums within
+    FUSED_SUM_RTOL; with skip (an inf grad under a live scaler), params,
+    moments and masters must keep their inputs bit for bit. Returns
+    (largest |kernel - twin| over written buffers, largest sum relative
+    difference)."""
+    twin = clone_stores(stores)
+    first = clone_stores(stores) if skip else None
+    scale = torch.tensor(2.0 ** 15, device="cuda") if scaled else None
+    bs, bt = epi.bucket_set(*stores), epi.bucket_set(*twin)
+    out1 = fk.fused_pass1(bs, scale=scale)
+    ref1 = fk.fused_pass1_reference(bt, scale=scale)
+    kw = pass_args(epi, clip, scaled, out1)
+    out2 = fk.fused_pass2(bs, **kw)
+    ref2 = fk.fused_pass2_reference(bt, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for (name, got), (_, want) in zip(store_buffers(stores),
+                                      store_buffers(twin)):
+        check(torch.equal(got, want), f"{label}: {name} differs from the "
+                                      "twin")
+        err = max(err, (got.float() - want.float()).abs().max().item())
+    check(float(out1[1]) == float(ref1[1]) == float(skip),
+          f"{label}: found {float(out1[1])} / twin {float(ref1[1])}")
+    sums = torch.stack([out1[0], out2[0], out2[1]])
+    want = torch.stack([ref1[0], ref2[0], ref2[1]])
+    # equal sums (an inf sumsq under found_inf included) differ by 0
+    rel = torch.where(sums == want, torch.zeros_like(sums), (
+        sums - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+    check(rel <= FUSED_SUM_RTOL, f"{label}: sums {sums.tolist()} vs twin "
+                                 f"{want.tolist()} (rel {rel})")
+    if skip:
+        for (name, got), (_, was) in zip(store_buffers(stores, False),
+                                         store_buffers(first, False)):
+            check(torch.equal(got, was), f"{label}: {name} changed under "
+                                         "found_inf")
+    print(f"  {label:44s} found {float(out1[1]):.0f}  sumsq "
+          f"{float(out1[0]):.6g}  param_sumsq {float(out2[0]):.6g}  "
+          f"update_sumsq {float(out2[1]):.6g}  bit-equal  sums rel "
+          f"{rel:.2g}", flush=True)
+    del twin, first
+    return err, rel
+
+
+def time_fused(torch, fk, epi, stores, flush):
+    """The main path's passes (no scaler, no clip, stats on) on the
+    GPT-medium layout: kernel, twin and library times and byte bounds.
+    Returns {kernel name: measurements}."""
+    twin = clone_stores(stores)
+    bs, bt = epi.bucket_set(*stores), epi.bucket_set(*twin)
+    grads, params, opt = stores
+    lr_t = epi._rate(FUSED_LR, 3)
+    p2 = dict(spec=epi.spec, lr=FUSED_LR, lr_t=lr_t, with_stats=True)
+    g_bytes = sum(t.numel() * t.element_size() for t in grads.values())
+    n = sum(t.numel() for t in params.values())
+    p2_bytes = n * (3 * params[next(iter(params))].element_size()
+                    + 2 * 4 * (epi.spec["n_moments"]
+                               + bool(opt["masters"])))
+    model_bytes = epi.bytes_per_step(False, True, set(opt["masters"]))
+    check(model_bytes == g_bytes + p2_bytes,
+          f"bytes_per_step {model_bytes} != pass 1 {g_bytes} + pass 2 "
+          f"{p2_bytes}")
+    lib_g = list(grads.values())
+    one = torch.ones((), device="cuda")
+    ms1 = cuda_ms(torch, lambda: fk.fused_pass1(bs), 20, flush)
+    ms1u = cuda_ms(torch, lambda: fk.fused_pass1(bs, scale=one), 20, flush)
+    plain1 = cuda_ms(torch, lambda: fk.fused_pass1_reference(bt), 3, flush)
+    lib1 = cuda_ms(torch, lambda: torch._foreach_norm(lib_g), 20, flush)
+    ms2 = cuda_ms(torch, lambda: fk.fused_pass2(bs, **p2), 20, flush)
+    plain2 = cuda_ms(torch, lambda: fk.fused_pass2_reference(bt, **p2), 3,
+                     flush)
+    # the yardstick updates the twin's f32 masters from f32 copies of its
+    # grads (a tensor list per bucket), as a master-weight AdamW would
+    _, tp, topt = twin
+    keys = list(topt["masters"]) or list(tp)
+    ws = [topt["masters"][k] if topt["masters"] else tp[k] for k in keys]
+    gs = [twin[0][k].float() for k in keys]
+    ms_, vs = ([topt["moments"][j][k] for k in keys] for j in (0, 1))
+    steps = [torch.zeros((), device="cuda") for _ in keys]
+    lib2 = cuda_ms(torch, lambda: torch._fused_adamw_(
+        ws, gs, ms_, vs, [], steps, lr=FUSED_LR, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False), 20,
+        flush)
+    b1 = g_bytes / HBM_BYTES_PER_S * 1e3
+    b2 = p2_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  pass 1 (#9): kernel {ms1:.4f}ms (with write_u {ms1u:.4f}ms, "
+          f"bound {2 * b1:.4f}) plain {plain1:.4f}ms "
+          f"library torch._foreach_norm {lib1:.4f}ms bound {b1:.4f}ms "
+          f"(bytes: {g_bytes / 1e9:.3f} GB of grads) bound/kernel "
+          f"{b1 / ms1:.3f}")
+    print(f"  pass 2 (#10): kernel {ms2:.4f}ms plain {plain2:.4f}ms "
+          f"library torch._fused_adamw_ (f32 masters) {lib2:.4f}ms bound "
+          f"{b2:.4f}ms (bytes: {p2_bytes / 1e9:.3f} GB, "
+          f"{p2_bytes / n:.0f} B/param) bound/kernel {b2 / ms2:.3f}; "
+          f"bytes_per_step {model_bytes / 1e9:.3f} GB = pass 1 + pass 2")
+    del twin, gs
+    return {"fused_pass1": dict(ms=ms1, plain_ms=plain1, library_ms=lib1,
+                                bound_ms=b1, bound_by="bytes"),
+            "fused_pass2": dict(ms=ms2, plain_ms=plain2, library_ms=lib2,
+                                bound_ms=b2, bound_by="bytes")}
+
+
+def phase_fused(torch, fk, fu, omods, tmods, flush):
+    """Kernels #9 and #10 against their twins: GPT-medium's layout in
+    every configuration the ported epilogue takes, then a small ragged
+    layout with mixed metadata. Returns the kernels line's fields."""
+    GPTForCausalLM, gpt_medium = tmods[0], tmods[1]
+    SGD, Momentum, AdamW = omods
+    model = GPTForCausalLM(gpt_medium(), dtype=torch.bfloat16)
+    named = [(k, tuple(p.shape)) for k, p in model.named_parameters()]
+    del model
+    torch.cuda.empty_cache()
+    adamw = AdamW(learning_rate=FUSED_LR, multi_precision=True)
+    bf16 = torch.bfloat16
+    lay = fu.BucketLayout([(k, s, bf16) for k, s in named])
+    n = sum(b.total for b in lay.buckets.values())
+    print(f"  GPT-medium layout: {len(lay.buckets)} buckets, {n} "
+          f"parameters")
+    check(len(lay.buckets) == 16 and n == 354_871_296,
+          f"layout {len(lay.buckets)} buckets / {n} parameters")
+    cases = [
+        ("AdamW bf16+masters, GradScaler (write_u)", bf16, True, adamw,
+         dict(scaled=True)),
+        ("AdamW bf16+masters, found_inf = 1", bf16, True, adamw,
+         dict(scaled=True, skip=True)),
+        ("AdamW bf16+masters, ClipGradByGlobalNorm", bf16, True, adamw,
+         dict(clip="global")),
+        ("AdamW bf16+masters, ClipGradByValue", bf16, True, adamw,
+         dict(clip="value")),
+        ("Momentum-Nesterov bf16+masters", bf16, True,
+         Momentum(FUSED_LR, momentum=0.9, use_nesterov=True,
+                  multi_precision=True), {}),
+        ("SGD bf16+masters", bf16, True,
+         SGD(FUSED_LR, multi_precision=True), {}),
+        ("AdamW float32, no masters", torch.float32, False, adamw, {}),
+    ]
+    worst, worst_rel = 0.0, 0.0
+    epi, stores = fused_stores(torch, fu, named, bf16, True, adamw)
+    e, r = hold_fused(torch, fk, "AdamW bf16+masters, no scaler (main path)",
+                      epi, stores)
+    worst, worst_rel = max(worst, e), max(worst_rel, r)
+    times = time_fused(torch, fk, epi, stores, flush)
+    del epi, stores
+    for label, dtype, master, opt, kw in cases:
+        epi, stores = fused_stores(torch, fu, named, dtype, master, opt,
+                                   inf=kw.get("skip", False))
+        e, r = hold_fused(torch, fk, label, epi, stores, **kw)
+        worst, worst_rel = max(worst, e), max(worst_rel, r)
+        del epi, stores
+        torch.cuda.empty_cache()
+    ragged = [("h.0.w", (33, 7)), ("h.1.w", (33, 7)), ("b", (130,)),
+              ("nc", (5, 9)), ("nd", (17,)), ("ls", (300,))]
+    meta = {"nc": {"need_clip": False}, "nd": {"decay": False},
+            "ls": {"lr_scale": 0.5}}
+    for dtype, master in ((bf16, True), (torch.float32, False)):
+        epi, stores = fused_stores(torch, fu, ragged, dtype, master, adamw,
+                                   meta=meta, chunk=128)
+        check(any(b.total % 128 for b in epi.layout.buckets.values()),
+              "the ragged layout has no partial chunk")
+        e, r = hold_fused(torch, fk, f"ragged layout {str(dtype)[6:]}, "
+                          f"scaler + global clip", epi, stores, scaled=True,
+                          clip="global")
+        worst, worst_rel = max(worst, e), max(worst_rel, r)
+    print(f"  every case bit-equal to its twin; largest sum relative "
+          f"difference {worst_rel:.3g} (limit {FUSED_SUM_RTOL})")
+    for name in times:
+        times[name]["max_abs_err"] = worst
+    return times
+
+
+def phase_scaler(torch, km, tmods, state):
+    """2-layer float32 steps with GradScaler(init 2^10, halve after one
+    bad step) on each epilogue: a good step, a step whose loss is not
+    finite (the logits times inf), a good step."""
+    from paddle_tpu_torch.amp import GradScaler
+    GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
+    cfg = gpt_medium()
+    cfg.num_layers = 2
+    small = first_layers(state, cfg.num_layers)
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, size=(2, 256))).cuda()
+
+    def state_of(step):
+        out = [p.clone() for p in step.params.values()]
+        for leaf in step.opt_state.values():
+            out += [t.clone() for t in (leaf["state"] if isinstance(
+                leaf, dict) else leaf)]
+        return out
+
+    for fused in (True, False):
+        name = "fused" if fused else "tree"
+        model = GPTForCausalLM(cfg)
         load_state(model, small)
-        step = TrainStep(model, lm_loss(F),
+        poison = torch.ones((), device="cuda")
+        scaler = GradScaler(init_loss_scaling=2.0 ** 10,
+                            decr_every_n_nan_or_inf=1)
+        step = TrainStep(model, lm_loss(F, poison),
                          AdamW(learning_rate=TRAIN["lr"],
                                parameters=model.parameters()),
-                         monitor_health=True, fused_update=False)
-        x = torch.from_numpy(ids).to(model.device)
-        before = count_flash(fa)
-        for _ in range(AGREE["steps"]):
-            step(x, x)
+                         scaler=scaler, monitor_health=True,
+                         fused_update=fused)
+        check((step._fused is not None) == fused, f"{name}: wrong path")
+        step(ids, ids)
+        before = state_of(step)
+        scale0 = float(step.scaler_state["scale"])
+        poison.fill_(float("inf"))
+        bad = step(ids, ids)
+        poison.fill_(1.0)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(state_of(step), before)),
+              f"{name}: the non-finite step changed params or moments")
+        check(float(step.scaler_state["scale"]) == scale0 / 2,
+              f"{name}: scale {float(step.scaler_state['scale'])}, want "
+              f"{scale0 / 2}")
+        good = step(ids, ids)
+        after = state_of(step)
+        check(not all(torch.equal(a, b) for a, b in zip(after, before)),
+              f"{name}: the good step after the bad one updated nothing")
         step.flush_health()
-        after = count_flash(fa)
-        hv = [[h[k] for k in HEALTH_KEYS] for h in step.health_log]
-        want = AGREE["steps"] * cfg.num_layers if device == "cuda" else 0
-        check(all(after[n] - before[n] == want for n in after),
-              f"{device}: flash launches {after} (before {before}), want "
-              f"+{want}")
-        runs[device] = (np.stack(hv), {k: p.float().cpu() for k, p
-                                       in step.params.items()})
-    (gh, gp), (ch, cp) = runs["cuda"], runs["cpu"]
-    rel = np.abs(gh - ch) / np.maximum(np.abs(ch), 1e-6)
-    print(f"  losses card {gh[:, 0].tolist()} cpu {ch[:, 0].tolist()}")
-    print(f"  health [loss, grad_norm, param_norm, update_ratio, found_inf]"
-          f" largest relative difference {rel.max():.3g} (limit "
-          f"{AGREE['rtol']})")
-    dmax = max((gp[k] - cp[k]).abs().max().item() for k in gp)
-    print(f"  largest parameter difference after {AGREE['steps']} steps: "
-          f"{dmax:.3g}")
-    check(np.allclose(gh, ch, rtol=AGREE["rtol"], atol=1e-6),
-          f"card and CPU training disagree: {gh} vs {ch}")
+        found = [h["found_inf"] for h in step.health_log]
+        check(found == [0.0, 1.0, 0.0], f"{name}: found_inf {found}")
+        check(np.isfinite(float(good)) and not np.isfinite(float(bad)),
+              f"{name}: losses {float(bad)}, {float(good)}")
+        step.sync_to_model()
+        check(scaler.get_loss_scaling() == scale0 / 2,
+              f"{name}: sync_to_model gave {scaler.get_loss_scaling()}")
+        print(f"  {name}: non-finite step skipped bit-exactly, scale "
+              f"{scale0:g} -> {scale0 / 2:g}, the next step updated; "
+              f"found_inf {found}")
+        del step, model
 
 
 def main():
@@ -825,14 +1254,17 @@ def main():
                                          load_paddle_tpu_state)
     from paddle_tpu_torch.models import gpt as gpt_mod
     from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import fused_update as fu
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_update as fk
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import SGD, AdamW, Momentum
     mods = (GenerationEngine, GPTForCausalLM, gpt_medium,
             load_paddle_tpu_state, gpt_mod)
     tmods = (GPTForCausalLM, gpt_medium, load_paddle_tpu_state, TrainStep,
              AdamW, F)
+    km = (fa, pa, fk)
     t_start = time.perf_counter()
     card = card_line()
     print(f"[1] card: {card}", flush=True)
@@ -852,11 +1284,12 @@ def main():
     phase_kernel(torch, pa, flush)
 
     print("[4] GPT-medium bf16 through GenerationEngine", flush=True)
-    zero_counts(fa, pa)
+    zero_counts(km)
     launches, held, prompts, state = phase_serve(torch, pa, flush, mods)
-    served_flash = count_flash(fa)
-    check(not any(served_flash.values()),
-          f"flash kernels ran while serving: {served_flash}")
+    served = {k: v for k, v in counts(km).items()
+              if k != "ragged_paged_attention"}
+    check(not any(served.values()),
+          f"training kernels ran while serving: {served}")
 
     print("[5] 2-layer float32: card vs CPU greedy streams", flush=True)
     phase_agreement(torch, pa, mods, prompts, state)
@@ -864,11 +1297,21 @@ def main():
     print("[6] flash attention: kernels vs plain twins", flush=True)
     flash_main = phase_flash(torch, fa, flush)
 
-    print("[7] GPT-medium bf16 through TrainStep", flush=True)
-    flash_launches = phase_train(torch, fa, pa, tmods, state)
+    print("[7] GPT-medium bf16 through TrainStep: the default (fused) "
+          "epilogue, then fused_update=False", flush=True)
+    train_main, _ = phase_train(torch, km, tmods, state)
 
-    print("[8] 2-layer float32 training: card vs CPU", flush=True)
-    phase_train_agreement(torch, fa, tmods, state)
+    print("[8] 2-layer float32 training: card vs CPU, each epilogue",
+          flush=True)
+    phase_train_agreement(torch, km, tmods, state)
+
+    print("[9] fused epilogue: kernels vs plain twins", flush=True)
+    fused_main = phase_fused(torch, fk, fu, (SGD, Momentum, AdamW), tmods,
+                             flush)
+
+    print("[10] GradScaler on the card: a non-finite step is skipped",
+          flush=True)
+    phase_scaler(torch, km, tmods, state)
 
     main_step = held["decode"]
     kernels = [{
@@ -884,21 +1327,26 @@ def main():
         "bound_by": main_step["bound_by"],
         "library_ms": main_step["library_ms"],
     }]
-    for name, replaces in FLASH_KERNELS:
-        m = flash_main[name]
+    for (name, replaces), source, meas in (
+            [(k, "paddle_tpu_torch/csrc/flash_attention.cu", flash_main)
+             for k in FLASH_KERNELS]
+            + [(k, "paddle_tpu_torch/csrc/fused_update.cu", fused_main)
+               for k in FUSED_KERNELS]):
+        m = meas[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-            "replaces": replaces, "launches": flash_launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": train_main["launches"][name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
-    print(f"[9] done in {time.perf_counter() - t_start:.1f}s; paged "
+    print(f"[11] done in {time.perf_counter() - t_start:.1f}s; paged "
           f"attention times are of the served decode step's layer-0 call, "
           f"flash times of the training shape [8, 1024, 16, 64] causal "
           f"bf16 (library: SDPA forward for the forward kernel, SDPA "
-          f"backward, dq/dk/dv together, for both backward kernels); "
-          f"card: {card}")
+          f"backward, dq/dk/dv together, for both backward kernels), "
+          f"fused epilogue times of the main path's passes on GPT-medium's "
+          f"layout (library: torch._foreach_norm over the grad buckets, "
+          f"torch._fused_adamw_ over the f32 master buckets); card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,10 +13,12 @@ with `nvcc` at first use (`ops/kernels/_build.py`); each has a plain
 PyTorch twin beside its wrapper, which the wrapper takes only for
 tensors on the CPU.
 
-The ported slice so far is GPT serving: `GenerationEngine` over
+The ported slices so far: GPT serving (`GenerationEngine` over
 `GPTForCausalLM.paged_ragged_step` and the ragged paged-attention
-kernel. Entry points run on CUDA unless the caller passes
-`device="cpu"` (see `device.py`).
+kernel) and GPT training (`jit.TrainStep` on the flash-attention
+kernels, with the fused multi-tensor optimizer epilogue by default and
+an optional `amp.GradScaler`). Entry points run on CUDA unless the
+caller passes `device="cpu"` (see `device.py`).
 """
 from .device import resolve_device
 from .framework import dtype

@@ -1,0 +1,175 @@
+"""Dynamic loss scaling.
+
+Counterpart: paddle_tpu/amp/__init__.py `GradScaler`. The host half
+(constructor, getters and setters, `scale`, `update`, `state_dict`) is
+the reference's. The device half is what the train step carries:
+`init_jit_state` makes {"scale": float32, "good_steps": int32,
+"bad_steps": int32} 0-dim tensors, and `jit_unscale_and_update` /
+`jit_update_scale_state` advance them with `torch.where` selects, so the
+found_inf skip and the scale adaptation cost no host sync.
+
+Not ported yet: `unscale_`, `step` and `minimize` need the eager
+`optimizer.step()` path (ROADMAP.md queue A, item 12) and raise;
+`auto_cast` and `decorate` are ROADMAP.md queue A, item 9.
+"""
+import torch
+
+__all__ = ["GradScaler"]
+
+_EAGER = ("GradScaler.{} needs the eager optimizer.step() path, which is "
+          "not ported yet (ROADMAP.md queue A, item 12); pass the scaler "
+          "to TrainStep instead")
+
+
+class GradScaler:
+    """Dynamic loss scaling. bf16 rarely overflows, so scaling is about
+    identity there; the fp16 semantics (found_inf skip, scale
+    adaptation) are whole."""
+
+    def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
+                 incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=1000,
+                 decr_every_n_nan_or_inf=2, use_dynamic_loss_scaling=True):
+        self._enable = enable
+        self._scale = float(init_loss_scaling)
+        self._incr_ratio = incr_ratio
+        self._decr_ratio = decr_ratio
+        self._incr_every = incr_every_n_steps
+        self._decr_every = decr_every_n_nan_or_inf
+        self._dynamic = use_dynamic_loss_scaling
+        self._good_steps = 0
+        self._bad_steps = 0
+        self._found_inf = False
+
+    def is_enable(self):
+        return self._enable
+
+    def scale(self, var):
+        if not self._enable:
+            return var
+        return var * self._scale
+
+    def unscale_(self, optimizer):
+        raise NotImplementedError(_EAGER.format("unscale_"))
+
+    def step(self, optimizer):
+        raise NotImplementedError(_EAGER.format("step"))
+
+    def minimize(self, optimizer, scaled_loss):
+        raise NotImplementedError(_EAGER.format("minimize"))
+
+    def update(self):
+        if not (self._enable and self._dynamic):
+            return
+        if self._found_inf:
+            self._bad_steps += 1
+            self._good_steps = 0
+            if self._bad_steps >= self._decr_every:
+                self._scale = max(self._scale * self._decr_ratio, 1.0)
+                self._bad_steps = 0
+        else:
+            self._good_steps += 1
+            self._bad_steps = 0
+            if self._good_steps >= self._incr_every:
+                self._scale *= self._incr_ratio
+                self._good_steps = 0
+
+    def get_loss_scaling(self):
+        return self._scale
+
+    def is_use_dynamic_loss_scaling(self):
+        return self._dynamic
+
+    def get_init_loss_scaling(self):
+        return self._scale
+
+    def set_init_loss_scaling(self, v):
+        self._scale = float(v)
+
+    def get_incr_ratio(self):
+        return self._incr_ratio
+
+    def set_incr_ratio(self, v):
+        if v <= 1.0:
+            raise ValueError("incr_ratio must be > 1")
+        self._incr_ratio = float(v)
+
+    def get_decr_ratio(self):
+        return self._decr_ratio
+
+    def set_decr_ratio(self, v):
+        if not 0.0 < v < 1.0:
+            raise ValueError("decr_ratio must be in (0, 1)")
+        self._decr_ratio = float(v)
+
+    def get_incr_every_n_steps(self):
+        return self._incr_every
+
+    def set_incr_every_n_steps(self, v):
+        self._incr_every = int(v)
+
+    def get_decr_every_n_nan_or_inf(self):
+        return self._decr_every
+
+    def set_decr_every_n_nan_or_inf(self, v):
+        self._decr_every = int(v)
+
+    def state_dict(self):
+        return {"scale": self._scale, "good_steps": self._good_steps,
+                "bad_steps": self._bad_steps}
+
+    def load_state_dict(self, sd):
+        self._scale = sd["scale"]
+        self._good_steps = sd["good_steps"]
+        self._bad_steps = sd["bad_steps"]
+
+    # -- device state for the train step ---------------------------------
+    def init_jit_state(self, device=None):
+        """{"scale", "good_steps", "bad_steps"} as 0-dim float32 / int32
+        / int32 tensors on `device` (the train step passes its
+        parameters' device; None is the CPU)."""
+        return {"scale": torch.tensor(self._scale, dtype=torch.float32,
+                                      device=device),
+                "good_steps": torch.tensor(self._good_steps,
+                                           dtype=torch.int32, device=device),
+                "bad_steps": torch.tensor(self._bad_steps, dtype=torch.int32,
+                                          device=device)}
+
+    def jit_unscale_and_update(self, state, grads):
+        """Unscale `grads` ({name: tensor}) by state["scale"], detect
+        non-finite raw grads and advance the state. Returns (unscaled
+        grads, found_inf bool tensor, new state). Out of place, as the
+        reference; the train step passes found_inf to the optimizer so
+        that an overflowing step updates nothing."""
+        if not self._enable:
+            return grads, torch.zeros((), dtype=torch.bool,
+                                      device=state["scale"].device), state
+        inv = 1.0 / state["scale"]
+        found = torch.zeros((), dtype=torch.bool, device=inv.device)
+        for g in grads.values():
+            found = found | ~torch.isfinite(g.float()).all()
+        grads = {k: (g.float() * inv).to(g.dtype) for k, g in grads.items()}
+        return grads, found, self.jit_update_scale_state(state, found)
+
+    def jit_update_scale_state(self, state, found):
+        """Advance the dynamic-scaling state for a `found` bool tensor;
+        the half the fused epilogue reuses (its pass 1 already swept the
+        grads). Returns a new state dict."""
+        if not self._enable or not self._dynamic:
+            return state
+        good = torch.where(found, 0, state["good_steps"] + 1)
+        bad = torch.where(found, state["bad_steps"] + 1, 0)
+        incr = good >= self._incr_every
+        decr = bad >= self._decr_every
+        scale = torch.where(
+            decr, torch.clamp_min(state["scale"] * self._decr_ratio, 1.0),
+            torch.where(incr, state["scale"] * self._incr_ratio,
+                        state["scale"]))
+        return {"scale": scale,
+                "good_steps": torch.where(incr, 0, good).to(torch.int32),
+                "bad_steps": torch.where(decr, 0, bad).to(torch.int32)}
+
+    def sync_from_jit_state(self, state):
+        """Pull the device state back into this scaler (a host sync)."""
+        self._scale = float(state["scale"])
+        self._good_steps = int(state["good_steps"])
+        self._bad_steps = int(state["bad_steps"])

@@ -1,30 +1,65 @@
 """The train step.
 
-Counterpart: paddle_tpu/jit/api.py `TrainStep` on its tree epilogue
-(`fused_update=False`) and its training-health vector
+Counterpart: paddle_tpu/jit/api.py `TrainStep` with its two epilogues,
+`epilogue_leaf_meta`, and the training-health vector
 (`HealthMonitorMixin._health_vec` / `_tree_health_aux`). One call runs
-one optimizer step: zero the grads, forward in training mode,
-`loss_fn(logits, labels)`, backward, then the epilogue: the global grad
-norm (once, when the health vector or a `ClipGradByGlobalNorm` needs
-it), the clip, and the optimizer's in-place tree update.
+one optimizer step: forward in training mode, `loss_fn(logits,
+labels)` (times the GradScaler's scale when one is live), backward, then
+the epilogue:
+
+- fused (the default, as on the reference): the two passes of the fused
+  multi-tensor epilogue over dtype-bucketed flat buffers
+  (ops/fused_update.py; kernels #9-#10 on CUDA). The flat buckets are
+  the parameters' storage and the grads accumulate into flat grad
+  buckets, which the step zeroes once per step;
+- tree (`fused_update=False`, PADDLE_TPU_FUSED_UPDATE=0, or a config
+  without a fused mapping): the GradScaler's unscale, the global grad
+  norm (once, when the health vector or a `ClipGradByGlobalNorm` needs
+  it), the clip, and the optimizer's in-place per-leaf update.
 
 The reference compiles the step with XLA and donates params and
 optimizer state; PyTorch runs it eagerly and the update is written in
-place into the model's parameters. Its `DeferredLoss` is not needed:
-CUDA launches are already asynchronous, so the returned loss is a
-0-dim device tensor and reading it is the only wait.
+place. Its `DeferredLoss` is not needed: CUDA launches are already
+asynchronous, so the returned loss is a 0-dim device tensor and reading
+it is the only wait.
 """
 import collections
+import os
 
 import torch
 
-from ..nn.clip import (ClipGradByGlobalNorm, _sumsq, clip_grads_tree,
-                       global_grad_norm)
+from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByValue, _sumsq,
+                       clip_grads_tree, global_grad_norm)
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "epilogue_leaf_meta"]
 
 HEALTH_KEYS = ("loss", "grad_norm", "param_norm", "update_ratio",
                "found_inf")
+
+
+def epilogue_leaf_meta(named, optimizer):
+    """Per-leaf epilogue metadata of {name: Parameter}: need_clip (the
+    `need_clip` attribute), lr_scale (the `optimize_attr` dict's
+    "learning_rate"), decay (the optimizer's apply_decay_param_fun).
+    Returns (meta, need_clip, decay_mask, lr_scale); the last three are
+    {name: value} or None when trivial. Both epilogues take the same
+    tables."""
+    meta = {}
+    for k, p in named.items():
+        attr = getattr(p, "optimize_attr", None)
+        meta[k] = {
+            "need_clip": bool(getattr(p, "need_clip", True)),
+            "lr_scale": float(attr.get("learning_rate", 1.0)) if attr
+            else 1.0,
+            "decay": bool(optimizer._decay_applies_name(k)),
+        }
+    nc = {k: m["need_clip"] for k, m in meta.items()}
+    dm = {k: m["decay"] for k, m in meta.items()}
+    ls = {k: m["lr_scale"] for k, m in meta.items()}
+    return (meta,
+            None if all(nc.values()) else nc,
+            None if all(dm.values()) else dm,
+            None if all(v == 1.0 for v in ls.values()) else ls)
 
 
 class TrainStep:
@@ -32,113 +67,261 @@ class TrainStep:
     labels).
 
     The last batch element is the labels; the others go to the model.
-    `params` and `opt_state` are per-leaf views keyed by state_dict name.
+    `params` and `opt_state` are per-leaf views keyed by state_dict name
+    on both epilogues; `set_tree_state` loads them back.
+
+    scaler: a GradScaler whose dynamic loss scaling runs inside the
+    step: the scaled loss, the unscale, the found_inf skip of the whole
+    update and the scale adaptation, on device tensors
+    (`scaler_state`), with no host sync. `sync_to_model()` copies the
+    state back into the scaler.
 
     monitor_health=True: each step also builds the float32 vector
     [loss, grad_norm, param_norm, update_ratio, found_inf] on the device
-    (param_norm over the new working params, update_ratio the norm of
-    their change over param_norm, found_inf from the grad norm's
-    finiteness); `flush_health()` reads the pending vectors into
-    `health_log` (one dict a step, the port's stand-in for the
-    reference's per-step `kind:"health"` metrics records) and returns
-    the last.
+    (param_norm over the new params, update_ratio the norm of their
+    change over param_norm, found_inf from the scaler's flag, else the
+    epilogue's non-finite sweep, else the norm's finiteness);
+    `flush_health()` reads the pending vectors into `health_log` (one
+    dict a step) and returns the last.
 
-    fused_update: the reference's default (None, or PADDLE_TPU_FUSED_UPDATE
-    unset) is its fused epilogue, kernels #9-#10 with BucketLayout; they
-    are not ported yet (ROADMAP.md queue B, slice 2b), so None runs the
-    tree epilogue here and True raises. scaler (GradScaler) is not
-    ported yet either (ROADMAP.md queue A, item 9) and must be None."""
+    fused_update: True / False choose the epilogue; None (the default)
+    reads PADDLE_TPU_FUSED_UPDATE (fused unless "0"). An optimizer
+    without a fused mapping (fused_spec() None, e.g. under stochastic
+    rounding), a clip other than ClipGradByGlobalNorm / ClipGradByValue,
+    or a non-float parameter takes the tree path, as on the reference.
+    On CUDA the fused path runs the kernels or raises."""
 
     def __init__(self, model, loss_fn, optimizer, scaler=None,
                  monitor_health=False, fused_update=None):
-        if fused_update:
-            raise NotImplementedError(
-                "fused_update=True needs the fused epilogue kernels #9-#10 "
-                "(ops/pallas/fused_update.py), not ported yet: ROADMAP.md "
-                "queue B, slice 2b; use fused_update=False or None")
-        if scaler is not None:
-            raise NotImplementedError(
-                "GradScaler is not ported yet (ROADMAP.md queue A, item "
-                "9); pass scaler=None")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.scaler = scaler
         self._named = {k: p for k, p in model.named_parameters()
                        if p.requires_grad}
-        need_clip = {k: bool(getattr(p, "need_clip", True))
-                     for k, p in self._named.items()}
-        decay = {k: optimizer._decay_applies_name(k) for k in self._named}
-        self._need_clip = None if all(need_clip.values()) else need_clip
-        self._decay_mask = None if all(decay.values()) else decay
-        self._opt_store = optimizer.init_tree_state(self.params)
+        (self._leaf_meta, self._need_clip, self._decay_mask,
+         self._lr_scale) = epilogue_leaf_meta(self._named, optimizer)
+        self._fused = self._build_fused(fused_update)
+        if self._fused is not None:
+            lay = self._fused.layout
+            self._params_store, self._opt_store = self._fused.init_stores(
+                self.params, optimizer._multi_precision)
+            lay.bind_params(self._named, self._params_store)
+            self._grad_store = {
+                key: torch.zeros(lay.bucket_shape(key), dtype=b.dtype,
+                                 device=self._params_store[key].device)
+                for key, b in lay.buckets.items()}
+            lay.bind_grads(self._named, self._grad_store)
+        else:
+            self._params_store = self._grad_store = None
+            self._opt_store = optimizer.init_tree_state(self.params)
+        device = next(iter(self._named.values())).device \
+            if self._named else None
+        self.scaler_state = scaler.init_jit_state(device) \
+            if scaler is not None else {}
         self._step_i = 0
         self.monitor_health = bool(monitor_health)
         self._health_pending = collections.deque()
         self.health_log = []
         self.last_health = None
 
+    def _build_fused(self, fused_update):
+        """The FusedEpilogue for this (optimizer, clip, params) config,
+        or None for the tree path."""
+        if fused_update is None:
+            fused_update = os.environ.get("PADDLE_TPU_FUSED_UPDATE",
+                                          "1") != "0"
+        if not fused_update or not self._named:
+            return None
+        spec = self.optimizer.fused_spec()
+        if spec is None:
+            return None
+        clip = self.optimizer._grad_clip
+        if clip is not None and not isinstance(
+                clip, (ClipGradByGlobalNorm, ClipGradByValue)):
+            return None
+        if not all(p.dtype.is_floating_point for p in self._named.values()):
+            return None
+        from ..ops.fused_update import BucketLayout, FusedEpilogue
+        layout = BucketLayout(
+            [(k, tuple(p.shape), p.dtype) for k, p in self._named.items()],
+            meta=self._leaf_meta)
+        return FusedEpilogue(layout, spec)
+
     @property
     def params(self):
-        """{state_dict name: parameter tensor} (detached views of the
-        model's own parameters, which the step updates in place)."""
+        """{state_dict name: parameter tensor}: detached views of the
+        model's own parameters, which the step updates in place (on the
+        fused path they are slices of the flat buckets)."""
         return {k: p.detach() for k, p in self._named.items()}
 
     @property
     def opt_state(self):
-        """{state_dict name: (m, v) | {"master", "state"}}."""
+        """{state_dict name: (moments...) | {"master", "state"}}: on the
+        fused path, views of the flat stores."""
+        if self._fused is not None:
+            return self._fused.state_view(self._opt_store)
         return self._opt_store
+
+    def set_tree_state(self, params=None, opt_state=None):
+        """Load per-leaf params ({name: tensor}) and optimizer state (the
+        `opt_state` layout) into the step, in place: the inverse of the
+        `params` / `opt_state` views on either epilogue."""
+        with torch.no_grad():
+            if params is not None:
+                own = self.params
+                for k, v in params.items():
+                    own[k].copy_(torch.as_tensor(v))
+            if opt_state is None:
+                return
+            if self._fused is not None:
+                new = self._fused.pack_opt_tree(opt_state)
+                for dst, src in zip(self._opt_store["moments"],
+                                    new["moments"]):
+                    for key in dst:
+                        dst[key].copy_(src[key])
+                if set(new["masters"]) != set(self._opt_store["masters"]):
+                    raise ValueError("opt_state has masters for other "
+                                     "buckets than the step keeps")
+                for key, t in new["masters"].items():
+                    self._opt_store["masters"][key].copy_(t)
+                return
+            for k, leaf in self._opt_store.items():
+                src = opt_state[k]
+                if isinstance(leaf, dict):
+                    leaf["master"].copy_(torch.as_tensor(src["master"]))
+                    dst_inner, src_inner = leaf["state"], src["state"]
+                else:
+                    dst_inner, src_inner = leaf, src
+                for d, s in zip(dst_inner, src_inner):
+                    d.copy_(torch.as_tensor(s))
+
+    def sync_to_model(self):
+        """The model already holds the step's params (updated in place);
+        copy the GradScaler's device state back into the scaler."""
+        if self.scaler is not None and self.scaler_state:
+            self.scaler.sync_from_jit_state(self.scaler_state)
+
+    def _scaling(self):
+        return self.scaler is not None and self.scaler.is_enable()
 
     def __call__(self, *batch):
         *inputs, labels = batch
         self._step_i += 1
         lr = self.optimizer.get_lr()
-        named = self._named
-        for p in named.values():
-            p.grad = None
+        if self._fused is not None:
+            lay = self._fused.layout
+            if lay.grads_in_buckets(self._named, self._grad_store):
+                # a .grad set to None (zero_grad) or elsewhere: point it
+                # back at its bucket slice before autograd writes
+                lay.bind_grads(self._named, self._grad_store)
+            for g in self._grad_store.values():
+                g.zero_()
+        else:
+            for p in self._named.values():
+                p.grad = None
         was_training = self.model.training
         self.model.train()
         try:
             loss = self.loss_fn(self.model(*inputs), labels)
         finally:
             self.model.train(was_training)
+        scaling = self._scaling()
+        if scaling:
+            loss = loss.float() * self.scaler_state["scale"]
         loss.backward()
-        with torch.no_grad():
-            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                     for k, p in named.items()}
-            for p in named.values():
-                p.grad = None
-            clip = self.optimizer._grad_clip
-            gn = None
-            if self.monitor_health or isinstance(clip, ClipGradByGlobalNorm):
-                gn = global_grad_norm(grads, self._need_clip)
-            grads = clip_grads_tree(grads, clip, need_clip=self._need_clip,
-                                    global_norm=gn)
-            params = self.params
-            old = {k: p.clone() for k, p in params.items()} \
-                if self.monitor_health else None
-            self.optimizer.apply_gradients_tree(
-                params, grads, self._opt_store, lr, self._step_i,
-                decay_mask=self._decay_mask)
+        with torch.no_grad(), torch.profiler.record_function(
+                "TrainStep.epilogue"):
+            loss = loss.detach()
+            if scaling:
+                loss = loss / self.scaler_state["scale"]
+            if self._fused is not None:
+                aux = self._finish_fused(lr)
+            else:
+                aux = self._finish_tree(lr)
             if self.monitor_health:
                 self._health_pending.append(
-                    (self._step_i,
-                     self._health_vec(loss.detach(), gn, grads, params,
-                                      old)))
-        return loss.detach()
+                    (self._step_i, self._health_vec(loss, aux)))
+        return loss
 
-    def _health_vec(self, loss, gn, grads, params, old):
-        nonfinite = ~torch.isfinite(gn)
-        if self._need_clip is not None:
-            # leaves kept out of the norm must still trip found_inf
-            for k, g in grads.items():
-                if not self._need_clip[k]:
-                    nonfinite = nonfinite | ~torch.isfinite(g.float()).all()
-        param_norm = _sumsq(params.values()).sqrt()
-        update = _sumsq(params[k].float() - old[k].float()
-                        for k in params).sqrt()
-        update_ratio = update / param_norm.clamp_min(1e-12)
-        return torch.stack([loss.float().reshape(()), gn, param_norm,
-                            update_ratio, nonfinite.float()])
+    def _finish_fused(self, lr):
+        lay = self._fused.layout
+        bad = lay.grads_in_buckets(self._named, self._grad_store)
+        if bad:
+            # autograd made a fresh .grad: the bucket would hold zeros
+            # and the update would use them
+            raise RuntimeError(
+                f"grads left their flat buckets during backward: {bad[:4]}"
+                "; use fused_update=False for this model")
+        _, _, self.scaler_state, aux = self._fused.finish(
+            self._grad_store, self._params_store, self._opt_store, lr,
+            self._step_i, scaler=self.scaler,
+            scaler_state=self.scaler_state,
+            clip=self.optimizer._grad_clip, with_stats=self.monitor_health)
+        return aux
+
+    def _finish_tree(self, lr):
+        named = self._named
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in named.items()}
+        for p in named.values():
+            p.grad = None
+        found_inf = None
+        if self._scaling():
+            grads, found_inf, self.scaler_state = \
+                self.scaler.jit_unscale_and_update(self.scaler_state, grads)
+        clip = self.optimizer._grad_clip
+        gn = None
+        if self.monitor_health or isinstance(clip, ClipGradByGlobalNorm):
+            gn = global_grad_norm(grads, self._need_clip)
+        grads = clip_grads_tree(grads, clip, need_clip=self._need_clip,
+                                global_norm=gn)
+        params = self.params
+        old = {k: p.clone() for k, p in params.items()} \
+            if self.monitor_health else None
+        self.optimizer.apply_gradients_tree(
+            params, grads, self._opt_store, lr, self._step_i,
+            found_inf=found_inf, decay_mask=self._decay_mask,
+            lr_scale=self._lr_scale)
+        aux = {"grad_norm": gn, "found_inf": found_inf}
+        if self.monitor_health:
+            self._tree_health_aux(aux, params, old)
+            nonfin = ~torch.isfinite(gn)
+            if self._need_clip is not None:
+                # leaves kept out of the norm must still trip found_inf
+                for k, g in grads.items():
+                    if not self._need_clip[k]:
+                        nonfin = nonfin | ~torch.isfinite(g.float()).all()
+            aux["nonfinite"] = nonfin
+        return aux
+
+    @staticmethod
+    def _tree_health_aux(aux, new_params, old):
+        """The health sums of a tree-layout update (the fused kernels
+        produce them as side outputs instead)."""
+        aux["param_sumsq"] = _sumsq(new_params.values())
+        aux["update_sumsq"] = _sumsq(new_params[k].float() - old[k].float()
+                                     for k in new_params)
+        return aux
+
+    @staticmethod
+    def _health_vec(loss, aux):
+        """[loss, grad_norm, param_norm, update_ratio, found_inf] as one
+        float32 device vector. found_inf prefers the GradScaler's flag,
+        then the epilogue's full non-finite sweep (it covers leaves a
+        need_clip mask keeps out of the norm), then the norm's
+        finiteness."""
+        grad_norm = aux["grad_norm"]
+        found = aux.get("found_inf")
+        if found is None:
+            found = aux.get("nonfinite")
+        found_inf = found.float() if found is not None \
+            else (~torch.isfinite(grad_norm)).float()
+        param_norm = aux["param_sumsq"].sqrt()
+        update_ratio = aux["update_sumsq"].sqrt() / param_norm.clamp_min(
+            1e-12)
+        return torch.stack([loss.float().reshape(()), grad_norm, param_norm,
+                            update_ratio, found_inf.reshape(())])
 
     def flush_health(self):
         """Read the pending health vectors (a device sync) and return the

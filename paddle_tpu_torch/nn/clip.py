@@ -30,7 +30,10 @@ class ClipGradByValue:
 
 
 def _factor(clip_norm, norm):
-    return torch.clamp(clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    # a true division: `float / tensor` would round 1/norm, then the
+    # product (torch's __rtruediv__ is reciprocal() * other)
+    return torch.clamp(torch.div(torch.full_like(norm, clip_norm),
+                                 torch.clamp(norm, min=1e-12)), max=1.0)
 
 
 class ClipGradByGlobalNorm:

@@ -30,7 +30,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 # library name -> source file under csrc/
 SOURCES = {"paged_attention": "paged_attention.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "fused_update": "fused_update.cu"}
 
 # -Xptxas -v puts each kernel's registers, shared memory and spills in
 # the build log (build/kernels/<library>.log)

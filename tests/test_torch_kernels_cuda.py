@@ -20,13 +20,26 @@ largest difference over the largest reference value: 1e-4 in float32
 (sums of up to 200 products in another order), 1e-2 in bfloat16 (both
 sides round the output to bf16 once, 2^-8, plus the float32
 differences). lse is float32 on both sides: 1e-4 absolute.
+
+The fused epilogue's passes (kernels #9, #10) against their twins on a
+small ragged layout (two scan-group leaves, buckets not a multiple of
+the 128-element chunk, one need_clip=False, one decay=False and one
+lr_scale=0.5 leaf), per optimizer kind and per dtype: every buffer the
+passes write must equal the twin's bit for bit (both round each
+operation once, the kernel by __fmul_rn / __fadd_rn and IEEE sqrt and
+division); the sums, taken in another order, to 1e-5 relative (float32
+sums of a few thousand positive terms). The found_inf skip leaves every
+buffer bit-equal to its input.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import fused_update as fu
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import fused_update as fk
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
+from paddle_tpu_torch.optimizer import SGD, Adam, AdamW, Momentum
 
 H, D, P = 16, 64, 16
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -142,3 +155,116 @@ def test_flash_attention_autograd_on_card_matches_cpu():
         fa.flash_attention(*x.unbind(dim=2), causal=True).backward(do.to(dev))
         grads.append(x.grad.cpu())
     assert _rel_err(grads[0], grads[1]) <= 1e-4
+
+
+FUSED_LEAVES = [("h.0.w", (33, 7)), ("h.1.w", (33, 7)), ("b", (130,)),
+                ("nc", (5, 9)), ("nd", (17,)), ("ls", (300,))]
+FUSED_META = {"nc": {"need_clip": False}, "nd": {"decay": False},
+              "ls": {"lr_scale": 0.5}}
+FUSED_OPTS = {"adamw": lambda: AdamW(0.01, weight_decay=0.1),
+              "adam": lambda: Adam(0.01),
+              "nesterov": lambda: Momentum(0.01, momentum=0.9,
+                                           use_nesterov=True),
+              "momentum": lambda: Momentum(0.01, momentum=0.9),
+              "sgd": lambda: SGD(0.01)}
+
+
+def _fused_case(kind, dtype, master, seed=0, inf=False):
+    """(epilogue, [grads, params, opt store]) on the card: a ragged
+    layout, random params, grads and moments from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    layout = fu.BucketLayout([(n, s, dtype) for n, s in FUSED_LEAVES],
+                             chunk=128, meta=FUSED_META)
+    epi = fu.FusedEpilogue(layout, FUSED_OPTS[kind]().fused_spec())
+    draw = lambda s, k: torch.from_numpy(  # noqa: E731
+        (rng.randn(*s) * k).astype(np.float32)).to(dev)
+    params = {n: draw(s, 1.0).to(dtype) for n, s in FUSED_LEAVES}
+    p_store, opt = epi.init_stores(params, master)
+    for j, m in enumerate(opt["moments"]):
+        for t in m.values():
+            t.copy_(draw(t.shape, 0.1).abs() if j else draw(t.shape, 0.1))
+    for t in opt["masters"].values():
+        t.add_(draw(t.shape, 1e-4))
+    grads = layout.pack({n: draw(s, 0.5).to(dtype)
+                         for n, s in FUSED_LEAVES})
+    if inf:
+        grads[next(iter(grads))][3] = float("inf")
+    return epi, [grads, p_store, opt]
+
+
+def _clone(stores):
+    grads, p_store, opt = stores
+    c = lambda d: {k: v.clone() for k, v in d.items()}  # noqa: E731
+    return [c(grads), c(p_store), {"moments": tuple(c(m) for m in
+                                                    opt["moments"]),
+                                   "masters": c(opt["masters"])}]
+
+
+def _buffers(stores):
+    grads, p_store, opt = stores
+    out = [("grad " + k, v) for k, v in grads.items()]
+    out += [("param " + k, v) for k, v in p_store.items()]
+    for j, m in enumerate(opt["moments"]):
+        out += [(f"moment{j} " + k, v) for k, v in m.items()]
+    return out + [("master " + k, v) for k, v in opt["masters"].items()]
+
+
+def _run_passes(epi, stores, kernel, scale, clip, with_stats, sums=None):
+    """Pass 1 (when a scaler or the norm needs it), then pass 2, by the
+    kernels or the twins; pass 2 takes `sums` (the kernel's pass-1
+    output) when given, so both sides clip and skip alike."""
+    bs = epi.bucket_set(*stores)
+    p1 = fk.fused_pass1 if kernel else fk.fused_pass1_reference
+    p2 = fk.fused_pass2 if kernel else fk.fused_pass2_reference
+    out1 = p1(bs, scale=scale)
+    use = out1 if sums is None else sums
+    lr_t = epi._rate(0.01, 3)
+    clip_norm = 0.5 if clip == "global" else None
+    out2 = p2(bs, epi.spec, 0.01, lr_t, clip_norm=clip_norm,
+              clip_value=(-0.3, 0.25) if clip == "value" else None,
+              sumsq=use[0], found=use[1] if scale is not None else None,
+              with_stats=with_stats)
+    torch.cuda.synchronize()
+    return out1, out2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,master", [(torch.float32, False),
+                                          (torch.bfloat16, True),
+                                          (torch.bfloat16, False)])
+@pytest.mark.parametrize("kind", list(FUSED_OPTS))
+@pytest.mark.parametrize("clip,scaled", [("global", True), ("value", False),
+                                         (None, False)])
+def test_fused_passes_match_twins_on_card(kind, dtype, master, clip, scaled):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    epi, stores = _fused_case(kind, dtype, master)
+    twin = _clone(stores)
+    scale = torch.tensor(64.0, device="cuda") if scaled else None
+    before = (fk.fused_pass1.launches, fk.fused_pass2.launches)
+    out1, out2 = _run_passes(epi, stores, True, scale, clip, True)
+    assert (fk.fused_pass1.launches, fk.fused_pass2.launches) \
+        == (before[0] + 1, before[1] + 1)  # one group, one launch a pass
+    ref1, ref2 = _run_passes(epi, twin, False, scale, clip, True, out1)
+    torch.testing.assert_close(out1, ref1, rtol=1e-5, atol=0)
+    assert float(out1[1]) == 0.0
+    torch.testing.assert_close(out2, ref2, rtol=1e-5, atol=0)
+    for (name, got), (_, want) in zip(_buffers(stores), _buffers(twin)):
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,master", [(torch.float32, False),
+                                          (torch.bfloat16, True)])
+def test_fused_found_inf_skip_is_bit_exact_on_card(dtype, master):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    epi, stores = _fused_case("adamw", dtype, master, inf=True)
+    first = _clone(stores)
+    scale = torch.tensor(64.0, device="cuda")
+    out1, _ = _run_passes(epi, stores, True, scale, "global", True)
+    assert float(out1[1]) == 1.0
+    for (name, got), (_, want) in zip(_buffers(stores)[len(stores[0]):],
+                                      _buffers(first)[len(first[0]):]):
+        assert torch.equal(got, want), name

@@ -27,9 +27,11 @@ orders (XLA's fused matmuls against ATen's):
 - losses and health 1e-4 relative: reductions over all parameters.
 
 Also: a bfloat16 model with multi_precision keeps bfloat16 params and
-float32 masters and moments; `fused_update=True`, a GradScaler and a
-truthy `scan_remat` raise; the new modules are among those the import
-hygiene tests walk.
+float32 masters and moments (on the default, fused epilogue); the
+GradScaler's eager half, a bfloat16 optimizer state and a truthy
+`scan_remat` raise; the new modules are among those the import hygiene
+tests walk. The fused epilogue's own parity tests are in
+tests/test_torch_fused_update.py.
 """
 import pkgutil
 
@@ -350,12 +352,19 @@ def test_dropout_draws_from_its_generator():
 
 
 def test_unported_options_raise():
+    from paddle_tpu_torch.amp import GradScaler
     model = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
     opt = AdamW(parameters=model.parameters())
-    with pytest.raises(NotImplementedError, match="#9-#10"):
+    # the fused epilogue and the in-step GradScaler are ported now; the
+    # scaler's eager half and a bf16 optimizer state are not
+    assert TrainStep(model, _loss, opt, fused_update=True)._fused is not None
+    for call in (lambda s: s.unscale_(opt), lambda s: s.step(opt),
+                 lambda s: s.minimize(opt, None)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call(GradScaler())
+    opt._state_dtype = torch.bfloat16
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainStep(model, _loss, opt, fused_update=True)
-    with pytest.raises(NotImplementedError, match="GradScaler"):
-        TrainStep(model, _loss, opt, scaler=object())
     for remat in (True, "names", "dots"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GPTForCausalLM(GPTConfig(scan_remat=remat, **CFG), device="cpu")
