@@ -24,9 +24,9 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    chunk 128): 8 greedy requests of 64 new tokens over prompts of
    64-640 tokens, two sharing a 128-token prefix (the second arrives
    after the first is done, so it hits the prefix cache). Every handle
-   must finish with 64 tokens and the kernel must have launched exactly
-   steps x 24 times. Then a replay of the same traffic records real
-   steps' layer-0 kernel inputs (a decode step and a mixed step) and
+   must finish with 64 tokens, the kernel must have launched exactly
+   steps x 24 times and no training kernel (#2-#10) at all. Then a
+   replay of the same traffic records real steps' layer-0 kernel inputs (a decode step and a mixed step) and
    the kernel is held against the twin on them;
 5. the same prompts at GPT-medium width with 2 layers in float32, once
    on the card (kernel) and once on the CPU (plain twin): greedy
@@ -44,16 +44,21 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    AdamW(lr=1e-4, multi_precision=True) on bench.py's batch (8 x 1024,
    ids from RandomState(0), labels = ids): 3 warm-up, 10 timed and 1
    profiled step. This main path must take the fused epilogue (kernels
-   #9-#10, one launch of each per step) and launch each flash kernel
-   steps x 24 times. Then the same 14 steps with fused_update=False
-   from the same weights (the tree epilogue). For each run: losses and
+   #9-#10, one launch of each per step), launch each flash kernel
+   steps x 24 times and none of #5-#8. Then the same 14 steps with
+   fused_update=False from the same weights (the tree epilogue), and
+   the same 14 on the default epilogue with PADDLE_TPU_PALLAS_LN=1 and
+   PADDLE_TPU_PALLAS_XENT=1 (this slice's main path: each LayerNorm
+   kernel must launch steps x 49 times, 24 blocks x 2 and the final
+   one, each softmax-xent kernel steps x 1, and its step-1 loss agree
+   with the default run's to 1e-3 relative). For each run: losses and
    health vectors finite, found_inf 0, the loss falling; ms/step,
    tokens/s, MFU, peak memory, device ms, idle share, the epilogue's
    device ms and the CUDA kernel launches of the profiled step;
 8. GPT-medium width with 2 layers in float32, 3 train steps (batch
    2 x 256) on the card (kernels) and on the CPU (twins) from the same
-   weights, on each epilogue: losses and health vectors agree to rtol
-   1e-3;
+   weights, on each epilogue and on the default one with both switches
+   set: losses and health vectors agree to rtol 1e-3;
 9. the fused epilogue's kernels against their twins on the card at
    GPT-medium's layout (16 buckets, 354,871,296 parameters), bf16 with
    f32 masters, AdamW, stats on: with a live GradScaler (pass 1 writes
@@ -71,16 +76,31 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    epilogue, with one batch whose loss is not finite: params and
    moments stay bit-equal, the scale halves, the next good step
    updates;
-11. the kernels line, then, last, {"ok": true, "device": {...}}.
+11. the LayerNorm kernels (#5 forward, #6 backward) and the softmax
+   cross-entropy kernels (#7 forward, #8 backward) against their plain
+   twins: LayerNorm at [8192, 1024] in bf16 (bf16 weight and bias, as
+   GPT's) and f32, [1000, 4096] (gpt_6p7b's width, a ragged row
+   count), [8192, 1000] and [257, 1001] (scalar loads); xent at
+   [8192, 50304] in bf16 and f32 with about 10 % of the labels -1 and
+   some >= V, and [1000, 50257] (a row that is not 16-byte aligned);
+   xent dx is held per element against |twin| (one bf16 ulp, or
+   1e-5 relative plus 1e-9 in f32), since most of it is far below 1.
+   At the training shapes (LayerNorm [8192, 1024] bf16, xent
+   [8192, 50304] bf16) each kernel's time, its twin's, one PyTorch
+   call's (torch.nn.functional.layer_norm forward and its backward;
+   torch.nn.functional.cross_entropy(reduction="none") forward and its
+   backward) and the byte bound;
+12. the kernels line, then, last, {"ok": true, "device": {...}}.
 
-Each main path (serving in phase 4, training in phase 7's first run)
-runs with the launch counts set to 0 just before it and read just
-after.
+Each main path (serving in phase 4, training in phase 7's first run for
+kernels #2-#4 and #9-#10, phase 7's third run for #5-#8) runs with the
+launch counts set to 0 just before it and read just after.
 Times are CUDA-event times with the 50 MB L2 flushed before each
 launch, as the serving loop finds it cold (each layer has its own
 pools). Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM,
 989 TFLOP/s bf16 (tensor cores), 67 TFLOP/s float32.
 """
+import contextlib
 import json
 import os
 import re
@@ -114,15 +134,30 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
+# a template argument of a mangled kernel name: bf16, f32, a repeat of an
+# earlier type (in these kernels always bf16) or an int (a head dim)
+_TEMPLATE_ARG = re.compile(r"13__nv_bfloat16|f|S\d*_|Li(\d+)E")
+
+
 def kernel_label(ptxas_line):
-    """'flash_dq_kernel<bf16>' from ptxas's line naming a mangled
-    kernel (template arguments: the dtype, and a head dim if any)."""
+    """'ln_bwd_kernel<bf16, f32>' or 'flash_dq_kernel<bf16, D=64>' from
+    ptxas's line naming a mangled kernel."""
     mangled = ptxas_line.split("'")[1]
-    name = re.search(r"\d+([a-z_]+_kernel)I", mangled)
-    dim = re.search(r"Li(\d+)E", mangled)
-    return (f"{name.group(1) if name else mangled[:60]}<"
-            f"{'bf16' if 'bfloat16' in mangled else 'f32'}"
-            f"{', D=' + dim.group(1) if dim else ''}>")
+    found = re.search(r"_kernel(?=[IE])", mangled)
+    if not found:
+        return mangled[:60]
+    end = found.end()
+    # the name is prefixed by its length in decimal
+    name = next((mangled[end - n:end] for n in range(len("_kernel"), 61)
+                 if mangled[:end - n].endswith(str(n))), mangled[:60])
+    if mangled[end] == "E":  # not a template
+        return name
+    args, at = [], end + 1
+    while (m := _TEMPLATE_ARG.match(mangled, at)):
+        args.append(f"D={m.group(1)}" if m.group(1)
+                    else "f32" if m.group(0) == "f" else "bf16")
+        at = m.end()
+    return f"{name}<{', '.join(args)}>"
 
 
 def cuda_ms(torch, fn, iters, flush):
@@ -680,27 +715,57 @@ FUSED_KERNELS = (
 )
 
 
-def count_flash(fa):
-    return {name: getattr(fa, name).launches for name, _ in FLASH_KERNELS}
+NORM_KERNELS = (
+    ("layer_norm_fwd", "paddle_tpu/ops/pallas/layer_norm.py:20"),
+    ("layer_norm_bwd", "paddle_tpu/ops/pallas/layer_norm.py:33"),
+)
+XENT_KERNELS = (
+    ("softmax_xent_fwd", "paddle_tpu/ops/pallas/softmax_xent.py:28"),
+    ("softmax_xent_bwd", "paddle_tpu/ops/pallas/softmax_xent.py:60"),
+)
+SWITCHES = ("PADDLE_TPU_PALLAS_LN", "PADDLE_TPU_PALLAS_XENT")
+
+
+@contextlib.contextmanager
+def switches(on):
+    """PADDLE_TPU_PALLAS_LN and PADDLE_TPU_PALLAS_XENT set to "1" (on)
+    or unset, restored on the way out."""
+    old = {k: os.environ.get(k) for k in SWITCHES}
+    try:
+        for k in SWITCHES:
+            if on:
+                os.environ[k] = "1"
+            else:
+                os.environ.pop(k, None)
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def wrappers(km):
+    """[(kernel name, its wrapper)] of every kernel but the paged one."""
+    fa, _, fk, lk, xk = km
+    return ([(n, getattr(fa, n)) for n, _ in FLASH_KERNELS]
+            + [(n, getattr(fk, n)) for n, _ in FUSED_KERNELS]
+            + [(n, getattr(lk, n)) for n, _ in NORM_KERNELS]
+            + [(n, getattr(xk, n)) for n, _ in XENT_KERNELS])
 
 
 def counts(km):
     """Every kernel wrapper's launch count."""
-    fa, pa, fk = km
-    out = count_flash(fa)
-    out.update({name: getattr(fk, name).launches
-                for name, _ in FUSED_KERNELS})
-    out["ragged_paged_attention"] = pa.ragged_paged_attention.launches
+    out = {name: fn.launches for name, fn in wrappers(km)}
+    out["ragged_paged_attention"] = km[1].ragged_paged_attention.launches
     return out
 
 
 def zero_counts(km):
-    fa, pa, fk = km
-    for name, _ in FLASH_KERNELS:
-        getattr(fa, name).launches = 0
-    for name, _ in FUSED_KERNELS:
-        getattr(fk, name).launches = 0
-    pa.ragged_paged_attention.launches = 0
+    for _, fn in wrappers(km):
+        fn.launches = 0
+    km[1].ragged_paged_attention.launches = 0
 
 
 def n_groups(step):
@@ -710,14 +775,21 @@ def n_groups(step):
                                       step._opt_store).groups)
 
 
-def train_run(torch, km, tmods, state, fused):
+def train_run(torch, km, tmods, state, fused, switched=False):
     """GPT-medium at full width in bf16, AdamW(lr=1e-4, multi_precision)
     with f32 masters, TrainStep(monitor_health=True) on bench.py's batch
     (ids from RandomState(0), labels = ids): 3 warm-up steps, 10 timed,
     1 profiled. fused=True passes no fused_update argument (the default
     path, which must be the fused epilogue); fused=False passes
-    fused_update=False. The launch counts are set to 0 just before the
-    run. Returns the run's measurements."""
+    fused_update=False. switched sets PADDLE_TPU_PALLAS_LN=1 and
+    PADDLE_TPU_PALLAS_XENT=1 for the run (the LayerNorm and xent
+    kernels), else both are unset. The launch counts are set to 0 just
+    before the run. Returns the run's measurements."""
+    with switches(switched):
+        return _train_run(torch, km, tmods, state, fused, switched)
+
+
+def _train_run(torch, km, tmods, state, fused, switched):
     from torch.autograd import DeviceType
     from paddle_tpu_torch.jit.api import HEALTH_KEYS
     GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
@@ -730,7 +802,8 @@ def train_run(torch, km, tmods, state, fused):
         0, cfg.vocab_size, size=(B, T)).astype(np.int32)).to(model.device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    label = "fused (default)" if fused else "tree (fused_update=False)"
+    label = ("fused + LN/xent kernels (switched)" if switched
+             else "fused (default)" if fused else "tree (fused_update=False)")
 
     zero_counts(km)
     step = TrainStep(model, lm_loss(F),
@@ -782,6 +855,14 @@ def train_run(torch, km, tmods, state, fused):
         check(launches[name] == n_steps * groups,
               f"{label}: {name}: {launches[name]} launches, want "
               f"{n_steps} steps x {groups} groups")
+    n_ln = 2 * cfg.num_layers + 1  # ln_1 and ln_2 of each block, ln_f
+    for names, per_step in ((NORM_KERNELS, n_ln), (XENT_KERNELS, 1)):
+        for name, _ in names:
+            want = n_steps * per_step * switched
+            check(launches[name] == want,
+                  f"{label}: {name}: {launches[name]} launches, want "
+                  f"{want} ({n_steps} steps x {per_step} x switched "
+                  f"{switched})")
     check(launches["ragged_paged_attention"] == 0,
           f"{label}: the serving kernel ran in training")
     check(all(p.dtype == torch.bfloat16 for p in step.params.values()),
@@ -808,13 +889,15 @@ def train_run(torch, km, tmods, state, fused):
           f"({flop:.4g} FLOP/step over 989 TFLOP/s); peak memory "
           f"{peak:.2f} GiB")
     print(f"  {label}: launches per kernel {launches} ({n_steps} steps x "
-          f"{cfg.num_layers} layers; fused passes x {groups} groups)")
+          f"{cfg.num_layers} layers; fused passes x {groups} groups; "
+          f"LayerNorm x {n_ln}, xent x 1 when switched)")
     print(f"  {label}: profiled step: {n_kernels} CUDA kernel launches "
           f"({len(ops)} device operations with copies and memsets); "
           f"epilogue device time "
           + (f"{res['epilogue_ms']:.2f}ms ({epi_how})" if epi_us
              else "not measured"))
-    res["device_ms"], res["idle"] = train_time_goes(prof, step_s)
+    res["device_ms"], res["idle"], res["other_ms"] = train_time_goes(
+        prof, step_s)
     del step, model
     torch.cuda.empty_cache()
     return res
@@ -840,18 +923,19 @@ def epilogue_us(prof, ops):
 
 def train_time_goes(prof, wall_s):
     """Device time of the profiled step by kernel: the flash kernels,
-    the fused epilogue, cuBLAS products, the rest; idle share against
-    the timed steps' wall time. Returns (device ms, idle share) or
-    (None, None)."""
+    the fused epilogue, the LayerNorm and xent kernels, cuBLAS products,
+    the rest; idle share against the timed steps' wall time. Returns
+    (device ms, idle share, ms of the rest) or (None, None, None)."""
     by_name = device_us_by_name(prof)
     total = sum(by_name.values()) / 1e3
     if not total:
         print("  device time per step: not measured (the profiler saw no "
               "device events)")
-        return None, None
+        return None, None, None
     parts = {k: sum(v for n, v in by_name.items() if k in n) / 1e3
              for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_pass",
-                       "fused_finalize")}
+                       "fused_finalize", "ln_fwd", "ln_bwd", "ln_finalize",
+                       "xent_fwd", "xent_bwd")}
     gemm = sum(v for n, v in by_name.items()
                if any(s in n.lower() for s in ("gemm", "xmma", "cutlass",
                                                 "nvjet", "sm90"))) / 1e3
@@ -859,35 +943,47 @@ def train_time_goes(prof, wall_s):
     idle = max(0.0, 1 - total / wall)
     print(f"  per step: wall {wall:.2f}ms (timed steps), device kernels "
           f"{total:.2f}ms (profiled step), idle share {idle:.3f}")
+    other = total - gemm - sum(parts.values())
     print("  " + ", ".join(f"{k} {v:.2f}ms ({v / total:.3f})"
                            for k, v in parts.items())
           + f"; cuBLAS products {gemm:.2f}ms ({gemm / total:.3f}); other "
-          f"{total - gemm - sum(parts.values()):.2f}ms")
+          f"{other:.2f}ms")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us / 1e3:8.3f}ms  {name[:90]}")
-    return total, idle
+    return total, idle, other
 
 
 def phase_train(torch, km, tmods, state):
-    """The main path (the default, fused epilogue), then the tree path
-    from the same weights. Returns both runs' measurements."""
+    """The main path of slice 2 (the default, fused epilogue), the tree
+    path, then this slice's main path (the default epilogue with the
+    LayerNorm and xent kernels switched on), from the same weights.
+    Returns the three runs' measurements."""
     main = train_run(torch, km, tmods, state, fused=True)
     tree = train_run(torch, km, tmods, state, fused=False)
+    ln_xent = train_run(torch, km, tmods, state, fused=True, switched=True)
+    rel = abs(ln_xent["first"] - main["first"]) / abs(main["first"])
+    print(f"  step-1 loss: switched {ln_xent['first']:.6f}, default "
+          f"{main['first']:.6f}, relative difference {rel:.3g} (limit "
+          f"1e-3)")
+    check(rel <= 1e-3, f"the switched run's step-1 loss differs from the "
+                       f"default run's by {rel}")
+    runs = {"fused": main, "tree": tree, "switched": ln_xent}
     for key in ("ms", "tokens_s", "mfu", "device_ms", "idle", "peak_gib",
-                "epilogue_ms", "kernels"):
-        a, b = main[key], tree[key]
-        print(f"  {key:12s} fused {a if a is None else round(a, 4)}  "
-              f"tree {b if b is None else round(b, 4)}")
-    return main, tree
+                "epilogue_ms", "kernels", "other_ms"):
+        print(f"  {key:12s} " + "  ".join(
+            f"{name} {r[key] if r[key] is None else round(r[key], 4)}"
+            for name, r in runs.items()))
+    return main, tree, ln_xent
 
 
 def phase_train_agreement(torch, km, tmods, state):
     """GPT-medium width, 2 layers, float32, batch 2 x 256, 3 AdamW steps
     from the same weights, on the card (kernels) and on the CPU (plain
-    twins), on each epilogue. TF32 is off, so the card's float32
-    products are float32. Losses and health vectors agree to rtol 1e-3
-    (float32 sums in other orders, amplified where Adam divides small
-    moments)."""
+    twins), on each epilogue and on the fused one with the LayerNorm and
+    xent switches set (512 x 50304 logits: the xent route applies). TF32
+    is off, so the card's float32 products are float32. Losses and
+    health vectors agree to rtol 1e-3 (float32 sums in other orders,
+    amplified where Adam divides small moments)."""
     from paddle_tpu_torch.jit.api import HEALTH_KEYS
     GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -898,7 +994,8 @@ def phase_train_agreement(torch, km, tmods, state):
     ids = np.random.RandomState(1).randint(
         0, cfg.vocab_size, size=(AGREE["batch"], AGREE["seq"]))
     print("  TF32 off: the card's float32 products run in float32")
-    for fused in (True, False):
+    n_ln = 2 * cfg.num_layers + 1
+    for fused, switched in ((True, False), (False, False), (True, True)):
         runs = {}
         for device in ("cuda", "cpu"):
             model = GPTForCausalLM(cfg, device=device)
@@ -909,8 +1006,9 @@ def phase_train_agreement(torch, km, tmods, state):
                              monitor_health=True, fused_update=fused)
             x = torch.from_numpy(ids).to(model.device)
             before = counts(km)
-            for _ in range(AGREE["steps"]):
-                step(x, x)
+            with switches(switched):
+                for _ in range(AGREE["steps"]):
+                    step(x, x)
             step.flush_health()
             after = counts(km)
             hv = [[h[k] for k in HEALTH_KEYS] for h in step.health_log]
@@ -920,14 +1018,19 @@ def phase_train_agreement(torch, km, tmods, state):
             groups = n_groups(step) if fused else 0
             want.update({name: AGREE["steps"] * groups * on_card
                          for name, _ in FUSED_KERNELS})
+            want.update({name: AGREE["steps"] * n_ln * on_card * switched
+                         for name, _ in NORM_KERNELS})
+            want.update({name: AGREE["steps"] * on_card * switched
+                         for name, _ in XENT_KERNELS})
             got = {n: after[n] - before[n] for n in want}
-            check(got == want, f"{device}, fused={fused}: launches {got}, "
-                               f"want {want}")
+            check(got == want, f"{device}, fused={fused}, switched="
+                               f"{switched}: launches {got}, want {want}")
             runs[device] = (np.stack(hv), {k: p.float().cpu() for k, p
                                            in step.params.items()})
         (gh, gp), (ch, cp) = runs["cuda"], runs["cpu"]
         rel = np.abs(gh - ch) / np.maximum(np.abs(ch), 1e-6)
-        name = "fused" if fused else "tree"
+        name = ("fused + LN/xent kernels" if switched
+                else "fused" if fused else "tree")
         print(f"  {name}: losses card {gh[:, 0].tolist()} cpu "
               f"{ch[:, 0].tolist()}")
         print(f"  {name}: health [loss, grad_norm, param_norm, "
@@ -1241,6 +1344,230 @@ def phase_scaler(torch, km, tmods, state):
         del step, model
 
 
+# -- LayerNorm (#5-#6) and softmax cross-entropy (#7-#8) against twins ------
+
+# operations an element, counted at the float32 peak (67 TFLOP/s): LN
+# forward sum, centred square, normalise and affine; backward xhat, w*dy,
+# the two row sums, the dw/db sums and dx; xent forward max, shift, exp,
+# sum; backward shift, exp, one-hot, scale. Bytes bound all four.
+NORM_XENT_OPS = {"layer_norm_fwd": 8, "layer_norm_bwd": 14,
+                 "softmax_xent_fwd": 4, "softmax_xent_bwd": 4}
+# (kernel pair, rows, columns, dtype, timed): the training shapes first
+NORM_XENT_CASES = [("ln", 8192, 1024, "bfloat16", True),
+                   ("ln", 8192, 1024, "float32", False),
+                   ("ln", 1000, 4096, "bfloat16", False),
+                   ("ln", 8192, 1000, "bfloat16", False),
+                   ("ln", 257, 1001, "float32", False),
+                   ("xent", 8192, 50304, "bfloat16", True),
+                   ("xent", 8192, 50304, "float32", False),
+                   ("xent", 1000, 50257, "bfloat16", False)]
+# mean, rstd, loss and lse: |kernel - twin| <= STAT_TOL * max(1, |twin|)
+STAT_TOL = 1e-5
+# dw, db in float32: largest |kernel - twin| over largest |twin|
+SUM_RTOL = 1e-4
+# xent dx, per element against |twin| with no max(1, .) floor (a softmax
+# entry over 50k columns is ~1e-6): one bf16 ulp in bfloat16, and in
+# float32 |kernel - twin| <= DX_RTOL * |twin| + DX_ATOL
+DX_RTOL, DX_ATOL = 1e-5, 1e-9
+
+
+def within(got, want, tol):
+    """Largest |got - want| if it is <= tol * max(1, |want|) everywhere,
+    else None."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    ok = bool((diff <= tol * want.abs().clamp_min(1.0)).all())
+    return diff.max().item() if ok else None
+
+
+def bf16_ulps(torch, got, want):
+    a, b = (t.view(torch.int16).long() for t in (got, want))
+    a = torch.where(a < 0, -(a + (1 << 15)), a)
+    b = torch.where(b < 0, -(b + (1 << 15)), b)
+    return int((a - b).abs().max())
+
+
+def norm_xent_bound(name, shape, it, it_w=None):
+    """(ms, "bytes"|"operations"): each input read once and each output
+    written once; the operations of NORM_XENT_OPS at the f32 peak."""
+    R, C = shape
+    n = R * C
+    if name == "layer_norm_fwd":    # x, w, b -> y, mean, rstd
+        n_bytes = 2 * n * it + 2 * C * it_w + 2 * R * 4
+    elif name == "layer_norm_bwd":  # x, dy, w, mean, rstd -> dx, dw, db
+        n_bytes = 3 * n * it + 3 * C * it_w + 2 * R * 4
+    elif name == "softmax_xent_fwd":  # logits, labels -> loss, lse
+        n_bytes = n * it + 3 * R * 4
+    else:                           # logits, labels, lse, dloss -> dx
+        n_bytes = 2 * n * it + 3 * R * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = NORM_XENT_OPS[name] * n / PEAK_FLOPS["torch.float32"]
+    return float(max(t_bytes, t_ops) * 1e3), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_norm_xent(torch, flush, res, name, kernel, twin, library, shape,
+                   it, it_w=None):
+    bound_ms, bound_by = norm_xent_bound(name, shape, it, it_w)
+    ms = cuda_ms(torch, kernel, 20, flush)
+    plain_ms = cuda_ms(torch, twin, 3, flush)
+    library_ms = cuda_ms(torch, library, 10, flush)
+    res[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
+    print(f"    {name:18s} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+          f"library={library_ms:.4f}ms bound={bound_ms:.4f}ms ({bound_by}) "
+          f"bound/kernel={bound_ms / ms:.3f}", flush=True)
+
+
+def hold_norm(torch, lk, flush, R, C, dtype, timed):
+    """Both LayerNorm kernels against their twins on [R, C] (weight and
+    bias in x's dtype); the backward kernel and twin take the twin's mean
+    and rstd. Returns {kernel name: measurements}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + R + C)
+    draw = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                  device="cuda")
+    x = (2 * draw(R, C) + 0.5).to(dtype)
+    w, b = (1 + 0.3 * draw(C)).to(dtype), (0.1 * draw(C)).to(dtype)
+    dy = draw(R, C).to(dtype)
+    label = f"LayerNorm [{R}, {C}] {str(dtype)[6:]}"
+    y, mu, rstd = lk.layer_norm_fwd(x, w, b)
+    want_y, want_mu, want_rstd = lk.layer_norm_fwd_reference(x, w, b)
+    bwd = (x, w, want_mu, want_rstd, dy)
+    dx, dw, db = lk.layer_norm_bwd(*bwd)
+    torch.cuda.synchronize()
+    want_dx, want_dw, want_db = lk.layer_norm_bwd_reference(*bwd)
+    errs = {}
+    for key, got, want, tol in (("y", y, want_y, TOL[str(dtype)]),
+                                ("dx", dx, want_dx, TOL[str(dtype)]),
+                                ("mean", mu, want_mu, STAT_TOL),
+                                ("rstd", rstd, want_rstd, STAT_TOL)):
+        errs[key] = within(got, want, tol)
+        check(errs[key] is not None, f"{label}: {key} beyond "
+                                     f"{tol} * max(1, |twin|)")
+    for key, got, want in (("dw", dw, want_dw), ("db", db, want_db)):
+        check(got.dtype == dtype, f"{label}: {key} is {got.dtype}")
+        errs[key] = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            ulps = bf16_ulps(torch, got, want)
+            check(ulps <= 1, f"{label}: {key} {ulps} bf16 ulps from the twin")
+        else:
+            rel = errs[key] / want.float().abs().max().item()
+            check(rel <= SUM_RTOL, f"{label}: {key} relative error {rel}")
+    print(f"  {label:34s} err y {errs['y']:.3g} mean {errs['mean']:.3g} "
+          f"rstd {errs['rstd']:.3g} dx {errs['dx']:.3g} dw {errs['dw']:.3g} "
+          f"db {errs['db']:.3g}", flush=True)
+    res = {"layer_norm_fwd": dict(max_abs_err=max(
+               errs["y"], errs["mean"], errs["rstd"])),
+           "layer_norm_bwd": dict(max_abs_err=max(
+               errs["dx"], errs["dw"], errs["db"]))}
+    if timed:
+        fl = torch.nn.functional.layer_norm
+        xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+        out = fl(xg, (C,), wg, bg, 1e-5)
+        it = x.element_size()
+        time_norm_xent(torch, flush, res, "layer_norm_fwd",
+                       lambda: lk.layer_norm_fwd(x, w, b),
+                       lambda: lk.layer_norm_fwd_reference(x, w, b),
+                       lambda: fl(x, (C,), w, b, 1e-5), (R, C), it, it)
+        time_norm_xent(torch, flush, res, "layer_norm_bwd",
+                       lambda: lk.layer_norm_bwd(*bwd),
+                       lambda: lk.layer_norm_bwd_reference(*bwd),
+                       lambda: torch.autograd.grad(out, (xg, wg, bg), dy,
+                                                   retain_graph=True),
+                       (R, C), it, it)
+    return res
+
+
+def hold_xent(torch, xk, flush, N, V, dtype, timed):
+    """Both softmax-xent kernels against their twins on [N, V] logits,
+    about 10 % of the labels -1 and some >= V; the backward kernel and
+    twin take the twin's lse and dloss = 1 on rows with a label in
+    [0, V), 0 elsewhere (the route's masking). Returns {kernel name:
+    measurements}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + N + V)
+    x = (3 * torch.randn(N, V, generator=gen, device="cuda")).to(dtype)
+    lab = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    lab[::10] = -1
+    lab[1::97] = V + torch.arange(len(lab[1::97]), device="cuda",
+                                  dtype=torch.int32)
+    valid = (lab >= 0) & (lab < V)
+    dloss = valid.float()
+    label = f"xent [{N}, {V}] {str(dtype)[6:]}"
+    loss, lse = xk.softmax_xent_fwd(x, lab)
+    want_loss, want_lse = xk.softmax_xent_fwd_reference(x, lab)
+    bwd = (x, lab, want_lse, dloss)
+    dx = xk.softmax_xent_bwd(*bwd)
+    torch.cuda.synchronize()
+    want_dx = xk.softmax_xent_bwd_reference(*bwd)
+    errs = {}
+    for key, got, want in (("loss", loss, want_loss),
+                           ("lse", lse, want_lse)):
+        errs[key] = within(got, want, STAT_TOL)
+        check(errs[key] is not None, f"{label}: {key} beyond "
+                                     f"{STAT_TOL} * max(1, |twin|)")
+    check(dx.dtype == dtype, f"{label}: dx is {dx.dtype}")
+    diff = (dx.float() - want_dx.float()).abs()
+    errs["dx"] = diff.max().item()
+    dx_rel = errs["dx"] / want_dx.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        ulps = bf16_ulps(torch, dx, want_dx)
+        check(ulps <= 1, f"{label}: dx {ulps} bf16 ulps from the twin")
+    else:
+        over = diff > DX_RTOL * want_dx.float().abs() + DX_ATOL
+        check(not bool(over.any()), f"{label}: dx beyond {DX_RTOL} * |twin| "
+                                    f"+ {DX_ATOL} at {int(over.sum())} "
+                                    f"elements")
+    check(bool((loss[~valid] == lse[~valid]).all()),
+          f"{label}: a label outside [0, V) picked a logit")
+    print(f"  {label:34s} err loss {errs['loss']:.3g} lse {errs['lse']:.3g} "
+          f"dx {errs['dx']:.3g} (max |dx - twin| / max |twin| "
+          f"{dx_rel:.3g}; {int((~valid).sum())} labels outside [0, V))",
+          flush=True)
+    res = {"softmax_xent_fwd": dict(max_abs_err=max(errs["loss"],
+                                                    errs["lse"])),
+           "softmax_xent_bwd": dict(max_abs_err=errs["dx"])}
+    if timed:
+        ce = torch.nn.functional.cross_entropy
+        lib_lab = torch.where(valid, lab, -100).long()
+        xg = x.clone().requires_grad_()
+        out = ce(xg, lib_lab, reduction="none")
+        it = x.element_size()
+        time_norm_xent(torch, flush, res, "softmax_xent_fwd",
+                       lambda: xk.softmax_xent_fwd(x, lab),
+                       lambda: xk.softmax_xent_fwd_reference(x, lab),
+                       lambda: ce(x, lib_lab, reduction="none"), (N, V), it)
+        time_norm_xent(torch, flush, res, "softmax_xent_bwd",
+                       lambda: xk.softmax_xent_bwd(*bwd),
+                       lambda: xk.softmax_xent_bwd_reference(*bwd),
+                       lambda: torch.autograd.grad(out, xg, dloss,
+                                                   retain_graph=True),
+                       (N, V), it)
+        del out, xg
+    return res
+
+
+def phase_norm_xent(torch, lk, xk, flush):
+    """#5-#8 against their twins at every listed shape; times at the
+    training shapes (LayerNorm [8192, 1024] bf16, xent [8192, 50304]
+    bf16). Returns the training shapes' measurements with the largest
+    error of every case."""
+    main = {}
+    worst = {name: 0.0 for name, _ in NORM_KERNELS + XENT_KERNELS}
+    for kind, rows, cols, dtype, timed in NORM_XENT_CASES:
+        hold_fn, mod = (hold_norm, lk) if kind == "ln" else (hold_xent, xk)
+        res = hold_fn(torch, mod, flush, rows, cols, getattr(torch, dtype),
+                      timed)
+        for name, m in res.items():
+            worst[name] = max(worst[name], m["max_abs_err"])
+            if timed:
+                main[name] = m
+        torch.cuda.empty_cache()
+    for name in worst:
+        main[name]["max_abs_err"] = worst[name]
+    return main
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1258,13 +1585,15 @@ def main():
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_update as fk
+    from paddle_tpu_torch.ops.kernels import layer_norm as lk
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels import softmax_xent as xk
     from paddle_tpu_torch.optimizer import SGD, AdamW, Momentum
     mods = (GenerationEngine, GPTForCausalLM, gpt_medium,
             load_paddle_tpu_state, gpt_mod)
     tmods = (GPTForCausalLM, gpt_medium, load_paddle_tpu_state, TrainStep,
              AdamW, F)
-    km = (fa, pa, fk)
+    km = (fa, pa, fk, lk, xk)
     t_start = time.perf_counter()
     card = card_line()
     print(f"[1] card: {card}", flush=True)
@@ -1285,7 +1614,8 @@ def main():
 
     print("[4] GPT-medium bf16 through GenerationEngine", flush=True)
     zero_counts(km)
-    launches, held, prompts, state = phase_serve(torch, pa, flush, mods)
+    with switches(False):
+        launches, held, prompts, state = phase_serve(torch, pa, flush, mods)
     served = {k: v for k, v in counts(km).items()
               if k != "ragged_paged_attention"}
     check(not any(served.values()),
@@ -1298,11 +1628,12 @@ def main():
     flash_main = phase_flash(torch, fa, flush)
 
     print("[7] GPT-medium bf16 through TrainStep: the default (fused) "
-          "epilogue, then fused_update=False", flush=True)
-    train_main, _ = phase_train(torch, km, tmods, state)
+          "epilogue, fused_update=False, then the default epilogue with "
+          "PADDLE_TPU_PALLAS_LN=1 and PADDLE_TPU_PALLAS_XENT=1", flush=True)
+    train_main, _, train_switched = phase_train(torch, km, tmods, state)
 
-    print("[8] 2-layer float32 training: card vs CPU, each epilogue",
-          flush=True)
+    print("[8] 2-layer float32 training: card vs CPU, each epilogue, and "
+          "the LayerNorm and xent kernels switched on", flush=True)
     phase_train_agreement(torch, km, tmods, state)
 
     print("[9] fused epilogue: kernels vs plain twins", flush=True)
@@ -1312,6 +1643,10 @@ def main():
     print("[10] GradScaler on the card: a non-finite step is skipped",
           flush=True)
     phase_scaler(torch, km, tmods, state)
+
+    print("[11] LayerNorm and softmax cross-entropy: kernels vs plain twins",
+          flush=True)
+    norm_xent = phase_norm_xent(torch, lk, xk, flush)
 
     main_step = held["decode"]
     kernels = [{
@@ -1327,26 +1662,34 @@ def main():
         "bound_by": main_step["bound_by"],
         "library_ms": main_step["library_ms"],
     }]
-    for (name, replaces), source, meas in (
-            [(k, "paddle_tpu_torch/csrc/flash_attention.cu", flash_main)
-             for k in FLASH_KERNELS]
-            + [(k, "paddle_tpu_torch/csrc/fused_update.cu", fused_main)
-               for k in FUSED_KERNELS]):
+    for (name, replaces), source, meas, run in (
+            [(k, "paddle_tpu_torch/csrc/flash_attention.cu", flash_main,
+              train_main) for k in FLASH_KERNELS]
+            + [(k, "paddle_tpu_torch/csrc/fused_update.cu", fused_main,
+                train_main) for k in FUSED_KERNELS]
+            + [(k, "paddle_tpu_torch/csrc/layer_norm.cu", norm_xent,
+                train_switched) for k in NORM_KERNELS]
+            + [(k, "paddle_tpu_torch/csrc/softmax_xent.cu", norm_xent,
+                train_switched) for k in XENT_KERNELS]):
         m = meas[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": train_main["launches"][name],
+            "replaces": replaces, "launches": run["launches"][name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
-    print(f"[11] done in {time.perf_counter() - t_start:.1f}s; paged "
+    print(f"[12] done in {time.perf_counter() - t_start:.1f}s; paged "
           f"attention times are of the served decode step's layer-0 call, "
           f"flash times of the training shape [8, 1024, 16, 64] causal "
           f"bf16 (library: SDPA forward for the forward kernel, SDPA "
           f"backward, dq/dk/dv together, for both backward kernels), "
           f"fused epilogue times of the main path's passes on GPT-medium's "
           f"layout (library: torch._foreach_norm over the grad buckets, "
-          f"torch._fused_adamw_ over the f32 master buckets); card: {card}")
+          f"torch._fused_adamw_ over the f32 master buckets), LayerNorm "
+          f"times at [8192, 1024] bf16 (library: F.layer_norm forward, its "
+          f"backward), xent times at [8192, 50304] bf16 (library: "
+          f"F.cross_entropy(reduction='none') forward, its backward); "
+          f"launches of #5-#8 from the switched training run; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

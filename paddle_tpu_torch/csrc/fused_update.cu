@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "vec8.cuh"
+
 // These two structs stay outside the unnamed namespace: fused_pass2's C
 // entry takes a Pass2Args, and a parameter type with internal linkage
 // would give the entry internal linkage too (no exported symbol).
@@ -73,32 +75,11 @@ struct Pass2Args {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kVec = 8;
 constexpr int kUnroll1 = 4;
 constexpr int kUnroll2 = 2;
 constexpr int kFinalizeThreads = 1024;
 constexpr int kFlagNeedClip = 1;
 constexpr int kFlagDecay = 2;
-
-template <typename T>
-struct alignas(16) Vec8 {
-  T v[kVec];
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <typename T>
 __device__ __forceinline__ void load8(const T* ptr, long long base,

@@ -1,3 +1,31 @@
 """Hand-written Hopper kernels of the port, each beside its plain
 PyTorch twin (`<name>_reference`). Sources: paddle_tpu_torch/csrc/;
-built and loaded by _build.py."""
+built and loaded by _build.py. Below: what every wrapper shares."""
+import torch
+
+# the dtype code each kernel's C entry point takes
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def work_dtype(dtype):
+    """The twins' working dtype: float32 sums, or float64 when the inputs
+    are (gradcheck)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def current_stream(device):
+    """Handle of the current CUDA stream, once `device` (where the
+    inputs lie) is the current device: a kernel launches there."""
+    if device.index != torch.cuda.current_device():
+        raise ValueError(f"inputs are on {device} but the current device "
+                         f"is cuda:{torch.cuda.current_device()}; make it "
+                         "current (torch.cuda.set_device)")
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def aligned16(*tensors, row_bytes=0):
+    """1 when every tensor starts 16-byte aligned and a row of
+    `row_bytes` is a multiple of 16 bytes: the kernels then move 16-byte
+    vectors; else 0."""
+    return int(row_bytes % 16 == 0
+               and all(t.data_ptr() % 16 == 0 for t in tensors))

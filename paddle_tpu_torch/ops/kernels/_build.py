@@ -7,8 +7,9 @@ is no PyTorch extension build: the sources include only CUDA's headers,
 so a build takes seconds.
 
 Libraries land in `build/kernels/` beside the package (`.gitignore`
-lists `build/`), named by a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. A build
+lists `build/`), named by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. A build
 happens at first use, or ahead of it through `build()`, which starts
 one `nvcc` per source, all at once. There is no fallback: without
 `nvcc` the load raises.
@@ -31,7 +32,9 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 # library name -> source file under csrc/
 SOURCES = {"paged_attention": "paged_attention.cu",
            "flash_attention": "flash_attention.cu",
-           "fused_update": "fused_update.cu"}
+           "fused_update": "fused_update.cu",
+           "layer_norm": "layer_norm.cu",
+           "softmax_xent": "softmax_xent.cu"}
 
 # -Xptxas -v puts each kernel's registers, shared memory and spills in
 # the build log (build/kernels/<library>.log)
@@ -58,11 +61,12 @@ def find_nvcc():
 
 
 def library_path(name):
-    """Where library `name` is built: named by a hash of its source and
-    the nvcc flags."""
-    src = SOURCE_DIR / SOURCES[name]
+    """Where library `name` is built: named by a hash of its source, the
+    headers of csrc/ (any source may include them) and the nvcc flags."""
+    parts = [(SOURCE_DIR / SOURCES[name]).read_bytes()]
+    parts += [h.read_bytes() for h in sorted(SOURCE_DIR.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

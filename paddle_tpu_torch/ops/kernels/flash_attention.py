@@ -29,25 +29,18 @@ import functools
 import torch
 
 from ..attention_core import NEG_INF, default_scale
-from . import _build
+from . import DTYPE_CODES, _build, current_stream, work_dtype
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
            "flash_attention_dkv", "flash_attention_fwd_reference",
            "flash_attention_dq_reference", "flash_attention_dkv_reference"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
 
 # -- plain twins ----------------------------------------------------------
 
-def _work_dtype(dtype):
-    """float32 sums, or float64 when the inputs are (gradcheck)."""
-    return torch.float64 if dtype == torch.float64 else torch.float32
-
-
 def _scores(q, k, causal, scale):
     """(s [B, H, Tq, Tk] masked with NEG_INF, valid mask or None)."""
-    w = _work_dtype(q.dtype)
+    w = work_dtype(q.dtype)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(w), k.to(w)) * scale
     if not causal:
         return s, None
@@ -69,7 +62,7 @@ def flash_attention_fwd_reference(q, k, v, causal=False, scale=None):
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(p.dtype)) \
         / l_sum.permute(0, 2, 1, 3)
     lse = (m + torch.log(l_sum)).squeeze(-1)
-    return out.to(q.dtype), lse.to(_work_dtype(q.dtype))
+    return out.to(q.dtype), lse.to(work_dtype(q.dtype))
 
 
 def _probs_and_dscores(q, k, v, dout, lse, delta, causal, scale):
@@ -162,13 +155,10 @@ def _launch(name, tensors, outs, causal, scale):
     if D != fns["head_dim"]:
         raise ValueError(f"head_dim {D} not built (the kernels take "
                          f"{fns['head_dim']})")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES:
         raise TypeError(f"the kernels take float32 or bfloat16, not "
                         f"{q.dtype}")
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"inputs are on {q.device} but the current device "
-                         f"is cuda:{torch.cuda.current_device()}; make it "
-                         "current (torch.cuda.set_device)")
+    stream = current_stream(q.device)
     item = q.element_size()
     strides = []
     for t in tensors:
@@ -181,8 +171,7 @@ def _launch(name, tensors, outs, causal, scale):
     ptrs = [t.data_ptr() for t in tensors] + [t.data_ptr() for t in outs]
     err = fns[name](*ptrs, (ctypes.c_longlong * 12)(*strides), B, H, Tq,
                     k.shape[1], D, scale, int(bool(causal)),
-                    _DTYPE_CODES[q.dtype],
-                    torch.cuda.current_stream().cuda_stream)
+                    DTYPE_CODES[q.dtype], stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
@@ -257,7 +246,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
-        w = _work_dtype(q.dtype)
+        w = work_dtype(q.dtype)
         delta = (out.to(w) * dout.to(w)).sum(dim=-1).transpose(1, 2)
         dq = flash_attention_dq(q, k, v, dout, lse, delta, ctx.causal,
                                 ctx.scale)

@@ -41,7 +41,7 @@ import functools
 import numpy as np
 import torch
 
-from . import _build
+from . import DTYPE_CODES, _build, current_stream
 
 __all__ = ["FlatBucket", "BucketSet", "fused_pass1", "fused_pass2",
            "fused_pass1_reference", "fused_pass2_reference",
@@ -56,7 +56,6 @@ FLAG_DECAY = 2
 # 4 vectors a thread a tile in pass 1, 2 in pass 2
 THREADS, VEC, UNROLL1, UNROLL2 = 256, 8, 4, 2
 BLOCKS_PER_SM = 8
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {"sgd": 0, "momentum": 1, "adam": 2, "adamw": 2}
 
 
@@ -135,7 +134,7 @@ class BucketSet:
         chunk -> leaf table, on the card; tile counts, grids and the
         partial-sum slots of each pass."""
         for b in self.buckets:
-            if b.p.dtype not in _DTYPE_CODES:
+            if b.p.dtype not in DTYPE_CODES:
                 raise TypeError(f"the fused kernels take float32 or "
                                 f"bfloat16 buckets, not {b.p.dtype}")
             for t in [b.g, b.p] + b.moments + [b.master]:
@@ -378,16 +377,13 @@ def _kernels():
 
 
 def _cuda_ready(bs, *scalars):
-    if bs.device.index != torch.cuda.current_device():
-        raise ValueError(f"buffers are on {bs.device} but the current "
-                         f"device is cuda:{torch.cuda.current_device()}; "
-                         "make it current (torch.cuda.set_device)")
+    stream = current_stream(bs.device)
     for t in scalars:
         if t is not None and (t.device != bs.device
                               or t.dtype != torch.float32 or t.numel() != 1):
             raise ValueError("scale, sumsq and found must be float32 "
                              "scalars on the buffers' device")
-    return _kernels(), torch.cuda.current_stream(bs.device).cuda_stream
+    return _kernels(), stream
 
 
 def _ptr(t):
@@ -418,7 +414,7 @@ def fused_pass1(bs, scale=None):
             gr["chunk_leaf"].data_ptr(), bs.flags.data_ptr(),
             bs.norm_weight.data_ptr(), bs.chunk, _ptr(scale),
             part.data_ptr() + 4 * gr["slot1"], cu["slots1"], gr["grid1"],
-            _DTYPE_CODES[gr["dtype"]], stream))
+            DTYPE_CODES[gr["dtype"]], stream))
         fused_pass1.launches += 1
     _check_err("fused_finalize", lib.fused_finalize(
         part.data_ptr(), cu["slots1"], 2, 0b10, 1, out.data_ptr(), stream))
@@ -466,7 +462,7 @@ def fused_pass2(bs, spec, lr, lr_t, clip_norm=None, clip_value=None,
             ctypes.byref(args),
             _ptr(sumsq) if clip_norm is not None else None, _ptr(found),
             part.data_ptr() + 4 * gr["slot2"], cu["slots2"], gr["grid2"],
-            _DTYPE_CODES[gr["dtype"]], stream))
+            DTYPE_CODES[gr["dtype"]], stream))
         fused_pass2.launches += 1
     if not with_stats:
         return None

@@ -25,12 +25,11 @@ import numpy as np
 import torch
 
 from ..attention_core import NEG_INF, default_scale
-from . import _build
+from . import DTYPE_CODES, _build, current_stream
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_reference",
            "build_block_plan", "ragged_work_plan"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
 
@@ -141,7 +140,7 @@ def _check(q, k_pages, v_pages, page_table, token_seq, bounds):
             or bounds.shape != (T,):
         raise ValueError("page_table must be [B, W] and token_seq/bounds "
                          f"[T={T}]")
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
+    if q.dtype not in DTYPE_CODES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
         raise TypeError(f"q and pools must share float32 or bfloat16, got "
                         f"{q.dtype} / {k_pages.dtype} / {v_pages.dtype}")
@@ -205,10 +204,7 @@ def _launch(q, k_pages, v_pages, page_table, token_seq, bounds, scale):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     index = q.device.index
-    if index != torch.cuda.current_device():
-        raise ValueError(f"inputs are on {q.device} but the current device "
-                         f"is cuda:{torch.cuda.current_device()}; make it "
-                         "current (torch.cuda.set_device)")
+    stream = current_stream(q.device)
     fn, max_rows = _kernel()
     if fold > max_rows:
         raise ValueError(f"grouped-query fold {fold} exceeds the kernel's "
@@ -221,8 +217,7 @@ def _launch(q, k_pages, v_pages, page_table, token_seq, bounds, scale):
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), token_seq.data_ptr(), bounds.data_ptr(),
              out.data_ptr(), work.data_ptr(), T, H, KVH, D, n_pages, P, B, W,
-             tpb, scale, _DTYPE_CODES[q.dtype],
-             torch.cuda.current_stream().cuda_stream)
+             tpb, scale, DTYPE_CODES[q.dtype], stream)
     if err:
         raise RuntimeError(f"ragged paged attention kernel launch failed: "
                            f"cudaError {err}")

@@ -30,15 +30,35 @@ operation once, the kernel by __fmul_rn / __fadd_rn and IEEE sqrt and
 division); the sums, taken in another order, to 1e-5 relative (float32
 sums of a few thousand positive terms). The found_inf skip leaves every
 buffer bit-equal to its input.
+
+LayerNorm (kernels #5, #6) and softmax cross-entropy (#7, #8) against
+their twins on the same inputs, at widths the training path uses and at
+odd ones (C = 1000 and 1001, V = 50257, one row), with the 16-byte and
+the scalar load paths. Elementwise outputs (y, dx) within TOL[dtype] *
+max(1, |twin|): float32 sums in another order and nvcc's fused
+multiply-adds; in bfloat16 one output rounding (2^-8 relative) on each
+side. xent's dx is mostly far below 1 (a softmax entry over 50k columns
+is ~1e-6), so it is held per element against |twin| with no floor: one
+bf16 ulp in bfloat16 (each side rounds a float32 value once), 1e-5
+relative plus 1e-9 in float32. mean, rstd, loss and lse within 1e-5 *
+max(1, |twin|). dw and db:
+float32 within 1e-4 of their largest value (sums over the rows in
+another order); bfloat16 within one bf16 ulp (each side rounds the
+float32 sum once). A route switched on never falls back: when the
+library cannot be loaded, a CUDA tensor raises.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import fused_update as fu
+from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import fused_update as fk
+from paddle_tpu_torch.ops.kernels import layer_norm as ln
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
+from paddle_tpu_torch.ops.kernels import softmax_xent as xent
 from paddle_tpu_torch.optimizer import SGD, Adam, AdamW, Momentum
 
 H, D, P = 16, 64, 16
@@ -268,3 +288,169 @@ def test_fused_found_inf_skip_is_bit_exact_on_card(dtype, master):
     for (name, got), (_, want) in zip(_buffers(stores)[len(stores[0]):],
                                       _buffers(first)[len(first[0]):]):
         assert torch.equal(got, want), name
+
+
+# -- LayerNorm (#5, #6) and softmax cross-entropy (#7, #8) ------------------
+
+def _within(got, want, tol):
+    """|got - want| <= tol * max(1, |want|) everywhere (float32 view)."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs()
+                 <= tol * want.abs().clamp_min(1.0)).all())
+
+
+def _bf16_ulps(got, want):
+    """Largest distance in bf16 ulps between two bf16 tensors."""
+    a, b = (t.view(torch.int16).long() for t in (got, want))
+    a = torch.where(a < 0, -(a + (1 << 15)), a)
+    b = torch.where(b < 0, -(b + (1 << 15)), b)
+    return int((a - b).abs().max())
+
+
+def _dx_close(got, want):
+    """softmax-xent's dx per element: one bf16 ulp, or 1e-5 * |want| +
+    1e-9 in float32."""
+    if got.dtype == torch.bfloat16:
+        return _bf16_ulps(got, want) <= 1
+    return bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-9).all())
+
+
+def _sums_close(got, want):
+    if got.dtype == torch.bfloat16:
+        return _bf16_ulps(got, want) <= 1
+    return _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,wdtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("R,C", [(8192, 1024), (1000, 4096), (8192, 1000),
+                                 (257, 1001), (1, 1024), (33, 16384)])
+def test_layer_norm_kernels_match_twins_on_card(R, C, dtype, wdtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(R + C)
+    draw = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                  device="cuda")
+    x = (2 * draw(R, C) + 0.5).to(dtype)
+    w = (1 + 0.3 * draw(C)).to(wdtype)
+    b = (0.1 * draw(C)).to(wdtype)
+    dy = draw(R, C).to(dtype)
+    before = (ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches)
+    y, mu, rstd = ln.layer_norm_fwd(x, w, b)
+    dx, dw, db = ln.layer_norm_bwd(x, w, mu, rstd, dy)
+    torch.cuda.synchronize()
+    assert (ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_y, want_mu, want_rstd = ln.layer_norm_fwd_reference(x, w, b)
+    want_dx, want_dw, want_db = ln.layer_norm_bwd_reference(
+        x, w, want_mu, want_rstd, dy)
+    assert y.dtype == dx.dtype == dtype and dw.dtype == db.dtype == wdtype
+    assert _within(y, want_y, TOL[dtype])
+    assert _within(dx, want_dx, TOL[dtype])
+    assert _within(mu, want_mu, 1e-5) and _within(rstd, want_rstd, 1e-5)
+    assert _sums_close(dw, want_dw) and _sums_close(db, want_db)
+
+
+@pytest.mark.cuda
+def test_layer_norm_autograd_on_card_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.RandomState(3)
+    arrays = [rng.randn(4, 50, 96), 1 + 0.3 * rng.randn(96),
+              0.1 * rng.randn(96), rng.randn(4, 50, 96)]
+    grads = []
+    for dev in ("cuda", "cpu"):
+        x, w, b, dy = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                       for a in arrays)
+        for t in (x, w, b):
+            t.requires_grad_()
+        ln.layer_norm(x, w, b).backward(dy)
+        grads.append([t.grad.cpu() for t in (x, w, b)])
+    for got, want in zip(*grads):
+        assert _rel_err(got, want) <= 1e-4
+
+
+def _xent_case(N, V, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed + N + V)
+    x = (3 * torch.randn(N, V, generator=gen, device="cuda")).to(dtype)
+    lab = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if N > 3:
+        lab[::10] = -1       # ignored rows go in as -1
+        lab[1], lab[2] = V, V + 5
+    dloss = torch.rand(N, generator=gen, device="cuda")
+    return x, lab, dloss
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,V", [(512, 50304), (1000, 50257), (1, 50304),
+                                 (64, 1000), (300, 7)])
+def test_softmax_xent_kernels_match_twins_on_card(N, V, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, lab, dloss = _xent_case(N, V, dtype)
+    before = (xent.softmax_xent_fwd.launches, xent.softmax_xent_bwd.launches)
+    loss, lse = xent.softmax_xent_fwd(x, lab)
+    want_loss, want_lse = xent.softmax_xent_fwd_reference(x, lab)
+    dx = xent.softmax_xent_bwd(x, lab, want_lse, dloss)
+    torch.cuda.synchronize()
+    assert (xent.softmax_xent_fwd.launches,
+            xent.softmax_xent_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want_dx = xent.softmax_xent_bwd_reference(x, lab, want_lse, dloss)
+    assert loss.dtype == lse.dtype == torch.float32 and dx.dtype == dtype
+    assert _within(loss, want_loss, 1e-5) and _within(lse, want_lse, 1e-5)
+    assert _dx_close(dx, want_dx)
+
+
+@pytest.mark.cuda
+def test_cross_entropy_route_on_card_matches_cpu(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_XENT", "1")
+    rng = np.random.RandomState(4)
+    logits = torch.from_numpy((2 * rng.randn(4096, 1024)).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, 1024, 4096))
+    labels[::9] = -100
+    out = []
+    for dev in ("cuda", "cpu"):
+        x = logits.to(dev).requires_grad_()
+        before = xent.softmax_xent_fwd.launches
+        loss = F.cross_entropy(x, labels.to(dev))
+        assert xent.softmax_xent_fwd.launches - before == (dev == "cuda")
+        loss.backward()
+        out.append((loss.detach().cpu(), x.grad.cpu()))
+    assert _rel_err(out[0][0], out[1][0]) <= 1e-5
+    assert _rel_err(out[0][1], out[1][1]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_switched_routes_raise_when_the_library_cannot_load(monkeypatch):
+    """No fallback: with a switch on, a CUDA tensor whose library fails
+    to load raises instead of running the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+    def fail(name):
+        raise RuntimeError(f"cannot load {name}")
+
+    monkeypatch.setattr(_build, "load", fail)
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_LN", "1")
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_XENT", "1")
+    ln._kernels.cache_clear()
+    xent._kernels.cache_clear()
+    try:
+        x = torch.randn(64, 1024, device="cuda")
+        w, b = torch.ones(1024, device="cuda"), torch.zeros(1024,
+                                                           device="cuda")
+        with pytest.raises(RuntimeError, match="cannot load layer_norm"):
+            F.layer_norm(x, [1024], w, b)
+        logits = torch.randn(4096, 1024, device="cuda")
+        labels = torch.randint(0, 1024, (4096,), device="cuda")
+        with pytest.raises(RuntimeError, match="cannot load softmax_xent"):
+            F.cross_entropy(logits, labels)
+    finally:
+        ln._kernels.cache_clear()
+        xent._kernels.cache_clear()

@@ -335,9 +335,14 @@ def test_cross_entropy_matches_reference_with_ignore_index():
             reduction=reduction)
         np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
                                    rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
-                        label_smoothing=0.1)
+    # label smoothing is ported now: it matches the reference's
+    got = F.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
+                          label_smoothing=0.1)
+    want = ref_nn.functional.cross_entropy(
+        paddle.to_tensor(logits), paddle.to_tensor(labels),
+        label_smoothing=0.1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_dropout_draws_from_its_generator():
