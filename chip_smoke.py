@@ -25,9 +25,10 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    64-640 tokens, two sharing a 128-token prefix (the second arrives
    after the first is done, so it hits the prefix cache). Every handle
    must finish with 64 tokens, the kernel must have launched exactly
-   steps x 24 times and no training kernel (#2-#10) at all. Then a
-   replay of the same traffic records real steps' layer-0 kernel inputs (a decode step and a mixed step) and
-   the kernel is held against the twin on them;
+   steps x 24 times and no other kernel (#2-#11) at all. Then a replay
+   of the same traffic records real steps' layer-0 kernel inputs (a
+   decode step and a mixed step) and the kernel is held against the
+   twin on them;
 5. the same prompts at GPT-medium width with 2 layers in float32, once
    on the card (kernel) and once on the CPU (plain twin): greedy
    streams must be equal; at a mismatch the CPU's top-2 logit gap at
@@ -90,11 +91,41 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    call's (torch.nn.functional.layer_norm forward and its backward;
    torch.nn.functional.cross_entropy(reduction="none") forward and its
    backward) and the byte bound;
-12. the kernels line, then, last, {"ok": true, "device": {...}}.
+12. the selective-scan kernel (#11) against its plain twin at serving
+   shapes (D 1536, N 16, float32): pure decode (T 8, R 8), a 128-token
+   chunk with 7 decode rows (T 256), pads on row 0 with dt = 0,
+   interleaved rows. y and the final states within rtol 1e-5, atol
+   1e-5 (the atol scaled by the tensor's largest entry where that is
+   below 1); rows that only pads touch keep their state bit for bit; per
+   shape the kernel's time, the twin's, the byte bound and the floor of
+   the chain of T dependent updates (no PyTorch call computes a
+   selective scan: library "none");
+13. a Mamba-130M-shaped SSM (SSMConfig at state-spaces/mamba-130m's
+   published shape: vocab 50304, d_model 768, 24 layers, d_state 16,
+   d_conv 4, expand 2; 129,191,424 parameters) in bfloat16, weights
+   drawn from a numpy seed by the reference's init (Normal(0, 0.02),
+   A_log = log(1..16), D = 1, zero biases, unit LayerNorms), served by
+   GenerationEngine on a RecurrentStateCache (65 pages: 64 state slots,
+   max_batch 8, prefill chunk 128) over phase 4's prompts: every handle
+   must finish with 64 tokens, the scan must have launched exactly
+   steps x 24 times and no other kernel (#1-#10) at all, and the inert
+   prefix cache must have served no token. Then a replay records a real
+   decode step's and a mixed step's layer-0 scan inputs and the kernel
+   is held against the twin on them (|y| there is ~1e-6, so the scaled
+   atol is what holds it);
+14. the same prompts through 2-layer float32 SSMs at that width, pure
+   and hybrid (attn_every 2, 12 heads: head_dim 64, so kernels #1 and
+   #11 both run), weights of std 0.5 so that the greedy streams vary
+   (checked), on the card and on the CPU: greedy streams equal, or the
+   CPU's top-2 gap at the first mismatch at most 1e-3; with every stream
+   equal, the real slots' conv tails and states after the run within
+   1e-3 of each pool's largest entry;
+15. the kernels line, then, last, {"ok": true, "device": {...}}.
 
-Each main path (serving in phase 4, training in phase 7's first run for
-kernels #2-#4 and #9-#10, phase 7's third run for #5-#8) runs with the
-launch counts set to 0 just before it and read just after.
+Each main path (GPT serving in phase 4, training in phase 7's first run
+for kernels #2-#4 and #9-#10, phase 7's third run for #5-#8, SSM serving
+in phase 13 for #11) runs with the launch counts set to 0 just before
+it and read just after.
 Times are CUDA-event times with the 50 MB L2 flushed before each
 launch, as the serving loop finds it cold (each layer has its own
 pools). Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM,
@@ -363,11 +394,12 @@ def make_prompts(vocab):
                               for n in (64, 160, 320, 448, 576, 640)]
 
 
-def serve(GenerationEngine, model, prompts):
-    """The traffic: the first prompt alone (it registers its prefix on
-    finishing), then the other seven at once. Returns (engine, handles,
-    streams, seconds of the second wave, seconds of both)."""
-    eng = GenerationEngine(model, **SERVE)
+def serve(GenerationEngine, model, prompts, engine_kw=SERVE):
+    """The traffic: the first prompt alone (on a paged cache it registers
+    its prefix on finishing), then the other seven at once. Returns
+    (engine, handles, streams, seconds of the second wave, seconds of
+    both)."""
+    eng = GenerationEngine(model, **engine_kw)
     try:
         t_all = time.perf_counter()
         h0 = eng.submit(prompts[0])
@@ -474,9 +506,12 @@ def device_us_by_name(prof):
     return by_name
 
 
-def where_the_time_goes(prof, steps, wall_s_per_step):
+def where_the_time_goes(prof, steps, wall_s_per_step,
+                        kernel="ragged_paged_attention",
+                        label="attention kernel"):
     """Device kernel time per step by kernel, from the profiled replay,
-    against the unprofiled run's wall time per step."""
+    against the unprofiled run's wall time per step; `kernel` names the
+    path's own kernel, whose share is printed as `label`."""
     by_name = device_us_by_name(prof)
     total_us = sum(by_name.values())
     if not total_us:
@@ -485,12 +520,11 @@ def where_the_time_goes(prof, steps, wall_s_per_step):
         return
     dev_ms = total_us / steps / 1e3
     wall_ms = wall_s_per_step * 1e3
-    attn = sum(v for k, v in by_name.items() if "ragged_paged_attention"
-               in k) / steps / 1e3
+    own = sum(v for k, v in by_name.items() if kernel in k) / steps / 1e3
     print(f"  per step: wall {wall_ms:.2f}ms (unprofiled run), device "
           f"kernels {dev_ms:.2f}ms (profiled replay), idle share "
-          f"{max(0.0, 1 - dev_ms / wall_ms):.3f}; attention kernel "
-          f"{attn:.3f}ms = {attn / dev_ms:.3f} of device time")
+          f"{max(0.0, 1 - dev_ms / wall_ms):.3f}; {label} "
+          f"{own:.3f}ms = {own / dev_ms:.3f} of device time")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {us / steps / 1e3:8.3f}ms/step  {name[:90]}")
 
@@ -748,11 +782,12 @@ def switches(on):
 
 def wrappers(km):
     """[(kernel name, its wrapper)] of every kernel but the paged one."""
-    fa, _, fk, lk, xk = km
+    fa, _, fk, lk, xk, sk = km
     return ([(n, getattr(fa, n)) for n, _ in FLASH_KERNELS]
             + [(n, getattr(fk, n)) for n, _ in FUSED_KERNELS]
             + [(n, getattr(lk, n)) for n, _ in NORM_KERNELS]
-            + [(n, getattr(xk, n)) for n, _ in XENT_KERNELS])
+            + [(n, getattr(xk, n)) for n, _ in XENT_KERNELS]
+            + [(SCAN_KERNEL[0], sk.ssm_scan)])
 
 
 def counts(km):
@@ -863,8 +898,9 @@ def _train_run(torch, km, tmods, state, fused, switched):
                   f"{label}: {name}: {launches[name]} launches, want "
                   f"{want} ({n_steps} steps x {per_step} x switched "
                   f"{switched})")
-    check(launches["ragged_paged_attention"] == 0,
-          f"{label}: the serving kernel ran in training")
+    check(launches["ragged_paged_attention"] == 0
+          and launches["ssm_scan"] == 0,
+          f"{label}: a serving kernel ran in training")
     check(all(p.dtype == torch.bfloat16 for p in step.params.values()),
           f"{label}: a parameter left bfloat16")
     tokens = B * T
@@ -1568,6 +1604,329 @@ def phase_norm_xent(torch, lk, xk, flush):
     return main
 
 
+# -- the SSM family: selective scan (#11) and Mamba-130M-shaped serving ------
+
+SCAN_KERNEL = ("ssm_scan", "paddle_tpu/ops/pallas/ssm_scan.py:62")
+# Mamba-130M's published shape (state-spaces/mamba-130m: d_model 768,
+# n_layer 24, d_state 16, d_conv 4, expand 2) in the repo's SSMConfig
+MAMBA_130M = dict(vocab_size=50304, hidden_size=768, num_layers=24,
+                  d_state=16, d_conv=4, expand=2)
+SSM_PARAMS = 129_191_424
+SSM_SERVE = dict(n_pages=65, page_size=16, max_batch=8, max_new_tokens=64,
+                 prefill_chunk=128)
+# the reference's kernel-against-oracle tolerance (tests/test_ssm_models.py)
+SCAN_RTOL = SCAN_ATOL = 1e-5
+# phase 14: weights whose greedy streams vary, and the card-vs-CPU bound
+# on the pools after the run, relative to each pool's largest entry
+SSM_AGREE_STD = 0.5
+SSM_STATE_RTOL = 1e-3
+SCAN_OPS = 7      # float32 operations per state element per token
+FMA_CYCLES = 4    # latency of the one dependent update in the chain
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def scan_bound(T, D, N, R):
+    """(ms, "bytes"|"operations"): x, dt, y [T, D], B, C [T, N], A
+    [D, N], h0 and h_out [R, D, N] and token_seq moved once each;
+    SCAN_OPS per state element per token at the float32 peak."""
+    n_bytes = 4 * (3 * T * D + 2 * T * N + D * N + 2 * R * D * N + T)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = SCAN_OPS * T * D * N / PEAK_FLOPS["torch.float32"]
+    return float(max(t_bytes, t_ops) * 1e3), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def hold_scan(torch, sk, flush, args, label, clock_hz, pad_rows=()):
+    """Kernel #11 against its twin on args (x, dt, b, c, a, h0,
+    token_seq): y and h_out within SCAN_RTOL/SCAN_ATOL, the absolute
+    floor scaled down to the tensor's size where its largest entry is
+    below 1 (served steps at the reference's init carry |y| ~ 1e-6,
+    below a fixed 1e-5), the rows in pad_rows (only pads, or nothing,
+    touch them) bit-equal to h0; times of both, the byte bound and the
+    chain floor. Returns the measurements."""
+    y, h = sk.ssm_scan(*args)
+    torch.cuda.synchronize()
+    want_y, want_h = sk.selective_scan_reference(*args)
+    errs, peaks = [], []
+    for key, got, want in (("y", y, want_y), ("h_out", h, want_h)):
+        diff = (got - want).abs()
+        peak = want.abs().max().item()
+        over = diff > SCAN_ATOL * min(1.0, peak) + SCAN_RTOL * want.abs()
+        check(not bool(over.any()), f"{label}: {key} beyond rtol "
+              f"{SCAN_RTOL} / atol {SCAN_ATOL} x min(1, max|{key}| = "
+              f"{peak:.3g}) at {int(over.sum())} elements")
+        errs.append(diff.max().item())
+        peaks.append(peak)
+    check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+          f"{label}: non-finite")
+    for r in pad_rows:
+        check(torch.equal(h[r], args[5][r]), f"{label}: row {r}, touched "
+                                             f"only by pads, changed")
+    x, _, b, _, _, h0, seq = args
+    (T, D), N, R = x.shape, b.shape[1], h0.shape[0]
+    ms = cuda_ms(torch, lambda: sk.ssm_scan(*args), 20, flush)
+    plain_ms = cuda_ms(torch, lambda: sk.selective_scan_reference(*args), 3,
+                       flush)
+    bound_ms, bound_by = scan_bound(T, D, N, R)
+    chain_ms = T * FMA_CYCLES / clock_hz * 1e3
+    live = int((args[1] != 0).any(dim=1).sum())
+    res = dict(label=label, tokens=T, live=live, rows=R,
+               max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+               chain_ms=chain_ms)
+    print(f"  {label:30s} T={T:4d} live={live:4d} R={R} err y {errs[0]:.3g} "
+          f"(max|y| {peaks[0]:.3g}) h {errs[1]:.3g} (max|h| {peaks[1]:.3g}) "
+          f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+          f"library=none bound={bound_ms:.5f}ms ({bound_by}) "
+          f"bound/kernel={bound_ms / ms:.4f} chain floor={chain_ms:.5f}ms "
+          f"({T} x {FMA_CYCLES} cycles)", flush=True)
+    return res
+
+
+def scan_inputs(torch, rows, pads, R, rng, D=1536, N=16):
+    """Kernel inputs at serving widths: token t on row rows[t]; tokens in
+    `pads` carry dt = 0. dt = softplus(N(-2, 1)), A = -(1..N) (the
+    A_log init), h0 ~ N(0, 1)."""
+    T = len(rows)
+    dt = np.log1p(np.exp(rng.standard_normal((T, D)) - 2.0))
+    dt[list(pads)] = 0.0
+    arrays = (rng.standard_normal((T, D)), dt, rng.standard_normal((T, N)),
+              rng.standard_normal((T, N)),
+              -np.tile(np.arange(1, N + 1), (D, 1)),
+              rng.standard_normal((R, D, N)))
+    return [torch.from_numpy(np.asarray(a, np.float32)).cuda()
+            for a in arrays] + [torch.tensor(rows, dtype=torch.int32,
+                                             device="cuda")]
+
+
+def phase_scan(torch, sk, flush, clock_hz):
+    """#11 against its twin at serving shapes (D 1536, N 16, f32)."""
+    rng = np.random.default_rng(SEED + 11)
+    chunk = [0] * 128 + list(range(1, 8))
+    cases = [
+        ("decode, 8 rows", list(range(8)), (), 8, ()),
+        ("chunk 128 + 7 decode rows", chunk + [0] * 121,
+         range(135, 256), 8, ()),
+        ("3 decode rows + 5 pads", [1, 2, 3] + [0] * 5, range(3, 8), 8,
+         (0, 4, 5, 6, 7)),
+        ("interleaved rows + 16 pads", [1, 1, 2, 1, 2, 2, 1, 2] * 2
+         + [0] * 16, range(16, 32), 3, (0,)),
+    ]
+    out = []
+    for label, rows, pads, R, pad_rows in cases:
+        args = scan_inputs(torch, rows, pads, R, rng)
+        out.append(hold_scan(torch, sk, flush, args, label, clock_hz,
+                             pad_rows))
+    return out
+
+
+def ssm_numpy_state(model, seed):
+    """The reference's SSM init, drawn with numpy: Normal(0,
+    initializer_range) weights, embeddings and convolution taps,
+    A_log = log(1..N) per channel, D = 1, zero biases, LayerNorm weight
+    1 and bias 0."""
+    rng = np.random.default_rng(seed)
+    std = np.float32(model.cfg.initializer_range)
+    state = {}
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)
+        owner, leaf = name.split(".")[-2:]
+        if owner.startswith("ln_"):
+            state[name] = (np.ones if leaf == "weight" else np.zeros)(
+                shape, np.float32)
+        elif leaf == "A_log":
+            state[name] = np.log(np.tile(np.arange(
+                1, shape[1] + 1, dtype=np.float32), (shape[0], 1)))
+        elif leaf == "D":
+            state[name] = np.ones(shape, np.float32)
+        elif leaf.endswith("bias"):
+            state[name] = np.zeros(shape, np.float32)
+        else:
+            state[name] = rng.standard_normal(shape, dtype=np.float32) * std
+    return state
+
+
+def phase_ssm_serve(torch, sk, flush, clock_hz, km, smods):
+    """Mamba-130M-shaped SSM serving in bf16, the main path of this
+    slice: counts set to 0 just before and read just after. Then a
+    profiled replay that records layer 0's kernel inputs in the fullest
+    decode step and the fullest mixed step, held and timed there.
+    Returns (launches, the held measurements)."""
+    GenerationEngine, SSMConfig, SSMForCausalLM, load_state, ssm_mod = smods
+    cfg = SSMConfig(**MAMBA_130M)
+    check(cfg.d_inner == 1536 and cfg.dt_rank == 48
+          and cfg.max_position_embeddings == 1024 and cfg.attn_every == 0,
+          "SSMConfig does not give Mamba-130M's shape")
+    model = SSMForCausalLM(cfg, dtype=torch.bfloat16)
+    t = time.perf_counter()
+    state = ssm_numpy_state(model, SEED)
+    load_state(model, state)
+    torch.cuda.synchronize()
+    n_params = sum(a.size for a in state.values())
+    check(n_params == SSM_PARAMS, f"{n_params} parameters, want "
+                                  f"{SSM_PARAMS}")
+    print(f"  weights drawn and loaded in {time.perf_counter() - t:.1f}s "
+          f"({n_params} parameters)")
+    prompts = make_prompts(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts(km)
+    eng, handles, streams, wave_s, all_s = serve(
+        GenerationEngine, model, prompts, SSM_SERVE)
+    launches = counts(km)
+    n = launches.pop("ssm_scan")
+    check(all(len(s) == NEW_TOKENS for s in streams),
+          f"stream lengths {[len(s) for s in streams]}")
+    check(all(0 <= t < cfg.vocab_size for s in streams for t in s),
+          "token id out of range")
+    check(n > 0 and n == eng.steps * cfg.num_layers
+          and eng.kernel_launches == n,
+          f"scan launches {n} (engine {eng.kernel_launches}) != steps "
+          f"{eng.steps} x {cfg.num_layers}")
+    check(not any(launches.values()),
+          f"other kernels ran while serving the SSM: {launches}")
+    check(eng.cache_strategy == "recurrent",
+          f"strategy {eng.cache_strategy}")
+    # the inert prefix cache: every prompt token and every fed-back token
+    # went through a step (no cached tokens were skipped)
+    stepped = sum(p.size for p in prompts) + len(prompts) * (NEW_TOKENS - 1)
+    check(eng._attn_useful == stepped, f"steps took {eng._attn_useful} real "
+                                       f"tokens, want {stepped}: the prefix "
+                                       f"cache served some")
+    check(eng.cache.match_prefix(prompts[1]) == (0, 0), "prefix cache hit")
+    ttft = [h.t_first - h.t_submit for h in handles[1:]]
+    stats = eng.cache.pool_stats()
+    print(f"  served {len(streams)} requests x {NEW_TOKENS} tokens: "
+          f"{eng.steps} steps, {n} scan launches, prefix-cache tokens 0 "
+          f"({stepped} real tokens stepped), pad share of the scan's "
+          f"updates {eng.pad_token_fraction():.3f}")
+    print(f"  wave of 7: {7 * NEW_TOKENS / wave_s:.1f} output tokens/s "
+          f"({wave_s:.3f}s, prefill included); TTFT mean "
+          f"{np.mean(ttft) * 1e3:.1f}ms max {np.max(ttft) * 1e3:.1f}ms; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"state bytes a sequence {stats['state_bytes']} "
+          f"({stats['n_slots']} slots: {stats['state_bytes_total']} bytes)")
+
+    best, calls = {}, [0]
+    real = ssm_mod.ssm_scan
+
+    def record(*args):
+        if calls[0] % cfg.num_layers == 0:  # layer 0 of the step
+            seq, dt = args[6], args[1]
+            live = (dt != 0).any(dim=1)
+            rows = len(set(seq[live].tolist()))
+            n_live = int(live.sum())
+            kind = "decode" if n_live == rows else "mixed"
+            pad_rows = tuple(sorted(set(range(args[5].shape[0]))
+                                    - set(seq[live].tolist())))
+            key = (rows, n_live)
+            if kind not in best or key > best[kind][0]:
+                best[kind] = (key, [a.clone() for a in args], pad_rows)
+        calls[0] += 1
+        return real(*args)
+
+    ssm_mod.ssm_scan = record
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            replay = serve(GenerationEngine, model, prompts, SSM_SERVE)[0]
+    finally:
+        ssm_mod.ssm_scan = real
+    where_the_time_goes(prof, replay.steps, all_s / eng.steps, "ssm_scan",
+                        "scan kernel")
+    check(set(best) == {"decode", "mixed"}, f"recorded {sorted(best)}")
+    held = {kind: hold_scan(torch, sk, flush, best[kind][1],
+                            f"served {kind} step, layer 0", clock_hz,
+                            best[kind][2])
+            for kind in ("decode", "mixed")}
+    del model
+    torch.cuda.empty_cache()
+    return n, held
+
+
+def phase_ssm_agreement(torch, km, smods, prompts):
+    """2-layer float32 pure and hybrid (attn_every=2, 12 heads: head_dim
+    64, so #1 and #11 both run) SSMs at Mamba-130M's width, served on the
+    card (kernels) and on the CPU (twins): greedy streams equal, or the
+    CPU's top-2 gap at the first mismatch within GAP_LIMIT; with every
+    stream equal, the real slots' conv tails and states after the run
+    within SSM_STATE_RTOL of their largest entry. The weights are drawn
+    with std SSM_AGREE_STD: at the reference's 0.02 a greedy stream
+    repeats its last prompt token whatever the mixers add, so equal
+    streams would not show that the card's steps are right."""
+    GenerationEngine, SSMConfig, SSMForCausalLM, load_state, _ = smods
+    pa, sk = km[1], km[5]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for kind, extra in (("pure", {}), ("hybrid", dict(attn_every=2,
+                                                       num_heads=12))):
+        cfg = SSMConfig(**dict(MAMBA_130M, num_layers=2,
+                               initializer_range=SSM_AGREE_STD, **extra))
+        runs = {}
+        for device in ("cuda", "cpu"):
+            model = SSMForCausalLM(cfg, device=device)
+            load_state(model, ssm_numpy_state(model, SEED))
+            zero_counts(km)
+            eng, _, streams, _, _ = serve(GenerationEngine, model, prompts,
+                                          SSM_SERVE)
+            on_card = device == "cuda"
+            n_attn = sum(cfg.is_attn_layer(i) for i in range(2))
+            want = (eng.steps * (2 - n_attn) * on_card,
+                    eng.steps * n_attn * on_card)
+            got = (sk.ssm_scan.launches, pa.ragged_paged_attention.launches)
+            check(got == want, f"{kind} {device}: (scan, paged) launches "
+                               f"{got}, want {want}")
+            rec = getattr(eng.cache, "recurrent", eng.cache)
+            runs[device] = (model, streams,
+                            [t[1:].cpu() for t in rec.conv + rec.ssm])
+        cpu_model, cpu, cpu_pools = runs["cpu"]
+        gpu, gpu_pools = runs["cuda"][1], runs["cuda"][2]
+        distinct = [len(set(s)) for s in cpu]
+        print(f"  {kind}: distinct tokens in each CPU stream {distinct}")
+        check(min(distinct) > 1, f"{kind}: a stream repeats one token, so "
+                                 f"it does not depend on the mixers")
+        equal = 0
+        for r, (a, b) in enumerate(zip(gpu, cpu)):
+            i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if i is None:
+                equal += 1
+                continue
+            ctx = np.concatenate([prompts[r], np.asarray(b[:i])])
+            gap = top2_gap(torch, cpu_model, ctx)
+            print(f"  {kind}: request {r}: first mismatch at generated token "
+                  f"{i} (cuda {a[i]}, cpu {b[i]}), cpu top-2 logit gap "
+                  f"{gap:.3g}")
+            check(gap <= GAP_LIMIT, f"{kind}: request {r} diverges at token "
+                                    f"{i} with a top-2 gap {gap} > "
+                                    f"{GAP_LIMIT}")
+        print(f"  {kind}: 2-layer float32 greedy streams equal on card and "
+              f"CPU: {equal}/{len(gpu)} requests")
+        if equal < len(gpu):
+            print(f"  {kind}: pools not compared: a stream took another "
+                  f"token within the gap")
+            continue
+        worst = 0.0
+        for got, want in zip(gpu_pools, cpu_pools):
+            peak = want.abs().max().item()
+            check(peak > 0, f"{kind}: a pool was never written")
+            worst = max(worst, (got - want).abs().max().item() / peak)
+        print(f"  {kind}: conv tails and states of slots 1-"
+              f"{cpu_pools[0].shape[0]}, card vs CPU: max |diff| / max|cpu| "
+              f"{worst:.3g}")
+        check(worst <= SSM_STATE_RTOL, f"{kind}: pools differ by {worst:.3g} "
+                                       f"of their size > {SSM_STATE_RTOL}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1588,12 +1947,17 @@ def main():
     from paddle_tpu_torch.ops.kernels import layer_norm as lk
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import softmax_xent as xk
+    from paddle_tpu_torch.ops.kernels import ssm_scan as sk
+    from paddle_tpu_torch.models import SSMConfig, SSMForCausalLM
+    from paddle_tpu_torch.models import ssm as ssm_mod
     from paddle_tpu_torch.optimizer import SGD, AdamW, Momentum
     mods = (GenerationEngine, GPTForCausalLM, gpt_medium,
             load_paddle_tpu_state, gpt_mod)
     tmods = (GPTForCausalLM, gpt_medium, load_paddle_tpu_state, TrainStep,
              AdamW, F)
-    km = (fa, pa, fk, lk, xk)
+    smods = (GenerationEngine, SSMConfig, SSMForCausalLM,
+             load_paddle_tpu_state, ssm_mod)
+    km = (fa, pa, fk, lk, xk, sk)
     t_start = time.perf_counter()
     card = card_line()
     print(f"[1] card: {card}", flush=True)
@@ -1619,7 +1983,7 @@ def main():
     served = {k: v for k, v in counts(km).items()
               if k != "ragged_paged_attention"}
     check(not any(served.values()),
-          f"training kernels ran while serving: {served}")
+          f"other kernels ran while serving GPT: {served}")
 
     print("[5] 2-layer float32: card vs CPU greedy streams", flush=True)
     phase_agreement(torch, pa, mods, prompts, state)
@@ -1647,6 +2011,20 @@ def main():
     print("[11] LayerNorm and softmax cross-entropy: kernels vs plain twins",
           flush=True)
     norm_xent = phase_norm_xent(torch, lk, xk, flush)
+
+    clock_hz = sm_clock_hz()
+    print(f"[12] selective scan: kernel vs plain twin (SM clock "
+          f"{clock_hz / 1e6:.0f} MHz for the chain floor)", flush=True)
+    scan_cases = phase_scan(torch, sk, flush, clock_hz)
+
+    print("[13] Mamba-130M-shaped SSM bf16 through GenerationEngine",
+          flush=True)
+    scan_launches, scan_held = phase_ssm_serve(torch, sk, flush, clock_hz,
+                                               km, smods)
+
+    print("[14] 2-layer float32 SSM, pure and hybrid: card vs CPU greedy "
+          "streams", flush=True)
+    phase_ssm_agreement(torch, km, smods, prompts)
 
     main_step = held["decode"]
     kernels = [{
@@ -1678,7 +2056,17 @@ def main():
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
-    print(f"[12] done in {time.perf_counter() - t_start:.1f}s; paged "
+    scan_main = scan_held["decode"]
+    kernels.append({
+        "name": SCAN_KERNEL[0], "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/ssm_scan.cu",
+        "replaces": SCAN_KERNEL[1], "launches": scan_launches,
+        "max_abs_err": max(m["max_abs_err"] for m in
+                           scan_cases + list(scan_held.values())),
+        "ms": scan_main["ms"], "plain_ms": scan_main["plain_ms"],
+        "bound_ms": scan_main["bound_ms"], "bound_by": scan_main["bound_by"],
+        "library_ms": None})
+    print(f"[15] done in {time.perf_counter() - t_start:.1f}s; paged "
           f"attention times are of the served decode step's layer-0 call, "
           f"flash times of the training shape [8, 1024, 16, 64] causal "
           f"bf16 (library: SDPA forward for the forward kernel, SDPA "
@@ -1689,7 +2077,9 @@ def main():
           f"times at [8192, 1024] bf16 (library: F.layer_norm forward, its "
           f"backward), xent times at [8192, 50304] bf16 (library: "
           f"F.cross_entropy(reduction='none') forward, its backward); "
-          f"launches of #5-#8 from the switched training run; card: {card}")
+          f"launches of #5-#8 from the switched training run; scan times of "
+          f"the served SSM decode step's layer-0 call (library: none, no "
+          f"single PyTorch call computes a selective scan); card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,26 +1,32 @@
 """Serving engine: continuous-batching generation over the ragged step.
 
 Counterpart: paddle_tpu/inference/serving.py `GenerationEngine`, its
-ragged path (the default for GPT). Callers `submit()` prompts and get a
-`GenerationHandle` that streams tokens as they are decoded. A scheduler
-thread runs ONE mixed step per iteration
+ragged path (the default for GPT and the SSM family). Callers `submit()`
+prompts and get a `GenerationHandle` that streams tokens as they are
+decoded. A scheduler thread runs ONE mixed step per iteration
 (`model.paged_ragged_step`): every active sequence's decode token plus
 up to `prefill_chunk` prompt tokens of the admitted-but-prefilling set
 (CHUNKED PREFILL, shortest remaining prompt first), so a long prompt
 admits incrementally instead of stalling the batch. Token and row
 counts are padded to power-of-two buckets, the token bucket never below
-MIN_Q_TOKENS; pad tokens carry bound 0 and cost the kernel nothing.
+MIN_Q_TOKENS; pad tokens cost the attention kernel nothing (bound 0)
+and are identity updates of the scan (dt 0).
 
+The engine drives its cache through the strategy surface of
+inference/cache_strategy.py and never branches on it except in its
+accounting: a GPT model brings a PagedKVCache ("paged"), an SSM model a
+RecurrentStateCache ("recurrent": one state slot a sequence, inert
+prefix cache) or, interleaved with attention, a HybridCache ("hybrid").
 Admission reserves each request's worst case (prompt + max_new_tokens
-pages) credited with the REFCOUNTED PREFIX CACHE's fully matched pages
-(`PagedKVCache.acquire_prefix`), against the free list plus the
-registry's evictable retention; a finished sequence registers its
-prompt's pages for future sharers when it is evicted.
+pages, or one slot) credited with the REFCOUNTED PREFIX CACHE's fully
+matched pages (`PagedKVCache.acquire_prefix`), against the free list
+plus the registry's evictable retention; a finished sequence registers
+its prompt's pages for future sharers when it is evicted.
 
 The step's only synchronization is the host read of the sampled int32
 tokens. Decoding is greedy. Each engine keeps plain counters: `steps`
-(ragged steps run) and `kernel_launches` (ragged paged-attention
-kernel launches they made).
+(ragged steps run) and `kernel_launches` (launches of the kernels the
+model's step runs: ragged paged attention, the selective scan).
 
 Not ported yet (ROADMAP.md queue A): seeded sampling, speculative
 decoding, prefill/decode handoff and the router, the legacy bucketed
@@ -38,6 +44,8 @@ import torch
 from ..ops.attention_core import MIN_Q_TOKENS
 from ..ops.kernels.paged_attention import (ragged_paged_attention,
                                            ragged_work_plan)
+from ..ops.kernels.ssm_scan import ssm_scan
+from .cache_strategy import strategy_of
 
 __all__ = ["ServingError", "QueueFullError", "DeadlineExceeded",
            "EngineStopped", "GenerationEngine", "GenerationHandle",
@@ -201,8 +209,8 @@ def _run_scheduler(ref, device):
 
 
 class GenerationEngine:
-    """Continuous-batching autoregressive serving over a shared paged KV
-    cache:
+    """Continuous-batching autoregressive serving over the model's
+    decode cache (paged KV, recurrent state, or both):
 
         engine = GenerationEngine(model, n_pages=256, max_batch=8)
         h = engine.submit(prompt_ids, max_new_tokens=64)
@@ -210,11 +218,11 @@ class GenerationEngine:
         full = h.result()               # np.int64 [n_generated]
 
     `model` needs `paged_ragged_step` and `make_paged_cache`
-    (models/gpt.py `GPTForCausalLM`); the engine runs on the model's
-    device. Requests above `max_queue` waiting are rejected
-    (QueueFullError); `deadline_ms` expires a request still queued
-    (DeadlineExceeded); `drain()`/`shutdown()` finish in-flight work
-    before stopping."""
+    (models/gpt.py `GPTForCausalLM`, models/ssm.py `SSMForCausalLM`);
+    the engine runs on the cache's device. Requests above `max_queue`
+    waiting are rejected (QueueFullError); `deadline_ms` expires a
+    request still queued (DeadlineExceeded); `drain()`/`shutdown()`
+    finish in-flight work before stopping."""
 
     def __init__(self, model, n_pages=256, page_size=16, max_batch=8,
                  max_queue=64, max_new_tokens=64, eos_token_id=None,
@@ -226,18 +234,22 @@ class GenerationEngine:
                     "(e.g. models.gpt.GPTForCausalLM)")
         self.model = model
         self.cache = model.make_paged_cache(n_pages, page_size)
+        # "paged" | "recurrent" | "hybrid": selects the step accounting
+        self.cache_strategy = strategy_of(self.cache)
         self.max_batch = int(max_batch)
         self.max_queue = int(max_queue)
         self.default_max_new = int(max_new_tokens)
         self.eos_token_id = eos_token_id
         self.prefill_chunk = max(1, int(prefill_chunk))
-        # attention-slot accounting: kv score slots each step COMPUTES
-        # (ceil(bound / P) pages per token, the kernel's work counter)
-        # vs slots inside some token's causal bound
+        # step accounting: work each step COMPUTES vs work for real
+        # tokens. Paged: kv score slots, ceil(bound / P) pages per token
+        # (the attention kernel's work counter) vs slots inside some
+        # token's causal bound. Recurrent: the scan's state updates, one
+        # per token of the padded step vs one per real token.
         self._attn_computed = 0
         self._attn_useful = 0
         self.steps = 0            # ragged steps run
-        self.kernel_launches = 0  # ragged attention kernel launches
+        self.kernel_launches = 0  # launches of the step's kernels
         self._pending = deque()
         self._active = []        # decoding, in row order
         self._prefilling = []    # admitted, prompt KV still chunking in
@@ -283,7 +295,7 @@ class GenerationEngine:
             raise ValueError(
                 f"prompt {prompt.size} + max_new_tokens {max_new} "
                 f"exceeds max_position_embeddings {limit}")
-        usable = self.cache.n_pages - 1  # page 0 is the reserved pad page
+        usable = self.cache.n_pages - 1  # page (slot) 0 is the reserved pad
         need = self.cache.pages_needed(prompt.size + max_new)
         if need > usable:
             raise ValueError(
@@ -425,8 +437,8 @@ class GenerationEngine:
         """ONE mixed step: every active sequence's decode token plus up
         to `prefill_chunk` prompt tokens of the prefilling set
         (shortest remaining prompt first), token/row counts padded to
-        power-of-two buckets whose pad slots the kernel skips. The
-        host reads back one int32 per row."""
+        power-of-two buckets (pad tokens: no attention work, identity
+        scan updates). The host reads back one int32 per row."""
         for s in list(self._prefilling):  # cancelled mid-prefill: evict
             if s.handle.future.cancelled():
                 with self.cache.lock:
@@ -456,19 +468,26 @@ class GenerationEngine:
         b_real = len(rows)
         pad_t = max(self._pow2(t_real), MIN_Q_TOKENS)
         pad_b = min(self._pow2(b_real), self._pow2(self.max_batch))
-        # each token computes ceil(bound / P) pages of score slots (the
-        # kernel's work formula); pad slots compute nothing
-        P = self.cache.page_size
-        bounds = np.concatenate(
-            [self.cache.length(sid) + np.arange(1, len(toks) + 1)
-             for sid, toks in rows])
-        self._attn_computed += int(ragged_work_plan(bounds, P).sum()) * P
-        self._attn_useful += int(bounds.sum())
-        launched = ragged_paged_attention.launches
+        if self.cache_strategy == "recurrent":
+            # no kv pages to walk: the scan runs pad_t constant-cost
+            # state updates, t_real of them for real tokens
+            self._attn_computed += pad_t
+            self._attn_useful += t_real
+        else:
+            # each token computes ceil(bound / P) pages of score slots
+            # (the kernel's work formula); pad slots compute nothing
+            P = self.cache.page_size
+            bounds = np.concatenate(
+                [self.cache.length(sid) + np.arange(1, len(toks) + 1)
+                 for sid, toks in rows])
+            self._attn_computed += int(ragged_work_plan(bounds, P).sum()) * P
+            self._attn_useful += int(bounds.sum())
+        launched = ragged_paged_attention.launches + ssm_scan.launches
         _, nxt = self.model.paged_ragged_step(
             self.cache, rows, pad_to_tokens=pad_t, pad_to_rows=pad_b)
         toks = nxt.cpu().tolist()  # the step's one device-to-host read
-        self.kernel_launches += ragged_paged_attention.launches - launched
+        self.kernel_launches += ragged_paged_attention.launches \
+            + ssm_scan.launches - launched
         self.steps += 1
         for (kind, s, n), tok in zip(metas, toks):
             if kind == "decode":
@@ -484,9 +503,10 @@ class GenerationEngine:
             self._emit(s, tok)
 
     def pad_token_fraction(self):
-        """Measured fraction of this engine's attention score slots
-        spent outside any token's causal bound (the intra-page
-        remainder: pad tokens compute nothing)."""
+        """Measured fraction of this engine's step work spent on no real
+        token: attention score slots outside any token's causal bound
+        (the intra-page remainder: pad tokens compute nothing), or, on
+        the recurrent strategy, the scan's pad-token updates."""
         if not self._attn_computed:
             return 0.0
         return max(0.0, 1.0 - self._attn_useful / self._attn_computed)

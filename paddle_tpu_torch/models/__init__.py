@@ -1,7 +1,12 @@
-"""Models of the port: GPT (training and serving) and the carry-over of
-paddle_tpu weights and optimizer state."""
+"""Models of the port: GPT (training and serving), the SSM family
+(serving and inference) and the carry-over of paddle_tpu weights and
+optimizer state."""
 from .convert import load_paddle_tpu_opt_state, load_paddle_tpu_state
 from .gpt import GPTConfig, GPTForCausalLM, GPTModel, gpt_medium, gpt_tiny
+from .ssm import (SSMConfig, SSMForCausalLM, SSMModel, ssm_hybrid_tiny,
+                  ssm_tiny)
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "gpt_medium",
-           "gpt_tiny", "load_paddle_tpu_state", "load_paddle_tpu_opt_state"]
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "SSMConfig",
+           "SSMForCausalLM", "SSMModel", "gpt_medium", "gpt_tiny",
+           "load_paddle_tpu_state", "load_paddle_tpu_opt_state",
+           "ssm_hybrid_tiny", "ssm_tiny"]

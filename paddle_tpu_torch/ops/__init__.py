@@ -3,16 +3,18 @@ the shared attention policy (attention_core.py) and the hand-written
 CUDA kernels with their plain PyTorch twins (kernels/).
 
 `flash_attention` is the training attention the functional
-`scaled_dot_product_attention` routes to, and `fused_layer_norm` the
+`scaled_dot_product_attention` routes to and `fused_layer_norm` the
 LayerNorm the functional `layer_norm` routes to when
-PADDLE_TPU_PALLAS_LN=1, as in the reference's `paddle_tpu.ops`."""
+PADDLE_TPU_PALLAS_LN=1, as in the reference's `paddle_tpu.ops`;
+`ssm_scan` is the SSM family's ragged selective scan (kernel #11)."""
 import torch
 
 from .kernels.flash_attention import flash_attention
 from .kernels.layer_norm import layer_norm as _layer_norm
+from .kernels.ssm_scan import ssm_scan
 
 __all__ = ["flash_attention", "fused_layer_norm",
-           "fused_layer_norm_available"]
+           "fused_layer_norm_available", "ssm_scan"]
 
 
 def fused_layer_norm_available():

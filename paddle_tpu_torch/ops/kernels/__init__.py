@@ -1,6 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain
 PyTorch twin (`<name>_reference`). Sources: paddle_tpu_torch/csrc/;
 built and loaded by _build.py. Below: what every wrapper shares."""
+import functools
+
 import torch
 
 # the dtype code each kernel's C entry point takes
@@ -21,6 +23,14 @@ def current_stream(device):
                          f"is cuda:{torch.cuda.current_device()}; make it "
                          "current (torch.cuda.set_device)")
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.cache
+def sm_count(device_index):
+    """Streaming multiprocessors of CUDA device `device_index` (the
+    wrappers size their grids by it)."""
+    return torch.cuda.get_device_properties(
+        device_index).multi_processor_count
 
 
 def aligned16(*tensors, row_bytes=0):

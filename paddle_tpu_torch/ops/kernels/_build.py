@@ -34,7 +34,8 @@ SOURCES = {"paged_attention": "paged_attention.cu",
            "flash_attention": "flash_attention.cu",
            "fused_update": "fused_update.cu",
            "layer_norm": "layer_norm.cu",
-           "softmax_xent": "softmax_xent.cu"}
+           "softmax_xent": "softmax_xent.cu",
+           "ssm_scan": "ssm_scan.cu"}
 
 # -Xptxas -v puts each kernel's registers, shared memory and spills in
 # the build log (build/kernels/<library>.log)

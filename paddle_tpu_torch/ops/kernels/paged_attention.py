@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..attention_core import NEG_INF, default_scale
-from . import DTYPE_CODES, _build, current_stream
+from . import DTYPE_CODES, _build, current_stream, sm_count
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_reference",
            "build_block_plan", "ragged_work_plan"]
@@ -168,12 +168,6 @@ def _kernel():
     return fn, lib.paged_attention_max_rows()
 
 
-@functools.cache
-def _sm_count(device_index):
-    return torch.cuda.get_device_properties(
-        device_index).multi_processor_count
-
-
 def tokens_per_block(n_tokens, n_kv_heads, fold, n_sms, max_rows):
     """Tokens one thread block takes: as many as its `max_rows` query
     rows hold (tokens of one prefill chunk then share each page load),
@@ -213,7 +207,7 @@ def _launch(q, k_pages, v_pages, page_table, token_seq, bounds, scale):
     work = torch.empty(T, dtype=torch.int32, device=q.device)
     if T == 0:
         return out, work
-    tpb = tokens_per_block(T, KVH, fold, _sm_count(index), max_rows)
+    tpb = tokens_per_block(T, KVH, fold, sm_count(index), max_rows)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), token_seq.data_ptr(), bounds.data_ptr(),
              out.data_ptr(), work.data_ptr(), T, H, KVH, D, n_pages, P, B, W,

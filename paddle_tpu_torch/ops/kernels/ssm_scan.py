@@ -1,0 +1,202 @@
+"""Ragged selective scan (Mamba SSM): the Hopper kernel's wrapper
+(kernel #11) and its plain twin.
+
+Counterpart: paddle_tpu/ops/pallas/ssm_scan.py. ONE call advances a
+batch of tokens whose rows belong to different sequences: decode rows
+(one token) and prefill-chunk rows (a slice of a prompt) mix freely in
+one fixed-shape token axis. For token t with row r = token_seq[t]:
+
+    h_r <- exp(dt_t * A) * h_r + (dt_t * x_t) * B_t
+    y_t  = sum_N(h_r * C_t)
+
+over states h [R, D, N] carried through the scan in float32. Pad tokens
+are identities by construction: the caller zeroes their dt, so
+exp(0 * A) = 1 and (0 * x) * B = 0; they may point at any row (row 0 by
+convention). A token whose row lies outside [0, R) reads a zero state
+and writes none, as the reference's one-hot row select does. Rows may
+interleave; each row's tokens are applied in stream order.
+
+- `ssm_scan` is the entry point. For CUDA tensors it launches the
+  hand-written kernel in `paddle_tpu_torch/csrc/ssm_scan.cu` (built by
+  nvcc at first use, ops/kernels/_build.py) or raises; it never falls
+  back. For CPU tensors it runs the plain twin. Each launch adds one to
+  `ssm_scan.launches`.
+- `selective_scan_reference` is the plain PyTorch twin, the reference
+  kernel's math op for op. The CPU tests hold it against the Pallas
+  kernel in interpret mode; chip_smoke.py holds the kernel against it
+  on the card.
+- `choose_d_block` is the kernel's channel tiling for Hopper.
+
+Neither package has a backward for the scan: a CUDA call on tensors that
+require grad raises.
+"""
+import ctypes
+import functools
+
+import torch
+
+from . import _build, current_stream, sm_count
+
+__all__ = ["ssm_scan", "selective_scan_reference", "choose_d_block"]
+
+# threads of a kernel block at most; lanes of a channel = N rounded up
+# to a power of two (the kernel's template), at most a warp
+_BLOCK_THREADS = 128
+_MAX_STATE = 32
+
+_NO_BACKWARD = (
+    "the selective scan has no backward (neither here nor in the "
+    "reference, whose Pallas kernel has no VJP): SSM training waits for "
+    "one, ROADMAP.md queue A, item 16")
+
+
+def _lanes(d_state):
+    """Lanes a channel takes in the kernel: d_state rounded up to a power
+    of two."""
+    return 1 << (max(int(d_state), 1) - 1).bit_length()
+
+
+def choose_d_block(d_inner, d_state, n_sms=132):
+    """Channels per kernel block on Hopper. Each channel takes
+    `_lanes(d_state)` threads (one per state column, a power of two up
+    to a warp) and a block at most 128 threads (4 warps). The scan is a
+    chain of T dependent updates per thread, so its time does not fall
+    with more threads per channel; what helps is spreading the channels
+    over the card: the block is halved, down to one warp, while the grid
+    would have fewer than two blocks per SM. The block's shared memory
+    (row states, staged token tiles) grows with it and stays small."""
+    lanes = _lanes(d_state)
+    db = max(_BLOCK_THREADS // lanes, 1)
+    while db * lanes > 32 and -(-int(d_inner) // db) < 2 * int(n_sms):
+        db //= 2
+    return db
+
+
+# -- plain twin -----------------------------------------------------------
+
+def selective_scan_reference(x, dt, b, c, a, h0, token_seq):
+    """The plain PyTorch twin, on any device: a Python loop over the
+    tokens in float32 with the reference's ragged contract. Returns
+    (y [T, D] in x's dtype, h_out [R, D, N] in h0's dtype)."""
+    T, D = x.shape
+    R = h0.shape[0]
+    f32, y_dtype = torch.float32, x.dtype
+    x, dt, b, c, a = (t.to(f32) for t in (x, dt, b, c, a))
+    da = torch.exp(dt[:, :, None] * a)               # [T, D, N]
+    dbx = (dt * x)[:, :, None] * b[:, None, :]       # [T, D, N]
+    states = list(h0.to(f32).unbind(0))
+    zero = torch.zeros(D, a.shape[1], dtype=f32, device=x.device)
+    ys = [torch.zeros(0, D, dtype=f32, device=x.device)]
+    for t, r in enumerate(token_seq.tolist()):
+        inside = 0 <= r < R
+        h_new = da[t] * (states[r] if inside else zero) + dbx[t]
+        if inside:
+            states[r] = h_new
+        ys.append((h_new * c[t]).sum(-1)[None])
+    h_out = torch.stack(states) if states else h0.to(f32)
+    return torch.cat(ys).to(y_dtype), h_out.to(h0.dtype)
+
+
+# -- kernel launch --------------------------------------------------------
+
+def _check(x, dt, b, c, a, h0, token_seq):
+    """Shapes, dtypes and devices both paths take."""
+    if x.dim() != 2 or h0.dim() != 3:
+        raise ValueError(f"x must be [T, D] and h0 [R, D, N], got "
+                         f"{tuple(x.shape)} / {tuple(h0.shape)}")
+    T, D = x.shape
+    R, _, N = h0.shape
+    want = {"dt": (dt, (T, D)), "b": (b, (T, N)), "c": (c, (T, N)),
+            "a": (a, (D, N)), "h0": (h0, (R, D, N)),
+            "token_seq": (token_seq, (T,))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{list(t.shape)}")
+    if token_seq.dtype != torch.int32:
+        raise TypeError(f"token_seq must be int32, got {token_seq.dtype}")
+    if not all(t.dtype.is_floating_point for t in (x, dt, b, c, a, h0)):
+        raise TypeError("x, dt, b, c, a and h0 must be float tensors")
+    devices = {t.device for t in (x, dt, b, c, a, h0, token_seq)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs span devices {sorted(map(str, devices))}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssm_scan runs on cuda (kernel) or cpu (plain "
+                         f"twin), not {x.device.type}")
+
+
+@functools.cache
+def _kernel():
+    """(the kernel's ctypes entry, its rows-limit entry), built and
+    loaded at first use, then kept."""
+    lib = _build.load("ssm_scan")
+    fn = lib.ssm_scan
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.ssm_scan_max_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ssm_scan_max_rows.restype = ctypes.c_int
+    return fn, lib.ssm_scan_max_rows
+
+
+def _launch(x, dt, b, c, a, h0, token_seq):
+    T, D = x.shape
+    R, _, N = h0.shape
+    tensors = (("x", x), ("dt", dt), ("b", b), ("c", c), ("a", a),
+               ("h0", h0))
+    bad = [f"{n} {t.dtype}" for n, t in tensors if t.dtype != torch.float32]
+    if bad:
+        raise TypeError(f"the kernel takes float32 only (the reference "
+                        f"scans in float32), got {', '.join(bad)}")
+    if N > _MAX_STATE:
+        raise ValueError(f"d_state {N} > {_MAX_STATE}: the kernel gives a "
+                         "channel at most one warp")
+    for name, t in tensors + (("token_seq", token_seq),):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    stream = current_stream(x.device)
+    fn, max_rows = _kernel()
+    db = choose_d_block(D, N, sm_count(x.device.index))
+    if R > max_rows(db, N):
+        raise ValueError(f"{R} state rows do not fit one block's shared "
+                         f"memory (at most {max_rows(db, N)} at d_state "
+                         f"{N})")
+    y = torch.empty(T, D, dtype=torch.float32, device=x.device)
+    h_out = torch.empty_like(h0)
+    if T == 0 or R == 0 or D == 0:
+        return y, h_out.copy_(h0)
+    err = fn(x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
+             a.data_ptr(), h0.data_ptr(), token_seq.data_ptr(),
+             y.data_ptr(), h_out.data_ptr(), T, D, N, R, db, stream)
+    if err:
+        raise RuntimeError(f"ssm_scan kernel launch failed: cudaError {err}")
+    ssm_scan.launches += 1
+    return y, h_out
+
+
+def ssm_scan(x, dt, b, c, a, h0, token_seq):
+    """Ragged selective scan over a fixed-shape token batch.
+
+    x [T, D]        post-conv activations
+    dt [T, D]       softplus'd step sizes; zero on pad tokens
+    b, c [T, N]     the input- and output-projection coefficients
+    a [D, N]        the state matrix A (negative: -exp(A_log))
+    h0 [R, D, N]    per-row initial states (row 0 = the pad row)
+    token_seq [T]   int32 row of each token
+
+    Returns (y [T, D], h_out [R, D, N]): per-token outputs and every
+    row's final state.
+
+    CPU tensors run the plain twin. CUDA tensors launch the kernel
+    (float32, contiguous, d_state <= 32) or raise; each launch adds one
+    to `ssm_scan.launches` (an empty batch launches nothing)."""
+    _check(x, dt, b, c, a, h0, token_seq)
+    if x.device.type == "cpu":
+        return selective_scan_reference(x, dt, b, c, a, h0, token_seq)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, b, c, a, h0)):
+        raise NotImplementedError(_NO_BACKWARD)
+    return _launch(x, dt, b, c, a, h0, token_seq)
+
+
+ssm_scan.launches = 0

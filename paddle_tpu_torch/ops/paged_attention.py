@@ -31,9 +31,10 @@ copies a page with `copy_`. The pools are allocated once and never
 replaced.
 
 The claims ledger (`set_claim` / `outstanding_claims`) keeps admission
-reservations pool-wide; `lock` serializes allocator mutations. Chain
-export/adoption, rollback, `plan_decode` and the legacy gather
-attention are not ported yet (ROADMAP.md queue A).
+reservations pool-wide; `lock` serializes allocator mutations;
+`pool_stats` snapshots the pool (HybridCache reports it with its state
+gauges). Chain export/adoption, rollback, `plan_decode` and the legacy
+gather attention are not ported yet (ROADMAP.md queue A).
 """
 import threading
 from collections import OrderedDict
@@ -333,6 +334,35 @@ class PagedKVCache:
         registry is empty)."""
         while len(self._free) < n_pages and self._lru:
             self._evict_chain(next(iter(self._lru)))
+
+    def pool_stats(self):
+        """Snapshot of the pool: free/held/shared/registered/evictable
+        page counts, the refcount histogram, the prefix registry's size
+        and the draw / copy-on-write / reclaim counters (free + held ==
+        n_pages - 1: the pad page is neither). The allocator's dicts are
+        copied first, so any thread may call it."""
+        ref = dict(self._ref)
+        chain = list(self._chain_info.values())
+        refcounts = {}
+        for r in ref.values():
+            refcounts[r] = refcounts.get(r, 0) + 1
+        return {
+            "cache_strategy": "paged",
+            "n_pages": int(self.n_pages),
+            "page_size": int(self.page_size),
+            "free_pages": len(self._free),
+            "held_pages": len(ref),
+            "shared_pages": sum(1 for r in ref.values() if r > 1),
+            "registered_pages": len({info["page"] for info in chain}),
+            "evictable_pages": sum(
+                1 for info in chain if ref.get(info["page"], 0) == 1),
+            "prefix_nodes": len(chain),
+            "sequences": len(self._tables),
+            "pages_drawn": int(self._stats["pages_drawn"]),
+            "cow_copies": int(self._stats["cow_copies"]),
+            "lru_reclaims": int(self._stats["prefix_evictions"]),
+            "refcounts": {str(r): n for r, n in sorted(refcounts.items())},
+        }
 
     def prefix_stats(self):
         """Counters and the registry's current shape."""

@@ -46,6 +46,15 @@ float32 within 1e-4 of their largest value (sums over the rows in
 another order); bfloat16 within one bf16 ulp (each side rounds the
 float32 sum once). A route switched on never falls back: when the
 library cannot be loaded, a CUDA tensor raises.
+
+The selective scan (kernel #11) against its twin at serving widths
+(D = 1536, N = 16, float32) and at odd ones (a width no block divides,
+N = 8 and 5, one row): pure decode, a 128-token chunk among decode rows,
+pads on row 0, interleaved rows. y and the final states within rtol
+1e-5, atol 1e-5, the reference's own kernel-against-oracle tolerance
+(float32 sums over N in another order, nvcc's fused multiply-adds); a
+row that only pads touch, or none, keeps its state bit for bit. A CUDA
+call on tensors that require grad, or on other dtypes, raises.
 """
 import numpy as np
 import pytest
@@ -59,6 +68,7 @@ from paddle_tpu_torch.ops.kernels import fused_update as fk
 from paddle_tpu_torch.ops.kernels import layer_norm as ln
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import softmax_xent as xent
+from paddle_tpu_torch.ops.kernels import ssm_scan as sk
 from paddle_tpu_torch.optimizer import SGD, Adam, AdamW, Momentum
 
 H, D, P = 16, 64, 16
@@ -454,3 +464,89 @@ def test_switched_routes_raise_when_the_library_cannot_load(monkeypatch):
     finally:
         ln._kernels.cache_clear()
         xent._kernels.cache_clear()
+
+
+# -- the selective scan (kernel #11) --------------------------------------
+
+def _scan_case(name, rng):
+    """(D, N, R, token rows, pad tokens) of one selective-scan case."""
+    if name == "decode":
+        return 1536, 16, 8, list(range(8)), []
+    if name == "mixed":  # a 128-token chunk, 7 decode rows, pads to 256
+        return 1536, 16, 8, [0] * 128 + list(range(1, 8)) + [0] * 121, \
+            list(range(135, 256))
+    if name == "pads":   # rows 1-3 decode, pads on row 0, rows 4-7 idle
+        return 1536, 16, 8, [1, 2, 3] + [0] * 5, list(range(3, 8))
+    if name == "interleaved":
+        return 1538, 16, 3, [1, 1, 2, 1, 2, 2, 1, 2] * 4 + [0] * 8, \
+            list(range(32, 40))
+    if name == "n8":
+        return 102, 8, 4, list(rng.randint(0, 4, 40)), []
+    return 37, 5, 1, [0] * 70, list(range(60, 70))  # "n5_one_row"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["decode", "mixed", "pads", "interleaved",
+                                  "n8", "n5_one_row"])
+def test_ssm_scan_matches_twin_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.RandomState(0)
+    D, N, R, seq, pads = _scan_case(name, rng)
+    T = len(seq)
+    x = rng.randn(T, D).astype(np.float32)
+    dt = np.log1p(np.exp(rng.randn(T, D) - 2.0)).astype(np.float32)
+    dt[pads] = 0.0
+    a = -np.tile(np.arange(1, N + 1, dtype=np.float32), (D, 1))
+    arrays = (x, dt, rng.randn(T, N).astype(np.float32),
+              rng.randn(T, N).astype(np.float32), a,
+              rng.randn(R, D, N).astype(np.float32),
+              np.asarray(seq, np.int32))
+    args = [torch.from_numpy(t).cuda() for t in arrays]
+    before = sk.ssm_scan.launches
+    y, h = sk.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert sk.ssm_scan.launches == before + 1
+    y_want, h_want = sk.selective_scan_reference(*args)
+    torch.testing.assert_close(y, y_want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h, h_want, rtol=1e-5, atol=1e-5)
+    real = {r for t, r in enumerate(seq) if t not in pads}
+    for r in set(range(R)) - real:
+        assert torch.equal(h[r], args[5][r]), r
+
+
+@pytest.mark.cuda
+def test_ssm_scan_refuses_grad_and_other_dtypes_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    T, D, N, R = 8, 64, 16, 2
+    dev = torch.device("cuda")
+    x, dt = torch.randn(T, D, device=dev), torch.rand(T, D, device=dev)
+    b, c = torch.randn(T, N, device=dev), torch.randn(T, N, device=dev)
+    a = -torch.rand(D, N, device=dev)
+    h0 = torch.randn(R, D, N, device=dev)
+    seq = torch.zeros(T, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        sk.ssm_scan(x.requires_grad_(), dt, b, c, a, h0, seq)
+    with pytest.raises(TypeError, match="float32 only"):
+        sk.ssm_scan(x.detach().bfloat16(), dt, b, c, a, h0, seq)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_counts_no_launch_for_an_empty_batch():
+    """T = 0 returns h0 unchanged without a launch, and the counter
+    says so."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    D, N, R = 64, 16, 2
+    dev = torch.device("cuda")
+    h0 = torch.randn(R, D, N, device=dev)
+    before = sk.ssm_scan.launches
+    y, h = sk.ssm_scan(torch.empty(0, D, device=dev),
+                       torch.empty(0, D, device=dev),
+                       torch.empty(0, N, device=dev),
+                       torch.empty(0, N, device=dev),
+                       -torch.rand(D, N, device=dev), h0,
+                       torch.empty(0, dtype=torch.int32, device=dev))
+    assert sk.ssm_scan.launches == before
+    assert y.shape == (0, D) and torch.equal(h, h0)
