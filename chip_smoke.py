@@ -9,7 +9,7 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build every kernel from paddle_tpu_torch/csrc/ (one nvcc per
    source, all started together), timed, with each kernel's registers
-   and spills;
+   and spills; a tensor-core kernel that spills fails the run;
 3. the ragged paged-attention kernel against its plain PyTorch twin at
    serving shapes (16 heads, head_dim 64, page 16), in bfloat16 and
    float32: pure decode, a prefill chunk mixed with decode rows, pad
@@ -36,10 +36,14 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
 6. the three flash-attention kernels (forward, dQ, dK/dV) against their
    plain twins, q/k/v as strided views of one fused projection, in
    bfloat16 and float32: [8, 1024, 16, 64] causal and full, a ragged
-   T = 1000 causal, Tq = 256 against Tk = 1024 full. At the training
-   shape in bf16, each kernel's time, its twin's, one PyTorch call's
-   (scaled_dot_product_attention forward, or its backward) and the
-   bound;
+   T = 1000 causal, Tq = 256 against Tk = 1024 full. bfloat16 dQ and
+   dK/dV run on the tensor cores (wgmma), float32 on the CUDA cores.
+   Per case each kernel's time, its twin's, one PyTorch call's
+   (scaled_dot_product_attention forward, or its backward), the bound
+   and the achieved TFLOP/s, and dQ + dK/dV against the backward call.
+   After phase 7, dQ and dK/dV again on layer 0's q, k, v, dO, lse and
+   delta of the first main-path training step (kept by a hook on the
+   dQ wrapper; dO there is ~1e-6, which random inputs never show);
 7. GPT-medium at full width in bfloat16 (the phase-4 weights) trained by
    TrainStep(monitor_health=True), with no fused_update argument, with
    AdamW(lr=1e-4, multi_precision=True) on bench.py's batch (8 x 1024,
@@ -55,7 +59,9 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    with the default run's to 1e-3 relative). For each run: losses and
    health vectors finite, found_inf 0, the loss falling; ms/step,
    tokens/s, MFU, peak memory, device ms, idle share, the epilogue's
-   device ms and the CUDA kernel launches of the profiled step;
+   device ms and the CUDA kernel launches of the profiled step; each
+   run's step-13 loss beside the one the float32 CUDA-core backward
+   kernels gave;
 8. GPT-medium width with 2 layers in float32, 3 train steps (batch
    2 x 256) on the card (kernels) and on the CPU (twins) from the same
    weights, on each epilogue and on the default one with both switches
@@ -596,19 +602,27 @@ EPILOGUE = "TrainStep.epilogue"  # TrainStep's record_function range
 AGREE = dict(layers=2, batch=2, seq=256, steps=3, rtol=1e-3)
 
 
-def flash_bound(kind, q, k, causal):
-    """(ms, "bytes"|"operations") for one flash call on these inputs.
-    Operations: 2*D per (row, visible key) per product: 2 products
-    forward (q.k, p.v), 3 for dQ (q.k, dO.v, ds.k), 4 for dK/dV (q.k,
-    dO.v, p^T.dO, ds^T.q); visible keys counted exactly (causal: row >=
-    col). Bytes: each input read once and each output written once:
-    forward q, k, v -> out, lse; dQ q, k, v, dO, lse, delta -> dq; dK/dV
-    the same inputs -> dk, dv."""
+def flash_ops(kind, q, k, causal):
+    """Operations of one flash call: 2*D per (row, visible key) per
+    product: 2 products forward (q.k, p.v), 3 for dQ (q.k, dO.v, ds.k),
+    4 for dK/dV (q.k, dO.v, p^T.dO, ds^T.q); visible keys counted
+    exactly (causal: row >= col)."""
     B, Tq, Hh, Dh = q.shape
     Tk = k.shape[1]
     pairs = sum(min(r + 1, Tk) for r in range(Tq)) if causal else Tq * Tk
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
-    ops = 2 * Dh * products * pairs * B * Hh
+    return 2 * Dh * products * pairs * B * Hh
+
+
+def flash_bound(kind, q, k, causal):
+    """(ms, "bytes"|"operations") for one flash call on these inputs:
+    its operations (flash_ops) at the dtype's peak, or its bytes, each
+    input read once and each output written once: forward q, k, v ->
+    out, lse; dQ q, k, v, dO, lse, delta -> dq; dK/dV the same inputs ->
+    dk, dv."""
+    B, Tq, Hh, Dh = q.shape
+    Tk = k.shape[1]
+    ops = flash_ops(kind, q, k, causal)
     it = q.element_size()
     row_q, row_k, vec = B * Tq * Hh * Dh * it, B * Tk * Hh * Dh * it, \
         B * Hh * Tq * 4
@@ -699,10 +713,15 @@ def hold_flash(torch, fa, flush, label, tq, tk, causal, dtype, rng):
         plain_ms = cuda_ms(torch, twin, 3, flush)
         res[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
+        tflops = flash_ops(kind, q, k, causal) / ms / 1e9
         print(f"    {name:20s} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
               f"sdpa {'fwd' if kind == 'fwd' else 'bwd'}={library_ms:.4f}ms"
               f" bound={bound_ms:.4f}ms ({bound_by}) "
-              f"bound/kernel={bound_ms / ms:.3f}", flush=True)
+              f"bound/kernel={bound_ms / ms:.3f} {tflops:.1f} TFLOP/s",
+              flush=True)
+    pair = res["flash_attention_dq"]["ms"] + res["flash_attention_dkv"]["ms"]
+    print(f"    dQ + dK/dV = {pair:.4f}ms against sdpa bwd "
+          f"{lib['bwd']:.4f}ms (x{pair / lib['bwd']:.2f})", flush=True)
     return res
 
 
@@ -729,6 +748,85 @@ def phase_flash(torch, fa, flush):
     for name in worst:
         main[name]["max_abs_err"] = worst[name]
     return main
+
+
+@contextlib.contextmanager
+def capture_flash_bwd(fa, into):
+    """While active, each flash_attention_dq call's inputs replace
+    into["args"]: after a backward pass, layer 0's (the last layer the
+    backward reaches). The call itself goes on to the kernel. The
+    wrapper counts its launch on the module's `flash_attention_dq`, the
+    spy while it is installed, so the spy carries the count and hands it
+    back."""
+    real = fa.flash_attention_dq
+
+    def spy(q, k, v, dout, lse, delta, causal=False, scale=None):
+        into["args"] = (q, k, v, dout, lse, delta)
+        into["kw"] = dict(causal=causal, scale=scale)
+        into["calls"] = into.get("calls", 0) + 1
+        return real(q, k, v, dout, lse, delta, causal, scale)
+
+    spy.launches = real.launches
+    fa.flash_attention_dq = spy
+    try:
+        yield
+    finally:
+        fa.flash_attention_dq = real
+        real.launches = spy.launches
+
+
+def park_captured(torch, into):
+    """Moves the captured (q, k, v, dO, lse, delta) to the host, q/k/v as
+    one fused [B, T, 3, H, D] tensor, so the training run that follows
+    holds no extra device memory. Without grad: a copy with a grad_fn
+    would keep the step's autograd graph, and through it the parameters'
+    buckets, alive."""
+    q, k, v, do, lse, delta = into.pop("args")
+    check(q.stride(1) == 3 * q.shape[2] * q.shape[3]
+          and k.data_ptr() - q.data_ptr() == q.shape[2] * q.shape[3]
+          * q.element_size(),
+          "the captured q, k, v are not unbind views of a fused projection")
+    with torch.no_grad():
+        into["host"] = (torch.stack((q, k, v), dim=2).cpu(), do.cpu(),
+                        lse.cpu(), delta.cpu())
+
+
+def hold_flash_captured(torch, fa, captured, n_layers):
+    """dQ and dK/dV against their twins on layer 0's inputs of a real
+    training step (q, k, v unbind views of the fused projection, the
+    forward kernel's lse, the backward's dO and delta): dO there is
+    ~1e-6, which random N(0, 1) inputs never show. Returns each kernel's
+    largest absolute error."""
+    check(captured.get("calls") == n_layers,
+          f"captured {captured.get('calls')} dQ calls in one step, want "
+          f"{n_layers}")
+    qkv, do, lse, delta = (t.cuda() for t in captured["host"])
+    q, k, v = qkv.unbind(dim=2)
+    kw = captured["kw"]
+    args = (q, k, v, do, lse, delta)
+    dq = fa.flash_attention_dq(*args, **kw)
+    dk, dv = fa.flash_attention_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    want_dq = fa.flash_attention_dq_reference(*args, **kw)
+    want_dk, want_dv = fa.flash_attention_dkv_reference(*args, **kw)
+    errs, tol, msg = {}, FLASH_REL[str(q.dtype)], []
+    for name, got, ref in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                           ("dv", dv, want_dv)):
+        check(bool(torch.isfinite(got.float()).all()),
+              f"captured layer 0: {name} not finite")
+        err = (got.float() - ref.float()).abs().max().item()
+        big = ref.float().abs().max().item()
+        check(err <= tol * big, f"captured layer 0: {name} max |kernel - "
+                                f"twin| / max |twin| = {err / big} > {tol}")
+        errs[name] = err
+        msg.append(f"{name} err {err:.3g} of max {big:.3g} "
+                   f"({err / big:.2e})")
+    print(f"  layer 0 of a training step, {tuple(q.shape)} "
+          f"{str(q.dtype)[6:]} {kw}, max |dO| "
+          f"{do.float().abs().max().item():.3g}: " + ", ".join(msg),
+          flush=True)
+    return {"flash_attention_dq": errs["dq"],
+            "flash_attention_dkv": max(errs["dk"], errs["dv"])}
 
 
 def lm_loss(F, poison=None):
@@ -810,7 +908,8 @@ def n_groups(step):
                                       step._opt_store).groups)
 
 
-def train_run(torch, km, tmods, state, fused, switched=False):
+def train_run(torch, km, tmods, state, fused, switched=False,
+              capture=None):
     """GPT-medium at full width in bf16, AdamW(lr=1e-4, multi_precision)
     with f32 masters, TrainStep(monitor_health=True) on bench.py's batch
     (ids from RandomState(0), labels = ids): 3 warm-up steps, 10 timed,
@@ -819,12 +918,14 @@ def train_run(torch, km, tmods, state, fused, switched=False):
     fused_update=False. switched sets PADDLE_TPU_PALLAS_LN=1 and
     PADDLE_TPU_PALLAS_XENT=1 for the run (the LayerNorm and xent
     kernels), else both are unset. The launch counts are set to 0 just
-    before the run. Returns the run's measurements."""
+    before the run. With `capture` (a dict), the first warm-up step's
+    flash backward inputs of layer 0 are kept there, on the host
+    (capture_flash_bwd). Returns the run's measurements."""
     with switches(switched):
-        return _train_run(torch, km, tmods, state, fused, switched)
+        return _train_run(torch, km, tmods, state, fused, switched, capture)
 
 
-def _train_run(torch, km, tmods, state, fused, switched):
+def _train_run(torch, km, tmods, state, fused, switched, capture):
     from torch.autograd import DeviceType
     from paddle_tpu_torch.jit.api import HEALTH_KEYS
     GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
@@ -837,6 +938,7 @@ def _train_run(torch, km, tmods, state, fused, switched):
         0, cfg.vocab_size, size=(B, T)).astype(np.int32)).to(model.device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start_gib = torch.cuda.memory_allocated() / 2**30
     label = ("fused + LN/xent kernels (switched)" if switched
              else "fused (default)" if fused else "tree (fused_update=False)")
 
@@ -858,7 +960,13 @@ def _train_run(torch, km, tmods, state, fused, switched):
             losses.append(step(ids, ids))
 
     t = time.perf_counter()
-    run(TRAIN["warmup"])
+    if capture is not None:
+        with capture_flash_bwd(km[0], capture):
+            run(1)
+        park_captured(torch, capture)
+        run(TRAIN["warmup"] - 1)
+    else:
+        run(TRAIN["warmup"])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t
     t = time.perf_counter()
@@ -923,7 +1031,8 @@ def _train_run(torch, km, tmods, state, fused, switched):
           f"(warm-up {warm_s:.1f}s for {TRAIN['warmup']}), "
           f"{res['tokens_s']:.0f} tokens/s, MFU {res['mfu']:.4f} "
           f"({flop:.4g} FLOP/step over 989 TFLOP/s); peak memory "
-          f"{peak:.2f} GiB")
+          f"{peak:.2f} GiB ({start_gib:.2f} GiB allocated at the start, "
+          f"the model's weights included)")
     print(f"  {label}: launches per kernel {launches} ({n_steps} steps x "
           f"{cfg.num_layers} layers; fused passes x {groups} groups; "
           f"LayerNorm x {n_ln}, xent x 1 when switched)")
@@ -989,12 +1098,19 @@ def train_time_goes(prof, wall_s):
     return total, idle, other
 
 
-def phase_train(torch, km, tmods, state):
+# step-13 losses with the float32 CUDA-core backward flash kernels
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5), beside which each
+# run's is printed: the tensor-core kernels round P and dS to bf16
+CUDA_CORE_LAST_LOSS = {"fused": 6.7767, "tree": 6.7767, "switched": 6.7742}
+
+
+def phase_train(torch, km, tmods, state, capture):
     """The main path of slice 2 (the default, fused epilogue), the tree
     path, then this slice's main path (the default epilogue with the
-    LayerNorm and xent kernels switched on), from the same weights.
-    Returns the three runs' measurements."""
-    main = train_run(torch, km, tmods, state, fused=True)
+    LayerNorm and xent kernels switched on), from the same weights; the
+    first run's first step captures layer 0's flash backward inputs into
+    `capture`. Returns the three runs' measurements."""
+    main = train_run(torch, km, tmods, state, fused=True, capture=capture)
     tree = train_run(torch, km, tmods, state, fused=False)
     ln_xent = train_run(torch, km, tmods, state, fused=True, switched=True)
     rel = abs(ln_xent["first"] - main["first"]) / abs(main["first"])
@@ -1004,6 +1120,10 @@ def phase_train(torch, km, tmods, state):
     check(rel <= 1e-3, f"the switched run's step-1 loss differs from the "
                        f"default run's by {rel}")
     runs = {"fused": main, "tree": tree, "switched": ln_xent}
+    print("  step-13 loss: " + ", ".join(
+        f"{name} {r['last']:.4f} (CUDA-core backward: "
+        f"{CUDA_CORE_LAST_LOSS[name]:.4f})"
+        for name, r in runs.items()))
     for key in ("ms", "tokens_s", "mfu", "device_ms", "idle", "peak_gib",
                 "epilogue_ms", "kernels", "other_ms"):
         print(f"  {key:12s} " + "  ".join(
@@ -1966,11 +2086,18 @@ def main():
     logs = _build.build()
     print(f"[2] built {sorted(logs)} in {time.perf_counter() - t:.1f}s")
     for lib, log in sorted(logs.items()):
+        label = None
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                print(f"    {lib}: {kernel_label(line)}")
-            elif "registers" in line or "spill" in line:
+                label = kernel_label(line)
+                print(f"    {lib}: {label}")
+            elif "registers" in line or "spill" in line or "wgmma" in line:
                 print("     ", line.strip())
+                # the tensor-core kernels keep every accumulator in
+                # registers: a spill would put them in local memory
+                check("_tc_kernel" not in (label or "") or "spill" not in line
+                      or " 0 bytes spill stores, 0 bytes spill loads"
+                      in line, f"{label} spills: {line.strip()}")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     print("[3] ragged paged attention: kernel vs plain twin", flush=True)
@@ -1994,7 +2121,15 @@ def main():
     print("[7] GPT-medium bf16 through TrainStep: the default (fused) "
           "epilogue, fused_update=False, then the default epilogue with "
           "PADDLE_TPU_PALLAS_LN=1 and PADDLE_TPU_PALLAS_XENT=1", flush=True)
-    train_main, _, train_switched = phase_train(torch, km, tmods, state)
+    captured = {}
+    train_main, _, train_switched = phase_train(torch, km, tmods, state,
+                                                captured)
+    print("[6] (cont.) flash dQ and dK/dV: kernels vs plain twins on layer "
+          "0's inputs of the first phase-7 training step", flush=True)
+    for name, err in hold_flash_captured(
+            torch, fa, captured, gpt_medium().num_layers).items():
+        flash_main[name]["max_abs_err"] = max(
+            flash_main[name]["max_abs_err"], err)
 
     print("[8] 2-layer float32 training: card vs CPU, each epilogue, and "
           "the LayerNorm and xent kernels switched on", flush=True)

@@ -29,19 +29,35 @@
 // 2.6e10 (dQ) or 3.4e10 (dK/dV) flops and moves 68, 85 or 102 MB, so
 // the least time is about 20 us for the forward (its bytes over
 // 3.35 TB/s) and 26 and 35 us for dQ and dK/dV (their flops over the
-// tensor cores' 989 TFLOP/s). What this first design does about it: every tile of
-// q, k, v and dO is read from device memory once per thread block and
-// reused 64 times from shared memory, so the kernels are bound by the
-// arithmetic and not by bytes; but the arithmetic runs on the CUDA cores
-// in float32 (at most 67 TFLOP/s), so they sit an order of magnitude
-// above the bound. Each thread computes a 4 x 4 block of a 64 x 64 score
-// tile from float4 shared-memory reads (16 FMAs per two loads), tiles
-// are staged transposed where a product reads them down a column, and
-// the causal forward launches its longest q tiles first to shorten the
-// tail. dK/dV loops over q tiles inside one block per kv tile, so it
-// needs no atomics. Not done yet (later work): tensor cores (mma/wgmma
-// with bf16 operands), cp.async/TMA double buffering, head dims other
-// than 64.
+// tensor cores' 989 TFLOP/s).
+//
+// Two designs live here:
+// - bfloat16 dQ and dK/dV (flash_dq_tc_kernel, flash_dkv_tc_kernel, the
+//   training path) run every product on the tensor cores with Hopper's
+//   warpgroup MMA (wgmma.m64n64k16, float32 accumulators). A block of one
+//   warpgroup keeps 64 rows resident (Q and dO for dQ, K and V for
+//   dK/dV) and streams the other operand's tiles of 64 rows through
+//   three cp.async stages, so the next tile loads while this one is
+//   multiplied and the last tile's second products still run; two or
+//   three blocks share an SM, so one block's exponentials overlap
+//   another's products. Within a block the two first products are
+//   committed apart: P's exponentials (and for dK/dV the dV product) run
+//   while dP is still being multiplied. P and dS stay in registers: the
+//   accumulator of S is already laid out as the A operand of the next
+//   product, so they are rounded to bf16 there (as FlashAttention-3
+//   does) and the second products read their B tile MN-major from the
+//   same 128-byte-swizzled shared tile the first products read K-major.
+//   No atomics: dQ and dK/dV stay two kernels, each output written once.
+// - The forward, and float32 dQ and dK/dV, run their products on the CUDA
+//   cores in float32 (at most 67 TFLOP/s): each thread computes a 4 x 4
+//   block of a 64 x 64 score tile from float4 shared-memory reads, tiles
+//   are staged transposed where a product reads them down a column, and
+//   every tile is read from device memory once per block and reused 64
+//   times. float32 stays off the tensor cores: TF32 keeps ~3 digits,
+//   against the float32 route's 1e-4 tolerance.
+// Both launch their longest causal tiles first to shorten the tail.
+// Not done yet (later work): the forward on the tensor cores, TMA loads
+// and warp-specialised producers, head dims other than 64.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (ops/kernels/_build.py) and called through ctypes
@@ -442,6 +458,437 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
   }
 }
 
+// ---- bfloat16 dQ and dK/dV on the tensor cores ------------------------------
+//
+// A block is one warpgroup of 128 threads that owns a resident tile of 64
+// rows and issues wgmma.m64n64k16.f32.bf16.bf16 for them. One warpgroup a
+// block beat two on the H100 (PERF.md): two warpgroups of one block meet
+// at every tile's barrier, so their products and exponentials coincide,
+// while separate blocks (3 of dQ, 2 of dK/dV an SM, by registers) drift
+// apart and overlap. Shared tiles are [rows][64]
+// bf16, one 128-byte row each, stored with the 128-byte swizzle from a
+// 1024-byte aligned base: row r's 16-byte chunk c sits at
+// r * 128 + ((c ^ (r & 7)) << 4). wgmma reads such a tile K-major (a
+// 16-column k-chunk at +32 bytes) or MN-major (a 16-row k-chunk at
+// +2048 bytes), so one copy serves S = Q.K^T and dQ = dS.K alike.
+//
+// The accumulator of an m64nNk16 product: thread t of the warpgroup holds,
+// for each 8-column block j, d[4j + 2h + e] at row 16 (t / 32) + (t % 32) / 4
+// + 8h and column 8j + 2 (t % 4) + e. The A operand from registers of
+// k-chunk kk wants the same rows and columns 16kk .. 16kk + 15 in that
+// order, so d[8kk .. 8kk + 7] packed in pairs is the fragment.
+
+constexpr int kTcThreads = 128;          // one warpgroup
+constexpr int kTcTile = 64 * kD * 2;      // bytes of a [64][kD] bf16 tile
+// Stages of the streamed tiles. The next tile loads into the stage after
+// the current one, which is not the one the last tile's second products
+// may still be reading, so a tile's barrier need not wait for them and
+// their latency hides behind it.
+constexpr int kStages = 3;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros when !ok
+// (nothing is read then).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// cp.async writes through the generic proxy and wgmma reads through the
+// async proxy: each thread fences its own copies before the barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of products are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Orders the compiler's reads and writes of an accumulator against the
+// asynchronous products (CUTLASS's warpgroup_fence_operand).
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// Shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major: 8-row groups 1024 bytes apart (the leading offset is unused).
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+// MN-major: 8-row groups along K 1024 bytes apart; the leading offset is
+// the stride between 64-column panels, of which a [64][kD] tile has one.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+  return sw128_desc(addr, kTcTile, 1024);
+}
+
+// d (+)= A.B, A [64 x 16] and B [16 x 64] both K-major in shared memory;
+// accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A.B, A [64 x 16] from registers (4 bf16 pairs a thread), B
+// [16 x 64] MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// 2^x by the SFU, denormals flushed (the probabilities' exp).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragments of the four k-chunks of a [64 x 64] accumulator.
+__device__ __forceinline__ void to_a(const float (&d)[32],
+                                     uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// Rows [r0, r0 + n) of one (batch, head) slice of a [B, T, H, D] bf16
+// tensor (row stride st) into the swizzled tile at dst, by cp.async, over
+// the block's threads; rows at or past T are zeros. Eight threads cover
+// a row's 128 bytes.
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* base,
+                                          long long st, int r0, int n,
+                                          int T) {
+  constexpr int kChunks = kD / 8;
+  for (int i = threadIdx.x; i < n * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r0 + r < T;
+    cp_async16(dst + r * (kD * 2) + ((c ^ (r & 7)) << 4),
+               base + (ok ? (long long)(r0 + r) * st + c * 8 : 0), ok);
+  }
+}
+
+// A thread's accumulator rows row0 and row0 + 8 into a contiguous
+// [B, T, H, kD] bf16 output, rows at or past T left out.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&d)[32], int b,
+                                           int T, int H, int h, int row0,
+                                           int col0) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= T) continue;
+    __nv_bfloat16* o = out + (((long long)b * T + row) * H + h) * kD + col0;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+          __floats2bfloat162_rn(d[4 * j + 2 * hh], d[4 * j + 2 * hh + 1]);
+  }
+}
+
+// dQ: a block owns 64 q rows (Q, dO, lse and delta resident) and walks the kv tiles of 64 up to its diagonal; per tile
+// S = Q.K^T, dP = dO.V^T, dS = P * (dP - delta) * scale in registers,
+// dQ += dS.K.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) flash_dq_tc_kernel(Params p) {
+  static_assert(D == kD, "a tile row is one 128-byte swizzle row");
+  extern __shared__ __align__(128) uint8_t smem_tc[];
+  const uint32_t sq = (smem_u32(smem_tc) + 1023u) & ~1023u;  // Q [64]
+  const uint32_t sdo = sq + kTcTile;                         // dO [64]
+  const uint32_t sk = sdo + kTcTile;                   // K [kStages][64]
+  const uint32_t sv = sk + kStages * kTcTile;          // V [kStages][64]
+
+  const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * 64;  // longest first
+  const int lane = threadIdx.x & 31;
+  const int row0 = r0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  using bf16 = __nv_bfloat16;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+
+  const int n_kv = p.causal ? min(p.Tk, r0 + 64) : p.Tk;
+  const int n_tiles = (n_kv + 63) / 64;
+  load_tile(sq, q, p.q_st, r0, 64, p.Tq);
+  load_tile(sdo, dout, p.o_st, r0, 64, p.Tq);
+  load_tile(sk, k, p.k_st, 0, 64, p.Tk);
+  load_tile(sv, v, p.v_st, 0, 64, p.Tk);
+  cp_async_commit();
+  float lse2[2], dlt[2];  // lse in log2 units, and delta, of rows row0 (+8)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    const long long at = (long long)bh * p.Tq + row;
+    lse2[hh] = row < p.Tq ? p.lse_in[at] * kLog2e : 0.f;
+    dlt[hh] = row < p.Tq ? p.delta[at] : 0.f;
+  }
+  const float scale2 = p.scale * kLog2e;
+
+  float dq[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int c0 = 64 * it;
+    const uint32_t kt = sk + (it % kStages) * kTcTile;
+    const uint32_t vt = sv + (it % kStages) * kTcTile;
+    cp_async_wait_all();
+    fence_proxy_async();
+    // tile `it` is in; the stage tile it + 1 loads into was last read by
+    // tile it - 2's dQ product, which the wait below S in tile it - 1 saw
+    // finish; tile it - 1's may still run
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      const uint32_t nx = ((it + 1) % kStages) * kTcTile;
+      load_tile(sk + nx, k, p.k_st, c0 + 64, 64, p.Tk);
+      load_tile(sv + nx, v, p.v_st, c0 + 64, 64, p.Tk);
+      cp_async_commit();
+    }
+    fence_acc(s);
+    fence_acc(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_k(sq + 32 * kk), desc_k(kt + 32 * kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, desc_k(sdo + 32 * kk), desc_k(vt + 32 * kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // the last dQ and S are in; P's exp overlaps dP
+    fence_acc(s);
+    const bool edge = (p.causal && c0 + 63 > r0) || c0 + 64 > p.Tk ||
+                      r0 + 64 > p.Tq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          s[i] = ex2(fmaf(s[i], scale2, -lse2[hh]));
+          if (edge && !valid(row0 + 8 * hh, c0 + 8 * j + col0 + e, p.Tq,
+                             p.Tk, p.causal))
+            s[i] = 0.f;
+        }
+    wgmma_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = s[i] * (dp[i] - dlt[(i >> 1) & 1]) * p.scale;
+    uint32_t a[4][4];
+    to_a(s, a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dq, a[kk], desc_mn(kt + 2048 * kk));
+    wgmma_commit();  // waited for below the next tile's S
+  }
+  wgmma_wait<0>();
+  fence_acc(dq);
+  store_rows(static_cast<bf16*>(p.dq), dq, b, p.Tq, p.H, h, row0, col0);
+}
+
+// dK/dV: a block owns 64 kv rows (K and V resident) and
+// walks the q tiles of 64 from its diagonal down; per tile S^T = K.Q^T
+// and dP^T = V.dO^T, P^T and dS^T in registers, dV += P^T.dO,
+// dK += dS^T.Q. lse and delta, per column here, are staged beside each q
+// tile.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) flash_dkv_tc_kernel(Params p) {
+  static_assert(D == kD, "a tile row is one 128-byte swizzle row");
+  extern __shared__ __align__(128) uint8_t smem_tc[];
+  const uint32_t pad = ((smem_u32(smem_tc) + 1023u) & ~1023u) -
+                       smem_u32(smem_tc);
+  const uint32_t sk = smem_u32(smem_tc) + pad;   // K [64]
+  const uint32_t sv = sk + kTcTile;              // V [64]
+  const uint32_t sq = sv + kTcTile;              // Q [kStages][64]
+  const uint32_t sdo = sq + kStages * kTcTile;   // dO [kStages][64]
+  const uint32_t svec = sdo + kStages * kTcTile;  // [kStages][lse, delta]
+  const float* vec = reinterpret_cast<const float*>(smem_tc + pad +
+                                                    (svec - sk));
+
+  const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
+  const int c0 = blockIdx.y * 64;  // the first kv tiles have most q tiles
+  const int lane = threadIdx.x & 31;
+  const int row0 = c0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  using bf16 = __nv_bfloat16;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* lse_g = p.lse_in + (long long)bh * p.Tq;
+  const float* dlt_g = p.delta + (long long)bh * p.Tq;
+  // q tile t (rows 64t ..) into stage st: Q, dO, then lse and delta
+  auto load_q = [&](int t, int st) {
+    const int r = 64 * t;
+    load_tile(sq + st * kTcTile, q, p.q_st, r, 64, p.Tq);
+    load_tile(sdo + st * kTcTile, dout, p.o_st, r, 64, p.Tq);
+    const int row = r + (threadIdx.x & 63);
+    const bool ok = row < p.Tq;
+    cp_async4(svec + 4 * (128 * st + threadIdx.x),
+              (threadIdx.x < 64 ? lse_g : dlt_g) + (ok ? row : 0), ok);
+  };
+
+  load_tile(sk, k, p.k_st, c0, 64, p.Tk);
+  load_tile(sv, v, p.v_st, c0, 64, p.Tk);
+  // causal: q tiles from the diagonal down (row >= col needs r + 63 >= c0)
+  const int first = p.causal ? c0 / 64 : 0;
+  const int n_q = (p.Tq + 63) / 64;
+  if (first < n_q) load_q(first, 0);
+  cp_async_commit();
+  const float scale2 = p.scale * kLog2e;
+
+  float dk[32], dv[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  for (int t = first; t < n_q; ++t) {
+    const int r0 = 64 * t, st = (t - first) % kStages;
+    const uint32_t qt = sq + st * kTcTile, dot = sdo + st * kTcTile;
+    const float* lse_s = vec + 128 * st;
+    const float* dlt_s = lse_s + 64;
+    cp_async_wait_all();
+    fence_proxy_async();
+    // tile t is in; the stage tile t + 1 loads into was last read by tile
+    // t - 2's dV and dK products, which the wait below S^T in tile t - 1
+    // saw finish; tile t - 1's may still run
+    __syncthreads();
+    if (t + 1 < n_q) {
+      load_q(t + 1, (st + 1) % kStages);
+      cp_async_commit();
+    }
+    fence_acc(s);
+    fence_acc(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_k(sk + 32 * kk), desc_k(qt + 32 * kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, desc_k(sv + 32 * kk), desc_k(dot + 32 * kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // the last dV, dK and S^T are in; P^T, dV overlap dP^T
+    fence_acc(s);
+    const bool edge = (p.causal && r0 < c0 + 63) || r0 + 64 > p.Tq ||
+                      c0 + 64 > p.Tk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + col0 + e;  // q row within the tile
+        const float l2 = lse_s[col] * kLog2e;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 4 * j + 2 * hh + e;
+          s[i] = ex2(fmaf(s[i], scale2, -l2));
+          if (edge && !valid(r0 + col, row0 + 8 * hh, p.Tq, p.Tk, p.causal))
+            s[i] = 0.f;
+        }
+      }
+    uint32_t ap[4][4], ads[4][4];
+    to_a(s, ap);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dv, ap[kk], desc_mn(dot + 2048 * kk));
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T is in; dV may still run
+    fence_acc(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dl = dlt_s[8 * j + col0 + e];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 4 * j + 2 * hh + e;
+          dp[i] = s[i] * (dp[i] - dl) * p.scale;
+        }
+      }
+    to_a(dp, ads);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dk, ads[kk], desc_mn(qt + 2048 * kk));
+    wgmma_commit();  // waited for below the next tile's S^T
+  }
+  wgmma_wait<0>();
+  cp_async_wait_all();  // K and V, when no q tile reaches this block
+  fence_acc(dk);
+  fence_acc(dv);
+  store_rows(static_cast<bf16*>(p.dk), dk, b, p.Tk, p.H, h, row0, col0);
+  store_rows(static_cast<bf16*>(p.dv), dv, b, p.Tk, p.H, h, row0, col0);
+}
+
 constexpr size_t kTileT = (size_t)kD * kTile * sizeof(float);
 constexpr size_t kTileR = (size_t)kTile * kRStride * sizeof(float);
 constexpr size_t kTileP = (size_t)kTile * kPStride * sizeof(float);
@@ -449,15 +896,21 @@ constexpr size_t kRowVecs = 2 * kTile * sizeof(float);
 constexpr size_t kSmemFwd = 2 * kTileT + kTileR + kTileP;
 constexpr size_t kSmemDq = 4 * kTileT + kTileR + kTileP + kRowVecs;
 constexpr size_t kSmemDkv = 4 * kTileT + 2 * kTileR + 2 * kTileP + kRowVecs;
+// the tensor-core kernels: 1 KB to align the base, the two resident
+// tiles, kStages stages of the two streamed tiles (and for dK/dV their
+// lse and delta)
+constexpr size_t kSmemDqTc = 1024 + (2 + 2 * kStages) * kTcTile;
+constexpr size_t kSmemDkvTc = kSmemDqTc + kStages * kRowVecs;
 
+// One block per (batch * head, tile of `rows` rows of T).
 template <typename K>
-cudaError_t launch(K kernel, size_t smem, int B, int H, int T,
-                   const Params& p, cudaStream_t stream) {
+cudaError_t launch(K kernel, size_t smem, int threads, int rows, int B,
+                   int H, int T, const Params& p, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * H, (T + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid(B * H, (T + rows - 1) / rows);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -495,7 +948,9 @@ int flash_attention_head_dim() { return kD; }
 
 // strides: 12 element strides, (batch, seq, head) of q, k, v and dO in
 // that order (dO's are ignored by the forward). dtype: 0 = float32,
-// 1 = bfloat16. Each returns a cudaError_t value (0 = launched).
+// 1 = bfloat16; for dQ and dK/dV it picks the design: float32 on the
+// CUDA cores, bfloat16 on the tensor cores. Each returns a cudaError_t
+// value (0 = launched).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, void* lse, const long long* strides,
                         int B, int H, int Tq, int Tk, int head_dim,
@@ -505,9 +960,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   p.out = out;
   p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch(flash_fwd_kernel<float>, kSmemFwd, B, H, Tq, p, s);
+  if (dtype == 0)
+    return (int)launch(flash_fwd_kernel<float>, kSmemFwd, kThreads, kTile, B,
+                       H, Tq, p, s);
   if (dtype == 1)
-    return (int)launch(flash_fwd_kernel<__nv_bfloat16>, kSmemFwd, B, H, Tq, p, s);
+    return (int)launch(flash_fwd_kernel<__nv_bfloat16>, kSmemFwd, kThreads,
+                       kTile, B, H, Tq, p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -523,9 +981,12 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
   p.delta = static_cast<const float*>(delta);
   p.dq = dq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch(flash_dq_kernel<float>, kSmemDq, B, H, Tq, p, s);
+  if (dtype == 0)
+    return (int)launch(flash_dq_kernel<float>, kSmemDq, kThreads, kTile, B, H,
+                       Tq, p, s);
   if (dtype == 1)
-    return (int)launch(flash_dq_kernel<__nv_bfloat16>, kSmemDq, B, H, Tq, p, s);
+    return (int)launch(flash_dq_tc_kernel<kD>, kSmemDqTc, kTcThreads, 64, B,
+                       H, Tq, p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -542,9 +1003,12 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
   p.dk = dk;
   p.dv = dv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch(flash_dkv_kernel<float>, kSmemDkv, B, H, Tk, p, s);
+  if (dtype == 0)
+    return (int)launch(flash_dkv_kernel<float>, kSmemDkv, kThreads, kTile, B,
+                       H, Tk, p, s);
   if (dtype == 1)
-    return (int)launch(flash_dkv_kernel<__nv_bfloat16>, kSmemDkv, B, H, Tk, p, s);
+    return (int)launch(flash_dkv_tc_kernel<kD>, kSmemDkvTc, kTcThreads, 64, B,
+                       H, Tk, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -159,6 +159,14 @@ def _f32(t):
     return t.float().contiguous()
 
 
+def _softplus(x):
+    """`jax.nn.softplus`, which the reference's mixer takes for dt:
+    log(1 + exp(x)) as logaddexp(x, 0) for every x, with no threshold
+    (the Paddle-API `F.softplus` returns x above one)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
 class SSMMixer(nn.Module):
     """Selective-SSM token mixer (the Mamba block body): in-projection
     to (x, z), causal depthwise conv over x, input-dependent (dt, B, C)
@@ -196,7 +204,7 @@ class SSMMixer(nn.Module):
         zeroes pads), B and C [.., N]."""
         R, N = self.dt_rank, self.d_state
         dbc = _promoted_linear(self.x_proj, xc)
-        dt = F.softplus(_promoted_linear(self.dt_proj, dbc[..., :R]))
+        dt = _softplus(_promoted_linear(self.dt_proj, dbc[..., :R]))
         return dt, dbc[..., R:R + N], dbc[..., R + N:]
 
     def _a(self):

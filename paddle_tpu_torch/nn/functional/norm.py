@@ -18,7 +18,8 @@ from ...ops import fused_layer_norm
 __all__ = ["layer_norm"]
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
     if (len(normalized_shape) == 1 and weight is not None

@@ -10,7 +10,10 @@ reference's [B*H, 1, Tq] unfolded).
   each launch one kernel of `paddle_tpu_torch/csrc/flash_attention.cu`
   (built by nvcc at first use, ops/kernels/_build.py) for CUDA tensors,
   or raise; they never fall back. For CPU tensors they run the plain
-  twin. Each launch adds one to the wrapper's `launches`.
+  twin. Each launch adds one to the wrapper's `launches`. The dtype code
+  picks the kernel in the C entry point: bfloat16 dQ and dK/dV run on
+  the tensor cores (wgmma, P and dS rounded to bf16 before their
+  products), float32 and the forward on the CUDA cores in float32.
 - `*_reference` are the plain PyTorch twins: dense scores, the same
   top-left causal mask (row >= col), softmax in float32 with the finite
   NEG_INF and zeroed masked probabilities. The CPU tests hold them
@@ -124,19 +127,29 @@ def _check(q, k, v, *rest):
                          f"(plain twin), not {q.device.type}")
 
 
+def _argtypes(n_ptrs):
+    """A C entry point's parameters: its tensor pointers (q, k, v, then
+    dO, lse, delta for the backward, then the outputs), the 12 strides,
+    B, H, Tq, Tk, head_dim, scale, causal, dtype and the stream."""
+    return ([ctypes.c_void_p] * n_ptrs + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+# entry point -> its parameters
+ENTRY_POINTS = {"flash_attention_fwd": _argtypes(5),
+                "flash_attention_dq": _argtypes(7),
+                "flash_attention_dkv": _argtypes(8)}
+
+
 @functools.cache
 def _kernels():
     """{name: ctypes entry}, built and loaded at first use."""
     lib = _build.load("flash_attention")
-    n_ptr = {"flash_attention_fwd": 5, "flash_attention_dq": 7,
-             "flash_attention_dkv": 8}
     fns = {}
-    for name, n in n_ptr.items():
+    for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * n + [
-            ctypes.POINTER(ctypes.c_longlong)] + [
-            ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
     lib.flash_attention_head_dim.restype = ctypes.c_int

@@ -16,12 +16,19 @@ keys, the Pallas kernel blockwise and online, the twin densely, so they
 differ only in summation order (a few ulps of sums of up to 64 terms).
 
 Also: `torch.autograd.gradcheck` of `_FlashAttention` in float64, the
-twins' routing (CPU tensors run the twin and count no launch), and
-that a non-CPU tensor never reaches a twin.
+twins' routing (CPU tensors run the twin and count no launch), that a
+non-CPU tensor never reaches a twin, that the ctypes parameters of the
+C entry points match their declarations in csrc/flash_attention.cu, and
+that the dtype code the launch passes picks the route there (bfloat16
+dQ and dK/dV: the tensor-core kernels; float32: the CUDA-core ones).
 
 The kernels themselves run only on a card:
 tests/test_torch_kernels_cuda.py holds them against the twins there.
 """
+import ctypes
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -233,3 +240,72 @@ def test_wrappers_check_shapes_and_dtypes():
                               torch.zeros(B, H, 32))
     with pytest.raises(ValueError, match="Tq > 0"):
         fa.flash_attention_fwd(q[:, :0], k, v)
+
+
+# -- the C interface ------------------------------------------------------
+
+SOURCE = Path(fa.__file__).resolve().parents[2] / "csrc" / "flash_attention.cu"
+C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+           "const long long*": ctypes.POINTER(ctypes.c_longlong),
+           "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _entry_point(name):
+    """(parameter types, body) of extern "C" `int name(...)` in the
+    source."""
+    src = SOURCE.read_text()
+    m = re.search(r"\nint " + name + r"\(([^)]*)\)\s*\{(.*?)\n\}", src,
+                  re.S)
+    params = [" ".join(p.split()[:-1]).replace(" *", "*")
+              for p in m.group(1).split(",")]
+    return [C_TYPES[p] for p in params], m.group(2)
+
+
+@pytest.mark.parametrize("name", sorted(fa.ENTRY_POINTS))
+def test_ctypes_parameters_match_the_c_entry_points(name):
+    params, body = _entry_point(name)
+    assert params == fa.ENTRY_POINTS[name]
+    # the dtype code picks the design: float32 on the CUDA cores,
+    # bfloat16 dQ and dK/dV on the tensor cores
+    kernel = name.replace("flash_attention_", "flash_") + "_"
+    f32, bf16 = re.search(r"dtype == 0\)(.*?)if \(dtype == 1\)(.*?);",
+                          body, re.S).groups()
+    assert kernel + "kernel<float>" in f32
+    tc = name != "flash_attention_fwd"
+    assert (kernel + ("tc_kernel<" if tc else "kernel<__nv_bfloat16>")) \
+        in bf16
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.bfloat16, 1),
+                                        (torch.float32, 0)])
+def test_launch_passes_the_dtype_code_and_views(monkeypatch, dtype, code):
+    """`_launch` with stand-ins for the loaded entry points: the dtype
+    code, q/k/v's strides as the unbind views of a fused projection
+    have them, and one argument per declared parameter."""
+    calls = {}
+
+    def entry(name):
+        def fn(*args):
+            calls[name] = args
+            return 0
+        return fn
+
+    monkeypatch.setattr(fa, "_kernels", lambda: {
+        **{n: entry(n) for n in fa.ENTRY_POINTS}, "head_dim": 64})
+    monkeypatch.setattr(fa, "current_stream", lambda device: 0)
+    qkv = torch.zeros(2, 40, 3, 2, 64, dtype=dtype)
+    q, k, v = qkv.unbind(dim=2)
+    do = torch.zeros(2, 40, 2, 64, dtype=dtype)
+    vec = torch.zeros(2, 2, 40)
+    fa._launch("flash_attention_dq", (q, k, v, do), (vec, vec, do), True,
+               0.125)
+    fa._launch("flash_attention_dkv", (q, k, v, do), (vec, vec, do, do),
+               True, 0.125)
+    for name in ("flash_attention_dq", "flash_attention_dkv"):
+        args = calls[name]
+        n_ptrs = 7 if name == "flash_attention_dq" else 8
+        assert len(args) == len(fa.ENTRY_POINTS[name])
+        assert args[-2] == code and args[-3] == 1  # dtype, causal
+        assert list(args[n_ptrs]) == [3 * 2 * 64 * 40, 3 * 2 * 64, 64] * 3 \
+            + [40 * 2 * 64, 2 * 64, 64]
+        assert args[:3] == tuple(t.data_ptr() for t in (q, k, v))

@@ -1,0 +1,89 @@
+"""Parity of the port's Paddle-API functionals with the JAX package.
+
+`softplus(x, beta, threshold)`, `gelu`, `silu` and `layer_norm` of
+paddle_tpu_torch.nn.functional against paddle_tpu.nn.functional on the
+same numpy inputs, each called with Paddle's `name=` as a Paddle user
+would. softplus straddles its threshold (x up to 8 at beta 2.0 and
+threshold 5.0), so both branches run. The SSM mixer's private softplus
+(`jax.nn.softplus`, no threshold) against jax.nn.softplus itself.
+
+Tolerance: 1e-6 relative and absolute in float32. Both sides evaluate
+the same formula on float32 values of O(1-10); their exp, log1p, tanh
+and erf differ by a few ulps. layer_norm within 1e-5: its float32 mean
+and variance are sums taken in another order, then scaled by rstd.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import paddle_tpu as paddle
+from paddle_tpu.nn import functional as RF
+
+from paddle_tpu_torch.models import ssm as port_ssm
+from paddle_tpu_torch.nn import functional as F
+
+RTOL = ATOL = 1e-6
+
+
+def _x(seed=0, shape=(4, 33), span=8.0):
+    rng = np.random.RandomState(seed)
+    return (rng.uniform(-span, span, size=shape)).astype(np.float32)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("beta,threshold", [(1.0, 20.0), (2.0, 5.0)])
+def test_softplus_matches_reference(beta, threshold):
+    x = _x()
+    want = RF.softplus(paddle.to_tensor(x), beta=beta, threshold=threshold,
+                       name="sp").numpy()
+    got = F.softplus(torch.from_numpy(x), beta=beta, threshold=threshold,
+                     name="sp")
+    _close(got, want)
+    if threshold == 5.0:  # above the threshold it is x itself
+        above = beta * x > threshold
+        assert above.any() and (~above).any()
+        assert np.array_equal(got.numpy()[above], x[above])
+
+
+def test_softplus_defaults_match_reference():
+    x = _x(seed=1, span=30.0)
+    _close(F.softplus(torch.from_numpy(x)),
+           RF.softplus(paddle.to_tensor(x)).numpy())
+
+
+@pytest.mark.parametrize("approximate", [False, True])
+def test_gelu_takes_name_and_matches_reference(approximate):
+    x = _x(seed=2, span=4.0)
+    _close(F.gelu(torch.from_numpy(x), approximate=approximate, name="g"),
+           RF.gelu(paddle.to_tensor(x), approximate=approximate,
+                   name="g").numpy())
+
+
+def test_silu_takes_name_and_matches_reference():
+    x = _x(seed=3, span=6.0)
+    _close(F.silu(torch.from_numpy(x), name="s"),
+           RF.silu(paddle.to_tensor(x), name="s").numpy())
+
+
+def test_layer_norm_takes_name_and_matches_reference():
+    rng = np.random.RandomState(4)
+    x = rng.randn(3, 5, 16).astype(np.float32)
+    w = rng.randn(16).astype(np.float32)
+    b = rng.randn(16).astype(np.float32)
+    want = RF.layer_norm(paddle.to_tensor(x), 16, paddle.to_tensor(w),
+                         paddle.to_tensor(b), name="ln").numpy()
+    got = F.layer_norm(torch.from_numpy(x), 16, torch.from_numpy(w),
+                       torch.from_numpy(b), name="ln")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_ssm_mixer_softplus_is_jax_softplus():
+    """No threshold: at x = 30 it is 30 + exp(-30), not x."""
+    x = _x(seed=5, span=40.0)
+    _close(port_ssm._softplus(torch.from_numpy(x)), jax.nn.softplus(x))

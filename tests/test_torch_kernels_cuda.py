@@ -19,7 +19,13 @@ that is not a multiple of the kernels' 64-row tile. Tolerance on the
 largest difference over the largest reference value: 1e-4 in float32
 (sums of up to 200 products in another order), 1e-2 in bfloat16 (both
 sides round the output to bf16 once, 2^-8, plus the float32
-differences). lse is float32 on both sides: 1e-4 absolute.
+differences). lse is float32 on both sides: 1e-4 absolute. bfloat16 dQ
+and dK/dV run on the tensor cores, which round P and dS to bf16 before
+their second products; they hold the same 1e-2 at the training shape
+[8, 1024, 16, 64], a ragged T = 1000, Tq = 256 against Tk = 1024, T = 64
+and 65 and a single (batch, head), give the same bits on a second call
+(no atomics), and never reach a twin; float32 keeps the CUDA-core route
+and its 1e-4.
 
 The fused epilogue's passes (kernels #9, #10) against their twins on a
 small ragged layout (two scan-group leaves, buckets not a multiple of
@@ -170,6 +176,101 @@ def test_flash_kernels_match_twins_on_card(tq, tk, causal, dtype):
     for name, got, ref in (("out", out, want), ("dq", dq, want_dq),
                            ("dk", dk, want_dk), ("dv", dv, want_dv)):
         assert _rel_err(got, ref) <= FLASH_REL[dtype], name
+
+
+def _flash_bwd_case(B, tq, tk, Hh, causal, dtype, seed=0):
+    """q, k, v as strided views of one fused [B, T, 3, H, 64] tensor, a
+    random dO, and the twin forward's lse and delta, on the card."""
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    qkv = torch.from_numpy(rng.randn(B, max(tq, tk), 3, Hh, 64).astype(
+        np.float32)).to(dev, dtype)
+    q, k, v = qkv.unbind(dim=2)
+    q, k, v = q[:, :tq], k[:, :tk], v[:, :tk]
+    do = torch.from_numpy(rng.randn(B, tq, Hh, 64).astype(np.float32)
+                          ).to(dev, dtype)
+    out, lse = fa.flash_attention_fwd_reference(q, k, v, causal)
+    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+# bfloat16 dQ and dK/dV run on the tensor cores (wgmma); (B, Tq, Tk, H,
+# causal): the training shape, a ragged T, Tq < Tk, one tile and one row
+# past it, a single (batch, head)
+FLASH_TC_CASES = [(8, 1024, 1024, 16, True), (8, 1024, 1024, 16, False),
+                  (8, 1000, 1000, 16, True), (8, 256, 1024, 16, False),
+                  (2, 64, 64, 4, True), (2, 65, 65, 4, True),
+                  (2, 65, 65, 4, False), (1, 200, 200, 1, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,tq,tk,Hh,causal", FLASH_TC_CASES)
+def test_flash_backward_tensor_core_kernels_match_twins_on_card(
+        B, tq, tk, Hh, causal):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    args = _flash_bwd_case(B, tq, tk, Hh, causal, torch.bfloat16)
+    dq = fa.flash_attention_dq(*args, causal=causal)
+    dk, dv = fa.flash_attention_dkv(*args, causal=causal)
+    torch.cuda.synchronize()
+    want_dq = fa.flash_attention_dq_reference(*args, causal)
+    want_dk, want_dv = fa.flash_attention_dkv_reference(*args, causal)
+    for name, got, ref in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                           ("dv", dv, want_dv)):
+        assert got.dtype == torch.bfloat16 and got.is_contiguous(), name
+        assert bool(torch.isfinite(got.float()).all()), name
+        assert _rel_err(got, ref) <= FLASH_REL[torch.bfloat16], name
+
+
+@pytest.mark.cuda
+def test_flash_backward_tensor_core_kernels_are_deterministic_on_card():
+    """No atomics: two calls on the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    args = _flash_bwd_case(2, 300, 300, 4, True, torch.bfloat16, seed=3)
+    first = (fa.flash_attention_dq(*args, causal=True),
+             *fa.flash_attention_dkv(*args, causal=True))
+    second = (fa.flash_attention_dq(*args, causal=True),
+              *fa.flash_attention_dkv(*args, causal=True))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_float32_keeps_cuda_core_route_on_card(causal):
+    """float32 stays off the tensor cores: within 1e-4 of the twin, which
+    a bf16 (or TF32) product of these inputs would miss."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    args = _flash_bwd_case(2, 1000, 1000, 4, causal, torch.float32, seed=4)
+    dq = fa.flash_attention_dq(*args, causal=causal)
+    dk, dv = fa.flash_attention_dkv(*args, causal=causal)
+    want_dq = fa.flash_attention_dq_reference(*args, causal)
+    want_dk, want_dv = fa.flash_attention_dkv_reference(*args, causal)
+    for got, ref in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == torch.float32
+        assert _rel_err(got, ref) <= FLASH_REL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_bf16_cuda_tensors_never_reach_the_backward_twins(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+    def boom(*a, **kw):
+        raise AssertionError("twin reached for a CUDA tensor")
+
+    args = _flash_bwd_case(1, 128, 128, 2, True, torch.bfloat16, seed=5)
+    for name in ("flash_attention_dq_reference",
+                 "flash_attention_dkv_reference"):
+        monkeypatch.setattr(fa, name, boom)
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    fa.flash_attention_dq(*args, causal=True)
+    fa.flash_attention_dkv(*args, causal=True)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == tuple(b + 1 for b in before)
 
 
 @pytest.mark.cuda
