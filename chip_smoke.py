@@ -9,7 +9,8 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build every kernel from paddle_tpu_torch/csrc/ (one nvcc per
    source, all started together), timed, with each kernel's registers
-   and spills; a tensor-core kernel that spills fails the run;
+   and spills (each flash kernel at head_dim 64 and 128); a
+   tensor-core kernel that spills fails the run;
 3. the ragged paged-attention kernel against its plain PyTorch twin at
    serving shapes (16 heads, head_dim 64, page 16), in bfloat16 and
    float32: pure decode, a prefill chunk mixed with decode rows, pad
@@ -35,15 +36,17 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    that token is printed and must be at most 1e-3 (a near-tie);
 6. the three flash-attention kernels (forward, dQ, dK/dV) against their
    plain twins, q/k/v as strided views of one fused projection, in
-   bfloat16 and float32: [8, 1024, 16, 64] causal and full, a ragged
-   T = 1000 causal, Tq = 256 against Tk = 1024 full. bfloat16 dQ and
-   dK/dV run on the tensor cores (wgmma), float32 on the CUDA cores.
-   Per case each kernel's time, its twin's, one PyTorch call's
+   bfloat16 and float32: at head_dim 64 [8, 1024, 16, 64] causal and
+   full, a ragged T = 1000 causal, Tq = 256 against Tk = 1024 full; at
+   head_dim 128 GPT-1.3B's [4, 1024, 16, 128] causal and full.
+   bfloat16 runs on the tensor cores (wgmma), float32 on the CUDA
+   cores. Per case each kernel's time, its twin's, one PyTorch call's
    (scaled_dot_product_attention forward, or its backward), the bound
    and the achieved TFLOP/s, and dQ + dK/dV against the backward call.
-   After phase 7, dQ and dK/dV again on layer 0's q, k, v, dO, lse and
-   delta of the first main-path training step (kept by a hook on the
-   dQ wrapper; dO there is ~1e-6, which random inputs never show);
+   After phase 7, the forward, dQ and dK/dV again on layer 0's q, k, v,
+   dO, lse and delta of the first main-path training step (kept by a
+   hook on the dQ wrapper; dO there is ~1e-6, which random inputs never
+   show; the lse the forward kernel saved in the step is held too);
 7. GPT-medium at full width in bfloat16 (the phase-4 weights) trained by
    TrainStep(monitor_health=True), with no fused_update argument, with
    AdamW(lr=1e-4, multi_precision=True) on bench.py's batch (8 x 1024,
@@ -60,8 +63,30 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    health vectors finite, found_inf 0, the loss falling; ms/step,
    tokens/s, MFU, peak memory, device ms, idle share, the epilogue's
    device ms and the CUDA kernel launches of the profiled step; each
-   run's step-13 loss beside the one the float32 CUDA-core backward
-   kernels gave;
+   run's step-13 loss within 0.01 of the one the CUDA-core forward
+   kernel gave (PERF.md section 5);
+7b. GPT-1.3B (gpt_1p3b(), head_dim 128) at full width and depth
+   (vocab 50304, hidden 2048, 24 layers, 16 heads; 1,313,722,368
+   parameters with the tied head; max_position_embeddings 1024 as
+   bench.py sets it) in bfloat16, the reference's init drawn with
+   numpy (timed), trained by the default fused TrainStep with both
+   switches set (the port's fastest route), AdamW(lr=1e-4,
+   multi_precision=True), on bench.py's batch 4 x 1024 (ids from
+   RandomState(0), labels = ids): 2 warm-up, 5 timed, 1 profiled step.
+   It differs from bench.py's 1.3B headline, which the port cannot run
+   yet: Momentum with stochastic rounding and a bf16 state (not
+   ported; without them Momentum's updates at lr 1e-4 stay below a
+   bf16 ulp), scan_remat="dots" and fused_loss(chunk=2048) (not
+   ported; without remat the step holds ~23 GB, well inside 80 GB).
+   Each flash kernel must launch steps x 24 times, each LayerNorm
+   kernel steps x 49, each xent kernel steps x 1, each fused pass
+   steps x groups; losses and health finite, found_inf 0, the loss
+   falling; ms/step, tokens/s, MFU, device ms, idle share, peak memory
+   and the flash kernels' device ms of the profiled step. Then its
+   first 2 layers in float32 (hidden 2048, head_dim 128), 3 steps at
+   batch 2 x 256 on the card (the CUDA-core flash kernels at head_dim
+   128) and on the CPU (twins) from the same weights, on the same
+   route: losses and health vectors agree to rtol 1e-3;
 8. GPT-medium width with 2 layers in float32, 3 train steps (batch
    2 x 256) on the card (kernels) and on the CPU (twins) from the same
    weights, on each epilogue and on the default one with both switches
@@ -126,18 +151,21 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    CPU's top-2 gap at the first mismatch at most 1e-3; with every stream
    equal, the real slots' conv tails and states after the run within
    1e-3 of each pool's largest entry;
-15. the kernels line, then, last, {"ok": true, "device": {...}}.
+15. the kernels line (each flash kernel twice: head_dim 64 and, with
+   the suffix "_d128", 128), then, last, {"ok": true, "device": {...}}.
 
 Each main path (GPT serving in phase 4, training in phase 7's first run
-for kernels #2-#4 and #9-#10, phase 7's third run for #5-#8, SSM serving
-in phase 13 for #11) runs with the launch counts set to 0 just before
-it and read just after.
+for kernels #2-#4 and #9-#10, phase 7's third run for #5-#8, GPT-1.3B
+training in phase 7b for #2-#4 at head_dim 128, SSM serving in phase
+13 for #11) runs with the launch counts set to 0 just before it and
+read just after.
 Times are CUDA-event times with the 50 MB L2 flushed before each
 launch, as the serving loop finds it cold (each layer has its own
 pools). Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM,
 989 TFLOP/s bf16 (tensor cores), 67 TFLOP/s float32.
 """
 import contextlib
+import copy
 import json
 import os
 import re
@@ -598,6 +626,9 @@ FLASH_KERNELS = (
 # order; bfloat16 adds one output rounding (2^-8) on each side
 FLASH_REL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-2}
 TRAIN = dict(batch=8, seq=1024, lr=1e-4, warmup=3, timed=10)
+# GPT-1.3B's step: bench.py's batch (4 x 1024) and learning rate
+TRAIN_1P3B = dict(batch=4, seq=1024, lr=1e-4, warmup=2, timed=5)
+GPT_1P3B_PARAMS = 1_313_722_368  # vocab 50304, 1024 positions, tied head
 EPILOGUE = "TrainStep.epilogue"  # TrainStep's record_function range
 AGREE = dict(layers=2, batch=2, seq=256, steps=3, rtol=1e-3)
 
@@ -649,20 +680,19 @@ def sdpa_train_calls(torch, q, k, v, do, causal):
                                         retain_graph=True))
 
 
-def hold_flash(torch, fa, flush, label, tq, tk, causal, dtype, rng):
-    """The three flash kernels against their twins on one shape, q/k/v
-    strided views of one fused [B, T, 3, H, D] tensor as GPT makes them;
-    the backward kernels and twins take the twin's lse and delta. Then
-    each kernel's, twin's and library call's time and the bound.
-    Returns {kernel name: measurements}."""
-    B = TRAIN["batch"]
+def hold_flash(torch, fa, flush, label, B, tq, tk, d, causal, dtype, rng):
+    """The three flash kernels against their twins on one shape
+    [B, T, 16, d], q/k/v strided views of one fused [B, T, 3, H, d]
+    tensor as GPT makes them; the backward kernels and twins take the
+    twin's lse and delta. Then each kernel's, twin's and library call's
+    time and the bound. Returns {kernel name: measurements}."""
     dev = torch.device("cuda")
     qkv = torch.from_numpy(rng.standard_normal(
-        (B, max(tq, tk), 3, H, D), dtype=np.float32)).to(dev, dtype)
+        (B, max(tq, tk), 3, H, d), dtype=np.float32)).to(dev, dtype)
     q, k, v = qkv.unbind(dim=2)
     q, k, v = q[:, :tq], k[:, :tk], v[:, :tk]
     do = torch.from_numpy(rng.standard_normal(
-        (B, tq, H, D), dtype=np.float32)).to(dev, dtype)
+        (B, tq, H, d), dtype=np.float32)).to(dev, dtype)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     want, want_lse = fa.flash_attention_fwd_reference(q, k, v, causal)
     delta = (want.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
@@ -690,7 +720,7 @@ def hold_flash(torch, fa, flush, label, tq, tk, causal, dtype, rng):
            "flash_attention_dq": dict(max_abs_err=errs["dq"]),
            "flash_attention_dkv": dict(max_abs_err=max(errs["dk"],
                                                        errs["dv"]))}
-    print(f"  {label:34s} {str(dtype)[6:]:8s} err out {errs['out']:.3g} "
+    print(f"  {label:40s} {str(dtype)[6:]:8s} err out {errs['out']:.3g} "
           f"lse {lse_err:.3g} dq {errs['dq']:.3g} dk {errs['dk']:.3g} "
           f"dv {errs['dv']:.3g}", flush=True)
     lib_fwd, lib_bwd = sdpa_train_calls(torch, q, k, v, do, causal)
@@ -726,27 +756,33 @@ def hold_flash(torch, fa, flush, label, tq, tk, causal, dtype, rng):
 
 
 def phase_flash(torch, fa, flush):
-    """Each flash kernel against its twin: the training shape causal and
-    full, a ragged T, Tq != Tk; bf16 and f32. Returns the bf16 causal
-    training shape's measurements with the largest error of every
-    case."""
+    """Each flash kernel against its twin, bf16 and f32: at head_dim 64
+    GPT-medium's training shape causal and full, a ragged T, Tq != Tk;
+    at head_dim 128 GPT-1.3B's training shape causal and full. Returns
+    {head_dim: the bf16 causal training shape's measurements with the
+    largest error of every case at that head_dim}."""
     rng = np.random.default_rng(SEED + 2)
     T = TRAIN["seq"]
-    cases = [("training shape, causal", T, T, True),
-             ("training shape, full", T, T, False),
-             ("ragged T=1000, causal", 1000, 1000, True),
-             ("Tq=256, Tk=1024, full", 256, 1024, False)]
-    main = None
-    worst = {name: 0.0 for name, _ in FLASH_KERNELS}
+    B64, B128 = TRAIN["batch"], TRAIN_1P3B["batch"]
+    cases = [("training shape, causal", B64, T, T, 64, True),
+             ("training shape, full", B64, T, T, 64, False),
+             ("ragged T=1000, causal", B64, 1000, 1000, 64, True),
+             ("Tq=256, Tk=1024, full", B64, 256, 1024, 64, False),
+             ("GPT-1.3B training shape, causal", B128, T, T, 128, True),
+             ("GPT-1.3B training shape, full", B128, T, T, 128, False)]
+    main = {}
+    worst = {d: {name: 0.0 for name, _ in FLASH_KERNELS} for d in (64, 128)}
     for dtype in (torch.bfloat16, torch.float32):
-        for label, tq, tk, causal in cases:
-            res = hold_flash(torch, fa, flush, label, tq, tk, causal, dtype,
-                             rng)
-            for name in worst:
-                worst[name] = max(worst[name], res[name]["max_abs_err"])
-            main = main or res
-    for name in worst:
-        main[name]["max_abs_err"] = worst[name]
+        for label, B, tq, tk, d, causal in cases:
+            res = hold_flash(torch, fa, flush, f"{label} [{B}, {tq}, {H}, "
+                             f"{d}]", B, tq, tk, d, causal, dtype, rng)
+            for name in worst[d]:
+                worst[d][name] = max(worst[d][name],
+                                     res[name]["max_abs_err"])
+            main.setdefault(d, res)
+    for d, res in main.items():
+        for name in worst[d]:
+            res[name]["max_abs_err"] = worst[d][name]
     return main
 
 
@@ -792,11 +828,11 @@ def park_captured(torch, into):
 
 
 def hold_flash_captured(torch, fa, captured, n_layers):
-    """dQ and dK/dV against their twins on layer 0's inputs of a real
-    training step (q, k, v unbind views of the fused projection, the
-    forward kernel's lse, the backward's dO and delta): dO there is
-    ~1e-6, which random N(0, 1) inputs never show. Returns each kernel's
-    largest absolute error."""
+    """The forward, dQ and dK/dV against their twins on layer 0's inputs
+    of a real training step (q, k, v unbind views of the fused
+    projection, the forward kernel's lse, the backward's dO and delta):
+    dO there is ~1e-6, which random N(0, 1) inputs never show. Returns
+    each kernel's largest absolute error."""
     check(captured.get("calls") == n_layers,
           f"captured {captured.get('calls')} dQ calls in one step, want "
           f"{n_layers}")
@@ -804,14 +840,19 @@ def hold_flash_captured(torch, fa, captured, n_layers):
     q, k, v = qkv.unbind(dim=2)
     kw = captured["kw"]
     args = (q, k, v, do, lse, delta)
+    out, out_lse = fa.flash_attention_fwd(q, k, v, **kw)
     dq = fa.flash_attention_dq(*args, **kw)
     dk, dv = fa.flash_attention_dkv(*args, **kw)
     torch.cuda.synchronize()
+    want, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
     want_dq = fa.flash_attention_dq_reference(*args, **kw)
     want_dk, want_dv = fa.flash_attention_dkv_reference(*args, **kw)
-    errs, tol, msg = {}, FLASH_REL[str(q.dtype)], []
-    for name, got, ref in (("dq", dq, want_dq), ("dk", dk, want_dk),
-                           ("dv", dv, want_dv)):
+    lse_err = max((out_lse - want_lse).abs().max().item(),
+                  (lse - want_lse).abs().max().item())
+    check(lse_err <= 1e-4, f"captured layer 0: lse differs by {lse_err}")
+    errs, tol, msg = {}, FLASH_REL[str(q.dtype)], [f"lse err {lse_err:.3g}"]
+    for name, got, ref in (("out", out, want), ("dq", dq, want_dq),
+                           ("dk", dk, want_dk), ("dv", dv, want_dv)):
         check(bool(torch.isfinite(got.float()).all()),
               f"captured layer 0: {name} not finite")
         err = (got.float() - ref.float()).abs().max().item()
@@ -825,7 +866,8 @@ def hold_flash_captured(torch, fa, captured, n_layers):
           f"{str(q.dtype)[6:]} {kw}, max |dO| "
           f"{do.float().abs().max().item():.3g}: " + ", ".join(msg),
           flush=True)
-    return {"flash_attention_dq": errs["dq"],
+    return {"flash_attention_fwd": max(errs["out"], lse_err),
+            "flash_attention_dq": errs["dq"],
             "flash_attention_dkv": max(errs["dk"], errs["dv"])}
 
 
@@ -909,42 +951,46 @@ def n_groups(step):
 
 
 def train_run(torch, km, tmods, state, fused, switched=False,
-              capture=None):
-    """GPT-medium at full width in bf16, AdamW(lr=1e-4, multi_precision)
-    with f32 masters, TrainStep(monitor_health=True) on bench.py's batch
-    (ids from RandomState(0), labels = ids): 3 warm-up steps, 10 timed,
-    1 profiled. fused=True passes no fused_update argument (the default
+              capture=None, cfg=None, run=TRAIN, name=""):
+    """A GPT (GPT-medium, or `cfg`) at full width in bf16, AdamW(lr=1e-4,
+    multi_precision) with f32 masters, TrainStep(monitor_health=True) on
+    bench.py's batch (`run`: batch x seq, ids from RandomState(0),
+    labels = ids): run["warmup"] warm-up steps, run["timed"] timed, 1
+    profiled. fused=True passes no fused_update argument (the default
     path, which must be the fused epilogue); fused=False passes
     fused_update=False. switched sets PADDLE_TPU_PALLAS_LN=1 and
     PADDLE_TPU_PALLAS_XENT=1 for the run (the LayerNorm and xent
     kernels), else both are unset. The launch counts are set to 0 just
     before the run. With `capture` (a dict), the first warm-up step's
     flash backward inputs of layer 0 are kept there, on the host
-    (capture_flash_bwd). Returns the run's measurements."""
+    (capture_flash_bwd). `name` prefixes the printed label. Returns the
+    run's measurements."""
     with switches(switched):
-        return _train_run(torch, km, tmods, state, fused, switched, capture)
+        return _train_run(torch, km, tmods, state, fused, switched, capture,
+                          cfg or tmods[1](), run, name)
 
 
-def _train_run(torch, km, tmods, state, fused, switched, capture):
+def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
+               name):
     from torch.autograd import DeviceType
     from paddle_tpu_torch.jit.api import HEALTH_KEYS
-    GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
-    cfg = gpt_medium()
+    GPTForCausalLM, _, load_state, TrainStep, AdamW, F = tmods
     model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
     load_state(model, state)
     n_params = sum(p.numel() for p in model.parameters())
-    B, T = TRAIN["batch"], TRAIN["seq"]
+    B, T = run["batch"], run["seq"]
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(B, T)).astype(np.int32)).to(model.device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start_gib = torch.cuda.memory_allocated() / 2**30
-    label = ("fused + LN/xent kernels (switched)" if switched
-             else "fused (default)" if fused else "tree (fused_update=False)")
+    label = name + ("fused + LN/xent kernels (switched)" if switched
+                    else "fused (default)" if fused
+                    else "tree (fused_update=False)")
 
     zero_counts(km)
     step = TrainStep(model, lm_loss(F),
-                     AdamW(learning_rate=TRAIN["lr"],
+                     AdamW(learning_rate=run["lr"],
                            parameters=model.parameters(),
                            multi_precision=True),
                      monitor_health=True,
@@ -955,31 +1001,31 @@ def _train_run(torch, km, tmods, state, fused, switched, capture):
     groups = n_groups(step) if fused else 0
     losses = []
 
-    def run(n):
+    def steps(n):
         for _ in range(n):
             losses.append(step(ids, ids))
 
     t = time.perf_counter()
     if capture is not None:
         with capture_flash_bwd(km[0], capture):
-            run(1)
+            steps(1)
         park_captured(torch, capture)
-        run(TRAIN["warmup"] - 1)
+        steps(run["warmup"] - 1)
     else:
-        run(TRAIN["warmup"])
+        steps(run["warmup"])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t
     t = time.perf_counter()
-    run(TRAIN["timed"])
+    steps(run["timed"])
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t) / TRAIN["timed"]
+    step_s = (time.perf_counter() - t) / run["timed"]
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        run(1)
+        steps(1)
         torch.cuda.synchronize()
     launches = counts(km)
-    n_steps = TRAIN["warmup"] + TRAIN["timed"] + 1
+    n_steps = run["warmup"] + run["timed"] + 1
     health = step.flush_health()
     vals = torch.stack(losses).tolist()
     hv = np.array([[h[k] for k in HEALTH_KEYS] for h in step.health_log])
@@ -988,7 +1034,7 @@ def _train_run(torch, km, tmods, state, fused, switched, capture):
     check(np.isfinite(vals).all() and np.isfinite(hv).all(),
           f"{label}: non-finite loss or health: {vals} / {hv}")
     check((hv[:, 4] == 0).all(), f"{label}: found_inf set: {hv[:, 4]}")
-    first, last = vals[0], vals[TRAIN["warmup"] + TRAIN["timed"] - 1]
+    first, last = vals[0], vals[run["warmup"] + run["timed"] - 1]
     check(last < first, f"{label}: loss did not fall: {first} -> {last}")
     for name, _ in FLASH_KERNELS:
         check(launches[name] == n_steps * cfg.num_layers,
@@ -1027,8 +1073,8 @@ def _train_run(torch, km, tmods, state, fused, switched, capture):
                launches=launches, groups=groups, first=first, last=last)
     print(f"  {label}: {n_params} parameters; {n_steps} steps, loss "
           f"{first:.4f} -> {last:.4f} (last health {health})")
-    print(f"  {label}: {res['ms']:.1f} ms/step over {TRAIN['timed']} steps "
-          f"(warm-up {warm_s:.1f}s for {TRAIN['warmup']}), "
+    print(f"  {label}: {res['ms']:.1f} ms/step over {run['timed']} steps "
+          f"(warm-up {warm_s:.1f}s for {run['warmup']}), "
           f"{res['tokens_s']:.0f} tokens/s, MFU {res['mfu']:.4f} "
           f"({flop:.4g} FLOP/step over 989 TFLOP/s); peak memory "
           f"{peak:.2f} GiB ({start_gib:.2f} GiB allocated at the start, "
@@ -1041,8 +1087,8 @@ def _train_run(torch, km, tmods, state, fused, switched, capture):
           f"epilogue device time "
           + (f"{res['epilogue_ms']:.2f}ms ({epi_how})" if epi_us
              else "not measured"))
-    res["device_ms"], res["idle"], res["other_ms"] = train_time_goes(
-        prof, step_s)
+    res["device_ms"], res["idle"], res["other_ms"], res["parts_ms"] = \
+        train_time_goes(prof, step_s)
     del step, model
     torch.cuda.empty_cache()
     return res
@@ -1070,13 +1116,14 @@ def train_time_goes(prof, wall_s):
     """Device time of the profiled step by kernel: the flash kernels,
     the fused epilogue, the LayerNorm and xent kernels, cuBLAS products,
     the rest; idle share against the timed steps' wall time. Returns
-    (device ms, idle share, ms of the rest) or (None, None, None)."""
+    (device ms, idle share, ms of the rest, {kernel family: ms}), or
+    Nones and {} when the profiler saw no device events."""
     by_name = device_us_by_name(prof)
     total = sum(by_name.values()) / 1e3
     if not total:
         print("  device time per step: not measured (the profiler saw no "
               "device events)")
-        return None, None, None
+        return None, None, None, {}
     parts = {k: sum(v for n, v in by_name.items() if k in n) / 1e3
              for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_pass",
                        "fused_finalize", "ln_fwd", "ln_bwd", "ln_finalize",
@@ -1095,13 +1142,15 @@ def train_time_goes(prof, wall_s):
           f"{other:.2f}ms")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us / 1e3:8.3f}ms  {name[:90]}")
-    return total, idle, other
+    return total, idle, other, parts
 
 
-# step-13 losses with the float32 CUDA-core backward flash kernels
-# (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5), beside which each
-# run's is printed: the tensor-core kernels round P and dS to bf16
-CUDA_CORE_LAST_LOSS = {"fused": 6.7767, "tree": 6.7767, "switched": 6.7742}
+# step-13 losses with the CUDA-core flash forward and the tensor-core
+# backward (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5), against
+# which each run's is held: the tensor-core forward rounds P to bf16 too
+CUDA_CORE_FWD_LAST_LOSS = {"fused": 6.7733, "tree": 6.7733,
+                           "switched": 6.7726}
+LAST_LOSS_TOL = 0.01
 
 
 def phase_train(torch, km, tmods, state, capture):
@@ -1121,9 +1170,13 @@ def phase_train(torch, km, tmods, state, capture):
                        f"default run's by {rel}")
     runs = {"fused": main, "tree": tree, "switched": ln_xent}
     print("  step-13 loss: " + ", ".join(
-        f"{name} {r['last']:.4f} (CUDA-core backward: "
-        f"{CUDA_CORE_LAST_LOSS[name]:.4f})"
+        f"{name} {r['last']:.4f} (CUDA-core forward: "
+        f"{CUDA_CORE_FWD_LAST_LOSS[name]:.4f})"
         for name, r in runs.items()))
+    for name, r in runs.items():
+        check(abs(r["last"] - CUDA_CORE_FWD_LAST_LOSS[name]) <= LAST_LOSS_TOL,
+              f"{name}: step-13 loss {r['last']} is more than "
+              f"{LAST_LOSS_TOL} from {CUDA_CORE_FWD_LAST_LOSS[name]}")
     for key in ("ms", "tokens_s", "mfu", "device_ms", "idle", "peak_gib",
                 "epilogue_ms", "kernels", "other_ms"):
         print(f"  {key:12s} " + "  ".join(
@@ -1132,26 +1185,32 @@ def phase_train(torch, km, tmods, state, capture):
     return main, tree, ln_xent
 
 
-def phase_train_agreement(torch, km, tmods, state):
-    """GPT-medium width, 2 layers, float32, batch 2 x 256, 3 AdamW steps
-    from the same weights, on the card (kernels) and on the CPU (plain
-    twins), on each epilogue and on the fused one with the LayerNorm and
-    xent switches set (512 x 50304 logits: the xent route applies). TF32
-    is off, so the card's float32 products are float32. Losses and
-    health vectors agree to rtol 1e-3 (float32 sums in other orders,
-    amplified where Adam divides small moments)."""
+ALL_ROUTES = ((True, False), (False, False), (True, True))
+
+
+def phase_train_agreement(torch, km, tmods, state, cfg=None,
+                          routes=ALL_ROUTES):
+    """GPT-medium width (or `cfg`'s), 2 layers, float32, batch 2 x 256, 3
+    AdamW steps from the same weights, on the card (kernels) and on the
+    CPU (plain twins), for each (fused, switched) of `routes`: each
+    epilogue, and the fused one with the LayerNorm and xent switches set
+    (512 x 50304 logits: the xent route applies). TF32 is off, so the
+    card's float32 products are float32. Losses and health vectors agree
+    to rtol 1e-3 (float32 sums in other orders, amplified where Adam
+    divides small moments)."""
     from paddle_tpu_torch.jit.api import HEALTH_KEYS
     GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = gpt_medium()
+    cfg = copy.copy(cfg or gpt_medium())
     cfg.num_layers = AGREE["layers"]
     small = first_layers(state, cfg.num_layers)
     ids = np.random.RandomState(1).randint(
         0, cfg.vocab_size, size=(AGREE["batch"], AGREE["seq"]))
-    print("  TF32 off: the card's float32 products run in float32")
+    print(f"  TF32 off: the card's float32 products run in float32; hidden "
+          f"{cfg.hidden_size}, head_dim {cfg.hidden_size // cfg.num_heads}")
     n_ln = 2 * cfg.num_layers + 1
-    for fused, switched in ((True, False), (False, False), (True, True)):
+    for fused, switched in routes:
         runs = {}
         for device in ("cuda", "cpu"):
             model = GPTForCausalLM(cfg, device=device)
@@ -1197,6 +1256,45 @@ def phase_train_agreement(torch, km, tmods, state):
               f"{AGREE['steps']} steps: {dmax:.3g}")
         check(np.allclose(gh, ch, rtol=AGREE["rtol"], atol=1e-6),
               f"{name}: card and CPU training disagree: {gh} vs {ch}")
+
+
+def phase_train_1p3b(torch, km, tmods, gpt_1p3b):
+    """GPT-1.3B (gpt_1p3b(), head_dim 128) at full width and depth in
+    bf16, with max_position_embeddings 1024 as bench.py sets it: the
+    reference's init drawn with numpy, then the port's fastest route
+    (the default fused TrainStep with PADDLE_TPU_PALLAS_LN=1 and
+    PADDLE_TPU_PALLAS_XENT=1) on bench.py's batch 4 x 1024: 2 warm-up,
+    5 timed and 1 profiled step, the launch counts set to 0 just before
+    and read just after (train_run). Then the first 2 layers of the same
+    weights in float32, 3 steps on the card (the CUDA-core flash kernels
+    at head_dim 128) and on the CPU (twins), on the same route. Returns
+    the run's measurements."""
+    GPTForCausalLM = tmods[0]
+    cfg = gpt_1p3b()
+    cfg.max_position_embeddings = TRAIN_1P3B["seq"]
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == GPT_1P3B_PARAMS,
+          f"GPT-1.3B has {n_params} parameters, want {GPT_1P3B_PARAMS}")
+    t = time.perf_counter()
+    state = numpy_state(model, SEED)
+    print(f"  {n_params} parameters (vocab {cfg.vocab_size}, hidden "
+          f"{cfg.hidden_size}, {cfg.num_layers} layers, {cfg.num_heads} "
+          f"heads, head_dim {cfg.hidden_size // cfg.num_heads}, tied head); "
+          f"weights drawn with numpy in {time.perf_counter() - t:.1f}s",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    res = train_run(torch, km, tmods, state, fused=True, switched=True,
+                    cfg=cfg, run=TRAIN_1P3B, name="GPT-1.3B, ")
+    print("  GPT-1.3B flash device ms in the profiled step: " + ", ".join(
+        f"{k} {res['parts_ms'].get(k, 0.0):.2f}"
+        for k in ("flash_fwd", "flash_dq", "flash_dkv")))
+    small = first_layers(state, AGREE["layers"])
+    del state
+    phase_train_agreement(torch, km, tmods, small, cfg=cfg,
+                          routes=((True, True),))
+    return res
 
 
 # -- the fused epilogue's kernels against their twins -----------------------
@@ -2056,8 +2154,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.inference import GenerationEngine
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.models import (GPTForCausalLM, gpt_medium,
-                                         load_paddle_tpu_state)
+    from paddle_tpu_torch.models import (GPTForCausalLM, gpt_1p3b,
+                                         gpt_medium, load_paddle_tpu_state)
     from paddle_tpu_torch.models import gpt as gpt_mod
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops import fused_update as fu
@@ -2124,12 +2222,18 @@ def main():
     captured = {}
     train_main, _, train_switched = phase_train(torch, km, tmods, state,
                                                 captured)
-    print("[6] (cont.) flash dQ and dK/dV: kernels vs plain twins on layer "
-          "0's inputs of the first phase-7 training step", flush=True)
+    print("[6] (cont.) flash forward, dQ and dK/dV: kernels vs plain twins "
+          "on layer 0's inputs of the first phase-7 training step",
+          flush=True)
     for name, err in hold_flash_captured(
             torch, fa, captured, gpt_medium().num_layers).items():
-        flash_main[name]["max_abs_err"] = max(
-            flash_main[name]["max_abs_err"], err)
+        flash_main[64][name]["max_abs_err"] = max(
+            flash_main[64][name]["max_abs_err"], err)
+
+    print("[7b] GPT-1.3B bf16 (head_dim 128) through TrainStep with "
+          "PADDLE_TPU_PALLAS_LN=1 and PADDLE_TPU_PALLAS_XENT=1; then 2 of its "
+          "layers in float32, card vs CPU", flush=True)
+    train_1p3b = phase_train_1p3b(torch, km, tmods, gpt_1p3b)
 
     print("[8] 2-layer float32 training: card vs CPU, each epilogue, and "
           "the LayerNorm and xent kernels switched on", flush=True)
@@ -2175,18 +2279,22 @@ def main():
         "bound_by": main_step["bound_by"],
         "library_ms": main_step["library_ms"],
     }]
-    for (name, replaces), source, meas, run in (
-            [(k, "paddle_tpu_torch/csrc/flash_attention.cu", flash_main,
-              train_main) for k in FLASH_KERNELS]
+    # each flash kernel twice: head_dim 64 (GPT-medium's main path) and
+    # head_dim 128 (GPT-1.3B's, "_d128")
+    for (name, replaces), source, meas, run, suffix in (
+            [(k, "paddle_tpu_torch/csrc/flash_attention.cu", flash_main[64],
+              train_main, "") for k in FLASH_KERNELS]
+            + [(k, "paddle_tpu_torch/csrc/flash_attention.cu",
+                flash_main[128], train_1p3b, "_d128") for k in FLASH_KERNELS]
             + [(k, "paddle_tpu_torch/csrc/fused_update.cu", fused_main,
-                train_main) for k in FUSED_KERNELS]
+                train_main, "") for k in FUSED_KERNELS]
             + [(k, "paddle_tpu_torch/csrc/layer_norm.cu", norm_xent,
-                train_switched) for k in NORM_KERNELS]
+                train_switched, "") for k in NORM_KERNELS]
             + [(k, "paddle_tpu_torch/csrc/softmax_xent.cu", norm_xent,
-                train_switched) for k in XENT_KERNELS]):
+                train_switched, "") for k in XENT_KERNELS]):
         m = meas[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": name + suffix, "route": "cuda", "source": source,
             "replaces": replaces, "launches": run["launches"][name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
@@ -2203,9 +2311,11 @@ def main():
         "library_ms": None})
     print(f"[15] done in {time.perf_counter() - t_start:.1f}s; paged "
           f"attention times are of the served decode step's layer-0 call, "
-          f"flash times of the training shape [8, 1024, 16, 64] causal "
-          f"bf16 (library: SDPA forward for the forward kernel, SDPA "
-          f"backward, dq/dk/dv together, for both backward kernels), "
+          f"flash times of the training shapes [8, 1024, 16, 64] (and, "
+          f"_d128, GPT-1.3B's [4, 1024, 16, 128]) causal bf16 (library: "
+          f"SDPA forward for the forward kernel, SDPA backward, dq/dk/dv "
+          f"together, for both backward kernels; launches of _d128 from the "
+          f"GPT-1.3B run), "
           f"fused epilogue times of the main path's passes on GPT-medium's "
           f"layout (library: torch._foreach_norm over the grad buckets, "
           f"torch._fused_adamw_ over the f32 master buckets), LayerNorm "

@@ -2,11 +2,12 @@
 (serving and inference) and the carry-over of paddle_tpu weights and
 optimizer state."""
 from .convert import load_paddle_tpu_opt_state, load_paddle_tpu_state
-from .gpt import GPTConfig, GPTForCausalLM, GPTModel, gpt_medium, gpt_tiny
+from .gpt import (GPTConfig, GPTForCausalLM, GPTModel, gpt_1p3b, gpt_6p7b,
+                  gpt_medium, gpt_small, gpt_tiny)
 from .ssm import (SSMConfig, SSMForCausalLM, SSMModel, ssm_hybrid_tiny,
                   ssm_tiny)
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "SSMConfig",
-           "SSMForCausalLM", "SSMModel", "gpt_medium", "gpt_tiny",
-           "load_paddle_tpu_state", "load_paddle_tpu_opt_state",
-           "ssm_hybrid_tiny", "ssm_tiny"]
+           "SSMForCausalLM", "SSMModel", "gpt_1p3b", "gpt_6p7b",
+           "gpt_medium", "gpt_small", "gpt_tiny", "load_paddle_tpu_state",
+           "load_paddle_tpu_opt_state", "ssm_hybrid_tiny", "ssm_tiny"]

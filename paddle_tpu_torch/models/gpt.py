@@ -19,6 +19,9 @@ over one to one.
   (ops/kernels/flash_attention.py); logits come out alone. The layer
   stack is a plain loop (the reference's `scan_layers` is an XLA
   compile-time device).
+- presets `gpt_tiny`, `gpt_small`, `gpt_medium`, `gpt_1p3b` and
+  `gpt_6p7b` equal the reference's field for field; the last two have
+  head_dim 128, which the flash kernels take as they take 64.
 
 Not ported yet (ROADMAP.md queue A): the `scan_remat` policies, the
 static and legacy cache branches, seeded sampling, speculative
@@ -36,7 +39,8 @@ from ..ops.kernels.paged_attention import ragged_paged_attention
 from ..ops.paged_attention import PagedKVCache
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "RaggedSlot",
-           "sample_token_rows", "gpt_tiny", "gpt_medium"]
+           "sample_token_rows", "gpt_tiny", "gpt_small", "gpt_medium",
+           "gpt_1p3b", "gpt_6p7b"]
 
 _NOT_PORTED = ("only the no-cache (training) forward and the ragged "
                "paged-cache path are ported; the static/legacy cache "
@@ -319,5 +323,19 @@ def gpt_tiny(vocab=1024):
                      num_heads=4, max_position_embeddings=128)
 
 
+def gpt_small():
+    return GPTConfig(hidden_size=768, num_layers=12, num_heads=12)
+
+
 def gpt_medium():
     return GPTConfig(hidden_size=1024, num_layers=24, num_heads=16)
+
+
+def gpt_1p3b():
+    return GPTConfig(hidden_size=2048, num_layers=24, num_heads=16,
+                     max_position_embeddings=2048)
+
+
+def gpt_6p7b():
+    return GPTConfig(hidden_size=4096, num_layers=32, num_heads=32,
+                     max_position_embeddings=2048)

@@ -11,9 +11,11 @@ reference's [B*H, 1, Tq] unfolded).
   (built by nvcc at first use, ops/kernels/_build.py) for CUDA tensors,
   or raise; they never fall back. For CPU tensors they run the plain
   twin. Each launch adds one to the wrapper's `launches`. The dtype code
-  picks the kernel in the C entry point: bfloat16 dQ and dK/dV run on
-  the tensor cores (wgmma, P and dS rounded to bf16 before their
-  products), float32 and the forward on the CUDA cores in float32.
+  picks the kernel in the C entry point: bfloat16 runs on the tensor
+  cores (wgmma, P and dS rounded to bf16 before their products), float32
+  on the CUDA cores in float32. The kernels take head_dim 64 and 128
+  (the library reports them, `flash_attention_head_dims`); a CUDA call
+  with any other raises.
 - `*_reference` are the plain PyTorch twins: dense scores, the same
   top-left causal mask (row >= col), softmax in float32 with the finite
   NEG_INF and zeroed masked probabilities. The CPU tests hold them
@@ -140,11 +142,14 @@ def _argtypes(n_ptrs):
 ENTRY_POINTS = {"flash_attention_fwd": _argtypes(5),
                 "flash_attention_dq": _argtypes(7),
                 "flash_attention_dkv": _argtypes(8)}
+# flash_attention_head_dims(int* dims, int n): the built head dims
+HEAD_DIMS_ARGTYPES = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
 
 
 @functools.cache
 def _kernels():
-    """{name: ctypes entry}, built and loaded at first use."""
+    """{name: ctypes entry, "head_dims": the built head dims}, built
+    and loaded at first use."""
     lib = _build.load("flash_attention")
     fns = {}
     for name, argtypes in ENTRY_POINTS.items():
@@ -152,8 +157,10 @@ def _kernels():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
-    lib.flash_attention_head_dim.restype = ctypes.c_int
-    fns["head_dim"] = lib.flash_attention_head_dim()
+    lib.flash_attention_head_dims.argtypes = HEAD_DIMS_ARGTYPES
+    lib.flash_attention_head_dims.restype = ctypes.c_int
+    dims = (ctypes.c_int * 8)()
+    fns["head_dims"] = tuple(dims[:lib.flash_attention_head_dims(dims, 8)])
     return fns
 
 
@@ -165,9 +172,9 @@ def _launch(name, tensors, outs, causal, scale):
     q, k = tensors[:2]
     B, Tq, H, D = q.shape
     fns = _kernels()
-    if D != fns["head_dim"]:
+    if D not in fns["head_dims"]:
         raise ValueError(f"head_dim {D} not built (the kernels take "
-                         f"{fns['head_dim']})")
+                         f"{', '.join(map(str, fns['head_dims']))})")
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"the kernels take float32 or bfloat16, not "
                         f"{q.dtype}")

@@ -10,17 +10,22 @@ interpret mode on the same numpy inputs:
   `flash_attention_arrays(..., interpret=True)`;
 
 causal and full, T 32 and 64, and Tq != Tk (both top-left causal, as
-the reference's kernel). Tolerance 2e-5 absolute in float32: both sides
-compute float32 softmax and products of O(1) values over at most 64
-keys, the Pallas kernel blockwise and online, the twin densely, so they
-differ only in summation order (a few ulps of sums of up to 64 terms).
+the reference's kernel), at head_dim 16 and 128 (the head dim of
+gpt_1p3b and gpt_6p7b, which the kernels take beside 64). Tolerance
+2e-5 absolute in float32: both sides compute float32 softmax and
+products of O(1) values over at most 64 keys, the Pallas kernel
+blockwise and online, the twin densely, so they differ only in
+summation order (a few ulps of sums of up to 64 terms; the scale
+1/sqrt(head_dim) keeps the scores O(1) at 128 too).
 
 Also: `torch.autograd.gradcheck` of `_FlashAttention` in float64, the
 twins' routing (CPU tensors run the twin and count no launch), that a
-non-CPU tensor never reaches a twin, that the ctypes parameters of the
-C entry points match their declarations in csrc/flash_attention.cu, and
-that the dtype code the launch passes picks the route there (bfloat16
-dQ and dK/dV: the tensor-core kernels; float32: the CUDA-core ones).
+non-CPU tensor never reaches a twin, that a CUDA call with a head dim
+the kernels are not built for (96) raises and never reaches a twin,
+that the ctypes parameters of the C entry points match their
+declarations in csrc/flash_attention.cu, and that the dtype code the
+launch passes picks the route there (bfloat16: the tensor-core kernels;
+float32: the CUDA-core ones), at head_dim 64 and 128.
 
 The kernels themselves run only on a card:
 tests/test_torch_kernels_cuda.py holds them against the twins there.
@@ -45,33 +50,38 @@ from paddle_tpu_torch.ops.kernels import flash_attention as fa
 ATOL = 2e-5
 B, H, D = 2, 2, 16
 # (Tq, Tk, causal)
-CASES = [(32, 32, True), (64, 64, True), (64, 64, False), (32, 64, False),
-         (32, 64, True)]
+SHAPES = [(32, 32, True), (64, 64, True), (64, 64, False), (32, 64, False),
+          (32, 64, True)]
+# (Tq, Tk, causal, head_dim); the head_dim-16 cases keep their ids
+CASES = [pytest.param(*c, d, id="-".join(map(str, c)) + ("" if d == D
+                                                          else f"-d{d}"))
+         for d in (D, 128) for c in SHAPES]
 
 
-def _inputs(tq, tk, seed=0):
+def _inputs(tq, tk, seed=0, d=D):
     rng = np.random.RandomState(seed)
-    q = rng.randn(B, tq, H, D).astype(np.float32)
-    k = rng.randn(B, tk, H, D).astype(np.float32)
-    v = rng.randn(B, tk, H, D).astype(np.float32)
-    do = rng.randn(B, tq, H, D).astype(np.float32)
+    q = rng.randn(B, tq, H, d).astype(np.float32)
+    k = rng.randn(B, tk, H, d).astype(np.float32)
+    v = rng.randn(B, tk, H, d).astype(np.float32)
+    do = rng.randn(B, tq, H, d).astype(np.float32)
     return q, k, v, do
 
 
 def _fold(x):
     """[B, T, H, D] -> [B*H, T, D], the reference kernels' layout."""
-    return jnp.asarray(np.swapaxes(x, 1, 2).reshape(B * H, x.shape[1], D))
+    return jnp.asarray(np.swapaxes(x, 1, 2).reshape(B * H, x.shape[1],
+                                                    x.shape[3]))
 
 
-@pytest.mark.parametrize("tq,tk,causal", CASES)
-def test_forward_twin_matches_pallas(tq, tk, causal):
-    q, k, v, _ = _inputs(tq, tk)
-    scale = 1.0 / np.sqrt(D)
+@pytest.mark.parametrize("tq,tk,causal,d", CASES)
+def test_forward_twin_matches_pallas(tq, tk, causal, d):
+    q, k, v, _ = _inputs(tq, tk, d=d)
+    scale = 1.0 / np.sqrt(d)
     ref_out, ref_lse = ref_fa._flash_fwd_impl(
         _fold(q), _fold(k), _fold(v), causal, scale, True)
     out, lse = fa.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)),
                                       causal=causal)
-    want = np.swapaxes(np.asarray(ref_out).reshape(B, H, tq, D), 1, 2)
+    want = np.swapaxes(np.asarray(ref_out).reshape(B, H, tq, d), 1, 2)
     np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=ATOL)
     assert lse.dtype == torch.float32 and lse.shape == (B, H, tq)
     np.testing.assert_allclose(lse.numpy(),
@@ -79,9 +89,9 @@ def test_forward_twin_matches_pallas(tq, tk, causal):
                                rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("tq,tk,causal", CASES)
-def test_backward_matches_pallas_vjp(tq, tk, causal):
-    q, k, v, do = _inputs(tq, tk, seed=1)
+@pytest.mark.parametrize("tq,tk,causal,d", CASES)
+def test_backward_matches_pallas_vjp(tq, tk, causal, d):
+    q, k, v, do = _inputs(tq, tk, seed=1, d=d)
     ref_out, vjp = jax.vjp(
         lambda a, b, c: ref_fa.flash_attention_arrays(
             a, b, c, causal=causal, interpret=True),
@@ -229,6 +239,34 @@ def test_non_cpu_tensors_never_reach_the_twins(monkeypatch):
         fa.flash_attention_dkv(q, k, v, do, lse, lse)
 
 
+def test_cuda_call_with_an_unbuilt_head_dim_raises(monkeypatch):
+    """head_dim 96 on a device other than the CPU (`meta` tensors past
+    the device check, standing in for CUDA on a machine without a card)
+    raises, naming the built head dims, before any entry point runs, and
+    never reaches a twin."""
+    def boom(*a, **kw):
+        raise AssertionError("twin reached for a non-CPU tensor")
+
+    for name in ("flash_attention_fwd_reference",
+                 "flash_attention_dq_reference",
+                 "flash_attention_dkv_reference"):
+        monkeypatch.setattr(fa, name, boom)
+    calls = []
+    monkeypatch.setattr(fa, "_kernels", lambda: {
+        **{n: (lambda *a, n=n: calls.append(n)) for n in fa.ENTRY_POINTS},
+        "head_dims": (64, 128)})
+    monkeypatch.setattr(fa, "_check", lambda *a: None)
+    q, k, v, do = (torch.from_numpy(a).to("meta")
+                   for a in _inputs(32, 32, d=96))
+    lse = torch.empty(B, H, 32, device="meta")
+    for call in (lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+                 lambda: fa.flash_attention_dq(q, k, v, do, lse, lse),
+                 lambda: fa.flash_attention_dkv(q, k, v, do, lse, lse)):
+        with pytest.raises(ValueError, match="head_dim 96 .*64, 128"):
+            call()
+    assert calls == []
+
+
 def test_wrappers_check_shapes_and_dtypes():
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(32, 64))
     with pytest.raises(TypeError, match="share"):
@@ -247,41 +285,50 @@ def test_wrappers_check_shapes_and_dtypes():
 SOURCE = Path(fa.__file__).resolve().parents[2] / "csrc" / "flash_attention.cu"
 C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "const long long*": ctypes.POINTER(ctypes.c_longlong),
+           "int*": ctypes.POINTER(ctypes.c_int),
            "int": ctypes.c_int, "float": ctypes.c_float}
 
 
-def _entry_point(name):
-    """(parameter types, body) of extern "C" `int name(...)` in the
-    source."""
+def _entry_point(name, ret="int"):
+    """(parameter types, body) of `ret name(...)` in the source."""
     src = SOURCE.read_text()
-    m = re.search(r"\nint " + name + r"\(([^)]*)\)\s*\{(.*?)\n\}", src,
-                  re.S)
+    m = re.search(r"\n" + ret + r" " + name + r"\(([^)]*)\)\s*\{(.*?)\n\}",
+                  src, re.S)
     params = [" ".join(p.split()[:-1]).replace(" *", "*")
               for p in m.group(1).split(",")]
-    return [C_TYPES[p] for p in params], m.group(2)
+    return [C_TYPES.get(p) for p in params], m.group(2)
 
 
 @pytest.mark.parametrize("name", sorted(fa.ENTRY_POINTS))
 def test_ctypes_parameters_match_the_c_entry_points(name):
     params, body = _entry_point(name)
     assert params == fa.ENTRY_POINTS[name]
-    # the dtype code picks the design: float32 on the CUDA cores,
-    # bfloat16 dQ and dK/dV on the tensor cores
+    # the head dim picks the template, the dtype code the design: float32
+    # on the CUDA cores, bfloat16 on the tensor cores
+    run = name.replace("flash_attention_", "run_")
+    assert f"{run}<64>(" in body and f"{run}<128>(" in body
+    _, run_body = _entry_point(run, ret="cudaError_t")
     kernel = name.replace("flash_attention_", "flash_") + "_"
     f32, bf16 = re.search(r"dtype == 0\)(.*?)if \(dtype == 1\)(.*?);",
-                          body, re.S).groups()
-    assert kernel + "kernel<float>" in f32
-    tc = name != "flash_attention_fwd"
-    assert (kernel + ("tc_kernel<" if tc else "kernel<__nv_bfloat16>")) \
-        in bf16
+                          run_body, re.S).groups()
+    assert kernel + "kernel<D>" in f32
+    assert kernel + "tc_kernel<D>" in bf16
+
+
+def test_head_dims_entry_point_matches_its_c_declaration():
+    params, _ = _entry_point("flash_attention_head_dims")
+    assert params == fa.HEAD_DIMS_ARGTYPES
+    built = re.search(r"kHeadDims\[\] = \{([^}]*)\}", SOURCE.read_text())
+    assert [int(d) for d in built.group(1).split(",")] == [64, 128]
 
 
 @pytest.mark.parametrize("dtype,code", [(torch.bfloat16, 1),
                                         (torch.float32, 0)])
 def test_launch_passes_the_dtype_code_and_views(monkeypatch, dtype, code):
-    """`_launch` with stand-ins for the loaded entry points: the dtype
-    code, q/k/v's strides as the unbind views of a fused projection
-    have them, and one argument per declared parameter."""
+    """`_launch` with stand-ins for the loaded entry points, for each of
+    the three passes at head_dim 64 and 128: the dtype code, the head
+    dim, q/k/v's strides as the unbind views of a fused projection have
+    them, and one argument per declared parameter."""
     calls = {}
 
     def entry(name):
@@ -291,21 +338,28 @@ def test_launch_passes_the_dtype_code_and_views(monkeypatch, dtype, code):
         return fn
 
     monkeypatch.setattr(fa, "_kernels", lambda: {
-        **{n: entry(n) for n in fa.ENTRY_POINTS}, "head_dim": 64})
+        **{n: entry(n) for n in fa.ENTRY_POINTS}, "head_dims": (64, 128)})
     monkeypatch.setattr(fa, "current_stream", lambda device: 0)
-    qkv = torch.zeros(2, 40, 3, 2, 64, dtype=dtype)
-    q, k, v = qkv.unbind(dim=2)
-    do = torch.zeros(2, 40, 2, 64, dtype=dtype)
-    vec = torch.zeros(2, 2, 40)
-    fa._launch("flash_attention_dq", (q, k, v, do), (vec, vec, do), True,
-               0.125)
-    fa._launch("flash_attention_dkv", (q, k, v, do), (vec, vec, do, do),
-               True, 0.125)
-    for name in ("flash_attention_dq", "flash_attention_dkv"):
-        args = calls[name]
-        n_ptrs = 7 if name == "flash_attention_dq" else 8
-        assert len(args) == len(fa.ENTRY_POINTS[name])
-        assert args[-2] == code and args[-3] == 1  # dtype, causal
-        assert list(args[n_ptrs]) == [3 * 2 * 64 * 40, 3 * 2 * 64, 64] * 3 \
-            + [40 * 2 * 64, 2 * 64, 64]
-        assert args[:3] == tuple(t.data_ptr() for t in (q, k, v))
+    for d in (64, 128):
+        qkv = torch.zeros(2, 40, 3, 2, d, dtype=dtype)
+        q, k, v = qkv.unbind(dim=2)
+        do = torch.zeros(2, 40, 2, d, dtype=dtype)
+        vec = torch.zeros(2, 2, 40)
+        fa._launch("flash_attention_fwd", (q, k, v), (do, vec), True, 0.125)
+        fa._launch("flash_attention_dq", (q, k, v, do), (vec, vec, do), True,
+                   0.125)
+        fa._launch("flash_attention_dkv", (q, k, v, do), (vec, vec, do, do),
+                   True, 0.125)
+        for name, n_ptrs in (("flash_attention_fwd", 5),
+                             ("flash_attention_dq", 7),
+                             ("flash_attention_dkv", 8)):
+            args = calls[name]
+            assert len(args) == len(fa.ENTRY_POINTS[name])
+            assert args[-2] == code and args[-3] == 1  # dtype, causal
+            assert args[-5] == d  # head_dim
+            view = [3 * 2 * d * 40, 3 * 2 * d, d]
+            strides = view * 3 + ([40 * 2 * d, 2 * d, d]
+                                  if name != "flash_attention_fwd"
+                                  else [0, 0, 0])
+            assert list(args[n_ptrs]) == strides
+            assert args[:3] == tuple(t.data_ptr() for t in (q, k, v))

@@ -19,13 +19,14 @@ that is not a multiple of the kernels' 64-row tile. Tolerance on the
 largest difference over the largest reference value: 1e-4 in float32
 (sums of up to 200 products in another order), 1e-2 in bfloat16 (both
 sides round the output to bf16 once, 2^-8, plus the float32
-differences). lse is float32 on both sides: 1e-4 absolute. bfloat16 dQ
-and dK/dV run on the tensor cores, which round P and dS to bf16 before
-their second products; they hold the same 1e-2 at the training shape
-[8, 1024, 16, 64], a ragged T = 1000, Tq = 256 against Tk = 1024, T = 64
-and 65 and a single (batch, head), give the same bits on a second call
-(no atomics), and never reach a twin; float32 keeps the CUDA-core route
-and its 1e-4.
+differences). lse is float32 on both sides: 1e-4 absolute. bfloat16
+runs on the tensor cores, whose forward rounds P, and whose backward
+rounds P and dS, to bf16 before the second products; the three kernels
+hold the same 1e-2 at the training shapes [8, 1024, 16, 64] and
+[4, 1024, 16, 128], a ragged T = 1000, Tq = 256 against Tk = 1024,
+T = 64 and 65 and a single (batch, head), at head_dim 64 and 128, give
+the same bits on a second call (no atomics), and never reach a twin;
+float32 keeps the CUDA-core route and its 1e-4 at both head dims.
 
 The fused epilogue's passes (kernels #9, #10) against their twins on a
 small ragged layout (two scan-group leaves, buckets not a multiple of
@@ -139,15 +140,16 @@ def _rel_err(got, want):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tq,tk,causal", [(200, 200, True),
                                           (200, 200, False),
                                           (64, 200, False), (64, 200, True)])
-def test_flash_kernels_match_twins_on_card(tq, tk, causal, dtype):
+def test_flash_kernels_match_twins_on_card(tq, tk, causal, dtype, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     rng = np.random.RandomState(1)
-    B, Hh, Dh = 2, 4, 64
+    B, Hh, Dh = 2, 4, d
     dev = torch.device("cuda")
     qkv = torch.from_numpy(rng.randn(B, tk, 3, Hh, Dh).astype(np.float32)
                            ).to(dev, dtype)
@@ -178,25 +180,25 @@ def test_flash_kernels_match_twins_on_card(tq, tk, causal, dtype):
         assert _rel_err(got, ref) <= FLASH_REL[dtype], name
 
 
-def _flash_bwd_case(B, tq, tk, Hh, causal, dtype, seed=0):
-    """q, k, v as strided views of one fused [B, T, 3, H, 64] tensor, a
+def _flash_bwd_case(B, tq, tk, Hh, causal, dtype, seed=0, d=64):
+    """q, k, v as strided views of one fused [B, T, 3, H, d] tensor, a
     random dO, and the twin forward's lse and delta, on the card."""
     rng = np.random.RandomState(seed)
     dev = torch.device("cuda")
-    qkv = torch.from_numpy(rng.randn(B, max(tq, tk), 3, Hh, 64).astype(
+    qkv = torch.from_numpy(rng.randn(B, max(tq, tk), 3, Hh, d).astype(
         np.float32)).to(dev, dtype)
     q, k, v = qkv.unbind(dim=2)
     q, k, v = q[:, :tq], k[:, :tk], v[:, :tk]
-    do = torch.from_numpy(rng.randn(B, tq, Hh, 64).astype(np.float32)
+    do = torch.from_numpy(rng.randn(B, tq, Hh, d).astype(np.float32)
                           ).to(dev, dtype)
     out, lse = fa.flash_attention_fwd_reference(q, k, v, causal)
     delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, do, lse, delta
 
 
-# bfloat16 dQ and dK/dV run on the tensor cores (wgmma); (B, Tq, Tk, H,
-# causal): the training shape, a ragged T, Tq < Tk, one tile and one row
-# past it, a single (batch, head)
+# bfloat16 runs on the tensor cores (wgmma); (B, Tq, Tk, H, causal): the
+# training shape, a ragged T, Tq < Tk, one tile and one row past it, a
+# single (batch, head); at head_dim 128 B is halved (GPT-1.3B's batch)
 FLASH_TC_CASES = [(8, 1024, 1024, 16, True), (8, 1024, 1024, 16, False),
                   (8, 1000, 1000, 16, True), (8, 256, 1024, 16, False),
                   (2, 64, 64, 4, True), (2, 65, 65, 4, True),
@@ -204,12 +206,36 @@ FLASH_TC_CASES = [(8, 1024, 1024, 16, True), (8, 1024, 1024, 16, False),
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("B,tq,tk,Hh,causal", FLASH_TC_CASES)
-def test_flash_backward_tensor_core_kernels_match_twins_on_card(
-        B, tq, tk, Hh, causal):
+def test_flash_forward_tensor_core_kernel_matches_twin_on_card(
+        B, tq, tk, Hh, causal, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    args = _flash_bwd_case(B, tq, tk, Hh, causal, torch.bfloat16)
+    B = B // 2 if d == 128 and B > 1 else B
+    q, k, v, _, _, _ = _flash_bwd_case(B, tq, tk, Hh, causal,
+                                       torch.bfloat16, seed=6, d=d)
+    before = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    want, want_lse = fa.flash_attention_fwd_reference(q, k, v, causal)
+    assert out.dtype == torch.bfloat16 and out.is_contiguous()
+    assert out.shape == (B, tq, Hh, d) and lse.shape == (B, Hh, tq)
+    assert bool(torch.isfinite(out.float()).all())
+    assert _rel_err(out, want) <= FLASH_REL[torch.bfloat16]
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("B,tq,tk,Hh,causal", FLASH_TC_CASES)
+def test_flash_backward_tensor_core_kernels_match_twins_on_card(
+        B, tq, tk, Hh, causal, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    B = B // 2 if d == 128 and B > 1 else B
+    args = _flash_bwd_case(B, tq, tk, Hh, causal, torch.bfloat16, d=d)
     dq = fa.flash_attention_dq(*args, causal=causal)
     dk, dv = fa.flash_attention_dkv(*args, causal=causal)
     torch.cuda.synchronize()
@@ -223,32 +249,43 @@ def test_flash_backward_tensor_core_kernels_match_twins_on_card(
 
 
 @pytest.mark.cuda
-def test_flash_backward_tensor_core_kernels_are_deterministic_on_card():
-    """No atomics: two calls on the same inputs give the same bits."""
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_tensor_core_kernels_are_deterministic_on_card(d):
+    """No atomics: two calls on the same inputs give the same bits, for
+    the forward and both backward kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    args = _flash_bwd_case(2, 300, 300, 4, True, torch.bfloat16, seed=3)
-    first = (fa.flash_attention_dq(*args, causal=True),
+    args = _flash_bwd_case(2, 300, 300, 4, True, torch.bfloat16, seed=3,
+                           d=d)
+    first = (*fa.flash_attention_fwd(*args[:3], causal=True),
+             fa.flash_attention_dq(*args, causal=True),
              *fa.flash_attention_dkv(*args, causal=True))
-    second = (fa.flash_attention_dq(*args, causal=True),
+    second = (*fa.flash_attention_fwd(*args[:3], causal=True),
+              fa.flash_attention_dq(*args, causal=True),
               *fa.flash_attention_dkv(*args, causal=True))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_backward_float32_keeps_cuda_core_route_on_card(causal):
+def test_flash_backward_float32_keeps_cuda_core_route_on_card(causal, d):
     """float32 stays off the tensor cores: within 1e-4 of the twin, which
-    a bf16 (or TF32) product of these inputs would miss."""
+    a bf16 (or TF32) product of these inputs would miss; the forward too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    args = _flash_bwd_case(2, 1000, 1000, 4, causal, torch.float32, seed=4)
+    args = _flash_bwd_case(2, 1000, 1000, 4, causal, torch.float32, seed=4,
+                           d=d)
+    out, lse = fa.flash_attention_fwd(*args[:3], causal=causal)
+    want, want_lse = fa.flash_attention_fwd_reference(*args[:3], causal)
     dq = fa.flash_attention_dq(*args, causal=causal)
     dk, dv = fa.flash_attention_dkv(*args, causal=causal)
     want_dq = fa.flash_attention_dq_reference(*args, causal)
     want_dk, want_dv = fa.flash_attention_dkv_reference(*args, causal)
-    for got, ref in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    for got, ref in ((out, want), (dq, want_dq), (dk, want_dk),
+                     (dv, want_dv)):
         assert got.dtype == torch.float32
         assert _rel_err(got, ref) <= FLASH_REL[torch.float32]
 
@@ -271,6 +308,37 @@ def test_bf16_cuda_tensors_never_reach_the_backward_twins(monkeypatch):
     torch.cuda.synchronize()
     assert (fa.flash_attention_dq.launches,
             fa.flash_attention_dkv.launches) == tuple(b + 1 for b in before)
+
+
+@pytest.mark.cuda
+def test_bf16_cuda_tensors_never_reach_the_forward_twin(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+    def boom(*a, **kw):
+        raise AssertionError("twin reached for a CUDA tensor")
+
+    q, k, v = _flash_bwd_case(1, 128, 128, 2, True, torch.bfloat16,
+                              seed=5, d=128)[:3]
+    monkeypatch.setattr(fa, "flash_attention_fwd_reference", boom)
+    before = fa.flash_attention_fwd.launches
+    fa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cuda_call_with_an_unbuilt_head_dim_raises(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    q, k, v, do, lse, delta = _flash_bwd_case(1, 64, 64, 2, True, dtype,
+                                              d=96)
+    for call in (lambda: fa.flash_attention_fwd(q, k, v),
+                 lambda: fa.flash_attention_dq(q, k, v, do, lse, delta),
+                 lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta)):
+        with pytest.raises(ValueError, match="head_dim 96 .*64, 128"):
+            call()
 
 
 @pytest.mark.cuda

@@ -7,7 +7,9 @@ the same numpy batch (labels = ids, as bench.py feeds its step):
 
 - logits and the cross-entropy loss of the first forward, and every
   parameter's gradient (the reference's eager tape against torch
-  autograd through the port's flash attention twins);
+  autograd through the port's flash attention twins); again for a GPT
+  with head_dim 128 (hidden 256, 2 heads, 2 layers), the head dim of
+  gpt_1p3b and gpt_6p7b;
 - three steps of `TrainStep(fused_update=False, monitor_health=True)`
   with `AdamW(lr=1e-3)`: losses, health vectors and every parameter.
 
@@ -26,7 +28,9 @@ orders (XLA's fused matmuls against ATen's):
   exactly by `test_tree_update_matches_reference` at a large lr;
 - losses and health 1e-4 relative: reductions over all parameters.
 
-Also: a bfloat16 model with multi_precision keeps bfloat16 params and
+Also: the presets gpt_tiny, gpt_small, gpt_medium, gpt_1p3b and
+gpt_6p7b equal the reference's field for field; a bfloat16 model with
+multi_precision keeps bfloat16 params and
 float32 masters and moments (on the default, fused epilogue); the
 GradScaler's eager half, a bfloat16 optimizer state and a truthy
 `scan_remat` raise; the new modules are among those the import hygiene
@@ -43,10 +47,12 @@ import paddle_tpu as paddle
 from paddle_tpu import nn as ref_nn
 from paddle_tpu import optimizer as ref_opt
 from paddle_tpu.jit import TrainStep as RefStep
+from paddle_tpu.models import gpt as ref_gpt
 from paddle_tpu.models.gpt import GPTConfig as RefConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as RefLM
 
 import paddle_tpu_torch
+from paddle_tpu_torch import models as port_models
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                      load_paddle_tpu_state)
@@ -57,6 +63,8 @@ from paddle_tpu_torch.optimizer import Adam, AdamW
 
 CFG = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
            max_position_embeddings=64)
+# head_dim 128, as gpt_1p3b's and gpt_6p7b's
+CFG_D128 = dict(CFG, hidden_size=256, num_heads=2)
 B, T, LR, STEPS = 2, 16, 1e-3, 3
 
 
@@ -83,14 +91,25 @@ def ref_state():
     return ref, {k: np.array(v.numpy()) for k, v in ref.state_dict().items()}
 
 
-def _port(state, dtype=None):
-    model = GPTForCausalLM(GPTConfig(**CFG), device="cpu", dtype=dtype)
+def _port(state, dtype=None, cfg=CFG):
+    model = GPTForCausalLM(GPTConfig(**cfg), device="cpu", dtype=dtype)
     load_paddle_tpu_state(model, state)
     return model
 
 
 def test_forward_loss_and_gradients_match_reference(ref_state):
-    ref, state = ref_state
+    _forward_loss_and_gradients_match(*ref_state, CFG)
+
+
+def test_head_dim_128_forward_loss_and_gradients_match_reference():
+    paddle.seed(0)
+    ref = RefLM(RefConfig(dropout=0.0, **CFG_D128))
+    state = {k: np.array(v.numpy()) for k, v in ref.state_dict().items()}
+    assert ref.gpt.h[0].attn.head_dim == 128
+    _forward_loss_and_gradients_match(ref, state, CFG_D128)
+
+
+def _forward_loss_and_gradients_match(ref, state, cfg):
     ids = _batch()
     ref.train()
     ref_logits = ref(paddle.to_tensor(ids))
@@ -100,7 +119,7 @@ def test_forward_loss_and_gradients_match_reference(ref_state):
                  for k, p in ref.named_parameters()}
     ref.clear_gradients()
 
-    model = _port(state).train()
+    model = _port(state, cfg=cfg).train()
     ids_t = torch.from_numpy(ids)
     logits = model(ids_t)
     loss = _loss(logits, ids_t)
@@ -115,6 +134,19 @@ def test_forward_loss_and_gradients_match_reference(ref_state):
     for k in grads:
         np.testing.assert_allclose(grads[k], ref_grads[k], rtol=1e-4,
                                    atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["gpt_tiny", "gpt_small", "gpt_medium",
+                                  "gpt_1p3b", "gpt_6p7b"])
+def test_presets_match_reference(name):
+    """The port's presets against the reference's, field for field; the
+    reference's extra fields (sequence parallelism, MoE) stay at the
+    defaults that leave them off."""
+    port, ref = vars(getattr(port_models, name)()), \
+        vars(getattr(ref_gpt, name)())
+    assert port == {k: ref[k] for k in port}
+    assert {k: v for k, v in ref.items() if k not in port} == {
+        k: v for k, v in vars(RefConfig()).items() if k not in port}
 
 
 def test_three_train_steps_match_reference(ref_state):
