@@ -9,15 +9,22 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build every kernel from paddle_tpu_torch/csrc/ (one nvcc per
    source, all started together), timed, with each kernel's registers
-   and spills (each flash kernel at head_dim 64 and 128); a
-   tensor-core kernel that spills fails the run;
+   and spills (each flash kernel at head_dim 64 and 128, the paged
+   kernels at each head dim and q rows a CUDA-core unit); a
+   tensor-core kernel (a name with "_tc_kernel") that spills fails the
+   run;
 3. the ragged paged-attention kernel against its plain PyTorch twin at
    serving shapes (16 heads, head_dim 64, page 16), in bfloat16 and
    float32: pure decode, a prefill chunk mixed with decode rows, pad
-   tokens, grouped-query fold 4. Outputs within tolerance, work counters
-   equal, pad rows exactly 0; per shape the kernel's time, the twin's,
-   one PyTorch call's (scaled_dot_product_attention on a dense copy of
-   the same K/V) and the least time the card could take (bound);
+   tokens, grouped-query fold 4, a lone 1023-token decode row (split
+   across blocks) and the chunk with decode rows at head_dim 128.
+   Outputs within tolerance, work counters equal, pad rows exactly 0,
+   and the same bits with the schedule shipped as with the one the
+   wrapper builds; per shape the kernel's time (schedule shipped, as a
+   serving step runs it), the twin's, one PyTorch call's
+   (scaled_dot_product_attention on a dense copy of the same K/V), the
+   least time the card could take (bound), the CUDA launches a call
+   makes and the schedule's units, split units and splits;
 4. GPT-medium at full width (vocab 50304, hidden 1024, 24 layers, 16
    heads) in bfloat16, weights drawn from a numpy seed by the
    reference's init (Normal(0, 0.02), zero biases, unit LayerNorms),
@@ -26,10 +33,11 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    64-640 tokens, two sharing a 128-token prefix (the second arrives
    after the first is done, so it hits the prefix cache). Every handle
    must finish with 64 tokens, the kernel must have launched exactly
-   steps x 24 times and no other kernel (#2-#11) at all. Then a replay
-   of the same traffic records real steps' layer-0 kernel inputs (a
-   decode step and a mixed step) and the kernel is held against the
-   twin on them;
+   steps x 24 times and no other kernel (#2-#11) at all; the host
+   planner's microseconds a step (the cache's step plan and kernel #1's
+   schedule, both numpy) are summed over the run. Then a replay of the
+   same traffic records real steps' layer-0 kernel inputs (a decode step
+   and a mixed step) and the kernel is held against the twin on them;
 5. the same prompts at GPT-medium width with 2 layers in float32, once
    on the card (kernel) and once on the CPU (plain twin): greedy
    streams must be equal; at a mismatch the CPU's top-2 logit gap at
@@ -205,8 +213,9 @@ _TEMPLATE_ARG = re.compile(r"13__nv_bfloat16|f|S\d*_|Li(\d+)E")
 
 
 def kernel_label(ptxas_line):
-    """'ln_bwd_kernel<bf16, f32>' or 'flash_dq_kernel<bf16, D=64>' from
-    ptxas's line naming a mangled kernel."""
+    """'ln_bwd_kernel<bf16, f32>', 'flash_dq_kernel<bf16, D=64>' or
+    'paged_cc_kernel<bf16, D=64, rows=16>' from ptxas's line naming a
+    mangled kernel."""
     mangled = ptxas_line.split("'")[1]
     found = re.search(r"_kernel(?=[IE])", mangled)
     if not found:
@@ -217,10 +226,13 @@ def kernel_label(ptxas_line):
                  if mangled[:end - n].endswith(str(n))), mangled[:60])
     if mangled[end] == "E":  # not a template
         return name
-    args, at = [], end + 1
+    args, at, ints = [], end + 1, ("D", "rows")
     while (m := _TEMPLATE_ARG.match(mangled, at)):
-        args.append(f"D={m.group(1)}" if m.group(1)
-                    else "f32" if m.group(0) == "f" else "bf16")
+        if m.group(1):  # the first int a head dim, the second q rows
+            args.append(f"{ints[0]}={m.group(1)}")
+            ints = ints[1:] or ints
+        else:
+            args.append("f32" if m.group(0) == "f" else "bf16")
         at = m.end()
     return f"{name}<{', '.join(args)}>"
 
@@ -315,11 +327,18 @@ def sdpa_call(torch, q, k_pages, v_pages, page_table, token_seq, bounds):
 
 
 def hold(torch, pa, args, flush, label, iters=20):
-    """Kernel vs twin on args: errors, work, pads, times. Returns a
-    dict of the measurements."""
+    """Kernel vs twin on args: errors, work, pads, times. The wrapper
+    builds its schedule from the inputs on the first call; the timed
+    calls take it shipped, as a serving step does (no device-to-host
+    read). Returns a dict of the measurements."""
     q, k_pages, v_pages, page_table, token_seq, bounds = args
     out, work = pa.ragged_paged_attention(*args, return_work=True)
+    sched = schedule_of(torch, pa, args)
+    sched.dev = sched.on(q.device)
+    shipped = pa.ragged_paged_attention(*args, schedule=sched)
     torch.cuda.synchronize()
+    check(torch.equal(out, shipped), f"{label}: a shipped schedule gives "
+                                     "other bits")
     want, want_work = pa.ragged_paged_attention_reference(
         *args, return_work=True)
     err = (out.float() - want.float()).abs().max().item()
@@ -332,29 +351,48 @@ def hold(torch, pa, args, flush, label, iters=20):
         f"{label}: work != ceil(bound / P)")
     check(bool((out[bounds == 0] == 0).all()), f"{label}: pad rows not 0")
     check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite")
-    ms = cuda_ms(torch, lambda: pa.ragged_paged_attention(*args), iters,
-                 flush)
+    ms = cuda_ms(torch, lambda: pa.ragged_paged_attention(
+        *args, schedule=sched), iters, flush)
     plain_ms = cuda_ms(torch, lambda: pa.ragged_paged_attention_reference(
         *args), 3, flush)
     library_ms = cuda_ms(torch, sdpa_call(torch, *args), 10, flush)
     bound_ms, bound_by = bound(q, k_pages, token_seq, bounds)
+    splits = sched.n_parts
     res = dict(label=label, dtype=dtype, tokens=int(q.shape[0]),
                live=int((bounds > 0).sum()),
                rows=len(set(token_seq[bounds > 0].tolist())),
                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               launches_per_call=sched.launches,
+               split_units=sched.n_split_units,
+               splits=splits)
     print(f"  {label:28s} {dtype[6:]:8s} T={res['tokens']:4d} "
-          f"live={res['live']:4d} rows={res['rows']} err={err:.3g} "
-          f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+          f"live={res['live']:4d} rows={res['rows']} D={q.shape[2]} "
+          f"err={err:.3g} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
           f"sdpa={library_ms:.4f}ms bound={bound_ms:.4f}ms ({bound_by}) "
-          f"bound/kernel={bound_ms / ms:.3f}", flush=True)
+          f"bound/kernel={bound_ms / ms:.3f}; CUDA launches/call "
+          f"{sched.launches} (tensor-core units {sched.n_tc}, CUDA-core "
+          f"blocks {sched.n_cc}, split units {sched.n_split_units} in "
+          f"{splits} splits, pads {sched.n_pad})", flush=True)
     return res
 
 
-def synthetic(torch, rows, pad_to, fold, dtype, rng):
-    """Kernel inputs for rows [(history, new tokens)]: each row's pages
-    are distinct random pages (0 is the pad page), T padded with
-    bound-0 tokens."""
+def schedule_of(torch, pa, args):
+    """The work units the wrapper builds for args (kernel #1's host
+    planner, as the CUDA path runs it without a shipped schedule)."""
+    q, k_pages, _, page_table, token_seq, bounds = args
+    return pa.ragged_schedule(
+        token_seq.cpu().numpy(), bounds.cpu().numpy(), k_pages.shape[1],
+        page_table.shape[1], q.shape[1] // k_pages.shape[2],
+        k_pages.shape[2], q.dtype == torch.bfloat16,
+        n_rows=page_table.shape[0],
+        n_sms=torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def synthetic(torch, rows, pad_to, fold, dtype, rng, d=D):
+    """Kernel inputs for rows [(history, new tokens)] at head_dim d: each
+    row's pages are distinct random pages (0 is the pad page), T padded
+    with bound-0 tokens."""
     seq, bd = [], []
     for r, (hist, n) in enumerate(rows):
         seq += [r] * n
@@ -374,8 +412,8 @@ def synthetic(torch, rows, pad_to, fold, dtype, rng):
     dev = torch.device("cuda")
     draw = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s, dtype=np.float32)).to(dev, dtype)
-    return [draw(pad_to, H, D), draw(n_pages, P, kvh, D),
-            draw(n_pages, P, kvh, D)] + [
+    return [draw(pad_to, H, d), draw(n_pages, P, kvh, d),
+            draw(n_pages, P, kvh, d)] + [
         torch.from_numpy(np.asarray(a, np.int32)).to(dev)
         for a in (pt, seq, bd)]
 
@@ -390,10 +428,13 @@ def phase_kernel(torch, pa, flush):
         ("3 decode rows + 5 pads", [(99, 1), (399, 1), (649, 1)], 8, 1),
         ("gqa fold 4, chunk + decode", [(128, 64), (80, 1), (300, 1),
                                         (600, 1)], 128, 4),
+        ("lone 1023-token decode row", [(1022, 1)], 8, 1),
+        ("D128 chunk 128 + 7 decode", [(256, 128)]
+         + [(h, 1) for h in hist[:7]], 256, 1, 128),
     ]
     for dtype in (torch.bfloat16, torch.float32):
-        for label, rows, pad_to, fold in cases:
-            args = synthetic(torch, rows, pad_to, fold, dtype, rng)
+        for label, rows, pad_to, fold, *d in cases:
+            args = synthetic(torch, rows, pad_to, fold, dtype, rng, *d)
             hold(torch, pa, args, flush, label)
 
 
@@ -461,10 +502,30 @@ def phase_serve(torch, pa, flush, mods):
     prompts = make_prompts(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
 
-    # the main path, counted
+    # the main path, counted; the host planner's time (the cache's step
+    # plan and kernel #1's schedule, both numpy) summed over its steps
     pa.ragged_paged_attention.launches = 0
-    eng, handles, streams, wave_s, all_s = serve(GenerationEngine, model,
-                                                 prompts)
+    planner = {"plan_ragged": 0.0, "step_schedule": 0.0}
+    cache_cls = gpt_mod.PagedKVCache
+    real_plan, real_sched = cache_cls.plan_ragged, gpt_mod.step_schedule
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                planner[name] += time.perf_counter() - t
+        return call
+
+    cache_cls.plan_ragged = timed("plan_ragged", real_plan)
+    gpt_mod.step_schedule = timed("step_schedule", real_sched)
+    try:
+        eng, handles, streams, wave_s, all_s = serve(GenerationEngine,
+                                                     model, prompts)
+    finally:
+        cache_cls.plan_ragged = real_plan
+        gpt_mod.step_schedule = real_sched
     launches = pa.ragged_paged_attention.launches
     check(all(len(s) == NEW_TOKENS for s in streams),
           f"stream lengths {[len(s) for s in streams]}")
@@ -480,6 +541,10 @@ def phase_serve(torch, pa, flush, mods):
     print(f"  served {len(streams)} requests x {NEW_TOKENS} tokens: "
           f"{eng.steps} steps, {launches} kernel launches, prefix-cache "
           f"tokens {hits}")
+    print(f"  host planner per step: PagedKVCache.plan_ragged "
+          f"{planner['plan_ragged'] / eng.steps * 1e6:.1f}us + kernel #1's "
+          f"schedule {planner['step_schedule'] / eng.steps * 1e6:.1f}us "
+          f"(both numpy, once a step for all {cfg.num_layers} layers)")
     print(f"  wave of 7: {7 * NEW_TOKENS / wave_s:.1f} output tokens/s "
           f"({wave_s:.3f}s, prefill included); TTFT mean "
           f"{np.mean(ttft) * 1e3:.1f}ms max {np.max(ttft) * 1e3:.1f}ms; "
@@ -521,9 +586,12 @@ def phase_serve(torch, pa, flush, mods):
                        f"served {kind} step, layer 0")
             for kind in ("decode", "mixed")}
     args = best["decode"][1]
-    print(f"  wrapper host time per call (served decode step): "
-          f"{host_us(torch, lambda: pa.ragged_paged_attention(*args)):.1f}"
-          f"us; a step makes {cfg.num_layers}")
+    sched = schedule_of(torch, pa, args)
+    sched.dev = sched.on(args[0].device)
+    us = host_us(torch, lambda: pa.ragged_paged_attention(
+        *args, schedule=sched))
+    print(f"  wrapper host time per call (served decode step, schedule "
+          f"shipped): {us:.1f}us; a step makes {cfg.num_layers}")
     return launches, held, prompts, state
 
 
@@ -541,8 +609,7 @@ def device_us_by_name(prof):
 
 
 def where_the_time_goes(prof, steps, wall_s_per_step,
-                        kernel="ragged_paged_attention",
-                        label="attention kernel"):
+                        kernel="paged_", label="attention kernel"):
     """Device kernel time per step by kernel, from the profiled replay,
     against the unprofiled run's wall time per step; `kernel` names the
     path's own kernel, whose share is printed as `label`."""

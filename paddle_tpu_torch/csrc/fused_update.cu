@@ -10,29 +10,37 @@
 // (`fused_pass1_reference`, `fused_pass2_reference`) compute the same
 // function with torch's elementwise ops.
 //
-// What bounds it: device-memory bytes. Pass 2 reads grad, param, two
-// moments and the master and writes param, moments and master: 30 bytes
-// a bf16 parameter with f32 masters, ~0.1 operations a byte. So the
-// design is about bytes in flight: every load and store is a 16-byte
-// vector (8 bf16 or 4 f32), and each thread issues all the loads of
-// UNROLL vectors before it computes (pass 1: 4 vectors of the grad;
-// pass 2: 2 units of 8 elements, 16 vectors). wgmma and TMA have no role.
+// What bounds it: device-memory bytes. Pass 1 reads the grads once (2
+// bytes a bf16 parameter; with a live GradScaler it writes them back
+// unscaled); pass 2 reads grad, param, two moments and the master and
+// writes param, moments and master: 30 bytes a bf16 parameter with f32
+// masters, ~0.1 operations a byte. So the design is about bytes in
+// flight: every load and store is a 16-byte vector (8 bf16 or 4 f32), and
+// each thread issues all the loads of UNROLL vectors before it computes
+// (pass 1: 4 vectors of the grad; pass 2: 2 units of 8 elements, 16
+// vectors). wgmma and TMA have no role.
 //
 // Design, against the TPU kernel's sequential grid with a scratch
 // accumulator:
 // - One launch sweeps every bucket of a group (same param dtype, same
-//   has-master), not one launch per bucket: a device-resident descriptor
-//   table (built once by the wrapper) gives each bucket's addresses,
-//   length, first chunk row and first tile. A block walks tiles
-//   t = blockIdx.x, + gridDim.x, ...; a tile lies inside one bucket
-//   (found by binary search over the tiles' starts) and covers
-//   THREADS * UNROLL vectors of 8 elements, consecutive threads on
-//   consecutive vectors. Only a bucket's last vector can be partial and
-//   takes scalar loads.
-// - Per-leaf metadata (need_clip / decay flags, lr_scale, norm_weight)
-//   comes through the chunk -> leaf table, once per 8-element vector. A
-//   bucket's metadata is uniform by construction, so a vector that
-//   straddles two chunks reads the same values from either.
+//   has-master), not one launch per bucket. A block walks tiles
+//   t = blockIdx.x, + gridDim.x, ...; a tile lies inside one bucket (pass
+//   2) or one run (pass 1), found by binary search over the tiles'
+//   starts, and covers THREADS * UNROLL vectors of 8 elements,
+//   consecutive threads on consecutive vectors. Only a bucket's (a run's)
+//   last vector can be partial and takes scalar loads.
+// - Pass 1 needs one number of the metadata, the L2 weight
+//   norm_weight * need_clip, and a bucket's is uniform by construction.
+//   So the wrapper cuts each bucket into runs of one weight (one run a
+//   bucket from BucketLayout) and pass 1 reads a table of runs (Seg1),
+//   staged in shared memory once a block; a tile reads its weight once.
+//   Its grid is what the card keeps resident (measured occupancy).
+// - Pass 2's per-leaf metadata (need_clip / decay flags, lr_scale,
+//   norm_weight) comes through the chunk -> leaf table, once per
+//   8-element vector, from a device-resident descriptor table (built once
+//   by the wrapper) of each bucket's addresses, length, first chunk row
+//   and first tile. A vector that straddles two chunks of one bucket reads
+//   the same values from either.
 // - Sums stay on the device and are deterministic. Order: each thread
 //   sums its vectors' terms in order; a warp adds lanes by xor shuffles;
 //   thread 0 adds the 8 warps in order and writes one partial per block
@@ -40,9 +48,11 @@
 //   sums the slots, each thread a strided run in order, then a fixed
 //   tree. No float atomics. found is a max of 0/1 flags.
 // - Rounding: nvcc would contract a*b + c into an FMA, and the twins
-//   run separate torch ops that round each product. So the update is
-//   written with __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn /
-//   __fsqrt_rn (IEEE), which match the twins bit for bit.
+//   run separate torch ops that round each product. So every value a
+//   pass writes is computed with __fmul_rn / __fadd_rn / __fsub_rn /
+//   __fdiv_rn / __fsqrt_rn (IEEE), which match the twins bit for bit.
+//   Sums need only agree to float32 rounding: pass 1 takes them with
+//   fused multiply-adds, one chain per vector.
 // - In place: pass 1 writes the unscaled grads over the grads (nothing
 //   reads the raw grads after it); pass 2 writes params, moments and
 //   masters over themselves, each element read and then written by the
@@ -53,16 +63,27 @@
 
 #include "vec8.cuh"
 
-// These two structs stay outside the unnamed namespace: fused_pass2's C
+// These structs stay outside the unnamed namespace: fused_pass2's C
 // entry takes a Pass2Args, and a parameter type with internal linkage
 // would give the entry internal linkage too (no exported symbol).
 
-// one row of the descriptor table: 9 int64 written by the wrapper
+// one row of pass 2's descriptor table: 8 int64 written by the wrapper
 struct Bucket {
   long long g, p, m0, m1, mw;  // device addresses; 0 when absent
   long long n;                 // elements
   long long chunk0;            // the bucket's first row in chunk_leaf
-  long long tile1, tile2;      // its first tile in pass 1 / pass 2
+  long long tile2;             // its first tile in pass 2
+};
+
+// one row of pass 1's table (4 int64 written by the wrapper): a run of
+// one bucket's grads whose leaves share one L2 weight; one run per
+// bucket when the bucket's metadata is uniform, as BucketLayout makes it
+struct Seg1 {
+  long long g;     // device address of the run's first grad (16-byte aligned)
+  long long n;     // elements
+  long long tile;  // its first tile
+  float w;         // norm_weight * need_clip of its leaves
+  int unused;
 };
 
 struct Pass2Args {
@@ -107,11 +128,11 @@ __device__ __forceinline__ void store8(T* ptr, long long base, long long n,
 
 // the bucket holding tile t: the last whose first tile is <= t
 __device__ __forceinline__ int find_bucket(const Bucket* desc, int nb,
-                                           long long t, bool pass2) {
+                                           long long t) {
   int lo = 0, hi = nb - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
-    const long long s = pass2 ? desc[mid].tile2 : desc[mid].tile1;
+    const long long s = desc[mid].tile2;
     if (s <= t)
       lo = mid;
     else
@@ -146,57 +167,81 @@ __device__ __forceinline__ float block_reduce(float x, float* smem) {
   return r;
 }
 
-template <typename T>
+// the segment holding tile t: the last whose first tile is <= t
+__device__ __forceinline__ int find_seg(const Seg1* segs, int ns,
+                                        long long t) {
+  int lo = 0, hi = ns - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (segs[mid].tile <= t)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// Pass 1 over runs of uniform weight (Seg1): the table is staged in
+// shared memory once a block; a tile reads its weight once, after its
+// loads are issued. Each thread keeps kUnroll1 16-byte vectors in flight,
+// with one sum chain per vector. The unscale (kWriteU) is a template
+// argument: the main path, with no scaler, keeps no value to write back.
+template <typename T, bool kWriteU>
 __global__ void __launch_bounds__(kThreads)
-    fused_pass1_kernel(const Bucket* __restrict__ desc, int nb,
-                       long long n_tiles, const int* __restrict__ chunk_leaf,
-                       const int* __restrict__ flags,
-                       const float* __restrict__ nw, long long chunk,
-                       const float* __restrict__ scale,
+    fused_pass1_kernel(const Seg1* __restrict__ segs, int ns,
+                       long long n_tiles, const float* __restrict__ scale,
                        float* __restrict__ partials, long long stride) {
-  const bool write_u = scale != nullptr;
-  const float inv = write_u ? __fdiv_rn(1.f, *scale) : 1.f;
-  float ss = 0.f, nonfin = 0.f;
+  extern __shared__ Seg1 seg_s[];
+  for (int i = threadIdx.x; i < ns; i += kThreads) seg_s[i] = segs[i];
+  __syncthreads();
+  const float inv = kWriteU ? __fdiv_rn(1.f, *scale) : 1.f;
+  float ss = 0.f;
+  bool nonfin = false;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const Bucket bk = desc[find_bucket(desc, nb, t, false)];
-    T* g = reinterpret_cast<T*>(bk.g);
-    const long long unit0 = (t - bk.tile1) * (kThreads * kUnroll1);
+    const Seg1 sg = seg_s[find_seg(seg_s, ns, t)];
+    T* g = reinterpret_cast<T*>(sg.g);
+    const long long unit0 = (t - sg.tile) * (kThreads * kUnroll1);
     Vec8<T> x[kUnroll1];
 #pragma unroll
     for (int k = 0; k < kUnroll1; ++k) {
       const long long base = (unit0 + k * kThreads + threadIdx.x) * kVec;
-      if (base < bk.n) load8(g, base, bk.n, x[k]);
+      if (base < sg.n) {
+        load8(g, base, sg.n, x[k]);  // zeros past the run's end
+      } else {
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) x[k].v[i] = from_f32<T>(0.f);
+      }
     }
+    float part[kUnroll1];
 #pragma unroll
     for (int k = 0; k < kUnroll1; ++k) {
-      const long long base = (unit0 + k * kThreads + threadIdx.x) * kVec;
-      if (base >= bk.n) continue;
-      const int leaf = chunk_leaf[bk.chunk0 + base / chunk];
-      // _pass1_math: w = norm_weight * need_clip
-      const float w = __fmul_rn(
-          nw[leaf], (flags[leaf] & kFlagNeedClip) ? 1.f : 0.f);
-      float part = 0.f;
+      part[k] = 0.f;
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
-        if (base + i >= bk.n) break;
         const float g32 = to_f32(x[k].v[i]);
         // found_inf sweeps the raw grads, before the unscale
-        if (!isfinite(g32)) nonfin = 1.f;
+        nonfin |= !isfinite(g32);
         float u32 = g32;
-        if (write_u) {
+        if (kWriteU) {
           const T u = from_f32<T>(__fmul_rn(g32, inv));
           x[k].v[i] = u;
           u32 = to_f32(u);
         }
-        part = __fadd_rn(part, __fmul_rn(u32, u32));
+        part[k] = fmaf(u32, u32, part[k]);
       }
-      ss = __fadd_rn(ss, __fmul_rn(w, part));
-      if (write_u) store8(g, base, bk.n, x[k]);
+      if (kWriteU) {
+        const long long base = (unit0 + k * kThreads + threadIdx.x) * kVec;
+        if (base < sg.n) store8(g, base, sg.n, x[k]);
+      }
     }
+#pragma unroll
+    for (int k = 1; k < kUnroll1; ++k) part[0] += part[k];
+    // _pass1_math: w = norm_weight * need_clip, uniform over the run
+    ss = fmaf(sg.w, part[0], ss);
   }
   __shared__ float smem[kThreads / 32];
   const float s = block_reduce<false>(ss, smem);
-  const float f = block_reduce<true>(nonfin, smem);
+  const float f = block_reduce<true>(nonfin ? 1.f : 0.f, smem);
   if (threadIdx.x == 0) {
     partials[blockIdx.x] = s;
     partials[stride + blockIdx.x] = f;
@@ -222,7 +267,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   float sp = 0.f, su = 0.f;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const Bucket bk = desc[find_bucket(desc, nb, t, true)];
+    const Bucket bk = desc[find_bucket(desc, nb, t)];
     T* g = reinterpret_cast<T*>(bk.g);
     T* p = reinterpret_cast<T*>(bk.p);
     float* m0 = reinterpret_cast<float*>(bk.m0);
@@ -351,6 +396,31 @@ __global__ void __launch_bounds__(kFinalizeThreads)
   if (with_sqrt && threadIdx.x == 0) out[n_fields] = __fsqrt_rn(out[0]);
 }
 
+// Pass 1's launch: as many blocks as the card keeps resident at once
+// (measured occupancy), at most max_grid (the group's slots) and n_tiles.
+template <typename T, bool kWriteU>
+int run_pass1(const Seg1* segs, int ns, long long n_tiles,
+              const float* scale, float* partials, long long stride,
+              int max_grid, void* stream) {
+  const size_t smem = (size_t)ns * sizeof(Seg1);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_pass1_kernel<T, kWriteU>, kThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (grid > max_grid) grid = max_grid;
+  if (grid > n_tiles) grid = n_tiles;
+  if (grid < 1) return static_cast<int>(cudaSuccess);
+  fused_pass1_kernel<T, kWriteU>
+      <<<(int)grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          segs, ns, n_tiles, scale, partials, stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -364,23 +434,27 @@ void fused_update_tiling(int* out) {
   out[3] = kUnroll2;
 }
 
-// dtype: 0 float32, 1 bfloat16. partials points at this group's first
-// slot of field 0; field 1 lies `stride` floats further.
-int fused_pass1(const void* desc, int nb, long long n_tiles,
-                const int* chunk_leaf, const int* flags, const float* nw,
-                long long chunk, const float* scale, float* partials,
-                long long stride, int grid, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Bucket* d = static_cast<const Bucket*>(desc);
+// dtype: 0 float32, 1 bfloat16. segs: the group's Seg1 table (ns rows,
+// tiles of kThreads * kUnroll1 vectors). partials points at this group's
+// first slot of field 0; field 1 lies `stride` floats further; the grid
+// is what the card keeps resident at once (measured occupancy), at most
+// max_grid (the slots the group has) and n_tiles.
+int fused_pass1(const void* segs, int ns, long long n_tiles,
+                const float* scale, float* partials, long long stride,
+                int max_grid, int dtype, void* stream) {
+  const Seg1* d = static_cast<const Seg1*>(segs);
+  const bool write_u = scale != nullptr;
   if (dtype == 1)
-    fused_pass1_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        d, nb, n_tiles, chunk_leaf, flags, nw, chunk, scale, partials,
-        stride);
-  else
-    fused_pass1_kernel<float><<<grid, kThreads, 0, s>>>(
-        d, nb, n_tiles, chunk_leaf, flags, nw, chunk, scale, partials,
-        stride);
-  return static_cast<int>(cudaGetLastError());
+    return write_u ? run_pass1<__nv_bfloat16, true>(d, ns, n_tiles, scale,
+                                                   partials, stride,
+                                                   max_grid, stream)
+                   : run_pass1<__nv_bfloat16, false>(d, ns, n_tiles, scale,
+                                                    partials, stride,
+                                                    max_grid, stream);
+  return write_u ? run_pass1<float, true>(d, ns, n_tiles, scale, partials,
+                                          stride, max_grid, stream)
+                 : run_pass1<float, false>(d, ns, n_tiles, scale, partials,
+                                           stride, max_grid, stream);
 }
 
 int fused_pass2(const void* desc, int nb, long long n_tiles,

@@ -35,11 +35,13 @@ from ..device import resolve_device
 from ..framework.dtype import convert_dtype
 from ..nn import Dropout, Embedding, LayerNorm, Linear
 from ..nn import functional as F
-from ..ops.kernels.paged_attention import ragged_paged_attention
+from ..ops.kernels import sm_count
+from ..ops.kernels.paged_attention import (H100_SMS, ragged_paged_attention,
+                                           ragged_schedule)
 from ..ops.paged_attention import PagedKVCache
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "RaggedSlot",
-           "sample_token_rows", "gpt_tiny", "gpt_small", "gpt_medium",
+           "step_schedule", "sample_token_rows", "gpt_tiny", "gpt_small", "gpt_medium",
            "gpt_1p3b", "gpt_6p7b"]
 
 _NOT_PORTED = ("only the no-cache (training) forward and the ragged "
@@ -75,13 +77,16 @@ class RaggedSlot:
     pools (updated in place) and the step's device plan from
     PagedKVCache.plan_ragged: per-token scatter coordinates and causal
     bounds, the per-row page tables. `block_plan` is the host q-block
-    plan, passed to the kernel wrapper as the reference passes it."""
+    plan, passed to the kernel wrapper as the reference passes it;
+    `schedule` the kernel's work units for the step (`ragged_schedule`,
+    its table shipped in the step's one copy), the same for every
+    layer."""
 
     __slots__ = ("k", "v", "tok_pages", "tok_in_pages", "page_table",
-                 "token_seq", "bounds", "block_plan")
+                 "token_seq", "bounds", "block_plan", "schedule")
 
     def __init__(self, k, v, tok_pages, tok_in_pages, page_table,
-                 token_seq, bounds, block_plan=None):
+                 token_seq, bounds, block_plan=None, schedule=None):
         self.k = k
         self.v = v
         self.tok_pages = tok_pages
@@ -90,6 +95,23 @@ class RaggedSlot:
         self.token_seq = token_seq
         self.bounds = bounds
         self.block_plan = block_plan
+        self.schedule = schedule
+
+
+def step_schedule(plan, cache, q_heads):
+    """The ragged kernel's work units for a step `plan` of the paged
+    `cache` (PagedKVCache.plan_ragged), for a model of q_heads query
+    heads: built once on the host for all layers. Tensor-core units when
+    the pools are bfloat16; split-KV sized by the pools' card (an H100's
+    132 SMs when they lie on the CPU, whose twin reads no schedule)."""
+    pool = cache.k[0]
+    B, W = plan["page_table"].shape
+    n_sms = sm_count(pool.device.index) if pool.device.type == "cuda" \
+        else H100_SMS
+    return ragged_schedule(
+        plan["token_seq"], plan["bounds"], cache.page_size, W,
+        max(q_heads // pool.shape[2], 1), pool.shape[2],
+        pool.dtype == torch.bfloat16, n_rows=B, n_sms=n_sms)
 
 
 def sample_token_rows(last):
@@ -141,7 +163,8 @@ class GPTAttention(nn.Module):
         slot.v.index_put_(where, v[0].to(kd))
         out = ragged_paged_attention(
             q[0].contiguous(), slot.k, slot.v, slot.page_table,
-            slot.token_seq, slot.bounds, block_plan=slot.block_plan)
+            slot.token_seq, slot.bounds, block_plan=slot.block_plan,
+            schedule=slot.schedule)
         return self.out_proj(out.reshape(1, T, H).to(x.dtype)), slot
 
 
@@ -294,19 +317,24 @@ class GPTForCausalLM(nn.Module):
             for _, t in rows:
                 toks[off:off + len(t)] = np.asarray(t, np.int32).reshape(-1)
                 off += len(t)
-            # the whole int32 plan crosses to the device in ONE copy
+            schedule = step_schedule(plan, cache, self.cfg.num_heads)
+            # the whole int32 plan, the kernel's schedule with it, crosses
+            # to the device in ONE copy
             host = np.concatenate([
                 toks, plan["positions"], plan["token_seq"],
                 plan["tok_pages"], plan["tok_in_pages"], plan["bounds"],
-                plan["out_idx"], plan["page_table"].reshape(-1)])
+                plan["out_idx"], plan["page_table"].reshape(-1),
+                schedule.table])
             dev = torch.from_numpy(host).to(self.device, non_blocking=True)
             ids, pos, seq, pages, in_pages, bounds = dev[:6 * T].view(6, T)
             out_idx = dev[6 * T:6 * T + B]
-            page_table = dev[6 * T + B:].view(B, W)
+            page_table = dev[6 * T + B:6 * T + B + B * W].view(B, W)
+            schedule.dev = dev[6 * T + B + B * W:]
             block_plan = (plan["blk_pages"], plan["blk_seq"],
                           plan["blk_start"], plan["blk_n"])
             slots = [RaggedSlot(cache.k[l], cache.v[l], pages, in_pages,
-                                page_table, seq, bounds, block_plan)
+                                page_table, seq, bounds, block_plan,
+                                schedule)
                      for l in range(self.cfg.num_layers)]
             hidden, _ = self.gpt(ids[None], pos[None], slots)
             last = hidden[0].index_select(0, out_idx) \

@@ -47,7 +47,8 @@ from ..nn import Embedding, LayerNorm, Linear
 from ..nn import functional as F
 from ..ops.kernels.ssm_scan import ssm_scan
 from ..ops.paged_attention import PagedKVCache
-from .gpt import GPTAttention, RaggedSlot, sample_token_rows
+from .gpt import (GPTAttention, RaggedSlot, sample_token_rows,
+                  step_schedule)
 
 __all__ = ["SSMConfig", "SSMForCausalLM", "SSMModel", "SSMSlot",
            "ssm_tiny", "ssm_hybrid_tiny"]
@@ -451,6 +452,8 @@ class SSMForCausalLM(nn.Module):
                           "page_table"):
                     host[k] = aplan[k]
                 host["attn_seq"] = aplan["token_seq"]
+                schedule = step_schedule(aplan, cache.paged, cfg.num_heads)
+                host["attn_schedule"] = schedule.table
             # the whole int32 plan crosses to the device in ONE copy
             flat = np.concatenate([a.reshape(-1) for a in host.values()])
             dev = torch.from_numpy(flat).to(self.device, non_blocking=True)
@@ -464,13 +467,15 @@ class SSMForCausalLM(nn.Module):
                      "tail_new": d["tail_new"].reshape(-1),
                      "tail_old": d["tail_old"].reshape(-1),
                      "tail_keep": d["tail_keep"].bool()[:, :, None]}
+            if hybrid:
+                schedule.dev = d["attn_schedule"]
             slots, j, a = [], 0, 0
             for i in range(cfg.num_layers):
                 if cfg.is_attn_layer(i):
                     slots.append(RaggedSlot(
                         cache.paged.k[a], cache.paged.v[a], d["tok_pages"],
                         d["tok_in_pages"], d["page_table"], d["attn_seq"],
-                        d["bounds"]))
+                        d["bounds"], schedule=schedule))
                     a += 1
                 else:
                     slots.append(SSMSlot(rec.conv[j], rec.ssm[j], splan))

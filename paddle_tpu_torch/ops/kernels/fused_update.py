@@ -10,9 +10,10 @@ FusedEpilogue) is ops/fused_update.py.
   each bucket its grad, param, moment and master buffers (1-D,
   exact-sized) and its chunk -> leaf table, plus the per-leaf tables.
   Buckets are grouped by (param dtype, has master); on CUDA each group
-  gets a device-resident descriptor table (pointers, sizes, chunk and
-  tile offsets), built once, so that one launch per pass sweeps every
-  bucket of the group.
+  gets device-resident tables, built once, so that one launch per pass
+  sweeps every bucket of the group: pass 2's descriptors (pointers,
+  sizes, chunk and tile offsets) and pass 1's runs of one L2 weight
+  (one a bucket when its metadata is uniform).
 - `fused_pass1` / `fused_pass2` launch kernels #9 / #10 of
   paddle_tpu_torch/csrc/fused_update.cu (built by nvcc at first use,
   ops/kernels/_build.py) once per group, then a fixed-order finalize, on
@@ -56,6 +57,8 @@ FLAG_DECAY = 2
 # 4 vectors a thread a tile in pass 1, 2 in pass 2
 THREADS, VEC, UNROLL1, UNROLL2 = 256, 8, 4, 2
 BLOCKS_PER_SM = 8
+# pass 1's run table is staged in 48 KB of shared memory: 32 bytes a run
+MAX_RUNS = 48 * 1024 // 32
 _KINDS = {"sgd": 0, "momentum": 1, "adam": 2, "adamw": 2}
 
 
@@ -127,12 +130,32 @@ class BucketSet:
             raise ValueError(f"bucket {b.key}: chunk_leaf has "
                              f"{b.chunk_leaf.size} rows for {n} elements")
 
+    def _pass1_runs(self, b):
+        """[(start, end, weight)]: bucket `b` cut at chunk boundaries into
+        runs of one pass-1 weight, norm_weight * need_clip rounded to
+        float32 as the twin computes it (one run when the bucket's
+        metadata is uniform, as BucketLayout makes it)."""
+        if not b.chunk_leaf.size:
+            return []
+        flags = self.flags.cpu().numpy()[b.chunk_leaf]
+        nw = self.norm_weight.cpu().numpy()[b.chunk_leaf]
+        w = nw * ((flags & FLAG_NEED_CLIP) > 0).astype(np.float32)
+        bits = w.view(np.int32)
+        cuts = np.flatnonzero(bits[1:] != bits[:-1]) + 1
+        starts = np.concatenate([[0], cuts])
+        ends = np.append(cuts, bits.size)
+        n = b.p.numel()
+        return [(int(c0) * self.chunk, min(int(c1) * self.chunk, n),
+                 float(w[c0])) for c0, c1 in zip(starts, ends)]
+
     def _prepare_cuda(self):
-        """Per group: the descriptor table [buckets, 9] int64 (grad,
+        """Per group: pass 2's descriptor table [buckets, 8] int64 (grad,
         param, moment 0, moment 1 and master addresses, elements, first
-        chunk row, first tile of pass 1 and of pass 2) and the group's
-        chunk -> leaf table, on the card; tile counts, grids and the
-        partial-sum slots of each pass."""
+        chunk row, first tile) and the group's chunk -> leaf table;
+        pass 1's run table [runs, 4] int64 (grad address, elements,
+        first tile, the run's float32 weight in the low word), all on the
+        card; tile counts, grids and the partial-sum slots of each
+        pass."""
         for b in self.buckets:
             if b.p.dtype not in DTYPE_CODES:
                 raise TypeError(f"the fused kernels take float32 or "
@@ -146,7 +169,7 @@ class BucketSet:
         tile1, tile2 = THREADS * UNROLL1 * VEC, THREADS * UNROLL2 * VEC
         groups, slots1, slots2 = [], 0, 0
         for idx in self.groups:
-            rows, cls = [], []
+            rows, cls, runs = [], [], []
             t1 = t2 = c0 = 0
             for i in idx:
                 b = self.buckets[i]
@@ -154,19 +177,32 @@ class BucketSet:
                 ms = [m.data_ptr() for m in b.moments] + [0, 0]
                 rows.append([b.g.data_ptr(), b.p.data_ptr(), ms[0], ms[1],
                              b.master.data_ptr() if b.master is not None
-                             else 0, n, c0, t1, t2])
+                             else 0, n, c0, t2])
                 cls.append(b.chunk_leaf)
                 c0 += b.chunk_leaf.size
-                t1 += -(-n // tile1)
                 t2 += -(-n // tile2)
+                for start, end, w in self._pass1_runs(b):
+                    at = b.g.data_ptr() + start * b.g.element_size()
+                    if at % 16:
+                        raise ValueError(
+                            f"bucket {b.key}: a run of one L2 weight starts "
+                            f"at element {start}, not 16-byte aligned (a "
+                            f"chunk of {self.chunk} elements)")
+                    runs.append([at, end - start, t1, int(
+                        np.float32(w).view(np.uint32))])
+                    t1 += -(-(end - start) // tile1)
+            if len(runs) > MAX_RUNS:
+                raise ValueError(f"{len(runs)} runs of one L2 weight in a "
+                                 f"group; pass 1 stages at most {MAX_RUNS}")
             g1 = min(t1, sms * BLOCKS_PER_SM)
             g2 = min(t2, sms * BLOCKS_PER_SM)
             groups.append(dict(
                 desc=torch.tensor(rows, dtype=torch.int64).to(self.device),
+                runs=torch.tensor(runs, dtype=torch.int64).to(self.device),
                 chunk_leaf=torch.from_numpy(np.concatenate(cls)).to(
                     self.device),
-                n=len(idx), tiles1=t1, tiles2=t2, grid1=g1, grid2=g2,
-                slot1=slots1, slot2=slots2,
+                n=len(idx), n_runs=len(runs), tiles1=t1, tiles2=t2,
+                grid1=g1, grid2=g2, slot1=slots1, slot2=slots2,
                 dtype=self.buckets[idx[0]].p.dtype,
                 master=self.buckets[idx[0]].master is not None))
             slots1 += g1
@@ -360,7 +396,7 @@ def _kernels():
     """The ctypes entries, built and loaded at first use."""
     lib = _build.load("fused_update")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_pass1.argtypes = [p, i, ll, p, p, p, ll, p, p, ll, i, i, p]
+    lib.fused_pass1.argtypes = [p, i, ll, p, p, ll, i, i, p]
     lib.fused_pass2.argtypes = [p, i, ll, p, p, p, p, ll,
                                 ctypes.POINTER(_Pass2Args), p, p, p, ll, i,
                                 i, p]
@@ -410,9 +446,7 @@ def fused_pass1(bs, scale=None):
         if not gr["tiles1"]:
             continue
         _check_err("fused_pass1", lib.fused_pass1(
-            gr["desc"].data_ptr(), gr["n"], gr["tiles1"],
-            gr["chunk_leaf"].data_ptr(), bs.flags.data_ptr(),
-            bs.norm_weight.data_ptr(), bs.chunk, _ptr(scale),
+            gr["runs"].data_ptr(), gr["n_runs"], gr["tiles1"], _ptr(scale),
             part.data_ptr() + 4 * gr["slot1"], cu["slots1"], gr["grid1"],
             DTYPE_CODES[gr["dtype"]], stream))
         fused_pass1.launches += 1

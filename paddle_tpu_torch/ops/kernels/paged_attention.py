@@ -15,6 +15,9 @@ ceil(bound / P), 0 for pads) is part of the contract.
 - `ragged_paged_attention_reference` is the plain PyTorch twin: the
   same function in torch ops. The CPU tests hold it against the JAX
   package, and chip_smoke.py holds the kernel against it on the card.
+- `ragged_schedule` is the kernel's host-side (numpy) planner: the
+  work units of one step (`RaggedSchedule`), built once a step for all
+  layers and shipped with the step's plan.
 - `build_block_plan` and `ragged_work_plan` are the host-side (numpy)
   planners the serving path shares with the reference.
 """
@@ -28,9 +31,14 @@ from ..attention_core import NEG_INF, default_scale
 from . import DTYPE_CODES, _build, current_stream, sm_count
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_reference",
-           "build_block_plan", "ragged_work_plan"]
+           "ragged_schedule", "RaggedSchedule", "build_block_plan",
+           "ragged_work_plan"]
 
 _HEAD_DIMS = (64, 128)
+# ctypes parameters of csrc/paged_attention.cu's paged_attention_ragged:
+# eleven pointers, ten ints, the scale, the dtype code, the stream
+ENTRY_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def build_block_plan(page_table, token_seq, bounds, page_size, q_block):
@@ -47,7 +55,7 @@ def build_block_plan(page_table, token_seq, bounds, page_size, q_block):
     A slot exists when ANY token of the q-block has a causal bound
     reaching into that page (bound > page_start); slots keep
     (row-major, page-minor) order. The TPU kernel walks this plan; the
-    CUDA kernel derives its own walk in-block, so on the card the plan
+    CUDA kernel walks `ragged_schedule`'s units, so on the card the plan
     only keeps the serving step's arguments equal to the reference's."""
     pt = np.asarray(page_table, np.int64)
     seq = np.asarray(token_seq, np.int64).reshape(-1)
@@ -82,6 +90,156 @@ def ragged_work_plan(bounds, page_size):
     token will compute (ceil(bound/P); 0 for pads)."""
     b = np.asarray(bounds, np.int64)
     return -(-b // int(page_size)) * (b > 0)
+
+
+# The kernel's layout (csrc/paged_attention.cu reports its own; _kernel()
+# checks that they agree): ints of a schedule row, q rows of a
+# tensor-core unit and of a CUDA-core unit, pad tokens one block zeroes,
+# keys of a chunk (a page holds a whole number of chunks)
+UNIT_INTS, TC_ROWS, CC_ROWS, PAD_TOKENS, CHUNK_KEYS = 8, 64, 16, 32, 16
+# the fewest pages a split of a CUDA-core unit walks: two per warp of its
+# block, so that each warp's ring has a page to prefetch
+MIN_SPLIT_PAGES = 8
+# the CUDA-core units' blocks a launch aims for, per SM (1, 2 and 4 timed
+# alike at the served decode step; 1 splits least, PERF.md section 6)
+BLOCKS_PER_SM = 1
+# the SMs a schedule planned without a card assumes (an H100's)
+H100_SMS = 132
+# q rows a CUDA-core unit's kernel is built for, smallest first
+_RM = (1, 4, CC_ROWS)
+
+
+class RaggedSchedule:
+    """The kernel's work units for one set of (token_seq, bounds), as
+    one flat int32 `table` the kernel reads:
+
+        tc rows [n_tc, 8]  t0, n_tok, row, n_keys, min_keys, 0, 0, 0
+        cc rows [n_cc, 8]  t0, n_tok, row, k_lo, k_hi, part, part0, n_split
+        pads    [n_pad]    pad token ids
+
+    A unit is n_tok consecutive tokens from t0 of page-table row `row`,
+    run once for every kv head. A tensor-core (tc) unit attends keys
+    [0, n_keys); min_keys is its smallest row bound (tiles below it need
+    no mask). A CUDA-core (cc) row is a unit's split over keys
+    [k_lo, k_hi): an unsplit unit (part -1) writes its output; a split
+    writes float32 partials into slot `part` of its unit's slots
+    [part0, part0 + n_split), and the split that finishes last combines
+    them in that order. `rm` (1, 4 or 16) bounds a cc unit's q rows
+    (n_tok x fold). `on(device)` gives the table on the device: the copy
+    shipped with the step (`dev`) or a new one."""
+
+    __slots__ = ("table", "n_tokens", "n_tc", "n_cc", "n_pad", "n_parts",
+                 "n_split_units", "rm", "tensor_cores", "dev")
+
+    def __init__(self, tc, cc, pads, n_tokens, n_parts, n_split_units, rm,
+                 tensor_cores):
+        self.table = np.array(
+            [x for rows in (tc, cc) for u in rows for x in u] + list(pads),
+            np.int32)
+        self.n_tokens = int(n_tokens)
+        self.n_tc, self.n_cc, self.n_pad = len(tc), len(cc), len(pads)
+        self.n_parts, self.n_split_units = int(n_parts), int(n_split_units)
+        self.rm = int(rm)
+        self.tensor_cores = bool(tensor_cores)
+        self.dev = None
+
+    def rows(self, kind):
+        """The [n, 8] rows of `kind` ("tc" or "cc"), or the pad token ids
+        ("pad")."""
+        at = self.n_tc * UNIT_INTS
+        if kind == "tc":
+            return self.table[:at].reshape(self.n_tc, UNIT_INTS)
+        if kind == "cc":
+            return self.table[at:at + self.n_cc * UNIT_INTS].reshape(
+                self.n_cc, UNIT_INTS)
+        return self.table[at + self.n_cc * UNIT_INTS:]
+
+    @property
+    def launches(self):
+        """CUDA launches a call makes: one, and a second in bfloat16 when
+        both kinds of unit run and a CUDA-core unit holds more than 4 q
+        rows (a GQA fold above 4)."""
+        cc = self.n_cc + self.n_pad > 0
+        if self.tensor_cores and self.rm > 4:
+            return int(self.n_tc > 0) + int(cc)
+        return int(self.n_tc > 0 or cc)
+
+    def on(self, device):
+        """The table on `device`: the shipped copy when it lies there,
+        else a new copy."""
+        if self.dev is not None and self.dev.device == device:
+            return self.dev
+        return torch.from_numpy(self.table).to(device)
+
+
+def ragged_schedule(token_seq, bounds, page_size, table_width, fold,
+                    n_kv_heads, tensor_cores, n_rows=None, n_sms=H100_SMS):
+    """HOST-side (numpy) work units of the ragged kernel for one step:
+    the same for every layer, so a serving step builds it once and ships
+    it with its plan (`RaggedSchedule`).
+
+    A live token (bound > 0, row in [0, n_rows)) belongs to a run of
+    consecutive live tokens of one row. With `tensor_cores` (bfloat16) a
+    run of two or more tokens is cut into tc units of up to
+    TC_ROWS // fold tokens, and a lone token (a decode token) is a cc
+    unit; without, every run is cut into cc units of up to
+    CC_ROWS // fold tokens. A cc unit's pages are split across blocks
+    when the units alone would leave SMs idle: splits of at least
+    MIN_SPLIT_PAGES pages, as many as BLOCKS_PER_SM * n_sms blocks (over
+    all kv heads) need, each unit's pages dealt evenly. Pad tokens get no
+    unit. A unit's keys stop at its largest bound, or at the table's
+    end (table_width pages). The last split of a unit to finish merges
+    its splits' partials in split order."""
+    seq = np.asarray(token_seq, np.int64).reshape(-1)
+    bd = np.asarray(bounds, np.int64).reshape(-1)
+    T = seq.size
+    P, W = int(page_size), int(table_width)
+    n_rows = W if n_rows is None else int(n_rows)
+    live = (bd > 0) & (seq >= 0) & (seq < n_rows)
+    pads = np.flatnonzero(~live)
+    # runs: a live token whose predecessor is not live or of another row
+    # starts one; a run ends where the next starts or a token is not live
+    first = live.copy()
+    first[1:] &= ~(live[:-1] & (seq[1:] == seq[:-1]))
+    starts = np.flatnonzero(first).tolist()
+    ends = (np.flatnonzero(live[:-1] & ~live[1:]) + 1).tolist()
+    keys = np.minimum(bd, W * P).tolist()
+    seq = seq.tolist()
+    tc, cc_units = [], []
+    per_tc, per_cc = max(TC_ROWS // fold, 1), max(CC_ROWS // fold, 1)
+    e = 0
+    for i, t0 in enumerate(starts):  # both lists are sorted: walk them
+        while e < len(ends) and ends[e] <= t0:
+            e += 1
+        t1 = min(ends[e] if e < len(ends) else T,
+                 starts[i + 1] if i + 1 < len(starts) else T)
+        on_tc = tensor_cores and t1 - t0 > 1
+        per = per_tc if on_tc else per_cc
+        for a in range(t0, t1, per):
+            k = keys[a:min(a + per, t1)]
+            (tc if on_tc else cc_units).append(
+                [a, len(k), seq[a], max(k), min(k), 0, 0, 0])
+    tc.sort(key=lambda u: -u[3])  # longest first: a shorter tail
+    cc, n_parts, n_split_units = [], 0, 0
+    if cc_units:
+        pages = [-(-u[3] // P) for u in cc_units]
+        per_split = max(MIN_SPLIT_PAGES, -(-sum(pages) * n_kv_heads
+                                           // (BLOCKS_PER_SM * n_sms)))
+        for (t0, n, row, n_keys, *_), pg in zip(cc_units, pages):
+            splits = -(-pg // per_split)
+            if splits == 1:
+                cc.append([t0, n, row, 0, n_keys, -1, 0, 0])
+                continue
+            for i in range(splits):
+                cc.append([t0, n, row, pg * i // splits * P,
+                           min(pg * (i + 1) // splits * P, n_keys),
+                           n_parts + i, n_parts, splits])
+            n_parts += splits
+            n_split_units += 1
+    rows_max = max((u[1] for u in cc_units), default=1) * fold
+    rm = next(r for r in _RM if r >= rows_max)
+    return RaggedSchedule(tc, cc, pads, T, n_parts, n_split_units, rm,
+                          tensor_cores)
 
 
 def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
@@ -156,62 +314,97 @@ def _check(q, k_pages, v_pages, page_table, token_seq, bounds):
 
 @functools.cache
 def _kernel():
-    """(the kernel's ctypes entry, query rows one block holds): built
-    and loaded at first use, then kept, so a launch costs no lookup."""
+    """The kernel's ctypes entry, built and loaded at first use, then
+    kept, so a launch costs no lookup. Checks that the source's layout
+    is the one `ragged_schedule` writes."""
     lib = _build.load("paged_attention")
+    layout = (ctypes.c_int * 5)()
+    lib.paged_attention_layout(layout)
+    want = (UNIT_INTS, TC_ROWS, CC_ROWS, PAD_TOKENS, CHUNK_KEYS)
+    if tuple(layout) != want:
+        raise RuntimeError(f"csrc/paged_attention.cu lays out "
+                           f"{tuple(layout)}, the schedule {want}")
     fn = lib.paged_attention_ragged
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ENTRY_ARGTYPES
     fn.restype = ctypes.c_int
-    lib.paged_attention_max_rows.argtypes = []
-    lib.paged_attention_max_rows.restype = ctypes.c_int
-    return fn, lib.paged_attention_max_rows()
+    return fn
 
 
-def tokens_per_block(n_tokens, n_kv_heads, fold, n_sms, max_rows):
-    """Tokens one thread block takes: as many as its `max_rows` query
-    rows hold (tokens of one prefill chunk then share each page load),
-    halved while the grid would give fewer than two blocks per SM."""
-    tpb = max(max_rows // fold, 1)
-    while tpb > 1 and -(-n_tokens // tpb) * n_kv_heads < 2 * n_sms:
-        tpb //= 2
-    return tpb
+_SCRATCH = {}
 
 
-def _launch(q, k_pages, v_pages, page_table, token_seq, bounds, scale):
-    """Check what only the kernel needs, allocate out/work and launch on
-    the current stream. The serving step calls this once per layer, so
-    it does no device reads and caches its lookups."""
+def _scratch(device, stream, n_floats, n_tickets):
+    """(float32 partials, int32 tickets) of at least n_floats and
+    n_tickets for calls on (device, stream), kept between calls: a call
+    writes every partial it reads, the kernel leaves each ticket it takes
+    at 0 again, and calls on one stream run one after another. Grown
+    when a call needs more."""
+    key = (device.index, stream)
+    bufs = _SCRATCH.get(key)
+    if bufs is None or bufs[0].numel() < n_floats \
+            or bufs[1].numel() < n_tickets:
+        bufs = _SCRATCH[key] = (
+            torch.empty(max(n_floats, 1 << 16), dtype=torch.float32,
+                        device=device),
+            torch.zeros(max(n_tickets, 1024), dtype=torch.int32,
+                        device=device))
+    return bufs
+
+
+def _launch(q, k_pages, v_pages, page_table, token_seq, bounds, scale,
+            schedule):
+    """Check what only the kernel needs, allocate out, work and the split
+    units' scratch, and launch on the current stream. With a schedule
+    whose device copy came with the step, the call reads nothing back
+    from the device; without one it builds the schedule from token_seq
+    and bounds (one device-to-host read)."""
     T, H, D = q.shape
     n_pages, P, KVH, _ = k_pages.shape
     B, W = page_table.shape
     fold = H // KVH
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("token_seq", token_seq),
-                    ("bounds", bounds)):
+                    ("page_table", page_table), ("bounds", bounds)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if D not in _HEAD_DIMS:
         raise ValueError(f"head_dim {D} not built (kernel takes "
                          f"{_HEAD_DIMS})")
+    if P % CHUNK_KEYS:
+        raise ValueError(f"page size {P} is not a multiple of the "
+                         f"kernel's {CHUNK_KEYS}-key chunk")
+    if fold > CC_ROWS:
+        raise ValueError(f"grouped-query fold {fold} exceeds the kernel's "
+                         f"{CC_ROWS} rows per unit")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    index = q.device.index
     stream = current_stream(q.device)
-    fn, max_rows = _kernel()
-    if fold > max_rows:
-        raise ValueError(f"grouped-query fold {fold} exceeds the kernel's "
-                         f"{max_rows} rows per block")
+    fn = _kernel()
     out = torch.empty_like(q)
     work = torch.empty(T, dtype=torch.int32, device=q.device)
     if T == 0:
         return out, work
-    tpb = tokens_per_block(T, KVH, fold, sm_count(index), max_rows)
+    tensor_cores = q.dtype == torch.bfloat16
+    if schedule is None:
+        schedule = ragged_schedule(
+            token_seq.cpu().numpy(), bounds.cpu().numpy(), P, W, fold, KVH,
+            tensor_cores, n_rows=B, n_sms=sm_count(q.device.index))
+    if schedule.tensor_cores != tensor_cores or schedule.n_tokens != T:
+        raise ValueError(f"the schedule is for {schedule.n_tokens} tokens "
+                         f"{'with' if schedule.tensor_cores else 'without'}"
+                         f" tensor-core units; the call has {T} in "
+                         f"{q.dtype}")
+    table = schedule.on(q.device)
+    slots = schedule.n_parts * KVH
+    part, tickets = _scratch(q.device, stream, slots * schedule.rm * (D + 2),
+                             slots)
+    ml = part.data_ptr()
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), token_seq.data_ptr(), bounds.data_ptr(),
-             out.data_ptr(), work.data_ptr(), T, H, KVH, D, n_pages, P, B, W,
-             tpb, scale, DTYPE_CODES[q.dtype], stream)
+             page_table.data_ptr(), bounds.data_ptr(), table.data_ptr(),
+             out.data_ptr(), work.data_ptr(), ml,
+             ml + 4 * slots * schedule.rm * 2, tickets.data_ptr(), H, KVH, D,
+             n_pages, P, W, schedule.n_tc, schedule.n_cc, schedule.n_pad,
+             schedule.rm, scale, DTYPE_CODES[q.dtype], stream)
     if err:
         raise RuntimeError(f"ragged paged attention kernel launch failed: "
                            f"cudaError {err}")
@@ -220,7 +413,7 @@ def _launch(q, k_pages, v_pages, page_table, token_seq, bounds, scale):
 
 def ragged_paged_attention(q, k_pages, v_pages, page_table, token_seq,
                            bounds, scale=None, return_work=False,
-                           block_plan=None):
+                           block_plan=None, schedule=None):
     """Mixed prefill+decode attention over paged KV state.
 
     q:          [T, H, D] query tokens, any mix of sequences/phases
@@ -233,16 +426,22 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, token_seq,
                 history + preceding new tokens + itself); 0 marks a pad
                 token, which does no work and comes out as 0
     block_plan: accepted so the model's call matches the reference's;
-                the CUDA kernel derives its page walk in-block and the
-                plain twin needs none, so it is not read.
+                neither the kernel nor the plain twin reads it.
+    schedule:   the kernel's work units for these token_seq and bounds
+                (`ragged_schedule`, with its device copy), built once a
+                step by the serving path; without one the CUDA path
+                builds it from token_seq and bounds (a device-to-host
+                read). The plain twin needs none.
 
     q and the pools share float32 or bfloat16; out has q's dtype.
     Returns out [T, H, D] (and, with return_work, int32 [T] kv pages
     computed per token: ceil(bound/P), 0 for pads).
 
     CPU tensors run the plain twin. CUDA tensors launch the kernel
-    (head_dim 64 or 128, contiguous, 16-byte aligned pools) or raise;
-    each launch adds one to `ragged_paged_attention.launches`."""
+    (head_dim 64 or 128, a page size that is a multiple of 16, a fold of
+    at most 16, contiguous, 16-byte aligned pools) or raise; each call
+    adds one to `ragged_paged_attention.launches` (it makes 1-3 CUDA
+    launches: `RaggedSchedule.launches`)."""
     _check(q, k_pages, v_pages, page_table, token_seq, bounds)
     scale = default_scale(scale, q.shape[2])
     if q.device.type == "cpu":
@@ -253,7 +452,7 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, token_seq,
         raise ValueError(f"ragged_paged_attention runs on cuda (kernel) or "
                          f"cpu (plain twin), not {q.device.type}")
     out, work = _launch(q, k_pages, v_pages, page_table, token_seq, bounds,
-                        scale)
+                        scale, schedule)
     ragged_paged_attention.launches += 1
     return (out, work) if return_work else out
 

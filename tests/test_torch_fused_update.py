@@ -40,6 +40,10 @@ from numpy seeds:
   path; grads land in their flat buckets; the GradScaler's device state
   follows the reference's over a found/not-found pattern; the new
   modules are among those the import-hygiene tests walk.
+- Kernel #9's host side: a bucket cut into runs of one L2 weight
+  (norm_weight * need_clip) where its leaves' weights change, one run
+  for a BucketLayout bucket; the ctypes parameters of `fused_pass1` and
+  the tiling against csrc/fused_update.cu.
 """
 import pkgutil
 
@@ -572,3 +576,71 @@ def test_import_hygiene_walks_the_fused_modules():
     for mod in ("amp", "ops.fused_update", "ops.kernels.fused_update",
                 "models.convert"):
         assert "paddle_tpu_torch." + mod in names
+
+
+# -- pass 1's runs of one L2 weight and its C interface ----------------------
+
+def test_pass1_runs_cut_buckets_where_the_weight_changes():
+    """Pass 1 (#9) reads one weight a run: a bucket's chunks are grouped
+    into runs of one norm_weight * need_clip, rounded to float32 as the
+    twin computes it; a BucketLayout bucket is one run."""
+    from paddle_tpu_torch.ops.kernels import fused_update as fk
+    g = torch.zeros(1003)
+    b = fk.FlatBucket("m", g, g.clone(), [], None,
+                      np.array([0, 0, 1, 2, 2, 3, 1, 0], np.int32))
+    bs = fk.BucketSet([b], [fk.FLAG_NEED_CLIP, 0, fk.FLAG_NEED_CLIP,
+                            fk.FLAG_NEED_CLIP], [1.0] * 4,
+                      [1.0, 3.0, 0.1, 2.0], 128)
+    assert bs._pass1_runs(b) == [
+        (0, 256, 1.0), (256, 384, 0.0), (384, 640, float(np.float32(0.1))),
+        (640, 768, 2.0), (768, 896, 0.0), (896, 1003, 1.0)]
+    layout = fu.BucketLayout([("a", (33, 7), torch.float32),
+                              ("b", (130,), torch.float32)], chunk=128)
+    store = {k: torch.zeros(v.total) for k, v in layout.buckets.items()}
+    for key, bucket in layout.buckets.items():
+        flat = fk.FlatBucket(key, store[key], store[key].clone(), [], None,
+                             bucket.chunk_leaf)
+        one = fk.BucketSet([flat], layout.leaf_flags, layout.leaf_lr_scale,
+                           layout.leaf_norm_weight, layout.chunk)
+        (start, end, _), = one._pass1_runs(flat)
+        assert (start, end) == (0, bucket.total)
+
+
+def test_pass1_ctypes_parameters_match_the_c_entry_point():
+    import ctypes
+    import re
+    from pathlib import Path
+    from paddle_tpu_torch.ops.kernels import fused_update as fk
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+        def fused_update_tiling(self, out):
+            out[:] = [fk.THREADS, fk.VEC, fk.UNROLL1, fk.UNROLL2]
+
+    lib = Lib()
+    fk._kernels.cache_clear()
+    try:
+        import unittest.mock as mock
+        with mock.patch.object(fk._build, "load", lambda name: lib):
+            fk._kernels()
+    finally:
+        fk._kernels.cache_clear()
+    src = (Path(fk.__file__).resolve().parents[2] / "csrc" /
+           "fused_update.cu").read_text()
+    types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+             "const int*": ctypes.c_void_p, "int": ctypes.c_int,
+             "long long": ctypes.c_longlong}
+    m = re.search(r"\nint fused_pass1\(([^)]*)\)", src)
+    params = [" ".join(p.split()[:-1]).replace(" *", "*")
+              for p in m.group(1).split(",")]
+    assert [types[p] for p in params] == lib.fused_pass1.argtypes
+    tiling = {n: int(re.search(r"constexpr int " + n + r" = (\d+);",
+                               src).group(1))
+              for n in ("kThreads", "kUnroll1", "kUnroll2")}
+    assert (tiling["kThreads"], tiling["kUnroll1"], tiling["kUnroll2"]) == (
+        fk.THREADS, fk.UNROLL1, fk.UNROLL2)

@@ -8,9 +8,13 @@ JAX nor paddle_tpu, so it runs on a machine that has only PyTorch:
 
 Ragged paged attention, tolerances: float32 to 1e-4 absolute (the
 kernel sums page by page in another order and uses the fast exp; outputs
-are O(1)); bfloat16 to 2e-2, one bf16 rounding of an O(1) output (2^-8)
-plus the float32 differences. Work counters are integers and must be
-equal.
+are O(1)); bfloat16 to 2e-2, one bf16 rounding of an O(1) output (2^-8),
+P rounded to bf16 on the tensor cores, plus the float32 differences.
+Work counters are integers and must be equal. Cases: decode, a chunk
+among decode rows, pads, fold 4 and 16, a lone 1023-token history (split
+across blocks), head_dim 128, a 5-token chunk (5 of a tensor-core unit's
+64 q rows); a second launch on the same inputs gives the same bits (the
+splits merge in split order).
 
 Flash attention (forward, dQ, dK/dV), each kernel against its twin on
 the same inputs (the backward kernels on the twin's lse and delta), with
@@ -36,7 +40,9 @@ passes write must equal the twin's bit for bit (both round each
 operation once, the kernel by __fmul_rn / __fadd_rn and IEEE sqrt and
 division); the sums, taken in another order, to 1e-5 relative (float32
 sums of a few thousand positive terms). The found_inf skip leaves every
-buffer bit-equal to its input.
+buffer bit-equal to its input. Pass 1 alone on buckets whose L2 weight
+changes inside a bucket (several runs), with a ragged last vector and,
+in turn, an inf grad: the written grads bit-equal, found exact.
 
 LayerNorm (kernels #5, #6) and softmax cross-entropy (#7, #8) against
 their twins on the same inputs, at widths the training path uses and at
@@ -83,45 +89,63 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def _case(name, rng):
-    """One mixed batch at serving widths: (fold, page_table, token_seq,
-    bounds); rows own distinct pages, page 0 is the pad page."""
-    fold = 4 if name == "gqa" else 1
-    B, W = 4, 8
+    """One mixed batch at serving widths: (fold, head_dim, page_table,
+    token_seq, bounds); rows own distinct pages, page 0 is the pad
+    page."""
+    fold = {"gqa": 4, "fold16": 16}.get(name, 1)
+    d = 128 if name == "d128" else D
+    B, W = (1, 64) if name == "long" else (4, 8)
     pt = (1 + rng.permutation(B * W)).reshape(B, W).astype(np.int32)
     if name == "decode":
         seq, bd = [0, 1, 2, 3], [37, 128, 5, 100]
-    elif name == "mixed":   # a 20-token chunk after 60 cached + decodes
+    elif name in ("mixed", "d128"):  # a 20-token chunk after 60 cached
         seq = [2] * 20 + [0, 1, 3]
         bd = list(range(61, 81)) + [17, 90, 128]
     elif name == "pad":
         seq, bd = [1, 3, 0, 0, 0, 0, 0, 0], [33, 7, 0, 0, 0, 0, 0, 0]
+    elif name == "long":     # one 1023-token history: split across blocks
+        seq, bd = [0] * 8, [1023, 0, 0, 0, 0, 0, 0, 0]
+    elif name == "short":    # a 5-token chunk: 5 of a unit's 64 q rows
+        seq, bd = [3] * 5 + [1, 0, 0], [96, 97, 98, 99, 100, 40, 0, 0]
+    elif name == "fold16":   # 16 q heads on one kv head, chunk + decodes
+        seq, bd = [1] * 9 + [0, 2, 0], list(range(30, 39)) + [111, 64, 0]
     else:                   # gqa: fold 4, decode + chunk
         seq, bd = [0, 1, 1, 1, 1, 0, 0, 0], [9, 50, 51, 52, 53, 0, 0, 0]
-    return fold, pt, np.asarray(seq, np.int32), np.asarray(bd, np.int32)
+    return fold, d, pt, np.asarray(seq, np.int32), np.asarray(bd, np.int32)
+
+
+def _paged_args(name, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    fold, d, pt, seq, bd = _case(name, rng)
+    n_pages, T = pt.size + 1, seq.size
+    dev = torch.device("cuda")
+    q = torch.from_numpy(rng.randn(T, H, d).astype(np.float32))
+    kp = torch.from_numpy(
+        rng.randn(n_pages, P, H // fold, d).astype(np.float32))
+    vp = torch.from_numpy(
+        rng.randn(n_pages, P, H // fold, d).astype(np.float32))
+    return [t.to(dev, dtype) for t in (q, kp, vp)] + [
+        torch.from_numpy(a).to(dev) for a in (pt, seq, bd)]
+
+
+PAGED_CASES = ["decode", "mixed", "pad", "gqa", "long", "d128", "fold16",
+               "short"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", ["decode", "mixed", "pad", "gqa"])
+@pytest.mark.parametrize("name", PAGED_CASES)
 def test_kernel_matches_twin_on_card(name, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    rng = np.random.RandomState(0)
-    fold, pt, seq, bd = _case(name, rng)
-    n_pages, T = pt.size + 1, seq.size
-    dev = torch.device("cuda")
-    q = torch.from_numpy(rng.randn(T, H, D).astype(np.float32))
-    kp = torch.from_numpy(
-        rng.randn(n_pages, P, H // fold, D).astype(np.float32))
-    vp = torch.from_numpy(
-        rng.randn(n_pages, P, H // fold, D).astype(np.float32))
-    args = [t.to(dev, dtype) for t in (q, kp, vp)] + [
-        torch.from_numpy(a).to(dev) for a in (pt, seq, bd)]
+    args = _paged_args(name, dtype)
+    T, _, d = args[0].shape
+    bd = args[5].cpu().numpy()
     before = pa.ragged_paged_attention.launches
     out, work = pa.ragged_paged_attention(*args, return_work=True)
     torch.cuda.synchronize()
     assert pa.ragged_paged_attention.launches == before + 1
-    assert out.dtype == dtype and out.shape == (T, H, D)
+    assert out.dtype == dtype and out.shape == (T, H, d)
     want, want_work = pa.ragged_paged_attention_reference(
         *args, return_work=True)
     torch.testing.assert_close(out.float(), want.float(), rtol=0,
@@ -129,6 +153,30 @@ def test_kernel_matches_twin_on_card(name, dtype):
     assert torch.equal(work, want_work)
     assert work.tolist() == pa.ragged_work_plan(bd, P).tolist()
     assert (out[args[5] == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["long", "mixed", "fold16"])
+def test_kernel_repeats_bit_for_bit_on_card(name, dtype):
+    """The split units' merge runs in split order, with no float
+    atomics (whichever split finishes last merges): a second launch on
+    the same inputs gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    args = _paged_args(name, dtype, seed=1)
+    first = pa.ragged_paged_attention(*args)
+    second = pa.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    if name == "long":
+        fold = H // args[1].shape[2]
+        sched = pa.ragged_schedule(
+            args[4].cpu().numpy(), args[5].cpu().numpy(), P,
+            args[3].shape[1], fold, args[1].shape[2],
+            dtype == torch.bfloat16, n_rows=args[3].shape[0],
+            n_sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        assert sched.n_split_units == 1 and sched.n_cc > 1  # it was split
 
 
 FLASH_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -451,6 +499,57 @@ def test_fused_passes_match_twins_on_card(kind, dtype, master, clip, scaled):
     torch.testing.assert_close(out2, ref2, rtol=1e-5, atol=0)
     for (name, got), (_, want) in zip(_buffers(stores), _buffers(twin)):
         assert torch.equal(got, want), name
+
+
+def _pass1_buckets(dtype, inf):
+    """A BucketSet of two buckets whose leaves differ in norm weight and
+    need_clip inside one bucket (several runs of one L2 weight), lengths
+    that end in a partial 16-byte vector, and, with inf, one inf grad."""
+    rng = np.random.RandomState(5)
+    dev = torch.device("cuda")
+    chunk = 128
+    buckets = []
+    for key, n, leaves in (("mixed", 1003, [0, 0, 1, 2, 2, 3, 1, 0]),
+                           ("uniform", 517, [4, 4, 4, 4, 4])):
+        g = torch.from_numpy((rng.randn(n) * 0.5).astype(np.float32)).to(
+            dev, dtype)
+        if inf and key == "mixed":
+            g[700] = float("inf")
+        p = torch.zeros(n, device=dev, dtype=dtype)
+        buckets.append(fk.FlatBucket(key, g, p, [], None,
+                                     np.asarray(leaves, np.int32)))
+    flags = [fk.FLAG_NEED_CLIP, 0, fk.FLAG_NEED_CLIP | fk.FLAG_DECAY,
+             fk.FLAG_NEED_CLIP, fk.FLAG_NEED_CLIP]
+    nw = [1.0, 3.0, 0.5, 2.0, 0.25]
+    return lambda: fk.BucketSet(
+        [fk.FlatBucket(b.key, b.g.clone(), b.p, [], None, b.chunk_leaf)
+         for b in buckets], flags, [1.0] * 5, nw, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("inf", [False, True])
+def test_fused_pass1_runs_of_one_weight_on_card(dtype, scaled, inf):
+    """Pass 1 on buckets whose weight changes inside a bucket: the
+    written grads bit-equal to the twin's, the sum within 1e-5
+    relative, found exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    make = _pass1_buckets(dtype, inf)
+    bs, bt = make(), make()
+    assert len(bs._cuda["groups"][0]["runs"]) == 7  # 6 in one, 1 in one
+    scale = torch.tensor(8.0, device="cuda") if scaled else None
+    got = fk.fused_pass1(bs, scale=scale)
+    want = fk.fused_pass1_reference(bt, scale=scale)
+    torch.cuda.synchronize()
+    assert float(got[1]) == float(want[1]) == float(inf)
+    if inf:
+        assert not torch.isfinite(got[0])
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    for a, b in zip(bs.buckets, bt.buckets):
+        assert torch.equal(a.g, b.g), a.key
 
 
 @pytest.mark.cuda

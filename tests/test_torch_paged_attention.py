@@ -6,8 +6,16 @@ port's wrapper runs for CPU tensors) against the reference kernel
 Pallas interpret mode (its CPU default) on the same numpy inputs;
 the host planners (`build_block_plan`, `ragged_work_plan`,
 `PagedKVCache.plan_ragged`) against the reference's for the same
-inputs and allocator history; and the wrapper's refusal to run a
-non-CPU tensor anywhere but its CUDA kernel.
+inputs and allocator history; the CUDA kernel's schedule
+(`ragged_schedule`) on serving-shaped cases (pure decode, a 128-token
+chunk with 7 decode rows, a lone 1023-token history, pads, fold 4 and
+16, head_dim 64 and 128): every (live token, page below its bound)
+covered once, one row a unit, no unit for a pad, ragged_work_plan's
+counts, and the units run one by one (split partials merged in order)
+computing the twin's function; the C entry point's ctypes parameters
+and layout against csrc/paged_attention.cu, and what `_launch` passes
+it; and the wrapper's refusal to run a non-CPU tensor anywhere but its
+CUDA kernel.
 
 Tolerance: float32 outputs agree to 2e-5 absolute. Both sides compute
 the same float32 softmax, but the reference accumulates page by page
@@ -18,6 +26,10 @@ in a different order: a few float32 ulps of O(1) values, well under
 The kernel itself runs only on a card: tests/test_torch_kernels_cuda.py
 holds it against the twin there.
 """
+import ctypes
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -241,9 +253,270 @@ def test_device_rule_raises_without_cuda(monkeypatch):
     assert port_device.resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("n_tokens,fold,want", [
-    (8, 1, 1), (256, 1, 8), (2048, 1, 16), (64, 4, 1), (4096, 4, 4)])
-def test_tokens_per_block_policy(n_tokens, fold, want):
-    got = pa.tokens_per_block(n_tokens, 16 // fold, fold, 132, 16)
-    assert got == want
-    assert got * fold <= 16
+# -- the kernel's schedule (ragged_schedule) ------------------------------
+#
+# The CUDA kernel walks host-built work units: each unit holds tokens of
+# one page-table row and runs once for every kv head (its grid's y), so
+# what holds for one kv head holds for all. Cases: a pure decode step, a
+# 128-token chunk with 7 decode rows padded to 256, a lone 1023-token
+# history, decode rows and pads, fold 4 and fold 16; head_dim 64 or 128,
+# which the schedule does not read but the mirror below computes with.
+
+SERVE_HIST = [63, 191, 299, 447, 511, 639, 699, 703]
+SCHED_CASES = {  # rows [(history, new tokens)], padded T, fold, head_dim
+    "decode": ([(h, 1) for h in SERVE_HIST], 8, 1, 64),
+    "chunk128_7decode": ([(256, 128)] + [(h, 1) for h in SERVE_HIST[:7]],
+                         256, 1, 64),
+    "long1023": ([(1022, 1)], 8, 1, 128),
+    "decode_pads": ([(99, 1), (399, 1), (649, 1)], 8, 1, 64),
+    "fold4": ([(128, 64), (80, 1), (300, 1), (600, 1)], 128, 4, 64),
+    "fold16": ([(40, 9), (500, 1), (17, 1)], 16, 16, 128),
+}
+SP = 16  # the served page size
+
+
+def _sched_inputs(name, seed=0):
+    """(q, k_pages, v_pages, page_table, token_seq, bounds) of a case;
+    each row owns distinct random pages, page 0 is the pad page."""
+    rows, pad_to, fold, d = SCHED_CASES[name]
+    rng = np.random.RandomState(seed)
+    seq, bd = [], []
+    for r, (hist, n) in enumerate(rows):
+        seq += [r] * n
+        bd += [hist + k + 1 for k in range(n)]
+    seq += [0] * (pad_to - len(seq))
+    bd += [0] * (pad_to - len(bd))
+    need = [-(-(hist + n) // SP) for hist, n in rows]
+    W = 1 << (max(need) - 1).bit_length()
+    perm = 1 + rng.permutation(sum(need))
+    pt = np.zeros((len(rows), W), np.int32)
+    off = 0
+    for r, n in enumerate(need):
+        pt[r, :n] = perm[off:off + n]
+        off += n
+    heads, n_pages = 16, sum(need) + 1
+    kvh = heads // fold
+    q = rng.randn(pad_to, heads, d).astype(np.float32)
+    kp = rng.randn(n_pages, SP, kvh, d).astype(np.float32)
+    vp = rng.randn(n_pages, SP, kvh, d).astype(np.float32)
+    return (q, kp, vp, pt, np.asarray(seq, np.int32),
+            np.asarray(bd, np.int32))
+
+
+def _schedule(name, tensor_cores, n_sms=132):
+    _, kp, _, pt, seq, bd = _sched_inputs(name)
+    fold = SCHED_CASES[name][2]
+    return pa.ragged_schedule(seq, bd, SP, pt.shape[1], fold, kp.shape[2],
+                              tensor_cores, n_rows=pt.shape[0],
+                              n_sms=n_sms)
+
+
+def _unit_spans(sched):
+    """(t0, n_tok, row, k_lo, k_hi) of every unit or split."""
+    spans = [(t0, n, row, 0, n_keys)
+             for t0, n, row, n_keys, *_ in sched.rows("tc").tolist()]
+    spans += [(t0, n, row, lo, hi)
+              for t0, n, row, lo, hi, *_ in sched.rows("cc").tolist()]
+    return spans
+
+
+def _run_schedule(sched, q, kp, vp, pt, bounds, scale):
+    """The schedule executed unit by unit in float32 torch ops, a split
+    unit through (max, sum, unnormalised output) partials merged in
+    split order: a CPU mirror of what the kernel's launches compute."""
+    T, H, D = q.shape
+    KVH = kp.shape[2]
+    fold = H // KVH
+    W = pt.shape[1]
+    out = torch.zeros(T, H, D)
+    parts = {}
+
+    def attend(t0, n, row, lo, hi):
+        keys = torch.arange(lo, hi)
+        pages = pt[row, keys // SP].long()
+        k = kp[pages, keys % SP].float()
+        v = vp[pages, keys % SP].float()
+        qq = q[t0:t0 + n].float().reshape(n, KVH, fold, D)
+        s = torch.einsum("tgfd,jgd->tgfj", qq, k) * scale
+        lim = torch.clamp(bounds[t0:t0 + n].long(), max=W * SP)
+        valid = (keys[None, :] < lim[:, None])[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m) * valid
+        return m, p.sum(-1, keepdim=True), torch.einsum(
+            "tgfj,jgd->tgfd", p, v)
+
+    def put(t0, n, m, l, o):
+        out[t0:t0 + n] = (o / l.clamp_min(1e-30)).reshape(n, H, D)
+
+    for t0, n, row, n_keys, *_ in sched.rows("tc").tolist():
+        put(t0, n, *attend(t0, n, row, 0, n_keys))
+    units = {}
+    for t0, n, row, lo, hi, part, part0, n_split in sched.rows(
+            "cc").tolist():
+        if part < 0:
+            put(t0, n, *attend(t0, n, row, lo, hi))
+        else:
+            parts[part] = attend(t0, n, row, lo, hi)
+            units[part0] = (t0, n, n_split)
+    for part0, (t0, n, n_split) in units.items():
+        got = [parts[part0 + i] for i in range(n_split)]
+        mm = torch.stack([m for m, _, _ in got]).amax(0)
+        l = sum(l * torch.exp(m - mm) for m, l, _ in got)
+        o = sum(o * torch.exp(m - mm) for m, _, o in got)
+        put(t0, n, mm, l, o)
+    return out
+
+
+@pytest.mark.parametrize("tensor_cores", [True, False],
+                         ids=["bf16-units", "f32-units"])
+@pytest.mark.parametrize("name", sorted(SCHED_CASES))
+def test_schedule_covers_each_live_page_once(name, tensor_cores):
+    """Every (live token, page below its bound) exactly once across the
+    units and splits; a unit never spans two rows; pads get no unit; the
+    pages a token's units cover are ragged_work_plan's count."""
+    _, _, _, pt, seq, bd = _sched_inputs(name)
+    sched = _schedule(name, tensor_cores)
+    W = pt.shape[1]
+    live = bd > 0
+    count = {}
+    for t0, n, row, lo, hi in _unit_spans(sched):
+        assert n >= 1 and (seq[t0:t0 + n] == row).all()  # one row
+        assert live[t0:t0 + n].all()                     # no pad
+        assert lo % SP == 0 and lo < hi
+        for t in range(t0, t0 + n):
+            lim = min(int(bd[t]), W * SP)
+            for j in range(lo // SP, -(-hi // SP)):
+                if j * SP < lim:
+                    count[(t, j)] = count.get((t, j), 0) + 1
+    want = {(t, j) for t in np.flatnonzero(live)
+            for j in range(-(-int(bd[t]) // SP))}
+    assert set(count) == want and set(count.values()) == {1}
+    assert sched.rows("pad").tolist() == np.flatnonzero(~live).tolist()
+    work = np.zeros(bd.size, np.int64)
+    for t, _ in count:
+        work[t] += 1
+    assert work.tolist() == pa.ragged_work_plan(bd, SP).tolist()
+    assert sched.n_tokens == bd.size
+
+
+@pytest.mark.parametrize("tensor_cores", [True, False],
+                         ids=["bf16-units", "f32-units"])
+@pytest.mark.parametrize("name", sorted(SCHED_CASES))
+def test_schedule_run_unit_by_unit_matches_twin(name, tensor_cores):
+    """The units, their splits and the ordered merge compute the twin's
+    function (float32, 2e-5: sums in another order), pad rows 0."""
+    args = [torch.from_numpy(a) for a in _sched_inputs(name, seed=3)]
+    sched = _schedule(name, tensor_cores)
+    scale = 1.0 / np.sqrt(args[0].shape[2])
+    got = _run_schedule(sched, args[0], args[1], args[2], args[3], args[5],
+                        scale)
+    want = pa.ragged_paged_attention_reference(*args, scale=scale)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=ATOL)
+    assert (got[args[5] == 0] == 0).all()
+
+
+def test_schedule_unit_kinds_and_splits():
+    """bfloat16: a prefill run on tensor-core units of up to 64 q rows
+    (longest first), decode tokens on CUDA-core units; a lone long
+    history split into even page ranges merged in order; float32: every
+    unit on the CUDA cores, up to 16 q rows each."""
+    s = _schedule("chunk128_7decode", True)
+    assert [(t0, n) for t0, n, *_ in s.rows("tc").tolist()] == [
+        (64, 64), (0, 64)]
+    assert s.rm == 1 and s.n_pad == 121
+    assert {n for _, n, *_ in s.rows("cc").tolist()} == {1}
+    assert s.launches == 1  # both kinds of unit in one launch
+    long = _schedule("long1023", True)
+    assert long.n_tc == 0 and long.n_split_units == 1 and long.n_parts == 8
+    rows = long.rows("cc").tolist()
+    spans = [(lo, hi) for _, _, _, lo, hi, *_ in rows]
+    assert len(spans) == 8 and spans[0][0] == 0 and spans[-1][1] == 1023
+    assert all(b[0] == a[1] for a, b in zip(spans, spans[1:]))
+    assert {hi - lo for lo, hi in spans[:-1]} == {8 * SP}
+    assert [r[5:] for r in rows] == [[i, 0, 8] for i in range(8)]
+    f32 = _schedule("fold4", False)
+    assert f32.n_tc == 0 and f32.rm == 16 and f32.launches == 1
+    assert max(n for _, n, *_ in f32.rows("cc").tolist()) == 4
+    fold16 = _schedule("fold16", True)
+    tc = fold16.rows("tc").tolist()
+    assert sorted(n for _, n, *_ in tc) == [1, 4, 4]
+    assert [u[3] for u in tc] == sorted((u[3] for u in tc), reverse=True)
+    assert fold16.rm == 16 and fold16.launches == 2
+
+
+@pytest.mark.parametrize("n_sms,want_splits", [(132, 8), (32, 2), (16, 1)])
+def test_schedule_splits_only_to_fill_the_card(n_sms, want_splits):
+    """Splits of at least MIN_SPLIT_PAGES pages, and only while the
+    units' blocks fall short of BLOCKS_PER_SM per SM: one 64-page history
+    over 16 kv heads fills 16 SMs unsplit, 32 in 2 splits, 132 in 8."""
+    s = _schedule("long1023", True, n_sms=n_sms)
+    assert s.n_cc == want_splits
+    assert s.n_split_units == (want_splits > 1)
+
+
+# -- the C interface ------------------------------------------------------
+
+SOURCE = Path(pa.__file__).resolve().parents[2] / "csrc" / \
+    "paged_attention.cu"
+C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+           "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def test_ctypes_parameters_match_the_c_entry_point():
+    src = SOURCE.read_text()
+    m = re.search(r"\nint paged_attention_ragged\(([^)]*)\)", src)
+    params = [" ".join(p.split()[:-1]).replace(" *", "*")
+              for p in m.group(1).split(",")]
+    assert [C_TYPES.get(p) for p in params] == pa.ENTRY_ARGTYPES
+
+
+def test_schedule_layout_matches_the_source():
+    src = SOURCE.read_text()
+    got = [int(re.search(r"constexpr int " + name + r" = (\d+);",
+                         src).group(1))
+           for name in ("kUnitInts", "kTcRows", "kCcRows", "kPadTokens",
+                        "kKeys")]
+    assert got == [pa.UNIT_INTS, pa.TC_ROWS, pa.CC_ROWS, pa.PAD_TOKENS,
+                   pa.CHUNK_KEYS]
+
+
+@pytest.mark.parametrize("dtype,code,name", [
+    (torch.bfloat16, 1, "chunk128_7decode"), (torch.float32, 0, "fold4"),
+    (torch.bfloat16, 1, "long1023")])
+def test_launch_passes_schedule_and_shapes(monkeypatch, dtype, code, name):
+    """`_launch` with a stand-in for the loaded entry point: one argument
+    per declared parameter, the schedule's counts, the shapes, the dtype
+    code; a schedule made for another dtype route raises."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(pa, "_kernel", lambda: entry)
+    monkeypatch.setattr(pa, "current_stream", lambda device: 0)
+    monkeypatch.setattr(pa, "sm_count", lambda index: 132)
+    monkeypatch.setattr(pa, "_SCRATCH", {})
+    args = [torch.from_numpy(a) for a in _sched_inputs(name)]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    pa._launch(*args, 0.125, None)
+    sched = _schedule(name, dtype == torch.bfloat16)
+    (got,) = calls
+    assert len(got) == len(pa.ENTRY_ARGTYPES)
+    T, H, D = args[0].shape
+    n_pages, _, kvh, _ = args[1].shape
+    assert got[11:] == (H, kvh, D, n_pages, SP, args[3].shape[1],
+                        sched.n_tc, sched.n_cc, sched.n_pad, sched.rm,
+                        0.125, code, 0)
+    part, tickets = pa._SCRATCH[(None, 0)]
+    assert got[8] == part.data_ptr() and got[10] == tickets.data_ptr()
+    assert not tickets.any() and tickets.numel() >= sched.n_parts * kvh
+    assert got[9] - got[8] == 4 * sched.n_parts * kvh * sched.rm * 2
+    assert part.numel() >= sched.n_parts * kvh * sched.rm * (D + 2)
+    pa._launch(*args, 0.125, sched)
+    assert calls[1][11:] == got[11:]
+    other = _schedule(name, dtype != torch.bfloat16)
+    with pytest.raises(ValueError, match="schedule"):
+        pa._launch(*args, 0.125, other)

@@ -11,7 +11,11 @@ built by `paddle_tpu`, its state dict carried into the port with
   to ~9 the observed difference is 2.4e-5, a relative 3e-6, about 25
   float32 ulps) and the greedy tokens are equal;
 - `GenerationEngine`, the whole continuous-batching loop: greedy token
-  streams are exactly equal.
+  streams are exactly equal;
+- `paged_ragged_step` on bfloat16 weights, two ragged steps of rows
+  with 5, 3, 1 and 1 new tokens: logits within 4 bf16 ulps of the
+  largest logit and the same greedy token per row (unless the
+  reference's two logits lie within that tolerance).
 
 Weights are drawn with std 0.5 (initializer_range) instead of GPT's
 0.02 so that greedy streams vary from token to token instead of
@@ -285,3 +289,60 @@ def test_sources_import_no_jax_or_reference():
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("from paddle_tpu.ops import x")
     assert not _FORBIDDEN.search("from paddle_tpu_torch import x")
+
+
+# -- bfloat16 ----------------------------------------------------------------
+
+# Both sides round every bf16 product and activation once, in other
+# orders: a few bf16 ulps of the largest logit (ulp = 2^(e - 7) for a
+# largest |logit| in [2^e, 2^(e+1)); 2 seen), and the same greedy token
+# per row, unless the reference's logits of the two tokens lie within
+# that tolerance (a near-tie: bf16 logits can tie exactly, and argmax
+# then takes the first).
+BF16_ULPS = 4
+
+
+def _bf16_ulp(x):
+    return 2.0 ** (np.floor(np.log2(np.abs(x).max())) - 7)
+
+
+def _ragged_bf16(model, cache, logits_of):
+    """Two ragged steps on fixed tokens: rows of 5, 3, 1 and 1 new tokens
+    (chunked prefill), then 1, 1, 5 and 3 (decode rows among chunks)."""
+    rng = np.random.RandomState(5)
+    toks = {s: rng.randint(0, 64, (10,)) for s in "abcd"}
+    for s in "abcd":
+        cache.add_sequence(s)
+    out = []
+    for rows in ([("a", toks["a"][:5]), ("b", toks["b"][:3]),
+                  ("c", toks["c"][:1]), ("d", toks["d"][:1])],
+                 [("c", toks["c"][1:2]), ("d", toks["d"][1:2]),
+                  ("a", toks["a"][5:10]), ("b", toks["b"][3:6])]):
+        last, _ = model.paged_ragged_step(cache, rows, pad_to_tokens=16,
+                                          pad_to_rows=4)
+        out.append(logits_of(last).astype(np.float32))
+    return out
+
+
+def test_ragged_steps_bf16_match_reference():
+    """The port's ragged step on bfloat16 weights (the CPU twins in
+    bfloat16) against the reference's, on the same bf16 weights: the
+    pair's init (seed 0) cast to bf16 on both sides."""
+    paddle.seed(0)
+    ref = RefLM(RefConfig(dropout=0.0, **CFG)).bfloat16()
+    ref.eval()
+    state = {k: np.asarray(v.numpy()) for k, v in ref.state_dict().items()}
+    port = GPTForCausalLM(GPTConfig(**CFG), device="cpu",
+                          dtype=torch.bfloat16)
+    load_paddle_tpu_state(port, state)
+    want = _ragged_bf16(ref, ref.make_paged_cache(n_pages=32, page_size=4),
+                        lambda t: np.asarray(t.value))
+    got = _ragged_bf16(port, port.make_paged_cache(n_pages=32, page_size=4),
+                       lambda t: t.float().numpy())
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape == (4, 64)
+        tol = BF16_ULPS * _bf16_ulp(w)
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol,
+                                   err_msg=f"step {i}")
+        for r, (gi, wi) in enumerate(zip(g.argmax(-1), w.argmax(-1))):
+            assert gi == wi or w[r, wi] - w[r, gi] <= tol, (i, r)

@@ -18,7 +18,11 @@ pure and hybrid (layer 1 of 2 attention, 4 heads), is built by
   and `rollback`, and the hybrid's `pool_stats`, against the
   reference's caches driven through the same host operations;
 - `GenerationEngine`, the whole continuous-batching loop: greedy token
-  streams exactly equal.
+  streams exactly equal;
+- the hybrid's `paged_ragged_step` on bfloat16 weights (std 0.5), two
+  ragged steps of rows with 5, 3, 1 and 1 new tokens: logits within 4
+  bf16 ulps of the largest logit and the same greedy token per row
+  (unless the reference's two logits lie within that tolerance).
 
 The logits are compared at the reference's init (std 0.02). At that
 init a greedy stream repeats its last prompt token, so the engines'
@@ -308,3 +312,49 @@ def test_engine_streams_match_reference(wide_pair):
     assert eng.pad_token_fraction() == pytest.approx(
         ref_eng.pad_token_fraction(), abs=0)
     assert 0.0 < eng.pad_token_fraction() < 1.0
+
+
+# -- bfloat16 -----------------------------------------------------------------
+
+# Both sides round every bf16 product and activation once, in other
+# orders: a few bf16 ulps of the largest logit (ulp = 2^(e - 7) for a
+# largest |logit| in [2^e, 2^(e+1))), and the same greedy token per row,
+# unless the reference's logits of the two tokens lie within that
+# tolerance (a near-tie: bf16 logits can tie exactly).
+BF16_ULPS = 4
+
+
+def test_hybrid_ragged_steps_bf16_match_reference():
+    """The hybrid's ragged step on bfloat16 weights (the CPU twins,
+    kernels #1 and #11's, in bfloat16) against the reference's on the
+    same bf16 weights (std 0.5, seed 0, cast to bf16 on both sides): rows
+    of 5, 3, 1 and 1 new tokens, then 1, 1, 5 and 3."""
+    paddle.seed(0)
+    ref = RefLM(RefConfig(**_cfg("hybrid", 0.5))).bfloat16()
+    ref.eval()
+    state = {k: np.asarray(v.numpy()) for k, v in ref.state_dict().items()}
+    port = SSMForCausalLM(SSMConfig(**_cfg("hybrid", 0.5)), device="cpu",
+                          dtype=torch.bfloat16)
+    load_paddle_tpu_state(port, state)
+    rng = np.random.RandomState(5)
+    toks = {s: rng.randint(0, 64, (10,)) for s in "abcd"}
+    steps = ([("a", toks["a"][:5]), ("b", toks["b"][:3]),
+              ("c", toks["c"][:1]), ("d", toks["d"][:1])],
+             [("c", toks["c"][1:2]), ("d", toks["d"][1:2]),
+              ("a", toks["a"][5:10]), ("b", toks["b"][3:6])])
+    runs = []
+    for model, logits_of in ((ref, lambda t: np.asarray(t.value)),
+                             (port, lambda t: t.float().numpy())):
+        cache = model.make_paged_cache(n_pages=16, page_size=4)
+        for s in "abcd":
+            cache.add_sequence(s)
+        runs.append([logits_of(model.paged_ragged_step(
+            cache, rows, pad_to_tokens=16, pad_to_rows=4)[0]).astype(
+                np.float32) for rows in steps])
+    for i, (w, g) in enumerate(zip(*runs)):
+        assert g.shape == w.shape == (4, 64)
+        tol = BF16_ULPS * 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 7)
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol,
+                                   err_msg=f"step {i}")
+        for r, (gi, wi) in enumerate(zip(g.argmax(-1), w.argmax(-1))):
+            assert gi == wi or w[r, wi] - w[r, gi] <= tol, (i, r)
