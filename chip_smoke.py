@@ -10,9 +10,11 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
 2. build every kernel from paddle_tpu_torch/csrc/ (one nvcc per
    source, all started together), timed, with each kernel's registers
    and spills (each flash kernel at head_dim 64 and 128, the paged
-   kernels at each head dim and q rows a CUDA-core unit); a
-   tensor-core kernel (a name with "_tc_kernel") that spills fails the
-   run;
+   kernels at each head dim and q rows a CUDA-core unit, the LayerNorm
+   kernels at the layouts GPT-medium's and GPT-1.3B's widths take; the
+   other LayerNorm layouts summed up on one line); a tensor-core kernel
+   (a name with "_tc_kernel") or a main-path LayerNorm layout that
+   spills fails the run;
 3. the ragged paged-attention kernel against its plain PyTorch twin at
    serving shapes (16 heads, head_dim 64, page 16), in bfloat16 and
    float32: pure decode, a prefill chunk mixed with decode rows, pad
@@ -90,7 +92,8 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    kernel steps x 49, each xent kernel steps x 1, each fused pass
    steps x groups; losses and health finite, found_inf 0, the loss
    falling; ms/step, tokens/s, MFU, device ms, idle share, peak memory
-   and the flash kernels' device ms of the profiled step. Then its
+   and the flash kernels' device ms of the profiled step; the last
+   timed step's loss beside the recorded one. Then its
    first 2 layers in float32 (hidden 2048, head_dim 128), 3 steps at
    batch 2 x 256 on the card (the CUDA-core flash kernels at head_dim
    128) and on the CPU (twins) from the same weights, on the same
@@ -118,15 +121,17 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    updates;
 11. the LayerNorm kernels (#5 forward, #6 backward) and the softmax
    cross-entropy kernels (#7 forward, #8 backward) against their plain
-   twins: LayerNorm at [8192, 1024] in bf16 (bf16 weight and bias, as
-   GPT's) and f32, [1000, 4096] (gpt_6p7b's width, a ragged row
-   count), [8192, 1000] and [257, 1001] (scalar loads); xent at
+   twins: LayerNorm at [8192, 1024] and [4096, 2048] in bf16 (bf16
+   weight and bias, as GPT's), [8192, 1024] in f32, [1000, 4096]
+   (gpt_6p7b's width, a ragged row count), [8192, 1000] and [257, 1001]
+   (scalar loads), [64, 16384] (the widest row); xent at
    [8192, 50304] in bf16 and f32 with about 10 % of the labels -1 and
    some >= V, and [1000, 50257] (a row that is not 16-byte aligned);
    xent dx is held per element against |twin| (one bf16 ulp, or
    1e-5 relative plus 1e-9 in f32), since most of it is far below 1.
-   At the training shapes (LayerNorm [8192, 1024] bf16, xent
-   [8192, 50304] bf16) each kernel's time, its twin's, one PyTorch
+   At the training shapes (LayerNorm [8192, 1024] and GPT-1.3B's
+   [4096, 2048] bf16, xent [8192, 50304] bf16) each kernel's time, its
+   twin's, one PyTorch
    call's (torch.nn.functional.layer_norm forward and its backward;
    torch.nn.functional.cross_entropy(reduction="none") forward and its
    backward) and the byte bound;
@@ -168,8 +173,10 @@ training in phase 7b for #2-#4 at head_dim 128, SSM serving in phase
 13 for #11) runs with the launch counts set to 0 just before it and
 read just after.
 Times are CUDA-event times with the 50 MB L2 flushed before each
-launch, as the serving loop finds it cold (each layer has its own
-pools). Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM,
+launch (by writing a 64 MB buffer), as the serving loop finds it cold
+(each layer has its own pools); the LayerNorm kernels are timed
+after a flush that reads the buffer too, which leaves no dirty line
+for their misses to write back. Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM,
 989 TFLOP/s bf16 (tensor cores), 67 TFLOP/s float32.
 """
 import contextlib
@@ -208,14 +215,15 @@ def card_line():
 
 
 # a template argument of a mangled kernel name: bf16, f32, a repeat of an
-# earlier type (in these kernels always bf16) or an int (a head dim)
+# earlier type (in these kernels always bf16) or an int (a head dim, q
+# rows; in the LayerNorm kernels vectors a lane, warps a row, stages)
 _TEMPLATE_ARG = re.compile(r"13__nv_bfloat16|f|S\d*_|Li(\d+)E")
 
 
 def kernel_label(ptxas_line):
-    """'ln_bwd_kernel<bf16, f32>', 'flash_dq_kernel<bf16, D=64>' or
-    'paged_cc_kernel<bf16, D=64, rows=16>' from ptxas's line naming a
-    mangled kernel."""
+    """'ln_bwd_kernel<bf16, f32, VPL=2, WPR=2, STAGES=3>',
+    'flash_dq_kernel<bf16, D=64>' or 'paged_cc_kernel<bf16, D=64,
+    rows=16>' from ptxas's line naming a mangled kernel."""
     mangled = ptxas_line.split("'")[1]
     found = re.search(r"_kernel(?=[IE])", mangled)
     if not found:
@@ -226,7 +234,9 @@ def kernel_label(ptxas_line):
                  if mangled[:end - n].endswith(str(n))), mangled[:60])
     if mangled[end] == "E":  # not a template
         return name
-    args, at, ints = [], end + 1, ("D", "rows")
+    args, at = [], end + 1
+    ints = ("VPL", "WPR", "STAGES") if name.startswith("ln_") \
+        else ("D", "rows")
     while (m := _TEMPLATE_ARG.match(mangled, at)):
         if m.group(1):  # the first int a head dim, the second q rows
             args.append(f"{ints[0]}={m.group(1)}")
@@ -237,19 +247,75 @@ def kernel_label(ptxas_line):
     return f"{name}<{', '.join(args)}>"
 
 
-def cuda_ms(torch, fn, iters, flush):
+def ln_main_labels(lk):
+    """Labels of the LayerNorm kernels the main paths launch: bf16 x, w
+    and b at GPT-medium's width 1024 and GPT-1.3B's 2048."""
+    out = set()
+    for C in (1024, 2048):
+        for backward in (False, True):
+            vpl, wpr, stages = lk.row_layout(C, backward)
+            out.add(f"ln_{'bwd' if backward else 'fwd'}_kernel<bf16, bf16, "
+                    f"VPL={vpl}, WPR={wpr}, STAGES={stages}>")
+    return out
+
+
+def phase_registers(logs, ln_main):
+    """Each kernel's registers and spills from the build logs. A
+    tensor-core kernel ("_tc_kernel") or a LayerNorm kernel of the main
+    paths (ln_main) that spills fails the run; the other LayerNorm
+    layouts are summed up on one line."""
+    seen, ln_other = set(), {}
+    for lib, log in sorted(logs.items()):
+        label, quiet = None, False
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                label = kernel_label(line)
+                seen.add(label)
+                quiet = label.startswith("ln_") and label not in ln_main
+                if not quiet:
+                    print(f"    {lib}: {label}")
+            elif "registers" in line or "spill" in line or "wgmma" in line:
+                if quiet:
+                    ln_other.setdefault(label, []).append(line)
+                else:
+                    print("     ", line.strip())
+                # the tensor-core kernels keep every accumulator in
+                # registers, the LayerNorm kernels a row: a spill would
+                # put them in local memory
+                check(("_tc_kernel" not in (label or "")
+                       and label not in ln_main) or "spill" not in line
+                      or " 0 bytes spill stores, 0 bytes spill loads"
+                      in line, f"{label} spills: {line.strip()}")
+    check(ln_main <= seen, f"LayerNorm kernels not built: {ln_main - seen}")
+    regs = [int(m.group(1)) for lines in ln_other.values() for line in lines
+            if (m := re.search(r"Used (\d+) registers", line))]
+    spilling = sorted(k for k, lines in ln_other.items()
+                      if any("spill" in line and " 0 bytes spill stores, 0 "
+                             "bytes spill loads" not in line
+                             for line in lines))
+    print(f"    layer_norm: {len(ln_other)} other layouts (no main path "
+          f"launches them): {min(regs, default=0)}-{max(regs, default=0)} "
+          f"registers; spilling: {spilling or 'none'}")
+
+
+def cuda_ms(torch, fn, iters, flush, clean=False):
     """Mean device time of fn() in ms over iters calls, by CUDA events.
-    Before each call the L2 is flushed (flush.zero_()) and the card is
-    parked on a ~1 ms spin, so the host has enqueued the whole call
-    before the start event fires: the time excludes the host's launch
-    cost, except where fn itself waits on the device (the plain twin
-    reads bounds to the host)."""
+    Before each call the L2 is flushed (flush.zero_(), which leaves it
+    full of dirty lines that fn's misses write back; with clean=True by
+    reading the buffer instead) and the card is parked on a ~1 ms spin,
+    so the host has enqueued the whole call before the start event
+    fires: the time excludes the host's launch cost, except where fn
+    itself waits on the device (the plain twin reads bounds to the
+    host)."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
-        flush.zero_()
+        if clean:
+            flush.view(torch.int32).sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -696,6 +762,10 @@ TRAIN = dict(batch=8, seq=1024, lr=1e-4, warmup=3, timed=10)
 # GPT-1.3B's step: bench.py's batch (4 x 1024) and learning rate
 TRAIN_1P3B = dict(batch=4, seq=1024, lr=1e-4, warmup=2, timed=5)
 GPT_1P3B_PARAMS = 1_313_722_368  # vocab 50304, 1024 positions, tied head
+# GPT-1.3B's loss at its last timed step as recorded before the LayerNorm kernels' row
+# layouts (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5): printed
+# beside each run's, not held
+GPT_1P3B_RECORDED_LAST_LOSS = 6.7104
 EPILOGUE = "TrainStep.epilogue"  # TrainStep's record_function range
 AGREE = dict(layers=2, batch=2, seq=256, steps=3, rtol=1e-3)
 
@@ -1357,6 +1427,8 @@ def phase_train_1p3b(torch, km, tmods, gpt_1p3b):
     print("  GPT-1.3B flash device ms in the profiled step: " + ", ".join(
         f"{k} {res['parts_ms'].get(k, 0.0):.2f}"
         for k in ("flash_fwd", "flash_dq", "flash_dkv")))
+    print(f"  GPT-1.3B loss at the last timed step {res['last']:.4f} "
+          f"(recorded: {GPT_1P3B_RECORDED_LAST_LOSS:.4f})")
     small = first_layers(state, AGREE["layers"])
     del state
     phase_train_agreement(torch, km, tmods, small, cfg=cfg,
@@ -1674,11 +1746,14 @@ def phase_scaler(torch, km, tmods, state):
 NORM_XENT_OPS = {"layer_norm_fwd": 8, "layer_norm_bwd": 14,
                  "softmax_xent_fwd": 4, "softmax_xent_bwd": 4}
 # (kernel pair, rows, columns, dtype, timed): the training shapes first
+# (GPT-medium's; GPT-1.3B's LayerNorm [4096, 2048] is timed too)
 NORM_XENT_CASES = [("ln", 8192, 1024, "bfloat16", True),
+                   ("ln", 4096, 2048, "bfloat16", True),
                    ("ln", 8192, 1024, "float32", False),
                    ("ln", 1000, 4096, "bfloat16", False),
                    ("ln", 8192, 1000, "bfloat16", False),
                    ("ln", 257, 1001, "float32", False),
+                   ("ln", 64, 16384, "bfloat16", False),
                    ("xent", 8192, 50304, "bfloat16", True),
                    ("xent", 8192, 50304, "float32", False),
                    ("xent", 1000, 50257, "bfloat16", False)]
@@ -1728,16 +1803,24 @@ def norm_xent_bound(name, shape, it, it_w=None):
 
 
 def time_norm_xent(torch, flush, res, name, kernel, twin, library, shape,
-                   it, it_w=None):
+                   it, it_w=None, clean_too=False):
+    """Times of a kernel, its twin and the library call after the usual
+    (dirty) flush; with clean_too the kernel's after a clean one as well
+    (printed, not in the kernels line)."""
     bound_ms, bound_by = norm_xent_bound(name, shape, it, it_w)
     ms = cuda_ms(torch, kernel, 20, flush)
     plain_ms = cuda_ms(torch, twin, 3, flush)
     library_ms = cuda_ms(torch, library, 10, flush)
     res[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                      bound_ms=bound_ms, bound_by=bound_by)
+    clean = ""
+    if clean_too:
+        k = cuda_ms(torch, kernel, 20, flush, clean=True)
+        clean = (f"; clean flush: kernel={k:.4f}ms bound/kernel="
+                 f"{bound_ms / k:.3f}")
     print(f"    {name:18s} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
           f"library={library_ms:.4f}ms bound={bound_ms:.4f}ms ({bound_by}) "
-          f"bound/kernel={bound_ms / ms:.3f}", flush=True)
+          f"bound/kernel={bound_ms / ms:.3f}{clean}", flush=True)
 
 
 def hold_norm(torch, lk, flush, R, C, dtype, timed):
@@ -1789,13 +1872,14 @@ def hold_norm(torch, lk, flush, R, C, dtype, timed):
         time_norm_xent(torch, flush, res, "layer_norm_fwd",
                        lambda: lk.layer_norm_fwd(x, w, b),
                        lambda: lk.layer_norm_fwd_reference(x, w, b),
-                       lambda: fl(x, (C,), w, b, 1e-5), (R, C), it, it)
+                       lambda: fl(x, (C,), w, b, 1e-5), (R, C), it, it,
+                       clean_too=True)
         time_norm_xent(torch, flush, res, "layer_norm_bwd",
                        lambda: lk.layer_norm_bwd(*bwd),
                        lambda: lk.layer_norm_bwd_reference(*bwd),
                        lambda: torch.autograd.grad(out, (xg, wg, bg), dy,
                                                    retain_graph=True),
-                       (R, C), it, it)
+                       (R, C), it, it, clean_too=True)
     return res
 
 
@@ -1870,9 +1954,9 @@ def hold_xent(torch, xk, flush, N, V, dtype, timed):
 
 def phase_norm_xent(torch, lk, xk, flush):
     """#5-#8 against their twins at every listed shape; times at the
-    training shapes (LayerNorm [8192, 1024] bf16, xent [8192, 50304]
-    bf16). Returns the training shapes' measurements with the largest
-    error of every case."""
+    training shapes (LayerNorm [8192, 1024] and [4096, 2048] bf16, xent
+    [8192, 50304] bf16). Returns the first training shape's measurements
+    with the largest error of every case."""
     main = {}
     worst = {name: 0.0 for name, _ in NORM_KERNELS + XENT_KERNELS}
     for kind, rows, cols, dtype, timed in NORM_XENT_CASES:
@@ -1881,7 +1965,7 @@ def phase_norm_xent(torch, lk, xk, flush):
                       timed)
         for name, m in res.items():
             worst[name] = max(worst[name], m["max_abs_err"])
-            if timed:
+            if timed and name not in main:
                 main[name] = m
         torch.cuda.empty_cache()
     for name in worst:
@@ -2250,19 +2334,7 @@ def main():
     t = time.perf_counter()
     logs = _build.build()
     print(f"[2] built {sorted(logs)} in {time.perf_counter() - t:.1f}s")
-    for lib, log in sorted(logs.items()):
-        label = None
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                label = kernel_label(line)
-                print(f"    {lib}: {label}")
-            elif "registers" in line or "spill" in line or "wgmma" in line:
-                print("     ", line.strip())
-                # the tensor-core kernels keep every accumulator in
-                # registers: a spill would put them in local memory
-                check("_tc_kernel" not in (label or "") or "spill" not in line
-                      or " 0 bytes spill stores, 0 bytes spill loads"
-                      in line, f"{label} spills: {line.strip()}")
+    phase_registers(logs, ln_main_labels(lk))
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     print("[3] ragged paged attention: kernel vs plain twin", flush=True)

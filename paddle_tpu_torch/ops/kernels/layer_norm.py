@@ -9,8 +9,12 @@ variance, y rounded once to x's dtype; mean and rstd saved as float32
 - `layer_norm_fwd` and `layer_norm_bwd` launch the kernels of
   `paddle_tpu_torch/csrc/layer_norm.cu` (built by nvcc at first use,
   ops/kernels/_build.py) for CUDA tensors, or raise; they never fall
-  back. For CPU tensors they run the plain twin. Each launch adds one to
-  the wrapper's `launches` (the backward's finalize included).
+  back. For CPU tensors they run the plain twin. Each call that launches
+  adds one to the wrapper's `launches` (the backward's ordered sum of its
+  strips' dw/db, a second CUDA launch, included).
+- `row_layout` and `strips` size a launch (how a row is spread over a
+  group's registers and fed to them, the grid); `_plan` joins them with
+  the card's occupancy, once per shape.
 - `*_reference` are the plain PyTorch twins, the reference kernels' math
   op for op. The CPU tests hold them against the Pallas kernels in
   interpret mode; chip_smoke.py holds the kernels against them on the
@@ -22,19 +26,29 @@ variance, y rounded once to x's dtype; mean and rstd saved as float32
   leading shape; `nn.functional.layer_norm` routes to it when
   PADDLE_TPU_PALLAS_LN=1.
 """
+import collections
 import ctypes
 import functools
 
 import torch
 
-from . import DTYPE_CODES, _build, aligned16, current_stream, work_dtype
+from . import DTYPE_CODES, _build, aligned16, current_stream, sm_count, \
+    work_dtype
 
 __all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd",
-           "layer_norm_fwd_reference", "layer_norm_bwd_reference"]
+           "layer_norm_fwd_reference", "layer_norm_bwd_reference",
+           "row_layout", "strips"]
 
-# the backward's strips: about this many, each of at least one row; the
-# strip count sets the float32 partials' size, [2, n_strips, C]
-_TARGET_STRIPS = 1024
+# warps of a block, at least (a row of more warps takes a block of its
+# own), for the forward and the backward; at most 8 (tools/kernel_ab.py:
+# 8 is as fast as 4 or faster at GPT-medium's and GPT-1.3B's widths, and
+# halves the backward's strips)
+FWD_BLOCK_WARPS = 8
+BWD_BLOCK_WARPS = 8
+# blocks an SM the grid is sized for; None: as many as the card keeps
+# resident (measured occupancy)
+FWD_BLOCKS_PER_SM = None
+BWD_BLOCKS_PER_SM = None
 
 
 # -- plain twins ----------------------------------------------------------
@@ -101,14 +115,75 @@ def _check(x2d, w, b=None, mu=None, rstd=None, dy=None):
 def _kernels():
     """The loaded library with its entry points typed, built at first
     use."""
-    lib = _build.load("layer_norm")
+    return typed(_build.load("layer_norm"))
+
+
+def typed(lib):
+    """`lib` (a build of csrc/layer_norm.cu) with its entry points
+    typed."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.layer_norm_fwd.argtypes = [p] * 6 + [i, i, ctypes.c_float] \
-        + [i] * 4 + [p]
-    lib.layer_norm_bwd.argtypes = [p] * 9 + [i] * 8 + [p]
+        + [i] * 10 + [p]
+    lib.layer_norm_bwd.argtypes = [p] * 9 + [i] * 12 + [p]
+    lib.layer_norm_blocks_per_sm.argtypes = [i] * 8
     lib.layer_norm_fwd.restype = lib.layer_norm_bwd.restype = i
-    lib.layer_norm_max_cols.restype = i
+    lib.layer_norm_blocks_per_sm.restype = lib.layer_norm_max_cols.restype = i
     return lib
+
+
+# -- launch sizing ----------------------------------------------------------
+
+def row_layout(C, backward):
+    """(vectors of 8 elements a lane holds, warps a row, stages) for rows
+    of C columns: the fewest warps whose registers hold the row at up to
+    4 vectors a lane (forward) or 2 (backward, whose dw/db sums cost
+    2 x 8 float32 registers a vector too), then the fewest vectors a
+    lane. Rows reach the registers through a ring of `stages` rows a
+    group in shared memory: 3 up to 2048 columns, 2 up to 8192, none
+    (1: straight into registers) beyond. w and b stay in shared memory.
+    Rows too wide for 16 warps of a backward's registers (C > 8192) are
+    read twice: 4 vectors a lane over 16 warps, stages 0."""
+    if backward and C > 256 * 2 * 16:
+        return 4, 16, 0
+    vpl_max = 2 if backward else 4
+    wpr = 1
+    while 256 * vpl_max * wpr < C:
+        wpr *= 2
+    vpl = 1
+    while 256 * vpl * wpr < C:
+        vpl *= 2
+    return vpl, wpr, 3 if C <= 2048 else 2 if C <= 8192 else 1
+
+
+def strips(R, groups, max_blocks):
+    """(rows a block, blocks) for R rows over blocks of `groups` row
+    groups: the fewest rows a group with at most max_blocks blocks, then
+    the fewest blocks at that many rows, so that the rows spread evenly.
+    Block k takes rows [k * rows, (k + 1) * rows) below R."""
+    per_group = -(-R // (groups * max_blocks))
+    rows = groups * per_group
+    return rows, -(-R // rows)
+
+
+Plan = collections.namedtuple("Plan", "vpl wpr stages threads blocks rows")
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(device_index, R, C, x_dtype, w_dtype, backward):
+    """The launch of one kernel on [R, C] rows: its layout, block and
+    grid."""
+    vpl, wpr, stages = row_layout(C, backward)
+    warps = max(BWD_BLOCK_WARPS if backward else FWD_BLOCK_WARPS, wpr)
+    per_sm = BWD_BLOCKS_PER_SM if backward else FWD_BLOCKS_PER_SM
+    if per_sm is None:
+        per_sm = _kernels().layer_norm_blocks_per_sm(
+            int(backward), vpl, wpr, stages, warps * 32, C,
+            DTYPE_CODES[x_dtype], DTYPE_CODES[w_dtype])
+        if per_sm <= 0:
+            raise RuntimeError(f"layer_norm: no resident block for layout "
+                               f"{(vpl, wpr, stages)} (cudaError {-per_sm})")
+    rows, blocks = strips(R, warps // wpr, sm_count(device_index) * per_sm)
+    return Plan(vpl, wpr, stages, warps * 32, blocks, rows)
 
 
 def _cuda_ready(x2d, w):
@@ -139,10 +214,12 @@ def layer_norm_fwd(x2d, w, b, eps=1e-5):
     rstd = torch.empty(R, 1, dtype=torch.float32, device=x2d.device)
     if R == 0:
         return y, mu, rstd
+    p = _plan(x2d.device.index, R, C, x2d.dtype, w.dtype, False)
     err = lib.layer_norm_fwd(
         x2d.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-        mu.data_ptr(), rstd.data_ptr(), R, C, float(eps),
-        DTYPE_CODES[x2d.dtype], DTYPE_CODES[w.dtype],
+        mu.data_ptr(), rstd.data_ptr(), R, C, float(eps), p.vpl, p.wpr,
+        p.stages, p.threads, p.blocks, p.rows, DTYPE_CODES[x2d.dtype],
+        DTYPE_CODES[w.dtype],
         aligned16(x2d, y, row_bytes=C * x2d.element_size()),
         aligned16(w, b), stream)
     if err:
@@ -150,12 +227,6 @@ def layer_norm_fwd(x2d, w, b, eps=1e-5):
                            f"cudaError {err}")
     layer_norm_fwd.launches += 1
     return y, mu, rstd
-
-
-def _strips(R):
-    """(rows a backward strip, strips) for R rows."""
-    rows = max(1, -(-R // _TARGET_STRIPS))
-    return rows, -(-R // rows)
 
 
 def layer_norm_bwd(x2d, w, mu, rstd, dy):
@@ -174,14 +245,14 @@ def layer_norm_bwd(x2d, w, mu, rstd, dy):
     db = torch.empty(C, dtype=w.dtype, device=w.device)
     if R == 0:
         return dx, dw.zero_(), db.zero_()
-    rows, n_strips = _strips(R)
-    partials = torch.empty(2, n_strips, C, dtype=torch.float32,
+    p = _plan(x2d.device.index, R, C, x2d.dtype, w.dtype, True)
+    partials = torch.empty(2, p.blocks, C, dtype=torch.float32,
                            device=x2d.device)
     err = lib.layer_norm_bwd(
         x2d.data_ptr(), w.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
         dy.data_ptr(), dx.data_ptr(), partials.data_ptr(), dw.data_ptr(),
-        db.data_ptr(), R, C, rows, n_strips, DTYPE_CODES[x2d.dtype],
-        DTYPE_CODES[w.dtype],
+        db.data_ptr(), R, C, p.vpl, p.wpr, p.stages, p.threads, p.blocks,
+        p.rows, DTYPE_CODES[x2d.dtype], DTYPE_CODES[w.dtype],
         aligned16(x2d, dy, dx, row_bytes=C * x2d.element_size()),
         aligned16(w), stream)
     if err:

@@ -1,8 +1,8 @@
-"""A/B timings of two design choices, on one CUDA card.
+"""A/B timings of kernel design choices, on one CUDA card.
 
-    python3 -m paddle_tpu_torch.tools.kernel_ab [pass1] [policy]
+    python3 -m paddle_tpu_torch.tools.kernel_ab [pass1] [policy] [ln]
 
-Run from the root of a checkout; with no argument it runs both.
+Run from the root of a checkout; with no argument it runs all three.
 
 - pass1: fused pass 1 (kernel #9, csrc/fused_update.cu) built with 2, 4,
   8 and 16 16-byte vectors a thread (its kUnroll1), each on GPT-medium's
@@ -14,6 +14,22 @@ Run from the root of a checkout; with no argument it runs both.
   three bf16 steps of serving shape (16 heads, head_dim 64, page 16): 8
   decode rows, a 128-token chunk with 7 decode rows, one 1023-token
   history.
+- ln: the LayerNorm kernels (#5 forward, #6 backward with its finalize,
+  csrc/layer_norm.cu) at GPT-medium's [8192, 1024] and GPT-1.3B's
+  [4096, 2048] bf16 (bf16 weight and bias): layouts (vectors of 8 a
+  lane, warps a row, stages of the rows' ring; ops/kernels/layer_norm.py
+  `row_layout`) in blocks of 4 and 8 warps, the grid sized for the
+  measured occupancy, for 2 blocks an SM and for a row a group (64
+  blocks an SM: more than the card keeps resident), beside F.layer_norm's
+  forward or backward and the byte bound (x and y, or x, dy and dx,
+  moved once at 3.35 TB/s); each variant's output is first held against
+  the plain twin, and its kernel's registers and spills are printed from
+  the build log. Each time is taken twice: after a flush that writes L2
+  full of dirty lines (as chip_smoke.py times) and after one that reads
+  it (clean: the kernel's misses write nothing back). Then the default
+  layouts again, built with kMinBlocks (blocks an SM the compiler keeps
+  registers for) at 2 and 3 instead of 1, and with the finalize launched
+  plainly instead of as a programmatic dependent.
 
 Variants are timed in turns (A B C .. C B A), twice; each time is the
 mean of CUDA-event times over 20 launches with the 50 MB L2 flushed and
@@ -22,6 +38,7 @@ the card's name and power limit first. Variant libraries are built
 under build/ab/ (git-ignored).
 """
 import ctypes
+import re
 import subprocess
 import sys
 
@@ -32,6 +49,7 @@ from ..models import GPTForCausalLM, gpt_medium
 from ..ops import fused_update as fu
 from ..ops.kernels import _build
 from ..ops.kernels import fused_update as fk
+from ..ops.kernels import layer_norm as lk
 from ..ops.kernels import paged_attention as pa
 
 HBM_BYTES_PER_S = 3.35e12
@@ -39,15 +57,20 @@ UNROLLS = (2, 4, 8, 16)
 POLICIES = [(b, m) for b in (1, 2, 4) for m in (4, 8, 16)]
 
 
-def cuda_ms(fn, flush, iters=20):
+def cuda_ms(fn, flush, iters=20, clean=False):
     """Mean device ms of fn() over iters calls (L2 flushed, card parked
-    on a spin before each so the launch is enqueued before the start)."""
+    on a spin before each so the launch is enqueued before the start).
+    The flush writes the 64 MB buffer, leaving the L2 full of dirty lines
+    that fn's misses write back; clean=True reads it instead."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
-        flush.zero_()
+        if clean:
+            flush.view(torch.int32).sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -64,27 +87,40 @@ def in_turns(names, rounds=2):
     return (list(names) + list(names)[::-1]) * rounds
 
 
-def build_pass1_variants():
-    """{unroll: loaded library} of csrc/fused_update.cu with kUnroll1
-    set to each of UNROLLS, built in parallel."""
-    src = (_build.SOURCE_DIR / "fused_update.cu").read_text()
+def build_variants(name, line, values, tag=""):
+    """{value: (library path, build log)} of csrc/<name>.cu with its
+    source line `line` ("constexpr int kX = N;") set to each value, built
+    in parallel under build/ab/ (file names tagged with `tag`)."""
+    src = (_build.SOURCE_DIR / f"{name}.cu").read_text()
+    if line not in src:
+        raise RuntimeError(f"{line!r} is not in csrc/{name}.cu")
     out_dir = _build.BUILD_DIR.parent / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for u in UNROLLS:
-        path = out_dir / f"fused_update_u{u}.cu"
-        path.write_text(src.replace("constexpr int kUnroll1 = 4;",
-                                    f"constexpr int kUnroll1 = {u};"))
-        lib = out_dir / f"libfused_update_u{u}.so"
-        jobs.append((u, lib, subprocess.Popen(
+    for val in values:
+        path = out_dir / f"{name}_{tag}{val}.cu"
+        path.write_text(src.replace(line, line.rsplit("=", 1)[0]
+                                    + f"= {val};"))
+        lib = out_dir / f"lib{name}_{tag}{val}.so"
+        jobs.append((val, lib, subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I",
              str(_build.SOURCE_DIR), "-o", str(lib), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for u, lib, proc in jobs:
+    out = {}
+    for val, lib, proc in jobs:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(log)
+        out[val] = (lib, log)
+    return out
+
+
+def build_pass1_variants():
+    """{unroll: loaded library} of csrc/fused_update.cu with kUnroll1
+    set to each of UNROLLS, built in parallel."""
+    libs = {}
+    for u, (lib, log) in build_variants(
+            "fused_update", "constexpr int kUnroll1 = 4;", UNROLLS).items():
         regs = [line.split("Used ")[1].split(",")[0]
                 for line in log.splitlines() if "Used " in line]
         print(f"  kUnroll1 {u:2d}: registers of the kernels {regs}")
@@ -200,6 +236,138 @@ def ab_policy(flush):
               f"head {runs[0][1]}")
 
 
+# (rows, columns) and, per width, the layouts (vectors a lane, warps a
+# row, stages) each kernel is timed at; warps a block; blocks an SM the
+# grid is sized for (None: measured occupancy; 64: a row a group); other
+# builds, each one source line changed, timed at the default layouts
+LN_SHAPES = ((8192, 1024), (4096, 2048))
+LN_FWD = {1024: [(4, 1, 3), (4, 1, 1), (4, 1, 2), (4, 1, 4), (2, 2, 3)],
+          2048: [(4, 2, 3), (4, 2, 1), (2, 4, 3)]}
+LN_BWD = {1024: [(2, 2, 3), (2, 2, 1), (2, 2, 2), (2, 2, 4), (1, 4, 3)],
+          2048: [(2, 4, 3), (2, 4, 1), (1, 8, 3)]}
+LN_WARPS = (4, 8)
+LN_GRIDS = (None, 2, 64)
+LN_BUILDS = {"min blocks 2": ("constexpr int kMinBlocks = 1;", 2),
+             "min blocks 3": ("constexpr int kMinBlocks = 1;", 3),
+             "finalize not early": ("constexpr int kFinalizeEarly = 1;", 0)}
+_LN_KERNEL = re.compile(r"ln_(fwd|bwd)_kernelI((?:13__nv_bfloat16|f|S\d*_)+)"
+                        r"Li(\d+)ELi(\d+)ELi(\d+)E")
+
+
+def ln_resources(log):
+    """{(kind, vpl, wpr, stages): ptxas's registers line} of the bf16
+    x, w and b kernels in a layer_norm build log."""
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = _LN_KERNEL.search(line)
+            key = m and m.group(2).startswith("13__nv_bfloat16S") and (
+                m.group(1), int(m.group(3)), int(m.group(4)),
+                int(m.group(5)))
+        elif key and ("registers" in line or "spill" in line):
+            out[key] = (out.get(key, "") + " " + line.strip()).strip()
+    return out
+
+
+def ab_ln(flush):
+    print("LayerNorm (#5, #6): layouts, grids and register budgets, bf16",
+          flush=True)
+    base = "as built"
+    libs = {base: lk._kernels()}
+    regs = {base: ln_resources(
+        (_build.BUILD_DIR / "layer_norm.log").read_text())}
+    for n, (label, (line, val)) in enumerate(LN_BUILDS.items()):
+        (path, log), = build_variants("layer_norm", line, (val,),
+                                      tag=f"v{n}_").values()
+        libs[label] = lk.typed(ctypes.CDLL(str(path)))
+        regs[label] = ln_resources(log)
+    knobs = ("_kernels", "row_layout", "FWD_BLOCKS_PER_SM",
+             "BWD_BLOCKS_PER_SM", "FWD_BLOCK_WARPS", "BWD_BLOCK_WARPS")
+    saved = {k: getattr(lk, k) for k in knobs}
+    fl = torch.nn.functional.layer_norm
+    res = {}
+
+    def use(mb, kind, layout, per_sm, warps):
+        def row_layout(C, backward):
+            if backward == (kind == "bwd"):
+                return layout
+            return saved["row_layout"](C, backward)
+        lk._kernels = lambda: libs[mb]
+        lk.row_layout = row_layout
+        side = kind.upper()
+        setattr(lk, f"{side}_BLOCKS_PER_SM", per_sm)
+        setattr(lk, f"{side}_BLOCK_WARPS", warps)
+        lk._plan.cache_clear()
+
+    try:
+        for R, C in LN_SHAPES:
+            gen = torch.Generator(device="cuda").manual_seed(R + C)
+            draw = lambda *s: torch.randn(  # noqa: E731
+                *s, generator=gen, device="cuda")
+            x = (2 * draw(R, C) + 0.5).bfloat16()
+            w, b = (1 + 0.3 * draw(C)).bfloat16(), (0.1 * draw(C)).bfloat16()
+            dy = draw(R, C).bfloat16()
+            want_y, mu, rstd = lk.layer_norm_fwd_reference(x, w, b)
+            want_dx = lk.layer_norm_bwd_reference(x, w, mu, rstd, dy)[0]
+            calls = {"fwd": lambda: lk.layer_norm_fwd(x, w, b),
+                     "bwd": lambda: lk.layer_norm_bwd(x, w, mu, rstd, dy)}
+            default = {k: saved["row_layout"](C, k == "bwd") for k in calls}
+            variants = [(base, k, lay, g, nw)
+                        for k, lays in (("fwd", LN_FWD), ("bwd", LN_BWD))
+                        for lay in lays[C] for g in LN_GRIDS
+                        for nw in LN_WARPS] + \
+                       [(mb, k, default[k], None, 4) for mb in LN_BUILDS
+                        for k in calls]
+            for v in variants:  # right before timed
+                use(*v)
+                got = calls[v[1]]()[0].float()
+                want = (want_y if v[1] == "fwd" else want_dx).float()
+                err = float(((got - want).abs()
+                             / want.abs().clamp_min(1)).max())
+                if err > 2e-2:
+                    raise RuntimeError(f"LN {v} at [{R}, {C}]: error {err}")
+            for v in in_turns(variants):
+                use(*v)
+                res.setdefault((R, C) + v, []).append(
+                    [cuda_ms(calls[v[1]], flush, clean=clean)
+                     for clean in (False, True)])
+            xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+            out = fl(xg, (C,), wg, bg, 1e-5)
+            lib = {"fwd": lambda: fl(x, (C,), w, b, 1e-5),
+                   "bwd": lambda: torch.autograd.grad(
+                       out, (xg, wg, bg), dy, retain_graph=True)}
+            lib = {k: [[cuda_ms(f, flush, clean=clean)
+                        for clean in (False, True)] for _ in range(2)]
+                   for k, f in lib.items()}
+            n = R * C * 2
+            for kind, moved in (("fwd", 2 * n), ("bwd", 3 * n)):
+                bound = moved / HBM_BYTES_PER_S * 1e3
+                dirty, clean = np.mean(lib[kind], axis=0)
+                print(f"  [{R}, {C}] {kind}: F.layer_norm {dirty:.4f} ms "
+                      f"(clean flush {clean:.4f}), byte bound "
+                      f"{bound:.4f} ms")
+                for (r, c, mb, k, lay, g, nw), runs in res.items():
+                    if (r, c, k) != (R, C, kind):
+                        continue
+                    use(mb, k, lay, g, nw)
+                    p = lk._plan(0, R, C, torch.bfloat16, torch.bfloat16,
+                                 k == "bwd")
+                    dirty, clean = np.mean(runs, axis=0)
+                    print(f"    {mb}: vpl {lay[0]} wpr {lay[1]} "
+                          f"stages {lay[2]} warps {nw} blocks/SM "
+                          f"{'occ' if g is None else g:>3}: {dirty:.4f} ms "
+                          f"(turns {[round(t[0], 4) for t in runs]}), "
+                          f"clean flush {clean:.4f} (bound/kernel "
+                          f"{bound / clean:.3f}); grid "
+                          f"{p.blocks} x {p.threads}, {p.rows} rows a "
+                          f"block; {regs[mb].get((k, *lay), '?')}")
+            del out, xg
+    finally:
+        for k, val in saved.items():
+            setattr(lk, k, val)
+        lk._plan.cache_clear()
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("kernel_ab needs a CUDA card", file=sys.stderr)
@@ -209,13 +377,15 @@ def main(argv):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    _build.build(["paged_attention", "fused_update"])
+    which = set(argv) or {"pass1", "policy", "ln"}
+    _build.build(["paged_attention", "fused_update", "layer_norm"])
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    which = set(argv) or {"pass1", "policy"}
     if "pass1" in which:
         ab_pass1(flush)
     if "policy" in which:
         ab_policy(flush)
+    if "ln" in which:
+        ab_ln(flush)
     return 0
 
 

@@ -599,15 +599,10 @@ def _sums_close(got, want):
     return _rel_err(got, want) <= 1e-4
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,wdtype", [
-    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
-    (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("R,C", [(8192, 1024), (1000, 4096), (8192, 1000),
-                                 (257, 1001), (1, 1024), (33, 16384)])
-def test_layer_norm_kernels_match_twins_on_card(R, C, dtype, wdtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+def _ln_case(R, C, dtype, wdtype, offset=0):
+    """x, w, b, dy on the card; offset > 0 starts x, dy, w and b that
+    many elements into their buffers (not 16-byte aligned: the scalar
+    loads)."""
     gen = torch.Generator(device="cuda").manual_seed(R + C)
     draw = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
                                   device="cuda")
@@ -615,6 +610,29 @@ def test_layer_norm_kernels_match_twins_on_card(R, C, dtype, wdtype):
     w = (1 + 0.3 * draw(C)).to(wdtype)
     b = (0.1 * draw(C)).to(wdtype)
     dy = draw(R, C).to(dtype)
+    if offset:
+        x, w, b, dy = (torch.cat([t.new_zeros(offset), t.reshape(-1)])
+                       [offset:].view(t.shape) for t in (x, w, b, dy))
+    return x, w, b, dy
+
+
+def _ln_sums_close(got, want, x_dtype):
+    """dw, db against the twin's. bf16 sums of bf16 x and dy: one bf16
+    ulp (bf16 terms add almost exactly in float32, so the two float32
+    sums round alike up to one ulp). bf16 sums of float32 x and dy: the
+    float32 sums' 1e-4 of the largest plus one bf16 ulp (at most 2^-7
+    of the value: two float32 sums a hair apart may round to neighbours),
+    since a sum near zero has bf16 ulps far below the float32 sums'
+    order-dependent difference."""
+    if got.dtype == torch.bfloat16 and x_dtype == torch.float32:
+        got, want = got.float(), want.float()
+        return bool(((got - want).abs() <= 1e-4 * want.abs().max()
+                     + 2**-7 * want.abs()).all())
+    return _sums_close(got, want)
+
+
+def _hold_layer_norm(x, w, b, dy):
+    dtype, wdtype = x.dtype, w.dtype
     before = (ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches)
     y, mu, rstd = ln.layer_norm_fwd(x, w, b)
     dx, dw, db = ln.layer_norm_bwd(x, w, mu, rstd, dy)
@@ -628,7 +646,92 @@ def test_layer_norm_kernels_match_twins_on_card(R, C, dtype, wdtype):
     assert _within(y, want_y, TOL[dtype])
     assert _within(dx, want_dx, TOL[dtype])
     assert _within(mu, want_mu, 1e-5) and _within(rstd, want_rstd, 1e-5)
-    assert _sums_close(dw, want_dw) and _sums_close(db, want_db)
+    assert _ln_sums_close(dw, want_dw, dtype)
+    assert _ln_sums_close(db, want_db, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,wdtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("R,C", [(8192, 1024), (1000, 4096), (8192, 1000),
+                                 (257, 1001), (1, 1024), (33, 16384),
+                                 (4096, 2048), (64, 8192), (3, 1024),
+                                 (300, 1024), (3, 16384), (700, 40)])
+def test_layer_norm_kernels_match_twins_on_card(R, C, dtype, wdtype):
+    """Every layout the wrappers pick: one warp a row (C <= 2048 bf16),
+    several (4096-16384), rows read twice in the backward (16384), and
+    row counts below the grid's rows in flight (3, 300)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    _hold_layer_norm(*_ln_case(R, C, dtype, wdtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,wdtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("R,C", [(1000, 1024), (64, 2048), (9, 1000),
+                                 (5, 16384)])
+def test_layer_norm_kernels_off_alignment_on_card(R, C, dtype, wdtype):
+    """x, dy, w and b one element past a 16-byte boundary: the scalar
+    loads and stores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, w, b, dy = _ln_case(R, C, dtype, wdtype, offset=1)
+    assert x.data_ptr() % 16 and w.data_ptr() % 16
+    _hold_layer_norm(x, w, b, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,C", [(8192, 1024), (4096, 2048), (257, 1001),
+                                 (33, 16384)])
+def test_layer_norm_backward_repeats_bit_for_bit_on_card(R, C, dtype):
+    """dw and db merge the strips in strip order through integer
+    tickets, with no float atomics: a second call on the same inputs
+    gives the same bits, dx included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, w, b, dy = _ln_case(R, C, dtype, dtype)
+    _, mu, rstd = ln.layer_norm_fwd(x, w, b)
+    first = ln.layer_norm_bwd(x, w, mu, rstd, dy)
+    second = ln.layer_norm_bwd(x, w, mu, rstd, dy)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [1024, 2048, 16384])
+def test_layer_norm_forward_centred_variance_on_card(C, dtype):
+    """Rows of mean 1000 and spread 2: the forward's mean and rstd
+    against a float64 twin on the same inputs (E[x^2] - mu^2 in float32
+    would lose the spread)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, w, b, _ = _ln_case(512, C, dtype, dtype)
+    x = (x.float() - x.float().mean() + 1000).to(dtype)
+    _, mu, rstd = ln.layer_norm_fwd(x, w, b)
+    _, want_mu, want_rstd = ln.layer_norm_fwd_reference(
+        x.double(), w.double(), b.double())
+    assert _within(mu, want_mu, 1e-5) and _within(rstd, want_rstd, 1e-5)
+    assert float(rstd.min()) > 0.1  # the spread survived
+
+
+@pytest.mark.cuda
+def test_layer_norm_empty_batch_launches_nothing_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, w, b, dy = _ln_case(0, 1024, torch.bfloat16, torch.bfloat16)
+    before = (ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches)
+    y, mu, rstd = ln.layer_norm_fwd(x, w, b)
+    dx, dw, db = ln.layer_norm_bwd(x, w, mu, rstd, dy)
+    assert y.shape == dx.shape == (0, 1024) and mu.shape == (0, 1)
+    assert not dw.any() and not db.any()
+    assert (ln.layer_norm_fwd.launches,
+            ln.layer_norm_bwd.launches) == before
 
 
 @pytest.mark.cuda

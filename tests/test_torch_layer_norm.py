@@ -218,11 +218,13 @@ class _FakeLib:
 
 
 @pytest.mark.parametrize("entry", ["layer_norm_fwd", "layer_norm_bwd",
+                                   "layer_norm_blocks_per_sm",
                                    "softmax_xent_fwd", "softmax_xent_bwd"])
 def test_c_entry_points_take_what_the_wrappers_pass(monkeypatch, entry):
     """The C signature in the source has as many parameters as the
     wrapper's ctypes argtypes (no compiler here to check the library)."""
-    lib = entry.rsplit("_", 1)[0]
+    lib = "layer_norm" if entry.startswith("layer_norm") \
+        else entry.rsplit("_", 1)[0]
     fake = _FakeLib()
     monkeypatch.setattr(_build, "load", lambda name: fake)
     {"layer_norm": ln, "softmax_xent": xent}[lib]._kernels.__wrapped__()
@@ -230,6 +232,91 @@ def test_c_entry_points_take_what_the_wrappers_pass(monkeypatch, entry):
     sig = re.search(r"\nint " + entry + r"\(([^)]*)\)", src)
     assert sig, entry
     assert len(sig.group(1).split(",")) == len(getattr(fake, entry).argtypes)
+
+
+# -- launch sizing (no card needed) -----------------------------------------
+
+# the layouts csrc/layer_norm.cu builds for every dtype (`fwd_kernel`,
+# `bwd_kernel`): (vectors a lane, warps a row, stages)
+BF16, F32 = torch.bfloat16, torch.float32
+BUILT = {False: {(1, 1, 3), (2, 1, 3), (4, 1, 3), (4, 2, 3), (4, 4, 2),
+                 (4, 8, 2), (4, 16, 1)},
+         True: {(1, 1, 3), (2, 1, 3), (2, 2, 3), (2, 4, 3), (2, 8, 2),
+                (2, 16, 2), (4, 16, 0)}}
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_row_layout_holds_every_width_in_a_built_kernel(backward):
+    """Every C up to the widest takes a built layout whose warps cover
+    the row, with the fewest warps and then the fewest vectors a lane;
+    only rows wider than 8192 go unheld, and only in the backward."""
+    for C in list(range(1, 2049)) + [2049, 3000, 4096, 4097, 8191, 8192,
+                                     8193, 12000, 16383, 16384]:
+        layout = ln.row_layout(C, backward)
+        vpl, wpr, stages = layout
+        assert layout in BUILT[backward], (C, layout)
+        assert 256 * vpl * wpr >= C, C
+        assert (stages == 0) == (backward and C > 8192), C
+        if stages and vpl > 1:
+            assert 256 * (vpl // 2) * wpr < C, C  # fewest vectors
+    # the training widths, bf16
+    assert ln.row_layout(1024, False) == (4, 1, 3)
+    assert ln.row_layout(2048, False) == (4, 2, 3)
+    assert ln.row_layout(1024, True) == (2, 2, 3)
+    assert ln.row_layout(2048, True) == (2, 4, 3)
+
+
+@pytest.mark.parametrize("R,groups,max_blocks", [
+    (8192, 4, 924), (8192, 2, 792), (4096, 1, 528), (1, 4, 924),
+    (3, 2, 132), (300, 4, 924), (1000, 16, 132), (2**31 - 1, 4, 1056),
+    (257, 1, 257), (258, 1, 257)])
+def test_strips_cover_every_row_once(R, groups, max_blocks):
+    rows, blocks = ln.strips(R, groups, max_blocks)
+    assert rows % groups == 0 and 1 <= blocks <= max_blocks
+    assert (blocks - 1) * rows < R <= blocks * rows  # none empty, all held
+    if R < 10**6:
+        covered = np.zeros(R, np.int64)
+        for k in range(blocks):  # block k's group g: rows g, g + G, ...
+            for g in range(groups):
+                covered[k * rows + g:min(R, (k + 1) * rows):groups] += 1
+        assert (covered == 1).all()
+    # the rows spread evenly: a group takes at most one row more than
+    # the mean over all the groups the grid could hold
+    assert rows // groups <= -(-R // (groups * max_blocks))
+
+
+def test_plan_sizes_the_grid_by_occupancy(monkeypatch):
+    """The plan takes the card's SMs and the measured blocks an SM (the
+    library's occupancy query), sized once per shape; the knobs
+    override the occupancy."""
+    asked = []
+
+    class Lib:
+        def layer_norm_blocks_per_sm(self, *args):
+            asked.append(args)
+            return 6
+
+    monkeypatch.setattr(ln, "_kernels", lambda: Lib())
+    monkeypatch.setattr(ln, "sm_count", lambda index: 132)
+    ln._plan.cache_clear()
+    try:
+        p = ln._plan(0, 8192, 1024, BF16, BF16, True)
+        assert (p.vpl, p.wpr, p.stages, p.threads) == (2, 2, 3, 256)
+        assert asked == [(1, 2, 2, 3, 256, 1024, 1, 1)]
+        assert p.blocks * p.rows >= 8192 and p.blocks <= 132 * 6
+        assert ln._plan(0, 8192, 1024, BF16, BF16, True) == p
+        assert len(asked) == 1                        # cached
+        f = ln._plan(0, 4096, 16384, F32, F32, False)  # 16 warps a row
+        assert (f.vpl, f.wpr, f.threads) == (4, 16, 512)
+        assert f.rows == -(-4096 // (132 * 6))        # one group a block
+        assert f.blocks == -(-4096 // f.rows)
+        monkeypatch.setattr(ln, "FWD_BLOCKS_PER_SM", 64)
+        ln._plan.cache_clear()
+        g = ln._plan(0, 8192, 1024, BF16, BF16, False)
+        assert (g.rows, g.blocks) == (8, 1024)        # a row a group
+        assert len(asked) == 2
+    finally:
+        ln._plan.cache_clear()
 
 
 # -- the route ---------------------------------------------------------------
