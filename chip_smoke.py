@@ -11,10 +11,12 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    source, all started together), timed, with each kernel's registers
    and spills (each flash kernel at head_dim 64 and 128, the paged
    kernels at each head dim and q rows a CUDA-core unit, the LayerNorm
-   kernels at the layouts GPT-medium's and GPT-1.3B's widths take; the
-   other LayerNorm layouts summed up on one line); a tensor-core kernel
-   (a name with "_tc_kernel") or a main-path LayerNorm layout that
-   spills fails the run;
+   kernels at the layouts GPT-medium's and GPT-1.3B's widths take, the
+   selective scan at each tokens a thread; the other LayerNorm layouts
+   summed up on one line); a tensor-core kernel (a name with
+   "_tc_kernel"), a main-path LayerNorm layout or a main-path scan
+   kernel (the served steps', the full forward's) that spills fails the
+   run;
 3. the ragged paged-attention kernel against its plain PyTorch twin at
    serving shapes (16 heads, head_dim 64, page 16), in bfloat16 and
    float32: pure decode, a prefill chunk mixed with decode rows, pad
@@ -138,12 +140,15 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
 12. the selective-scan kernel (#11) against its plain twin at serving
    shapes (D 1536, N 16, float32): pure decode (T 8, R 8), a 128-token
    chunk with 7 decode rows (T 256), pads on row 0 with dt = 0,
-   interleaved rows. y and the final states within rtol 1e-5, atol
-   1e-5 (the atol scaled by the tensor's largest entry where that is
-   below 1); rows that only pads touch keep their state bit for bit; per
-   shape the kernel's time, the twin's, the byte bound and the floor of
-   the chain of T dependent updates (no PyTorch call computes a
-   selective scan: library "none");
+   interleaved rows, and the full causal forward of Mamba-130M's width
+   (4 rows x 1024 contiguous tokens: T 4096, R 4). y and the final
+   states within rtol 1e-5, atol 1e-5 (the atol scaled by the tensor's
+   largest entry where that is below 1); rows that only pads touch keep
+   their state bit for bit; per shape the kernel's time, the twin's, the
+   byte bound and the longest row's tokens (pads included: the length
+   of the longest scan; no PyTorch call computes a selective scan:
+   library "none"), beside the floor of the timing method (an empty
+   kernel timed the same way);
 13. a Mamba-130M-shaped SSM (SSMConfig at state-spaces/mamba-130m's
    published shape: vocab 50304, d_model 768, 24 layers, d_state 16,
    d_conv 4, expand 2; 129,191,424 parameters) in bfloat16, weights
@@ -236,7 +241,7 @@ def kernel_label(ptxas_line):
         return name
     args, at = [], end + 1
     ints = ("VPL", "WPR", "STAGES") if name.startswith("ln_") \
-        else ("D", "rows")
+        else ("L",) if name.startswith("ssm_") else ("D", "rows")
     while (m := _TEMPLATE_ARG.match(mangled, at)):
         if m.group(1):  # the first int a head dim, the second q rows
             args.append(f"{ints[0]}={m.group(1)}")
@@ -259,11 +264,22 @@ def ln_main_labels(lk):
     return out
 
 
-def phase_registers(logs, ln_main):
+def scan_main_labels(sk):
+    """Labels of the selective-scan kernels the main paths launch: the
+    served decode step (T 8: the decode kernel), the mixed one (T 256)
+    and the full forward of 4 x 1024 tokens at Mamba-130M's width (D
+    1536, N 16)."""
+    return {"ssm_decode_kernel"} | {
+        f"ssm_scan_kernel<L={sk.scan_tiling(T, 1536, 16).tokens}>"
+        for T in (256, 4096)}
+
+
+def phase_registers(logs, ln_main, scan_main):
     """Each kernel's registers and spills from the build logs. A
-    tensor-core kernel ("_tc_kernel") or a LayerNorm kernel of the main
-    paths (ln_main) that spills fails the run; the other LayerNorm
-    layouts are summed up on one line."""
+    tensor-core kernel ("_tc_kernel"), a LayerNorm kernel of the main
+    paths (ln_main) or a selective-scan kernel of theirs (scan_main)
+    that spills fails the run; the other LayerNorm layouts are summed up
+    on one line."""
     seen, ln_other = set(), {}
     for lib, log in sorted(logs.items()):
         label, quiet = None, False
@@ -280,13 +296,15 @@ def phase_registers(logs, ln_main):
                 else:
                     print("     ", line.strip())
                 # the tensor-core kernels keep every accumulator in
-                # registers, the LayerNorm kernels a row: a spill would
-                # put them in local memory
+                # registers, the LayerNorm kernels a row, the scan its
+                # tokens' terms: a spill would put them in local memory
                 check(("_tc_kernel" not in (label or "")
-                       and label not in ln_main) or "spill" not in line
+                       and label not in ln_main | scan_main)
+                      or "spill" not in line
                       or " 0 bytes spill stores, 0 bytes spill loads"
                       in line, f"{label} spills: {line.strip()}")
     check(ln_main <= seen, f"LayerNorm kernels not built: {ln_main - seen}")
+    check(scan_main <= seen, f"scan kernels not built: {scan_main - seen}")
     regs = [int(m.group(1)) for lines in ln_other.values() for line in lines
             if (m := re.search(r"Used (\d+) registers", line))]
     spilling = sorted(k for k, lines in ln_other.items()
@@ -1990,16 +2008,6 @@ SCAN_RTOL = SCAN_ATOL = 1e-5
 SSM_AGREE_STD = 0.5
 SSM_STATE_RTOL = 1e-3
 SCAN_OPS = 7      # float32 operations per state element per token
-FMA_CYCLES = 4    # latency of the one dependent update in the chain
-
-
-def sm_clock_hz():
-    """The card's maximum SM clock, as nvidia-smi reports it."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def scan_bound(T, D, N, R):
@@ -2013,14 +2021,14 @@ def scan_bound(T, D, N, R):
                                        else "operations")
 
 
-def hold_scan(torch, sk, flush, args, label, clock_hz, pad_rows=()):
+def hold_scan(torch, sk, flush, args, label, pad_rows=()):
     """Kernel #11 against its twin on args (x, dt, b, c, a, h0,
     token_seq): y and h_out within SCAN_RTOL/SCAN_ATOL, the absolute
     floor scaled down to the tensor's size where its largest entry is
     below 1 (served steps at the reference's init carry |y| ~ 1e-6,
     below a fixed 1e-5), the rows in pad_rows (only pads, or nothing,
     touch them) bit-equal to h0; times of both, the byte bound and the
-    chain floor. Returns the measurements."""
+    longest row's tokens. Returns the measurements."""
     y, h = sk.ssm_scan(*args)
     torch.cuda.synchronize()
     want_y, want_h = sk.selective_scan_reference(*args)
@@ -2045,18 +2053,18 @@ def hold_scan(torch, sk, flush, args, label, clock_hz, pad_rows=()):
     plain_ms = cuda_ms(torch, lambda: sk.selective_scan_reference(*args), 3,
                        flush)
     bound_ms, bound_by = scan_bound(T, D, N, R)
-    chain_ms = T * FMA_CYCLES / clock_hz * 1e3
+    longest = int(torch.bincount(seq.long().clamp_min(-1) + 1).max())
     live = int((args[1] != 0).any(dim=1).sum())
     res = dict(label=label, tokens=T, live=live, rows=R,
                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-               chain_ms=chain_ms)
+               longest=longest)
     print(f"  {label:30s} T={T:4d} live={live:4d} R={R} err y {errs[0]:.3g} "
           f"(max|y| {peaks[0]:.3g}) h {errs[1]:.3g} (max|h| {peaks[1]:.3g}) "
           f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
           f"library=none bound={bound_ms:.5f}ms ({bound_by}) "
-          f"bound/kernel={bound_ms / ms:.4f} chain floor={chain_ms:.5f}ms "
-          f"({T} x {FMA_CYCLES} cycles)", flush=True)
+          f"bound/kernel={bound_ms / ms:.4f} longest row={longest} "
+          f"tokens", flush=True)
     return res
 
 
@@ -2076,8 +2084,9 @@ def scan_inputs(torch, rows, pads, R, rng, D=1536, N=16):
                                              device="cuda")]
 
 
-def phase_scan(torch, sk, flush, clock_hz):
-    """#11 against its twin at serving shapes (D 1536, N 16, f32)."""
+def phase_scan(torch, sk, flush):
+    """#11 against its twin at serving shapes (D 1536, N 16, f32) and at
+    the full causal forward of 4 rows x 1024 tokens."""
     rng = np.random.default_rng(SEED + 11)
     chunk = [0] * 128 + list(range(1, 8))
     cases = [
@@ -2088,12 +2097,13 @@ def phase_scan(torch, sk, flush, clock_hz):
          (0, 4, 5, 6, 7)),
         ("interleaved rows + 16 pads", [1, 1, 2, 1, 2, 2, 1, 2] * 2
          + [0] * 16, range(16, 32), 3, (0,)),
+        ("full forward, 4 x 1024", [r for r in range(4) for _ in
+                                    range(1024)], (), 4, ()),
     ]
     out = []
     for label, rows, pads, R, pad_rows in cases:
         args = scan_inputs(torch, rows, pads, R, rng)
-        out.append(hold_scan(torch, sk, flush, args, label, clock_hz,
-                             pad_rows))
+        out.append(hold_scan(torch, sk, flush, args, label, pad_rows))
     return out
 
 
@@ -2123,7 +2133,7 @@ def ssm_numpy_state(model, seed):
     return state
 
 
-def phase_ssm_serve(torch, sk, flush, clock_hz, km, smods):
+def phase_ssm_serve(torch, sk, flush, km, smods):
     """Mamba-130M-shaped SSM serving in bf16, the main path of this
     slice: counts set to 0 just before and read just after. Then a
     profiled replay that records layer 0's kernel inputs in the fullest
@@ -2214,7 +2224,7 @@ def phase_ssm_serve(torch, sk, flush, clock_hz, km, smods):
                         "scan kernel")
     check(set(best) == {"decode", "mixed"}, f"recorded {sorted(best)}")
     held = {kind: hold_scan(torch, sk, flush, best[kind][1],
-                            f"served {kind} step, layer 0", clock_hz,
+                            f"served {kind} step, layer 0",
                             best[kind][2])
             for kind in ("decode", "mixed")}
     del model
@@ -2334,7 +2344,7 @@ def main():
     t = time.perf_counter()
     logs = _build.build()
     print(f"[2] built {sorted(logs)} in {time.perf_counter() - t:.1f}s")
-    phase_registers(logs, ln_main_labels(lk))
+    phase_registers(logs, ln_main_labels(lk), scan_main_labels(sk))
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     print("[3] ragged paged attention: kernel vs plain twin", flush=True)
@@ -2390,15 +2400,16 @@ def main():
           flush=True)
     norm_xent = phase_norm_xent(torch, lk, xk, flush)
 
-    clock_hz = sm_clock_hz()
-    print(f"[12] selective scan: kernel vs plain twin (SM clock "
-          f"{clock_hz / 1e6:.0f} MHz for the chain floor)", flush=True)
-    scan_cases = phase_scan(torch, sk, flush, clock_hz)
+    floor_ms = cuda_ms(torch, lambda: torch.cuda._sleep(0), 20, flush)
+    print(f"[12] selective scan: kernel vs plain twin (the timing's floor, "
+          f"an empty kernel timed the same way: {floor_ms:.5f} ms)",
+          flush=True)
+    scan_cases = phase_scan(torch, sk, flush)
 
     print("[13] Mamba-130M-shaped SSM bf16 through GenerationEngine",
           flush=True)
-    scan_launches, scan_held = phase_ssm_serve(torch, sk, flush, clock_hz,
-                                               km, smods)
+    scan_launches, scan_held = phase_ssm_serve(torch, sk, flush, km,
+                                               smods)
 
     print("[14] 2-layer float32 SSM, pure and hybrid: card vs CPU greedy "
           "streams", flush=True)

@@ -25,11 +25,13 @@ interleave; each row's tokens are applied in stream order.
   kernel's math op for op. The CPU tests hold it against the Pallas
   kernel in interpret mode; chip_smoke.py holds the kernel against it
   on the card.
-- `choose_d_block` is the kernel's channel tiling for Hopper.
+- `scan_tiling` is the kernel's tiling for Hopper: channels a block and
+  tokens a thread of a scanned chunk.
 
 Neither package has a backward for the scan: a CUDA call on tensors that
 require grad raises.
 """
+import collections
 import ctypes
 import functools
 
@@ -37,39 +39,63 @@ import torch
 
 from . import _build, current_stream, sm_count
 
-__all__ = ["ssm_scan", "selective_scan_reference", "choose_d_block"]
+__all__ = ["ssm_scan", "selective_scan_reference", "scan_tiling"]
 
-# threads of a kernel block at most; lanes of a channel = N rounded up
-# to a power of two (the kernel's template), at most a warp
-_BLOCK_THREADS = 128
+# d_state at most: a channel's state columns share one warp in the
+# kernel's short-row walk
 _MAX_STATE = 32
+# the kernel's block: threads (its kThreads), channels (a power of two
+# <= 32, so a warp holds whole slices, with channels x the state columns
+# rounded up to a power of two <= threads) and tokens a thread of a
+# scanned chunk (a template of the kernel: 1, 4 or 8)
+BLOCK_THREADS = 128
+MAX_CHANNELS = 8
+MAX_TOKENS = 8
 
 _NO_BACKWARD = (
     "the selective scan has no backward (neither here nor in the "
     "reference, whose Pallas kernel has no VJP): SSM training waits for "
     "one, ROADMAP.md queue A, item 16")
 
+Tiling = collections.namedtuple("Tiling", "channels tokens")
 
-def _lanes(d_state):
-    """Lanes a channel takes in the kernel: d_state rounded up to a power
-    of two."""
-    return 1 << (max(int(d_state), 1) - 1).bit_length()
+# the C entry's parameters: x, dt, b, c, a, h0, token_seq, y, h_out; T,
+# D, N, R, channels, tokens; the stream
+ENTRY_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
 
 
-def choose_d_block(d_inner, d_state, n_sms=132):
-    """Channels per kernel block on Hopper. Each channel takes
-    `_lanes(d_state)` threads (one per state column, a power of two up
-    to a warp) and a block at most 128 threads (4 warps). The scan is a
-    chain of T dependent updates per thread, so its time does not fall
-    with more threads per channel; what helps is spreading the channels
-    over the card: the block is halved, down to one warp, while the grid
-    would have fewer than two blocks per SM. The block's shared memory
-    (row states, staged token tiles) grows with it and stays small."""
-    lanes = _lanes(d_state)
-    db = max(_BLOCK_THREADS // lanes, 1)
-    while db * lanes > 32 and -(-int(d_inner) // db) < 2 * int(n_sms):
-        db //= 2
-    return db
+def _pow2_at_least(n):
+    return 1 << (max(int(n), 1) - 1).bit_length()
+
+
+def scan_tiling(T, D, N=16, n_sms=132):
+    """The kernel's tiling on Hopper for T tokens at width D, d_state N:
+    a Tiling(channels, tokens). A block has BLOCK_THREADS threads,
+    slices = threads / channels along time.
+
+    - channels: a block takes one row and `channels` channels (a grid of
+      (R + 1) x ceil(D / channels) blocks; a stream of at most 8 tokens
+      runs the kernel's decode path, ceil(R / G) x ceil(D / channels)
+      blocks of channels x lanes threads, G rows a block, the kernel's
+      kMaxGroup): the largest power of two up to MAX_CHANNELS that gives
+      a row at least one block an SM, so a long row is spread over the
+      whole card, and fits the short-row walk's (channel, column) pairs
+      in a block.
+    - tokens: the consecutive tokens a thread of a scanned chunk holds
+      (the kernel's template L: 1, 4 or 8): the smallest with which the
+      slices cover T at once, at most MAX_TOKENS; a longer row walks
+      chunks of slices x tokens, its state carried between them."""
+    lanes = _pow2_at_least(N)
+    channels = MAX_CHANNELS
+    while channels > 1 and (-(-int(D) // channels) < int(n_sms)
+                            or channels * lanes > BLOCK_THREADS):
+        channels //= 2
+    slices = BLOCK_THREADS // channels
+    need = -(-max(int(T), 1) // slices)
+    tokens = 1 if need == 1 else min(max(_pow2_at_least(need), 4),
+                                     MAX_TOKENS)
+    return Tiling(channels, tokens)
 
 
 # -- plain twin -----------------------------------------------------------
@@ -127,19 +153,18 @@ def _check(x, dt, b, c, a, h0, token_seq):
 
 @functools.cache
 def _kernel():
-    """(the kernel's ctypes entry, its rows-limit entry), built and
-    loaded at first use, then kept."""
+    """The kernel's ctypes entry, built and loaded at first use, then
+    kept."""
     lib = _build.load("ssm_scan")
     fn = lib.ssm_scan
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+    fn.argtypes = ENTRY_ARGTYPES
     fn.restype = ctypes.c_int
-    lib.ssm_scan_max_rows.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.ssm_scan_max_rows.restype = ctypes.c_int
-    return fn, lib.ssm_scan_max_rows
+    return fn
 
 
-def _launch(x, dt, b, c, a, h0, token_seq):
+def _launch(x, dt, b, c, a, h0, token_seq, tiling=None):
+    """Launch the kernel; `tiling` (a Tiling) overrides scan_tiling's
+    (for tools/kernel_ab.py)."""
     T, D = x.shape
     R, _, N = h0.shape
     tensors = (("x", x), ("dt", dt), ("b", b), ("c", c), ("a", a),
@@ -150,24 +175,21 @@ def _launch(x, dt, b, c, a, h0, token_seq):
                         f"scans in float32), got {', '.join(bad)}")
     if N > _MAX_STATE:
         raise ValueError(f"d_state {N} > {_MAX_STATE}: the kernel gives a "
-                         "channel at most one warp")
+                         "channel's state columns at most one warp")
     for name, t in tensors + (("token_seq", token_seq),):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     stream = current_stream(x.device)
-    fn, max_rows = _kernel()
-    db = choose_d_block(D, N, sm_count(x.device.index))
-    if R > max_rows(db, N):
-        raise ValueError(f"{R} state rows do not fit one block's shared "
-                         f"memory (at most {max_rows(db, N)} at d_state "
-                         f"{N})")
+    fn = _kernel()
+    tl = tiling or scan_tiling(T, D, N, sm_count(x.device.index))
     y = torch.empty(T, D, dtype=torch.float32, device=x.device)
     h_out = torch.empty_like(h0)
     if T == 0 or R == 0 or D == 0:
         return y, h_out.copy_(h0)
     err = fn(x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
              a.data_ptr(), h0.data_ptr(), token_seq.data_ptr(),
-             y.data_ptr(), h_out.data_ptr(), T, D, N, R, db, stream)
+             y.data_ptr(), h_out.data_ptr(), T, D, N, R, tl.channels,
+             tl.tokens, stream)
     if err:
         raise RuntimeError(f"ssm_scan kernel launch failed: cudaError {err}")
     ssm_scan.launches += 1

@@ -1,8 +1,9 @@
 """A/B timings of kernel design choices, on one CUDA card.
 
-    python3 -m paddle_tpu_torch.tools.kernel_ab [pass1] [policy] [ln]
+    python3 -m paddle_tpu_torch.tools.kernel_ab [pass1] [policy] [ln] [ssm]
+        [--against DIR]
 
-Run from the root of a checkout; with no argument it runs all three.
+Run from the root of a checkout; with no mode it runs all four.
 
 - pass1: fused pass 1 (kernel #9, csrc/fused_update.cu) built with 2, 4,
   8 and 16 16-byte vectors a thread (its kUnroll1), each on GPT-medium's
@@ -30,6 +31,29 @@ Run from the root of a checkout; with no argument it runs all three.
   layouts again, built with kMinBlocks (blocks an SM the compiler keeps
   registers for) at 2 and 3 instead of 1, and with the finalize launched
   plainly instead of as a programmatic dependent.
+- ssm: the selective scan (kernel #11, csrc/ssm_scan.cu, float32, D 1536,
+  N 16) at the served decode step (8 rows of one token), the served mixed
+  step (a 128-token chunk on row 0, 7 decode rows, 121 pads on row 0;
+  and with the chunk on row 3, as the engine lays it out),
+  the full causal forward (4 rows x 1024 tokens) and two chain probes (1
+  row x 1024 tokens; 8 rows x 128): channels a block and tokens a thread
+  (runtime arguments of one build, ops/kernels/ssm_scan.py `Tiling`),
+  and builds under build/ab/ with one source constant changed: threads a
+  block (`kThreads` 256, 2 blocks an SM), registers for 1 and 4 blocks an SM
+  (`kMinBlocks`; 3 as built), state columns a scan pass (`kCols` 2, 8),
+  expf in place of ex2 (`kFastExp`), rows a decode block (`kMaxGroup` 1,
+  4, 8; 2 as built; the decode step only); and a build that takes the
+  rows sorted on the host (`ssm_host_order`) in place of its own gather.
+  Each variant is first held against the plain twin (rtol and atol
+  1e-5), and each build's registers and spills are printed. Each time is
+  taken after the dirty flush and again warm (no flush: the inputs and
+  the kernel's code in L2), beside the floor of the method: an empty
+  kernel (torch.cuda._sleep(0)) timed the same way. With --against DIR
+  (a checkout of another commit), the public wrapper `ssm_scan` of DIR
+  and of this checkout are timed at the same layouts (cold and warm) in
+  separate processes, in turns (DIR, this, this, DIR), then phase 13 of
+  each checkout's chip_smoke.py runs once (DIR, this) and its per-step
+  device breakdown and served-step scan times are printed.
 
 Variants are timed in turns (A B C .. C B A), twice; each time is the
 mean of CUDA-event times over 20 launches with the 50 MB L2 flushed and
@@ -38,6 +62,9 @@ the card's name and power limit first. Variant libraries are built
 under build/ab/ (git-ignored).
 """
 import ctypes
+import inspect
+import json
+import os
 import re
 import subprocess
 import sys
@@ -51,6 +78,7 @@ from ..ops.kernels import _build
 from ..ops.kernels import fused_update as fk
 from ..ops.kernels import layer_norm as lk
 from ..ops.kernels import paged_attention as pa
+from ..ops.kernels import ssm_scan as sk
 
 HBM_BYTES_PER_S = 3.35e12
 UNROLLS = (2, 4, 8, 16)
@@ -61,13 +89,16 @@ def cuda_ms(fn, flush, iters=20, clean=False):
     """Mean device ms of fn() over iters calls (L2 flushed, card parked
     on a spin before each so the launch is enqueued before the start).
     The flush writes the 64 MB buffer, leaving the L2 full of dirty lines
-    that fn's misses write back; clean=True reads it instead."""
+    that fn's misses write back; clean=True reads it instead; flush=None
+    flushes nothing (fn finds its inputs and code warm in L2)."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
-        if clean:
+        if flush is None:
+            pass
+        elif clean:
             flush.view(torch.int32).sum()
         else:
             flush.zero_()
@@ -87,32 +118,43 @@ def in_turns(names, rounds=2):
     return (list(names) + list(names)[::-1]) * rounds
 
 
-def build_variants(name, line, values, tag=""):
-    """{value: (library path, build log)} of csrc/<name>.cu with its
-    source line `line` ("constexpr int kX = N;") set to each value, built
-    in parallel under build/ab/ (file names tagged with `tag`)."""
+def build_sources(name, builds, tag=""):
+    """{label: (library path, build log)} of csrc/<name>.cu with each
+    build's {source text: replacement} applied, built in parallel under
+    build/ab/ (file names tagged with `tag`)."""
     src = (_build.SOURCE_DIR / f"{name}.cu").read_text()
-    if line not in src:
-        raise RuntimeError(f"{line!r} is not in csrc/{name}.cu")
     out_dir = _build.BUILD_DIR.parent / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for val in values:
-        path = out_dir / f"{name}_{tag}{val}.cu"
-        path.write_text(src.replace(line, line.rsplit("=", 1)[0]
-                                    + f"= {val};"))
-        lib = out_dir / f"lib{name}_{tag}{val}.so"
-        jobs.append((val, lib, subprocess.Popen(
+    for n, (label, edits) in enumerate(builds.items()):
+        text = src
+        for old, new in edits.items():
+            if old not in src:
+                raise RuntimeError(f"{old!r} is not in csrc/{name}.cu")
+            text = text.replace(old, new)
+        path = out_dir / f"{name}_{tag}{n}.cu"
+        path.write_text(text)
+        lib = out_dir / f"lib{name}_{tag}{n}.so"
+        jobs.append((label, lib, subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I",
              str(_build.SOURCE_DIR), "-o", str(lib), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     out = {}
-    for val, lib, proc in jobs:
+    for label, lib, proc in jobs:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(log)
-        out[val] = (lib, log)
+        out[label] = (lib, log)
     return out
+
+
+def build_variants(name, line, values, tag=""):
+    """{value: (library path, build log)} of csrc/<name>.cu with its
+    source line `line` ("constexpr int kX = N;") set to each value, built
+    in parallel under build/ab/ (file names tagged with `tag`)."""
+    head = line.rsplit("=", 1)[0]
+    return build_sources(name, {val: {line: f"{head}= {val};"}
+                                for val in values}, tag)
 
 
 def build_pass1_variants():
@@ -368,17 +410,267 @@ def ab_ln(flush):
         lk._plan.cache_clear()
 
 
+# the selective scan's layouts: (token rows, pad tokens, state rows R)
+SSM_LAYOUTS = {
+    "decode, 8 rows": (list(range(8)), (), 8),
+    "mixed: chunk 128 + 7 decode": ([0] * 128 + list(range(1, 8))
+                                    + [0] * 121, range(135, 256), 8),
+    # as the engine lays out a mixed step: the chunk on row 3, pads on
+    # row 0, which has one decode token
+    "mixed: chunk on row 3": ([3] * 128 + [0, 1, 2, 4, 5, 6, 7]
+                              + [0] * 121, range(135, 256), 8),
+    "full forward 4 x 1024": ([r for r in range(4) for _ in range(1024)],
+                              (), 4),
+    "chain probe 1 x 1024": ([0] * 1024, (), 1),
+    "chain probe 8 x 128": ([r for r in range(8) for _ in range(128)], (),
+                            8),
+}
+SSM_D, SSM_N = 1536, 16
+# builds of csrc/ssm_scan.cu under build/ab/: {label: {source text: its
+# replacement}}, each replacement present in the source
+SSM_BUILDS = {
+    "kThreads 256": {"constexpr int kThreads = 128;":
+                     "constexpr int kThreads = 256;",
+                     "constexpr int kMinBlocks = 3;":
+                     "constexpr int kMinBlocks = 2;"},
+    **{f"kMinBlocks {m}": {"constexpr int kMinBlocks = 3;":
+                           f"constexpr int kMinBlocks = {m};"}
+       for m in (1, 4)},
+    **{f"kCols {c}": {"constexpr int kCols = 4;":
+                      f"constexpr int kCols = {c};"} for c in (2, 8)},
+    "expf": {"constexpr int kFastExp = 1;": "constexpr int kFastExp = 0;"},
+    **{f"kMaxGroup {g}": {"constexpr int kMaxGroup = 2;":
+                          f"constexpr int kMaxGroup = {g};"}
+       for g in (1, 4, 8)},
+    # the rows sorted on the host: token_seq's pointer carries [order
+    # (T) | starts (R + 2)] (ssm_host_order), each block copies its run
+    # through the gather's compaction, every entry a hit; no decode kernel
+    "host order": {
+        "k.pos = k.have = 0;": "k.pos = __ldg(seq + T + k.row); "
+                               "k.T = __ldg(seq + T + k.row + 1); "
+                               "k.have = 0;",
+        "of_row(v[j], k.row, k.R)": "true",
+        "k.list[at++] = base + j;": "k.list[at++] = v[j];",
+        "if (T <= kBatch) {": "if (false) {"},
+}
+# (build, tiling (channels, tokens) or None for scan_tiling's, layouts:
+# None for all)
+SSM_VARIANTS = [
+    ("as built", None, None), ("as built", sk.Tiling(8, 4), None),
+    ("as built", sk.Tiling(4, 8), None), ("as built", sk.Tiling(4, 4), None),
+    ("kThreads 256", sk.Tiling(8, 4), None),
+    ("kThreads 256", sk.Tiling(8, 8), None),
+    ("kThreads 256", sk.Tiling(16, 8), None),
+    ("kMinBlocks 1", None, None), ("kMinBlocks 4", None, None),
+    ("kMinBlocks 4", sk.Tiling(8, 4), None), ("kCols 2", None, None),
+    ("kCols 8", None, None), ("kCols 8", sk.Tiling(8, 4), None),
+    ("expf", None, None), ("host order", None, None),
+] + [(f"kMaxGroup {g}", None, ("decode, 8 rows",)) for g in (1, 4, 8)]
+_SSM_KERNEL = re.compile(r"(ssm_decode_kernel|ssm_scan_kernelILi(\d+)E)")
+
+
+def ssm_inputs(rows, pads, R, seed=0):
+    """Kernel #11's inputs for token rows `rows` on the card (float32):
+    x, B, C, h0 ~ N(0, 1); dt = softplus(N(-2, 1)), 0 on pads; A =
+    -(1..N), the A_log init."""
+    rng = np.random.default_rng(seed)
+    T, D, N = len(rows), SSM_D, SSM_N
+    dt = np.log1p(np.exp(rng.standard_normal((T, D)) - 2.0))
+    dt[list(pads)] = 0.0
+    arrays = (rng.standard_normal((T, D)), dt, rng.standard_normal((T, N)),
+              rng.standard_normal((T, N)),
+              -np.tile(np.arange(1, N + 1), (D, 1)),
+              rng.standard_normal((R, D, N)))
+    return [torch.from_numpy(np.asarray(a, np.float32)).cuda()
+            for a in arrays] + [torch.tensor(rows, dtype=torch.int32,
+                                             device="cuda")]
+
+
+def ssm_host_order(token_seq, R):
+    """[order | starts] (int32, on token_seq's device) of the tokens
+    sorted stably by row on the host, for the "host order" build: order
+    [T] lists the token indices row by row in stream order, the tokens
+    whose row lies outside [0, R) last; row r's run is order[starts[r]:
+    starts[r + 1]], the outside tokens' order[starts[R]:T]."""
+    seq = token_seq.cpu().numpy().astype(np.int64)
+    key = np.where((seq >= 0) & (seq < R), seq, R)
+    starts = np.zeros(R + 2, np.int64)
+    np.cumsum(np.bincount(key, minlength=R + 1), out=starts[1:])
+    out = np.concatenate([np.argsort(key, kind="stable"), starts])
+    return torch.from_numpy(out.astype(np.int32)).to(token_seq.device)
+
+
+def ssm_resources(log):
+    """{kernel: ptxas's registers / spill lines} of a ssm_scan build
+    log: ssm_scan_kernel<L=tokens a thread> and ssm_decode_kernel."""
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = _SSM_KERNEL.search(line)
+            key = m and (f"ssm_scan_kernel<L={m.group(2)}>" if m.group(2)
+                         else m.group(1))
+        elif key and ("registers" in line or "spill" in line):
+            out[key] = (out.get(key, "") + " " + line.strip()).strip()
+    return out
+
+
+def ab_ssm(flush, against=None):
+    print("selective scan (#11): tilings, builds and row order, float32",
+          flush=True)
+    built = build_sources("ssm_scan", SSM_BUILDS, tag="ssm_")
+    libs = {"as built": sk._kernel()}
+    regs = {"as built": ssm_resources(
+        (_build.BUILD_DIR / "ssm_scan.log").read_text())}
+    for label, (path, log) in built.items():
+        fn = ctypes.CDLL(str(path)).ssm_scan
+        fn.argtypes, fn.restype = sk.ENTRY_ARGTYPES, ctypes.c_int
+        libs[label] = fn
+        regs[label] = ssm_resources(log)
+    for label, r in regs.items():
+        for kernel, line in sorted(r.items()):
+            print(f"  {label}: {kernel}: {line}")
+    floor = [cuda_ms(lambda: torch.cuda._sleep(0), f) for f in (flush, None)]
+    print(f"  the timing's floor, an empty kernel: {floor[0]:.5f} ms, warm "
+          f"{floor[1]:.5f}", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    saved = sk._kernel
+    try:
+        for name, (rows, pads, R) in SSM_LAYOUTS.items():
+            args = ssm_inputs(rows, pads, R)
+            want_y, want_h = sk.selective_scan_reference(*args)
+            host = args[:6] + [ssm_host_order(args[6], R)]
+            T = len(rows)
+            here = [v for v in SSM_VARIANTS if v[2] is None or name in v[2]]
+
+            def call(v):
+                sk._kernel = lambda: libs[v[0]]
+                return sk._launch(*(host if v[0] == "host order" else args),
+                                  tiling=v[1] or sk.scan_tiling(
+                                      T, SSM_D, SSM_N, sms))
+
+            for v in here:  # right before timed
+                y, h = call(v)
+                for got, want in ((y, want_y), (h, want_h)):
+                    over = (got - want).abs() > 1e-5 + 1e-5 * want.abs()
+                    if bool(over.any()):
+                        raise RuntimeError(f"ssm {name} {v}: "
+                                           f"{int(over.sum())} elements "
+                                           "beyond rtol/atol 1e-5")
+            runs = {}
+            for i in in_turns(range(len(here))):
+                runs.setdefault(i, []).append(
+                    [cuda_ms(lambda: call(here[i]), f)
+                     for f in (flush, None)])
+            moved = 4 * (3 * T * SSM_D + 2 * T * SSM_N + SSM_D * SSM_N
+                         + 2 * R * SSM_D * SSM_N + T)
+            print(f"  {name}: T {T}, R {R}; byte bound "
+                  f"{moved / HBM_BYTES_PER_S * 1e3:.5f} ms", flush=True)
+            for i, times in runs.items():
+                lib, tl = here[i][0], here[i][1]
+                tl = tl or sk.scan_tiling(T, SSM_D, SSM_N, sms)
+                cold, warm = np.mean(times, axis=0)
+                print(f"    {lib}: channels {tl.channels} tokens "
+                      f"{tl.tokens}: {cold:.5f} ms (turns "
+                      f"{[round(t[0], 5) for t in times]}), warm "
+                      f"{warm:.5f} (turns {[round(t[1], 5) for t in times]})",
+                      flush=True)
+    finally:
+        sk._kernel = saved
+    if against:
+        ab_ssm_against(against)
+
+
+def _run_in(root, code):
+    """stdout of `python -c code` started in checkout `root`."""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"in {root}: {proc.stdout[-2000:]}"
+                           f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+# phase 13 of a checkout's chip_smoke.py (Mamba-130M-shaped SSM serving,
+# bf16): its per-step breakdown and its served steps' layer-0 scan times
+SSM_STEP_CODE = """
+import inspect, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from paddle_tpu_torch.inference import GenerationEngine
+from paddle_tpu_torch.models import SSMConfig, SSMForCausalLM
+from paddle_tpu_torch.models import load_paddle_tpu_state
+from paddle_tpu_torch.models import ssm as ssm_mod
+from paddle_tpu_torch.ops.kernels import (flash_attention, fused_update,
+    layer_norm, paged_attention, softmax_xent, ssm_scan)
+km = (flash_attention, paged_attention, fused_update, layer_norm,
+      softmax_xent, ssm_scan)
+smods = (GenerationEngine, SSMConfig, SSMForCausalLM,
+         load_paddle_tpu_state, ssm_mod)
+flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+extra = ([cs.sm_clock_hz()] if "clock_hz" in
+         inspect.signature(cs.phase_ssm_serve).parameters else [])
+cs.phase_ssm_serve(torch, ssm_scan, flush, *extra, km, smods)
+"""
+
+
+def ab_ssm_against(root):
+    """Time the public wrapper `ssm_scan` of checkout `root` and of this
+    one at SSM_LAYOUTS, each in a process of its own started in the
+    checkout (so that it imports and builds that checkout's package), in
+    turns (root, this, this, root); the same inputs and timer serve both:
+    their source is handed to each process. Then phase 13 of each
+    checkout's chip_smoke.py (root, this), for the scan's device time in
+    the profiled served step."""
+    here = os.getcwd()
+    code = "\n".join([
+        "import json", "import numpy as np", "import torch",
+        "from paddle_tpu_torch.ops.kernels import ssm_scan as sk",
+        f"SSM_D, SSM_N = {SSM_D}, {SSM_N}",
+        inspect.getsource(ssm_inputs), inspect.getsource(cuda_ms),
+        "flush = torch.empty(64 << 20, dtype=torch.uint8, device='cuda')",
+        "out = {}",
+        f"for name, (rows, pads, R) in {SSM_LAYOUTS!r}.items():",
+        "    args = ssm_inputs(rows, pads, R)",
+        "    fn = lambda: sk.ssm_scan(*args)",
+        "    out[name] = [cuda_ms(fn, flush), cuda_ms(fn, None)]",
+        "print(json.dumps(out))"])
+    res = {}
+    for who in (root, here, here, root):
+        res.setdefault(who, []).append(json.loads(
+            _run_in(who, code).strip().splitlines()[-1]))
+    for who, runs in res.items():
+        label = "this checkout" if who == here else who
+        for name in SSM_LAYOUTS:
+            times = [r[name] for r in runs]
+            cold, warm = np.mean(times, axis=0)
+            print(f"  wrapper of {label}: {name}: {cold:.5f} ms (turns "
+                  f"{[round(t[0], 5) for t in times]}), warm {warm:.5f} "
+                  f"(turns {[round(t[1], 5) for t in times]})", flush=True)
+    for who in (root, here):
+        label = "this checkout" if who == here else who
+        for line in _run_in(who, SSM_STEP_CODE).splitlines():
+            if "per step" in line or "ms/step" in line or "layer 0" in line:
+                print(f"  phase 13 of {label}: {line.strip()}", flush=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("kernel_ab needs a CUDA card", file=sys.stderr)
         return 1
+    against = None
+    if "--against" in argv:
+        at = argv.index("--against")
+        against = os.path.abspath(argv[at + 1])
+        argv = argv[:at] + argv[at + 2:]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    which = set(argv) or {"pass1", "policy", "ln"}
-    _build.build(["paged_attention", "fused_update", "layer_norm"])
+    which = set(argv) or {"pass1", "policy", "ln", "ssm"}
+    _build.build(["paged_attention", "fused_update", "layer_norm",
+                  "ssm_scan"])
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     if "pass1" in which:
         ab_pass1(flush)
@@ -386,6 +678,8 @@ def main(argv):
         ab_policy(flush)
     if "ln" in which:
         ab_ln(flush)
+    if "ssm" in which:
+        ab_ssm(flush, against)
     return 0
 
 

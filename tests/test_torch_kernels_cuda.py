@@ -62,11 +62,18 @@ library cannot be loaded, a CUDA tensor raises.
 
 The selective scan (kernel #11) against its twin at serving widths
 (D = 1536, N = 16, float32) and at odd ones (a width no block divides,
-N = 8 and 5, one row): pure decode, a 128-token chunk among decode rows,
-pads on row 0, interleaved rows. y and the final states within rtol
-1e-5, atol 1e-5, the reference's own kernel-against-oracle tolerance
-(float32 sums over N in another order, nvcc's fused multiply-adds); a
-row that only pads touch, or none, keeps its state bit for bit. A CUDA
+N = 8 and 5, one row): pure decode, a 128-token chunk among decode rows
+(also with one token on a row outside [0, R), and with the chunk on row
+3 and pads after row 0's one token), pads on row 0,
+interleaved rows, one 1100-token row (several scanned chunks, the state
+carried between them), a full forward of 4 rows x 256 tokens, 64 decode
+rows, and streams of at most 8 tokens (the decode kernel) over 16 rows,
+most untouched, and with one token on a row outside [0, R), and
+tokens outside [0, R) past the first 1024 of a stream. y and the final
+states within rtol 1e-5, atol 1e-5, the reference's own
+kernel-against-oracle tolerance (float32 sums over N in another order,
+nvcc's fused multiply-adds); a row that only pads touch, or none, keeps
+its state bit for bit. A CUDA
 call on tensors that require grad, or on other dtypes, raises.
 """
 import numpy as np
@@ -853,12 +860,34 @@ def _scan_case(name, rng):
             list(range(32, 40))
     if name == "n8":
         return 102, 8, 4, list(rng.randint(0, 4, 40)), []
+    if name == "long_row":  # one row longer than a scanned chunk
+        return 1536, 16, 1, [0] * 1100, []
+    if name == "full_forward":  # 4 rows x 256 contiguous tokens
+        return 1536, 16, 4, [r for r in range(4) for _ in range(256)], []
+    if name == "r64":    # 64 decode rows, beyond the old kernel's row limit
+        return 1536, 16, 64, list(range(64)), []
+    if name == "mixed_outside":  # the served layout, one token on row 9
+        return 1536, 16, 8, [0] * 128 + list(range(1, 7)) + [9] \
+            + [0] * 121, list(range(135, 256))
+    if name == "decode_r16":  # 5 decode rows among 16, pads on row 0
+        return 1536, 16, 16, [1, 3, 9, 12, 14, 0, 0, 0], [5, 6, 7]
+    if name == "decode_outside":  # 7 decode rows and one on row 9
+        return 1536, 16, 8, [0, 1, 2, 3, 4, 5, 6, 9], []
+    if name == "mixed_row3":  # the chunk on row 3; row 0: 1 token, pads
+        return 1536, 16, 8, [3] * 128 + [0, 1, 2, 4, 5, 6, 7] + [0] * 121, \
+            list(range(135, 256))
+    if name == "outside_far":  # rows outside [0, R) past a gather pass
+        return 1536, 16, 2, [0] * 1100 + [5] * 3 + [1] * 180 + [-2] * 17, \
+            list(range(1000, 1100))
     return 37, 5, 1, [0] * 70, list(range(60, 70))  # "n5_one_row"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["decode", "mixed", "pads", "interleaved",
-                                  "n8", "n5_one_row"])
+                                  "n8", "n5_one_row", "long_row",
+                                  "full_forward", "r64", "mixed_outside",
+                                  "decode_r16", "decode_outside",
+                                  "outside_far", "mixed_row3"])
 def test_ssm_scan_matches_twin_on_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
