@@ -23,9 +23,12 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    tokens, grouped-query fold 4, a lone 1023-token decode row (split
    across blocks) and the chunk with decode rows at head_dim 128.
    Outputs within tolerance, work counters equal, pad rows exactly 0,
-   and the same bits with the schedule shipped as with the one the
-   wrapper builds; per shape the kernel's time (schedule shipped, as a
-   serving step runs it), the twin's, one PyTorch call's
+   and the same bits and work with the schedule shipped as with the one
+   the wrapper builds, and with that schedule's table padded to the
+   capacity of the call's (tokens, rows, width) signature (the table a
+   captured serving step ships); per shape the kernel's time (capacity
+   table shipped, as a served step runs it; the exact table's beside
+   it), the twin's, one PyTorch call's
    (scaled_dot_product_attention on a dense copy of the same K/V), the
    least time the card could take (bound), the CUDA launches a call
    makes and the schedule's units, split units and splits;
@@ -33,15 +36,26 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    heads) in bfloat16, weights drawn from a numpy seed by the
    reference's init (Normal(0, 0.02), zero biases, unit LayerNorms),
    served by GenerationEngine (1024 pages of 16, max_batch 8, prefill
-   chunk 128): 8 greedy requests of 64 new tokens over prompts of
-   64-640 tokens, two sharing a 128-token prefix (the second arrives
-   after the first is done, so it hits the prefix cache). Every handle
-   must finish with 64 tokens, the kernel must have launched exactly
-   steps x 24 times and no other kernel (#2-#11) at all; the host
-   planner's microseconds a step (the cache's step plan and kernel #1's
-   schedule, both numpy) are summed over the run. Then a replay of the
-   same traffic records real steps' layer-0 kernel inputs (a decode step
-   and a mixed step) and the kernel is held against the twin on them;
+   chunk 128), every step a replay of its signature's CUDA graph: 8
+   greedy requests of 64 new tokens over prompts of 64-640 tokens, two
+   sharing a 128-token prefix (the second arrives after the first is
+   done, so it hits the prefix cache), three times on one engine: wave
+   A untimed (each new signature captured inline: captures, their ms,
+   retraces, TTFT), wave B (the main path: prompts of A's lengths with
+   new tokens; timed) and wave C (the same again, profiled). Every
+   handle must finish with 64 tokens; in wave B the kernel must have
+   launched exactly (replays + captures) x 24 times (a replay launches
+   it once a layer, as does the eager run before a capture) and no
+   other kernel (#2-#11) at all; printed: retraces in wave B, wall and
+   device ms a step, idle share, tokens/s, TTFT, the graphs' memory
+   pool and the peak memory, and the host planner's microseconds a step
+   (the cache's step plan and kernel #1's schedule, both numpy). Then,
+   on the engine's cache, a mixed step (a 128-token chunk and 7 decode
+   rows with histories of 63-699 tokens) and a decode step of 8 rows,
+   each replayed and its body run eagerly on a copy of the pools from
+   before it, with the plan the replay copied in: logits, next tokens
+   and every pool bit-equal. The kernel is held against the twin on
+   layer 0's inputs of those two eager runs;
 5. the same prompts at GPT-medium width with 2 layers in float32, once
    on the card (kernel) and once on the CPU (plain twin): greedy
    streams must be equal; at a mismatch the CPU's top-2 logit gap at
@@ -155,13 +169,14 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    drawn from a numpy seed by the reference's init (Normal(0, 0.02),
    A_log = log(1..16), D = 1, zero biases, unit LayerNorms), served by
    GenerationEngine on a RecurrentStateCache (65 pages: 64 state slots,
-   max_batch 8, prefill chunk 128) over phase 4's prompts: every handle
-   must finish with 64 tokens, the scan must have launched exactly
-   steps x 24 times and no other kernel (#1-#10) at all, and the inert
-   prefix cache must have served no token. Then a replay records a real
-   decode step's and a mixed step's layer-0 scan inputs and the kernel
-   is held against the twin on them (|y| there is ~1e-6, so the scaled
-   atol is what holds it);
+   max_batch 8, prefill chunk 128) through replayed CUDA graphs, in
+   phase 4's three waves: every handle must finish with 64 tokens, in
+   wave B the scan must have launched exactly (replays + captures) x 24
+   times and no other kernel (#1-#10) at all, and the inert prefix cache
+   must have served no token; the same prints as phase 4. Then phase
+   4's replayed mixed and decode steps against their eager bodies, and
+   the kernel held against the twin on their layer-0 scan inputs (|y|
+   there is ~1e-6, so the scaled atol is what holds it);
 14. the same prompts through 2-layer float32 SSMs at that width, pure
    and hybrid (attn_every 2, 12 heads: head_dim 64, so kernels #1 and
    #11 both run), weights of std 0.5 so that the greedy streams vary
@@ -172,11 +187,13 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
 15. the kernels line (each flash kernel twice: head_dim 64 and, with
    the suffix "_d128", 128), then, last, {"ok": true, "device": {...}}.
 
-Each main path (GPT serving in phase 4, training in phase 7's first run
-for kernels #2-#4 and #9-#10, phase 7's third run for #5-#8, GPT-1.3B
-training in phase 7b for #2-#4 at head_dim 128, SSM serving in phase
-13 for #11) runs with the launch counts set to 0 just before it and
-read just after.
+Each main path (GPT serving in phase 4's wave B, training in phase 7's
+first run for kernels #2-#4 and #9-#10, phase 7's third run for #5-#8,
+GPT-1.3B training in phase 7b for #2-#4 at head_dim 128, SSM serving in
+phase 13's wave B for #11) runs with the launch counts set to 0 just
+before it and read just after; a CUDA graph's replay adds the launches
+its capture recorded (the wrappers count launches, and a capture, which
+launches nothing, records them instead).
 Times are CUDA-event times with the 50 MB L2 flushed before each
 launch (by writing a 64 MB buffer), as the serving loop finds it cold
 (each layer has its own pools); the LayerNorm kernels are timed
@@ -420,9 +437,16 @@ def hold(torch, pa, args, flush, label, iters=20):
     sched = schedule_of(torch, pa, args)
     sched.dev = sched.on(q.device)
     shipped = pa.ragged_paged_attention(*args, schedule=sched)
+    cap = schedule_of(torch, pa, args, capacity=True)
+    cap.dev = cap.on(q.device)
+    padded, cap_work = pa.ragged_paged_attention(*args, schedule=cap,
+                                                 return_work=True)
     torch.cuda.synchronize()
     check(torch.equal(out, shipped), f"{label}: a shipped schedule gives "
                                      "other bits")
+    check(torch.equal(out, padded) and torch.equal(work, cap_work),
+          f"{label}: the capacity table gives other bits or work than the "
+          f"exact one")
     want, want_work = pa.ragged_paged_attention_reference(
         *args, return_work=True)
     err = (out.float() - want.float()).abs().max().item()
@@ -436,6 +460,8 @@ def hold(torch, pa, args, flush, label, iters=20):
     check(bool((out[bounds == 0] == 0).all()), f"{label}: pad rows not 0")
     check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite")
     ms = cuda_ms(torch, lambda: pa.ragged_paged_attention(
+        *args, schedule=cap), iters, flush)
+    exact_ms = cuda_ms(torch, lambda: pa.ragged_paged_attention(
         *args, schedule=sched), iters, flush)
     plain_ms = cuda_ms(torch, lambda: pa.ragged_paged_attention_reference(
         *args), 3, flush)
@@ -445,32 +471,39 @@ def hold(torch, pa, args, flush, label, iters=20):
     res = dict(label=label, dtype=dtype, tokens=int(q.shape[0]),
                live=int((bounds > 0).sum()),
                rows=len(set(token_seq[bounds > 0].tolist())),
-               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               max_abs_err=err, ms=ms, exact_ms=exact_ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                launches_per_call=sched.launches,
                split_units=sched.n_split_units,
                splits=splits)
     print(f"  {label:28s} {dtype[6:]:8s} T={res['tokens']:4d} "
           f"live={res['live']:4d} rows={res['rows']} D={q.shape[2]} "
-          f"err={err:.3g} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+          f"err={err:.3g} kernel={ms:.4f}ms (capacity table; exact table "
+          f"{exact_ms:.4f}ms, bit-equal) plain={plain_ms:.4f}ms "
           f"sdpa={library_ms:.4f}ms bound={bound_ms:.4f}ms ({bound_by}) "
           f"bound/kernel={bound_ms / ms:.3f}; CUDA launches/call "
           f"{sched.launches} (tensor-core units {sched.n_tc}, CUDA-core "
           f"blocks {sched.n_cc}, split units {sched.n_split_units} in "
-          f"{splits} splits, pads {sched.n_pad})", flush=True)
+          f"{splits} splits, pads {sched.n_pad}; capacity {cap.n_tc} / "
+          f"{cap.n_cc} / {cap.n_pad}, {cap.launches} launches)", flush=True)
     return res
 
 
-def schedule_of(torch, pa, args):
+def schedule_of(torch, pa, args, capacity=False):
     """The work units the wrapper builds for args (kernel #1's host
-    planner, as the CUDA path runs it without a shipped schedule)."""
+    planner, as the CUDA path runs it without a shipped schedule); with
+    `capacity`, in the table padded to the capacity of args' (tokens,
+    rows, width) signature, as a captured serving step ships it."""
     q, k_pages, _, page_table, token_seq, bounds = args
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fold, kvh = q.shape[1] // k_pages.shape[2], k_pages.shape[2]
+    tensor_cores = q.dtype == torch.bfloat16
+    cap = pa.ragged_capacity(q.shape[0], *page_table.shape, fold, kvh,
+                             tensor_cores, n_sms) if capacity else None
     return pa.ragged_schedule(
         token_seq.cpu().numpy(), bounds.cpu().numpy(), k_pages.shape[1],
-        page_table.shape[1], q.shape[1] // k_pages.shape[2],
-        k_pages.shape[2], q.dtype == torch.bfloat16,
-        n_rows=page_table.shape[0],
-        n_sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        page_table.shape[1], fold, kvh, tensor_cores,
+        n_rows=page_table.shape[0], n_sms=n_sms, capacity=cap)
 
 
 def synthetic(torch, rows, pad_to, fold, dtype, rng, d=D):
@@ -554,26 +587,214 @@ def make_prompts(vocab):
 
 
 def serve(GenerationEngine, model, prompts, engine_kw=SERVE):
-    """The traffic: the first prompt alone (on a paged cache it registers
-    its prefix on finishing), then the other seven at once. Returns
-    (engine, handles, streams, seconds of the second wave, seconds of
-    both)."""
+    """The traffic on a new engine: the first prompt alone (on a paged
+    cache it registers its prefix on finishing), then the other seven at
+    once. Returns (engine, handles, streams, seconds of the second wave,
+    seconds of both)."""
     eng = GenerationEngine(model, **engine_kw)
     try:
-        t_all = time.perf_counter()
-        h0 = eng.submit(prompts[0])
-        streams = [h0.result(timeout=900).tolist()]
-        t0 = time.perf_counter()
-        hs = [eng.submit(p) for p in prompts[1:]]
-        streams += [h.result(timeout=900).tolist() for h in hs]
-        wave_s = time.perf_counter() - t0
-        all_s = time.perf_counter() - t_all
+        handles, streams, wave_s, all_s = traffic(eng, prompts)
     finally:
         eng.shutdown()
-    return eng, [h0] + hs, streams, wave_s, all_s
+    return eng, handles, streams, wave_s, all_s
 
 
-def phase_serve(torch, pa, flush, mods):
+def traffic(eng, prompts):
+    """The first prompt alone, then the other seven at once, on a running
+    engine. Returns (handles, streams, seconds of the seven, seconds of
+    both)."""
+    t_all = time.perf_counter()
+    h0 = eng.submit(prompts[0])
+    streams = [h0.result(timeout=900).tolist()]
+    t0 = time.perf_counter()
+    hs = [eng.submit(p) for p in prompts[1:]]
+    streams += [h.result(timeout=900).tolist() for h in hs]
+    return ([h0] + hs, streams, time.perf_counter() - t0,
+            time.perf_counter() - t_all)
+
+
+def same_shape_prompts(prompts, seed, vocab):
+    """Prompts of the lengths of `prompts` with new tokens, the second
+    again sharing the first's 128-token prefix: the same traffic for the
+    engine's shapes, none of it in the prefix registry yet."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, 128)
+    return [np.concatenate([prefix, rng.integers(0, vocab, p.size - 128)])
+            for p in prompts[:2]] + [rng.integers(0, vocab, p.size)
+                                     for p in prompts[2:]]
+
+
+def graph_stats(torch, cache):
+    """(captured steps, their capture ms summed, bytes of the memory pool
+    the cache's graphs share) of an engine's cache."""
+    state = cache._ragged_graphs
+    steps = [st for st in state.steps.values() if st is not None]
+    pool = tuple(state.pool)
+    pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                     if tuple(seg.get("segment_pool_id", ())) == pool)
+    return len(steps), sum(st.capture_ms for st in steps), pool_bytes
+
+
+def serve_graphs(torch, km, GenerationEngine, model, prompts, engine_kw,
+                 kernel, device_kernel, label):
+    """A model served through replayed CUDA graphs on one engine: wave A
+    (untimed: each new signature captured inline), then wave B, the main
+    path (counts set to 0 just before, read just after; timed), then
+    wave C under the profiler; B and C with prompts of A's lengths and
+    new tokens; `kernel` names the path's wrapper, `device_kernel` the
+    part of its CUDA kernels' names the profile sums. Returns (the
+    running engine, wave B's kernel launches {name: n})."""
+    vocab = model.cfg.vocab_size
+    layers = model.cfg.num_layers
+    eng = GenerationEngine(model, **engine_kw)
+    hA, sA, _, all_a = traffic(eng, prompts)
+    caps, cap_ms, _ = graph_stats(torch, eng.cache)
+    ttft = [h.t_first - h.t_submit for h in hA[1:]]
+    print(f"  wave A (untimed): {eng.steps} steps, {caps} signatures "
+          f"captured inline in {cap_ms:.1f}ms ({cap_ms / max(caps, 1):.1f}ms "
+          f"each; retraces {eng.retraces}), TTFT mean "
+          f"{np.mean(ttft) * 1e3:.1f}ms max {np.max(ttft) * 1e3:.1f}ms, "
+          f"{all_a:.3f}s")
+    check(caps == eng.retraces, f"{caps} captures, retraces {eng.retraces}")
+    before = eng.steps, eng.retraces, eng.kernel_launches
+    zero_counts(km)
+    hB, sB, wave_s, all_s = traffic(
+        eng, same_shape_prompts(prompts, SEED + 2, vocab))
+    launches = counts(km)
+    steps = eng.steps - before[0]
+    retraces = eng.retraces - before[1]
+    n = launches[kernel]
+    check(all(len(st) == NEW_TOKENS for st in sA + sB),
+          f"stream lengths {[len(st) for st in sA + sB]}")
+    check(all(0 <= t < vocab for st in sA + sB for t in st),
+          "token id out of range")
+    # a replay launches the kernel once a layer, and so does the eager
+    # run before each capture of a signature new in this wave
+    check(n > 0 and n == (steps + retraces) * layers
+          and eng.kernel_launches - before[2] == n,
+          f"{kernel} launches {n} (engine {eng.kernel_launches - before[2]}) "
+          f"!= (replays {steps} + captures {retraces}) x {layers}")
+    ttft = [h.t_first - h.t_submit for h in hB[1:]]
+    print(f"  wave B (main path, timed): {steps} steps = {steps} graph "
+          f"replays, retraces {retraces}, {kernel} launches {n} = "
+          f"(replays + captures) x {layers}")
+    print(f"  wave of 7: {7 * NEW_TOKENS / wave_s:.1f} output tokens/s "
+          f"({wave_s:.3f}s, prefill included); TTFT mean "
+          f"{np.mean(ttft) * 1e3:.1f}ms max {np.max(ttft) * 1e3:.1f}ms; "
+          f"wall {all_s / steps * 1e3:.2f}ms a step")
+    s_c = eng.steps
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        traffic(eng, same_shape_prompts(prompts, SEED + 3, vocab))
+    where_the_time_goes(prof, eng.steps - s_c, all_s / steps, device_kernel,
+                        label)
+    caps, cap_ms, pool_bytes = graph_stats(torch, eng.cache)
+    print(f"  graphs: {caps} captured in {cap_ms:.1f}ms over the run; their "
+          f"memory pool {pool_bytes / 2**20:.1f} MiB; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return eng, launches
+
+
+# histories of the decode rows the replay checks build (PERF.md: served
+# decode steps of phase 4 reach ~700 tokens)
+CHECK_HIST = [63, 191, 299, 447, 511, 639, 699]
+
+
+def shadow_cache(cache, pools):
+    """A copy of `cache` over `pools` (in the model's _ragged_pools
+    order): the eager body writes these instead of the cache's."""
+    shadow = copy.copy(cache)
+    it = iter(pools)
+    if hasattr(cache, "k"):
+        n = len(cache.k)
+        shadow.k = [next(it) for _ in range(n)]
+        shadow.v = [next(it) for _ in range(n)]
+    else:
+        n = len(cache.conv)
+        shadow.conv = [next(it) for _ in range(n)]
+        shadow.ssm = [next(it) for _ in range(n)]
+    return shadow
+
+
+def replay_vs_eager(torch, model, cache, rows, n_tokens, width_of, record):
+    """One step of `rows` through the engine's path (a replay of its
+    signature's graph) against the same step's body run eagerly on a copy
+    of the pools taken before it, with the plan the replay copied in:
+    logits, next tokens and every pool bit-equal. `record(shadow)` is a
+    context manager around the eager run (it keeps layer 0's kernel
+    inputs). Returns (T, B, W, pool pages / slots the step wrote)."""
+    before = [t.clone() for t in model._ragged_pools(cache)]
+    B = 8
+    last, nxt = model.paged_ragged_step(cache, rows, pad_to_tokens=n_tokens,
+                                        pad_to_rows=B)
+    after = model._ragged_pools(cache)
+    written = sum(int((a != b).flatten(1).any(dim=1).sum())
+                  for a, b in zip(after, before))
+    W = width_of([s for s, _ in rows])
+    step = model.ragged_graph(cache, n_tokens, B, W)
+    check(step is not None and step.replays > 0,
+          f"signature {(n_tokens, B, W)} was not replayed")
+    host = step.host.copy()
+    shadow = shadow_cache(cache, before)
+    with record(shadow):
+        last2, nxt2 = model.run_ragged_body(shadow, host, n_tokens, B, W)
+    torch.cuda.synchronize()
+    n = len(rows)
+    check(torch.equal(last, last2[:n]) and torch.equal(nxt, nxt2[:n]),
+          f"replayed step (T={n_tokens}, W={W}): logits or tokens differ "
+          f"from the eager body's")
+    eager = model._ragged_pools(shadow)
+    bad = [i for i, (a, b) in enumerate(zip(after, eager))
+           if not torch.equal(a, b)]
+    check(not bad, f"replayed step (T={n_tokens}, W={W}): pools {bad} "
+                   f"differ from the eager body's")
+    return n_tokens, B, W, written
+
+
+def hold_replays(torch, model, cache, width_of, record):
+    """A mixed step (a 128-token chunk and 7 decode rows, histories
+    CHECK_HIST) and a pure decode step of 8 rows, each replayed and held
+    against its eager body (`replay_vs_eager`); the histories are
+    prefilled first, 128 tokens a step. Runs on the engine's cache while
+    the engine is idle; frees its sequences after."""
+    rng = np.random.default_rng(SEED + 4)
+    vocab = model.cfg.vocab_size
+    sids = [f"check{i}" for i in range(8)]
+    with cache.lock:
+        for sid in sids:
+            cache.add_sequence(sid)
+    try:
+        for sid, hist in zip(sids[1:], CHECK_HIST):
+            for done in range(0, hist, 128):
+                k = min(128, hist - done)
+                model.paged_ragged_step(
+                    cache, [(sid, rng.integers(0, vocab, k))],
+                    pad_to_tokens=max(1 << (k - 1).bit_length(), 8),
+                    pad_to_rows=1)
+        one = lambda: rng.integers(0, vocab, 1)  # noqa: E731
+        for kind, rows, T in (
+                ("mixed", [(sids[0], rng.integers(0, vocab, 128))]
+                 + [(sid, one()) for sid in sids[1:]], 256),
+                ("decode", [(sid, one()) for sid in sids], 8)):
+            T, B, W, written = replay_vs_eager(
+                torch, model, cache, rows, T, width_of, record(kind))
+            print(f"  replayed {kind} step (T={T}, B={B}, W={W}) against "
+                  f"its eager body on a copy of the pools: logits, tokens "
+                  f"and every pool bit-equal ({written} pool pages/slots "
+                  f"written)")
+    finally:
+        with cache.lock:
+            for sid in sids:
+                cache.free_sequence(sid)
+
+
+def phase_serve(torch, pa, flush, km, mods):
+    """GPT-medium bf16 served through replayed CUDA graphs (wave B the
+    main path, `serve_graphs`), the host planner timed in wave B; then a
+    replayed mixed and decode step against their eager bodies, whose
+    layer-0 kernel inputs the paged kernel is held against its twin on
+    (and the capacity table against the exact one)."""
     GenerationEngine, GPTForCausalLM, gpt_medium, load_state, gpt_mod = mods
     cfg = gpt_medium()
     model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
@@ -586,9 +807,8 @@ def phase_serve(torch, pa, flush, mods):
     prompts = make_prompts(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
 
-    # the main path, counted; the host planner's time (the cache's step
-    # plan and kernel #1's schedule, both numpy) summed over its steps
-    pa.ragged_paged_attention.launches = 0
+    # the host planner's time (the cache's step plan and kernel #1's
+    # schedule, both numpy) summed over the run's steps
     planner = {"plan_ragged": 0.0, "step_schedule": 0.0}
     cache_cls = gpt_mod.PagedKVCache
     real_plan, real_sched = cache_cls.plan_ragged, gpt_mod.step_schedule
@@ -605,78 +825,65 @@ def phase_serve(torch, pa, flush, mods):
     cache_cls.plan_ragged = timed("plan_ragged", real_plan)
     gpt_mod.step_schedule = timed("step_schedule", real_sched)
     try:
-        eng, handles, streams, wave_s, all_s = serve(GenerationEngine,
-                                                     model, prompts)
+        eng, launches = serve_graphs(
+            torch, km, GenerationEngine, model, prompts, SERVE,
+            "ragged_paged_attention", "paged_", "attention kernel")
     finally:
         cache_cls.plan_ragged = real_plan
         gpt_mod.step_schedule = real_sched
-    launches = pa.ragged_paged_attention.launches
-    check(all(len(s) == NEW_TOKENS for s in streams),
-          f"stream lengths {[len(s) for s in streams]}")
-    check(all(0 <= t < cfg.vocab_size for s in streams for t in s),
-          "token id out of range")
-    check(launches > 0 and launches == eng.steps * cfg.num_layers
-          and eng.kernel_launches == launches,
-          f"kernel launches {launches} (engine {eng.kernel_launches}) != "
-          f"steps {eng.steps} x {cfg.num_layers}")
-    hits = eng.cache.prefix_stats()["prefix_hit_tokens"]
-    check(hits >= 128, f"prefix cache served {hits} tokens, want >= 128")
-    ttft = [h.t_first - h.t_submit for h in handles[1:]]
-    print(f"  served {len(streams)} requests x {NEW_TOKENS} tokens: "
-          f"{eng.steps} steps, {launches} kernel launches, prefix-cache "
-          f"tokens {hits}")
-    print(f"  host planner per step: PagedKVCache.plan_ragged "
-          f"{planner['plan_ragged'] / eng.steps * 1e6:.1f}us + kernel #1's "
-          f"schedule {planner['step_schedule'] / eng.steps * 1e6:.1f}us "
-          f"(both numpy, once a step for all {cfg.num_layers} layers)")
-    print(f"  wave of 7: {7 * NEW_TOKENS / wave_s:.1f} output tokens/s "
-          f"({wave_s:.3f}s, prefill included); TTFT mean "
-          f"{np.mean(ttft) * 1e3:.1f}ms max {np.max(ttft) * 1e3:.1f}ms; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
-    # replay, recording the layer-0 kernel inputs of the fullest decode
-    # step and mixed step (the replay's engine makes its own pools;
-    # layer 0's is the first one the kernel sees)
-    pool0 = None
-    best = {}
-    real = gpt_mod.ragged_paged_attention
-
-    def record(q, k_pages, v_pages, page_table, token_seq, bounds, **kw):
-        nonlocal pool0
-        pool0 = k_pages if pool0 is None else pool0
-        if k_pages is pool0:
-            live = bounds > 0
-            rows = len(set(token_seq[live].tolist()))
-            n_live = int(live.sum())
-            kind = "decode" if n_live == rows else "mixed"
-            key = (rows, n_live, int(bounds.sum()))
-            if kind not in best or key > best[kind][0]:
-                best[kind] = (key, [t.clone() for t in (
-                    q, k_pages, v_pages, page_table, token_seq, bounds)])
-        return real(q, k_pages, v_pages, page_table, token_seq, bounds,
-                    **kw)
-
-    gpt_mod.ragged_paged_attention = record
     try:
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            replay = serve(GenerationEngine, model, prompts)[0]
+        n = launches.pop("ragged_paged_attention")
+        check(not any(launches.values()),
+              f"other kernels ran while serving GPT: {launches}")
+        hits = eng.cache.prefix_stats()["prefix_hit_tokens"]
+        check(hits >= 128, f"prefix cache served {hits} tokens, want >= 128")
+        print(f"  prefix-cache tokens {hits}; host planner per step over the "
+              f"run: PagedKVCache.plan_ragged "
+              f"{planner['plan_ragged'] / eng.steps * 1e6:.1f}us + kernel "
+              f"#1's schedule {planner['step_schedule'] / eng.steps * 1e6:.1f}"
+              f"us (both numpy, once a step for all {cfg.num_layers} layers)")
+
+        best = {}
+        real = gpt_mod.ragged_paged_attention
+
+        def record(kind):
+            """Around the eager body of the `kind` step: keep layer 0's
+            kernel inputs (its pools are the shadow's first)."""
+            @contextlib.contextmanager
+            def around(shadow):
+                def call(q, k_pages, v_pages, page_table, token_seq, bounds,
+                         **kw):
+                    if k_pages is shadow.k[0]:
+                        best[kind] = [t.clone() for t in (
+                            q, k_pages, v_pages, page_table, token_seq,
+                            bounds)]
+                    return real(q, k_pages, v_pages, page_table, token_seq,
+                                bounds, **kw)
+                gpt_mod.ragged_paged_attention = call
+                try:
+                    yield
+                finally:
+                    gpt_mod.ragged_paged_attention = real
+            return around
+
+        def width_of(sids):
+            pages = max(len(eng.cache._tables[s]) for s in sids)
+            return 1 << (pages - 1).bit_length()
+
+        hold_replays(torch, model, eng.cache, width_of, record)
     finally:
-        gpt_mod.ragged_paged_attention = real
-    where_the_time_goes(prof, replay.steps, all_s / eng.steps)
-    check(set(best) == {"decode", "mixed"}, f"recorded {sorted(best)}")
-    held = {kind: hold(torch, pa, best[kind][1], flush,
+        eng.shutdown()
+    held = {kind: hold(torch, pa, best[kind], flush,
                        f"served {kind} step, layer 0")
             for kind in ("decode", "mixed")}
-    args = best["decode"][1]
-    sched = schedule_of(torch, pa, args)
+    args = best["decode"]
+    sched = schedule_of(torch, pa, args, capacity=True)
     sched.dev = sched.on(args[0].device)
     us = host_us(torch, lambda: pa.ragged_paged_attention(
         *args, schedule=sched))
     print(f"  wrapper host time per call (served decode step, schedule "
-          f"shipped): {us:.1f}us; a step makes {cfg.num_layers}")
-    return launches, held, prompts, state
+          f"shipped), eager: {us:.1f}us; a replay skips it")
+    return n, held, prompts, state
 
 
 def device_us_by_name(prof):
@@ -743,7 +950,10 @@ def phase_agreement(torch, pa, mods, prompts, state):
         load_state(model, small)
         pa.ragged_paged_attention.launches = 0
         eng, _, streams, _, _ = serve(GenerationEngine, model, prompts)
-        want = eng.steps * cfg.num_layers if device == "cuda" else 0
+        # on the card: a launch a layer for each replay and for the eager
+        # run before each capture
+        want = (eng.steps + eng.retraces) * cfg.num_layers \
+            if device == "cuda" else 0
         check(pa.ragged_paged_attention.launches == want,
               f"{device}: {pa.ragged_paged_attention.launches} launches, "
               f"want {want}")
@@ -2134,11 +2344,11 @@ def ssm_numpy_state(model, seed):
 
 
 def phase_ssm_serve(torch, sk, flush, km, smods):
-    """Mamba-130M-shaped SSM serving in bf16, the main path of this
-    slice: counts set to 0 just before and read just after. Then a
-    profiled replay that records layer 0's kernel inputs in the fullest
-    decode step and the fullest mixed step, held and timed there.
-    Returns (launches, the held measurements)."""
+    """Mamba-130M-shaped SSM serving in bf16 through replayed CUDA graphs
+    (wave B the main path of this slice, `serve_graphs`); then a replayed
+    mixed and decode step against their eager bodies, whose layer-0 scan
+    inputs the kernel is held against its twin on. Returns (launches,
+    the held measurements)."""
     GenerationEngine, SSMConfig, SSMForCausalLM, load_state, ssm_mod = smods
     cfg = SSMConfig(**MAMBA_130M)
     check(cfg.d_inner == 1536 and cfg.dt_rank == 48
@@ -2157,75 +2367,59 @@ def phase_ssm_serve(torch, sk, flush, km, smods):
     prompts = make_prompts(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
 
-    zero_counts(km)
-    eng, handles, streams, wave_s, all_s = serve(
-        GenerationEngine, model, prompts, SSM_SERVE)
-    launches = counts(km)
-    n = launches.pop("ssm_scan")
-    check(all(len(s) == NEW_TOKENS for s in streams),
-          f"stream lengths {[len(s) for s in streams]}")
-    check(all(0 <= t < cfg.vocab_size for s in streams for t in s),
-          "token id out of range")
-    check(n > 0 and n == eng.steps * cfg.num_layers
-          and eng.kernel_launches == n,
-          f"scan launches {n} (engine {eng.kernel_launches}) != steps "
-          f"{eng.steps} x {cfg.num_layers}")
-    check(not any(launches.values()),
-          f"other kernels ran while serving the SSM: {launches}")
-    check(eng.cache_strategy == "recurrent",
-          f"strategy {eng.cache_strategy}")
-    # the inert prefix cache: every prompt token and every fed-back token
-    # went through a step (no cached tokens were skipped)
-    stepped = sum(p.size for p in prompts) + len(prompts) * (NEW_TOKENS - 1)
-    check(eng._attn_useful == stepped, f"steps took {eng._attn_useful} real "
-                                       f"tokens, want {stepped}: the prefix "
-                                       f"cache served some")
-    check(eng.cache.match_prefix(prompts[1]) == (0, 0), "prefix cache hit")
-    ttft = [h.t_first - h.t_submit for h in handles[1:]]
-    stats = eng.cache.pool_stats()
-    print(f"  served {len(streams)} requests x {NEW_TOKENS} tokens: "
-          f"{eng.steps} steps, {n} scan launches, prefix-cache tokens 0 "
-          f"({stepped} real tokens stepped), pad share of the scan's "
-          f"updates {eng.pad_token_fraction():.3f}")
-    print(f"  wave of 7: {7 * NEW_TOKENS / wave_s:.1f} output tokens/s "
-          f"({wave_s:.3f}s, prefill included); TTFT mean "
-          f"{np.mean(ttft) * 1e3:.1f}ms max {np.max(ttft) * 1e3:.1f}ms; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"state bytes a sequence {stats['state_bytes']} "
-          f"({stats['n_slots']} slots: {stats['state_bytes_total']} bytes)")
-
-    best, calls = {}, [0]
-    real = ssm_mod.ssm_scan
-
-    def record(*args):
-        if calls[0] % cfg.num_layers == 0:  # layer 0 of the step
-            seq, dt = args[6], args[1]
-            live = (dt != 0).any(dim=1)
-            rows = len(set(seq[live].tolist()))
-            n_live = int(live.sum())
-            kind = "decode" if n_live == rows else "mixed"
-            pad_rows = tuple(sorted(set(range(args[5].shape[0]))
-                                    - set(seq[live].tolist())))
-            key = (rows, n_live)
-            if kind not in best or key > best[kind][0]:
-                best[kind] = (key, [a.clone() for a in args], pad_rows)
-        calls[0] += 1
-        return real(*args)
-
-    ssm_mod.ssm_scan = record
+    eng, launches = serve_graphs(torch, km, GenerationEngine, model,
+                                 prompts, SSM_SERVE, "ssm_scan", "ssm_",
+                                 "scan kernel")
     try:
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            replay = serve(GenerationEngine, model, prompts, SSM_SERVE)[0]
+        n = launches.pop("ssm_scan")
+        check(not any(launches.values()),
+              f"other kernels ran while serving the SSM: {launches}")
+        check(eng.cache_strategy == "recurrent",
+              f"strategy {eng.cache_strategy}")
+        # the inert prefix cache: every prompt token and every fed-back
+        # token of the three waves went through a step
+        stepped = 3 * (sum(p.size for p in prompts)
+                       + len(prompts) * (NEW_TOKENS - 1))
+        check(eng._attn_useful == stepped, f"steps took {eng._attn_useful} "
+                                           f"real tokens, want {stepped}: "
+                                           f"the prefix cache served some")
+        check(eng.cache.match_prefix(prompts[1]) == (0, 0),
+              "prefix cache hit")
+        stats = eng.cache.pool_stats()
+        print(f"  prefix-cache tokens 0 ({stepped} real tokens stepped in "
+              f"three waves), pad share of the scan's updates "
+              f"{eng.pad_token_fraction():.3f}; state bytes a sequence "
+              f"{stats['state_bytes']} ({stats['n_slots']} slots: "
+              f"{stats['state_bytes_total']} bytes)")
+
+        best, real = {}, ssm_mod.ssm_scan
+
+        def record(kind):
+            """Around the eager body of the `kind` step: keep layer 0's
+            scan inputs (its first call) and the rows only pads touch."""
+            @contextlib.contextmanager
+            def around(shadow):
+                def call(*args):
+                    if kind not in best:
+                        seq, dt = args[6], args[1]
+                        live = (dt != 0).any(dim=1)
+                        pad_rows = tuple(sorted(
+                            set(range(args[5].shape[0]))
+                            - set(seq[live].tolist())))
+                        best[kind] = ([a.clone() for a in args], pad_rows)
+                    return real(*args)
+                ssm_mod.ssm_scan = call
+                try:
+                    yield
+                finally:
+                    ssm_mod.ssm_scan = real
+            return around
+
+        hold_replays(torch, model, eng.cache, lambda sids: 1, record)
     finally:
-        ssm_mod.ssm_scan = real
-    where_the_time_goes(prof, replay.steps, all_s / eng.steps, "ssm_scan",
-                        "scan kernel")
-    check(set(best) == {"decode", "mixed"}, f"recorded {sorted(best)}")
-    held = {kind: hold_scan(torch, sk, flush, best[kind][1],
-                            f"served {kind} step, layer 0",
-                            best[kind][2])
+        eng.shutdown()
+    held = {kind: hold_scan(torch, sk, flush, best[kind][0],
+                            f"served {kind} step, layer 0", best[kind][1])
             for kind in ("decode", "mixed")}
     del model
     torch.cuda.empty_cache()
@@ -2259,8 +2453,8 @@ def phase_ssm_agreement(torch, km, smods, prompts):
                                           SSM_SERVE)
             on_card = device == "cuda"
             n_attn = sum(cfg.is_attn_layer(i) for i in range(2))
-            want = (eng.steps * (2 - n_attn) * on_card,
-                    eng.steps * n_attn * on_card)
+            runs_ = (eng.steps + eng.retraces) * on_card
+            want = (runs_ * (2 - n_attn), runs_ * n_attn)
             got = (sk.ssm_scan.launches, pa.ragged_paged_attention.launches)
             check(got == want, f"{kind} {device}: (scan, paged) launches "
                                f"{got}, want {want}")
@@ -2353,7 +2547,8 @@ def main():
     print("[4] GPT-medium bf16 through GenerationEngine", flush=True)
     zero_counts(km)
     with switches(False):
-        launches, held, prompts, state = phase_serve(torch, pa, flush, mods)
+        launches, held, prompts, state = phase_serve(torch, pa, flush, km,
+                                                     mods)
     served = {k: v for k, v in counts(km).items()
               if k != "ragged_paged_attention"}
     check(not any(served.values()),

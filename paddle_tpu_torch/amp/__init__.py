@@ -9,15 +9,15 @@ the reference's. The device half is what the train step carries:
 found_inf skip and the scale adaptation cost no host sync.
 
 Not ported yet: `unscale_`, `step` and `minimize` need the eager
-`optimizer.step()` path (ROADMAP.md queue A, item 12) and raise;
-`auto_cast` and `decorate` are ROADMAP.md queue A, item 9.
+`optimizer.step()` path (ROADMAP.md queue A, item A.4) and raise;
+`auto_cast` and `decorate` are ROADMAP.md queue A, item A.4.
 """
 import torch
 
 __all__ = ["GradScaler"]
 
 _EAGER = ("GradScaler.{} needs the eager optimizer.step() path, which is "
-          "not ported yet (ROADMAP.md queue A, item 12); pass the scaler "
+          "not ported yet (ROADMAP.md queue A, item A.4); pass the scaler "
           "to TrainStep instead")
 
 

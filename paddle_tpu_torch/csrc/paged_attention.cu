@@ -53,6 +53,14 @@
 //   depend on which split finished first (no float atomics);
 // - pad tokens get no unit: extra blocks after the CUDA-core units zero
 //   their rows.
+// The schedule's table starts with a header of the live counts (tc rows,
+// cc rows, pads, split slots), which every block reads: the launch is
+// sized by the table's layout (the counts passed in), and a block past a
+// live count returns at once. For an eager call the layout is the live
+// counts; a CUDA graph captures a table padded to the capacity of its
+// (tokens, rows, table width) signature, so that one launch configuration
+// serves every plan of the signature (ops/kernels/paged_attention.py
+// `ragged_capacity`).
 // In bfloat16 one launch (paged_cc_tc_kernel) runs the tensor-core units
 // and then the CUDA-core units and pads, so that a mixed step's prefill
 // and decode work share the SMs; CUDA-core units of 16 q rows (a GQA fold
@@ -83,6 +91,7 @@ constexpr int kCcWarps = 4;
 constexpr int kCcThreads = kCcWarps * 32;
 constexpr int kRing = 3;        // chunk stages of a warp's ring
 constexpr int kPadTokens = 32;  // pad tokens one block zeroes
+constexpr int kHeaderInts = 4;  // the table's header: the live counts
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -92,14 +101,14 @@ struct Args {
   const void* v;
   const int* page_table;
   const int* bounds;
-  const int* sched;  // tc rows | cc rows | pad token ids
+  const int* sched;  // header | tc rows | cc rows | pad token ids
   void* out;
   int* work;
   float* part_ml;  // [parts][H_kv][rm][2] (m, l) of split units
   float* part_o;   // [parts][H_kv][rm][D]
   int* tickets;    // [parts][H_kv] splits done; 0 between calls
   int n_heads, n_kv, fold, n_pages, P, W;
-  int n_tc, n_cc, n_pad, rm;
+  int n_tc, n_cc, n_pad, rm;  // the table's layout (rows, ids)
   float scale2;  // scale * log2(e): scores in log2 units
 };
 
@@ -160,7 +169,17 @@ struct Cc {
   static constexpr int kStage = 2 * kKeys * D;  // elements: K then V
 };
 
-// CUDA-core block b: cc row b, or past the rows, a block of pad tokens.
+// the rows of the schedule, past its header
+__device__ __forceinline__ const int* units(const Args& a) {
+  return a.sched + kHeaderInts;
+}
+
+// CUDA-core block b: cc row b, or past the rows, a block of pad tokens;
+// a block past the live rows or pads returns at once. Every product that
+// meets a sum is an explicit fmaf or __fmul_rn, so that no build of RM
+// contracts another: a unit's bits do not depend on the RM it runs under
+// (a captured step's capacity table may take a larger RM than the exact
+// table of the same plan).
 // A unit's q rows (at most RM, the template bound) walk keys [k_lo, k_hi)
 // of one row; the block's 4 warps take chunks of 16 keys in turn. A split
 // writes partials and counts itself done on the unit's ticket; the split
@@ -175,9 +194,10 @@ __device__ __forceinline__ void cc_block(const Args& a, int b) {
   T* out = static_cast<T*>(a.out);
 
   if (b >= a.n_cc) {  // pad tokens: zero rows, no work
-    const int* pads = a.sched + (a.n_tc + a.n_cc) * kUnitInts;
+    const int* pads = units(a) + (a.n_tc + a.n_cc) * kUnitInts;
     const int p0 = (b - a.n_cc) * kPadTokens;
-    const int np = min(kPadTokens, a.n_pad - p0);
+    const int np = min(kPadTokens, a.sched[2] - p0);
+    if (np <= 0) return;
     constexpr int kVecs = D * (int)sizeof(T) / 16;  // per head row
     const int per_tok = a.fold * kVecs;
     for (int i = threadIdx.x; i < np * per_tok; i += kCcThreads) {
@@ -189,7 +209,8 @@ __device__ __forceinline__ void cc_block(const Args& a, int b) {
     return;
   }
 
-  const int* u = a.sched + (a.n_tc + b) * kUnitInts;
+  if (b >= a.sched[1]) return;
+  const int* u = units(a) + (a.n_tc + b) * kUnitInts;
   const int t0 = u[0], n_tok = u[1], row = u[2], k_lo = u[3], k_hi = u[4],
             part = u[5], part0 = u[6], n_split = u[7];
   const int R = n_tok * a.fold;
@@ -297,7 +318,7 @@ __device__ __forceinline__ void cc_block(const Args& a, int b) {
 #pragma unroll
         for (int e = 0; e < C::kVe; ++e) o[m][e] = fmaf(p, vx[e], o[m][e]);
       }
-      l_r[m] = l_r[m] * alpha + psum;
+      l_r[m] = fmaf(l_r[m], alpha, psum);
       m_r[m] = m_new;
     }
   }
@@ -314,10 +335,11 @@ __device__ __forceinline__ void cc_block(const Args& a, int b) {
       const float lo = __shfl_xor_sync(kFull, l_r[m], off);
       const float mm = fmaxf(m_r[m], mo);
       const float a1 = ex2(m_r[m] - mm), a2 = ex2(mo - mm);
-      l_r[m] = l_r[m] * a1 + lo * a2;
+      l_r[m] = fmaf(l_r[m], a1, __fmul_rn(lo, a2));
 #pragma unroll
       for (int e = 0; e < C::kVe; ++e)
-        o[m][e] = o[m][e] * a1 + __shfl_xor_sync(kFull, o[m][e], off) * a2;
+        o[m][e] = fmaf(o[m][e], a1,
+                       __fmul_rn(__shfl_xor_sync(kFull, o[m][e], off), a2));
       m_r[m] = mm;
     }
   }
@@ -348,8 +370,8 @@ __device__ __forceinline__ void cc_block(const Args& a, int b) {
     for (int w = 0; w < kCcWarps; ++w) {
       // a warp that saw no key of the row holds (-1e30, 0, 0)
       const float e = ex2(ml_s[(w * RM + m) * 2] - mm);
-      l += ml_s[(w * RM + m) * 2 + 1] * e;
-      acc += o_s[(w * RM + m) * D + d] * e;
+      l = fmaf(ml_s[(w * RM + m) * 2 + 1], e, l);
+      acc = fmaf(o_s[(w * RM + m) * D + d], e, acc);
     }
     if (part < 0) {
       store(out + out_row(a, t0, m, g) * D + d, acc / fmaxf(l, 1e-30f));
@@ -382,8 +404,8 @@ __device__ __forceinline__ void cc_block(const Args& a, int b) {
       for (int s = 0; s < n_split; ++s) {
         const size_t at = ((size_t)(part0 + s) * a.n_kv + g) * a.rm + m;
         const float e = ex2(__ldcg(a.part_ml + at * 2) - mm);
-        l += __ldcg(a.part_ml + at * 2 + 1) * e;
-        acc += __ldcg(a.part_o + at * D + d) * e;
+        l = fmaf(__ldcg(a.part_ml + at * 2 + 1), e, l);
+        acc = fmaf(__ldcg(a.part_o + at * D + d), e, acc);
       }
       store(out + out_row(a, t0, m, g) * D + d, acc / fmaxf(l, 1e-30f));
     }
@@ -438,7 +460,7 @@ __device__ __forceinline__ void tc_block(const Args& a, int b) {
   const uint32_t sk = sq + kT;                 // K [kTcStagesK][64]
   const uint32_t sv = sk + kTcStagesK * kT;    // V [kTcStagesV][64]
 
-  const int* u = a.sched + b * kUnitInts;
+  const int* u = units(a) + b * kUnitInts;
   const int t0 = u[0], n_tok = u[1], row = u[2], n_keys = u[3],
             min_keys = u[4];
   const int g = blockIdx.y;
@@ -575,10 +597,10 @@ __device__ __forceinline__ void tc_block(const Args& a, int b) {
 // decode units share the SMs instead of following each other.
 template <int D, int RM>
 __global__ void __launch_bounds__(kTcThreads) paged_cc_tc_kernel(Args a) {
-  if ((int)blockIdx.x < a.n_tc)
-    tc_block<D>(a, blockIdx.x);
-  else
+  if ((int)blockIdx.x >= a.n_tc)
     cc_block<__nv_bfloat16, D, RM>(a, blockIdx.x - a.n_tc);
+  else if ((int)blockIdx.x < a.sched[0])
+    tc_block<D>(a, blockIdx.x);
 }
 
 // ---- launches ----------------------------------------------------------------
@@ -665,22 +687,25 @@ extern "C" {
 
 // The layout the host's schedule must agree with: ints of a schedule row,
 // q rows of a tensor-core unit and of a CUDA-core unit, pad tokens a
-// block zeroes, keys of a chunk (the page size's divisor).
+// block zeroes, keys of a chunk (the page size's divisor), ints of the
+// table's header.
 void paged_attention_layout(int* out) {
   out[0] = kUnitInts;
   out[1] = kTcRows;
   out[2] = kCcRows;
   out[3] = kPadTokens;
   out[4] = kKeys;
+  out[5] = kHeaderInts;
 }
 
-// sched: the device copy of a ragged_schedule table (n_tc tensor-core
-// rows, n_cc CUDA-core rows, then n_pad pad token ids); rows_max (1, 4 or
-// 16) bounds a CUDA-core unit's q rows; part_ml, part_o: the split units'
-// scratch; tickets: one int per (split unit, kv head), zero before the
-// call and zero again after it. dtype: 0 = float32, 1 = bfloat16 (q, pools
-// and out share it). head_dim: 64 or 128. Returns a cudaError_t value
-// (0 = launched).
+// sched: the device copy of a ragged_schedule table (a header of the live
+// counts, then room for n_tc tensor-core rows, n_cc CUDA-core rows and
+// n_pad pad token ids, the live ones first); rows_max (1, 4 or 16) bounds
+// a CUDA-core unit's q rows; part_ml, part_o: the split units' scratch;
+// tickets: one int per (split unit, kv head), zero before the call and
+// zero again after it. The launch depends on the layout alone. dtype:
+// 0 = float32, 1 = bfloat16 (q, pools and out share it). head_dim: 64 or
+// 128. Returns a cudaError_t value (0 = launched).
 int paged_attention_ragged(const void* q, const void* k_pages,
                            const void* v_pages, const void* page_table,
                            const void* bounds, const void* sched, void* out,

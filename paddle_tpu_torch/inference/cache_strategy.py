@@ -32,7 +32,7 @@ updates them IN PLACE: the SSM step writes each row's new state and
 conv tail with `index_copy_`, and the pools are allocated once on an
 explicit device and never replaced.
 
-Not ported yet (ROADMAP.md queue A, item 3): the prefill/decode handoff,
+Not ported yet (ROADMAP.md queue A, item A.8): the prefill/decode handoff,
 `export_chain` / `adopt_chain` / `release_chain` and the chain handles.
 """
 import threading
@@ -71,12 +71,15 @@ class RecurrentStateCache:
     strategy = "recurrent"
 
     def __init__(self, n_layers, n_slots, d_inner, d_state, d_conv,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, page_size=16, device=None):
         self.n_layers = int(n_layers)
         self.n_slots = int(n_slots)
         if self.n_slots < 1:
             raise ValueError("RecurrentStateCache needs n_slots >= 1")
         self.n_pages = self.n_slots + 1   # slot 0 = reserved pad slot
+        # kept, as the reference keeps it, for the token bucketing that
+        # quotes it; it sizes no memory here (a step's table width is 1)
+        self.page_size = int(page_size)
         self.d_inner = int(d_inner)
         self.d_state = int(d_state)
         self.d_conv = int(d_conv)

@@ -24,9 +24,17 @@ plus the registry's evictable retention; a finished sequence registers
 its prompt's pages for future sharers when it is evicted.
 
 The step's only synchronization is the host read of the sampled int32
-tokens. Decoding is greedy. Each engine keeps plain counters: `steps`
-(ragged steps run) and `kernel_launches` (launches of the kernels the
-model's step runs: ragged paged attention, the selective scan).
+tokens. Decoding is greedy. On the card each step is a replay of the
+CUDA graph of its (tokens, rows, table width) signature (models/gpt.py
+`RaggedGraphSteps`); a signature first seen mid-traffic is captured
+inline, in the step, and counted in `retraces` (the reference's
+`serve.retraces`: steady-state traffic adds none). `warm(prompt_len,
+max_new_tokens)` / `warm_async` capture every signature one such
+request touches ahead of traffic, on the scheduler thread. Each engine
+keeps plain counters: `steps` (ragged steps run), `retraces` and
+`kernel_launches` (launches of the kernels the model's step runs:
+ragged paged attention, the selective scan; a replay adds the launches
+its capture recorded).
 
 Not ported yet (ROADMAP.md queue A): seeded sampling, speculative
 decoding, prefill/decode handoff and the router, the legacy bucketed
@@ -250,6 +258,9 @@ class GenerationEngine:
         self._attn_useful = 0
         self.steps = 0            # ragged steps run
         self.kernel_launches = 0  # launches of the step's kernels
+        self.retraces = 0  # step signatures captured in THIS engine
+        self._synced_traces = self._model_traces()
+        self._warm_queue = deque()  # (signature, Future) to capture
         self._pending = deque()
         self._active = []        # decoding, in row order
         self._prefilling = []    # admitted, prompt KV still chunking in
@@ -318,23 +329,115 @@ class GenerationEngine:
             self._cv.notify_all()
         return handle
 
+    # -- warming: step signatures captured ahead of traffic --------------
+    def warm(self, prompt_len, max_new_tokens=None):
+        """Blocking warm_async: capture every step signature one request
+        of `prompt_len` tokens and max_new_tokens touches. Returns the
+        count captured NOW (signatures already captured are free)."""
+        return sum(1 for f in self.warm_async(prompt_len, max_new_tokens)
+                   if f.result())
+
+    def warm_async(self, prompt_len, max_new_tokens=None):
+        """Queue the (tokens, rows, table width) signatures a single
+        request of `prompt_len` + max_new_tokens will step through, as
+        the reference's warm_async enumerates them: its chunked prefill
+        steps, every decode step's table-width bucket, and the sub-chunk
+        token buckets at each prefill width (a prefix-cache hit leaves a
+        short prefill remainder), every token bucket floored at
+        MIN_Q_TOKENS as `_ragged_step` pads. The scheduler thread
+        captures them before its next step, under the cache's lock (no
+        step of the cache replays meanwhile). Returns one Future a
+        signature: True when captured now, False when it already was."""
+        max_new = self.default_max_new if max_new_tokens is None \
+            else int(max_new_tokens)
+        if self.cache_strategy == "recurrent":
+            # fixed-size state slots: no page table, so the width is
+            # the constant 1 whatever the length
+            def width(tokens):
+                return 1
+        else:
+            P = self.cache.page_size
+
+            def width(tokens):  # table width bucket once tokens held
+                return self._pow2(-(-tokens // P))
+        sigs, filled, total = [], 0, int(prompt_len)
+        while filled < total:
+            n = min(self.prefill_chunk, total - filled)
+            filled += n
+            t_bucket = self._pow2(n)
+            w = width(filled)
+            while t_bucket >= 1:  # sub-chunk remainders at this width
+                sigs.append((max(t_bucket, MIN_Q_TOKENS), 1, w))
+                t_bucket //= 2
+        for k in range(max_new - 1):  # decode k writes token total + k
+            sigs.append((MIN_Q_TOKENS, 1, width(total + k + 1)))
+        futures = []
+        with self._cv:
+            if self._stopping:
+                raise EngineStopped("engine is drained/shut down")
+            for sig in dict.fromkeys(sigs):
+                futures.append(Future())
+                self._warm_queue.append((sig, futures[-1]))
+            self._cv.notify_all()
+        return futures
+
+    def _warm_queued(self):
+        """Capture the queued signatures (scheduler thread). A failed
+        capture fails its Future and raises, as a failed step does."""
+        while True:
+            with self._cv:
+                if not self._warm_queue:
+                    break
+                sig, fut = self._warm_queue.popleft()
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fresh = self.model.warm_ragged(self.cache, *sig)
+            except BaseException as e:
+                _reject_future(fut, e)
+                raise
+            _resolve_future(fut, fresh)
+        self._sync_retraces()
+
+    def _model_traces(self):
+        """The model's count of step signatures captured (on the CPU:
+        recorded), folded into `retraces` by _sync_retraces."""
+        return getattr(self.model, "_ragged_traces", 0)
+
+    def _sync_retraces(self):
+        """Fold the model's capture count into `retraces`, the delta
+        since the last sync: a growing count in steady traffic means a
+        batch took a signature no earlier step or warm took."""
+        n = self._model_traces()
+        if n > self._synced_traces:
+            self.retraces += n - self._synced_traces
+            self._synced_traces = n
+
+    def _fail_warm(self, exc):
+        with self._cv:
+            queued, self._warm_queue = list(self._warm_queue), deque()
+        for _, fut in queued:
+            _reject_future(fut, exc)
+
     # -- the scheduler loop ---------------------------------------------
     def _loop_once(self):
-        """One admit+step iteration (False = the thread exits)."""
+        """One warm+admit+step iteration (False = the thread exits)."""
         with self._cv:
             if not self._pending and not self._active \
-                    and not self._prefilling:
+                    and not self._prefilling and not self._warm_queue:
                 if self._stopping:
                     return False
                 self._cv.wait(0.05)  # idle: wait for work
                 if not self._pending and not self._active \
-                        and not self._prefilling:
+                        and not self._prefilling and not self._warm_queue:
                     return True  # still idle: let the runner drop its ref
         if self._abort:
             # shutdown(wait=False): fail the active set and exit
             self._fail_all(EngineStopped("engine shut down"))
+            self._fail_warm(EngineStopped("engine shut down"))
             return False
         try:
+            self._warm_queued()
             self._admit_ragged()
             if self._active or self._prefilling:
                 self._ragged_step()
@@ -489,6 +592,7 @@ class GenerationEngine:
         self.kernel_launches += ragged_paged_attention.launches \
             + ssm_scan.launches - launched
         self.steps += 1
+        self._sync_retraces()
         for (kind, s, n), tok in zip(metas, toks):
             if kind == "decode":
                 self._emit(s, tok)
@@ -598,6 +702,7 @@ class GenerationEngine:
             self._cv.notify_all()
         self._reject_detached(
             doomed, EngineStopped("engine abandoned without shutdown()"))
+        self._fail_warm(EngineStopped("engine abandoned without shutdown()"))
 
     def _scheduler_crashed(self, exc):
         """Last resort: the loop core itself raised. Fail every
@@ -611,6 +716,7 @@ class GenerationEngine:
             doomed = self._take_outstanding()
             self._cv.notify_all()
         self._reject_detached(doomed, err)
+        self._fail_warm(err)
 
     def _outstanding(self):
         return bool(self._pending or self._active or self._prefilling

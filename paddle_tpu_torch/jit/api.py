@@ -89,10 +89,27 @@ class TrainStep:
     without a fused mapping (fused_spec() None, e.g. under stochastic
     rounding), a clip other than ClipGradByGlobalNorm / ClipGradByValue,
     or a non-float parameter takes the tree path, as on the reference.
-    On CUDA the fused path runs the kernels or raises."""
+    On CUDA the fused path runs the kernels or raises.
 
-    def __init__(self, model, loss_fn, optimizer, scaler=None,
-                 monitor_health=False, fused_update=None):
+    The reference's signature, whole: `mesh` and `in_shardings` (its
+    sharded step, ROADMAP.md queue A, item A.13) and
+    `model_returns_loss` (item A.5) raise NotImplementedError unless at
+    their defaults; `donate` (buffer donation to a compiled program) has
+    no meaning in eager torch, whose step updates in place, and is
+    ignored."""
+
+    def __init__(self, model, loss_fn, optimizer, mesh=None,
+                 in_shardings=None, donate=True, model_returns_loss=False,
+                 scaler=None, monitor_health=False, fused_update=None):
+        if mesh is not None or in_shardings is not None:
+            raise NotImplementedError(
+                "TrainStep(mesh=, in_shardings=): the sharded step is not "
+                "ported yet (ROADMAP.md queue A, item A.13)")
+        if model_returns_loss:
+            raise NotImplementedError(
+                "TrainStep(model_returns_loss=True) is not ported yet "
+                "(ROADMAP.md queue A, item A.5)")
+        del donate  # eager torch updates in place: nothing to donate
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer

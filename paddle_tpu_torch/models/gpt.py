@@ -11,7 +11,11 @@ over one to one.
 - `GPTForCausalLM.paged_ragged_step` advances a mixed batch of decode
   rows and prefill chunks in one pass over the layers, each token
   attending only its own paged history through the hand-written
-  ragged paged-attention kernel (ops/kernels/paged_attention.py);
+  ragged paged-attention kernel (ops/kernels/paged_attention.py). On
+  the card each (tokens, rows, table width) signature of the step is
+  captured once as a CUDA graph over its cache and replayed after that
+  (`RaggedGraphSteps`, the reference's one compiled executable per
+  signature: `warm_ragged`, `_ragged_sig`, `_ragged_traces`);
 - decoding is greedy (`sample_token_rows`);
 - `GPTForCausalLM(input_ids)` (no caches) is the training forward:
   causal attention through `F.scaled_dot_product_attention`, which
@@ -27,6 +31,8 @@ Not ported yet (ROADMAP.md queue A): the `scan_remat` policies, the
 static and legacy cache branches, seeded sampling, speculative
 decoding.
 """
+import time
+
 import numpy as np
 import torch
 from torch import nn
@@ -35,13 +41,16 @@ from ..device import resolve_device
 from ..framework.dtype import convert_dtype
 from ..nn import Dropout, Embedding, LayerNorm, Linear
 from ..nn import functional as F
-from ..ops.kernels import sm_count
-from ..ops.kernels.paged_attention import (H100_SMS, ragged_paged_attention,
+from ..ops.kernels import captured_launches, sm_count
+from ..ops.kernels.paged_attention import (H100_SMS, graph_scratch,
+                                           ragged_capacity,
+                                           ragged_paged_attention,
                                            ragged_schedule)
 from ..ops.paged_attention import PagedKVCache
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "RaggedSlot",
-           "step_schedule", "sample_token_rows", "gpt_tiny", "gpt_small", "gpt_medium",
+           "RaggedGraphSteps", "CapturedStep", "step_schedule",
+           "sample_token_rows", "gpt_tiny", "gpt_small", "gpt_medium",
            "gpt_1p3b", "gpt_6p7b"]
 
 _NOT_PORTED = ("only the no-cache (training) forward and the ragged "
@@ -50,11 +59,34 @@ _NOT_PORTED = ("only the no-cache (training) forward and the ragged "
 
 
 class GPTConfig:
+    """The reference's GPTConfig, field for field. `sequence_parallel`
+    and the MoE fields (`num_experts`, `moe_every`, `moe_top_k`,
+    `moe_capacity_factor`) are taken at the reference's defaults (no
+    sequence sharding, no experts) and stored; any other value raises
+    NotImplementedError (ring attention and the expert-parallel MoE
+    layer are ROADMAP.md queue A, item A.13)."""
+
+    _UNPORTED = {"sequence_parallel": False, "num_experts": 0,
+                 "moe_every": 2, "moe_top_k": 2, "moe_capacity_factor": 1.25}
+
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=None,
                  max_position_embeddings=1024, dropout=0.0,
                  layer_norm_epsilon=1e-5, initializer_range=0.02,
-                 use_bias=True, scan_layers=True, scan_remat=False):
+                 use_bias=True, scan_layers=True, scan_remat=False,
+                 sequence_parallel=False, num_experts=0, moe_every=2,
+                 moe_top_k=2, moe_capacity_factor=1.25):
+        given = dict(sequence_parallel=sequence_parallel,
+                     num_experts=num_experts, moe_every=moe_every,
+                     moe_top_k=moe_top_k,
+                     moe_capacity_factor=moe_capacity_factor)
+        for name, value in given.items():
+            if value != self._UNPORTED[name]:
+                raise NotImplementedError(
+                    f"GPTConfig({name}={value!r}): sequence parallelism and "
+                    "the MoE layers are not ported yet (ROADMAP.md queue A, "
+                    "item A.13); only the default "
+                    f"{self._UNPORTED[name]!r} is taken")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -70,6 +102,8 @@ class GPTConfig:
         # (activation recomputation) raises when the model is built.
         self.scan_layers = scan_layers
         self.scan_remat = scan_remat
+        for name, value in given.items():
+            setattr(self, name, value)
 
 
 class RaggedSlot:
@@ -98,20 +132,213 @@ class RaggedSlot:
         self.schedule = schedule
 
 
-def step_schedule(plan, cache, q_heads):
+def step_schedule(plan, cache, q_heads, capacity=False):
     """The ragged kernel's work units for a step `plan` of the paged
     `cache` (PagedKVCache.plan_ragged), for a model of q_heads query
     heads: built once on the host for all layers. Tensor-core units when
     the pools are bfloat16; split-KV sized by the pools' card (an H100's
-    132 SMs when they lie on the CPU, whose twin reads no schedule)."""
+    132 SMs when they lie on the CPU, whose twin reads no schedule).
+    With `capacity` the table is padded to the capacity of the plan's
+    (tokens, rows, width) signature (`ragged_capacity`), as a captured
+    step needs."""
     pool = cache.k[0]
     B, W = plan["page_table"].shape
     n_sms = sm_count(pool.device.index) if pool.device.type == "cuda" \
         else H100_SMS
+    fold, kvh = max(q_heads // pool.shape[2], 1), pool.shape[2]
+    tensor_cores = pool.dtype == torch.bfloat16
+    cap = ragged_capacity(len(plan["token_seq"]), B, W, fold, kvh,
+                          tensor_cores, n_sms) if capacity else None
     return ragged_schedule(
-        plan["token_seq"], plan["bounds"], cache.page_size, W,
-        max(q_heads // pool.shape[2], 1), pool.shape[2],
-        pool.dtype == torch.bfloat16, n_rows=B, n_sms=n_sms)
+        plan["token_seq"], plan["bounds"], cache.page_size, W, fold, kvh,
+        tensor_cores, n_rows=B, n_sms=n_sms, capacity=cap)
+
+
+def pad_attention_plan(n_tokens, n_rows, width):
+    """A step plan of the signature (n_tokens, n_rows, width) in which
+    every token is a pad: bound 0, pad page 0 / slot 0, its row the pad
+    row 0, every table entry the pad page. A capture runs it: it writes
+    nothing but the pad page."""
+    z = np.zeros((int(n_tokens),), np.int32)
+    return {"positions": z, "token_seq": z, "tok_pages": z,
+            "tok_in_pages": z, "bounds": z,
+            "out_idx": np.zeros((int(n_rows),), np.int32),
+            "page_table": np.zeros((int(n_rows), int(width)), np.int32)}
+
+
+class CapturedStep:
+    """One signature's serving step captured as a CUDA graph over one
+    cache: a static int32 plan buffer on the device (the step's one
+    host-to-device copy lands there) with a pinned host mirror, the
+    graph's outputs (last, nxt), the split-KV scratch of kernel #1 the
+    graph owns, and the kernel launches the capture recorded, which each
+    replay adds to the wrappers' counts.
+
+    The capture runs the step's body on a plan of the signature in which
+    every token is a pad (the model's `_ragged_pad_plan`): once eagerly,
+    on the cache's side stream (kernel builds, cuBLAS workspaces, the
+    kernels' shared-memory attributes), then captured on that stream
+    into the cache's memory pool, which all of the cache's graphs share:
+    their replays never overlap. Both runs write only the reserved pad
+    page / slot 0. `replay(host)` copies a real plan of the signature in
+    and replays; it reuses the pinned mirror only once the previous
+    copy out of it is done. A failed capture or replay raises."""
+
+    __slots__ = ("graph", "static", "mirror", "host", "copied", "last",
+                 "nxt", "launches", "capture_ms", "scratch", "replays")
+
+    def __init__(self, model, cache, n_tokens, n_rows, width):
+        device = cache.device
+        host, schedule = model._ragged_pad_plan(cache, n_tokens, n_rows,
+                                                width)
+        self.static = torch.from_numpy(host).to(device)
+        self.mirror = torch.empty(host.size, dtype=torch.int32,
+                                  pin_memory=True)
+        self.host = self.mirror.numpy()
+        self.copied = torch.cuda.Event()
+        state = _graph_state(cache)
+        side, current = state.stream, torch.cuda.current_stream(device)
+        t = time.perf_counter()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            model._ragged_body(cache, self.static, n_tokens, n_rows, width,
+                               schedule)
+        current.wait_stream(side)
+        self.scratch = None
+        if schedule is not None:  # kernel #1 runs: the paged pools' heads
+            pool = getattr(cache, "paged", cache).k[0]
+            self.scratch = schedule.scratch = graph_scratch(
+                schedule, pool.shape[2], pool.shape[3], device)
+        before = captured_launches().copy()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=state.pool, stream=side,
+                              capture_error_mode="thread_local"):
+            if self.scratch is not None:
+                self.scratch[1].zero_()
+            self.last, self.nxt = model._ragged_body(
+                cache, self.static, n_tokens, n_rows, width, schedule)
+        self.launches = dict(captured_launches() - before)
+        self.capture_ms = (time.perf_counter() - t) * 1e3
+        self.replays = 0
+
+    def replay(self, host):
+        """Copy `host` (the step's int32 plan, the signature's layout)
+        into the static buffer and replay; returns the graph's (last,
+        nxt), which the next replay overwrites."""
+        self.copied.synchronize()
+        self.host[:] = host
+        self.static.copy_(self.mirror, non_blocking=True)
+        self.copied.record()
+        self.graph.replay()
+        self.replays += 1
+        for wrapper, n in self.launches.items():
+            wrapper.launches += n
+        return self.last, self.nxt
+
+
+class _GraphState:
+    """A cache's captured steps: {key: CapturedStep} (on the CPU, the
+    keys of the signatures seen, with None), the memory pool they share
+    and the side stream they are captured on."""
+
+    __slots__ = ("steps", "pool", "stream")
+
+    def __init__(self, device):
+        self.steps = {}
+        self.pool = self.stream = None
+        if device.type == "cuda":
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(device)
+
+
+def _graph_state(cache):
+    state = getattr(cache, "_ragged_graphs", None)
+    if state is None:
+        state = cache._ragged_graphs = _GraphState(cache.device)
+    return state
+
+
+class RaggedGraphSteps:
+    """The compiled serving step (the reference's `_ragged_jitted` /
+    `warm_ragged` / `_ragged_traces`, paddle_tpu/models/gpt.py), mixed
+    into GPTForCausalLM and SSMForCausalLM.
+
+    A step's shapes depend only on its signature (tokens T, rows B,
+    table width W) and the cache. On the card the first step of a
+    signature over a cache captures it (`CapturedStep`) and every step,
+    that first one too, is a replay: one copy of the int32 plan into the
+    graph's static buffer, one graph launch, and the caller's read of
+    the tokens. The captures live on the cache, keyed by the model, the
+    signature and the pools' addresses (`_ragged_sig`), which the graphs
+    hold: two engines over one model never share one. On the CPU the
+    step runs eagerly, with the same signature bookkeeping. Every new
+    signature adds one to `_ragged_traces`, which the engine folds into
+    its `retraces`. A model provides `_ragged_pools(cache)`,
+    `_ragged_pad_plan(cache, T, B, W)` (the host plan and kernel #1's
+    schedule of an all-pad step) and `_ragged_body(cache, dev, T, B, W,
+    schedule, block_plan=None)` (the step on a device plan)."""
+
+    _ragged_traces = 0
+
+    def _ragged_sig(self, cache, n_tokens, n_rows, width):
+        pools = self._ragged_pools(cache)
+        return (id(self), int(n_tokens), int(n_rows), int(width),
+                tuple(pools[0].shape), str(pools[0].dtype)) \
+            + tuple(t.data_ptr() for t in pools)
+
+    def ragged_graph(self, cache, n_tokens, n_rows, width):
+        """The CapturedStep of one signature over `cache`, or None."""
+        return _graph_state(cache).steps.get(
+            self._ragged_sig(cache, n_tokens, n_rows, width))
+
+    @torch.no_grad()
+    def warm_ragged(self, cache, n_tokens, n_rows, width):
+        """Capture one (tokens, rows, width) signature over `cache` ahead
+        of traffic, holding the cache's lock (no step of the cache
+        replays meanwhile). Returns True when it was captured now, False
+        when it was already; on the CPU it records the signature."""
+        with cache.lock:
+            return self._ragged_entry(cache, n_tokens, n_rows, width)[1]
+
+    def _ragged_entry(self, cache, n_tokens, n_rows, width):
+        """(the signature's CapturedStep or None on the CPU, whether it
+        is new), capturing a new one on the card."""
+        steps = _graph_state(cache).steps
+        key = self._ragged_sig(cache, n_tokens, n_rows, width)
+        if key in steps:
+            return steps[key], False
+        step = None
+        if cache.device.type == "cuda":
+            step = CapturedStep(self, cache, n_tokens, n_rows, width)
+        steps[key] = step
+        self._ragged_traces += 1
+        return step, True
+
+    def _ragged_run(self, cache, n_tokens, n_rows, width, host, schedule,
+                    block_plan=None):
+        """The step of one signature on the host plan `host` (the
+        caller holds cache.lock): a replay of its graph on the card,
+        captured first if the signature is new; the eager body on the
+        CPU. Returns (last, nxt) over all n_rows rows, copies of the
+        graph's outputs on the card."""
+        step, _ = self._ragged_entry(cache, n_tokens, n_rows, width)
+        if step is None:
+            return self._ragged_body(cache, torch.from_numpy(host),
+                                     n_tokens, n_rows, width, schedule,
+                                     block_plan)
+        last, nxt = step.replay(host)
+        return last.clone(), nxt.clone()
+
+    @torch.no_grad()
+    def run_ragged_body(self, cache, host, n_tokens, n_rows, width):
+        """The body a signature's graph captured, run eagerly on `cache`
+        with the int32 plan `host` of that signature (a replay's,
+        `CapturedStep.host`): what a replay must equal bit for bit. It
+        writes the cache's pools as the step does."""
+        _, schedule = self._ragged_pad_plan(cache, n_tokens, n_rows, width)
+        dev = torch.from_numpy(np.ascontiguousarray(host)).to(cache.device)
+        return self._ragged_body(cache, dev, n_tokens, n_rows, width,
+                                 schedule)
 
 
 def sample_token_rows(last):
@@ -208,7 +435,7 @@ class GPTModel(nn.Module):
             raise NotImplementedError(
                 f"scan_remat={cfg.scan_remat!r}: activation recomputation "
                 "(torch.utils.checkpoint with the true/'names'/'dots' "
-                "policies) is not ported yet (ROADMAP.md queue A, item 11)")
+                "policies) is not ported yet (ROADMAP.md queue A, item A.5)")
         self.cfg = cfg
         kw = dict(weight_std=cfg.initializer_range, device=device,
                   dtype=dtype, generator=generator)
@@ -243,7 +470,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x), new_caches
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(RaggedGraphSteps, nn.Module):
     """GPT with the weight-tied LM head. Built on `device` (default
     CUDA; "cpu" only when asked) in `dtype` (default float32), its
     weights drawn from Normal(0, initializer_range) by a torch.Generator
@@ -296,7 +523,9 @@ class GPTForCausalLM(nn.Module):
         next-token logits — and next_tokens, int32 [n_rows] greedy
         samples), both on the model's device: the caller's host read of
         the tokens is the step's only synchronization.
-        pad_to_tokens/pad_to_rows pad the step to fixed shapes."""
+        pad_to_tokens/pad_to_rows pad the step to fixed shapes. On the
+        card the step is a replay of its signature's CUDA graph
+        (`RaggedGraphSteps`)."""
         limit = self.cfg.max_position_embeddings
         over = [s for s, t in rows if cache.length(s) + len(t) > limit]
         if over:
@@ -317,33 +546,57 @@ class GPTForCausalLM(nn.Module):
             for _, t in rows:
                 toks[off:off + len(t)] = np.asarray(t, np.int32).reshape(-1)
                 off += len(t)
-            schedule = step_schedule(plan, cache, self.cfg.num_heads)
-            # the whole int32 plan, the kernel's schedule with it, crosses
-            # to the device in ONE copy
-            host = np.concatenate([
-                toks, plan["positions"], plan["token_seq"],
-                plan["tok_pages"], plan["tok_in_pages"], plan["bounds"],
-                plan["out_idx"], plan["page_table"].reshape(-1),
-                schedule.table])
-            dev = torch.from_numpy(host).to(self.device, non_blocking=True)
-            ids, pos, seq, pages, in_pages, bounds = dev[:6 * T].view(6, T)
-            out_idx = dev[6 * T:6 * T + B]
-            page_table = dev[6 * T + B:6 * T + B + B * W].view(B, W)
-            schedule.dev = dev[6 * T + B + B * W:]
+            schedule = step_schedule(plan, cache, self.cfg.num_heads,
+                                     capacity=cache.device.type == "cuda")
             block_plan = (plan["blk_pages"], plan["blk_seq"],
                           plan["blk_start"], plan["blk_n"])
-            slots = [RaggedSlot(cache.k[l], cache.v[l], pages, in_pages,
-                                page_table, seq, bounds, block_plan,
-                                schedule)
-                     for l in range(self.cfg.num_layers)]
-            hidden, _ = self.gpt(ids[None], pos[None], slots)
-            last = hidden[0].index_select(0, out_idx) \
-                @ self.gpt.wte.weight.T
-            nxt = sample_token_rows(last)
+            last, nxt = self._ragged_run(cache, T, B, W,
+                                         _pack_plan(toks, plan, schedule),
+                                         schedule, block_plan)
             for s, t in rows:
                 cache.advance(s, len(t))
             n = plan["n_rows"]
         return last[:n], nxt[:n]
+
+    # ---- the step's pieces for RaggedGraphSteps ----------------------
+    def _ragged_pools(self, cache):
+        return cache.k + cache.v
+
+    def _ragged_pad_plan(self, cache, n_tokens, n_rows, width):
+        plan = pad_attention_plan(n_tokens, n_rows, width)
+        schedule = step_schedule(plan, cache, self.cfg.num_heads,
+                                 capacity=True)
+        return _pack_plan(np.zeros((int(n_tokens),), np.int32), plan,
+                          schedule), schedule
+
+    def _ragged_body(self, cache, dev, n_tokens, n_rows, width, schedule,
+                     block_plan=None):
+        """The step on the device plan `dev` (`_pack_plan`'s layout):
+        every layer writes its tokens' K/V into the pools and attends;
+        the rows' last tokens give logits and greedy tokens. Nothing
+        here reads the plan's values on the host."""
+        T, B, W = n_tokens, n_rows, width
+        ids, pos, seq, pages, in_pages, bounds = dev[:6 * T].view(6, T)
+        out_idx = dev[6 * T:6 * T + B]
+        page_table = dev[6 * T + B:6 * T + B + B * W].view(B, W)
+        schedule.dev = dev[6 * T + B + B * W:]
+        slots = [RaggedSlot(cache.k[l], cache.v[l], pages, in_pages,
+                            page_table, seq, bounds, block_plan, schedule)
+                 for l in range(self.cfg.num_layers)]
+        hidden, _ = self.gpt(ids[None], pos[None], slots)
+        last = hidden[0].index_select(0, out_idx) @ self.gpt.wte.weight.T
+        return last, sample_token_rows(last)
+
+
+def _pack_plan(toks, plan, schedule):
+    """The step's int32 plan as the ONE host array that crosses to the
+    device: token ids, positions, token_seq, the scatter coordinates,
+    bounds [T] each, out_idx [B], the page table [B, W], kernel #1's
+    schedule table (fixed-size per signature with a capacity)."""
+    return np.concatenate([
+        toks, plan["positions"], plan["token_seq"], plan["tok_pages"],
+        plan["tok_in_pages"], plan["bounds"], plan["out_idx"],
+        plan["page_table"].reshape(-1), schedule.table])
 
 
 def gpt_tiny(vocab=1024):

@@ -13,7 +13,10 @@ drives it through the same surface as models/gpt.py:
                           hand-written selective-scan kernel (kernel #11,
                           ops/kernels/ssm_scan.py) and, in the hybrid's
                           attention layers, the ragged paged-attention
-                          kernel (#1)
+                          kernel (#1); on the card a replay of its
+                          signature's CUDA graph (models/gpt.py
+                          `RaggedGraphSteps`: `warm_ragged`; a recurrent
+                          cache's table width is the constant 1)
     paged_decode_step()   a wrapper over the ragged step (the tests'
                           single-sequence oracle)
 
@@ -32,9 +35,9 @@ each step rounds the carried state to it, as the reference's do.
 `SSMForCausalLM(input_ids)` (no caches) is the inference forward over
 whole sequences; it runs the same scan kernel with the batch flattened
 onto the token axis. The scan has no backward in either package, so
-grad-enabled use on CUDA raises (ROADMAP.md queue A, item 16), and
-decoding is greedy: sampling at temperature > 0 raises (ROADMAP.md
-queue A, item 1).
+grad-enabled use on CUDA raises (SSM training is out of scope this
+round, ROADMAP.md), and decoding is greedy: sampling at temperature > 0
+raises (ROADMAP.md queue A, item A.3).
 """
 import numpy as np
 import torch
@@ -47,28 +50,30 @@ from ..nn import Embedding, LayerNorm, Linear
 from ..nn import functional as F
 from ..ops.kernels.ssm_scan import ssm_scan
 from ..ops.paged_attention import PagedKVCache
-from .gpt import (GPTAttention, RaggedSlot, sample_token_rows,
-                  step_schedule)
+from .gpt import (GPTAttention, RaggedGraphSteps, RaggedSlot,
+                  pad_attention_plan, sample_token_rows, step_schedule)
 
 __all__ = ["SSMConfig", "SSMForCausalLM", "SSMModel", "SSMSlot",
            "ssm_tiny", "ssm_hybrid_tiny"]
 
 _SAMPLING_NOT_PORTED = (
     "sampling with temperature > 0 is not ported yet (it needs a "
-    "threefry-compatible generator): ROADMAP.md queue A, item 1, "
+    "threefry-compatible generator): ROADMAP.md queue A, item A.3, "
     "'Seeded sampling'")
 
 
 class SSMConfig:
-    """The reference's SSMConfig less `sequence_parallel`, which no layer
-    reads (`dropout` reaches only the hybrid's attention layers)."""
+    """The reference's SSMConfig, field for field. `sequence_parallel` is
+    stored, as the reference stores it, and no layer reads it (the
+    reference's mesh-sharded activations are ROADMAP.md queue A, item
+    A.13); `dropout` reaches only the hybrid's attention layers."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  d_state=16, d_conv=4, expand=2, dt_rank=None,
                  attn_every=0, num_heads=12,
                  max_position_embeddings=1024, dropout=0.0,
                  layer_norm_epsilon=1e-5, initializer_range=0.02,
-                 use_bias=True):
+                 use_bias=True, sequence_parallel=False):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -88,6 +93,7 @@ class SSMConfig:
         self.layer_norm_epsilon = layer_norm_epsilon
         self.initializer_range = initializer_range
         self.use_bias = use_bias
+        self.sequence_parallel = sequence_parallel
 
     def is_attn_layer(self, i):
         return self.attn_every > 0 \
@@ -338,7 +344,7 @@ class SSMModel(nn.Module):
         return self.ln_f(x), new_caches
 
 
-class SSMForCausalLM(nn.Module):
+class SSMForCausalLM(RaggedGraphSteps, nn.Module):
     """Causal LM head over the SSM trunk (weight-tied, as GPT's), with
     GPTForCausalLM's serving surface, so GenerationEngine drives it
     unchanged: only the cache strategy underneath differs. Built on
@@ -382,7 +388,7 @@ class SSMForCausalLM(nn.Module):
         rec = RecurrentStateCache(
             n_layers=n_ssm, n_slots=int(n_pages) - 1, d_inner=cfg.d_inner,
             d_state=cfg.d_state, d_conv=cfg.d_conv, dtype=dtype,
-            device=self.device)
+            page_size=page_size, device=self.device)
         if not self.ssm.hybrid:
             return rec
         paged = PagedKVCache(cfg.num_layers - n_ssm, n_pages, page_size,
@@ -413,7 +419,9 @@ class SSMForCausalLM(nn.Module):
 
         Returns (logits [n_rows, vocab] of each row's LAST token, and
         next_tokens int32 [n_rows], greedy), both on the model's device.
-        pad_to_tokens/pad_to_rows pad the step to fixed shapes.
+        pad_to_tokens/pad_to_rows pad the step to fixed shapes; on the
+        card the step is a replay of its (tokens, rows, width)
+        signature's CUDA graph (width 1 on a recurrent cache).
         `sampling` is the reference's per-row (temperatures, top_ks,
         top_ps, keys); only greedy rows (temperature 0) are served."""
         if sampling is not None and np.any(np.asarray(sampling[0]) > 0):
@@ -426,8 +434,6 @@ class SSMForCausalLM(nn.Module):
                 f"max_position_embeddings={limit}; free them or raise "
                 "the limit")
         cfg = self.cfg
-        hybrid = self.ssm.hybrid
-        rec = getattr(cache, "recurrent", cache)
         with cache.lock:
             lens = [(s, len(t)) for s, t in rows]
             t_real = sum(n for _, n in lens)
@@ -439,55 +445,119 @@ class SSMForCausalLM(nn.Module):
             for _, t in rows:
                 toks[off:off + len(t)] = np.asarray(t, np.int32).reshape(-1)
                 off += len(t)
-            host = {"ids": toks, "positions": plan["positions"],
-                    "token_seq": plan["token_seq"],
-                    "tok_valid": plan["tok_valid"].astype(np.int32),
-                    "slot_ids": plan["slot_ids"], "out_idx": plan["out_idx"]}
-            host.update(ssm_step_plan(plan, cfg.d_conv))
-            if hybrid:
+            aplan = schedule = None
+            W = 1
+            if self.ssm.hybrid:
                 aplan = cache.plan_ragged(lens, pad_to_tokens=T,
                                           pad_to_rows=B,
                                           q_heads=cfg.num_heads)
-                for k in ("tok_pages", "tok_in_pages", "bounds",
-                          "page_table"):
-                    host[k] = aplan[k]
-                host["attn_seq"] = aplan["token_seq"]
-                schedule = step_schedule(aplan, cache.paged, cfg.num_heads)
-                host["attn_schedule"] = schedule.table
-            # the whole int32 plan crosses to the device in ONE copy
-            flat = np.concatenate([a.reshape(-1) for a in host.values()])
-            dev = torch.from_numpy(flat).to(self.device, non_blocking=True)
-            parts = dev.split([a.size for a in host.values()])
-            d = {k: t.view(a.shape)
-                 for (k, a), t in zip(host.items(), parts)}
-            splan = {"token_seq": d["token_seq"], "slot_ids": d["slot_ids"],
-                     "conv_rows": d["conv_rows"],
-                     "from_chunk": d["from_chunk"].bool()[:, :, None],
-                     "tok_valid": d["tok_valid"].float(),
-                     "tail_new": d["tail_new"].reshape(-1),
-                     "tail_old": d["tail_old"].reshape(-1),
-                     "tail_keep": d["tail_keep"].bool()[:, :, None]}
-            if hybrid:
-                schedule.dev = d["attn_schedule"]
-            slots, j, a = [], 0, 0
-            for i in range(cfg.num_layers):
-                if cfg.is_attn_layer(i):
-                    slots.append(RaggedSlot(
-                        cache.paged.k[a], cache.paged.v[a], d["tok_pages"],
-                        d["tok_in_pages"], d["page_table"], d["attn_seq"],
-                        d["bounds"], schedule=schedule))
-                    a += 1
-                else:
-                    slots.append(SSMSlot(rec.conv[j], rec.ssm[j], splan))
-                    j += 1
-            hidden, _ = self.ssm(d["ids"][None], d["positions"][None], slots)
-            last = hidden[0].index_select(0, d["out_idx"]) \
-                @ self.ssm.wte.weight.T
-            nxt = sample_token_rows(last)
+                W = aplan["page_table"].shape[1]
+                schedule = step_schedule(
+                    aplan, cache.paged, cfg.num_heads,
+                    capacity=cache.device.type == "cuda")
+            host = self._pack_plan(toks, plan, aplan, schedule)
+            last, nxt = self._ragged_run(cache, T, B, W, host, schedule)
             for s, t in rows:
                 cache.advance(s, len(t))
             n = plan["n_rows"]
         return last[:n], nxt[:n]
+
+    # ---- the step's pieces for RaggedGraphSteps ----------------------
+    def _ragged_pools(self, cache):
+        rec = getattr(cache, "recurrent", cache)
+        pools = rec.conv + rec.ssm
+        if self.ssm.hybrid:
+            pools += cache.paged.k + cache.paged.v
+        return pools
+
+    def _plan_layout(self, n_tokens, n_rows, width, schedule):
+        """(name, shape) of each array of the step's int32 plan, in the
+        order of the one host-to-device copy: a function of the
+        signature (and, in the hybrid, of kernel #1's table size, which
+        a capacity fixes per signature)."""
+        T, B, K1 = int(n_tokens), int(n_rows), self.cfg.d_conv - 1
+        layout = [("ids", (T,)), ("positions", (T,)), ("token_seq", (T,)),
+                  ("tok_valid", (T,)), ("slot_ids", (B,)), ("out_idx", (B,)),
+                  ("conv_rows", (K1, T)), ("from_chunk", (K1, T)),
+                  ("tail_new", (B, K1)), ("tail_old", (B, K1)),
+                  ("tail_keep", (B, K1))]
+        if self.ssm.hybrid:
+            layout += [("tok_pages", (T,)), ("tok_in_pages", (T,)),
+                       ("bounds", (T,)), ("page_table", (B, int(width))),
+                       ("attn_seq", (T,)),
+                       ("attn_schedule", (schedule.table.size,))]
+        return layout
+
+    def _pack_plan(self, toks, plan, aplan, schedule):
+        """The step's plan as ONE int32 host array (`_plan_layout`'s
+        order): RecurrentStateCache.plan_step's, its conv gathers
+        (`ssm_step_plan`) and, in the hybrid, the attention layers'
+        (PagedKVCache.plan_ragged's) with kernel #1's schedule."""
+        host = {"ids": toks, "positions": plan["positions"],
+                "token_seq": plan["token_seq"],
+                "tok_valid": plan["tok_valid"].astype(np.int32),
+                "slot_ids": plan["slot_ids"], "out_idx": plan["out_idx"]}
+        host.update(ssm_step_plan(plan, self.cfg.d_conv))
+        if aplan is not None:
+            for k in ("tok_pages", "tok_in_pages", "bounds", "page_table"):
+                host[k] = aplan[k]
+            host["attn_seq"] = aplan["token_seq"]
+            host["attn_schedule"] = schedule.table
+        width = 1 if aplan is None else aplan["page_table"].shape[1]
+        return np.concatenate([host[k].reshape(-1) for k, _ in
+                               self._plan_layout(len(toks),
+                                                 len(plan["slot_ids"]), width,
+                                                 schedule)])
+
+    def _ragged_pad_plan(self, cache, n_tokens, n_rows, width):
+        """An all-pad plan of the signature: every token a pad of row 0
+        (dt 0), every row slot 0, so a run writes only pad slot 0's conv
+        tail and state (and, in the hybrid, the pad page)."""
+        T, B = int(n_tokens), int(n_rows)
+        z = lambda n: np.zeros((n,), np.int32)  # noqa: E731
+        plan = {"positions": z(T), "token_seq": z(T), "chunk_pos": z(T),
+                "tok_valid": np.zeros((T,), np.float32), "slot_ids": z(B),
+                "row_end": z(B), "row_len": z(B), "out_idx": z(B)}
+        aplan = schedule = None
+        if self.ssm.hybrid:
+            aplan = pad_attention_plan(T, B, width)
+            schedule = step_schedule(aplan, cache.paged, self.cfg.num_heads,
+                                     capacity=True)
+        return self._pack_plan(z(T), plan, aplan, schedule), schedule
+
+    def _ragged_body(self, cache, dev, n_tokens, n_rows, width, schedule,
+                     block_plan=None):
+        """The step on the device plan `dev` (`_plan_layout`); nothing
+        here reads the plan's values on the host."""
+        cfg = self.cfg
+        rec = getattr(cache, "recurrent", cache)
+        layout = self._plan_layout(n_tokens, n_rows, width, schedule)
+        parts = dev.split([int(np.prod(shape)) for _, shape in layout])
+        d = {name: t.view(shape) for (name, shape), t in zip(layout, parts)}
+        splan = {"token_seq": d["token_seq"], "slot_ids": d["slot_ids"],
+                 "conv_rows": d["conv_rows"],
+                 "from_chunk": d["from_chunk"].bool()[:, :, None],
+                 "tok_valid": d["tok_valid"].float(),
+                 "tail_new": d["tail_new"].reshape(-1),
+                 "tail_old": d["tail_old"].reshape(-1),
+                 "tail_keep": d["tail_keep"].bool()[:, :, None]}
+        if schedule is not None:
+            schedule.dev = d["attn_schedule"]
+        slots, j, a = [], 0, 0
+        for i in range(cfg.num_layers):
+            if cfg.is_attn_layer(i):
+                slots.append(RaggedSlot(
+                    cache.paged.k[a], cache.paged.v[a], d["tok_pages"],
+                    d["tok_in_pages"], d["page_table"], d["attn_seq"],
+                    d["bounds"], schedule=schedule))
+                a += 1
+            else:
+                slots.append(SSMSlot(rec.conv[j], rec.ssm[j], splan))
+                j += 1
+        hidden, _ = self.ssm(d["ids"][None], d["positions"][None], slots)
+        last = hidden[0].index_select(0, d["out_idx"]) \
+            @ self.ssm.wte.weight.T
+        return last, sample_token_rows(last)
 
 
 def ssm_tiny(vocab=1024):

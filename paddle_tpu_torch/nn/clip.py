@@ -7,7 +7,7 @@ the tree functions the train step uses, `global_grad_norm` and
 and a clipped grad keeps its dtype. `Parameter.need_clip = False` (an
 attribute set on a torch Parameter) keeps a leaf out of the norm and
 the scaling. `ClipGradByNorm` and the `clip_grad_*_` helpers are not
-ported yet (ROADMAP.md queue A, item 12).
+ported yet (ROADMAP.md queue A, item A.4).
 """
 import torch
 

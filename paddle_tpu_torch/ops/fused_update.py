@@ -35,7 +35,7 @@ reference returns new ones (which XLA aliases through donation).
 
 Not ported: `set_psum_axes` / `_psum` / `_pmax`, the cross-shard
 reductions of the hybrid train step, wait for the distributed port
-(ROADMAP.md queue A, item 19).
+(ROADMAP.md queue A, item A.13).
 """
 import os
 

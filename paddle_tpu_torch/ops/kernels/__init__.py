@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels of the port, each beside its plain
 PyTorch twin (`<name>_reference`). Sources: paddle_tpu_torch/csrc/;
 built and loaded by _build.py. Below: what every wrapper shares."""
+import collections
 import functools
+import threading
 
 import torch
 
@@ -13,6 +15,38 @@ def work_dtype(dtype):
     """The twins' working dtype: float32 sums, or float64 when the inputs
     are (gradcheck)."""
     return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+_CAPTURES = threading.local()
+
+
+def capturing():
+    """Whether the current CUDA stream is capturing a CUDA graph (never
+    on a build of torch without CUDA)."""
+    return torch.cuda._is_compiled() \
+        and torch.cuda.is_current_stream_capturing()
+
+
+def captured_launches():
+    """{wrapper: launches} that CUDA-graph captures on this thread have
+    recorded (a Counter that only grows): a capture's own are the
+    difference across it."""
+    counter = getattr(_CAPTURES, "counter", None)
+    if counter is None:
+        counter = _CAPTURES.counter = collections.Counter()
+    return counter
+
+
+def count_launch(wrapper):
+    """One launch of `wrapper`'s kernel: adds one to `wrapper.launches`.
+    While the current stream captures a CUDA graph, which records the
+    launch and runs nothing, it goes to `captured_launches()` instead;
+    each replay of the graph then adds what its capture recorded to
+    `launches` (models/gpt.py `RaggedGraphSteps`)."""
+    if capturing():
+        captured_launches()[wrapper] += 1
+    else:
+        wrapper.launches += 1
 
 
 def current_stream(device):

@@ -34,7 +34,8 @@ import functools
 import torch
 
 from ..attention_core import NEG_INF, default_scale
-from . import DTYPE_CODES, _build, current_stream, work_dtype
+from . import (DTYPE_CODES, _build, count_launch, current_stream,
+               work_dtype)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
            "flash_attention_dkv", "flash_attention_fwd_reference",
@@ -206,7 +207,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     out = torch.empty(B, Tq, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", (q, k, v), (out, lse), causal, scale)
-    flash_attention_fwd.launches += 1
+    count_launch(flash_attention_fwd)
     return out, lse
 
 
@@ -222,7 +223,7 @@ def flash_attention_dq(q, k, v, dout, lse, delta, causal=False, scale=None):
     _launch("flash_attention_dq", (q, k, v, dout),
             (lse.float().contiguous(), delta.float().contiguous(), dq),
             causal, scale)
-    flash_attention_dq.launches += 1
+    count_launch(flash_attention_dq)
     return dq
 
 
@@ -239,7 +240,7 @@ def flash_attention_dkv(q, k, v, dout, lse, delta, causal=False,
     _launch("flash_attention_dkv", (q, k, v, dout),
             (lse.float().contiguous(), delta.float().contiguous(), dk, dv),
             causal, scale)
-    flash_attention_dkv.launches += 1
+    count_launch(flash_attention_dkv)
     return dk, dv
 
 

@@ -42,7 +42,7 @@ import functools
 import numpy as np
 import torch
 
-from . import DTYPE_CODES, _build, current_stream
+from . import DTYPE_CODES, _build, count_launch, current_stream
 
 __all__ = ["FlatBucket", "BucketSet", "fused_pass1", "fused_pass2",
            "fused_pass1_reference", "fused_pass2_reference",
@@ -449,7 +449,7 @@ def fused_pass1(bs, scale=None):
             gr["runs"].data_ptr(), gr["n_runs"], gr["tiles1"], _ptr(scale),
             part.data_ptr() + 4 * gr["slot1"], cu["slots1"], gr["grid1"],
             DTYPE_CODES[gr["dtype"]], stream))
-        fused_pass1.launches += 1
+        count_launch(fused_pass1)
     _check_err("fused_finalize", lib.fused_finalize(
         part.data_ptr(), cu["slots1"], 2, 0b10, 1, out.data_ptr(), stream))
     return out
@@ -497,7 +497,7 @@ def fused_pass2(bs, spec, lr, lr_t, clip_norm=None, clip_value=None,
             _ptr(sumsq) if clip_norm is not None else None, _ptr(found),
             part.data_ptr() + 4 * gr["slot2"], cu["slots2"], gr["grid2"],
             DTYPE_CODES[gr["dtype"]], stream))
-        fused_pass2.launches += 1
+        count_launch(fused_pass2)
     if not with_stats:
         return None
     out = torch.empty(2, dtype=torch.float32, device=bs.device)

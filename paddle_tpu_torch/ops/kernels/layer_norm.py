@@ -32,8 +32,8 @@ import functools
 
 import torch
 
-from . import DTYPE_CODES, _build, aligned16, current_stream, sm_count, \
-    work_dtype
+from . import (DTYPE_CODES, _build, aligned16, count_launch, current_stream,
+               sm_count, work_dtype)
 
 __all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd",
            "layer_norm_fwd_reference", "layer_norm_bwd_reference",
@@ -225,7 +225,7 @@ def layer_norm_fwd(x2d, w, b, eps=1e-5):
     if err:
         raise RuntimeError(f"layer_norm_fwd kernel launch failed: "
                            f"cudaError {err}")
-    layer_norm_fwd.launches += 1
+    count_launch(layer_norm_fwd)
     return y, mu, rstd
 
 
@@ -258,7 +258,7 @@ def layer_norm_bwd(x2d, w, mu, rstd, dy):
     if err:
         raise RuntimeError(f"layer_norm_bwd kernel launch failed: "
                            f"cudaError {err}")
-    layer_norm_bwd.launches += 1
+    count_launch(layer_norm_bwd)
     return dx, dw, db
 
 

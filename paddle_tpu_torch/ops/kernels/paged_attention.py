@@ -17,10 +17,16 @@ ceil(bound / P), 0 for pads) is part of the contract.
   package, and chip_smoke.py holds the kernel against it on the card.
 - `ragged_schedule` is the kernel's host-side (numpy) planner: the
   work units of one step (`RaggedSchedule`), built once a step for all
-  layers and shipped with the step's plan.
+  layers and shipped with the step's plan. With a `capacity`
+  (`ragged_capacity`: the most units any plan of a (tokens, rows, table
+  width) signature can produce) its table has a fixed size and the
+  kernel reads the real counts from the table's header, so the launch
+  is a function of the signature alone: what a captured CUDA graph
+  replays (models/gpt.py `RaggedGraphSteps`).
 - `build_block_plan` and `ragged_work_plan` are the host-side (numpy)
   planners the serving path shares with the reference.
 """
+import collections
 import ctypes
 import functools
 
@@ -28,11 +34,12 @@ import numpy as np
 import torch
 
 from ..attention_core import NEG_INF, default_scale
-from . import DTYPE_CODES, _build, current_stream, sm_count
+from . import (DTYPE_CODES, _build, capturing, count_launch, current_stream,
+               sm_count)
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_reference",
-           "ragged_schedule", "RaggedSchedule", "build_block_plan",
-           "ragged_work_plan"]
+           "ragged_schedule", "ragged_capacity", "RaggedSchedule",
+           "RaggedCapacity", "build_block_plan", "ragged_work_plan"]
 
 _HEAD_DIMS = (64, 128)
 # ctypes parameters of csrc/paged_attention.cu's paged_attention_ragged:
@@ -95,8 +102,10 @@ def ragged_work_plan(bounds, page_size):
 # The kernel's layout (csrc/paged_attention.cu reports its own; _kernel()
 # checks that they agree): ints of a schedule row, q rows of a
 # tensor-core unit and of a CUDA-core unit, pad tokens one block zeroes,
-# keys of a chunk (a page holds a whole number of chunks)
+# keys of a chunk (a page holds a whole number of chunks), ints of the
+# table's header (the live counts: tc rows, cc rows, pads, split slots)
 UNIT_INTS, TC_ROWS, CC_ROWS, PAD_TOKENS, CHUNK_KEYS = 8, 64, 16, 32, 16
+HEADER_INTS = 4
 # the fewest pages a split of a CUDA-core unit walks: two per warp of its
 # block, so that each warp's ring has a page to prefetch
 MIN_SPLIT_PAGES = 8
@@ -109,10 +118,15 @@ H100_SMS = 132
 _RM = (1, 4, CC_ROWS)
 
 
+RaggedCapacity = collections.namedtuple("RaggedCapacity",
+                                        "tc cc pad parts rm")
+
+
 class RaggedSchedule:
     """The kernel's work units for one set of (token_seq, bounds), as
     one flat int32 `table` the kernel reads:
 
+        header  [4]        live counts: n_tc, n_cc, n_pad, n_parts
         tc rows [n_tc, 8]  t0, n_tok, row, n_keys, min_keys, 0, 0, 0
         cc rows [n_cc, 8]  t0, n_tok, row, k_lo, k_hi, part, part0, n_split
         pads    [n_pad]    pad token ids
@@ -125,34 +139,62 @@ class RaggedSchedule:
     writes float32 partials into slot `part` of its unit's slots
     [part0, part0 + n_split), and the split that finishes last combines
     them in that order. `rm` (1, 4 or 16) bounds a cc unit's q rows
-    (n_tok x fold). `on(device)` gives the table on the device: the copy
-    shipped with the step (`dev`) or a new one."""
+    (n_tok x fold).
+
+    n_tc, n_cc, n_pad and n_parts are the table's layout, which sizes
+    the launch: the live counts (`live`), or with a `capacity` the
+    capacity's, the rows past the live ones zero (the kernel's blocks
+    for them return at once). `on(device)` gives the table on the
+    device: the copy shipped with the step (`dev`) or a new one.
+    `scratch`, when set, is the (partials, tickets) pair the kernel's
+    split units use (a captured graph's own, `graph_scratch`)."""
 
     __slots__ = ("table", "n_tokens", "n_tc", "n_cc", "n_pad", "n_parts",
-                 "n_split_units", "rm", "tensor_cores", "dev")
+                 "live", "n_split_units", "rm", "tensor_cores", "dev",
+                 "scratch")
 
     def __init__(self, tc, cc, pads, n_tokens, n_parts, n_split_units, rm,
-                 tensor_cores):
-        self.table = np.array(
-            [x for rows in (tc, cc) for u in rows for x in u] + list(pads),
-            np.int32)
+                 tensor_cores, capacity=None):
+        self.live = (len(tc), len(cc), len(pads), int(n_parts))
+        layout = self.live if capacity is None else capacity[:4]
+        if any(n > c for n, c in zip(self.live, layout)) or (
+                capacity is not None and rm > capacity.rm):
+            raise ValueError(f"the plan's units (tc, cc, pads, parts) "
+                             f"{self.live} at {rm} q rows exceed the "
+                             f"capacity {tuple(capacity)}")
+        self.n_tc, self.n_cc, self.n_pad, self.n_parts = map(int, layout)
+        self.rm = int(rm if capacity is None else capacity.rm)
+        table = np.zeros(HEADER_INTS + UNIT_INTS * (self.n_tc + self.n_cc)
+                         + self.n_pad, np.int32)
+        table[:HEADER_INTS] = self.live
+        at = HEADER_INTS
+        for rows, room in ((tc, self.n_tc), (cc, self.n_cc)):
+            if rows:
+                table[at:at + UNIT_INTS * len(rows)] = np.asarray(
+                    rows, np.int32).reshape(-1)
+            at += UNIT_INTS * room
+        table[at:at + len(pads)] = pads
+        self.table = table
         self.n_tokens = int(n_tokens)
-        self.n_tc, self.n_cc, self.n_pad = len(tc), len(cc), len(pads)
-        self.n_parts, self.n_split_units = int(n_parts), int(n_split_units)
-        self.rm = int(rm)
+        self.n_split_units = int(n_split_units)
         self.tensor_cores = bool(tensor_cores)
         self.dev = None
+        self.scratch = None
 
     def rows(self, kind):
-        """The [n, 8] rows of `kind` ("tc" or "cc"), or the pad token ids
-        ("pad")."""
-        at = self.n_tc * UNIT_INTS
+        """The live [n, 8] rows of `kind` ("tc" or "cc"), or the live pad
+        token ids ("pad")."""
+        n_tc, n_cc, n_pad, _ = self.live
+        at = HEADER_INTS
         if kind == "tc":
-            return self.table[:at].reshape(self.n_tc, UNIT_INTS)
+            return self.table[at:at + n_tc * UNIT_INTS].reshape(
+                n_tc, UNIT_INTS)
+        at += self.n_tc * UNIT_INTS
         if kind == "cc":
-            return self.table[at:at + self.n_cc * UNIT_INTS].reshape(
-                self.n_cc, UNIT_INTS)
-        return self.table[at + self.n_cc * UNIT_INTS:]
+            return self.table[at:at + n_cc * UNIT_INTS].reshape(
+                n_cc, UNIT_INTS)
+        at += self.n_cc * UNIT_INTS
+        return self.table[at:at + n_pad]
 
     @property
     def launches(self):
@@ -172,8 +214,53 @@ class RaggedSchedule:
         return torch.from_numpy(self.table).to(device)
 
 
+@functools.lru_cache(maxsize=4096)
+def ragged_capacity(n_tokens, n_rows, table_width, fold, n_kv_heads,
+                    tensor_cores, n_sms=H100_SMS):
+    """The most units `ragged_schedule` can produce for any plan of
+    n_tokens tokens over n_rows page-table rows of table_width pages in
+    which each row's tokens are consecutive (as PagedKVCache.plan_ragged
+    lays them out; pads anywhere): a RaggedCapacity(tc, cc, pad, parts,
+    rm), a function of the signature alone.
+
+    - tc (bfloat16): a row of L >= 2 tokens gives 1 + (L - 1) // per_tc
+      units, so k such rows give at most k + (T - k) // per_tc, largest
+      at k = min(B, T // 2);
+    - cc units: bfloat16, one a lone token, at most min(B, T); float32,
+      every row cut into units of per_cc tokens, at most k + (T - k) //
+      per_cc with k = min(B, T);
+    - cc rows: a unit splits into ceil(pages / per_split) rows with
+      per_split >= MIN_SPLIT_PAGES and per_split >= pages of all units x
+      kv heads / (BLOCKS_PER_SM x n_sms), so the rows are at most
+      units x ceil(W / MIN_SPLIT_PAGES) and units + BLOCKS_PER_SM x
+      n_sms // kv heads; split slots at most the rows, none when no unit
+      can split (W <= MIN_SPLIT_PAGES);
+    - pads: every token;
+    - rm: bfloat16 cc units hold one token (the fold's q rows);
+      float32 ones up to min(per_cc, T) tokens."""
+    T, B, W = int(n_tokens), int(n_rows), int(table_width)
+    fold, kvh = int(fold), int(n_kv_heads)
+    per_tc, per_cc = max(TC_ROWS // fold, 1), max(CC_ROWS // fold, 1)
+    if tensor_cores:
+        k = min(B, T // 2)
+        tc = k + (T - k) // per_tc if k else 0
+        units = min(B, T)
+        rows_max = fold
+    else:
+        k = min(B, T)
+        tc = 0
+        units = k + (T - k) // per_cc if k else 0
+        rows_max = min(per_cc, T) * fold
+    cc = min(units * -(-W // MIN_SPLIT_PAGES),
+             units + BLOCKS_PER_SM * int(n_sms) // kvh)
+    parts = cc if W > MIN_SPLIT_PAGES else 0
+    rm = next(r for r in _RM if r >= rows_max)
+    return RaggedCapacity(tc, cc, T, parts, rm)
+
+
 def ragged_schedule(token_seq, bounds, page_size, table_width, fold,
-                    n_kv_heads, tensor_cores, n_rows=None, n_sms=H100_SMS):
+                    n_kv_heads, tensor_cores, n_rows=None, n_sms=H100_SMS,
+                    capacity=None):
     """HOST-side (numpy) work units of the ragged kernel for one step:
     the same for every layer, so a serving step builds it once and ships
     it with its plan (`RaggedSchedule`).
@@ -189,7 +276,9 @@ def ragged_schedule(token_seq, bounds, page_size, table_width, fold,
     all kv heads) need, each unit's pages dealt evenly. Pad tokens get no
     unit. A unit's keys stop at its largest bound, or at the table's
     end (table_width pages). The last split of a unit to finish merges
-    its splits' partials in split order."""
+    its splits' partials in split order. With `capacity` (a
+    RaggedCapacity) the same units lie in a table padded to it; a plan
+    that exceeds it raises ValueError."""
     seq = np.asarray(token_seq, np.int64).reshape(-1)
     bd = np.asarray(bounds, np.int64).reshape(-1)
     T = seq.size
@@ -239,7 +328,7 @@ def ragged_schedule(token_seq, bounds, page_size, table_width, fold,
     rows_max = max((u[1] for u in cc_units), default=1) * fold
     rm = next(r for r in _RM if r >= rows_max)
     return RaggedSchedule(tc, cc, pads, T, n_parts, n_split_units, rm,
-                          tensor_cores)
+                          tensor_cores, capacity)
 
 
 def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
@@ -318,9 +407,10 @@ def _kernel():
     kept, so a launch costs no lookup. Checks that the source's layout
     is the one `ragged_schedule` writes."""
     lib = _build.load("paged_attention")
-    layout = (ctypes.c_int * 5)()
+    layout = (ctypes.c_int * 6)()
     lib.paged_attention_layout(layout)
-    want = (UNIT_INTS, TC_ROWS, CC_ROWS, PAD_TOKENS, CHUNK_KEYS)
+    want = (UNIT_INTS, TC_ROWS, CC_ROWS, PAD_TOKENS, CHUNK_KEYS,
+            HEADER_INTS)
     if tuple(layout) != want:
         raise RuntimeError(f"csrc/paged_attention.cu lays out "
                            f"{tuple(layout)}, the schedule {want}")
@@ -333,12 +423,32 @@ def _kernel():
 _SCRATCH = {}
 
 
+def _scratch_sizes(schedule, n_kv_heads, head_dim):
+    """(floats, tickets) a call on `schedule` needs: (m, l, o[D]) per
+    (split slot, kv head, q row), one ticket per (slot, kv head)."""
+    slots = schedule.n_parts * n_kv_heads
+    return slots * schedule.rm * (head_dim + 2), slots
+
+
+def graph_scratch(schedule, n_kv_heads, head_dim, device):
+    """(float32 partials, int32 tickets) for a graph captured over
+    `schedule` (a capacity schedule): allocated before the capture and
+    owned by the graph, never by an eager call. The kernel leaves each
+    ticket at 0; the graph zeroes them before its first launch, so a
+    replay cut short by an error leaves none behind."""
+    n_floats, n_tickets = _scratch_sizes(schedule, n_kv_heads, head_dim)
+    return (torch.empty(max(n_floats, 1), dtype=torch.float32,
+                        device=device),
+            torch.zeros(max(n_tickets, 1), dtype=torch.int32,
+                        device=device))
+
+
 def _scratch(device, stream, n_floats, n_tickets):
     """(float32 partials, int32 tickets) of at least n_floats and
-    n_tickets for calls on (device, stream), kept between calls: a call
-    writes every partial it reads, the kernel leaves each ticket it takes
-    at 0 again, and calls on one stream run one after another. Grown
-    when a call needs more."""
+    n_tickets for eager calls on (device, stream), kept between calls: a
+    call writes every partial it reads, the kernel leaves each ticket it
+    takes at 0 again, and calls on one stream run one after another.
+    Grown when a call needs more."""
     key = (device.index, stream)
     bufs = _SCRATCH.get(key)
     if bufs is None or bufs[0].numel() < n_floats \
@@ -357,7 +467,9 @@ def _launch(q, k_pages, v_pages, page_table, token_seq, bounds, scale,
     units' scratch, and launch on the current stream. With a schedule
     whose device copy came with the step, the call reads nothing back
     from the device; without one it builds the schedule from token_seq
-    and bounds (one device-to-host read)."""
+    and bounds (one device-to-host read), which a stream capturing a
+    CUDA graph cannot do: there the call raises, as it does without the
+    graph's own scratch (`RaggedSchedule.scratch`)."""
     T, H, D = q.shape
     n_pages, P, KVH, _ = k_pages.shape
     B, W = page_table.shape
@@ -379,6 +491,11 @@ def _launch(q, k_pages, v_pages, page_table, token_seq, bounds, scale,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     stream = current_stream(q.device)
+    if capturing() and (schedule is None or schedule.scratch is None):
+        raise RuntimeError("a captured ragged paged attention call needs a "
+                           "shipped schedule with the graph's scratch "
+                           "(graph_scratch): no device read, no scratch "
+                           "shared with eager calls")
     fn = _kernel()
     out = torch.empty_like(q)
     work = torch.empty(T, dtype=torch.int32, device=q.device)
@@ -396,8 +513,15 @@ def _launch(q, k_pages, v_pages, page_table, token_seq, bounds, scale,
                          f"{q.dtype}")
     table = schedule.on(q.device)
     slots = schedule.n_parts * KVH
-    part, tickets = _scratch(q.device, stream, slots * schedule.rm * (D + 2),
-                             slots)
+    if schedule.scratch is not None:
+        part, tickets = schedule.scratch
+        n_floats, n_tickets = _scratch_sizes(schedule, KVH, D)
+        if part.numel() < n_floats or tickets.numel() < n_tickets:
+            raise ValueError("the schedule's scratch is smaller than its "
+                             "split units need")
+    else:
+        part, tickets = _scratch(q.device, stream,
+                                 *_scratch_sizes(schedule, KVH, D))
     ml = part.data_ptr()
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), bounds.data_ptr(), table.data_ptr(),
@@ -431,7 +555,8 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, token_seq,
                 (`ragged_schedule`, with its device copy), built once a
                 step by the serving path; without one the CUDA path
                 builds it from token_seq and bounds (a device-to-host
-                read). The plain twin needs none.
+                read; a call captured into a CUDA graph raises). The
+                plain twin needs none.
 
     q and the pools share float32 or bfloat16; out has q's dtype.
     Returns out [T, H, D] (and, with return_work, int32 [T] kv pages
@@ -440,8 +565,9 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, token_seq,
     CPU tensors run the plain twin. CUDA tensors launch the kernel
     (head_dim 64 or 128, a page size that is a multiple of 16, a fold of
     at most 16, contiguous, 16-byte aligned pools) or raise; each call
-    adds one to `ragged_paged_attention.launches` (it makes 1-3 CUDA
-    launches: `RaggedSchedule.launches`)."""
+    adds one to `ragged_paged_attention.launches` (it makes 1-2 CUDA
+    launches: `RaggedSchedule.launches`), or, captured into a CUDA
+    graph, to `captured_launches()` (`count_launch`)."""
     _check(q, k_pages, v_pages, page_table, token_seq, bounds)
     scale = default_scale(scale, q.shape[2])
     if q.device.type == "cpu":
@@ -453,7 +579,7 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, token_seq,
                          f"cpu (plain twin), not {q.device.type}")
     out, work = _launch(q, k_pages, v_pages, page_table, token_seq, bounds,
                         scale, schedule)
-    ragged_paged_attention.launches += 1
+    count_launch(ragged_paged_attention)
     return (out, work) if return_work else out
 
 

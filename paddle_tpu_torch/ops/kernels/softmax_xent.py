@@ -29,7 +29,8 @@ import functools
 
 import torch
 
-from . import DTYPE_CODES, _build, aligned16, current_stream, work_dtype
+from . import (DTYPE_CODES, _build, aligned16, count_launch, current_stream,
+               work_dtype)
 
 __all__ = ["softmax_xent_arrays", "softmax_xent_fwd", "softmax_xent_bwd",
            "softmax_xent_fwd_reference", "softmax_xent_bwd_reference",
@@ -157,7 +158,7 @@ def softmax_xent_fwd(x2d, labels):
     if err:
         raise RuntimeError(f"softmax_xent_fwd kernel launch failed: "
                            f"cudaError {err}")
-    softmax_xent_fwd.launches += 1
+    count_launch(softmax_xent_fwd)
     return loss, lse
 
 
@@ -183,7 +184,7 @@ def softmax_xent_bwd(x2d, labels, lse, dloss):
     if err:
         raise RuntimeError(f"softmax_xent_bwd kernel launch failed: "
                            f"cudaError {err}")
-    softmax_xent_bwd.launches += 1
+    count_launch(softmax_xent_bwd)
     return dx
 
 

@@ -37,7 +37,7 @@ import functools
 
 import torch
 
-from . import _build, current_stream, sm_count
+from . import _build, count_launch, current_stream, sm_count
 
 __all__ = ["ssm_scan", "selective_scan_reference", "scan_tiling"]
 
@@ -54,8 +54,8 @@ MAX_TOKENS = 8
 
 _NO_BACKWARD = (
     "the selective scan has no backward (neither here nor in the "
-    "reference, whose Pallas kernel has no VJP): SSM training waits for "
-    "one, ROADMAP.md queue A, item 16")
+    "reference, whose Pallas kernel has no VJP); SSM training is out of "
+    "scope this round (ROADMAP.md)")
 
 Tiling = collections.namedtuple("Tiling", "channels tokens")
 
@@ -192,7 +192,7 @@ def _launch(x, dt, b, c, a, h0, token_seq, tiling=None):
              tl.tokens, stream)
     if err:
         raise RuntimeError(f"ssm_scan kernel launch failed: cudaError {err}")
-    ssm_scan.launches += 1
+    count_launch(ssm_scan)
     return y, h_out
 
 

@@ -24,11 +24,11 @@ its lr, as the reference's tree path does.
 multi-tensor epilogue (ops/fused_update.py); it is None under
 `_stochastic_rounding`, which sends TrainStep to the tree path. Neither
 epilogue of the port implements stochastic rounding or a `_state_dtype`
-other than float32 yet (ROADMAP.md queue A, item 12): the tree path
+other than float32 yet (ROADMAP.md queue A, item A.4): the tree path
 raises for the first, both for the second.
 The eager `step()` path, the other optimizers, param groups, LR
 schedulers and the coupled weight-decay regularizers are not ported yet
-(ROADMAP.md queue A, item 12).
+(ROADMAP.md queue A, item A.4).
 """
 import numbers
 
@@ -44,11 +44,11 @@ class Optimizer:
         if not isinstance(learning_rate, numbers.Real):
             raise NotImplementedError(
                 "learning-rate schedulers are not ported yet (ROADMAP.md "
-                "queue A, item 12); pass a float")
+                "queue A, item A.4); pass a float")
         params = list(parameters) if parameters is not None else []
         if params and isinstance(params[0], dict):
             raise NotImplementedError("parameter groups are not ported yet "
-                                      "(ROADMAP.md queue A, item 12)")
+                                      "(ROADMAP.md queue A, item A.4)")
         self._parameters = params
         self._learning_rate = float(learning_rate)
         self._grad_clip = grad_clip
@@ -90,7 +90,7 @@ class Optimizer:
             raise NotImplementedError(
                 f"_state_dtype={self._state_dtype!r}: optimizer state in a "
                 "dtype other than float32 is not ported yet on either "
-                "epilogue (ROADMAP.md queue A, item 12)")
+                "epilogue (ROADMAP.md queue A, item A.4)")
 
     def fused_spec(self):
         """Static hyperparameters of the fused epilogue's kernels, or
@@ -143,7 +143,7 @@ class Optimizer:
         if self._stochastic_rounding:
             raise NotImplementedError(
                 "stochastic rounding is not ported yet on either epilogue "
-                "(ROADMAP.md queue A, item 12)")
+                "(ROADMAP.md queue A, item A.4)")
         wd = self._decoupled_decay_coeff()
         for k, p in params.items():
             s = state[k]

@@ -1,4 +1,5 @@
-"""Parity of the port's Paddle-API functionals with the JAX package.
+"""Parity of the port's Paddle-API functionals and signatures with the
+JAX package.
 
 `softplus(x, beta, threshold)`, `gelu`, `silu` and `layer_norm` of
 paddle_tpu_torch.nn.functional against paddle_tpu.nn.functional on the
@@ -7,11 +8,20 @@ would. softplus straddles its threshold (x up to 8 at beta 2.0 and
 threshold 5.0), so both branches run. The SSM mixer's private softplus
 (`jax.nn.softplus`, no threshold) against jax.nn.softplus itself.
 
+The signatures of SSMConfig, GPTConfig, RecurrentStateCache and
+TrainStep against the reference's (ROADMAP C.3): the same parameters in
+the same order with the same defaults (the dtype default is each
+framework's float32; the cache's `device` is the port's own); the stored
+fields equal the reference's; a value the port cannot run raises
+NotImplementedError naming its ROADMAP.md queue-A item.
+
 Tolerance: 1e-6 relative and absolute in float32. Both sides evaluate
 the same formula on float32 values of O(1-10); their exp, log1p, tanh
 and erf differ by a few ulps. layer_norm within 1e-5: its float32 mean
 and variance are sums taken in another order, then scaled by rstd.
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -19,10 +29,19 @@ import torch
 import jax
 
 import paddle_tpu as paddle
+from paddle_tpu.inference.cache_strategy import \
+    RecurrentStateCache as RefRecurrent
+from paddle_tpu.jit import TrainStep as RefTrainStep
+from paddle_tpu.models.gpt import GPTConfig as RefGPTConfig
+from paddle_tpu.models.ssm import SSMConfig as RefSSMConfig
 from paddle_tpu.nn import functional as RF
 
+from paddle_tpu_torch.inference import RecurrentStateCache
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM, SSMConfig
 from paddle_tpu_torch.models import ssm as port_ssm
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.optimizer import AdamW
 
 RTOL = ATOL = 1e-6
 
@@ -87,3 +106,61 @@ def test_ssm_mixer_softplus_is_jax_softplus():
     """No threshold: at x = 30 it is 30 + exp(-30), not x."""
     x = _x(seed=5, span=40.0)
     _close(port_ssm._softplus(torch.from_numpy(x)), jax.nn.softplus(x))
+
+
+# -- signatures (ROADMAP C.3) ------------------------------------------------
+
+def _params(fn, drop=()):
+    return [(p.name, p.default)
+            for p in inspect.signature(fn).parameters.values()
+            if p.name not in drop]
+
+
+@pytest.mark.parametrize("port,ref,drop", [
+    (SSMConfig, RefSSMConfig, ()),
+    (GPTConfig, RefGPTConfig, ()),
+    (TrainStep, RefTrainStep, ()),
+    # the dtype default is each framework's float32; `device` the port's
+    (RecurrentStateCache, RefRecurrent, ("dtype", "device")),
+], ids=["SSMConfig", "GPTConfig", "TrainStep", "RecurrentStateCache"])
+def test_signature_matches_reference(port, ref, drop):
+    assert _params(port, drop) == _params(ref, drop)
+
+
+def test_configs_store_the_reference_fields():
+    kw = dict(vocab_size=64, hidden_size=32, num_layers=2, d_state=4,
+              sequence_parallel=False)
+    assert vars(SSMConfig(**kw)) == vars(RefSSMConfig(**kw))
+    assert vars(GPTConfig(vocab_size=64)) == vars(RefGPTConfig(vocab_size=64))
+    mine = RecurrentStateCache(2, 4, 64, 4, 4, page_size=8, device="cpu")
+    ref = RefRecurrent(2, 4, 64, 4, 4, page_size=8)
+    assert (mine.page_size, mine.n_pages) == (ref.page_size, ref.n_pages)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("sequence_parallel", True), ("num_experts", 4), ("moe_every", 1),
+    ("moe_top_k", 1), ("moe_capacity_factor", 2.0)])
+def test_gpt_config_refuses_unported_fields(field, value):
+    with pytest.raises(NotImplementedError, match=r"queue A, item A\.13"):
+        GPTConfig(**{field: value})
+
+
+def test_train_step_takes_the_reference_keywords():
+    model = GPTForCausalLM(GPTConfig(vocab_size=64, hidden_size=32,
+                                     num_layers=1, num_heads=2,
+                                     max_position_embeddings=16),
+                           device="cpu")
+
+    def loss(logits, labels):
+        return F.cross_entropy(logits.reshape(-1, 64), labels.reshape(-1))
+
+    def opt():
+        return AdamW(parameters=model.parameters())
+
+    TrainStep(model, loss, opt(), donate=False, mesh=None,
+              in_shardings=None, model_returns_loss=False)
+    for kw, item in ((dict(mesh=object()), r"A\.13"),
+                     (dict(in_shardings=(None,)), r"A\.13"),
+                     (dict(model_returns_loss=True), r"A\.5")):
+        with pytest.raises(NotImplementedError, match=item):
+            TrainStep(model, loss, opt(), **kw)

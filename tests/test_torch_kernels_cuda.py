@@ -75,6 +75,17 @@ kernel-against-oracle tolerance (float32 sums over N in another order,
 nvcc's fused multiply-adds); a row that only pads touch, or none, keeps
 its state bit for bit. A CUDA
 call on tensors that require grad, or on other dtypes, raises.
+
+The compiled serving step (models/gpt.py `RaggedGraphSteps`): kernel
+#1 with its schedule table padded to the call's signature's capacity
+against the exact table, bit for bit (outputs and work; the same units,
+and no build of the CUDA-core path contracts another's products); a
+replayed step of a tiny bf16 GPT, pure SSM and hybrid against its body
+run eagerly on a copy of the pools with the plan the replay copied in,
+logits, tokens and every pool bit for bit (the same kernels in the same
+order), and the launch counts a replay adds; two engines over one model
+holding separate graphs; `engine.warm` capturing on the scheduler
+thread, after which the traffic adds no retraces.
 """
 import numpy as np
 import pytest
@@ -950,3 +961,184 @@ def test_ssm_scan_counts_no_launch_for_an_empty_batch():
                        torch.empty(0, dtype=torch.int32, device=dev))
     assert sk.ssm_scan.launches == before
     assert y.shape == (0, D) and torch.equal(h, h0)
+
+
+# -- the compiled serving step: capacity tables and CUDA graphs -------------
+#
+# A captured step ships kernel #1's table padded to its signature's
+# capacity: the same units, so the same bits and work as the exact table.
+# A replay must equal the step's body run eagerly on a copy of the pools,
+# with the plan the replay copied in, bit for bit (the same kernels in the
+# same order). Tiny bf16 models: GPT 2 layers, 4 heads of 64; SSM 2
+# layers at width 64; the hybrid's layer 1 attention.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", PAGED_CASES)
+def test_capacity_table_matches_exact_table_on_card(name, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    args = _paged_args(name, dtype, seed=2)
+    q, kp, _, pt, seq, bd = args
+    fold, kvh = H // kp.shape[2], kp.shape[2]
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tc = dtype == torch.bfloat16
+    cap = pa.ragged_capacity(q.shape[0], *pt.shape, fold, kvh, tc, n_sms)
+    out = {}
+    for key, capacity in (("exact", None), ("capacity", cap)):
+        sched = pa.ragged_schedule(
+            seq.cpu().numpy(), bd.cpu().numpy(), P, pt.shape[1], fold, kvh,
+            tc, n_rows=pt.shape[0], n_sms=n_sms, capacity=capacity)
+        sched.dev = sched.on(q.device)
+        out[key] = pa.ragged_paged_attention(*args, schedule=sched,
+                                             return_work=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out["exact"][0], out["capacity"][0])
+    assert torch.equal(out["exact"][1], out["capacity"][1])
+
+
+def _tiny(kind):
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         SSMConfig, SSMForCausalLM)
+    torch.manual_seed(0)
+    if kind == "gpt":
+        cfg = GPTConfig(vocab_size=256, hidden_size=256, num_layers=2,
+                        num_heads=4, max_position_embeddings=512,
+                        initializer_range=0.5)
+        return GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    extra = dict(attn_every=2, num_heads=1) if kind == "hybrid" else {}
+    cfg = SSMConfig(vocab_size=256, hidden_size=64, num_layers=2,
+                    d_state=16, max_position_embeddings=512,
+                    initializer_range=0.5, **extra)
+    return SSMForCausalLM(cfg, dtype=torch.bfloat16)
+
+
+def _width(model, cache, sids):
+    paged = getattr(cache, "paged", cache)
+    if not hasattr(paged, "_tables"):
+        return 1
+    pages = max(len(paged._tables[s]) for s in sids)
+    return 1 << (pages - 1).bit_length()
+
+
+def _shadow(cache):
+    """A copy of `cache` over clones of its pools."""
+    import copy
+
+    def clone(owner, names):
+        owner = copy.copy(owner)
+        for name in names:
+            setattr(owner, name, [t.clone() for t in getattr(owner, name)])
+        return owner
+
+    if hasattr(cache, "paged"):
+        shadow = copy.copy(cache)
+        shadow.paged = clone(cache.paged, ("k", "v"))
+        shadow.recurrent = clone(cache.recurrent, ("conv", "ssm"))
+        return shadow
+    return clone(cache, ("k", "v") if hasattr(cache, "k") else
+                 ("conv", "ssm"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gpt", "ssm", "hybrid"])
+def test_graph_replay_matches_eager_body_on_card(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    model = _tiny(kind)
+    cache = model.make_paged_cache(64, 16)
+    rng = np.random.RandomState(0)
+    sids = [f"s{i}" for i in range(4)]
+    with cache.lock:
+        for sid in sids:
+            cache.add_sequence(sid)
+    for i, sid in enumerate(sids[1:]):  # histories of 40, 70, 100 tokens
+        model.paged_ragged_step(
+            cache, [(sid, rng.randint(0, 256, 40 + 30 * i))],
+            pad_to_tokens=128, pad_to_rows=1)
+    steps = [([(sids[0], rng.randint(0, 256, 20))]
+              + [(s, rng.randint(0, 256, 1)) for s in sids[1:]], 32),
+             ([(s, rng.randint(0, 256, 1)) for s in sids], 8)]
+
+    def runs():  # replays, and one eager run before each capture
+        graphs = cache._ragged_graphs.steps.values()
+        return sum(st.replays for st in graphs) + len(graphs)
+
+    before = runs()
+    launched = pa.ragged_paged_attention.launches + sk.ssm_scan.launches
+    for rows, T in steps:
+        shadow = _shadow(cache)
+        last, nxt = model.paged_ragged_step(cache, rows, pad_to_tokens=T,
+                                            pad_to_rows=4)
+        W = _width(model, cache, [s for s, _ in rows])
+        step = model.ragged_graph(cache, T, 4, W)
+        assert step is not None and step.replays >= 1
+        last2, nxt2 = model.run_ragged_body(shadow, step.host.copy(), T, 4,
+                                            W)
+        torch.cuda.synchronize()
+        assert torch.equal(last, last2[:len(rows)])
+        assert torch.equal(nxt, nxt2[:len(rows)])
+        for a, b in zip(model._ragged_pools(cache),
+                        model._ragged_pools(shadow)):
+            assert torch.equal(a, b)
+    # every step was a replay: each launches a kernel a layer, as do
+    # each capture's eager run before it and the test's eager bodies
+    assert pa.ragged_paged_attention.launches + sk.ssm_scan.launches \
+        - launched == (runs() - before + len(steps)) * model.cfg.num_layers
+
+
+@pytest.mark.cuda
+def test_two_engines_over_one_model_never_share_a_graph_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    from paddle_tpu_torch.inference import GenerationEngine
+    model = _tiny("gpt")
+    prompt = np.arange(40) % 256
+    engines, streams = [], []
+    try:
+        for _ in range(2):  # the second made while the first is alive
+            engines.append(GenerationEngine(
+                model, n_pages=32, page_size=16, max_batch=2,
+                max_new_tokens=6, prefill_chunk=16))
+            streams.append(engines[-1].submit(prompt).result(
+                timeout=300).tolist())
+    finally:
+        for e in engines:
+            e.shutdown()
+    assert streams[0] == streams[1]
+    graphs = [e.cache._ragged_graphs for e in engines]
+    assert graphs[0] is not graphs[1] and graphs[0].pool != graphs[1].pool
+    keys = [set(g.steps) for g in graphs]
+    assert keys[0] and not keys[0] & keys[1]
+    assert {k[1:4] for k in keys[0]} == {k[1:4] for k in keys[1]}
+    assert engines[0].retraces == engines[1].retraces == len(keys[0])
+
+
+@pytest.mark.cuda
+def test_warm_captures_on_the_scheduler_thread_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    import threading
+
+    from paddle_tpu_torch.inference import GenerationEngine
+    model = _tiny("ssm")
+    threads = []
+    real = model.warm_ragged
+
+    def warm(cache, *sig):
+        threads.append(threading.current_thread().name)
+        return real(cache, *sig)
+
+    model.warm_ragged = warm
+    eng = GenerationEngine(model, n_pages=9, max_batch=2, max_new_tokens=6,
+                           prefill_chunk=16)
+    try:
+        n = eng.warm(40, 6)
+        assert n == eng.retraces > 0 and set(threads) == {"serve-decode"}
+        launched = sk.ssm_scan.launches
+        out = eng.submit(np.arange(40) % 256).result(timeout=300)
+        assert len(out) == 6 and eng.retraces == n
+        assert sk.ssm_scan.launches - launched \
+            == eng.steps * model.cfg.num_layers
+    finally:
+        eng.shutdown()
