@@ -49,17 +49,44 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    other kernel (#2-#11) at all; printed: retraces in wave B, wall and
    device ms a step, idle share, tokens/s, TTFT, the graphs' memory
    pool and the peak memory, and the host planner's microseconds a step
-   (the cache's step plan and kernel #1's schedule, both numpy). Then,
+   (the cache's step plan and kernel #1's schedule, both numpy). Wave
+   C's profile must show no sort kernel (greedy steps replay the greedy
+   head). Then wave D: wave B's prompt lengths with new tokens, the
+   odd-numbered requests sampled (temperature 0.8, top_k 50, top_p
+   0.95, seed = the index), the others greedy: retraces must be 0 (wave
+   A captured both heads of each signature); timed, then again
+   profiled (sort kernels must show); a seeded request alone twice
+   gives bit-equal streams; tokens/s, wall and device ms a step. Then,
    on the engine's cache, a mixed step (a 128-token chunk and 7 decode
-   rows with histories of 63-699 tokens) and a decode step of 8 rows,
-   each replayed and its body run eagerly on a copy of the pools from
-   before it, with the plan the replay copied in: logits, next tokens
-   and every pool bit-equal. The kernel is held against the twin on
-   layer 0's inputs of those two eager runs;
+   rows with histories of 63-699 tokens), a decode step of 8 rows and
+   the mixed step again with the odd rows sampled, each replayed and
+   its layers and head run eagerly on a copy of the pools from before
+   it, with the plan the replay copied in: logits, next tokens and
+   every pool bit-equal; the sampled and greedy heads of that step's
+   graph replayed alone under the profiler give the sampler's device
+   ms a sampled step. The kernel is held against the twin on layer 0's
+   inputs of the first two eager runs;
+4b. speculative decoding on phase 4's model: a 6-layer draft of the
+   same width carrying the target's first 6 blocks, embeddings and
+   final LayerNorm by name, k = 4. A greedy and a fully sampled wave
+   (phase 4's prompt lengths, new tokens, seeds 100-107) on one engine,
+   the sampled wave again with the draft's temperature 1.5 on another:
+   streams equal to a non-speculative engine's on the same prompts and
+   seeds, or at the first mismatch the target's top-2 gap there (of
+   the perturbed values, for a sampled request) within 4 bf16 ulps of
+   its largest logit (over the temperature); accepted and rejected
+   proposals both > 0; kernel #1's launches over the speculative runs
+   exactly (target replays + captures) x 24 + (draft replays +
+   captures) x 6; accept rate, tokens/s, target and draft steps and
+   wall ms a target step printed. Then a verify-shaped step (8 rows of
+   5 tokens, the per-token sampled head) replayed and held against its
+   eager layers and head bit for bit;
 5. the same prompts at GPT-medium width with 2 layers in float32, once
    on the card (kernel) and once on the CPU (plain twin): greedy
    streams must be equal; at a mismatch the CPU's top-2 logit gap at
-   that token is printed and must be at most 1e-3 (a near-tie);
+   that token is printed and must be at most 1e-3 (a near-tie); then
+   every request sampled (seeds 200-207): equal, or the CPU's top-2 gap
+   of the perturbed values at the first mismatch at most 1e-3;
 6. the three flash-attention kernels (forward, dQ, dK/dV) against their
    plain twins, q/k/v as strided views of one fused projection, in
    bfloat16 and float32: at head_dim 64 [8, 1024, 16, 64] causal and
@@ -173,19 +200,22 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    phase 4's three waves: every handle must finish with 64 tokens, in
    wave B the scan must have launched exactly (replays + captures) x 24
    times and no other kernel (#1-#10) at all, and the inert prefix cache
-   must have served no token; the same prints as phase 4. Then phase
-   4's replayed mixed and decode steps against their eager bodies, and
-   the kernel held against the twin on their layer-0 scan inputs (|y|
-   there is ~1e-6, so the scaled atol is what holds it);
+   must have served no token; the same prints as phase 4, wave D and
+   its checks included. Then phase 4's replayed mixed, decode and
+   sampled mixed steps against their eager bodies, and the kernel held
+   against the twin on the first two's layer-0 scan inputs (|y| there
+   is ~1e-6, so the scaled atol is what holds it);
 14. the same prompts through 2-layer float32 SSMs at that width, pure
    and hybrid (attn_every 2, 12 heads: head_dim 64, so kernels #1 and
    #11 both run), weights of std 0.5 so that the greedy streams vary
    (checked), on the card and on the CPU: greedy streams equal, or the
    CPU's top-2 gap at the first mismatch at most 1e-3; with every stream
    equal, the real slots' conv tails and states after the run within
-   1e-3 of each pool's largest entry;
-15. the kernels line (each flash kernel twice: head_dim 64 and, with
-   the suffix "_d128", 128), then, last, {"ok": true, "device": {...}}.
+   1e-3 of each pool's largest entry; every request sampled (seeds
+   300-307): as phase 5's sampled streams;
+15. the smoke's run time and the kernels line (each flash kernel
+   twice: head_dim 64 and, with the suffix "_d128", 128), then, last,
+   {"ok": true, "device": {...}}.
 
 Each main path (GPT serving in phase 4's wave B, training in phase 7's
 first run for kernels #2-#4 and #9-#10, phase 7's third run for #5-#8,
@@ -221,6 +251,15 @@ SERVE = dict(n_pages=1024, page_size=16, max_batch=8, max_new_tokens=64,
              prefill_chunk=128)
 NEW_TOKENS = 64
 GAP_LIMIT = 1e-3
+# the sampled requests of the waves D (phases 4, 13) and 4b
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+# phase 4b: the layer-truncated self-draft's depth, its proposals a step,
+# the third run's draft temperature; the bf16 gap rule of the tier-1
+# tests (a near-tie within BF16_ULPS ulps of the largest logit)
+DRAFT_LAYERS = 6
+SPEC_K = 4
+DRAFT_TEMPERATURE = 1.5
+BF16_ULPS = 4
 
 
 def check(cond, msg):
@@ -586,31 +625,67 @@ def make_prompts(vocab):
                               for n in (64, 160, 320, 448, 576, 640)]
 
 
-def serve(GenerationEngine, model, prompts, engine_kw=SERVE):
+def serve(GenerationEngine, model, prompts, engine_kw=SERVE, sampling=None):
     """The traffic on a new engine: the first prompt alone (on a paged
     cache it registers its prefix on finishing), then the other seven at
     once. Returns (engine, handles, streams, seconds of the second wave,
     seconds of both)."""
     eng = GenerationEngine(model, **engine_kw)
     try:
-        handles, streams, wave_s, all_s = traffic(eng, prompts)
+        handles, streams, wave_s, all_s = traffic(eng, prompts, sampling)
     finally:
         eng.shutdown()
     return eng, handles, streams, wave_s, all_s
 
 
-def traffic(eng, prompts):
+def traffic(eng, prompts, sampling=None):
     """The first prompt alone, then the other seven at once, on a running
-    engine. Returns (handles, streams, seconds of the seven, seconds of
-    both)."""
+    engine; `sampling` a SamplingParams (or None: greedy) a prompt.
+    Returns (handles, streams, seconds of the seven, seconds of both)."""
+    sampling = sampling or [None] * len(prompts)
     t_all = time.perf_counter()
-    h0 = eng.submit(prompts[0])
+    h0 = eng.submit(prompts[0], sampling=sampling[0])
     streams = [h0.result(timeout=900).tolist()]
     t0 = time.perf_counter()
-    hs = [eng.submit(p) for p in prompts[1:]]
+    hs = [eng.submit(p, sampling=sp)
+          for p, sp in zip(prompts[1:], sampling[1:])]
     streams += [h.result(timeout=900).tolist() for h in hs]
     return ([h0] + hs, streams, time.perf_counter() - t0,
             time.perf_counter() - t_all)
+
+
+def wave_sampling(n, sampled=(1, 3, 5, 7), seed=0):
+    """SamplingParams(SAMPLED, seed=seed + i) for the requests i in
+    `sampled`, None (greedy) for the others."""
+    from paddle_tpu_torch.inference import SamplingParams
+    return [SamplingParams(**SAMPLED, seed=seed + i) if i in sampled
+            else None for i in range(n)]
+
+
+def sort_kernels(by_name):
+    """The profiled device kernels whose names say they sort."""
+    return sorted(k for k in by_name if "sort" in k.lower())
+
+
+def head_ms(torch, step, n=20):
+    """Device ms of one replay of a captured step's greedy and sampled
+    per-row heads (the LM head's product and the sampler), from a
+    profile of n replays of each head graph alone (the layers' hidden
+    states stay those of the step's last replay). Returns {sampled:
+    ms}."""
+    out = {}
+    for sampled in (False, True):
+        graph = step.heads[(False, sampled)][0]
+        graph.replay()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                graph.replay()
+            torch.cuda.synchronize()
+        total = sum(device_us_by_name(prof).values())
+        out[sampled] = total / n / 1e3 if total else None
+    return out
 
 
 def same_shape_prompts(prompts, seed, vocab):
@@ -687,13 +762,64 @@ def serve_graphs(torch, km, GenerationEngine, model, prompts, engine_kw,
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         traffic(eng, same_shape_prompts(prompts, SEED + 3, vocab))
-    where_the_time_goes(prof, eng.steps - s_c, all_s / steps, device_kernel,
-                        label)
+    by_name = where_the_time_goes(prof, eng.steps - s_c, all_s / steps,
+                                  device_kernel, label)
+    # every request greedy: each step replays the greedy head, no sort
+    check(by_name and not sort_kernels(by_name),
+          f"wave C (all greedy) ran sort kernels {sort_kernels(by_name)}")
+    print("  wave C (profiled, all greedy): no sort kernel ran (the greedy "
+          "heads)")
+    sampled_wave(torch, eng, prompts, device_kernel, label)
     caps, cap_ms, pool_bytes = graph_stats(torch, eng.cache)
     print(f"  graphs: {caps} captured in {cap_ms:.1f}ms over the run; their "
           f"memory pool {pool_bytes / 2**20:.1f} MiB; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return eng, launches
+
+
+def sampled_wave(torch, eng, prompts, device_kernel, label):
+    """Wave D on the running engine: wave B's prompt lengths with new
+    tokens, the odd-numbered requests sampled (SAMPLED, seed = their
+    index), the others greedy; timed, then the same again profiled (how
+    many streams equal the first run's is printed: the second run finds
+    the prompts in the prefix registry, so its prefill steps differ, and
+    a bf16 near-tie can fall the other way); then one seeded request
+    alone, twice: bit-equal streams.
+    No signature is captured: wave A took both heads of each. Prints
+    tokens/s, wall and device ms a step and retraces."""
+    vocab = eng.model.cfg.vocab_size
+    prompts_d = same_shape_prompts(prompts, SEED + 5, vocab)
+    samp = wave_sampling(len(prompts_d))
+    before = eng.steps, eng.retraces
+    _, s_d, wave_s, all_s = traffic(eng, prompts_d, samp)
+    steps, retraces = eng.steps - before[0], eng.retraces - before[1]
+    check(retraces == 0, f"wave D captured {retraces} signatures: a "
+                         f"sampled step needed a graph wave A did not take")
+    check(all(len(st) == NEW_TOKENS and all(0 <= t < vocab for t in st)
+              for st in s_d), "wave D: stream lengths or token ids")
+    print(f"  wave D (half sampled: {SAMPLED}, seeds 1, 3, 5, 7): {steps} "
+          f"steps = replays, retraces {retraces}; wave of 7: "
+          f"{7 * NEW_TOKENS / wave_s:.1f} output tokens/s ({wave_s:.3f}s); "
+          f"wall {all_s / steps * 1e3:.2f}ms a step")
+    s0 = eng.steps
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, s_d2, _, _ = traffic(eng, prompts_d, samp)
+    by_name = where_the_time_goes(prof, eng.steps - s0, all_s / steps,
+                                  device_kernel, label)
+    check(sort_kernels(by_name), "wave D ran no sort kernel: the sampled "
+                                 "heads did not run")
+    same = sum(a == b for a, b in zip(s_d, s_d2))
+    alone = [eng.submit(prompts_d[1], sampling=samp[1]).result(
+        timeout=900).tolist() for _ in range(2)]
+    check(alone[0] == alone[1], "a seeded request run twice alone gave two "
+                                "streams")
+    distinct = len({t for i, st in enumerate(s_d) if samp[i] for t in st})
+    print(f"  wave D again (profiled): {same}/{len(s_d)} streams bit-equal "
+          f"to the first run's; a seeded request alone twice: bit-equal; sort "
+          f"kernels in the profile: {len(sort_kernels(by_name))}; distinct "
+          f"tokens in the sampled streams: {distinct}")
 
 
 # histories of the decode rows the replay checks build (PERF.md: served
@@ -717,17 +843,32 @@ def shadow_cache(cache, pools):
     return shadow
 
 
-def replay_vs_eager(torch, model, cache, rows, n_tokens, width_of, record):
+def step_sampling(B, seed):
+    """A step's per-row sampling arrays over B rows: the odd rows sampled
+    (SAMPLED, keys of seed + row), the even ones greedy."""
+    from paddle_tpu_torch.ops.threefry import sampling_key_data
+    odd = np.arange(B) % 2 == 1
+    return (np.where(odd, SAMPLED["temperature"], 0).astype(np.float32),
+            np.where(odd, SAMPLED["top_k"], 0).astype(np.int32),
+            np.where(odd, SAMPLED["top_p"], 1).astype(np.float32),
+            np.stack([sampling_key_data(seed + r) for r in range(B)]))
+
+
+def replay_vs_eager(torch, model, cache, rows, n_tokens, width_of, record,
+                    sampling=None, per_token=False):
     """One step of `rows` through the engine's path (a replay of its
-    signature's graph) against the same step's body run eagerly on a copy
-    of the pools taken before it, with the plan the replay copied in:
-    logits, next tokens and every pool bit-equal. `record(shadow)` is a
-    context manager around the eager run (it keeps layer 0's kernel
-    inputs). Returns (T, B, W, pool pages / slots the step wrote)."""
+    signature's graphs: the layers and the head of the step's sampling
+    and `per_token`) against the same step's layers and head run eagerly
+    on a copy of the pools taken before it, with the plan the replay
+    copied in: logits, next tokens (per token too) and every pool
+    bit-equal. `record(shadow)` is a context manager around the eager run
+    (it keeps layer 0's kernel inputs). Returns (T, B, W, pool pages /
+    slots the step wrote, the CapturedStep)."""
     before = [t.clone() for t in model._ragged_pools(cache)]
     B = 8
-    last, nxt = model.paged_ragged_step(cache, rows, pad_to_tokens=n_tokens,
-                                        pad_to_rows=B)
+    out = model.paged_ragged_step(cache, rows, pad_to_tokens=n_tokens,
+                                  pad_to_rows=B, sampling=sampling,
+                                  return_per_token=per_token)
     after = model._ragged_pools(cache)
     written = sum(int((a != b).flatten(1).any(dim=1).sum())
                   for a, b in zip(after, before))
@@ -735,21 +876,28 @@ def replay_vs_eager(torch, model, cache, rows, n_tokens, width_of, record):
     step = model.ragged_graph(cache, n_tokens, B, W)
     check(step is not None and step.replays > 0,
           f"signature {(n_tokens, B, W)} was not replayed")
+    variant = (sampling is not None and bool(np.any(sampling[0] > 0)),
+               per_token)
+    check(step.variant == variant, f"the step replayed the head "
+                                   f"{step.variant}, not {variant}")
     host = step.host.copy()
     shadow = shadow_cache(cache, before)
     with record(shadow):
-        last2, nxt2 = model.run_ragged_body(shadow, host, n_tokens, B, W)
+        eager = model.run_ragged_body(shadow, host, n_tokens, B, W,
+                                      *variant)
     torch.cuda.synchronize()
     n = len(rows)
-    check(torch.equal(last, last2[:n]) and torch.equal(nxt, nxt2[:n]),
-          f"replayed step (T={n_tokens}, W={W}): logits or tokens differ "
-          f"from the eager body's")
-    eager = model._ragged_pools(shadow)
-    bad = [i for i, (a, b) in enumerate(zip(after, eager))
+    check(torch.equal(out[0], eager[0][:n])
+          and torch.equal(out[1], eager[1][:n])
+          and (not per_token or torch.equal(out[2], eager[2])),
+          f"replayed step (T={n_tokens}, W={W}, head {variant}): logits or "
+          f"tokens differ from the eager body's")
+    pools = model._ragged_pools(shadow)
+    bad = [i for i, (a, b) in enumerate(zip(after, pools))
            if not torch.equal(a, b)]
     check(not bad, f"replayed step (T={n_tokens}, W={W}): pools {bad} "
                    f"differ from the eager body's")
-    return n_tokens, B, W, written
+    return n_tokens, B, W, written, step
 
 
 def hold_replays(torch, model, cache, width_of, record):
@@ -773,16 +921,25 @@ def hold_replays(torch, model, cache, width_of, record):
                     pad_to_tokens=max(1 << (k - 1).bit_length(), 8),
                     pad_to_rows=1)
         one = lambda: rng.integers(0, vocab, 1)  # noqa: E731
-        for kind, rows, T in (
+        for kind, rows, T, samp in (
                 ("mixed", [(sids[0], rng.integers(0, vocab, 128))]
-                 + [(sid, one()) for sid in sids[1:]], 256),
-                ("decode", [(sid, one()) for sid in sids], 8)):
-            T, B, W, written = replay_vs_eager(
-                torch, model, cache, rows, T, width_of, record(kind))
+                 + [(sid, one()) for sid in sids[1:]], 256, None),
+                ("decode", [(sid, one()) for sid in sids], 8, None),
+                ("sampled mixed", [(sids[0], rng.integers(0, vocab, 128))]
+                 + [(sid, one()) for sid in sids[1:]], 256,
+                 step_sampling(8, SEED + 6))):
+            T, B, W, written, step = replay_vs_eager(
+                torch, model, cache, rows, T, width_of, record(kind), samp)
             print(f"  replayed {kind} step (T={T}, B={B}, W={W}) against "
-                  f"its eager body on a copy of the pools: logits, tokens "
+                  f"its eager layers and {'sampled' if samp else 'greedy'} "
+                  f"head on a copy of the pools: logits, tokens "
                   f"and every pool bit-equal ({written} pool pages/slots "
                   f"written)")
+        ms = head_ms(torch, step)
+        sampler = None if None in ms.values() else ms[True] - ms[False]
+        print(f"  heads of that step's graph (8 rows, vocab {vocab}), "
+              f"profiled replays: sampled {ms[True]} ms, greedy {ms[False]} "
+              f"ms: the sampler's device time {sampler} ms a sampled step")
     finally:
         with cache.lock:
             for sid in sids:
@@ -883,7 +1040,7 @@ def phase_serve(torch, pa, flush, km, mods):
         *args, schedule=sched))
     print(f"  wrapper host time per call (served decode step, schedule "
           f"shipped), eager: {us:.1f}us; a replay skips it")
-    return n, held, prompts, state
+    return n, held, prompts, state, model
 
 
 def device_us_by_name(prof):
@@ -903,13 +1060,15 @@ def where_the_time_goes(prof, steps, wall_s_per_step,
                         kernel="paged_", label="attention kernel"):
     """Device kernel time per step by kernel, from the profiled replay,
     against the unprofiled run's wall time per step; `kernel` names the
-    path's own kernel, whose share is printed as `label`."""
+    path's own kernel, whose share is printed as `label`. Returns the
+    device microseconds by kernel name (empty when the profiler saw no
+    device events)."""
     by_name = device_us_by_name(prof)
     total_us = sum(by_name.values())
     if not total_us:
         print("  device time per step: not measured (the profiler saw no "
               "device events)")
-        return
+        return by_name
     dev_ms = total_us / steps / 1e3
     wall_ms = wall_s_per_step * 1e3
     own = sum(v for k, v in by_name.items() if kernel in k) / steps / 1e3
@@ -919,6 +1078,7 @@ def where_the_time_goes(prof, steps, wall_s_per_step,
           f"{own:.3f}ms = {own / dev_ms:.3f} of device time")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {us / steps / 1e3:8.3f}ms/step  {name[:90]}")
+    return by_name
 
 
 def first_layers(state, n):
@@ -937,6 +1097,261 @@ def top2_gap(torch, model, tokens):
     return float(top[0] - top[1])
 
 
+def sampler_view(torch, logits, sp, pos):
+    """What a sampled request's draw sees after the next-token logits [V]
+    (float32): (v, cut), v = logits / temperature plus the request's
+    gumbel noise at position `pos` (the context's last token), and cut
+    the least logit the sampler's top-k and nucleus filters keep
+    (models/gpt.py `sample_token_rows`); the draw is the argmax of v over
+    the logits >= cut."""
+    from paddle_tpu_torch.ops import threefry as tf
+    V = logits.shape[-1]
+    scale = 1.0 / max(sp.temperature, 1e-6)
+    arr = logits * scale
+    srt = torch.sort(arr, descending=True).values
+    kth = srt[min(sp.top_k or V, V) - 1]
+    srt = torch.where(srt < kth, -1e30, srt)
+    p = torch.softmax(srt, -1)
+    before = torch.cumsum(p, -1) - p
+    top_p = 1.0 if sp.top_p is None else sp.top_p
+    thresh = torch.where(before < top_p, srt, float("inf")).min()
+    key = tf.key_words(sp.key_data()[None]).to(arr.device)
+    noise = tf.gumbel(tf.fold_in(key, torch.tensor([pos], device=arr.device)),
+                      V)[0]
+    return arr + noise, float(torch.maximum(kth, thresh)) / scale
+
+
+def gap_rule(limit):
+    """The top-2 gap of the decision at a mismatch (of the logits, or of
+    the perturbed values the draw takes the argmax of) at most `limit`."""
+    def rule(torch, logits, sp, pos, a, b):
+        if sp is None:
+            vals = logits
+        else:
+            v, cut = sampler_view(torch, logits, sp, pos)
+            vals = torch.where(logits >= cut, v, -1e30)
+        top = torch.topk(vals, 2).values
+        gap = float(top[0] - top[1])
+        return gap <= limit, (f"{'greedy' if sp is None else 'perturbed'} "
+                              f"top-2 gap {gap:.3g} (limit {limit:.3g})")
+    return rule
+
+
+def bf16_rule(torch, logits, sp, pos, a, b):
+    """Both tokens of a mismatch are possible outcomes when every logit of
+    either path may lie within tol = BF16_ULPS bf16 ulps of the largest
+    |logit| of `logits` (the decision recomputed on its own path): greedy,
+    both within 2 tol of the largest logit (the tier-1 bf16 tests' top-2
+    gap rule, for the two tokens emitted); sampled, both in the filters'
+    reach (a logit >= the cut - 2 tol) with a perturbed value within
+    2 tol / temperature of the best among the logits surely kept (>= the
+    cut + 2 tol, and the argmax)."""
+    big = float(logits.abs().max())
+    tol = BF16_ULPS * 2.0 ** (np.floor(np.log2(max(big, 1e-30))) - 7)
+    if sp is None:
+        top = float(logits.max())
+        ok = min(float(logits[a]), float(logits[b])) >= top - 2 * tol
+        return ok, (f"greedy: logits {float(logits[a]):.4g} / "
+                    f"{float(logits[b]):.4g}, largest {top:.4g}, tol {tol:.3g}")
+    v, cut = sampler_view(torch, logits, sp, pos)
+    sure = logits >= cut + 2 * tol
+    sure[int(torch.argmax(logits))] = True
+    best = float(torch.where(sure, v, -1e30).max())
+    slack = 2 * tol / sp.temperature
+
+    def possible(x):
+        return float(logits[x]) >= cut - 2 * tol and float(v[x]) >= best - slack
+
+    return possible(a) and possible(b), (
+        f"sampled: logits {float(logits[a]):.4g} / {float(logits[b]):.4g}, "
+        f"filter cut {cut:.4g}, perturbed {float(v[a]):.4g} / "
+        f"{float(v[b]):.4g}, best surely kept {best:.4g}, tol {tol:.3g}")
+
+
+def next_logits(torch, model, tokens):
+    """The model's next-token logits [V] after `tokens`, one prefill row
+    on a cache of its own (on the model's device)."""
+    cache = model.make_paged_cache(n_pages=2 + len(tokens) // P,
+                                   page_size=P)
+    cache.add_sequence("s")
+    last, _ = model.paged_ragged_step(cache, [("s", tokens)])
+    return last[0]
+
+
+def first_mismatches(torch, model, prompts, got, want, sampling, label,
+                     rule):
+    """Each stream of `got` against `want`: equal, or at the first
+    mismatch the decision excused by `rule` (`gap_rule`, `bf16_rule`),
+    judged on `model`'s logits there, its own computation (printed).
+    Returns the count of equal streams."""
+    equal = 0
+    for r, (a, b) in enumerate(zip(got, want)):
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            check(len(a) == len(b), f"{label}: request {r}: lengths "
+                                    f"{len(a)} and {len(b)}")
+            equal += 1
+            continue
+        ctx = np.concatenate([prompts[r], np.asarray(b[:i])])
+        logits = next_logits(torch, model, ctx).float()
+        ok, why = rule(torch, logits, sampling[r], len(ctx) - 1, a[i], b[i])
+        print(f"  {label}: request {r}: first mismatch at generated token "
+              f"{i} ({a[i]} against {b[i]}), {why}")
+        check(ok, f"{label}: request {r} diverges at token {i}: {why}")
+    return equal
+
+
+def hold_verify(torch, model, cache, width_of):
+    """A verify-shaped step on a speculative engine's target cache: 8
+    rows of an anchor and SPEC_K proposals (40 tokens, padded to 64),
+    histories of CHECK_HIST, the odd rows sampled, through the per-token
+    sampled head; replayed and held against its eager layers and head
+    (`replay_vs_eager`). Frees its sequences after."""
+    rng = np.random.default_rng(SEED + 9)
+    vocab = model.cfg.vocab_size
+    sids = [f"verify{i}" for i in range(8)]
+    with cache.lock:
+        for sid in sids:
+            cache.add_sequence(sid)
+    try:
+        for sid, hist in zip(sids, [31] + CHECK_HIST):
+            for done in range(0, hist, 128):
+                k = min(128, hist - done)
+                model.paged_ragged_step(
+                    cache, [(sid, rng.integers(0, vocab, k))],
+                    pad_to_tokens=max(1 << (k - 1).bit_length(), 8),
+                    pad_to_rows=1)
+        rows = [(sid, rng.integers(0, vocab, SPEC_K + 1)) for sid in sids]
+        T, B, W, written, _ = replay_vs_eager(
+            torch, model, cache, rows, 64, width_of,
+            lambda shadow: contextlib.nullcontext(),
+            step_sampling(8, SEED + 10), per_token=True)
+        print(f"  replayed verify step (T={T}, B={B}, W={W}: 8 rows of "
+              f"{SPEC_K + 1} tokens, per-token sampled head) against its "
+              f"eager layers and head on a copy of the pools: logits, row "
+              f"and per-token tokens and every pool bit-equal ({written} "
+              f"pool pages written)")
+    finally:
+        with cache.lock:
+            for sid in sids:
+                cache.free_sequence(sid)
+
+
+def phase_speculative(torch, pa, mods, model, state, prompts):
+    """Speculative decoding on GPT-medium bf16 (phase 4's model, the
+    target) with a layer-truncated self-draft (its first DRAFT_LAYERS
+    blocks, embeddings and final LayerNorm by name), k = SPEC_K: a greedy
+    wave and a sampled wave on one engine, the sampled wave again with
+    the draft's temperature at DRAFT_TEMPERATURE on another. Streams
+    against a non-speculative engine's on the same prompts and seeds
+    under the bf16 gap rule; acceptances and rejections both seen;
+    kernel #1's launches over the speculative runs exactly (target
+    replays + captures) x 24 + (draft replays + captures) x
+    DRAFT_LAYERS; then a replayed verify step against its eager body."""
+    GenerationEngine, GPTForCausalLM, gpt_medium, load_state, _ = mods
+    from paddle_tpu_torch.inference import SpeculativeConfig
+    cfg = gpt_medium()
+    cfg.num_layers = DRAFT_LAYERS
+    draft = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    load_state(draft, first_layers(state, DRAFT_LAYERS))
+    vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
+    waves = {"greedy": (same_shape_prompts(prompts, SEED + 7, vocab),
+                        [None] * len(prompts)),
+             "sampled": (same_shape_prompts(prompts, SEED + 8, vocab),
+                         wave_sampling(len(prompts), range(len(prompts)),
+                                       seed=100))}
+    plain = GenerationEngine(model, **SERVE)
+    try:
+        want = {name: traffic(plain, p, sp)[1]
+                for name, (p, sp) in waves.items()}
+    finally:
+        plain.shutdown()
+    pa.ragged_paged_attention.launches = 0
+    traces = model._ragged_traces, draft._ragged_traces
+    totals = dict(steps=0, draft_steps=0, proposed=0, accepted=0)
+    engines, streams = [], []
+    for run, draft_temp, names in (("k=4", None, ("greedy", "sampled")),
+                                   (f"k=4, draft temperature "
+                                    f"{DRAFT_TEMPERATURE}", DRAFT_TEMPERATURE,
+                                    ("sampled",))):
+        eng = GenerationEngine(model, speculative=SpeculativeConfig(
+            draft, k=SPEC_K, draft_temperature=draft_temp), **SERVE)
+        engines.append(eng)
+        try:
+            # untimed, as wave A: the new caches' signatures captured
+            warm = traffic(eng, same_shape_prompts(prompts, SEED + 11, vocab),
+                           wave_sampling(len(prompts)))[1]
+            check(all(len(st) == NEW_TOKENS for st in warm),
+                  f"{run}: warm-up stream lengths")
+            for k in totals:
+                totals[k] += getattr(eng, {"proposed": "_spec_proposed",
+                                           "accepted": "_spec_accepted"}
+                                     .get(k, k))
+            print(f"  {run}: warm-up wave (untimed): {eng.steps} target "
+                  f"steps, {eng.draft_steps} draft steps, retraces "
+                  f"{eng.retraces}")
+            for name in names:
+                prompts_w, samp = waves[name]
+                before = (eng.steps, eng.draft_steps, eng._spec_proposed,
+                          eng._spec_accepted)
+                _, got, wave_s, all_s = traffic(eng, prompts_w, samp)
+                steps, dsteps, prop, acc = (
+                    a - b for a, b in zip((eng.steps, eng.draft_steps,
+                                           eng._spec_proposed,
+                                           eng._spec_accepted), before))
+                streams.append((f"{run}, {name} wave", prompts_w, got,
+                                want[name], samp))
+                equal = sum(a == b for a, b in zip(got, want[name]))
+                print(f"  {run}, {name} wave: accept rate "
+                      f"{acc / max(prop, 1):.3f} ({acc} of {prop} proposed), "
+                      f"{7 * NEW_TOKENS / wave_s:.1f} output tokens/s (wave "
+                      f"of 7, {wave_s:.3f}s), {steps} target steps, {dsteps} "
+                      f"draft steps, wall {all_s / steps * 1e3:.2f}ms a "
+                      f"target step (its draft steps included); streams "
+                      f"bit-equal to the non-speculative engine's: "
+                      f"{equal}/{len(got)}")
+                for k, v in zip(("steps", "draft_steps", "proposed",
+                                 "accepted"), (steps, dsteps, prop, acc)):
+                    totals[k] += v
+        finally:
+            eng.shutdown()
+    launches = pa.ragged_paged_attention.launches
+    t_caps = model._ragged_traces - traces[0]
+    d_caps = draft._ragged_traces - traces[1]
+    want_n = (totals["steps"] + t_caps) * layers \
+        + (totals["draft_steps"] + d_caps) * DRAFT_LAYERS
+    check(launches == want_n, f"ragged_paged_attention launches {launches} "
+                              f"!= (target replays {totals['steps']} + "
+                              f"captures {t_caps}) x {layers} + (draft "
+                              f"replays {totals['draft_steps']} + captures "
+                              f"{d_caps}) x {DRAFT_LAYERS} = {want_n}")
+    rejected = totals["proposed"] - totals["accepted"]
+    check(totals["accepted"] > 0 and rejected > 0,
+          f"accepted {totals['accepted']}, rejected {rejected}: want both")
+    print(f"  over the phase: {totals['accepted']} accepted and {rejected} "
+          f"rejected of {totals['proposed']} proposed (accept rate "
+          f"{totals['accepted'] / totals['proposed']:.3f}); "
+          f"ragged_paged_attention launches {launches} = (target replays "
+          f"{totals['steps']} + captures {t_caps}) x {layers} + (draft "
+          f"replays {totals['draft_steps']} + captures {d_caps}) x "
+          f"{DRAFT_LAYERS}")
+    # the mismatches' own steps (`next_logits`) come after the count
+    for label, prompts_w, got, want_w, samp in streams:
+        equal = first_mismatches(torch, model, prompts_w, got, want_w, samp,
+                                 label, bf16_rule)
+        print(f"  {label}: {equal}/{len(got)} streams bit-equal, every "
+              f"other one excused at its first mismatch by the bf16 rule")
+    cache = engines[0].cache
+
+    def width_of(sids):
+        pages = max(len(cache._tables[s]) for s in sids)
+        return 1 << (pages - 1).bit_length()
+
+    hold_verify(torch, model, cache, width_of)
+    del draft, engines
+    torch.cuda.empty_cache()
+
+
 def phase_agreement(torch, pa, mods, prompts, state):
     GenerationEngine, GPTForCausalLM, gpt_medium, load_state, _ = mods
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -945,6 +1360,7 @@ def phase_agreement(torch, pa, mods, prompts, state):
     cfg.num_layers = 2
     small = first_layers(state, cfg.num_layers)
     runs = {}
+    samp = wave_sampling(len(prompts), range(len(prompts)), seed=200)
     for device in ("cuda", "cpu"):
         model = GPTForCausalLM(cfg, device=device)
         load_state(model, small)
@@ -957,8 +1373,14 @@ def phase_agreement(torch, pa, mods, prompts, state):
         check(pa.ragged_paged_attention.launches == want,
               f"{device}: {pa.ragged_paged_attention.launches} launches, "
               f"want {want}")
-        runs[device] = (model, streams)
-    cpu_model, cpu = runs["cpu"]
+        sampled = serve(GenerationEngine, model, prompts, sampling=samp)[2]
+        runs[device] = (model, streams, sampled)
+    cpu_model, cpu, cpu_sampled = runs["cpu"]
+    equal = first_mismatches(torch, cpu_model, prompts, runs["cuda"][2],
+                             cpu_sampled, samp, "sampled (seeds 200-207)",
+                             gap_rule(GAP_LIMIT))
+    print(f"  2-layer float32 sampled streams ({SAMPLED}) equal on card and "
+          f"CPU: {equal}/{len(cpu_sampled)} requests")
     gpu = runs["cuda"][1]
     equal = 0
     for r, (a, b) in enumerate(zip(gpu, cpu)):
@@ -2377,9 +2799,11 @@ def phase_ssm_serve(torch, sk, flush, km, smods):
         check(eng.cache_strategy == "recurrent",
               f"strategy {eng.cache_strategy}")
         # the inert prefix cache: every prompt token and every fed-back
-        # token of the three waves went through a step
-        stepped = 3 * (sum(p.size for p in prompts)
-                       + len(prompts) * (NEW_TOKENS - 1))
+        # token went through a step: waves A-C, wave D twice (prompts of
+        # the same lengths) and its seeded request alone twice
+        per_wave = sum(p.size for p in prompts) \
+            + len(prompts) * (NEW_TOKENS - 1)
+        stepped = 5 * per_wave + 2 * (prompts[1].size + NEW_TOKENS - 1)
         check(eng._attn_useful == stepped, f"steps took {eng._attn_useful} "
                                            f"real tokens, want {stepped}: "
                                            f"the prefix cache served some")
@@ -2387,7 +2811,7 @@ def phase_ssm_serve(torch, sk, flush, km, smods):
               "prefix cache hit")
         stats = eng.cache.pool_stats()
         print(f"  prefix-cache tokens 0 ({stepped} real tokens stepped in "
-              f"three waves), pad share of the scan's updates "
+              f"five waves and two lone requests), pad share of the scan's updates "
               f"{eng.pad_token_fraction():.3f}; state bytes a sequence "
               f"{stats['state_bytes']} ({stats['n_slots']} slots: "
               f"{stats['state_bytes_total']} bytes)")
@@ -2444,10 +2868,13 @@ def phase_ssm_agreement(torch, km, smods, prompts):
                                                        num_heads=12))):
         cfg = SSMConfig(**dict(MAMBA_130M, num_layers=2,
                                initializer_range=SSM_AGREE_STD, **extra))
-        runs = {}
+        runs, sampled = {}, {}
+        samp = wave_sampling(len(prompts), range(len(prompts)), seed=300)
         for device in ("cuda", "cpu"):
             model = SSMForCausalLM(cfg, device=device)
             load_state(model, ssm_numpy_state(model, SEED))
+            sampled[device] = serve(GenerationEngine, model, prompts,
+                                    SSM_SERVE, samp)[2]
             zero_counts(km)
             eng, _, streams, _, _ = serve(GenerationEngine, model, prompts,
                                           SSM_SERVE)
@@ -2463,6 +2890,12 @@ def phase_ssm_agreement(torch, km, smods, prompts):
                             [t[1:].cpu() for t in rec.conv + rec.ssm])
         cpu_model, cpu, cpu_pools = runs["cpu"]
         gpu, gpu_pools = runs["cuda"][1], runs["cuda"][2]
+        equal = first_mismatches(torch, cpu_model, prompts, sampled["cuda"],
+                                 sampled["cpu"], samp,
+                                 f"{kind}: sampled (seeds 300-307)",
+                                 gap_rule(GAP_LIMIT))
+        print(f"  {kind}: 2-layer float32 sampled streams ({SAMPLED}) equal "
+              f"on card and CPU: {equal}/{len(gpu)} requests")
         distinct = [len(set(s)) for s in cpu]
         print(f"  {kind}: distinct tokens in each CPU stream {distinct}")
         check(min(distinct) > 1, f"{kind}: a stream repeats one token, so "
@@ -2547,14 +2980,22 @@ def main():
     print("[4] GPT-medium bf16 through GenerationEngine", flush=True)
     zero_counts(km)
     with switches(False):
-        launches, held, prompts, state = phase_serve(torch, pa, flush, km,
-                                                     mods)
+        launches, held, prompts, state, model = phase_serve(
+            torch, pa, flush, km, mods)
     served = {k: v for k, v in counts(km).items()
               if k != "ragged_paged_attention"}
     check(not any(served.values()),
           f"other kernels ran while serving GPT: {served}")
 
-    print("[5] 2-layer float32: card vs CPU greedy streams", flush=True)
+    print(f"[4b] GPT-medium bf16, speculative: a {DRAFT_LAYERS}-layer "
+          f"self-draft, k = {SPEC_K}", flush=True)
+    with switches(False):
+        phase_speculative(torch, pa, mods, model, state, prompts)
+    del model
+    torch.cuda.empty_cache()
+
+    print("[5] 2-layer float32: card vs CPU greedy and sampled streams",
+          flush=True)
     phase_agreement(torch, pa, mods, prompts, state)
 
     print("[6] flash attention: kernels vs plain twins", flush=True)
@@ -2607,6 +3048,7 @@ def main():
                                                smods)
 
     print("[14] 2-layer float32 SSM, pure and hybrid: card vs CPU greedy "
+          "and sampled "
           "streams", flush=True)
     phase_ssm_agreement(torch, km, smods, prompts)
 
@@ -2654,7 +3096,8 @@ def main():
         "ms": scan_main["ms"], "plain_ms": scan_main["plain_ms"],
         "bound_ms": scan_main["bound_ms"], "bound_by": scan_main["bound_by"],
         "library_ms": None})
-    print(f"[15] done in {time.perf_counter() - t_start:.1f}s; paged "
+    print(f"[15] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
+          f"run time); paged "
           f"attention times are of the served decode step's layer-0 call, "
           f"flash times of the training shapes [8, 1024, 16, 64] (and, "
           f"_d128, GPT-1.3B's [4, 1024, 16, 128]) causal bf16 (library: "

@@ -24,22 +24,39 @@ plus the registry's evictable retention; a finished sequence registers
 its prompt's pages for future sharers when it is evicted.
 
 The step's only synchronization is the host read of the sampled int32
-tokens. Decoding is greedy. On the card each step is a replay of the
-CUDA graph of its (tokens, rows, table width) signature (models/gpt.py
-`RaggedGraphSteps`); a signature first seen mid-traffic is captured
-inline, in the step, and counted in `retraces` (the reference's
-`serve.retraces`: steady-state traffic adds none). `warm(prompt_len,
-max_new_tokens)` / `warm_async` capture every signature one such
-request touches ahead of traffic, on the scheduler thread. Each engine
-keeps plain counters: `steps` (ragged steps run), `retraces` and
-`kernel_launches` (launches of the kernels the model's step runs:
-ragged paged attention, the selective scan; a replay adds the launches
-its capture recorded).
+tokens. A request decodes greedily (the default) or by seeded sampling
+(`submit(sampling=SamplingParams(temperature=, top_k=, top_p=,
+seed=))`): each step carries every row's config, and a draw is keyed by
+fold_in(the request's key, the token's position), so a stream does not
+depend on its batch (models/gpt.py `sample_token_rows`). On the card
+each step is a replay of the CUDA graphs of its (tokens, rows, table
+width) signature (models/gpt.py `RaggedGraphSteps`; an all-greedy step
+replays the greedy head, which has no sort); a signature first seen
+mid-traffic is captured inline, in the step, and counted in `retraces`
+(the reference's `serve.retraces`: steady-state traffic adds none).
+`warm(prompt_len, max_new_tokens)` / `warm_async` capture every
+signature one such request touches ahead of traffic, on the scheduler
+thread.
 
-Not ported yet (ROADMAP.md queue A): seeded sampling, speculative
-decoding, prefill/decode handoff and the router, the legacy bucketed
-path and `InferenceEngine`, and the observatory records.
+With `speculative=SpeculativeConfig(draft_model, k)` (paged strategy
+only) a draft model on its own page pool proposes k tokens a sequence,
+and the target verifies the anchor and the proposals as one row of the
+step, reading its per-token samples (inference/speculative.py): the
+accepted tokens equal the non-speculative stream's, greedy and sampled.
+
+Each engine keeps plain counters: `steps` (target steps run),
+`draft_steps`, `retraces` (the draft's captures included),
+`kernel_launches` (launches of the kernels the steps run, draft steps
+included: ragged paged attention, the selective scan; a replay adds the
+launches its capture recorded), `_spec_proposed` / `_spec_accepted`
+(draft tokens proposed and accepted).
+
+Not ported yet (ROADMAP.md queue A): the engine's `cache=`, `name=`,
+`ragged=`, `prefix_cache=` and `kv_snapshot_every` options,
+prefill/decode handoff and the router, the legacy bucketed path and
+`InferenceEngine`, and the observatory records.
 """
+import itertools
 import threading
 import time
 import weakref
@@ -53,22 +70,27 @@ from ..ops.attention_core import MIN_Q_TOKENS
 from ..ops.kernels.paged_attention import (ragged_paged_attention,
                                            ragged_work_plan)
 from ..ops.kernels.ssm_scan import ssm_scan
+from ..ops.threefry import sampling_key_data
 from .cache_strategy import strategy_of
+from .speculative import SpeculativeConfig, accept_length
 
 __all__ = ["ServingError", "QueueFullError", "DeadlineExceeded",
            "EngineStopped", "GenerationEngine", "GenerationHandle",
            "SamplingParams"]
 
-_SAMPLING_NOT_PORTED = (
-    "sampling with temperature > 0 is not ported yet (it needs a "
-    "threefry-compatible generator): ROADMAP.md queue A, 'Seeded "
-    "sampling'")
-
-
 class SamplingParams:
-    """Per-request decode sampling config. The port serves greedy
-    requests (temperature 0, the argmax); `submit` raises
-    NotImplementedError for temperature > 0."""
+    """Per-request decode sampling config (`GenerationEngine.submit`).
+    The defaults are greedy decoding: temperature 0 is the on-device
+    argmax.
+
+    temperature > 0 enables seeded on-device sampling; `top_k` keeps
+    the k highest logits (None/0 disables), `top_p` keeps the smallest
+    nucleus reaching that probability mass (None/1.0 disables), both
+    applied before one categorical draw per token. `seed` makes the
+    request reproducible: the per-token key is fold_in(PRNGKey(seed),
+    absolute token position), so the sampled text does not depend on
+    batching or admit/evict order. seed=None draws a fresh
+    deterministic-per-process seed at submit (`_SEED_IDS`)."""
 
     __slots__ = ("temperature", "top_k", "top_p", "seed")
 
@@ -90,6 +112,13 @@ class SamplingParams:
     def greedy(self):
         return self.temperature <= 0.0
 
+    def key_data(self, fallback_seed=0):
+        """uint32[2] threefry key data for this request's seed (host bit
+        math, no device op at submit), in the layout the sampler reads
+        (ops/threefry.py `sampling_key_data`)."""
+        seed = self.seed if self.seed is not None else int(fallback_seed)
+        return sampling_key_data(seed)
+
     def __repr__(self):
         return (f"SamplingParams(temperature={self.temperature}, "
                 f"top_k={self.top_k}, top_p={self.top_p}, "
@@ -97,6 +126,9 @@ class SamplingParams:
 
 
 GREEDY = SamplingParams()
+# seeds for seed=None sampling requests: deterministic per-process submit
+# order, never colliding across engines
+_SEED_IDS = itertools.count(1)
 
 
 class ServingError(RuntimeError):
@@ -135,7 +167,8 @@ class GenerationHandle:
     token ids as the decode loop produces them; `result()` blocks for
     the full generated sequence (np.int64 array, prompt excluded).
     `t_submit`/`t_first` are host perf_counter stamps of the submit and
-    of the first token."""
+    of the first token; `sampling` the request's SamplingParams and
+    `key` its uint32[2] key data."""
 
     def __init__(self, prompt, max_new_tokens, eos_token_id):
         self.prompt = prompt
@@ -148,6 +181,8 @@ class GenerationHandle:
         self.t_submit = time.perf_counter()
         self.t_first = None
         self.deadline = None  # perf_counter bound (submit deadline_ms=)
+        self.sampling = GREEDY  # SamplingParams (submit sampling=)
+        self.key = None         # uint32[2] per-request key data
 
     def _push(self, tok):
         with self._cv:
@@ -184,7 +219,8 @@ class GenerationHandle:
 
 
 class _ActiveSeq:
-    __slots__ = ("sid", "handle", "generated", "last", "filled")
+    __slots__ = ("sid", "handle", "generated", "last", "filled",
+                 "sampling", "key", "draft_sid", "dlen")
 
     def __init__(self, sid, handle, filled):
         self.sid = sid
@@ -192,6 +228,15 @@ class _ActiveSeq:
         self.generated = []
         self.last = None
         self.filled = filled  # prompt tokens whose KV is in the pool
+        self.sampling = handle.sampling  # SamplingParams
+        self.key = handle.key            # uint32[2] key data
+        # speculative decoding: the DRAFT cache's twin sequence id (None:
+        # this request decodes non-speculatively) and the draft's
+        # committed KV length, a cursor of its own over the same token
+        # history (the draft computes KV for prompt tokens the target
+        # served from its prefix cache)
+        self.draft_sid = None
+        self.dlen = 0
 
 
 def _run_scheduler(ref, device):
@@ -230,11 +275,14 @@ class GenerationEngine:
     the engine runs on the cache's device. Requests above `max_queue`
     waiting are rejected (QueueFullError); `deadline_ms` expires a
     request still queued (DeadlineExceeded); `drain()`/`shutdown()`
-    finish in-flight work before stopping."""
+    finish in-flight work before stopping. `speculative` (a
+    SpeculativeConfig; paged strategy only) decodes speculatively with a
+    draft model over its own page pool, `draft_cache` when given (else
+    one the draft model makes)."""
 
     def __init__(self, model, n_pages=256, page_size=16, max_batch=8,
                  max_queue=64, max_new_tokens=64, eos_token_id=None,
-                 prefill_chunk=32):
+                 prefill_chunk=32, speculative=None, draft_cache=None):
         for need in ("paged_ragged_step", "make_paged_cache"):
             if not hasattr(model, need):
                 raise TypeError(
@@ -249,6 +297,33 @@ class GenerationEngine:
         self.default_max_new = int(max_new_tokens)
         self.eos_token_id = eos_token_id
         self.prefill_chunk = max(1, int(prefill_chunk))
+        # speculative decoding (inference/speculative.py): a draft model
+        # and its own page pool
+        self.speculative = speculative
+        self._draft_cache = None
+        self._spec_proposed = 0  # draft tokens proposed (this engine)
+        self._spec_accepted = 0  # draft tokens accepted (this engine)
+        if speculative is not None:
+            if not isinstance(speculative, SpeculativeConfig):
+                raise TypeError(
+                    "speculative must be a SpeculativeConfig, got "
+                    f"{type(speculative).__name__}")
+            if self.cache_strategy != "paged":
+                # rejecting a mispredicted draft run rewinds the kv
+                # length cursor; a recurrent state has no past to rewind
+                # to (cache.rollback raises for the same reason)
+                raise ValueError(
+                    "speculative decoding requires the paged cache "
+                    f"strategy (engine cache is {self.cache_strategy!r})"
+                    " — recurrent decode state is not rewindable")
+            if not hasattr(speculative.draft_model, "paged_ragged_step"):
+                raise TypeError(
+                    "SpeculativeConfig.draft_model needs "
+                    "paged_ragged_step() (e.g. GPTForCausalLM)")
+            self._draft_cache = draft_cache if draft_cache is not None \
+                else speculative.draft_model.make_paged_cache(
+                    speculative.draft_pages or n_pages,
+                    speculative.draft_page_size or page_size)
         # step accounting: work each step COMPUTES vs work for real
         # tokens. Paged: kv score slots, ceil(bound / P) pages per token
         # (the attention kernel's work counter) vs slots inside some
@@ -256,11 +331,13 @@ class GenerationEngine:
         # per token of the padded step vs one per real token.
         self._attn_computed = 0
         self._attn_useful = 0
-        self.steps = 0            # ragged steps run
+        self.steps = 0            # target ragged steps run
+        self.draft_steps = 0      # draft ragged steps run
         self.kernel_launches = 0  # launches of the step's kernels
         self.retraces = 0  # step signatures captured in THIS engine
         self._synced_traces = self._model_traces()
-        self._warm_queue = deque()  # (signature, Future) to capture
+        # (model, cache, signature, per_token, Future) to capture
+        self._warm_queue = deque()
         self._pending = deque()
         self._active = []        # decoding, in row order
         self._prefilling = []    # admitted, prompt KV still chunking in
@@ -293,8 +370,6 @@ class GenerationEngine:
         if not isinstance(sp, SamplingParams):
             raise TypeError(f"sampling must be a SamplingParams, got "
                             f"{type(sp).__name__}")
-        if not sp.greedy:
-            raise NotImplementedError(_SAMPLING_NOT_PORTED)
         max_new = int(max_new_tokens) if max_new_tokens is not None \
             else self.default_max_new
         if max_new < 1:
@@ -314,8 +389,35 @@ class GenerationEngine:
                 f"max_new {max_new}) but the cache only has {usable} "
                 "usable — it could NEVER be admitted; grow n_pages or "
                 "shorten the request")
+        if self._draft_cache is not None:
+            # the draft twin must ALSO always fit: its worst-case KV is
+            # prompt + max_new + k tokens (its admission claim), and its
+            # own context limit bounds the catch-up cursor
+            dlimit = getattr(getattr(self.speculative.draft_model, "cfg",
+                                     None), "max_position_embeddings", None)
+            if dlimit is not None and prompt.size + max_new > dlimit:
+                raise ValueError(
+                    f"prompt {prompt.size} + max_new_tokens {max_new} "
+                    f"exceeds the DRAFT model's max_position_embeddings "
+                    f"{dlimit}")
+            dneed = self._draft_cache.pages_needed(
+                prompt.size + max_new + self.speculative.k)
+            dusable = self._draft_cache.n_pages - 1
+            if dneed > dusable:
+                raise ValueError(
+                    f"request needs {dneed} DRAFT pages (prompt "
+                    f"{prompt.size} + max_new {max_new} + k "
+                    f"{self.speculative.k}) but the draft cache only has "
+                    f"{dusable} usable — it could NEVER be admitted; grow "
+                    "draft_pages or shorten the request")
         eos = self.eos_token_id if eos_token_id is None else eos_token_id
         handle = GenerationHandle(prompt, max_new, eos)
+        handle.sampling = sp
+        # key data is host bit math; seed=None draws a process-unique
+        # deterministic seed, so an unseeded request still reproduces
+        # within one process run
+        handle.key = sp.key_data(fallback_seed=0) if sp.greedy \
+            else sp.key_data(fallback_seed=next(_SEED_IDS))
         if deadline_ms is not None:
             handle.deadline = time.perf_counter() \
                 + float(deadline_ms) / 1000.0
@@ -344,10 +446,15 @@ class GenerationEngine:
         steps, every decode step's table-width bucket, and the sub-chunk
         token buckets at each prefill width (a prefix-cache hit leaves a
         short prefill remainder), every token bucket floored at
-        MIN_Q_TOKENS as `_ragged_step` pads. The scheduler thread
-        captures them before its next step, under the cache's lock (no
-        step of the cache replays meanwhile). Returns one Future a
-        signature: True when captured now, False when it already was."""
+        MIN_Q_TOKENS as `_ragged_step` pads; on a speculative engine
+        (whose target steps take the per-token heads) then the draft's
+        schedule, as the reference's: catch-up rows over the prompt in
+        max(prefill_chunk, 2)-token chunks at the draft pool's widths,
+        then one-token proposal steps out to prompt + max_new + k held
+        tokens. The scheduler thread captures them before its next step,
+        under the cache's lock (no step of the cache replays meanwhile).
+        Returns one Future a signature: True when captured now, False
+        when it already was."""
         max_new = self.default_max_new if max_new_tokens is None \
             else int(max_new_tokens)
         if self.cache_strategy == "recurrent":
@@ -360,26 +467,52 @@ class GenerationEngine:
 
             def width(tokens):  # table width bucket once tokens held
                 return self._pow2(-(-tokens // P))
-        sigs, filled, total = [], 0, int(prompt_len)
+        total = int(prompt_len)
+        sigs = self._prefill_sigs(total, self.prefill_chunk, width)
+        for k in range(max_new - 1):  # decode k writes token total + k
+            sigs.append((MIN_Q_TOKENS, 1, width(total + k + 1)))
+        spec = self._draft_cache is not None
+        jobs = [(self.model, self.cache, sig, spec)
+                for sig in dict.fromkeys(sigs)]
+        if spec:
+            # verify rows need nothing new: k + 1 <= MIN_Q_TOKENS tokens
+            # pad into the decode signatures above
+            dc = self._draft_cache
+
+            def dwidth(tokens):  # draft-pool width bucket
+                return self._pow2(-(-tokens // dc.page_size))
+
+            dsigs = self._prefill_sigs(total, max(self.prefill_chunk, 2),
+                                       dwidth)
+            for j in range(max_new + self.speculative.k):
+                dsigs.append((MIN_Q_TOKENS, 1, dwidth(total + j + 1)))
+            jobs += [(self.speculative.draft_model, dc, sig, False)
+                     for sig in dict.fromkeys(dsigs)]
+        futures = []
+        with self._cv:
+            if self._stopping:
+                raise EngineStopped("engine is drained/shut down")
+            for job in jobs:
+                futures.append(Future())
+                self._warm_queue.append(job + (futures[-1],))
+            self._cv.notify_all()
+        return futures
+
+    def _prefill_sigs(self, total, chunk, width):
+        """The signatures of a `total`-token prompt's prefill in
+        `chunk`-token steps: each step's token bucket and, for a prefix
+        hit's shorter remainder, every smaller one, at the table width
+        `width(tokens held)` (floored at MIN_Q_TOKENS, as the steps pad)."""
+        sigs, filled = [], 0
         while filled < total:
-            n = min(self.prefill_chunk, total - filled)
+            n = min(chunk, total - filled)
             filled += n
             t_bucket = self._pow2(n)
             w = width(filled)
             while t_bucket >= 1:  # sub-chunk remainders at this width
                 sigs.append((max(t_bucket, MIN_Q_TOKENS), 1, w))
                 t_bucket //= 2
-        for k in range(max_new - 1):  # decode k writes token total + k
-            sigs.append((MIN_Q_TOKENS, 1, width(total + k + 1)))
-        futures = []
-        with self._cv:
-            if self._stopping:
-                raise EngineStopped("engine is drained/shut down")
-            for sig in dict.fromkeys(sigs):
-                futures.append(Future())
-                self._warm_queue.append((sig, futures[-1]))
-            self._cv.notify_all()
-        return futures
+        return sigs
 
     def _warm_queued(self):
         """Capture the queued signatures (scheduler thread). A failed
@@ -388,11 +521,15 @@ class GenerationEngine:
             with self._cv:
                 if not self._warm_queue:
                     break
-                sig, fut = self._warm_queue.popleft()
+                model, cache, sig, per_token, fut = \
+                    self._warm_queue.popleft()
             if not fut.set_running_or_notify_cancel():
                 continue
             try:
-                fresh = self.model.warm_ragged(self.cache, *sig)
+                # the per-token heads only where a speculative target
+                # asks for them
+                kw = {"per_token": True} if per_token else {}
+                fresh = model.warm_ragged(cache, *sig, **kw)
             except BaseException as e:
                 _reject_future(fut, e)
                 raise
@@ -401,8 +538,12 @@ class GenerationEngine:
 
     def _model_traces(self):
         """The model's count of step signatures captured (on the CPU:
-        recorded), folded into `retraces` by _sync_retraces."""
-        return getattr(self.model, "_ragged_traces", 0)
+        recorded), the draft model's included, folded into `retraces` by
+        _sync_retraces."""
+        n = getattr(self.model, "_ragged_traces", 0)
+        if self.speculative is not None:
+            n += getattr(self.speculative.draft_model, "_ragged_traces", 0)
+        return n
 
     def _sync_retraces(self):
         """Fold the model's capture count into `retraces`, the delta
@@ -416,8 +557,8 @@ class GenerationEngine:
     def _fail_warm(self, exc):
         with self._cv:
             queued, self._warm_queue = list(self._warm_queue), deque()
-        for _, fut in queued:
-            _reject_future(fut, exc)
+        for job in queued:
+            _reject_future(job[-1], exc)
 
     # -- the scheduler loop ---------------------------------------------
     def _loop_once(self):
@@ -529,29 +670,185 @@ class GenerationEngine:
                             sid, handle.prompt,
                             max_tokens=handle.prompt.size - 1)
                         self.cache.set_claim(sid, need)
+                        # TWO-POOL admission (speculative decoding): the
+                        # draft's cache is a second claims ledger, gated
+                        # and claimed here under the target's lock (lock
+                        # order target -> draft everywhere); a full draft
+                        # pool unwinds the target claim and waits
+                        draft_sid = None
+                        if self._draft_cache is not None:
+                            dc = self._draft_cache
+                            dneed = dc.pages_needed(
+                                handle.prompt.size + handle.max_new_tokens
+                                + self.speculative.k)
+                            with dc.lock:
+                                if dneed + dc.outstanding_claims() > \
+                                        dc.n_free_pages() \
+                                        + dc.n_evictable_pages():
+                                    self.cache.free_sequence(sid)
+                                    return
+                                draft_sid = f"{sid}.d"
+                                dc.add_sequence(draft_sid)
+                                dc.set_claim(draft_sid, dneed)
                     self._pending.popleft()
                     # appended under self._cv: drain() never sees "queue
                     # empty, nothing in flight" mid-admission
-                    self._prefilling.append(_ActiveSeq(sid, handle, cached))
+                    seq = _ActiveSeq(sid, handle, cached)
+                    seq.draft_sid = draft_sid
+                    self._prefilling.append(seq)
                     continue
             self._close_doomed(doomed)
 
+    # -- speculative decoding (inference/speculative.py) ----------------
+    def _free_draft(self, seq):
+        """Free a sequence's DRAFT-cache twin (every target free site
+        calls this: a leaked draft claim would starve two-pool
+        admission). Idempotent: clears seq.draft_sid."""
+        dsid, seq.draft_sid = seq.draft_sid, None
+        self._free_draft_sid(dsid)
+
+    def _free_draft_sid(self, dsid):
+        """_free_draft for detached (handle, sid, draft sid) tuples."""
+        if dsid is None or self._draft_cache is None:
+            return
+        with self._draft_cache.lock:
+            try:
+                self._draft_cache.free_sequence(dsid)
+            except KeyError:
+                pass  # already freed (a failure path racing a free site)
+
+    @staticmethod
+    def _hist_slice(s, start, stop):
+        """Token ids [start:stop) of a sequence's FULL history (prompt,
+        then generated) as host ints: the draft's catch-up feed."""
+        p = s.handle.prompt
+        ps = int(p.size)
+        out = []
+        if start < ps:
+            out.extend(int(t) for t in p[start:min(stop, ps)])
+        if stop > ps:
+            out.extend(int(t)
+                       for t in s.generated[max(start - ps, 0):stop - ps])
+        return out
+
+    def _spec_rows(self, rows, seqs):
+        """One DRAFT-model ragged step (the target step's bucketing, so
+        the draft's warm schedule covers it), returning each row's next
+        token as host ints. Rows draw with their request's own sampling
+        config (`draft_temperature` overriding the temperature), keyed
+        by the fold_in(request key, position) the target's draw uses;
+        the samples of catch-up-only rows are discarded."""
+        spec = self.speculative
+        t_real = sum(len(t) for _, t in rows)
+        pad_t = max(self._pow2(t_real), MIN_Q_TOKENS)
+        pad_b = min(self._pow2(len(rows)), self._pow2(self.max_batch))
+        temps = np.zeros((pad_b,), np.float32)
+        top_ks = np.zeros((pad_b,), np.int32)
+        top_ps = np.ones((pad_b,), np.float32)
+        keys = np.zeros((pad_b, 2), np.uint32)
+        for i, s in enumerate(seqs):
+            sp = s.sampling
+            t_eff = float(sp.temperature)
+            if spec.draft_temperature is not None:
+                t_eff = spec.draft_temperature
+            if t_eff > 0:
+                temps[i] = t_eff
+                top_ks[i] = sp.top_k or 0
+                top_ps[i] = 1.0 if sp.top_p is None else sp.top_p
+                keys[i] = s.key
+        _, nxt = spec.draft_model.paged_ragged_step(
+            self._draft_cache, rows, pad_to_tokens=pad_t, pad_to_rows=pad_b,
+            sampling=(temps, top_ks, top_ps, keys))
+        self.draft_steps += 1
+        return nxt.cpu().tolist()  # the draft step's one read: int32s
+
+    def _spec_propose(self):
+        """The draft's proposal pass, ONE iteration:
+
+        first one CATCH-UP row per draft-backed sequence feeds the draft
+        the history tokens its cursor (seq.dlen) has no KV for: prompt
+        tokens the target took from its prefix cache, the 2-token lag a
+        fully accepted verify row leaves; at most max(prefill_chunk, 2)
+        tokens, so a cold draft admits in chunks as target prefill does.
+        A row that reaches the anchor token (seq.last) makes the
+        sequence READY: its sample is the first proposal d_1.
+
+        steps 2..k feed the previous proposal back as a 1-token row per
+        ready sequence, giving d_j keyed at the position of the target's
+        v_{j-1} draw.
+
+        Returns {sid: [d_1..d_k_eff]} for the sequences whose next target
+        row is a VERIFY row (k_eff = min(k, remaining - 1)); sequences
+        still catching up are absent and decode non-speculatively this
+        iteration. `_ragged_step` rolls the draft's KV past the accepted
+        prefix back once the verdict is in."""
+        spec = self.speculative
+        cap = max(self.prefill_chunk, 2)
+        plans, rows = [], []
+        for s in list(self._active) + list(self._prefilling):
+            if s.draft_sid is None:
+                continue
+            n_hist = int(s.handle.prompt.size) + len(s.generated)
+            take = min(n_hist - s.dlen, cap)
+            if take <= 0:
+                continue  # a prefilling twin fully caught up: no anchor yet
+            remaining = s.handle.max_new_tokens - len(s.generated)
+            k_eff = 0 if s.last is None else min(spec.k, remaining - 1)
+            ready = s.dlen + take == n_hist and k_eff >= 1 \
+                and s in self._active
+            rows.append((s.draft_sid,
+                         self._hist_slice(s, s.dlen, s.dlen + take)))
+            plans.append((s, k_eff, ready, take))
+        if not rows:
+            return {}
+        drafts, live = {}, []
+        toks = self._spec_rows(rows, [p[0] for p in plans])
+        for (s, k_eff, ready, take), tok in zip(plans, toks):
+            s.dlen += take
+            if ready:
+                drafts[s.sid] = [tok]
+                live.append((s, k_eff))
+        for j in range(2, spec.k + 1):
+            feed = [(s, k_eff) for s, k_eff in live if k_eff >= j]
+            if not feed:
+                break
+            rows = [(s.draft_sid, [drafts[s.sid][-1]]) for s, _ in feed]
+            toks = self._spec_rows(rows, [s for s, _ in feed])
+            for (s, _), tok in zip(feed, toks):
+                s.dlen += 1
+                drafts[s.sid].append(tok)
+        return drafts
+
     def _ragged_step(self):
-        """ONE mixed step: every active sequence's decode token plus up
-        to `prefill_chunk` prompt tokens of the prefilling set
-        (shortest remaining prompt first), token/row counts padded to
-        power-of-two buckets (pad tokens: no attention work, identity
-        scan updates). The host reads back one int32 per row."""
+        """ONE mixed step: every active sequence's decode token (or, with
+        speculative decoding, its anchor and the draft's proposals as
+        one VERIFY row) plus up to `prefill_chunk` prompt tokens of the
+        prefilling set (shortest remaining prompt first), token/row
+        counts padded to power-of-two buckets (pad tokens: no attention
+        work, identity scan updates). Each row carries its request's
+        sampling config. The host reads back one int32 per row, or per
+        token on a speculative engine."""
         for s in list(self._prefilling):  # cancelled mid-prefill: evict
             if s.handle.future.cancelled():
                 with self.cache.lock:
                     self.cache.free_sequence(s.sid)
+                self._free_draft(s)
                 self._prefilling.remove(s)
                 s.handle._close()
+        launched = ragged_paged_attention.launches + ssm_scan.launches
+        spec_on = self._draft_cache is not None
+        drafts = self._spec_propose() if spec_on else {}
         rows, metas = [], []
         for s in self._active:
-            rows.append((s.sid, [s.last]))
-            metas.append(("decode", s, 1))
+            d = drafts.get(s.sid)
+            if d:
+                # verify row: the anchor (whose KV the target has not
+                # written yet) and the proposals, one prefill-shaped row
+                rows.append((s.sid, [s.last] + d))
+                metas.append(("verify", s, 1 + len(d)))
+            else:
+                rows.append((s.sid, [s.last]))
+                metas.append(("decode", s, 1))
         budget = self.prefill_chunk
         # shortest-remaining-first: a short prompt finishes its prefill
         # within a step or two while a long one absorbs the leftover
@@ -566,7 +863,7 @@ class GenerationEngine:
             metas.append(("prefill", s, n))
             budget -= n
         if not rows:
-            return
+            return  # nothing in flight: no draft step ran either
         t_real = sum(n for _, _, n in metas)
         b_real = len(rows)
         pad_t = max(self._pow2(t_real), MIN_Q_TOKENS)
@@ -585,15 +882,62 @@ class GenerationEngine:
                  for sid, toks in rows])
             self._attn_computed += int(ragged_work_plan(bounds, P).sum()) * P
             self._attn_useful += int(bounds.sum())
-        launched = ragged_paged_attention.launches + ssm_scan.launches
-        _, nxt = self.model.paged_ragged_step(
-            self.cache, rows, pad_to_tokens=pad_t, pad_to_rows=pad_b)
-        toks = nxt.cpu().tolist()  # the step's one device-to-host read
+        # per-row sampling config, [pad_b]-shaped like the row axis: pad
+        # and greedy rows carry temperature 0 (the argmax lane), sampled
+        # rows their request's config and key (the step folds in the
+        # token's position)
+        temps = np.zeros((pad_b,), np.float32)
+        top_ks = np.zeros((pad_b,), np.int32)
+        top_ps = np.ones((pad_b,), np.float32)
+        keys = np.zeros((pad_b, 2), np.uint32)
+        for i, (_, s, _) in enumerate(metas):
+            sp = s.sampling
+            if not sp.greedy:
+                temps[i] = sp.temperature
+                top_ks[i] = sp.top_k or 0
+                top_ps[i] = 1.0 if sp.top_p is None else sp.top_p
+                keys[i] = s.key
+        out = self.model.paged_ragged_step(
+            self.cache, rows, pad_to_tokens=pad_t, pad_to_rows=pad_b,
+            sampling=(temps, top_ks, top_ps, keys), return_per_token=spec_on)
+        # the step's one device-to-host read: int32s, per token on a
+        # speculative engine (the verify lane), else per row
+        toks = out[2 if spec_on else 1].cpu().tolist()
         self.kernel_launches += ragged_paged_attention.launches \
             + ssm_scan.launches - launched
         self.steps += 1
         self._sync_retraces()
-        for (kind, s, n), tok in zip(metas, toks):
+        off = 0
+        for i, (kind, s, n) in enumerate(metas):
+            row0 = off
+            off += n
+            tok = toks[row0 + n - 1] if spec_on else toks[i]
+            if kind == "verify":
+                d = drafts[s.sid]
+                samples = toks[row0:row0 + n]
+                m = accept_length(d, samples)
+                k_eff = n - 1
+                self._spec_proposed += k_eff
+                self._spec_accepted += m - 1
+                # roll BOTH write cursors back before emitting (a finish
+                # inside the emit loop frees the sequence, and prefix
+                # registration walks the pages at the accepted boundary):
+                # the target wrote k_eff + 1 tokens, m of them real; the
+                # draft consumed k_eff - 1 proposals, m - 1 real (a fully
+                # accepted row leaves a 2-token catch-up lag instead)
+                with self.cache.lock:
+                    self.cache.rollback(s.sid, (k_eff + 1) - m)
+                if s.draft_sid is not None:
+                    over = max(k_eff - m, 0)
+                    if over:
+                        with self._draft_cache.lock:
+                            self._draft_cache.rollback(s.draft_sid, over)
+                        s.dlen -= over
+                for t in samples[:m]:
+                    self._emit(s, t)
+                    if s not in self._active:
+                        break  # finished or cancelled mid-acceptance
+                continue
             if kind == "decode":
                 self._emit(s, tok)
                 continue
@@ -622,6 +966,7 @@ class GenerationEngine:
         if h.future.cancelled():
             with self.cache.lock:
                 self.cache.free_sequence(seq.sid)
+            self._free_draft(seq)
             self._active.remove(seq)
             h._close()
             with self._cv:
@@ -640,6 +985,7 @@ class GenerationEngine:
                 if seq.filled >= h.prompt.size:
                     self.cache.register_prefix(seq.sid, h.prompt)
                 self.cache.free_sequence(seq.sid)
+            self._free_draft(seq)
             self._active.remove(seq)
             _resolve_future(h.future, np.asarray(seq.generated, np.int64))
             h._close()
@@ -655,6 +1001,7 @@ class GenerationEngine:
             pend, self._pending = list(self._pending), deque()
         for seq in seqs:
             self._free_quietly(seq.sid)
+            self._free_draft(seq)
             _reject_future(seq.handle.future, exc)
             seq.handle._close()
         for h in pend:
@@ -724,7 +1071,7 @@ class GenerationEngine:
 
     def _take_pending(self):
         self._abort = True  # the loop thread fails _active itself
-        out = [(h, None) for h in self._pending]
+        out = [(h, None, None) for h in self._pending]
         self._pending.clear()
         return out
 
@@ -732,14 +1079,16 @@ class GenerationEngine:
         # the loop thread is gone (or going) with the engine: detach
         # the active set too, or its handles hang forever
         out = self._take_pending()
-        out += [(s.handle, s.sid) for s in self._active + self._prefilling]
+        out += [(s.handle, s.sid, s.draft_sid)
+                for s in self._active + self._prefilling]
         self._active, self._prefilling = [], []
         return out
 
     def _reject_detached(self, items, exc):
-        for h, sid in items:
+        for h, sid, dsid in items:
             if sid is not None:
                 self._free_quietly(sid)
+            self._free_draft_sid(dsid)
             _reject_future(h.future, exc)
             h._close()
 

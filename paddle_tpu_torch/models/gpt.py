@@ -16,7 +16,14 @@ over one to one.
   captured once as a CUDA graph over its cache and replayed after that
   (`RaggedGraphSteps`, the reference's one compiled executable per
   signature: `warm_ragged`, `_ragged_sig`, `_ragged_traces`);
-- decoding is greedy (`sample_token_rows`);
+- every row decodes under its own sampling config
+  (`sample_token_rows`): greedy rows take the argmax, sampled rows a
+  seeded temperature / top-k / top-p draw keyed by fold_in(request key,
+  position) on the threefry bits of ops/threefry.py, so a request's
+  stream does not depend on its batch. A step's graph is captured as
+  the layers (one graph) and its heads (logits and tokens: greedy or
+  sampled, per row or, for a speculative verify, per token), so an
+  all-greedy step replays no sort;
 - `GPTForCausalLM(input_ids)` (no caches) is the training forward:
   causal attention through `F.scaled_dot_product_attention`, which
   routes to the hand-written flash kernels
@@ -28,8 +35,7 @@ over one to one.
   head_dim 128, which the flash kernels take as they take 64.
 
 Not ported yet (ROADMAP.md queue A): the `scan_remat` policies, the
-static and legacy cache branches, seeded sampling, speculative
-decoding.
+static and legacy cache branches.
 """
 import time
 
@@ -41,16 +47,20 @@ from ..device import resolve_device
 from ..framework.dtype import convert_dtype
 from ..nn import Dropout, Embedding, LayerNorm, Linear
 from ..nn import functional as F
+from ..ops.attention_core import NEG_INF
 from ..ops.kernels import captured_launches, sm_count
 from ..ops.kernels.paged_attention import (H100_SMS, graph_scratch,
                                            ragged_capacity,
                                            ragged_paged_attention,
                                            ragged_schedule)
 from ..ops.paged_attention import PagedKVCache
+from ..ops.threefry import (categorical, fold_in, key_words,
+                            sampling_key_data)
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "RaggedSlot",
            "RaggedGraphSteps", "CapturedStep", "step_schedule",
-           "sample_token_rows", "gpt_tiny", "gpt_small", "gpt_medium",
+           "sample_token_rows", "greedy_tokens", "sampling_key_data",
+           "pack_sampling", "gpt_tiny", "gpt_small", "gpt_medium",
            "gpt_1p3b", "gpt_6p7b"]
 
 _NOT_PORTED = ("only the no-cache (training) forward and the ragged "
@@ -167,12 +177,15 @@ def pad_attention_plan(n_tokens, n_rows, width):
 
 
 class CapturedStep:
-    """One signature's serving step captured as a CUDA graph over one
+    """One signature's serving step captured as CUDA graphs over one
     cache: a static int32 plan buffer on the device (the step's one
     host-to-device copy lands there) with a pinned host mirror, the
-    graph's outputs (last, nxt), the split-KV scratch of kernel #1 the
-    graph owns, and the kernel launches the capture recorded, which each
-    replay adds to the wrappers' counts.
+    layers' graph (`graph`: the plan in, the final hidden states out),
+    the heads' graphs that turn those into logits and tokens (`heads`,
+    keyed by (per_token, sampled): greedy and sampled, per row, and per
+    token once a speculative engine asks), the split-KV scratch of
+    kernel #1 the layers' graph owns, and the kernel launches its
+    capture recorded, which each replay adds to the wrappers' counts.
 
     The capture runs the step's body on a plan of the signature in which
     every token is a pad (the model's `_ragged_pad_plan`): once eagerly,
@@ -180,17 +193,21 @@ class CapturedStep:
     kernels' shared-memory attributes), then captured on that stream
     into the cache's memory pool, which all of the cache's graphs share:
     their replays never overlap. Both runs write only the reserved pad
-    page / slot 0. `replay(host)` copies a real plan of the signature in
-    and replays; it reuses the pinned mirror only once the previous
-    copy out of it is done. A failed capture or replay raises."""
+    page / slot 0. `replay(host, sampled, per_token)` copies a real plan
+    of the signature in and replays the layers and the one head asked
+    for; it reuses the pinned mirror only once the previous copy out of
+    it is done. A failed capture or replay raises."""
 
-    __slots__ = ("graph", "static", "mirror", "host", "copied", "last",
-                 "nxt", "launches", "capture_ms", "scratch", "replays")
+    __slots__ = ("graph", "static", "mirror", "host", "copied", "hidden",
+                 "heads", "dims", "launches", "capture_ms", "scratch",
+                 "replays", "variant")
 
-    def __init__(self, model, cache, n_tokens, n_rows, width):
+    def __init__(self, model, cache, n_tokens, n_rows, width,
+                 per_token=False):
         device = cache.device
         host, schedule = model._ragged_pad_plan(cache, n_tokens, n_rows,
                                                 width)
+        self.dims = (n_tokens, n_rows, width)
         self.static = torch.from_numpy(host).to(device)
         self.mirror = torch.empty(host.size, dtype=torch.int32,
                                   pin_memory=True)
@@ -215,25 +232,57 @@ class CapturedStep:
                               capture_error_mode="thread_local"):
             if self.scratch is not None:
                 self.scratch[1].zero_()
-            self.last, self.nxt = model._ragged_body(
+            self.hidden = model._ragged_body(
                 cache, self.static, n_tokens, n_rows, width, schedule)
         self.launches = dict(captured_launches() - before)
+        self.heads = {}
+        self._capture_heads(model, state, per_token)
         self.capture_ms = (time.perf_counter() - t) * 1e3
         self.replays = 0
+        self.variant = None
 
-    def replay(self, host):
+    def ensure_heads(self, model, cache, per_token):
+        """Capture the (greedy, sampled) heads of `per_token` if this
+        step has none yet (a speculative engine's first per-token step
+        over a signature a plain one captured)."""
+        if (per_token, False) not in self.heads:
+            t = time.perf_counter()
+            self._capture_heads(model, _graph_state(cache), per_token)
+            self.capture_ms += (time.perf_counter() - t) * 1e3
+
+    def _capture_heads(self, model, state, per_token):
+        side = state.stream
+        side.wait_stream(torch.cuda.current_stream(self.static.device))
+        for sampled in (False, True):
+            with torch.cuda.stream(side):  # eager first: sort workspaces
+                model._ragged_head(self.hidden, self.static, *self.dims,
+                                   sampled=sampled, per_token=per_token)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=state.pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = model._ragged_head(self.hidden, self.static,
+                                         *self.dims, sampled=sampled,
+                                         per_token=per_token)
+            self.heads[(per_token, sampled)] = (graph, out)
+        torch.cuda.current_stream(self.static.device).wait_stream(side)
+
+    def replay(self, host, sampled=False, per_token=False):
         """Copy `host` (the step's int32 plan, the signature's layout)
-        into the static buffer and replay; returns the graph's (last,
-        nxt), which the next replay overwrites."""
+        into the static buffer and replay the layers, then the head of
+        (`per_token`, `sampled`); returns that head's outputs ((last,
+        nxt), and nxt_tok per token), which the next replay overwrites."""
+        graph, out = self.heads[(per_token, sampled)]
         self.copied.synchronize()
         self.host[:] = host
         self.static.copy_(self.mirror, non_blocking=True)
         self.copied.record()
         self.graph.replay()
+        graph.replay()
         self.replays += 1
+        self.variant = (sampled, per_token)
         for wrapper, n in self.launches.items():
             wrapper.launches += n
-        return self.last, self.nxt
+        return out
 
 
 class _GraphState:
@@ -258,6 +307,42 @@ def _graph_state(cache):
     return state
 
 
+# int32 words a padded row's sampling config takes in the step's plan:
+# temperature (float32 bits), top_k, top_p (float32 bits), key hi, key lo
+SAMPLING_INTS = 5
+
+
+def pack_sampling(sampling, n_rows):
+    """The reference's per-row (temperatures f32, top_ks i32, top_ps f32,
+    rng_keys u32 [B, 2]) as int32 [SAMPLING_INTS * B] (floats and key
+    words bit-cast), so they ride the step's one int32 copy; None means
+    every row greedy (temperature 0, top_p 1, key 0). Returns (the
+    array, whether any row samples)."""
+    B = int(n_rows)
+    out = np.zeros((SAMPLING_INTS, B), np.int32)
+    if sampling is None:
+        out[2] = np.ones((B,), np.float32).view(np.int32)
+        return out.reshape(-1), False
+    temps, top_ks, top_ps, keys = sampling
+    temps = np.asarray(temps, np.float32).reshape(-1)
+    if temps.shape[0] != B:
+        raise ValueError(f"sampling arrays have {temps.shape[0]} rows, the "
+                         f"step {B} (pass them padded to pad_to_rows)")
+    out[0] = temps.view(np.int32)
+    out[1] = np.asarray(top_ks, np.int32).reshape(B)
+    out[2] = np.asarray(top_ps, np.float32).reshape(B).view(np.int32)
+    out[3:5] = np.asarray(keys, np.uint32).reshape(B, 2).T.view(np.int32)
+    return out.reshape(-1), bool(np.any(temps > 0.0))
+
+
+def unpack_sampling(block, n_rows):
+    """The device views of `pack_sampling`'s block: (temps f32 [B],
+    top_ks i32 [B], top_ps f32 [B], key words int64 [B, 2])."""
+    b = block.view(SAMPLING_INTS, int(n_rows))
+    return (b[0].view(torch.float32), b[1], b[2].view(torch.float32),
+            key_words(b[3:5].t()))
+
+
 class RaggedGraphSteps:
     """The compiled serving step (the reference's `_ragged_jitted` /
     `warm_ragged` / `_ragged_traces`, paddle_tpu/models/gpt.py), mixed
@@ -267,16 +352,22 @@ class RaggedGraphSteps:
     table width W) and the cache. On the card the first step of a
     signature over a cache captures it (`CapturedStep`) and every step,
     that first one too, is a replay: one copy of the int32 plan into the
-    graph's static buffer, one graph launch, and the caller's read of
-    the tokens. The captures live on the cache, keyed by the model, the
-    signature and the pools' addresses (`_ragged_sig`), which the graphs
-    hold: two engines over one model never share one. On the CPU the
-    step runs eagerly, with the same signature bookkeeping. Every new
-    signature adds one to `_ragged_traces`, which the engine folds into
-    its `retraces`. A model provides `_ragged_pools(cache)`,
-    `_ragged_pad_plan(cache, T, B, W)` (the host plan and kernel #1's
-    schedule of an all-pad step) and `_ragged_body(cache, dev, T, B, W,
-    schedule, block_plan=None)` (the step on a device plan)."""
+    graph's static buffer, the layers' graph and one head's, and the
+    caller's read of the tokens. The head is picked on the host, which
+    knows every row's config (the reference's runtime `lax.cond` on any
+    temperature > 0): greedy (an argmax) unless some row samples, per
+    row unless a speculative engine asks per token. The captures live on
+    the cache, keyed by the model, the signature and the pools' addresses
+    (`_ragged_sig`), which the graphs hold: two engines over one model
+    never share one. On the CPU the step runs eagerly, with the same
+    signature bookkeeping. Every new signature adds one to
+    `_ragged_traces`, which the engine folds into its `retraces`. A model
+    provides `_ragged_pools(cache)`, `_ragged_pad_plan(cache, T, B, W)`
+    (the host plan and kernel #1's schedule of an all-pad step),
+    `_ragged_body(cache, dev, T, B, W, schedule, block_plan=None)` (the
+    layers on a device plan: hidden [T, H]), `_head_plan(dev, T, B, W)`
+    (out_idx, positions, token_seq, the sampling block) and
+    `_head_weight()` (the tied LM head)."""
 
     _ragged_traces = 0
 
@@ -292,60 +383,144 @@ class RaggedGraphSteps:
             self._ragged_sig(cache, n_tokens, n_rows, width))
 
     @torch.no_grad()
-    def warm_ragged(self, cache, n_tokens, n_rows, width):
+    def warm_ragged(self, cache, n_tokens, n_rows, width, per_token=False):
         """Capture one (tokens, rows, width) signature over `cache` ahead
-        of traffic, holding the cache's lock (no step of the cache
-        replays meanwhile). Returns True when it was captured now, False
-        when it was already; on the CPU it records the signature."""
+        of traffic, with its greedy and sampled heads (per token too with
+        `per_token`), holding the cache's lock (no step of the cache
+        replays meanwhile). Returns True when the signature was captured
+        now, False when it was already; on the CPU it records the
+        signature."""
         with cache.lock:
-            return self._ragged_entry(cache, n_tokens, n_rows, width)[1]
+            return self._ragged_entry(cache, n_tokens, n_rows, width,
+                                      per_token)[1]
 
-    def _ragged_entry(self, cache, n_tokens, n_rows, width):
+    def _ragged_entry(self, cache, n_tokens, n_rows, width,
+                      per_token=False):
         """(the signature's CapturedStep or None on the CPU, whether it
         is new), capturing a new one on the card."""
         steps = _graph_state(cache).steps
         key = self._ragged_sig(cache, n_tokens, n_rows, width)
         if key in steps:
-            return steps[key], False
+            step = steps[key]
+            if step is not None:
+                step.ensure_heads(self, cache, per_token)
+            return step, False
         step = None
         if cache.device.type == "cuda":
-            step = CapturedStep(self, cache, n_tokens, n_rows, width)
+            step = CapturedStep(self, cache, n_tokens, n_rows, width,
+                                per_token)
         steps[key] = step
         self._ragged_traces += 1
         return step, True
 
     def _ragged_run(self, cache, n_tokens, n_rows, width, host, schedule,
-                    block_plan=None):
+                    block_plan=None, sampled=False, per_token=False):
         """The step of one signature on the host plan `host` (the
-        caller holds cache.lock): a replay of its graph on the card,
+        caller holds cache.lock): a replay of its graphs on the card,
         captured first if the signature is new; the eager body on the
-        CPU. Returns (last, nxt) over all n_rows rows, copies of the
-        graph's outputs on the card."""
-        step, _ = self._ragged_entry(cache, n_tokens, n_rows, width)
+        CPU. Returns (last, nxt) over all n_rows rows, and nxt_tok over
+        all n_tokens tokens with `per_token`; copies of the graph's
+        outputs on the card."""
+        step, _ = self._ragged_entry(cache, n_tokens, n_rows, width,
+                                     per_token)
         if step is None:
-            return self._ragged_body(cache, torch.from_numpy(host),
-                                     n_tokens, n_rows, width, schedule,
-                                     block_plan)
-        last, nxt = step.replay(host)
-        return last.clone(), nxt.clone()
+            dev = torch.from_numpy(host)
+            hidden = self._ragged_body(cache, dev, n_tokens, n_rows, width,
+                                       schedule, block_plan)
+            return self._ragged_head(hidden, dev, n_tokens, n_rows, width,
+                                     sampled, per_token)
+        return tuple(t.clone() for t in step.replay(host, sampled,
+                                                    per_token))
 
     @torch.no_grad()
-    def run_ragged_body(self, cache, host, n_tokens, n_rows, width):
-        """The body a signature's graph captured, run eagerly on `cache`
-        with the int32 plan `host` of that signature (a replay's,
-        `CapturedStep.host`): what a replay must equal bit for bit. It
-        writes the cache's pools as the step does."""
+    def run_ragged_body(self, cache, host, n_tokens, n_rows, width,
+                        sampled=False, per_token=False):
+        """The layers and the head a signature's graphs captured, run
+        eagerly on `cache` with the int32 plan `host` of that signature
+        (a replay's, `CapturedStep.host`, and its `variant`): what a
+        replay must equal bit for bit. It writes the cache's pools as the
+        step does."""
         _, schedule = self._ragged_pad_plan(cache, n_tokens, n_rows, width)
         dev = torch.from_numpy(np.ascontiguousarray(host)).to(cache.device)
-        return self._ragged_body(cache, dev, n_tokens, n_rows, width,
-                                 schedule)
+        hidden = self._ragged_body(cache, dev, n_tokens, n_rows, width,
+                                   schedule)
+        return self._ragged_head(hidden, dev, n_tokens, n_rows, width,
+                                 sampled, per_token)
+
+    def _ragged_head(self, hidden, dev, n_tokens, n_rows, width,
+                     sampled=False, per_token=False):
+        """Logits and tokens from the layers' hidden states [T, H]: per
+        row, (last [B, V] at each row's last token, nxt [B]); per token,
+        (last, nxt, nxt_tok [T]), where token t draws under its row's
+        config at its own position (the reference's per-token lane, which
+        a speculative verify row reads) and nxt = nxt_tok[out_idx]. The
+        greedy head takes the argmax alone; the sampled one
+        `sample_token_rows`, whose greedy rows take the same argmax."""
+        out_idx, pos, seq, block = self._head_plan(dev, n_tokens, n_rows,
+                                                   width)
+        w = self._head_weight()
+        samp = unpack_sampling(block, n_rows) if sampled else None
+        if not per_token:
+            last = hidden.index_select(0, out_idx) @ w.T
+            if samp is None:
+                return last, greedy_tokens(last)
+            return last, sample_token_rows(last, *samp,
+                                           pos.index_select(0, out_idx))
+        logits = hidden @ w.T
+        if samp is None:
+            tok = greedy_tokens(logits)
+        else:
+            tok = sample_token_rows(
+                logits, *(a.index_select(0, seq) for a in samp), pos)
+        return (logits.index_select(0, out_idx), tok.index_select(0, out_idx),
+                tok)
 
 
-def sample_token_rows(last):
+def greedy_tokens(last):
     """Greedy next tokens of [B, vocab] logits: argmax, ties to the
-    first index (as the reference's argmax lane). Returns int32 [B] on
-    the logits' device."""
+    first index (the reference's argmax lane). int32 [B]."""
     return torch.argmax(last, dim=-1).to(torch.int32)
+
+
+def sample_token_rows(last, temps, top_ks, top_ps, rng_keys, positions):
+    """Per-row sampling of next tokens (the reference's, one for one):
+    last [B, V] logits; temps [B] f32 (<= 0 takes the greedy argmax
+    lane, bit-exact with `greedy_tokens`); top_ks [B] i32 (<= 0 keeps
+    all V); top_ps [B] f32 (1.0 keeps all); rng_keys [B, 2] per-request
+    key data (uint32, or its int32 / int64 words); positions [B] the
+    absolute position of each row's token.
+
+    Logits are scaled by 1 / max(temperature, 1e-6) in float32; top-k
+    keeps values >= the k-th largest; the nucleus keeps a token iff the
+    softmax mass sorted before it is < top_p; the rest become -1e30; the
+    draw is `jax.random.categorical` under fold_in(row key, position)
+    (ops/threefry.py), so it depends on the request's seed and the
+    token's position only. One descending sort serves both filters (the
+    reference sorts the top-k-masked logits again, which gives the same
+    values: the entries below the k-th, replaced). Plain torch ops, on
+    the logits' device. Returns int32 [B]."""
+    dev = last.device
+    temps, top_ks, top_ps, positions = (
+        torch.as_tensor(a, device=dev)
+        for a in (temps, top_ks, top_ps, positions))
+    V = last.shape[-1]
+    greedy = greedy_tokens(last)
+    arr = last.float() / torch.clamp_min(temps.float(), 1e-6)[:, None]
+    srt = torch.sort(arr, dim=-1, descending=True).values
+    k_eff = torch.where(top_ks > 0, top_ks, V).clamp(1, V).long()
+    kth = srt.gather(-1, (k_eff - 1)[:, None])
+    arr = torch.where(arr < kth, NEG_INF, arr)
+    srt = torch.where(srt < kth, NEG_INF, srt)
+    p_srt = torch.softmax(srt, dim=-1)
+    before = torch.cumsum(p_srt, dim=-1) - p_srt
+    keep = before < top_ps.float()[:, None]
+    thresh = torch.where(keep, srt, float("inf")).amin(dim=-1,
+                                                       keepdim=True)
+    arr = torch.where(arr >= thresh, arr, NEG_INF)
+    keys = fold_in(key_words(torch.as_tensor(rng_keys, device=dev)),
+                   positions)
+    sampled = categorical(keys, arr).to(torch.int32)
+    return torch.where(temps <= 0.0, greedy, sampled)
 
 
 class GPTAttention(nn.Module):
@@ -512,7 +687,8 @@ class GPTForCausalLM(RaggedGraphSteps, nn.Module):
 
     @torch.no_grad()
     def paged_ragged_step(self, cache, rows, pad_to_tokens=None,
-                          pad_to_rows=None):
+                          pad_to_rows=None, sampling=None,
+                          return_per_token=False):
         """ONE continuous-batching step over mixed rows: `rows` is a list
         of (seq_id, token_ids) where decode rows carry one token and
         prefill-chunk rows a slice of their prompt, all advanced in one
@@ -520,12 +696,19 @@ class GPTForCausalLM(RaggedGraphSteps, nn.Module):
         tokens do no attention work).
 
         Returns (logits [n_rows, vocab] — each row's LAST token's
-        next-token logits — and next_tokens, int32 [n_rows] greedy
-        samples), both on the model's device: the caller's host read of
-        the tokens is the step's only synchronization.
-        pad_to_tokens/pad_to_rows pad the step to fixed shapes. On the
-        card the step is a replay of its signature's CUDA graph
-        (`RaggedGraphSteps`)."""
+        next-token logits — and next_tokens, int32 [n_rows]), both on
+        the model's device: the caller's host read of the tokens is the
+        step's only synchronization. pad_to_tokens/pad_to_rows pad the
+        step to fixed shapes. On the card the step is a replay of its
+        signature's CUDA graphs (`RaggedGraphSteps`).
+
+        `sampling` is the reference's optional (temperatures, top_ks,
+        top_ps, rng_keys) of PADDED-row-shaped host arrays (f32 [B],
+        i32 [B], f32 [B], u32 [B, 2]; `sample_token_rows`); None means
+        every row greedy. `return_per_token=True` appends the padded
+        [T] int32 samples of every token (token t's draw from its own
+        next-token logits under its row's config, keyed by its
+        position): what a speculative verify row reads."""
         limit = self.cfg.max_position_embeddings
         over = [s for s, t in rows if cache.length(s) + len(t) > limit]
         if over:
@@ -546,17 +729,19 @@ class GPTForCausalLM(RaggedGraphSteps, nn.Module):
             for _, t in rows:
                 toks[off:off + len(t)] = np.asarray(t, np.int32).reshape(-1)
                 off += len(t)
+            samp, sampled = pack_sampling(sampling, B)
             schedule = step_schedule(plan, cache, self.cfg.num_heads,
                                      capacity=cache.device.type == "cuda")
             block_plan = (plan["blk_pages"], plan["blk_seq"],
                           plan["blk_start"], plan["blk_n"])
-            last, nxt = self._ragged_run(cache, T, B, W,
-                                         _pack_plan(toks, plan, schedule),
-                                         schedule, block_plan)
+            out = self._ragged_run(cache, T, B, W,
+                                   _pack_plan(toks, plan, samp, schedule),
+                                   schedule, block_plan, sampled,
+                                   return_per_token)
             for s, t in rows:
                 cache.advance(s, len(t))
             n = plan["n_rows"]
-        return last[:n], nxt[:n]
+        return (out[0][:n], out[1][:n]) + tuple(out[2:])
 
     # ---- the step's pieces for RaggedGraphSteps ----------------------
     def _ragged_pools(self, cache):
@@ -567,36 +752,44 @@ class GPTForCausalLM(RaggedGraphSteps, nn.Module):
         schedule = step_schedule(plan, cache, self.cfg.num_heads,
                                  capacity=True)
         return _pack_plan(np.zeros((int(n_tokens),), np.int32), plan,
-                          schedule), schedule
+                          pack_sampling(None, n_rows)[0], schedule), schedule
 
     def _ragged_body(self, cache, dev, n_tokens, n_rows, width, schedule,
                      block_plan=None):
-        """The step on the device plan `dev` (`_pack_plan`'s layout):
-        every layer writes its tokens' K/V into the pools and attends;
-        the rows' last tokens give logits and greedy tokens. Nothing
-        here reads the plan's values on the host."""
+        """The layers on the device plan `dev` (`_pack_plan`'s layout):
+        every layer writes its tokens' K/V into the pools and attends.
+        Returns the final hidden states [T, H]. Nothing here reads the
+        plan's values on the host."""
         T, B, W = n_tokens, n_rows, width
         ids, pos, seq, pages, in_pages, bounds = dev[:6 * T].view(6, T)
-        out_idx = dev[6 * T:6 * T + B]
         page_table = dev[6 * T + B:6 * T + B + B * W].view(B, W)
-        schedule.dev = dev[6 * T + B + B * W:]
+        schedule.dev = dev[6 * T + B + B * W + SAMPLING_INTS * B:]
         slots = [RaggedSlot(cache.k[l], cache.v[l], pages, in_pages,
                             page_table, seq, bounds, block_plan, schedule)
                  for l in range(self.cfg.num_layers)]
         hidden, _ = self.gpt(ids[None], pos[None], slots)
-        last = hidden[0].index_select(0, out_idx) @ self.gpt.wte.weight.T
-        return last, sample_token_rows(last)
+        return hidden[0]
+
+    def _head_plan(self, dev, n_tokens, n_rows, width):
+        T, B, W = n_tokens, n_rows, width
+        at = 6 * T + B + B * W
+        return (dev[6 * T:6 * T + B], dev[T:2 * T], dev[2 * T:3 * T],
+                dev[at:at + SAMPLING_INTS * B])
+
+    def _head_weight(self):
+        return self.gpt.wte.weight
 
 
-def _pack_plan(toks, plan, schedule):
+def _pack_plan(toks, plan, samp, schedule):
     """The step's int32 plan as the ONE host array that crosses to the
     device: token ids, positions, token_seq, the scatter coordinates,
-    bounds [T] each, out_idx [B], the page table [B, W], kernel #1's
-    schedule table (fixed-size per signature with a capacity)."""
+    bounds [T] each, out_idx [B], the page table [B, W], the rows'
+    sampling configs (`pack_sampling`), kernel #1's schedule table
+    (fixed-size per signature with a capacity)."""
     return np.concatenate([
         toks, plan["positions"], plan["token_seq"], plan["tok_pages"],
         plan["tok_in_pages"], plan["bounds"], plan["out_idx"],
-        plan["page_table"].reshape(-1), schedule.table])
+        plan["page_table"].reshape(-1), samp, schedule.table])
 
 
 def gpt_tiny(vocab=1024):

@@ -36,8 +36,9 @@ each step rounds the carried state to it, as the reference's do.
 whole sequences; it runs the same scan kernel with the batch flattened
 onto the token axis. The scan has no backward in either package, so
 grad-enabled use on CUDA raises (SSM training is out of scope this
-round, ROADMAP.md), and decoding is greedy: sampling at temperature > 0
-raises (ROADMAP.md queue A, item A.3).
+round, ROADMAP.md). Served rows decode greedily or by seeded sampling,
+per row, as GPT's do (models/gpt.py `sample_token_rows`); speculative
+decoding is refused on these caches, whose state cannot roll back.
 """
 import numpy as np
 import torch
@@ -51,16 +52,11 @@ from ..nn import functional as F
 from ..ops.kernels.ssm_scan import ssm_scan
 from ..ops.paged_attention import PagedKVCache
 from .gpt import (GPTAttention, RaggedGraphSteps, RaggedSlot,
-                  pad_attention_plan, sample_token_rows, step_schedule)
+                  SAMPLING_INTS, pack_sampling, pad_attention_plan,
+                  step_schedule)
 
 __all__ = ["SSMConfig", "SSMForCausalLM", "SSMModel", "SSMSlot",
            "ssm_tiny", "ssm_hybrid_tiny"]
-
-_SAMPLING_NOT_PORTED = (
-    "sampling with temperature > 0 is not ported yet (it needs a "
-    "threefry-compatible generator): ROADMAP.md queue A, item A.3, "
-    "'Seeded sampling'")
-
 
 class SSMConfig:
     """The reference's SSMConfig, field for field. `sequence_parallel` is
@@ -408,7 +404,8 @@ class SSMForCausalLM(RaggedGraphSteps, nn.Module):
 
     @torch.no_grad()
     def paged_ragged_step(self, cache, rows, pad_to_tokens=None,
-                          pad_to_rows=None, sampling=None):
+                          pad_to_rows=None, sampling=None,
+                          return_per_token=False):
         """ONE continuous-batching step over mixed rows: `rows` is a list
         of (seq_id, token_ids), decode rows one token, prefill-chunk rows
         a slice of their prompt. Each SSM layer gathers every row's conv
@@ -418,14 +415,14 @@ class SSMForCausalLM(RaggedGraphSteps, nn.Module):
         layers run the paged path of models/gpt.py.
 
         Returns (logits [n_rows, vocab] of each row's LAST token, and
-        next_tokens int32 [n_rows], greedy), both on the model's device.
+        next_tokens int32 [n_rows]), both on the model's device.
         pad_to_tokens/pad_to_rows pad the step to fixed shapes; on the
         card the step is a replay of its (tokens, rows, width)
-        signature's CUDA graph (width 1 on a recurrent cache).
-        `sampling` is the reference's per-row (temperatures, top_ks,
-        top_ps, keys); only greedy rows (temperature 0) are served."""
-        if sampling is not None and np.any(np.asarray(sampling[0]) > 0):
-            raise NotImplementedError(_SAMPLING_NOT_PORTED)
+        signature's CUDA graphs (width 1 on a recurrent cache).
+        `sampling` (the per-row config) and `return_per_token` (the
+        per-token lane appended) are GPT's (models/gpt.py
+        `paged_ragged_step`); the engine never asks these caches for
+        the per-token lane, since it refuses speculation on them."""
         limit = self.cfg.max_position_embeddings
         over = [s for s, t in rows if cache.length(s) + len(t) > limit]
         if over:
@@ -455,12 +452,15 @@ class SSMForCausalLM(RaggedGraphSteps, nn.Module):
                 schedule = step_schedule(
                     aplan, cache.paged, cfg.num_heads,
                     capacity=cache.device.type == "cuda")
-            host = self._pack_plan(toks, plan, aplan, schedule)
-            last, nxt = self._ragged_run(cache, T, B, W, host, schedule)
+            samp, sampled = pack_sampling(sampling, B)
+            host = self._pack_plan(toks, plan, aplan, schedule, samp)
+            out = self._ragged_run(cache, T, B, W, host, schedule,
+                                   sampled=sampled,
+                                   per_token=return_per_token)
             for s, t in rows:
                 cache.advance(s, len(t))
             n = plan["n_rows"]
-        return last[:n], nxt[:n]
+        return (out[0][:n], out[1][:n]) + tuple(out[2:])
 
     # ---- the step's pieces for RaggedGraphSteps ----------------------
     def _ragged_pools(self, cache):
@@ -474,29 +474,32 @@ class SSMForCausalLM(RaggedGraphSteps, nn.Module):
         """(name, shape) of each array of the step's int32 plan, in the
         order of the one host-to-device copy: a function of the
         signature (and, in the hybrid, of kernel #1's table size, which
-        a capacity fixes per signature)."""
+        a capacity fixes per signature; 0 with no schedule given)."""
         T, B, K1 = int(n_tokens), int(n_rows), self.cfg.d_conv - 1
         layout = [("ids", (T,)), ("positions", (T,)), ("token_seq", (T,)),
                   ("tok_valid", (T,)), ("slot_ids", (B,)), ("out_idx", (B,)),
                   ("conv_rows", (K1, T)), ("from_chunk", (K1, T)),
                   ("tail_new", (B, K1)), ("tail_old", (B, K1)),
-                  ("tail_keep", (B, K1))]
+                  ("tail_keep", (B, K1)), ("sampling", (B * SAMPLING_INTS,))]
         if self.ssm.hybrid:
             layout += [("tok_pages", (T,)), ("tok_in_pages", (T,)),
                        ("bounds", (T,)), ("page_table", (B, int(width))),
                        ("attn_seq", (T,)),
-                       ("attn_schedule", (schedule.table.size,))]
+                       ("attn_schedule", (0 if schedule is None
+                                          else schedule.table.size,))]
         return layout
 
-    def _pack_plan(self, toks, plan, aplan, schedule):
+    def _pack_plan(self, toks, plan, aplan, schedule, samp):
         """The step's plan as ONE int32 host array (`_plan_layout`'s
         order): RecurrentStateCache.plan_step's, its conv gathers
-        (`ssm_step_plan`) and, in the hybrid, the attention layers'
-        (PagedKVCache.plan_ragged's) with kernel #1's schedule."""
+        (`ssm_step_plan`), the rows' sampling configs (`pack_sampling`)
+        and, in the hybrid, the attention layers' (PagedKVCache.
+        plan_ragged's) with kernel #1's schedule."""
         host = {"ids": toks, "positions": plan["positions"],
                 "token_seq": plan["token_seq"],
                 "tok_valid": plan["tok_valid"].astype(np.int32),
-                "slot_ids": plan["slot_ids"], "out_idx": plan["out_idx"]}
+                "slot_ids": plan["slot_ids"], "out_idx": plan["out_idx"],
+                "sampling": samp}
         host.update(ssm_step_plan(plan, self.cfg.d_conv))
         if aplan is not None:
             for k in ("tok_pages", "tok_in_pages", "bounds", "page_table"):
@@ -523,17 +526,28 @@ class SSMForCausalLM(RaggedGraphSteps, nn.Module):
             aplan = pad_attention_plan(T, B, width)
             schedule = step_schedule(aplan, cache.paged, self.cfg.num_heads,
                                      capacity=True)
-        return self._pack_plan(z(T), plan, aplan, schedule), schedule
+        return self._pack_plan(z(T), plan, aplan, schedule,
+                               pack_sampling(None, B)[0]), schedule
+
+    def _plan_views(self, dev, n_tokens, n_rows, width, schedule=None):
+        """{name: device view} of the plan `dev` (`_plan_layout`; without
+        a schedule, its table is left out)."""
+        views, at = {}, 0
+        for name, shape in self._plan_layout(n_tokens, n_rows, width,
+                                             schedule):
+            n = int(np.prod(shape))
+            views[name] = dev[at:at + n].view(shape)
+            at += n
+        return views
 
     def _ragged_body(self, cache, dev, n_tokens, n_rows, width, schedule,
                      block_plan=None):
-        """The step on the device plan `dev` (`_plan_layout`); nothing
-        here reads the plan's values on the host."""
+        """The layers on the device plan `dev` (`_plan_layout`): the
+        final hidden states [T, H]. Nothing here reads the plan's values
+        on the host."""
         cfg = self.cfg
         rec = getattr(cache, "recurrent", cache)
-        layout = self._plan_layout(n_tokens, n_rows, width, schedule)
-        parts = dev.split([int(np.prod(shape)) for _, shape in layout])
-        d = {name: t.view(shape) for (name, shape), t in zip(layout, parts)}
+        d = self._plan_views(dev, n_tokens, n_rows, width, schedule)
         splan = {"token_seq": d["token_seq"], "slot_ids": d["slot_ids"],
                  "conv_rows": d["conv_rows"],
                  "from_chunk": d["from_chunk"].bool()[:, :, None],
@@ -555,9 +569,14 @@ class SSMForCausalLM(RaggedGraphSteps, nn.Module):
                 slots.append(SSMSlot(rec.conv[j], rec.ssm[j], splan))
                 j += 1
         hidden, _ = self.ssm(d["ids"][None], d["positions"][None], slots)
-        last = hidden[0].index_select(0, d["out_idx"]) \
-            @ self.ssm.wte.weight.T
-        return last, sample_token_rows(last)
+        return hidden[0]
+
+    def _head_plan(self, dev, n_tokens, n_rows, width):
+        d = self._plan_views(dev, n_tokens, n_rows, width)
+        return d["out_idx"], d["positions"], d["token_seq"], d["sampling"]
+
+    def _head_weight(self):
+        return self.ssm.wte.weight
 
 
 def ssm_tiny(vocab=1024):

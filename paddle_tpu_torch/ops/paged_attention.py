@@ -33,8 +33,10 @@ replaced.
 The claims ledger (`set_claim` / `outstanding_claims`) keeps admission
 reservations pool-wide; `lock` serializes allocator mutations;
 `pool_stats` snapshots the pool (HybridCache reports it with its state
-gauges). Chain export/adoption, rollback, `plan_decode` and the legacy
-gather attention are not ported yet (ROADMAP.md queue A).
+gauges). `rollback` moves a sequence's write cursor back (the
+speculative-decoding rejection path). Chain export/adoption,
+`plan_decode` and the legacy gather attention are not ported yet
+(ROADMAP.md queue A).
 """
 import threading
 from collections import OrderedDict
@@ -375,6 +377,37 @@ class PagedKVCache:
     def advance(self, seq_id, n_tokens):
         """Commit n_tokens appended to EVERY layer."""
         self._len[seq_id] += n_tokens
+
+    def rollback(self, seq_id, n_tokens):
+        """Un-commit the LAST n_tokens of seq_id: move the write cursor
+        back without touching page tables, refcounts or claims (the
+        speculative-decoding rejection path, inference/speculative.py).
+
+        Pages stay held (the admission claim reserved them, and the
+        cursor advances over the same slots again); stale k/v past the
+        cursor is dead, since every read is bounded by the length the
+        planner takes from `_len`, and the slots are written again
+        before the cursor crosses them. Shared (CoW) pages are never
+        affected: `_ensure_capacity` made a private copy before any
+        write in the rolled-back range."""
+        n_tokens = int(n_tokens)
+        if n_tokens < 0:
+            raise ValueError(f"rollback of {n_tokens} tokens")
+        if seq_id not in self._len:
+            raise KeyError(f"unknown sequence {seq_id!r}")
+        if n_tokens > self._len[seq_id]:
+            raise ValueError(
+                f"rollback of {n_tokens} tokens exceeds sequence "
+                f"{seq_id!r} length {self._len[seq_id]}")
+        self._len[seq_id] -= n_tokens
+
+    def pages_held(self, seq_id):
+        """Pages in seq_id's table (shared prefix pages included)."""
+        return len(self._tables[seq_id])
+
+    def pages_drawn(self, seq_id):
+        """Pages seq_id drew from the pool (copy-on-write included)."""
+        return self._drawn[seq_id]
 
     def plan_ragged(self, rows, pad_to_tokens=None, pad_to_rows=None,
                     q_heads=None):

@@ -1142,3 +1142,133 @@ def test_warm_captures_on_the_scheduler_thread_on_card():
             == eng.steps * model.cfg.num_layers
     finally:
         eng.shutdown()
+
+
+# -- seeded sampling and the per-token verify lane on the card --------------
+
+# the sampler's tolerance (tests/test_torch_sampling.py): the gumbel noise
+# within 2 ulps of max(|g|, 1) (`log` may differ by an ulp between the
+# CPU and the card); a token may differ only where the CPU's two best
+# perturbed logits lie within SAMPLE_TIE_ULPS ulps, or a row's nucleus
+# mass before some token within SAMPLE_MASS_TOL of its top_p
+SAMPLE_TIE_ULPS = 8
+SAMPLE_MASS_TOL = 1e-5
+
+
+@pytest.mark.cuda
+def test_threefry_and_sampler_on_card_equal_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paddle_tpu_torch.models.gpt import sample_token_rows
+    from paddle_tpu_torch.ops import threefry as tf
+    seeds = [0, 1, -5, 2**33 + 7, 2**63 - 1, -2**63, 123456789, 42]
+    keys = tf.key_words(np.stack([tf.sampling_key_data(s) for s in seeds]))
+    pos = torch.tensor([0, 1, 77, 4095, 4096, 123, 9, 600])
+    V = 50304
+    out = {}
+    for dev in ("cpu", "cuda"):
+        k = tf.fold_in(keys.to(dev), pos.to(dev))
+        out[dev] = [t.cpu() for t in (k, tf.random_bits(k, V),
+                                      tf.uniform(k, V), tf.gumbel(k, V))]
+    for a, b in zip(out["cpu"][:3], out["cuda"][:3]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    g_cpu, g_card = out["cpu"][3], out["cuda"][3]
+    ulp = torch.from_numpy(np.spacing(np.maximum(
+        g_cpu.abs().numpy(), 1).astype(np.float32)))
+    assert bool(((g_card - g_cpu).abs() <= 2 * ulp).all())
+    rng = np.random.RandomState(0)
+    last = torch.from_numpy((rng.randn(8, V) * 3).astype(np.float32))
+    temps = torch.tensor([0, 0.8, 1.0, 0.7, 1.3, 0.9, 0, 0.6])
+    top_ks = torch.tensor([0, 0, 40, 0, 100, 5, 3, 50], dtype=torch.int32)
+    top_ps = torch.tensor([1, 1, 1, 0.9, 0.95, 1, 0.5, 0.8])
+    args = (temps, top_ks, top_ps, keys, pos.to(torch.int32))
+    cpu = sample_token_rows(last, *args)
+    card = sample_token_rows(last.cuda(), *(a.cuda() for a in args)).cpu()
+    bad = torch.nonzero(cpu != card).flatten().tolist()
+    for r in bad:  # the CPU's own margins must excuse it
+        arr = last[r] / max(float(temps[r]), 1e-6)
+        srt = torch.sort(arr, descending=True).values
+        k = int(top_ks[r]) if int(top_ks[r]) > 0 else V
+        kth = srt[k - 1]
+        srt = torch.where(srt < kth, -1e30, srt)
+        p = torch.softmax(srt, -1)
+        before = torch.cumsum(p, -1) - p
+        thresh = torch.where(before < top_ps[r], srt, float("inf")).min()
+        arr = torch.where((arr >= kth) & (arr >= thresh), arr, -1e30)
+        noise = tf.gumbel(tf.fold_in(keys[r:r + 1], pos[r:r + 1]), V)[0]
+        top2 = torch.topk(arr + noise, 2).values
+        gap = float(top2[0] - top2[1]) / float(
+            np.spacing(np.float32(max(abs(float(top2[0])), 1))))
+        mass = float((before - top_ps[r]).abs().min())
+        assert gap <= SAMPLE_TIE_ULPS or mass <= SAMPLE_MASS_TOL, (r, gap,
+                                                                  mass)
+    assert len(bad) <= 1
+
+
+def _sampling(rows, B, seed=0):
+    """Per-row configs for `rows` real rows padded to B: row 0 greedy,
+    the others sampled (temperature 0.8, top_k 50, top_p 0.95)."""
+    from paddle_tpu_torch.ops.threefry import sampling_key_data
+    temps = np.zeros(B, np.float32)
+    temps[1:rows] = 0.8
+    top_ks = np.where(temps > 0, 50, 0).astype(np.int32)
+    top_ps = np.where(temps > 0, 0.95, 1.0).astype(np.float32)
+    keys = np.stack([sampling_key_data(seed + i) for i in range(B)])
+    return temps, top_ks, top_ps, keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gpt", "ssm", "hybrid"])
+def test_sampled_and_greedy_replays_match_eager_heads_on_card(kind):
+    """A sampled mixed step and a sampled decode step replay the sampled
+    head; an all-greedy step the greedy one; GPT's per-token verify lane
+    replays the per-token sampled head. Each equals its eager layers and
+    head bit for bit: logits, tokens (per token too) and every pool."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    model = _tiny(kind)
+    cache = model.make_paged_cache(64, 16)
+    rng = np.random.RandomState(1)
+    sids = [f"s{i}" for i in range(4)]
+    with cache.lock:
+        for sid in sids:
+            cache.add_sequence(sid)
+    for i, sid in enumerate(sids[1:]):
+        model.paged_ragged_step(
+            cache, [(sid, rng.randint(0, 256, 40 + 30 * i))],
+            pad_to_tokens=128, pad_to_rows=1)
+    mixed = lambda: ([(sids[0], rng.randint(0, 256, 20))]  # noqa: E731
+                     + [(s, rng.randint(0, 256, 1)) for s in sids[1:]])
+    decode = lambda: [(s, rng.randint(0, 256, 1)) for s in sids]  # noqa
+    verify = lambda: [(s, rng.randint(0, 256, 5)) for s in sids]  # noqa
+    steps = [(mixed(), 32, True, False), (decode(), 8, True, False),
+             (decode(), 8, False, False)]
+    if kind == "gpt":
+        steps += [(verify(), 32, True, True), (verify(), 32, False, True)]
+    for rows, T, sampled, per_token in steps:
+        shadow = _shadow(cache)
+        samp = _sampling(len(rows), 4, seed=T) if sampled else None
+        out = model.paged_ragged_step(cache, rows, pad_to_tokens=T,
+                                      pad_to_rows=4, sampling=samp,
+                                      return_per_token=per_token)
+        W = _width(model, cache, [s for s, _ in rows])
+        step = model.ragged_graph(cache, T, 4, W)
+        assert step is not None and step.variant == (sampled, per_token)
+        eager = model.run_ragged_body(shadow, step.host.copy(), T, 4, W,
+                                      sampled=sampled, per_token=per_token)
+        torch.cuda.synchronize()
+        n = len(rows)
+        assert len(out) == len(eager) == (3 if per_token else 2)
+        assert torch.equal(out[0], eager[0][:n])
+        assert torch.equal(out[1], eager[1][:n])
+        if per_token:
+            assert torch.equal(out[2], eager[2])
+            ends = np.cumsum([len(t) for _, t in rows]) - 1
+            assert torch.equal(out[1], out[2][torch.from_numpy(ends).cuda()])
+        if not sampled:  # the greedy head is the argmax
+            assert torch.equal(out[1], torch.argmax(out[0], -1).int())
+        else:  # row 0 greedy, the sampled rows not all at their argmax
+            assert int(out[1][0]) == int(torch.argmax(out[0][0]))
+        for a, b in zip(model._ragged_pools(cache),
+                        model._ragged_pools(shadow)):
+            assert torch.equal(a, b)

@@ -175,8 +175,12 @@ def test_engine_rejects_sampling_not_ported(pair):
     _, port, _ = pair
     eng = GenerationEngine(port, n_pages=8, page_size=4)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.submit([1, 2, 3], sampling=SamplingParams(temperature=0.7))
+        # sampling is ported now: a sampled request is served, and a
+        # sampling argument that is not a SamplingParams is refused
+        assert eng.submit([1, 2, 3], max_new_tokens=2, sampling=SamplingParams(
+            temperature=0.7, seed=1)).result(timeout=60).shape == (2,)
+        with pytest.raises(TypeError, match="SamplingParams"):
+            eng.submit([1, 2, 3], sampling={"temperature": 0.7})
         with pytest.raises(ValueError, match="max_position_embeddings"):
             eng.submit(np.zeros(60, np.int64), max_new_tokens=8)
         assert eng.submit([1, 2, 3], max_new_tokens=2).result(

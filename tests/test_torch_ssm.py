@@ -275,8 +275,13 @@ def test_ragged_step_refuses_sampling_and_context_overflow(pair):
     cache.add_sequence("s")
     sampled = (np.array([0.7], np.float32), np.zeros(1, np.int32),
                np.ones(1, np.float32), np.zeros((1, 2), np.uint32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.paged_ragged_step(cache, [("s", [1, 2])], sampling=sampled)
+    # sampling is ported now: the sampled step runs, and sampling arrays
+    # that do not match the step's padded rows are refused
+    _, nxt = port.paged_ragged_step(cache, [("s", [1, 2])], sampling=sampled)
+    assert nxt.shape == (1,) and 0 <= int(nxt[0]) < 64
+    with pytest.raises(ValueError, match="pad_to_rows"):
+        port.paged_ragged_step(cache, [("s", [3])], pad_to_rows=2,
+                               sampling=sampled)
     with pytest.raises(ValueError, match="max_position_embeddings"):
         port.paged_ragged_step(cache, [("s", np.zeros(65, np.int32))])
 
