@@ -117,7 +117,14 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    tokens/s, MFU, peak memory, device ms, idle share, the epilogue's
    device ms and the CUDA kernel launches of the profiled step; each
    run's step-13 loss within 0.01 of the one the CUDA-core forward
-   kernel gave (PERF.md section 5);
+   kernel gave (PERF.md section 5). Then a fourth run of 14 steps on the
+   switched route with AdamW(LinearWarmup(CosineAnnealingDecay(1e-4,
+   T_max=14), warmup_steps=4, start_lr=0, end_lr=1e-4),
+   multi_precision=True) and `_state_dtype = bfloat16` (kernel #10's
+   bf16-moment variant), the scheduler stepped after each step: loss
+   falling, finite losses and health, #10 launches = steps x groups;
+   device ms, epilogue ms and peak memory printed beside the f32-state
+   switched run's;
 7b. GPT-1.3B (gpt_1p3b(), head_dim 128) at full width and depth
    (vocab 50304, hidden 2048, 24 layers, 16 heads; 1,313,722,368
    parameters with the tied head; max_position_embeddings 1024 as
@@ -126,17 +133,24 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    switches set (the port's fastest route), AdamW(lr=1e-4,
    multi_precision=True), on bench.py's batch 4 x 1024 (ids from
    RandomState(0), labels = ids): 2 warm-up, 5 timed, 1 profiled step.
-   It differs from bench.py's 1.3B headline, which the port cannot run
-   yet: Momentum with stochastic rounding and a bf16 state (not
-   ported; without them Momentum's updates at lr 1e-4 stay below a
-   bf16 ulp), scan_remat="dots" and fused_loss(chunk=2048) (not
-   ported; without remat the step holds ~23 GB, well inside 80 GB).
+   Its optimizer is not bench.py's (the second run's is), and neither
+   run has bench.py's scan_remat="dots" and fused_loss(chunk=2048)
+   (ROADMAP.md queue A, item A.5; without remat the step holds ~23 GB,
+   well inside 80 GB).
    Each flash kernel must launch steps x 24 times, each LayerNorm
    kernel steps x 49, each xent kernel steps x 1, each fused pass
    steps x groups; losses and health finite, found_inf 0, the loss
    falling; ms/step, tokens/s, MFU, device ms, idle share, peak memory
    and the flash kernels' device ms of the profiled step; the last
-   timed step's loss beside the recorded one. Then its
+   timed step's loss beside the recorded one. Then a second run from
+   the same weights (the first's state freed) with bench.py's own
+   optimizer (bench.py:683-688): Momentum(1e-4, 0.9) with stochastic
+   rounding and a bf16 velocity, no masters, both switches, plain
+   cross_entropy: the tree path, 2 warm-up, 5 timed, 1 profiled step;
+   the loss falling and finite, the stochastic-rounding kernel (K2)
+   launched exactly steps x 2 x leaves times (every parameter and every
+   velocity, 292 leaves), no fused pass; ms/step, the rounding's device
+   ms in the profiled step and peak memory. Then its
    first 2 layers in float32 (hidden 2048, head_dim 128), 3 steps at
    batch 2 x 256 on the card (the CUDA-core flash kernels at head_dim
    128) and on the CPU (twins) from the same weights, on the same
@@ -144,7 +158,10 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
 8. GPT-medium width with 2 layers in float32, 3 train steps (batch
    2 x 256) on the card (kernels) and on the CPU (twins) from the same
    weights, on each epilogue and on the default one with both switches
-   set: losses and health vectors agree to rtol 1e-3;
+   set: losses and health vectors agree to rtol 1e-3; the same for the
+   eager loop (AdamW, and Adam, with L2Decay, ClipGradByNorm and a
+   step-decay scheduler; losses), Lamb on TrainStep's tree path and
+   AdamW on the fused epilogue with bf16 moments;
 9. the fused epilogue's kernels against their twins on the card at
    GPT-medium's layout (16 buckets, 354,871,296 parameters), bf16 with
    f32 masters, AdamW, stats on: with a live GradScaler (pass 1 writes
@@ -156,12 +173,22 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    ClipGradByValue, under Momentum-Nesterov and SGD, and on an f32
    model without masters; then a small ragged layout with a
    need_clip=False, a decay=False and an lr_scale=0.5 leaf and buckets
-   that are not a multiple of the chunk. Written buffers must equal the
-   twin's bit for bit; sums agree to 1e-4 relative;
+   that are not a multiple of the chunk; #10 with bf16 moments (AdamW
+   with f32 masters, 22 B a parameter, and Momentum without masters, 10
+   B), with and without a GradScaler, timed beside their byte bounds.
+   Written buffers must equal the twin's bit for bit; sums agree to
+   1e-4 relative;
+9b. the stochastic-rounding kernel (K2, float32 -> bf16 with threefry
+   bits) against its twin at GPT-1.3B's leaf sizes (wte, an MLP weight,
+   qkv, a bias) and odd ones (4099, 7, 1), two keys: bf16 bits equal;
+   at wte's size the kernel's time, the twin's and the bound (6 bytes
+   an element; no PyTorch call rounds stochastically);
 10. 2-layer float32 steps with a GradScaler on the card, on each
    epilogue, with one batch whose loss is not finite: params and
    moments stay bit-equal, the scale halves, the next good step
-   updates;
+   updates; and the eager GradScaler around AdamW's eager step: the
+   non-finite step's `scaler.step` skips `opt.step()`, `update` halves
+   the scale, the next step updates;
 11. the LayerNorm kernels (#5 forward, #6 backward) and the softmax
    cross-entropy kernels (#7 forward, #8 backward) against their plain
    twins: LayerNorm at [8192, 1024] and [4096, 2048] in bf16 (bf16
@@ -214,13 +241,15 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    1e-3 of each pool's largest entry; every request sampled (seeds
    300-307): as phase 5's sampled streams;
 15. the smoke's run time and the kernels line (each flash kernel
-   twice: head_dim 64 and, with the suffix "_d128", 128), then, last,
-   {"ok": true, "device": {...}}.
+   twice: head_dim 64 and, with the suffix "_d128", 128; #10's bf16
+   variant as "fused_pass2_bf16_state"; K2 as "stochastic_round"),
+   then, last, {"ok": true, "device": {...}}.
 
 Each main path (GPT serving in phase 4's wave B, training in phase 7's
 first run for kernels #2-#4 and #9-#10, phase 7's third run for #5-#8,
-GPT-1.3B training in phase 7b for #2-#4 at head_dim 128, SSM serving in
-phase 13's wave B for #11) runs with the launch counts set to 0 just
+its fourth for #10's bf16 variant, GPT-1.3B training in phase 7b for
+#2-#4 at head_dim 128, its second run for K2, SSM serving in phase 13's
+wave B for #11) runs with the launch counts set to 0 just
 before it and read just after; a CUDA graph's replay adds the launches
 its capture recorded (the wrappers count launches, and a capture, which
 launches nothing, records them instead).
@@ -1684,6 +1713,9 @@ XENT_KERNELS = (
     ("softmax_xent_fwd", "paddle_tpu/ops/pallas/softmax_xent.py:28"),
     ("softmax_xent_bwd", "paddle_tpu/ops/pallas/softmax_xent.py:60"),
 )
+# K2 replaces no Pallas kernel: it computes the reference tree update's
+# stochastic-rounding downcast, `down()`, which XLA fuses there
+SR_KERNEL = ("stochastic_round", "paddle_tpu/optimizer/optimizer.py:303")
 SWITCHES = ("PADDLE_TPU_PALLAS_LN", "PADDLE_TPU_PALLAS_XENT")
 
 
@@ -1709,12 +1741,13 @@ def switches(on):
 
 def wrappers(km):
     """[(kernel name, its wrapper)] of every kernel but the paged one."""
-    fa, _, fk, lk, xk, sk = km
+    fa, _, fk, lk, xk, sk, srk = km
     return ([(n, getattr(fa, n)) for n, _ in FLASH_KERNELS]
             + [(n, getattr(fk, n)) for n, _ in FUSED_KERNELS]
             + [(n, getattr(lk, n)) for n, _ in NORM_KERNELS]
             + [(n, getattr(xk, n)) for n, _ in XENT_KERNELS]
-            + [(SCAN_KERNEL[0], sk.ssm_scan)])
+            + [(SCAN_KERNEL[0], sk.ssm_scan),
+               (SR_KERNEL[0], srk.stochastic_round)])
 
 
 def counts(km):
@@ -1738,29 +1771,37 @@ def n_groups(step):
 
 
 def train_run(torch, km, tmods, state, fused, switched=False,
-              capture=None, cfg=None, run=TRAIN, name=""):
+              capture=None, cfg=None, run=TRAIN, name="", opt=None,
+              sr=False):
     """A GPT (GPT-medium, or `cfg`) at full width in bf16, AdamW(lr=1e-4,
-    multi_precision) with f32 masters, TrainStep(monitor_health=True) on
+    multi_precision) with f32 masters (or `opt(parameters)`'s optimizer;
+    a scheduler as its lr is stepped after each step),
+    TrainStep(monitor_health=True) on
     bench.py's batch (`run`: batch x seq, ids from RandomState(0),
     labels = ids): run["warmup"] warm-up steps, run["timed"] timed, 1
     profiled. fused=True passes no fused_update argument (the default
-    path, which must be the fused epilogue); fused=False passes
+    path, which must be the fused epilogue, unless the optimizer has no
+    fused mapping: then the tree path); fused=False passes
     fused_update=False. switched sets PADDLE_TPU_PALLAS_LN=1 and
     PADDLE_TPU_PALLAS_XENT=1 for the run (the LayerNorm and xent
-    kernels), else both are unset. The launch counts are set to 0 just
+    kernels), else both are unset. sr: the optimizer rounds
+    stochastically on the tree path, so the rounding kernel must launch
+    twice a parameter a step (parameter and velocity), else never. The
+    launch counts are set to 0 just
     before the run. With `capture` (a dict), the first warm-up step's
     flash backward inputs of layer 0 are kept there, on the host
     (capture_flash_bwd). `name` prefixes the printed label. Returns the
     run's measurements."""
     with switches(switched):
         return _train_run(torch, km, tmods, state, fused, switched, capture,
-                          cfg or tmods[1](), run, name)
+                          cfg or tmods[1](), run, name, opt, sr)
 
 
 def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
-               name):
+               name, make_opt, sr):
     from torch.autograd import DeviceType
     from paddle_tpu_torch.jit.api import HEALTH_KEYS
+    from paddle_tpu_torch.optimizer.lr import LRScheduler
     GPTForCausalLM, _, load_state, TrainStep, AdamW, F = tmods
     model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
     load_state(model, state)
@@ -1776,21 +1817,26 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
                     else "tree (fused_update=False)")
 
     zero_counts(km)
-    step = TrainStep(model, lm_loss(F),
-                     AdamW(learning_rate=run["lr"],
-                           parameters=model.parameters(),
-                           multi_precision=True),
-                     monitor_health=True,
+    optimizer = make_opt(model.parameters()) if make_opt else AdamW(
+        learning_rate=run["lr"], parameters=model.parameters(),
+        multi_precision=True)
+    sched = optimizer._learning_rate if isinstance(
+        optimizer._learning_rate, LRScheduler) else None
+    step = TrainStep(model, lm_loss(F), optimizer, monitor_health=True,
                      **({} if fused else {"fused_update": False}))
-    check((step._fused is not None) == fused,
+    want_fused = fused and optimizer.fused_spec() is not None
+    check((step._fused is not None) == want_fused,
           f"{label}: TrainStep took the {'fused' if step._fused else 'tree'}"
           " epilogue")
-    groups = n_groups(step) if fused else 0
+    groups = n_groups(step) if want_fused else 0
+    n_leaves = len(step.params)
     losses = []
 
     def steps(n):
         for _ in range(n):
             losses.append(step(ids, ids))
+            if sched is not None:
+                sched.step()
 
     t = time.perf_counter()
     if capture is not None:
@@ -1842,6 +1888,10 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
     check(launches["ragged_paged_attention"] == 0
           and launches["ssm_scan"] == 0,
           f"{label}: a serving kernel ran in training")
+    want = n_steps * 2 * n_leaves * sr
+    check(launches[SR_KERNEL[0]] == want,
+          f"{label}: {SR_KERNEL[0]}: {launches[SR_KERNEL[0]]} launches, want "
+          f"{want} ({n_steps} steps x 2 x {n_leaves} leaves x sr {sr})")
     check(all(p.dtype == torch.bfloat16 for p in step.params.values()),
           f"{label}: a parameter left bfloat16")
     tokens = B * T
@@ -1857,7 +1907,8 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
                mfu=flop / step_s / 989e12, peak_gib=peak,
                kernels=n_kernels, device_ops=len(ops),
                epilogue_ms=epi_us / 1e3 if epi_us else None,
-               launches=launches, groups=groups, first=first, last=last)
+               launches=launches, groups=groups, first=first, last=last,
+               leaves=n_leaves)
     print(f"  {label}: {n_params} parameters; {n_steps} steps, loss "
           f"{first:.4f} -> {last:.4f} (last health {health})")
     print(f"  {label}: {res['ms']:.1f} ms/step over {run['timed']} steps "
@@ -1868,7 +1919,8 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
           f"the model's weights included)")
     print(f"  {label}: launches per kernel {launches} ({n_steps} steps x "
           f"{cfg.num_layers} layers; fused passes x {groups} groups; "
-          f"LayerNorm x {n_ln}, xent x 1 when switched)")
+          f"LayerNorm x {n_ln}, xent x 1 when switched; stochastic "
+          f"rounding x 2 x {n_leaves} leaves when on)")
     print(f"  {label}: profiled step: {n_kernels} CUDA kernel launches "
           f"({len(ops)} device operations with copies and memsets); "
           f"epilogue device time "
@@ -1914,7 +1966,7 @@ def train_time_goes(prof, wall_s):
     parts = {k: sum(v for n, v in by_name.items() if k in n) / 1e3
              for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_pass",
                        "fused_finalize", "ln_fwd", "ln_bwd", "ln_finalize",
-                       "xent_fwd", "xent_bwd")}
+                       "xent_fwd", "xent_bwd", "stochastic_round")}
     gemm = sum(v for n, v in by_name.items()
                if any(s in n.lower() for s in ("gemm", "xmma", "cutlass",
                                                 "nvjet", "sm90"))) / 1e3
@@ -1940,15 +1992,36 @@ CUDA_CORE_FWD_LAST_LOSS = {"fused": 6.7733, "tree": 6.7733,
 LAST_LOSS_TOL = 0.01
 
 
+def scheduled_bf16_adamw(torch, AdamW):
+    """The fourth GPT-medium run's optimizer: AdamW with f32 masters,
+    bf16 moments (`_state_dtype`, kernel #10's bf16 variant) and a
+    warm-up into a cosine decay, stepped after each step."""
+    from paddle_tpu_torch.optimizer import lr
+
+    def make(parameters):
+        sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=14),
+                                warmup_steps=4, start_lr=0.0, end_lr=1e-4)
+        opt = AdamW(learning_rate=sched, parameters=parameters,
+                    multi_precision=True)
+        opt._state_dtype = torch.bfloat16
+        return opt
+    return make
+
+
 def phase_train(torch, km, tmods, state, capture):
     """The main path of slice 2 (the default, fused epilogue), the tree
-    path, then this slice's main path (the default epilogue with the
+    path, then the port's fastest route (the default epilogue with the
     LayerNorm and xent kernels switched on), from the same weights; the
     first run's first step captures layer 0's flash backward inputs into
-    `capture`. Returns the three runs' measurements."""
+    `capture`. Then the switched route again with a scheduled AdamW whose
+    moments are bf16 (PR 13's main path for kernel #10's bf16 variant).
+    Returns the four runs' measurements."""
     main = train_run(torch, km, tmods, state, fused=True, capture=capture)
     tree = train_run(torch, km, tmods, state, fused=False)
     ln_xent = train_run(torch, km, tmods, state, fused=True, switched=True)
+    bf16_state = train_run(torch, km, tmods, state, fused=True,
+                           switched=True, name="bf16 state, scheduled, ",
+                           opt=scheduled_bf16_adamw(torch, tmods[4]))
     rel = abs(ln_xent["first"] - main["first"]) / abs(main["first"])
     print(f"  step-1 loss: switched {ln_xent['first']:.6f}, default "
           f"{main['first']:.6f}, relative difference {rel:.3g} (limit "
@@ -1964,12 +2037,20 @@ def phase_train(torch, km, tmods, state, capture):
         check(abs(r["last"] - CUDA_CORE_FWD_LAST_LOSS[name]) <= LAST_LOSS_TOL,
               f"{name}: step-13 loss {r['last']} is more than "
               f"{LAST_LOSS_TOL} from {CUDA_CORE_FWD_LAST_LOSS[name]}")
+    runs["bf16-state"] = bf16_state
     for key in ("ms", "tokens_s", "mfu", "device_ms", "idle", "peak_gib",
                 "epilogue_ms", "kernels", "other_ms"):
         print(f"  {key:12s} " + "  ".join(
             f"{name} {r[key] if r[key] is None else round(r[key], 4)}"
             for name, r in runs.items()))
-    return main, tree, ln_xent
+    print(f"  bf16 state against f32 state (both switched): epilogue "
+          f"{bf16_state['epilogue_ms']} ms vs {ln_xent['epilogue_ms']} ms, "
+          f"fused_pass {bf16_state['parts_ms'].get('fused_pass')} ms vs "
+          f"{ln_xent['parts_ms'].get('fused_pass')} ms, device "
+          f"{bf16_state['device_ms']} ms vs {ln_xent['device_ms']} ms, peak "
+          f"{bf16_state['peak_gib']:.2f} GiB vs {ln_xent['peak_gib']:.2f} "
+          f"GiB; loss {bf16_state['first']:.4f} -> {bf16_state['last']:.4f}")
+    return main, tree, ln_xent, bf16_state
 
 
 ALL_ROUTES = ((True, False), (False, False), (True, True))
@@ -2045,6 +2126,157 @@ def phase_train_agreement(torch, km, tmods, state, cfg=None,
               f"{name}: card and CPU training disagree: {gh} vs {ch}")
 
 
+def eager_losses(torch, F, model, opt, ids, steps, poison=None):
+    """The eager loop: loss, backward, opt.step(), clear_grad, and the
+    scheduler's step when the lr is one. Returns the losses."""
+    from paddle_tpu_torch.optimizer.lr import LRScheduler
+    out = []
+    for _ in range(steps):
+        loss = lm_loss(F, poison)(model(ids), ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        if isinstance(opt._learning_rate, LRScheduler):
+            opt._learning_rate.step()
+        out.append(float(loss.detach()))
+    return out
+
+
+def phase_optimizer_agreement(torch, km, tmods, state):
+    """PR 13's paths, GPT-medium width, 2 layers, float32, batch 2 x 256,
+    3 steps from the same weights on the card and on the CPU: the eager
+    loop with L2Decay, ClipGradByNorm and a step-decay scheduler, once
+    on AdamW (whose eager step, as the reference's, takes a non-float
+    weight_decay as its decoupled 0.01 and adds no coupled term) and
+    once on Adam (which adds the L2Decay term to the grads), Lamb on
+    TrainStep's tree path, and AdamW on the fused epilogue with bf16
+    moments. TF32 off. Losses (and the train steps' health vectors)
+    agree to rtol 1e-3."""
+    from paddle_tpu_torch.jit.api import HEALTH_KEYS
+    from paddle_tpu_torch.nn import ClipGradByNorm
+    from paddle_tpu_torch.optimizer import Adam, Lamb, lr
+    from paddle_tpu_torch.regularizer import L2Decay
+    GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = copy.copy(gpt_medium())
+    cfg.num_layers = AGREE["layers"]
+    small = first_layers(state, cfg.num_layers)
+    ids = np.random.RandomState(3).randint(
+        0, cfg.vocab_size, size=(AGREE["batch"], AGREE["seq"]))
+
+    def eager(kind):
+        def make(params):
+            return kind(lr.StepDecay(1e-3, step_size=1, gamma=0.5),
+                        parameters=params, weight_decay=L2Decay(1e-2),
+                        grad_clip=ClipGradByNorm(0.5))
+        return make
+
+    def lamb(params):
+        return Lamb(1e-3, parameters=params)
+
+    def bf16_state(params):
+        opt = AdamW(learning_rate=1e-3, parameters=params)
+        opt._state_dtype = torch.bfloat16
+        return opt
+
+    for name, make, path in (("eager AdamW + L2Decay + ClipGradByNorm + "
+                              "scheduler", eager(AdamW), "eager"),
+                             ("eager Adam + L2Decay + ClipGradByNorm + "
+                              "scheduler", eager(Adam), "eager"),
+                             ("Lamb, TrainStep tree path", lamb, "tree"),
+                             ("AdamW fused, bf16 moments", bf16_state,
+                              "fused")):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            model = GPTForCausalLM(cfg, device=device)
+            load_state(model, small)
+            opt = make(model.parameters())
+            x = torch.from_numpy(ids).to(model.device)
+            before = counts(km)
+            if path == "eager":
+                vals = np.array(eager_losses(torch, F, model, opt, x,
+                                             AGREE["steps"]))[:, None]
+            else:
+                step = TrainStep(model, lm_loss(F), opt, monitor_health=True)
+                check((step._fused is not None) == (path == "fused"),
+                      f"{name}: the {path} path was not taken")
+                for _ in range(AGREE["steps"]):
+                    step(x, x)
+                step.flush_health()
+                vals = np.array([[h[k] for k in HEALTH_KEYS]
+                                 for h in step.health_log])
+                if path == "fused":
+                    check(all(m.dtype == torch.bfloat16
+                              for ms in step._opt_store["moments"]
+                              for m in ms.values()),
+                          f"{name}: the moments are not bf16")
+            after = counts(km)
+            on_card = device == "cuda"
+            got = {n: after[n] - before[n] for n, _ in FLASH_KERNELS
+                   + FUSED_KERNELS}
+            want = {n: AGREE["steps"] * cfg.num_layers * on_card
+                    for n, _ in FLASH_KERNELS}
+            want.update({n: AGREE["steps"] * on_card * (path == "fused")
+                         for n, _ in FUSED_KERNELS})
+            check(got == want, f"{name}, {device}: launches {got}, want "
+                               f"{want}")
+            runs[device] = vals
+        g, c = runs["cuda"], runs["cpu"]
+        rel = np.abs(g - c) / np.maximum(np.abs(c), 1e-6)
+        print(f"  {name}: losses card {g[:, 0].tolist()} cpu "
+              f"{c[:, 0].tolist()}; largest relative difference "
+              f"{rel.max():.3g} (limit {AGREE['rtol']})")
+        check(np.allclose(g, c, rtol=AGREE["rtol"], atol=1e-6),
+              f"{name}: card and CPU disagree: {g} vs {c}")
+
+
+def phase_eager_scaler(torch, tmods, state):
+    """The eager GradScaler on the card (2 layers, float32): a good step,
+    a step whose grads are not finite (the logits times inf) that
+    `scaler.step` must skip while `update` halves the scale, and a good
+    step that updates."""
+    from paddle_tpu_torch.amp import GradScaler
+    GPTForCausalLM, gpt_medium, load_state, _, AdamW, F = tmods
+    cfg = gpt_medium()
+    cfg.num_layers = 2
+    model = GPTForCausalLM(cfg)
+    load_state(model, first_layers(state, cfg.num_layers))
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, size=(2, 256))).cuda()
+    opt = AdamW(learning_rate=TRAIN["lr"], parameters=model.parameters())
+    scaler = GradScaler(init_loss_scaling=2.0 ** 10,
+                        decr_every_n_nan_or_inf=1)
+    poison = torch.ones((), device="cuda")
+
+    def one():
+        scaler.scale(lm_loss(F, poison)(model(ids), ids)).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+
+    def snapshot():
+        return [p.detach().clone() for p in model.parameters()]
+
+    one()
+    before, scale0 = snapshot(), scaler.get_loss_scaling()
+    poison.fill_(float("inf"))
+    one()
+    poison.fill_(1.0)
+    check(scaler._found_inf and all(torch.equal(a, b) for a, b in zip(
+        snapshot(), before)), "eager: the non-finite step changed params")
+    check(scaler.get_loss_scaling() == scale0 / 2,
+          f"eager: scale {scaler.get_loss_scaling()}, want {scale0 / 2}")
+    one()
+    check(not scaler._found_inf and not all(
+        torch.equal(a, b) for a, b in zip(snapshot(), before)),
+        "eager: the good step after the bad one updated nothing")
+    check(opt._step_count == 2, f"eager: {opt._step_count} optimizer steps, "
+                                "want 2 (the bad one skipped)")
+    print(f"  eager: non-finite step skipped (optimizer steps "
+          f"{opt._step_count} of 3), scale {scale0:g} -> "
+          f"{scaler.get_loss_scaling():g}, the next step updated")
+
+
 def phase_train_1p3b(torch, km, tmods, gpt_1p3b):
     """GPT-1.3B (gpt_1p3b(), head_dim 128) at full width and depth in
     bf16, with max_position_embeddings 1024 as bench.py sets it: the
@@ -2079,11 +2311,39 @@ def phase_train_1p3b(torch, km, tmods, gpt_1p3b):
         for k in ("flash_fwd", "flash_dq", "flash_dkv")))
     print(f"  GPT-1.3B loss at the last timed step {res['last']:.4f} "
           f"(recorded: {GPT_1P3B_RECORDED_LAST_LOSS:.4f})")
+    # bench.py's own 1.3B optimizer (bench.py:683-688): Momentum, a bf16
+    # velocity, stochastic rounding (kernel K2), no masters: the tree
+    # path, from the same weights (the AdamW run's state is freed)
+    sr = train_run(torch, km, tmods, state, fused=True, switched=True,
+                   cfg=cfg, run=TRAIN_1P3B,
+                   name="GPT-1.3B, bench.py's Momentum + SR + bf16 state, ",
+                   opt=bench_momentum(torch), sr=True)
+    print(f"  GPT-1.3B bench optimizer: {sr['ms']:.1f} ms/step (AdamW fused: "
+          f"{res['ms']:.1f}), device {sr['device_ms']} ms (AdamW "
+          f"{res['device_ms']}), stochastic rounding "
+          f"{sr['parts_ms'].get('stochastic_round')} ms and the tree "
+          f"epilogue {sr['epilogue_ms']} ms in the profiled step, peak "
+          f"{sr['peak_gib']:.2f} GiB (AdamW {res['peak_gib']:.2f}); loss "
+          f"{sr['first']:.4f} -> {sr['last']:.4f}")
     small = first_layers(state, AGREE["layers"])
     del state
     phase_train_agreement(torch, km, tmods, small, cfg=cfg,
                           routes=((True, True),))
-    return res
+    return res, sr
+
+
+def bench_momentum(torch):
+    """bench.py's GPT-1.3B optimizer: Momentum(1e-4, 0.9) with
+    stochastic rounding and a bf16 velocity, no master weights."""
+    from paddle_tpu_torch.optimizer import Momentum
+
+    def make(parameters):
+        opt = Momentum(learning_rate=1e-4, momentum=0.9,
+                       parameters=parameters)
+        opt._stochastic_rounding = True
+        opt._state_dtype = torch.bfloat16
+        return opt
+    return make
 
 
 # -- the fused epilogue's kernels against their twins -----------------------
@@ -2114,8 +2374,10 @@ def fused_stores(torch, fu, named, dtype, master, opt, meta=None,
     params = {key: t.to(dtype) for key, t in p32.items()}
     masters = {key: t for key, t in p32.items()} \
         if master and dtype != torch.float32 else {}
-    moments = tuple({key: draw(b.total, 1e-3) ** (j + 1)
-                     for key, b in layout.buckets.items()}
+    # in the optimizer's state dtype (float32, or bf16 for kernel #10's
+    # bf16 variant)
+    moments = tuple({key: (draw(b.total, 1e-3) ** (j + 1)).to(
+        epi.state_dtype) for key, b in layout.buckets.items()}
                     for j in range(epi.spec["n_moments"]))
     grads = {key: draw(b.total, 1e-3).to(dtype)
              for key, b in layout.buckets.items()}
@@ -2201,8 +2463,10 @@ def hold_fused(torch, fk, label, epi, stores, scaled=False, clip=None,
 
 def time_fused(torch, fk, epi, stores, flush):
     """The main path's passes (no scaler, no clip, stats on) on the
-    GPT-medium layout: kernel, twin and library times and byte bounds.
-    Returns {kernel name: measurements}."""
+    GPT-medium layout: kernel, twin and library times and byte bounds
+    (the library's only for AdamW with float32 moments: the one PyTorch
+    call that computes that update). Returns {kernel name:
+    measurements}."""
     twin = clone_stores(stores)
     bs, bt = epi.bucket_set(*stores), epi.bucket_set(*twin)
     grads, params, opt = stores
@@ -2210,9 +2474,10 @@ def time_fused(torch, fk, epi, stores, flush):
     p2 = dict(spec=epi.spec, lr=FUSED_LR, lr_t=lr_t, with_stats=True)
     g_bytes = sum(t.numel() * t.element_size() for t in grads.values())
     n = sum(t.numel() for t in params.values())
+    m_size = torch.empty((), dtype=epi.state_dtype).element_size()
     p2_bytes = n * (3 * params[next(iter(params))].element_size()
-                    + 2 * 4 * (epi.spec["n_moments"]
-                               + bool(opt["masters"])))
+                    + 2 * m_size * epi.spec["n_moments"]
+                    + 2 * 4 * bool(opt["masters"]))
     model_bytes = epi.bytes_per_step(False, True, set(opt["masters"]))
     check(model_bytes == g_bytes + p2_bytes,
           f"bytes_per_step {model_bytes} != pass 1 {g_bytes} + pass 2 "
@@ -2228,16 +2493,19 @@ def time_fused(torch, fk, epi, stores, flush):
                      flush)
     # the yardstick updates the twin's f32 masters from f32 copies of its
     # grads (a tensor list per bucket), as a master-weight AdamW would
-    _, tp, topt = twin
-    keys = list(topt["masters"]) or list(tp)
-    ws = [topt["masters"][k] if topt["masters"] else tp[k] for k in keys]
-    gs = [twin[0][k].float() for k in keys]
-    ms_, vs = ([topt["moments"][j][k] for k in keys] for j in (0, 1))
-    steps = [torch.zeros((), device="cuda") for _ in keys]
-    lib2 = cuda_ms(torch, lambda: torch._fused_adamw_(
-        ws, gs, ms_, vs, [], steps, lr=FUSED_LR, beta1=0.9, beta2=0.999,
-        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False), 20,
-        flush)
+    lib2, gs = None, None
+    if epi.spec["kind"] == "adamw" and epi.state_dtype == torch.float32:
+        _, tp, topt = twin
+        keys = list(topt["masters"]) or list(tp)
+        ws = [topt["masters"][k] if topt["masters"] else tp[k]
+              for k in keys]
+        gs = [twin[0][k].float() for k in keys]
+        ms_, vs = ([topt["moments"][j][k] for k in keys] for j in (0, 1))
+        steps = [torch.zeros((), device="cuda") for _ in keys]
+        lib2 = cuda_ms(torch, lambda: torch._fused_adamw_(
+            ws, gs, ms_, vs, [], steps, lr=FUSED_LR, beta1=0.9, beta2=0.999,
+            weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False), 20,
+            flush)
     b1 = g_bytes / HBM_BYTES_PER_S * 1e3
     b2 = p2_bytes / HBM_BYTES_PER_S * 1e3
     print(f"  pass 1 (#9): kernel {ms1:.4f}ms (with write_u {ms1u:.4f}ms, "
@@ -2245,11 +2513,14 @@ def time_fused(torch, fk, epi, stores, flush):
           f"library torch._foreach_norm {lib1:.4f}ms bound {b1:.4f}ms "
           f"(bytes: {g_bytes / 1e9:.3f} GB of grads) bound/kernel "
           f"{b1 / ms1:.3f}")
-    print(f"  pass 2 (#10): kernel {ms2:.4f}ms plain {plain2:.4f}ms "
-          f"library torch._fused_adamw_ (f32 masters) {lib2:.4f}ms bound "
-          f"{b2:.4f}ms (bytes: {p2_bytes / 1e9:.3f} GB, "
+    lib_text = f"{lib2:.4f}ms" if lib2 is not None else "none"
+    print(f"  pass 2 (#10, {epi.spec['kind']}, moments "
+          f"{str(epi.state_dtype)[6:]}): kernel {ms2:.4f}ms plain "
+          f"{plain2:.4f}ms library torch._fused_adamw_ (f32 masters) "
+          f"{lib_text} bound {b2:.4f}ms (bytes: {p2_bytes / 1e9:.3f} GB, "
           f"{p2_bytes / n:.0f} B/param) bound/kernel {b2 / ms2:.3f}; "
-          f"bytes_per_step {model_bytes / 1e9:.3f} GB = pass 1 + pass 2")
+          f"bytes_per_step {model_bytes / 1e9:.3f} GB = pass 1 + pass 2",
+          flush=True)
     del twin, gs
     return {"fused_pass1": dict(ms=ms1, plain_ms=plain1, library_ms=lib1,
                                 bound_ms=b1, bound_by="bytes"),
@@ -2259,8 +2530,9 @@ def time_fused(torch, fk, epi, stores, flush):
 
 def phase_fused(torch, fk, fu, omods, tmods, flush):
     """Kernels #9 and #10 against their twins: GPT-medium's layout in
-    every configuration the ported epilogue takes, then a small ragged
-    layout with mixed metadata. Returns the kernels line's fields."""
+    every configuration the ported epilogue takes (bf16 moments too),
+    then a small ragged layout with mixed metadata. Returns the kernels
+    line's fields ("fused_pass2_bf16_state": #10 with bf16 moments)."""
     GPTForCausalLM, gpt_medium = tmods[0], tmods[1]
     SGD, Momentum, AdamW = omods
     model = GPTForCausalLM(gpt_medium(), dtype=torch.bfloat16)
@@ -2298,6 +2570,31 @@ def phase_fused(torch, fk, fu, omods, tmods, flush):
     worst, worst_rel = max(worst, e), max(worst_rel, r)
     times = time_fused(torch, fk, epi, stores, flush)
     del epi, stores
+    # kernel #10's bf16-moment variant (the optimizer's `_state_dtype`):
+    # AdamW with f32 masters (22 B a parameter), the main path of phase
+    # 7's fourth run, and Momentum without masters (10 B)
+    adamw_bf16 = AdamW(learning_rate=FUSED_LR, multi_precision=True)
+    adamw_bf16._state_dtype = bf16
+    mom_bf16 = Momentum(FUSED_LR, momentum=0.9)
+    mom_bf16._state_dtype = bf16
+    for label, opt, master, key in (
+            ("AdamW bf16+masters, bf16 moments (K1)", adamw_bf16, True,
+             "fused_pass2_bf16_state"),
+            ("Momentum bf16, bf16 velocity, no masters (K1)", mom_bf16,
+             False, None)):
+        epi, stores = fused_stores(torch, fu, named, bf16, master, opt)
+        check(all(t.dtype == bf16 for m in stores[2]["moments"]
+                  for t in m.values()), f"{label}: moments not bf16")
+        e, r = hold_fused(torch, fk, label, epi, stores)
+        worst, worst_rel = max(worst, e), max(worst_rel, r)
+        e, r = hold_fused(torch, fk, label + ", GradScaler", epi, stores,
+                          scaled=True, clip="global")
+        worst, worst_rel = max(worst, e), max(worst_rel, r)
+        t2 = time_fused(torch, fk, epi, stores, flush)["fused_pass2"]
+        if key is not None:
+            times[key] = t2
+        del epi, stores
+        torch.cuda.empty_cache()
     for label, dtype, master, opt, kw in cases:
         epi, stores = fused_stores(torch, fu, named, dtype, master, opt,
                                    inf=kw.get("skip", False))
@@ -2323,6 +2620,60 @@ def phase_fused(torch, fk, fu, omods, tmods, flush):
     for name in times:
         times[name]["max_abs_err"] = worst
     return times
+
+
+# -- the stochastic-rounding kernel (K2) against its twin --------------------
+
+# one element's integer operations: threefry2x32's 20 rounds (an add, a
+# rotate as a funnel shift and a xor each), 5 key injections (4 adds), the
+# key schedule, the count words, the xor of the two outputs, the mask, the
+# add and the truncation: ~100, counted at the CUDA cores' float32 rate
+SR_OPS_PER_ELEMENT = 100
+# GPT-1.3B's leaves by size: wte (50304 x 2048, tied), an MLP weight
+# (2048 x 8192), the qkv weight (2048 x 6144), a bias; and odd sizes
+SR_SIZES = (103_022_592, 16_777_216, 12_582_912, 2048, 4099, 7, 1)
+SR_KEYS = ((0, 0x5bd1e995), (2297781694, 1477100869))
+
+
+def phase_stochastic_round(torch, srk, flush):
+    """Kernel K2 against its twin at GPT-1.3B's leaf sizes and odd ones,
+    over two keys: the bf16 bits equal. Times at wte's size (the largest
+    call of phase 7b's second run): kernel, twin, bound (6 bytes an
+    element, or the integer operations at 67 T/s: the larger). No
+    PyTorch call rounds stochastically: library none. Returns the
+    kernels line's fields."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    held = 0
+    for n in SR_SIZES:
+        x = torch.randn(n, generator=gen, device="cuda") * 0.02
+        for key in SR_KEYS:
+            got = srk.stochastic_round(x, key)
+            want = srk.stochastic_round_reference(x, key)
+            torch.cuda.synchronize()
+            check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                  f"stochastic_round n={n} key={key}: differs from the twin")
+            held += 1
+            del got, want
+        if n == SR_SIZES[0]:
+            ms = cuda_ms(torch, lambda: srk.stochastic_round(x, SR_KEYS[0]),
+                         20, flush)
+            plain = cuda_ms(torch, lambda: srk.stochastic_round_reference(
+                x, SR_KEYS[0]), 3, flush)
+            by_bytes = n * 6 / HBM_BYTES_PER_S * 1e3
+            by_ops = n * SR_OPS_PER_ELEMENT / PEAK_FLOPS["torch.float32"] \
+                * 1e3
+            bound = max(by_bytes, by_ops)
+            bound_by = "bytes" if by_bytes >= by_ops else "operations"
+            print(f"  n={n}: kernel {ms:.4f}ms plain {plain:.4f}ms bound "
+                  f"{bound:.4f}ms ({bound_by}; bytes {by_bytes:.4f}, "
+                  f"operations {by_ops:.4f}) bound/kernel {bound / ms:.3f}",
+                  flush=True)
+        del x
+    print(f"  {held} calls bit-equal to the twin (sizes {SR_SIZES}, "
+          f"{len(SR_KEYS)} keys)")
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by,
+                library_ms=None, max_abs_err=0.0)
 
 
 def phase_scaler(torch, km, tmods, state):
@@ -2954,6 +3305,7 @@ def main():
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import softmax_xent as xk
     from paddle_tpu_torch.ops.kernels import ssm_scan as sk
+    from paddle_tpu_torch.ops.kernels import stochastic_round as srk
     from paddle_tpu_torch.models import SSMConfig, SSMForCausalLM
     from paddle_tpu_torch.models import ssm as ssm_mod
     from paddle_tpu_torch.optimizer import SGD, AdamW, Momentum
@@ -2963,7 +3315,7 @@ def main():
              AdamW, F)
     smods = (GenerationEngine, SSMConfig, SSMForCausalLM,
              load_paddle_tpu_state, ssm_mod)
-    km = (fa, pa, fk, lk, xk, sk)
+    km = (fa, pa, fk, lk, xk, sk, srk)
     t_start = time.perf_counter()
     card = card_line()
     print(f"[1] card: {card}", flush=True)
@@ -3005,8 +3357,8 @@ def main():
           "epilogue, fused_update=False, then the default epilogue with "
           "PADDLE_TPU_PALLAS_LN=1 and PADDLE_TPU_PALLAS_XENT=1", flush=True)
     captured = {}
-    train_main, _, train_switched = phase_train(torch, km, tmods, state,
-                                                captured)
+    train_main, _, train_switched, train_bf16_state = phase_train(
+        torch, km, tmods, state, captured)
     print("[6] (cont.) flash forward, dQ and dK/dV: kernels vs plain twins "
           "on layer 0's inputs of the first phase-7 training step",
           flush=True)
@@ -3018,19 +3370,27 @@ def main():
     print("[7b] GPT-1.3B bf16 (head_dim 128) through TrainStep with "
           "PADDLE_TPU_PALLAS_LN=1 and PADDLE_TPU_PALLAS_XENT=1; then 2 of its "
           "layers in float32, card vs CPU", flush=True)
-    train_1p3b = phase_train_1p3b(torch, km, tmods, gpt_1p3b)
+    train_1p3b, train_1p3b_sr = phase_train_1p3b(torch, km, tmods,
+                                                 gpt_1p3b)
 
     print("[8] 2-layer float32 training: card vs CPU, each epilogue, and "
-          "the LayerNorm and xent kernels switched on", flush=True)
+          "the LayerNorm and xent kernels switched on; the eager loop, Lamb "
+          "and bf16 moments", flush=True)
     phase_train_agreement(torch, km, tmods, state)
+    phase_optimizer_agreement(torch, km, tmods, state)
 
     print("[9] fused epilogue: kernels vs plain twins", flush=True)
     fused_main = phase_fused(torch, fk, fu, (SGD, Momentum, AdamW), tmods,
                              flush)
 
-    print("[10] GradScaler on the card: a non-finite step is skipped",
+    print("[9b] stochastic rounding (K2): kernel vs plain twin", flush=True)
+    sr_main = phase_stochastic_round(torch, srk, flush)
+
+    print("[10] GradScaler on the card: a non-finite step is skipped (in "
+          "TrainStep on each epilogue, and around the eager step)",
           flush=True)
     phase_scaler(torch, km, tmods, state)
+    phase_eager_scaler(torch, tmods, state)
 
     print("[11] LayerNorm and softmax cross-entropy: kernels vs plain twins",
           flush=True)
@@ -3086,6 +3446,21 @@ def main():
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    # kernel #10's bf16-moment variant (launches: phase 7's scheduled
+    # bf16-state run) and K2 (launches: phase 7b's bench-optimizer run)
+    for name, source, replaces, meas, launches in (
+            ("fused_pass2_bf16_state", "paddle_tpu_torch/csrc/fused_update.cu",
+             FUSED_KERNELS[1][1], fused_main["fused_pass2_bf16_state"],
+             train_bf16_state["launches"]["fused_pass2"]),
+            (SR_KERNEL[0], "paddle_tpu_torch/csrc/stochastic_round.cu",
+             SR_KERNEL[1], sr_main,
+             train_1p3b_sr["launches"][SR_KERNEL[0]])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": meas["max_abs_err"], "ms": meas["ms"],
+            "plain_ms": meas["plain_ms"], "bound_ms": meas["bound_ms"],
+            "bound_by": meas["bound_by"], "library_ms": meas["library_ms"]})
     scan_main = scan_held["decode"]
     kernels.append({
         "name": SCAN_KERNEL[0], "route": "cuda",
@@ -3110,7 +3485,12 @@ def main():
           f"times at [8192, 1024] bf16 (library: F.layer_norm forward, its "
           f"backward), xent times at [8192, 50304] bf16 (library: "
           f"F.cross_entropy(reduction='none') forward, its backward); "
-          f"launches of #5-#8 from the switched training run; scan times of "
+          f"launches of #5-#8 from the switched training run; "
+          f"fused_pass2_bf16_state: #10 with bf16 moments on GPT-medium's "
+          f"layout (AdamW, f32 masters; library: none), launches from the "
+          f"scheduled bf16-state run; stochastic_round (K2): GPT-1.3B's wte "
+          f"(103,022,592 elements; library: none), launches from the "
+          f"bench-optimizer GPT-1.3B run; scan times of "
           f"the served SSM decode step's layer-0 call (library: none, no "
           f"single PyTorch call computes a selective scan); card: {card}")
     print(json.dumps({"kernels": kernels}))

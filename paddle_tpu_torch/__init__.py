@@ -15,10 +15,14 @@ tensors on the CPU.
 
 The ported slices so far: GPT serving (`GenerationEngine` over
 `GPTForCausalLM.paged_ragged_step` and the ragged paged-attention
-kernel) and GPT training (`jit.TrainStep` on the flash-attention
+kernel, as CUDA graphs, with seeded sampling and speculative decoding),
+the SSM family, GPT training (`jit.TrainStep` on the flash-attention
 kernels, with the fused multi-tensor optimizer epilogue by default and
-an optional `amp.GradScaler`). Entry points run on CUDA unless the
-caller passes `device="cpu"` (see `device.py`).
+an optional `amp.GradScaler`) and the optimizer surface (`optimizer`:
+the ten optimizers with an eager `step()`, `optimizer.lr`'s schedulers,
+`regularizer`, a bf16 optimizer state and stochastic rounding). Entry
+points run on CUDA unless the caller passes `device="cpu"` (see
+`device.py`).
 """
 from .device import resolve_device
 from .framework import dtype

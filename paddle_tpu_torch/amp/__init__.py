@@ -1,24 +1,23 @@
 """Dynamic loss scaling.
 
 Counterpart: paddle_tpu/amp/__init__.py `GradScaler`. The host half
-(constructor, getters and setters, `scale`, `update`, `state_dict`) is
-the reference's. The device half is what the train step carries:
-`init_jit_state` makes {"scale": float32, "good_steps": int32,
-"bad_steps": int32} 0-dim tensors, and `jit_unscale_and_update` /
-`jit_update_scale_state` advance them with `torch.where` selects, so the
-found_inf skip and the scale adaptation cost no host sync.
+(constructor, getters and setters, `scale`, `update`, `state_dict`) and
+the eager half (`unscale_`, `step`, `minimize` around the optimizer's
+eager `step()`) are the reference's: `unscale_` unscales each `.grad` in
+float32 and reads the non-finite flag with one host sync, `step` skips
+`optimizer.step()` on an overflow. The device half is what the train
+step carries: `init_jit_state` makes {"scale": float32, "good_steps":
+int32, "bad_steps": int32} 0-dim tensors, and `jit_unscale_and_update`
+/ `jit_update_scale_state` advance them with `torch.where` selects, so
+the found_inf skip and the scale adaptation cost no host sync.
 
-Not ported yet: `unscale_`, `step` and `minimize` need the eager
-`optimizer.step()` path (ROADMAP.md queue A, item A.4) and raise;
-`auto_cast` and `decorate` are ROADMAP.md queue A, item A.4.
+Not ported yet: `auto_cast` and `decorate`, which the reference applies
+inside its op dispatch (paddle_tpu/framework/core.py `apply_op`), wait
+for Paddle's Tensor and tape (ROADMAP.md queue A, item A.6).
 """
 import torch
 
 __all__ = ["GradScaler"]
-
-_EAGER = ("GradScaler.{} needs the eager optimizer.step() path, which is "
-          "not ported yet (ROADMAP.md queue A, item A.4); pass the scaler "
-          "to TrainStep instead")
 
 
 class GradScaler:
@@ -49,13 +48,44 @@ class GradScaler:
         return var * self._scale
 
     def unscale_(self, optimizer):
-        raise NotImplementedError(_EAGER.format("unscale_"))
+        """Each `.grad` of the optimizer's parameters times 1/scale, in
+        float32 (1/scale underflows float16 for large scales, and the
+        non-finite check must see the values before the cast back);
+        found_inf is read once, at the end."""
+        if not self._enable:
+            return
+        inv = 1.0 / self._scale
+        found = None
+        with torch.no_grad():
+            for p in optimizer._parameters:
+                if p.grad is None:
+                    continue
+                g32 = p.grad.float() * inv
+                bad = (~torch.isfinite(g32)).any()
+                found = bad if found is None else found | bad
+                p.grad = g32.to(p.grad.dtype)
+        self._found_inf = bool(found) if found is not None else False
+        self._unscaled = True
 
     def step(self, optimizer):
-        raise NotImplementedError(_EAGER.format("step"))
+        """unscale_ (unless done), then optimizer.step() unless a grad
+        was not finite."""
+        if not self._enable:
+            optimizer.step()
+            return
+        if not getattr(self, "_unscaled", False):
+            self.unscale_(optimizer)
+        if not self._found_inf:
+            optimizer.step()
+        self._unscaled = False
 
     def minimize(self, optimizer, scaled_loss):
-        raise NotImplementedError(_EAGER.format("minimize"))
+        """backward of the scaled loss, unscale_, step, update."""
+        scaled_loss.backward()
+        self.unscale_(optimizer)
+        self._unscaled = True
+        self.step(optimizer)
+        self.update()
 
     def update(self):
         if not (self._enable and self._dynamic):

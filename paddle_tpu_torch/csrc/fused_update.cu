@@ -14,7 +14,8 @@
 // bytes a bf16 parameter; with a live GradScaler it writes them back
 // unscaled); pass 2 reads grad, param, two moments and the master and
 // writes param, moments and master: 30 bytes a bf16 parameter with f32
-// masters, ~0.1 operations a byte. So the design is about bytes in
+// masters and f32 moments, 22 with bf16 moments (the optimizer's
+// `_state_dtype`), ~0.1 operations a byte. So the design is about bytes in
 // flight: every load and store is a 16-byte vector (8 bf16 or 4 f32), and
 // each thread issues all the loads of UNROLL vectors before it computes
 // (pass 1: 4 vectors of the grad; pass 2: 2 units of 8 elements, 16
@@ -47,6 +48,10 @@
 //   (fields stored [field][slot]); `fused_finalize` (one block) then
 //   sums the slots, each thread a strided run in order, then a fixed
 //   tree. No float atomics. found is a max of 0/1 flags.
+// - Moments are float32 or bfloat16 (a template parameter of pass 2):
+//   a bf16 moment is loaded, widened to float32 for the math and stored
+//   with __float2bfloat16_rn, the reference's `astype` (round to nearest
+//   even). Masters are always float32.
 // - Rounding: nvcc would contract a*b + c into an FMA, and the twins
 //   run separate torch ops that round each product. So every value a
 //   pass writes is computed with __fmul_rn / __fadd_rn / __fsub_rn /
@@ -248,7 +253,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, typename M>
 __global__ void __launch_bounds__(kThreads)
     fused_pass2_kernel(const Bucket* __restrict__ desc, int nb,
                        long long n_tiles, const int* __restrict__ chunk_leaf,
@@ -270,12 +275,13 @@ __global__ void __launch_bounds__(kThreads)
     const Bucket bk = desc[find_bucket(desc, nb, t)];
     T* g = reinterpret_cast<T*>(bk.g);
     T* p = reinterpret_cast<T*>(bk.p);
-    float* m0 = reinterpret_cast<float*>(bk.m0);
-    float* m1 = reinterpret_cast<float*>(bk.m1);
+    M* m0 = reinterpret_cast<M*>(bk.m0);
+    M* m1 = reinterpret_cast<M*>(bk.m1);
     float* mw = reinterpret_cast<float*>(bk.mw);
     const long long unit0 = (t - bk.tile2) * (kThreads * kUnroll2);
     Vec8<T> gx[kUnroll2], px[kUnroll2];
-    Vec8<float> m0x[kUnroll2], m1x[kUnroll2], mwx[kUnroll2];
+    Vec8<M> m0x[kUnroll2], m1x[kUnroll2];
+    Vec8<float> mwx[kUnroll2];
 #pragma unroll
     for (int k = 0; k < kUnroll2; ++k) {
       const long long base = (unit0 + k * kThreads + threadIdx.x) * kVec;
@@ -317,14 +323,14 @@ __global__ void __launch_bounds__(kThreads)
         const float w = __fmul_rn(a.has_master ? mwx[k].v[i] : p32, decay);
         float np, nm0 = 0.f, nm1 = 0.f;
         if (a.kind == 2) {  // adam / adamw
-          nm0 = __fadd_rn(__fmul_rn(a.b1, m0x[k].v[i]),
+          nm0 = __fadd_rn(__fmul_rn(a.b1, to_f32(m0x[k].v[i])),
                           __fmul_rn(a.omb1, g32));
-          nm1 = __fadd_rn(__fmul_rn(a.b2, m1x[k].v[i]),
+          nm1 = __fadd_rn(__fmul_rn(a.b2, to_f32(m1x[k].v[i])),
                           __fmul_rn(__fmul_rn(a.omb2, g32), g32));
           np = __fsub_rn(w, __fdiv_rn(__fmul_rn(lr_t, nm0),
                                       __fadd_rn(__fsqrt_rn(nm1), a.eps)));
         } else if (a.kind == 1) {  // momentum
-          nm0 = __fadd_rn(__fmul_rn(a.mom, m0x[k].v[i]), g32);
+          nm0 = __fadd_rn(__fmul_rn(a.mom, to_f32(m0x[k].v[i])), g32);
           np = a.nesterov
                    ? __fsub_rn(w, __fmul_rn(lr, __fadd_rn(
                                           g32, __fmul_rn(a.mom, nm0))))
@@ -336,8 +342,8 @@ __global__ void __launch_bounds__(kThreads)
         const T old_p = px[k].v[i];
         const T new_p = found ? old_p : from_f32<T>(np);
         px[k].v[i] = new_p;
-        if (a.n_moments > 0 && !found) m0x[k].v[i] = nm0;
-        if (a.n_moments > 1 && !found) m1x[k].v[i] = nm1;
+        if (a.n_moments > 0 && !found) m0x[k].v[i] = from_f32<M>(nm0);
+        if (a.n_moments > 1 && !found) m1x[k].v[i] = from_f32<M>(nm1);
         if (a.has_master && !found) mwx[k].v[i] = np;
         if (a.with_stats) {
           const float s32 = to_f32(new_p);
@@ -415,9 +421,32 @@ int run_pass1(const Seg1* segs, int ns, long long n_tiles,
   if (grid > max_grid) grid = max_grid;
   if (grid > n_tiles) grid = n_tiles;
   if (grid < 1) return static_cast<int>(cudaSuccess);
+  if (grid < max_grid) {
+    // the finalize sums all max_grid slots of the group: zero the ones
+    // this grid leaves unwritten (an earlier launch of the other template,
+    // at another occupancy, may have filled them)
+    const size_t tail = (size_t)(max_grid - grid) * sizeof(float);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    e = cudaMemsetAsync(partials + grid, 0, tail, s);
+    if (e == cudaSuccess)
+      e = cudaMemsetAsync(partials + stride + grid, 0, tail, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   fused_pass1_kernel<T, kWriteU>
       <<<(int)grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           segs, ns, n_tiles, scale, partials, stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename M>
+int run_pass2(const Bucket* d, int nb, long long n_tiles,
+              const int* chunk_leaf, const int* flags, const float* lrs,
+              const float* nw, long long chunk, const Pass2Args& a,
+              const float* sumsq, const float* found, float* partials,
+              long long stride, int grid, cudaStream_t s) {
+  fused_pass2_kernel<T, M><<<grid, kThreads, 0, s>>>(
+      d, nb, n_tiles, chunk_leaf, flags, lrs, nw, chunk, a, sumsq, found,
+      partials, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -457,22 +486,32 @@ int fused_pass1(const void* segs, int ns, long long n_tiles,
                                            stride, max_grid, stream);
 }
 
+// dtype: the params' and grads' (0 float32, 1 bfloat16); moment_dtype:
+// the moments' (the same codes)
 int fused_pass2(const void* desc, int nb, long long n_tiles,
                 const int* chunk_leaf, const int* flags, const float* lrs,
                 const float* nw, long long chunk, const Pass2Args* args,
                 const float* sumsq, const float* found, float* partials,
-                long long stride, int grid, int dtype, void* stream) {
+                long long stride, int grid, int dtype, int moment_dtype,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Bucket* d = static_cast<const Bucket*>(desc);
+  using bf16 = __nv_bfloat16;
   if (dtype == 1)
-    fused_pass2_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        d, nb, n_tiles, chunk_leaf, flags, lrs, nw, chunk, *args, sumsq,
-        found, partials, stride);
-  else
-    fused_pass2_kernel<float><<<grid, kThreads, 0, s>>>(
-        d, nb, n_tiles, chunk_leaf, flags, lrs, nw, chunk, *args, sumsq,
-        found, partials, stride);
-  return static_cast<int>(cudaGetLastError());
+    return moment_dtype == 1
+               ? run_pass2<bf16, bf16>(d, nb, n_tiles, chunk_leaf, flags,
+                                       lrs, nw, chunk, *args, sumsq, found,
+                                       partials, stride, grid, s)
+               : run_pass2<bf16, float>(d, nb, n_tiles, chunk_leaf, flags,
+                                        lrs, nw, chunk, *args, sumsq, found,
+                                        partials, stride, grid, s);
+  return moment_dtype == 1
+             ? run_pass2<float, bf16>(d, nb, n_tiles, chunk_leaf, flags, lrs,
+                                      nw, chunk, *args, sumsq, found,
+                                      partials, stride, grid, s)
+             : run_pass2<float, float>(d, nb, n_tiles, chunk_leaf, flags,
+                                       lrs, nw, chunk, *args, sumsq, found,
+                                       partials, stride, grid, s);
 }
 
 int fused_finalize(const float* partials, long long n_slots, int n_fields,

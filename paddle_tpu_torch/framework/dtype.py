@@ -9,7 +9,8 @@ by accident.
 import numpy as np
 import torch
 
-__all__ = ["float32", "bfloat16", "int32", "int64", "convert_dtype"]
+__all__ = ["float32", "bfloat16", "int32", "int64", "convert_dtype",
+           "weak_scalar"]
 
 float32 = torch.float32
 bfloat16 = torch.bfloat16
@@ -37,3 +38,15 @@ def convert_dtype(d):
     if name not in _BY_NAME:
         raise ValueError(f"dtype {d!r} is not ported yet")
     return _BY_NAME[name]
+
+
+def weak_scalar(c, like):
+    """The Python number `c` as JAX's weak-typed scalar meets the tensor
+    `like`: rounded to its dtype when that is a reduced-precision float
+    (JAX computes `0.9 * m` in bfloat16 with 0.9 rounded to bfloat16
+    first, where torch would multiply by the float32 0.9), else `c` as
+    it is. A tensor `c` passes through."""
+    if isinstance(c, torch.Tensor) or like.dtype not in (torch.bfloat16,
+                                                          torch.float16):
+        return c
+    return float(torch.tensor(c, dtype=torch.float32).to(like.dtype))

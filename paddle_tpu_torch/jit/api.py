@@ -26,6 +26,7 @@ it is the only wait.
 import collections
 import os
 
+import numpy as np
 import torch
 
 from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByValue, _sumsq,
@@ -86,10 +87,15 @@ class TrainStep:
 
     fused_update: True / False choose the epilogue; None (the default)
     reads PADDLE_TPU_FUSED_UPDATE (fused unless "0"). An optimizer
-    without a fused mapping (fused_spec() None, e.g. under stochastic
-    rounding), a clip other than ClipGradByGlobalNorm / ClipGradByValue,
-    or a non-float parameter takes the tree path, as on the reference.
-    On CUDA the fused path runs the kernels or raises.
+    without a fused mapping (fused_spec() None: LarsMomentum, Adamax,
+    Adagrad, Adadelta, RMSProp, Lamb, or any under stochastic
+    rounding), a clip other than ClipGradByGlobalNorm / ClipGradByValue
+    (ClipGradByNorm), or a non-float parameter takes the tree path, as
+    on the reference. On CUDA the fused path runs the kernels or raises.
+
+    The optimizer's lr is read at each step (`get_lr()`: a float or an
+    `lr.LRScheduler`'s value, which the caller steps between steps) and
+    rounded to float32.
 
     The reference's signature, whole: `mesh` and `in_shardings` (its
     sharded step, ROADMAP.md queue A, item A.13) and
@@ -225,7 +231,10 @@ class TrainStep:
     def __call__(self, *batch):
         *inputs, labels = batch
         self._step_i += 1
-        lr = self.optimizer.get_lr()
+        # the lr (a float, or a scheduler's value) as float32, as the
+        # reference's jnp.asarray(get_lr(), float32): both epilogues
+        # compute with this value
+        lr = float(np.float32(self.optimizer.get_lr()))
         if self._fused is not None:
             lay = self._fused.layout
             if lay.grads_in_buckets(self._named, self._grad_store):

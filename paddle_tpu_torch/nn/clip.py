@@ -1,17 +1,19 @@
 """Gradient clipping.
 
-Counterpart: paddle_tpu/nn/clip.py: `ClipGradByValue`,
-`ClipGradByGlobalNorm` (eager `__call__` over (param, grad) pairs), and
-the tree functions the train step uses, `global_grad_norm` and
-`clip_grads_tree`, over {name: grad} dicts. Norms are taken in float32
-and a clipped grad keeps its dtype. `Parameter.need_clip = False` (an
-attribute set on a torch Parameter) keeps a leaf out of the norm and
-the scaling. `ClipGradByNorm` and the `clip_grad_*_` helpers are not
-ported yet (ROADMAP.md queue A, item A.4).
+Counterpart: paddle_tpu/nn/clip.py, whole: `ClipGradByValue`,
+`ClipGradByNorm`, `ClipGradByGlobalNorm` (eager `__call__` over (param,
+grad) pairs, which the optimizer's `step()` calls), the helpers
+`clip_grad_norm_` and `clip_grad_value_` (in place on each parameter's
+`.grad`), and the tree functions the train step uses,
+`global_grad_norm` and `clip_grads_tree`, over {name: grad} dicts.
+Norms are taken in float32 and a clipped grad keeps its dtype.
+`Parameter.need_clip = False` (an attribute set on a torch Parameter)
+keeps a leaf out of the clip classes' norm and scaling.
 """
 import torch
 
-__all__ = ["ClipGradByValue", "ClipGradByGlobalNorm", "global_grad_norm",
+__all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+           "clip_grad_norm_", "clip_grad_value_", "global_grad_norm",
            "clip_grads_tree"]
 
 
@@ -27,6 +29,20 @@ class ClipGradByValue:
             return [(p, g) if g is None or not getattr(p, "need_clip", True)
                     else (p, g.clamp(self.min, self.max))
                     for p, g in params_grads]
+
+
+class ClipGradByNorm:
+    """Each grad scaled by min(clip_norm / max(||g||, 1e-12), 1), its own
+    norm."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def __call__(self, params_grads):
+        with torch.no_grad():
+            return [(p, g) if g is None or not getattr(p, "need_clip", True)
+                    else (p, (g * _factor(self.clip_norm, _sumsq(
+                        (g,)).sqrt())).to(g.dtype)) for p, g in params_grads]
 
 
 def _factor(clip_norm, norm):
@@ -50,6 +66,44 @@ class ClipGradByGlobalNorm:
             f = _factor(self.clip_norm, _sumsq(live).sqrt())
             return [(p, g) if g is None or not getattr(p, "need_clip", True)
                     else (p, (g * f).to(g.dtype)) for p, g in params_grads]
+
+
+def _as_list(parameters):
+    return list(parameters) if isinstance(parameters, (list, tuple)) \
+        else [parameters]
+
+
+def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
+                    error_if_nonfinite=False):
+    """Scale every `.grad` of `parameters` in place by min(max_norm /
+    (total + 1e-6), 1), total the norm_type-norm over all of them
+    (float32; inf: the largest |g|). Returns the total norm, a 0-dim
+    tensor."""
+    params = [p for p in _as_list(parameters) if p.grad is not None]
+    with torch.no_grad():
+        if not params:
+            total = torch.zeros(())
+        elif norm_type == float("inf"):
+            total = torch.stack([p.grad.abs().max() for p in params]).max()
+        else:
+            total = None
+            for p in params:
+                s = (p.grad.float().abs() ** norm_type).sum()
+                total = s if total is None else total + s
+            total = total ** (1.0 / norm_type)
+        factor = torch.clamp(torch.div(torch.full_like(total, max_norm),
+                                       total + 1e-6), max=1.0)
+        for p in params:
+            p.grad = (p.grad * factor).to(p.grad.dtype)
+    return total
+
+
+def clip_grad_value_(parameters, clip_value):
+    """Clamp every `.grad` of `parameters` to [-clip_value, clip_value]."""
+    with torch.no_grad():
+        for p in _as_list(parameters):
+            if p.grad is not None:
+                p.grad = p.grad.clamp(-clip_value, clip_value)
 
 
 def _sumsq(tensors):
@@ -87,6 +141,11 @@ def clip_grads_tree(grads, clip, need_clip=None, global_norm=None):
         f = _factor(clip.clip_norm, gn)
         return {k: (g * f).to(g.dtype) if on(k) else g
                 for k, g in grads.items()}
+    if isinstance(clip, ClipGradByNorm):
+        # each leaf by its own norm; the reference's tree path clips
+        # every leaf, need_clip or not
+        return {k: (g * _factor(clip.clip_norm, _sumsq((g,)).sqrt())).to(
+            g.dtype) for k, g in grads.items()}
     if isinstance(clip, ClipGradByValue):
         # the reference's tree path clips every leaf, need_clip or not
         return {k: g.clamp(clip.min, clip.max) for k, g in grads.items()}

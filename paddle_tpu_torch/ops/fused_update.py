@@ -6,11 +6,13 @@ Counterpart: paddle_tpu/ops/pallas/fused_update.py, the host side
 hand-written for Hopper in paddle_tpu_torch/csrc/fused_update.cu and
 wrapped, with their plain twins, in ops/kernels/fused_update.py.
 
-- Parameters, gradients, moments and float32 master weights live in
-  dtype-bucketed flat 1-D buffers (`BucketLayout`): one exact-sized
-  buffer per (dtype, scan-group run, metadata class). The members of a
-  run (the same role across the layer stack) pack back to back in layer
-  order. Bucket keys are the reference's strings ("bfloat16#3").
+- Parameters, gradients, moments (in the optimizer's state dtype,
+  `spec["state_dtype"]`: float32 by default, or bfloat16) and float32
+  master weights live in dtype-bucketed flat 1-D buffers
+  (`BucketLayout`): one exact-sized buffer per (dtype, scan-group run,
+  metadata class). The members of a run (the same role across the layer
+  stack) pack back to back in layer order. Bucket keys are the
+  reference's strings ("bfloat16#3").
 - Pass 1 reads the grads once: the unscaled grads (in place) when a
   GradScaler is live, the weighted L2 partial sums and the non-finite
   flag over the raw grads. The norm is shared by the clip factor, the
@@ -250,17 +252,18 @@ class FusedEpilogue:
     def __init__(self, layout, spec):
         self.layout = layout
         self.spec = dict(spec)
+        self.state_dtype = self.spec.get("state_dtype") or torch.float32
         self._sets = {}
 
     # -- state construction (host side, once) ----------------------------
     def init_stores(self, params_tree, multi_precision):
         """(param_store, opt_store). opt_store = {"moments": tuple of
-        {bucket: float32}, "masters": {bucket: float32}}; masters only
-        for non-float32 buckets under multi_precision."""
+        {bucket: state dtype}, "masters": {bucket: float32}}; masters
+        only for non-float32 buckets under multi_precision."""
         lay = self.layout
         p_store = lay.pack(params_tree)
         moments = tuple(
-            {key: torch.zeros(lay.bucket_shape(key), dtype=torch.float32,
+            {key: torch.zeros(lay.bucket_shape(key), dtype=self.state_dtype,
                               device=p_store[key].device)
              for key in lay.buckets}
             for _ in range(self.spec["n_moments"]))
@@ -282,9 +285,10 @@ class FusedEpilogue:
                 else s
 
         f32 = {k: torch.float32 for k in lay.buckets}
+        sdt = {k: self.state_dtype for k in lay.buckets}
         moments = tuple(
             lay.pack({leaf.name: inner(leaf.name)[j]
-                      for _, leaf in lay.leaf_order}, dtype_map=f32)
+                      for _, leaf in lay.leaf_order}, dtype_map=sdt)
             for j in range(self.spec["n_moments"]))
         master_keys = {key for key, leaf in lay.leaf_order
                        if isinstance(state_tree[leaf.name], dict)}
@@ -318,6 +322,7 @@ class FusedEpilogue:
         reads grads, params, moments and masters and writes params,
         moments and masters."""
         total = 0
+        s_size = torch.empty((), dtype=self.state_dtype).element_size()
         for key, b in self.layout.buckets.items():
             n = b.total
             it = torch.empty((), dtype=b.dtype).element_size()
@@ -326,7 +331,7 @@ class FusedEpilogue:
             elif need_norm:
                 total += n * it
             total += n * it * 3
-            total += n * 4 * 2 * self.spec["n_moments"]
+            total += n * s_size * 2 * self.spec["n_moments"]
             if key in master_keys:
                 total += n * 4 * 2
         return int(total)

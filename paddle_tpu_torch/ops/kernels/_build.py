@@ -35,7 +35,8 @@ SOURCES = {"paged_attention": "paged_attention.cu",
            "fused_update": "fused_update.cu",
            "layer_norm": "layer_norm.cu",
            "softmax_xent": "softmax_xent.cu",
-           "ssm_scan": "ssm_scan.cu"}
+           "ssm_scan": "ssm_scan.cu",
+           "stochastic_round": "stochastic_round.cu"}
 
 # -Xptxas -v puts each kernel's registers, shared memory and spills in
 # the build log (build/kernels/<library>.log)

@@ -68,9 +68,10 @@ def _f32(x):
 
 
 class FlatBucket:
-    """One bucket's buffers: grad `g`, param `p` (same dtype), float32
-    `moments` (0-2) and float32 `master` (or None), all 1-D with the
-    same length; `chunk_leaf` the np.int32 chunk -> leaf table."""
+    """One bucket's buffers: grad `g`, param `p` (same dtype), `moments`
+    (0-2, float32 or bfloat16: the optimizer's state dtype) and float32
+    `master` (or None), all 1-D with the same length; `chunk_leaf` the
+    np.int32 chunk -> leaf table."""
     __slots__ = ("key", "g", "p", "moments", "master", "chunk_leaf")
 
     def __init__(self, key, g, p, moments, master, chunk_leaf):
@@ -94,6 +95,11 @@ class BucketSet:
         self.chunk = int(chunk)
         self.device = self.buckets[0].p.device
         self.n_moments = len(self.buckets[0].moments)
+        self.moment_dtype = self.buckets[0].moments[0].dtype \
+            if self.n_moments else torch.float32
+        if self.moment_dtype not in DTYPE_CODES:
+            raise TypeError(f"moments in {self.moment_dtype}: the fused "
+                            "kernels take float32 or bfloat16 moments")
         for b in self.buckets:
             self._check(b)
         dev = self.device
@@ -122,10 +128,11 @@ class BucketSet:
             raise TypeError(f"bucket {b.key}: grad {b.g.dtype} and param "
                             f"{b.p.dtype} must share one float dtype")
         if len(b.moments) != self.n_moments or any(
-                t.dtype != torch.float32 for t in b.moments
-                + ([b.master] if b.master is not None else [])):
-            raise TypeError(f"bucket {b.key}: moments and master must be "
-                            f"float32, {self.n_moments} moments")
+                t.dtype != self.moment_dtype for t in b.moments):
+            raise TypeError(f"bucket {b.key}: {self.n_moments} moments of "
+                            f"one dtype, float32 or bfloat16")
+        if b.master is not None and b.master.dtype != torch.float32:
+            raise TypeError(f"bucket {b.key}: the master must be float32")
         if b.chunk_leaf.size != -(-n // self.chunk):
             raise ValueError(f"bucket {b.key}: chunk_leaf has "
                              f"{b.chunk_leaf.size} rows for {n} elements")
@@ -297,14 +304,17 @@ def _pass2_math(g, p, ms, mw, flags, lrsc, nw, lr, lr_t, skip, clip_f,
     if hp["wd"]:
         w = w * torch.where((flags & FLAG_DECAY) > 0,
                             1.0 - lr * hp["wd_f"], torch.ones_like(lr))
-    np32, new_m32 = _update_core(hp["kind"], hp, w, g32, ms, lr, lr_t)
+    np32, new_m32 = _update_core(hp["kind"], hp, w, g32,
+                                 [m.float() for m in ms], lr, lr_t)
     npw = np32.to(p.dtype)
+    # the moments go back to their own dtype (round to nearest even)
+    new_m = [nm.to(old.dtype) for old, nm in zip(ms, new_m32)]
     if skip is not None:
         new_p = torch.where(skip, p, npw)
-        new_ms = [torch.where(skip, old, nm) for old, nm in zip(ms, new_m32)]
+        new_ms = [torch.where(skip, old, nm) for old, nm in zip(ms, new_m)]
         new_mw = torch.where(skip, mw, np32) if mw is not None else None
     else:
-        new_p, new_ms = npw, new_m32
+        new_p, new_ms = npw, new_m
         new_mw = np32 if mw is not None else None
     sp = su = None
     if with_stats:
@@ -399,7 +409,7 @@ def _kernels():
     lib.fused_pass1.argtypes = [p, i, ll, p, p, ll, i, i, p]
     lib.fused_pass2.argtypes = [p, i, ll, p, p, p, p, ll,
                                 ctypes.POINTER(_Pass2Args), p, p, p, ll, i,
-                                i, p]
+                                i, i, p]
     lib.fused_finalize.argtypes = [p, ll, i, i, i, p, p]
     for fn in (lib.fused_pass1, lib.fused_pass2, lib.fused_finalize):
         fn.restype = ctypes.c_int
@@ -496,7 +506,7 @@ def fused_pass2(bs, spec, lr, lr_t, clip_norm=None, clip_value=None,
             ctypes.byref(args),
             _ptr(sumsq) if clip_norm is not None else None, _ptr(found),
             part.data_ptr() + 4 * gr["slot2"], cu["slots2"], gr["grid2"],
-            DTYPE_CODES[gr["dtype"]], stream))
+            DTYPE_CODES[gr["dtype"]], DTYPE_CODES[bs.moment_dtype], stream))
         count_launch(fused_pass2)
     if not with_stats:
         return None

@@ -1,10 +1,14 @@
-"""Threefry-2x32 random bits and the draws the serving sampler makes.
+"""Threefry-2x32 random bits, the draws the serving sampler makes and the
+keys of the optimizers' stochastic rounding.
 
 Counterpart: the parts of `jax.random` that the reference's sampler
-(paddle_tpu/models/gpt.py `sample_token_rows`) reaches, with legacy
-uint32[2] keys, the default threefry2x32 implementation and
+(paddle_tpu/models/gpt.py `sample_token_rows`) and its stochastic
+rounding (paddle_tpu/optimizer/optimizer.py `apply_gradients_tree`:
+`PRNGKey`, `fold_in`, `split`, `bits`) reach, with legacy uint32[2]
+keys, the default threefry2x32 implementation and
 `jax_threefry_partitionable` on (jax/_src/prng.py `threefry_2x32`,
-`threefry_fold_in`, `_threefry_random_bits_partitionable`;
+`threefry_fold_in`, `_threefry_split_foldlike`,
+`_threefry_random_bits_partitionable`;
 jax/_src/random.py `_uniform`, `_gumbel` with mode "low",
 `categorical`). The bits equal jax's bit for bit.
 
@@ -17,8 +21,9 @@ layout)."""
 import numpy as np
 import torch
 
-__all__ = ["MASK32", "threefry2x32", "fold_in", "random_bits", "uniform",
-           "gumbel", "categorical", "key_words", "sampling_key_data"]
+__all__ = ["MASK32", "threefry2x32", "PRNGKey", "fold_in", "split",
+           "random_bits", "uniform", "gumbel", "categorical", "key_words",
+           "sampling_key_data"]
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -62,6 +67,11 @@ def key_words(keys):
     return torch.as_tensor(keys).to(torch.int64) & MASK32
 
 
+def PRNGKey(seed):
+    """`jax.random.PRNGKey(seed)`'s key words: int64 [2] on the CPU."""
+    return key_words(sampling_key_data(seed))
+
+
 def fold_in(keys, data):
     """`jax.random.fold_in` over a batch: keys [..., 2] (key words),
     data [...] integers taken as uint32. Returns the new keys."""
@@ -69,6 +79,16 @@ def fold_in(keys, data):
         & MASK32
     o1, o2 = threefry2x32(keys[..., 0], keys[..., 1],
                           torch.zeros_like(data), data)
+    return torch.stack([o1, o2], dim=-1)
+
+
+def split(keys, num):
+    """`jax.random.split(key, num)` per key of keys [..., 2], the
+    partitionable layout (jax/_src/prng.py `_threefry_split_foldlike`):
+    new key j is the hash of the count (0, j). Returns [..., num, 2]."""
+    j = torch.arange(num, dtype=torch.int64, device=keys.device)
+    o1, o2 = threefry2x32(keys[..., 0, None], keys[..., 1, None],
+                          torch.zeros_like(j), j)
     return torch.stack([o1, o2], dim=-1)
 
 

@@ -37,7 +37,8 @@ from numpy seeds:
   reference's own two epilogues differ by 1 ulp under a scaler, so
   bitwise is not the contract).
 - PADDLE_TPU_FUSED_UPDATE=0 and stochastic rounding select the tree
-  path; grads land in their flat buckets; the GradScaler's device state
+  path (a bfloat16 state keeps the fused one, with bfloat16 moments);
+  grads land in their flat buckets; the GradScaler's device state
   follows the reference's over a found/not-found pattern; the new
   modules are among those the import-hygiene tests walk.
 - Kernel #9's host side: a bucket cut into runs of one L2 weight
@@ -515,12 +516,12 @@ def test_env_and_stochastic_rounding_select_the_tree_path(monkeypatch):
     step = TrainStep(model, _loss, opt)
     assert step._fused is None
     ids = torch.from_numpy(_ids())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step(ids, ids)
+    assert torch.isfinite(step(ids, ids))
     opt = AdamW(parameters=model.parameters())
     opt._state_dtype = torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainStep(model, _loss, opt)
+    step = TrainStep(model, _loss, opt)
+    assert step._fused is not None
+    assert step._fused.spec["state_dtype"] == torch.bfloat16
 
 
 def test_grads_land_in_their_buckets():
@@ -566,8 +567,11 @@ def test_gradscaler_state_follows_reference():
     assert bool(found) and u["a"].tolist() == [64.0 / port._scale,
                                                -128.0 / port._scale]
     assert port.scale(torch.tensor(2.0)).item() == 2.0 * port._scale
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.step(None)
+    # the eager half: a non-finite grad skips the optimizer's step
+    w = torch.nn.Parameter(torch.ones(2))
+    w.grad = torch.tensor([1.0, float("inf")])
+    port.step(SGD(0.1, parameters=[w]))
+    assert port._found_inf and torch.equal(w.detach(), torch.ones(2))
 
 
 def test_import_hygiene_walks_the_fused_modules():

@@ -42,7 +42,21 @@ division); the sums, taken in another order, to 1e-5 relative (float32
 sums of a few thousand positive terms). The found_inf skip leaves every
 buffer bit-equal to its input. Pass 1 alone on buckets whose L2 weight
 changes inside a bucket (several runs), with a ragged last vector and,
-in turn, an inf grad: the written grads bit-equal, found exact.
+in turn, an inf grad: the written grads bit-equal, found exact; after a
+launch of the other template (with or without a scale, another grid)
+on the same buffers, the sum still equal to the twin's. Pass 2
+with bfloat16 moments (the optimizer's `_state_dtype`: AdamW, Adam,
+Momentum and Nesterov, bf16 params with f32 masters and f32 params):
+every buffer bit-equal to the twin's (both round the float32 moment to
+bf16 once, to nearest even), and under found_inf every buffer as it was.
+
+Stochastic rounding (ops/kernels/stochastic_round.py, float32 -> bf16
+with threefry bits) against its twin at n = 1, 7, 4099 and 51.5 M over
+several keys: bit-equal on finite inputs, one launch a call, a new
+bf16 tensor. The tree path of Momentum with `_stochastic_rounding` and
+a bf16 state on the card equals the same update on the CPU bit for bit
+(no sqrt, no reduction: the same IEEE operations on both), with one
+kernel launch a parameter and one a velocity.
 
 LayerNorm (kernels #5, #6) and softmax cross-entropy (#7, #8) against
 their twins on the same inputs, at widths the training path uses and at
@@ -434,14 +448,17 @@ FUSED_OPTS = {"adamw": lambda: AdamW(0.01, weight_decay=0.1),
               "sgd": lambda: SGD(0.01)}
 
 
-def _fused_case(kind, dtype, master, seed=0, inf=False):
+def _fused_case(kind, dtype, master, seed=0, inf=False, state=None):
     """(epilogue, [grads, params, opt store]) on the card: a ragged
-    layout, random params, grads and moments from a numpy seed."""
+    layout, random params, grads and moments (in `state`, the
+    optimizer's state dtype) from a numpy seed."""
     rng = np.random.RandomState(seed)
     dev = torch.device("cuda")
     layout = fu.BucketLayout([(n, s, dtype) for n, s in FUSED_LEAVES],
                              chunk=128, meta=FUSED_META)
-    epi = fu.FusedEpilogue(layout, FUSED_OPTS[kind]().fused_spec())
+    opt = FUSED_OPTS[kind]()
+    opt._state_dtype = state
+    epi = fu.FusedEpilogue(layout, opt.fused_spec())
     draw = lambda s, k: torch.from_numpy(  # noqa: E731
         (rng.randn(*s) * k).astype(np.float32)).to(dev)
     params = {n: draw(s, 1.0).to(dtype) for n, s in FUSED_LEAVES}
@@ -571,6 +588,27 @@ def test_fused_pass1_runs_of_one_weight_on_card(dtype, scaled, inf):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("first", [None, 8.0])
+def test_fused_pass1_sums_after_the_other_template_on_card(first):
+    """Pass 1 with and without a scale are two templates with their own
+    occupancy, so their grids differ: after a launch of one on a bucket
+    set, the other's sum must not take the first's partials (the slots
+    its smaller grid leaves unwritten are zeroed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    make = _pass1_buckets(torch.bfloat16, False)
+    bs, bt = make(), make()
+    scale = torch.tensor(8.0, device="cuda")
+    fk.fused_pass1(bs, scale=None if first else scale)
+    fk.fused_pass1_reference(bt, scale=None if first else scale)
+    then = scale if first is None else None
+    got = fk.fused_pass1(bs, scale=then)
+    want = fk.fused_pass1_reference(bt, scale=then)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,master", [(torch.float32, False),
                                           (torch.bfloat16, True)])
 def test_fused_found_inf_skip_is_bit_exact_on_card(dtype, master):
@@ -584,6 +622,105 @@ def test_fused_found_inf_skip_is_bit_exact_on_card(dtype, master):
     for (name, got), (_, want) in zip(_buffers(stores)[len(stores[0]):],
                                       _buffers(first)[len(first[0]):]):
         assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,master", [(torch.bfloat16, True),
+                                          (torch.float32, False)])
+@pytest.mark.parametrize("kind", ["adamw", "adam", "momentum", "nesterov"])
+@pytest.mark.parametrize("scaled,inf", [(False, False), (True, False),
+                                        (True, True)])
+def test_fused_pass2_bf16_moments_match_twin_on_card(kind, dtype, master,
+                                                     scaled, inf):
+    """Kernel #10 with bfloat16 moments: every written buffer bit-equal
+    to the twin's; under found_inf, every buffer as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    epi, stores = _fused_case(kind, dtype, master, seed=3, inf=inf,
+                              state=torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16 for m in stores[2]["moments"]
+               for t in m.values())
+    twin, first = _clone(stores), _clone(stores)
+    scale = torch.tensor(64.0, device="cuda") if scaled else None
+    before = fk.fused_pass2.launches
+    out1, out2 = _run_passes(epi, stores, True, scale, "global", True)
+    assert fk.fused_pass2.launches == before + 1
+    _run_passes(epi, twin, False, scale, "global", True, out1)
+    for (name, got), (_, want) in zip(_buffers(stores), _buffers(twin)):
+        assert torch.equal(got, want), name
+    if inf:
+        assert float(out1[1]) == 1.0
+        for (name, got), (_, was) in zip(_buffers(stores)[len(stores[0]):],
+                                         _buffers(first)[len(first[0]):]):
+            assert torch.equal(got, was), name
+
+
+SR_KEYS = [(0, 0), (0, 0x5bd1e995), (2297781694, 1477100869),
+           (0xFFFFFFFF, 12345)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 4099, 51_500_000])
+def test_stochastic_round_matches_twin_on_card(n):
+    """Kernel K2 against its twin, bit for bit, over several keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from paddle_tpu_torch.ops.kernels import stochastic_round as sr
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(n, generator=gen, device="cuda") * 0.05
+    x[: min(n, 3)] = torch.tensor([1.0, -3.5e-39, 65504.0],
+                                  device="cuda")[: min(n, 3)]
+    for key in SR_KEYS[: 4 if n < 10 ** 6 else 2]:
+        before = sr.stochastic_round.launches
+        got = sr.stochastic_round(x, key)
+        assert sr.stochastic_round.launches == before + 1
+        want = sr.stochastic_round_reference(x, key)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), \
+            key
+        del want
+    with pytest.raises(TypeError, match="float32"):
+        sr.stochastic_round(x[:8].to(torch.bfloat16), SR_KEYS[0])
+
+
+@pytest.mark.cuda
+def test_tree_momentum_stochastic_rounding_on_card_matches_cpu():
+    """bench.py's optimizer on the tree path: the card (kernel K2) and
+    the CPU (its twin) give the same bits, with one K2 launch for each
+    parameter and each velocity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from paddle_tpu_torch.ops.kernels import stochastic_round as sr
+    rng = np.random.RandomState(9)
+    shapes = {"blocks.10.w": (64, 48), "blocks.2.w": (64, 48),
+              "blocks.2.b": (48,), "wte": (300, 64)}
+    p0 = {k: (rng.randn(*s) * 0.02).astype(np.float32)
+          for k, s in shapes.items()}
+    grads = [{k: (rng.randn(*s) * 0.5).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(3)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        opt = Momentum(1e-3, 0.9)
+        opt._stochastic_rounding = True
+        opt._state_dtype = torch.bfloat16
+        params = {k: torch.from_numpy(v).to(dev, torch.bfloat16)
+                  for k, v in p0.items()}
+        state = opt.init_tree_state(params)
+        before = sr.stochastic_round.launches
+        for i, g in enumerate(grads, start=1):
+            opt.apply_gradients_tree(
+                params, {k: torch.from_numpy(v).to(dev, torch.bfloat16)
+                         for k, v in g.items()}, state, 1e-3, i)
+        launched = sr.stochastic_round.launches - before
+        out[dev] = ({k: v.cpu() for k, v in params.items()},
+                    {k: v[0].cpu() for k, v in state.items()}, launched)
+    assert out["cuda"][2] == 3 * 2 * len(shapes) and out["cpu"][2] == 0
+    for k in shapes:
+        for a, b in ((out["cuda"][0][k], out["cpu"][0][k]),
+                     (out["cuda"][1][k], out["cpu"][1][k])):
+            assert a.dtype == torch.bfloat16
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16)), k
 
 
 # -- LayerNorm (#5, #6) and softmax cross-entropy (#7, #8) ------------------

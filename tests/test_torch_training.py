@@ -31,10 +31,11 @@ orders (XLA's fused matmuls against ATen's):
 Also: the presets gpt_tiny, gpt_small, gpt_medium, gpt_1p3b and
 gpt_6p7b equal the reference's field for field; a bfloat16 model with
 multi_precision keeps bfloat16 params and
-float32 masters and moments (on the default, fused epilogue); the
-GradScaler's eager half, a bfloat16 optimizer state and a truthy
-`scan_remat` raise; the new modules are among those the import hygiene
-tests walk. The fused epilogue's own parity tests are in
+float32 masters and moments (on the default, fused epilogue); a
+bfloat16 optimizer state gives bfloat16 moments on the fused epilogue
+and the GradScaler's eager half runs (both held against the reference
+in tests/test_torch_optimizer*.py); a truthy `scan_remat` raises; the
+new modules are among those the import hygiene tests walk. The fused epilogue's own parity tests are in
 tests/test_torch_fused_update.py.
 """
 import pkgutil
@@ -392,16 +393,18 @@ def test_unported_options_raise():
     from paddle_tpu_torch.amp import GradScaler
     model = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
     opt = AdamW(parameters=model.parameters())
-    # the fused epilogue and the in-step GradScaler are ported now; the
-    # scaler's eager half and a bf16 optimizer state are not
+    # the fused epilogue, the in-step GradScaler, the scaler's eager half
+    # and a bf16 optimizer state are ported now; scan_remat is not
     assert TrainStep(model, _loss, opt, fused_update=True)._fused is not None
-    for call in (lambda s: s.unscale_(opt), lambda s: s.step(opt),
-                 lambda s: s.minimize(opt, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call(GradScaler())
+    ids = torch.from_numpy(_batch())
+    scaler = GradScaler(init_loss_scaling=8.0)
+    scaler.minimize(opt, scaler.scale(_loss(model(ids), ids)))
+    assert not scaler._found_inf and opt._step_count == 1
     opt._state_dtype = torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainStep(model, _loss, opt, fused_update=True)
+    step = TrainStep(model, _loss, opt, fused_update=True)
+    assert all(m.dtype == torch.bfloat16
+               for moments in step._opt_store["moments"]
+               for m in moments.values())
     for remat in (True, "names", "dots"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GPTForCausalLM(GPTConfig(scan_remat=remat, **CFG), device="cpu")
