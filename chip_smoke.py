@@ -12,11 +12,12 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    and spills (each flash kernel at head_dim 64 and 128, the paged
    kernels at each head dim and q rows a CUDA-core unit, the LayerNorm
    kernels at the layouts GPT-medium's and GPT-1.3B's widths take, the
-   selective scan at each tokens a thread; the other LayerNorm layouts
-   summed up on one line); a tensor-core kernel (a name with
-   "_tc_kernel"), a main-path LayerNorm layout or a main-path scan
-   kernel (the served steps', the full forward's) that spills fails the
-   run;
+   selective scan at each tokens a thread, the tree update at each
+   param type, state type, optimizer kind and rounding; the other
+   LayerNorm layouts summed up on one line); a tensor-core kernel (a
+   name with "_tc_kernel"), a main-path LayerNorm layout, a main-path
+   scan kernel (the served steps', the full forward's) or a main-path
+   tree-update variant (TREE_MAIN) that spills fails the run;
 3. the ragged paged-attention kernel against its plain PyTorch twin at
    serving shapes (16 heads, head_dim 64, page 16), in bfloat16 and
    float32: pure decode, a prefill chunk mixed with decode rows, pad
@@ -107,7 +108,8 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    profiled step. This main path must take the fused epilogue (kernels
    #9-#10, one launch of each per step), launch each flash kernel
    steps x 24 times and none of #5-#8. Then the same 14 steps with
-   fused_update=False from the same weights (the tree epilogue), and
+   fused_update=False from the same weights (the tree epilogue: one
+   tree-update launch a step, no standalone rounding), and
    the same 14 on the default epilogue with PADDLE_TPU_PALLAS_LN=1 and
    PADDLE_TPU_PALLAS_XENT=1 (this slice's main path: each LayerNorm
    kernel must launch steps x 49 times, 24 blocks x 2 and the final
@@ -124,7 +126,11 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    bf16-moment variant), the scheduler stepped after each step: loss
    falling, finite losses and health, #10 launches = steps x groups;
    device ms, epilogue ms and peak memory printed beside the f32-state
-   switched run's;
+   switched run's. Last, 5 steps on the switched route with
+   Adamax(1e-4), stochastic rounding and bf16 moments: an optimizer
+   without a fused mapping keeps its per-leaf code, whose downcasts
+   launch the standalone rounding kernel (K2) exactly steps x 3 x 292
+   times (each parameter and both moments), and no tree update;
 7b. GPT-1.3B (gpt_1p3b(), head_dim 128) at full width and depth
    (vocab 50304, hidden 2048, 24 layers, 16 heads; 1,313,722,368
    parameters with the tied head; max_position_embeddings 1024 as
@@ -147,10 +153,11 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    optimizer (bench.py:683-688): Momentum(1e-4, 0.9) with stochastic
    rounding and a bf16 velocity, no masters, both switches, plain
    cross_entropy: the tree path, 2 warm-up, 5 timed, 1 profiled step;
-   the loss falling and finite, the stochastic-rounding kernel (K2)
-   launched exactly steps x 2 x leaves times (every parameter and every
-   velocity, 292 leaves), no fused pass; ms/step, the rounding's device
-   ms in the profiled step and peak memory. Then its
+   the loss falling and finite, the tree update launched exactly once a
+   step (its 292 leaves in one group: bf16 params and velocities, no
+   masters), no standalone rounding launch and no fused pass; ms/step,
+   the tree update's and the epilogue's device ms in the profiled step,
+   its CUDA kernel launches and peak memory. Then its
    first 2 layers in float32 (hidden 2048, head_dim 128), 3 steps at
    batch 2 x 256 on the card (the CUDA-core flash kernels at head_dim
    128) and on the CPU (twins) from the same weights, on the same
@@ -178,11 +185,26 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    B), with and without a GradScaler, timed beside their byte bounds.
    Written buffers must equal the twin's bit for bit; sums agree to
    1e-4 relative;
-9b. the stochastic-rounding kernel (K2, float32 -> bf16 with threefry
-   bits) against its twin at GPT-1.3B's leaf sizes (wte, an MLP weight,
-   qkv, a bias) and odd ones (4099, 7, 1), two keys: bf16 bits equal;
-   at wte's size the kernel's time, the twin's and the bound (6 bytes
-   an element; no PyTorch call rounds stochastically);
+9b. the tree update against its twin at GPT-1.3B's 292 leaves
+   (1,313,722,368 bf16 parameters) on bench.py's optimizer (Momentum
+   0.9, bf16 velocity, stochastic rounding) at steps 1 and 2 and under
+   found_inf (every buffer as it was), and with rounding to nearest; at
+   GPT-medium's 292 leaves on phase 7's tree run's optimizer (AdamW,
+   f32 masters and moments): every written buffer bit-equal, the health
+   sums within 1e-4 relative, one launch a group. Times of the kernel,
+   the twin and a library call where one computes the same update
+   (nearest: torch._fused_sgd_ with bf16 momentum buffers; AdamW:
+   torch._fused_adamw_ over the f32 masters and f32 copies of the
+   grads; stochastic rounding: none), beside the bound (the larger of
+   the bytes at 3.35 TB/s and the operations: 76 32-bit integer
+   operations a stochastically rounded target at 33.5 T/s, the update's
+   float ones at 67 T/s); the SASS of the main variant (cuobjdump): its
+   instructions and the most common opcodes. Then the
+   stochastic-rounding kernel (K2, float32 -> bf16 with threefry bits)
+   against its twin at GPT-1.3B's leaf sizes (wte, an MLP weight, qkv, a
+   bias) and odd ones (4099, 7, 1), two keys: bf16 bits equal; at wte's
+   size the kernel's time, the twin's and the bound (6 bytes an element,
+   or its 76 integer operations; no PyTorch call rounds stochastically);
 10. 2-layer float32 steps with a GradScaler on the card, on each
    epilogue, with one batch whose loss is not finite: params and
    moments stay bit-equal, the scale halves, the next good step
@@ -242,14 +264,16 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    300-307): as phase 5's sampled streams;
 15. the smoke's run time and the kernels line (each flash kernel
    twice: head_dim 64 and, with the suffix "_d128", 128; #10's bf16
-   variant as "fused_pass2_bf16_state"; K2 as "stochastic_round"),
-   then, last, {"ok": true, "device": {...}}.
+   variant as "fused_pass2_bf16_state"; the tree update as
+   "tree_update"; K2 as "stochastic_round"), then, last, {"ok": true,
+   "device": {...}}.
 
 Each main path (GPT serving in phase 4's wave B, training in phase 7's
 first run for kernels #2-#4 and #9-#10, phase 7's third run for #5-#8,
-its fourth for #10's bf16 variant, GPT-1.3B training in phase 7b for
-#2-#4 at head_dim 128, its second run for K2, SSM serving in phase 13's
-wave B for #11) runs with the launch counts set to 0 just
+its fourth for #10's bf16 variant, its fifth for K2, GPT-1.3B training
+in phase 7b for #2-#4 at head_dim 128, its second run for the tree
+update, SSM serving in phase 13's wave B for #11) runs with the launch
+counts set to 0 just
 before it and read just after; a CUDA graph's replay adds the launches
 its capture recorded (the wrappers count launches, and a capture, which
 launches nothing, records them instead).
@@ -305,9 +329,11 @@ def card_line():
 
 
 # a template argument of a mangled kernel name: bf16, f32, a repeat of an
-# earlier type (in these kernels always bf16) or an int (a head dim, q
-# rows; in the LayerNorm kernels vectors a lane, warps a row, stages)
-_TEMPLATE_ARG = re.compile(r"13__nv_bfloat16|f|S\d*_|Li(\d+)E")
+# earlier type (in these kernels always bf16), an int (a head dim, q
+# rows; in the LayerNorm kernels vectors a lane, warps a row, stages; in
+# the tree update the optimizer kind) or a bool (the tree update's
+# stochastic rounding)
+_TEMPLATE_ARG = re.compile(r"13__nv_bfloat16|f|S\d*_|Li(\d+)E|Lb(\d)E")
 
 
 def kernel_label(ptxas_line):
@@ -326,11 +352,14 @@ def kernel_label(ptxas_line):
         return name
     args, at = [], end + 1
     ints = ("VPL", "WPR", "STAGES") if name.startswith("ln_") \
-        else ("L",) if name.startswith("ssm_") else ("D", "rows")
+        else ("L",) if name.startswith("ssm_") \
+        else ("KIND",) if name.startswith("tree_") else ("D", "rows")
     while (m := _TEMPLATE_ARG.match(mangled, at)):
         if m.group(1):  # the first int a head dim, the second q rows
             args.append(f"{ints[0]}={m.group(1)}")
             ints = ints[1:] or ints
+        elif m.group(2):
+            args.append(f"SR={m.group(2)}")
         else:
             args.append("f32" if m.group(0) == "f" else "bf16")
         at = m.end()
@@ -359,12 +388,19 @@ def scan_main_labels(sk):
         for T in (256, 4096)}
 
 
+# the tree-update variants the main paths launch: bench.py's GPT-1.3B
+# Momentum (bf16 params and velocity, stochastic rounding) and phase 7's
+# tree run (AdamW, bf16 params, f32 moments and masters)
+TREE_MAIN = {"tree_update_kernel<bf16, bf16, KIND=1, SR=1>",
+             "tree_update_kernel<bf16, f32, KIND=2, SR=0>"}
+
+
 def phase_registers(logs, ln_main, scan_main):
     """Each kernel's registers and spills from the build logs. A
     tensor-core kernel ("_tc_kernel"), a LayerNorm kernel of the main
-    paths (ln_main) or a selective-scan kernel of theirs (scan_main)
-    that spills fails the run; the other LayerNorm layouts are summed up
-    on one line."""
+    paths (ln_main), a selective-scan kernel of theirs (scan_main) or a
+    tree-update variant of theirs (TREE_MAIN) that spills fails the run;
+    the other LayerNorm layouts are summed up on one line."""
     seen, ln_other = set(), {}
     for lib, log in sorted(logs.items()):
         label, quiet = None, False
@@ -384,12 +420,13 @@ def phase_registers(logs, ln_main, scan_main):
                 # registers, the LayerNorm kernels a row, the scan its
                 # tokens' terms: a spill would put them in local memory
                 check(("_tc_kernel" not in (label or "")
-                       and label not in ln_main | scan_main)
+                       and label not in ln_main | scan_main | TREE_MAIN)
                       or "spill" not in line
                       or " 0 bytes spill stores, 0 bytes spill loads"
                       in line, f"{label} spills: {line.strip()}")
     check(ln_main <= seen, f"LayerNorm kernels not built: {ln_main - seen}")
     check(scan_main <= seen, f"scan kernels not built: {scan_main - seen}")
+    check(TREE_MAIN <= seen, f"tree kernels not built: {TREE_MAIN - seen}")
     regs = [int(m.group(1)) for lines in ln_other.values() for line in lines
             if (m := re.search(r"Used (\d+) registers", line))]
     spilling = sorted(k for k, lines in ln_other.items()
@@ -401,15 +438,16 @@ def phase_registers(logs, ln_main, scan_main):
           f"registers; spilling: {spilling or 'none'}")
 
 
-def cuda_ms(torch, fn, iters, flush, clean=False):
+def cuda_ms(torch, fn, iters, flush, clean=False, spin=2_000_000):
     """Mean device time of fn() in ms over iters calls, by CUDA events.
     Before each call the L2 is flushed (flush.zero_(), which leaves it
     full of dirty lines that fn's misses write back; with clean=True by
-    reading the buffer instead) and the card is parked on a ~1 ms spin,
-    so the host has enqueued the whole call before the start event
-    fires: the time excludes the host's launch cost, except where fn
-    itself waits on the device (the plain twin reads bounds to the
-    host)."""
+    reading the buffer instead) and the card is parked on a spin of
+    `spin` cycles (~1 ms by default; longer for a wrapper with more host
+    work a call), so the host has enqueued the whole call before the
+    start event fires: the time excludes the host's launch cost, except
+    where fn itself waits on the device (the plain twin reads bounds to
+    the host) or enqueues for longer than the spin."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -419,7 +457,7 @@ def cuda_ms(torch, fn, iters, flush, clean=False):
             flush.view(torch.int32).sum()
         else:
             flush.zero_()
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1440,6 +1478,8 @@ FLASH_REL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-2}
 TRAIN = dict(batch=8, seq=1024, lr=1e-4, warmup=3, timed=10)
 # GPT-1.3B's step: bench.py's batch (4 x 1024) and learning rate
 TRAIN_1P3B = dict(batch=4, seq=1024, lr=1e-4, warmup=2, timed=5)
+# phase 7's fifth run (K2's path): short, its per-leaf code is host-bound
+TRAIN_K2 = dict(batch=8, seq=1024, lr=1e-4, warmup=1, timed=3)
 GPT_1P3B_PARAMS = 1_313_722_368  # vocab 50304, 1024 positions, tied head
 # GPT-1.3B's loss at its last timed step as recorded before the LayerNorm kernels' row
 # layouts (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5): printed
@@ -1714,8 +1754,13 @@ XENT_KERNELS = (
     ("softmax_xent_bwd", "paddle_tpu/ops/pallas/softmax_xent.py:60"),
 )
 # K2 replaces no Pallas kernel: it computes the reference tree update's
-# stochastic-rounding downcast, `down()`, which XLA fuses there
+# stochastic-rounding downcast, `down()`, which XLA fuses there; since the
+# tree update's kernel (below) took the four fused kinds, the other six
+# optimizers' per-leaf code launches it
 SR_KERNEL = ("stochastic_round", "paddle_tpu/optimizer/optimizer.py:303")
+# nor does the tree update's kernel: it computes the reference tree
+# update's `upd()` with its `down()` for SGD, Momentum, Adam and AdamW
+TREE_KERNEL = ("tree_update", "paddle_tpu/optimizer/optimizer.py:317")
 SWITCHES = ("PADDLE_TPU_PALLAS_LN", "PADDLE_TPU_PALLAS_XENT")
 
 
@@ -1741,13 +1786,14 @@ def switches(on):
 
 def wrappers(km):
     """[(kernel name, its wrapper)] of every kernel but the paged one."""
-    fa, _, fk, lk, xk, sk, srk = km
+    fa, _, fk, lk, xk, sk, srk, tk = km
     return ([(n, getattr(fa, n)) for n, _ in FLASH_KERNELS]
             + [(n, getattr(fk, n)) for n, _ in FUSED_KERNELS]
             + [(n, getattr(lk, n)) for n, _ in NORM_KERNELS]
             + [(n, getattr(xk, n)) for n, _ in XENT_KERNELS]
             + [(SCAN_KERNEL[0], sk.ssm_scan),
-               (SR_KERNEL[0], srk.stochastic_round)])
+               (SR_KERNEL[0], srk.stochastic_round),
+               (TREE_KERNEL[0], tk.tree_update)])
 
 
 def counts(km):
@@ -1770,9 +1816,42 @@ def n_groups(step):
                                       step._opt_store).groups)
 
 
+def tree_launches(torch, tk, step):
+    """(tree-update launches, standalone rounding launches) that a step
+    of `step` (a TrainStep) makes: on the tree path one launch a leaf
+    group (tk.leaf_groups) for SGD, Momentum, Adam and AdamW; for the
+    other six optimizers under stochastic rounding one rounding launch a
+    bf16 parameter without a master and one a bf16 state leaf; else
+    none."""
+    if step._fused is not None:
+        return 0, 0
+    opt = step.optimizer
+    names = sorted(step.params)
+    params = [step.params[k] for k in names]
+    trees = [step._opt_store[k] for k in names]
+    inners = [t["state"] if isinstance(t, dict) else t for t in trees]
+    masters = [t["master"] if isinstance(t, dict) else None for t in trees]
+    if opt._fused_kind() is not None:
+        return len(tk.leaf_groups(params, inners, masters)), 0
+    if not opt._stochastic_rounding:
+        return 0, 0
+    bf16 = torch.bfloat16
+    return 0, sum(int(p.dtype == bf16 and m is None)
+                  + sum(t.dtype == bf16 for t in inner)
+                  for p, inner, m in zip(params, inners, masters))
+
+
+def one_tree_launch(run):
+    """A tree run of one launch group (all leaves bf16 with one state
+    dtype and masters on all or none, as PERF.md counts it): one
+    tree-update launch a step and no standalone rounding launch."""
+    check((run["tree_per_step"], run["k2_per_step"]) == (1, 0),
+          f"{run['label']}: {run['tree_per_step']} tree-update and "
+          f"{run['k2_per_step']} rounding launches a step, want 1 and 0")
+
+
 def train_run(torch, km, tmods, state, fused, switched=False,
-              capture=None, cfg=None, run=TRAIN, name="", opt=None,
-              sr=False):
+              capture=None, cfg=None, run=TRAIN, name="", opt=None):
     """A GPT (GPT-medium, or `cfg`) at full width in bf16, AdamW(lr=1e-4,
     multi_precision) with f32 masters (or `opt(parameters)`'s optimizer;
     a scheduler as its lr is stepped after each step),
@@ -1784,21 +1863,22 @@ def train_run(torch, km, tmods, state, fused, switched=False,
     fused mapping: then the tree path); fused=False passes
     fused_update=False. switched sets PADDLE_TPU_PALLAS_LN=1 and
     PADDLE_TPU_PALLAS_XENT=1 for the run (the LayerNorm and xent
-    kernels), else both are unset. sr: the optimizer rounds
-    stochastically on the tree path, so the rounding kernel must launch
-    twice a parameter a step (parameter and velocity), else never. The
-    launch counts are set to 0 just
+    kernels), else both are unset. On the tree path the tree update must
+    launch once a leaf group a step for SGD, Momentum, Adam and AdamW, and
+    the standalone rounding kernel once a bf16 target a step for the
+    other six under stochastic rounding (tree_launches); neither
+    otherwise. The launch counts are set to 0 just
     before the run. With `capture` (a dict), the first warm-up step's
     flash backward inputs of layer 0 are kept there, on the host
     (capture_flash_bwd). `name` prefixes the printed label. Returns the
     run's measurements."""
     with switches(switched):
         return _train_run(torch, km, tmods, state, fused, switched, capture,
-                          cfg or tmods[1](), run, name, opt, sr)
+                          cfg or tmods[1](), run, name, opt)
 
 
 def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
-               name, make_opt, sr):
+               name, make_opt):
     from torch.autograd import DeviceType
     from paddle_tpu_torch.jit.api import HEALTH_KEYS
     from paddle_tpu_torch.optimizer.lr import LRScheduler
@@ -1829,6 +1909,7 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
           f"{label}: TrainStep took the {'fused' if step._fused else 'tree'}"
           " epilogue")
     groups = n_groups(step) if want_fused else 0
+    tree_per_step, k2_per_step = tree_launches(torch, km[7], step)
     n_leaves = len(step.params)
     losses = []
 
@@ -1888,10 +1969,11 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
     check(launches["ragged_paged_attention"] == 0
           and launches["ssm_scan"] == 0,
           f"{label}: a serving kernel ran in training")
-    want = n_steps * 2 * n_leaves * sr
-    check(launches[SR_KERNEL[0]] == want,
-          f"{label}: {SR_KERNEL[0]}: {launches[SR_KERNEL[0]]} launches, want "
-          f"{want} ({n_steps} steps x 2 x {n_leaves} leaves x sr {sr})")
+    for name, per_step in ((TREE_KERNEL[0], tree_per_step),
+                           (SR_KERNEL[0], k2_per_step)):
+        check(launches[name] == n_steps * per_step,
+              f"{label}: {name}: {launches[name]} launches, want "
+              f"{n_steps} steps x {per_step}")
     check(all(p.dtype == torch.bfloat16 for p in step.params.values()),
           f"{label}: a parameter left bfloat16")
     tokens = B * T
@@ -1908,7 +1990,8 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
                kernels=n_kernels, device_ops=len(ops),
                epilogue_ms=epi_us / 1e3 if epi_us else None,
                launches=launches, groups=groups, first=first, last=last,
-               leaves=n_leaves)
+               leaves=n_leaves, tree_per_step=tree_per_step,
+               k2_per_step=k2_per_step)
     print(f"  {label}: {n_params} parameters; {n_steps} steps, loss "
           f"{first:.4f} -> {last:.4f} (last health {health})")
     print(f"  {label}: {res['ms']:.1f} ms/step over {run['timed']} steps "
@@ -1919,8 +2002,9 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
           f"the model's weights included)")
     print(f"  {label}: launches per kernel {launches} ({n_steps} steps x "
           f"{cfg.num_layers} layers; fused passes x {groups} groups; "
-          f"LayerNorm x {n_ln}, xent x 1 when switched; stochastic "
-          f"rounding x 2 x {n_leaves} leaves when on)")
+          f"LayerNorm x {n_ln}, xent x 1 when switched; tree update x "
+          f"{tree_per_step}, standalone stochastic rounding x "
+          f"{k2_per_step}; {n_leaves} leaves)")
     print(f"  {label}: profiled step: {n_kernels} CUDA kernel launches "
           f"({len(ops)} device operations with copies and memsets); "
           f"epilogue device time "
@@ -1966,7 +2050,8 @@ def train_time_goes(prof, wall_s):
     parts = {k: sum(v for n, v in by_name.items() if k in n) / 1e3
              for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_pass",
                        "fused_finalize", "ln_fwd", "ln_bwd", "ln_finalize",
-                       "xent_fwd", "xent_bwd", "stochastic_round")}
+                       "xent_fwd", "xent_bwd", "stochastic_round",
+                       "tree_update")}
     gemm = sum(v for n, v in by_name.items()
                if any(s in n.lower() for s in ("gemm", "xmma", "cutlass",
                                                 "nvjet", "sm90"))) / 1e3
@@ -1992,6 +2077,20 @@ CUDA_CORE_FWD_LAST_LOSS = {"fused": 6.7733, "tree": 6.7733,
 LAST_LOSS_TOL = 0.01
 
 
+def adamax_sr_bf16(torch):
+    """Phase 7's fifth run's optimizer: Adamax(1e-4) with stochastic
+    rounding and bf16 moments, no masters (the tree path's per-leaf code
+    and the standalone rounding kernel: params and both moments)."""
+    from paddle_tpu_torch.optimizer import Adamax
+
+    def make(parameters):
+        opt = Adamax(learning_rate=1e-4, parameters=parameters)
+        opt._stochastic_rounding = True
+        opt._state_dtype = torch.bfloat16
+        return opt
+    return make
+
+
 def scheduled_bf16_adamw(torch, AdamW):
     """The fourth GPT-medium run's optimizer: AdamW with f32 masters,
     bf16 moments (`_state_dtype`, kernel #10's bf16 variant) and a
@@ -2015,13 +2114,24 @@ def phase_train(torch, km, tmods, state, capture):
     first run's first step captures layer 0's flash backward inputs into
     `capture`. Then the switched route again with a scheduled AdamW whose
     moments are bf16 (PR 13's main path for kernel #10's bf16 variant).
-    Returns the four runs' measurements."""
+    Then a short run of the switched route with Adamax, stochastic
+    rounding and bf16 moments: an optimizer without a fused mapping, whose
+    per-leaf code rounds with the standalone kernel (K2's main path since
+    the four fused kinds took the tree update). Returns the five runs'
+    measurements."""
     main = train_run(torch, km, tmods, state, fused=True, capture=capture)
     tree = train_run(torch, km, tmods, state, fused=False)
+    one_tree_launch(tree)
     ln_xent = train_run(torch, km, tmods, state, fused=True, switched=True)
     bf16_state = train_run(torch, km, tmods, state, fused=True,
                            switched=True, name="bf16 state, scheduled, ",
                            opt=scheduled_bf16_adamw(torch, tmods[4]))
+    adamax_sr = train_run(torch, km, tmods, state, fused=True, switched=True,
+                          name="Adamax + SR + bf16 state, ", run=TRAIN_K2,
+                          opt=adamax_sr_bf16(torch))
+    check(adamax_sr["k2_per_step"] == 3 * adamax_sr["leaves"],
+          f"Adamax + SR: {adamax_sr['k2_per_step']} rounding launches a "
+          f"step, want 3 x {adamax_sr['leaves']} leaves")
     rel = abs(ln_xent["first"] - main["first"]) / abs(main["first"])
     print(f"  step-1 loss: switched {ln_xent['first']:.6f}, default "
           f"{main['first']:.6f}, relative difference {rel:.3g} (limit "
@@ -2038,6 +2148,7 @@ def phase_train(torch, km, tmods, state, capture):
               f"{name}: step-13 loss {r['last']} is more than "
               f"{LAST_LOSS_TOL} from {CUDA_CORE_FWD_LAST_LOSS[name]}")
     runs["bf16-state"] = bf16_state
+    runs["adamax-sr"] = adamax_sr
     for key in ("ms", "tokens_s", "mfu", "device_ms", "idle", "peak_gib",
                 "epilogue_ms", "kernels", "other_ms"):
         print(f"  {key:12s} " + "  ".join(
@@ -2050,7 +2161,7 @@ def phase_train(torch, km, tmods, state, capture):
           f"{bf16_state['device_ms']} ms vs {ln_xent['device_ms']} ms, peak "
           f"{bf16_state['peak_gib']:.2f} GiB vs {ln_xent['peak_gib']:.2f} "
           f"GiB; loss {bf16_state['first']:.4f} -> {bf16_state['last']:.4f}")
-    return main, tree, ln_xent, bf16_state
+    return main, tree, ln_xent, bf16_state, adamax_sr
 
 
 ALL_ROUTES = ((True, False), (False, False), (True, True))
@@ -2312,17 +2423,20 @@ def phase_train_1p3b(torch, km, tmods, gpt_1p3b):
     print(f"  GPT-1.3B loss at the last timed step {res['last']:.4f} "
           f"(recorded: {GPT_1P3B_RECORDED_LAST_LOSS:.4f})")
     # bench.py's own 1.3B optimizer (bench.py:683-688): Momentum, a bf16
-    # velocity, stochastic rounding (kernel K2), no masters: the tree
-    # path, from the same weights (the AdamW run's state is freed)
+    # velocity, stochastic rounding, no masters: the tree path (one
+    # tree-update launch a step), from the same weights (the AdamW run's
+    # state is freed)
     sr = train_run(torch, km, tmods, state, fused=True, switched=True,
                    cfg=cfg, run=TRAIN_1P3B,
                    name="GPT-1.3B, bench.py's Momentum + SR + bf16 state, ",
-                   opt=bench_momentum(torch), sr=True)
+                   opt=bench_momentum(torch))
+    one_tree_launch(sr)
     print(f"  GPT-1.3B bench optimizer: {sr['ms']:.1f} ms/step (AdamW fused: "
           f"{res['ms']:.1f}), device {sr['device_ms']} ms (AdamW "
-          f"{res['device_ms']}), stochastic rounding "
-          f"{sr['parts_ms'].get('stochastic_round')} ms and the tree "
-          f"epilogue {sr['epilogue_ms']} ms in the profiled step, peak "
+          f"{res['device_ms']}), the tree update "
+          f"{sr['parts_ms'].get('tree_update')} ms and the tree "
+          f"epilogue {sr['epilogue_ms']} ms in the profiled step "
+          f"({sr['kernels']} CUDA kernel launches), peak "
           f"{sr['peak_gib']:.2f} GiB (AdamW {res['peak_gib']:.2f}); loss "
           f"{sr['first']:.4f} -> {sr['last']:.4f}")
     small = first_layers(state, AGREE["layers"])
@@ -2624,11 +2738,16 @@ def phase_fused(torch, fk, fu, omods, tmods, flush):
 
 # -- the stochastic-rounding kernel (K2) against its twin --------------------
 
-# one element's integer operations: threefry2x32's 20 rounds (an add, a
-# rotate as a funnel shift and a xor each), 5 key injections (4 adds), the
-# key schedule, the count words, the xor of the two outputs, the mask, the
-# add and the truncation: ~100, counted at the CUDA cores' float32 rate
-SR_OPS_PER_ELEMENT = 100
+# one stochastically rounded element's 32-bit integer operations:
+# threefry2x32's 20 rounds (an add, a rotate and a xor each) and its 12
+# adds of the count and the 5 key injections (72), the xor of the two
+# output words, the mask, the add and the truncation (4)
+SR_OPS_PER_ELEMENT = 76
+# the card's rate for them: 64 lanes an SM a clock on the integer pipe
+# (shifts, logic, adds) and 64 on the multiply-add pipe (integer
+# multiply-adds, which also add), 128 in all: the lanes of the float32
+# rate of PEAK_FLOPS, whose FMA counts as two operations, so half of it
+INT32_OPS_PER_S = PEAK_FLOPS["torch.float32"] / 2
 # GPT-1.3B's leaves by size: wte (50304 x 2048, tied), an MLP weight
 # (2048 x 8192), the qkv weight (2048 x 6144), a bias; and odd sizes
 SR_SIZES = (103_022_592, 16_777_216, 12_582_912, 2048, 4099, 7, 1)
@@ -2637,9 +2756,10 @@ SR_KEYS = ((0, 0x5bd1e995), (2297781694, 1477100869))
 
 def phase_stochastic_round(torch, srk, flush):
     """Kernel K2 against its twin at GPT-1.3B's leaf sizes and odd ones,
-    over two keys: the bf16 bits equal. Times at wte's size (the largest
-    call of phase 7b's second run): kernel, twin, bound (6 bytes an
-    element, or the integer operations at 67 T/s: the larger). No
+    over two keys: the bf16 bits equal. Times at GPT-1.3B's wte size (its
+    largest leaf): kernel, twin, bound (6 bytes an
+    element, or its SR_OPS_PER_ELEMENT integer operations at
+    INT32_OPS_PER_S: the larger). No
     PyTorch call rounds stochastically: library none. Returns the
     kernels line's fields."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -2660,8 +2780,7 @@ def phase_stochastic_round(torch, srk, flush):
             plain = cuda_ms(torch, lambda: srk.stochastic_round_reference(
                 x, SR_KEYS[0]), 3, flush)
             by_bytes = n * 6 / HBM_BYTES_PER_S * 1e3
-            by_ops = n * SR_OPS_PER_ELEMENT / PEAK_FLOPS["torch.float32"] \
-                * 1e3
+            by_ops = n * SR_OPS_PER_ELEMENT / INT32_OPS_PER_S * 1e3
             bound = max(by_bytes, by_ops)
             bound_by = "bytes" if by_bytes >= by_ops else "operations"
             print(f"  n={n}: kernel {ms:.4f}ms plain {plain:.4f}ms bound "
@@ -2674,6 +2793,250 @@ def phase_stochastic_round(torch, srk, flush):
     torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by,
                 library_ms=None, max_abs_err=0.0)
+
+
+# -- the tree update against its twin -----------------------------------------
+
+# float operations an element of each kind's update (decay included),
+# beside SR_OPS_PER_ELEMENT integer operations for each threefry hash
+TREE_FLOPS = {"sgd": 3, "momentum": 5, "adam": 13}
+TREE_SUM_RTOL = 1e-4  # the health sums, as the fused passes'
+TREE_SPIN = 40_000_000  # ~20 ms: the wrapper's host work a call (keys, table)
+
+
+def tree_leaves(torch, named, opt, seed):
+    """(params, grads, states, masters) lists in sorted name order for
+    the leaves `named` [(name, shape)] in bf16 on the card under `opt`'s
+    init_leaf_state: params ~ N(0, 0.02), grads ~ N(0, 1e-3), states
+    ~ N(0, 1e-3) (the second squared), from a seeded generator."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params, grads, states, masters = [], [], [], []
+    for name, shape in sorted(named):
+        p = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(
+            torch.bfloat16)
+        tree = opt.init_leaf_state(p)
+        inner = tree["state"] if isinstance(tree, dict) else tree
+        for j, t in enumerate(inner):
+            t.copy_(torch.randn(shape, generator=gen, device="cuda") * 1e-3)
+            if j:
+                t.square_()
+        params.append(p)
+        grads.append((torch.randn(shape, generator=gen, device="cuda")
+                      * 1e-3).to(torch.bfloat16))
+        states.append(tuple(inner))
+        masters.append(tree["master"] if isinstance(tree, dict) else None)
+    return params, grads, states, masters
+
+
+def clone_leaves(leaves):
+    params, grads, states, masters = leaves
+    return ([t.clone() for t in params], grads,
+            [tuple(t.clone() for t in inner) for inner in states],
+            [None if m is None else m.clone() for m in masters])
+
+
+def leaf_buffers(leaves):
+    params, _, states, masters = leaves
+    out = [(f"param {i}", t) for i, t in enumerate(params)]
+    out += [(f"state{j} {i}", t) for i, inner in enumerate(states)
+            for j, t in enumerate(inner)]
+    return out + [(f"master {i}", t) for i, t in enumerate(masters)
+                  if t is not None]
+
+
+def tree_bound(tk, leaves, opt):
+    """(bound ms, by, bytes ms, operations ms, bytes) of one tree update
+    by `opt`: each param, state and master read and written once, each
+    grad read once; or SR_OPS_PER_ELEMENT integer operations a
+    stochastically rounded bf16 target at INT32_OPS_PER_S and the
+    update's float operations at the float32 rate (the larger of the
+    two: they issue to different lanes)."""
+    params, grads, states, masters = leaves
+    spec = tk.tree_spec(opt)
+    nbytes = int_ops = flops = 0
+    kind = "adam" if spec["kind"] == "adamw" else spec["kind"]
+    for p, g, inner, m in zip(params, grads, states, masters):
+        n = p.numel()
+        nbytes += g.numel() * g.element_size() + 2 * sum(
+            t.numel() * t.element_size() for t in (p, *inner, m)
+            if t is not None)
+        bf16 = [t for t in (p if m is None else None, *inner)
+                if t is not None and str(t.dtype) == "torch.bfloat16"]
+        hashes = len(bf16) if spec["sr"] else 0
+        int_ops += n * hashes * SR_OPS_PER_ELEMENT
+        flops += n * TREE_FLOPS[kind]
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = max(int_ops / INT32_OPS_PER_S,
+                 flops / PEAK_FLOPS["torch.float32"]) * 1e3
+    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops
+            else "operations", by_bytes, by_ops, nbytes)
+
+
+def hold_tree(torch, tk, label, leaves, opt, lr, step, found=None):
+    """The tree update by `opt` through the kernel on `leaves` and by the
+    twin on a copy: written buffers bit-equal, the sums within TREE_SUM_RTOL; with
+    found set, every buffer as it was. Returns the sums' relative
+    difference."""
+    twin = clone_leaves(leaves)
+    was = clone_leaves(leaves) if found is not None else None
+    flag = None if found is None else torch.tensor(found, device="cuda")
+    before = tk.tree_update.launches
+    got = tk.tree_update(opt, *leaves, lr, step, flag, with_stats=True)
+    launched = tk.tree_update.launches - before
+    want = tk.tree_update_reference(opt, *twin, lr, step, flag,
+                                    with_stats=True)
+    torch.cuda.synchronize()
+    groups = len(tk.leaf_groups(leaves[0], leaves[2], leaves[3]))
+    check(launched == groups, f"{label}: {launched} launches, want {groups}")
+    for (name, a), (_, b) in zip(leaf_buffers(leaves), leaf_buffers(twin)):
+        check(torch.equal(a, b), f"{label}: {name} differs from the twin")
+    if found:
+        for (name, a), (_, b) in zip(leaf_buffers(leaves), leaf_buffers(was)):
+            check(torch.equal(a, b), f"{label}: {name} changed under "
+                                     "found_inf")
+    rel = torch.where(got == want, torch.zeros_like(got), (
+        got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+    check(rel <= TREE_SUM_RTOL, f"{label}: sums {got.tolist()} vs twin "
+                                f"{want.tolist()} (rel {rel})")
+    print(f"  {label:58s} bit-equal; sums {got.tolist()} (rel {rel:.2g}); "
+          f"{launched} launch(es)", flush=True)
+    del twin, was
+    return rel
+
+
+def time_tree(torch, tk, label, leaves, opt, lr, flush, library=None):
+    """Kernel, twin and library times (`library`: a callable, or None) of
+    the tree update by `opt` at step 3, with its bound. Returns the
+    kernels line's fields."""
+    twin = clone_leaves(leaves)
+    ms = cuda_ms(torch, lambda: tk.tree_update(opt, *leaves, lr, 3,
+                                               with_stats=True), 10, flush,
+                 spin=TREE_SPIN)
+    plain = cuda_ms(torch, lambda: tk.tree_update_reference(
+        opt, *twin, lr, 3, with_stats=True), 3, flush, spin=TREE_SPIN)
+    lib = None
+    if library is not None:
+        try:
+            lib = cuda_ms(torch, library, 10, flush)
+        except (RuntimeError, TypeError) as e:  # no usable library call
+            print(f"  {label}: library call unavailable: {e}")
+    bound, by, by_bytes, by_ops, nbytes = tree_bound(tk, leaves, opt)
+    n = sum(p.numel() for p in leaves[0])
+    print(f"  {label}: kernel {ms:.4f}ms plain {plain:.4f}ms library "
+          f"{'none' if lib is None else f'{lib:.4f}ms'} bound {bound:.4f}ms "
+          f"({by}; bytes {by_bytes:.4f}: {nbytes / 1e9:.3f} GB, "
+          f"{nbytes / n:.1f} B/param; operations {by_ops:.4f}) "
+          f"bound/kernel {bound / ms:.3f}", flush=True)
+    del twin
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                bound_by=by, max_abs_err=0.0)
+
+
+def sass_counts(path, label):
+    """The SASS opcodes, in order, of the kernel `label` (a kernel_label)
+    in the library at `path` (cuobjdump -sass), NOPs left out."""
+    from paddle_tpu_torch.ops.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    ops, inside = [], False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel_label(f"'{line.split(':', 1)[1].strip()}'") \
+                == label
+        elif inside and (m := re.search(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                line)):
+            if m.group(1) != "NOP":
+                ops.append(m.group(1))
+    return ops
+
+
+def phase_tree_update(torch, tk, tmods, gpt_1p3b, flush):
+    """The tree update against its twin at GPT-1.3B's full leaf list on
+    bench.py's optimizer (Momentum, bf16 velocity, stochastic rounding;
+    also under found_inf, at two steps) and with rounding to nearest (the
+    library yardstick: torch._fused_sgd_ with momentum buffers), and at
+    GPT-medium's leaf list on phase 7's tree run's optimizer (AdamW with
+    f32 masters and moments; the yardstick torch._fused_adamw_ over f32
+    masters and f32 copies of the grads). Times, bounds, and the SASS of
+    the main variant. Returns the kernels line's fields (GPT-1.3B, bench
+    optimizer)."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW, Momentum
+    GPTForCausalLM, gpt_medium = tmods[0], tmods[1]
+    named = {}
+    big = gpt_1p3b()
+    big.max_position_embeddings = TRAIN_1P3B["seq"]
+    for cfg_name, cfg in (("1.3B", big), ("medium", gpt_medium())):
+        model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+        named[cfg_name] = [(k, tuple(p.shape))
+                           for k, p in model.named_parameters()]
+        del model
+        torch.cuda.empty_cache()
+    n13 = sum(int(np.prod(s)) for _, s in named["1.3B"])
+    check(n13 == GPT_1P3B_PARAMS and len(named["1.3B"]) == 292,
+          f"GPT-1.3B leaf list: {len(named['1.3B'])} leaves, {n13} "
+          "parameters")
+    lr = float(np.float32(1e-4))
+    bench = Momentum(learning_rate=lr, momentum=0.9)
+    bench._stochastic_rounding = True
+    bench._state_dtype = torch.bfloat16
+    leaves = tree_leaves(torch, named["1.3B"], bench, SEED + 13)
+    label = "GPT-1.3B, Momentum + SR + bf16 velocity"
+    hold_tree(torch, tk, label + ", step 1", leaves, bench, lr, 1)
+    hold_tree(torch, tk, label + ", step 2", leaves, bench, lr, 2)
+    hold_tree(torch, tk, label + ", found_inf", leaves, bench, lr, 3,
+              found=True)
+    main = time_tree(torch, tk, label + " (main path)", leaves, bench, lr,
+                     flush)
+    rne = Momentum(learning_rate=lr, momentum=0.9)
+    rne._state_dtype = torch.bfloat16
+    hold_tree(torch, tk, "GPT-1.3B, Momentum + bf16 velocity, nearest",
+              leaves, rne, lr, 4)
+    ps, gs, sts, _ = leaves
+    bufs = [inner[0] for inner in sts]
+    time_tree(torch, tk, "GPT-1.3B, Momentum + bf16 velocity, nearest",
+              leaves, rne, lr, flush, library=lambda: torch._fused_sgd_(
+                  ps, gs, bufs, weight_decay=0.0, momentum=0.9, lr=lr,
+                  dampening=0.0, nesterov=False, maximize=False,
+                  is_first_step=False))
+    del leaves, ps, gs, sts, bufs
+    torch.cuda.empty_cache()
+    adamw = AdamW(learning_rate=lr, multi_precision=True)
+    leaves = tree_leaves(torch, named["medium"], adamw, SEED + 14)
+    hold_tree(torch, tk, "GPT-medium, AdamW + f32 masters (phase 7 tree)",
+              leaves, adamw, lr, 1)
+    ws = leaves[3]
+    g32 = [g.float() for g in leaves[1]]
+    ms_, vs = ([inner[j] for inner in leaves[2]] for j in (0, 1))
+    steps = [torch.zeros((), device="cuda") for _ in ws]
+    time_tree(torch, tk, "GPT-medium, AdamW + f32 masters", leaves, adamw,
+              lr, flush, library=lambda: torch._fused_adamw_(
+                  ws, g32, ms_, vs, [], steps, lr=lr, beta1=0.9, beta2=0.999,
+                  weight_decay=0.01, eps=1e-8, amsgrad=False,
+                  maximize=False))
+    del leaves, ws, g32, ms_, vs
+    torch.cuda.empty_cache()
+    label = "tree_update_kernel<bf16, bf16, KIND=1, SR=1>"
+    ops = sass_counts(_build.library_path("tree_update"), label)
+    check(ops, f"no SASS found for {label}")
+    # the arithmetic of a thread's tile lies between its first and last
+    # rotation; loads, stores, the leaf search and the sums lie outside
+    rot = [i for i, op in enumerate(ops) if op.startswith("SHF.L.W")]
+    body = ops[rot[0]:rot[-1] + 1]
+    per = tk.VEC * tk.VECS
+    hist = {}
+    for op in body:
+        hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
+    print(f"  SASS of {label}: {len(ops)} instructions in all; its "
+          f"arithmetic (first to last rotation) {len(body)}, "
+          f"{len(body) / per:.1f} an element ({per} a thread a tile, "
+          f"{len(rot) // per} rotations an element): " + ", ".join(
+              f"{k} {v}" for k, v in sorted(hist.items(),
+                                            key=lambda kv: -kv[1])[:10]),
+          flush=True)
+    return main
 
 
 def phase_scaler(torch, km, tmods, state):
@@ -3306,6 +3669,7 @@ def main():
     from paddle_tpu_torch.ops.kernels import softmax_xent as xk
     from paddle_tpu_torch.ops.kernels import ssm_scan as sk
     from paddle_tpu_torch.ops.kernels import stochastic_round as srk
+    from paddle_tpu_torch.ops.kernels import tree_update as tk
     from paddle_tpu_torch.models import SSMConfig, SSMForCausalLM
     from paddle_tpu_torch.models import ssm as ssm_mod
     from paddle_tpu_torch.optimizer import SGD, AdamW, Momentum
@@ -3315,7 +3679,7 @@ def main():
              AdamW, F)
     smods = (GenerationEngine, SSMConfig, SSMForCausalLM,
              load_paddle_tpu_state, ssm_mod)
-    km = (fa, pa, fk, lk, xk, sk, srk)
+    km = (fa, pa, fk, lk, xk, sk, srk, tk)
     t_start = time.perf_counter()
     card = card_line()
     print(f"[1] card: {card}", flush=True)
@@ -3357,7 +3721,7 @@ def main():
           "epilogue, fused_update=False, then the default epilogue with "
           "PADDLE_TPU_PALLAS_LN=1 and PADDLE_TPU_PALLAS_XENT=1", flush=True)
     captured = {}
-    train_main, _, train_switched, train_bf16_state = phase_train(
+    train_main, _, train_switched, train_bf16_state, train_k2 = phase_train(
         torch, km, tmods, state, captured)
     print("[6] (cont.) flash forward, dQ and dK/dV: kernels vs plain twins "
           "on layer 0's inputs of the first phase-7 training step",
@@ -3383,7 +3747,9 @@ def main():
     fused_main = phase_fused(torch, fk, fu, (SGD, Momentum, AdamW), tmods,
                              flush)
 
-    print("[9b] stochastic rounding (K2): kernel vs plain twin", flush=True)
+    print("[9b] the tree update and stochastic rounding (K2): kernels vs "
+          "plain twins", flush=True)
+    tree_main = phase_tree_update(torch, tk, tmods, gpt_1p3b, flush)
     sr_main = phase_stochastic_round(torch, srk, flush)
 
     print("[10] GradScaler on the card: a non-finite step is skipped (in "
@@ -3447,14 +3813,17 @@ def main():
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     # kernel #10's bf16-moment variant (launches: phase 7's scheduled
-    # bf16-state run) and K2 (launches: phase 7b's bench-optimizer run)
+    # bf16-state run), the tree update (launches: phase 7b's
+    # bench-optimizer run) and K2 (launches: phase 7's Adamax run)
     for name, source, replaces, meas, launches in (
             ("fused_pass2_bf16_state", "paddle_tpu_torch/csrc/fused_update.cu",
              FUSED_KERNELS[1][1], fused_main["fused_pass2_bf16_state"],
              train_bf16_state["launches"]["fused_pass2"]),
+            (TREE_KERNEL[0], "paddle_tpu_torch/csrc/tree_update.cu",
+             TREE_KERNEL[1], tree_main,
+             train_1p3b_sr["launches"][TREE_KERNEL[0]]),
             (SR_KERNEL[0], "paddle_tpu_torch/csrc/stochastic_round.cu",
-             SR_KERNEL[1], sr_main,
-             train_1p3b_sr["launches"][SR_KERNEL[0]])):
+             SR_KERNEL[1], sr_main, train_k2["launches"][SR_KERNEL[0]])):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3488,9 +3857,12 @@ def main():
           f"launches of #5-#8 from the switched training run; "
           f"fused_pass2_bf16_state: #10 with bf16 moments on GPT-medium's "
           f"layout (AdamW, f32 masters; library: none), launches from the "
-          f"scheduled bf16-state run; stochastic_round (K2): GPT-1.3B's wte "
-          f"(103,022,592 elements; library: none), launches from the "
-          f"bench-optimizer GPT-1.3B run; scan times of "
+          f"scheduled bf16-state run; tree_update: GPT-1.3B's 292 leaves on "
+          f"bench.py's optimizer (Momentum, bf16 velocity, stochastic "
+          f"rounding; library: none), launches from the bench-optimizer "
+          f"GPT-1.3B run; stochastic_round (K2): GPT-1.3B's wte "
+          f"(103,022,592 elements; library: none), launches from phase 7's "
+          f"Adamax + SR run; scan times of "
           f"the served SSM decode step's layer-0 call (library: none, no "
           f"single PyTorch call computes a selective scan); card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 
 Counterpart: paddle_tpu/jit/api.py `TrainStep` with its two epilogues,
 `epilogue_leaf_meta`, and the training-health vector
-(`HealthMonitorMixin._health_vec` / `_tree_health_aux`). One call runs
+(`HealthMonitorMixin._health_vec` / `_tree_health_aux`, whose sums the
+tree update returns here). One call runs
 one optimizer step: forward in training mode, `loss_fn(logits,
 labels)` (times the GradScaler's scale when one is live), backward, then
 the epilogue:
@@ -15,7 +16,9 @@ the epilogue:
 - tree (`fused_update=False`, PADDLE_TPU_FUSED_UPDATE=0, or a config
   without a fused mapping): the GradScaler's unscale, the global grad
   norm (once, when the health vector or a `ClipGradByGlobalNorm` needs
-  it), the clip, and the optimizer's in-place per-leaf update.
+  it), the clip, and the optimizer's in-place tree update, which also
+  returns the health vector's sums (for SGD, Momentum, Adam and AdamW
+  one kernel launch on CUDA; ops/kernels/tree_update.py).
 
 The reference compiles the step with XLA and donates params and
 optimizer state; PyTorch runs it eagerly and the update is written in
@@ -29,7 +32,7 @@ import os
 import numpy as np
 import torch
 
-from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByValue, _sumsq,
+from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByValue,
                        clip_grads_tree, global_grad_norm)
 
 __all__ = ["TrainStep", "epilogue_leaf_meta"]
@@ -302,16 +305,14 @@ class TrainStep:
             gn = global_grad_norm(grads, self._need_clip)
         grads = clip_grads_tree(grads, clip, need_clip=self._need_clip,
                                 global_norm=gn)
-        params = self.params
-        old = {k: p.clone() for k, p in params.items()} \
-            if self.monitor_health else None
-        self.optimizer.apply_gradients_tree(
-            params, grads, self._opt_store, lr, self._step_i,
+        sums = self.optimizer.apply_gradients_tree(
+            self.params, grads, self._opt_store, lr, self._step_i,
             found_inf=found_inf, decay_mask=self._decay_mask,
-            lr_scale=self._lr_scale)
+            lr_scale=self._lr_scale, with_stats=self.monitor_health)
         aux = {"grad_norm": gn, "found_inf": found_inf}
         if self.monitor_health:
-            self._tree_health_aux(aux, params, old)
+            # the update's own sums of the new params and of their change
+            aux["param_sumsq"], aux["update_sumsq"] = sums[0], sums[1]
             nonfin = ~torch.isfinite(gn)
             if self._need_clip is not None:
                 # leaves kept out of the norm must still trip found_inf
@@ -319,15 +320,6 @@ class TrainStep:
                     if not self._need_clip[k]:
                         nonfin = nonfin | ~torch.isfinite(g.float()).all()
             aux["nonfinite"] = nonfin
-        return aux
-
-    @staticmethod
-    def _tree_health_aux(aux, new_params, old):
-        """The health sums of a tree-layout update (the fused kernels
-        produce them as side outputs instead)."""
-        aux["param_sumsq"] = _sumsq(new_params.values())
-        aux["update_sumsq"] = _sumsq(new_params[k].float() - old[k].float()
-                                     for k in new_params)
         return aux
 
     @staticmethod

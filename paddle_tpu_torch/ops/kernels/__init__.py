@@ -11,6 +11,16 @@ import torch
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def sqrt_rn(x):
+    """sqrt of x: for float32, correctly rounded on every device, as the
+    kernels' __fsqrt_rn and the reference's: through float64, exact for
+    float32 inputs (torch's CPU float32 sqrt is off by an ulp on ~0.6 %
+    of inputs); torch's sqrt for other dtypes. The twins and Adam's
+    update take their sqrt here."""
+    return x.double().sqrt().float() if x.dtype == torch.float32 \
+        else x.sqrt()
+
+
 def work_dtype(dtype):
     """The twins' working dtype: float32 sums, or float64 when the inputs
     are (gradcheck)."""

@@ -36,7 +36,8 @@ SOURCES = {"paged_attention": "paged_attention.cu",
            "layer_norm": "layer_norm.cu",
            "softmax_xent": "softmax_xent.cu",
            "ssm_scan": "ssm_scan.cu",
-           "stochastic_round": "stochastic_round.cu"}
+           "stochastic_round": "stochastic_round.cu",
+           "tree_update": "tree_update.cu"}
 
 # -Xptxas -v puts each kernel's registers, shared memory and spills in
 # the build log (build/kernels/<library>.log)

@@ -24,7 +24,8 @@ FusedEpilogue) is ops/fused_update.py.
   reference's math on each 1-D bucket with per-element metadata looked
   up through the chunk -> leaf table, as separate torch elementwise ops
   (one rounding each, which the kernel matches with __fmul_rn /
-  __fadd_rn and IEEE sqrt and division).
+  __fadd_rn and IEEE sqrt and division; the twins' sqrt is `sqrt_rn`,
+  correctly rounded on the CPU too).
 
 Both update IN PLACE: pass 1 writes the unscaled grads into the grad
 buffers, pass 2 writes params, moments and masters.
@@ -42,7 +43,7 @@ import functools
 import numpy as np
 import torch
 
-from . import DTYPE_CODES, _build, count_launch, current_stream
+from . import DTYPE_CODES, _build, count_launch, current_stream, sqrt_rn
 
 __all__ = ["FlatBucket", "BucketSet", "fused_pass1", "fused_pass2",
            "fused_pass1_reference", "fused_pass2_reference",
@@ -276,7 +277,7 @@ def _update_core(kind, hp, w, g32, ms32, lr, lr_t):
     if kind in ("adam", "adamw"):
         m = hp["beta1_f"] * ms32[0] + hp["omb1_f"] * g32
         v = hp["beta2_f"] * ms32[1] + hp["omb2_f"] * g32 * g32
-        return w - lr_t * m / (torch.sqrt(v) + hp["eps_f"]), [m, v]
+        return w - lr_t * m / (sqrt_rn(v) + hp["eps_f"]), [m, v]
     if kind == "momentum":
         vel = hp["momentum_f"] * ms32[0] + g32
         if hp.get("nesterov"):

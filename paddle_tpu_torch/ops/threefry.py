@@ -21,9 +21,9 @@ layout)."""
 import numpy as np
 import torch
 
-__all__ = ["MASK32", "threefry2x32", "PRNGKey", "fold_in", "split",
-           "random_bits", "uniform", "gumbel", "categorical", "key_words",
-           "sampling_key_data"]
+__all__ = ["MASK32", "SR_SEED", "threefry2x32", "PRNGKey", "fold_in",
+           "split", "random_bits", "uniform", "gumbel", "categorical",
+           "key_words", "sampling_key_data", "sr_keys"]
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -31,6 +31,8 @@ _KS_PARITY = 0x1BD11BDA
 # float32 constants of `_uniform(minval=tiny, maxval=1)`
 _TINY = float(np.finfo(np.float32).tiny)
 _ONE_BITS = 0x3F800000  # 1.0f: the exponent the mantissa bits go under
+# the seed of the optimizers' stochastic-rounding keys (the reference's)
+SR_SEED = 0x5bd1e995
 
 
 def _rotl(x, r):
@@ -90,6 +92,19 @@ def split(keys, num):
     o1, o2 = threefry2x32(keys[..., 0, None], keys[..., 1, None],
                           torch.zeros_like(j), j)
     return torch.stack([o1, o2], dim=-1)
+
+
+def sr_keys(step, n_leaves, n_state):
+    """The reference tree update's stochastic-rounding keys of a step
+    (paddle_tpu/optimizer/optimizer.py `apply_gradients_tree`): base =
+    fold_in(PRNGKey(SR_SEED), step); leaf i's key fold_in(base, i) rounds
+    its parameter, and split(fold_in(key, 1), n_state)[j] its state leaf
+    j. All leaves at once, on the CPU. Returns (leaf keys [n_leaves, 2],
+    state keys [n_leaves, max(n_state, 1), 2]), int64 key words."""
+    base = fold_in(PRNGKey(SR_SEED), step)
+    leaf = fold_in(base.expand(n_leaves, 2),
+                   torch.arange(n_leaves, dtype=torch.int64))
+    return leaf, split(fold_in(leaf, 1), max(n_state, 1))
 
 
 def random_bits(keys, n):

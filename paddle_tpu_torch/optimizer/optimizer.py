@@ -22,10 +22,16 @@ RMSProp and Lamb. Each optimizer is a functional core (`_init_state` /
   in float32, then each parameter and state leaf cast back to its own
   dtype, in place (the reference returns new trees, which XLA aliases
   through donation). Under `_stochastic_rounding` the bfloat16
-  downcasts round stochastically with the reference's keys (see
-  `_sr_keys`), on CUDA tensors by a hand-written kernel
-  (ops/kernels/stochastic_round.py). A `found_inf` flag keeps every leaf
-  as it was, without a branch.
+  downcasts round stochastically with the reference's keys
+  (`threefry.sr_keys`). A `found_inf` flag keeps every leaf as it was,
+  without a branch. SGD, Momentum, Adam and AdamW update every leaf in
+  one hand-written kernel launch on CUDA tensors
+  (ops/kernels/tree_update.py; on CPU ones its twin, the per-leaf torch
+  code `_update_leaves`); the other six run `_update_leaves`, with the
+  stochastic downcasts on CUDA tensors by a kernel of their own
+  (ops/kernels/stochastic_round.py). Adam's float32 sqrt is correctly
+  rounded on every device (`sqrt_rn`), as the reference's and the
+  kernels' are.
 
 The learning rate is a float or an `lr.LRScheduler`, read through
 `get_lr()`; a Parameter's `optimize_attr["learning_rate"]` scales it.
@@ -53,15 +59,14 @@ import torch
 
 from ..framework.dtype import convert_dtype, weak_scalar as _w
 from ..ops import threefry
+from ..ops.kernels import sqrt_rn
 from ..ops.kernels.stochastic_round import stochastic_round
+from ..ops.kernels.tree_update import tree_update
 from ..regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "LarsMomentum", "Adam", "AdamW",
            "Adamax", "Adagrad", "Adadelta", "RMSProp", "Lamb"]
-
-# the seed of the tree path's stochastic-rounding keys (the reference's)
-SR_SEED = 0x5bd1e995
 
 
 class Optimizer:
@@ -139,9 +144,15 @@ class Optimizer:
     def fused_spec(self):
         """Static hyperparameters of the fused epilogue's kernels, or
         None when this optimizer (or its config) takes the tree path."""
-        kind = self._fused_kind()
-        if kind is None or self._stochastic_rounding:
+        if self._fused_kind() is None or self._stochastic_rounding:
             return None
+        return self._update_spec()
+
+    def _update_spec(self):
+        """The hyperparameters of a fused mapping's update (SGD, Momentum,
+        Adam, AdamW), which the fused epilogue and the tree path's kernel
+        share."""
+        kind = self._fused_kind()
         spec = {"kind": kind,
                 "n_moments": {"sgd": 0, "momentum": 1,
                               "adam": 2, "adamw": 2}[kind],
@@ -294,31 +305,10 @@ class Optimizer:
     def init_tree_state(self, params):
         return {k: self.init_leaf_state(v) for k, v in params.items()}
 
-    @staticmethod
-    def _sr_keys(step, n_leaves, n_state):
-        """The reference's stochastic-rounding keys of a step, as Python
-        int pairs: base = fold_in(PRNGKey(0x5bd1e995), step); leaf i's
-        key fold_in(base, i) rounds its parameter, and split(fold_in(key,
-        1), n_state)[j] its state leaf j. Computed once a step on the
-        host, for all leaves at once. Returns (leaf keys, state keys)."""
-        base = threefry.fold_in(threefry.PRNGKey(SR_SEED), step)
-        idx = torch.arange(n_leaves, dtype=torch.int64)
-        leaf = threefry.fold_in(base.expand(n_leaves, 2), idx)
-        sub = threefry.split(threefry.fold_in(leaf, 1), max(n_state, 1))
-        return leaf.tolist(), sub.tolist()
-
-    def _down(self, x32, dtype, key):
-        """x32 to `dtype`: stochastically rounded to bfloat16 when the
-        knob is on (a float32 value), else round to nearest even."""
-        if dtype == torch.float32 or x32.dtype == dtype:
-            return x32.to(dtype)
-        if self._stochastic_rounding and dtype == torch.bfloat16:
-            return stochastic_round(x32, key)
-        return x32.to(dtype)
-
     @torch.no_grad()
     def apply_gradients_tree(self, params, grads, state, lr, step,
-                             found_inf=None, decay_mask=None, lr_scale=None):
+                             found_inf=None, decay_mask=None, lr_scale=None,
+                             with_stats=False):
         """Update `params` ({name: tensor}) and `state` ({name: leaf
         state}) IN PLACE from `grads` at 1-based `step`. `decay_mask` is
         an optional {name: bool}, `lr_scale` an optional {name: float}
@@ -327,46 +317,86 @@ class Optimizer:
         train step rounds it to float32); the scalar math on it (Adam's
         bias-corrected rate, the decay factor) runs in float64 and rounds
         once where it meets a tensor, as the fused epilogue's does.
+        with_stats: returns float32 [sum of new_p^2, sum of (new_p -
+        old_p)^2] over the params (the health vector's sums), else None.
 
         Leaves are visited in sorted name order, the reference's
         `jax.tree.flatten` order of its {name: value} dict: a leaf's
-        stochastic-rounding key is its position there."""
+        stochastic-rounding key is its position there. SGD, Momentum,
+        Adam and AdamW go to ops/kernels/tree_update.py (one kernel
+        launch on CUDA leaves), the others to `_update_leaves`."""
+        names = sorted(params)
+        trees = [state[k] for k in names]
+        leaves = ([params[k] for k in names], [grads[k] for k in names],
+                  [s["state"] if isinstance(s, dict) else s for s in trees],
+                  [s["master"] if isinstance(s, dict) else None
+                   for s in trees])
+        decay = None if decay_mask is None \
+            else [decay_mask.get(k, True) for k in names]
+        scale = None if lr_scale is None \
+            else [float(lr_scale.get(k, 1.0)) for k in names]
+        if self._fused_kind() is not None:
+            return tree_update(self, *leaves, lr, step, found_inf, decay,
+                               scale, with_stats)
+        return self._update_leaves(*leaves, lr, step, found_inf, decay,
+                                   scale, with_stats)
+
+    @torch.no_grad()
+    def _update_leaves(self, params, grads, states, masters, lr, step,
+                       found_inf=None, decay=None, lr_scale=None,
+                       with_stats=False, sr_round=stochastic_round):
+        """The tree path's per-leaf torch code: `apply_gradients_tree` on
+        lists in sorted name order (states: a tuple of state leaves a
+        leaf; masters: float32 or None; decay: a bool a leaf; lr_scale: a
+        float a leaf). Each leaf's update in float32, then each state
+        leaf and the parameter cast back to their dtypes, by `sr_round`
+        (K2's wrapper, or its twin for the tree-update kernel's twin)
+        under `_stochastic_rounding` with a bf16 target."""
         wd = self._decoupled_decay_coeff()
         lr = float(lr)
-        names = sorted(params)
+        sr = self._stochastic_rounding
         keys = None
-        if self._stochastic_rounding and names:
-            first = state[names[0]]
-            inner0 = first["state"] if isinstance(first, dict) else first
-            keys = self._sr_keys(step, len(names), len(inner0))
-        for i, k in enumerate(names):
-            p, s = params[k], state[k]
-            master, inner = (s["master"], s["state"]) \
-                if isinstance(s, dict) else (None, s)
+        if sr and params:
+            leaf, sub = threefry.sr_keys(step, len(params), len(states[0]))
+            keys = (leaf.tolist(), sub.tolist())
+
+        def down(x32, dtype, key):
+            if sr and dtype == torch.bfloat16 and x32.dtype != dtype:
+                return sr_round(x32, key)
+            return x32.to(dtype)
+        sums = torch.zeros(2, dtype=torch.float32,
+                           device=params[0].device if params else None) \
+            if with_stats else None
+        for i, (p, inner, master) in enumerate(zip(params, states, masters)):
             w = master if master is not None else p.float()
-            lrs = 1.0 if lr_scale is None else float(lr_scale.get(k, 1.0))
+            lrs = 1.0 if lr_scale is None else float(lr_scale[i])
             lr_leaf = lr if lrs == 1.0 else lr * lrs
-            if wd and (decay_mask is None or decay_mask.get(k, True)):
+            if wd and (decay is None or decay[i]):
                 w = w * (1.0 - lr_leaf * wd)
-            new_w, new_inner = self._update(w, grads[k].float(), inner,
+            new_w, new_inner = self._update(w, grads[i].float(), inner,
                                             lr_leaf, step)
             leaf_key, state_keys = (keys[0][i], keys[1][i]) if keys \
                 else (None, [None] * len(inner))
-            new_inner = [self._down(n, o.dtype, state_keys[j])
+            new_inner = [down(n, o.dtype, state_keys[j])
                          for j, (n, o) in enumerate(zip(new_inner, inner))]
             new_p = new_w.to(p.dtype) if master is not None \
-                else self._down(new_w, p.dtype, leaf_key)
+                else down(new_w, p.dtype, leaf_key)
             if found_inf is not None:
                 new_p = torch.where(found_inf, p, new_p)
                 new_inner = [torch.where(found_inf, o, n)
                              for o, n in zip(inner, new_inner)]
                 if master is not None:
                     new_w = torch.where(found_inf, master, new_w)
+            if with_stats:
+                new32 = new_p.float()
+                sums += torch.stack([new32.square().sum(),
+                                     (new32 - p.float()).square().sum()])
             p.copy_(new_p)
             for old, new in zip(inner, new_inner):
                 old.copy_(new)
             if master is not None:
                 master.copy_(new_w)
+        return sums
 
 
 class SGD(Optimizer):
@@ -463,7 +493,7 @@ class Adam(Optimizer):
         m = _w(b1, m) * m + _w(1 - b1, g) * g
         v = _w(b2, v) * v + _w(1 - b2, g) * g * g
         lr_t = lr * (1 - b2 ** step) ** 0.5 / (1 - b1 ** step)
-        return p - _w(lr_t, m) * m / (v.sqrt() + _w(eps, v)), (m, v)
+        return p - _w(lr_t, m) * m / (sqrt_rn(v) + _w(eps, v)), (m, v)
 
     def _fused_kind(self):
         return "adam"

@@ -1,9 +1,9 @@
 """A/B timings of kernel design choices, on one CUDA card.
 
     python3 -m paddle_tpu_torch.tools.kernel_ab [pass1] [policy] [ln] [ssm]
-        [--against DIR]
+        [tree] [--against DIR]
 
-Run from the root of a checkout; with no mode it runs all four.
+Run from the root of a checkout; with no mode it runs all five.
 
 - pass1: fused pass 1 (kernel #9, csrc/fused_update.cu) built with 2, 4,
   8 and 16 16-byte vectors a thread (its kUnroll1), each on GPT-medium's
@@ -54,6 +54,19 @@ Run from the root of a checkout; with no mode it runs all four.
   separate processes, in turns (DIR, this, this, DIR), then phase 13 of
   each checkout's chip_smoke.py runs once (DIR, this) and its per-step
   device breakdown and served-step scan times are printed.
+- tree: the tree update (csrc/tree_update.cu) at GPT-1.3B's 292 leaves
+  (1,313,722,368 bf16 parameters, grads and velocities drawn on the
+  card) on bench.py's optimizer (Momentum 0.9, bf16 velocity, lr 1e-4),
+  with stochastic rounding and with rounding to nearest, built as it is
+  built with the source constants of TREE_BUILDS: vectors a thread a
+  tile (`kVecs` 1, 2, 4) and registers kept for 1-4 blocks an SM
+  (`kMinBlocks`); the build equal to the source is marked "as built". After the turns, the as-built kernel runs 200 times
+  back to back while nvidia-smi reads the SM clock and the power draw.
+  Each build's main variant's registers and spills are printed, and its
+  first update is held bit for bit against the first build's on the same
+  inputs. The spin before
+  each launch is ~20 ms here: the wrapper's host work a call (keys and
+  the leaf table) must be enqueued before the start event.
 
 Variants are timed in turns (A B C .. C B A), twice; each time is the
 mean of CUDA-event times over 20 launches with the 50 MB L2 flushed and
@@ -79,15 +92,18 @@ from ..ops.kernels import fused_update as fk
 from ..ops.kernels import layer_norm as lk
 from ..ops.kernels import paged_attention as pa
 from ..ops.kernels import ssm_scan as sk
+from ..ops.kernels import tree_update as tu
+from ..optimizer import Momentum
 
 HBM_BYTES_PER_S = 3.35e12
 UNROLLS = (2, 4, 8, 16)
 POLICIES = [(b, m) for b in (1, 2, 4) for m in (4, 8, 16)]
 
 
-def cuda_ms(fn, flush, iters=20, clean=False):
+def cuda_ms(fn, flush, iters=20, clean=False, spin=2_000_000):
     """Mean device ms of fn() over iters calls (L2 flushed, card parked
-    on a spin before each so the launch is enqueued before the start).
+    on a spin of `spin` cycles before each so the launch is enqueued
+    before the start).
     The flush writes the 64 MB buffer, leaving the L2 full of dirty lines
     that fn's misses write back; clean=True reads it instead; flush=None
     flushes nothing (fn finds its inputs and code warm in L2)."""
@@ -102,7 +118,7 @@ def cuda_ms(fn, flush, iters=20, clean=False):
             flush.view(torch.int32).sum()
         else:
             flush.zero_()
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -654,6 +670,145 @@ def ab_ssm_against(root):
                 print(f"  phase 13 of {label}: {line.strip()}", flush=True)
 
 
+# builds of csrc/tree_update.cu by their constants: vectors a thread a
+# tile, blocks an SM the registers are kept for
+TREE_KNOBS = ("kVecs", "kMinBlocks")
+TREE_BUILDS = [(1, 3), (1, 2), (1, 4), (2, 1), (2, 3), (4, 1)]
+# a stochastically rounded element's 32-bit integer operations (the
+# threefry hash's 72, the xor of its words, the mask, the add and the
+# truncation) and the card's rate for them: the integer pipe's 64 lanes
+# an SM a clock and the multiply-add pipe's 64, half the float32 rate's
+# 67 T/s (its FMA counts as two)
+SR_OPS, INT32_OPS_PER_S = 76, 67e12 / 2
+
+
+def tree_edits(values):
+    """{source line: replacement} that set TREE_KNOBS to `values`."""
+    src = (_build.SOURCE_DIR / "tree_update.cu").read_text()
+    edits = {}
+    for knob, val in zip(TREE_KNOBS, values):
+        line = re.search(rf"constexpr int {knob} = \d+;", src).group(0)
+        edits[line] = f"constexpr int {knob} = {val};"
+    return edits
+
+
+TREE_MAIN = "tree_update_kernelI13__nv_bfloat16S1_Li1ELb1E"
+TREE_SPIN = 40_000_000
+
+
+def tree_leaves_1p3b(seed=0):
+    """GPT-1.3B's leaves (sorted names) in bf16 on the card: params ~
+    N(0, 0.02), grads and velocities ~ N(0, 1e-3). Returns (params,
+    grads, states, masters) as tree_update takes them."""
+    from ..models import gpt_1p3b
+    cfg = gpt_1p3b()
+    cfg.max_position_embeddings = 1024
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    named = sorted((k, tuple(p.shape)) for k, p in model.named_parameters())
+    del model
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape, std):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * std).to(torch.bfloat16)
+    params = [draw(s, 0.02) for _, s in named]
+    grads = [draw(s, 1e-3) for _, s in named]
+    states = [(draw(s, 1e-3),) for _, s in named]
+    return params, grads, states, [None] * len(named)
+
+
+def _copy_leaves(leaves):
+    params, grads, states, masters = leaves
+    return ([t.clone() for t in params], grads,
+            [tuple(t.clone() for t in s) for s in states], masters)
+
+
+def ab_tree(flush):
+    print("the tree update: vectors a thread, registers", flush=True)
+    src = (_build.SOURCE_DIR / "tree_update.cu").read_text()
+    built = tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                  for k in TREE_KNOBS)
+    labels = {v: " ".join(f"{k[1:]} {x}" for k, x in zip(TREE_KNOBS, v))
+              + (" (as built)" if v == built else "") for v in TREE_BUILDS}
+    builds = build_sources("tree_update", {
+        labels[v]: tree_edits(v) for v in TREE_BUILDS}, "tree")
+    libs, vecs = {}, {}
+    for label, (path, log) in builds.items():
+        lines = log.splitlines()
+        at = next(i for i, line in enumerate(lines) if TREE_MAIN in line)
+        print(f"  {label:36s}: " + "; ".join(
+            x.strip() for x in lines[at + 1:at + 5]
+            if "registers" in x or "spill" in x))
+        lib = ctypes.CDLL(str(path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.tree_update.argtypes = [p, i, i, ctypes.POINTER(tu._Args), p,
+                                    p, p, p, i, i, i, i, i, p]
+        lib.tree_update.restype = ctypes.c_int
+        tiling = (ctypes.c_int * 4)()
+        lib.tree_update_tiling(tiling)
+        libs[label], vecs[label] = lib, tiling[2]
+    leaves = tree_leaves_1p3b()
+    lr = float(np.float32(1e-4))
+    bench, rne = Momentum(lr, 0.9), Momentum(lr, 0.9)  # SR, nearest
+    for opt in (bench, rne):
+        opt._state_dtype = torch.bfloat16
+    bench._stochastic_rounding = True
+    n = sum(t.numel() for t in leaves[0])
+    nbytes = 10 * n
+    kernel, vec_count = tu._kernel, tu.VECS
+    res, want = {}, None
+    try:
+        for label in list(libs) + in_turns(libs):
+            tu._kernel = (lambda lib: lambda: lib)(libs[label])
+            tu.VECS = vecs[label]
+            tu.TILE = tu.THREADS * tu.VEC * tu.VECS
+            if label not in res:  # the first update, held bit for bit
+                out = _copy_leaves(leaves)
+                tu.tree_update(bench, *out, lr, 1)
+                torch.cuda.synchronize()
+                if want is None:
+                    want = out
+                else:
+                    same = all(torch.equal(a, b) for a, b in zip(
+                        out[0] + [s[0] for s in out[2]],
+                        want[0] + [s[0] for s in want[2]]))
+                    print(f"  {label:36s}: bit-equal to the first build: "
+                          f"{same}")
+                    if not same:
+                        raise RuntimeError(f"{label} differs from the first "
+                                           "build")
+                res[label] = []
+                continue
+            res[label].append(tuple(cuda_ms(
+                lambda: tu.tree_update(sp, *leaves, lr, 3), flush, iters=10,
+                spin=TREE_SPIN) for sp in (bench, rne)))
+    finally:
+        tu._kernel, tu.VECS = kernel, vec_count
+        tu.TILE = tu.THREADS * tu.VEC * tu.VECS
+    for _ in range(200):  # ~3 s of the as-built kernel, enqueued
+        tu.tree_update(bench, *leaves, lr, 3)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    torch.cuda.synchronize()
+    print(f"  as built, under load: SM clock, its maximum, power: {clocks}")
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n * 2 * SR_OPS / INT32_OPS_PER_S * 1e3
+    for label, runs in res.items():
+        sr_ms = float(np.mean([a for a, _ in runs]))
+        rne_ms = float(np.mean([b for _, b in runs]))
+        print(f"  {label:36s}: SR {sr_ms:.4f} ms (turns "
+              f"{[round(a, 4) for a, _ in runs]}), bound/kernel "
+              f"{max(by_bytes, by_ops) / sr_ms:.3f}; nearest {rne_ms:.4f} ms, "
+              f"bound/kernel {by_bytes / rne_ms:.3f}")
+    print(f"  bound: bytes {by_bytes:.4f} ms ({nbytes / 1e9:.3f} GB, 10 B a "
+          f"parameter), operations {by_ops:.4f} ms (two roundings of "
+          f"{SR_OPS} integer operations a parameter at "
+          f"{INT32_OPS_PER_S / 1e12:.1f} T/s)")
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("kernel_ab needs a CUDA card", file=sys.stderr)
@@ -668,7 +823,7 @@ def main(argv):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    which = set(argv) or {"pass1", "policy", "ln", "ssm"}
+    which = set(argv) or {"pass1", "policy", "ln", "ssm", "tree"}
     _build.build(["paged_attention", "fused_update", "layer_norm",
                   "ssm_scan"])
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -680,6 +835,8 @@ def main(argv):
         ab_ln(flush)
     if "ssm" in which:
         ab_ssm(flush, against)
+    if "tree" in which:
+        ab_tree(flush)
     return 0
 
 

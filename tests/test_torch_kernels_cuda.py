@@ -56,7 +56,26 @@ several keys: bit-equal on finite inputs, one launch a call, a new
 bf16 tensor. The tree path of Momentum with `_stochastic_rounding` and
 a bf16 state on the card equals the same update on the CPU bit for bit
 (no sqrt, no reduction: the same IEEE operations on both), with one
-kernel launch a parameter and one a velocity.
+tree-update launch a step and no standalone rounding launch; Adamax,
+which keeps its per-leaf code, does too with one standalone rounding
+launch a parameter and one a state leaf.
+
+The tree update (ops/kernels/tree_update.py) against its twin, for SGD,
+Momentum, Nesterov, Adam and AdamW on float32 params, bf16 params and
+bf16 params with float32 masters, float32 and bf16 states, stochastic
+rounding off and on: leaves of 1, 2047, 2049 and 3 x 4096 + 77 elements,
+a 16-byte-misaligned one (a view one element into its storage), a
+float32 grad on a bf16 param and, beside bf16 params, a float32 leaf (a
+second launch group, its sums added to the first's); a decay mask and
+an lr_scale of 0.5; three steps, found_inf absent, set and clear. Every
+written buffer bit-equal to the twin's (both round each operation once,
+the kernel by __fmul_rn / __fadd_rn and IEEE sqrt and division, the
+stochastic bits the same threefry hashes); under found_inf every buffer
+as it was; the health sums, taken in another order, within 1e-4
+relative; one launch a group a step. A CUDA leaf never reaches the twin,
+the per-leaf code or the standalone rounding kernel. A group of
+MAX_LEAVES leaves (the most tile starts in shared memory) launches and
+equals the twin; one more leaf raises.
 
 LayerNorm (kernels #5, #6) and softmax cross-entropy (#7, #8) against
 their twins on the same inputs, at widths the training path uses and at
@@ -114,7 +133,10 @@ from paddle_tpu_torch.ops.kernels import layer_norm as ln
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import softmax_xent as xent
 from paddle_tpu_torch.ops.kernels import ssm_scan as sk
-from paddle_tpu_torch.optimizer import SGD, Adam, AdamW, Momentum
+from paddle_tpu_torch.ops.kernels import stochastic_round as sr
+from paddle_tpu_torch.ops.kernels import tree_update as tu
+from paddle_tpu_torch.optimizer import SGD, Adam, Adamax, AdamW, Momentum
+from paddle_tpu_torch.optimizer.optimizer import Optimizer
 
 H, D, P = 16, 64, 16
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -684,43 +706,254 @@ def test_stochastic_round_matches_twin_on_card(n):
         sr.stochastic_round(x[:8].to(torch.bfloat16), SR_KEYS[0])
 
 
-@pytest.mark.cuda
-def test_tree_momentum_stochastic_rounding_on_card_matches_cpu():
-    """bench.py's optimizer on the tree path: the card (kernel K2) and
-    the CPU (its twin) give the same bits, with one K2 launch for each
-    parameter and each velocity."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    from paddle_tpu_torch.ops.kernels import stochastic_round as sr
-    rng = np.random.RandomState(9)
-    shapes = {"blocks.10.w": (64, 48), "blocks.2.w": (64, 48),
-              "blocks.2.b": (48,), "wte": (300, 64)}
+def _tree_on_devices(make, shapes, steps=3, seed=9):
+    """The tree path of `make()`'s optimizer (stochastic rounding, a bf16
+    state) on the card and on the CPU from the same bf16 params and
+    grads: {device: (params, states, tree-update launches, standalone
+    rounding launches)}."""
+    rng = np.random.RandomState(seed)
     p0 = {k: (rng.randn(*s) * 0.02).astype(np.float32)
           for k, s in shapes.items()}
     grads = [{k: (rng.randn(*s) * 0.5).astype(np.float32)
-              for k, s in shapes.items()} for _ in range(3)]
+              for k, s in shapes.items()} for _ in range(steps)]
     out = {}
     for dev in ("cuda", "cpu"):
-        opt = Momentum(1e-3, 0.9)
+        opt = make()
         opt._stochastic_rounding = True
         opt._state_dtype = torch.bfloat16
         params = {k: torch.from_numpy(v).to(dev, torch.bfloat16)
                   for k, v in p0.items()}
         state = opt.init_tree_state(params)
-        before = sr.stochastic_round.launches
+        before = (tu.tree_update.launches, sr.stochastic_round.launches)
         for i, g in enumerate(grads, start=1):
             opt.apply_gradients_tree(
                 params, {k: torch.from_numpy(v).to(dev, torch.bfloat16)
                          for k, v in g.items()}, state, 1e-3, i)
-        launched = sr.stochastic_round.launches - before
         out[dev] = ({k: v.cpu() for k, v in params.items()},
-                    {k: v[0].cpu() for k, v in state.items()}, launched)
-    assert out["cuda"][2] == 3 * 2 * len(shapes) and out["cpu"][2] == 0
+                    {k: [t.cpu() for t in v] for k, v in state.items()},
+                    tu.tree_update.launches - before[0],
+                    sr.stochastic_round.launches - before[1])
+    return out
+
+
+TREE_SHAPES = {"blocks.10.w": (64, 48), "blocks.2.w": (64, 48),
+               "blocks.2.b": (48,), "wte": (300, 64)}
+
+
+def _assert_same_trees(out, shapes):
     for k in shapes:
-        for a, b in ((out["cuda"][0][k], out["cpu"][0][k]),
-                     (out["cuda"][1][k], out["cpu"][1][k])):
+        pairs = [(out["cuda"][0][k], out["cpu"][0][k])] + list(
+            zip(out["cuda"][1][k], out["cpu"][1][k]))
+        for a, b in pairs:
             assert a.dtype == torch.bfloat16
             assert torch.equal(a.view(torch.int16), b.view(torch.int16)), k
+
+
+@pytest.mark.cuda
+def test_tree_momentum_stochastic_rounding_on_card_matches_cpu():
+    """bench.py's optimizer on the tree path: the card (the tree-update
+    kernel) and the CPU (its twin) give the same bits, with one
+    tree-update launch a step and no standalone rounding launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    out = _tree_on_devices(lambda: Momentum(1e-3, 0.9), TREE_SHAPES)
+    assert out["cuda"][2:] == (3, 0) and out["cpu"][2:] == (0, 0)
+    _assert_same_trees(out, TREE_SHAPES)
+
+
+@pytest.mark.cuda
+def test_tree_adamax_stochastic_rounding_keeps_the_rounding_kernel():
+    """An optimizer without a fused mapping keeps its per-leaf code: its
+    bf16 downcasts launch the standalone rounding kernel, one a
+    parameter and one a state leaf, and the card equals the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    out = _tree_on_devices(lambda: Adamax(1e-3), TREE_SHAPES)
+    assert out["cuda"][2:] == (0, 3 * 3 * len(TREE_SHAPES))
+    assert out["cpu"][2:] == (0, 0)
+    _assert_same_trees(out, TREE_SHAPES)
+
+
+# (name, shape) of the tree-update cases: odd sizes, a leaf of several
+# tiles; "mis" is made misaligned, "g32" gets a float32 grad
+TREE_LEAVES = [("one", (1,)), ("h.2.w", (2047,)), ("h.10.w", (2049,)),
+               ("big", (3 * 4096 + 77,)), ("mis", (9, 7)), ("g32", (40,))]
+TREE_DECAY = {"one": False, "mis": False}
+TREE_LR_SCALE = {"h.10.w": 0.5}
+TREE_KINDS = {
+    "sgd": lambda mp: SGD(0.01, multi_precision=mp),
+    "momentum": lambda mp: Momentum(0.01, 0.9, multi_precision=mp),
+    "nesterov": lambda mp: Momentum(0.01, 0.9, use_nesterov=True,
+                                    multi_precision=mp),
+    "adam": lambda mp: Adam(0.01, multi_precision=mp),
+    "adamw": lambda mp: AdamW(0.01, weight_decay=0.1, multi_precision=mp),
+}
+TREE_MATRIX = [(k, p, s, r) for k in TREE_KINDS
+               for p in ("f32", "bf16", "bf16-master")
+               for s in ("f32", "bf16") for r in (False, True)
+               if not (k == "sgd" and s == "bf16")]
+
+
+def _tree_case(kind, params, state, sround, dev, seed=0):
+    """(optimizer, params, states, masters) of the tree-update matrix on
+    `dev`, from a numpy seed: TREE_LEAVES in the param dtype (plus a
+    float32 leaf "f32" beside bf16 params), states and masters
+    perturbed."""
+    rng = np.random.RandomState(seed)
+    dtype = torch.float32 if params == "f32" else torch.bfloat16
+    opt = TREE_KINDS[kind](params == "bf16-master")
+    opt._state_dtype = torch.bfloat16 if state == "bf16" else None
+    opt._stochastic_rounding = sround
+    leaves = TREE_LEAVES + ([("f32", (130,))] if params != "f32" else [])
+    ps = {}
+    for name, shape in leaves:
+        v = torch.from_numpy((rng.randn(*shape) * 0.5).astype(np.float32))
+        t = v.to(dev, torch.float32 if name == "f32" else dtype)
+        if name == "mis":
+            # a view one element into its storage: 16-byte misaligned
+            buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+            buf[1:] = t.reshape(-1)
+            t = buf[1:].view(shape)
+        ps[name] = t
+    tree = opt.init_tree_state(ps)
+    for leaf in tree.values():
+        inner = leaf["state"] if isinstance(leaf, dict) else leaf
+        for j, s in enumerate(inner):
+            d = torch.from_numpy((rng.randn(*s.shape) * 0.1).astype(
+                np.float32))
+            s.copy_(d.abs() if j else d)
+        if isinstance(leaf, dict):
+            leaf["master"].add_(torch.from_numpy((rng.randn(
+                *leaf["master"].shape) * 1e-3).astype(np.float32)).to(dev))
+    return opt, ps, tree
+
+
+def _tree_grads(ps, rng):
+    return {k: torch.from_numpy((rng.randn(*p.shape) * 0.3).astype(
+        np.float32)).to(p.device, torch.float32 if k == "g32" else p.dtype)
+        for k, p in ps.items()}
+
+
+def _tree_buffers(ps, tree):
+    out = [("param " + k, v) for k, v in ps.items()]
+    for k, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out.append(("master " + k, leaf["master"]))
+            leaf = leaf["state"]
+        out += [(f"state{j} " + k, t) for j, t in enumerate(leaf)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,params,state,sround", TREE_MATRIX)
+def test_tree_update_matches_twin_on_card(kind, params, state, sround):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    opt, ps, tree = _tree_case(kind, params, state, sround, "cuda")
+    _, ps_t, tree_t = _tree_case(kind, params, state, sround, "cuda")
+    names = sorted(ps)
+    decay = [TREE_DECAY.get(k, True) for k in names]
+    lrs = [TREE_LR_SCALE.get(k, 1.0) for k in names]
+    assert ps["mis"].data_ptr() % 16
+    groups = 1 if params == "f32" else 2
+    rng = np.random.RandomState(1)
+    for step, found in ((1, None), (2, True), (3, False)):
+        g = _tree_grads(ps, rng)
+        flag = None if found is None else torch.tensor(found, device="cuda")
+        was = [t.clone() for _, t in _tree_buffers(ps, tree)]
+        args = []
+        for p, t in ((ps, tree), (ps_t, tree_t)):
+            states = [t[k]["state"] if isinstance(t[k], dict) else t[k]
+                      for k in names]
+            masters = [t[k]["master"] if isinstance(t[k], dict) else None
+                       for k in names]
+            args.append(([p[k] for k in names], [g[k] for k in names],
+                         states, masters))
+        before = tu.tree_update.launches
+        got = tu.tree_update(opt, *args[0], 0.01, step, flag, decay, lrs,
+                             with_stats=True)
+        assert tu.tree_update.launches == before + groups
+        want = tu.tree_update_reference(opt, *args[1], 0.01, step, flag,
+                                        decay, lrs, with_stats=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+        for (name, a), (_, b) in zip(_tree_buffers(ps, tree),
+                                     _tree_buffers(ps_t, tree_t)):
+            assert a.dtype == b.dtype, name
+            assert torch.equal(a.view(-1).view(torch.int16 if a.dtype ==
+                                                torch.bfloat16 else
+                                                torch.int32),
+                               b.view(-1).view(torch.int16 if b.dtype ==
+                                               torch.bfloat16 else
+                                               torch.int32)), (name, step)
+        if found:
+            for (name, a), old in zip(_tree_buffers(ps, tree), was):
+                assert torch.equal(a, old), name
+            assert float(got[1]) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_leaves_never_reach_the_twin_or_the_rounding_kernel(
+        monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA leaf reached a plain path")
+    monkeypatch.setattr(tu, "tree_update_reference", refuse)
+    monkeypatch.setattr(Optimizer, "_update_leaves", refuse)
+    monkeypatch.setattr(sr, "stochastic_round", refuse)
+    for kind in TREE_KINDS:
+        opt, ps, tree = _tree_case(kind, "bf16", "bf16", True, "cuda")
+        g = _tree_grads(ps, np.random.RandomState(2))
+        sums = opt.apply_gradients_tree(ps, g, tree, 0.01, 1,
+                                        with_stats=True)
+        torch.cuda.synchronize()
+        assert sums.device.type == "cuda" and bool(torch.isfinite(sums).all())
+    with pytest.raises(ValueError, match="contiguous"):
+        opt.apply_gradients_tree({"w": torch.zeros(4, 4, device="cuda",
+                                                   dtype=torch.bfloat16).t()},
+                                 {"w": torch.zeros(4, 4, device="cuda",
+                                                   dtype=torch.bfloat16)},
+                                 {"w": (torch.zeros(4, 4, device="cuda"),
+                                        torch.zeros(4, 4, device="cuda"))},
+                                 0.01, 1)
+
+
+@pytest.mark.cuda
+def test_tree_update_at_the_leaf_limit():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    # MAX_LEAVES leaves of one group: the most tile starts the kernel
+    # stages in shared memory beside its static arrays
+    opt = Momentum(0.01, 0.9)
+    opt._state_dtype = torch.bfloat16
+    opt._stochastic_rounding = True
+    n = tu.MAX_LEAVES
+    rng = np.random.RandomState(4)
+    sizes = rng.randint(1, 9, n)
+    flat = {k: torch.from_numpy(rng.randn(sizes.sum()).astype(
+        np.float32)).to("cuda", torch.bfloat16) for k in ("p", "g", "v")}
+    leaves = {k: list(t.split(sizes.tolist())) for k, t in flat.items()}
+    twin = {k: [t.clone() for t in v] for k, v in leaves.items()}
+    before = tu.tree_update.launches
+    got = tu.tree_update(opt, leaves["p"], leaves["g"],
+                         [(v,) for v in leaves["v"]], [None] * n, 0.01, 2,
+                         with_stats=True)
+    assert tu.tree_update.launches == before + 1
+    want = tu.tree_update_reference(opt, twin["p"], twin["g"],
+                                    [(v,) for v in twin["v"]], [None] * n,
+                                    0.01, 2, with_stats=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+    for k in ("p", "v"):
+        assert torch.equal(torch.cat(leaves[k]).view(torch.int16),
+                           torch.cat(twin[k]).view(torch.int16)), k
+    with pytest.raises(ValueError, match="leaves of one group"):
+        tu.tree_update(opt, leaves["p"] + leaves["p"][:1],
+                       leaves["g"] + leaves["g"][:1],
+                       [(v,) for v in leaves["v"] + leaves["v"][:1]],
+                       [None] * (n + 1), 0.01, 2)
 
 
 # -- LayerNorm (#5, #6) and softmax cross-entropy (#7, #8) ------------------
