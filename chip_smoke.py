@@ -130,7 +130,14 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    Adamax(1e-4), stochastic rounding and bf16 moments: an optimizer
    without a fused mapping keeps its per-leaf code, whose downcasts
    launch the standalone rounding kernel (K2) exactly steps x 3 x 292
-   times (each parameter and both moments), and no tree update;
+   times (each parameter and both moments), and no tree update. Then,
+   on the switched route from the phase-4 weights: `run_steps(4)`
+   against four calls from the same state (restored by
+   `snapshot_state` / `set_tree_state`), losses and every parameter
+   bit-equal; `accumulate(2)` on two [4, 1024] microbatches against one
+   call on the [8, 1024] batch from the same state, losses within 1e-3
+   relative, each fused pass launched once a group and the forward's
+   kernels twice;
 7b. GPT-1.3B (gpt_1p3b(), head_dim 128) at full width and depth
    (vocab 50304, hidden 2048, 24 layers, 16 heads; 1,313,722,368
    parameters with the tied head; max_position_embeddings 1024 as
@@ -141,8 +148,7 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    RandomState(0), labels = ids): 2 warm-up, 5 timed, 1 profiled step.
    Its optimizer is not bench.py's (the second run's is), and neither
    run has bench.py's scan_remat="dots" and fused_loss(chunk=2048)
-   (ROADMAP.md queue A, item A.5; without remat the step holds ~23 GB,
-   well inside 80 GB).
+   (phase 7c has both).
    Each flash kernel must launch steps x 24 times, each LayerNorm
    kernel steps x 49, each xent kernel steps x 1, each fused pass
    steps x groups; losses and health finite, found_inf 0, the loss
@@ -162,13 +168,36 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    batch 2 x 256 on the card (the CUDA-core flash kernels at head_dim
    128) and on the CPU (twins) from the same weights, on the same
    route: losses and health vectors agree to rtol 1e-3;
+7c. bench.py's GPT-1.3B headline as bench.py writes it
+   (bench.py:667-714), on 7b's weights (not drawn again) and batch:
+   scan_remat="dots", dropout 0, bench.py's wrapper whose forward is
+   fused_loss(ids, labels, chunk=2048) (the chunked vocab loss on
+   kernels #7-#8), TrainStep(model_returns_loss=True,
+   monitor_health=True) with no fused_update argument, Momentum(1e-4,
+   0.9) with stochastic rounding and a bf16 velocity (the tree path),
+   both switches: 2 warm-up, 8 timed and 1 profiled step; then the
+   same with scan_remat=True and "names", 1 warm-up, 3 timed and 1
+   profiled step each. Launches a step, constants worked out from the
+   code (BENCH_1P3B_LAUNCHES): flash forward 48 (the recompute runs it
+   again), dQ and dK/dV 24, LayerNorm forward 97 (ln_1 and ln_2 again in
+   the recompute, ln_f once), backward 49, #7 and #8 2 (two chunks),
+   the tree update 1, no fused pass and no K2; losses finite and
+   falling; the "dots" run's step-1 loss within 1e-3 relative of 7b's
+   bench-optimizer run's; the three policies' step-1 losses bit-equal;
+   the peak under True below 7b's bench-optimizer run's. For each run:
+   wall and device ms a step, tokens/s, MFU (the recompute not
+   counted), idle share, peak memory, launches, the loss from first
+   step to last;
 8. GPT-medium width with 2 layers in float32, 3 train steps (batch
    2 x 256) on the card (kernels) and on the CPU (twins) from the same
    weights, on each epilogue and on the default one with both switches
    set: losses and health vectors agree to rtol 1e-3; the same for the
    eager loop (AdamW, and Adam, with L2Decay, ClipGradByNorm and a
    step-decay scheduler; losses), Lamb on TrainStep's tree path and
-   AdamW on the fused epilogue with bf16 moments;
+   AdamW on the fused epilogue with bf16 moments; and remat "dots" with
+   fused_loss behind bench.py's wrapper (model_returns_loss), 3
+   accumulate(2) steps on the fused epilogue (#7-#8 once a microbatch,
+   the flash forward twice a layer a microbatch);
 9. the fused epilogue's kernels against their twins on the card at
    GPT-medium's layout (16 buckets, 354,871,296 parameters), bf16 with
    f32 masters, AdamW, stats on: with a live GradScaler (pass 1 writes
@@ -216,17 +245,24 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    twins: LayerNorm at [8192, 1024] and [4096, 2048] in bf16 (bf16
    weight and bias, as GPT's), [8192, 1024] in f32, [1000, 4096]
    (gpt_6p7b's width, a ragged row count), [8192, 1000] and [257, 1001]
-   (scalar loads), [64, 16384] (the widest row); xent at
-   [8192, 50304] in bf16 and f32 with about 10 % of the labels -1 and
-   some >= V, and [1000, 50257] (a row that is not 16-byte aligned);
+   (scalar loads), [64, 16384] (the widest row); xent at a chunk of
+   phase 7c's chunked loss [2048, 50304] and at [8192, 50304] in bf16,
+   [8192, 50304] in f32, with about 10 % of the labels -1 and some
+   >= V, and [1000, 50257] (a row that is not 16-byte aligned);
    xent dx is held per element against |twin| (one bf16 ulp, or
    1e-5 relative plus 1e-9 in f32), since most of it is far below 1.
    At the training shapes (LayerNorm [8192, 1024] and GPT-1.3B's
-   [4096, 2048] bf16, xent [8192, 50304] bf16) each kernel's time, its
-   twin's, one PyTorch
+   [4096, 2048] bf16, xent [2048, 50304] and [8192, 50304] bf16) each
+   kernel's time, its twin's, one PyTorch
    call's (torch.nn.functional.layer_norm forward and its backward;
    torch.nn.functional.cross_entropy(reduction="none") forward and its
-   backward) and the byte bound;
+   backward) and the byte bound. Then the chunked loss
+   (ops/chunked_xent.py) on #7-#8 against the same function on their
+   twins at 7c's shapes (hidden [4096, 2048], tied head [50304, 2048],
+   bf16, chunk 2048): the loss within 1e-5 * max(1, |twin|), dh and dw
+   within 1e-2 of their largest value, #7 and #8 once a chunk; its
+   forward + backward timed on the kernels, on the twins and unchunked
+   (F.cross_entropy over h @ w^T);
 12. the selective-scan kernel (#11) against its plain twin at serving
    shapes (D 1536, N 16, float32): pure decode (T 8, R 8), a 128-token
    chunk with 7 decode rows (T 256), pads on row 0 with dt = 0,
@@ -269,7 +305,8 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    "device": {...}}.
 
 Each main path (GPT serving in phase 4's wave B, training in phase 7's
-first run for kernels #2-#4 and #9-#10, phase 7's third run for #5-#8,
+first run for kernels #2-#4 and #9-#10, phase 7's third run for #5-#6,
+phase 7c's "dots" run (bench.py's headline) for #7-#8,
 its fourth for #10's bf16 variant, its fifth for K2, GPT-1.3B training
 in phase 7b for #2-#4 at head_dim 128, its second run for the tree
 update, SSM serving in phase 13's wave B for #11) runs with the launch
@@ -1480,6 +1517,25 @@ TRAIN = dict(batch=8, seq=1024, lr=1e-4, warmup=3, timed=10)
 TRAIN_1P3B = dict(batch=4, seq=1024, lr=1e-4, warmup=2, timed=5)
 # phase 7's fifth run (K2's path): short, its per-leaf code is host-bound
 TRAIN_K2 = dict(batch=8, seq=1024, lr=1e-4, warmup=1, timed=3)
+# phase 7c: bench.py's GPT-1.3B headline (bench.py:667-714): its 2 warm-up
+# and 8 timed steps under remat "dots"; True and "names" for their ms and
+# peak; the chunked loss's chunk (bench.py:693)
+BENCH_1P3B = dict(batch=4, seq=1024, lr=1e-4, warmup=2, timed=8)
+BENCH_1P3B_OTHER = dict(BENCH_1P3B, warmup=1, timed=3)
+BENCH_CHUNK = 2048
+# phase 7c's launches a step, worked out from the code for GPT-1.3B (24
+# blocks) under every remat policy: each block's recompute runs its
+# forward again up to fc_out's product, so the flash forward (#2) and
+# ln_1 / ln_2 (#5) run twice a block; ln_f (outside the blocks) and every
+# backward once; #7 and #8 once a chunk (4 x 1024 tokens / 2048); the
+# tree update once (292 leaves, one group)
+BENCH_1P3B_LAUNCHES = {"flash_attention_fwd": 48, "flash_attention_dq": 24,
+                       "flash_attention_dkv": 24, "layer_norm_fwd": 97,
+                       "layer_norm_bwd": 49, "softmax_xent_fwd": 2,
+                       "softmax_xent_bwd": 2, "tree_update": 1,
+                       "fused_pass1": 0, "fused_pass2": 0,
+                       "stochastic_round": 0}
+BENCH_LOSS_RTOL = 1e-3  # 7c's step-1 loss against 7b's bench-optimizer run
 GPT_1P3B_PARAMS = 1_313_722_368  # vocab 50304, 1024 positions, tied head
 # GPT-1.3B's loss at its last timed step as recorded before the LayerNorm kernels' row
 # layouts (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5): printed
@@ -1850,8 +1906,28 @@ def one_tree_launch(run):
           f"{run['k2_per_step']} rounding launches a step, want 1 and 0")
 
 
+def fused_loss_net(torch, lm, chunk):
+    """bench.py's `_FusedLossWrapper` (bench.py:687-693): forward(ids,
+    labels) is lm.fused_loss(ids, labels, chunk), the chunked vocab
+    loss, for TrainStep(model_returns_loss=True). Every parameter name
+    gains the prefix "lm."."""
+    class FusedLossWrapper(torch.nn.Module):
+        # the model rides the instance only: a class made here is freed by
+        # the garbage collector, not when the step is deleted
+        def __init__(self, lm):
+            super().__init__()
+            self.lm = lm
+
+        def forward(self, ids, labels):
+            return self.lm.fused_loss(ids, labels, chunk=self.chunk)
+    net = FusedLossWrapper(lm)
+    net.chunk = chunk
+    return net
+
+
 def train_run(torch, km, tmods, state, fused, switched=False,
-              capture=None, cfg=None, run=TRAIN, name="", opt=None):
+              capture=None, cfg=None, run=TRAIN, name="", opt=None,
+              remat=False, chunk=None):
     """A GPT (GPT-medium, or `cfg`) at full width in bf16, AdamW(lr=1e-4,
     multi_precision) with f32 masters (or `opt(parameters)`'s optimizer;
     a scheduler as its lr is stepped after each step),
@@ -1870,16 +1946,22 @@ def train_run(torch, km, tmods, state, fused, switched=False,
     otherwise. The launch counts are set to 0 just
     before the run. With `capture` (a dict), the first warm-up step's
     flash backward inputs of layer 0 are kept there, on the host
-    (capture_flash_bwd). `name` prefixes the printed label. Returns the
-    run's measurements."""
+    (capture_flash_bwd). `name` prefixes the printed label. With `remat`
+    the config's scan_remat is set to it; with `chunk` the step is
+    bench.py's: TrainStep(fused_loss_net(model, chunk), None, ...,
+    model_returns_loss=True), the chunked vocab loss on kernels #7-#8
+    whatever the switches say. Returns the run's measurements."""
+    cfg = copy.copy(cfg or tmods[1]())
+    cfg.scan_remat = remat
     with switches(switched):
         return _train_run(torch, km, tmods, state, fused, switched, capture,
-                          cfg or tmods[1](), run, name, opt)
+                          cfg, run, name, opt, chunk)
 
 
 def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
-               name, make_opt):
+               name, make_opt, chunk):
     from torch.autograd import DeviceType
+    from paddle_tpu_torch.ops.chunked_xent import _pick_chunk
     from paddle_tpu_torch.jit.api import HEALTH_KEYS
     from paddle_tpu_torch.optimizer.lr import LRScheduler
     GPTForCausalLM, _, load_state, TrainStep, AdamW, F = tmods
@@ -1902,8 +1984,14 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
         multi_precision=True)
     sched = optimizer._learning_rate if isinstance(
         optimizer._learning_rate, LRScheduler) else None
-    step = TrainStep(model, lm_loss(F), optimizer, monitor_health=True,
-                     **({} if fused else {"fused_update": False}))
+    kw = {} if fused else {"fused_update": False}
+    if chunk:
+        step = TrainStep(fused_loss_net(torch, model, chunk), None,
+                         optimizer, model_returns_loss=True,
+                         monitor_health=True, **kw)
+    else:
+        step = TrainStep(model, lm_loss(F), optimizer, monitor_health=True,
+                         **kw)
     want_fused = fused and optimizer.fused_spec() is not None
     check((step._fused is not None) == want_fused,
           f"{label}: TrainStep took the {'fused' if step._fused else 'tree'}"
@@ -1950,22 +2038,25 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
     check((hv[:, 4] == 0).all(), f"{label}: found_inf set: {hv[:, 4]}")
     first, last = vals[0], vals[run["warmup"] + run["timed"] - 1]
     check(last < first, f"{label}: loss did not fall: {first} -> {last}")
-    for name, _ in FLASH_KERNELS:
-        check(launches[name] == n_steps * cfg.num_layers,
+    # under remat each block's recompute runs its forward again up to its
+    # last saved tensor (fc_out's product): the flash forward and ln_1 /
+    # ln_2 twice a layer, their backwards once; ln_f is outside the blocks
+    again = 2 if cfg.scan_remat else 1
+    L = cfg.num_layers
+    n_ln = 2 * L + 1  # ln_1 and ln_2 of each block, ln_f
+    per_step = {"flash_attention_fwd": L * again, "flash_attention_dq": L,
+                "flash_attention_dkv": L,
+                "layer_norm_fwd": (2 * L * again + 1) * switched,
+                "layer_norm_bwd": n_ln * switched}
+    n_chunks = B * T // _pick_chunk(B * T, chunk) if chunk \
+        else int(switched)
+    per_step.update({n: n_chunks for n, _ in XENT_KERNELS})
+    per_step.update({n: groups for n, _ in FUSED_KERNELS})
+    for name, want in per_step.items():
+        check(launches[name] == n_steps * want,
               f"{label}: {name}: {launches[name]} launches, want "
-              f"{n_steps} steps x {cfg.num_layers}")
-    for name, _ in FUSED_KERNELS:
-        check(launches[name] == n_steps * groups,
-              f"{label}: {name}: {launches[name]} launches, want "
-              f"{n_steps} steps x {groups} groups")
-    n_ln = 2 * cfg.num_layers + 1  # ln_1 and ln_2 of each block, ln_f
-    for names, per_step in ((NORM_KERNELS, n_ln), (XENT_KERNELS, 1)):
-        for name, _ in names:
-            want = n_steps * per_step * switched
-            check(launches[name] == want,
-                  f"{label}: {name}: {launches[name]} launches, want "
-                  f"{want} ({n_steps} steps x {per_step} x switched "
-                  f"{switched})")
+              f"{n_steps} steps x {want} (switched {switched}, remat "
+              f"{cfg.scan_remat!r}, chunk {chunk})")
     check(launches["ragged_paged_attention"] == 0
           and launches["ssm_scan"] == 0,
           f"{label}: a serving kernel ran in training")
@@ -1991,7 +2082,7 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
                epilogue_ms=epi_us / 1e3 if epi_us else None,
                launches=launches, groups=groups, first=first, last=last,
                leaves=n_leaves, tree_per_step=tree_per_step,
-               k2_per_step=k2_per_step)
+               k2_per_step=k2_per_step, n_steps=n_steps, losses=vals)
     print(f"  {label}: {n_params} parameters; {n_steps} steps, loss "
           f"{first:.4f} -> {last:.4f} (last health {health})")
     print(f"  {label}: {res['ms']:.1f} ms/step over {run['timed']} steps "
@@ -2001,10 +2092,8 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
           f"{peak:.2f} GiB ({start_gib:.2f} GiB allocated at the start, "
           f"the model's weights included)")
     print(f"  {label}: launches per kernel {launches} ({n_steps} steps x "
-          f"{cfg.num_layers} layers; fused passes x {groups} groups; "
-          f"LayerNorm x {n_ln}, xent x 1 when switched; tree update x "
-          f"{tree_per_step}, standalone stochastic rounding x "
-          f"{k2_per_step}; {n_leaves} leaves)")
+          f"{per_step} a step; tree update x {tree_per_step}, standalone "
+          f"stochastic rounding x {k2_per_step}; {n_leaves} leaves)")
     print(f"  {label}: profiled step: {n_kernels} CUDA kernel launches "
           f"({len(ops)} device operations with copies and memsets); "
           f"epilogue device time "
@@ -2162,6 +2251,135 @@ def phase_train(torch, km, tmods, state, capture):
           f"{bf16_state['peak_gib']:.2f} GiB vs {ln_xent['peak_gib']:.2f} "
           f"GiB; loss {bf16_state['first']:.4f} -> {bf16_state['last']:.4f}")
     return main, tree, ln_xent, bf16_state, adamax_sr
+
+
+def phase_train_flavors(torch, km, tmods, state):
+    """Phase 7's switched route (GPT-medium bf16, the fused epilogue,
+    AdamW with f32 masters, both switches) from the phase-4 weights:
+    `run_steps(4)` against four calls from the same state (restored by
+    `snapshot_state` / `set_tree_state`, `_step_i` reset as a checkpoint
+    restore sets it): losses and every parameter bit-equal; then
+    `accumulate(2)` on two [4, 1024] microbatches against one call on
+    the [8, 1024] batch from the same state: losses within 1e-3
+    relative, one epilogue (each fused pass launched once a group) and
+    the forward kernels twice."""
+    GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
+    cfg = gpt_medium()
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    load_state(model, state)
+    B, T = TRAIN["batch"], TRAIN["seq"]
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(B, T)).astype(np.int32)).cuda()
+    step = TrainStep(model, lm_loss(F), AdamW(
+        learning_rate=TRAIN["lr"], parameters=model.parameters(),
+        multi_precision=True), monitor_health=True)
+    check(step._fused is not None, "flavors: not the fused epilogue")
+    groups = n_groups(step)
+    with switches(True):
+        snap, start = step.snapshot_state(), step._step_i
+        t = time.perf_counter()
+        scanned = step.run_steps(4, ids, ids)
+        after = {k: p.clone() for k, p in step.params.items()}
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        step.set_tree_state(snap["params"], snap["opt_state"])
+        step._step_i = start
+        t = time.perf_counter()
+        calls = torch.stack([step(ids, ids) for _ in range(4)])
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t
+        same = [k for k, p in step.params.items() if torch.equal(p, after[k])]
+        print(f"  run_steps(4) {scanned.tolist()} in {run_s * 1e3:.1f} ms; "
+              f"4 calls {calls.tolist()} in {call_s * 1e3:.1f} ms; "
+              f"{len(same)} of {len(after)} parameters bit-equal")
+        check(torch.equal(scanned, calls) and len(same) == len(after),
+              "flavors: run_steps(4) differs from 4 calls")
+        step.set_tree_state(snap["params"], snap["opt_state"])
+        step._step_i = start
+        zero_counts(km)
+        acc = step.accumulate(2, ids.reshape(2, B // 2, T),
+                              ids.reshape(2, B // 2, T))
+        torch.cuda.synchronize()
+        got = counts(km)
+        step.set_tree_state(snap["params"], snap["opt_state"])
+        step._step_i = start
+        whole = step(ids, ids)
+    L = cfg.num_layers
+    want = {"fused_pass1": groups, "fused_pass2": groups,
+            "flash_attention_fwd": 2 * L, "flash_attention_dq": 2 * L,
+            "flash_attention_dkv": 2 * L, "layer_norm_fwd": 2 * (2 * L + 1),
+            "layer_norm_bwd": 2 * (2 * L + 1), "softmax_xent_fwd": 2,
+            "softmax_xent_bwd": 2, "tree_update": 0, "stochastic_round": 0}
+    rel = abs(float(acc) - float(whole)) / abs(float(whole))
+    print(f"  accumulate(2) on 2 x [4, 1024]: loss {float(acc):.6f}; one "
+          f"step on [8, 1024]: {float(whole):.6f}; relative difference "
+          f"{rel:.3g} (limit 1e-3); launches {got}")
+    check(rel <= 1e-3, f"flavors: accumulate(2) loss {float(acc)} is {rel} "
+                       f"from the whole batch's {float(whole)}")
+    check({n: got[n] for n in want} == want,
+          f"flavors: accumulate(2) launches {got}, want {want}")
+    step.flush_health()
+    check(len(step.health_log) == 10 and np.isfinite(
+        [h["loss"] for h in step.health_log]).all(),
+        f"flavors: {len(step.health_log)} health vectors for 10 updates")
+    del step, model, snap
+    torch.cuda.empty_cache()
+
+
+def phase_flavor_agreement(torch, km, tmods, state):
+    """GPT-medium width, 2 layers, float32, on the card and on the CPU
+    from the same weights: remat "dots", fused_loss(chunk=2048) behind
+    bench.py's wrapper (512 tokens: one chunk), TrainStep(
+    model_returns_loss=True) on the fused epilogue (AdamW), 3
+    accumulate(2) steps on [2, 2, 256] microbatches. Losses and health
+    vectors within rtol 1e-3; on the card the flash forward twice a
+    layer a microbatch (the recompute), #7-#8 once a microbatch, each
+    fused pass once a step."""
+    from paddle_tpu_torch.jit.api import HEALTH_KEYS
+    GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = copy.copy(gpt_medium())
+    cfg.num_layers = AGREE["layers"]
+    cfg.scan_remat = "dots"
+    small = first_layers(state, cfg.num_layers)
+    ids = np.random.RandomState(4).randint(
+        0, cfg.vocab_size, size=(2, AGREE["batch"], AGREE["seq"]))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = GPTForCausalLM(cfg, device=device)
+        load_state(model, small)
+        step = TrainStep(fused_loss_net(torch, model, BENCH_CHUNK), None,
+                         AdamW(learning_rate=TRAIN["lr"],
+                               parameters=model.parameters()),
+                         model_returns_loss=True, monitor_health=True)
+        x = torch.from_numpy(ids).to(model.device)
+        before = counts(km)
+        for _ in range(AGREE["steps"]):
+            step.accumulate(2, x, x)
+        step.flush_health()
+        after = counts(km)
+        on = AGREE["steps"] * (device == "cuda")
+        L = cfg.num_layers
+        want = {"flash_attention_fwd": on * 2 * 2 * L,
+                "flash_attention_dq": on * 2 * L,
+                "flash_attention_dkv": on * 2 * L,
+                "softmax_xent_fwd": on * 2, "softmax_xent_bwd": on * 2,
+                "fused_pass1": on * n_groups(step),
+                "fused_pass2": on * n_groups(step),
+                "layer_norm_fwd": 0, "layer_norm_bwd": 0}
+        got = {n: after[n] - before[n] for n in want}
+        check(got == want, f"remat + fused_loss + accumulate, {device}: "
+                           f"launches {got}, want {want}")
+        runs[device] = np.array([[h[k] for k in HEALTH_KEYS]
+                                 for h in step.health_log])
+    g, c = runs["cuda"], runs["cpu"]
+    rel = np.abs(g - c) / np.maximum(np.abs(c), 1e-6)
+    print(f"  remat \"dots\" + fused_loss + accumulate(2): losses card "
+          f"{g[:, 0].tolist()} cpu {c[:, 0].tolist()}; health largest "
+          f"relative difference {rel.max():.3g} (limit {AGREE['rtol']})")
+    check(np.allclose(g, c, rtol=AGREE["rtol"], atol=1e-6),
+          f"remat + fused_loss + accumulate: card and CPU disagree: {g} vs "
+          f"{c}")
 
 
 ALL_ROUTES = ((True, False), (False, False), (True, True))
@@ -2440,10 +2658,76 @@ def phase_train_1p3b(torch, km, tmods, gpt_1p3b):
           f"{sr['peak_gib']:.2f} GiB (AdamW {res['peak_gib']:.2f}); loss "
           f"{sr['first']:.4f} -> {sr['last']:.4f}")
     small = first_layers(state, AGREE["layers"])
-    del state
     phase_train_agreement(torch, km, tmods, small, cfg=cfg,
                           routes=((True, True),))
-    return res, sr
+    print("[7c] bench.py's GPT-1.3B headline as bench.py writes it: remat "
+          "\"dots\", fused_loss(chunk=2048) behind a wrapper, "
+          "TrainStep(model_returns_loss=True), bench.py's Momentum; then "
+          "remat True and \"names\"", flush=True)
+    bench = phase_bench_1p3b(torch, km, tmods, state, cfg, sr)
+    return res, sr, bench
+
+
+def phase_bench_1p3b(torch, km, tmods, state, cfg, sr):
+    """bench.py's GPT-1.3B headline (bench.py:667-714) on phase 7b's
+    weights and batch: scan_remat "dots", dropout 0, fused_loss(chunk=
+    2048) behind bench.py's wrapper, TrainStep(model_returns_loss=True,
+    monitor_health=True) with no fused_update argument (the tree path:
+    Momentum, stochastic rounding, a bf16 velocity), both switches set:
+    2 warm-up, 8 timed, 1 profiled step. Then remat True and "names",
+    1 warm-up, 3 timed and 1 profiled step each. Holds: finite, falling
+    losses (train_run); the launches of #2-#10, the tree update and K2
+    equal to BENCH_1P3B_LAUNCHES a step; the "dots" run's step-1 loss
+    within 1e-3 relative of `sr`'s (7b's bench-optimizer run: the same
+    weights, batch and function, unchunked and without remat); the three
+    policies' step-1 losses bit-equal (the forward's kernels and cuBLAS
+    are deterministic); the peak under True below `sr`'s. Returns the
+    three runs' measurements."""
+    runs = {}
+    for remat, run in (("dots", BENCH_1P3B), (True, BENCH_1P3B_OTHER),
+                       ("names", BENCH_1P3B_OTHER)):
+        r = runs[remat] = train_run(
+            torch, km, tmods, state, fused=True, switched=True, cfg=cfg,
+            run=run, opt=bench_momentum(torch), remat=remat,
+            chunk=BENCH_CHUNK,
+            name=f"GPT-1.3B, bench.py's headline, remat {remat!r}, ")
+        one_tree_launch(r)
+        for name, per_step in BENCH_1P3B_LAUNCHES.items():
+            check(r["launches"][name] == r["n_steps"] * per_step,
+                  f"7c, remat {remat!r}: {name}: {r['launches'][name]} "
+                  f"launches, want {r['n_steps']} steps x {per_step}")
+    dots = runs["dots"]
+    rel = abs(dots["first"] - sr["first"]) / abs(sr["first"])
+    print(f"  step-1 loss: remat \"dots\" + chunked loss "
+          f"{dots['first']:.6f}, 7b's bench-optimizer run (no remat, "
+          f"unchunked) {sr['first']:.6f}, relative difference {rel:.3g} "
+          f"(limit {BENCH_LOSS_RTOL})")
+    check(rel <= BENCH_LOSS_RTOL, f"7c: the step-1 loss {dots['first']} is "
+                                  f"{rel} from 7b's {sr['first']}")
+    firsts = {k: r["first"] for k, r in runs.items()}
+    print(f"  step-1 losses by policy: {firsts} (must be bit-equal)")
+    check(len(set(firsts.values())) == 1,
+          f"7c: the remat policies' step-1 losses differ: {firsts}")
+    check(runs[True]["peak_gib"] < sr["peak_gib"],
+          f"7c: the peak under full remat, {runs[True]['peak_gib']:.3f} "
+          f"GiB, is not below 7b's no-remat peak {sr['peak_gib']:.3f} GiB")
+    print("  (MFU counts 6·N·tokens + 6·L·B·T²·hidden a step, the "
+          "recomputed forward not counted)")
+    print(f"  {'run':22s} {'wall ms':>8s} {'device ms':>9s} {'tokens/s':>9s} "
+          f"{'MFU':>7s} {'idle':>6s} {'peak GiB':>8s}  loss first -> last")
+    for label, r in [("7b, no remat", sr)] + [
+            (f"7c, remat {k!r}", v) for k, v in runs.items()]:
+        dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.2f}"
+        idle = "n/m" if r["idle"] is None else f"{r['idle']:.3f}"
+        print(f"  {label:22s} {r['ms']:8.2f} {dev:>9s} "
+              f"{r['tokens_s']:9.0f} {r['mfu']:7.4f} {idle:>6s} "
+              f"{r['peak_gib']:8.2f}  {r['first']:.4f} -> {r['last']:.4f}")
+    for k, r in runs.items():
+        print(f"  remat {k!r}: launches " + ", ".join(
+            f"{n} {r['launches'][n]}" for n in BENCH_1P3B_LAUNCHES)
+            + f" over {r['n_steps']} steps; device ms by family "
+            + ", ".join(f"{n} {v:.2f}" for n, v in r["parts_ms"].items()))
+    return runs
 
 
 def bench_momentum(torch):
@@ -3110,7 +3394,9 @@ def phase_scaler(torch, km, tmods, state):
 NORM_XENT_OPS = {"layer_norm_fwd": 8, "layer_norm_bwd": 14,
                  "softmax_xent_fwd": 4, "softmax_xent_bwd": 4}
 # (kernel pair, rows, columns, dtype, timed): the training shapes first
-# (GPT-medium's; GPT-1.3B's LayerNorm [4096, 2048] is timed too)
+# (GPT-medium's; GPT-1.3B's LayerNorm [4096, 2048] is timed too; xent at
+# a chunk of phase 7c's chunked loss, [2048, 50304], and at GPT-medium's
+# unchunked [8192, 50304])
 NORM_XENT_CASES = [("ln", 8192, 1024, "bfloat16", True),
                    ("ln", 4096, 2048, "bfloat16", True),
                    ("ln", 8192, 1024, "float32", False),
@@ -3118,6 +3404,7 @@ NORM_XENT_CASES = [("ln", 8192, 1024, "bfloat16", True),
                    ("ln", 8192, 1000, "bfloat16", False),
                    ("ln", 257, 1001, "float32", False),
                    ("ln", 64, 16384, "bfloat16", False),
+                   ("xent", 2048, 50304, "bfloat16", True),
                    ("xent", 8192, 50304, "bfloat16", True),
                    ("xent", 8192, 50304, "float32", False),
                    ("xent", 1000, 50257, "bfloat16", False)]
@@ -3335,6 +3622,87 @@ def phase_norm_xent(torch, lk, xk, flush):
     for name in worst:
         main[name]["max_abs_err"] = worst[name]
     return main
+
+
+# the chunked loss against its twin at phase 7c's shapes: GPT-1.3B's
+# hidden [4 x 1024, 2048] and tied head [50304, 2048] in bf16, chunk 2048;
+# the loss by #7's bound (STAT_TOL * max(1, |twin|)), dh and dw by the
+# bf16 flash bound (largest |diff| over largest |twin| <= 1e-2): bf16
+# products of dlogits that #8 gives within one bf16 ulp of its twin
+CHUNKED = dict(N=4096, H=2048, V=50304, chunk=2048)
+CHUNKED_REL = 1e-2
+
+
+@contextlib.contextmanager
+def xent_twins(cx, xk):
+    """ops/chunked_xent.py with kernels #7-#8 swapped for their plain
+    twins (on CUDA tensors too), restored on the way out."""
+    kept = cx.softmax_xent_fwd, cx.softmax_xent_bwd
+    cx.softmax_xent_fwd = xk.softmax_xent_fwd_reference
+    cx.softmax_xent_bwd = xk.softmax_xent_bwd_reference
+    try:
+        yield
+    finally:
+        cx.softmax_xent_fwd, cx.softmax_xent_bwd = kept
+
+
+def phase_chunked_xent(torch, xk, flush):
+    """`chunked_softmax_xent` on kernels #7-#8 against the same function
+    on their twins: loss, dh and dw at CHUNKED's shapes (1 in 37 labels
+    -100), #7 and #8 launched once a chunk and #7 not again in the
+    backward; the forward + backward's time on the kernels, on the twins
+    and of the unchunked loss (F.cross_entropy over h @ w^T, the library
+    call for the same function)."""
+    from paddle_tpu_torch.ops import chunked_xent as cx
+    N, H, V, c = (CHUNKED[k] for k in ("N", "H", "V", "chunk"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    h = torch.randn(N, H, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (0.02 * torch.randn(V, H, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    y = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    y[::37] = -100
+
+    def chunked():
+        hg, wg = h.detach().requires_grad_(), w.detach().requires_grad_()
+        loss = cx.chunked_softmax_xent(hg, wg, y, chunk=c)
+        loss.backward()
+        return loss.detach(), hg.grad, wg.grad
+
+    def unchunked():
+        hg, wg = h.detach().requires_grad_(), w.detach().requires_grad_()
+        torch.nn.functional.cross_entropy(hg @ wg.T, y,
+                                          ignore_index=-100).backward()
+
+    before = (xk.softmax_xent_fwd.launches, xk.softmax_xent_bwd.launches)
+    got = chunked()
+    torch.cuda.synchronize()
+    launched = (xk.softmax_xent_fwd.launches - before[0],
+                xk.softmax_xent_bwd.launches - before[1])
+    check(launched == (N // c, N // c),
+          f"chunked loss: launches (#7, #8) {launched}, want {N // c} each")
+    with xent_twins(cx, xk):
+        want = chunked()
+        twin_ms = cuda_ms(torch, chunked, 3, flush)
+    ms = cuda_ms(torch, chunked, 10, flush)
+    library_ms = cuda_ms(torch, unchunked, 10, flush)
+    err = within(got[0], want[0], STAT_TOL)
+    check(err is not None, f"chunked loss: {float(got[0])} vs the twin's "
+                           f"{float(want[0])} beyond {STAT_TOL}")
+    rels = {}
+    for key, a, b in (("dh", got[1], want[1]), ("dw", got[2], want[2])):
+        check(a.dtype == torch.bfloat16, f"chunked loss: {key} is {a.dtype}")
+        rels[key] = ((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()).item()
+        check(rels[key] <= CHUNKED_REL,
+              f"chunked loss: {key} {rels[key]} of its largest from the twin")
+    print(f"  chunked loss [{N}, {H}] x [{V}, {H}] bf16, chunk {c}: loss "
+          f"{float(got[0]):.6f} (twin {float(want[0]):.6f}, err {err:.3g}); "
+          f"dh {rels['dh']:.3g}, dw {rels['dw']:.3g} of their largest "
+          f"(dh {bf16_ulps(torch, got[1], want[1])}, dw "
+          f"{bf16_ulps(torch, got[2], want[2])} bf16 ulps at most); #7, #8 "
+          f"launches {launched}; forward + backward {ms:.3f} ms on the "
+          f"kernels, {twin_ms:.3f} ms on the twins, {library_ms:.3f} ms "
+          f"unchunked (F.cross_entropy over h @ w^T)", flush=True)
 
 
 # -- the SSM family: selective scan (#11) and Mamba-130M-shaped serving ------
@@ -3723,6 +4091,9 @@ def main():
     captured = {}
     train_main, _, train_switched, train_bf16_state, train_k2 = phase_train(
         torch, km, tmods, state, captured)
+    print("[7] (cont.) run_steps(4) against 4 calls, accumulate(2) against "
+          "the whole batch, on the switched route", flush=True)
+    phase_train_flavors(torch, km, tmods, state)
     print("[6] (cont.) flash forward, dQ and dK/dV: kernels vs plain twins "
           "on layer 0's inputs of the first phase-7 training step",
           flush=True)
@@ -3734,14 +4105,15 @@ def main():
     print("[7b] GPT-1.3B bf16 (head_dim 128) through TrainStep with "
           "PADDLE_TPU_PALLAS_LN=1 and PADDLE_TPU_PALLAS_XENT=1; then 2 of its "
           "layers in float32, card vs CPU", flush=True)
-    train_1p3b, train_1p3b_sr = phase_train_1p3b(torch, km, tmods,
-                                                 gpt_1p3b)
+    train_1p3b, train_1p3b_sr, bench = phase_train_1p3b(torch, km, tmods,
+                                                        gpt_1p3b)
 
     print("[8] 2-layer float32 training: card vs CPU, each epilogue, and "
           "the LayerNorm and xent kernels switched on; the eager loop, Lamb "
           "and bf16 moments", flush=True)
     phase_train_agreement(torch, km, tmods, state)
     phase_optimizer_agreement(torch, km, tmods, state)
+    phase_flavor_agreement(torch, km, tmods, state)
 
     print("[9] fused epilogue: kernels vs plain twins", flush=True)
     fused_main = phase_fused(torch, fk, fu, (SGD, Momentum, AdamW), tmods,
@@ -3761,6 +4133,7 @@ def main():
     print("[11] LayerNorm and softmax cross-entropy: kernels vs plain twins",
           flush=True)
     norm_xent = phase_norm_xent(torch, lk, xk, flush)
+    phase_chunked_xent(torch, xk, flush)
 
     floor_ms = cuda_ms(torch, lambda: torch.cuda._sleep(0), 20, flush)
     print(f"[12] selective scan: kernel vs plain twin (the timing's floor, "
@@ -3804,7 +4177,7 @@ def main():
             + [(k, "paddle_tpu_torch/csrc/layer_norm.cu", norm_xent,
                 train_switched, "") for k in NORM_KERNELS]
             + [(k, "paddle_tpu_torch/csrc/softmax_xent.cu", norm_xent,
-                train_switched, "") for k in XENT_KERNELS]):
+                bench["dots"], "") for k in XENT_KERNELS]):
         m = meas[name]
         kernels.append({
             "name": name + suffix, "route": "cuda", "source": source,
@@ -3852,9 +4225,10 @@ def main():
           f"layout (library: torch._foreach_norm over the grad buckets, "
           f"torch._fused_adamw_ over the f32 master buckets), LayerNorm "
           f"times at [8192, 1024] bf16 (library: F.layer_norm forward, its "
-          f"backward), xent times at [8192, 50304] bf16 (library: "
-          f"F.cross_entropy(reduction='none') forward, its backward); "
-          f"launches of #5-#8 from the switched training run; "
+          f"backward), xent times at a chunk of the chunked loss, "
+          f"[2048, 50304] bf16 (library: F.cross_entropy(reduction='none') "
+          f"forward, its backward); launches of #5-#6 from the switched "
+          f"training run, of #7-#8 from phase 7c's remat \"dots\" run; "
           f"fused_pass2_bf16_state: #10 with bf16 moments on GPT-medium's "
           f"layout (AdamW, f32 masters; library: none), launches from the "
           f"scheduled bf16-state run; tree_update: GPT-1.3B's 292 leaves on "

@@ -20,7 +20,11 @@ the SSM family, GPT training (`jit.TrainStep` on the flash-attention
 kernels, with the fused multi-tensor optimizer epilogue by default and
 an optional `amp.GradScaler`) and the optimizer surface (`optimizer`:
 the ten optimizers with an eager `step()`, `optimizer.lr`'s schedulers,
-`regularizer`, a bf16 optimizer state and stochastic rounding). Entry
+`regularizer`, a bf16 optimizer state and stochastic rounding), and
+bench.py's GPT-1.3B headline (remat by block, the chunked vocab loss
+`ops/chunked_xent.py`, `TrainStep`'s `model_returns_loss`, `run_steps`,
+`accumulate` and `snapshot_state`, and the health monitor's anomaly
+detector, `profiler/`). Entry
 points run on CUDA unless the caller passes `device="cpu"` (see
 `device.py`).
 """

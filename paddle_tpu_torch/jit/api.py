@@ -1,12 +1,16 @@
 """The train step.
 
 Counterpart: paddle_tpu/jit/api.py `TrainStep` with its two epilogues,
-`epilogue_leaf_meta`, and the training-health vector
-(`HealthMonitorMixin._health_vec` / `_tree_health_aux`, whose sums the
-tree update returns here). One call runs
-one optimizer step: forward in training mode, `loss_fn(logits,
-labels)` (times the GradScaler's scale when one is live), backward, then
-the epilogue:
+`epilogue_leaf_meta`, the training-health monitor
+(`HealthMonitorMixin`: the device vector `_health_vec`, whose sums the
+tree update returns here, and its host half, which feeds
+profiler/health.py's `AnomalyDetector`), the checkpoint surface
+(`CheckpointSnapshotMixin`: `tree_state`, `snapshot_state`), and the
+reference's many-steps and gradient-accumulation calls (`run_steps`,
+`accumulate`). One call runs one optimizer step: forward in training
+mode, `loss_fn(logits, labels)` or, with `model_returns_loss`, the
+model's own scalar loss (times the GradScaler's scale when one is
+live), backward, then the epilogue:
 
 - fused (the default, as on the reference): the two passes of the fused
   multi-tensor epilogue over dtype-bucketed flat buffers
@@ -24,9 +28,11 @@ The reference compiles the step with XLA and donates params and
 optimizer state; PyTorch runs it eagerly and the update is written in
 place. Its `DeferredLoss` is not needed: CUDA launches are already
 asynchronous, so the returned loss is a 0-dim device tensor and reading
-it is the only wait.
+it is the only wait. For the same reason `run_steps` is a host loop
+over the step with no sync inside, not one program.
 """
 import collections
+import math
 import os
 
 import numpy as np
@@ -34,6 +40,8 @@ import torch
 
 from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByValue,
                        clip_grads_tree, global_grad_norm)
+from ..profiler import monitor as _monitor
+from ..profiler.health import AnomalyDetector
 
 __all__ = ["TrainStep", "epilogue_leaf_meta"]
 
@@ -70,7 +78,8 @@ class TrainStep:
     """step = TrainStep(model, loss_fn, optimizer); loss = step(*inputs,
     labels).
 
-    The last batch element is the labels; the others go to the model.
+    The last batch element is the labels; the others go to the model
+    (with model_returns_loss, all of them).
     `params` and `opt_state` are per-leaf views keyed by state_dict name
     on both epilogues; `set_tree_state` loads them back.
 
@@ -80,13 +89,23 @@ class TrainStep:
     (`scaler_state`), with no host sync. `sync_to_model()` copies the
     state back into the scaler.
 
+    model_returns_loss=True: the model's forward(*batch) is the scalar
+    loss (e.g. `GPTForCausalLM.fused_loss` behind a wrapper) and
+    `loss_fn` is ignored.
+
     monitor_health=True: each step also builds the float32 vector
     [loss, grad_norm, param_norm, update_ratio, found_inf] on the device
     (param_norm over the new params, update_ratio the norm of their
     change over param_norm, found_inf from the scaler's flag, else the
-    epilogue's non-finite sweep, else the norm's finiteness);
-    `flush_health()` reads the pending vectors into `health_log` (one
-    dict a step) and returns the last.
+    epilogue's non-finite sweep, else the norm's finiteness) and starts
+    its copy to pinned host memory behind a CUDA event. A vector is read
+    only once its event has completed, at a later step, never blocking
+    the loop: into `last_health` and `health_log` (one dict a step), the
+    `health.grad_norm` / `health.update_ratio` gauges, a `kind:"health"`
+    metrics record and `anomalies` (profiler/health.AnomalyDetector:
+    loss and grad-norm spikes, non-finite steps, found_inf streaks).
+    `flush_health()` is the blocking drain and returns the last.
+    `retraces` stays 0: the eager step compiles nothing.
 
     fused_update: True / False choose the epilogue; None (the default)
     reads PADDLE_TPU_FUSED_UPDATE (fused unless "0"). An optimizer
@@ -100,12 +119,17 @@ class TrainStep:
     `lr.LRScheduler`'s value, which the caller steps between steps) and
     rounded to float32.
 
+    `run_steps(n, *batch)` runs n steps at the lr of its start and
+    returns their losses as one device tensor; `accumulate(k, *batch)`
+    makes one update from k microbatches. `tree_state()` and
+    `snapshot_state()` give the state a checkpoint keeps (the second as
+    device copies); `set_tree_state` and `scaler_state` restore it.
+
     The reference's signature, whole: `mesh` and `in_shardings` (its
-    sharded step, ROADMAP.md queue A, item A.13) and
-    `model_returns_loss` (item A.5) raise NotImplementedError unless at
-    their defaults; `donate` (buffer donation to a compiled program) has
-    no meaning in eager torch, whose step updates in place, and is
-    ignored."""
+    sharded step, ROADMAP.md queue A, item A.13) raise
+    NotImplementedError unless at their defaults; `donate` (buffer
+    donation to a compiled program) has no meaning in eager torch, whose
+    step updates in place, and is ignored."""
 
     def __init__(self, model, loss_fn, optimizer, mesh=None,
                  in_shardings=None, donate=True, model_returns_loss=False,
@@ -114,15 +138,12 @@ class TrainStep:
             raise NotImplementedError(
                 "TrainStep(mesh=, in_shardings=): the sharded step is not "
                 "ported yet (ROADMAP.md queue A, item A.13)")
-        if model_returns_loss:
-            raise NotImplementedError(
-                "TrainStep(model_returns_loss=True) is not ported yet "
-                "(ROADMAP.md queue A, item A.5)")
         del donate  # eager torch updates in place: nothing to donate
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.scaler = scaler
+        self._model_returns_loss = bool(model_returns_loss)
         self._named = {k: p for k, p in model.named_parameters()
                        if p.requires_grad}
         (self._leaf_meta, self._need_clip, self._decay_mask,
@@ -146,10 +167,12 @@ class TrainStep:
         self.scaler_state = scaler.init_jit_state(device) \
             if scaler is not None else {}
         self._step_i = 0
+        self.retraces = 0
         self.monitor_health = bool(monitor_health)
         self._health_pending = collections.deque()
         self.health_log = []
         self.last_health = None
+        self.anomalies = AnomalyDetector() if self.monitor_health else None
 
     def _build_fused(self, fused_update):
         """The FusedEpilogue for this (optimizer, clip, params) config,
@@ -188,6 +211,21 @@ class TrainStep:
         if self._fused is not None:
             return self._fused.state_view(self._opt_store)
         return self._opt_store
+
+    def tree_state(self):
+        """{"params", "opt_state", "scaler_state"}: the per-leaf views
+        of the step's state and the GradScaler's device state ({} with
+        no scaler), what a checkpoint saves."""
+        return {"params": self.params, "opt_state": self.opt_state,
+                "scaler_state": self.scaler_state}
+
+    def snapshot_state(self):
+        """`tree_state()` as device copies, detached from the buffers the
+        next step updates in place. The copies are queued on the current
+        stream; nothing waits for them. Restore with
+        `set_tree_state(s["params"], s["opt_state"])` and
+        `scaler_state = s["scaler_state"]`."""
+        return _copy_tree(self.tree_state())
 
     def set_tree_state(self, params=None, opt_state=None):
         """Load per-leaf params ({name: tensor}) and optimizer state (the
@@ -231,13 +269,75 @@ class TrainStep:
     def _scaling(self):
         return self.scaler is not None and self.scaler.is_enable()
 
-    def __call__(self, *batch):
-        *inputs, labels = batch
-        self._step_i += 1
+    def _lr(self):
         # the lr (a float, or a scheduler's value) as float32, as the
         # reference's jnp.asarray(get_lr(), float32): both epilogues
         # compute with this value
-        lr = float(np.float32(self.optimizer.get_lr()))
+        return float(np.float32(self.optimizer.get_lr()))
+
+    def __call__(self, *batch):
+        self._step_i += 1
+        return self._step(batch, self._lr())
+
+    def run_steps(self, n, *batch, data_per_step=False):
+        """n optimizer steps at the lr of the call's start (a scheduler
+        is stepped between calls), step indices `_step_i + 1` to
+        `_step_i + n`. With `data_per_step` every batch tensor carries a
+        leading dim of n and step i takes `b[i]`; otherwise every step
+        takes the same batch. Returns the n losses as one device tensor
+        [n]; nothing waits on the device between steps, and each step's
+        health vector is queued as `__call__` queues it."""
+        if data_per_step:
+            for b in batch:
+                if b.dim() == 0 or b.shape[0] != n:
+                    raise ValueError(
+                        f"data_per_step=True needs a leading dim of n={n} "
+                        f"on every batch array, got shape {tuple(b.shape)}")
+        lr = self._lr()
+        losses = []
+        for i in range(n):
+            self._step_i += 1
+            losses.append(self._step(
+                [b[i] for b in batch] if data_per_step else batch, lr))
+        return torch.stack(losses)
+
+    def accumulate(self, k, *batch):
+        """One optimizer update from k microbatches: every batch tensor
+        carries a leading dim of k, microbatch i is `b[i]`. The k
+        forward/backward passes add their grads in the grads' dtype (the
+        fused path into its flat buckets), which are then divided by k
+        in that dtype; the loss is the float32 mean of the microbatch
+        losses. One epilogue and one health vector. k == 1 is a plain
+        step."""
+        for b in batch:
+            if b.dim() == 0 or b.shape[0] != k:
+                raise ValueError(
+                    f"accumulate(k={k}) needs a leading microbatch dim of "
+                    f"{k} on every batch array, got shape {tuple(b.shape)}")
+        if k == 1:
+            return self(*[b[0] for b in batch])
+        self._step_i += 1
+        lr = self._lr()
+        self._zero_grads()
+        total = None
+        for i in range(k):
+            loss = self._backward([b[i] for b in batch]).float()
+            total = loss if total is None else total + loss
+        with torch.no_grad():
+            if self._fused is not None:
+                for g in self._grad_store.values():
+                    g.div_(k)
+            else:
+                for p in self._named.values():
+                    if p.grad is not None:
+                        p.grad.div_(k)
+        return self._epilogue(total / k, lr)
+
+    def _step(self, batch, lr):
+        self._zero_grads()
+        return self._epilogue(self._backward(batch), lr)
+
+    def _zero_grads(self):
         if self._fused is not None:
             lay = self._fused.layout
             if lay.grads_in_buckets(self._named, self._grad_store):
@@ -249,28 +349,44 @@ class TrainStep:
         else:
             for p in self._named.values():
                 p.grad = None
+
+    def _loss_of(self, batch):
+        """The scalar loss of one (micro)batch, the model in training
+        mode: the model's own with model_returns_loss, else
+        loss_fn(model(*inputs), labels) with the batch's last element the
+        labels."""
         was_training = self.model.training
         self.model.train()
         try:
-            loss = self.loss_fn(self.model(*inputs), labels)
+            if self._model_returns_loss:
+                return self.model(*batch)
+            *inputs, labels = batch
+            return self.loss_fn(self.model(*inputs), labels)
         finally:
             self.model.train(was_training)
-        scaling = self._scaling()
-        if scaling:
+
+    def _backward(self, batch):
+        """Forward and backward of one (micro)batch into the grads;
+        returns the loss, scaled when a GradScaler rides, detached."""
+        loss = self._loss_of(batch)
+        if self._scaling():
             loss = loss.float() * self.scaler_state["scale"]
         loss.backward()
+        return loss.detach()
+
+    def _epilogue(self, loss, lr):
+        """Unscale the loss, update from the grads, queue the health
+        vector; returns the loss."""
         with torch.no_grad(), torch.profiler.record_function(
                 "TrainStep.epilogue"):
-            loss = loss.detach()
-            if scaling:
+            if self._scaling():
                 loss = loss / self.scaler_state["scale"]
             if self._fused is not None:
                 aux = self._finish_fused(lr)
             else:
                 aux = self._finish_tree(lr)
             if self.monitor_health:
-                self._health_pending.append(
-                    (self._step_i, self._health_vec(loss, aux)))
+                self._queue_health(self._step_i, self._health_vec(loss, aux))
         return loss
 
     def _finish_fused(self, lr):
@@ -341,14 +457,63 @@ class TrainStep:
         return torch.stack([loss.float().reshape(()), grad_norm, param_norm,
                             update_ratio, found_inf.reshape(())])
 
-    def flush_health(self):
-        """Read the pending health vectors (a device sync) and return the
-        last as {"step", "loss", "grad_norm", "param_norm",
-        "update_ratio", "found_inf"}, or None when monitor_health is off
-        or no step ran."""
+    def _queue_health(self, step_i, vec):
+        """Start the copy of one step's health vector to pinned host
+        memory (non-blocking, on the current stream, behind a CUDA
+        event), then fold the vectors whose copies have completed into
+        the detectors. Never waits on the device; `flush_health()` is
+        the blocking drain. A CPU vector is on the host already."""
+        done = None
+        if vec.device.type == "cuda":
+            host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+            host.copy_(vec, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            vec = host
+        self._health_pending.append((step_i, vec, done))
+        self._drain_health(block=False)
+
+    def _drain_health(self, block):
         while self._health_pending:
-            step_i, vec = self._health_pending.popleft()
-            self.last_health = {"step": int(step_i),
-                                **dict(zip(HEALTH_KEYS, vec.tolist()))}
-            self.health_log.append(self.last_health)
+            step_i, vec, done = self._health_pending[0]
+            if done is not None:
+                if block:
+                    done.synchronize()
+                elif not done.query():
+                    return  # still copying: look again at the next step
+            self._health_pending.popleft()
+            self._observe_health(step_i, vec)
+
+    def _observe_health(self, step_i, vec):
+        h = dict(zip(HEALTH_KEYS, vec.tolist()))  # on the host already
+        self.last_health = {"step": int(step_i), **h}
+        self.health_log.append(self.last_health)
+        _monitor.gauge("health.grad_norm").set(h["grad_norm"])
+        _monitor.gauge("health.update_ratio").set(h["update_ratio"])
+        # a bare NaN token is not valid JSON: non-finite values are
+        # exported as their repr strings (the anomaly event carries them)
+        rec = {k: (v if math.isfinite(v) else repr(v)) for k, v in h.items()}
+        rec["step"] = int(step_i)
+        _monitor.export_step(rec, kind="health")
+        if self.anomalies is not None:
+            self.anomalies.observe(step_i, h, retraces=self.retraces)
+
+    def flush_health(self):
+        """Blocking drain of the pending health vectors. Returns the last
+        as {"step", "loss", "grad_norm", "param_norm", "update_ratio",
+        "found_inf"}, or None when monitor_health is off or no step
+        ran."""
+        self._drain_health(block=True)
         return self.last_health
+
+
+def _copy_tree(tree):
+    """A copy of a nest of dicts, tuples and lists whose tensors are
+    cloned (on their device, queued on the current stream)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_copy_tree(v) for v in tree)
+    return tree

@@ -29,25 +29,39 @@ over one to one.
   routes to the hand-written flash kernels
   (ops/kernels/flash_attention.py); logits come out alone. The layer
   stack is a plain loop (the reference's `scan_layers` is an XLA
-  compile-time device).
+  compile-time device). `loss` is the cross-entropy of those logits,
+  `fused_loss` the chunked vocab loss (ops/chunked_xent.py, kernels
+  #7-#8) that never holds the [B*T, V] logits;
+- `GPTConfig.scan_remat` recomputes each block in the backward
+  (`torch.utils.checkpoint`, non-reentrant): True recomputes all of
+  it, "dots" keeps the outputs of the products without a batch dim
+  (the four Linear products) and "names" exactly the block's three
+  named points (`gpt_qkv`, `gpt_attn_out`, `gpt_ffn_in`), the
+  reference's `_remat_policy`;
 - presets `gpt_tiny`, `gpt_small`, `gpt_medium`, `gpt_1p3b` and
   `gpt_6p7b` equal the reference's field for field; the last two have
   head_dim 128, which the flash kernels take as they take 64.
 
-Not ported yet (ROADMAP.md queue A): the `scan_remat` policies, the
-static and legacy cache branches.
+Not ported yet (ROADMAP.md queue A): the static and legacy cache
+branches.
 """
+import contextlib
+import functools
+import threading
 import time
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..framework.dtype import convert_dtype
 from ..nn import Dropout, Embedding, LayerNorm, Linear
 from ..nn import functional as F
 from ..ops.attention_core import NEG_INF
+from ..ops.chunked_xent import chunked_softmax_xent
 from ..ops.kernels import captured_launches, sm_count
 from ..ops.kernels.paged_attention import (H100_SMS, graph_scratch,
                                            ragged_capacity,
@@ -108,8 +122,8 @@ class GPTConfig:
         self.initializer_range = initializer_range
         self.use_bias = use_bias
         # scan_layers is accepted for the reference's signature: the port
-        # always runs the stack as a plain loop. A truthy scan_remat
-        # (activation recomputation) raises when the model is built.
+        # always runs the stack as a plain loop; scan_remat picks the
+        # blocks' recompute policy (`_remat_policy`)
         self.scan_layers = scan_layers
         self.scan_remat = scan_remat
         for name, value in given.items():
@@ -523,6 +537,79 @@ def sample_token_rows(last, temps, top_ks, top_ps, rng_keys, positions):
     return torch.where(temps <= 0.0, greedy, sampled)
 
 
+# -- remat by block ------------------------------------------------------
+
+# the products without a batch dim: a Linear's x @ W folds x to 2-D
+_PRODUCTS = frozenset({torch.ops.aten.mm.default,
+                       torch.ops.aten.addmm.default})
+_NAMED = threading.local()
+
+
+@contextlib.contextmanager
+def _ckpt_name(name):
+    """Mark the ops run inside as the named save point `name` (the
+    reference's `checkpoint_name`). The forward and its recompute run
+    the same code, so both set the flag at the same ops. At gpt_qkv and
+    gpt_ffn_in the point is the Linear's product (its bias add is
+    recomputed), at gpt_attn_out the attention output's reshape."""
+    prev = getattr(_NAMED, "name", None)
+    _NAMED.name = name
+    try:
+        yield
+    finally:
+        _NAMED.name = prev
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """"dots": keep the outputs of products without a batch dim (the
+    reference's dots_with_no_batch_dims_saveable)."""
+    return CheckpointPolicy.MUST_SAVE if op in _PRODUCTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_names(ctx, op, *args, **kwargs):
+    """"names": keep exactly the outputs at the three named points (the
+    reference's save_only_these_names)."""
+    name = getattr(_NAMED, "name", None)
+    if name == "gpt_attn_out" or (name is not None and op in _PRODUCTS):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_policy(scan_remat):
+    """cfg.scan_remat to a selective-checkpoint policy: "dots" and
+    "names" as above; any other truthy value recomputes everything
+    (None)."""
+    return {"dots": _save_dots, "names": _save_names}.get(scan_remat)
+
+
+def _remat(block, x, policy, generator):
+    """block(x), recomputed in the backward (non-reentrant
+    torch.utils.checkpoint) under `policy`. The recompute replays
+    `generator` (the blocks' Dropout draws from it, which checkpoint's
+    own RNG stash does not cover) from its state at the forward, and
+    leaves it where it was; None when nothing draws."""
+    replay = None if generator is None else generator.get_state()
+    first = True
+
+    def run(h):
+        nonlocal first
+        if replay is None or first:
+            first = False
+            return block(h)
+        now = generator.get_state()
+        generator.set_state(replay)
+        try:
+            return block(h)
+        finally:
+            generator.set_state(now)
+
+    context = {} if policy is None else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, policy)}
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
+                      **context)
+
+
 class GPTAttention(nn.Module):
     def __init__(self, cfg, device=None, dtype=None, generator=None):
         super().__init__()
@@ -539,8 +626,9 @@ class GPTAttention(nn.Module):
         B, T, H = x.shape
         # the fused projection is laid out (3, heads, head_dim); q, k and
         # v are strided views of it, which the flash kernels read in place
-        qkv = self.qkv_proj(x).reshape(B, T, 3, self.num_heads,
-                                       self.head_dim)
+        with _ckpt_name("gpt_qkv"):
+            qkv = self.qkv_proj(x)
+        qkv = qkv.reshape(B, T, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.unbind(dim=2)
         if isinstance(cache, RaggedSlot):
             return self._forward_paged_ragged(x, q, k, v, cache)
@@ -549,7 +637,9 @@ class GPTAttention(nn.Module):
         out = F.scaled_dot_product_attention(
             q, k, v, is_causal=True,
             dropout_p=self.dropout if self.training else 0.0)
-        return self.out_proj(out.reshape(B, T, H))
+        with _ckpt_name("gpt_attn_out"):
+            out = out.reshape(B, T, H)
+        return self.out_proj(out)
 
     def _forward_paged_ragged(self, x, q, k, v, slot):
         """One batched scatter writes every token's k/v row into its
@@ -580,8 +670,9 @@ class GPTMLP(nn.Module):
         self.drop = Dropout(cfg.dropout, generator=generator)
 
     def forward(self, x):
-        return self.drop(self.fc_out(F.gelu(self.fc_in(x),
-                                            approximate=True)))
+        with _ckpt_name("gpt_ffn_in"):
+            h = self.fc_in(x)
+        return self.drop(self.fc_out(F.gelu(h, approximate=True)))
 
 
 class GPTBlock(nn.Module):
@@ -606,12 +697,9 @@ class GPTBlock(nn.Module):
 class GPTModel(nn.Module):
     def __init__(self, cfg, device=None, dtype=None, generator=None):
         super().__init__()
-        if cfg.scan_remat:
-            raise NotImplementedError(
-                f"scan_remat={cfg.scan_remat!r}: activation recomputation "
-                "(torch.utils.checkpoint with the true/'names'/'dots' "
-                "policies) is not ported yet (ROADMAP.md queue A, item A.5)")
         self.cfg = cfg
+        # the blocks' Dropout draws, which a recompute replays
+        self._remat_generator = generator if cfg.dropout > 0.0 else None
         kw = dict(weight_std=cfg.initializer_range, device=device,
                   dtype=dtype, generator=generator)
         self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
@@ -626,8 +714,10 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, position_ids=None, caches=None):
         """Training: input_ids [B, T], positions default to arange(T);
-        returns hidden [B, T, H]. Serving: input_ids/position_ids [1, T]
-        and one RaggedSlot per layer; returns (hidden, caches)."""
+        returns hidden [B, T, H]; in training mode with grad enabled and
+        a truthy cfg.scan_remat each block is recomputed in the backward
+        (`_remat`). Serving: input_ids/position_ids [1, T] and one
+        RaggedSlot per layer; returns (hidden, caches)."""
         if position_ids is None:
             if caches is not None:
                 raise NotImplementedError(_NOT_PORTED)
@@ -635,8 +725,12 @@ class GPTModel(nn.Module):
                 input_ids.shape[1], device=input_ids.device)[None]
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
         if caches is None:
+            remat = self.cfg.scan_remat and self.training \
+                and torch.is_grad_enabled()
+            policy = _remat_policy(self.cfg.scan_remat)
             for block in self.h:
-                x = block(x)
+                x = _remat(block, x, policy, self._remat_generator) \
+                    if remat else block(x)
             return self.ln_f(x)
         new_caches = []
         for block, cache in zip(self.h, caches):
@@ -674,6 +768,26 @@ class GPTForCausalLM(RaggedGraphSteps, nn.Module):
         hidden = out[0] if caches is not None else out
         logits = hidden @ self.gpt.wte.weight.T
         return (logits, out[1]) if caches is not None else logits
+
+    def loss(self, input_ids, labels):
+        """Mean cross-entropy of the logits against labels (-100
+        ignored), float32."""
+        logits = self(input_ids)
+        V = logits.shape[-1]
+        return F.cross_entropy(logits.reshape(-1, V), labels.reshape(-1),
+                               ignore_index=-100)
+
+    def fused_loss(self, input_ids, labels, chunk=2048):
+        """The same loss without the [B*T, V] logits: the weight-tied
+        vocab projection and the softmax cross-entropy run chunk by chunk
+        (ops/chunked_xent.py: kernels #7-#8 on CUDA), each chunk's
+        logits computed again in the backward. Negative labels are
+        ignored."""
+        hidden = self.gpt(input_ids)
+        H = hidden.shape[-1]
+        return chunked_softmax_xent(hidden.reshape(-1, H),
+                                    self.gpt.wte.weight,
+                                    labels.reshape(-1), chunk=chunk)
 
     def make_paged_cache(self, n_pages, page_size=16, dtype=None):
         """Shared page pool sized for this model, on its device, in its

@@ -6,7 +6,8 @@ CUDA kernels with their plain PyTorch twins (kernels/).
 `scaled_dot_product_attention` routes to and `fused_layer_norm` the
 LayerNorm the functional `layer_norm` routes to when
 PADDLE_TPU_PALLAS_LN=1, as in the reference's `paddle_tpu.ops`;
-`ssm_scan` is the SSM family's ragged selective scan (kernel #11)."""
+`ssm_scan` is the SSM family's ragged selective scan (kernel #11).
+`chunked_xent.py` is the chunked vocab loss on kernels #7-#8."""
 import torch
 
 from .kernels.flash_attention import flash_attention

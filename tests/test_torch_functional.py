@@ -160,7 +160,19 @@ def test_train_step_takes_the_reference_keywords():
     TrainStep(model, loss, opt(), donate=False, mesh=None,
               in_shardings=None, model_returns_loss=False)
     for kw, item in ((dict(mesh=object()), r"A\.13"),
-                     (dict(in_shardings=(None,)), r"A\.13"),
-                     (dict(model_returns_loss=True), r"A\.5")):
+                     (dict(in_shardings=(None,)), r"A\.13")):
         with pytest.raises(NotImplementedError, match=item):
             TrainStep(model, loss, opt(), **kw)
+    # model_returns_loss is ported: the model's forward is the loss and
+    # loss_fn is ignored (its parity is tests/test_torch_train_flavors.py's)
+    class FusedLoss(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lm = model
+
+        def forward(self, ids, labels):
+            return self.lm.fused_loss(ids, labels)
+
+    ids = torch.zeros(2, 8, dtype=torch.int64)
+    step = TrainStep(FusedLoss(), None, opt(), model_returns_loss=True)
+    assert step(ids, ids).dim() == 0

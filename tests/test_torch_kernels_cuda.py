@@ -1642,3 +1642,119 @@ def test_sampled_and_greedy_replays_match_eager_heads_on_card(kind):
         for a, b in zip(model._ragged_pools(cache),
                         model._ragged_pools(shadow)):
             assert torch.equal(a, b)
+
+
+# -- slice 7: the chunked loss, the health copy, remat ------------------------
+
+def _chunked_loss_and_grads(cx, h, w, y, chunk):
+    hg, wg = h.detach().requires_grad_(), w.detach().requires_grad_()
+    loss = cx.chunked_softmax_xent(hg, wg, y, chunk=chunk)
+    loss.backward()
+    return loss.detach(), hg.grad, wg.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_loss_matches_twin_on_card(dtype, monkeypatch):
+    """ops/chunked_xent.py on kernels #7-#8 against the same function on
+    their twins, at 3000 tokens (chunk 2048 takes 1500), hidden 256 and
+    GPT's vocab, 1 in 37 labels -100: the loss within 1e-5 relative (#7's
+    bound), dh and dw within 1e-4 (float32) or 1e-2 (bfloat16: bf16
+    products of dlogits that #8 gives within one ulp) of their largest
+    value; #7 and #8 once a chunk, #7 not again in the backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from paddle_tpu_torch.ops import chunked_xent as cx
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    N, H, V = 3000, 256, 50304
+    h = torch.randn(N, H, generator=gen, device="cuda").to(dtype)
+    w = (0.05 * torch.randn(V, H, generator=gen, device="cuda")).to(dtype)
+    y = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    y[::37] = -100
+    before = (xent.softmax_xent_fwd.launches, xent.softmax_xent_bwd.launches)
+    got = _chunked_loss_and_grads(cx, h, w, y, 2048)
+    torch.cuda.synchronize()
+    assert (xent.softmax_xent_fwd.launches - before[0],
+            xent.softmax_xent_bwd.launches - before[1]) == (2, 2)
+    monkeypatch.setattr(cx, "softmax_xent_fwd",
+                        xent.softmax_xent_fwd_reference)
+    monkeypatch.setattr(cx, "softmax_xent_bwd",
+                        xent.softmax_xent_bwd_reference)
+    want = _chunked_loss_and_grads(cx, h, w, y, 2048)
+    assert _rel_err(got[0], want[0]) <= 1e-5
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == dtype
+        assert _rel_err(a, b) <= tol
+
+
+def _tiny_gpt(remat=False, dtype=torch.bfloat16):
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, max_position_embeddings=128,
+                    scan_remat=remat)
+    return GPTForCausalLM(cfg, device="cuda", dtype=dtype, seed=3)
+
+
+@pytest.mark.cuda
+def test_health_copy_never_blocks_on_card():
+    """`_queue_health` starts the vector's copy behind a CUDA event and
+    returns: with the card parked on a long spin the step returns while
+    its vector is still pending, the next step's drain skips it, and
+    after a synchronize it is read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import time
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW as PortAdamW
+    model = _tiny_gpt()
+    step = TrainStep(model, lambda lg, lab: F.cross_entropy(
+        lg.reshape(-1, lg.shape[-1]), lab.reshape(-1)),
+        PortAdamW(learning_rate=1e-3, parameters=model.parameters(),
+                  multi_precision=True), monitor_health=True)
+    ids = torch.randint(0, 512, (2, 64), device="cuda")
+    step(ids, ids)
+    step.flush_health()
+    assert len(step.health_log) == 1
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of the card's clock
+    t = time.perf_counter()
+    step(ids, ids)
+    step(ids, ids)
+    host_s = time.perf_counter() - t
+    assert len(step._health_pending) == 2 and len(step.health_log) == 1
+    assert host_s < 0.5, host_s
+    torch.cuda.synchronize()
+    step._drain_health(block=False)
+    assert not step._health_pending
+    assert [h["step"] for h in step.health_log] == [1, 2, 3]
+    assert step.anomalies is not None and step.anomalies.events == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [True, "names", "dots"])
+def test_remat_launches_the_flash_forward_twice_a_layer_on_card(remat):
+    """A block's recompute runs its forward again up to fc_out's product:
+    the flash forward twice a layer, dQ and dK/dV once; the chunked loss's
+    #7 and #8 once a chunk; the loss and grads equal to the same model's
+    without remat (the same kernels on the same values)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ids = torch.randint(0, 512, (2, 64), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    out = []
+    for r in (False, remat):
+        model = _tiny_gpt(r).train()
+        before = {n: getattr(fa, n).launches for n in (
+            "flash_attention_fwd", "flash_attention_dq",
+            "flash_attention_dkv")}
+        loss = model.fused_loss(ids, ids, chunk=64)
+        loss.backward()
+        torch.cuda.synchronize()
+        got = {n: getattr(fa, n).launches - v for n, v in before.items()}
+        L = model.cfg.num_layers
+        assert got == {"flash_attention_fwd": L * (2 if r else 1),
+                       "flash_attention_dq": L, "flash_attention_dkv": L}
+        out.append((loss, {k: p.grad for k, p in model.named_parameters()}))
+    assert torch.equal(out[0][0], out[1][0])
+    for k, g in out[0][1].items():
+        assert torch.equal(g, out[1][1][k]), k

@@ -34,7 +34,8 @@ multi_precision keeps bfloat16 params and
 float32 masters and moments (on the default, fused epilogue); a
 bfloat16 optimizer state gives bfloat16 moments on the fused epilogue
 and the GradScaler's eager half runs (both held against the reference
-in tests/test_torch_optimizer*.py); a truthy `scan_remat` raises; the
+in tests/test_torch_optimizer*.py); the sharded step's `mesh` and
+`in_shardings` raise; the
 new modules are among those the import hygiene tests walk. The fused epilogue's own parity tests are in
 tests/test_torch_fused_update.py.
 """
@@ -393,8 +394,9 @@ def test_unported_options_raise():
     from paddle_tpu_torch.amp import GradScaler
     model = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
     opt = AdamW(parameters=model.parameters())
-    # the fused epilogue, the in-step GradScaler, the scaler's eager half
-    # and a bf16 optimizer state are ported now; scan_remat is not
+    # the fused epilogue, the in-step GradScaler, the scaler's eager half,
+    # a bf16 optimizer state and scan_remat are ported now (remat's parity
+    # is tests/test_torch_remat.py's); the sharded step is not
     assert TrainStep(model, _loss, opt, fused_update=True)._fused is not None
     ids = torch.from_numpy(_batch())
     scaler = GradScaler(init_loss_scaling=8.0)
@@ -405,9 +407,9 @@ def test_unported_options_raise():
     assert all(m.dtype == torch.bfloat16
                for moments in step._opt_store["moments"]
                for m in moments.values())
-    for remat in (True, "names", "dots"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GPTForCausalLM(GPTConfig(scan_remat=remat, **CFG), device="cpu")
+    for kw in ({"mesh": object()}, {"in_shardings": (None,)}):
+        with pytest.raises(NotImplementedError, match="A.13"):
+            TrainStep(model, _loss, opt, **kw)
 
 
 def test_import_hygiene_walks_the_training_modules():
