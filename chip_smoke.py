@@ -172,22 +172,43 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    (bench.py:667-714), on 7b's weights (not drawn again) and batch:
    scan_remat="dots", dropout 0, bench.py's wrapper whose forward is
    fused_loss(ids, labels, chunk=2048) (the chunked vocab loss on
-   kernels #7-#8), TrainStep(model_returns_loss=True,
-   monitor_health=True) with no fused_update argument, Momentum(1e-4,
-   0.9) with stochastic rounding and a bf16 velocity (the tree path),
-   both switches: 2 warm-up, 8 timed and 1 profiled step; then the
-   same with scan_remat=True and "names", 1 warm-up, 3 timed and 1
-   profiled step each. Launches a step, constants worked out from the
-   code (BENCH_1P3B_LAUNCHES): flash forward 48 (the recompute runs it
+   kernels #7-#8), TrainStep(model_returns_loss=True) with no
+   fused_update argument and, as bench.py, no monitor_health,
+   Momentum(1e-4, 0.9) with stochastic rounding and a bf16 velocity
+   (the tree path), both switches (bench.py sets neither; until ROADMAP
+   A.2 makes both routes the CUDA default): 2 warm-up, 8 timed and 1
+   profiled step, every one after the first a replay of the step's
+   CUDA graph; then the same with scan_remat=True and "names", 1
+   warm-up, 3 timed and 1 profiled step each. Launches a step, counted
+   through the replays, constants worked out from the code
+   (BENCH_1P3B_LAUNCHES): flash forward 48 (the recompute runs it
    again), dQ and dK/dV 24, LayerNorm forward 97 (ln_1 and ln_2 again in
    the recompute, ln_f once), backward 49, #7 and #8 2 (two chunks),
-   the tree update 1, no fused pass and no K2; losses finite and
-   falling; the "dots" run's step-1 loss within 1e-3 relative of 7b's
-   bench-optimizer run's; the three policies' step-1 losses bit-equal;
-   the peak under True below 7b's bench-optimizer run's. For each run:
-   wall and device ms a step, tokens/s, MFU (the recompute not
-   counted), idle share, peak memory, launches, the loss from first
-   step to last;
+   the tree update 1, no fused pass and no K2; the returned losses
+   finite and falling; the "dots" run's step-1 loss within 1e-3
+   relative of 7b's bench-optimizer run's; the three policies' step-1
+   losses bit-equal; the peak under True below 7b's bench-optimizer
+   run's. Then each policy's replays held against the step's eager body
+   from one snapshot (3 replays, 3 eager steps: losses, every parameter
+   and velocity bit-equal) and eager against replayed wall ms, device ms
+   and idle share; under "dots" 3 more replayed steps with the health
+   vector on (one more capture), so that the grad norm's cost shows.
+   For each run: wall and device ms a step, tokens/s, MFU (the
+   recompute not counted), idle share, peak memory, launches, the loss
+   from first step to last, captures, capture ms and the graph pool;
+7d. (run after phase 7's flavors) captured train steps on GPT-medium
+   bf16 (the phase-4 weights, 8 x 1024, switches unset): the default
+   fused AdamW with f32 masters under LinearWarmup(CosineAnnealing(
+   1e-4, 14), 4, 0, 1e-4), stepped between steps, with a GradScaler
+   (2^10, doubled every 2 good steps) and the health vector: one call
+   captures, then from the snapshot taken before it 6 replays against
+   6 runs of the eager body (`TrainStep._eager_call`): losses, every
+   parameter, moment and master and the GradScaler's state bit-equal;
+   `run_steps(4)` replayed against 4 eager calls; `accumulate(2)` on
+   2 x [4, 1024] against its eager body; Adamax + SR + bf16 moments
+   (the tree path's per-leaf code and K2, 2 x 1024, switches set)
+   against its eager body. Each: eager against replayed wall and device
+   ms a step, idle share, capture ms, graph pool; peak memory;
 8. GPT-medium width with 2 layers in float32, 3 train steps (batch
    2 x 256) on the card (kernels) and on the CPU (twins) from the same
    weights, on each epilogue and on the default one with both switches
@@ -2009,8 +2030,12 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
 
     t = time.perf_counter()
     if capture is not None:
+        # an eager step: the hook sees a run's values, and the first call
+        # after it captures the step's program without the hook
         with capture_flash_bwd(km[0], capture):
-            steps(1)
+            losses.append(step._eager_call(ids, ids))
+            if sched is not None:
+                sched.step()
         park_captured(torch, capture)
         steps(run["warmup"] - 1)
     else:
@@ -2671,12 +2696,14 @@ def phase_train_1p3b(torch, km, tmods, gpt_1p3b):
 def phase_bench_1p3b(torch, km, tmods, state, cfg, sr):
     """bench.py's GPT-1.3B headline (bench.py:667-714) on phase 7b's
     weights and batch: scan_remat "dots", dropout 0, fused_loss(chunk=
-    2048) behind bench.py's wrapper, TrainStep(model_returns_loss=True,
-    monitor_health=True) with no fused_update argument (the tree path:
-    Momentum, stochastic rounding, a bf16 velocity), both switches set:
-    2 warm-up, 8 timed, 1 profiled step. Then remat True and "names",
-    1 warm-up, 3 timed and 1 profiled step each. Holds: finite, falling
-    losses (train_run); the launches of #2-#10, the tree update and K2
+    2048) behind bench.py's wrapper, TrainStep(model_returns_loss=True)
+    with no fused_update argument and no health vector, as bench.py (the
+    tree path: Momentum, stochastic rounding, a bf16 velocity), both
+    switches set: 2 warm-up, 8 timed, 1 profiled step, replays after the
+    first. Then remat True and "names", 1 warm-up, 3 timed and 1
+    profiled step each (bench_policy, which also holds the replays
+    against the eager body). Holds: finite, falling returned losses; the
+    launches of #2-#10, the tree update and K2
     equal to BENCH_1P3B_LAUNCHES a step; the "dots" run's step-1 loss
     within 1e-3 relative of `sr`'s (7b's bench-optimizer run: the same
     weights, batch and function, unchunked and without remat); the three
@@ -2684,13 +2711,14 @@ def phase_bench_1p3b(torch, km, tmods, state, cfg, sr):
     are deterministic); the peak under True below `sr`'s. Returns the
     three runs' measurements."""
     runs = {}
+    print("  7c sets PADDLE_TPU_PALLAS_LN=1 and PADDLE_TPU_PALLAS_XENT=1 "
+          "(bench.py sets neither) until ROADMAP A.2 makes both routes the "
+          "CUDA default")
     for remat, run in (("dots", BENCH_1P3B), (True, BENCH_1P3B_OTHER),
                        ("names", BENCH_1P3B_OTHER)):
-        r = runs[remat] = train_run(
-            torch, km, tmods, state, fused=True, switched=True, cfg=cfg,
-            run=run, opt=bench_momentum(torch), remat=remat,
-            chunk=BENCH_CHUNK,
-            name=f"GPT-1.3B, bench.py's headline, remat {remat!r}, ")
+        with switches(True):
+            r = runs[remat] = bench_policy(torch, km, tmods, state, cfg,
+                                           remat, run)
         one_tree_launch(r)
         for name, per_step in BENCH_1P3B_LAUNCHES.items():
             check(r["launches"][name] == r["n_steps"] * per_step,
@@ -2727,7 +2755,315 @@ def phase_bench_1p3b(torch, km, tmods, state, cfg, sr):
             f"{n} {r['launches'][n]}" for n in BENCH_1P3B_LAUNCHES)
             + f" over {r['n_steps']} steps; device ms by family "
             + ", ".join(f"{n} {v:.2f}" for n, v in r["parts_ms"].items()))
+    print(f"  {'eager vs replayed':22s} {'wall ms':>15s} {'device ms':>15s} "
+          f"{'idle':>13s} {'capture ms':>10s} {'pool MiB':>8s}")
+    for k, r in runs.items():
+        h = r["held"]
+        print(f"  {'7c, remat ' + repr(k):22s} {h['eager_ms']:7.2f} / "
+              f"{h['replay_ms']:6.2f} {h['eager_device_ms']:7.2f} / "
+              f"{h['replay_device_ms']:6.2f} {h['eager_idle']:6.3f} / "
+              f"{h['replay_idle']:5.3f} {h['capture_ms']:10.0f} "
+              f"{h['pool_mib']:8.1f}  (captures {r['captures']})")
     return runs
+
+
+# -- captured train steps: replays against the eager body ----------------------
+
+# steps held a run (from one snapshot: one call that captures, then HELD
+# replays and HELD eager calls), and steps timed eager against replayed
+CAPTURED_HELD = 6
+CAPTURED_TIMED = 4
+
+
+def state_copies(step):
+    """Copies of every tensor of a step's state, in a fixed order:
+    params, optimizer state (moments, masters), the GradScaler's."""
+    out = []
+
+    def walk(t):
+        if hasattr(t, "data_ptr"):
+            out.append(t.detach().clone())
+        elif isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif isinstance(t, (tuple, list)):
+            for x in t:
+                walk(x)
+    walk(step.tree_state())
+    return out
+
+
+def profiled_device_ms(torch, fn, steps=1):
+    """Device milliseconds of the kernels that `fn` runs (a profiled
+    window around one call, synchronized), over `steps` steps."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(device_us_by_name(prof).values()) / 1e3 / steps
+
+
+def hold_replayed(torch, step, call, eager, label, steps=1, sched=None,
+                  held=CAPTURED_HELD, timed=CAPTURED_TIMED):
+    """One flavor's replays against its eager body, from one
+    `snapshot_state` (and the scheduler's state): `call` once (the
+    capture, unless an earlier call made it; its eager run is that
+    call's step), back to the snapshot,
+    `held` replayed calls, back again, `held` eager ones; losses and
+    every parameter, moment, master and the GradScaler's state must be
+    bit-equal. Then wall ms a step over `timed` calls of each (the
+    state runs on from there) and device ms a step of one profiled call
+    of each. `steps`: optimizer steps a call. Returns the measurements."""
+    def mark():
+        return (step.snapshot_state(), step._step_i,
+                sched.state_dict() if sched is not None else None)
+
+    def back(m):
+        snap, i, sd = m
+        step.set_tree_state(snap["params"], snap["opt_state"])
+        step.scaler_state = snap["scaler_state"]
+        step._step_i = i
+        if sd is not None:
+            sched.set_state_dict(sd)
+
+    def run(fn, n):
+        out = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            out.append(fn().reshape(-1))
+            if sched is not None:
+                sched.step()
+        torch.cuda.synchronize()
+        return torch.cat(out), (time.perf_counter() - t) / (n * steps)
+
+    m = mark()
+    before = step.retraces
+    t = time.perf_counter()
+    run(call, 1)
+    first_s = time.perf_counter() - t
+    progs = [p for c in step._graphs.values() for p in c.values()]
+    prog = max(progs, key=lambda p: p.replays == 0)
+    check(step.retraces - before in (0, 1) and prog.graph is not None,
+          f"{label}: {step.retraces - before} captures, want at most 1")
+    replays = prog.replays
+    back(m)
+    got, _ = run(call, held)
+    got_state = state_copies(step)
+    check(prog.replays == replays + held, f"{label}: {prog.replays - replays}"
+                                          f" replays of {held} calls")
+    back(m)
+    want, _ = run(eager, held)
+    want_state = state_copies(step)
+    same = sum(torch.equal(a, b) for a, b in zip(got_state, want_state))
+    print(f"  {label}: {held} replayed calls against {held} eager ones from "
+          f"one snapshot: losses {'bit-equal' if torch.equal(got, want) else 'DIFFER'} "
+          f"({got.tolist()[:4]}...), {same} of {len(got_state)} state "
+          f"tensors bit-equal", flush=True)
+    check(torch.equal(got, want) and same == len(got_state),
+          f"{label}: a replay differs from the eager body: {got.tolist()} "
+          f"vs {want.tolist()}; {same} of {len(got_state)} state tensors")
+    check(torch.isfinite(got.float()).all(), f"{label}: non-finite losses")
+    del got_state, want_state, m
+    _, replay_ms = run(call, timed)
+    _, eager_ms = run(eager, timed)
+    dev_replay = profiled_device_ms(torch, call, steps)
+    dev_eager = profiled_device_ms(torch, eager, steps)
+    res = dict(label=label, replay_ms=replay_ms * 1e3,
+               eager_ms=eager_ms * 1e3, replay_device_ms=dev_replay,
+               eager_device_ms=dev_eager,
+               replay_idle=max(0.0, 1 - dev_replay / (replay_ms * 1e3)),
+               eager_idle=max(0.0, 1 - dev_eager / (eager_ms * 1e3)),
+               capture_ms=prog.info["compile_s"] * 1e3,
+               warm_ms=prog.info["warm_s"] * 1e3,
+               pool_mib=prog.info["pool_bytes"] / 2**20,
+               first_call_ms=first_s * 1e3, replays=prog.replays,
+               captures=step.retraces)
+    print(f"  {label}: wall ms a step eager {res['eager_ms']:.2f} / replayed "
+          f"{res['replay_ms']:.2f}; device ms eager {dev_eager:.2f} / "
+          f"replayed {dev_replay:.2f}; idle eager {res['eager_idle']:.3f} / "
+          f"replayed {res['replay_idle']:.3f}; capture {res['capture_ms']:.0f}"
+          f" ms (its eager run {res['warm_ms']:.0f}), pool "
+          f"{res['pool_mib']:.1f} MiB", flush=True)
+    return res
+
+
+def phase_captured(torch, km, tmods, state):
+    """Captured train steps on GPT-medium bf16 (the phase-4 weights, 8 x
+    1024, both switches unset): the default fused AdamW (f32 masters)
+    under LinearWarmup(CosineAnnealingDecay(1e-4, 14), 4, 0, 1e-4),
+    stepped between steps, with a GradScaler (2^10, doubled every 2
+    good steps) and the health vector; `run_steps(4)` replayed against 4
+    eager calls; `accumulate(2)` on 2 x [4, 1024] against its eager body;
+    Adamax + SR + bf16 moments (the tree path's per-leaf code and K2)
+    against its eager body; bench.py's Momentum + SR + bf16 velocity
+    (the tree update) as `run_steps(4)` against 4 eager calls. Each held
+    bit for bit from one snapshot (hold_replayed). Returns the default
+    step's measurements."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
+    cfg = gpt_medium()
+    B, T = TRAIN["batch"], TRAIN["seq"]
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(B, T)).astype(np.int32)).cuda()
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    load_state(model, state)
+    sched = lr_mod.LinearWarmup(lr_mod.CosineAnnealingDecay(1e-4, T_max=14),
+                                warmup_steps=4, start_lr=0.0, end_lr=1e-4)
+    step = TrainStep(model, lm_loss(F), AdamW(
+        learning_rate=sched, parameters=model.parameters(),
+        multi_precision=True), scaler=GradScaler(
+            init_loss_scaling=2.0 ** 10, incr_every_n_steps=2),
+        monitor_health=True)
+    check(step._fused is not None, "captured: not the fused epilogue")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    main = hold_replayed(
+        torch, step, lambda: step(ids, ids), lambda: step._eager_call(
+            ids, ids), "GPT-medium, AdamW fused + scheduler + GradScaler",
+        sched=sched)
+    main["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    step.flush_health()
+    check(np.isfinite([h["loss"] for h in step.health_log]).all(),
+          "captured: non-finite health")
+    print(f"  the scaler's scale after the run: "
+          f"{float(step.scaler_state['scale']):g} (from 1024, doubled every "
+          f"2 good steps); peak {main['peak_gib']:.2f} GiB")
+
+    def four_calls():
+        return torch.stack([step._eager_call(ids, ids) for _ in range(4)])
+    hold_replayed(torch, step, lambda: step.run_steps(4, ids, ids),
+                  four_calls, "GPT-medium, run_steps(4) against 4 eager "
+                  "calls", steps=4, sched=sched, held=1, timed=1)
+    acc = ids.reshape(2, B // 2, T)
+    hold_replayed(torch, step, lambda: step.accumulate(2, acc, acc),
+                  lambda: step._eager_accumulate(2, acc, acc),
+                  "GPT-medium, accumulate(2)", sched=sched, held=2,
+                  timed=2)
+    print(f"  captures {step.retraces} (step, run_steps(4), accumulate(2)); "
+          + "; ".join(f"{p.kind}{'' if p.count is None else p.count}: "
+                      f"{p.info['compile_s'] * 1e3:.0f} ms, pool "
+                      f"{p.info['pool_bytes'] / 2**20:.1f} MiB, "
+                      f"{p.replays} replays"
+                      for c in step._graphs.values() for p in c.values()))
+    print(step.compiled_text(ids, ids).rstrip())
+    del step, model
+    torch.cuda.empty_cache()
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    load_state(model, state)
+    x = ids[:2]
+    with switches(True):
+        step = TrainStep(model, lm_loss(F), adamax_sr_bf16(torch)(
+            model.parameters()))
+        check(step._fused is None, "captured: Adamax took the fused path")
+        hold_replayed(torch, step, lambda: step(x, x),
+                      lambda: step._eager_call(x, x),
+                      "GPT-medium, Adamax + SR + bf16 moments (2 x 1024)",
+                      held=1, timed=1)
+    del step, model
+    torch.cuda.empty_cache()
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    load_state(model, state)
+    step = TrainStep(model, lm_loss(F), bench_momentum(torch)(
+        model.parameters()))
+    check(step._fused is None, "captured: Momentum + SR took the fused path")
+
+    def four_tree_calls():
+        return torch.stack([step._eager_call(ids, ids) for _ in range(4)])
+    hold_replayed(torch, step, lambda: step.run_steps(4, ids, ids),
+                  four_tree_calls, "GPT-medium, Momentum + SR + bf16 "
+                  "velocity (the tree update), run_steps(4) against 4 eager "
+                  "calls", steps=4, held=1, timed=1)
+    del step, model
+    torch.cuda.empty_cache()
+    return main
+
+
+def bench_policy(torch, km, tmods, state, cfg, remat, run):
+    """One 7c run: bench.py's step (as phase_bench_1p3b says) under
+    `remat`, monitor_health off as bench.py has it: run["warmup"] +
+    run["timed"] replayed steps (the first captures) and 1 profiled, the
+    launch counts set to 0 just before and read just after; then its
+    replays held against the eager body (hold_replayed); for "dots" the
+    same step with the health vector on (one more capture), timed."""
+    GPTForCausalLM, _, load_state, TrainStep, _, _ = tmods
+    cfg = copy.copy(cfg)
+    cfg.scan_remat = remat
+    label = f"GPT-1.3B, bench.py's headline, remat {remat!r}"
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    load_state(model, state)
+    n_params = sum(p.numel() for p in model.parameters())
+    B, T = run["batch"], run["seq"]
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(B, T)).astype(np.int32)).cuda()
+    step = TrainStep(fused_loss_net(torch, model, BENCH_CHUNK), None,
+                     bench_momentum(torch)(model.parameters()),
+                     model_returns_loss=True)
+    check(step._fused is None, f"{label}: not the tree path")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(km)
+    losses = []
+    for _ in range(run["warmup"]):
+        losses.append(step(ids, ids))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(run["timed"]):
+        losses.append(step(ids, ids))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / run["timed"]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        losses.append(step(ids, ids))
+        torch.cuda.synchronize()
+    launches = counts(km)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_steps = run["warmup"] + run["timed"] + 1
+    vals = torch.stack(losses).tolist()
+    check(np.isfinite(vals).all(), f"{label}: non-finite losses {vals}")
+    check(vals[-1] < vals[0], f"{label}: loss did not fall: {vals}")
+    tokens = B * T
+    flop = 6 * n_params * tokens + 6 * cfg.num_layers * B * T * T \
+        * cfg.hidden_size
+    res = dict(label=label, ms=step_s * 1e3, tokens_s=tokens / step_s,
+               mfu=flop / step_s / 989e12, peak_gib=peak,
+               launches=launches, n_steps=n_steps, first=vals[0],
+               last=vals[-2], losses=vals, tree_per_step=1, k2_per_step=0)
+    res["tree_per_step"], res["k2_per_step"] = tree_launches(torch, km[7],
+                                                             step)
+    print(f"  {label} (replayed; monitor_health off, as bench.py): "
+          f"{run['timed']} timed steps {res['ms']:.1f} ms a step, "
+          f"{res['tokens_s']:.0f} tokens/s, MFU {res['mfu']:.4f}, peak "
+          f"{peak:.2f} GiB; loss {vals[0]:.4f} -> {vals[-2]:.4f}", flush=True)
+    res["device_ms"], res["idle"], res["other_ms"], res["parts_ms"] = \
+        train_time_goes(prof, step_s)
+    held = hold_replayed(torch, step, lambda: step(ids, ids),
+                         lambda: step._eager_call(ids, ids), label,
+                         held=3, timed=3)
+    res["held"] = held
+    if remat == "dots":
+        step.monitor_health = True
+        step(ids, ids)  # a new signature: the health vector's program
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            step(ids, ids)
+        torch.cuda.synchronize()
+        res["health_ms"] = (time.perf_counter() - t) / 3 * 1e3
+        health = step.flush_health()
+        hv = [h[k] for h in step.health_log for k in h if k != "step"]
+        check(len(step.health_log) == 4 and np.isfinite(hv).all(),
+              f"{label}: health {step.health_log}")
+        print(f"  {label}, the health vector on (the grad norm's cost): "
+              f"{res['health_ms']:.1f} ms a replayed step against "
+              f"{held['replay_ms']:.1f} without; last {health}")
+    res["captures"] = step.retraces
+    del step, model
+    torch.cuda.empty_cache()
+    return res
 
 
 def bench_momentum(torch):
@@ -2804,8 +3140,9 @@ def store_buffers(stores, grads=True):
 
 
 def pass_args(epi, clip, scaled, out1):
-    lr_t = epi._rate(FUSED_LR, 3)
-    return dict(spec=epi.spec, lr=FUSED_LR, lr_t=lr_t,
+    # kernel #10's rates [lr, lr_t] as float32 on the card, as the train
+    # step's scalars block holds them
+    return dict(spec=epi.spec, rates=epi.device_rates(FUSED_LR, 3, "cuda"),
                 clip_norm=1.0 if clip == "global" else None,
                 clip_value=(-1e-3, 1e-3) if clip == "value" else None,
                 sumsq=out1[0], found=out1[1] if scaled else None,
@@ -2868,8 +3205,8 @@ def time_fused(torch, fk, epi, stores, flush):
     twin = clone_stores(stores)
     bs, bt = epi.bucket_set(*stores), epi.bucket_set(*twin)
     grads, params, opt = stores
-    lr_t = epi._rate(FUSED_LR, 3)
-    p2 = dict(spec=epi.spec, lr=FUSED_LR, lr_t=lr_t, with_stats=True)
+    p2 = dict(spec=epi.spec, with_stats=True,
+              rates=epi.device_rates(FUSED_LR, 3, "cuda"))
     g_bytes = sum(t.numel() * t.element_size() for t in grads.values())
     n = sum(t.numel() for t in params.values())
     m_size = torch.empty((), dtype=epi.state_dtype).element_size()
@@ -3059,8 +3396,12 @@ def phase_stochastic_round(torch, srk, flush):
             held += 1
             del got, want
         if n == SR_SIZES[0]:
-            ms = cuda_ms(torch, lambda: srk.stochastic_round(x, SR_KEYS[0]),
-                         20, flush)
+            # the key's words on the card, as the train step's scalars
+            # block holds them
+            key = torch.tensor(SR_KEYS[0], dtype=torch.int64,
+                               device="cuda").to(torch.int32)
+            ms = cuda_ms(torch, lambda: srk.stochastic_round(x, key), 20,
+                         flush)
             plain = cuda_ms(torch, lambda: srk.stochastic_round_reference(
                 x, SR_KEYS[0]), 3, flush)
             by_bytes = n * 6 / HBM_BYTES_PER_S * 1e3
@@ -3156,6 +3497,14 @@ def tree_bound(tk, leaves, opt):
             else "operations", by_bytes, by_ops, nbytes)
 
 
+def tree_scalars(tk, opt, lr, step, leaves):
+    """The step's scalar rows of `leaves` on the card, as the train
+    step's scalars block holds them."""
+    return tk.scalars_tensor(tk.scalar_rows(
+        opt, lr, step, len(leaves[0]),
+        n_state=tk.tree_spec(opt)["n_moments"]), leaves[0][0].device)
+
+
 def hold_tree(torch, tk, label, leaves, opt, lr, step, found=None):
     """The tree update by `opt` through the kernel on `leaves` and by the
     twin on a copy: written buffers bit-equal, the sums within TREE_SUM_RTOL; with
@@ -3164,11 +3513,11 @@ def hold_tree(torch, tk, label, leaves, opt, lr, step, found=None):
     twin = clone_leaves(leaves)
     was = clone_leaves(leaves) if found is not None else None
     flag = None if found is None else torch.tensor(found, device="cuda")
+    rows = tree_scalars(tk, opt, lr, step, leaves)
     before = tk.tree_update.launches
-    got = tk.tree_update(opt, *leaves, lr, step, flag, with_stats=True)
+    got = tk.tree_update(opt, *leaves, rows, flag, with_stats=True)
     launched = tk.tree_update.launches - before
-    want = tk.tree_update_reference(opt, *twin, lr, step, flag,
-                                    with_stats=True)
+    want = tk.tree_update_reference(opt, *twin, rows, flag, with_stats=True)
     torch.cuda.synchronize()
     groups = len(tk.leaf_groups(leaves[0], leaves[2], leaves[3]))
     check(launched == groups, f"{label}: {launched} launches, want {groups}")
@@ -3193,11 +3542,13 @@ def time_tree(torch, tk, label, leaves, opt, lr, flush, library=None):
     the tree update by `opt` at step 3, with its bound. Returns the
     kernels line's fields."""
     twin = clone_leaves(leaves)
-    ms = cuda_ms(torch, lambda: tk.tree_update(opt, *leaves, lr, 3,
+    # a call builds and ships the leaf table only
+    rows = tree_scalars(tk, opt, lr, 3, leaves)
+    ms = cuda_ms(torch, lambda: tk.tree_update(opt, *leaves, rows,
                                                with_stats=True), 10, flush,
                  spin=TREE_SPIN)
     plain = cuda_ms(torch, lambda: tk.tree_update_reference(
-        opt, *twin, lr, 3, with_stats=True), 3, flush, spin=TREE_SPIN)
+        opt, *twin, rows, with_stats=True), 3, flush, spin=TREE_SPIN)
     lib = None
     if library is not None:
         try:
@@ -4094,6 +4445,11 @@ def main():
     print("[7] (cont.) run_steps(4) against 4 calls, accumulate(2) against "
           "the whole batch, on the switched route", flush=True)
     phase_train_flavors(torch, km, tmods, state)
+    print("[7d] captured train steps: replays against the eager body, "
+          "bit for bit; eager against replayed wall and device ms",
+          flush=True)
+    with switches(False):
+        captured_main = phase_captured(torch, km, tmods, state)
     print("[6] (cont.) flash forward, dQ and dK/dV: kernels vs plain twins "
           "on layer 0's inputs of the first phase-7 training step",
           flush=True)

@@ -91,8 +91,11 @@ struct Seg1 {
   int unused;
 };
 
+// the step's constants; the rates that change from step to step (lr and
+// Adam's bias-corrected lr_t) are read from device memory (`rates`), so
+// that a captured launch reads each replay's values
 struct Pass2Args {
-  float lr, lr_t, wd, b1, b2, omb1, omb2, eps, mom, clip_norm, lo, hi;
+  float wd, b1, b2, omb1, omb2, eps, mom, clip_norm, lo, hi;
   int kind;  // 0 sgd, 1 momentum, 2 adam / adamw
   int nesterov, n_moments, has_master, global_clip, value_clip,
       with_stats;
@@ -260,11 +263,13 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ flags,
                        const float* __restrict__ lrs,
                        const float* __restrict__ nw, long long chunk,
-                       const Pass2Args a, const float* __restrict__ sumsq,
+                       const Pass2Args a, const float* __restrict__ rates,
+                       const float* __restrict__ sumsq,
                        const float* __restrict__ found_p,
                        float* __restrict__ partials, long long stride) {
   // the skip exists only under a live GradScaler (found_p non-null)
   const bool found = found_p != nullptr && *found_p > 0.f;
+  const float lr0 = rates[0], lr_t0 = rates[1];
   float clip_f = 1.f;
   if (a.global_clip) {
     const float gn = __fsqrt_rn(*sumsq);
@@ -298,8 +303,8 @@ __global__ void __launch_bounds__(kThreads)
       if (base >= bk.n) continue;
       const int leaf = chunk_leaf[bk.chunk0 + base / chunk];
       const int fl = flags[leaf];
-      const float lr = __fmul_rn(a.lr, lrs[leaf]);
-      const float lr_t = __fmul_rn(a.lr_t, lrs[leaf]);
+      const float lr = __fmul_rn(lr0, lrs[leaf]);
+      const float lr_t = __fmul_rn(lr_t0, lrs[leaf]);
       const float decay = (a.wd != 0.f && (fl & kFlagDecay))
                               ? __fsub_rn(1.f, __fmul_rn(lr, a.wd))
                               : 1.f;
@@ -442,11 +447,11 @@ template <typename T, typename M>
 int run_pass2(const Bucket* d, int nb, long long n_tiles,
               const int* chunk_leaf, const int* flags, const float* lrs,
               const float* nw, long long chunk, const Pass2Args& a,
-              const float* sumsq, const float* found, float* partials,
-              long long stride, int grid, cudaStream_t s) {
+              const float* rates, const float* sumsq, const float* found,
+              float* partials, long long stride, int grid, cudaStream_t s) {
   fused_pass2_kernel<T, M><<<grid, kThreads, 0, s>>>(
-      d, nb, n_tiles, chunk_leaf, flags, lrs, nw, chunk, a, sumsq, found,
-      partials, stride);
+      d, nb, n_tiles, chunk_leaf, flags, lrs, nw, chunk, a, rates, sumsq,
+      found, partials, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -487,31 +492,32 @@ int fused_pass1(const void* segs, int ns, long long n_tiles,
 }
 
 // dtype: the params' and grads' (0 float32, 1 bfloat16); moment_dtype:
-// the moments' (the same codes)
+// the moments' (the same codes); rates: two float32 in device memory,
+// the step's lr and Adam's bias-corrected lr_t (lr again otherwise)
 int fused_pass2(const void* desc, int nb, long long n_tiles,
                 const int* chunk_leaf, const int* flags, const float* lrs,
                 const float* nw, long long chunk, const Pass2Args* args,
-                const float* sumsq, const float* found, float* partials,
-                long long stride, int grid, int dtype, int moment_dtype,
-                void* stream) {
+                const float* rates, const float* sumsq, const float* found,
+                float* partials, long long stride, int grid, int dtype,
+                int moment_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Bucket* d = static_cast<const Bucket*>(desc);
   using bf16 = __nv_bfloat16;
   if (dtype == 1)
     return moment_dtype == 1
                ? run_pass2<bf16, bf16>(d, nb, n_tiles, chunk_leaf, flags,
-                                       lrs, nw, chunk, *args, sumsq, found,
-                                       partials, stride, grid, s)
+                                       lrs, nw, chunk, *args, rates, sumsq,
+                                       found, partials, stride, grid, s)
                : run_pass2<bf16, float>(d, nb, n_tiles, chunk_leaf, flags,
-                                        lrs, nw, chunk, *args, sumsq, found,
-                                        partials, stride, grid, s);
+                                        lrs, nw, chunk, *args, rates, sumsq,
+                                        found, partials, stride, grid, s);
   return moment_dtype == 1
              ? run_pass2<float, bf16>(d, nb, n_tiles, chunk_leaf, flags, lrs,
-                                      nw, chunk, *args, sumsq, found,
+                                      nw, chunk, *args, rates, sumsq, found,
                                       partials, stride, grid, s)
              : run_pass2<float, float>(d, nb, n_tiles, chunk_leaf, flags,
-                                       lrs, nw, chunk, *args, sumsq, found,
-                                       partials, stride, grid, s);
+                                       lrs, nw, chunk, *args, rates, sumsq,
+                                       found, partials, stride, grid, s);
 }
 
 int fused_finalize(const float* partials, long long n_slots, int n_fields,

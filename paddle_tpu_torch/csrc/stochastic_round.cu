@@ -59,7 +59,8 @@ __device__ __forceinline__ void threefry2x32(unsigned k1, unsigned k2,
 __global__ void __launch_bounds__(kThreads)
     stochastic_round_kernel(const float* __restrict__ x,
                             __nv_bfloat16* __restrict__ y, long long n,
-                            unsigned k1, unsigned k2) {
+                            const unsigned* __restrict__ key) {
+  const unsigned k1 = key[0], k2 = key[1];
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
@@ -77,18 +78,19 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// x: n float32, y: n bfloat16 (device pointers); (k1, k2) the key words;
+// x: n float32, y: n bfloat16 (device pointers); key: the key's two
+// 32-bit words in device memory (a captured launch reads each replay's);
 // the grid is what `sms` SMs keep resident, at most one thread an
 // element. Returns the launch's cudaError_t.
-int stochastic_round(const float* x, void* y, long long n, unsigned k1,
-                     unsigned k2, int sms, void* stream) {
+int stochastic_round(const float* x, void* y, long long n,
+                     const unsigned* key, int sms, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   long long grid = static_cast<long long>(sms) * kBlocksPerSm;
   const long long need = (n + kThreads - 1) / kThreads;
   if (grid > need) grid = need;
   stochastic_round_kernel<<<static_cast<int>(grid), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<__nv_bfloat16*>(y), n, k1, k2);
+      x, static_cast<__nv_bfloat16*>(y), n, key);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,7 +49,9 @@
 //   vectors a thread, 1-4 blocks an SM); rotations by the integer
 //   multiplier and adds on the integer pipe were slower too (PERF.md);
 // - a tile (256 threads x 8 elements) lies inside one leaf, so the leaf's
-//   keys and scalars load once a tile; tiles are found by a binary search
+//   keys and scalars (its row of the step's scalars, apart from the leaf
+//   table, so that a captured launch keeps the table and reads each
+//   replay's scalars) load once a tile; tiles are found by a binary search
 //   over the leaves' first tiles, staged in shared memory; the grid is
 //   what the card keeps resident (measured occupancy) and walks the
 //   tiles.
@@ -74,14 +76,23 @@
 // pointers to both, and a parameter type with internal linkage would give
 // the entry internal linkage too (no exported symbol).
 
-// one row of the leaf table (96 bytes, written by the wrapper each step)
+// one row of the leaf table (64 bytes): where the leaf's buffers lie,
+// fixed while they stay there (a captured launch keeps it)
 struct Leaf {
   long long g, p, s0, s1, mw;  // device addresses; 0 when absent
   long long n;                 // elements (below 2^31)
   long long tile0;             // the leaf's first tile in the launch
-  unsigned key[6];             // threefry keys: the param's, state 0's, 1's
-  float lr, lr_t, decay;       // float32 lr, Adam's rate, decay factor
+  int slot;                    // its row in the step's scalars
   int flags;                   // kAligned | kGradF32
+};
+
+// one leaf's row of the step's scalars (64 bytes), which change every
+// step: read from device memory, so that a captured launch reads each
+// replay's values (the train step's scalars block, jit/scalars.py)
+struct Scal {
+  unsigned key[8];  // threefry keys: the param's, state 0's, 1's, 2's
+  float decay;      // decoupled decay factor (1 where it does not apply)
+  float rate[7];    // float32 lr of the leaf, Adam's lr_t, unused
 };
 
 // the optimizer's float32 constants; *_s meet a state leaf (rounded to
@@ -273,7 +284,8 @@ __host__ __device__ constexpr int min_blocks(int kind, bool sr) {
 
 template <typename T, typename M, int KIND, bool SR>
 __global__ void __launch_bounds__(kThreads, min_blocks(KIND, SR))
-    tree_update_kernel(const Leaf* __restrict__ leaves, int n_leaves,
+    tree_update_kernel(const Leaf* __restrict__ leaves,
+                       const Scal* __restrict__ scal, int n_leaves,
                        int n_tiles, const TreeArgs a,
                        const unsigned char* __restrict__ found_p,
                        float* __restrict__ partials,
@@ -317,12 +329,13 @@ __global__ void __launch_bounds__(kThreads, min_blocks(KIND, SR))
       if (kStates > 1) load_vec(s1, e, n, vec, s1x[k]);
       if (a.has_master) load8(mw, e, n, vec, mwx[k]);
     }
-    const float lr = L.lr, lr_t = L.lr_t, decay = L.decay;
+    const Scal& S = scal[L.slot];
+    const float lr = S.rate[0], lr_t = S.rate[1], decay = S.decay;
     SrKey kp, k0, k1;
     if (SR) {
-      kp = make_key(L.key[0], L.key[1]);
-      k0 = make_key(L.key[2], L.key[3]);
-      k1 = make_key(L.key[4], L.key[5]);
+      kp = make_key(S.key[0], S.key[1]);
+      k0 = make_key(S.key[2], S.key[3]);
+      k1 = make_key(S.key[4], S.key[5]);
     }
 #pragma unroll
     for (int k = 0; k < kVecs; ++k) {
@@ -410,6 +423,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(KIND, SR))
 
 struct Launch {
   const Leaf* leaves;
+  const Scal* scal;
   int n_leaves, n_tiles;
   const TreeArgs* args;
   const unsigned char* found;
@@ -436,8 +450,8 @@ int run(const Launch& l) {
   if (grid < 1) return static_cast<int>(cudaSuccess);
   tree_update_kernel<T, M, KIND, SR>
       <<<static_cast<int>(grid), kThreads, smem, l.stream>>>(
-          l.leaves, l.n_leaves, l.n_tiles, *l.args, l.found, l.partials,
-          l.ticket, l.out);
+          l.leaves, l.scal, l.n_leaves, l.n_tiles, *l.args, l.found,
+          l.partials, l.ticket, l.out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -472,19 +486,21 @@ void tree_update_tiling(int* out) {
 }
 
 // leaves: the group's table (n_leaves rows; tiles of kTile elements, tile0
-// their running sum, n_tiles in all); kind: 0 sgd, 1 momentum (Nesterov
+// their running sum, n_tiles in all); scal: the step's scalars, one row a
+// leaf of the step (a leaf reads row `slot`); kind: 0 sgd, 1 momentum (Nesterov
 // in args), 2 adam / adamw; sr: stochastic rounding; dtype / state_dtype:
 // the params' / the states' (0 float32, 1 bfloat16); found: the
 // GradScaler's bool flag or null; partials: 2 * sms * kMaxBlocksPerSm
 // floats; ticket: one zeroed unsigned (left zeroed); out: the two sums
 // (written, or added to with args->accumulate) when args->with_stats.
 // Returns the launch's cudaError_t.
-int tree_update(const void* leaves, int n_leaves, int n_tiles,
-                const TreeArgs* args, const void* found, float* partials,
-                void* ticket, float* out, int kind, int sr, int dtype,
-                int state_dtype, int sms, void* stream) {
+int tree_update(const void* leaves, const void* scal, int n_leaves,
+                int n_tiles, const TreeArgs* args, const void* found,
+                float* partials, void* ticket, float* out, int kind, int sr,
+                int dtype, int state_dtype, int sms, void* stream) {
   if (n_tiles <= 0 || n_leaves <= 0) return static_cast<int>(cudaSuccess);
   const Launch l{static_cast<const Leaf*>(leaves),
+                 static_cast<const Scal*>(scal),
                  n_leaves,
                  n_tiles,
                  args,

@@ -52,8 +52,9 @@ launches its capture recorded), `_spec_proposed` / `_spec_accepted`
 (draft tokens proposed and accepted).
 
 Not ported yet (ROADMAP.md queue A): the engine's `cache=`, `name=`,
-`ragged=`, `prefix_cache=` and `kv_snapshot_every` options,
-prefill/decode handoff and the router, the legacy bucketed path and
+`ragged=`, `prefix_cache=` and `kv_snapshot_every` options (the
+signature takes them in the reference's order; a value other than the
+reference's default raises NotImplementedError), prefill/decode handoff and the router, the legacy bucketed path and
 `InferenceEngine`, and the observatory records.
 """
 import itertools
@@ -282,7 +283,19 @@ class GenerationEngine:
 
     def __init__(self, model, n_pages=256, page_size=16, max_batch=8,
                  max_queue=64, max_new_tokens=64, eos_token_id=None,
-                 prefill_chunk=32, speculative=None, draft_cache=None):
+                 cache=None, name=None, ragged=None, prefill_chunk=32,
+                 prefix_cache=True, kv_snapshot_every=8,
+                 speculative=None, draft_cache=None):
+        for key, value, default in (
+                ("cache", cache, None), ("name", name, None),
+                ("ragged", ragged, None),
+                ("prefix_cache", prefix_cache, True),
+                ("kv_snapshot_every", kv_snapshot_every, 8)):
+            if value is not default and value != default:
+                raise NotImplementedError(
+                    f"GenerationEngine({key}={value!r}): only the "
+                    f"reference's default {default!r} is ported yet "
+                    "(ROADMAP.md queue A, item A.7)")
         for need in ("paged_ragged_step", "make_paged_cache"):
             if not hasattr(model, need):
                 raise TypeError(

@@ -59,6 +59,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import resolve_device
 from ..framework.dtype import convert_dtype
 from ..nn import Dropout, Embedding, LayerNorm, Linear
+from ..nn.layer.common import dropout_masks
 from ..nn import functional as F
 from ..ops.attention_core import NEG_INF
 from ..ops.chunked_xent import chunked_softmax_xent
@@ -240,7 +241,7 @@ class CapturedStep:
             pool = getattr(cache, "paged", cache).k[0]
             self.scratch = schedule.scratch = graph_scratch(
                 schedule, pool.shape[2], pool.shape[3], device)
-        before = captured_launches().copy()
+        before = captured_launches(side).copy()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=state.pool, stream=side,
                               capture_error_mode="thread_local"):
@@ -248,7 +249,7 @@ class CapturedStep:
                 self.scratch[1].zero_()
             self.hidden = model._ragged_body(
                 cache, self.static, n_tokens, n_rows, width, schedule)
-        self.launches = dict(captured_launches() - before)
+        self.launches = dict(captured_launches(side) - before)
         self.heads = {}
         self._capture_heads(model, state, per_token)
         self.capture_ms = (time.perf_counter() - t) * 1e3
@@ -583,26 +584,22 @@ def _remat_policy(scan_remat):
     return {"dots": _save_dots, "names": _save_names}.get(scan_remat)
 
 
-def _remat(block, x, policy, generator):
+def _remat(block, x, policy):
     """block(x), recomputed in the backward (non-reentrant
-    torch.utils.checkpoint) under `policy`. The recompute replays
-    `generator` (the blocks' Dropout draws from it, which checkpoint's
-    own RNG stash does not cover) from its state at the forward, and
-    leaves it where it was; None when nothing draws."""
-    replay = None if generator is None else generator.get_state()
+    torch.utils.checkpoint) under `policy`. The forward keeps the masks
+    its Dropout layers draw and the recompute takes them
+    (nn/layer/common.py `dropout_masks`), so it computes the forward's
+    values and draws nothing: checkpoint's own RNG stash does not cover
+    the blocks' generator, and a CUDA-graph capture could not read and
+    set its state. Eager and captured steps take this one path."""
+    masks = []
     first = True
 
     def run(h):
         nonlocal first
-        if replay is None or first:
-            first = False
+        again, first = not first, False
+        with dropout_masks(masks, again):
             return block(h)
-        now = generator.get_state()
-        generator.set_state(replay)
-        try:
-            return block(h)
-        finally:
-            generator.set_state(now)
 
     context = {} if policy is None else {"context_fn": functools.partial(
         create_selective_checkpoint_contexts, policy)}
@@ -698,8 +695,6 @@ class GPTModel(nn.Module):
     def __init__(self, cfg, device=None, dtype=None, generator=None):
         super().__init__()
         self.cfg = cfg
-        # the blocks' Dropout draws, which a recompute replays
-        self._remat_generator = generator if cfg.dropout > 0.0 else None
         kw = dict(weight_std=cfg.initializer_range, device=device,
                   dtype=dtype, generator=generator)
         self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
@@ -729,7 +724,7 @@ class GPTModel(nn.Module):
                 and torch.is_grad_enabled()
             policy = _remat_policy(self.cfg.scan_remat)
             for block in self.h:
-                x = _remat(block, x, policy, self._remat_generator) \
+                x = _remat(block, x, policy) \
                     if remat else block(x)
             return self.ln_f(x)
         new_caches = []

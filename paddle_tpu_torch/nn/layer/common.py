@@ -6,12 +6,31 @@ weight layout, `[in_features, out_features]` with `y = x @ W + b`, so a
 (models/convert.py). Parameters are made on an explicit device and
 dtype and drawn from an explicit `torch.Generator`.
 """
+import contextlib
 import math
+import threading
 
 import torch
 from torch import nn
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = ["Linear", "Embedding", "Dropout", "dropout_masks"]
+
+_MASKS = threading.local()
+
+
+@contextlib.contextmanager
+def dropout_masks(masks, replay):
+    """Inside, on this thread, every Dropout in training keeps its mask
+    in the list `masks` (replay=False), or takes the next mask from it
+    instead of drawing one (replay=True). models/gpt.py `_remat` uses it
+    so that a block's recompute takes its forward's masks, eagerly and
+    under a CUDA-graph capture alike."""
+    prev = getattr(_MASKS, "ctx", None)
+    _MASKS.ctx = (masks, replay, [0])
+    try:
+        yield
+    finally:
+        _MASKS.ctx = prev
 
 
 class Linear(nn.Module):
@@ -81,8 +100,16 @@ class Dropout(nn.Module):
             return x
         if self.p >= 1.0:
             return torch.zeros_like(x)
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        ctx = getattr(_MASKS, "ctx", None)
+        if ctx is not None and ctx[1]:
+            masks, _, at = ctx
+            keep = masks[at[0]]
+            at[0] += 1
+        else:
+            keep = torch.rand(x.shape, generator=self.generator,
+                              device=x.device) >= self.p
+            if ctx is not None:
+                ctx[0].append(keep)
         return x * keep.to(x.dtype) / (1.0 - self.p)
 
     def extra_repr(self):

@@ -364,8 +364,12 @@ class FusedEpilogue:
 
     # -- the epilogue -------------------------------------------------------
     def finish(self, grads, p_store, opt_store, lr, step, scaler=None,
-               scaler_state=None, clip=None, with_stats=False):
-        """From the bucketed grads to the updated stores, IN PLACE.
+               scaler_state=None, clip=None, with_stats=False, rates=None):
+        """From the bucketed grads to the updated stores, IN PLACE. Pass
+        2 reads its rates from device memory: `rates`, float32 [lr, lr_t]
+        on the stores' device (the train step's scalars block, which its
+        captured programs read at each replay; `lr` and `step` are then
+        unused), or, when None, `device_rates(lr, step)` made here.
         Returns (p_store, opt_store, new_scaler_state, aux), aux =
         {"grad_norm", "found_inf"} (+ "nonfinite" when pass 1 ran, +
         "param_sumsq", "update_sumsq" with stats): 0-dim device tensors,
@@ -387,9 +391,10 @@ class FusedEpilogue:
             found_b = found > 0
             new_scaler_state = scaler.jit_update_scale_state(scaler_state,
                                                              found_b)
-        lr_t = self._rate(lr, step)
+        if rates is None:
+            rates = self.device_rates(lr, step, dev)
         stats = kernels.fused_pass2(
-            bs, self.spec, lr, lr_t,
+            bs, self.spec, rates,
             clip_norm=clip_norm if global_clip else None,
             clip_value=clip_value, sumsq=sumsq,
             found=found if scaling else None, with_stats=with_stats)
@@ -401,15 +406,21 @@ class FusedEpilogue:
             aux["param_sumsq"], aux["update_sumsq"] = stats[0], stats[1]
         return p_store, opt_store, new_scaler_state, aux
 
-    def _rate(self, lr, step):
-        """The rate pass 2 applies, a host float: bias-corrected for
-        Adam/AdamW (the tree path's expression on the same lr and
-        step), plain lr otherwise."""
+    def rate_row(self, lr, step):
+        """Pass 2's [lr, lr_t] of a step as numpy float32, from the host
+        floats: lr_t bias-corrected for Adam/AdamW (the tree path's
+        expression on the same lr and step), the lr otherwise."""
+        lr_t = lr
         if self.spec["kind"] in ("adam", "adamw"):
             b1 = self.spec["beta1"]
             b2 = self.spec["beta2"]
-            return lr * (1 - b2 ** step) ** 0.5 / (1 - b1 ** step)
-        return lr
+            lr_t = lr * (1 - b2 ** step) ** 0.5 / (1 - b1 ** step)
+        return np.array([lr, lr_t], np.float32)
+
+    def device_rates(self, lr, step, device):
+        """`rate_row` as the float32 tensor [2] on `device` that pass 2
+        reads."""
+        return torch.from_numpy(self.rate_row(lr, step)).to(device)
 
 
 def _resolve_clip(clip):

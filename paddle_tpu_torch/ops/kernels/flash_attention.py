@@ -34,8 +34,8 @@ import functools
 import torch
 
 from ..attention_core import NEG_INF, default_scale
-from . import (DTYPE_CODES, _build, count_launch, current_stream,
-               work_dtype)
+from . import (DTYPE_CODES, _build, count_cost, count_launch, current_stream,
+               nbytes, work_dtype)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
            "flash_attention_dkv", "flash_attention_fwd_reference",
@@ -208,6 +208,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", (q, k, v), (out, lse), causal, scale)
     count_launch(flash_attention_fwd)
+    count_cost(flash_flops("fwd", q, k, causal), nbytes(q, k, v, out, lse))
     return out, lse
 
 
@@ -224,6 +225,8 @@ def flash_attention_dq(q, k, v, dout, lse, delta, causal=False, scale=None):
             (lse.float().contiguous(), delta.float().contiguous(), dq),
             causal, scale)
     count_launch(flash_attention_dq)
+    count_cost(flash_flops("dq", q, k, causal),
+               nbytes(q, k, v, dout, lse, delta, dq))
     return dq
 
 
@@ -241,7 +244,26 @@ def flash_attention_dkv(q, k, v, dout, lse, delta, causal=False,
             (lse.float().contiguous(), delta.float().contiguous(), dk, dv),
             causal, scale)
     count_launch(flash_attention_dkv)
+    count_cost(flash_flops("dkv", q, k, causal),
+               nbytes(q, k, v, dout, lse, delta, dk, dv))
     return dk, dv
+
+
+def flash_flops(kind, q, k, causal):
+    """The products of one flash call ("fwd", "dq" or "dkv") on q
+    [B, Tq, H, D] and k [B, Tk, H, D]: 2 * D operations per (row,
+    visible key) per product, 2 products forward (q.k, p.v), 3 for dQ
+    (q.k, dO.v, ds.k), 4 for dK/dV (q.k, dO.v, p^T.dO, ds^T.q); visible
+    keys counted exactly (causal: row >= col)."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    if causal:  # sum over rows r of min(r + 1, Tk)
+        m = min(Tq, Tk)
+        pairs = m * (m + 1) // 2 + (Tq - m) * Tk
+    else:
+        pairs = Tq * Tk
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+    return 2 * D * products * pairs * B * H
 
 
 flash_attention_fwd.launches = 0

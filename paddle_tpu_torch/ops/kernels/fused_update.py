@@ -43,7 +43,8 @@ import functools
 import numpy as np
 import torch
 
-from . import DTYPE_CODES, _build, count_launch, current_stream, sqrt_rn
+from . import (DTYPE_CODES, _build, count_cost, count_launch, current_stream,
+               sqrt_rn)
 
 __all__ = ["FlatBucket", "BucketSet", "fused_pass1", "fused_pass2",
            "fused_pass1_reference", "fused_pass2_reference",
@@ -114,6 +115,17 @@ class BucketSet:
         for i, b in enumerate(self.buckets):
             order.setdefault((b.p.dtype, b.master is not None), []).append(i)
         self.groups = list(order.values())
+        # the bytes each pass must move (the cost tally's): pass 1 reads
+        # the grads; pass 2 reads grads, params, moments and masters and
+        # writes all but the grads
+        self.pass1_bytes = sum(b.g.numel() * b.g.element_size()
+                               for b in self.buckets)
+        self.pass2_bytes = sum(
+            b.g.numel() * b.g.element_size()
+            + 2 * sum(t.numel() * t.element_size() for t in
+                      [b.p] + b.moments + ([b.master] if b.master is not None
+                                           else []))
+            for b in self.buckets)
         self._cuda = self._prepare_cuda() if dev.type == "cuda" else None
 
     def _check(self, b):
@@ -355,18 +367,20 @@ def _clip_factor(sumsq, clip_norm):
         gn, one * _f32(1e-12))), one)
 
 
-def fused_pass2_reference(bs, spec, lr, lr_t, clip_norm=None,
+def fused_pass2_reference(bs, spec, rates, clip_norm=None,
                           clip_value=None, sumsq=None, found=None,
                           with_stats=False):
     """Pass 2 over every bucket of `bs`, in place. `spec` is the
-    optimizer's fused_spec(); lr and lr_t host floats (lr_t the
-    bias-corrected Adam rate, lr otherwise); clip_norm with sumsq (pass
-    1's float32 0-dim sum) the global-norm clip; clip_value (lo, hi) the
-    value clip; found (pass 1's float32 flag) makes the step keep every
-    buffer as it was. Returns float32 [param_sumsq, update_sumsq] of the
-    new params, weighted by norm_weight, when with_stats, else None."""
+    optimizer's fused_spec(); `rates` the float32 tensor [lr, lr_t] on
+    the buffers' device (lr_t the bias-corrected Adam rate, lr
+    otherwise: the train step's scalars block, or ops/fused_update.py
+    `FusedEpilogue.device_rates`); clip_norm with sumsq (pass 1's float32 0-dim
+    sum) the global-norm clip; clip_value (lo, hi) the value clip; found
+    (pass 1's float32 flag) makes the step keep every buffer as it was.
+    Returns float32 [param_sumsq, update_sumsq] of the new params,
+    weighted by norm_weight, when with_stats, else None."""
     hp = _hyper(spec)
-    lr, lr_t = _f32(lr), _f32(lr_t)
+    lr, lr_t = rates[0], rates[1]
     skip = found > 0 if found is not None else None
     clip_f = _clip_factor(sumsq, clip_norm) if clip_norm is not None \
         else None
@@ -396,8 +410,8 @@ def fused_pass2_reference(bs, spec, lr, lr_t, clip_norm=None,
 class _Pass2Args(ctypes.Structure):
     """struct Pass2Args of csrc/fused_update.cu."""
     _fields_ = [(n, ctypes.c_float) for n in (
-        "lr", "lr_t", "wd", "b1", "b2", "omb1", "omb2", "eps", "mom",
-        "clip_norm", "lo", "hi")] + [(n, ctypes.c_int) for n in (
+        "wd", "b1", "b2", "omb1", "omb2", "eps", "mom", "clip_norm", "lo",
+        "hi")] + [(n, ctypes.c_int) for n in (
             "kind", "nesterov", "n_moments", "has_master", "global_clip",
             "value_clip", "with_stats")]
 
@@ -409,8 +423,8 @@ def _kernels():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fused_pass1.argtypes = [p, i, ll, p, p, ll, i, i, p]
     lib.fused_pass2.argtypes = [p, i, ll, p, p, p, p, ll,
-                                ctypes.POINTER(_Pass2Args), p, p, p, ll, i,
-                                i, i, p]
+                                ctypes.POINTER(_Pass2Args), p, p, p, p, ll,
+                                i, i, i, p]
     lib.fused_finalize.argtypes = [p, ll, i, i, i, p, p]
     for fn in (lib.fused_pass1, lib.fused_pass2, lib.fused_finalize):
         fn.restype = ctypes.c_int
@@ -461,25 +475,32 @@ def fused_pass1(bs, scale=None):
             part.data_ptr() + 4 * gr["slot1"], cu["slots1"], gr["grid1"],
             DTYPE_CODES[gr["dtype"]], stream))
         count_launch(fused_pass1)
+    count_cost(0, bs.pass1_bytes * (2 if scale is not None else 1))
     _check_err("fused_finalize", lib.fused_finalize(
         part.data_ptr(), cu["slots1"], 2, 0b10, 1, out.data_ptr(), stream))
     return out
 
 
-def fused_pass2(bs, spec, lr, lr_t, clip_norm=None, clip_value=None,
+def fused_pass2(bs, spec, rates, clip_norm=None, clip_value=None,
                 sumsq=None, found=None, with_stats=False):
     """Kernel #10 over every bucket of `bs` (one launch per group, then
-    the finalize when with_stats); see fused_pass2_reference."""
+    the finalize when with_stats); see fused_pass2_reference. The kernel
+    reads `rates` from device memory (a captured launch reads each
+    replay's values there)."""
     if clip_norm is not None and sumsq is None:
         raise ValueError("the global-norm clip needs pass 1's sumsq")
     if bs.n_moments != spec["n_moments"]:
         raise ValueError(f"{spec['kind']} keeps {spec['n_moments']} "
                          f"moments, the buckets {bs.n_moments}")
     if bs.device.type == "cpu":
-        return fused_pass2_reference(bs, spec, lr, lr_t, clip_norm,
+        return fused_pass2_reference(bs, spec, rates, clip_norm,
                                      clip_value, sumsq, found, with_stats)
     lib, stream = _cuda_ready(bs, sumsq if clip_norm is not None else None,
                               found)
+    if rates.dtype != torch.float32 or rates.numel() != 2 \
+            or rates.device != bs.device or not rates.is_contiguous():
+        raise ValueError("rates must be two contiguous float32 values on "
+                         "the buffers' device")
     hp = _hyper(spec)
     cu = bs._cuda
     part = cu["partials2"]
@@ -489,7 +510,7 @@ def fused_pass2(bs, spec, lr, lr_t, clip_norm=None, clip_value=None,
         lo, hi = _rounded_bounds(clip_value, gr["dtype"]) \
             if clip_value is not None else (0.0, 0.0)
         args = _Pass2Args(
-            lr=_f32(lr), lr_t=_f32(lr_t), wd=hp["wd_f"] if hp["wd"] else 0.0,
+            wd=hp["wd_f"] if hp["wd"] else 0.0,
             b1=hp.get("beta1_f", 0.0), b2=hp.get("beta2_f", 0.0),
             omb1=hp.get("omb1_f", 0.0), omb2=hp.get("omb2_f", 0.0),
             eps=hp.get("eps_f", 0.0), mom=hp.get("momentum_f", 0.0),
@@ -504,11 +525,12 @@ def fused_pass2(bs, spec, lr, lr_t, clip_norm=None, clip_value=None,
             gr["desc"].data_ptr(), gr["n"], gr["tiles2"],
             gr["chunk_leaf"].data_ptr(), bs.flags.data_ptr(),
             bs.lr_scale.data_ptr(), bs.norm_weight.data_ptr(), bs.chunk,
-            ctypes.byref(args),
+            ctypes.byref(args), rates.data_ptr(),
             _ptr(sumsq) if clip_norm is not None else None, _ptr(found),
             part.data_ptr() + 4 * gr["slot2"], cu["slots2"], gr["grid2"],
             DTYPE_CODES[gr["dtype"]], DTYPE_CODES[bs.moment_dtype], stream))
         count_launch(fused_pass2)
+    count_cost(0, bs.pass2_bytes)
     if not with_stats:
         return None
     out = torch.empty(2, dtype=torch.float32, device=bs.device)

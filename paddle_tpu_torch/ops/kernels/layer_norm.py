@@ -32,8 +32,8 @@ import functools
 
 import torch
 
-from . import (DTYPE_CODES, _build, aligned16, count_launch, current_stream,
-               sm_count, work_dtype)
+from . import (DTYPE_CODES, _build, aligned16, count_cost, count_launch,
+               current_stream, nbytes, sm_count, work_dtype)
 
 __all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd",
            "layer_norm_fwd_reference", "layer_norm_bwd_reference",
@@ -226,6 +226,7 @@ def layer_norm_fwd(x2d, w, b, eps=1e-5):
         raise RuntimeError(f"layer_norm_fwd kernel launch failed: "
                            f"cudaError {err}")
     count_launch(layer_norm_fwd)
+    count_cost(0, nbytes(x2d, w, b, y, mu, rstd))
     return y, mu, rstd
 
 
@@ -259,6 +260,7 @@ def layer_norm_bwd(x2d, w, mu, rstd, dy):
         raise RuntimeError(f"layer_norm_bwd kernel launch failed: "
                            f"cudaError {err}")
     count_launch(layer_norm_bwd)
+    count_cost(0, nbytes(x2d, w, mu, rstd, dy, dx, dw, db))
     return dx, dw, db
 
 

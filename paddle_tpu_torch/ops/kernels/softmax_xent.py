@@ -29,8 +29,8 @@ import functools
 
 import torch
 
-from . import (DTYPE_CODES, _build, aligned16, count_launch, current_stream,
-               work_dtype)
+from . import (DTYPE_CODES, _build, aligned16, count_cost, count_launch,
+               current_stream, nbytes, work_dtype)
 
 __all__ = ["softmax_xent_arrays", "softmax_xent_fwd", "softmax_xent_bwd",
            "softmax_xent_fwd_reference", "softmax_xent_bwd_reference",
@@ -159,6 +159,7 @@ def softmax_xent_fwd(x2d, labels):
         raise RuntimeError(f"softmax_xent_fwd kernel launch failed: "
                            f"cudaError {err}")
     count_launch(softmax_xent_fwd)
+    count_cost(0, nbytes(x2d, lab, loss, lse))
     return loss, lse
 
 
@@ -185,6 +186,7 @@ def softmax_xent_bwd(x2d, labels, lse, dloss):
         raise RuntimeError(f"softmax_xent_bwd kernel launch failed: "
                            f"cudaError {err}")
     count_launch(softmax_xent_bwd)
+    count_cost(0, nbytes(x2d, lab, lse, dloss, dx))
     return dx
 
 

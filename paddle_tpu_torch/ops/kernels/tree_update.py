@@ -18,11 +18,16 @@ buffer keeps its value, without a host sync.
 - `tree_update(...)` launches paddle_tpu_torch/csrc/tree_update.cu (built
   by nvcc at first use) on CUDA leaves, once per group of leaves that
   share (param dtype, state dtype, has master), over a leaf table that
-  the host builds each step (addresses, sizes, first tiles, keys, the
-  leaf's float32 lr, Adam rate and decay factor) and ships in one pinned
-  copy: a step's grads are new tensors, and keys and rates change every
-  step. Each launch adds one to `tree_update.launches`. It raises on a
-  failed build or launch and never falls back. CPU leaves run the twin.
+  the host builds at each call (addresses, sizes, first tiles, the
+  leaf's row in the step's scalars) and ships in one pinned copy (a
+  step's grads are new tensors), and over the step's scalars
+  (`scalar_rows`: keys, the decay factor and the float32 rates of every
+  leaf), which change every step and which the kernel reads from device
+  memory: the train step passes its scalars block, whose rows its
+  captured programs read at each replay; `apply_gradients_tree` copies
+  the host's rows to the card first. Each launch adds one to
+  `tree_update.launches`. It raises on a failed build or launch and
+  never falls back. CPU leaves run the twin.
 - `tree_update_reference(...)` is the twin: the optimizer's per-leaf
   torch code (`Optimizer._update_leaves`, which the six other optimizers
   run too), with K2's twin (`stochastic_round_reference`) for the
@@ -35,9 +40,10 @@ Both take the optimizer (SGD, Momentum, Adam or AdamW: its
 hyperparameters, `_state_dtype` and `_stochastic_rounding`; the kernel
 reads them through `tree_spec`), then the leaves as lists in the
 reference's sorted leaf order: params, grads, states (a tuple of 0-2
-state tensors a leaf), masters (float32 or None), the float32 lr as a
-Python float, the 1-based step, and optionally found_inf (a bool
-tensor), decay (a bool a leaf) and lr_scale (a float a leaf). They write
+state tensors a leaf), masters (float32 or None), the step's scalars
+(int32 [n, SCAL_WORDS] on the leaves' device: `scalars_tensor` of
+`scalar_rows`, which folds in the lr, the step, each leaf's decay flag
+and lr scale) and optionally found_inf (a bool tensor). They write
 params, states and masters in place and, with_stats, return float32
 [sum of new_p^2, sum of (new_p - old_p)^2] over the written params (the
 health vector's sums), else None. The kernel sums in another order than
@@ -52,11 +58,12 @@ import torch
 
 from ...framework.dtype import weak_scalar as _w
 from .. import threefry
-from . import DTYPE_CODES, _build, count_launch, current_stream, sm_count
+from . import (DTYPE_CODES, _build, count_cost, count_launch, current_stream,
+               pinned_table, sm_count)
 from .stochastic_round import stochastic_round_reference
 
 __all__ = ["tree_update", "tree_update_reference", "tree_spec",
-           "leaf_groups", "leaf_scalars", "leaf_table", "LEAF"]
+           "leaf_groups", "scalar_rows", "leaf_table", "LEAF", "SCAL"]
 
 # the kernel's tiling (csrc/tree_update.cu reports its own; _kernel()
 # checks that they agree): 256 threads, 8 elements a vector, 1 vector a
@@ -76,21 +83,26 @@ FLAG_GRAD_F32 = 2
 # struct Leaf of csrc/tree_update.cu
 LEAF = np.dtype([("g", "<i8"), ("p", "<i8"), ("s0", "<i8"), ("s1", "<i8"),
                  ("mw", "<i8"), ("n", "<i8"), ("tile0", "<i8"),
-                 ("key", "<u4", (6,)), ("lr", "<f4"), ("lr_t", "<f4"),
-                 ("decay", "<f4"), ("flags", "<i4")])
-assert LEAF.itemsize == 96
+                 ("slot", "<i4"), ("flags", "<i4")])
+assert LEAF.itemsize == 64
+# struct Scal of csrc/tree_update.cu: one leaf's row of the step's
+# scalars (the param's key and three states', the decay factor, the
+# optimizer's rates, `Optimizer._rates`)
+SCAL = np.dtype([("key", "<u4", (8,)), ("decay", "<f4"),
+                 ("rate", "<f4", (7,))])
+assert SCAL.itemsize == 64
+SCAL_WORDS = SCAL.itemsize // 4
 
 
 # -- the plain twin -----------------------------------------------------------
 
-def tree_update_reference(opt, params, grads, states, masters, lr, step,
-                          found_inf=None, decay=None, lr_scale=None,
-                          with_stats=False):
+def tree_update_reference(opt, params, grads, states, masters, scalars,
+                          found_inf=None, with_stats=False):
     """The twin: `opt`'s per-leaf torch code (`Optimizer._update_leaves`)
     with K2's twin for the stochastic downcasts; see the module
     docstring."""
-    return opt._update_leaves(params, grads, states, masters, lr, step,
-                              found_inf, decay, lr_scale, with_stats,
+    return opt._update_leaves(params, grads, states, masters, scalars,
+                              found_inf, with_stats,
                               sr_round=stochastic_round_reference)
 
 
@@ -120,38 +132,62 @@ def leaf_groups(params, states, masters):
     return groups
 
 
-def leaf_scalars(spec, lr, step, n, decay=None, lr_scale=None):
-    """float32 (lr, Adam's lr_t, decay factor) of each of n leaves, from
-    the twin's float64 host arithmetic, vectorized: lr_leaf = lr *
-    lr_scale, lr_t = lr_leaf * sqrt(1 - b2^t) / (1 - b1^t) (Adam; lr_leaf
-    otherwise), decay 1 - lr_leaf * wd where it applies, else 1."""
+def scalar_rows(opt, lr, step, n, decay=None, lr_scale=None, n_state=0):
+    """The step's scalars of n leaves (SCAL rows, in the sorted leaf
+    order), from the twin's float64 host arithmetic, vectorized: lr_leaf
+    = lr * lr_scale, the rates `opt._rates(lr_leaf, step)` (Adam's
+    bias-corrected lr_t and the like) rounded once to float32, the decay
+    factor 1 - lr_leaf * wd where it applies (else 1) and, under
+    `_stochastic_rounding`, `threefry.sr_keys(step, n, n_state)`: the
+    param's key, then its state leaves' (three at most)."""
+    t = np.zeros(n, SCAL)
     lr = float(lr)
     lrs = np.ones(n) if lr_scale is None else np.asarray(lr_scale,
                                                          np.float64)
     lr_leaf = np.where(lrs == 1.0, lr, lr * lrs)
-    if spec["kind"] in ("adam", "adamw"):
-        b1, b2 = spec["beta1"], spec["beta2"]
-        lr_t = lr_leaf * (1 - b2 ** step) ** 0.5 / (1 - b1 ** step)
-    else:
-        lr_t = lr_leaf
+    for j, rate in enumerate(opt._rates(lr_leaf, step)):
+        t["rate"][:, j] = np.broadcast_to(rate, (n,)).astype(np.float32)
     on = np.ones(n, bool) if decay is None else np.asarray(decay, bool)
-    wd = spec["wd"]
-    dec = np.where(on & bool(wd), 1.0 - lr_leaf * wd, 1.0)
-    return (lr_leaf.astype(np.float32), lr_t.astype(np.float32),
-            dec.astype(np.float32))
+    wd = float(opt._decoupled_decay_coeff() or 0.0)
+    t["decay"] = np.where(on & bool(wd), 1.0 - lr_leaf * wd,
+                          1.0).astype(np.float32)
+    if opt._stochastic_rounding and n:
+        leaf, sub = (k.numpy() for k in threefry.sr_keys(step, n, n_state))
+        t["key"][:, 0:2] = leaf
+        for j in range(min(sub.shape[1], 3)):
+            t["key"][:, 2 + 2 * j:4 + 2 * j] = sub[:, j]
+    return t
+
+
+def scalars_tensor(rows, device):
+    """SCAL rows as the int32 [n, SCAL_WORDS] tensor the kernels and the
+    per-leaf code read, on `device` (a pinned copy to a card)."""
+    host = torch.from_numpy(np.ascontiguousarray(rows).view(np.int32)
+                            .reshape(len(rows), SCAL_WORDS))
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
 
 
 def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
-def leaf_table(params, grads, states, masters, idx, scalars, keys=None):
+def _group_bytes(params, grads, states, masters, idx):
+    """Bytes one launch must move: each grad read, each param, state and
+    master read and written."""
+    return sum(grads[i].numel() * grads[i].element_size()
+               + 2 * sum(t.numel() * t.element_size()
+                         for t in [params[i], *states[i]]
+                         + ([masters[i]] if masters[i] is not None else []))
+               for i in idx)
+
+
+def leaf_table(params, grads, states, masters, idx):
     """The kernel's leaf table (LEAF rows) of the leaves at positions idx
     and its tile count: addresses, sizes, first tiles (TILE elements a
-    tile, a leaf's tiles in a row), flags, the leaves' float32 scalars
-    (`leaf_scalars`, indexed by position) and, under stochastic rounding,
-    their keys (`threefry.sr_keys`' pair: the param's key, state 0's and
-    state 1's)."""
+    tile, a leaf's tiles in a row), each leaf's row of the step's
+    scalars (its position) and flags."""
     t = np.zeros(len(idx), LEAF)
     ps = [params[i] for i in idx]
     gs = [grads[i] for i in idx]
@@ -166,18 +202,11 @@ def leaf_table(params, grads, states, masters, idx, scalars, keys=None):
     t["n"] = n
     tiles = -(-n // TILE)
     t["tile0"] = np.cumsum(tiles) - tiles
+    t["slot"] = idx
     addrs = np.stack([t[f] for f in ("g", "p", "s0", "s1", "mw")])
     aligned = (addrs % 16 == 0).all(axis=0)
     g32 = np.array([g.dtype == torch.float32 for g in gs])
     t["flags"] = aligned * FLAG_ALIGNED + g32 * FLAG_GRAD_F32
-    at = np.asarray(idx)
-    t["lr"], t["lr_t"], t["decay"] = (s[at] for s in scalars)
-    if keys is not None:
-        leaf, sub = (k.numpy() for k in keys)
-        t["key"][:, 0:2] = leaf[at]
-        t["key"][:, 2:4] = sub[at, 0]
-        if sub.shape[1] > 1:
-            t["key"][:, 4:6] = sub[at, 1]
     return t, int(tiles.sum())
 
 
@@ -216,8 +245,8 @@ def _kernel():
     """The ctypes entry, built and loaded at first use."""
     lib = _build.load("tree_update")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tree_update.argtypes = [p, i, i, ctypes.POINTER(_Args), p, p, p, p,
-                                i, i, i, i, i, p]
+    lib.tree_update.argtypes = [p, p, i, i, ctypes.POINTER(_Args), p, p, p,
+                                p, i, i, i, i, i, p]
     lib.tree_update.restype = ctypes.c_int
     tiling = (ctypes.c_int * 4)()
     lib.tree_update_tiling(tiling)
@@ -265,38 +294,44 @@ def _check(params, grads, states, masters, spec, found_inf):
         raise ValueError("found_inf must be one bool on the leaves' device")
 
 
-def tree_update(opt, params, grads, states, masters, lr, step,
-                found_inf=None, decay=None, lr_scale=None, with_stats=False):
+def tree_update(opt, params, grads, states, masters, scalars,
+                found_inf=None, with_stats=False):
     """Every leaf's update in place: the kernel for CUDA leaves (one
     launch a group, `leaf_groups`), the twin for CPU ones; see the module
     docstring."""
     if not params or params[0].device.type == "cpu":
         return tree_update_reference(opt, params, grads, states, masters,
-                                     lr, step, found_inf, decay, lr_scale,
-                                     with_stats)
+                                     scalars, found_inf, with_stats)
     spec = tree_spec(opt)
     _check(params, grads, states, masters, spec, found_inf)
     dev = params[0].device
     stream = current_stream(dev)
     lib = _kernel()
     groups = leaf_groups(params, states, masters)
-    scalars = leaf_scalars(spec, lr, step, len(params), decay, lr_scale)
-    keys = threefry.sr_keys(step, len(params), spec["n_moments"]) \
-        if spec["sr"] else None
+    if scalars.dtype != torch.int32 or tuple(scalars.shape) != (
+            len(params), SCAL_WORDS) or not scalars.is_contiguous() \
+            or scalars.device != dev:
+        raise ValueError(f"scalars must be int32 [{len(params)}, "
+                         f"{SCAL_WORDS}] on {dev}")
     partials, ticket = _scratch(dev.index)
     out = torch.zeros(2, dtype=torch.float32, device=dev) \
         if with_stats else None
     first = True
     for (dtype, sdt, has_master), idx in groups.items():
-        table, n_tiles = leaf_table(params, grads, states, masters, idx,
-                                    scalars, keys)
+        table, n_tiles = leaf_table(params, grads, states, masters, idx)
         # the table rides one pinned copy, ordered before the launch on
         # the stream; the pinned block is not reused before it is done
-        rows = torch.from_numpy(table.view(np.uint8)).pin_memory().to(
-            dev, non_blocking=True)
+        # (under a capture the copy is the graph's and reads the block,
+        # which the capture keeps, at every replay)
+        host = pinned_table(table.nbytes, ("tree_update", dtype, sdt,
+                                           has_master, len(idx)))
+        host.numpy()[:] = table.view(np.uint8)
+        rows = torch.empty(table.nbytes, dtype=torch.uint8, device=dev)
+        rows.copy_(host, non_blocking=True)
         args = _args(spec, sdt, has_master, with_stats, not first)
         err = lib.tree_update(
-            rows.data_ptr(), len(idx), n_tiles, ctypes.byref(args),
+            rows.data_ptr(), scalars.data_ptr(), len(idx), n_tiles,
+            ctypes.byref(args),
             _ptr(found_inf), partials.data_ptr(), ticket.data_ptr(),
             _ptr(out), KINDS[spec["kind"]], int(bool(spec["sr"])),
             DTYPE_CODES[dtype], DTYPE_CODES.get(sdt, 0),
@@ -305,6 +340,7 @@ def tree_update(opt, params, grads, states, masters, lr, step,
             raise RuntimeError(f"tree_update kernel launch failed: "
                                f"cudaError {err}")
         count_launch(tree_update)
+        count_cost(0, _group_bytes(params, grads, states, masters, idx))
         first = False
     return out
 

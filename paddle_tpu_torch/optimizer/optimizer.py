@@ -58,10 +58,9 @@ torch.optim.AdamW's.
 import torch
 
 from ..framework.dtype import convert_dtype, weak_scalar as _w
-from ..ops import threefry
 from ..ops.kernels import sqrt_rn
 from ..ops.kernels.stochastic_round import stochastic_round
-from ..ops.kernels.tree_update import tree_update
+from ..ops.kernels.tree_update import scalar_rows, scalars_tensor, tree_update
 from ..regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
 
@@ -117,8 +116,19 @@ class Optimizer:
     def _init_state(self, v):
         return ()
 
-    def _update(self, p, g, state, lr, step):
-        """(new param, new state) from p, g and state; out of place."""
+    def _rates(self, lr, step):
+        """The scalars of this optimizer's update that change from step
+        to step, from the leaf's lr and the 1-based step, in float64 host
+        arithmetic (`lr` a float or a numpy array of them): (lr,), and
+        e.g. Adam's bias-corrected rate. `_update` reads them as Python
+        floats on the eager path and as float32 device scalars of the
+        train step's scalars block on the tree path, which a captured
+        step then reads at every replay."""
+        return (lr,)
+
+    def _update(self, p, g, state, rates):
+        """(new param, new state) from p, g, state and the step's
+        `_rates`; out of place."""
         raise NotImplementedError
 
     def _decoupled_decay_coeff(self):
@@ -220,8 +230,8 @@ class Optimizer:
             lr = self._lr_for(p)
             if wd and self._decay_applies(p):
                 work = work * _w(1.0 - lr * wd, work)
-            new_p, new_state = self._update(work, gval, state, lr,
-                                            self._step_count)
+            new_p, new_state = self._update(
+                work, gval, state, self._rates(lr, self._step_count))
             box[0] = tuple(new_state)
             if master is not None:
                 box[1] = new_p
@@ -308,7 +318,7 @@ class Optimizer:
     @torch.no_grad()
     def apply_gradients_tree(self, params, grads, state, lr, step,
                              found_inf=None, decay_mask=None, lr_scale=None,
-                             with_stats=False):
+                             with_stats=False, scalars=None):
         """Update `params` ({name: tensor}) and `state` ({name: leaf
         state}) IN PLACE from `grads` at 1-based `step`. `decay_mask` is
         an optional {name: bool}, `lr_scale` an optional {name: float}
@@ -319,6 +329,10 @@ class Optimizer:
         once where it meets a tensor, as the fused epilogue's does.
         with_stats: returns float32 [sum of new_p^2, sum of (new_p -
         old_p)^2] over the params (the health vector's sums), else None.
+        `scalars` (the train step's scalars block: int32 rows of
+        ops/kernels/tree_update.py `scalar_rows` on the params' device)
+        replaces lr, step, decay_mask and lr_scale when given; else the
+        rows are built here, once, and both routes below read them.
 
         Leaves are visited in sorted name order, the reference's
         `jax.tree.flatten` order of its {name: value} dict: a leaf's
@@ -331,34 +345,40 @@ class Optimizer:
                   [s["state"] if isinstance(s, dict) else s for s in trees],
                   [s["master"] if isinstance(s, dict) else None
                    for s in trees])
-        decay = None if decay_mask is None \
-            else [decay_mask.get(k, True) for k in names]
-        scale = None if lr_scale is None \
-            else [float(lr_scale.get(k, 1.0)) for k in names]
+        if scalars is None and names:
+            decay = None if decay_mask is None \
+                else [decay_mask.get(k, True) for k in names]
+            scale = None if lr_scale is None \
+                else [float(lr_scale.get(k, 1.0)) for k in names]
+            scalars = scalars_tensor(scalar_rows(
+                self, lr, step, len(names), decay, scale,
+                len(leaves[2][0])), leaves[0][0].device)
         if self._fused_kind() is not None:
-            return tree_update(self, *leaves, lr, step, found_inf, decay,
-                               scale, with_stats)
-        return self._update_leaves(*leaves, lr, step, found_inf, decay,
-                                   scale, with_stats)
+            return tree_update(self, *leaves, scalars, found_inf,
+                               with_stats)
+        return self._update_leaves(*leaves, scalars, found_inf, with_stats)
 
     @torch.no_grad()
-    def _update_leaves(self, params, grads, states, masters, lr, step,
-                       found_inf=None, decay=None, lr_scale=None,
-                       with_stats=False, sr_round=stochastic_round):
+    def _update_leaves(self, params, grads, states, masters, scalars,
+                       found_inf=None, with_stats=False,
+                       sr_round=stochastic_round):
         """The tree path's per-leaf torch code: `apply_gradients_tree` on
         lists in sorted name order (states: a tuple of state leaves a
-        leaf; masters: float32 or None; decay: a bool a leaf; lr_scale: a
-        float a leaf). Each leaf's update in float32, then each state
-        leaf and the parameter cast back to their dtypes, by `sr_round`
-        (K2's wrapper, or its twin for the tree-update kernel's twin)
-        under `_stochastic_rounding` with a bf16 target."""
+        leaf; masters: float32 or None). Each leaf's update in float32,
+        then each state leaf and the parameter cast back to their
+        dtypes, by `sr_round` (K2's wrapper, or its twin for the
+        tree-update kernel's twin) under `_stochastic_rounding` with a
+        bf16 target. The step's scalars (`scalars`, int32 rows of
+        `scalar_rows`: the rates, decay factors and keys) are read as
+        device scalars, so that a captured step reads each replay's; a
+        leaf that decay does not apply to has the factor 1."""
+        if not params:
+            return torch.zeros(2, dtype=torch.float32) if with_stats \
+                else None
         wd = self._decoupled_decay_coeff()
-        lr = float(lr)
         sr = self._stochastic_rounding
-        keys = None
-        if sr and params:
-            leaf, sub = threefry.sr_keys(step, len(params), len(states[0]))
-            keys = (leaf.tolist(), sub.tolist())
+        f32 = scalars.view(torch.float32)
+        n_rates = len(self._rates(1.0, 1))
 
         def down(x32, dtype, key):
             if sr and dtype == torch.bfloat16 and x32.dtype != dtype:
@@ -369,18 +389,17 @@ class Optimizer:
             if with_stats else None
         for i, (p, inner, master) in enumerate(zip(params, states, masters)):
             w = master if master is not None else p.float()
-            lrs = 1.0 if lr_scale is None else float(lr_scale[i])
-            lr_leaf = lr if lrs == 1.0 else lr * lrs
-            if wd and (decay is None or decay[i]):
-                w = w * (1.0 - lr_leaf * wd)
-            new_w, new_inner = self._update(w, grads[i].float(), inner,
-                                            lr_leaf, step)
-            leaf_key, state_keys = (keys[0][i], keys[1][i]) if keys \
-                else (None, [None] * len(inner))
-            new_inner = [down(n, o.dtype, state_keys[j])
+            row = f32[i]
+            if wd:
+                w = w * row[8]
+            new_w, new_inner = self._update(
+                w, grads[i].float(), inner,
+                tuple(row[9 + j] for j in range(n_rates)))
+            keys = scalars[i]
+            new_inner = [down(n, o.dtype, keys[2 + 2 * j:4 + 2 * j])
                          for j, (n, o) in enumerate(zip(new_inner, inner))]
             new_p = new_w.to(p.dtype) if master is not None \
-                else down(new_w, p.dtype, leaf_key)
+                else down(new_w, p.dtype, keys[0:2])
             if found_inf is not None:
                 new_p = torch.where(found_inf, p, new_p)
                 new_inner = [torch.where(found_inf, o, n)
@@ -406,7 +425,8 @@ class SGD(Optimizer):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision, name)
 
-    def _update(self, p, g, state, lr, step):
+    def _update(self, p, g, state, rates):
+        (lr,) = rates
         return p - _w(lr, g) * g, state
 
     def _fused_kind(self):
@@ -425,8 +445,9 @@ class Momentum(Optimizer):
     def _init_state(self, v):
         return (self._f32_zeros(v),)
 
-    def _update(self, p, g, state, lr, step):
+    def _update(self, p, g, state, rates):
         (vel,) = state
+        lr = rates[0]
         mom = self._momentum
         vel = _w(mom, vel) * vel + g
         if self._nesterov:
@@ -454,14 +475,18 @@ class LarsMomentum(Momentum):
         self._lars_wd = lars_weight_decay
         self._eps = epsilon
 
-    def _update(self, p, g, state, lr, step):
+    def _rates(self, lr, step):
+        return (lr, lr * self._lars_coeff)
+
+    def _update(self, p, g, state, rates):
         (vel,) = state
+        lr, lr_coeff = rates
         pf, gf = p.float(), g.float()
         w_norm = torch.sqrt(torch.sum(pf * pf))
         g_norm = torch.sqrt(torch.sum(gf * gf))
         local_lr = torch.where(
             (w_norm > 0) & (g_norm > 0),
-            lr * self._lars_coeff * w_norm
+            lr_coeff * w_norm
             / (g_norm + self._lars_wd * w_norm + self._eps),
             lr)
         # float32 local_lr times a bf16 vector is float32, as in jnp
@@ -487,12 +512,16 @@ class Adam(Optimizer):
     def _init_state(self, v):
         return (self._f32_zeros(v), self._f32_zeros(v))
 
-    def _update(self, p, g, state, lr, step):
+    def _rates(self, lr, step):
+        b1, b2 = self._beta1, self._beta2
+        return (lr, lr * (1 - b2 ** step) ** 0.5 / (1 - b1 ** step))
+
+    def _update(self, p, g, state, rates):
         m, v = state
+        lr_t = rates[1]
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         m = _w(b1, m) * m + _w(1 - b1, g) * g
         v = _w(b2, v) * v + _w(1 - b2, g) * g * g
-        lr_t = lr * (1 - b2 ** step) ** 0.5 / (1 - b1 ** step)
         return p - _w(lr_t, m) * m / (sqrt_rn(v) + _w(eps, v)), (m, v)
 
     def _fused_kind(self):
@@ -531,12 +560,15 @@ class Adamax(Optimizer):
     def _init_state(self, v):
         return (self._f32_zeros(v), self._f32_zeros(v))
 
-    def _update(self, p, g, state, lr, step):
+    def _rates(self, lr, step):
+        return (lr, lr / (1 - self._beta1 ** step))
+
+    def _update(self, p, g, state, rates):
         m, u = state
+        rate = rates[1]
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         m = _w(b1, m) * m + _w(1 - b1, g) * g
         u = torch.maximum(_w(b2, u) * u, torch.abs(g))
-        rate = lr / (1 - b1 ** step)
         return p - _w(rate, m) * m / (u + _w(eps, u)), (m, u)
 
 
@@ -554,8 +586,9 @@ class Adagrad(Optimizer):
         return (torch.full(v.shape, float(self._init_acc),
                            dtype=torch.float32, device=v.device),)
 
-    def _update(self, p, g, state, lr, step):
+    def _update(self, p, g, state, rates):
         (acc,) = state
+        lr = rates[0]
         acc = acc + g * g
         d = _w(lr, g) * g
         return p - d / (torch.sqrt(acc) + _w(self._epsilon, acc)), (acc,)
@@ -572,8 +605,9 @@ class Adadelta(Optimizer):
     def _init_state(self, v):
         return (self._f32_zeros(v), self._f32_zeros(v))
 
-    def _update(self, p, g, state, lr, step):
+    def _update(self, p, g, state, rates):
         acc_g, acc_x = state
+        lr = rates[0]
         rho, eps = self._rho, self._epsilon
         acc_g = _w(rho, acc_g) * acc_g + _w(1 - rho, g) * g * g
         upd = torch.sqrt(acc_x + _w(eps, acc_x)) \
@@ -594,8 +628,9 @@ class RMSProp(Optimizer):
     def _init_state(self, v):
         return (self._f32_zeros(v), self._f32_zeros(v), self._f32_zeros(v))
 
-    def _update(self, p, g, state, lr, step):
+    def _update(self, p, g, state, rates):
         ms, mg, mom = state
+        lr = rates[0]
         rho, eps = self._rho, self._epsilon
         ms = _w(rho, ms) * ms + _w(1 - rho, g) * g * g
         if self._centered:
@@ -624,13 +659,17 @@ class Lamb(Optimizer):
     def _init_state(self, v):
         return (self._f32_zeros(v), self._f32_zeros(v))
 
-    def _update(self, p, g, state, lr, step):
+    def _rates(self, lr, step):
+        return (lr, 1 - self._beta1 ** step, 1 - self._beta2 ** step)
+
+    def _update(self, p, g, state, rates):
         m, v = state
+        lr, c1, c2 = rates
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         m = _w(b1, m) * m + _w(1 - b1, g) * g
         v = _w(b2, v) * v + _w(1 - b2, g) * g * g
-        m_hat = m / _w(1 - b1 ** step, m)
-        v_hat = v / _w(1 - b2 ** step, v)
+        m_hat = m / _w(c1, m)
+        v_hat = v / _w(c2, v)
         r = m_hat / (torch.sqrt(v_hat) + _w(eps, v_hat)) \
             + _w(self._wd, p) * p
         p_norm = torch.sqrt(torch.sum(p * p))

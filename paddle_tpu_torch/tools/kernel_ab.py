@@ -1,9 +1,9 @@
 """A/B timings of kernel design choices, on one CUDA card.
 
     python3 -m paddle_tpu_torch.tools.kernel_ab [pass1] [policy] [ln] [ssm]
-        [tree] [--against DIR]
+        [tree] [scalars] [--against DIR]
 
-Run from the root of a checkout; with no mode it runs all five.
+Run from the root of a checkout; with no mode it runs all six.
 
 - pass1: fused pass 1 (kernel #9, csrc/fused_update.cu) built with 2, 4,
   8 and 16 16-byte vectors a thread (its kUnroll1), each on GPT-medium's
@@ -65,8 +65,19 @@ Run from the root of a checkout; with no mode it runs all five.
   Each build's main variant's registers and spills are printed, and its
   first update is held bit for bit against the first build's on the same
   inputs. The spin before
-  each launch is ~20 ms here: the wrapper's host work a call (keys and
-  the leaf table) must be enqueued before the start event.
+  each launch is ~20 ms here: the wrapper's host work a call (the leaf
+  table) must be enqueued before the start event.
+- scalars: the three kernels that read their step's changing scalars
+  from device memory (the train step's scalars block, jit/scalars.py),
+  through their public wrappers with those scalars already on the card,
+  as a captured train step calls them, each with its health sums as the
+  train step asks for them: pass 2 (#10) on GPT-medium's bucket layout
+  (AdamW, f32 masters; f32 and bf16 moments; `rates` = [lr, lr_t]), the
+  tree update at GPT-1.3B's 292 leaves on bench.py's Momentum (bf16
+  velocity; stochastic rounding and nearest) and on GPT-medium's leaves
+  with AdamW and f32 masters (`scalars` = its `scalar_rows`), and K2 at
+  GPT-1.3B's wte (103,022,592 elements; the key's words on the card);
+  each beside its byte bound.
 
 Variants are timed in turns (A B C .. C B A), twice; each time is the
 mean of CUDA-event times over 20 launches with the 50 MB L2 flushed and
@@ -93,7 +104,8 @@ from ..ops.kernels import layer_norm as lk
 from ..ops.kernels import paged_attention as pa
 from ..ops.kernels import ssm_scan as sk
 from ..ops.kernels import tree_update as tu
-from ..optimizer import Momentum
+from ..ops.kernels import stochastic_round as srk
+from ..optimizer import AdamW, Momentum
 
 HBM_BYTES_PER_S = 3.35e12
 UNROLLS = (2, 4, 8, 16)
@@ -718,6 +730,14 @@ def tree_leaves_1p3b(seed=0):
     return params, grads, states, [None] * len(named)
 
 
+def _tree_rows(opt, lr, step, leaves):
+    """The tree update's scalar rows of a step on the leaves' card, as
+    the train step's scalars block holds them."""
+    return tu.scalars_tensor(tu.scalar_rows(
+        opt, lr, step, len(leaves[0]),
+        n_state=tu.tree_spec(opt)["n_moments"]), leaves[0][0].device)
+
+
 def _copy_leaves(leaves):
     params, grads, states, masters = leaves
     return ([t.clone() for t in params], grads,
@@ -742,8 +762,8 @@ def ab_tree(flush):
             if "registers" in x or "spill" in x))
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tree_update.argtypes = [p, i, i, ctypes.POINTER(tu._Args), p,
-                                    p, p, p, i, i, i, i, i, p]
+        lib.tree_update.argtypes = [p, p, i, i, ctypes.POINTER(tu._Args),
+                                    p, p, p, p, i, i, i, i, i, p]
         lib.tree_update.restype = ctypes.c_int
         tiling = (ctypes.c_int * 4)()
         lib.tree_update_tiling(tiling)
@@ -756,6 +776,8 @@ def ab_tree(flush):
     bench._stochastic_rounding = True
     n = sum(t.numel() for t in leaves[0])
     nbytes = 10 * n
+    rows = {(sp, step): _tree_rows(sp, lr, step, leaves)
+            for sp in (bench, rne) for step in (1, 3)}
     kernel, vec_count = tu._kernel, tu.VECS
     res, want = {}, None
     try:
@@ -765,7 +787,7 @@ def ab_tree(flush):
             tu.TILE = tu.THREADS * tu.VEC * tu.VECS
             if label not in res:  # the first update, held bit for bit
                 out = _copy_leaves(leaves)
-                tu.tree_update(bench, *out, lr, 1)
+                tu.tree_update(bench, *out, rows[bench, 1])
                 torch.cuda.synchronize()
                 if want is None:
                     want = out
@@ -781,13 +803,14 @@ def ab_tree(flush):
                 res[label] = []
                 continue
             res[label].append(tuple(cuda_ms(
-                lambda: tu.tree_update(sp, *leaves, lr, 3), flush, iters=10,
+                lambda: tu.tree_update(sp, *leaves, rows[sp, 3]), flush,
+                iters=10,
                 spin=TREE_SPIN) for sp in (bench, rne)))
     finally:
         tu._kernel, tu.VECS = kernel, vec_count
         tu.TILE = tu.THREADS * tu.VEC * tu.VECS
     for _ in range(200):  # ~3 s of the as-built kernel, enqueued
-        tu.tree_update(bench, *leaves, lr, 3)
+        tu.tree_update(bench, *leaves, rows[bench, 3])
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -809,6 +832,116 @@ def ab_tree(flush):
           f"{INT32_OPS_PER_S / 1e12:.1f} T/s)")
 
 
+def _gpt_medium_leaves(master, seed=1):
+    """GPT-medium's leaves (sorted names) in bf16 on the card: params ~
+    N(0, 0.02), grads ~ N(0, 1e-3), AdamW's two f32 moments (v >= 0) and,
+    with `master`, f32 masters. Returns (params, grads, states, masters)
+    as tree_update takes them."""
+    model = GPTForCausalLM(gpt_medium(), dtype=torch.bfloat16)
+    named = sorted((k, tuple(p.shape)) for k, p in model.named_parameters())
+    del model
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape, std):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+    params = [draw(s, 0.02).to(torch.bfloat16) for _, s in named]
+    grads = [draw(s, 1e-3).to(torch.bfloat16) for _, s in named]
+    states = [(draw(s, 1e-3), draw(s, 1e-3).square()) for _, s in named]
+    masters = [p.float() if master else None for p in params]
+    return params, grads, states, masters
+
+
+def ab_scalars(flush):
+    print("kernels reading their step's scalars from device memory",
+          flush=True)
+    lr = float(np.float32(1e-4))
+    # pass 2 (#10), GPT-medium's buckets, AdamW with f32 masters
+    model = GPTForCausalLM(gpt_medium(), dtype=torch.bfloat16)
+    named = [(k, tuple(p.shape), torch.bfloat16)
+             for k, p in model.named_parameters()]
+    del model
+    layout = fu.BucketLayout(named)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for state_dtype in (torch.float32, torch.bfloat16):
+        opt = AdamW(lr, multi_precision=True)
+        opt._state_dtype = state_dtype
+        epi = fu.FusedEpilogue(layout, opt.fused_spec())
+        buckets = []
+        for key, b in layout.buckets.items():
+            n = b.total
+            buckets.append(fk.FlatBucket(
+                key, (torch.randn(n, generator=gen, device="cuda")
+                      * 1e-3).to(torch.bfloat16),
+                (torch.randn(n, generator=gen, device="cuda")
+                 * 0.02).to(torch.bfloat16),
+                [(torch.randn(n, generator=gen, device="cuda")
+                  * 1e-3).to(state_dtype),
+                 (torch.randn(n, generator=gen, device="cuda")
+                  * 1e-3).square().to(state_dtype)],
+                torch.randn(n, generator=gen, device="cuda") * 0.02,
+                b.chunk_leaf))
+        bs = fk.BucketSet(buckets, layout.leaf_flags, layout.leaf_lr_scale,
+                          layout.leaf_norm_weight, layout.chunk)
+        rates = epi.device_rates(lr, 3, "cuda")
+        runs = [cuda_ms(lambda: fk.fused_pass2(
+            bs, epi.spec, rates, with_stats=True), flush)
+            for _ in range(2)]
+        n_bytes = bs.pass2_bytes
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"  pass 2 (#10), AdamW, f32 masters, {str(state_dtype)[6:]} "
+              f"moments: {np.mean(runs):.4f} ms (runs "
+              f"{[round(r, 4) for r in runs]}), bound {bound:.4f} ms "
+              f"({n_bytes / 1e9:.3f} GB), bound/kernel "
+              f"{bound / np.mean(runs):.3f}", flush=True)
+        del bs, buckets
+        torch.cuda.empty_cache()
+    # the tree update, GPT-1.3B on bench.py's Momentum; GPT-medium AdamW
+    leaves = tree_leaves_1p3b()
+    n = sum(t.numel() for t in leaves[0])
+    for sr in (True, False):
+        opt = Momentum(lr, 0.9)
+        opt._state_dtype = torch.bfloat16
+        opt._stochastic_rounding = sr
+        rows = _tree_rows(opt, lr, 3, leaves)
+        runs = [cuda_ms(lambda: tu.tree_update(
+            opt, *leaves, rows, with_stats=True), flush, iters=10,
+            spin=TREE_SPIN) for _ in range(2)]
+        by_bytes = 10 * n / HBM_BYTES_PER_S * 1e3
+        bound = max(by_bytes, n * 2 * SR_OPS / INT32_OPS_PER_S * 1e3) \
+            if sr else by_bytes
+        print(f"  tree update, GPT-1.3B, bench.py's Momentum, "
+              f"{'stochastic rounding' if sr else 'nearest'}: "
+              f"{np.mean(runs):.4f} ms (runs {[round(r, 4) for r in runs]}),"
+              f" bound {bound:.4f} ms, bound/kernel "
+              f"{bound / np.mean(runs):.3f}", flush=True)
+    del leaves
+    torch.cuda.empty_cache()
+    leaves = _gpt_medium_leaves(True)
+    opt = AdamW(lr, multi_precision=True)
+    rows = _tree_rows(opt, lr, 3, leaves)
+    runs = [cuda_ms(lambda: tu.tree_update(
+        opt, *leaves, rows, with_stats=True), flush, iters=10,
+        spin=TREE_SPIN) for _ in range(2)]
+    n = sum(t.numel() for t in leaves[0])
+    bound = 30 * n / HBM_BYTES_PER_S * 1e3
+    print(f"  tree update, GPT-medium, AdamW, f32 masters: "
+          f"{np.mean(runs):.4f} ms (runs {[round(r, 4) for r in runs]}), "
+          f"bound {bound:.4f} ms (30 B a parameter), bound/kernel "
+          f"{bound / np.mean(runs):.3f}", flush=True)
+    del leaves
+    torch.cuda.empty_cache()
+    # K2 at GPT-1.3B's wte
+    x = torch.randn(103_022_592, generator=gen, device="cuda") * 0.02
+    key = torch.tensor([0, 0x5bd1e995], dtype=torch.int32, device="cuda")
+    runs = [cuda_ms(lambda: srk.stochastic_round(x, key), flush)
+            for _ in range(2)]
+    by_bytes = x.numel() * 6 / HBM_BYTES_PER_S * 1e3
+    bound = max(by_bytes, x.numel() * SR_OPS / INT32_OPS_PER_S * 1e3)
+    print(f"  K2 stochastic_round, 103,022,592 elements: {np.mean(runs):.4f} "
+          f"ms (runs {[round(r, 4) for r in runs]}), bound {bound:.4f} ms, "
+          f"bound/kernel {bound / np.mean(runs):.3f}", flush=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("kernel_ab needs a CUDA card", file=sys.stderr)
@@ -823,9 +956,9 @@ def main(argv):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    which = set(argv) or {"pass1", "policy", "ln", "ssm", "tree"}
+    which = set(argv) or {"pass1", "policy", "ln", "ssm", "tree", "scalars"}
     _build.build(["paged_attention", "fused_update", "layer_norm",
-                  "ssm_scan"])
+                  "ssm_scan", "tree_update", "stochastic_round"])
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     if "pass1" in which:
         ab_pass1(flush)
@@ -837,6 +970,8 @@ def main(argv):
         ab_ssm(flush, against)
     if "tree" in which:
         ab_tree(flush)
+    if "scalars" in which:
+        ab_scalars(flush)
     return 0
 
 

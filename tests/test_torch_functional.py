@@ -8,8 +8,9 @@ would. softplus straddles its threshold (x up to 8 at beta 2.0 and
 threshold 5.0), so both branches run. The SSM mixer's private softplus
 (`jax.nn.softplus`, no threshold) against jax.nn.softplus itself.
 
-The signatures of SSMConfig, GPTConfig, RecurrentStateCache and
-TrainStep against the reference's (ROADMAP C.3): the same parameters in
+The signatures of SSMConfig, GPTConfig, RecurrentStateCache, TrainStep
+(ROADMAP C.3) and GenerationEngine (C.5) against the reference's: the
+same parameters in
 the same order with the same defaults (the dtype default is each
 framework's float32; the cache's `device` is the port's own); the stored
 fields equal the reference's; a value the port cannot run raises
@@ -31,12 +32,13 @@ import jax
 import paddle_tpu as paddle
 from paddle_tpu.inference.cache_strategy import \
     RecurrentStateCache as RefRecurrent
+from paddle_tpu.inference.serving import GenerationEngine as RefEngine
 from paddle_tpu.jit import TrainStep as RefTrainStep
 from paddle_tpu.models.gpt import GPTConfig as RefGPTConfig
 from paddle_tpu.models.ssm import SSMConfig as RefSSMConfig
 from paddle_tpu.nn import functional as RF
 
-from paddle_tpu_torch.inference import RecurrentStateCache
+from paddle_tpu_torch.inference import GenerationEngine, RecurrentStateCache
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM, SSMConfig
 from paddle_tpu_torch.models import ssm as port_ssm
@@ -122,7 +124,9 @@ def _params(fn, drop=()):
     (TrainStep, RefTrainStep, ()),
     # the dtype default is each framework's float32; `device` the port's
     (RecurrentStateCache, RefRecurrent, ("dtype", "device")),
-], ids=["SSMConfig", "GPTConfig", "TrainStep", "RecurrentStateCache"])
+    (GenerationEngine, RefEngine, ()),
+], ids=["SSMConfig", "GPTConfig", "TrainStep", "RecurrentStateCache",
+        "GenerationEngine"])
 def test_signature_matches_reference(port, ref, drop):
     assert _params(port, drop) == _params(ref, drop)
 
@@ -176,3 +180,34 @@ def test_train_step_takes_the_reference_keywords():
     ids = torch.zeros(2, 8, dtype=torch.int64)
     step = TrainStep(FusedLoss(), None, opt(), model_returns_loss=True)
     assert step(ids, ids).dim() == 0
+
+
+def _tiny_gpt():
+    return GPTForCausalLM(GPTConfig(vocab_size=64, hidden_size=32,
+                                    num_layers=1, num_heads=2,
+                                    max_position_embeddings=16),
+                          device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cache=object()), dict(name="gen0"), dict(ragged=True),
+    dict(ragged=False), dict(prefix_cache=False),
+    dict(kv_snapshot_every=4)],
+    ids=["cache", "name", "ragged-true", "ragged-false", "prefix_cache",
+         "kv_snapshot_every"])
+def test_generation_engine_refuses_unported_options(kw):
+    with pytest.raises(NotImplementedError, match=r"queue A, item A\.7"):
+        GenerationEngine(_tiny_gpt(), n_pages=8, page_size=4, **kw)
+
+
+def test_generation_engine_eighth_positional_is_the_cache():
+    # the reference's eighth parameter is `cache`: a value there must not
+    # bind to prefill_chunk as it did
+    with pytest.raises(NotImplementedError, match="cache="):
+        GenerationEngine(_tiny_gpt(), 8, 4, 2, 8, 4, None, 16)
+    eng = GenerationEngine(_tiny_gpt(), 8, 4, 2, 8, 4, None, None, None,
+                           None, 16, True, 8)
+    try:
+        assert eng.prefill_chunk == 16
+    finally:
+        eng.shutdown()

@@ -119,6 +119,19 @@ logits, tokens and every pool bit for bit (the same kernels in the same
 order), and the launch counts a replay adds; two engines over one model
 holding separate graphs; `engine.warm` capturing on the scheduler
 thread, after which the traffic adds no retraces.
+
+The compiled train step (jit/api.py `TrainStep`) on a tiny bf16 GPT:
+each flavor's replays against its eager body from one snapshot, bit for
+bit (losses, parameters, moments, masters, the GradScaler's state): the
+fused AdamW under a scheduler and a moving GradScaler; bench.py's tree
+Momentum with stochastic rounding and a bf16 velocity under each remat
+policy behind the chunked loss; `run_steps(4)`; `accumulate(2)`; Adamax
+with stochastic rounding (K2); LarsMomentum, Adagrad, Adadelta, RMSProp
+and Lamb on their per-leaf code; a `dropout=0.1` GPT under remat with
+its generator registered with the graph. `retraces` counts captures;
+after k replays each wrapper counted k times its capture's launches,
+the backward kernels' too. `warm` and the inspection paths add no
+capture; a capture that meets a host read raises, with no fallback.
 """
 import numpy as np
 import pytest
@@ -523,9 +536,9 @@ def _run_passes(epi, stores, kernel, scale, clip, with_stats, sums=None):
     p2 = fk.fused_pass2 if kernel else fk.fused_pass2_reference
     out1 = p1(bs, scale=scale)
     use = out1 if sums is None else sums
-    lr_t = epi._rate(0.01, 3)
+    rates = epi.device_rates(0.01, 3, bs.device)
     clip_norm = 0.5 if clip == "global" else None
-    out2 = p2(bs, epi.spec, 0.01, lr_t, clip_norm=clip_norm,
+    out2 = p2(bs, epi.spec, rates, clip_norm=clip_norm,
               clip_value=(-0.3, 0.25) if clip == "value" else None,
               sumsq=use[0], found=use[1] if scale is not None else None,
               with_stats=with_stats)
@@ -844,6 +857,15 @@ def _tree_buffers(ps, tree):
     return out
 
 
+def _scalars(opt, lr, step, leaves, decay=None, lr_scale=None):
+    """The step's scalar rows of (params, grads, states, masters) on
+    their device, as `apply_gradients_tree` builds them."""
+    params, _, states, _ = leaves
+    return tu.scalars_tensor(tu.scalar_rows(
+        opt, lr, step, len(params), decay, lr_scale, len(states[0])),
+        params[0].device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,params,state,sround", TREE_MATRIX)
 def test_tree_update_matches_twin_on_card(kind, params, state, sround):
@@ -869,12 +891,12 @@ def test_tree_update_matches_twin_on_card(kind, params, state, sround):
                        for k in names]
             args.append(([p[k] for k in names], [g[k] for k in names],
                          states, masters))
+        rows = _scalars(opt, 0.01, step, args[0], decay, lrs)
         before = tu.tree_update.launches
-        got = tu.tree_update(opt, *args[0], 0.01, step, flag, decay, lrs,
-                             with_stats=True)
+        got = tu.tree_update(opt, *args[0], rows, flag, with_stats=True)
         assert tu.tree_update.launches == before + groups
-        want = tu.tree_update_reference(opt, *args[1], 0.01, step, flag,
-                                        decay, lrs, with_stats=True)
+        want = tu.tree_update_reference(opt, *args[1], rows, flag,
+                                        with_stats=True)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
         for (name, a), (_, b) in zip(_tree_buffers(ps, tree),
@@ -936,24 +958,24 @@ def test_tree_update_at_the_leaf_limit():
         np.float32)).to("cuda", torch.bfloat16) for k in ("p", "g", "v")}
     leaves = {k: list(t.split(sizes.tolist())) for k, t in flat.items()}
     twin = {k: [t.clone() for t in v] for k, v in leaves.items()}
+    args = (leaves["p"], leaves["g"], [(v,) for v in leaves["v"]],
+            [None] * n)
+    rows = _scalars(opt, 0.01, 2, args)
     before = tu.tree_update.launches
-    got = tu.tree_update(opt, leaves["p"], leaves["g"],
-                         [(v,) for v in leaves["v"]], [None] * n, 0.01, 2,
-                         with_stats=True)
+    got = tu.tree_update(opt, *args, rows, with_stats=True)
     assert tu.tree_update.launches == before + 1
     want = tu.tree_update_reference(opt, twin["p"], twin["g"],
                                     [(v,) for v in twin["v"]], [None] * n,
-                                    0.01, 2, with_stats=True)
+                                    rows, with_stats=True)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
     for k in ("p", "v"):
         assert torch.equal(torch.cat(leaves[k]).view(torch.int16),
                            torch.cat(twin[k]).view(torch.int16)), k
+    args = (leaves["p"] + leaves["p"][:1], leaves["g"] + leaves["g"][:1],
+            [(v,) for v in leaves["v"] + leaves["v"][:1]], [None] * (n + 1))
     with pytest.raises(ValueError, match="leaves of one group"):
-        tu.tree_update(opt, leaves["p"] + leaves["p"][:1],
-                       leaves["g"] + leaves["g"][:1],
-                       [(v,) for v in leaves["v"] + leaves["v"][:1]],
-                       [None] * (n + 1), 0.01, 2)
+        tu.tree_update(opt, *args, _scalars(opt, 0.01, 2, args))
 
 
 # -- LayerNorm (#5, #6) and softmax cross-entropy (#7, #8) ------------------
@@ -1758,3 +1780,241 @@ def test_remat_launches_the_flash_forward_twice_a_layer_on_card(remat):
     assert torch.equal(out[0][0], out[1][0])
     for k, g in out[0][1].items():
         assert torch.equal(g, out[1][1][k]), k
+
+
+# -- the train step's captured programs (jit/api.py) ---------------------------
+
+class _FusedLoss(torch.nn.Module):
+    """bench.py's wrapper at a tiny size: the chunked vocab loss."""
+
+    def __init__(self, lm):
+        super().__init__()
+        self.lm = lm
+
+    def forward(self, ids, labels):
+        return self.lm.fused_loss(ids, labels, chunk=64)
+
+
+def _lm_loss(logits, labels):
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1))
+
+
+def _state_copies(step):
+    """Copies of every tensor of a step's state: params, optimizer state
+    (moments, masters), the GradScaler's."""
+    out = []
+
+    def walk(t):
+        if isinstance(t, torch.Tensor):
+            out.append(t.detach().clone())
+        elif isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif isinstance(t, (tuple, list)):
+            for x in t:
+                walk(x)
+    walk(step.tree_state())
+    return out
+
+
+def _sr(opt):
+    opt._stochastic_rounding = True
+    opt._state_dtype = torch.bfloat16
+    return opt
+
+
+def _captured_case(name):
+    """(step, one call of its flavor, the same call's eager body, the
+    scheduler or None) of a tiny bf16 GPT on the card."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    ids = torch.randint(0, 512, (2, 64), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(5))
+    sched = None
+    if name.startswith("tree-momentum-sr"):  # bench.py's optimizer
+        remat = {"true": True, "names": "names"}.get(
+            name.rsplit("-", 1)[1], "dots")
+        model = _tiny_gpt(remat)
+        step = TrainStep(_FusedLoss(model), None, _sr(Momentum(
+            1e-3, 0.9, parameters=model.parameters())),
+            model_returns_loss=True)
+    elif name == "adamax-sr":
+        model = _tiny_gpt()
+        step = TrainStep(model, _lm_loss, _sr(Adamax(
+            1e-3, parameters=model.parameters())), monitor_health=True)
+    elif name in TREE_OPTIMIZERS:  # the per-leaf code, f32 state, no SR
+        model = _tiny_gpt()
+        step = TrainStep(model, _lm_loss, TREE_OPTIMIZERS[name](
+            model.parameters()), monitor_health=True)
+    elif name == "dropout":
+        from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+        model = GPTForCausalLM(GPTConfig(
+            vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+            max_position_embeddings=128, scan_remat="dots", dropout=0.1),
+            device="cuda", dtype=torch.bfloat16, seed=3)
+        step = TrainStep(model, _lm_loss, AdamW(
+            1e-3, parameters=model.parameters(), multi_precision=True))
+    else:  # fused AdamW, a scheduler, a GradScaler whose scale moves
+        model = _tiny_gpt()
+        sched = lr_mod.LinearWarmup(lr_mod.CosineAnnealingDecay(
+            1e-3, T_max=8), warmup_steps=3, start_lr=1e-4, end_lr=1e-3)
+        step = TrainStep(model, _lm_loss, AdamW(
+            sched, parameters=model.parameters(), multi_precision=True),
+            scaler=GradScaler(init_loss_scaling=2.0 ** 10,
+                              incr_every_n_steps=2), monitor_health=True)
+    if name.endswith("run_steps"):
+        return (step, lambda: step.run_steps(4, ids, ids),
+                lambda: step._eager_run_steps(4, ids, ids), sched)
+    if name == "accumulate":
+        acc = ids.reshape(2, 1, 64)
+        return (step, lambda: step.accumulate(2, acc, acc),
+                lambda: step._eager_accumulate(2, acc, acc), sched)
+    return step, lambda: step(ids, ids), lambda: step._eager_call(
+        ids, ids), sched
+
+
+def _tree_optimizers():
+    from paddle_tpu_torch import optimizer as opt
+    return {
+        "lars": lambda ps: opt.LarsMomentum(0.5, 0.9, lars_coeff=0.01,
+                                            parameters=ps),
+        "adagrad": lambda ps: opt.Adagrad(1e-3, parameters=ps),
+        "adadelta": lambda ps: opt.Adadelta(1.0, parameters=ps),
+        "rmsprop": lambda ps: opt.RMSProp(1e-3, momentum=0.5, centered=True,
+                                          parameters=ps),
+        "lamb": lambda ps: opt.Lamb(1e-3, parameters=ps)}
+
+
+TREE_OPTIMIZERS = _tree_optimizers()
+CAPTURED_CASES = ["fused-adamw-sched-scaler", "tree-momentum-sr-dots",
+                  "tree-momentum-sr-true", "tree-momentum-sr-names",
+                  "tree-momentum-sr-run_steps", "run_steps", "accumulate",
+                  "adamax-sr", "dropout"] \
+    + list(TREE_OPTIMIZERS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CAPTURED_CASES)
+def test_replayed_train_steps_equal_eager_on_card(name):
+    """A flavor's first call captures its program (one retrace); from the
+    same `snapshot_state` (and scheduler and Dropout generator states),
+    3 replays and 3 runs of the eager body give bit-equal losses and
+    state: every parameter, moment, master and the GradScaler's state.
+    After k replays each wrapper counted k times its capture's launches,
+    the backward kernels' (launched from autograd's thread) included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from paddle_tpu_torch.jit.api import _dropout_generators
+    step, call, eager, sched = _captured_case(name)
+    gens = _dropout_generators(step.model)
+    assert bool(gens) == (name == "dropout")
+
+    def mark():
+        return (step.snapshot_state(), step._step_i,
+                sched.state_dict() if sched is not None else None,
+                [g.get_state() for g in gens])
+
+    def back(m):
+        snap, i, sd, gs = m
+        step.set_tree_state(snap["params"], snap["opt_state"])
+        step.scaler_state = snap["scaler_state"]
+        step._step_i = i
+        if sd is not None:
+            sched.set_state_dict(sd)
+        for g, st in zip(gens, gs):
+            g.set_state(st)
+
+    def run(fn, n):
+        out = []
+        for _ in range(n):
+            out.append(fn().reshape(-1))
+            if sched is not None:
+                sched.step()
+        torch.cuda.synchronize()
+        return torch.cat(out), _state_copies(step)
+
+    m = mark()
+    run(call, 1)  # the capture: its eager run is this call's step
+    assert step.retraces == 1
+    (prog,) = [p for cache in step._graphs.values() for p in cache.values()]
+    assert prog.graph is not None and prog.info["compile_s"] > 0
+    if name != "dropout":  # attention dropout takes SDPA's plain path
+        assert prog.launches.get(fa.flash_attention_dq) and \
+            prog.launches.get(fa.flash_attention_dkv)
+    back(m)
+    before = {w: w.launches for w in prog.launches}
+    got, got_state = run(call, 3)
+    for w, n in prog.launches.items():
+        assert w.launches - before[w] == 3 * n, w.__name__
+    back(m)
+    want, want_state = run(eager, 3)
+    assert step.retraces == 1 and prog.replays == 3
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, want), (got, want)
+    assert len(got_state) == len(want_state)
+    for i, (a, b) in enumerate(zip(got_state, want_state)):
+        assert torch.equal(a, b), i
+    if step.monitor_health:
+        step.flush_health()
+        assert np.isfinite([h["loss"] for h in step.health_log]).all()
+
+
+@pytest.mark.cuda
+def test_train_step_inspection_adds_no_capture_on_card():
+    """warm captures once and counts nothing; the first call then
+    replays and counts; cost_analysis, flops and compiled_text after it
+    capture nothing; flops include the flash kernels' closed form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from paddle_tpu_torch.jit import TrainStep
+    model = _tiny_gpt()
+    step = TrainStep(model, _lm_loss, AdamW(
+        1e-3, parameters=model.parameters(), multi_precision=True))
+    ids = torch.randint(0, 512, (2, 64), device="cuda")
+    before = {k: v.clone() for k, v in step.params.items()}
+    h = step.warm(ids, ids)
+    assert h.done() and h.fresh and step.retraces == 0
+    assert all(torch.equal(before[k], v) for k, v in step.params.items())
+    (prog,) = step._graphs["step"].values()
+    step(ids, ids)
+    assert step.retraces == 1 and prog.replays == 1
+    cost = step.cost_analysis(ids, ids)
+    assert cost["kernel flops"] > 0 and cost["flops"] > cost["kernel flops"]
+    assert step.flops(ids, ids) == cost["flops"]
+    text = step.compiled_text(ids, ids)
+    assert "flash_attention_dq" in text and "MiB" in text
+    assert len(step._graphs["step"]) == 1 and step.retraces == 1
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_on_card():
+    """A loss that reads a value back to the host runs eagerly but
+    cannot be captured: the call raises, keeps no program, counts no
+    retrace and leaves the state as it was (the eager run's update is
+    put back, the step index stays); the next call tries again and
+    raises again (no eager fallback)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from paddle_tpu_torch.jit import TrainStep
+
+    def host_read_loss(logits, labels):
+        loss = _lm_loss(logits, labels)
+        loss.item()  # legal eagerly, refused inside a capture
+        return loss
+    model = _tiny_gpt()
+    step = TrainStep(model, host_read_loss, AdamW(
+        1e-3, parameters=model.parameters(), multi_precision=True))
+    ids = torch.randint(0, 512, (2, 64), device="cuda")
+    before = _state_copies(step)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            step(ids, ids)
+        assert step.retraces == 0 and not step._graphs["step"]
+        assert step._step_i == 0
+        after = _state_copies(step)
+        assert len(after) == len(before)
+        for i, (a, b) in enumerate(zip(after, before)):
+            assert torch.equal(a, b), i
+    torch.cuda.synchronize()

@@ -492,24 +492,19 @@ def test_momentum_bf16_state_sr_trains():
 # -- the train step's lr, the tree path's clip, the C entry points -----------
 
 @pytest.mark.parametrize("fused", [True, False])
-def test_train_step_rounds_the_scheduler_lr_to_float32(ref_state, fused,
-                                                       monkeypatch):
+def test_train_step_rounds_the_scheduler_lr_to_float32(ref_state, fused):
     _, model = _models(ref_state)
     sched = port_lr.LambdaDecay(1.0, lambda e: 1.0 / (3 + e))
     opt = port_opt.AdamW(sched, parameters=model.parameters())
     step = TrainStep(model, _loss, opt, fused_update=fused)
     seen = []
-    if fused:
-        orig = step._fused.finish
-        monkeypatch.setattr(step._fused, "finish", lambda *a, **k: (
-            seen.append(a[3]), orig(*a, **k))[1])
-    else:
-        orig = opt.apply_gradients_tree
-        monkeypatch.setattr(opt, "apply_gradients_tree", lambda *a, **k: (
-            seen.append(a[3]), orig(*a, **k))[1])
+    # the lr reaches both epilogues through the step's scalars block: the
+    # fused path's [lr, lr_t], the tree path's rate 0 of each leaf row
     ids = torch.from_numpy(_ids())
     for _ in range(2):
         step(ids, ids)
+        block = step._scalars.block.view(torch.float32)
+        seen.append(float(block[0] if fused else block[9]))
         sched.step()
     want = [float(np.float32(1.0 / 3)), float(np.float32(1.0 / 4))]
     assert seen == want and seen[0] != 1.0 / 3
@@ -580,6 +575,7 @@ def test_ctypes_parameters_match_the_c_entry_points(source, module, fn):
     types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
              "const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
              "const int*": ctypes.c_void_p, "int": ctypes.c_int,
+             "const unsigned*": ctypes.c_void_p,
              "unsigned": ctypes.c_uint, "long long": ctypes.c_longlong,
              "const Pass2Args*": ctypes.POINTER(fk._Pass2Args)}
     assert [types[p] for p in _c_params(source, fn)] \

@@ -177,9 +177,9 @@ def test_remat_replays_the_dropout_generator():
         loss.backward()
         runs.append((loss.detach(),
                      {k: p.grad for k, p in model.named_parameters()},
-                     model.gpt._remat_generator.get_state()))
+                     model.gpt.drop.generator.get_state()))
     (loss0, grads0, gen0) = runs[0]
-    assert model.gpt.h[0].mlp.drop.generator is model.gpt._remat_generator
+    assert model.gpt.h[0].mlp.drop.generator is model.gpt.drop.generator
     for loss, grads, gen in runs[1:]:
         assert torch.equal(loss, loss0)
         for k, g in grads.items():

@@ -249,9 +249,10 @@ def test_adam_update_matches_reference_leaf_math():
     want_p, (want_m, want_v) = ref._update(
         jnp.asarray(p), jnp.asarray(g), (jnp.asarray(m), jnp.asarray(v)),
         0.01, 3)
-    got_p, (got_m, got_v) = Adam(learning_rate=0.01)._update(
+    port = Adam(learning_rate=0.01)
+    got_p, (got_m, got_v) = port._update(
         *map(torch.from_numpy, (p, g)),
-        (torch.from_numpy(m), torch.from_numpy(v)), 0.01, 3)
+        (torch.from_numpy(m), torch.from_numpy(v)), port._rates(0.01, 3))
     for a, b in ((got_p, want_p), (got_m, want_m), (got_v, want_v)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
                                    atol=1e-7)

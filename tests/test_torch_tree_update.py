@@ -20,8 +20,9 @@ the JAX package, on the CPU.
   taken before the update: within 1e-6 relative (float32 sums in another
   order).
 - The kernel's host side: the leaf table's addresses, sizes, tiles,
-  flags, keys (`threefry.sr_keys`, against jax.random) and float32
-  scalars (against the twin's Python float arithmetic); the groups and
+  scalar rows and flags, the step's scalar rows (`scalar_rows`: keys,
+  `threefry.sr_keys` against jax.random, and float32 rates and decay
+  factors against the twin's Python float arithmetic); the groups and
   their leaf limit (the tile starts and the kernel's static shared
   memory within 48 KB); the C source's tiling, structs and entry point
   against the wrapper's.
@@ -139,10 +140,12 @@ def test_twin_matches_reference_tree_update(kind, params, state, sr):
             decay_mask={k: DECAY.get(k, True) for k in rp},
             lr_scale={k: LR_SCALE.get(k, 1.0) for k in rp})
         states, masters = _leaves_of(ps, names)
+        rows = tu.scalars_tensor(tu.scalar_rows(
+            po, LR, step, len(names), decay, lrs, len(states[0])),
+            torch.device("cpu"))
         out = tu.tree_update_reference(
-            po, [pp[k] for k in names], pg, states, masters, LR, step,
-            found_inf=None if found is None else torch.tensor(found),
-            decay=decay, lr_scale=lrs)
+            po, [pp[k] for k in names], pg, states, masters, rows,
+            found_inf=None if found is None else torch.tensor(found))
         assert out is None
         _assert_equal(pp, ps, rp, rs)
         now = {k: _bits(v).copy() for k, v in pp.items()}
@@ -269,16 +272,17 @@ def test_leaf_table_matches_the_twin(kind):
     decay = [True, False, True, True, False]
     lrs = [1.0, 0.5, 1.0, 3.0, 1.0]
     lr, step = float(np.float32(3e-3)), 7
-    scalars = tu.leaf_scalars(spec, lr, step, 5, decay, lrs)
+    rows = tu.scalar_rows(po, lr, step, 5, decay, lrs, spec["n_moments"])
     keys = threefry.sr_keys(step, 5, spec["n_moments"])
     idx = [0, 2, 3, 4]
-    table, n_tiles = tu.leaf_table(params, grads, states, masters, idx,
-                                   scalars, keys)
-    assert table.dtype.itemsize == 96 and len(table) == 4
+    table, n_tiles = tu.leaf_table(params, grads, states, masters, idx)
+    assert table.dtype.itemsize == 64 and len(table) == 4
+    assert rows.dtype.itemsize == 64 and len(rows) == 5
     sizes = [2047, 1, 4096 * 2 + 5, 64]
     tiles = [-(-n // tu.TILE) for n in sizes]
     assert table["n"].tolist() == sizes
     assert table["tile0"].tolist() == list(np.cumsum(tiles) - tiles)
+    assert table["slot"].tolist() == idx
     assert n_tiles == sum(tiles)
     assert table["p"].tolist() == [params[i].data_ptr() for i in idx]
     assert table["g"].tolist() == [grads[i].data_ptr() for i in idx]
@@ -294,23 +298,27 @@ def test_leaf_table_matches_the_twin(kind):
     assert table["flags"].tolist() == [int(a) * tu.FLAG_ALIGNED
                                        for a in aligned]
     leaf, sub = (k.tolist() for k in keys)
-    for r, i in enumerate(idx):
-        assert table["key"][r, :2].tolist() == leaf[i]
-        assert table["key"][r, 2:4].tolist() == sub[i][0]
-        assert table["key"][r, 4:].tolist() == (sub[i][1] if n_states > 1
+    for i in range(5):
+        assert rows["key"][i, :2].tolist() == leaf[i]
+        assert rows["key"][i, 2:4].tolist() == sub[i][0]
+        assert rows["key"][i, 4:6].tolist() == (sub[i][1] if n_states > 1
                                                 else [0, 0])
+        assert rows["key"][i, 6:].tolist() == [0, 0]
         # the twin's Python float arithmetic, rounded once to float32
         lr_leaf = lr if lrs[i] == 1.0 else lr * lrs[i]
-        want_t = lr_leaf * (1 - 0.999 ** step) ** 0.5 / (1 - 0.9 ** step) \
-            if kind in ("adam", "adamw") else lr_leaf
+        want_t = lr_leaf * (1 - 0.999 ** step) ** 0.5 / (1 - 0.9 ** step)
         want_d = 1.0 - lr_leaf * 0.1 if kind == "adamw" and decay[i] \
             else 1.0
-        assert table["lr"][r] == np.float32(lr_leaf)
-        assert table["lr_t"][r] == np.float32(want_t)
-        assert table["decay"][r] == np.float32(want_d)
-    g32 = tu.leaf_table(params, grads, states, masters, [1], scalars)[0]
+        assert rows["rate"][i, 0] == np.float32(lr_leaf)
+        if kind in ("adam", "adamw"):
+            assert rows["rate"][i, 1] == np.float32(want_t)
+        assert not rows["rate"][i, len(po._rates(lr, step)):].any()
+        assert rows["decay"][i] == np.float32(want_d)
+    g32 = tu.leaf_table(params, grads, states, masters, [1])[0]
     assert g32["flags"].tolist() == [tu.FLAG_ALIGNED + tu.FLAG_GRAD_F32]
-    assert g32["key"].tolist() == [[0] * 6]
+    po._stochastic_rounding = False
+    assert not tu.scalar_rows(po, lr, step, 5, decay, lrs,
+                              spec["n_moments"])["key"].any()
 
 
 def test_leaf_groups():
@@ -384,11 +392,13 @@ def test_kernel_constants_and_structs_match_the_source():
         return out
     c2np = {"long long": "<i8", "unsigned": "<u4", "float": "<f4",
             "int": "<i4"}
-    leaf = fields("Leaf")
-    assert [n for _, n, _ in leaf] == list(tu.LEAF.names)
-    for ctype, name, count in leaf:
-        dt = tu.LEAF.fields[name][0]
-        assert (dt.base.str, dt.shape or (1,)) == (c2np[ctype], (count,))
+    for struct, dtype in (("Leaf", tu.LEAF), ("Scal", tu.SCAL)):
+        got = fields(struct)
+        assert [n for _, n, _ in got] == list(dtype.names)
+        for ctype, name, count in got:
+            dt = dtype.fields[name][0]
+            assert (dt.base.str, dt.shape or (1,)) == (c2np[ctype],
+                                                       (count,))
     c2ct = {"float": ctypes.c_float, "int": ctypes.c_int}
     assert [(n, c2ct[c]) for c, n, _ in fields("TreeArgs")] \
         == tu._Args._fields_
