@@ -319,7 +319,29 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    equal, the real slots' conv tails and states after the run within
    1e-3 of each pool's largest entry; every request sampled (seeds
    300-307): as phase 5's sampled streams;
-15. the smoke's run time and the kernels line (each flash kernel
+15. the Paddle dygraph surface (`import paddle_tpu_torch as paddle`,
+   `set_device("gpu")`, `seed(0)`): (a) GPT-medium bf16 as a Layer,
+   loaded with the phase-4 weights through `set_state_dict`, trained by
+   the eager loop `model(ids)` -> `F.cross_entropy` -> `loss.backward()`
+   -> `opt.step()` -> `opt.clear_grad()` (AdamW 3e-4 with
+   ClipGradByGlobalNorm(1.0), examples/train_gpt.py's) on phase 7's
+   batch from `paddle.to_tensor`: losses finite and falling, the step-1
+   loss within 1e-3 relative of phase 7's default TrainStep step-1
+   loss, kernels #2-#4 launched exactly steps x 24 times and no other;
+   wall and device ms a step, idle share, peak memory; (c)
+   `paddle.save(model.state_dict())` -> `paddle.load` ->
+   `set_state_dict` into a fresh model: every parameter and one
+   forward's logits bit-equal; (b) the same Layer model through
+   examples/train_gpt.py's `TrainStep(model, loss_fn, opt)` fed Paddle
+   Tensors: losses finite, #9 and #10 launched steps x bucket groups,
+   #2-#4 steps x 24; wall and device ms beside phase 7's default run;
+   (d) tests/test_torch_dygraph.py's user Layer at head_dim 64, float32
+   with TF32 off, 3 eager steps on the card and on the CPU from the same
+   numpy weights: losses within 1e-3 relative, the flash kernels
+   launched on the card; (e) host microseconds of `paddle.add` and
+   `x + y` on Tensors against `torch.add`, and of a Layer call with a
+   Tensor or a torch tensor against the bare forward;
+16. the smoke's run time and the kernels line (each flash kernel
    twice: head_dim 64 and, with the suffix "_d128", 128; #10's bf16
    variant as "fused_pass2_bf16_state"; the tree update as
    "tree_update"; K2 as "stochastic_round"), then, last, {"ok": true,
@@ -4366,6 +4388,291 @@ def phase_ssm_agreement(torch, km, smods, prompts):
                                        f"of their size > {SSM_STATE_RTOL}")
 
 
+# -- Paddle's dygraph surface: Tensor, Layer, the eager loop, save/load ------
+
+# phase 15 (a): the eager loop's steps (the first untimed) and its lr and
+# clip, examples/train_gpt.py's
+EAGER = dict(warmup=1, timed=4, lr=3e-4, clip=1.0)
+# phase 15 (b): examples/train_gpt.py's TrainStep program, its steps
+EXAMPLE = dict(warmup=2, timed=6)
+# phase 15 (d): the user-defined Layer at head_dim 64, float32
+USER_D, USER_HEADS, USER_STEPS = 128, 2, 3
+
+
+def user_net(paddle, d=USER_D, heads=USER_HEADS):
+    """tests/test_torch_dygraph.py's user-defined Layer: two Linears, a
+    LayerNorm, a create_parameter with a ParamAttr initializer,
+    transpose(perm) and F.scaled_dot_product_attention."""
+    nn, F = paddle.nn, paddle.nn.functional
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.heads = heads
+            self.norm = nn.LayerNorm(d)
+            self.qkv = nn.Linear(d, 3 * d, bias_attr=False)
+            self.out = nn.Linear(d, d)
+            self.gain = self.create_parameter(
+                [d], attr=paddle.ParamAttr(
+                    initializer=nn.initializer.Constant(0.5)))
+
+        def forward(self, x):
+            B, T, D = x.shape
+            qkv = self.qkv(self.norm(x)).reshape(
+                [B, T, 3, self.heads, D // self.heads])
+            qkv = qkv.transpose([2, 0, 1, 3, 4])
+            o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
+                                               is_causal=True)
+            return self.out(o.reshape([B, T, D])) * self.gain + x
+    return Net()
+
+
+def eager_adamw(paddle, model, lr, clip):
+    return paddle.optimizer.AdamW(
+        lr, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(clip))
+
+
+def phase_dygraph(torch, km, state, train_main):
+    """Paddle's dygraph surface on the card (`import paddle_tpu_torch as
+    paddle`): (a) GPT-medium bf16 as a Layer, loaded with the phase-4
+    weights by set_state_dict, trained by the eager loop on phase 7's
+    batch from paddle.to_tensor; (b) the same Layer model through
+    examples/train_gpt.py's TrainStep program; (c) paddle.save /
+    paddle.load / set_state_dict into a fresh model; (d) the user
+    Layer, card against CPU; (e) the surface's host cost."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_medium
+    F = paddle.nn.functional
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    cfg = gpt_medium()
+    L, V = cfg.num_layers, cfg.vocab_size
+    B, T = TRAIN["batch"], TRAIN["seq"]
+    ids_np = np.random.RandomState(0).randint(0, V, size=(B, T)).astype(
+        np.int32)
+    flash = [n for n, _ in FLASH_KERNELS]
+
+    def new_model():
+        model = GPTForCausalLM(cfg)
+        model.bfloat16()
+        missing, unexpected = model.set_state_dict(state)
+        check(not missing and not unexpected,
+              f"set_state_dict: missing {missing}, unexpected {unexpected}")
+        check(isinstance(model, paddle.nn.Layer)
+              and all(isinstance(p, paddle.Tensor)
+                      for p in model.parameters()),
+              "GPT is not a Layer of Paddle Parameters")
+        return model
+
+    # (a) the eager loop
+    model = new_model().train()
+    opt = eager_adamw(paddle, model, EAGER["lr"], EAGER["clip"])
+    ids = paddle.to_tensor(ids_np)
+    check(ids.value.is_cuda, "paddle.to_tensor did not place on CUDA")
+    losses = []
+
+    def eager_step():
+        logits = model(ids)
+        loss = F.cross_entropy(logits.reshape([-1, V]), ids.reshape([-1]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.value.detach())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(km)
+    for _ in range(EAGER["warmup"]):
+        eager_step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(EAGER["timed"]):
+        eager_step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / EAGER["timed"]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eager_step()
+        torch.cuda.synchronize()
+    launches = counts(km)
+    n = EAGER["warmup"] + EAGER["timed"] + 1
+    vals = torch.stack(losses).float().tolist()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  (a) eager loop: {n} steps, loss {vals[0]:.4f} -> "
+          f"{vals[-1]:.4f}; {step_s * 1e3:.1f} ms/step wall over "
+          f"{EAGER['timed']} steps; peak memory {peak:.2f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(np.isfinite(vals).all(), f"(a) non-finite loss: {vals}")
+    check(vals[-1] < vals[0], f"(a) loss did not fall: {vals}")
+    for k in flash:
+        check(launches[k] == n * L,
+              f"(a) {k}: {launches[k]} launches, want {n} x {L}")
+    rel = abs(vals[0] - train_main["first"]) / abs(train_main["first"])
+    print(f"  (a) step-1 loss {vals[0]:.6f}, phase 7's default TrainStep "
+          f"{train_main['first']:.6f}: relative difference {rel:.3g} "
+          f"(limit 1e-3)")
+    check(rel <= 1e-3, f"(a) step-1 loss differs from phase 7's by {rel}")
+    eager = dict(ms=step_s * 1e3, peak_gib=peak)
+    eager["device_ms"], eager["idle"], _, _ = train_time_goes(prof, step_s)
+    opt.clear_grad()
+    del opt, prof
+    torch.cuda.empty_cache()
+
+    # (c) save / load / set_state_dict into a fresh model, bit for bit
+    model.eval()
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "dygraph", "gpt_medium.pdparams")
+    t = time.perf_counter()
+    paddle.save(model.state_dict(), ckpt)
+    loaded = paddle.load(ckpt)
+    io_s = time.perf_counter() - t
+    os.remove(ckpt)
+    fresh = GPTForCausalLM(cfg)
+    fresh.bfloat16()
+    fresh.eval()
+    missing, unexpected = fresh.set_state_dict(loaded)
+    del loaded
+    check(not missing and not unexpected,
+          f"(c) missing {missing}, unexpected {unexpected}")
+    for (k, a), (_, b) in zip(model.named_parameters(),
+                              fresh.named_parameters()):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"(c) {k} differs after save / load")
+    probe = paddle.to_tensor(ids_np[:1, :256])
+    with paddle.no_grad():
+        la, lb = model(probe), fresh(probe)
+    check(torch.equal(la.value, lb.value), "(c) logits differ after load")
+    print(f"  (c) save + load of {len(model.state_dict())} tensors in "
+          f"{io_s:.1f}s: every parameter and the logits bit-equal")
+    del fresh, model, la, lb
+    torch.cuda.empty_cache()
+
+    # (b) examples/train_gpt.py's program on the same Layer model
+    model = new_model()
+
+    def loss_fn(logits, labels):
+        return F.cross_entropy(logits.reshape([-1, V]), labels.reshape([-1]))
+    step = TrainStep(model, loss_fn, eager_adamw(paddle, model, EAGER["lr"],
+                                                 EAGER["clip"]))
+    check(step._fused is not None, "(b) TrainStep took the tree epilogue")
+    groups = n_groups(step)
+    zero_counts(km)
+    out = [step(ids, ids) for _ in range(EXAMPLE["warmup"])]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out += [step(ids, ids) for _ in range(EXAMPLE["timed"])]
+    torch.cuda.synchronize()
+    ex_s = (time.perf_counter() - t) / EXAMPLE["timed"]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out.append(step(ids, ids))
+        torch.cuda.synchronize()
+    launches = counts(km)
+    n = EXAMPLE["warmup"] + EXAMPLE["timed"] + 1
+    vals = [float(v) for v in out]
+    check(all(isinstance(v, paddle.Tensor) for v in out),
+          "(b) TrainStep called with Tensors did not hand back Tensors")
+    check(np.isfinite(vals).all(), f"(b) non-finite loss: {vals}")
+    for k, _ in FUSED_KERNELS:
+        check(launches[k] == n * groups,
+              f"(b) {k}: {launches[k]} launches, want {n} x {groups}")
+    for k in flash:
+        check(launches[k] == n * L,
+              f"(b) {k}: {launches[k]} launches, want {n} x {L}")
+    ex = dict(ms=ex_s * 1e3)
+    print(f"  (b) TrainStep (examples/train_gpt.py's AdamW 3e-4 + "
+          f"ClipGradByGlobalNorm(1.0), bf16 without f32 masters, health "
+          f"off): {n} steps, loss {vals[0]:.4f} -> {vals[-1]:.4f}; "
+          f"{ex['ms']:.1f} ms/step wall, retraces {step.retraces}, "
+          f"{groups} bucket group(s); #9/#10 launches "
+          f"{launches['fused_pass1']}/{launches['fused_pass2']}")
+    ex["device_ms"], ex["idle"], _, _ = train_time_goes(prof, ex_s)
+    print(f"  (b) beside phase 7's default run on the same weights and "
+          f"batch (AdamW 1e-4 with f32 masters, health on, no clip): "
+          f"{train_main['ms']:.1f} ms/step wall, "
+          f"{train_main['device_ms']} device ms")
+    del step, model, prof, out
+    torch.cuda.empty_cache()
+
+    # (d) the user Layer at head_dim 64: card against CPU, float32
+    rng = np.random.default_rng(SEED)
+    x_np = rng.standard_normal((2, 64, USER_D), dtype=np.float32)
+    y_np = rng.standard_normal((2, 64, USER_D), dtype=np.float32)
+    weights = None
+    user = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("gpu", "cpu"):
+            paddle.set_device(dev)
+            net = user_net(paddle)
+            if weights is None:
+                weights = {k: (np.ones if k.endswith("norm.weight") else
+                               lambda s: rng.standard_normal(
+                                   s, dtype=np.float32) * 0.05)(
+                                       tuple(v.shape))
+                           for k, v in net.state_dict().items()}
+            net.set_state_dict(weights)
+            opt = eager_adamw(paddle, net, 1e-3, 1.0)
+            zero_counts(km)
+            ls = []
+            for _ in range(USER_STEPS):
+                loss = ((net(paddle.to_tensor(x_np))
+                         - paddle.to_tensor(y_np)) ** 2).mean()
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                ls.append(float(loss))
+            user[dev] = (ls, counts(km))
+    finally:
+        paddle.set_device("gpu")
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (card_l, card_n), (cpu_l, _) = user["gpu"], user["cpu"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    print(f"  (d) user Layer (d {USER_D}, {USER_HEADS} heads, float32, "
+          f"TF32 off), {USER_STEPS} eager steps: card {card_l}, CPU "
+          f"{cpu_l}; worst relative difference {worst:.3g} (limit 1e-3); "
+          f"card launches { {k: card_n[k] for k in flash} }")
+    check(worst <= 1e-3, f"(d) card and CPU losses differ by {worst}")
+    for k in flash:
+        check(card_n[k] == USER_STEPS, f"(d) {k}: {card_n[k]} launches on "
+                                       f"the card, want {USER_STEPS}")
+
+    # (e) the host cost of the surface
+    xt = torch.randn(8, 1024, device="cuda", dtype=torch.bfloat16)
+    yt = torch.randn(8, 1024, device="cuda", dtype=torch.bfloat16)
+    x, y = paddle.to_tensor(xt), paddle.to_tensor(yt)
+    lin = paddle.nn.Linear(1024, 1024)
+    lin.bfloat16()
+
+    class Wrap(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = lin
+
+        def forward(self, v):
+            return self.fc(v)
+    wrap = Wrap()
+    host = {
+        "torch.add (torch tensors)": host_us(torch, lambda: torch.add(xt,
+                                                                      yt)),
+        "paddle.add (Tensors)": host_us(torch, lambda: paddle.add(x, y)),
+        "x + y (Tensors)": host_us(torch, lambda: x + y),
+        "Linear.forward (torch tensor)": host_us(torch,
+                                                 lambda: lin.forward(xt)),
+        "Linear(torch tensor)": host_us(torch, lambda: lin(xt)),
+        "Linear(Tensor)": host_us(torch, lambda: lin(x)),
+        "user Layer(Tensor) -> Linear": host_us(torch, lambda: wrap(x)),
+    }
+    print("  (e) host us a call, [8, 1024] bf16: " + "; ".join(
+        f"{k} {v:.2f}" for k, v in host.items()))
+    return dict(eager=eager, example=ex, host=host, user_worst=worst)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4507,6 +4814,11 @@ def main():
           "streams", flush=True)
     phase_ssm_agreement(torch, km, smods, prompts)
 
+    print("[15] the Paddle dygraph surface: GPT-medium bf16 as a Layer "
+          "through the eager loop and TrainStep, save / load, a user "
+          "Layer card vs CPU, host cost", flush=True)
+    phase_dygraph(torch, km, state, train_main)
+
     main_step = held["decode"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -4569,7 +4881,7 @@ def main():
         "ms": scan_main["ms"], "plain_ms": scan_main["plain_ms"],
         "bound_ms": scan_main["bound_ms"], "bound_by": scan_main["bound_by"],
         "library_ms": None})
-    print(f"[15] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
+    print(f"[16] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
           f"run time); paged "
           f"attention times are of the served decode step's layer-0 call, "
           f"flash times of the training shapes [8, 1024, 16, 64] (and, "

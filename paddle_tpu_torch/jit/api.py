@@ -47,10 +47,12 @@ import gc
 import math
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from ..framework.core import paddle_io
 from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByValue,
                        clip_grads_tree, global_grad_norm)
 from ..ops.kernels import (captured_constants, captured_launches,
@@ -422,9 +424,11 @@ class TrainStep:
         return float(np.float32(self.optimizer.get_lr()))
 
     # -- the flavors ---------------------------------------------------------
+    @paddle_io
     def __call__(self, *batch):
         return self._dispatch("step", None, batch)
 
+    @paddle_io
     def run_steps(self, n, *batch, data_per_step=False):
         """n optimizer steps at the lr of the call's start (a scheduler
         is stepped between calls), step indices `_step_i + 1` to
@@ -437,6 +441,7 @@ class TrainStep:
         self._check_run_steps(n, batch, data_per_step)
         return self._dispatch("run_steps", n, batch, data_per_step)
 
+    @paddle_io
     def accumulate(self, k, *batch):
         """One optimizer update from k microbatches, as one program:
         every batch tensor carries a leading dim of k, microbatch i is
@@ -450,17 +455,20 @@ class TrainStep:
             return self(*[b[0] for b in batch])
         return self._dispatch("accumulate", k, batch)
 
+    @paddle_io
     def _eager_call(self, *batch):
         """`__call__`'s body run eagerly on the current stream (no
         capture, no replay), with the same scalars and bookkeeping."""
         return self._dispatch("step", None, batch, eager=True)
 
+    @paddle_io
     def _eager_run_steps(self, n, *batch, data_per_step=False):
         """`run_steps`' body run eagerly (see `_eager_call`)."""
         self._check_run_steps(n, batch, data_per_step)
         return self._dispatch("run_steps", n, batch, data_per_step,
                               eager=True)
 
+    @paddle_io
     def _eager_accumulate(self, k, *batch):
         """`accumulate`'s body run eagerly (see `_eager_call`)."""
         self._check_accumulate(k, batch)
@@ -595,6 +603,7 @@ class TrainStep:
             if cuda:
                 captured_constants(self._side)  # the failed capture's
                 torch.cuda.synchronize(self._device)  # the side stream too
+                self._end_failed_capture()
             if saved is not None:
                 self._restore_state(saved)
             raise
@@ -605,6 +614,19 @@ class TrainStep:
         prog.info.update(warm_s=t1 - t0, capture_s=t2 - t1,
                          compile_s=t2 - t0)
         return prog, out
+
+    def _end_failed_capture(self):
+        """A failed capture leaves the generators it registered (torch's
+        default one of the device, the Dropout ones) in their capture
+        state, where every later draw raises; an empty capture that
+        registers them ends that state, at the same positions."""
+        graph = torch.cuda.CUDAGraph()
+        for gen in _dropout_generators(self.model):
+            graph.register_generator_state(gen)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # "The CUDA Graph is empty"
+            with torch.cuda.graph(graph, stream=self._side):
+                pass
 
     def _measured_run(self, prog, kind, count, batch, data_per_step):
         """The body run eagerly under `profiler/cost.py` `measure()`,
@@ -813,6 +835,7 @@ class TrainStep:
         return aux
 
     # -- warm-up and inspection ----------------------------------------------
+    @paddle_io
     def warm(self, *batch):
         """Capture the per-step program of this batch signature ahead of
         its first call (on the CPU, run it once and put its effect back)
@@ -822,12 +845,14 @@ class TrainStep:
         step runs it."""
         return self._warm("step", None, batch)
 
+    @paddle_io
     def warm_run_steps(self, n, *batch, data_per_step=False):
         """Capture the `run_steps(n, ...)` program of this signature (see
         `warm`)."""
         self._check_run_steps(n, batch, data_per_step)
         return self._warm("run_steps", n, batch, data_per_step)
 
+    @paddle_io
     def warm_accumulate(self, k, *batch):
         """Capture the `accumulate(k, ...)` program of this signature
         (see `warm`). k == 1 warms the per-step program, as the dispatch
@@ -875,6 +900,7 @@ class TrainStep:
                                                    False)
         return prog
 
+    @paddle_io
     def cost_analysis(self, *batch):
         """The per-step program's cost for this batch signature: {"flops",
         "bytes accessed", "kernel flops", "kernel bytes"}
@@ -883,11 +909,13 @@ class TrainStep:
         touching `retraces`."""
         return _cost.cost_analysis(self._step_program(batch))
 
+    @paddle_io
     def flops(self, *batch):
         """Products of one step of this signature's program (0.0
         unknown); see `cost_analysis`."""
         return _cost.executable_flops(self._step_program(batch))
 
+    @paddle_io
     def compiled_text(self, *batch):
         """A text that names the per-step signature of `batch` and lists,
         for each of its graphs, the kernel launches its capture recorded

@@ -15,8 +15,10 @@ __all__ = ["load_paddle_tpu_state", "load_paddle_tpu_opt_state"]
 
 def load_paddle_tpu_state(model, state):
     """Copy `state` (name -> numpy array, e.g. `{k: v.numpy() for k, v
-    in ref.state_dict().items()}`) into `model`'s parameters, converted
-    to each parameter's dtype and device. Raises KeyError on a missing
+    in ref.state_dict().items()}`) into `model`'s parameters (any
+    Layer's, a user-defined one's too; `paddle.load` of a reference file
+    with `set_state_dict` is the other way in), converted to each
+    parameter's dtype and device. Raises KeyError on a missing
     or extra name and ValueError on a shape mismatch, before copying
     anything."""
     own = dict(model.named_parameters())

@@ -52,13 +52,12 @@ import time
 
 import numpy as np
 import torch
-from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..framework.dtype import convert_dtype
-from ..nn import Dropout, Embedding, LayerNorm, Linear
+from ..nn import Dropout, Embedding, Layer, LayerList, LayerNorm, Linear
 from ..nn.layer.common import dropout_masks
 from ..nn import functional as F
 from ..ops.attention_core import NEG_INF
@@ -607,13 +606,16 @@ def _remat(block, x, policy):
                       **context)
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
+    _paddle_io = False
+
     def __init__(self, cfg, device=None, dtype=None, generator=None):
         super().__init__()
         h, nh = cfg.hidden_size, cfg.num_heads
         self.num_heads = nh
         self.head_dim = h // nh
-        kw = dict(bias=cfg.use_bias, weight_std=cfg.initializer_range,
+        kw = dict(bias_attr=None if cfg.use_bias else False,
+                  weight_std=cfg.initializer_range,
                   device=device, dtype=dtype, generator=generator)
         self.qkv_proj = Linear(h, 3 * h, **kw)
         self.out_proj = Linear(h, h, **kw)
@@ -657,10 +659,13 @@ class GPTAttention(nn.Module):
         return self.out_proj(out.reshape(1, T, H).to(x.dtype)), slot
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
+    _paddle_io = False
+
     def __init__(self, cfg, device=None, dtype=None, generator=None):
         super().__init__()
-        kw = dict(bias=cfg.use_bias, weight_std=cfg.initializer_range,
+        kw = dict(bias_attr=None if cfg.use_bias else False,
+                  weight_std=cfg.initializer_range,
                   device=device, dtype=dtype, generator=generator)
         self.fc_in = Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.fc_out = Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
@@ -672,7 +677,9 @@ class GPTMLP(nn.Module):
         return self.drop(self.fc_out(F.gelu(h, approximate=True)))
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
+    _paddle_io = False
+
     def __init__(self, cfg, device=None, dtype=None, generator=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -691,7 +698,9 @@ class GPTBlock(nn.Module):
         return x, cache
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
+    _paddle_io = False
+
     def __init__(self, cfg, device=None, dtype=None, generator=None):
         super().__init__()
         self.cfg = cfg
@@ -701,7 +710,7 @@ class GPTModel(nn.Module):
         self.wpe = Embedding(cfg.max_position_embeddings, cfg.hidden_size,
                              **kw)
         self.drop = Dropout(cfg.dropout, generator=generator)
-        self.h = nn.ModuleList([
+        self.h = LayerList([
             GPTBlock(cfg, device=device, dtype=dtype, generator=generator)
             for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
@@ -734,13 +743,15 @@ class GPTModel(nn.Module):
         return self.ln_f(x), new_caches
 
 
-class GPTForCausalLM(RaggedGraphSteps, nn.Module):
+class GPTForCausalLM(RaggedGraphSteps, Layer):
     """GPT with the weight-tied LM head. Built on `device` (default
     CUDA; "cpu" only when asked) in `dtype` (default float32), its
     weights drawn from Normal(0, initializer_range) by a torch.Generator
     seeded with `seed`; load real or reference weights with
     models/convert.py. The module starts in eval mode, as serving wants
     it; call `.train()` to train (TrainStep does so for its forward)."""
+
+    _paddle_io = False
 
     def __init__(self, cfg, device=None, dtype=None, seed=0):
         super().__init__()

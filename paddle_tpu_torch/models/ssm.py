@@ -42,12 +42,12 @@ decoding is refused on these caches, whose state cannot roll back.
 """
 import numpy as np
 import torch
-from torch import nn
 
 from ..device import resolve_device
 from ..framework.dtype import convert_dtype
 from ..inference.cache_strategy import HybridCache, RecurrentStateCache
-from ..nn import Embedding, LayerNorm, Linear
+from ..framework.core import Parameter
+from ..nn import Embedding, Layer, LayerList, LayerNorm, Linear
 from ..nn import functional as F
 from ..ops.kernels.ssm_scan import ssm_scan
 from ..ops.paged_attention import PagedKVCache
@@ -170,11 +170,13 @@ def _softplus(x):
                                           device=x.device))
 
 
-class SSMMixer(nn.Module):
+class SSMMixer(Layer):
     """Selective-SSM token mixer (the Mamba block body): in-projection
     to (x, z), causal depthwise conv over x, input-dependent (dt, B, C)
     from x, the selective scan h_t = exp(dt A) h_{t-1} + (dt B_t) x_t,
     y_t = C_t . h_t + D x_t, silu(z) gating, out-projection."""
+
+    _paddle_io = False
 
     def __init__(self, cfg, device=None, dtype=None, generator=None):
         super().__init__()
@@ -185,20 +187,21 @@ class SSMMixer(nn.Module):
         std = cfg.initializer_range
         kw = dict(weight_std=std, device=device, dtype=dtype,
                   generator=generator)
-        self.in_proj = Linear(h, 2 * d, bias=False, **kw)
-        self.conv_weight = nn.Parameter(torch.empty(K, d, device=device,
+        self.in_proj = Linear(h, 2 * d, bias_attr=False, **kw)
+        self.conv_weight = Parameter(torch.empty(K, d, device=device,
                                                     dtype=dtype))
-        self.conv_bias = nn.Parameter(torch.zeros(d, device=device,
+        self.conv_bias = Parameter(torch.zeros(d, device=device,
                                                   dtype=dtype))
-        self.x_proj = Linear(d, R + 2 * N, bias=False, **kw)
+        self.x_proj = Linear(d, R + 2 * N, bias_attr=False, **kw)
         self.dt_proj = Linear(R, d, **kw)
         # S4/Mamba A: A = -exp(A_log), A_log = log(1..N) per channel; the
         # skip D starts at 1
-        self.A_log = nn.Parameter(torch.log(
+        self.A_log = Parameter(torch.log(
             torch.arange(1, N + 1, dtype=torch.float32)).repeat(d, 1).to(
                 device=device, dtype=dtype))
-        self.D = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
-        self.out_proj = Linear(d, h, bias=cfg.use_bias, **kw)
+        self.D = Parameter(torch.ones(d, device=device, dtype=dtype))
+        self.out_proj = Linear(d, h, bias_attr=None if cfg.use_bias else False,
+                               **kw)
         with torch.no_grad():
             self.conv_weight.normal_(0.0, std, generator=generator)
 
@@ -277,10 +280,12 @@ class SSMMixer(nn.Module):
         return self.out_proj(y[None].to(x.dtype)), slot
 
 
-class SSMBlock(nn.Module):
+class SSMBlock(Layer):
     """Pre-norm residual block around one mixer: an SSMMixer, or a
     GPTAttention layer in the hybrid interleave. No separate MLP: the
     mixer carries its own `expand`x inner width."""
+
+    _paddle_io = False
 
     def __init__(self, cfg, use_attn=False, device=None, dtype=None,
                  generator=None):
@@ -298,7 +303,9 @@ class SSMBlock(nn.Module):
         return x + self.mixer(self.ln_1(x))
 
 
-class SSMModel(nn.Module):
+class SSMModel(Layer):
+    _paddle_io = False
+
     def __init__(self, cfg, device=None, dtype=None, generator=None):
         super().__init__()
         self.cfg = cfg
@@ -311,7 +318,7 @@ class SSMModel(nn.Module):
             # position-aware through its recurrence alone
             self.wpe = Embedding(cfg.max_position_embeddings,
                                  cfg.hidden_size, **kw)
-        self.h = nn.ModuleList([
+        self.h = LayerList([
             SSMBlock(cfg, use_attn=cfg.is_attn_layer(i), device=device,
                      dtype=dtype, generator=generator)
             for i in range(cfg.num_layers)])
@@ -340,7 +347,7 @@ class SSMModel(nn.Module):
         return self.ln_f(x), new_caches
 
 
-class SSMForCausalLM(RaggedGraphSteps, nn.Module):
+class SSMForCausalLM(RaggedGraphSteps, Layer):
     """Causal LM head over the SSM trunk (weight-tied, as GPT's), with
     GPTForCausalLM's serving surface, so GenerationEngine drives it
     unchanged: only the cache strategy underneath differs. Built on
@@ -348,6 +355,8 @@ class SSMForCausalLM(RaggedGraphSteps, nn.Module):
     float32), weights drawn by a torch.Generator seeded with `seed`;
     load real or reference weights with models/convert.py. The module
     starts in eval mode."""
+
+    _paddle_io = False
 
     def __init__(self, cfg, device=None, dtype=None, seed=0):
         super().__init__()

@@ -1,17 +1,27 @@
 """Common layers: Linear, Embedding, Dropout.
 
-Counterpart: paddle_tpu/nn/layer/common.py. `Linear` keeps Paddle's
-weight layout, `[in_features, out_features]` with `y = x @ W + b`, so a
+Counterpart: paddle_tpu/nn/layer/common.py, with its signatures:
+`Linear(in_features, out_features, weight_attr, bias_attr, name)`,
+`Embedding(num_embeddings, embedding_dim, padding_idx, sparse,
+weight_attr, name)`, `Dropout(p, axis, mode, name)`. The port's own
+keywords come after `*`: `device` and `dtype` (None: the current device,
+float32), `generator` (the torch.Generator that random draws take; None:
+the global one, `paddle.seed`) and `weight_std` (Normal(0, weight_std)
+instead of the default initializer). `Linear` keeps Paddle's weight
+layout, `[in_features, out_features]` with `y = x @ W + b`, so a
 `paddle_tpu` state dict carries over name for name and shape for shape
-(models/convert.py). Parameters are made on an explicit device and
-dtype and drawn from an explicit `torch.Generator`.
+(models/convert.py). These are port layers (`_paddle_io = False`):
+their `forward` runs on torch tensors, and a call with Paddle Tensors
+unwraps them (nn/layer/layers.py).
 """
 import contextlib
-import math
 import threading
 
 import torch
-from torch import nn
+
+from ...framework.random import generator as _global_generator
+from .. import initializer as I
+from .layers import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout", "dropout_masks"]
 
@@ -33,24 +43,27 @@ def dropout_masks(masks, replay):
         _MASKS.ctx = prev
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """y = x @ W + b, W shaped [in_features, out_features]. Weights
     default to Paddle's XavierNormal, or Normal(0, weight_std) when
-    given; the bias starts at zero."""
+    given; the bias starts at zero. `bias_attr=False` drops the bias."""
 
-    def __init__(self, in_features, out_features, bias=True,
-                 weight_std=None, device=None, dtype=None, generator=None):
-        super().__init__()
+    _paddle_io = False
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, weight_std=None, device=None,
+                 dtype=None, generator=None):
+        super().__init__(dtype=dtype)
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = nn.Parameter(torch.empty(
-            in_features, out_features, device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(
-            out_features, device=device, dtype=dtype)) if bias else None
-        std = math.sqrt(2.0 / (in_features + out_features)) \
-            if weight_std is None else weight_std
-        with torch.no_grad():
-            self.weight.normal_(0.0, std, generator=generator)
+        init = I.XavierNormal() if weight_std is None else \
+            I.Normal(0.0, weight_std)
+        kw = dict(device=device, generator=generator)
+        self.weight = self.create_parameter(
+            [in_features, out_features], attr=weight_attr,
+            default_initializer=init, **kw)
+        self.bias = self.create_parameter([out_features], attr=bias_attr,
+                                          is_bias=True, **kw)
 
     def forward(self, x):
         out = x @ self.weight
@@ -63,41 +76,67 @@ class Linear(nn.Module):
                f"out_features={self.out_features}"
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Row gather from a [num_embeddings, embedding_dim] table, drawn
-    from Normal(0, weight_std) (Paddle's default is std 1)."""
+    from Normal(0, weight_std) (Paddle's default is std 1). With
+    `padding_idx` that row starts at zero and the rows of ids equal to it
+    come out zero (so the row takes no grad), as on the reference.
+    `sparse` is accepted; grads are dense."""
 
-    def __init__(self, num_embeddings, embedding_dim, weight_std=1.0,
-                 device=None, dtype=None, generator=None):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(
-            num_embeddings, embedding_dim, device=device, dtype=dtype))
-        with torch.no_grad():
-            self.weight.normal_(0.0, weight_std, generator=generator)
+    _paddle_io = False
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *,
+                 weight_std=1.0, device=None, dtype=None, generator=None):
+        super().__init__(dtype=dtype)
+        self.padding_idx = None if padding_idx is None else (
+            padding_idx if padding_idx >= 0
+            else num_embeddings + padding_idx)
+        self.sparse = sparse
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=I.Normal(0.0, weight_std), device=device,
+            generator=generator)
+        if self.padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self.padding_idx] = 0
 
     def forward(self, ids):
-        return torch.nn.functional.embedding(ids, self.weight)
+        out = torch.nn.functional.embedding(ids, self.weight)
+        if self.padding_idx is not None:
+            out = out.masked_fill((ids == self.padding_idx)[..., None], 0)
+        return out
 
     def extra_repr(self):
         return f"{self.weight.shape[0]}, {self.weight.shape[1]}"
 
 
-class Dropout(nn.Module):
-    """Upscale-in-train dropout (Paddle's default mode): in training,
-    each element is kept with probability 1 - p, by a mask drawn from
-    `generator` (the global default generator when None), and kept
-    elements are scaled by 1 / (1 - p). The identity at eval and at
-    p == 0. Masks cannot match the reference's (another random stream),
-    so parity holds at p == 0 only."""
+class Dropout(Layer):
+    """Dropout in Paddle's two modes. "upscale_in_train" (the default):
+    in training each element is kept with probability 1 - p and kept
+    elements are scaled by 1 / (1 - p); the identity at eval.
+    "downscale_in_infer": kept elements unscaled in training, x * (1 - p)
+    at eval. With `axis` one mask entry covers the other axes. Masks are
+    drawn from `generator` (None: the global generator of the device,
+    `paddle.seed`); they cannot match the reference's (another random
+    stream), so parity holds at p == 0 only."""
 
-    def __init__(self, p=0.5, generator=None):
+    _paddle_io = False
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
+                 *, generator=None):
         super().__init__()
+        if mode not in ("upscale_in_train", "downscale_in_infer"):
+            raise ValueError(f"unsupported dropout mode {mode!r}")
         self.p = float(p)
+        self.axis = axis
+        self.mode = mode
         self.generator = generator
 
     def forward(self, x):
+        upscale = self.mode == "upscale_in_train"
         if not self.training or self.p == 0.0:
-            return x
+            return x if upscale or self.training else x * (1.0 - self.p)
         if self.p >= 1.0:
             return torch.zeros_like(x)
         ctx = getattr(_MASKS, "ctx", None)
@@ -106,11 +145,19 @@ class Dropout(nn.Module):
             keep = masks[at[0]]
             at[0] += 1
         else:
-            keep = torch.rand(x.shape, generator=self.generator,
-                              device=x.device) >= self.p
+            shape = x.shape
+            if self.axis is not None:
+                axes = self.axis if isinstance(self.axis, (list, tuple)) \
+                    else [self.axis]
+                axes = [a % x.dim() for a in axes]
+                shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+            gen = self.generator if self.generator is not None else \
+                _global_generator(x.device)
+            keep = torch.rand(shape, generator=gen, device=x.device) >= self.p
             if ctx is not None:
                 ctx[0].append(keep)
-        return x * keep.to(x.dtype) / (1.0 - self.p)
+        out = x * keep.to(x.dtype)
+        return out / (1.0 - self.p) if upscale else out
 
     def extra_repr(self):
-        return f"p={self.p}"
+        return f"p={self.p}, axis={self.axis}, mode={self.mode}"

@@ -1,28 +1,32 @@
 """Normalization layers. Counterpart: paddle_tpu/nn/layer/norm.py."""
-import torch
-from torch import nn
-
+from .. import initializer as I
 from ..functional.norm import layer_norm
+from .layers import Layer
 
 __all__ = ["LayerNorm"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """LayerNorm over the trailing `normalized_shape` dims, computed in
-    float32 and cast back (nn/functional/norm.py). Weight starts at
-    one, bias at zero."""
+    float32 and cast back (nn/functional/norm.py). Weight starts at one,
+    bias at zero; `weight_attr=False` / `bias_attr=False` drop them. The
+    port's `device` and `dtype` come after `*` (nn/layer/common.py)."""
 
-    def __init__(self, normalized_shape, epsilon=1e-5, device=None,
-                 dtype=None):
-        super().__init__()
+    _paddle_io = False
+
+    def __init__(self, normalized_shape, epsilon=1e-05, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None):
+        super().__init__(dtype=dtype)
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self.normalized_shape = list(normalized_shape)
         self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(
-            *self.normalized_shape, device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(
-            *self.normalized_shape, device=device, dtype=dtype))
+        self.weight = self.create_parameter(
+            self.normalized_shape, attr=weight_attr,
+            default_initializer=I.Constant(1.0), device=device)
+        self.bias = self.create_parameter(
+            self.normalized_shape, attr=bias_attr, is_bias=True,
+            device=device)
 
     def forward(self, x):
         return layer_norm(x, self.normalized_shape, self.weight,

@@ -57,6 +57,7 @@ torch.optim.AdamW's.
 """
 import torch
 
+from ..framework.core import unwrap_tree
 from ..framework.dtype import convert_dtype, weak_scalar as _w
 from ..ops.kernels import sqrt_rn
 from ..ops.kernels.stochastic_round import stochastic_round
@@ -287,6 +288,7 @@ class Optimizer:
         return out
 
     def set_state_dict(self, state_dict):
+        state_dict = unwrap_tree(state_dict)  # e.g. from paddle.load
         self._step_count = int(state_dict.get("step", 0))
         for i, p in enumerate(self._parameters):
             key = f"state_{i}"

@@ -2018,3 +2018,95 @@ def test_a_failed_capture_raises_on_card():
         for i, (a, b) in enumerate(zip(after, before)):
             assert torch.equal(a, b), i
     torch.cuda.synchronize()
+
+
+# -- Paddle's dygraph surface on the card ---------------------------------------
+
+@pytest.mark.cuda
+def test_new_tensors_and_parameters_land_on_cuda_by_default():
+    """`to_tensor`, the creation and random ops and `create_parameter`
+    place on CUDA unless `set_device("cpu")` asked for the CPU; after
+    it, new tensors land on the CPU, and `set_device("gpu")` brings
+    them back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch as paddle
+    prev = paddle.device._current
+    try:
+        paddle.device._current = None
+        assert paddle.get_device().startswith("gpu:")
+        t = paddle.to_tensor([1.0, 2.0])
+        assert t.value.is_cuda and t.place.startswith("gpu:")
+        assert paddle.zeros([2]).value.is_cuda
+        assert paddle.randn([2]).value.is_cuda
+        assert paddle.arange(4).value.is_cuda
+        p = paddle.nn.Layer().create_parameter([2, 3])
+        assert p.is_cuda and isinstance(p, paddle.Tensor)
+        assert paddle.nn.Linear(2, 2).weight.is_cuda
+        paddle.set_device("cpu")
+        assert paddle.get_device() == "cpu"
+        assert paddle.to_tensor([1.0]).place == "cpu"
+        assert not paddle.nn.Linear(2, 2).weight.is_cuda
+        paddle.set_device("gpu")
+        assert paddle.ones([1]).value.is_cuda
+    finally:
+        paddle.device._current = prev
+
+
+@pytest.mark.cuda
+def test_eager_loop_on_a_layer_launches_the_flash_kernels_on_card():
+    """GPT as a Layer, fed Paddle Tensors, trained by the eager loop
+    `loss.backward(); opt.step(); opt.clear_grad()`: each step launches
+    the flash forward, dQ and dK/dV once a layer, and the loss falls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch as paddle
+    model = _tiny_gpt().train()
+    assert isinstance(model, paddle.nn.Layer)
+    opt = AdamW(1e-3, parameters=model.parameters())
+    ids = paddle.to_tensor(np.random.RandomState(0).randint(
+        0, 512, (2, 64)).astype(np.int64), place="gpu")
+    names = ("flash_attention_fwd", "flash_attention_dq",
+             "flash_attention_dkv")
+    L = model.cfg.num_layers
+    losses = []
+    for _ in range(3):
+        before = {n: getattr(fa, n).launches for n in names}
+        logits = model(ids)
+        assert isinstance(logits, paddle.Tensor)
+        loss = F.cross_entropy(logits.reshape([-1, logits.shape[-1]]),
+                               ids.reshape([-1]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        assert {n: getattr(fa, n).launches - v
+                for n, v in before.items()} == dict.fromkeys(names, L)
+        losses.append(float(loss))
+    assert losses[-1] < losses[0], losses
+
+
+@pytest.mark.cuda
+def test_draws_work_after_a_failed_capture_on_card():
+    """A failed capture leaves torch's default CUDA generator in its
+    capture state, where a draw raises ("Offset increment outside graph
+    capture"); TrainStep's failed capture puts it back, so Dropout and
+    `paddle.randn` draw after it as before (ROADMAP.md C.6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from paddle_tpu_torch.jit import TrainStep
+
+    def host_read_loss(logits, labels):
+        loss = _lm_loss(logits, labels)
+        loss.item()
+        return loss
+    model = _tiny_gpt()
+    step = TrainStep(model, host_read_loss, AdamW(
+        1e-3, parameters=model.parameters(), multi_precision=True))
+    ids = torch.randint(0, 512, (2, 64), device="cuda")
+    with pytest.raises(RuntimeError):
+        step(ids, ids)
+    torch.manual_seed(5)
+    a = torch.randn(4, device="cuda")
+    torch.manual_seed(5)
+    assert torch.equal(torch.randn(4, device="cuda"), a)

@@ -444,7 +444,7 @@ def test_nan_poisoned_batches_give_equal_health_events(fused, tmp_path,
                                                        monkeypatch):
     paddle.seed(1)
     ref = _RefRegression()
-    model = paddle_tpu_torch.nn.Linear(4, 1)
+    model = paddle_tpu_torch.nn.Linear(4, 1, device="cpu")
     with torch.no_grad():
         model.weight.copy_(torch.from_numpy(np.array(ref.fc.weight.numpy())))
         model.bias.copy_(torch.from_numpy(np.array(ref.fc.bias.numpy())))
