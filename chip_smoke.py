@@ -341,18 +341,46 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    launched on the card; (e) host microseconds of `paddle.add` and
    `x + y` on Tensors against `torch.add`, and of a Layer call with a
    Tensor or a torch tensor against the bare forward;
-16. the smoke's run time and the kernels line (each flash kernel
-   twice: head_dim 64 and, with the suffix "_d128", 128; #10's bf16
-   variant as "fused_pass2_bf16_state"; the tree update as
-   "tree_update"; K2 as "stochastic_round"), then, last, {"ok": true,
-   "device": {...}}.
+16. examples/bench_bert.py's ERNIE-base MLM step (`BertForMaskedLM(
+   ernie_base())`, vocab 40000, hidden 768, 12 layers, 12 heads, 117.4 M
+   parameters, dropouts 0, weights drawn from a numpy seed by the
+   reference's init): (a) `model.bfloat16()`, AdamW 1e-4 with f32
+   masters, bench_bert's `TrainStep(model, loss_fn, o)` (the fused
+   epilogue, replayed as CUDA graphs) on its batch of 32 x 128 (ids and
+   MLM labels from RandomState(0)): 3 warm-up, 30 timed and 1 profiled
+   step; step ms, sequences/s, tokens/s, MFU (profiler/cost.py's FLOPs
+   of the step), device ms, idle share, peak memory; losses finite and
+   falling; over the timed steps #2-#4 launched exactly 30 x 12 times
+   each, #10 30 x bucket groups and no other kernel (#9 neither: with no
+   clip, no GradScaler and health off the epilogue skips pass 1); (b) the AMP
+   eager loop on the float32 model (`auto_cast` -> `model.loss` ->
+   `scaler.scale(loss).backward()` -> `scaler.step(opt)` ->
+   `scaler.update()` -> `opt.clear_grad()`, 1 + 4 + 1 profiled steps)
+   under O1 bf16, `decorate(level="O2")` bf16 and O1 float16 with a
+   dynamic GradScaler: losses finite and float32, grads float32 under
+   O1 and the low dtype under O2, #2-#4 launched steps x 12 times, the
+   profiled step's flash kernels the bf16 or float16 variants as the
+   mode says; wall and device ms, idle share, peak memory; (c) 2 of its
+   layers at full width in float32 (TF32 off), 3 TrainSteps on the card
+   and on the CPU from the same numpy weights within 1e-3 relative, one
+   O1-bf16 eager step within 2e-2; (d) the flash kernels against their
+   twins at ERNIE's shape [32, 128, 12, 64] non-causal in bf16 and
+   float16, and in float16 at GPT-medium's and GPT-1.3B's training
+   shapes, with each kernel's, twin's, SDPA's (same dtype) time and the
+   bound;
+17. the smoke's run time and the kernels line (each flash kernel
+   three times: head_dim 64, with the suffix "_d128" head_dim 128, with
+   "_f16" float16; #10's bf16 variant as "fused_pass2_bf16_state"; the
+   tree update as "tree_update"; K2 as "stochastic_round"), then, last,
+   {"ok": true, "device": {...}}.
 
 Each main path (GPT serving in phase 4's wave B, training in phase 7's
 first run for kernels #2-#4 and #9-#10, phase 7's third run for #5-#6,
 phase 7c's "dots" run (bench.py's headline) for #7-#8,
 its fourth for #10's bf16 variant, its fifth for K2, GPT-1.3B training
 in phase 7b for #2-#4 at head_dim 128, its second run for the tree
-update, SSM serving in phase 13's wave B for #11) runs with the launch
+update, SSM serving in phase 13's wave B for #11, phase 16's O1-float16
+AMP run for #2-#4 in float16) runs with the launch
 counts set to 0 just
 before it and read just after; a CUDA graph's replay adds the launches
 its capture recorded (the wrappers count launches, and a capture, which
@@ -361,8 +389,9 @@ Times are CUDA-event times with the 50 MB L2 flushed before each
 launch (by writing a 64 MB buffer), as the serving loop finds it cold
 (each layer has its own pools); the LayerNorm kernels are timed
 after a flush that reads the buffer too, which leaves no dirty line
-for their misses to write back. Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM,
-989 TFLOP/s bf16 (tensor cores), 67 TFLOP/s float32.
+for their misses to write back. Bounds use the H100 SXM's published
+peaks: 3.35 TB/s of HBM, 989 TFLOP/s bf16 and float16 (tensor cores),
+67 TFLOP/s float32.
 """
 import contextlib
 import copy
@@ -377,7 +406,8 @@ import numpy as np
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
+              "torch.float32": 67e12}
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 H, D, P = 16, 64, 16
 SERVE = dict(n_pages=1024, page_size=16, max_batch=8, max_new_tokens=64,
@@ -408,12 +438,13 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-# a template argument of a mangled kernel name: bf16, f32, a repeat of an
-# earlier type (in these kernels always bf16), an int (a head dim, q
-# rows; in the LayerNorm kernels vectors a lane, warps a row, stages; in
+# a template argument of a mangled kernel name: bf16, f16, f32, a repeat
+# of an earlier type (in these kernels always bf16), an int (a head dim,
+# q rows; in the LayerNorm kernels vectors a lane, warps a row, stages; in
 # the tree update the optimizer kind) or a bool (the tree update's
 # stochastic rounding)
-_TEMPLATE_ARG = re.compile(r"13__nv_bfloat16|f|S\d*_|Li(\d+)E|Lb(\d)E")
+_TEMPLATE_ARG = re.compile(
+    r"13__nv_bfloat16|6__half|f|S\d*_|Li(\d+)E|Lb(\d)E")
 
 
 def kernel_label(ptxas_line):
@@ -441,7 +472,8 @@ def kernel_label(ptxas_line):
         elif m.group(2):
             args.append(f"SR={m.group(2)}")
         else:
-            args.append("f32" if m.group(0) == "f" else "bf16")
+            args.append({"f": "f32", "6__half": "f16"}.get(m.group(0),
+                                                          "bf16"))
         at = m.end()
     return f"{name}<{', '.join(args)}>"
 
@@ -1553,8 +1585,10 @@ FLASH_KERNELS = (
     ("flash_attention_dkv", "paddle_tpu/ops/pallas/flash_attention.py:111"),
 )
 # largest |kernel - twin| over the largest |twin|: float32 sums in another
-# order; bfloat16 adds one output rounding (2^-8) on each side
-FLASH_REL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-2}
+# order; bfloat16 adds one output rounding (2^-8) on each side, float16
+# one of 2^-11 (and P, dS rounded to float16 before their products)
+FLASH_REL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-2,
+             "torch.float16": 5e-3}
 TRAIN = dict(batch=8, seq=1024, lr=1e-4, warmup=3, timed=10)
 # GPT-1.3B's step: bench.py's batch (4 x 1024) and learning rate
 TRAIN_1P3B = dict(batch=4, seq=1024, lr=1e-4, warmup=2, timed=5)
@@ -1635,19 +1669,22 @@ def sdpa_train_calls(torch, q, k, v, do, causal):
                                         retain_graph=True))
 
 
-def hold_flash(torch, fa, flush, label, B, tq, tk, d, causal, dtype, rng):
+def hold_flash(torch, fa, flush, label, B, tq, tk, d, causal, dtype, rng,
+               heads=H, spin=2_000_000):
     """The three flash kernels against their twins on one shape
-    [B, T, 16, d], q/k/v strided views of one fused [B, T, 3, H, d]
-    tensor as GPT makes them; the backward kernels and twins take the
+    [B, T, heads, d], q/k/v strided views of one fused [B, T, 3, heads,
+    d] tensor as GPT makes them; the backward kernels and twins take the
     twin's lse and delta. Then each kernel's, twin's and library call's
-    time and the bound. Returns {kernel name: measurements}."""
+    time and the bound (each call timed after a spin of `spin` cycles,
+    which a loaded host needs longer to cover). Returns {kernel name:
+    measurements}."""
     dev = torch.device("cuda")
     qkv = torch.from_numpy(rng.standard_normal(
-        (B, max(tq, tk), 3, H, d), dtype=np.float32)).to(dev, dtype)
+        (B, max(tq, tk), 3, heads, d), dtype=np.float32)).to(dev, dtype)
     q, k, v = qkv.unbind(dim=2)
     q, k, v = q[:, :tq], k[:, :tk], v[:, :tk]
     do = torch.from_numpy(rng.standard_normal(
-        (B, tq, H, d), dtype=np.float32)).to(dev, dtype)
+        (B, tq, heads, d), dtype=np.float32)).to(dev, dtype)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     want, want_lse = fa.flash_attention_fwd_reference(q, k, v, causal)
     delta = (want.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
@@ -1679,8 +1716,8 @@ def hold_flash(torch, fa, flush, label, B, tq, tk, d, causal, dtype, rng):
           f"lse {lse_err:.3g} dq {errs['dq']:.3g} dk {errs['dk']:.3g} "
           f"dv {errs['dv']:.3g}", flush=True)
     lib_fwd, lib_bwd = sdpa_train_calls(torch, q, k, v, do, causal)
-    lib = {"fwd": cuda_ms(torch, lib_fwd, 10, flush),
-           "bwd": cuda_ms(torch, lib_bwd, 10, flush)}
+    lib = {"fwd": cuda_ms(torch, lib_fwd, 10, flush, spin=spin),
+           "bwd": cuda_ms(torch, lib_bwd, 10, flush, spin=spin)}
     calls = {
         "flash_attention_fwd": ("fwd", lambda: fa.flash_attention_fwd(
             q, k, v, causal=causal), lambda: fa.flash_attention_fwd_reference(
@@ -1694,8 +1731,8 @@ def hold_flash(torch, fa, flush, label, B, tq, tk, d, causal, dtype, rng):
     }
     for name, (kind, kernel, twin, library_ms) in calls.items():
         bound_ms, bound_by = flash_bound(kind, q, k, causal)
-        ms = cuda_ms(torch, kernel, 10, flush)
-        plain_ms = cuda_ms(torch, twin, 3, flush)
+        ms = cuda_ms(torch, kernel, 10, flush, spin=spin)
+        plain_ms = cuda_ms(torch, twin, 3, flush, spin=spin)
         res[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
         tflops = flash_ops(kind, q, k, causal) / ms / 1e9
@@ -4673,6 +4710,331 @@ def phase_dygraph(torch, km, state, train_main):
     return dict(eager=eager, example=ex, host=host, user_worst=worst)
 
 
+# -- phase 16: examples/bench_bert.py's ERNIE-base MLM step, the AMP eager
+# loop, card against CPU, the float16 flash kernels -------------------------
+
+# bench_bert.py's step (bench_bert.py:24-71): batch 32 x 128, AdamW 1e-4
+# with f32 masters, 3 warm-up and 30 timed steps (then one profiled)
+BERT = dict(batch=32, seq=128, lr=1e-4, warmup=3, timed=30)
+# (b) the AMP eager loop: 1 warm-up, 4 timed, 1 profiled step a mode
+AMP_STEPS = dict(warmup=1, timed=4)
+AMP_MODES = (("O1 bfloat16", "O1", "bfloat16", False),
+             ("O2 bfloat16 (decorate)", "O2", "bfloat16", False),
+             ("O1 float16, dynamic GradScaler", "O1", "float16", True))
+# (c) card against CPU: 2 of ERNIE-base's layers at full width, batch
+# 4 x 128, 3 TrainSteps in float32 (TF32 off) and one O1-bf16 eager step
+BERT_AGREE = dict(layers=2, batch=4, seq=128, steps=3, rtol=1e-3,
+                  amp_rtol=2e-2)
+BERT_PARAMS = 117_395_776  # ernie_base(): vocab 40000, 512 positions, tied
+# (d) parks the card ~5 ms before each timed call: after phase 15 the
+# host may take longer than the default ~1 ms to enqueue one
+FLASH_F16_SPIN = 10_000_000
+
+
+def bert_numpy_state(model, seed):
+    """{name: numpy array} for every parameter of a BERT model, by the
+    reference's init: Normal(0, 0.02) embeddings, XavierNormal Linear
+    weights ([in, out]), zero biases (decoder_bias too), unit LayerNorm
+    weights."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, p in model.named_parameters():
+        shape = tuple(p.shape)
+        if k.endswith("bias"):
+            out[k] = np.zeros(shape, np.float32)
+        elif "norm" in k:
+            out[k] = np.ones(shape, np.float32)
+        elif "embeddings" in k:
+            out[k] = rng.standard_normal(shape, dtype=np.float32) * 0.02
+        else:
+            std = (2.0 / (shape[0] + shape[1])) ** 0.5
+            out[k] = rng.standard_normal(shape, dtype=np.float32) * std
+    return out
+
+
+def bench_bert_batch(vocab, B, T):
+    """bench_bert.py's ids and MLM labels (bench_bert.py:53-59): ids from
+    RandomState(0), 15 % of the positions labelled, the rest -100."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, vocab, (B, T)).astype(np.int32)
+    lab = ids.copy()
+    lab[rng.rand(B, T) > 0.15] = -100
+    return ids, lab.astype(np.int32)
+
+
+def bert_loss_fn(F):
+    """bench_bert.py's loss_fn (bench_bert.py:46-52)."""
+    def loss_fn(logits, labels):
+        V = logits.shape[-1]
+        return F.cross_entropy(logits.reshape([-1, V]), labels.reshape([-1]),
+                               ignore_index=-100)
+    return loss_fn
+
+
+def flash_kernel_names(prof):
+    """Names of the flash kernels the profiler saw run on the card."""
+    from torch.autograd import DeviceType
+    return {e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "flash_" in e.name}
+
+
+def phase_bert(torch, km, fa, flush):
+    """examples/bench_bert.py's ERNIE-base MLM step on the card: (a) the
+    TrainStep at full width in bf16; (b) the AMP eager loop in three
+    modes on the float32 model; (c) card against CPU; (d) the float16
+    flash kernels against their twins. Returns {"bench", "amp",
+    "flash_f16"}."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (BertForMaskedLM, ernie_base,
+                                         load_paddle_tpu_state)
+    from paddle_tpu_torch.profiler import cost
+    F = paddle.nn.functional
+    paddle.set_device("gpu")
+    cfg = ernie_base()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    L, V = cfg.num_layers, cfg.vocab_size
+    B, T = BERT["batch"], BERT["seq"]
+    flash = [n for n, _ in FLASH_KERNELS]
+    t0 = time.perf_counter()
+    model = BertForMaskedLM(cfg)
+    state = bert_numpy_state(model, SEED + 16)
+    n_params = sum(a.size for a in state.values())
+    check(n_params == BERT_PARAMS, f"ERNIE-base has {n_params} parameters, "
+                                   f"want {BERT_PARAMS}")
+    check(len(state) == 12 * 16 + 13, f"{len(state)} state entries")
+    ids_np, lab_np = bench_bert_batch(V, B, T)
+    ids = torch.from_numpy(ids_np).cuda()
+    labels = torch.from_numpy(lab_np).cuda()
+
+    # (a) bench_bert.py's TrainStep: bf16, AdamW with f32 masters
+    load_paddle_tpu_state(model, state)
+    model.bfloat16()
+    opt = paddle.optimizer.AdamW(learning_rate=BERT["lr"],
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    step = TrainStep(model, bert_loss_fn(F), opt)
+    check(step._fused is not None, "(a) TrainStep took the tree epilogue")
+    groups = n_groups(step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    with switches(False):
+        t = time.perf_counter()
+        for _ in range(BERT["warmup"]):
+            losses.append(step(ids, labels))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t
+        zero_counts(km)
+        t = time.perf_counter()
+        for _ in range(BERT["timed"]):
+            losses.append(step(ids, labels))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t) / BERT["timed"]
+        launches = counts(km)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            losses.append(step(ids, labels))
+            torch.cuda.synchronize()
+    vals = torch.stack(losses).float().tolist()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flop = step.flops(ids, labels)
+    n = BERT["timed"]
+    check(np.isfinite(vals).all(), f"(a) non-finite loss: {vals}")
+    check(vals[-1] < vals[0], f"(a) loss did not fall: {vals}")
+    # no clip, no GradScaler, health off: the epilogue needs no global
+    # norm or non-finite sweep, so pass 1 (#9) does not run, only #10
+    want = {k: 0 for k in launches}
+    want.update({k: n * L for k in flash})
+    want["fused_pass2"] = n * groups
+    check(launches == want, f"(a) launches over the {n} timed steps "
+                            f"{launches}, want {want}")
+    bench = dict(ms=step_s * 1e3, seqs_s=B / step_s, tokens_s=B * T / step_s,
+                 mfu=cost.mfu(flop, step_s), peak_gib=peak, flops=flop,
+                 first=vals[0], last=vals[-1], groups=groups,
+                 launches=launches, retraces=step.retraces)
+    print(f"  (a) BertForMaskedLM(ernie_base()) bf16, {n_params} "
+          f"parameters, batch {B} x {T}, AdamW {BERT['lr']} with f32 "
+          f"masters, fused epilogue ({groups} bucket group(s)), CUDA "
+          f"graphs (retraces {step.retraces}, warm-up {warm_s:.1f}s for "
+          f"{BERT['warmup']}): {len(vals)} steps, loss {vals[0]:.4f} -> "
+          f"{vals[-1]:.4f}")
+    print(f"  (a) {bench['ms']:.2f} ms/step over {n} timed steps, "
+          f"{bench['seqs_s']:.1f} sequences/s, {bench['tokens_s']:.0f} "
+          f"tokens/s, MFU {bench['mfu']:.4f} ({flop:.4g} FLOP/step, "
+          f"profiler/cost.py, over {cost.device_peak_flops():.4g} FLOP/s); "
+          f"peak memory {peak:.2f} GiB; launches over the timed steps "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    bench["device_ms"], bench["idle"], bench["other_ms"], \
+        bench["parts_ms"] = train_time_goes(prof, step_s)
+    del step, opt, prof, model, losses
+    torch.cuda.empty_cache()
+
+    # (b) the AMP eager loop on the float32 model, three modes
+    amp_res = {}
+    steps_b = AMP_STEPS["warmup"] + AMP_STEPS["timed"] + 1
+    ids_t, lab_t = paddle.to_tensor(ids_np), paddle.to_tensor(lab_np)
+    for label, level, dtype, scaled in AMP_MODES:
+        model = BertForMaskedLM(cfg)
+        load_paddle_tpu_state(model, state)
+        opt = paddle.optimizer.AdamW(learning_rate=BERT["lr"],
+                                     parameters=model.parameters())
+        if level == "O2":
+            model, opt = amp.decorate(models=model, optimizers=opt,
+                                      level="O2", dtype=dtype)
+        scaler = amp.GradScaler(enable=scaled)
+        low = torch.bfloat16 if dtype == "bfloat16" else torch.float16
+        probe = model.bert.encoder.layers[0].self_attn.q_proj.weight
+        got = []
+
+        def eager_step():
+            with amp.auto_cast(level=level, dtype=dtype):
+                loss = model.loss(ids_t, lab_t)
+            scaler.scale(loss).backward()
+            got.append((loss.value.detach(), loss.value.dtype,
+                        probe.grad.dtype, model.decoder_bias.grad.dtype))
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(km)
+        for _ in range(AMP_STEPS["warmup"]):
+            eager_step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(AMP_STEPS["timed"]):
+            eager_step()
+        torch.cuda.synchronize()
+        wall_s = (time.perf_counter() - t) / AMP_STEPS["timed"]
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            eager_step()
+            torch.cuda.synchronize()
+        launches = counts(km)
+        vals = [float(v) for v, *_ in got]
+        want_grad = torch.float32 if level == "O1" else low
+        names = flash_kernel_names(prof)
+        tag = "__half" if dtype == "float16" else "__nv_bfloat16"
+        check(np.isfinite(vals).all(), f"(b) {label}: non-finite loss "
+                                       f"{vals}")
+        check(all(d == torch.float32 for _, d, _, _ in got),
+              f"(b) {label}: loss dtypes {[d for _, d, _, _ in got]}")
+        check(all(g == b == want_grad for _, _, g, b in got),
+              f"(b) {label}: grad dtypes {[(g, b) for *_, g, b in got]}, "
+              f"want {want_grad}")
+        for k in flash:
+            check(launches[k] == steps_b * L,
+                  f"(b) {label}: {k}: {launches[k]} launches, want "
+                  f"{steps_b} x {L}")
+        others = {k: v for k, v in launches.items() if v and k not in flash}
+        check(not others, f"(b) {label}: other kernels ran: {others}")
+        check(len(names) == 3 and all(tag in nm for nm in names),
+              f"(b) {label}: flash kernels on the card {sorted(names)}, "
+              f"want the three {tag} variants")
+        res = dict(wall_ms=wall_s * 1e3, losses=vals,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches={k: launches[k] for k in flash},
+                   scale=scaler.get_loss_scaling())
+        print(f"  (b) {label}: {steps_b} steps, loss {vals[0]:.4f} -> "
+              f"{vals[-1]:.4f} (float32), grads {want_grad}, "
+              f"{res['wall_ms']:.1f} ms/step wall over "
+              f"{AMP_STEPS['timed']} steps, peak memory "
+              f"{res['peak_gib']:.2f} GiB, loss scale {res['scale']}; "
+              f"flash launches {res['launches']}: "
+              + ", ".join(sorted(re.search(r"flash_\w+<[^>]*>", nm).group(0)
+                                 for nm in names)))
+        res["device_ms"], res["idle"], _, _ = train_time_goes(prof, wall_s)
+        amp_res[label] = res
+        del model, opt, prof, got, probe
+        torch.cuda.empty_cache()
+
+    # (c) card against CPU: 2 layers at full width
+    small_cfg = copy.copy(cfg)
+    small_cfg.num_layers = BERT_AGREE["layers"]
+    Bc, Tc = BERT_AGREE["batch"], BERT_AGREE["seq"]
+    ids_c, lab_c = bench_bert_batch(V, Bc, Tc)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    agree, small = {}, None
+    try:
+        for dev in ("gpu", "cpu"):
+            paddle.set_device(dev)
+            model = BertForMaskedLM(small_cfg)
+            if small is None:
+                small = bert_numpy_state(model, SEED + 17)
+            load_paddle_tpu_state(model, small)
+            x = torch.from_numpy(ids_c).to(model.decoder_bias.device)
+            y = torch.from_numpy(lab_c).to(x.device)
+            step = TrainStep(model, bert_loss_fn(F), paddle.optimizer.AdamW(
+                learning_rate=BERT["lr"], parameters=model.parameters()))
+            with switches(False):
+                ts = [float(step(x, y)) for _ in range(BERT_AGREE["steps"])]
+            del step
+            model = BertForMaskedLM(small_cfg)
+            load_paddle_tpu_state(model, small)
+            opt = paddle.optimizer.AdamW(learning_rate=BERT["lr"],
+                                         parameters=model.parameters())
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = model.loss(x, y)
+            loss.backward()
+            opt.step()
+            agree[dev] = (ts, float(loss.detach()))
+            del model, opt, loss
+    finally:
+        paddle.set_device("gpu")
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    (card_ts, card_amp), (cpu_ts, cpu_amp) = agree["gpu"], agree["cpu"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(card_ts, cpu_ts))
+    amp_rel = abs(card_amp - cpu_amp) / abs(cpu_amp)
+    print(f"  (c) 2-layer ERNIE at full width, batch {Bc} x {Tc}, float32 "
+          f"(TF32 off), {BERT_AGREE['steps']} TrainSteps: card {card_ts}, "
+          f"CPU {cpu_ts}, worst relative difference {worst:.3g} (limit "
+          f"{BERT_AGREE['rtol']}); one O1-bf16 eager step: card "
+          f"{card_amp:.6f}, CPU {cpu_amp:.6f}, relative {amp_rel:.3g} "
+          f"(limit {BERT_AGREE['amp_rtol']})")
+    check(worst <= BERT_AGREE["rtol"], f"(c) TrainStep losses differ by "
+                                       f"{worst}")
+    check(amp_rel <= BERT_AGREE["amp_rtol"], f"(c) O1-bf16 eager losses "
+                                             f"differ by {amp_rel}")
+
+    # (d) float16 flash kernels against their twins; ERNIE's shape in
+    # bf16 too (no other phase runs it)
+    rng = np.random.default_rng(SEED + 18)
+    H_ERNIE, D_ERNIE = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    cases = [("ERNIE-base shape, full", B, T, T, D_ERNIE, False, H_ERNIE,
+              torch.bfloat16),
+             ("ERNIE-base shape, full", B, T, T, D_ERNIE, False, H_ERNIE,
+              torch.float16),
+             ("training shape, causal", TRAIN["batch"], TRAIN["seq"],
+              TRAIN["seq"], 64, True, H, torch.float16),
+             ("GPT-1.3B training shape, causal", TRAIN_1P3B["batch"],
+              TRAIN_1P3B["seq"], TRAIN_1P3B["seq"], 128, True, H,
+              torch.float16)]
+    f16, worst_f16 = {}, {k: 0.0 for k in flash}
+    for label, Bd, tq, tk, d, causal, heads, dtype in cases:
+        res = hold_flash(torch, fa, flush, f"{label} [{Bd}, {tq}, {heads}, "
+                         f"{d}]", Bd, tq, tk, d, causal, dtype, rng,
+                         heads=heads, spin=FLASH_F16_SPIN)
+        if dtype == torch.float16:
+            f16.setdefault("main", res)
+            for k in flash:
+                worst_f16[k] = max(worst_f16[k], res[k]["max_abs_err"])
+    for k in flash:
+        f16["main"][k]["max_abs_err"] = worst_f16[k]
+    print(f"  phase 16 took {time.perf_counter() - t0:.1f}s")
+    return dict(bench=bench, amp=amp_res, flash_f16=f16["main"],
+                f16_launches=amp_res[AMP_MODES[2][0]]["launches"],
+                agree=dict(worst=worst, amp_rel=amp_rel))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4819,6 +5181,11 @@ def main():
           "Layer card vs CPU, host cost", flush=True)
     phase_dygraph(torch, km, state, train_main)
 
+    print("[16] examples/bench_bert.py's ERNIE-base MLM step: TrainStep in "
+          "bf16, the AMP eager loop (O1 bf16, O2 bf16, O1 fp16), card vs "
+          "CPU, the float16 flash kernels", flush=True)
+    bert = phase_bert(torch, km, fa, flush)
+
     main_step = held["decode"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -4840,6 +5207,9 @@ def main():
               train_main, "") for k in FLASH_KERNELS]
             + [(k, "paddle_tpu_torch/csrc/flash_attention.cu",
                 flash_main[128], train_1p3b, "_d128") for k in FLASH_KERNELS]
+            + [(k, "paddle_tpu_torch/csrc/flash_attention.cu",
+                bert["flash_f16"], {"launches": bert["f16_launches"]},
+                "_f16") for k in FLASH_KERNELS]
             + [(k, "paddle_tpu_torch/csrc/fused_update.cu", fused_main,
                 train_main, "") for k in FUSED_KERNELS]
             + [(k, "paddle_tpu_torch/csrc/layer_norm.cu", norm_xent,
@@ -4881,14 +5251,17 @@ def main():
         "ms": scan_main["ms"], "plain_ms": scan_main["plain_ms"],
         "bound_ms": scan_main["bound_ms"], "bound_by": scan_main["bound_by"],
         "library_ms": None})
-    print(f"[16] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
+    print(f"[17] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
           f"run time); paged "
           f"attention times are of the served decode step's layer-0 call, "
           f"flash times of the training shapes [8, 1024, 16, 64] (and, "
           f"_d128, GPT-1.3B's [4, 1024, 16, 128]) causal bf16 (library: "
           f"SDPA forward for the forward kernel, SDPA backward, dq/dk/dv "
           f"together, for both backward kernels; launches of _d128 from the "
-          f"GPT-1.3B run), "
+          f"GPT-1.3B run; _f16: the float16 kernels at ERNIE-base's "
+          f"[32, 128, 12, 64] non-causal, SDPA in float16, launches from "
+          f"phase 16's O1-float16 AMP run, errors the worst of its float16 "
+          f"shapes), "
           f"fused epilogue times of the main path's passes on GPT-medium's "
           f"layout (library: torch._foreach_norm over the grad buckets, "
           f"torch._fused_adamw_ over the f32 master buckets), LayerNorm "

@@ -27,9 +27,13 @@ bench.py's GPT-1.3B headline (remat by block, the chunked vocab loss
 detector, `profiler/`), the train step as CUDA graphs, and Paddle's
 dygraph core: `Tensor` on torch autograd, the `paddle.*` tensor ops,
 `autograd`, `nn.Layer` with its containers and initializers,
-`ParamAttr`, `seed`, `save` / `load` and `set_device`. So
-`import paddle_tpu_torch as paddle` runs a Paddle dygraph program:
-build a `Layer`, `loss.backward()`, `opt.step()`, `opt.clear_grad()`.
+`ParamAttr`, `seed`, `save` / `load` and `set_device`; then `amp`
+(`auto_cast` / `decorate` on the reference's policy), the rest of `nn`
+but its convolutional and recurrent half (functionals, layers,
+`nn.Transformer*`, `nn.utils`), BERT / ERNIE, and float16 in the flash
+kernels. So `import paddle_tpu_torch as paddle` runs a Paddle dygraph
+program: build a `Layer`, `loss.backward()`, `opt.step()`,
+`opt.clear_grad()`, under `paddle.amp.auto_cast` too.
 
 Entry points run on CUDA unless the caller asks for the CPU, with
 `paddle.set_device("cpu")` or `device="cpu"` (see `device/`).

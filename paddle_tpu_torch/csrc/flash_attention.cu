@@ -25,7 +25,8 @@
 // strides (in elements) and a unit last stride, so the q/k/v views that
 // `unbind` makes of a fused [B, T, 3, H, D] projection are read in place.
 // out, dq, dk and dv are written contiguous [B, T, H, D]; lse and delta
-// are float32 [B, H, Tq]. Inputs are float32 or bfloat16; sums are float32.
+// are float32 [B, H, Tq]. Inputs are float32, bfloat16 or float16; sums
+// are float32.
 // The head dim D is 64 or 128 (kHeadDims); every kernel is a template on
 // it.
 //
@@ -39,7 +40,8 @@
 //
 // Two designs live here, picked by the dtype:
 // - bfloat16 (the training path: flash_fwd_tc_kernel, flash_dq_tc_kernel,
-//   flash_dkv_tc_kernel) runs every product on the tensor cores with
+//   flash_dkv_tc_kernel) and float16 (the same templates on __half, for
+//   amp.auto_cast's float16 mode) run every product on the tensor cores with
 //   Hopper's warpgroup MMA (wgmma.m64nNk16, float32 accumulators). A
 //   block of one warpgroup keeps 64 rows resident (Q for the forward, Q
 //   and dO for dQ, K and V for dK/dV) and streams the other operand's
@@ -74,6 +76,7 @@
 // stream it is given, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -452,10 +455,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
   }
 }
 
-// ---- bfloat16 on the tensor cores -------------------------------------------
+// ---- bfloat16 and float16 on the tensor cores --------------------------------
 //
 // A block is one warpgroup of 128 threads that owns a resident tile of 64
-// rows and issues wgmma.m64nNk16.f32.bf16.bf16 for them. One warpgroup a
+// rows and issues wgmma.m64nNk16.f32.T.T for them, T the element type
+// (__nv_bfloat16 or __half, a template parameter of every kernel here:
+// the same design, P and dS rounded to T). One warpgroup a
 // block beat two on the H100 (PERF.md): two warpgroups of one block meet
 // at every tile's barrier, so their products and exponentials coincide,
 // while separate blocks drift apart and overlap.
@@ -483,10 +488,10 @@ __host__ __device__ constexpr int dkv_q_rows() {
 }
 
 // A thread's accumulator rows row0 and row0 + 8 of a [64 x D] product,
-// times mul[0] and mul[1], into a contiguous [B, T, H, D] bf16 output,
+// times mul[0] and mul[1], into a contiguous [B, T, H, D] output of E,
 // rows at or past T left out.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+template <int D, typename E>
+__device__ __forceinline__ void store_rows(E* out,
                                            const float (&d)[D / 2],
                                            const float (&mul)[2], int b,
                                            int T, int H, int h, int row0,
@@ -495,10 +500,10 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row0 + 8 * hh;
     if (row >= T) continue;
-    __nv_bfloat16* o = out + (((long long)b * T + row) * H + h) * D + col0;
+    E* o = out + (((long long)b * T + row) * H + h) * D + col0;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
+      *reinterpret_cast<uint32_t*>(o + 8 * j) = pack2<E>(
           d[4 * j + 2 * hh] * mul[hh], d[4 * j + 2 * hh + 1] * mul[hh]);
   }
 }
@@ -506,10 +511,10 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
 // Forward: a block owns 64 q rows (Q resident) and walks the kv tiles of
 // 64 up to its diagonal; per tile S = Q.K^T, the online softmax on S in
 // registers (m in log2 units of the scaled scores), O = alpha * O, and
-// O += P.V with P rounded to bf16 in registers. The product of P with V
+// O += P.V with P rounded to E in registers. The product of P with V
 // is issued one tile late, after the next tile's S (as FlashAttention-3
 // does within a warpgroup), so it runs while that S's softmax does.
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Params p) {
   constexpr uint32_t kT = tc_tile<D>(64);
   extern __shared__ __align__(128) uint8_t smem_tc[];
@@ -522,10 +527,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Params p) {
   const int lane = threadIdx.x & 31;
   const int row0 = r0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
   const int col0 = 2 * (lane & 3);
-  using bf16 = __nv_bfloat16;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const E* q = static_cast<const E*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const E* k = static_cast<const E*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const E* v = static_cast<const E*>(p.v) + b * p.v_sb + h * p.v_sh;
 
   const int n_kv = p.causal ? min(p.Tk, r0 + 64) : p.Tk;
   const int n_tiles = (n_kv + 63) / 64;
@@ -563,12 +567,12 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, desc_k(sq, 64, kk), desc_k(kt, 64, kk), kk);
+      wgmma_ss<E>(s, desc_k(sq, 64, kk), desc_k(kt, 64, kk), kk);
     wgmma_commit();
     if (it > 0) {
       const uint32_t vt = sv + ((it - 1) % kStages) * kT;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, a[kk], desc_mn(vt, 64, kk));
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<E>(o, a[kk], desc_mn(vt, 64, kk));
       wgmma_commit();
       wgmma_wait<1>();  // S is in; the last tile's O product may still run
     } else {
@@ -617,12 +621,12 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Params p) {
     fence_acc(o);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-    to_a(s, a);
+    to_a<E>(s, a);
   }
   wgmma_fence();
   const uint32_t vt = sv + ((n_tiles - 1) % kStages) * kT;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, a[kk], desc_mn(vt, 64, kk));
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<E>(o, a[kk], desc_mn(vt, 64, kk));
   wgmma_commit();
   wgmma_wait<0>();
   fence_acc(o);
@@ -637,14 +641,14 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Params p) {
     if ((lane & 3) == 0 && row < p.Tq)
       p.lse[(long long)bh * p.Tq + row] = m[hh] * kLn2 + logf(l_safe);
   }
-  store_rows<D>(static_cast<bf16*>(p.out), o, inv, b, p.Tq, p.H, h, row0,
+  store_rows<D>(static_cast<E*>(p.out), o, inv, b, p.Tq, p.H, h, row0,
                 col0);
 }
 
 // dQ: a block owns 64 q rows (Q, dO, lse and delta resident) and walks the
 // kv tiles of 64 up to its diagonal; per tile S = Q.K^T, dP = dO.V^T,
 // dS = P * (dP - delta) * scale in registers, dQ += dS.K.
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kTcThreads) flash_dq_tc_kernel(Params p) {
   constexpr uint32_t kT = tc_tile<D>(64);
   extern __shared__ __align__(128) uint8_t smem_tc[];
@@ -658,11 +662,10 @@ __global__ void __launch_bounds__(kTcThreads) flash_dq_tc_kernel(Params p) {
   const int lane = threadIdx.x & 31;
   const int row0 = r0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
   const int col0 = 2 * (lane & 3);
-  using bf16 = __nv_bfloat16;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const E* q = static_cast<const E*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const E* k = static_cast<const E*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const E* v = static_cast<const E*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const E* dout = static_cast<const E*>(p.dout) + b * p.o_sb + h * p.o_sh;
 
   const int n_kv = p.causal ? min(p.Tk, r0 + 64) : p.Tk;
   const int n_tiles = (n_kv + 63) / 64;
@@ -707,11 +710,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_dq_tc_kernel(Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, desc_k(sq, 64, kk), desc_k(kt, 64, kk), kk);
+      wgmma_ss<E>(s, desc_k(sq, 64, kk), desc_k(kt, 64, kk), kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dp, desc_k(sdo, 64, kk), desc_k(vt, 64, kk), kk);
+      wgmma_ss<E>(dp, desc_k(sdo, 64, kk), desc_k(vt, 64, kk), kk);
     wgmma_commit();
     wgmma_wait<1>();  // the last dQ and S are in; P's exp overlaps dP
     fence_acc(s);
@@ -735,16 +738,16 @@ __global__ void __launch_bounds__(kTcThreads) flash_dq_tc_kernel(Params p) {
     for (int i = 0; i < 32; ++i)
       s[i] = s[i] * (dp[i] - dlt[(i >> 1) & 1]) * p.scale;
     uint32_t a[4][4];
-    to_a(s, a);
+    to_a<E>(s, a);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dq, a[kk], desc_mn(kt, 64, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<E>(dq, a[kk], desc_mn(kt, 64, kk));
     wgmma_commit();  // waited for below the next tile's S
   }
   wgmma_wait<0>();
   fence_acc(dq);
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(static_cast<bf16*>(p.dq), dq, one, b, p.Tq, p.H, h, row0,
+  store_rows<D>(static_cast<E*>(p.dq), dq, one, b, p.Tq, p.H, h, row0,
                 col0);
 }
 
@@ -753,7 +756,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_dq_tc_kernel(Params p) {
 // and dP^T = V.dO^T, P^T and dS^T in registers, dV += P^T.dO,
 // dK += dS^T.Q. lse and delta, per column here, are staged beside each q
 // tile.
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kTcThreads) flash_dkv_tc_kernel(Params p) {
   constexpr int Q = dkv_q_rows<D>();
   constexpr uint32_t kT = tc_tile<D>(64), kQT = tc_tile<D>(Q);
@@ -773,11 +776,10 @@ __global__ void __launch_bounds__(kTcThreads) flash_dkv_tc_kernel(Params p) {
   const int lane = threadIdx.x & 31;
   const int row0 = c0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
   const int col0 = 2 * (lane & 3);
-  using bf16 = __nv_bfloat16;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const E* q = static_cast<const E*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const E* k = static_cast<const E*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const E* v = static_cast<const E*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const E* dout = static_cast<const E*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const float* lse_g = p.lse_in + (long long)bh * p.Tq;
   const float* dlt_g = p.delta + (long long)bh * p.Tq;
   // q tile t (rows Q*t ..) into stage st: Q, dO, then lse and delta
@@ -825,11 +827,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_dkv_tc_kernel(Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, desc_k(sk, 64, kk), desc_k(qt, Q, kk), kk);
+      wgmma_ss<E>(s, desc_k(sk, 64, kk), desc_k(qt, Q, kk), kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dp, desc_k(sv, 64, kk), desc_k(dot, Q, kk), kk);
+      wgmma_ss<E>(dp, desc_k(sv, 64, kk), desc_k(dot, Q, kk), kk);
     wgmma_commit();
     wgmma_wait<1>();  // the last dV, dK and S^T are in; P^T, dV overlap dP^T
     fence_acc(s);
@@ -850,11 +852,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_dkv_tc_kernel(Params p) {
         }
       }
     uint32_t ap[Q / 16][4], ads[Q / 16][4];
-    to_a(s, ap);
+    to_a<E>(s, ap);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < Q / 16; ++kk)
-      wgmma_rs(dv, ap[kk], desc_mn(dot, Q, kk));
+      wgmma_rs<E>(dv, ap[kk], desc_mn(dot, Q, kk));
     wgmma_commit();
     wgmma_wait<1>();  // dP^T is in; dV may still run
     fence_acc(dp);
@@ -869,11 +871,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_dkv_tc_kernel(Params p) {
           dp[i] = s[i] * (dp[i] - dl) * p.scale;
         }
       }
-    to_a(dp, ads);
+    to_a<E>(dp, ads);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < Q / 16; ++kk)
-      wgmma_rs(dk, ads[kk], desc_mn(qt, Q, kk));
+      wgmma_rs<E>(dk, ads[kk], desc_mn(qt, Q, kk));
     wgmma_commit();  // waited for below the next tile's S^T
   }
   wgmma_wait<0>();
@@ -881,9 +883,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_dkv_tc_kernel(Params p) {
   fence_acc(dk);
   fence_acc(dv);
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(static_cast<bf16*>(p.dk), dk, one, b, p.Tk, p.H, h, row0,
+  store_rows<D>(static_cast<E*>(p.dk), dk, one, b, p.Tk, p.H, h, row0,
                 col0);
-  store_rows<D>(static_cast<bf16*>(p.dv), dv, one, b, p.Tk, p.H, h, row0,
+  store_rows<D>(static_cast<E*>(p.dv), dv, one, b, p.Tk, p.H, h, row0,
                 col0);
 }
 
@@ -947,15 +949,18 @@ cudaError_t launch(K kernel, size_t smem, int threads, int rows, int B,
 }
 
 // The kernel of each pass for head dim D and dtype code (0 = float32 on
-// the CUDA cores, 1 = bfloat16 on the tensor cores).
+// the CUDA cores, 1 = bfloat16 and 2 = float16 on the tensor cores).
 template <int D>
 cudaError_t run_fwd(const Params& p, int B, int dtype, cudaStream_t s) {
   if (dtype == 0)
     return launch(flash_fwd_kernel<D>, smem_fwd<D>(), kThreads, kTile, B,
                   p.H, p.Tq, p, s);
   if (dtype == 1)
-    return launch(flash_fwd_tc_kernel<D>, smem_fwd_tc<D>(), kTcThreads, 64,
-                  B, p.H, p.Tq, p, s);
+    return launch(flash_fwd_tc_kernel<D, __nv_bfloat16>, smem_fwd_tc<D>(),
+                  kTcThreads, 64, B, p.H, p.Tq, p, s);
+  if (dtype == 2)
+    return launch(flash_fwd_tc_kernel<D, __half>, smem_fwd_tc<D>(),
+                  kTcThreads, 64, B, p.H, p.Tq, p, s);
   return cudaErrorInvalidValue;
 }
 template <int D>
@@ -964,8 +969,11 @@ cudaError_t run_dq(const Params& p, int B, int dtype, cudaStream_t s) {
     return launch(flash_dq_kernel<D>, smem_dq<D>(), kThreads, kTile, B, p.H,
                   p.Tq, p, s);
   if (dtype == 1)
-    return launch(flash_dq_tc_kernel<D>, smem_dq_tc<D>(), kTcThreads, 64, B,
-                  p.H, p.Tq, p, s);
+    return launch(flash_dq_tc_kernel<D, __nv_bfloat16>, smem_dq_tc<D>(),
+                  kTcThreads, 64, B, p.H, p.Tq, p, s);
+  if (dtype == 2)
+    return launch(flash_dq_tc_kernel<D, __half>, smem_dq_tc<D>(),
+                  kTcThreads, 64, B, p.H, p.Tq, p, s);
   return cudaErrorInvalidValue;
 }
 template <int D>
@@ -974,8 +982,11 @@ cudaError_t run_dkv(const Params& p, int B, int dtype, cudaStream_t s) {
     return launch(flash_dkv_kernel<D>, smem_dkv<D>(), kThreads, kTile, B,
                   p.H, p.Tk, p, s);
   if (dtype == 1)
-    return launch(flash_dkv_tc_kernel<D>, smem_dkv_tc<D>(), kTcThreads, 64,
-                  B, p.H, p.Tk, p, s);
+    return launch(flash_dkv_tc_kernel<D, __nv_bfloat16>, smem_dkv_tc<D>(),
+                  kTcThreads, 64, B, p.H, p.Tk, p, s);
+  if (dtype == 2)
+    return launch(flash_dkv_tc_kernel<D, __half>, smem_dkv_tc<D>(),
+                  kTcThreads, 64, B, p.H, p.Tk, p, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1020,8 +1031,8 @@ int flash_attention_head_dims(int* dims, int n) {
 
 // strides: 12 element strides, (batch, seq, head) of q, k, v and dO in
 // that order (dO's are ignored by the forward). head_dim: 64 or 128.
-// dtype: 0 = float32, 1 = bfloat16; it picks the design: float32 on the
-// CUDA cores, bfloat16 on the tensor cores. Each returns a cudaError_t
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; it picks the design:
+// float32 on the CUDA cores, bfloat16 and float16 on the tensor cores. Each returns a cudaError_t
 // value (0 = launched).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, void* lse, const long long* strides,

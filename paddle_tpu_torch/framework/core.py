@@ -31,8 +31,11 @@ jax.Array and records a tape. Here `Tensor` wraps a torch.Tensor
   (ROADMAP.md queue C); the `paddle.*` functions take it with Paddle's.
 - `no_grad`, `enable_grad`, `set_grad_enabled` and `is_grad_enabled`
   are torch's: context managers, decorators and functions as in Paddle.
-  The reference's `amp` dispatch through `op_name` waits for A.6 part 2;
-  `apply_op` takes the argument and ignores it.
+- `apply_op(..., op_name=...)` is the `amp.auto_cast` dispatch: when
+  the policy names a dtype for the op (`amp.amp_op_dtype`), the op's
+  float inputs are cast to it when the op runs. torch autograd records
+  the casts, so a `backward()` outside the context replays the forward's
+  dtypes.
 """
 import copy
 import functools
@@ -42,6 +45,7 @@ import torch
 
 from ..device import place_name, resolve_device
 from .dtype import convert_dtype, get_default_dtype, to_paddle_dtype
+from .. import amp as _amp
 
 __all__ = ["Tensor", "Parameter", "apply_op", "no_grad", "enable_grad",
            "set_grad_enabled", "is_grad_enabled", "to_tensor", "unwrap",
@@ -97,12 +101,20 @@ def unwrap(x):
     return x.value if _is_wrapper(x) else x
 
 
+def _rebuild(seq, items):
+    """A sequence of `seq`'s type holding `items` (a namedtuple, such as
+    MultiHeadAttention's caches, by its fields)."""
+    if hasattr(seq, "_fields"):
+        return type(seq)(*items)
+    return type(seq)(items)
+
+
 def unwrap_tree(obj):
     """`obj` with every Tensor in its tuples, lists and dicts unwrapped."""
     if _is_wrapper(obj):
         return obj.value
     if isinstance(obj, (tuple, list)):
-        return type(obj)(unwrap_tree(o) for o in obj)
+        return _rebuild(obj, [unwrap_tree(o) for o in obj])
     if isinstance(obj, dict):
         return {k: unwrap_tree(v) for k, v in obj.items()}
     return obj
@@ -114,7 +126,7 @@ def wrap_tree(obj):
     if isinstance(obj, torch.Tensor):
         return obj if isinstance(obj, Tensor) else _wrap(obj)
     if isinstance(obj, (tuple, list)):
-        return type(obj)(wrap_tree(o) for o in obj)
+        return _rebuild(obj, [wrap_tree(o) for o in obj])
     if isinstance(obj, dict):
         return {k: wrap_tree(v) for k, v in obj.items()}
     return obj
@@ -528,8 +540,13 @@ def apply_op(fn, *tensors, n_outputs=None, op_name=None):
     """Run `fn` over the torch tensors of Tensor inputs (other arguments
     pass as they are) and wrap its output(s). torch autograd records the
     op; when any output needs grad, every output is marked
-    stop_gradient=False, as the reference marks them."""
-    out = fn(*[t.value if isinstance(t, Tensor) else t for t in tensors])
+    stop_gradient=False, as the reference marks them. With `op_name`,
+    float inputs are first cast to the dtype the amp policy gives the op
+    (none while auto_cast is off)."""
+    args = [t.value if isinstance(t, Tensor) else t for t in tensors]
+    if op_name is not None and _amp._state.enabled:
+        args = _amp.cast_inputs(op_name, *args)
+    out = fn(*args)
     if isinstance(out, (tuple, list)):
         rec = any(isinstance(o, torch.Tensor) and o.requires_grad
                   for o in out)

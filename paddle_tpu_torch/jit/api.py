@@ -38,7 +38,11 @@ value that changes from step to step from the step's scalars block
 reads the same block, so a replay equals it bit for bit. A failed
 capture or replay raises; nothing falls back to the eager body. On the
 CPU the body runs eagerly, with the same signature bookkeeping. The
-update is written in place. The reference's `DeferredLoss` is not
+`amp.auto_cast` policy is not part of a signature, as the reference's
+cache keys on the batch alone (paddle_tpu/jit/api.py `_prep`): a
+program keeps the policy of its first run, which a capture bakes in and
+the CPU's eager runs restore (`_Program.amp`). The update is written in
+place. The reference's `DeferredLoss` is not
 needed: CUDA work is asynchronous, so the returned loss is a 0-dim
 device tensor and reading it is the only wait.
 """
@@ -52,6 +56,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import amp as _amp
 from ..framework.core import paddle_io
 from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByValue,
                        clip_grads_tree, global_grad_norm)
@@ -114,10 +119,11 @@ class _Program:
     run's cost and seconds only."""
 
     __slots__ = ("kind", "count", "graph", "inputs", "outputs", "launches",
-                 "constants", "info", "cost", "counted", "replays")
+                 "constants", "info", "cost", "counted", "replays", "amp")
 
     def __init__(self, kind, count):
         self.kind, self.count = kind, count
+        self.amp = _amp._snapshot()
         self.graph = self.inputs = self.outputs = self.cost = None
         self.launches, self.constants = {}, []
         self.info = {"compile_s": 0.0}
@@ -559,8 +565,10 @@ class TrainStep:
             prog, out = self._capture(kind, count, batch, data_per_step,
                                       real=True)
             cache[sig] = prog
-        elif prog.graph is None:  # the CPU: no graph, the body again
-            out = self._body(kind, count, batch, data_per_step)
+        elif prog.graph is None:  # the CPU: no graph, the body again,
+            # under the amp policy its first run had, as a replay has it
+            with _amp._restored(prog.amp):
+                out = self._body(kind, count, batch, data_per_step)
         else:
             out = prog.replay(batch)
         self._count_use(prog)

@@ -1,13 +1,20 @@
 """Models of the port: GPT (training and serving), the SSM family
-(serving and inference) and the carry-over of paddle_tpu weights and
-optimizer state."""
+(serving and inference), BERT / ERNIE (training) and the carry-over of
+paddle_tpu weights and optimizer state."""
+from .bert import (BertConfig, BertForMaskedLM,
+                   BertForSequenceClassification, BertModel,
+                   ErnieForSequenceClassification, ErnieModel, bert_base,
+                   ernie_base)
 from .convert import load_paddle_tpu_opt_state, load_paddle_tpu_state
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel, gpt_1p3b, gpt_6p7b,
                   gpt_medium, gpt_small, gpt_tiny)
 from .ssm import (SSMConfig, SSMForCausalLM, SSMModel, ssm_hybrid_tiny,
                   ssm_tiny)
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "SSMConfig",
+__all__ = ["BertConfig", "BertForMaskedLM", "BertForSequenceClassification",
+           "BertModel", "ErnieForSequenceClassification", "ErnieModel",
+           "bert_base", "ernie_base", "GPTConfig", "GPTForCausalLM",
+           "GPTModel", "SSMConfig",
            "SSMForCausalLM", "SSMModel", "gpt_1p3b", "gpt_6p7b",
            "gpt_medium", "gpt_small", "gpt_tiny", "load_paddle_tpu_state",
            "load_paddle_tpu_opt_state", "ssm_hybrid_tiny", "ssm_tiny"]

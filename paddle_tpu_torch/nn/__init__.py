@@ -1,14 +1,17 @@
 """paddle.nn of the port: the Layer base, its containers, the
-initializers, the layers, functionals and gradient clipping of the
-ported slices. Counterpart: paddle_tpu/nn/__init__.py."""
-from . import functional, initializer
+initializers, the layers and functionals of the ported slices, gradient
+clipping and nn.utils. Counterpart: paddle_tpu/nn/__init__.py; its
+convolutional, pooling, recurrent, decoding and vision layers wait for
+ROADMAP.md's A.6 part 3."""
+from . import functional, initializer, utils
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_, clip_grad_value_)
-from .layer import (Dropout, Embedding, Layer, LayerDict, LayerList,
-                    LayerNorm, Linear, ParameterList, Sequential)
+from .layer import *  # noqa: F401,F403
+from .layer import __all__ as _layers
+from .layer import loss  # noqa: F401 -- paddle.nn.loss, as on the reference
 
-__all__ = ["functional", "initializer", "ClipGradByGlobalNorm",
+Silu = SiLU  # noqa: F405 -- the reference exposes both spellings
+
+__all__ = ["functional", "initializer", "utils", "ClipGradByGlobalNorm",
            "ClipGradByNorm", "ClipGradByValue", "clip_grad_norm_",
-           "clip_grad_value_", "Dropout", "Embedding", "Layer", "LayerDict",
-           "LayerList", "LayerNorm", "Linear", "ParameterList",
-           "Sequential"]
+           "clip_grad_value_", "Silu"] + list(_layers)

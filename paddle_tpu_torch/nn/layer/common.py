@@ -1,9 +1,14 @@
-"""Common layers: Linear, Embedding, Dropout.
+"""Common layers.
 
-Counterpart: paddle_tpu/nn/layer/common.py, with its signatures:
-`Linear(in_features, out_features, weight_attr, bias_attr, name)`,
-`Embedding(num_embeddings, embedding_dim, padding_idx, sparse,
-weight_attr, name)`, `Dropout(p, axis, mode, name)`. The port's own
+Counterpart: paddle_tpu/nn/layer/common.py, all of it, with its
+signatures: `Linear(in_features, out_features, weight_attr, bias_attr,
+name)`, `Embedding(num_embeddings, embedding_dim, padding_idx, sparse,
+weight_attr, name)`, `Dropout(p, axis, mode, name)`, Identity, Flatten,
+Dropout2D / Dropout3D / AlphaDropout, Upsample and its two 2-D forms,
+Pad1D / Pad2D / Pad3D / ZeroPad2D, CosineSimilarity, Bilinear, Unfold
+and Fold over the functionals of nn/functional/common.py. `Linear`
+runs `F.linear`: the bias cast to the product's dtype, the amp policy
+for "linear" applied. The port's own
 keywords come after `*`: `device` and `dtype` (None: the current device,
 float32), `generator` (the torch.Generator that random draws take; None:
 the global one, `paddle.seed`) and `weight_std` (Normal(0, weight_std)
@@ -21,9 +26,14 @@ import torch
 
 from ...framework.random import generator as _global_generator
 from .. import initializer as I
+from ..functional import common as FC
 from .layers import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout", "dropout_masks"]
+__all__ = ["Identity", "Linear", "Embedding", "Flatten", "Dropout",
+           "Dropout2D", "Dropout3D", "AlphaDropout", "Upsample",
+           "UpsamplingNearest2D", "UpsamplingBilinear2D", "Pad1D", "Pad2D",
+           "Pad3D", "ZeroPad2D", "CosineSimilarity", "Bilinear", "Unfold",
+           "Fold", "dropout_masks"]
 
 _MASKS = threading.local()
 
@@ -66,10 +76,7 @@ class Linear(Layer):
                                           is_bias=True, **kw)
 
     def forward(self, x):
-        out = x @ self.weight
-        if self.bias is not None:
-            out = out + self.bias
-        return out
+        return FC.linear(x, self.weight, self.bias)
 
     def extra_repr(self):
         return f"in_features={self.in_features}, " \
@@ -161,3 +168,222 @@ class Dropout(Layer):
 
     def extra_repr(self):
         return f"p={self.p}, axis={self.axis}, mode={self.mode}"
+
+
+class Identity(Layer):
+    _paddle_io = False
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, input):
+        return input
+
+
+class Flatten(Layer):
+    _paddle_io = False
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, input):
+        return torch.flatten(input, self.start_axis, self.stop_axis)
+
+
+class Dropout2D(Layer):
+    _paddle_io = False
+
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, input):
+        return FC.dropout2d(input, self.p, training=self.training,
+                            data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    _paddle_io = False
+
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, input):
+        return FC.dropout3d(input, self.p, training=self.training,
+                            data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    _paddle_io = False
+
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, input):
+        return FC.alpha_dropout(input, self.p, training=self.training)
+
+
+class Upsample(Layer):
+    _paddle_io = False
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return FC.interpolate(x, self.size, self.scale_factor, self.mode,
+                              self.align_corners, self.align_mode,
+                              self.data_format)
+
+
+class UpsamplingNearest2D(Layer):
+    _paddle_io = False
+
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return FC.interpolate(x, self.size, self.scale_factor, "nearest",
+                              data_format=self.data_format)
+
+
+class UpsamplingBilinear2D(Layer):
+    _paddle_io = False
+
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return FC.interpolate(x, self.size, self.scale_factor, "bilinear",
+                              align_corners=True,
+                              data_format=self.data_format)
+
+
+class _PadNd(Layer):
+    _paddle_io = False
+
+    def __init__(self, padding, mode, value, data_format):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return FC.pad(x, self.padding, self.mode, self.value,
+                      self.data_format)
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        if isinstance(padding, int):
+            padding = [padding, padding]
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        if isinstance(padding, int):
+            padding = [padding] * 4
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        if isinstance(padding, int):
+            padding = [padding] * 6
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class CosineSimilarity(Layer):
+    _paddle_io = False
+
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return FC.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class Bilinear(Layer):
+    """out[b, o] = x1[b] W[o] x2[b] + bias[o], W [out, in1, in2]
+    (XavierNormal), the bias zero."""
+
+    _paddle_io = False
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr,
+            device=device)
+        self.bias = self.create_parameter([out_features], attr=bias_attr,
+                                          is_bias=True, device=device)
+
+    def forward(self, x1, x2):
+        return FC.bilinear(x1, x2, self.weight, self.bias)
+
+
+class Unfold(Layer):
+    _paddle_io = False
+
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return FC.unfold(x, self.kernel_sizes, self.strides, self.paddings,
+                         self.dilations)
+
+
+class Fold(Layer):
+    _paddle_io = False
+
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return FC.fold(x, self.output_sizes, self.kernel_sizes, self.strides,
+                       self.paddings, self.dilations)

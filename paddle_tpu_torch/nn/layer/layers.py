@@ -5,8 +5,9 @@
 `register_buffer(persistable=)`, `parameters()` as a list,
 `named_parameters` / `named_sublayers` in the reference's order and
 names, `state_dict` / `set_state_dict`, `to` / `astype` / `float` /
-`half` / `bfloat16`, `register_forward_pre_hook` /
-`register_forward_post_hook`, `full_name` and `clear_gradients`.
+`half` (`float16`) / `bfloat16` / `_cast_params` (amp.decorate's),
+`register_forward_pre_hook` / `register_forward_post_hook`, `full_name`
+and `clear_gradients`.
 torch's registries are the reference's: `_parameters`, `_buffers` and
 `_sub_layers` (torch's `_modules`) are the same dicts, so torch's
 machinery (`.to`, `torch.utils.checkpoint`, CUDA graphs, the optimizers)
@@ -299,6 +300,29 @@ class Layer(torch.nn.Module):
             self._cast(dtype)
         return self
 
+    def _cast_params(self, dtype, predicate=None):
+        """Cast, in place, the float parameters and buffers of this layer
+        and its sublayers for which `predicate(tensor)` holds (every one
+        without a predicate) to `dtype`; every layer's dtype becomes
+        `dtype`. A parameter stays the same object (its `.data` is
+        swapped), so optimizers that hold it keep it."""
+        dt = convert_dtype(dtype)
+        with torch.no_grad():
+            for layer in self.sublayers(include_self=True):
+                for k, p in layer._parameters.items():
+                    if p is None or (predicate and not predicate(p)):
+                        continue
+                    if p.is_floating_point() and p.dtype != dt:
+                        p.data = p.data.to(dt)
+                for k, b in layer._buffers.items():
+                    if b is None or (predicate and not predicate(b)):
+                        continue
+                    if b.is_floating_point() and b.dtype != dt:
+                        layer._buffers[k] = b.to(dt)
+                if isinstance(layer, Layer):
+                    layer._dtype = dt
+        return self
+
     def astype(self, dtype):
         return self._cast(dtype)
 
@@ -307,6 +331,8 @@ class Layer(torch.nn.Module):
 
     def half(self):
         return self._cast(torch.float16)
+
+    float16 = half
 
     def bfloat16(self):
         return self._cast(torch.bfloat16)

@@ -11,10 +11,13 @@ reference's [B*H, 1, Tq] unfolded).
   (built by nvcc at first use, ops/kernels/_build.py) for CUDA tensors,
   or raise; they never fall back. For CPU tensors they run the plain
   twin. Each launch adds one to the wrapper's `launches`. The dtype code
-  picks the kernel in the C entry point: bfloat16 runs on the tensor
-  cores (wgmma, P and dS rounded to bf16 before their products), float32
-  on the CUDA cores in float32. The kernels take head_dim 64 and 128
-  (the library reports them, `flash_attention_head_dims`); a CUDA call
+  (`FLASH_DTYPE_CODES`, the flash kernels' own: float16 is theirs alone
+  among the port's kernels) picks the kernel in the C entry point:
+  bfloat16 and float16 run on the tensor cores (wgmma, P and dS rounded
+  to the input dtype before their products, float32 sums, lse and
+  delta), float32 on the CUDA cores in float32. The kernels take
+  head_dim 64 and 128 (the library reports them,
+  `flash_attention_head_dims`); a CUDA call
   with any other raises.
 - `*_reference` are the plain PyTorch twins: dense scores, the same
   top-left causal mask (row >= col), softmax in float32 with the finite
@@ -36,6 +39,9 @@ import torch
 from ..attention_core import NEG_INF, default_scale
 from . import (DTYPE_CODES, _build, count_cost, count_launch, current_stream,
                nbytes, work_dtype)
+
+# the dtype code the flash entry points take: the shared codes and float16
+FLASH_DTYPE_CODES = {**DTYPE_CODES, torch.float16: 2}
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
            "flash_attention_dkv", "flash_attention_fwd_reference",
@@ -176,9 +182,9 @@ def _launch(name, tensors, outs, causal, scale):
     if D not in fns["head_dims"]:
         raise ValueError(f"head_dim {D} not built (the kernels take "
                          f"{', '.join(map(str, fns['head_dims']))})")
-    if q.dtype not in DTYPE_CODES:
-        raise TypeError(f"the kernels take float32 or bfloat16, not "
-                        f"{q.dtype}")
+    if q.dtype not in FLASH_DTYPE_CODES:
+        raise TypeError(f"the kernels take float32, bfloat16 or float16, "
+                        f"not {q.dtype}")
     stream = current_stream(q.device)
     item = q.element_size()
     strides = []
@@ -192,7 +198,7 @@ def _launch(name, tensors, outs, causal, scale):
     ptrs = [t.data_ptr() for t in tensors] + [t.data_ptr() for t in outs]
     err = fns[name](*ptrs, (ctypes.c_longlong * 12)(*strides), B, H, Tq,
                     k.shape[1], D, scale, int(bool(causal)),
-                    DTYPE_CODES[q.dtype], stream)
+                    FLASH_DTYPE_CODES[q.dtype], stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 

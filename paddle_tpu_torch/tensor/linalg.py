@@ -16,7 +16,7 @@ def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
         if transpose_y and b.dim() > 1:
             b = b.transpose(-1, -2)
         return torch.matmul(a, b)
-    return apply_op(fn, x, y)
+    return apply_op(fn, x, y, op_name="matmul")
 
 
 def dot(x, y, name=None):
@@ -29,7 +29,8 @@ def dot(x, y, name=None):
 
 
 def bmm(x, y, name=None):
-    return apply_op(lambda a, b: torch.matmul(*_promote(a, b)), x, y)
+    return apply_op(lambda a, b: torch.matmul(*_promote(a, b)), x, y,
+                    op_name="bmm")
 
 
 def mv(x, vec, name=None):
@@ -37,7 +38,8 @@ def mv(x, vec, name=None):
 
 
 def mm(input, mat2, name=None):
-    return apply_op(lambda a, b: torch.matmul(*_promote(a, b)), input, mat2)
+    return apply_op(lambda a, b: torch.matmul(*_promote(a, b)), input, mat2,
+                    op_name="mm")
 
 
 def addmm(input, x, y, beta=1.0, alpha=1.0, name=None):

@@ -49,37 +49,38 @@ def _with_scalar(a, c, float_only=False):
     return a, c
 
 
-def _binary(tfn, float_only=False):
+def _binary(tfn, float_only=False, op_name=None):
     def op(x, y, name=None):
         xt, yt = isinstance(x, Tensor), isinstance(y, Tensor)
         if xt and yt:
             return apply_op(lambda a, b: tfn(*_promote(a, b, float_only)),
-                            x, y)
+                            x, y, op_name=op_name)
         if xt:
             return apply_op(lambda a: tfn(*_with_scalar(a, y, float_only)),
-                            x)
+                            x, op_name=op_name)
         if yt:
             return apply_op(
-                lambda b: tfn(*_with_scalar(b, x, float_only)[::-1]), y)
+                lambda b: tfn(*_with_scalar(b, x, float_only)[::-1]), y,
+                op_name=op_name)
         return Tensor(tfn(torch.as_tensor(x), torch.as_tensor(y)))
     return op
 
 
-def _unary(tfn, float_only=True):
+def _unary(tfn, float_only=True, op_name=None):
     def op(x, name=None):
         if not isinstance(x, Tensor):
             x = Tensor(x)
         if float_only:
-            return apply_op(lambda a: tfn(_float_in(a)), x)
-        return apply_op(tfn, x)
+            return apply_op(lambda a: tfn(_float_in(a)), x, op_name=op_name)
+        return apply_op(tfn, x, op_name=op_name)
     return op
 
 
 # -- elementwise binary -------------------------------------------------
-add = _binary(torch.add)
-subtract = _binary(torch.sub)
-multiply = _binary(torch.mul)
-divide = _binary(torch.true_divide, float_only=True)
+add = _binary(torch.add, op_name="add")
+subtract = _binary(torch.sub, op_name="subtract")
+multiply = _binary(torch.mul, op_name="multiply")
+divide = _binary(torch.true_divide, float_only=True, op_name="divide")
 floor_divide = _binary(torch.floor_divide)
 mod = _binary(torch.remainder)
 remainder = mod
@@ -101,9 +102,9 @@ ldexp = _binary(lambda a, b: _float_in(a) * 2.0 ** b)
 
 # -- elementwise unary --------------------------------------------------
 abs = _unary(torch.abs, float_only=False)
-exp = _unary(torch.exp)
+exp = _unary(torch.exp, op_name="exp")
 expm1 = _unary(torch.expm1)
-log = _unary(torch.log)
+log = _unary(torch.log, op_name="log")
 log2 = _unary(torch.log2)
 log10 = _unary(torch.log10)
 log1p = _unary(torch.log1p)
@@ -214,7 +215,7 @@ def _dims(axis, ndim):
     return (int(axis),)
 
 
-def _reduce(tfn, float_in=False, promote_ints=False):
+def _reduce(tfn, float_in=False, promote_ints=False, op_name=None):
     def op(x, axis=None, keepdim=False, name=None, dtype=None):
         dt = convert_dtype(dtype)
 
@@ -229,17 +230,17 @@ def _reduce(tfn, float_in=False, promote_ints=False):
             else:
                 out = tfn(a, _dims(axis, a.dim()), keepdim)
             return out.to(dt) if dt is not None else out
-        return apply_op(fn, x)
+        return apply_op(fn, x, op_name=op_name)
     return op
 
 
 sum = _reduce(lambda a, d, k: torch.sum(a, dim=d, keepdim=k),
-              promote_ints=True)
+              promote_ints=True, op_name="sum")
 nansum = _reduce(lambda a, d, k: torch.nansum(a, dim=d, keepdim=k),
                  promote_ints=True)
 prod = _reduce(lambda a, d, k: _prod(a, d, k), promote_ints=True)
 mean = _reduce(lambda a, d, k: torch.mean(a, dim=d, keepdim=k),
-               float_in=True)
+               float_in=True, op_name="mean")
 nanmean = _reduce(lambda a, d, k: torch.nanmean(a, dim=d, keepdim=k),
                   float_in=True)
 amax = _reduce(lambda a, d, k: torch.amax(a, dim=d, keepdim=k))

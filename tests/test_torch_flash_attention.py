@@ -215,6 +215,34 @@ def test_twin_bfloat16_keeps_dtype():
                                atol=1e-2)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_twins_float16_keep_dtype_and_match_float32(causal):
+    """float16 (amp.auto_cast's float16 mode) through all three twins:
+    out, dq, dk, dv come back float16, lse float32; each within one
+    float16 rounding of the float32 twins on the same rounded inputs."""
+    q, k, v, do = (torch.from_numpy(a).half() for a in _inputs(40, 40,
+                                                                seed=9))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    f32 = [t.float() for t in (q, k, v, do)]
+    want, want_lse = fa.flash_attention_fwd_reference(*f32[:3], causal)
+    np.testing.assert_allclose(out.float().numpy(), want.numpy(), rtol=0,
+                               atol=2e-3)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    delta = (want * f32[3]).sum(-1).transpose(1, 2)
+    dq = fa.flash_attention_dq(q, k, v, do, want_lse, delta, causal)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, want_lse, delta, causal)
+    want_dq = fa.flash_attention_dq_reference(*f32, want_lse, delta, causal)
+    want_dk, want_dv = fa.flash_attention_dkv_reference(*f32, want_lse,
+                                                        delta, causal)
+    for got, ref in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == torch.float16
+        np.testing.assert_allclose(got.float().numpy(), ref.numpy(),
+                                   rtol=0, atol=2e-3 * ref.abs().max().item()
+                                   + 1e-6)
+
+
 # -- no silent fallback -------------------------------------------------
 
 def test_non_cpu_tensors_never_reach_the_twins(monkeypatch):
@@ -304,15 +332,20 @@ def test_ctypes_parameters_match_the_c_entry_points(name):
     params, body = _entry_point(name)
     assert params == fa.ENTRY_POINTS[name]
     # the head dim picks the template, the dtype code the design: float32
-    # on the CUDA cores, bfloat16 on the tensor cores
+    # on the CUDA cores, bfloat16 and float16 on the tensor cores (one
+    # template on the element type)
     run = name.replace("flash_attention_", "run_")
     assert f"{run}<64>(" in body and f"{run}<128>(" in body
     _, run_body = _entry_point(run, ret="cudaError_t")
     kernel = name.replace("flash_attention_", "flash_") + "_"
-    f32, bf16 = re.search(r"dtype == 0\)(.*?)if \(dtype == 1\)(.*?);",
-                          run_body, re.S).groups()
+    f32, bf16, f16 = re.search(
+        r"dtype == 0\)(.*?)if \(dtype == 1\)(.*?);.*?if \(dtype == 2\)"
+        r"(.*?);", run_body, re.S).groups()
     assert kernel + "kernel<D>" in f32
-    assert kernel + "tc_kernel<D>" in bf16
+    assert kernel + "tc_kernel<D, __nv_bfloat16>" in bf16
+    assert kernel + "tc_kernel<D, __half>" in f16
+    assert fa.FLASH_DTYPE_CODES == {torch.float32: 0, torch.bfloat16: 1,
+                                    torch.float16: 2}
 
 
 def test_head_dims_entry_point_matches_its_c_declaration():
@@ -323,7 +356,8 @@ def test_head_dims_entry_point_matches_its_c_declaration():
 
 
 @pytest.mark.parametrize("dtype,code", [(torch.bfloat16, 1),
-                                        (torch.float32, 0)])
+                                        (torch.float32, 0),
+                                        (torch.float16, 2)])
 def test_launch_passes_the_dtype_code_and_views(monkeypatch, dtype, code):
     """`_launch` with stand-ins for the loaded entry points, for each of
     the three passes at head_dim 64 and 128: the dtype code, the head

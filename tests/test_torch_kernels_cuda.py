@@ -31,6 +31,12 @@ hold the same 1e-2 at the training shapes [8, 1024, 16, 64] and
 T = 64 and 65 and a single (batch, head), at head_dim 64 and 128, give
 the same bits on a second call (no atomics), and never reach a twin;
 float32 keeps the CUDA-core route and its 1e-4 at both head dims.
+float16 (amp.auto_cast's float16 mode) runs the same tensor-core
+templates on __half: 5e-3 (one float16 rounding, 2^-11, of the output,
+P and dS), at the tensor-core cases, ERNIE-base's [32, 128, 12, 64]
+non-causal and both head dims, bit-equal on a second call; every other
+kernel (#1, #5-#11, the tree update, K2) still raises TypeError for
+float16, none falls back to a twin.
 
 The fused epilogue's passes (kernels #9, #10) against their twins on a
 small ragged layout (two scan-group leaves, buckets not a multiple of
@@ -246,7 +252,8 @@ def test_kernel_repeats_bit_for_bit_on_card(name, dtype):
         assert sched.n_split_units == 1 and sched.n_cc > 1  # it was split
 
 
-FLASH_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+FLASH_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2,
+             torch.float16: 5e-3}
 
 
 def _rel_err(got, want):
@@ -2110,3 +2117,110 @@ def test_draws_work_after_a_failed_capture_on_card():
     a = torch.randn(4, device="cuda")
     torch.manual_seed(5)
     assert torch.equal(torch.randn(4, device="cuda"), a)
+
+
+# -- float16: the flash kernels take it, every other kernel refuses it -----
+
+FLASH_F16_CASES = FLASH_TC_CASES[2:] + [(32, 128, 128, 12, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("B,tq,tk,Hh,causal", FLASH_F16_CASES)
+def test_flash_float16_kernels_match_twins_on_card(B, tq, tk, Hh, causal,
+                                                    d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    B = B // 2 if d == 128 and B > 1 else B
+    args = _flash_bwd_case(B, tq, tk, Hh, causal, torch.float16, seed=7,
+                           d=d)
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    out, lse = fa.flash_attention_fwd(*args[:3], causal=causal)
+    dq = fa.flash_attention_dq(*args, causal=causal)
+    dk, dv = fa.flash_attention_dkv(*args, causal=causal)
+    again = fa.flash_attention_dkv(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == (before[0] + 1,
+                                                 before[1] + 1, before[2] + 2)
+    want, want_lse = fa.flash_attention_fwd_reference(*args[:3], causal)
+    want_dq = fa.flash_attention_dq_reference(*args, causal)
+    want_dk, want_dv = fa.flash_attention_dkv_reference(*args, causal)
+    assert lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    for name, got, ref in (("out", out, want), ("dq", dq, want_dq),
+                           ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        assert got.dtype == torch.float16 and got.is_contiguous(), name
+        assert bool(torch.isfinite(got.float()).all()), name
+        assert _rel_err(got, ref) <= FLASH_REL[torch.float16], name
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+
+
+def _no_twin(monkeypatch, module, *names):
+    def boom(*a, **kw):
+        raise AssertionError("twin reached for a CUDA tensor")
+    for name in names:
+        monkeypatch.setattr(module, name, boom)
+
+
+@pytest.mark.cuda
+def test_float16_raises_for_every_other_kernel_on_card(monkeypatch):
+    """float16 is the flash kernels' alone: the paged kernel (#1), the
+    LayerNorm (#5-#6) and xent (#7-#8) kernels, the scan (#11) and the
+    stochastic rounding (K2) raise TypeError for float16 CUDA tensors,
+    before any launch and without reaching a twin; so does a TrainStep
+    on a float16 model, on the fused epilogue (#9-#10) and on the tree
+    update."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import fused_layer_norm
+    _no_twin(monkeypatch, pa, "ragged_paged_attention_reference")
+    _no_twin(monkeypatch, ln, "layer_norm_fwd_reference")
+    _no_twin(monkeypatch, xent, "softmax_xent_fwd_reference")
+    _no_twin(monkeypatch, sk, "selective_scan_reference")
+    _no_twin(monkeypatch, sr, "stochastic_round_reference")
+    dev, f16 = torch.device("cuda"), torch.float16
+    launches = {n: getattr(m, n).launches for m, n in (
+        (pa, "ragged_paged_attention"), (ln, "layer_norm_fwd"),
+        (xent, "softmax_xent_fwd"), (sk, "ssm_scan"),
+        (sr, "stochastic_round"), (fk, "fused_pass2"),
+        (tu, "tree_update"))}
+    with pytest.raises(TypeError):
+        pa.ragged_paged_attention(*_paged_args("mixed", f16))
+    x = torch.randn(64, 1024, device=dev, dtype=f16)
+    with pytest.raises(TypeError):
+        fused_layer_norm(x, torch.ones(1024, device=dev, dtype=f16),
+                         torch.zeros(1024, device=dev, dtype=f16))
+    with pytest.raises(TypeError):
+        xent.softmax_xent_fwd(x, torch.zeros(64, dtype=torch.int32,
+                                             device=dev))
+    with pytest.raises(TypeError):
+        sr.stochastic_round(x, 7)
+    T, Dm, N = 8, 64, 16
+    with pytest.raises(TypeError):
+        sk.ssm_scan(torch.randn(T, Dm, device=dev, dtype=f16),
+                    torch.rand(T, Dm, device=dev, dtype=f16),
+                    torch.randn(T, N, device=dev, dtype=f16),
+                    torch.randn(T, N, device=dev, dtype=f16),
+                    -torch.rand(Dm, N, device=dev, dtype=f16),
+                    torch.zeros(1, Dm, N, device=dev, dtype=f16),
+                    torch.zeros(T, dtype=torch.int32, device=dev))
+    for fused in (True, False):
+        lin = torch.nn.Linear(64, 64).to(dev, f16)
+        with pytest.raises(TypeError):
+            step = TrainStep(lin, lambda out, y: (out.float() - y).square()
+                             .mean(), AdamW(learning_rate=1e-3,
+                                            parameters=list(
+                                                lin.parameters()),
+                                            multi_precision=True),
+                             fused_update=fused)
+            step._eager_call(torch.randn(4, 64, device=dev, dtype=f16),
+                             torch.zeros(4, 64, device=dev))
+    torch.cuda.synchronize()
+    assert {n: getattr(m, n).launches for m, n in (
+        (pa, "ragged_paged_attention"), (ln, "layer_norm_fwd"),
+        (xent, "softmax_xent_fwd"), (sk, "ssm_scan"),
+        (sr, "stochastic_round"), (fk, "fused_pass2"),
+        (tu, "tree_update"))} == launches
