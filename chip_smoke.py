@@ -368,7 +368,38 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    float16, and in float16 at GPT-medium's and GPT-1.3B's training
    shapes, with each kernel's, twin's, SDPA's (same dtype) time and the
    bound;
-17. the smoke's run time and the kernels line (each flash kernel
+17. examples/train_vision_hapi.py's workflow on ResNet-50 (BASELINE.json's
+   "ResNet-50 dygraph on CIFAR-10"; no dataset files: the example's
+   SyntheticImages at CIFAR-10's 3 x 32 x 32, 10 classes), float32
+   (torch's TF32 defaults), weights from `paddle.seed`: (a)
+   `Model.prepare(Momentum(0.01, momentum=0.9), CrossEntropyLoss(),
+   Accuracy())`, `fit` on 3328 images in batches of 128 (shuffled),
+   validating on 1024, 2 epochs, then `evaluate`; each epoch's wall s,
+   images/s, ms a replayed step, captures, compile_s, graph pool, peak
+   memory; losses finite; each epoch's step captured once and replayed
+   for the rest (evaluate drops the step, so the next epoch captures
+   anew); over fit's 52 steps #10 launched 52 x bucket groups and no
+   other kernel of the table (#9 neither: no clip, scaler or health);
+   every BatchNorm running statistic finite and moved; epoch 2's peak
+   at most epoch 1's plus one graph pool, and what stays allocated after
+   each epoch's evaluate equal within 0.25 GiB (the dropped step's pool
+   freed); one profiled step: device ms, idle share, MFU
+   (profiler/cost.py's FLOPs over 989 TFLOP/s); (b) the TrainStep that
+   fit builds, at ImageNet's 64 x 3 x 224 x 224 and 1000 classes, 2 + 10
+   + 1 profiled steps in float32 and under `auto_cast(level="O1",
+   dtype="bfloat16")` (kernels named bf16 at least a quarter of its
+   device time): ms a step, images/s, device ms, idle share, peak, MFU;
+   (c) the dygraph eager loop (`net(x)` -> `F.cross_entropy` ->
+   `backward` -> `opt.step()` -> `opt.clear_grad()`) at (a)'s shape, 1
+   + 5 + 1 profiled steps: wall and device ms, idle share; (d) ResNet-18
+   at full width, float32 with TF32 off, 8 x 3 x 32 x 32, from the same
+   numpy weights: 3 `train_batch` steps on the card and on the CPU
+   within 1e-3 relative, the running statistics within 1e-4 of each
+   buffer's largest value, then `evaluate` on 32 images: accuracy equal,
+   loss within 1e-3; (e) a ResNet-18 step replayed against its eager
+   body from one snapshot (cuDNN deterministic), losses, parameters,
+   velocities and BatchNorm's buffers bit-equal (`hold_replayed`);
+18. the smoke's run time and the kernels line (each flash kernel
    three times: head_dim 64, with the suffix "_d128" head_dim 128, with
    "_f16" float16; #10's bf16 variant as "fused_pass2_bf16_state"; the
    tree update as "tree_update"; K2 as "stochastic_round"), then, last,
@@ -2836,7 +2867,8 @@ CAPTURED_TIMED = 4
 
 def state_copies(step):
     """Copies of every tensor of a step's state, in a fixed order:
-    params, optimizer state (moments, masters), the GradScaler's."""
+    params, optimizer state (moments, masters), the GradScaler's, then
+    the model's buffers (BatchNorm's running statistics)."""
     out = []
 
     def walk(t):
@@ -2849,7 +2881,11 @@ def state_copies(step):
             for x in t:
                 walk(x)
     walk(step.tree_state())
-    return out
+    return out + model_buffers(step)
+
+
+def model_buffers(step):
+    return [b.detach().clone() for b in step.model.buffers()]
 
 
 def profiled_device_ms(torch, fn, steps=1):
@@ -2866,25 +2902,30 @@ def profiled_device_ms(torch, fn, steps=1):
 def hold_replayed(torch, step, call, eager, label, steps=1, sched=None,
                   held=CAPTURED_HELD, timed=CAPTURED_TIMED):
     """One flavor's replays against its eager body, from one
-    `snapshot_state` (and the scheduler's state): `call` once (the
+    `snapshot_state` (and the scheduler's state and the model's
+    buffers): `call` once (the
     capture, unless an earlier call made it; its eager run is that
     call's step), back to the snapshot,
     `held` replayed calls, back again, `held` eager ones; losses and
-    every parameter, moment, master and the GradScaler's state must be
-    bit-equal. Then wall ms a step over `timed` calls of each (the
+    every parameter, moment, master, the GradScaler's state and every
+    buffer must be bit-equal. Then wall ms a step over `timed` calls of each (the
     state runs on from there) and device ms a step of one profiled call
     of each. `steps`: optimizer steps a call. Returns the measurements."""
     def mark():
         return (step.snapshot_state(), step._step_i,
-                sched.state_dict() if sched is not None else None)
+                sched.state_dict() if sched is not None else None,
+                model_buffers(step))
 
     def back(m):
-        snap, i, sd = m
+        snap, i, sd, bufs = m
         step.set_tree_state(snap["params"], snap["opt_state"])
         step.scaler_state = snap["scaler_state"]
         step._step_i = i
         if sd is not None:
             sched.set_state_dict(sd)
+        with torch.no_grad():
+            for b, v in zip(step.model.buffers(), bufs):
+                b.copy_(v)
 
     def run(fn, n):
         out = []
@@ -5035,6 +5076,454 @@ def phase_bert(torch, km, fa, flush):
                 agree=dict(worst=worst, amp_rel=amp_rel))
 
 
+# -- phase 17: examples/train_vision_hapi.py's ResNet-50 fit (BASELINE.json's
+# "ResNet-50 dygraph on CIFAR-10"), ResNet-50 at ImageNet's shape, the eager
+# loop, card against CPU, a replay against its eager body -------------------
+
+# (a) the example's workflow at CIFAR-10's shape: 26 batches of 128, a
+# validation set of 8, two epochs; BASELINE.json:6 names the model
+VISION = dict(train=3328, val=1024, batch=128, epochs=2, lr=0.01,
+              momentum=0.9, classes=10, hw=32)
+RESNET50_PARAMS = 23_528_522  # resnet50(num_classes=10): 161 leaves
+RESNET50_LEAVES = 161
+# (b) ImageNet's shape: 2 warm-up (the capture and a replay), 10 timed,
+# 1 profiled step, float32 and O1 bfloat16
+IMAGENET = dict(batch=64, hw=224, classes=1000, warmup=2, timed=10)
+# (c) the dygraph eager loop at (a)'s shape: 1 warm-up, 5 timed
+VISION_EAGER = dict(warmup=1, timed=5)
+# (d) ResNet-18 at full width, float32 with TF32 off, card against CPU:
+# at 8 x 32 x 32 and lr 1e-3 a float32 run stays within 2e-5 (losses) and
+# 5e-6 (running statistics, over each buffer's largest value) of a
+# float64 one (a CPU run); at lr 1e-2 it does not (batch statistics over
+# 8 values a channel in the last stage)
+VISION_AGREE = dict(batch=8, hw=32, steps=3, lr=1e-3, rtol=1e-3,
+                    bn_rtol=1e-4, eval_images=32, eval_loss_rtol=1e-3)
+# a family of device kernels by name: cuDNN's convolutions (and the
+# products it runs through CUTLASS / xmma), the epilogue (#10), the rest
+CONV_NAMES = ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit",
+              "xmma", "cutlass", "sm90", "gemm", "nvjet")
+
+
+class SyntheticImages:
+    """examples/train_vision_hapi.py's stand-in for CIFAR-10: `n` images
+    3 x hw x hw uniform in [0, 1) and labels from RandomState(seed)."""
+
+    def __init__(self, n, classes=10, hw=32, seed=0):
+        rng = np.random.RandomState(seed)
+        self.x = rng.rand(n, 3, hw, hw).astype(np.float32)
+        self.y = rng.randint(0, classes, n).astype(np.int64)
+
+    def __len__(self):
+        return len(self.x)
+
+    def __getitem__(self, i):
+        return self.x[i], self.y[i]
+
+
+def vision_numpy_state(model, seed):
+    """{name: numpy array} for every parameter and buffer of a vision
+    model by the reference's init: Uniform(+-1/sqrt(fan_in)) conv
+    weights, XavierNormal Linear weights, zero biases, unit BatchNorm
+    weights, running statistics 0 and 1."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("._variance") or (k.endswith(".weight") and
+                                        len(shape) == 1):
+            out[k] = np.ones(shape, np.float32)
+        elif len(shape) == 4:
+            bound = 1.0 / np.sqrt(np.prod(shape[1:]))
+            out[k] = rng.uniform(-bound, bound, shape).astype(np.float32)
+        elif len(shape) == 2:
+            std = (2.0 / (shape[0] + shape[1])) ** 0.5
+            out[k] = (rng.standard_normal(shape) * std).astype(np.float32)
+        else:
+            out[k] = np.zeros(shape, np.float32)
+    return out
+
+
+def vision_time_goes(prof, wall_s):
+    """(device ms a step, idle share, {family: ms}) of a profiled window:
+    the convolutions (cuDNN and the products), #10, the rest; prints the
+    top kernels."""
+    by_name = device_us_by_name(prof)
+    total = sum(by_name.values()) / 1e3
+    if not total:
+        print("  device time: not measured (the profiler saw no device "
+              "events)")
+        return None, None, {}
+    conv = sum(v for n, v in by_name.items()
+               if any(s in n.lower() for s in CONV_NAMES)) / 1e3
+    epi = sum(v for n, v in by_name.items() if "fused_" in n) / 1e3
+    parts = {"convolutions and products": conv, "epilogue #10": epi,
+             "the rest (BatchNorm's composition, ReLU, adds, pools, "
+             "copies)": total - conv - epi}
+    idle = max(0.0, 1 - total / (wall_s * 1e3))
+    print(f"  device kernels {total:.2f}ms a step (profiled), wall "
+          f"{wall_s * 1e3:.2f}ms (timed), idle share {idle:.3f}; "
+          + ", ".join(f"{k} {v:.2f}ms ({v / total:.3f})"
+                      for k, v in parts.items()))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {us / 1e3:8.3f}ms  {name[:100]}")
+    return total, idle, parts
+
+
+def profile_call(torch, fn):
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def fit_epochs(torch, model, train, val, epochs):
+    """Model.fit(train, val, epochs, verbose=0) with a callback that
+    records, for each epoch: wall s and images/s of its training part,
+    ms a step over the replayed steps (after the first, which captures),
+    the step's captures / compile_s / replays and graph pool, the
+    epoch's peak memory and what stays allocated after its evaluation;
+    and every step's loss (on the device)."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    rec = dict(epochs=[], losses=[])
+    n_batches = len(train)
+
+    class Clock(Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            loss = logs["loss"][0]  # a Tensor over the device value
+            rec["losses"].append(getattr(loss, "value", loss))
+            if step == 0:
+                torch.cuda.synchronize()
+                self.t1 = time.perf_counter()
+            if step == n_batches - 1:
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                ts = model._train_step
+                (prog,) = [p for c in ts._graphs.values()
+                           for p in c.values()]
+                self.cur = dict(
+                    wall_s=t2 - self.t0, images_s=len(train.dataset) / (
+                        t2 - self.t0),
+                    ms=(t2 - self.t1) / (n_batches - 1) * 1e3,
+                    captures=ts.retraces, compile_s=ts.compile_s,
+                    replays=prog.replays, graph=prog.graph is not None,
+                    pool_bytes=prog.info.get("pool_bytes", 0))
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.cur.update(
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                after_eval_gib=torch.cuda.memory_allocated() / 2**30,
+                eval_loss=logs["eval_loss"][0], eval_acc=logs["eval_acc"])
+            rec["epochs"].append(self.cur)
+
+    model.fit(train, val, epochs=epochs, verbose=0, callbacks=[Clock()])
+    return rec
+
+
+def phase_vision(torch, km):
+    """examples/train_vision_hapi.py's ResNet-50 on the card: (a) its
+    Model.fit at CIFAR-10's shape in float32; (b) its TrainStep at
+    ImageNet's shape, float32 and O1 bfloat16; (c) the dygraph eager
+    loop; (d) ResNet-18 card against CPU; (e) a replayed ResNet-18 step
+    against its eager body, BatchNorm's buffers included. Returns the
+    measurements."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.io import DataLoader, Dataset
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.models import load_paddle_tpu_state
+    from paddle_tpu_torch.profiler import cost
+    from paddle_tpu_torch.vision.models import resnet18, resnet50
+    F = paddle.nn.functional
+    t0 = time.perf_counter()
+    paddle.set_device("gpu")
+    # torch's defaults, what a user's float32 convolution gets (earlier
+    # phases turn both off): cuDNN's products in TF32, cuBLAS's not
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    print("  cuDNN TF32 on, matmul TF32 off (torch's defaults: a float32 "
+          "convolution runs its products in TF32)")
+    Images = type("Images", (SyntheticImages, Dataset), {})
+
+    def momentum(net, lr=VISION["lr"]):
+        return paddle.optimizer.Momentum(learning_rate=lr,
+                                         momentum=VISION["momentum"],
+                                         parameters=net.parameters())
+
+    # (a) Model.prepare / fit / evaluate at CIFAR-10's shape
+    paddle.seed(SEED + 20)
+    net = resnet50(num_classes=VISION["classes"])
+    n_params = sum(p.numel() for p in net.parameters())
+    check(n_params == RESNET50_PARAMS and len(net.parameters())
+          == RESNET50_LEAVES, f"(a) ResNet-50 has {n_params} parameters in "
+          f"{len(net.parameters())} leaves")
+    init_bufs = [b.detach().clone() for b in net.buffers()]
+    model = paddle.Model(net)
+    model.prepare(momentum(net), nn.CrossEntropyLoss(), Accuracy())
+    np.random.seed(SEED)
+    train = DataLoader(Images(VISION["train"]), batch_size=VISION["batch"],
+                       shuffle=True)
+    val = DataLoader(Images(VISION["val"], seed=1),
+                     batch_size=VISION["batch"])
+    zero_counts(km)
+    rec = fit_epochs(torch, model, train, val, VISION["epochs"])
+    launches = counts(km)
+    n_steps = len(rec["losses"])
+    vals = torch.stack(rec["losses"]).float().tolist()
+    check(n_steps == VISION["epochs"] * len(train), f"(a) {n_steps} steps")
+    check(np.isfinite(vals).all(), f"(a) non-finite losses {vals}")
+    for i, e in enumerate(rec["epochs"]):
+        check(e["graph"] and e["captures"] == 1
+              and e["replays"] == len(train) - 1,
+              f"(a) epoch {i}: {e['captures']} captures, {e['replays']} "
+              f"replays of {len(train)} steps")
+        print(f"  (a) epoch {i}: {e['wall_s']:.2f}s wall, "
+              f"{e['images_s']:.0f} images/s (its first step captures), "
+              f"{e['ms']:.2f} ms a replayed step "
+              f"({VISION['batch'] / e['ms'] * 1e3:.0f} images/s); captures "
+              f"{e['captures']}, compile_s {e['compile_s']:.2f}, graph pool "
+              f"{e['pool_bytes'] / 2**20:.0f} MiB, replays {e['replays']}; "
+              f"peak {e['peak_gib']:.2f} GiB, allocated after evaluate "
+              f"{e['after_eval_gib']:.2f} GiB; eval loss "
+              f"{e['eval_loss']:.4f}, acc {e['eval_acc']:.4f}")
+    e1, e2 = rec["epochs"][0], rec["epochs"][-1]
+    check(e2["peak_gib"] <= e1["peak_gib"] + e1["pool_bytes"] / 2**30,
+          f"(a) epoch 2 peaks at {e2['peak_gib']:.2f} GiB, epoch 1 at "
+          f"{e1['peak_gib']:.2f} + a pool of {e1['pool_bytes'] / 2**30:.2f}")
+    check(abs(e2["after_eval_gib"] - e1["after_eval_gib"]) < 0.25,
+          f"(a) the dropped step's memory stays: after epoch 1 "
+          f"{e1['after_eval_gib']:.2f} GiB, after epoch 2 "
+          f"{e2['after_eval_gib']:.2f}")
+    # Momentum, no clip, scaler or health: pass 1 (#9) has nothing to
+    # do; pass 2 (#10) once a group a step (the capture's eager run is
+    # that call's step); nothing else of the table
+    want = {k: 0 for k in launches}
+    bufs = [b for b in net.buffers()]
+    check(all(torch.isfinite(b).all() for b in bufs)
+          and all(not torch.equal(b, i) for b, i in zip(bufs, init_bufs)),
+          "(a) a BatchNorm running statistic is not finite or did not move")
+    evaluated = model.evaluate(val, verbose=0)
+    print(f"  (a) evaluate on {VISION['val']} images: loss "
+          f"{evaluated['loss'][0]:.4f}, acc {evaluated['acc']:.4f}; losses "
+          f"{vals[0]:.4f} -> {vals[-1]:.4f} over {n_steps} steps")
+    x_np = np.stack([train.dataset[i][0] for i in range(VISION["batch"])])
+    y_np = np.stack([train.dataset[i][1] for i in range(VISION["batch"])])
+    x, y = torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+    model._ensure_train_step()
+    step = model._train_step
+    groups = n_groups(step)
+    want["fused_pass2"] = n_steps * groups
+    check(launches == want, f"(a) launches over fit's {n_steps} steps "
+                            f"{launches}, want {want}")
+    step(x, y)
+    step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_call(torch, lambda: step(x, y))
+    flop = step.flops(x, y)
+    fit_s = e2["ms"] / 1e3
+    cifar = dict(epochs=rec["epochs"], ms=e2["ms"],
+                 images_s=VISION["batch"] / fit_s, mfu=cost.mfu(flop, fit_s),
+                 flops=flop, peak_gib=max(e["peak_gib"] for e in
+                                          rec["epochs"]),
+                 eval=evaluated, groups=groups, launches=launches)
+    cifar["device_ms"], cifar["idle"], cifar["parts"] = vision_time_goes(
+        prof, fit_s)
+    print(f"  (a) ResNet-50 (10 classes, {n_params} parameters, "
+          f"{RESNET50_LEAVES} leaves, {groups} bucket group(s)), float32, "
+          f"{VISION['batch']} x 3 x {VISION['hw']} x {VISION['hw']}: "
+          f"{cifar['ms']:.2f} ms a step, {cifar['images_s']:.0f} images/s, "
+          f"MFU {cifar['mfu']:.4f} ({flop:.4g} FLOP a step, "
+          f"profiler/cost.py, over {cost.device_peak_flops():.4g}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    del model, step, prof, net, bufs, init_bufs, rec
+    torch.cuda.empty_cache()
+
+    # (b) ImageNet's shape, the TrainStep that fit builds
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    B, hw = IMAGENET["batch"], IMAGENET["hw"]
+    xb = torch.rand(B, 3, hw, hw, device="cuda", generator=gen)
+    yb = torch.randint(0, IMAGENET["classes"], (B,), device="cuda",
+                       generator=gen)
+    paddle.seed(SEED + 22)
+    net = resnet50(num_classes=IMAGENET["classes"])
+    imagenet = {}
+    for label, policy in (("float32", contextlib.nullcontext),
+                          ("O1 bfloat16", lambda: amp.auto_cast(
+                              level="O1", dtype="bfloat16"))):
+        model = paddle.Model(net)
+        model.prepare(momentum(net, 1e-3), nn.CrossEntropyLoss())
+        model._ensure_train_step()
+        step = model._train_step
+        with policy():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses = [step(xb, yb) for _ in range(IMAGENET["warmup"])]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses += [step(xb, yb) for _ in range(IMAGENET["timed"])]
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t) / IMAGENET["timed"]
+            prof = profile_call(torch, lambda: losses.append(step(xb, yb)))
+        vals = torch.stack(losses).float().tolist()
+        check(np.isfinite(vals).all(), f"(b) {label}: non-finite {vals}")
+        check(step.retraces == 1, f"(b) {label}: {step.retraces} captures")
+        flop = step.flops(xb, yb)
+        res = dict(ms=step_s * 1e3, images_s=B / step_s,
+                   mfu=cost.mfu(flop, step_s), flops=flop,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   first=vals[0], last=vals[-1])
+        print(f"  (b) ResNet-50 ({IMAGENET['classes']} classes) {label}, "
+              f"{B} x 3 x {hw} x {hw}: {res['ms']:.2f} ms a step, "
+              f"{res['images_s']:.1f} images/s, MFU {res['mfu']:.4f} "
+              f"({flop:.4g} FLOP a step), peak {res['peak_gib']:.2f} GiB, "
+              f"loss {vals[0]:.4f} -> {vals[-1]:.4f}")
+        res["device_ms"], res["idle"], res["parts"] = vision_time_goes(
+            prof, step_s)
+        convs = {n: v for n, v in device_us_by_name(prof).items()
+                 if any(c in n.lower() for c in CONV_NAMES)}
+        low = sum(v for n, v in convs.items() if "bf16" in n.lower()
+                  or "bfloat16" in n.lower())
+        res["bf16_share"] = low / max(sum(convs.values()), 1e-9)
+        print(f"  (b) {label}: kernels named bf16 take "
+              f"{res['bf16_share']:.3f} of the convolutions' device time; "
+              f"its largest: " + "; ".join(
+                  f"{v / 1e3:.3f}ms {n[:80]}" for n, v in sorted(
+                      convs.items(), key=lambda kv: -kv[1])[:4]))
+        if label != "float32":
+            check(res["bf16_share"] >= 0.5,
+                  f"(b) {label}: the convolutions did not run the bf16 "
+                  f"kernels ({res['bf16_share']:.3f} of their time)")
+        imagenet[label] = res
+        del model, step, prof, losses
+        torch.cuda.empty_cache()
+    del net, xb, yb
+    torch.cuda.empty_cache()
+
+    # (c) the dygraph eager loop at (a)'s shape
+    paddle.seed(SEED + 23)
+    net = resnet50(num_classes=VISION["classes"])
+    opt = momentum(net)
+    xe, ye = paddle.to_tensor(x_np), paddle.to_tensor(y_np)
+
+    def eager_step():
+        loss = F.cross_entropy(net(xe), ye)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    for _ in range(VISION_EAGER["warmup"]):
+        eager_step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eloss = [eager_step() for _ in range(VISION_EAGER["timed"])]
+    torch.cuda.synchronize()
+    eager_s = (time.perf_counter() - t) / VISION_EAGER["timed"]
+    prof = profile_call(torch, eager_step)
+    evals = [float(v) for v in eloss]
+    check(np.isfinite(evals).all(), f"(c) non-finite losses {evals}")
+    eager = dict(wall_ms=eager_s * 1e3)
+    print(f"  (c) the eager loop (net(x) -> F.cross_entropy -> backward -> "
+          f"opt.step -> clear_grad) on ResNet-50 at (a)'s shape: "
+          f"{eager['wall_ms']:.2f} ms a step wall, loss {evals[0]:.4f} -> "
+          f"{evals[-1]:.4f}")
+    eager["device_ms"], eager["idle"], _ = vision_time_goes(prof, eager_s)
+    del net, opt, prof, eloss
+    torch.cuda.empty_cache()
+
+    # (d) ResNet-18 card against CPU, float32, TF32 off
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    Bd, hwd = VISION_AGREE["batch"], VISION_AGREE["hw"]
+    xd_np = np.random.RandomState(SEED + 24).rand(Bd, 3, hwd, hwd).astype(
+        np.float32)
+    yd_np = np.random.RandomState(SEED + 25).randint(0, 10, Bd)
+    ev_data = Images(VISION_AGREE["eval_images"], seed=2)
+    agree, state = {}, None
+    try:
+        for dev in ("gpu", "cpu"):
+            paddle.set_device(dev)
+            net = resnet18(num_classes=10)
+            if state is None:
+                state = vision_numpy_state(net, SEED + 26)
+            load_paddle_tpu_state(net, state)
+            model = paddle.Model(net)
+            model.prepare(momentum(net, VISION_AGREE["lr"]),
+                          nn.CrossEntropyLoss(), Accuracy())
+            ts = [model.train_batch([paddle.to_tensor(xd_np)],
+                                    [paddle.to_tensor(yd_np)])[0]
+                  for _ in range(VISION_AGREE["steps"])]
+            bn = [b.detach().cpu().clone() for b in net.buffers()]
+            ev = model.evaluate(DataLoader(ev_data, batch_size=Bd),
+                                verbose=0)
+            agree[dev] = (ts, bn, ev)
+            del model, net
+    finally:
+        paddle.set_device("gpu")
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    (card_ts, card_bn, card_ev), (cpu_ts, cpu_bn, cpu_ev) = \
+        agree["gpu"], agree["cpu"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(card_ts, cpu_ts))
+    bn_worst = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(card_bn, cpu_bn))
+    ev_rel = abs(card_ev["loss"][0] - cpu_ev["loss"][0]) / abs(
+        cpu_ev["loss"][0])
+    print(f"  (d) ResNet-18 float32 (TF32 off), batch {Bd} x 3 x {hwd} x "
+          f"{hwd}, {VISION_AGREE['steps']} train_batch steps: card "
+          f"{card_ts}, CPU {cpu_ts}, worst relative {worst:.3g} (limit "
+          f"{VISION_AGREE['rtol']}); running statistics worst "
+          f"{bn_worst:.3g} of a buffer's largest value (limit "
+          f"{VISION_AGREE['bn_rtol']}); evaluate on "
+          f"{VISION_AGREE['eval_images']} images: card {card_ev}, CPU "
+          f"{cpu_ev}")
+    check(worst <= VISION_AGREE["rtol"], f"(d) losses differ by {worst}")
+    check(bn_worst <= VISION_AGREE["bn_rtol"],
+          f"(d) running statistics differ by {bn_worst}")
+    check(card_ev["acc"] == cpu_ev["acc"] and
+          ev_rel <= VISION_AGREE["eval_loss_rtol"],
+          f"(d) evaluate differs: {card_ev} vs {cpu_ev}")
+
+    # (e) a replayed ResNet-18 step against its eager body, buffers too
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        paddle.seed(SEED + 27)
+        net = resnet18(num_classes=10)
+        model = paddle.Model(net)
+        model.prepare(momentum(net, VISION_AGREE["lr"]),
+                      nn.CrossEntropyLoss())
+        model._ensure_train_step()
+        step = model._train_step
+        xr, yr = paddle.to_tensor(xd_np), paddle.to_tensor(yd_np)
+        replayed = hold_replayed(
+            torch, step, lambda: step(xr, yr).value,
+            lambda: step._eager_call(xr, yr).value,
+            "(e) ResNet-18 float32 Momentum (cuDNN deterministic)", held=3,
+            timed=3)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    del model, step, net
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = flags
+    print(f"  phase 17 took {time.perf_counter() - t0:.1f}s")
+    return dict(cifar=cifar, imagenet=imagenet, eager=eager,
+                agree=dict(worst=worst, bn=bn_worst, eval_rel=ev_rel),
+                replayed=replayed)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5186,6 +5675,13 @@ def main():
           "CPU, the float16 flash kernels", flush=True)
     bert = phase_bert(torch, km, fa, flush)
 
+    print("[17] examples/train_vision_hapi.py's ResNet-50 through "
+          "Model.fit / evaluate (CIFAR-10's shape, float32), its TrainStep "
+          "at ImageNet's shape (float32, O1 bf16), the eager loop, "
+          "ResNet-18 card vs CPU, a replay against its eager body",
+          flush=True)
+    phase_vision(torch, km)
+
     main_step = held["decode"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -5251,7 +5747,7 @@ def main():
         "ms": scan_main["ms"], "plain_ms": scan_main["plain_ms"],
         "bound_ms": scan_main["bound_ms"], "bound_by": scan_main["bound_by"],
         "library_ms": None})
-    print(f"[17] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
+    print(f"[18] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
           f"run time); paged "
           f"attention times are of the served decode step's layer-0 call, "
           f"flash times of the training shapes [8, 1024, 16, 64] (and, "

@@ -29,11 +29,14 @@ dygraph core: `Tensor` on torch autograd, the `paddle.*` tensor ops,
 `autograd`, `nn.Layer` with its containers and initializers,
 `ParamAttr`, `seed`, `save` / `load` and `set_device`; then `amp`
 (`auto_cast` / `decorate` on the reference's policy), the rest of `nn`
-but its convolutional and recurrent half (functionals, layers,
-`nn.Transformer*`, `nn.utils`), BERT / ERNIE, and float16 in the flash
-kernels. So `import paddle_tpu_torch as paddle` runs a Paddle dygraph
-program: build a `Layer`, `loss.backward()`, `opt.step()`,
-`opt.clear_grad()`, under `paddle.amp.auto_cast` too.
+but its recurrent half (functionals, layers, `nn.Transformer*`,
+`nn.utils`), BERT / ERNIE, and float16 in the flash kernels;
+convolutions and pooling, `paddle.vision`'s ResNet family
+and small nets, `io`'s DataLoader, `metric` and hapi's `Model` (`fit`
+/ `evaluate` / `predict` over TrainStep), `summary` and `flops`. So
+`import paddle_tpu_torch as paddle` runs a Paddle dygraph program:
+build a `Layer`, `loss.backward()`, `opt.step()`, `opt.clear_grad()`,
+under `paddle.amp.auto_cast` too, or `paddle.Model(net).fit(loader)`.
 
 Entry points run on CUDA unless the caller asks for the CPU, with
 `paddle.set_device("cpu")` or `device="cpu"` (see `device/`).
@@ -68,6 +71,8 @@ from .device import (set_device, get_device, is_compiled_with_cuda,
                      is_compiled_with_cinn)
 from .tensor.search import where, nonzero, argmax, argmin  # noqa: F401
 from . import nn, optimizer, amp, jit, regularizer  # noqa: F401,E402
+from . import io, metric, vision, hapi  # noqa: F401,E402
+from .hapi import Model, flops, summary  # noqa: F401,E402
 
 bool = bool_  # noqa: A001 -- Paddle exposes `paddle.bool`
 from .tensor.manipulation import flip as reverse  # noqa: E402,F401

@@ -7,7 +7,7 @@ argument means the current device, which is CUDA unless
 raise instead of quietly running on the CPU; the CPU runs only when the
 caller asks for it, with `set_device("cpu")` or `device="cpu"`, as the
 parity tests do. The memory stats, `Stream` and `Event` are not ported
-yet (ROADMAP.md queue A, item A.6 part 2).
+yet (ROADMAP.md queue A, item A.6 part 4).
 """
 import torch
 

@@ -536,8 +536,10 @@ class TrainStep:
 
     def _state_tensors(self, with_grads=False):
         """Every tensor of the step's state: params (their flat stores on
-        the fused path), optimizer state, the GradScaler's state (and
-        the grad buckets and the scalars block with `with_grads`)."""
+        the fused path), optimizer state, the GradScaler's state, the
+        model's buffers (BatchNorm's running statistics, which the
+        forward updates in place) (and the grad buckets and the scalars
+        block with `with_grads`)."""
         if self._fused is not None:
             out = list(self._params_store.values())
             for m in self._opt_store["moments"]:
@@ -553,6 +555,7 @@ class TrainStep:
                 else:
                     out += list(leaf)
         out += list(self._scaler_state.values())
+        out += [b for b in self.model.buffers() if b is not None]
         if with_grads:
             out.append(self._scalars.block)
         return out

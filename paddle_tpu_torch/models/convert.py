@@ -17,16 +17,19 @@ def load_paddle_tpu_state(model, state):
     """Copy `state` (name -> numpy array, e.g. `{k: v.numpy() for k, v
     in ref.state_dict().items()}`) into `model`'s parameters (any
     Layer's, a user-defined one's too; `paddle.load` of a reference file
-    with `set_state_dict` is the other way in), converted to each
-    parameter's dtype and device. Raises KeyError on a missing
-    or extra name and ValueError on a shape mismatch, before copying
-    anything."""
+    with `set_state_dict` is the other way in) and into the buffers it
+    names (BatchNorm's `_mean` / `_variance`, which a parameters-only
+    state leaves as they are), converted to each tensor's dtype and
+    device. Raises KeyError on a missing parameter or an extra name and
+    ValueError on a shape mismatch, before copying anything."""
     own = dict(model.named_parameters())
+    buffers = {k: b for k, b in model.named_buffers() if k in state}
     missing = sorted(set(own) - set(state))
-    extra = sorted(set(state) - set(own))
+    extra = sorted(set(state) - set(own) - set(buffers))
     if missing or extra:
         raise KeyError(f"state does not match the model: missing "
                        f"{missing}, extra {extra}")
+    own.update(buffers)
     arrays = {k: np.asarray(state[k]) for k in own}
     bad = [(k, a.shape, tuple(own[k].shape)) for k, a in arrays.items()
            if a.shape != tuple(own[k].shape)]

@@ -1,8 +1,7 @@
 """paddle.nn of the port: the Layer base, its containers, the
 initializers, the layers and functionals of the ported slices, gradient
 clipping and nn.utils. Counterpart: paddle_tpu/nn/__init__.py; its
-convolutional, pooling, recurrent, decoding and vision layers wait for
-ROADMAP.md's A.6 part 3."""
+recurrent and decoding layers wait for ROADMAP.md's A.6 part 4."""
 from . import functional, initializer, utils
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_, clip_grad_value_)

@@ -1,6 +1,6 @@
 """paddle.nn.functional of the port. Counterpart:
-paddle_tpu/nn/functional/__init__.py; the convolutional, pooling,
-vision and extension functionals wait for ROADMAP.md's A.6 part 3.
+paddle_tpu/nn/functional/__init__.py; the extension functionals and the
+rest of misc_gap.py wait for ROADMAP.md's A.6 part 4.
 
 Each functional takes torch tensors, or Paddle Tensors, which it
 unwraps, handing back Tensors (framework/core.py `paddle_io`). The
@@ -8,9 +8,11 @@ in-place `relu_` / `softmax_` rebind a Tensor to the result, as the
 reference does, and write a torch tensor in place.
 """
 from ...framework.core import _is_wrapper, paddle_io as _paddle_io
-from . import activation, attention, common, input, loss, norm
+from . import (activation, attention, common, conv, input, loss, norm,
+               pooling, vision)
 
-_MODULES = (activation, attention, common, input, loss, norm)
+_MODULES = (activation, attention, common, conv, input, loss, norm,
+            pooling, vision)
 
 
 def _inplace(fn):

@@ -2224,3 +2224,94 @@ def test_float16_raises_for_every_other_kernel_on_card(monkeypatch):
         (xent, "softmax_xent_fwd"), (sk, "ssm_scan"),
         (sr, "stochastic_round"), (fk, "fused_pass2"),
         (tu, "tree_update"))} == launches
+
+
+def _resnet18_step():
+    """A ResNet-18 TrainStep on the card (fused Momentum, the fit loop's
+    optimizer), its batch, and the model's buffers."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.vision.models import resnet18
+    torch.manual_seed(0)
+    model = resnet18(num_classes=10)
+    step = TrainStep(model, nn.CrossEntropyLoss(), Momentum(
+        1e-3, 0.9, parameters=model.parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(8, 3, 32, 32, device="cuda", generator=gen)
+    y = torch.randint(0, 10, (8,), device="cuda", generator=gen)
+    return step, model, x, y
+
+
+@pytest.mark.cuda
+def test_replayed_resnet_step_equals_eager_with_buffers_on_card():
+    """A ResNet-18 step's replays against its eager body from one
+    snapshot (parameters, velocities and BatchNorm's running statistics):
+    3 of each give bit-equal losses, state and buffers, with cuDNN's
+    deterministic algorithms; the buffers move (the forward's update is
+    replayed), and #10 launches once a step and a group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        step, model, x, y = _resnet18_step()
+
+        def buffers():
+            return [b.detach().clone() for b in model.buffers()]
+
+        def mark():
+            return step.snapshot_state(), step._step_i, buffers()
+
+        def back(m):
+            snap, i, bufs = m
+            step.set_tree_state(snap["params"], snap["opt_state"])
+            step._step_i = i
+            with torch.no_grad():
+                for b, v in zip(model.buffers(), bufs):
+                    b.copy_(v)
+
+        def run(fn, n):
+            out = torch.stack([fn() for _ in range(n)])
+            torch.cuda.synchronize()
+            return out, _state_copies(step) + buffers()
+
+        m = mark()
+        step(x, y)  # the capture: its eager run is this call's step
+        (prog,) = [p for c in step._graphs.values() for p in c.values()]
+        assert step.retraces == 1 and prog.graph is not None
+        back(m)
+        before = fk.fused_pass2.launches
+        got, got_state = run(lambda: step(x, y), 3)
+        groups = step._fused.bucket_set(step._grad_store,
+                                        step._params_store,
+                                        step._opt_store).groups
+        assert fk.fused_pass2.launches - before == 3 * len(groups)
+        back(m)
+        want, want_state = run(lambda: step._eager_call(x, y), 3)
+        assert prog.replays == 3 and torch.isfinite(got).all()
+        assert torch.equal(got, want), (got, want)
+        for i, (a, b) in enumerate(zip(got_state, want_state)):
+            assert torch.equal(a, b), i
+        init = m[2]
+        moved = [not torch.equal(a, b) for a, b in zip(buffers(), init)
+                 if a.is_floating_point()]
+        assert moved and all(moved)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+@pytest.mark.cuda
+def test_conv_takes_the_amp_policy_on_card():
+    """Under O1 bfloat16 a forward convolution computes in bfloat16 on
+    the card (Conv2D and F.conv2d, bias cast), a transpose in float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paddle_tpu_torch import amp, nn
+    conv = nn.Conv2D(3, 8, 3, padding=1)
+    x = torch.randn(2, 3, 16, 16, device="cuda")
+    w = torch.randn(3, 4, 3, 3, device="cuda")
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        assert conv(x).dtype == torch.bfloat16
+        assert F.conv2d(x, conv.weight, conv.bias).dtype == torch.bfloat16
+        assert F.conv2d_transpose(x, w, stride=2).dtype == torch.float32
+    assert conv(x).dtype == torch.float32

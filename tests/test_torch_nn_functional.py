@@ -16,7 +16,7 @@ gumbel_softmax) cannot match the reference's draws (another random
 stream): the table holds them where they are deterministic (p = 0, not
 training), RANDOM checks their draws by shape, dtype and statistics.
 Names of the reference's namespace that the port leaves for ROADMAP.md's
-A.6 part 3 are listed in UNPORTED; every other name must be ported.
+A.6 part 4 are listed in UNPORTED; every other name must be ported.
 """
 import numpy as np
 import pytest
@@ -29,17 +29,10 @@ import paddle_tpu_torch.nn.functional as port_F
 RTOL, ATOL = 1e-5, 1e-5
 LOOSE = 1e-4
 
-_P3 = "A.6 part 3"
-UNPORTED = {n: _P3 for n in (
-    "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
-    "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
-    "affine_grid", "avg_pool1d", "avg_pool2d", "avg_pool3d",
-    "channel_shuffle", "class_center_sample", "conv1d", "conv1d_transpose",
-    "conv2d", "conv2d_transpose", "conv3d", "conv3d_transpose",
-    "diag_embed", "dice_loss", "elu_", "gather_tree", "grid_sample",
-    "hsigmoid_loss", "log_loss", "margin_cross_entropy", "max_pool1d",
-    "max_pool2d", "max_pool3d", "max_unpool1d", "max_unpool2d",
-    "max_unpool3d", "pixel_shuffle", "pixel_unshuffle", "sequence_mask",
+_P4 = "A.6 part 4"
+UNPORTED = {n: _P4 for n in (
+    "class_center_sample", "diag_embed", "dice_loss", "elu_", "gather_tree",
+    "hsigmoid_loss", "log_loss", "margin_cross_entropy", "sequence_mask",
     "sparse_attention", "tanh_", "temporal_shift")}
 
 
@@ -240,6 +233,162 @@ case("one_hot", "one_hot", i(5, hi=4), 4, grad=False)
 case("embedding", "embedding", i(3, 4, hi=6), f(6, 5))
 case("embedding padding_idx", "embedding", i(3, 4, hi=6), f(6, 5),
      padding_idx=2)
+
+# conv.py: every padding form, "SAME" at stride 2, groups, dilation,
+# the channel-last layouts; the transposes' output_padding, "SAME",
+# uneven pads and output_size
+case("conv1d", "conv1d", f(2, 3, 9), f(4, 3, 3), f(4), stride=2, padding=1)
+case("conv1d NLC SAME", "conv1d", f(2, 9, 3), f(4, 3, 3), stride=2,
+     padding="SAME", data_format="NLC")
+case("conv2d", "conv2d", f(2, 3, 8, 8), f(4, 3, 3, 3), f(4), padding=1)
+case("conv2d SAME stride 2", "conv2d", f(2, 3, 9, 9), f(4, 3, 3, 3),
+     f(4), stride=2, padding="SAME")
+case("conv2d SAME stride 2 even", "conv2d", f(2, 3, 8, 8), f(4, 3, 4, 4),
+     stride=2, padding="same")
+case("conv2d VALID dilation", "conv2d", f(2, 3, 9, 9), f(4, 3, 3, 3),
+     padding="VALID", dilation=2)
+case("conv2d groups", "conv2d", f(2, 4, 7, 7), f(6, 2, 3, 3), f(6),
+     padding=1, groups=2)
+case("conv2d pads before after", "conv2d", f(2, 3, 7, 7), f(4, 3, 3, 3),
+     padding=[1, 0, 2, 1], stride=[2, 1])
+case("conv2d pads a dim", "conv2d", f(2, 3, 7, 7), f(4, 3, 3, 3),
+     padding=[1, 2])
+case("conv2d NHWC", "conv2d", f(2, 8, 8, 3), f(4, 3, 3, 3), f(4),
+     stride=2, padding=1, data_format="NHWC")
+case("conv3d", "conv3d", f(1, 2, 5, 5, 5), f(3, 2, 3, 3, 3), f(3),
+     stride=2, padding=1)
+case("conv3d NDHWC SAME", "conv3d", f(1, 5, 5, 5, 2), f(3, 2, 3, 3, 3),
+     padding="SAME", data_format="NDHWC")
+case("conv1d_transpose", "conv1d_transpose", f(2, 3, 6), f(3, 2, 4), f(2),
+     stride=2)
+case("conv2d_transpose", "conv2d_transpose", f(2, 3, 5, 5), f(3, 4, 3, 3),
+     f(4), stride=2, padding=1)
+case("conv2d_transpose output_padding", "conv2d_transpose", f(2, 3, 5, 5),
+     f(3, 4, 3, 3), f(4), stride=2, padding=1, output_padding=1)
+case("conv2d_transpose SAME stride 2", "conv2d_transpose", f(2, 3, 5, 5),
+     f(3, 4, 3, 3), stride=2, padding="SAME")
+case("conv2d_transpose VALID", "conv2d_transpose", f(2, 3, 5, 5),
+     f(3, 4, 3, 3), stride=2, padding="VALID")
+case("conv2d_transpose groups dilation", "conv2d_transpose",
+     f(2, 4, 5, 5), f(4, 3, 3, 3), f(6), groups=2, dilation=2, padding=1)
+case("conv2d_transpose output_size", "conv2d_transpose", f(2, 3, 5, 5),
+     f(3, 4, 3, 3), f(4), stride=2, padding=1, output_size=[11, 10])
+case("conv2d_transpose pads before after", "conv2d_transpose",
+     f(2, 3, 5, 5), f(3, 4, 3, 3), stride=2, padding=[1, 0, 0, 2])
+case("conv2d_transpose NHWC", "conv2d_transpose", f(2, 5, 5, 3),
+     f(3, 4, 3, 3), f(4), stride=2, padding=1, data_format="NHWC")
+case("conv3d_transpose", "conv3d_transpose", f(1, 2, 3, 3, 3),
+     f(2, 3, 2, 2, 2), f(3), stride=2)
+
+# pooling.py: torch's padding, the reference's ceil_mode and "SAME" on odd
+# sizes, exclusive, return_mask, the adaptive bins, the unpools
+case("max_pool2d", "max_pool2d", f(2, 3, 9, 9), 3, 2, 1)
+case("max_pool2d ceil_mode overhang", "max_pool2d", f(2, 3, 8, 8), 3, 2, 1,
+     ceil_mode=True)
+case("max_pool2d ceil_mode window in the pad", "max_pool2d",
+     f(2, 3, 7, 7), 2, 2, 1, ceil_mode=True, grad=False)
+case("max_pool2d SAME", "max_pool2d", f(2, 3, 9, 8), 3, 2, "SAME")
+case("max_pool2d pads before after", "max_pool2d", f(2, 3, 7, 7), 3, 2,
+     [1, 0, 0, 2])
+case("max_pool2d NHWC", "max_pool2d", f(2, 7, 7, 3), 2, 2,
+     data_format="NHWC")
+case("max_pool2d return_mask", "max_pool2d", f(2, 3, 8, 8), 2,
+     return_mask=True)
+case("max_pool2d return_mask padded", "max_pool2d", f(2, 3, 9, 9), 3, 2, 1,
+     return_mask=True)
+case("max_pool1d", "max_pool1d", f(2, 3, 9), 3, 2, 1)
+case("max_pool1d return_mask", "max_pool1d", f(2, 3, 9), 3, 2,
+     return_mask=True)
+case("max_pool3d", "max_pool3d", f(1, 2, 5, 5, 5), 2, 2, ceil_mode=True)
+case("max_pool3d return_mask", "max_pool3d", f(1, 2, 4, 4, 4), 2,
+     return_mask=True)
+case("avg_pool2d", "avg_pool2d", f(2, 3, 9, 9), 3, 2, 1)
+case("avg_pool2d not exclusive", "avg_pool2d", f(2, 3, 9, 9), 3, 2, 1,
+     exclusive=False)
+case("avg_pool2d ceil_mode", "avg_pool2d", f(2, 3, 8, 8), 3, 2, 1,
+     ceil_mode=True)
+case("avg_pool2d ceil_mode not exclusive", "avg_pool2d", f(2, 3, 8, 8), 3,
+     2, 1, ceil_mode=True, exclusive=False)
+case("avg_pool2d ceil_mode window in the pad", "avg_pool2d",
+     f(2, 3, 7, 7), 2, 2, 1, ceil_mode=True, grad=False)
+case("avg_pool2d SAME", "avg_pool2d", f(2, 3, 9, 8), 3, 2, "SAME")
+case("avg_pool2d pads before after", "avg_pool2d", f(2, 3, 7, 7), 3, 2,
+     [2, 0, 1, 1])
+case("avg_pool2d divisor_override", "avg_pool2d", f(2, 3, 8, 8), 2,
+     divisor_override=3)
+case("avg_pool2d NHWC", "avg_pool2d", f(2, 8, 8, 3), 2,
+     data_format="NHWC")
+case("avg_pool1d", "avg_pool1d", f(2, 3, 9), 3, 2, 1)
+case("avg_pool1d ceil_mode", "avg_pool1d", f(2, 3, 8), 3, 2, 1,
+     ceil_mode=True)
+case("avg_pool3d", "avg_pool3d", f(1, 2, 5, 5, 5), 3, 2, 1)
+case("adaptive_avg_pool2d", "adaptive_avg_pool2d", f(2, 3, 7, 7), 3)
+case("adaptive_avg_pool2d divides", "adaptive_avg_pool2d", f(2, 3, 8, 8),
+     [2, 4])
+case("adaptive_avg_pool2d None", "adaptive_avg_pool2d", f(2, 3, 7, 5),
+     [3, None])
+case("adaptive_avg_pool2d NHWC", "adaptive_avg_pool2d", f(2, 7, 5, 3),
+     [3, 2], data_format="NHWC")
+case("adaptive_avg_pool1d", "adaptive_avg_pool1d", f(2, 3, 10), 4)
+case("adaptive_avg_pool3d", "adaptive_avg_pool3d", f(1, 2, 5, 6, 7),
+     [2, 3, 4])
+case("adaptive_max_pool2d", "adaptive_max_pool2d", f(2, 3, 7, 7), 3)
+case("adaptive_max_pool2d return_mask", "adaptive_max_pool2d",
+     f(2, 3, 7, 6), [3, 4], return_mask=True)
+case("adaptive_max_pool1d", "adaptive_max_pool1d", f(2, 3, 10), 4)
+case("adaptive_max_pool1d return_mask", "adaptive_max_pool1d",
+     f(2, 3, 10), 3, return_mask=True)
+case("adaptive_max_pool3d", "adaptive_max_pool3d", f(1, 2, 5, 6, 7),
+     [2, 3, 4])
+case("adaptive_max_pool3d return_mask", "adaptive_max_pool3d",
+     f(1, 2, 4, 5, 6), [2, 2, 3], return_mask=True)
+
+
+def _unpool_mask(n_planes, sizes, k):
+    """Flat indices of one element in each k-window of an unpooled
+    plane of `sizes` (windows of k, stride k)."""
+    grids = [np.arange(s // k) for s in sizes]
+    out = np.zeros((n_planes,) + tuple(s // k for s in sizes), np.int64)
+    for plane in range(n_planes):
+        flat = 0
+        for d, g in enumerate(np.meshgrid(*grids, indexing="ij")):
+            flat = flat * sizes[d] + g * k + _rng.integers(
+                0, k, size=g.shape)
+        out[plane] = flat
+    return out
+
+
+case("max_unpool2d", "max_unpool2d", f(2, 3, 4, 4),
+     T(_unpool_mask(6, (8, 8), 2).reshape(2, 3, 4, 4)), 2)
+case("max_unpool2d output_size", "max_unpool2d", f(2, 3, 4, 4),
+     T(_unpool_mask(6, (8, 8), 2).reshape(2, 3, 4, 4)), 2,
+     output_size=[9, 9])
+case("max_unpool1d", "max_unpool1d", f(2, 3, 5),
+     T(_unpool_mask(6, (10,), 2).reshape(2, 3, 5)), 2)
+case("max_unpool3d", "max_unpool3d", f(1, 2, 2, 2, 2),
+     T(_unpool_mask(2, (4, 4, 4), 2).reshape(1, 2, 2, 2, 2)), 2)
+
+# vision.py
+case("pixel_shuffle", "pixel_shuffle", f(2, 8, 3, 3), 2)
+case("pixel_shuffle NHWC", "pixel_shuffle", f(2, 3, 3, 8), 2,
+     data_format="NHWC")
+case("pixel_unshuffle", "pixel_unshuffle", f(2, 2, 4, 6), 2)
+case("pixel_unshuffle NHWC", "pixel_unshuffle", f(2, 4, 6, 2), 2,
+     data_format="NHWC")
+case("channel_shuffle", "channel_shuffle", f(2, 6, 3, 3), 3)
+case("channel_shuffle NHWC", "channel_shuffle", f(2, 3, 3, 6), 2,
+     data_format="NHWC")
+case("affine_grid", "affine_grid", f(2, 2, 3), [2, 1, 4, 5])
+case("affine_grid align_corners False", "affine_grid", f(2, 2, 3),
+     [2, 1, 4, 5], align_corners=False)
+case("grid_sample", "grid_sample", f(2, 3, 5, 6),
+     f(2, 4, 4, 2, lo=-1.1, hi=1.1))
+case("grid_sample align_corners False", "grid_sample", f(2, 3, 5, 6),
+     f(2, 4, 4, 2, lo=-1.1, hi=1.1), align_corners=False)
+case("grid_sample nearest", "grid_sample", f(2, 3, 5, 6),
+     f(2, 4, 4, 2, lo=-1.1, hi=1.1), mode="nearest")
+case("grid_sample border", "grid_sample", f(2, 3, 5, 6),
+     f(2, 4, 4, 2, lo=-1.1, hi=1.1), padding_mode="border")
 
 # attention.py
 case("scaled_dot_product_attention causal", "scaled_dot_product_attention",

@@ -15,7 +15,7 @@ case in one `jax.jit(jax.value_and_grad(...))` program over its
 buffers the call updates run eagerly on its tape. Random layers (Dropout and
 its kin, RReLU) are held in eval mode or at p = 0, where they are
 deterministic. The reference's layers that the port leaves for
-ROADMAP.md's A.6 part 3 are listed in UNPORTED; every other class of
+ROADMAP.md's A.6 part 4 are listed in UNPORTED; every other class of
 its namespace must be ported.
 """
 import numpy as np
@@ -29,17 +29,10 @@ import paddle_tpu_torch.nn as port_nn
 TOL = 1e-5
 LOOSE = 1e-4
 
-_P3 = "A.6 part 3"
-UNPORTED = {n: _P3 for n in (
-    "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
-    "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
-    "AvgPool1D", "AvgPool2D", "AvgPool3D", "BeamSearchDecoder", "BiRNN",
-    "ChannelShuffle", "Conv1D", "Conv1DTranspose", "Conv2D",
-    "Conv2DTranspose", "Conv3D", "Conv3DTranspose", "GRU", "GRUCell",
-    "HSigmoidLoss", "LSTM", "LSTMCell", "MaxPool1D", "MaxPool2D",
-    "MaxPool3D", "MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D",
-    "PixelShuffle", "PixelUnshuffle", "RNN", "RNNCellBase", "SimpleRNN",
-    "SimpleRNNCell")}
+_P4 = "A.6 part 4"
+UNPORTED = {n: _P4 for n in (
+    "BeamSearchDecoder", "BiRNN", "GRU", "GRUCell", "HSigmoidLoss", "LSTM",
+    "LSTMCell", "RNN", "RNNCellBase", "SimpleRNN", "SimpleRNNCell")}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -138,6 +131,60 @@ case("Bilinear", "Bilinear", [3, 4, 2], inputs=[f(5, 3), f(5, 4)])
 case("Unfold", "Unfold", [[2, 2]], {"strides": 2}, inputs=[f(1, 2, 4, 6)])
 case("Fold", "Fold", [[4, 6], [2, 2]], {"strides": 2},
      inputs=[f(1, 8, 6)])
+
+case("Conv1D", "Conv1D", [3, 4, 3], {"stride": 2, "padding": 1},
+     inputs=[f(2, 3, 9)])
+case("Conv2D", "Conv2D", [3, 4, 3], {"padding": 1}, inputs=[f(2, 3, 6, 6)])
+case("Conv2D no bias, groups, SAME", "Conv2D", [4, 6, 3],
+     {"stride": 2, "padding": "SAME", "groups": 2, "bias_attr": False},
+     inputs=[f(2, 4, 7, 7)])
+case("Conv2D NHWC", "Conv2D", [3, 4, [3, 2]], {"data_format": "NHWC"},
+     inputs=[f(2, 6, 6, 3)])
+case("Conv3D", "Conv3D", [2, 3, 2], {"stride": 2}, inputs=[f(1, 2, 4, 4, 4)])
+case("Conv1DTranspose", "Conv1DTranspose", [3, 2, 4], {"stride": 2},
+     inputs=[f(2, 3, 6)])
+case("Conv2DTranspose", "Conv2DTranspose", [3, 4, 3],
+     {"stride": 2, "padding": 1, "output_padding": 1}, inputs=[f(2, 3, 5, 5)])
+case("Conv2DTranspose groups", "Conv2DTranspose", [4, 6, 3],
+     {"groups": 2, "dilation": 2, "bias_attr": False}, inputs=[f(2, 4, 4, 4)])
+case("Conv3DTranspose", "Conv3DTranspose", [2, 3, 2], {"stride": 2},
+     inputs=[f(1, 2, 3, 3, 3)])
+
+case("MaxPool1D", "MaxPool1D", [3, 2, 1], inputs=[f(2, 3, 9)])
+case("MaxPool2D", "MaxPool2D", [3, 2, 1], inputs=[f(2, 3, 9, 9)])
+case("MaxPool2D ceil_mode", "MaxPool2D", [3, 2, 1], {"ceil_mode": True},
+     inputs=[f(2, 3, 8, 8)])
+case("MaxPool3D", "MaxPool3D", [2], inputs=[f(1, 2, 4, 4, 4)])
+case("AvgPool1D", "AvgPool1D", [3, 2, 1], {"exclusive": False},
+     inputs=[f(2, 3, 9)])
+case("AvgPool2D", "AvgPool2D", [3, 2, 1], {"ceil_mode": True},
+     inputs=[f(2, 3, 8, 8)])
+case("AvgPool3D", "AvgPool3D", [3, 2, 1], inputs=[f(1, 2, 5, 5, 5)])
+case("AdaptiveAvgPool1D", "AdaptiveAvgPool1D", [4], inputs=[f(2, 3, 10)])
+case("AdaptiveAvgPool2D", "AdaptiveAvgPool2D", [[1, 1]],
+     inputs=[f(2, 3, 5, 5)])
+case("AdaptiveAvgPool2D NHWC", "AdaptiveAvgPool2D", [3],
+     {"data_format": "NHWC"}, inputs=[f(2, 7, 7, 3)])
+case("AdaptiveAvgPool3D", "AdaptiveAvgPool3D", [[2, 3, 2]],
+     inputs=[f(1, 2, 5, 6, 5)])
+case("AdaptiveMaxPool1D", "AdaptiveMaxPool1D", [3], inputs=[f(2, 3, 10)])
+case("AdaptiveMaxPool2D", "AdaptiveMaxPool2D", [3], inputs=[f(2, 3, 7, 7)])
+case("AdaptiveMaxPool3D", "AdaptiveMaxPool3D", [2],
+     inputs=[f(1, 2, 5, 5, 5)])
+case("MaxUnPool1D", "MaxUnPool1D", [2], inputs=[
+    f(2, 3, 4), T(np.arange(0, 8, 2).repeat(6).reshape(4, 2, 3)
+                  .transpose(1, 2, 0).astype(np.int64) + 1, False)])
+case("MaxUnPool2D", "MaxUnPool2D", [2], inputs=[
+    f(2, 3, 2, 2), T(np.tile(np.int64([[1, 3], [9, 15]]), (2, 3, 1, 1)),
+                     False)])
+case("MaxUnPool3D", "MaxUnPool3D", [2], inputs=[
+    f(1, 2, 1, 2, 2), T(np.tile(np.int64([[[0, 3], [13, 30]]]),
+                                (1, 2, 1, 1, 1)), False)])
+
+case("PixelShuffle", "PixelShuffle", [2], inputs=[f(2, 8, 3, 3)])
+case("PixelUnshuffle", "PixelUnshuffle", [2], {"data_format": "NHWC"},
+     inputs=[f(2, 4, 6, 2)])
+case("ChannelShuffle", "ChannelShuffle", [3], inputs=[f(2, 6, 3, 3)])
 
 case("LayerNorm", "LayerNorm", [8], inputs=[f(3, 8)])
 case("LayerNorm no affine", "LayerNorm", [[2, 4]],
