@@ -268,7 +268,8 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    (gpt_6p7b's width, a ragged row count), [8192, 1000] and [257, 1001]
    (scalar loads), [64, 16384] (the widest row); xent at a chunk of
    phase 7c's chunked loss [2048, 50304] and at [8192, 50304] in bf16,
-   [8192, 50304] in f32, with about 10 % of the labels -1 and some
+   [8192, 50304] in f32, phase 18 (a)'s float32 LayerNorm [4096, 512]
+   and xent [4096, 32000], with about 10 % of the xent labels -1 and some
    >= V, and [1000, 50257] (a row that is not 16-byte aligned);
    xent dx is held per element against |twin| (one bf16 ulp, or
    1e-5 relative plus 1e-9 in f32), since most of it is far below 1.
@@ -399,7 +400,42 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    loss within 1e-3; (e) a ResNet-18 step replayed against its eager
    body from one snapshot (cuDNN deterministic), losses, parameters,
    velocities and BatchNorm's buffers bit-equal (`hold_replayed`);
-18. the smoke's run time and the kernels line (each flash kernel
+18. the recurrent slice, float32 on the default CUDA generator: (a)
+   Transformer-base (`Seq2SeqTransformer(Seq2SeqConfig())`: vocab 32000
+   / 32000, d_model 512, 8 heads, 6 + 6 layers, FFN 2048, dropout 0.1,
+   77,168,640 parameters in 255 leaves, weights from a numpy seed,
+   TF32 products) on 32 sources x 128 and 32 targets x 128 with pad
+   tails of seeded lengths 64-128, trained by
+   TrainStep(monitor_health=True) with AdamW: 2 + 3 timed + 1 profiled
+   steps on the default route, then as many with PADDLE_TPU_PALLAS_LN=1
+   and PADDLE_TPU_PALLAS_XENT=1 (a new capture); for each: ms a step,
+   target tokens/s, device ms, idle share, peak memory from
+   paddle.device.max_memory_allocated() and torch.cuda's (equal), the
+   launches (#9 and #10 once a bucket group a step; #5 and #6 30 a step
+   and #7 and #8 one a step on the switched route; #2-#4 never: every
+   attention has a mask); a replay against its eager body from one
+   snapshot and CUDA generator state, bit for bit; with TF32 off and
+   dropout 0, the losses of 2 steps on 2 sequences on the card's
+   default route and on its switched route (#5-#8 launched 2 x 30 and
+   2 x 1) against the CPU's within 1e-4 relative, and
+   greedy_decode(max_len=32) on 8 sources: tokens
+   equal, or at a row's first mismatch the CPU's top-2 logit gap at
+   most 1e-3; (b) PaddleNLP's machine_translation/seq2seq model
+   (IWSLT'15 En-Vi widths: vocab 17191 / 7709, embedding and hidden
+   512, 2 layers, dropout 0.2, attention with input feeding) composed
+   from nn.LSTM, LSTMCell, RNN and Linear, batch 128 x 50 with seeded
+   pad tails, trained 4 steps by a TrainStep (AdamW,
+   ClipGradByGlobalNorm(5)): ms a replayed step, tokens/s, launches (#9
+   and #10 once a group a step, nothing else), a replay against its
+   eager body bit for bit (eager and replayed ms); then
+   BeamSearchDecoder(beam_size=10) + dynamic_decode(max_step_num=50)
+   over the 128 sources: ms and device ms a decode step, device-to-host
+   copies a step; 4 sources with TF32 off card against CPU: sequences
+   equal, scores within 1e-4 relative; (c) bidirectional 2-layer GRU
+   and SimpleRNN card against CPU (1e-4), paddle.device.Event against
+   torch.cuda.Event around an 8192^3 product, get_device_properties's
+   name against nvidia-smi's, memory_reserved >= memory_allocated;
+19. the smoke's run time and the kernels line (each flash kernel
    three times: head_dim 64, with the suffix "_d128" head_dim 128, with
    "_f16" float16; #10's bf16 variant as "fused_pass2_bf16_state"; the
    tree update as "tree_update"; K2 as "stochastic_round"), then, last,
@@ -411,7 +447,8 @@ phase 7c's "dots" run (bench.py's headline) for #7-#8,
 its fourth for #10's bf16 variant, its fifth for K2, GPT-1.3B training
 in phase 7b for #2-#4 at head_dim 128, its second run for the tree
 update, SSM serving in phase 13's wave B for #11, phase 16's O1-float16
-AMP run for #2-#4 in float16) runs with the launch
+AMP run for #2-#4 in float16, and this slice's: phase 18 (a)'s two
+routes for #5-#10 and (b)'s training for #9-#10) runs with the launch
 counts set to 0 just
 before it and read just after; a CUDA graph's replay adds the launches
 its capture recorded (the wrappers count launches, and a capture, which
@@ -2902,11 +2939,11 @@ def profiled_device_ms(torch, fn, steps=1):
 def hold_replayed(torch, step, call, eager, label, steps=1, sched=None,
                   held=CAPTURED_HELD, timed=CAPTURED_TIMED):
     """One flavor's replays against its eager body, from one
-    `snapshot_state` (and the scheduler's state and the model's
-    buffers): `call` once (the
-    capture, unless an earlier call made it; its eager run is that
-    call's step), back to the snapshot,
-    `held` replayed calls, back again, `held` eager ones; losses and
+    `snapshot_state` (and the scheduler's state, the model's buffers
+    and the default CUDA generator's state, which Dropout draws from):
+    `call` once (the capture, unless an earlier call made it; its eager
+    run is that call's step), back to the snapshot, `held` replayed
+    calls, back again, `held` eager ones; losses and
     every parameter, moment, master, the GradScaler's state and every
     buffer must be bit-equal. Then wall ms a step over `timed` calls of each (the
     state runs on from there) and device ms a step of one profiled call
@@ -2914,10 +2951,10 @@ def hold_replayed(torch, step, call, eager, label, steps=1, sched=None,
     def mark():
         return (step.snapshot_state(), step._step_i,
                 sched.state_dict() if sched is not None else None,
-                model_buffers(step))
+                model_buffers(step), torch.cuda.get_rng_state())
 
     def back(m):
-        snap, i, sd, bufs = m
+        snap, i, sd, bufs, gen = m
         step.set_tree_state(snap["params"], snap["opt_state"])
         step.scaler_state = snap["scaler_state"]
         step._step_i = i
@@ -2926,6 +2963,7 @@ def hold_replayed(torch, step, call, eager, label, steps=1, sched=None,
         with torch.no_grad():
             for b, v in zip(step.model.buffers(), bufs):
                 b.copy_(v)
+        torch.cuda.set_rng_state(gen)
 
     def run(fn, n):
         out = []
@@ -3847,10 +3885,13 @@ NORM_XENT_OPS = {"layer_norm_fwd": 8, "layer_norm_bwd": 14,
 # (kernel pair, rows, columns, dtype, timed): the training shapes first
 # (GPT-medium's; GPT-1.3B's LayerNorm [4096, 2048] is timed too; xent at
 # a chunk of phase 7c's chunked loss, [2048, 50304], and at GPT-medium's
-# unchunked [8192, 50304])
+# unchunked [8192, 50304]); phase 18 (a)'s switched route in float32:
+# LayerNorm [4096, 512] and xent [4096, 32000]
 NORM_XENT_CASES = [("ln", 8192, 1024, "bfloat16", True),
                    ("ln", 4096, 2048, "bfloat16", True),
                    ("ln", 8192, 1024, "float32", False),
+                   ("ln", 4096, 512, "float32", False),
+                   ("xent", 4096, 32000, "float32", False),
                    ("ln", 1000, 4096, "bfloat16", False),
                    ("ln", 8192, 1000, "bfloat16", False),
                    ("ln", 257, 1001, "float32", False),
@@ -5143,22 +5184,21 @@ def vision_numpy_state(model, seed):
     return out
 
 
-def vision_time_goes(prof, wall_s):
-    """(device ms a step, idle share, {family: ms}) of a profiled window:
-    the convolutions (cuDNN and the products), #10, the rest; prints the
-    top kernels."""
+def families_time(prof, wall_s, families, rest="other"):
+    """(device ms a step, idle share, {family: ms}) of a profiled step:
+    `families` maps a label to the name fragments of its kernels, the
+    rest is `rest`. Prints the top kernels."""
     by_name = device_us_by_name(prof)
     total = sum(by_name.values()) / 1e3
     if not total:
         print("  device time: not measured (the profiler saw no device "
               "events)")
         return None, None, {}
-    conv = sum(v for n, v in by_name.items()
-               if any(s in n.lower() for s in CONV_NAMES)) / 1e3
-    epi = sum(v for n, v in by_name.items() if "fused_" in n) / 1e3
-    parts = {"convolutions and products": conv, "epilogue #10": epi,
-             "the rest (BatchNorm's composition, ReLU, adds, pools, "
-             "copies)": total - conv - epi}
+    parts = {}
+    for label, frags in families.items():
+        parts[label] = sum(v for n, v in by_name.items()
+                           if any(f in n.lower() for f in frags)) / 1e3
+    parts[rest] = total - sum(parts.values())
     idle = max(0.0, 1 - total / (wall_s * 1e3))
     print(f"  device kernels {total:.2f}ms a step (profiled), wall "
           f"{wall_s * 1e3:.2f}ms (timed), idle share {idle:.3f}; "
@@ -5167,6 +5207,14 @@ def vision_time_goes(prof, wall_s):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {us / 1e3:8.3f}ms  {name[:100]}")
     return total, idle, parts
+
+
+# phase 17's breakdown: the convolutions (cuDNN and the products), #10,
+# the rest
+VISION_FAMILIES = {"convolutions and products": CONV_NAMES,
+                   "epilogue #10": ("fused_",)}
+VISION_REST = ("the rest (BatchNorm's composition, ReLU, adds, pools, "
+               "copies)")
 
 
 def profile_call(torch, fn):
@@ -5335,8 +5383,8 @@ def phase_vision(torch, km):
                  flops=flop, peak_gib=max(e["peak_gib"] for e in
                                           rec["epochs"]),
                  eval=evaluated, groups=groups, launches=launches)
-    cifar["device_ms"], cifar["idle"], cifar["parts"] = vision_time_goes(
-        prof, fit_s)
+    cifar["device_ms"], cifar["idle"], cifar["parts"] = families_time(
+        prof, fit_s, VISION_FAMILIES, VISION_REST)
     print(f"  (a) ResNet-50 (10 classes, {n_params} parameters, "
           f"{RESNET50_LEAVES} leaves, {groups} bucket group(s)), float32, "
           f"{VISION['batch']} x 3 x {VISION['hw']} x {VISION['hw']}: "
@@ -5386,8 +5434,8 @@ def phase_vision(torch, km):
               f"{res['images_s']:.1f} images/s, MFU {res['mfu']:.4f} "
               f"({flop:.4g} FLOP a step), peak {res['peak_gib']:.2f} GiB, "
               f"loss {vals[0]:.4f} -> {vals[-1]:.4f}")
-        res["device_ms"], res["idle"], res["parts"] = vision_time_goes(
-            prof, step_s)
+        res["device_ms"], res["idle"], res["parts"] = families_time(
+            prof, step_s, VISION_FAMILIES, VISION_REST)
         convs = {n: v for n, v in device_us_by_name(prof).items()
                  if any(c in n.lower() for c in CONV_NAMES)}
         low = sum(v for n, v in convs.items() if "bf16" in n.lower()
@@ -5436,7 +5484,8 @@ def phase_vision(torch, km):
           f"opt.step -> clear_grad) on ResNet-50 at (a)'s shape: "
           f"{eager['wall_ms']:.2f} ms a step wall, loss {evals[0]:.4f} -> "
           f"{evals[-1]:.4f}")
-    eager["device_ms"], eager["idle"], _ = vision_time_goes(prof, eager_s)
+    eager["device_ms"], eager["idle"], _ = families_time(
+        prof, eager_s, VISION_FAMILIES, VISION_REST)
     del net, opt, prof, eloss
     torch.cuda.empty_cache()
 
@@ -5522,6 +5571,581 @@ def phase_vision(torch, km):
     return dict(cifar=cifar, imagenet=imagenet, eager=eager,
                 agree=dict(worst=worst, bn=bn_worst, eval_rel=ev_rel),
                 replayed=replayed)
+
+
+# phase 18: the recurrent slice. (a) Transformer-base (Vaswani et al.,
+# 2017: the repo's Seq2SeqConfig defaults) at ~4096 target tokens a
+# batch; (b) an LSTM encoder-decoder with attention at PaddleNLP's
+# examples/machine_translation/seq2seq widths (IWSLT'15 En-Vi)
+S2S = dict(batch=32, src=128, tgt=128, min_len=64, warmup=2, timed=3,
+           lr=1e-4, agree_batch=2, agree_rtol=1e-4, greedy_sources=8,
+           greedy_len=32, held=2, timed_held=2)
+S2S_PARAMS = 77_168_640  # Seq2SeqTransformer(Seq2SeqConfig()): 255 leaves
+S2S_LEAVES = 255
+# post-norm: 2 LayerNorms an encoder layer, 3 a decoder layer, no final
+S2S_NORMS = 6 * 2 + 6 * 3
+LSTM_S2S = dict(src_vocab=17191, tgt_vocab=7709, hidden=512, layers=2,
+                dropout=0.2, batch=128, seq=50, min_len=20, beam=10,
+                steps=4, lr=1e-3, clip=5.0, init=0.1, agree_sources=4,
+                score_rtol=1e-4, held=2, timed_held=3)
+RNN_AGREE = dict(batch=16, seq=32, width=256, rtol=1e-4)
+
+
+def s2s_numpy_state(model, seed):
+    """{name: numpy array} for a Seq2SeqTransformer: the token and
+    position tables Normal(0, d_model^-0.5) (the usual Transformer init:
+    scaled by sqrt(d_model) they are unit-variance), Linear weights
+    XavierNormal ([in, out]), zero biases, unit LayerNorm weights."""
+    rng = np.random.default_rng(seed)
+    d = model.cfg.d_model
+    out = {}
+    for k, p in model.named_parameters():
+        shape = tuple(p.shape)
+        if k.endswith("bias"):
+            out[k] = np.zeros(shape, np.float32)
+        elif "norm" in k:
+            out[k] = np.ones(shape, np.float32)
+        elif "embed" in k:
+            out[k] = rng.standard_normal(shape, dtype=np.float32) * d ** -0.5
+        else:
+            std = (2.0 / (shape[0] + shape[1])) ** 0.5
+            out[k] = rng.standard_normal(shape, dtype=np.float32) * std
+    return out
+
+
+def s2s_batch(rng, B, S, T, src_vocab, tgt_vocab, min_len):
+    """(src, tgt_in, labels) int64: sources of seeded lengths in
+    [min_len, S], pad (0) after; targets bos (1), tokens, eos (2) at a
+    seeded length in [min_len, T], pad after; labels the targets shifted
+    by one."""
+    src = rng.integers(3, src_vocab, (B, S))
+    src[np.arange(S)[None] >= rng.integers(min_len, S + 1, B)[:, None]] = 0
+    tgt = rng.integers(3, tgt_vocab, (B, T + 1))
+    tgt[:, 0] = 1
+    ends = rng.integers(min_len, T + 1, B)
+    tgt[np.arange(B), ends] = 2
+    tgt[np.arange(T + 1)[None] > ends[:, None]] = 0
+    return (src.astype(np.int64), tgt[:, :-1].astype(np.int64),
+            tgt[:, 1:].astype(np.int64))
+
+
+def s2s_loss_fn(F):
+    """The teacher-forced loss of both models: mean cross-entropy over
+    the non-pad labels."""
+    def loss_fn(logits, labels):
+        V = logits.shape[-1]
+        return F.cross_entropy(logits.reshape([-1, V]), labels.reshape([-1]),
+                               ignore_index=0)
+    return loss_fn
+
+
+S2S_FAMILIES = {"products": ("gemm", "sm90", "cutlass", "xmma", "matmul"),
+                "layer norm #5-#6": ("ln_", "layer_norm"),
+                "xent #7-#8": ("xent",), "epilogue #9-#10": ("fused_",)}
+
+
+def greedy_mismatch(torch, cpu_model, src, got, want, limit):
+    """None when the card's greedy tokens equal the CPU's; else, at each
+    row's first mismatch, the CPU's top-2 logit gap there must be at
+    most `limit` (a near-tie): returns the gaps."""
+    if got.shape == want.shape and torch.equal(got, want):
+        return None
+    gaps = []
+    n = min(got.shape[1], want.shape[1])
+    for b in range(got.shape[0]):
+        diff = (got[b, :n] != want[b, :n]).nonzero()
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        with torch.no_grad():
+            logits = cpu_model(src[b:b + 1], want[b:b + 1, :t])[0, -1]
+        top = torch.topk(logits.float(), 2).values
+        gaps.append(float(top[0] - top[1]))
+    check(all(g <= limit for g in gaps),
+          f"(a) greedy tokens differ card vs CPU beyond a near-tie: top-2 "
+          f"gaps {gaps} (limit {limit})")
+    return gaps
+
+
+def phase_transformer_base(torch, km):
+    """(a) Seq2SeqTransformer(Seq2SeqConfig()) trained by a replayed
+    TrainStep on the default route and with both switches set, a replay
+    against its eager body, the step-1 loss and greedy tokens card
+    against CPU. Returns the measurements."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (Seq2SeqConfig, Seq2SeqTransformer,
+                                         load_paddle_tpu_state)
+    from paddle_tpu_torch.optimizer import AdamW
+    F = paddle.nn.functional
+    torch.backends.cuda.matmul.allow_tf32 = True
+    print("  float32 weights, TF32 products (matmul TF32 on)")
+    cfg = Seq2SeqConfig()
+    paddle.seed(SEED + 30)
+    model = Seq2SeqTransformer(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == S2S_PARAMS and len(model.parameters()) == S2S_LEAVES,
+          f"(a) Transformer-base has {n_params} parameters in "
+          f"{len(model.parameters())} leaves")
+    state = s2s_numpy_state(model, SEED + 31)
+    load_paddle_tpu_state(model, state)
+    B, S, T = S2S["batch"], S2S["src"], S2S["tgt"]
+    src, tin, lab = s2s_batch(np.random.default_rng(SEED + 32), B, S, T,
+                              cfg.src_vocab_size, cfg.tgt_vocab_size,
+                              S2S["min_len"])
+    x = [torch.from_numpy(a).cuda() for a in (src, tin, lab)]
+    n_tok = int((lab != 0).sum())
+    step = TrainStep(model, s2s_loss_fn(F),
+                     AdamW(learning_rate=S2S["lr"],
+                           parameters=model.parameters()),
+                     monitor_health=True)
+    groups, runs = None, {}
+    n_steps = S2S["warmup"] + S2S["timed"] + 1
+    for route, on in (("default", False), ("switched", True)):
+        with switches(on):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = step.retraces
+            zero_counts(km)
+            losses = [step(*x) for _ in range(S2S["warmup"])]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses += [step(*x) for _ in range(S2S["timed"])]
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t) / S2S["timed"]
+            prof = profile_call(torch, lambda: losses.append(step(*x)))
+            launches = counts(km)
+            peak = (paddle.device.max_memory_allocated(),
+                    torch.cuda.max_memory_allocated())
+        groups = n_groups(step)
+        want = {k: 0 for k in launches}
+        want.update(fused_pass1=n_steps * groups,
+                    fused_pass2=n_steps * groups)
+        if on:
+            want.update(layer_norm_fwd=n_steps * S2S_NORMS,
+                        layer_norm_bwd=n_steps * S2S_NORMS,
+                        softmax_xent_fwd=n_steps, softmax_xent_bwd=n_steps)
+        vals = torch.stack(losses).float().tolist()
+        res = dict(ms=step_s * 1e3, tokens_s=n_tok / step_s,
+                   all_tokens_s=B * T / step_s, peak_api=peak[0],
+                   peak_torch=peak[1], first=vals[0], last=vals[-1],
+                   launches={k: v for k, v in launches.items() if v},
+                   captures=step.retraces - before)
+        print(f"  (a) {route} route: {res['ms']:.2f} ms a step (replayed), "
+              f"{res['tokens_s']:.0f} target tokens/s ({n_tok} non-pad of "
+              f"{B} x {T}; {res['all_tokens_s']:.0f} counting pads), loss "
+              f"{vals[0]:.4f} -> {vals[-1]:.4f}; peak "
+              f"paddle.device.max_memory_allocated() {peak[0]} B, "
+              f"torch.cuda.max_memory_allocated() {peak[1]} B "
+              f"({peak[0] / 2**30:.2f} GiB); captures {res['captures']}; "
+              f"launches over its {n_steps} steps {res['launches']}")
+        res["device_ms"], res["idle"], res["parts"] = families_time(
+            prof, step_s, S2S_FAMILIES)
+        check(np.isfinite(vals).all(), f"(a) {route}: non-finite {vals}")
+        check(peak[0] == peak[1], f"(a) the two peak APIs disagree: {peak}")
+        check(res["captures"] == 1, f"(a) {route}: {res['captures']} "
+                                    f"captures")
+        check(launches == want, f"(a) {route}: launches {launches}, want "
+                                f"{want}")
+        runs[route] = res
+        del prof
+    print(f"  (a) launches predicted: #9 and #10 {groups} a step "
+          f"(bucket groups; monitor_health asks for pass 1), #5 and #6 "
+          f"{S2S_NORMS} a step on the switched route (6 encoder layers x 2 "
+          f"+ 6 decoder layers x 3 post-norm LayerNorms), #7 and #8 one a "
+          f"step ({B * T} x {cfg.tgt_vocab_size} logits); #2-#4 none: "
+          f"every attention has a mask and takes the plain composition")
+    with switches(False):
+        replayed = hold_replayed(
+            torch, step, lambda: step(*x), lambda: step._eager_call(*x),
+            "(a) Transformer-base AdamW (dropout 0.1, the CUDA generator "
+            "restored)", held=S2S["held"], timed=S2S["timed_held"])
+    del step
+    torch.cuda.empty_cache()
+
+    # card (both routes) against CPU, TF32 off, dropout 0 on all sides:
+    # the losses of steps 1 and 2 (step 2's after one AdamW update, so
+    # the backward's grads count too)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg0 = Seq2SeqConfig(dropout=0.0)
+    n = S2S["agree_batch"]
+    agree, models = {}, {}
+    try:
+        for dev, route, on in (("gpu", "default", False),
+                               ("gpu", "switched", True),
+                               ("cpu", "default", False)):
+            paddle.set_device(dev)
+            m = Seq2SeqTransformer(cfg0)
+            load_paddle_tpu_state(m, state)
+            st = TrainStep(m, s2s_loss_fn(F), AdamW(
+                learning_rate=S2S["lr"], parameters=m.parameters()))
+            xb = [paddle.to_tensor(a[:n]) for a in (src, tin, lab)]
+            zero_counts(km)
+            with switches(on):
+                agree[dev, route] = [float(st(*xb)) for _ in range(2)]
+            if on:
+                got = {k: counts(km)[k]
+                       for k, _ in NORM_KERNELS + XENT_KERNELS}
+                check(got == {k: 2 * (S2S_NORMS if k.startswith("layer")
+                                      else 1) for k in got},
+                      f"(a) switched route on {n} sequences: launches {got}")
+            del st
+            if not on:
+                m.eval()
+                load_paddle_tpu_state(m, state)
+                models[dev] = m
+    finally:
+        paddle.set_device("gpu")
+    want = agree["cpu", "default"]
+    rel = {route: max(abs(g - w) / abs(w) for g, w in
+                      zip(agree["gpu", route], want))
+           for route in ("default", "switched")}
+    print(f"  (a) losses of steps 1 and 2 on {n} sequences, TF32 off, "
+          f"dropout 0: card default route {agree['gpu', 'default']}, card "
+          f"switched route (#5-#8) {agree['gpu', 'switched']}, CPU {want}; "
+          f"largest relative difference from the CPU {rel} (limit "
+          f"{S2S['agree_rtol']})")
+    check(max(rel.values()) <= S2S["agree_rtol"],
+          f"(a) losses of steps 1-2: card {agree}, CPU {want}")
+    rel = max(rel.values())
+    k = S2S["greedy_sources"]
+    gsrc = torch.from_numpy(src[:k])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = models["gpu"].greedy_decode(gsrc.cuda(),
+                                      max_len=S2S["greedy_len"])
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t
+    want = models["cpu"].greedy_decode(gsrc, max_len=S2S["greedy_len"])
+    gaps = greedy_mismatch(torch, models["cpu"], gsrc, got.cpu(), want,
+                           GAP_LIMIT)
+    steps = got.shape[1] - 1
+    agreed = "equal to the CPU" if gaps is None else \
+        f"differ at near-ties, top-2 gaps {gaps}"
+    print(f"  (a) greedy_decode(max_len={S2S['greedy_len']}) on {k} "
+          f"sources, TF32 off: {steps} steps, {greedy_s / steps * 1e3:.2f} "
+          f"ms a step on the card (one forward over the prefix each); "
+          f"tokens {agreed}")
+    del models
+    torch.cuda.empty_cache()
+    return dict(runs=runs, replayed=replayed, agree_rel=rel,
+                greedy_ms=greedy_s / steps * 1e3, greedy_gaps=gaps,
+                groups=groups)
+
+
+def lstm_seq2seq(paddle, torch, c):
+    """PaddleNLP's machine_translation/seq2seq model (seq2seq_attn.py)
+    from the port's layers: an LSTM encoder; a decoder cell stacking
+    LSTMCells fed the embedding and the last attention output, then dot
+    attention over the encoder outputs (input_proj, output_proj, tanh);
+    the vocab projection without bias. The cell holds the encoder
+    outputs and their pad bias (`attend`: tiled by beam for decoding)
+    for the length of a call (`attend(None)` after it, so that no
+    step's graph outlives the step)."""
+    nn = paddle.nn
+    H, L = c["hidden"], c["layers"]
+
+    class AttnCell(nn.RNNCellBase):
+        _paddle_io = False
+
+        def __init__(self):
+            super().__init__()
+            self.cells = nn.LayerList([nn.LSTMCell(2 * H if i == 0 else H, H)
+                                       for i in range(L)])
+            self.drop = nn.Dropout(c["dropout"])
+            self.input_proj = nn.Linear(H, H, bias_attr=False)
+            self.output_proj = nn.Linear(2 * H, H, bias_attr=False)
+            self.memory = self.memory_bias = None
+
+        def forward(self, x, states):
+            lstm_states, feed = states
+            inp = torch.cat([x, feed], -1)
+            new = []
+            for cell, st in zip(self.cells, lstm_states):
+                out, st = cell(inp, st)
+                inp = self.drop(out)
+                new.append(st)
+            q = self.input_proj(inp)
+            scores = torch.einsum("bsh,bh->bs", self.memory, q) + \
+                self.memory_bias
+            ctx = torch.einsum("bs,bsh->bh", torch.softmax(scores, -1),
+                               self.memory)
+            out = torch.tanh(self.output_proj(torch.cat([ctx, inp], -1)))
+            return out, (new, out)
+
+    class Seq2SeqAttn(nn.Layer):
+        _paddle_io = False
+
+        def __init__(self):
+            super().__init__()
+            self.src_embed = nn.Embedding(c["src_vocab"], H)
+            self.encoder = nn.LSTM(H, H, num_layers=L, dropout=c["dropout"])
+            self.tgt_embed = nn.Embedding(c["tgt_vocab"], H)
+            self.decoder = nn.RNN(AttnCell())
+            self.out = nn.Linear(H, c["tgt_vocab"], bias_attr=False)
+
+        @property
+        def cell(self):
+            return self.decoder.cell
+
+        def encode(self, src):
+            memory, (h, cc) = self.encoder(self.src_embed(src))
+            return memory, ([(h[i], cc[i]) for i in range(L)],
+                            memory.new_zeros(src.shape[0], H))
+
+        def attend(self, memory, src=None):
+            self.cell.memory = memory
+            self.cell.memory_bias = None if src is None else torch.where(
+                src == 0, -1e9, 0.0).float()
+
+        def forward(self, src, tgt):
+            memory, init = self.encode(src)
+            self.attend(memory, src)
+            out, _ = self.decoder(self.tgt_embed(tgt), init)
+            self.attend(None)
+            return self.out(out)
+
+        @torch.no_grad()
+        def beam_search(self, src, beam, max_steps, times=None):
+            """BeamSearchDecoder + dynamic_decode: (sequences, scores).
+            `times`, a list: the encoder's and the decode loop's seconds
+            are appended (synchronized)."""
+            clock = [time.perf_counter()]
+            memory, init = self.encode(src)
+            tile = nn.BeamSearchDecoder.tile_beam_merge_with_batch
+            self.attend(tile(memory, beam), tile(src, beam))
+            dec = nn.BeamSearchDecoder(self.cell, start_token=1,
+                                       end_token=2, beam_size=beam,
+                                       embedding_fn=self.tgt_embed,
+                                       output_fn=self.out)
+            if times is not None:
+                torch.cuda.synchronize()
+                clock.append(time.perf_counter())
+            out = nn.dynamic_decode(dec, inits=init, max_step_num=max_steps)
+            self.attend(None)
+            if times is not None:
+                torch.cuda.synchronize()
+                clock.append(time.perf_counter())
+                times += [clock[1] - clock[0], clock[2] - clock[1]]
+            return out
+
+    return Seq2SeqAttn()
+
+
+def dtoh_copies(prof):
+    """(count, bytes) of the device-to-host copies in a profiled window,
+    from its Chrome trace (bytes None when the trace gives none)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "DtoH" in e.get("name", "")]
+    sizes = [e.get("args", {}).get("bytes") for e in copies]
+    return len(copies), (sum(sizes) if None not in sizes else None)
+
+
+def phase_lstm_seq2seq(torch, km):
+    """(b) the LSTM encoder-decoder trained by a replayed TrainStep
+    (AdamW, ClipGradByGlobalNorm(5)), a replay against its eager body,
+    beam search over the batch, 4 sources card against CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import load_paddle_tpu_state
+    from paddle_tpu_torch.ops.kernels.softmax_xent import supported
+    c = LSTM_S2S
+    F = paddle.nn.functional
+    torch.backends.cuda.matmul.allow_tf32 = True
+    paddle.seed(SEED + 40)
+    model = lstm_seq2seq(paddle, torch, c)
+    rng = np.random.default_rng(SEED + 41)
+    state = {k: rng.uniform(-c["init"], c["init"], tuple(p.shape)).astype(
+        np.float32) for k, p in model.named_parameters()}
+    load_paddle_tpu_state(model, state)
+    n_params = sum(p.numel() for p in model.parameters())
+    B, T = c["batch"], c["seq"]
+    src, tin, lab = s2s_batch(np.random.default_rng(SEED + 42), B, T, T,
+                              c["src_vocab"], c["tgt_vocab"], c["min_len"])
+    x = [torch.from_numpy(a).cuda() for a in (src, tin, lab)]
+    n_tok = int((lab != 0).sum())
+    opt = paddle.optimizer.AdamW(
+        learning_rate=c["lr"], parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(c["clip"]))
+    step = TrainStep(model, s2s_loss_fn(F), opt)
+    zero_counts(km)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    losses = [step(*x)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    t = time.perf_counter()
+    losses += [step(*x) for _ in range(c["steps"] - 1)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / (c["steps"] - 1)
+    launches = counts(km)
+    groups = n_groups(step)
+    want = {k: 0 for k in launches}
+    want.update(fused_pass1=c["steps"] * groups,
+                fused_pass2=c["steps"] * groups)
+    vals = torch.stack(losses).float().tolist()
+    peak = (paddle.device.max_memory_allocated(),
+            torch.cuda.max_memory_allocated())
+    print(f"  (b) {n_params} parameters; {c['steps']} steps: the first "
+          f"(eager run + capture) {first_s * 1e3:.0f} ms, then "
+          f"{step_s * 1e3:.2f} ms a replayed step, {n_tok / step_s:.0f} "
+          f"target tokens/s ({n_tok} non-pad of {B} x {T}); loss "
+          f"{vals[0]:.4f} -> {vals[-1]:.4f}; peak {peak[0]} B (paddle), "
+          f"{peak[1]} B (torch); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; #7-#8 not on "
+          f"this path: {B * T} x {c['tgt_vocab']} logits, and "
+          f"supported({B * T}, {c['tgt_vocab']}) = "
+          f"{supported(B * T, c['tgt_vocab'])} (no vocab block of 128s "
+          f"divides {c['tgt_vocab']})")
+    check(np.isfinite(vals).all(), f"(b) non-finite losses {vals}")
+    check(peak[0] == peak[1], f"(b) the two peak APIs disagree: {peak}")
+    check(step.retraces == 1, f"(b) {step.retraces} captures")
+    check(launches == want, f"(b) launches {launches}, want {want}")
+    replayed = hold_replayed(
+        torch, step, lambda: step(*x), lambda: step._eager_call(*x),
+        "(b) LSTM seq2seq AdamW + global-norm clip (dropout 0.2, the CUDA "
+        "generator restored)", held=c["held"], timed=c["timed_held"])
+    del step
+
+    # beam search over the batch
+    model.eval()
+    srct = x[0]
+    model.beam_search(srct[:8], c["beam"], 4)  # warm the allocator
+    times = []
+    seqs, scores = model.beam_search(srct, c["beam"], T, times)
+    enc_s, dec_s = times
+    n_dec = seqs.shape[2]
+    prof = profile_call(torch, lambda: model.beam_search(srct, c["beam"],
+                                                         T))
+    copies, copied = dtoh_copies(prof)
+    dev_ms = sum(device_us_by_name(prof).values()) / 1e3
+    check(seqs.shape[:2] == (B, c["beam"]) and torch.isfinite(scores).all(),
+          f"(b) beam search gave {tuple(seqs.shape)}")
+    check((scores[:, :-1] >= scores[:, 1:]).all(), "(b) beams not sorted")
+    print(f"  (b) beam search, beam {c['beam']}, {B} sources ({B * c['beam']}"
+          f" rows): the encoder (eager) {enc_s * 1e3:.1f} ms, then {n_dec} "
+          f"decode steps in {dec_s * 1e3:.1f} ms, {dec_s / n_dec * 1e3:.3f} "
+          f"ms a decode step (wall); device {dev_ms / n_dec:.3f} ms a "
+          f"decode step, the encoder's included (profiled run); "
+          f"device-to-host copies {copies}, {copied} bytes over {n_dec} "
+          f"steps ({copies / n_dec:.2f} a step: the exit test's bool); "
+          f"best score "
+          f"{float(scores[0, 0]):.4f}")
+
+    # 4 sources card against CPU, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = c["agree_sources"]
+    import copy as _copy
+    cpu_model = _copy.deepcopy(model).to("cpu")
+    got_s, got_sc = model.beam_search(srct[:k], c["beam"], T)
+    want_s, want_sc = cpu_model.beam_search(srct[:k].cpu(), c["beam"], T)
+    got_s, got_sc = got_s.cpu(), got_sc.cpu()
+    same = [bool(torch.equal(got_s[b], want_s[b])) if got_s.shape ==
+            want_s.shape else False for b in range(k)]
+    rel = float(((got_sc - want_sc).abs() / want_sc.abs()).max())
+    print(f"  (b) {k} sources, TF32 off: sequences equal for "
+          f"{sum(same)} of {k}; scores card {got_sc[:, 0].tolist()} CPU "
+          f"{want_sc[:, 0].tolist()}, largest relative difference "
+          f"{rel:.3g} (limit {c['score_rtol']})")
+    check(all(same), f"(b) beam search sequences differ card vs CPU: "
+                     f"{same}")
+    check(rel <= c["score_rtol"], f"(b) beam scores differ by {rel}")
+    del model, cpu_model, prof
+    torch.cuda.empty_cache()
+    return dict(ms=step_s * 1e3, first_ms=first_s * 1e3,
+                tokens_s=n_tok / step_s, replayed=replayed,
+                encode_ms=enc_s * 1e3,
+                decode_ms=dec_s / n_dec * 1e3, decode_steps=n_dec,
+                decode_device_ms=dev_ms / n_dec, dtoh=copies / n_dec,
+                dtoh_bytes=copied,
+                launches={k: v for k, v in launches.items() if v},
+                n_params=n_params, peak=peak[0], score_rel=rel)
+
+
+def phase_recurrent_rest(torch, card):
+    """(c) bidirectional 2-layer GRU and SimpleRNN card against CPU,
+    paddle.device's Event around a product, its device name and memory
+    queries."""
+    import paddle_tpu_torch as paddle
+    c = RNN_AGREE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import copy as _copy
+    for cls in ("GRU", "SimpleRNN"):
+        paddle.seed(SEED + 50)
+        layer = getattr(paddle.nn, cls)(c["width"], c["width"],
+                                        num_layers=2, direction="bidirect")
+        cpu = _copy.deepcopy(layer).to("cpu")
+        xs = torch.randn(c["batch"], c["seq"], c["width"],
+                         generator=torch.Generator().manual_seed(SEED + 51))
+        with torch.no_grad():
+            go, gh = layer(xs.cuda())
+            co, ch = cpu(xs)
+        err = max(float((go.cpu() - co).abs().max()),
+                  float((gh.cpu() - ch).abs().max()))
+        print(f"  (c) {cls} bidirect, 2 layers, [{c['batch']}, {c['seq']}, "
+              f"{c['width']}]: card vs CPU largest difference {err:.3g} "
+              f"(limit {c['rtol']})")
+        check(err <= c["rtol"], f"(c) {cls} card vs CPU differ by {err}")
+    a = torch.randn(8192, 8192, device="cuda")
+    dev = paddle.device
+    times = []
+    for make in (lambda: dev.Event(enable_timing=True),
+                 lambda: torch.cuda.Event(enable_timing=True)):
+        ms = []
+        for _ in range(3):
+            start, end = make(), make()
+            start.record()
+            a @ a
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        times.append(sorted(ms)[1])
+    print(f"  (c) an 8192^3 float32 product (TF32 off): paddle.device.Event "
+          f"{times[0]:.3f} ms, torch.cuda.Event {times[1]:.3f} ms "
+          f"({2 * 8192 ** 3 / times[0] / 1e9:.1f} TFLOP/s)")
+    check(0.8 <= times[0] / times[1] <= 1.25,
+          f"(c) the two events disagree: {times}")
+    name = dev.get_device_properties().name
+    check(name == card.split(",")[0].strip(),
+          f"(c) get_device_properties().name {name!r}, nvidia-smi {card!r}")
+    alloc, reserved = dev.memory_allocated(), dev.memory_reserved()
+    check(reserved >= alloc and alloc == torch.cuda.memory_allocated(),
+          f"(c) memory_reserved {reserved} < memory_allocated {alloc}")
+    print(f"  (c) get_device_properties().name {name!r}; "
+          f"memory_allocated {alloc} B <= memory_reserved {reserved} B; "
+          f"cuDNN {dev.get_cudnn_version()}")
+    del a
+
+
+def phase_seq2seq(torch, km, card):
+    """Phase 18: (a), (b), (c). Returns the measurements."""
+    t0 = time.perf_counter()
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        print("  (a) Transformer-base (Seq2SeqConfig(): vocab 32000 / "
+              "32000, d_model 512, 8 heads, 6 + 6 layers, FFN 2048)",
+              flush=True)
+        base = phase_transformer_base(torch, km)
+        print("  (b) LSTM seq2seq with attention (PaddleNLP "
+              "machine_translation/seq2seq, IWSLT'15 En-Vi widths)",
+              flush=True)
+        rnn = phase_lstm_seq2seq(torch, km)
+        print("  (c) GRU / SimpleRNN card vs CPU, Event, device queries",
+              flush=True)
+        phase_recurrent_rest(torch, card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"  phase 18 took {time.perf_counter() - t0:.1f}s")
+    return dict(base=base, rnn=rnn)
 
 
 def main():
@@ -5682,6 +6306,13 @@ def main():
           flush=True)
     phase_vision(torch, km)
 
+    print("[18] the recurrent slice: Transformer-base seq2seq (TrainStep on "
+          "the default route and with PADDLE_TPU_PALLAS_LN=1 and "
+          "PADDLE_TPU_PALLAS_XENT=1, greedy decode), an LSTM seq2seq with "
+          "attention (TrainStep, beam search), GRU / SimpleRNN and the "
+          "device queries", flush=True)
+    phase_seq2seq(torch, km, card)
+
     main_step = held["decode"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -5747,7 +6378,7 @@ def main():
         "ms": scan_main["ms"], "plain_ms": scan_main["plain_ms"],
         "bound_ms": scan_main["bound_ms"], "bound_by": scan_main["bound_by"],
         "library_ms": None})
-    print(f"[18] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
+    print(f"[19] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
           f"run time); paged "
           f"attention times are of the served decode step's layer-0 call, "
           f"flash times of the training shapes [8, 1024, 16, 64] (and, "

@@ -33,7 +33,11 @@ but its recurrent half (functionals, layers, `nn.Transformer*`,
 `nn.utils`), BERT / ERNIE, and float16 in the flash kernels;
 convolutions and pooling, `paddle.vision`'s ResNet family
 and small nets, `io`'s DataLoader, `metric` and hapi's `Model` (`fit`
-/ `evaluate` / `predict` over TrainStep), `summary` and `flops`. So
+/ `evaluate` / `predict` over TrainStep), `summary` and `flops`; then
+the recurrent layers, `BeamSearchDecoder` / `dynamic_decode` and the
+rest of `nn`, the TensorArray ops, the rest of `device` (memory stats,
+`Stream`, `Event`, `device.cuda`), the places and flags, and
+`models.Seq2SeqTransformer`. So
 `import paddle_tpu_torch as paddle` runs a Paddle dygraph program:
 build a `Layer`, `loss.backward()`, `opt.step()`, `opt.clear_grad()`,
 under `paddle.amp.auto_cast` too, or `paddle.Model(net).fit(loader)`.
@@ -80,3 +84,159 @@ from .tensor.manipulation import flip as reverse  # noqa: E402,F401
 
 def tolist(x):
     return x.tolist()
+
+
+def get_cuda_rng_state():
+    """The CUDA generators' states, one a card ([] without a card)."""
+    import torch
+    return torch.cuda.get_rng_state_all() if torch.cuda.is_available() \
+        else []
+
+
+def set_cuda_rng_state(state):
+    import torch
+    if state:
+        torch.cuda.set_rng_state_all(state)
+
+
+def disable_signal_handler():
+    pass
+
+
+def check_shape(*args, **kwargs):
+    pass
+
+
+class CPUPlace:
+    def __repr__(self):
+        return "Place(cpu)"
+
+
+class CUDAPlace:
+    """The CUDA card `device_id` (the reference's maps onto its TPU and
+    prints Place(tpu:N): ROADMAP.md, queue C)."""
+
+    def __init__(self, device_id=0):
+        self.device_id = device_id
+
+    def __repr__(self):
+        return f"Place(gpu:{self.device_id})"
+
+    def get_device_id(self):
+        return self.device_id
+
+
+class CUDAPinnedPlace(CPUPlace):
+    pass
+
+
+class NPUPlace(CUDAPlace):
+    pass
+
+
+class TPUPlace(CUDAPlace):
+    pass
+
+
+def _memcpy(x, place=None):
+    """A copy of `x`: on the host for a CPUPlace, on card N for a
+    CUDAPlace(N), else where `x` is."""
+    from .framework.core import _wrap, unwrap
+    v = unwrap(x).detach()
+    if isinstance(place, CPUPlace):
+        return _wrap(v.cpu().clone())
+    if isinstance(place, CUDAPlace):
+        return _wrap(v.to(resolve_device(f"gpu:{place.device_id}"),
+                          copy=True))
+    return _wrap(v.clone())
+
+
+# paddle.enable_static / disable_static: dygraph is the default, as in
+# Paddle 2.x; the static graph is not ported, the mode is a flag, as on
+# the reference
+_static_mode = [False]
+
+
+def enable_static():
+    _static_mode[0] = True
+
+
+def disable_static(place=None):
+    _static_mode[0] = False
+
+
+def in_dynamic_mode():
+    return not _static_mode[0]
+
+
+def is_grad_enabled_():
+    return is_grad_enabled()
+
+
+# the reference's flags; FLAGS_cudnn_deterministic reads and sets
+# torch.backends.cudnn.deterministic, the others are carried
+_FLAGS = {
+    "FLAGS_check_nan_inf": False,
+    "FLAGS_eager_delete_tensor_gb": 0.0,
+    "FLAGS_fraction_of_gpu_memory_to_use": 0.0,
+    "FLAGS_use_cinn": False,
+}
+
+
+def get_flags(flags=None):
+    import torch
+    # (`bool` is paddle.bool in this module)
+    live = dict(_FLAGS, FLAGS_cudnn_deterministic=True if
+                torch.backends.cudnn.deterministic else False)
+    if flags is None:
+        return live
+    if isinstance(flags, str):
+        flags = [flags]
+    return {k: live.get(k) for k in flags}
+
+
+def set_flags(flags):
+    """Set flags by name. FLAGS_check_nan_inf=True raises
+    NotImplementedError: the NaN/Inf check (framework/debug.py) waits
+    for ROADMAP.md's A.12."""
+    import torch
+    for k, v in dict(flags).items():
+        if k == "FLAGS_check_nan_inf" and v:
+            raise NotImplementedError(
+                "FLAGS_check_nan_inf: the NaN/Inf check of "
+                "framework/debug.py is not ported yet (ROADMAP.md, A.12)")
+        if k == "FLAGS_cudnn_deterministic":
+            torch.backends.cudnn.deterministic = True if v else False
+        else:
+            _FLAGS[k] = v
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     sci_mode=None, linewidth=None, **kwargs):
+    """How Tensors print (their repr prints numpy's view of the values):
+    numpy's print options, sci_mode as numpy's `suppress`, as on the
+    reference."""
+    import numpy as np
+    opts = dict(precision=precision, threshold=threshold,
+                edgeitems=edgeitems, linewidth=linewidth)
+    opts.update({k: v for k, v in kwargs.items()
+                 if k in ("precision", "threshold", "edgeitems",
+                          "linewidth")})
+    np.set_printoptions(**{k: v for k, v in opts.items() if v is not None})
+    if sci_mode is not None:
+        np.set_printoptions(suppress=not sci_mode)
+
+
+def batch(reader, batch_size, drop_last=False):
+    """paddle.batch: a reader of lists of `batch_size` items of
+    `reader`'s (the last shorter one dropped with `drop_last`)."""
+    def batched():
+        buf = []
+        for item in reader():
+            buf.append(item)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+    return batched

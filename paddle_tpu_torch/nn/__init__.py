@@ -1,7 +1,7 @@
 """paddle.nn of the port: the Layer base, its containers, the
-initializers, the layers and functionals of the ported slices, gradient
-clipping and nn.utils. Counterpart: paddle_tpu/nn/__init__.py; its
-recurrent and decoding layers wait for ROADMAP.md's A.6 part 4."""
+initializers, every layer and functional of the reference (the
+recurrent layers and `BeamSearchDecoder` / `dynamic_decode` too),
+gradient clipping and nn.utils. Counterpart: paddle_tpu/nn/__init__.py."""
 from . import functional, initializer, utils
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_, clip_grad_value_)

@@ -1,13 +1,15 @@
-"""Loss layers. Counterpart: paddle_tpu/nn/layer/loss.py, every class
-but `HSigmoidLoss`, whose functional waits for ROADMAP.md's A.6 part 3;
-each calls its functional (nn/functional/loss.py) with the reference's
-arguments. Port layers (`_paddle_io = False`)."""
+"""Loss layers. Counterpart: paddle_tpu/nn/layer/loss.py, every class;
+each calls its functional (nn/functional/loss.py, `HSigmoidLoss`
+misc_gap.py's) with the reference's arguments. Port layers
+(`_paddle_io = False`)."""
 from ...framework.core import unwrap
 from ..functional import loss as FL
+from ..functional import misc_gap as FM
 from .layers import Layer
 
-__all__ = ["CrossEntropyLoss", "NLLLoss", "BCELoss", "BCEWithLogitsLoss",
-           "MSELoss", "L1Loss", "SmoothL1Loss", "HuberLoss", "KLDivLoss",
+__all__ = ["HSigmoidLoss", "CrossEntropyLoss", "NLLLoss", "BCELoss",
+           "BCEWithLogitsLoss", "MSELoss", "L1Loss", "SmoothL1Loss",
+           "HuberLoss", "KLDivLoss",
            "MarginRankingLoss", "CTCLoss", "HingeEmbeddingLoss",
            "CosineEmbeddingLoss", "SoftMarginLoss", "TripletMarginLoss",
            "TripletMarginWithDistanceLoss"]
@@ -230,3 +232,25 @@ class TripletMarginWithDistanceLoss(Layer):
         return FL.triplet_margin_with_distance_loss(
             input, positive, negative, self.distance_function, self.margin,
             self.swap, self.reduction)
+
+
+class HSigmoidLoss(Layer):
+    """Hierarchical sigmoid over the default complete binary tree:
+    weight [num_classes - 1, feature_size], bias [num_classes - 1, 1]
+    (the reference's default initializers: XavierNormal, zeros)."""
+    _paddle_io = False
+
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False,
+                 name=None):
+        super().__init__()
+        self._num_classes = num_classes
+        self.weight = self.create_parameter(
+            [num_classes - 1, feature_size], attr=weight_attr)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [num_classes - 1, 1], attr=bias_attr, is_bias=True)
+
+    def forward(self, input, label, path_table=None, path_code=None):
+        return FM.hsigmoid_loss(input, label, self._num_classes,
+                                self.weight, self.bias, path_table,
+                                path_code)

@@ -3,10 +3,13 @@
 
 Counterpart: paddle_tpu/tensor/__init__.py, with the same `_METHOD_NAMES`
 and the same resolution order of names that several modules define.
-`tensor/array.py` waits for A.6 part 2.
+The TensorArray ops of `array.py` are exported beside the op modules'
+names, as on the reference.
 """
-from . import (attribute, creation, einsum, linalg, logic, manipulation,
-               math, random, search, stat)
+from . import (array, attribute, creation, einsum, linalg, logic,
+               manipulation, math, random, search, stat)
+from .array import (array_length, array_read, array_write,  # noqa: F401
+                    create_array)
 from ..framework.core import Tensor
 
 _MODULES = [attribute, creation, einsum, linalg, logic, manipulation, math,

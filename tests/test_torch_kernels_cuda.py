@@ -138,6 +138,16 @@ its generator registered with the graph. `retraces` counts captures;
 after k replays each wrapper counted k times its capture's launches,
 the backward kernels' too. `warm` and the inspection paths add no
 capture; a capture that meets a host read raises, with no fallback.
+
+The recurrent slice (plain torch ops, no kernel of its own): `LSTM` and
+`GRU` (2 layers, bidirectional, time-major) on the card against their
+CPU runs with TF32 off, outputs, finals and grads within 1e-5 / 1e-4; a
+replayed LSTM `TrainStep` (inter-layer dropout 0.2, the default CUDA
+generator's state restored with the snapshot) against its eager body,
+bit for bit, #10 once a group a step; `dynamic_decode` with a GRU
+decoder on the card against the CPU, sequences equal and scores within
+1e-5; `paddle.device`'s memory queries equal torch.cuda's, and its
+`Event` times a product.
 """
 import numpy as np
 import pytest
@@ -1074,10 +1084,12 @@ def _hold_layer_norm(x, w, b, dy):
 @pytest.mark.parametrize("R,C", [(8192, 1024), (1000, 4096), (8192, 1000),
                                  (257, 1001), (1, 1024), (33, 16384),
                                  (4096, 2048), (64, 8192), (3, 1024),
-                                 (300, 1024), (3, 16384), (700, 40)])
+                                 (300, 1024), (3, 16384), (700, 40),
+                                 (4096, 512), (300, 384)])
 def test_layer_norm_kernels_match_twins_on_card(R, C, dtype, wdtype):
     """Every layout the wrappers pick: one warp a row (C <= 2048 bf16),
-    several (4096-16384), rows read twice in the backward (16384), and
+    several (4096-16384), rows read twice in the backward (16384), rows
+    of fewer vectors a lane (384, 512: Transformer-base's d_model), and
     row counts below the grid's rows in flight (3, 300)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -1185,7 +1197,7 @@ def _xent_case(N, V, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,V", [(512, 50304), (1000, 50257), (1, 50304),
-                                 (64, 1000), (300, 7)])
+                                 (64, 1000), (300, 7), (4096, 32000)])
 def test_softmax_xent_kernels_match_twins_on_card(N, V, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -2315,3 +2327,156 @@ def test_conv_takes_the_amp_policy_on_card():
         assert F.conv2d(x, conv.weight, conv.bias).dtype == torch.bfloat16
         assert F.conv2d_transpose(x, w, stride=2).dtype == torch.float32
     assert conv(x).dtype == torch.float32
+
+
+def _to_cpu_copy(layer):
+    import copy
+    return copy.deepcopy(layer).to("cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls,kw", [
+    ("LSTM", {"direction": "bidirect"}),
+    ("GRU", {"direction": "bidirect", "time_major": True}),
+    ("SimpleRNN", {})])
+def test_recurrent_layers_on_card_equal_their_cpu_runs(cls, kw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch as paddle
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        paddle.seed(0)
+        card = getattr(paddle.nn, cls)(16, 32, num_layers=2, **kw)
+        cpu = _to_cpu_copy(card)
+        x = torch.randn(6, 5, 16)
+        outs = []
+        for layer, dev in ((card, "cuda"), (cpu, "cpu")):
+            xd = x.to(dev).requires_grad_()
+            out, final = layer(xd)
+            finals = list(final) if isinstance(final, tuple) else [final]
+            (out.square().sum() + sum(f.sum() for f in finals)).backward()
+            outs.append([out, *finals, xd.grad]
+                        + [p.grad for p in layer.parameters()])
+        for i, (a, b) in enumerate(zip(*outs)):
+            tol = 1e-5 if i <= 2 else 1e-4
+            assert torch.allclose(a.cpu(), b, rtol=tol, atol=tol), i
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_replayed_lstm_train_step_equals_eager_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+
+    class Tagger(paddle.nn.Layer):
+        _paddle_io = False
+
+        def __init__(self):
+            super().__init__()
+            self.emb = paddle.nn.Embedding(100, 32)
+            self.rnn = paddle.nn.LSTM(32, 64, num_layers=2, dropout=0.2)
+            self.out = paddle.nn.Linear(64, 100)
+
+        def forward(self, ids):
+            return self.out(self.rnn(self.emb(ids))[0])
+
+    paddle.seed(0)
+    model = Tagger()
+    step = TrainStep(model, lambda logits, y: F.cross_entropy(
+        logits.reshape(-1, 100), y.reshape(-1)),
+        AdamW(learning_rate=1e-3, parameters=model.parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, 100, (8, 12), device="cuda", generator=gen)
+
+    def mark():
+        return (step.snapshot_state(), step._step_i,
+                torch.cuda.get_rng_state())
+
+    def back(m):
+        snap, i, rng = m
+        step.set_tree_state(snap["params"], snap["opt_state"])
+        step._step_i = i
+        torch.cuda.set_rng_state(rng)
+
+    def run(fn, n):
+        out = torch.stack([fn() for _ in range(n)])
+        torch.cuda.synchronize()
+        return out, _state_copies(step)
+
+    m = mark()
+    step(ids, ids)  # the capture: its eager run is this call's step
+    (prog,) = [p for c in step._graphs.values() for p in c.values()]
+    assert step.retraces == 1 and prog.graph is not None
+    back(m)
+    before = fk.fused_pass2.launches
+    got, got_state = run(lambda: step(ids, ids), 3)
+    groups = step._fused.bucket_set(step._grad_store, step._params_store,
+                                    step._opt_store).groups
+    assert fk.fused_pass2.launches - before == 3 * len(groups)
+    back(m)
+    want, want_state = run(lambda: step._eager_call(ids, ids), 3)
+    assert prog.replays == 3 and torch.isfinite(got).all()
+    assert torch.equal(got, want), (got, want)
+    for i, (a, b) in enumerate(zip(got_state, want_state)):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+def test_dynamic_decode_on_card_equals_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch as paddle
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        paddle.seed(0)
+        parts = [paddle.nn.GRUCell(32, 32), paddle.nn.Embedding(50, 32),
+                 paddle.nn.Linear(32, 50)]
+        runs = []
+        for dev in ("cuda", "cpu"):
+            cell, emb, out = parts if dev == "cuda" else \
+                [_to_cpu_copy(p) for p in parts]
+            dec = paddle.nn.BeamSearchDecoder(cell, 1, 2, 4, emb, out)
+            h0 = torch.randn(3, 32, generator=torch.Generator().manual_seed(
+                2)).to(dev)
+            seqs, scores = paddle.nn.dynamic_decode(dec, h0, max_step_num=10)
+            assert seqs.device.type == dev
+            runs.append((seqs.cpu(), scores.cpu()))
+        (cs, csc), (ps, psc) = runs
+        assert torch.equal(cs, ps)
+        assert torch.allclose(csc, psc, rtol=1e-5, atol=1e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_device_memory_queries_equal_torch_cuda_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch as paddle
+    x = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    dev = paddle.device
+    assert dev.max_memory_allocated() == torch.cuda.max_memory_allocated()
+    assert dev.memory_allocated() == torch.cuda.memory_allocated()
+    assert dev.max_memory_reserved() == torch.cuda.max_memory_reserved()
+    assert dev.memory_reserved() == torch.cuda.memory_reserved() >= \
+        dev.memory_allocated()
+    assert dev.cuda.max_memory_allocated(0) == \
+        torch.cuda.max_memory_allocated(0)
+    assert dev.get_device_properties().name == \
+        torch.cuda.get_device_name(0)
+    del x
+    a = torch.randn(2048, 2048, device="cuda")
+    start, end = dev.Event(enable_timing=True), dev.Event(enable_timing=True)
+    s = dev.Stream()
+    s.wait_stream(dev.Stream())
+    start.record()
+    a @ a
+    end.record()
+    end.synchronize()
+    assert 0 < start.elapsed_time(end) < 1000
+    assert paddle.get_cuda_rng_state()

@@ -15,8 +15,8 @@ Random functionals (dropout and its kin with p > 0, rrelu in training,
 gumbel_softmax) cannot match the reference's draws (another random
 stream): the table holds them where they are deterministic (p = 0, not
 training), RANDOM checks their draws by shape, dtype and statistics.
-Names of the reference's namespace that the port leaves for ROADMAP.md's
-A.6 part 4 are listed in UNPORTED; every other name must be ported.
+`class_center_sample` draws too: it is held by its properties. Every
+name of the reference's namespace must be ported (UNPORTED is empty).
 """
 import numpy as np
 import pytest
@@ -29,11 +29,7 @@ import paddle_tpu_torch.nn.functional as port_F
 RTOL, ATOL = 1e-5, 1e-5
 LOOSE = 1e-4
 
-_P4 = "A.6 part 4"
-UNPORTED = {n: _P4 for n in (
-    "class_center_sample", "diag_embed", "dice_loss", "elu_", "gather_tree",
-    "hsigmoid_loss", "log_loss", "margin_cross_entropy", "sequence_mask",
-    "sparse_attention", "tanh_", "temporal_shift")}
+UNPORTED = {}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -397,6 +393,44 @@ case("scaled_dot_product_attention mask", "scaled_dot_product_attention",
      f(2, 5, 2, 8), f(2, 6, 2, 8), f(2, 6, 2, 8),
      attn_mask=f(2, 1, 5, 6), grad=True)
 
+case("sparse_attention", "sparse_attention", f(1, 4, 2, 8), f(1, 4, 2, 8),
+     f(1, 4, 2, 8),
+     # head 0 causal; head 1 two columns a row, its last 3 entries unused
+     T(np.int64([[[0, 1, 3, 6, 10], [0, 2, 3, 5, 7]]])),
+     T(np.int64([[[0, 0, 1, 0, 1, 2, 0, 1, 2, 3],
+                  [0, 2, 1, 1, 3, 0, 3, 0, 0, 0]]])))
+case("sparse_attention no pattern", "sparse_attention", f(2, 5, 2, 8),
+     f(2, 5, 2, 8), f(2, 5, 2, 8), attn_mask=f(2, 1, 5, 5))
+
+# extension.py
+case("sequence_mask", "sequence_mask", i(2, 3, hi=6), 6, grad=False)
+case("sequence_mask float32", "sequence_mask", i(4, hi=6), maxlen=7,
+     dtype="float32", grad=False)
+case("sequence_mask no maxlen", "sequence_mask", T(np.int64([2, 5, 0])),
+     grad=False)
+case("temporal_shift", "temporal_shift", f(4, 8, 2, 2), 2)
+case("temporal_shift NHWC", "temporal_shift", f(6, 2, 2, 8), 3,
+     shift_ratio=0.125, data_format="NHWC")
+case("diag_embed", "diag_embed", f(2, 3), offset=1)
+case("diag_embed dims", "diag_embed", f(2, 3), -1, 0, 2)
+
+# misc_gap.py
+case("dice_loss", "dice_loss", f(4, 5, 3, lo=0.05, hi=0.95),
+     i(4, 5, 1, hi=3))
+case("log_loss", "log_loss", f(4, 3, lo=0.05, hi=0.95),
+     f(4, 3, lo=0, hi=1))
+case("hsigmoid_loss", "hsigmoid_loss", f(5, 6), i(5, 1, hi=7), 7, f(6, 6),
+     f(6, 1))
+case("hsigmoid_loss no bias", "hsigmoid_loss", f(5, 6), i(5, hi=8), 8,
+     f(7, 6))
+case("margin_cross_entropy", "margin_cross_entropy",
+     f(6, 5, lo=-0.95, hi=0.95), i(6, hi=5))
+case("margin_cross_entropy softmax no reduction", "margin_cross_entropy",
+     f(6, 5, lo=-0.95, hi=0.95), i(6, 1, hi=5), 1.0, 0.3, 0.1, 16.0,
+     return_softmax=True, reduction=None)
+case("gather_tree", "gather_tree", i(5, 2, 3, hi=9), i(5, 2, 3, hi=3),
+     grad=False)
+
 # cases whose reference draws from its global key: traced, the key would
 # leak out of the program, so they run eagerly on the tape
 EAGER = {"gumbel_softmax one class"}
@@ -557,12 +591,39 @@ def test_batch_norm_updates_running_statistics_as_the_reference():
 
 
 def test_inplace_functionals_rebind_their_input():
-    for name in ("relu_", "softmax_"):
+    import torch
+    for name in ("relu_", "softmax_", "elu_", "tanh_"):
         a = _rng.standard_normal((3, 4)).astype(np.float32)
         r, p = ref.to_tensor(a), port.to_tensor(a)
         ro, po = getattr(ref_F, name)(r), getattr(port_F, name)(p)
         assert po is p
         np.testing.assert_allclose(p.numpy(), r.numpy(), rtol=1e-6)
+        t = torch.from_numpy(a.copy())
+        assert getattr(port_F, name)(t) is t
+        np.testing.assert_allclose(t.numpy(), r.numpy(), rtol=1e-6)
+
+
+def test_class_center_sample_keeps_the_positives_and_remaps_onto_them():
+    """Its draws are random: held by their properties. Every positive
+    class is sampled, the count is num_samples (or every class), the
+    sampled classes are sorted and distinct, and each remapped label
+    points at its own class."""
+    import torch
+    lab = np.int64([5, 17, 5, 30, 2, 17])
+    for n_classes, n_samples in ((40, 10), (40, 3), (8, 20)):
+        lab_n = lab % n_classes
+        remapped, sampled = port_F.class_center_sample(
+            port.to_tensor(lab_n), n_classes, n_samples)
+        assert isinstance(remapped, port.Tensor)
+        s, m = sampled.numpy(), remapped.numpy()
+        assert s.dtype == m.dtype == np.int64
+        assert len(s) == min(max(n_samples, len(np.unique(lab_n))),
+                             n_classes)
+        assert (np.diff(s) > 0).all() and set(lab_n) <= set(s)
+        assert 0 <= s.min() and s.max() < n_classes
+        np.testing.assert_array_equal(s[m], lab_n)
+    r, s = port_F.class_center_sample(torch.from_numpy(lab), 40, 10)
+    assert isinstance(r, torch.Tensor) and not isinstance(r, port.Tensor)
 
 
 def test_amp_named_functionals_run_in_the_policy_dtype():
@@ -624,7 +685,8 @@ def test_every_reference_functional_is_ported_or_listed():
                      if not hasattr(port_F, n) and n not in UNPORTED)
     assert not missing
     assert not sorted(n for n in UNPORTED if hasattr(port_F, n))
-    tested = {fn for fn, *_ in CASES.values()} | {"relu_", "softmax_"}
+    tested = {fn for fn, *_ in CASES.values()} | {
+        "relu_", "softmax_", "elu_", "tanh_", "class_center_sample"}
     untested = sorted(n for n in names - set(UNPORTED) - tested
                       if n not in ("dropout2d", "dropout3d"))
     assert not untested or set(untested) <= {"scaled_dot_product_attention"}

@@ -7,16 +7,19 @@ dicts must have the same names, in order, and shapes; the reference's
 values are loaded into the port's (`set_state_dict`); both run the same
 numpy inputs in training or eval mode; the outputs must agree, dtype
 included, within 1e-5 (1e-4 where many terms are summed in another
-order), and so must the grads of a weighted sum of the first output
-with respect to every parameter and float input, and the buffers after
-the call (batch norm's running statistics). The reference runs every
+order), every output of a layer that returns several (the recurrent
+layers' outputs and final states), and so must the grads of a weighted
+sum of the first output with respect to every parameter and float
+input, and the buffers after the call (batch norm's running
+statistics). The reference runs every
 case in one `jax.jit(jax.value_and_grad(...))` program over its
 `functional_call` (one XLA compile for the table); the cases whose
 buffers the call updates run eagerly on its tape. Random layers (Dropout and
 its kin, RReLU) are held in eval mode or at p = 0, where they are
-deterministic. The reference's layers that the port leaves for
-ROADMAP.md's A.6 part 4 are listed in UNPORTED; every other class of
-its namespace must be ported.
+deterministic. A layer argument (the cells of `RNN` and `BiRNN`) is
+built in each package from its class and arguments. Every class of the
+reference's namespace must be ported (UNPORTED is empty) and tested:
+here, or in the file ELSEWHERE names.
 """
 import numpy as np
 import pytest
@@ -29,10 +32,10 @@ import paddle_tpu_torch.nn as port_nn
 TOL = 1e-5
 LOOSE = 1e-4
 
-_P4 = "A.6 part 4"
-UNPORTED = {n: _P4 for n in (
-    "BeamSearchDecoder", "BiRNN", "GRU", "GRUCell", "HSigmoidLoss", "LSTM",
-    "LSTMCell", "RNN", "RNNCellBase", "SimpleRNN", "SimpleRNNCell")}
+UNPORTED = {}
+ELSEWHERE = {
+    "BeamSearchDecoder": "tests/test_torch_decode.py (not a Layer)",
+    "RNNCellBase": "tests/test_torch_rnn.py (a user's cell in RNN)"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -51,6 +54,13 @@ class T:
 
 
 _rng = np.random.default_rng(0)
+
+
+class L:
+    """A layer argument: `cls(*args)` of the package's nn."""
+
+    def __init__(self, cls, *args):
+        self.cls, self.args = cls, args
 
 
 def f(*shape, lo=None, hi=None, grad=True):
@@ -246,6 +256,22 @@ case("TripletMarginWithDistanceLoss", "TripletMarginWithDistanceLoss",
 
 case("PairwiseDistance", "PairwiseDistance", [1.0], {"keepdim": True},
      inputs=[f(4, 6), f(4, 6)])
+case("HSigmoidLoss", "HSigmoidLoss", [6, 7], inputs=[f(5, 6), i(5, 1, hi=7)])
+case("HSigmoidLoss no bias", "HSigmoidLoss", [6, 8], {"bias_attr": False},
+     inputs=[f(5, 6), i(5, 1, hi=8)])
+
+case("SimpleRNNCell", "SimpleRNNCell", [4, 5], inputs=[f(3, 4)])
+case("LSTMCell", "LSTMCell", [4, 5], inputs=[f(3, 4)])
+case("GRUCell", "GRUCell", [4, 5], inputs=[f(3, 4)])
+case("RNN", "RNN", [L("GRUCell", 4, 5)], {"is_reverse": True},
+     inputs=[f(3, 4, 4)])
+case("BiRNN", "BiRNN", [L("LSTMCell", 4, 5), L("LSTMCell", 4, 5)],
+     inputs=[f(3, 4, 4)])
+case("SimpleRNN", "SimpleRNN", [4, 5, 2], {"direction": "bidirect"},
+     inputs=[f(3, 4, 4)])
+case("LSTM", "LSTM", [4, 5, 2], {"direction": "bidirect"},
+     inputs=[f(3, 4, 4)])
+case("GRU", "GRU", [4, 5, 2], {"time_major": True}, inputs=[f(4, 3, 4)])
 
 LOOSE_CASES = {"CTCLoss", "SpectralNorm", "Fold", "Unfold", "Bilinear"}
 # the call updates the layer's buffers, which `functional_call` drops
@@ -254,6 +280,8 @@ EAGER = {"BatchNorm training", "BatchNorm1D", "BatchNorm2D",
 
 
 def _arg(pkg, a):
+    if isinstance(a, L):
+        return getattr(pkg.nn, a.cls)(*a.args)
     if isinstance(a, T):
         t = pkg.to_tensor(a.a)
         if a.grad:
@@ -264,6 +292,13 @@ def _arg(pkg, a):
 
 def _np(x):
     return np.asarray(x.numpy() if hasattr(x, "numpy") else x)
+
+
+def _leaves(out):
+    """A layer's outputs, flat: [out], or every tensor of a tuple's."""
+    if isinstance(out, (tuple, list)):
+        return [leaf for o in out for leaf in _leaves(o)]
+    return [out]
 
 
 def _build(pkg, name):
@@ -292,21 +327,22 @@ def _weights(shape):
 
 
 def _eager_reference(name):
-    """(output, state after the call, {param: grad}, [input grads]) of
+    """([outputs], state after the call, {param: grad}, [input grads]) of
     the reference layer on its tape."""
     rl = _build(ref, name)
     rx = [_arg(ref, a) for a in CASES[name][3]]
-    rout = rl(*rx)
+    routs = _leaves(rl(*rx))
     state = _state(rl)
-    (rout * ref.to_tensor(_weights(np.shape(_np(rout))))).sum().backward()
+    (routs[0] * ref.to_tensor(_weights(np.shape(_np(routs[0]))))
+     ).sum().backward()
     grads = {k: p.grad for k, p in rl.named_parameters()}
-    return (_np(rout), state, grads,
+    return ([_np(o) for o in routs], state, grads,
             [r.grad for r in rx if not getattr(r, "stop_gradient", True)])
 
 
 @pytest.fixture(scope="module")
 def traced_reference():
-    """{name: (output, state, {param: grad}, [input grads])} for every
+    """{name: ([outputs], state, {param: grad}, [input grads])} for every
     case but EAGER's, from one jitted program of the reference's
     functional_call."""
     import jax
@@ -329,9 +365,9 @@ def traced_reference():
             ps, dx = diff[name]
             d, c = iter(dx), iter(const[name])
             xs = [next(d) if a.grad else next(c) for a in CASES[name][3]]
-            out = functional_call(layer, ps, buffers[name], xs,
-                                  training=CASES[name][4])
-            outs[name] = out
+            outs[name] = _leaves(functional_call(
+                layer, ps, buffers[name], xs, training=CASES[name][4]))
+            out = outs[name][0]
             loss = loss + jnp.sum(out * _weights(out.shape))
         return loss, outs
 
@@ -343,7 +379,7 @@ def traced_reference():
     # skips the parameters with stop_gradient
     trainable = {n: {k for k, p in layer.named_parameters()
                      if not p.stop_gradient} for n, layer in layers.items()}
-    return {n: (np.asarray(outs[n]), _state(layers[n]),
+    return {n: ([np.asarray(o) for o in outs[n]], _state(layers[n]),
                 {k: np.asarray(g) for k, g in grads[n][0].items()
                  if k in trainable[n]},
                 [np.asarray(g) for g in grads[n][1]]) for n in layers}
@@ -358,15 +394,18 @@ def test_layer_matches_reference(name, traced_reference):
         [(k, tuple(v.shape)) for k, v in pl.state_dict().items()]
     missing, unexpected = pl.set_state_dict(rstate)
     assert not missing and not unexpected
-    rout, rafter, rgrads, rxgrads = traced_reference[name] \
+    routs, rafter, rgrads, rxgrads = traced_reference[name] \
         if name in traced_reference else _eager_reference(name)
     px = [_arg(port, a) for a in CASES[name][3]]
-    pout = pl(*px)
-    assert isinstance(pout, port.Tensor), name
-    _compare(rout, pout, name, tol)
+    pouts = _leaves(pl(*px))
+    assert len(pouts) == len(routs), name
+    for i, (r, p) in enumerate(zip(routs, pouts)):
+        assert isinstance(p, port.Tensor), name
+        _compare(r, p, f"{name}: output {i}", tol)
     for (k, r), (_, p) in zip(rafter.items(), _state(pl).items()):
         _compare(r, p, f"{name}: {k} after the call", tol)
-    (pout * port.to_tensor(_weights(np.shape(rout)))).sum().backward()
+    (pouts[0] * port.to_tensor(_weights(np.shape(routs[0])))
+     ).sum().backward()
     for k, p in pl.named_parameters():
         rg, pg = rgrads.get(k), p.grad
         if rg is None or not np.any(_np(rg)):
@@ -393,7 +432,8 @@ def test_every_reference_layer_is_ported_or_listed():
                   "TransformerDecoderLayer", "TransformerDecoder",
                   "Transformer", "BatchNorm"}
     tested = {c for c, *_ in CASES.values()}
-    assert not sorted(names - set(UNPORTED) - tested - containers)
+    assert not sorted(names - set(UNPORTED) - tested - containers
+                      - set(ELSEWHERE))
 
 
 def test_sync_batch_norm_converts_batch_norms_in_place_of_them():
