@@ -435,7 +435,54 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    and SimpleRNN card against CPU (1e-4), paddle.device.Event against
    torch.cuda.Event around an 8192^3 product, get_device_properties's
    name against nvidia-smi's, memory_reserved >= memory_allocated;
-19. the smoke's run time and the kernels line (each flash kernel
+19. the data path: (a) phase 17's ResNet-50 `Model.fit` at CIFAR-10's
+   shape (the same model, Momentum, data and batch of 128; one epoch, no
+   evaluation) through DataLoader(num_workers=4, prefetch_to_device=2):
+   spawned worker processes collate (the port's TensorDataset over
+   SyntheticImages' arrays, which a worker can unpickle), the device
+   prefetch ring copies each batch from pinned memory on a side stream.
+   Held: the native ring loaded; the batches fit's step receives equal
+   (order-sensitive checksums) those of DataLoader(num_workers=0) under
+   the same numpy seed, as do those of the threaded path (4 worker
+   threads over the native ring); fit binds its step's input_sharding
+   and releases it; #10 once a group a step, nothing else. Printed: ms
+   a replayed step, images/s, device ms and idle share (a profiled
+   step), dataloader.wait_s p50 / p99 and its first wait (the workers'
+   start), prefetch.h2d_bytes, beside phase 17's num_workers=0 figures
+   of this run; (b) bench.py's steady loop (bench.py:430-439) on 7c's
+   step (GPT-1.3B bf16, remat "dots", the chunked loss, bench.py's
+   Momentum, both switches): fed from the host (a new [4, 1024] batch a
+   step copied in the loop) and through device_prefetch_iterator(depth=
+   2, sharding_fn=step.input_sharding), from the same weights and
+   batches, 2 + 10 timed steps each: losses bit-equal, the ring's
+   launches 7c's a step, prefetch.h2d_bytes exactly the batches' bytes;
+   ms a step and idle share (a profiled step's device ms) of both,
+   beside 7c's;
+20. the legacy generation path: (a) examples/bench_decode.py's TPU
+   configuration on phase 4's weights (GPT-medium bf16, prompt 32, 128
+   new tokens, top_k 50, batch 1, 8 and 32): `generate` twice, printing
+   compile_s (the first call: the prefill and decode graphs captured),
+   decode_tok_per_s and e2e_ms_per_new_token of the second, the device
+   ms of one decode step (its graph replayed 127 times under CUDA
+   events) and its bound (the weights' and the static cache's bytes
+   over HBM bandwidth); tokens in range, the prompt kept; (b)
+   GenerationEngine(ragged=False), the bucketed loop, against the ragged
+   engine on phase 4's engine config and weights, greedy, each warmed
+   for every prompt length, an untimed wave of phase 4's prompts, then
+   a timed wave of new prompts of their lengths: the bucketed engine
+   captures nothing after warm (held), launches no kernel; output
+   tokens/s and pad_token_fraction() of both; the timed streams equal,
+   or at a first mismatch both tokens within 4 bf16 ulps of the largest
+   logit (`bf16_rule`); (c) InferenceEngine over bench.py --serve's
+   model (Linear(2048, 2048), Tanh, Linear(2048, 2048), float32, TF32
+   off), BucketLadder((1, 2, 4, 8)) warmed, 8 client threads of 40
+   requests: requests/s, p50 / p99 ms, mean batch, retraces 0 over the
+   traffic (held), beside the serial baseline; every output within 1e-5
+   relative of the serial model's; (d) a 2-layer float32 GPT-medium,
+   card against CPU, TF32 off: generate(top_k=1) tokens equal (or
+   phase 5's gap rule at a first mismatch), paged_decode_step logits
+   (three prefills, 8 decode steps padded to 4 rows) within 1e-4;
+21. the smoke's run time and the kernels line (each flash kernel
    three times: head_dim 64, with the suffix "_d128" head_dim 128, with
    "_f16" float16; #10's bf16 variant as "fused_pass2_bf16_state"; the
    tree update as "tree_update"; K2 as "stochastic_round"), then, last,
@@ -447,10 +494,12 @@ phase 7c's "dots" run (bench.py's headline) for #7-#8,
 its fourth for #10's bf16 variant, its fifth for K2, GPT-1.3B training
 in phase 7b for #2-#4 at head_dim 128, its second run for the tree
 update, SSM serving in phase 13's wave B for #11, phase 16's O1-float16
-AMP run for #2-#4 in float16, and this slice's: phase 18 (a)'s two
-routes for #5-#10 and (b)'s training for #9-#10) runs with the launch
-counts set to 0 just
-before it and read just after; a CUDA graph's replay adds the launches
+AMP run for #2-#4 in float16, phase 18 (a)'s two routes for #5-#10
+and (b)'s training for #9-#10, and this slice's: phase 19 (a)'s fit for
+#10, (b)'s ring-fed loop for #2-#8 at head_dim 128 and the tree update,
+phase 20 (b)'s ragged engine's timed wave for #1, each added to its
+kernel's launches in the kernels line) runs with the launch counts set
+to 0 just before it and read just after; a CUDA graph's replay adds the launches
 its capture recorded (the wrappers count launches, and a capture, which
 launches nothing, records them instead).
 Times are CUDA-event times with the 50 MB L2 flushed before each
@@ -2817,7 +2866,7 @@ def phase_train_1p3b(torch, km, tmods, gpt_1p3b):
           "TrainStep(model_returns_loss=True), bench.py's Momentum; then "
           "remat True and \"names\"", flush=True)
     bench = phase_bench_1p3b(torch, km, tmods, state, cfg, sr)
-    return res, sr, bench
+    return res, sr, bench, state, cfg
 
 
 def phase_bench_1p3b(torch, km, tmods, state, cfg, sr):
@@ -3126,20 +3175,14 @@ def bench_policy(torch, km, tmods, state, cfg, remat, run):
     launch counts set to 0 just before and read just after; then its
     replays held against the eager body (hold_replayed); for "dots" the
     same step with the health vector on (one more capture), timed."""
-    GPTForCausalLM, _, load_state, TrainStep, _, _ = tmods
-    cfg = copy.copy(cfg)
-    cfg.scan_remat = remat
     label = f"GPT-1.3B, bench.py's headline, remat {remat!r}"
-    model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
-    load_state(model, state)
+    model, step = bench_step(torch, tmods, state, cfg, remat)
+    cfg = model.cfg
+    check(step._fused is None, f"{label}: not the tree path")
     n_params = sum(p.numel() for p in model.parameters())
     B, T = run["batch"], run["seq"]
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(B, T)).astype(np.int32)).cuda()
-    step = TrainStep(fused_loss_net(torch, model, BENCH_CHUNK), None,
-                     bench_momentum(torch)(model.parameters()),
-                     model_returns_loss=True)
-    check(step._fused is None, f"{label}: not the tree path")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(km)
@@ -3202,6 +3245,23 @@ def bench_policy(torch, km, tmods, state, cfg, remat, run):
     del step, model
     torch.cuda.empty_cache()
     return res
+
+
+def bench_step(torch, tmods, state, cfg, remat):
+    """(model, step) of bench.py's GPT-1.3B headline (bench.py:667-714):
+    the weights `state` in bf16, scan_remat `remat`, fused_loss(chunk=
+    2048) behind bench.py's wrapper, TrainStep(model_returns_loss=True)
+    with bench.py's Momentum and no fused_update argument (the tree
+    path)."""
+    GPTForCausalLM, _, load_state, TrainStep, _, _ = tmods
+    cfg = copy.copy(cfg)
+    cfg.scan_remat = remat
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    load_state(model, state)
+    step = TrainStep(fused_loss_net(torch, model, BENCH_CHUNK), None,
+                     bench_momentum(torch)(model.parameters()),
+                     model_returns_loss=True)
+    return model, step
 
 
 def bench_momentum(torch):
@@ -6148,6 +6208,529 @@ def phase_seq2seq(torch, km, card):
     return dict(base=base, rnn=rnn)
 
 
+# -- the data pipeline's rest and the legacy generation path ------------------
+
+# phase 19 (a): phase 17's fit, one epoch, through worker processes and
+# the device prefetch ring; (b) bench.py's steady loop (bench.py:430-439)
+# on 7c's step: 2 steps to capture and warm, then 10 timed, the batches
+# new host arrays every step
+DATA_PATH = dict(workers=4, depth=2)
+PREFETCH_LOOP = dict(warmup=2, timed=10, depth=2)
+# phase 20 (a): examples/bench_decode.py's TPU configuration
+DECODE = dict(prompt=32, new=128, top_k=50, batches=(1, 8, 32))
+# (c): bench.py --serve's model and clients (bench.py:1286-1330)
+SERVE_DIM, SERVE_CLIENTS, SERVE_REQS = 2048, 8, 40
+SERVE_LADDER = (1, 2, 4, 8)
+# (d): a 2-layer float32 GPT-medium, card against CPU
+AGREE_DECODE = dict(batch=4, prompt=32, new=32, steps=8,
+                    lengths=(40, 17, 64))
+
+
+def batch_checksum(torch, batch):
+    """An order-sensitive checksum of an (images, labels) batch on the
+    device (float64): each image's sum and each label, weighted by their
+    row."""
+    x, y = (t.value if hasattr(t, "value") else t for t in batch)
+    w = torch.arange(1, x.shape[0] + 1, device=x.device,
+                     dtype=torch.float64)
+    return torch.stack([(x.double().sum(dim=(1, 2, 3)) * w).sum(),
+                        (y.double() * w).sum()])
+
+
+def phase_data_path(torch, km, cifar):
+    """19 (a): phase 17's ResNet-50 `Model.fit` at CIFAR-10's shape (the
+    same model, optimizer, data and batch; one epoch, no evaluation)
+    through DataLoader(num_workers=4, prefetch_to_device=2): worker
+    processes assemble the batches, the ring copies them to the card.
+    The dataset is the port's TensorDataset over SyntheticImages'
+    arrays, so spawned workers can unpickle it. Holds: the native ring
+    loaded; the batches the step receives equal (order-sensitive
+    checksums) those of DataLoader(num_workers=0) under the same numpy
+    seed, and so do those of the threaded path (worker threads over the
+    native ring); #10 once a group a step and nothing else. Prints ms a
+    step, images/s, idle share, dataloader.wait_s p50 / p99 and
+    prefetch.h2d_bytes beside phase 17's num_workers=0 run."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn, runtime
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.profiler import monitor
+    from paddle_tpu_torch.vision.models import resnet50
+    lib = runtime.get_lib()
+    check(lib is not None, f"19 (a): the native ring did not load: "
+                           f"{runtime.build_error()}")
+    print(f"  the native runtime loaded: {lib._name}")
+    paddle.set_device("gpu")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # phase 17's (torch's defaults)
+    images = SyntheticImages(VISION["train"])
+    data = TensorDataset([images.x, images.y])
+    B = VISION["batch"]
+
+    class Recording(DataLoader):
+        """A DataLoader that keeps each batch's checksum as it hands the
+        batch on (fit takes a DataLoader as it is)."""
+
+        def __iter__(self):
+            self.sums = []
+            for batch in super().__iter__():
+                self.sums.append(batch_checksum(torch, batch))
+                yield batch
+
+    def epoch_sums(**kw):
+        np.random.seed(SEED)
+        loader = Recording(data, batch_size=B, shuffle=True, **kw)
+        for _ in loader:
+            pass
+        return torch.stack(loader.sums)
+
+    want = epoch_sums()
+    t = time.perf_counter()
+    threaded = epoch_sums(num_workers=DATA_PATH["workers"],
+                          use_shared_memory=False)
+    threaded_s = time.perf_counter() - t
+    check(torch.equal(threaded, want), "19 (a): the threaded path's "
+                                       "batches differ from num_workers=0")
+    print(f"  worker threads over the native ring ({DATA_PATH['workers']} "
+          f"threads): {len(want)} batches equal to num_workers=0's, "
+          f"{threaded_s:.2f}s an epoch")
+
+    paddle.seed(SEED + 20)
+    net = resnet50(num_classes=VISION["classes"])
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.Momentum(
+        learning_rate=VISION["lr"], momentum=VISION["momentum"],
+        parameters=net.parameters()), nn.CrossEntropyLoss(), Accuracy())
+    np.random.seed(SEED)
+    train = Recording(data, batch_size=B, shuffle=True,
+                      num_workers=DATA_PATH["workers"],
+                      prefetch_to_device=DATA_PATH["depth"])
+    n_batches = len(train)
+    rec = {}
+
+    class Clock(Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            torch.cuda.synchronize()
+            rec["t0"] = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            rec["loss"] = logs["loss"][0]
+            if step == 0:
+                torch.cuda.synchronize()
+                rec["t1"] = time.perf_counter()
+            if step == n_batches - 1:
+                torch.cuda.synchronize()
+                rec["t2"] = time.perf_counter()
+                rec["bound"] = train._batch_sharding_fn
+
+    monitor.reset_metrics()
+    zero_counts(km)
+    model.fit(train, epochs=1, verbose=0, callbacks=[Clock()])
+    launches = counts(km)
+    check(torch.equal(torch.stack(train.sums), want),
+          "19 (a): the step's batches differ from num_workers=0's")
+    check(rec["bound"] is not None and train._batch_sharding_fn is None,
+          "19 (a): fit did not bind (or did not release) the step's "
+          "input_sharding")
+    step = model._train_step
+    groups = n_groups(step)
+    want_launches = {k: 0 for k in launches}
+    want_launches["fused_pass2"] = n_batches * groups
+    check(launches == want_launches, f"19 (a): launches {launches}, want "
+                                     f"{want_launches}")
+    loss = float(rec["loss"])
+    check(np.isfinite(loss), f"19 (a): loss {loss}")
+    wall_s = rec["t2"] - rec["t0"]
+    ms = (rec["t2"] - rec["t1"]) / (n_batches - 1) * 1e3
+    wait = monitor.histogram("dataloader.wait_s")
+    h2d = monitor.counter("prefetch.h2d_bytes").value
+    x = torch.from_numpy(images.x[:B]).cuda()
+    y = torch.from_numpy(images.y[:B]).cuda()
+    step(x, y)
+    torch.cuda.synchronize()
+    prof = profile_call(torch, lambda: step(x, y))
+    device_ms, idle, _ = families_time(prof, ms / 1e3, VISION_FAMILIES,
+                                       VISION_REST)
+    check(h2d >= data.tensors[0].nbytes, f"19 (a): {h2d} bytes staged")
+    print(f"  (a) ResNet-50 fit, 1 epoch of {n_batches} steps through "
+          f"{DATA_PATH['workers']} worker processes and the ring (depth "
+          f"{DATA_PATH['depth']}): {ms:.2f} ms a replayed step, "
+          f"{B / ms * 1e3:.0f} images/s ({len(data) / wall_s:.0f} over the "
+          f"epoch, the capture and the workers' start included, "
+          f"{wall_s:.2f}s), device {device_ms:.2f} ms, idle share "
+          f"{idle:.3f}; dataloader.wait_s p50 {wait.percentile(50) * 1e3:.3f}"
+          f" ms, p99 {wait.percentile(99) * 1e3:.3f} ms over {wait.count} "
+          f"batches (the largest, {wait.max:.2f}s, the first: the workers' "
+          f"start, each a spawned process that imports torch and the "
+          f"port); prefetch.h2d_bytes {h2d}; loss {loss:.4f}; launches "
+          f"#10 {launches['fused_pass2']} = {n_batches} x {groups} groups")
+    print(f"  (a) beside phase 17 (num_workers=0, this run): "
+          f"{cifar['ms']:.2f} ms a replayed step, {cifar['images_s']:.0f} "
+          f"images/s, idle share {cifar['idle']:.3f}")
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = flags
+    out = dict(ms=ms, idle=idle, launches=launches, h2d=h2d)
+    del model, step, net, prof
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_prefetch_loop(torch, km, tmods, state, cfg, dots):
+    """19 (b): bench.py's steady loop (bench.py:430-439) on 7c's step
+    (GPT-1.3B bf16, remat "dots", the chunked loss, bench.py's Momentum,
+    both switches set as 7c has them), fed once from the host (each
+    step's [4, 1024] ids copied to the card in the loop) and once through
+    device_prefetch_iterator(depth=2, sharding_fn=step.input_sharding),
+    each from the same weights on the same new host batch every step:
+    the losses bit-equal; the ring's launches those of 7c a step. Prints
+    ms a step, idle share and prefetch.h2d_bytes beside 7c's."""
+    from paddle_tpu_torch.io.device_prefetch import device_prefetch_iterator
+    from paddle_tpu_torch.profiler import monitor
+    run = PREFETCH_LOOP
+    n = run["warmup"] + run["timed"]
+    rng = np.random.RandomState(SEED + 30)
+    host = [rng.randint(0, cfg.vocab_size, size=(BENCH_1P3B["batch"],
+                                                 BENCH_1P3B["seq"])
+                        ).astype(np.int32) for _ in range(n)]
+    res = {}
+    for kind in ("host", "ring"):
+        with switches(True):
+            model, step = bench_step(torch, tmods, state, cfg, "dots")
+            if kind == "host":
+                batches = ((torch.from_numpy(a).cuda(),) * 2 for a in host)
+            else:
+                monitor.reset_metrics()
+                batches = device_prefetch_iterator(
+                    ((a, a) for a in host), depth=run["depth"],
+                    sharding_fn=step.input_sharding)
+            zero_counts(km)
+            losses = []
+            for i, (ids, labels) in enumerate(batches):
+                if i == run["warmup"]:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                losses.append(step(ids, labels))
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t) / run["timed"]
+            launches = counts(km)
+            ids = torch.from_numpy(host[0]).cuda()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                step(ids, ids)
+                torch.cuda.synchronize()
+            device_ms = sum(device_us_by_name(prof).values()) / 1e3
+        res[kind] = dict(
+            losses=torch.stack(losses), ms=step_s * 1e3,
+            device_ms=device_ms or None,
+            idle=max(0.0, 1 - device_ms / (step_s * 1e3)) if device_ms
+            else None, launches=launches,
+            h2d=monitor.counter("prefetch.h2d_bytes").value)
+        del step, model, prof
+        torch.cuda.empty_cache()
+    a, b = res["host"]["losses"], res["ring"]["losses"]
+    check(torch.isfinite(a).all() and torch.equal(a, b),
+          f"19 (b): the ring's losses {b.tolist()} differ from the "
+          f"host-fed loop's {a.tolist()}")
+    ring = res["ring"]
+    for name, per_step in BENCH_1P3B_LAUNCHES.items():
+        check(ring["launches"][name] == n * per_step,
+              f"19 (b): {name}: {ring['launches'][name]} launches, want "
+              f"{n} x {per_step}")
+    want_h2d = 2 * sum(h.nbytes for h in host)
+    check(ring["h2d"] == want_h2d, f"19 (b): prefetch.h2d_bytes "
+                                   f"{ring['h2d']}, want {want_h2d}")
+    for kind, r in res.items():
+        idle = "n/m" if r["idle"] is None else f"{r['idle']:.3f}"
+        dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.2f}"
+        print(f"  (b) {kind}-fed loop: {r['ms']:.2f} ms a step over "
+              f"{run['timed']} timed steps, device {dev} ms (a profiled "
+              f"step), idle share {idle}")
+    idle7c = "n/m" if dots["idle"] is None else f"{dots['idle']:.3f}"
+    print(f"  (b) losses bit-equal over {n} steps ({a[0]:.6f} -> "
+          f"{a[-1]:.6f}); prefetch.h2d_bytes {ring['h2d']}; beside 7c "
+          f"(one device-resident batch, no ring): {dots['ms']:.2f} ms a "
+          f"step, idle share {idle7c}")
+    return ring
+
+
+def phase_generate(torch, mods, state):
+    """20 (a): examples/bench_decode.py's TPU configuration on phase 4's
+    weights: GPT-medium bf16, prompt 32, 128 new tokens, top_k 50, batch
+    1, 8 and 32: `generate` twice (compile_s: the first call, its two
+    captures included), decode tokens/s and e2e ms a new token of the
+    second, the device ms of one decode step (its graph replayed 127
+    times under CUDA events) and that step's bound: the bytes of the
+    weights and of the static cache over HBM bandwidth."""
+    _, GPTForCausalLM, gpt_medium, load_state, _ = mods
+    cfg = gpt_medium()
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    load_state(model, state)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    rng = np.random.RandomState(SEED)
+    T, new, top_k = DECODE["prompt"], DECODE["new"], DECODE["top_k"]
+    out = {}
+    for B in DECODE["batches"]:
+        ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T))).cuda()
+        t = time.perf_counter()
+        model.generate(ids, max_new_tokens=new, top_k=top_k).cpu()
+        compile_s = time.perf_counter() - t
+        t = time.perf_counter()
+        toks = model.generate(ids, max_new_tokens=new, top_k=top_k).cpu()
+        dt = time.perf_counter() - t
+        check(toks.shape == (B, T + new) and torch.equal(toks[:, :T],
+                                                         ids.cpu())
+              and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              f"20 (a) batch {B}: tokens {toks.shape}")
+        prog = model._gen_jit[(B, T, new, top_k, None)]
+        graph = prog.graphs[1][0]
+        prog.step.zero_()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(new - 1):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / (new - 1)
+        cache = 2 * prog.k.numel() * prog.k.element_size()
+        bound_ms = (weights + cache) / HBM_BYTES_PER_S * 1e3
+        out[B] = dict(compile_s=compile_s, tok_s=B * new / dt,
+                      ms_per_token=dt / new * 1e3, step_ms=step_ms,
+                      bound_ms=bound_ms)
+        print(f"  (a) batch {B}: compile_s {compile_s:.2f} (the first "
+              f"call, prefill and decode captured), decode_tok_per_s "
+              f"{B * new / dt:.1f}, e2e_ms_per_new_token "
+              f"{dt / new * 1e3:.3f}; one decode step {step_ms:.3f} device "
+              f"ms (CUDA events over {new - 1} replays), bound "
+              f"{bound_ms:.3f} ms ({weights / 1e6:.1f} MB of weights + "
+              f"{cache / 1e6:.1f} MB of static cache over 3.35 TB/s), "
+              f"{bound_ms / step_ms:.3f} of it", flush=True)
+    check(len(model._gen_jit) == len(DECODE["batches"]),
+          f"20 (a): {len(model._gen_jit)} program sets")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bucketed(torch, km, mods, state, prompts):
+    """20 (b): GenerationEngine(ragged=False), the legacy bucketed loop,
+    against the ragged engine, each on phase 4's engine config, weights
+    and prompts, all greedy, each warmed for every prompt length first:
+    retraces 0 over the traffic; output tokens/s and
+    pad_token_fraction() of each; the streams equal, or at a first
+    mismatch both tokens within BF16_ULPS bf16 ulps of the largest
+    logit (`bf16_rule`, the tier-1 tests' near-tie rule). Returns the
+    ragged run's ragged_paged_attention launches."""
+    GenerationEngine, GPTForCausalLM, gpt_medium, load_state, _ = mods
+    cfg = gpt_medium()
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    load_state(model, state)
+    timed = same_shape_prompts(prompts, SEED + 2, cfg.vocab_size)
+    runs = {}
+    for label, kw in (("ragged", {}), ("bucketed", {"ragged": False})):
+        eng = GenerationEngine(model, **SERVE, **kw)
+        try:
+            t = time.perf_counter()
+            for n in sorted({p.size for p in prompts}):
+                eng.warm(n, NEW_TOKENS)
+            warm_s = time.perf_counter() - t
+            warmed = eng.retraces
+            # an untimed wave first, as phase 4's wave A: the ragged
+            # engine's warm covers one request's schedule, and the
+            # batches of several requests take (tokens, rows)
+            # signatures of their own, captured inline here
+            traffic(eng, prompts)
+            first = eng.retraces - warmed
+            zero_counts(km)
+            _, streams, _, all_s = traffic(eng, timed)
+            launches = counts(km)
+            traced = eng.retraces - warmed - first
+            check(label == "ragged" or first + traced == 0,
+                  f"20 (b) {label}: traffic captured {first + traced}")
+            check(all(len(st) == NEW_TOKENS for st in streams),
+                  f"20 (b) {label}: stream lengths")
+            runs[label] = dict(streams=streams, tok_s=len(prompts)
+                               * NEW_TOKENS / all_s,
+                               pad=eng.pad_token_fraction(),
+                               launches=launches, steps=eng.steps)
+            print(f"  (b) {label}: {warmed} signatures captured by warm in "
+                  f"{warm_s:.2f}s, retraces over the untimed wave {first} "
+                  f"and over the timed one {traced}; the timed wave: "
+                  f"{runs[label]['tok_s']:.1f} output tokens/s "
+                  f"({all_s:.3f}s, prefill included; {eng.steps} steps "
+                  f"over both waves), "
+                  f"pad_token_fraction {runs[label]['pad']:.4f}", flush=True)
+        finally:
+            eng.shutdown()
+    bucketed_launches = {k: v for k, v in runs["bucketed"]["launches"].items()
+                         if v}
+    check(not bucketed_launches, f"20 (b): the bucketed loop launched "
+                                 f"{bucketed_launches}")
+    equal = first_mismatches(torch, model, timed,
+                             runs["bucketed"]["streams"],
+                             runs["ragged"]["streams"], [None] * len(timed),
+                             "20 (b) bucketed vs ragged", bf16_rule)
+    print(f"  (b) streams equal: {equal}/{len(prompts)} (the rest excused "
+          f"by the near-tie rule above)")
+    del model
+    torch.cuda.empty_cache()
+    return runs["ragged"]["launches"]["ragged_paged_attention"]
+
+
+def phase_inference_engine(torch):
+    """20 (c): InferenceEngine over bench.py --serve's model (Linear(2048,
+    2048), Tanh, Linear(2048, 2048), float32, TF32 off) with
+    BucketLadder((1, 2, 4, 8)) warmed, 8 closed-loop client threads of
+    40 requests [1, 2048] each: requests/s, p50 / p99 ms, mean batch,
+    retraces 0 over the traffic; the serial baseline (the same model, one
+    request at a time, each read back); every output within 1e-5
+    relative of the serial one on the same input."""
+    import threading
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.inference import BucketLadder, InferenceEngine
+    paddle.set_device("gpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        paddle.seed(SEED)
+        nn = paddle.nn
+        model = nn.Sequential(nn.Linear(SERVE_DIM, SERVE_DIM), nn.Tanh(),
+                              nn.Linear(SERVE_DIM, SERVE_DIM))
+        rng = np.random.RandomState(SEED)
+        xs = rng.randn(SERVE_CLIENTS, SERVE_REQS, 1, SERVE_DIM).astype(
+            np.float32)
+        with torch.no_grad():
+            model(torch.from_numpy(xs[0, 0]).cuda()).cpu()  # warm cuBLAS
+            serial = np.empty_like(xs)
+            t = time.perf_counter()
+            for c in range(SERVE_CLIENTS):
+                for i in range(SERVE_REQS):
+                    serial[c, i] = model(torch.from_numpy(
+                        xs[c, i]).cuda()).cpu().numpy()
+            serial_s = time.perf_counter() - t
+        ladder = BucketLadder(SERVE_LADDER)
+        eng = InferenceEngine(model, batch_sizes=ladder.batch_sizes)
+        try:
+            t = time.perf_counter()
+            caps = eng.warm(xs[0, 0])
+            warm_s = time.perf_counter() - t
+            got = np.empty_like(xs)
+            lat = [[] for _ in range(SERVE_CLIENTS)]
+
+            def client(c):
+                for i in range(SERVE_REQS):
+                    t0 = time.perf_counter()
+                    got[c, i] = eng.submit(xs[c, i]).result(timeout=300)
+                    lat[c].append(time.perf_counter() - t0)
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVE_CLIENTS)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - t
+            check(eng.retraces == caps == len(SERVE_LADDER),
+                  f"20 (c): {caps} captured by warm, retraces "
+                  f"{eng.retraces}")
+            batches, rows = eng.batches, eng.rows
+        finally:
+            eng.shutdown()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    n = SERVE_CLIENTS * SERVE_REQS
+    check(rows == n, f"20 (c): {rows} rows served of {n}")
+    rel = float(np.abs(got - serial).max() / np.abs(serial).max())
+    check(rel <= 1e-5, f"20 (c): outputs {rel:.3g} from the serial ones")
+    lat = np.sort(np.concatenate(lat)) * 1e3
+    print(f"  (c) {SERVE_CLIENTS} clients x {SERVE_REQS} requests: "
+          f"{n / wall:.1f} requests/s, p50 {np.percentile(lat, 50):.3f} ms, "
+          f"p99 {np.percentile(lat, 99):.3f} ms, mean batch "
+          f"{rows / batches:.2f} ({batches} batches); warm captured {caps} "
+          f"buckets in {warm_s:.2f}s, retraces over the traffic 0; serial "
+          f"baseline {n / serial_s:.1f} requests/s "
+          f"({serial_s / n * 1e3:.3f} ms a request); outputs within "
+          f"{rel:.2g} relative of the serial ones (TF32 off)")
+
+
+def phase_legacy_agreement(torch, mods, state):
+    """20 (d): a 2-layer float32 GPT-medium (phase 5's weights), card
+    against CPU, TF32 off: generate(top_k=1) on 4 prompts of 32, 32 new
+    tokens, tokens equal (or at a first mismatch the CPU's top-2 logit
+    gap at most GAP_LIMIT, phase 5's rule); paged_decode_step over three
+    sequences of 40, 17 and 64 tokens, 8 decode steps padded to 4 rows,
+    the CPU's tokens fed to both: logits within TOL float32 (phase 5's)."""
+    _, GPTForCausalLM, gpt_medium, load_state, _ = mods
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gpt_medium()
+    cfg.num_layers = 2
+    small = first_layers(state, cfg.num_layers)
+    models = {}
+    for device in ("cuda", "cpu"):
+        models[device] = GPTForCausalLM(cfg, device=device)
+        load_state(models[device], small)
+    c = AGREE_DECODE
+    rng = np.random.RandomState(SEED + 40)
+    ids = rng.randint(0, cfg.vocab_size, (c["batch"], c["prompt"]))
+    gen = {d: m.generate(torch.from_numpy(ids).to(d), max_new_tokens=c["new"],
+                         top_k=1).cpu().numpy()[:, c["prompt"]:].tolist()
+           for d, m in models.items()}
+    equal = first_mismatches(torch, models["cpu"], list(ids), gen["cuda"],
+                             gen["cpu"], [None] * len(ids),
+                             "20 (d) generate", gap_rule(GAP_LIMIT))
+    print(f"  (d) generate(top_k=1): {equal}/{len(ids)} streams equal on "
+          f"card and CPU")
+    caches = {d: m.make_paged_cache(64, P) for d, m in models.items()}
+    worst = 0.0
+    sids = [f"s{i}" for i in range(len(c["lengths"]))]
+    for sid, n in zip(sids, c["lengths"]):
+        prompt = rng.randint(0, cfg.vocab_size, (1, n))
+        outs = {}
+        for d, m in models.items():
+            caches[d].add_sequence(sid)
+            outs[d] = m.paged_decode_step(
+                caches[d], [sid], torch.from_numpy(prompt).to(d)).cpu()
+        worst = max(worst, float((outs["cuda"] - outs["cpu"]).abs().max()))
+    toks = torch.argmax(outs["cpu"], -1)[:, None].repeat(len(sids), 1)
+    for _ in range(c["steps"]):
+        outs = {d: m.paged_decode_step(caches[d], sids, toks.to(d),
+                                       pad_to=4).cpu()
+                for d, m in models.items()}
+        worst = max(worst, float((outs["cuda"] - outs["cpu"]).abs().max()))
+        toks = torch.argmax(outs["cpu"], -1)[:, None]
+    check(worst <= TOL["torch.float32"], f"20 (d): paged_decode_step logits "
+                                         f"{worst:.3g} apart")
+    traces = models["cuda"]._paged_decode_traces
+    print(f"  (d) paged_decode_step: prefill and {c['steps']} decode steps "
+          f"(pad_to 4), logits card vs CPU within {worst:.3g} (limit "
+          f"{TOL['torch.float32']}); {traces} decode signature(s) captured")
+
+
+def phase_legacy_generation(torch, km, mods, state, prompts):
+    """Phase 20: (a), (b), (c), (d). Returns (b)'s kernel launches."""
+    t0 = time.perf_counter()
+    print("  (a) examples/bench_decode.py: GPT-medium bf16 generate(), "
+          "prompt 32, 128 new, top_k 50", flush=True)
+    phase_generate(torch, mods, state)
+    print("  (b) GenerationEngine(ragged=False) against the ragged engine, "
+          "phase 4's config and prompts, greedy", flush=True)
+    launches = phase_bucketed(torch, km, mods, state, prompts)
+    print("  (c) InferenceEngine: bench.py --serve's MLP, BucketLadder"
+          f"({SERVE_LADDER}), {SERVE_CLIENTS} client threads", flush=True)
+    phase_inference_engine(torch)
+    print("  (d) 2-layer float32 GPT: generate and paged_decode_step, card "
+          "vs CPU", flush=True)
+    phase_legacy_agreement(torch, mods, state)
+    print(f"  phase 20 took {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6243,8 +6826,8 @@ def main():
     print("[7b] GPT-1.3B bf16 (head_dim 128) through TrainStep with "
           "PADDLE_TPU_PALLAS_LN=1 and PADDLE_TPU_PALLAS_XENT=1; then 2 of its "
           "layers in float32, card vs CPU", flush=True)
-    train_1p3b, train_1p3b_sr, bench = phase_train_1p3b(torch, km, tmods,
-                                                        gpt_1p3b)
+    train_1p3b, train_1p3b_sr, bench, state_1p3b, cfg_1p3b = \
+        phase_train_1p3b(torch, km, tmods, gpt_1p3b)
 
     print("[8] 2-layer float32 training: card vs CPU, each epilogue, and "
           "the LayerNorm and xent kernels switched on; the eager loop, Lamb "
@@ -6304,7 +6887,7 @@ def main():
           "at ImageNet's shape (float32, O1 bf16), the eager loop, "
           "ResNet-18 card vs CPU, a replay against its eager body",
           flush=True)
-    phase_vision(torch, km)
+    vision = phase_vision(torch, km)
 
     print("[18] the recurrent slice: Transformer-base seq2seq (TrainStep on "
           "the default route and with PADDLE_TPU_PALLAS_LN=1 and "
@@ -6313,13 +6896,37 @@ def main():
           "device queries", flush=True)
     phase_seq2seq(torch, km, card)
 
+    print("[19] the data path: (a) phase 17's ResNet-50 fit through "
+          f"DataLoader(num_workers={DATA_PATH['workers']}, "
+          f"prefetch_to_device={DATA_PATH['depth']}); (b) bench.py's "
+          "steady loop on 7c's step through device_prefetch_iterator",
+          flush=True)
+    data_path = phase_data_path(torch, km, vision["cifar"])
+    prefetch_loop = phase_prefetch_loop(torch, km, tmods, state_1p3b,
+                                        cfg_1p3b, bench["dots"])
+    del state_1p3b
+
+    print("[20] the legacy generation path: static-cache generate, the "
+          "bucketed GenerationEngine, InferenceEngine, card vs CPU",
+          flush=True)
+    legacy_launches = phase_legacy_generation(torch, km, mods, state,
+                                              prompts)
+    # the new phases' launches, added to the main paths' counts
+    extra = {"ragged_paged_attention": legacy_launches,
+             "fused_pass2": data_path["launches"]["fused_pass2"]}
+    extra.update({name + "_d128": prefetch_loop["launches"][name]
+                  for name, _ in FLASH_KERNELS})
+    extra.update({name: prefetch_loop["launches"][name]
+                  for name, _ in NORM_KERNELS + XENT_KERNELS})
+    extra[TREE_KERNEL[0]] = prefetch_loop["launches"][TREE_KERNEL[0]]
+
     main_step = held["decode"]
     kernels = [{
         "name": "ragged_paged_attention",
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:128",
-        "launches": launches,
+        "launches": launches + extra["ragged_paged_attention"],
         "max_abs_err": max(h["max_abs_err"] for h in held.values()),
         "ms": main_step["ms"],
         "plain_ms": main_step["plain_ms"],
@@ -6346,7 +6953,8 @@ def main():
         m = meas[name]
         kernels.append({
             "name": name + suffix, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": run["launches"][name],
+            "replaces": replaces, "launches": run["launches"][name]
+            + extra.get(name + suffix, 0),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
@@ -6359,7 +6967,8 @@ def main():
              train_bf16_state["launches"]["fused_pass2"]),
             (TREE_KERNEL[0], "paddle_tpu_torch/csrc/tree_update.cu",
              TREE_KERNEL[1], tree_main,
-             train_1p3b_sr["launches"][TREE_KERNEL[0]]),
+             train_1p3b_sr["launches"][TREE_KERNEL[0]]
+             + extra[TREE_KERNEL[0]]),
             (SR_KERNEL[0], "paddle_tpu_torch/csrc/stochastic_round.cu",
              SR_KERNEL[1], sr_main, train_k2["launches"][SR_KERNEL[0]])):
         kernels.append({
@@ -6378,7 +6987,7 @@ def main():
         "ms": scan_main["ms"], "plain_ms": scan_main["plain_ms"],
         "bound_ms": scan_main["bound_ms"], "bound_by": scan_main["bound_by"],
         "library_ms": None})
-    print(f"[19] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
+    print(f"[21] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
           f"run time); paged "
           f"attention times are of the served decode step's layer-0 call, "
           f"flash times of the training shapes [8, 1024, 16, 64] (and, "

@@ -37,7 +37,11 @@ and small nets, `io`'s DataLoader, `metric` and hapi's `Model` (`fit`
 the recurrent layers, `BeamSearchDecoder` / `dynamic_decode` and the
 rest of `nn`, the TensorArray ops, the rest of `device` (memory stats,
 `Stream`, `Event`, `device.cuda`), the places and flags, and
-`models.Seq2SeqTransformer`. So
+`models.Seq2SeqTransformer`; then `io`'s worker processes and
+threads and the device prefetch ring, `reader`, `callbacks`, the
+legacy generation path (`GPTForCausalLM.generate` over a static cache,
+`paged_decode_step`) and `inference`'s `InferenceEngine` /
+`BucketLadder` and the bucketed `GenerationEngine(ragged=False)`. So
 `import paddle_tpu_torch as paddle` runs a Paddle dygraph program:
 build a `Layer`, `loss.backward()`, `opt.step()`, `opt.clear_grad()`,
 under `paddle.amp.auto_cast` too, or `paddle.Model(net).fit(loader)`.
@@ -76,6 +80,8 @@ from .device import (set_device, get_device, is_compiled_with_cuda,
 from .tensor.search import where, nonzero, argmax, argmin  # noqa: F401
 from . import nn, optimizer, amp, jit, regularizer  # noqa: F401,E402
 from . import io, metric, vision, hapi  # noqa: F401,E402
+from . import (inference, models, ops, profiler, reader,  # noqa: F401,E402
+               callbacks)
 from .hapi import Model, flops, summary  # noqa: F401,E402
 
 bool = bool_  # noqa: A001 -- Paddle exposes `paddle.bool`

@@ -21,7 +21,11 @@ its compiled step:
   metrics from `metric.compute(out, label)` and returns each batch's
   loss as a `jit.deferred.DeferredLoss`, read once at the pass's end;
 - `save(path)` writes `path.pdparams` (and `path.pdopt`), `load` reads
-  them back; `summary` is hapi/model_summary.py's.
+  them back; `summary` is hapi/model_summary.py's;
+- `fit` over a DataLoader with `prefetch_to_device` hands the device
+  prefetch ring its step's `input_sharding` at each epoch's start (a fn
+  the user set stays) and takes it back before an evaluation and when
+  fit returns, so the loader never pins a dropped step.
 
 Not ported yet: `fit(resume=)` (checkpoints and the elastic controller,
 ROADMAP.md queue A, item A.13) and `save(training=False)` (`jit.save`,
@@ -59,6 +63,15 @@ def _batch_shapes(batch):
     """Shape signature of one loader batch: microbatches stack into one
     update only when every field's shape matches."""
     return [tuple(t.shape) if hasattr(t, "shape") else None for t in batch]
+
+
+def _unbind_fit_sharding(loader):
+    """Release a fit-bound prefetch placement fn (a bound method of a
+    TrainStep: holding it pins the step and its device state). A fn the
+    user set is not fit's to release."""
+    if getattr(loader, "_sharding_from_fit", False):
+        loader._batch_sharding_fn = None
+        loader._sharding_from_fit = False
 
 
 class Model:
@@ -183,20 +196,38 @@ class Model:
         cbks = cb_mod.config_callbacks(callbacks, self, epochs, None,
                                        verbose, log_freq, save_dir,
                                        save_freq, self._metrics)
+
+        def bind_prefetch_sharding():
+            # (re)bind the CURRENT step for the device prefetch ring: a fn
+            # of an older step (a previous fit, or the step evaluate()
+            # dropped) must not pin that step; a fn the user set stays.
+            # Without prefetch nothing happens, and the step is still made
+            # at the first batch
+            if not getattr(loader, "prefetch_to_device", 0):
+                return
+            self._ensure_train_step()
+            if getattr(loader, "_batch_sharding_fn", None) is None \
+                    or getattr(loader, "_sharding_from_fit", False):
+                loader._batch_sharding_fn = self._train_step.input_sharding
+                loader._sharding_from_fit = True
+
         cbks.on_begin("train")
         try:
             self._fit_epochs(loader, eval_data, batch_size, epochs,
                              eval_freq, save_dir, save_freq, num_workers,
-                             cbks, k, num_iters)
+                             cbks, k, num_iters, bind_prefetch_sharding)
         finally:
+            _unbind_fit_sharding(loader)  # a loader outliving fit
             cbks.on_end("train")
 
     def _fit_epochs(self, loader, eval_data, batch_size, epochs, eval_freq,
-                    save_dir, save_freq, num_workers, cbks, k, num_iters):
+                    save_dir, save_freq, num_workers, cbks, k, num_iters,
+                    bind_sharding):
         steps_done = 0
         ragged_warned = False
         for epoch in range(epochs):
             cbks.on_epoch_begin(epoch)
+            bind_sharding()  # after the callbacks; evaluate() drops the step
             for m in self._metrics:
                 m.reset()
             logs = {}
@@ -259,6 +290,7 @@ class Model:
                     logs["anomalies"] = (logs.get("anomalies") or []) + \
                         det.drain()
             if eval_data is not None and (epoch + 1) % eval_freq == 0:
+                _unbind_fit_sharding(loader)
                 eres = self.evaluate(eval_data, batch_size=batch_size,
                                      verbose=0, num_workers=num_workers)
                 logs.update({"eval_" + k2: v for k2, v in eres.items()})

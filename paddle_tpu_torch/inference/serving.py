@@ -51,12 +51,30 @@ included: ragged paged attention, the selective scan; a replay adds the
 launches its capture recorded), `_spec_proposed` / `_spec_accepted`
 (draft tokens proposed and accepted).
 
-Not ported yet (ROADMAP.md queue A): the engine's `cache=`, `name=`,
-`ragged=`, `prefix_cache=` and `kv_snapshot_every` options (the
-signature takes them in the reference's order; a value other than the
-reference's default raises NotImplementedError), prefill/decode handoff and the router, the legacy bucketed path and
-`InferenceEngine`, and the observatory records.
+`GenerationEngine(ragged=False)` runs the reference's legacy bucketed
+loop instead (`_admit`, `_decode_step`): a queued prompt is prefilled
+whole, eagerly, between decode steps, and one decode step advances every
+active sequence, its batch padded to a power of two with rows that write
+the pad page (`GPTForCausalLM.paged_decode_step`, a CUDA graph a (batch,
+table width) signature; `warm` captures those a request touches,
+where the reference's bucketed engine warms nothing); greedy only, no
+prefix cache; `pad_token_fraction()` counts its score slots slot by
+slot, the pad rows and the power-of-two width included. `name=` names
+the engine's sequences.
+
+`InferenceEngine` serves stateless models over a `BucketLadder`: a
+dispatcher thread coalesces same-signature requests into padded bucket
+batches and runs one captured program a bucket (`_as_jitted`: a frozen
+eval-mode parameter snapshot). `_SchedulerLifecycle` is both engines'
+drain / shutdown core.
+
+Not ported yet (ROADMAP.md queue A): the engine's `cache=`,
+`prefix_cache=` and `kv_snapshot_every` options (the signature takes
+them in the reference's order; a value other than the reference's
+default raises NotImplementedError, A.7), prefill/decode handoff and
+the router (A.8), and the observatory records and `load_report` (A.10).
 """
+import functools
 import itertools
 import threading
 import time
@@ -67,6 +85,9 @@ from concurrent.futures import Future, InvalidStateError
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from ..framework.core import unwrap_tree
+from ..models.gpt import _GraphState, capture_graph
 from ..ops.attention_core import MIN_Q_TOKENS
 from ..ops.kernels.paged_attention import (ragged_paged_attention,
                                            ragged_work_plan)
@@ -76,8 +97,8 @@ from .cache_strategy import strategy_of
 from .speculative import SpeculativeConfig, accept_length
 
 __all__ = ["ServingError", "QueueFullError", "DeadlineExceeded",
-           "EngineStopped", "GenerationEngine", "GenerationHandle",
-           "SamplingParams"]
+           "EngineStopped", "BucketLadder", "InferenceEngine",
+           "GenerationEngine", "GenerationHandle", "SamplingParams"]
 
 class SamplingParams:
     """Per-request decode sampling config (`GenerationEngine.submit`).
@@ -146,6 +167,151 @@ class DeadlineExceeded(ServingError):
 
 class EngineStopped(ServingError):
     """submit() after shutdown()/drain() closed the engine."""
+
+
+class BucketLadder:
+    """The shape-bucket ladder: batch sizes round UP to the smallest
+    bucket that fits (requests above the top bucket are rejected at
+    submit), sequence lengths pad up to the smallest seq bucket. One
+    captured program per (batch bucket, seq bucket) serves every request
+    shape in that cell, so steady-state serving replays only programs
+    captured ahead."""
+
+    def __init__(self, batch_sizes=(1, 2, 4, 8), seq_buckets=None):
+        if not batch_sizes:
+            raise ValueError("BucketLadder needs at least one batch size")
+        self.batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))
+        if self.batch_sizes[0] < 1:
+            raise ValueError("batch buckets must be >= 1")
+        self.seq_buckets = tuple(sorted(set(int(s) for s in seq_buckets))) \
+            if seq_buckets else None
+
+    @property
+    def max_batch(self):
+        return self.batch_sizes[-1]
+
+    def batch(self, n):
+        """Smallest batch bucket >= n (None when n exceeds the top)."""
+        for b in self.batch_sizes:
+            if n <= b:
+                return b
+        return None
+
+    def seq(self, t):
+        """Smallest seq bucket >= t; identity when no seq ladder."""
+        if self.seq_buckets is None:
+            return t
+        for s in self.seq_buckets:
+            if t <= s:
+                return s
+        raise ValueError(
+            f"sequence length {t} exceeds the largest seq bucket "
+            f"{self.seq_buckets[-1]} — extend the ladder")
+
+
+class _Request:
+    __slots__ = ("arrays", "n", "key", "future", "deadline", "t_submit")
+
+    def __init__(self, arrays, n, key, deadline):
+        self.arrays = arrays
+        self.n = n
+        self.key = key  # coalescing signature, computed once at submit
+        self.future = Future()
+        self.deadline = deadline
+        self.t_submit = time.perf_counter()
+
+
+def _to_ndarray(a):
+    """One request leaf as a host ndarray the ENGINE owns: an ndarray is
+    copied (submit returns before dispatch, and a caller reusing its
+    buffer must not change a queued request); Tensors and torch tensors
+    are read to the host."""
+    if hasattr(a, "value") and not isinstance(a, torch.Tensor):
+        a = a.value  # a Paddle Tensor
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    if isinstance(a, np.ndarray):
+        return a.copy()
+    return np.asarray(a)
+
+
+def _as_jitted(model):
+    """The function of torch tensors that the engine captures a program
+    of, and its device:
+
+    - an nn.Layer (a torch.nn.Module): `torch.func.functional_call` over
+      a FROZEN eval-mode snapshot of its parameters and buffers (private
+      copies: the programs stay valid whatever the caller does to the
+      live weights; rebuild the engine to serve new ones), under
+      no_grad, on the model's device;
+    - a TranslatedLayer (jit.load) raises: `jit.save` / `jit.load` are
+      not ported yet (ROADMAP.md queue A, item A.14);
+    - any other callable of tensors: as it is, on the current device.
+    """
+    if type(model).__name__ == "TranslatedLayer":
+        raise NotImplementedError(
+            "InferenceEngine over a TranslatedLayer: jit.save / jit.load "
+            "are not ported yet (ROADMAP.md queue A, item A.14)")
+    if isinstance(model, torch.nn.Module):
+        state = {k: v.detach().clone()
+                 for k, v in itertools.chain(model.named_parameters(),
+                                             model.named_buffers())}
+        first = next(iter(state.values()), None)
+        device = first.device if first is not None \
+            else resolve_device(None)
+
+        def call(*xs):
+            was = model.training
+            model.eval()
+            try:
+                with torch.no_grad():
+                    out = torch.func.functional_call(model, state, xs)
+            finally:
+                model.train(was)
+            return unwrap_tree(out)
+        return call, device
+    if callable(model):
+        def plain(*xs):
+            with torch.no_grad():
+                return unwrap_tree(model(*xs))
+        return plain, resolve_device(None)
+    raise TypeError(f"cannot serve {type(model).__name__}: expected a "
+                    "Layer or a callable of tensors")
+
+
+class _Bucket:
+    """One (batch bucket, seq bucket) program of an InferenceEngine: on
+    the card a CUDA graph over static input buffers (the padded batch is
+    copied in, then replayed; its outputs are static buffers that the
+    next replay overwrites), on the CPU the function eagerly. `capture_s`
+    is the capture's seconds (0 on the CPU)."""
+
+    __slots__ = ("fn", "graph", "inputs", "outputs", "capture_s",
+                 "replays")
+
+    def __init__(self, fn, specs, device, state):
+        self.fn, self.graph, self.outputs = fn, None, None
+        self.inputs = [torch.zeros(shape, dtype=dtype, device=device)
+                       for shape, dtype in specs]
+        self.capture_s = 0.0
+        self.replays = 0
+        if device.type == "cuda":
+            t = time.perf_counter()
+            self.graph, self.outputs, _ = capture_graph(
+                state, lambda: fn(*self.inputs))
+            self.capture_s = time.perf_counter() - t
+
+    def run(self, cols):
+        """The outputs (a tensor or a tuple) for the padded host columns
+        `cols`: copied in from pinned memory and replayed on the card,
+        computed on the CPU."""
+        if self.graph is None:
+            return self.fn(*(torch.from_numpy(c) for c in cols))
+        for static, c in zip(self.inputs, cols):
+            static.copy_(torch.from_numpy(c).pin_memory(), non_blocking=True)
+        self.graph.replay()
+        self.replays += 1
+        return self.outputs
 
 
 def _resolve_future(fut, value):
@@ -262,7 +428,471 @@ def _run_scheduler(ref, device):
         del eng  # drop the strong ref before the next iteration
 
 
-class GenerationEngine:
+class _SchedulerLifecycle:
+    """The scheduler core both engines share: the stop-the-world
+    admission gate (`_stopping`), drain to empty, shutdown with optional
+    cancel. Subclasses provide `_outstanding()` (any queued or claimed
+    work?), `_take_pending()` / `_take_outstanding()` (detach doomed work
+    UNDER the lock), `_reject_detached()` (reject it OUTSIDE the lock:
+    set_exception runs done-callbacks synchronously, and one that
+    re-enters the engine would deadlock under `_cv`) and optionally
+    `_fail_warm(exc)` (queued warm-ups a dead engine will never run), and
+    keep `_outstanding()` truthful across every lock release: that is
+    the whole drain() contract."""
+
+    _paused = False  # engines without pause() still drain through here
+
+    def drain(self, timeout=None):
+        """Stop admission, then block until every queued and in-flight
+        request has resolved. Returns True when fully drained."""
+        end = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            self._stopping = True
+            self._paused = False  # a paused engine must still drain
+            self._cv.notify_all()
+            while self._outstanding():
+                left = None if end is None else end - time.monotonic()
+                if left is not None and left <= 0:
+                    return False
+                self._cv.wait(0.05 if left is None else min(left, 0.05))
+        return True
+
+    def shutdown(self, wait=True):
+        """Drain (wait=True) or cancel pending work (wait=False), then
+        stop the scheduler thread. Idempotent; submit() afterwards
+        raises EngineStopped."""
+        if wait:
+            self.drain()
+        doomed = []
+        with self._cv:
+            self._stopping = True
+            self._paused = False
+            if not wait:
+                doomed = self._take_pending()
+            self._cv.notify_all()
+        self._reject_detached(doomed, EngineStopped("engine shut down"))
+        self._thread.join(timeout=10)
+
+    def __del__(self):
+        if getattr(self, "_cv", None) is None:
+            return  # __init__ raised before the lock existed
+        with self._cv:
+            self._stopping = True
+            # the scheduler thread holds only a weakref, which is gone:
+            # detach what is still queued or in flight and reject it, so
+            # callers blocked in Future.result() fail instead of hanging
+            doomed = self._take_outstanding()
+            self._cv.notify_all()
+        exc = EngineStopped("engine abandoned without shutdown()")
+        self._reject_detached(doomed, exc)
+        self._fail_warm(exc)
+
+    def _scheduler_crashed(self, exc):
+        """Last resort: the loop core itself raised. Fail every
+        outstanding request with the cause chained and refuse new
+        submits."""
+        err = ServingError(
+            "scheduler thread crashed; this engine is dead — rebuild it")
+        err.__cause__ = exc
+        with self._cv:
+            self._stopping = True
+            doomed = self._take_outstanding()
+            self._cv.notify_all()
+        self._reject_detached(doomed, err)
+        self._fail_warm(err)
+
+    def _fail_warm(self, exc):
+        """Reject queued warm-ups (engines that queue them override)."""
+
+
+_STOP = object()
+# per-engine names: engines in one process tell their sequences apart
+_ENGINE_IDS = itertools.count()
+
+
+class InferenceEngine(_SchedulerLifecycle):
+    """Continuous-batching engine for stateless models.
+
+        engine = InferenceEngine(layer, batch_sizes=(1, 2, 4, 8))
+        engine.warm(example)           # one captured program a bucket
+        fut = engine.submit(x)         # Future; x has a leading batch dim
+        y = fut.result()
+
+    Scheduling (the reference's): a bounded queue (fast-fail
+    `QueueFullError` when full) feeds one dispatcher thread, which pops
+    the oldest request, waits up to `max_wait_ms` to coalesce more
+    SAME-SIGNATURE requests (same dtype and trailing shape after seq
+    bucketing) up to the top batch bucket, pads the fused batch to the
+    ladder and runs ONE program (`_as_jitted`: a frozen eval-mode
+    snapshot of the model; on the card a CUDA graph a (batch bucket, seq
+    bucket), captured by `warm` or, counted in `retraces`, at the first
+    batch of a bucket no warm covered). Up to `pipeline` batches are in
+    flight: each batch's outputs start their copy to pinned host memory
+    behind a CUDA event at dispatch, and the dispatcher resolves the
+    oldest once it has `pipeline` of them or nothing else to do. Results
+    are host ndarrays sliced per request.
+
+    Requests whose deadline (`submit(..., deadline_ms=)`) passes while
+    queued fail with `DeadlineExceeded`. `drain()` stops admission and
+    finishes everything in flight; `shutdown()` drains (or cancels,
+    `wait=False`) and joins the thread; `pause()` / `resume()` hold
+    dispatch. Plain counters: `retraces` (programs captured), `batches`
+    and `rows` (dispatched; rows / batches is the mean batch). Not ported
+    yet:
+    `load_report` and `observatory_snapshot` (the serving observatory,
+    ROADMAP.md queue A, item A.10)."""
+
+    def __init__(self, model, batch_sizes=(1, 2, 4, 8), seq_buckets=None,
+                 seq_axis=1, max_queue=64, max_wait_ms=2.0, pad_value=0,
+                 pipeline=2, name=None):
+        self.name = name or f"infer{next(_ENGINE_IDS)}"
+        self.ladder = BucketLadder(batch_sizes, seq_buckets)
+        self.seq_axis = int(seq_axis)
+        self.max_queue = int(max_queue)
+        self.max_wait_s = float(max_wait_ms) / 1000.0
+        self.pad_value = pad_value
+        self.pipeline = max(1, int(pipeline))
+        self._fn, self.device = _as_jitted(model)
+        self._graphs = _GraphState(self.device)  # the buckets' pool
+        self._exec = {}          # sig -> _Bucket
+        self._compile_lock = threading.Lock()  # warm() vs lazy dispatch
+        self.retraces = 0        # bucket programs captured (warm or lazy)
+        self.batches = 0
+        self.rows = 0
+        self._buf = deque()
+        self._cv = threading.Condition()
+        self._stopping = False   # no new submits
+        self._paused = False
+        self._inflight = 0       # requests claimed, not yet resolved
+        self._expired_reqs = deque()  # deferred rejections (dispatcher)
+        self._pending_results = deque()  # dispatched, to resolve
+        self._thread = threading.Thread(
+            target=_run_scheduler, args=(weakref.ref(self), self.device),
+            name="serve-dispatch", daemon=True)
+        self._thread.start()
+
+    # -- admission -------------------------------------------------------
+    def submit(self, *args, deadline_ms=None):
+        """Enqueue one request (every arg carries the same leading batch
+        dim) and return its Future, which resolves to the model output(s)
+        as host ndarrays sliced to this request's rows. Raises
+        QueueFullError / EngineStopped at once; a deadline_ms that
+        expires in the queue fails the Future with DeadlineExceeded."""
+        arrays = [_to_ndarray(a) for a in args]
+        if not arrays:
+            raise ValueError("submit() needs at least one input array")
+        n = int(arrays[0].shape[0]) if arrays[0].ndim else 0
+        for a in arrays:
+            if a.ndim == 0 or a.shape[0] != n:
+                raise ValueError(
+                    "every input must carry the same leading batch dim; "
+                    f"got {[tuple(x.shape) for x in arrays]}")
+        if n < 1 or self.ladder.batch(n) is None:
+            raise ValueError(
+                f"request batch {n} does not fit the ladder "
+                f"{self.ladder.batch_sizes} (max "
+                f"{self.ladder.max_batch} rows per request)")
+        # the coalescing key doubles as validation: an over-bucket seq
+        # length raises HERE, not in the scheduler thread
+        key = self._key_of(arrays)
+        deadline = None if deadline_ms is None else \
+            time.perf_counter() + float(deadline_ms) / 1000.0
+        req = _Request(arrays, n, key, deadline)
+        with self._cv:
+            if self._stopping:
+                raise EngineStopped("engine is drained/shut down")
+            if len(self._buf) >= self.max_queue:
+                raise QueueFullError(
+                    f"serving queue full ({self.max_queue} waiting) — "
+                    "shed load or raise max_queue")
+            self._buf.append(req)
+            self._cv.notify_all()
+        return req.future
+
+    def __call__(self, *args, deadline_ms=None, timeout=None):
+        """Synchronous convenience: submit + result."""
+        return self.submit(*args, deadline_ms=deadline_ms).result(timeout)
+
+    # -- warming ---------------------------------------------------------
+    def warm(self, *example):
+        """Capture one program per batch bucket for this example's
+        signature (trailing shape and dtype after seq bucketing; the
+        example's own leading dim is ignored), on the calling thread.
+        Returns the number captured NOW (already-warm buckets are
+        free)."""
+        return sum(1 for h in self.warm_async(*example) if h.fresh)
+
+    def warm_async(self, *example):
+        """The reference's non-blocking warm: here every capture runs at
+        the call (a CUDA graph is captured on the calling thread), so the
+        returned `jit.warm.WarmHandle`s are already done."""
+        from ..jit.warm import WarmHandle
+        arrays = [_to_ndarray(a) for a in example]
+        handles = []
+        for b in self.ladder.batch_sizes:
+            specs = self._bucket_specs(arrays, b)
+            h = WarmHandle(f"serve.{self.name}.batch{b}")
+            try:
+                entry, h.fresh = self._ensure_compiled(specs)
+                h._finish((entry, {"compile_s": entry.capture_s}), None)
+            except Exception as e:
+                h._finish(None, e)
+                raise
+            handles.append(h)
+        return handles
+
+    def _bucket_specs(self, arrays, b):
+        """(shape, torch dtype) of each padded input of bucket b."""
+        specs = []
+        for a in arrays:
+            shape = list(a.shape)
+            shape[0] = b
+            if a.ndim > self.seq_axis:
+                shape[self.seq_axis] = self.ladder.seq(shape[self.seq_axis])
+            specs.append((tuple(shape),
+                          torch.from_numpy(np.zeros(0, a.dtype)).dtype))
+        return specs
+
+    def _ensure_compiled(self, specs):
+        """(the bucket's program, whether it was captured now)."""
+        sig = tuple(specs)
+        with self._compile_lock:
+            entry = self._exec.get(sig)
+            if entry is not None:
+                return entry, False
+            entry = _Bucket(self._fn, specs, self.device, self._graphs)
+            self._exec[sig] = entry
+            self.retraces += 1
+        return entry, True
+
+    # -- the scheduler core ------------------------------------------------
+    def _key_of(self, arrays):
+        """Coalescing key: requests fuse only when their padded trailing
+        shapes and dtypes agree (the batch dim is the ladder's)."""
+        parts = []
+        for a in arrays:
+            shape = list(a.shape[1:])
+            if a.ndim > self.seq_axis:
+                shape[self.seq_axis - 1] = self.ladder.seq(
+                    a.shape[self.seq_axis])
+            parts.append((tuple(shape), str(a.dtype)))
+        return tuple(parts)
+
+    def _expired(self, req, now):
+        """Drop a dead request (under self._cv); its rejection waits for
+        _flush_expired, outside the lock."""
+        if req.future.cancelled():
+            return True
+        if req.deadline is not None and now > req.deadline:
+            self._expired_reqs.append(req)
+            return True
+        return False
+
+    def _flush_expired(self):
+        """Reject deferred deadline expiries (dispatcher thread, never
+        holding self._cv)."""
+        while self._expired_reqs:
+            req = self._expired_reqs.popleft()
+            _reject_future(req.future, DeadlineExceeded(
+                "deadline passed before dispatch"))
+
+    def _take_batch(self, block=True):
+        """Pop the oldest live request, then coalesce same-signature
+        followers up to the top batch bucket, waiting at most max_wait_s
+        for stragglers. A non-empty list; _STOP when shutting down with
+        nothing left; None when idle and block=False."""
+        with self._cv:
+            while True:
+                if self._stopping and not self._buf:
+                    return _STOP
+                if self._paused or not self._buf:
+                    if not block:
+                        return None
+                    self._cv.wait(0.05)
+                    if self._paused or not self._buf:
+                        # still idle: hand control back so the runner
+                        # drops its strong ref
+                        return None
+                    continue
+                first = self._buf.popleft()
+                now = time.perf_counter()
+                if self._expired(first, now):
+                    return None  # the rejection runs outside the lock
+                # counted the moment it leaves the queue: the coalescing
+                # wait releases the lock, and drain() must never see
+                # "queue empty, nothing in flight" meanwhile
+                self._inflight += 1
+                batch, rows = [first], first.n
+                t_end = now + self.max_wait_s
+                while rows < self.ladder.max_batch:
+                    rows += self._scan_matching(batch, rows, first.key)
+                    if rows >= self.ladder.max_batch:
+                        break
+                    left = t_end - time.perf_counter()
+                    if left <= 0:
+                        break
+                    self._cv.wait(left)  # the coalescing window
+                return batch
+
+    def _scan_matching(self, batch, rows, key):
+        """Move queued same-key requests into `batch` (expiring dead ones
+        on the way); returns the rows added. Holds self._cv."""
+        added, keep, now = 0, deque(), time.perf_counter()
+        while self._buf:
+            r = self._buf.popleft()
+            if self._expired(r, now):
+                continue
+            if r.key == key and rows + added + r.n <= self.ladder.max_batch:
+                batch.append(r)
+                added += r.n
+                self._inflight += 1
+            else:
+                keep.append(r)
+        self._buf.extend(keep)  # emptied above: order kept
+        return added
+
+    def _loop_once(self):
+        """One iteration (False: the thread exits): dispatch up to
+        `pipeline` batches before resolving the oldest."""
+        pending = self._pending_results
+        batch = self._take_batch(block=not pending)
+        self._flush_expired()
+        if batch is not None and batch is not _STOP:
+            try:
+                pending.append(self._dispatch_batch(batch))
+            except Exception as e:  # the engine survives a bad batch
+                self._fail_batch(batch, e)
+        if pending and (batch is None or batch is _STOP
+                        or len(pending) >= self.pipeline):
+            done = pending.popleft()
+            try:
+                self._resolve_batch(*done)
+            except Exception as e:
+                self._fail_batch(done[0], e)
+        return not (batch is _STOP and not pending)
+
+    def _fail_batch(self, batch, exc):
+        for r in batch:
+            _reject_future(r.future, exc)
+        with self._cv:
+            self._inflight -= len(batch)
+            self._cv.notify_all()
+
+    def _dispatch_batch(self, batch):
+        """Pad and fuse the coalesced requests, run the bucket's program
+        and start the outputs' copy to pinned host memory behind an
+        event: returns (batch, host outputs, event, meta); nothing here
+        waits for the device."""
+        rows = sum(r.n for r in batch)
+        b = self.ladder.batch(rows)
+        cols = []
+        for j in range(len(batch[0].arrays)):
+            parts = []
+            for r in batch:
+                a = r.arrays[j]
+                if a.ndim > self.seq_axis:
+                    s = self.ladder.seq(a.shape[self.seq_axis])
+                    if s != a.shape[self.seq_axis]:
+                        pad = [(0, 0)] * a.ndim
+                        pad[self.seq_axis] = (0, s - a.shape[self.seq_axis])
+                        a = np.pad(a, pad, constant_values=self.pad_value)
+                parts.append(a)
+            col = np.concatenate(parts, axis=0) if len(parts) > 1 \
+                else parts[0]
+            if b > rows:
+                fill = np.full((b - rows,) + col.shape[1:], self.pad_value,
+                               col.dtype)
+                col = np.concatenate([col, fill], axis=0)
+            cols.append(np.ascontiguousarray(col))
+        entry, _ = self._ensure_compiled(
+            [(c.shape, torch.from_numpy(c[:0]).dtype) for c in cols])
+        out = entry.run(cols)
+        single = not isinstance(out, (list, tuple))
+        outs = [out] if single else list(out)
+        event = None
+        if self.device.type == "cuda":
+            host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                    for o in outs]
+            for h, o in zip(host, outs):
+                h.copy_(o, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host = [o.clone() for o in outs]
+        self.batches += 1
+        self.rows += rows
+        return batch, host, event, (b, single)
+
+    def _resolve_batch(self, batch, host, event, meta):
+        """Wait for one dispatched batch's outputs (the engine's one
+        deliberate wait), slice them per request, resolve the futures."""
+        b, single = meta
+        if event is not None:
+            event.synchronize()
+        host = [h.numpy() for h in host]
+        for h in host:
+            if h.ndim == 0 or h.shape[0] != b:
+                # outputs without the leading batch dim cannot be sliced
+                # per request: fail loudly rather than slice another axis
+                raise ValueError(
+                    f"model output shape {h.shape} does not carry the "
+                    f"batch dim (expected leading {b}); the engine can "
+                    "only serve batch-leading outputs")
+        off = 0
+        for r in batch:
+            sl = [h[off:off + r.n].copy() for h in host]
+            off += r.n
+            _resolve_future(r.future, sl[0] if single else sl)
+        with self._cv:
+            self._inflight -= len(batch)
+            self._cv.notify_all()
+
+    # -- lifecycle -------------------------------------------------------
+    def pause(self):
+        """Hold dispatch (queued requests wait; submits still accepted)."""
+        with self._cv:
+            self._paused = True
+
+    def resume(self):
+        with self._cv:
+            self._paused = False
+            self._cv.notify_all()
+
+    def _outstanding(self):
+        # deferred expiries count: their futures resolve at the
+        # dispatcher's next _flush_expired
+        return bool(self._buf or self._inflight or self._expired_reqs)
+
+    def _take_pending(self):
+        out = list(self._buf)
+        self._buf.clear()
+        return out
+
+    def _take_outstanding(self):
+        # plus what only the (dead) scheduler thread could resolve
+        out = self._take_pending()
+        out.extend(self._expired_reqs)
+        self._expired_reqs.clear()
+        while self._pending_results:
+            out.extend(self._pending_results.popleft()[0])
+        return out
+
+    def _reject_detached(self, reqs, exc):
+        for r in reqs:
+            _reject_future(r.future, exc)
+
+    def load_report(self):
+        raise NotImplementedError(
+            "InferenceEngine.load_report: the serving observatory is not "
+            "ported yet (ROADMAP.md queue A, item A.10)")
+
+    def observatory_snapshot(self):
+        raise NotImplementedError(
+            "InferenceEngine.observatory_snapshot: the serving observatory "
+            "is not ported yet (ROADMAP.md queue A, item A.10)")
+
+
+class GenerationEngine(_SchedulerLifecycle):
     """Continuous-batching autoregressive serving over the model's
     decode cache (paged KV, recurrent state, or both):
 
@@ -287,20 +917,26 @@ class GenerationEngine:
                  prefix_cache=True, kv_snapshot_every=8,
                  speculative=None, draft_cache=None):
         for key, value, default in (
-                ("cache", cache, None), ("name", name, None),
-                ("ragged", ragged, None),
+                ("cache", cache, None),
                 ("prefix_cache", prefix_cache, True),
                 ("kv_snapshot_every", kv_snapshot_every, 8)):
             if value is not default and value != default:
                 raise NotImplementedError(
                     f"GenerationEngine({key}={value!r}): only the "
                     f"reference's default {default!r} is ported yet "
-                    "(ROADMAP.md queue A, item A.7)")
-        for need in ("paged_ragged_step", "make_paged_cache"):
+                    "(ROADMAP.md queue A, item A.7: the caches and the "
+                    "observatory come with A.8 and A.10)")
+        self.name = name or f"gen{next(_ENGINE_IDS)}"
+        self.ragged = bool(hasattr(model, "paged_ragged_step")
+                           if ragged is None else ragged)
+        step = "paged_ragged_step" if self.ragged else "paged_decode_step"
+        for need in (step, "make_paged_cache"):
             if not hasattr(model, need):
                 raise TypeError(
                     f"GenerationEngine needs a model with {need}() "
                     "(e.g. models.gpt.GPTForCausalLM)")
+        # the prefix cache rides the ragged path only (the reference's)
+        self.prefix_cache = self.ragged
         self.model = model
         self.cache = model.make_paged_cache(n_pages, page_size)
         # "paged" | "recurrent" | "hybrid": selects the step accounting
@@ -321,6 +957,10 @@ class GenerationEngine:
                 raise TypeError(
                     "speculative must be a SpeculativeConfig, got "
                     f"{type(speculative).__name__}")
+            if not self.ragged:
+                raise ValueError(
+                    "speculative decoding needs the ragged engine path — "
+                    "the verify row rides the mixed prefill/decode step")
             if self.cache_strategy != "paged":
                 # rejecting a mispredicted draft run rewinds the kv
                 # length cursor; a recurrent state has no past to rewind
@@ -349,7 +989,7 @@ class GenerationEngine:
         self.kernel_launches = 0  # launches of the step's kernels
         self.retraces = 0  # step signatures captured in THIS engine
         self._synced_traces = self._model_traces()
-        # (model, cache, signature, per_token, Future) to capture
+        # (capture job, Future): warm_async's signatures to capture
         self._warm_queue = deque()
         self._pending = deque()
         self._active = []        # decoding, in row order
@@ -383,6 +1023,10 @@ class GenerationEngine:
         if not isinstance(sp, SamplingParams):
             raise TypeError(f"sampling must be a SamplingParams, got "
                             f"{type(sp).__name__}")
+        if not sp.greedy and not self.ragged:
+            raise ValueError(
+                "sampling (temperature > 0) needs the ragged engine path "
+                "— the legacy bucketed decode is greedy-only")
         max_new = int(max_new_tokens) if max_new_tokens is not None \
             else self.default_max_new
         if max_new < 1:
@@ -481,11 +1125,21 @@ class GenerationEngine:
             def width(tokens):  # table width bucket once tokens held
                 return self._pow2(-(-tokens // P))
         total = int(prompt_len)
+        # decode k writes token total + k, with total + k + 1 held
+        decode_widths = [width(total + k + 1) for k in range(max_new - 1)]
+        if not self.ragged:
+            jobs = [functools.partial(self.model.warm_decode, self.cache,
+                                      rows, w)
+                    for rows in self._decode_buckets()
+                    for w in dict.fromkeys(decode_widths)]
+            return self._queue_warm(jobs)
         sigs = self._prefill_sigs(total, self.prefill_chunk, width)
-        for k in range(max_new - 1):  # decode k writes token total + k
-            sigs.append((MIN_Q_TOKENS, 1, width(total + k + 1)))
+        sigs += [(MIN_Q_TOKENS, 1, w) for w in decode_widths]
         spec = self._draft_cache is not None
-        jobs = [(self.model, self.cache, sig, spec)
+        # the per-token heads only where a speculative target asks
+        kw = {"per_token": True} if spec else {}
+        jobs = [functools.partial(self.model.warm_ragged, self.cache, *sig,
+                                  **kw)
                 for sig in dict.fromkeys(sigs)]
         if spec:
             # verify rows need nothing new: k + 1 <= MIN_Q_TOKENS tokens
@@ -499,15 +1153,30 @@ class GenerationEngine:
                                        dwidth)
             for j in range(max_new + self.speculative.k):
                 dsigs.append((MIN_Q_TOKENS, 1, dwidth(total + j + 1)))
-            jobs += [(self.speculative.draft_model, dc, sig, False)
+            jobs += [functools.partial(self.speculative.draft_model
+                                       .warm_ragged, dc, *sig)
                      for sig in dict.fromkeys(dsigs)]
+        return self._queue_warm(jobs)
+
+    def _decode_buckets(self):
+        """The bucketed decode's padded batch sizes: powers of two up to
+        max_batch's."""
+        out, b = [], 1
+        while b <= self._pow2(self.max_batch):
+            out.append(b)
+            b *= 2
+        return out
+
+    def _queue_warm(self, jobs):
+        """Queue capture jobs (callables returning whether they captured
+        now) for the scheduler thread; one Future a job."""
         futures = []
         with self._cv:
             if self._stopping:
                 raise EngineStopped("engine is drained/shut down")
             for job in jobs:
                 futures.append(Future())
-                self._warm_queue.append(job + (futures[-1],))
+                self._warm_queue.append((job, futures[-1]))
             self._cv.notify_all()
         return futures
 
@@ -534,15 +1203,11 @@ class GenerationEngine:
             with self._cv:
                 if not self._warm_queue:
                     break
-                model, cache, sig, per_token, fut = \
-                    self._warm_queue.popleft()
+                job, fut = self._warm_queue.popleft()
             if not fut.set_running_or_notify_cancel():
                 continue
             try:
-                # the per-token heads only where a speculative target
-                # asks for them
-                kw = {"per_token": True} if per_token else {}
-                fresh = model.warm_ragged(cache, *sig, **kw)
+                fresh = job()
             except BaseException as e:
                 _reject_future(fut, e)
                 raise
@@ -553,7 +1218,8 @@ class GenerationEngine:
         """The model's count of step signatures captured (on the CPU:
         recorded), the draft model's included, folded into `retraces` by
         _sync_retraces."""
-        n = getattr(self.model, "_ragged_traces", 0)
+        n = getattr(self.model, "_ragged_traces", 0) \
+            + getattr(self.model, "_paged_decode_traces", 0)
         if self.speculative is not None:
             n += getattr(self.speculative.draft_model, "_ragged_traces", 0)
         return n
@@ -570,8 +1236,8 @@ class GenerationEngine:
     def _fail_warm(self, exc):
         with self._cv:
             queued, self._warm_queue = list(self._warm_queue), deque()
-        for job in queued:
-            _reject_future(job[-1], exc)
+        for _, fut in queued:
+            _reject_future(fut, exc)
 
     # -- the scheduler loop ---------------------------------------------
     def _loop_once(self):
@@ -592,10 +1258,19 @@ class GenerationEngine:
             return False
         try:
             self._warm_queued()
-            self._admit_ragged()
-            if self._active or self._prefilling:
-                self._ragged_step()
+            if self.ragged:
+                self._admit_ragged()
+                busy = self._active or self._prefilling
+                if busy:
+                    self._ragged_step()
             else:
+                self._admit()
+                busy = self._active
+                if busy:
+                    self._decode_step()
+            if not busy:
+                # queued work that cannot admit yet must not spin the
+                # scheduler; submits and evictions notify
                 with self._cv:
                     if self._pending and not self._stopping:
                         self._cv.wait(0.01)
@@ -635,13 +1310,99 @@ class GenerationEngine:
                 self._cv.notify_all()
 
     def _new_sid(self):
-        sid = f"g{self._next_sid}"
+        """Engine-unique sequence id, prefixed with the engine's name."""
+        sid = f"{self.name}.g{self._next_sid}"
         self._next_sid += 1
         return sid
 
     @staticmethod
     def _pow2(n):
         return 1 << (max(int(n), 1) - 1).bit_length()
+
+    # -- the bucketed loop (ragged=False) ----------------------------------
+    def _admit(self):
+        """Prefill queued prompts into free slots between decode steps,
+        whole, one at a time (the legacy loop). Admission reserves the
+        worst case (prompt + max_new tokens of pages), so a decoding
+        sequence never runs out of pages."""
+        while True:
+            doomed = None
+            with self._cv:
+                if not self._pending:
+                    return
+                # triage before the capacity gate: a saturated engine
+                # still sheds expired and cancelled heads
+                doomed = self._pop_doomed_head()
+                if doomed is None:
+                    if len(self._active) >= self.max_batch:
+                        return
+                    handle = self._pending[0]
+                    with self.cache.lock:
+                        need = self.cache.pages_needed(
+                            handle.prompt.size + handle.max_new_tokens)
+                        # allocation is lazy: admit only against what is
+                        # free after every outstanding reservation
+                        if not self.cache.can_allocate(
+                                handle.prompt.size + handle.max_new_tokens,
+                                reserved=self.cache.outstanding_claims()):
+                            return  # wait for evictions to free pages
+                        sid = self._new_sid()
+                        self.cache.add_sequence(sid)
+                        self.cache.set_claim(sid, need)
+                    self._pending.popleft()
+                    self._admitting += 1  # drain() must see the handoff
+            if doomed is not None:
+                self._close_doomed(doomed)
+                continue
+            try:
+                try:
+                    logits = self.model.paged_decode_step(
+                        self.cache, [sid],
+                        torch.as_tensor(handle.prompt[None, :],
+                                        device=self.cache.device))
+                    # the argmax on the device; one int crosses back
+                    tok = int(torch.argmax(logits[0]))
+                except Exception as e:
+                    with self.cache.lock:
+                        self.cache.free_sequence(sid)
+                    _reject_future(handle.future, e)
+                    handle._close()
+                    continue
+                self._sync_retraces()
+                seq = _ActiveSeq(sid, handle, handle.prompt.size)
+                self._active.append(seq)
+                self._emit(seq, tok)
+            finally:
+                with self._cv:
+                    self._admitting -= 1
+                    self._cv.notify_all()
+
+    def _decode_step(self):
+        """ONE decode step for every active sequence, the batch padded to
+        a power-of-two bucket (rows that write the reserved pad page), so
+        the step's signature stays fixed while sequences join and leave.
+        Greedy: the argmax runs on the device and B ints come back."""
+        sids = [s.sid for s in self._active]
+        b = len(sids)
+        toks = torch.as_tensor([[s.last] for s in self._active],
+                               dtype=torch.int64, device=self.cache.device)
+        lens = [self.cache.length(s) for s in sids]  # pre-advance
+        pad_to = max(min(self._pow2(b), self._pow2(self.max_batch)), b)
+        logits = self.model.paged_decode_step(self.cache, sids, toks,
+                                              pad_to=pad_to)
+        nxt = torch.argmax(logits, dim=-1).cpu().tolist()
+        self.steps += 1
+        self._sync_retraces()
+        # slot-accurate pad accounting: the step computes pad_to rows x
+        # the power-of-two table width x page_size score slots, of which
+        # only each real row's len + 1 lie inside a causal bound (shorter
+        # rows pay for the longest row's table, pad rows for everything:
+        # the waste the ragged kernel skips token by token)
+        width = self._pow2(max(self.cache.pages_held(s) for s in sids))
+        self._attn_computed += int(pad_to) * width * self.cache.page_size
+        self._attn_useful += sum(l + 1 for l in lens)
+        for seq, tok in zip(list(self._active), nxt):
+            self._emit(seq, int(tok))
 
     def _admit_ragged(self):
         """Move queued prompts into the prefilling set; no compute here,
@@ -995,7 +1756,7 @@ class GenerationEngine:
             # register the finished prompt's pages for future sharers
             # BEFORE freeing: the registry hold keeps them alive
             with self.cache.lock:
-                if seq.filled >= h.prompt.size:
+                if self.prefix_cache and seq.filled >= h.prompt.size:
                     self.cache.register_prefix(seq.sid, h.prompt)
                 self.cache.free_sequence(seq.sid)
             self._free_draft(seq)
@@ -1021,63 +1782,7 @@ class GenerationEngine:
             _reject_future(h.future, exc)
             h._close()
 
-    # -- lifecycle --------------------------------------------------------
-    def drain(self, timeout=None):
-        """Stop admission, then block until every queued and in-flight
-        request has resolved. Returns True when fully drained."""
-        end = None if timeout is None else time.monotonic() + timeout
-        with self._cv:
-            self._stopping = True
-            self._cv.notify_all()
-            while self._outstanding():
-                left = None if end is None else end - time.monotonic()
-                if left is not None and left <= 0:
-                    return False
-                self._cv.wait(0.05 if left is None else min(left, 0.05))
-        return True
-
-    def shutdown(self, wait=True):
-        """Drain (wait=True) or cancel pending work (wait=False), then
-        stop the scheduler thread. Idempotent; submit() afterwards
-        raises EngineStopped."""
-        if wait:
-            self.drain()
-        doomed = []
-        with self._cv:
-            self._stopping = True
-            if not wait:
-                doomed = self._take_pending()
-            self._cv.notify_all()
-        # rejections outside the lock: set_exception runs done-callbacks
-        # synchronously, and one that re-enters the engine would deadlock
-        self._reject_detached(doomed, EngineStopped("engine shut down"))
-        self._thread.join(timeout=10)
-
-    def __del__(self):
-        if getattr(self, "_cv", None) is None:
-            return  # __init__ raised before the lock existed
-        with self._cv:
-            self._stopping = True
-            doomed = self._take_outstanding()
-            self._cv.notify_all()
-        self._reject_detached(
-            doomed, EngineStopped("engine abandoned without shutdown()"))
-        self._fail_warm(EngineStopped("engine abandoned without shutdown()"))
-
-    def _scheduler_crashed(self, exc):
-        """Last resort: the loop core itself raised. Fail every
-        outstanding request with the cause chained and refuse new
-        submits."""
-        err = ServingError(
-            "scheduler thread crashed; this engine is dead — rebuild it")
-        err.__cause__ = exc
-        with self._cv:
-            self._stopping = True
-            doomed = self._take_outstanding()
-            self._cv.notify_all()
-        self._reject_detached(doomed, err)
-        self._fail_warm(err)
-
+    # -- lifecycle (drain / shutdown: _SchedulerLifecycle) ---------------
     def _outstanding(self):
         return bool(self._pending or self._active or self._prefilling
                     or self._admitting)

@@ -5,21 +5,27 @@ Counterpart: paddle_tpu/io/__init__.py: `Dataset`, `IterableDataset`,
 `Subset`, `random_split`, the samplers (`SequenceSampler`,
 `RandomSampler`, `WeightedRandomSampler`, `BatchSampler`,
 `DistributedBatchSampler`), `get_worker_info`, `default_collate_fn` and
-`DataLoader` with `num_workers=0`, whose batches are Paddle Tensors on
-the current device (`paddle.set_device`). The shuffles draw from
-numpy's global RNG as the reference's do, so a seeded numpy gives both
-packages the same order. `DistributedBatchSampler` takes its rank and
-world size from `torch.distributed` when it is initialised, else 0 and
-1 (the reference asks JAX's process index and count).
+`DataLoader`, whose batches are Paddle Tensors on the current device
+(`paddle.set_device`). The shuffles draw from numpy's global RNG as the
+reference's do, so a seeded numpy gives both packages the same order.
+`DistributedBatchSampler` takes its rank and world size from
+`torch.distributed` when it is initialised, else 0 and 1 (the reference
+asks JAX's process index and count).
 
-Not ported yet (ROADMAP.md queue A, item A.11): worker processes and
-threads (`num_workers > 0`: the reference's mp_loader.py and
-runtime/prefetch.py), the device prefetch ring (`prefetch_to_device`,
-device_prefetch.py) and the legacy `from_generator` / `from_dataset`
-loaders; the first two raise NotImplementedError. Each batch's host wait
-lands in the `dataloader.wait_s` histogram and the `dataloader.batches`
-counter (profiler/monitor.py); the reference's `dataloader.next` span
-waits for profiler/statistic.py (A.12).
+`DataLoader(num_workers > 0)` assembles batches in spawned worker
+processes (io/mp_loader.py; `use_shared_memory=True`, the default) or,
+when the dataset or collate_fn cannot be pickled or with
+`use_shared_memory=False`, in worker threads over the native ring buffer
+(runtime/prefetch.py); either way in the sampler's order, as with
+`num_workers=0`. `prefetch_to_device=n` stages up to n batches on the
+device ahead of the consumer (io/device_prefetch.py; hapi's `Model.fit`
+passes its step's `input_sharding`, `set_batch_sharding` sets one by
+hand); its batches are assembled on the host and the ring makes the one
+copy to the card. The legacy loaders `DataLoader.from_generator` /
+`from_dataset` are `_GeneratorLoader`. Each batch's host wait lands in
+the `dataloader.wait_s` histogram and the `dataloader.batches` counter
+(profiler/monitor.py); the reference's `dataloader.next` span waits for
+profiler/statistic.py (ROADMAP.md queue A, item A.12).
 """
 import bisect
 import itertools
@@ -323,14 +329,41 @@ def default_collate_fn(batch):
     return batch
 
 
+
+
+def _tensorify_tree(batch):
+    """A numpy tree from a worker process -> Tensor leaves on the current
+    device (the parent's side of the multiprocess path)."""
+    if isinstance(batch, np.ndarray):
+        return Tensor(batch)
+    if isinstance(batch, dict):
+        return {k: _tensorify_tree(v) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        if batch and isinstance(batch[0], (str, bytes)):
+            return list(batch)
+        return [_tensorify_tree(v) for v in batch]
+    return batch
+
+
 class DataLoader:
-    """Batches of `dataset` in the main process: from `batch_sampler`,
-    or a BatchSampler over it (`shuffle`: numpy's global RNG), collated
-    by `collate_fn` (default: `default_collate_fn`, Tensors on the
-    current device). An IterableDataset is batched in its own order.
-    `num_workers > 0` and `prefetch_to_device` raise NotImplementedError
-    (ROADMAP.md A.11); the other options of the reference's signature
-    that only shape its worker pool are taken and unused."""
+    """Batches of `dataset`: from `batch_sampler`, or a BatchSampler over
+    it (`shuffle`: numpy's global RNG), collated by `collate_fn`
+    (default: `default_collate_fn`, Tensors on the current device). An
+    IterableDataset is batched in its own order, in the main process.
+
+    num_workers > 0: worker processes (spawned; `use_shared_memory`, the
+    default) or, when the dataset or collate_fn cannot be pickled or
+    `use_shared_memory=False`, worker threads; `prefetch_factor` batches
+    a worker in flight; `timeout` seconds without a batch raises (0:
+    wait forever); `worker_init_fn(worker_id)` runs first in each
+    worker; `persistent_workers` keeps the processes across epochs.
+
+    prefetch_to_device: the device prefetch ring's depth
+    (io/device_prefetch.py): a background thread copies up to this many
+    upcoming batches to the device, placed by the step's input sharding
+    (`set_batch_sharding`), while the current step computes, so the
+    consumer's wait is ~0 in steady state. 0 / False disables it (the
+    default); True means depth 2."""
 
     def __init__(self, dataset, feed_list=None, places=None,
                  return_list=True, batch_sampler=None, batch_size=1,
@@ -338,18 +371,19 @@ class DataLoader:
                  num_workers=0, use_buffer_reader=True, prefetch_factor=2,
                  use_shared_memory=True, timeout=0, worker_init_fn=None,
                  persistent_workers=False, prefetch_to_device=0):
-        if num_workers:
-            raise NotImplementedError(
-                "DataLoader(num_workers > 0): worker processes and threads "
-                "(the reference's io/mp_loader.py and runtime/prefetch.py) "
-                "are not ported yet (ROADMAP.md queue A, item A.11)")
-        if prefetch_to_device:
-            raise NotImplementedError(
-                "DataLoader(prefetch_to_device=): the device prefetch ring "
-                "(the reference's io/device_prefetch.py) is not ported yet "
-                "(ROADMAP.md queue A, item A.11)")
         self.dataset = dataset
         self.collate_fn = collate_fn or default_collate_fn
+        self.num_workers = int(num_workers)
+        self.prefetch_factor = prefetch_factor
+        self.timeout = timeout
+        self.worker_init_fn = worker_init_fn
+        self.use_shared_memory = use_shared_memory
+        self.persistent_workers = persistent_workers
+        self.prefetch_to_device = 2 if prefetch_to_device is True \
+            else int(prefetch_to_device or 0)
+        self._batch_sharding_fn = None
+        self._sharding_from_fit = False  # fit-bound fns rebind each fit
+        self._mp_pool = None
         self._iterable_mode = isinstance(dataset, IterableDataset)
         self.drop_last = drop_last
         if batch_sampler is not None:
@@ -368,27 +402,57 @@ class DataLoader:
         """The legacy `for batch in loader():`."""
         return iter(self)
 
+    @staticmethod
+    def from_generator(feed_list=None, capacity=None,
+                       use_double_buffer=True, iterable=True,
+                       return_list=True, use_multiprocess=False,
+                       drop_last=True):
+        """The legacy fluid loader: a `_GeneratorLoader` whose data source
+        is attached afterwards with set_sample_generator /
+        set_sample_list_generator / set_batch_generator."""
+        return _GeneratorLoader(feed_list, capacity, use_double_buffer,
+                                iterable, return_list, use_multiprocess,
+                                drop_last)
+
+    @staticmethod
+    def from_dataset(dataset, places=None, drop_last=True):
+        """The legacy fluid loader over a dataset iterated directly, one
+        sample a batch."""
+        loader = _GeneratorLoader(return_list=True, drop_last=drop_last)
+
+        def gen():
+            for item in dataset:
+                yield item if isinstance(item, (list, tuple)) else (item,)
+        loader.set_sample_generator(gen, batch_size=1, drop_last=drop_last)
+        return loader
+
     def __len__(self):
         if self._iterable_mode:
             raise TypeError("IterableDataset has no fixed length")
         return len(self.batch_sampler)
 
-    def _iter_source(self):
-        if self._iterable_mode:
-            batch = []
-            for item in self.dataset:
-                batch.append(item)
-                if len(batch) == self.batch_size:
-                    yield self.collate_fn(batch)
-                    batch = []
-            if batch and not self.drop_last:
-                yield self.collate_fn(batch)
-            return
-        for indices in self.batch_sampler:
-            yield self.collate_fn([self.dataset[i] for i in indices])
+    def set_batch_sharding(self, fn):
+        """The per-leaf placement callable (`TrainStep.input_sharding`)
+        the device prefetch ring places staged batches with. hapi's
+        `Model.fit` sets its step's; a fn set here is the caller's, and
+        fit leaves it alone (fit-bound fns rebind on every fit, so a
+        dropped step is never pinned)."""
+        self._batch_sharding_fn = fn
+        self._sharding_from_fit = False
+        return self
 
     def __iter__(self):
-        inner = self._iter_source()
+        """The source's batches, each one's host wait (assembly and
+        queue time: the gap the prefetch layers exist to hide) observed
+        on `dataloader.wait_s`. With `prefetch_to_device` the ring sits
+        between the source and this wait, which then measures what the
+        step loop waited: ~0 when the ring keeps up."""
+        host = bool(self.prefetch_to_device)
+        inner = self._iter_source(host)
+        if host:
+            from .device_prefetch import device_prefetch_iterator
+            inner = device_prefetch_iterator(inner, self.prefetch_to_device,
+                                             self._batch_sharding_fn)
         wait = _monitor.histogram("dataloader.wait_s")
         count = _monitor.counter("dataloader.batches")
         while True:
@@ -400,3 +464,165 @@ class DataLoader:
             wait.observe(time.perf_counter() - t0)
             count.inc()
             yield batch
+
+    def _collate(self, host):
+        """The collate the main process and its threads run: the
+        default one on the host (numpy, which the ring copies to the
+        device) when `host`, else `collate_fn`."""
+        if host and self.collate_fn is default_collate_fn:
+            from .mp_loader import _np_collate
+            return _np_collate
+        return self.collate_fn
+
+    def _iter_source(self, host=False):
+        collate = self._collate(host)
+        if self._iterable_mode:
+            batch = []
+            for item in self.dataset:
+                batch.append(item)
+                if len(batch) == self.batch_size:
+                    yield collate(batch)
+                    batch = []
+            if batch and not self.drop_last:
+                yield collate(batch)
+            return
+        if self.num_workers == 0:
+            for indices in self.batch_sampler:
+                yield collate([self.dataset[i] for i in indices])
+            return
+        if self.use_shared_memory:
+            it = self._iter_multiprocess(host)
+            if it is not None:
+                yield from it
+                return
+        yield from self._iter_threaded(collate)
+
+    def _iter_multiprocess(self, host):
+        """Batches from worker processes (numpy trees, made Tensors here
+        unless the ring stages them); None when the dataset or
+        collate_fn cannot be pickled (the caller takes the threaded
+        path)."""
+        from .mp_loader import MultiprocessPool
+        pool = self._mp_pool
+        if pool is None or not pool._alive:
+            try:
+                # only a user's collate_fn travels to the workers; the
+                # default one runs there as numpy
+                custom = None if self.collate_fn is default_collate_fn \
+                    else self.collate_fn
+                pool = MultiprocessPool(self.dataset, custom,
+                                        self.num_workers,
+                                        self.worker_init_fn,
+                                        self.prefetch_factor)
+            except Exception:
+                return None
+            self._mp_pool = pool
+
+        def gen():
+            try:
+                for batch in pool.run_epoch(iter(self.batch_sampler),
+                                            self.timeout):
+                    yield batch if host else _tensorify_tree(batch)
+            finally:
+                if not self.persistent_workers:
+                    pool.shutdown()
+                    self._mp_pool = None
+        return gen()
+
+    def _iter_threaded(self, collate):
+        """Worker threads assemble batches into the bounded ring buffer
+        (native when it builds), yielded in the sampler's order."""
+        from ..runtime import prefetch
+        dataset = self.dataset
+
+        def make_batch(job):
+            bid, indices = job
+            return bid, collate([dataset[i] for i in indices])
+
+        pending, next_out = {}, 0
+        for bid, batch in prefetch.prefetch_iterator(
+                enumerate(iter(self.batch_sampler)), make_batch,
+                self.num_workers, self.num_workers * self.prefetch_factor,
+                self.timeout, self.worker_init_fn):
+            pending[bid] = batch
+            while next_out in pending:
+                yield pending.pop(next_out)
+                next_out += 1
+
+
+class _GeneratorLoader:
+    """The loader DataLoader.from_generator builds (the legacy fluid
+    API). The three source setters are the reference's: a per-sample
+    generator (batched here), a per-sample-list generator (collated), a
+    per-batch generator (passed through). Iterating yields lists of
+    Tensors (return_list=True, the dygraph default) or name -> Tensor
+    dicts for a static feed."""
+
+    def __init__(self, feed_list=None, capacity=None,
+                 use_double_buffer=True, iterable=True, return_list=True,
+                 use_multiprocess=False, drop_last=True):
+        self._feed_list = feed_list or []
+        self._iterable = iterable
+        self._return_list = return_list
+        self._drop_last = drop_last
+        self._gen = None
+        self._mode = None
+        self._batch_size = None
+
+    def set_sample_generator(self, reader, batch_size, drop_last=True,
+                             places=None):
+        self._gen, self._mode = reader, "sample"
+        self._batch_size = batch_size
+        self._drop_last = drop_last
+        return self
+
+    def set_sample_list_generator(self, reader, places=None):
+        self._gen, self._mode = reader, "sample_list"
+        return self
+
+    def set_batch_generator(self, reader, places=None):
+        self._gen, self._mode = reader, "batch"
+        return self
+
+    def _wrap(self, fields):
+        ts = [f if isinstance(f, Tensor) else Tensor(np.asarray(f))
+              for f in fields]
+        if self._return_list:
+            return ts
+        names = [getattr(v, "name", None) or f"f{i}"
+                 for i, v in enumerate(self._feed_list)]
+        # fields beyond feed_list get generated names, never dropped
+        names += [f"f{i}" for i in range(len(names), len(ts))]
+        return {n: t for n, t in zip(names, ts)}
+
+    def __iter__(self):
+        if self._gen is None:
+            raise RuntimeError(
+                "set a data source first: set_sample_generator / "
+                "set_sample_list_generator / set_batch_generator")
+        if self._mode == "batch":
+            for batch in self._gen():
+                yield self._wrap(list(batch))
+            return
+        if self._mode == "sample_list":
+            for samples in self._gen():
+                yield self._wrap([np.stack(f) for f in zip(*samples)])
+            return
+        buf = []
+        for sample in self._gen():
+            buf.append(sample if isinstance(sample, (list, tuple))
+                       else (sample,))
+            if len(buf) == self._batch_size:
+                yield self._wrap([np.stack(f) for f in zip(*buf)])
+                buf = []
+        if buf and not self._drop_last:
+            yield self._wrap([np.stack(f) for f in zip(*buf)])
+
+    __call__ = __iter__  # the legacy `for batch in loader():`
+
+    def start(self):
+        """Non-iterable (start / reset) mode: iteration drives the
+        generator directly, so nothing to start."""
+
+    def reset(self):
+        """See `start`."""

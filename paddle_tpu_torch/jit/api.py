@@ -429,6 +429,13 @@ class TrainStep:
         # compute with this value
         return float(np.float32(self.optimizer.get_lr()))
 
+    def input_sharding(self, arr):
+        """The placement the step wants for a batch leaf: what the device
+        prefetch ring (io/device_prefetch.py) asks so that its copies land
+        where the step reads them while the previous step computes. One
+        card has no placement constraint: None (the ring's device)."""
+        return None
+
     # -- the flavors ---------------------------------------------------------
     @paddle_io
     def __call__(self, *batch):

@@ -38,15 +38,33 @@ over one to one.
   (the four Linear products) and "names" exactly the block's three
   named points (`gpt_qkv`, `gpt_attn_out`, `gpt_ffn_in`), the
   reference's `_remat_policy`;
+- the legacy generation path: `generate` over a STATIC cache
+  ([B, T + new, H, D] buffers a layer, `StaticCacheSlot`): one prefill
+  over the prompt, then the decode steps, each writing its K/V at its
+  position and attending under a `col <= pos` mask. On the card each
+  (B, T, max_new_tokens, top_k, top_p) signature is captured once as
+  two CUDA graphs, the prefill and one decode step, kept in `_gen_jit`;
+  the decode graph reads its token, position and key from device
+  buffers that it advances itself, so the steps replay back to back
+  with no host read until the last. Sampling is the reference's
+  non-TPU path: exact top-k (`torch.topk`) and top-p, one categorical
+  draw under the threefry key of ops/threefry.py (the reference's
+  `lax.approx_max_k` route is not taken, whatever
+  PADDLE_TPU_APPROX_SAMPLING says);
+- `paged_decode_step` over a shared PagedKVCache: a prefill (T > 1)
+  runs the layers eagerly over `PagedCacheSlot`s (per-sequence page
+  writes, the plain gather attention of ops/paged_attention.py); a
+  decode (T == 1) is one CUDA graph per (batch, table width) signature
+  on the card (`PagedJitSlot`: one batched scatter into the pools, in
+  place, then the gather), counted in `_paged_decode_traces`; the
+  legacy growing (k, v) caches of `GPTAttention` are kept too;
 - presets `gpt_tiny`, `gpt_small`, `gpt_medium`, `gpt_1p3b` and
   `gpt_6p7b` equal the reference's field for field; the last two have
   head_dim 128, which the flash kernels take as they take 64.
-
-Not ported yet (ROADMAP.md queue A): the static and legacy cache
-branches.
 """
 import contextlib
 import functools
+import math
 import threading
 import time
 
@@ -56,10 +74,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..framework.core import paddle_io
 from ..framework.dtype import convert_dtype
 from ..nn import Dropout, Embedding, Layer, LayerList, LayerNorm, Linear
 from ..nn.layer.common import dropout_masks
 from ..nn import functional as F
+from ..nn.functional.attention import _sdpa_reference
 from ..ops.attention_core import NEG_INF
 from ..ops.chunked_xent import chunked_softmax_xent
 from ..ops.kernels import captured_launches, sm_count
@@ -67,19 +87,21 @@ from ..ops.kernels.paged_attention import (H100_SMS, graph_scratch,
                                            ragged_capacity,
                                            ragged_paged_attention,
                                            ragged_schedule)
-from ..ops.paged_attention import PagedKVCache
-from ..ops.threefry import (categorical, fold_in, key_words,
+from ..ops.paged_attention import PagedKVCache, paged_attention
+from ..ops.threefry import (categorical, fold_in, gumbel, key_words,
                             sampling_key_data)
 
-__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "RaggedSlot",
-           "RaggedGraphSteps", "CapturedStep", "step_schedule",
+__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "StaticCacheSlot",
+           "PagedCacheSlot", "PagedJitSlot", "RaggedSlot",
+           "RaggedGraphSteps", "CapturedStep", "CapturedDecode",
+           "GenerateProgram", "capture_graph", "step_schedule",
            "sample_token_rows", "greedy_tokens", "sampling_key_data",
-           "pack_sampling", "gpt_tiny", "gpt_small", "gpt_medium",
-           "gpt_1p3b", "gpt_6p7b"]
+           "pack_sampling", "generation_key", "gpt_tiny", "gpt_small",
+           "gpt_medium", "gpt_1p3b", "gpt_6p7b"]
 
-_NOT_PORTED = ("only the no-cache (training) forward and the ragged "
-               "paged-cache path are ported; the static/legacy cache "
-               "branches are ROADMAP.md queue A items")
+# the finite mask of the legacy paths' scores (the reference's -1e30): a
+# row with nothing visible gets a uniform softmax, never NaN
+_MASKED = -1e30
 
 
 class GPTConfig:
@@ -128,6 +150,54 @@ class GPTConfig:
         self.scan_remat = scan_remat
         for name, value in given.items():
             setattr(self, name, value)
+
+
+class StaticCacheSlot:
+    """One layer's static KV cache: k / v [B, L, H, D] buffers and the
+    write position `pos` (an int, or a 0-dim int64 device tensor, which a
+    captured decode step advances itself). See
+    GPTAttention._forward_static_cache: the buffers are written in
+    place."""
+
+    __slots__ = ("k", "v", "pos")
+
+    def __init__(self, k, v, pos):
+        self.k = k
+        self.v = v
+        self.pos = pos
+
+
+class PagedCacheSlot:
+    """One layer's view of a shared PagedKVCache for the eager prefill
+    of `paged_decode_step`: `cache` is the ops.paged_attention
+    PagedKVCache, `seq_ids` the batch rows, `views` the step's (page
+    table, lengths) or None."""
+
+    __slots__ = ("cache", "layer", "seq_ids", "views")
+
+    def __init__(self, cache, layer, seq_ids, views):
+        self.cache = cache
+        self.layer = layer
+        self.seq_ids = seq_ids
+        self.views = views
+
+
+class PagedJitSlot:
+    """One layer's state for the T == 1 decode step: that layer's k / v
+    page pools (written in place) and the step's plan from
+    PagedKVCache.plan_decode: write coordinates `pages` / `in_pages`
+    [B], the page table `pt` [B, W] and the pre-write lengths `lens`
+    [B] (on the card, views of the captured step's static buffer)."""
+
+    __slots__ = ("k", "v", "pages", "in_pages", "pt", "lens")
+
+    def __init__(self, k, v, pages, in_pages, pt, lens):
+        self.k = k
+        self.v = v
+        self.pages = pages
+        self.in_pages = in_pages
+        self.pt = pt
+        self.lens = lens
 
 
 class RaggedSlot:
@@ -631,14 +701,86 @@ class GPTAttention(Layer):
         q, k, v = qkv.unbind(dim=2)
         if isinstance(cache, RaggedSlot):
             return self._forward_paged_ragged(x, q, k, v, cache)
+        if isinstance(cache, StaticCacheSlot):
+            return self._forward_static_cache(x, q, k, v, cache)
+        if isinstance(cache, PagedJitSlot):
+            return self._forward_paged_jit(x, q, k, v, cache)
+        if isinstance(cache, PagedCacheSlot):
+            return self._forward_paged_cache(x, q, k, v, cache)
         if cache is not None:
-            raise NotImplementedError(_NOT_PORTED)
+            # the legacy growing (k, v) protocol: the history grows by
+            # concatenation and the queries attend through the plain
+            # composition, whose causal mask is aligned bottom-right (a
+            # new token sees the whole history), as the reference's is
+            # off the TPU; the flash route aligns top-left
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
+            out = _sdpa_reference(q, k, v, is_causal=True)
+            return self.out_proj(out.reshape(B, T, H)), (k, v)
         out = F.scaled_dot_product_attention(
             q, k, v, is_causal=True,
             dropout_p=self.dropout if self.training else 0.0)
         with _ckpt_name("gpt_attn_out"):
             out = out.reshape(B, T, H)
         return self.out_proj(out)
+
+    def _forward_static_cache(self, x, q, k, v, cache):
+        """Prefill or decode against preallocated [B, L, H, D] buffers:
+        write the T new keys / values at positions pos .. pos + T - 1 (in
+        place), attend q over the whole buffer under a `col <= pos + row`
+        mask, scores and softmax in float32. Every shape is static, so a
+        captured decode step replays for any position."""
+        B, T, H = x.shape
+        kb, vb, pos = cache.k, cache.v, cache.pos
+        at = torch.arange(T, device=x.device) + pos
+        kb.index_copy_(1, at, k.to(kb.dtype))
+        vb.index_copy_(1, at, v.to(vb.dtype))
+        L = kb.shape[1]
+        scale = 1.0 / math.sqrt(self.head_dim)
+        s = torch.einsum("bthd,blhd->bhtl", q.float(), kb.float()) * scale
+        cols = torch.arange(L, device=x.device)[None, None, None, :]
+        rows = torch.arange(T, device=x.device)[None, None, :, None]
+        s = torch.where(cols <= rows + pos, s, _MASKED)
+        p = torch.softmax(s, dim=-1).to(vb.dtype)
+        out = torch.einsum("bhtl,blhd->bthd", p, vb)
+        out = self.out_proj(out.reshape(B, T, H).to(x.dtype))
+        return out, StaticCacheSlot(kb, vb, pos)
+
+    def _forward_paged_jit(self, x, q, k, v, slot):
+        """The T == 1 decode over the paged pools: one batched scatter
+        writes every row's new k / v into its page (in place; pad rows
+        all write pad page 0, slot 0), then one gather attention reads
+        each row's own history."""
+        B, _, H = x.shape
+        kd = slot.k.dtype
+        where = (slot.pages, slot.in_pages)
+        slot.k.index_put_(where, k[:, 0].to(kd))
+        slot.v.index_put_(where, v[:, 0].to(kd))
+        out = paged_attention(q[:, 0], slot.k, slot.v, slot.pt,
+                              slot.lens + 1)
+        return self.out_proj(out.reshape(B, 1, H).to(x.dtype)), slot
+
+    def _forward_paged_cache(self, x, q, k, v, cache):
+        """The eager continuous-batching prefill: write this step's k / v
+        into the shared pools sequence by sequence, then attend each row
+        against its own paged history, query position t seeing the
+        history and the new tokens up to t (one gather for all T queries,
+        where the reference loops over them)."""
+        B, T, H = x.shape
+        pc = cache.cache
+        for i, sid in enumerate(cache.seq_ids):
+            pc.extend(sid, cache.layer, k[i], v[i])
+        # lengths are committed (advance) after the LAST layer, so the
+        # views hold the pre-step history; this layer's T tokens are
+        # added explicitly
+        pt, old_lens = pc.batch_views(cache.seq_ids)
+        lens = old_lens[:, None] + torch.arange(1, T + 1, device=x.device)
+        out = paged_attention(q, pc.k[cache.layer], pc.v[cache.layer], pt,
+                              lens)
+        if cache.layer == pc.n_layers - 1:
+            for sid in cache.seq_ids:
+                pc.advance(sid, T)
+        return self.out_proj(out.reshape(B, T, H).to(x.dtype)), cache
 
     def _forward_paged_ragged(self, x, q, k, v, slot):
         """One batched scatter writes every token's k/v row into its
@@ -720,13 +862,12 @@ class GPTModel(Layer):
         """Training: input_ids [B, T], positions default to arange(T);
         returns hidden [B, T, H]; in training mode with grad enabled and
         a truthy cfg.scan_remat each block is recomputed in the backward
-        (`_remat`). Serving: input_ids/position_ids [1, T] and one
-        RaggedSlot per layer; returns (hidden, caches)."""
+        (`_remat`). With caches (one slot a layer: RaggedSlot, whose
+        positions the caller passes, StaticCacheSlot, PagedJitSlot,
+        PagedCacheSlot or a legacy (k, v) pair) returns (hidden, caches);
+        positions default to each row's next ones."""
         if position_ids is None:
-            if caches is not None:
-                raise NotImplementedError(_NOT_PORTED)
-            position_ids = torch.arange(
-                input_ids.shape[1], device=input_ids.device)[None]
+            position_ids = _positions(caches, input_ids)
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
         if caches is None:
             remat = self.cfg.scan_remat and self.training \
@@ -741,6 +882,233 @@ class GPTModel(Layer):
             x, cache = block(x, cache)
             new_caches.append(cache)
         return self.ln_f(x), new_caches
+
+
+def _positions(caches, input_ids):
+    """Default position ids [B or 1, T] of a forward over `caches`: the
+    rows' next positions (the reference's GPTModel.forward)."""
+    T, dev = input_ids.shape[1], input_ids.device
+    steps = torch.arange(T, device=dev)
+    first = None if caches is None else caches[0]
+    if isinstance(first, StaticCacheSlot):
+        return (steps + first.pos)[None]
+    if isinstance(first, PagedJitSlot):
+        return first.lens[:, None]  # the pre-write length is the position
+    if isinstance(first, PagedCacheSlot):
+        pc = first.cache
+        lens = torch.tensor([pc.length(s) for s in first.seq_ids],
+                            device=dev)
+        return lens[:, None] + steps
+    start = 0 if first is None else first[0].shape[1]
+    return (steps + start)[None]
+
+
+@contextlib.contextmanager
+def _eval_mode(model):
+    """Run `model` in eval mode inside (the reference's functional_call
+    with training=False), restoring its mode after."""
+    if not model.training:
+        yield
+        return
+    model.eval()
+    try:
+        yield
+    finally:
+        model.train()
+
+
+def generation_key():
+    """A fresh threefry key (int64 key words [2]) for one `generate`
+    draw: two 32-bit words from the CPU generator of framework/random.py
+    (torch's default one unless an rng_scope is open), so `paddle.seed`
+    reproduces a generation. The reference splits its global JAX key
+    here (framework/random.py `split_key`)."""
+    from ..framework.random import generator
+    return torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
+                         generator=generator("cpu"))
+
+
+def _sample_static(last, key, temp, top_k, top_p):
+    """The reference's generate() sampler on its non-TPU path: float32
+    logits over max(temp, 1e-6); top-k keeps values >= the k-th largest
+    (exact, torch.topk); top-p keeps a token iff the softmax mass sorted
+    before it is < top_p; the rest become -1e30; then ONE categorical
+    draw over the whole [B, V] under `key` (int64 key words [2]: gumbel
+    noise of the B * V flat count, as jax.random.categorical draws for
+    one key). Returns int64 [B]."""
+    arr = last.float() / torch.clamp_min(temp, 1e-6)
+    B, V = arr.shape
+    if top_k is not None:
+        kth = torch.topk(arr, int(top_k), dim=-1).values[:, -1:]
+        arr = torch.where(arr < kth, _MASKED, arr)
+    if top_p is not None:
+        srt = torch.sort(arr, dim=-1, descending=True).values
+        p_srt = torch.softmax(srt, dim=-1)
+        before = torch.cumsum(p_srt, dim=-1) - p_srt
+        thresh = torch.where(before < top_p, srt, float("inf")).amin(
+            dim=-1, keepdim=True)
+        arr = torch.where(arr >= thresh, arr, _MASKED)
+    noise = gumbel(key.reshape(1, 2), B * V).reshape(B, V)
+    return torch.argmax(noise + arr, dim=-1)
+
+
+def capture_graph(state, body):
+    """body() run once eagerly on `state`'s side stream (kernel builds,
+    library workspaces), then captured there into its graph pool (a
+    `_GraphState`: a cache's, a GenerateProgram's, an InferenceEngine's).
+    Returns (graph, body's outputs, the kernel launches the capture
+    recorded, which each replay adds to the wrappers')."""
+    side = state.stream
+    current = torch.cuda.current_stream(side.device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        body()
+    current.wait_stream(side)
+    before = captured_launches(side).copy()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=state.pool, stream=side,
+                          capture_error_mode="thread_local"):
+        out = body()
+    return graph, out, dict(captured_launches(side) - before)
+
+
+def _count_replay(launches):
+    for wrapper, n in launches.items():
+        wrapper.launches += n
+
+
+class CapturedDecode:
+    """One (batch, table width) signature of `paged_decode_step`'s T == 1
+    decode captured as a CUDA graph over one cache: a static int32 plan
+    buffer on the card (tokens, pages, in_pages, lengths [B] each, the
+    page table [B, W]) with a pinned host mirror, the graph (the plan in,
+    the logits [B, V] out), the launches its capture recorded and its
+    capture ms. The capture runs an all-pad plan: it writes only the pad
+    page 0 / slot 0. `replay(host)` copies a real plan in (reusing the
+    mirror once the previous copy out of it is done) and replays;
+    the logits are overwritten by the next replay."""
+
+    __slots__ = ("graph", "static", "mirror", "host", "copied", "logits",
+                 "launches", "capture_ms", "replays")
+
+    def __init__(self, model, cache, n_rows, width):
+        t = time.perf_counter()
+        size = n_rows * (4 + width)
+        self.static = torch.zeros(size, dtype=torch.int32,
+                                  device=cache.device)
+        self.mirror = torch.zeros(size, dtype=torch.int32, pin_memory=True)
+        self.host = self.mirror.numpy()
+        self.copied = torch.cuda.Event()
+        self.graph, self.logits, self.launches = capture_graph(
+            _graph_state(cache),
+            lambda: model._decode_body(cache, self.static, n_rows, width))
+        self.capture_ms = (time.perf_counter() - t) * 1e3
+        self.replays = 0
+
+    def replay(self, host):
+        self.copied.synchronize()
+        self.host[:] = host
+        self.static.copy_(self.mirror, non_blocking=True)
+        self.copied.record()
+        self.graph.replay()
+        self.replays += 1
+        _count_replay(self.launches)
+        return self.logits
+
+
+class GenerateProgram:
+    """One (B, T, max_new_tokens, top_k, top_p) signature of `generate`:
+    the static cache (k / v [L, B, T + new, H, D] in the model's dtype,
+    allocated once), the prompt buffer, the scalars (the prefill's and
+    the decode's keys, the temperature), the decode's own state (its
+    next token, its step index, the output tokens [B, new]) and, on the
+    card, two CUDA graphs: the prefill (zeroes the cache, fills it over
+    the prompt, samples the first token) and ONE decode step (writes its
+    K/V at T + i, samples under fold_in(decode key, i), stores the token
+    and advances i), replayed new - 1 times back to back (the reference's
+    lax.scan). On the CPU the same two bodies run eagerly. `info` holds
+    capture_s (the captures' seconds; 0 on the CPU)."""
+
+    def __init__(self, model, B, T, new, top_k, top_p):
+        cfg = model.cfg
+        dev, dtype = model.device, model.gpt.wte.weight.dtype
+        nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        self.model, self.dims = model, (B, T, new, top_k, top_p)
+        shape = (cfg.num_layers, B, T + new, nh, hd)
+        self.k = torch.zeros(shape, dtype=dtype, device=dev)
+        self.v = torch.zeros(shape, dtype=dtype, device=dev)
+        self.ids = torch.zeros((B, T), dtype=torch.int64, device=dev)
+        # the prefill key (2 words), the decode key (2), the temperature
+        # as float32 bits: the call's one host-to-device copy
+        self.scal = torch.zeros(5, dtype=torch.int64, device=dev)
+        self.tok = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.out = torch.zeros((B, new), dtype=torch.int64, device=dev)
+        self.graphs = None
+        self.info = {"capture_s": 0.0}
+        self.runs = 0
+        if dev.type == "cuda":
+            t = time.perf_counter()
+            state = _GraphState(dev)
+            self.graphs = (capture_graph(state, self._prefill),
+                           capture_graph(state, self._decode)
+                           if new > 1 else None)
+            self.info["capture_s"] = time.perf_counter() - t
+
+    def _temp(self):
+        return self.scal[4:5].to(torch.int32).view(torch.float32)[0]
+
+    def _forward(self, ids, pos):
+        m = self.model
+        slots = [StaticCacheSlot(self.k[l], self.v[l], pos)
+                 for l in range(m.cfg.num_layers)]
+        hidden, _ = m.gpt(ids, None, slots)
+        return hidden[:, -1] @ m.gpt.wte.weight.T
+
+    def _prefill(self):
+        _, _, _, top_k, top_p = self.dims
+        self.k.zero_()
+        self.v.zero_()
+        first = _sample_static(self._forward(self.ids, 0), self.scal[0:2],
+                               self._temp(), top_k, top_p)
+        self.out[:, 0] = first
+        self.tok[:, 0] = first
+        self.step.zero_()
+
+    def _decode(self):
+        _, T, _, top_k, top_p = self.dims
+        last = self._forward(self.tok, self.step + T)
+        nxt = _sample_static(last, fold_in(self.scal[2:4], self.step),
+                             self._temp(), top_k, top_p)
+        self.out.index_copy_(1, (self.step + 1).reshape(1), nxt[:, None])
+        self.tok.copy_(nxt[:, None])
+        self.step += 1
+
+    def run(self, ids, key1, key2, temperature):
+        """The generated tokens [B, new] (int64, on the device) of one
+        call: prompt `ids` [B, T], the prefill and decode keys (int64
+        key words [2]) and the temperature."""
+        B, T, new, _, _ = self.dims
+        temp = np.array([temperature], np.float32).view(np.int32)
+        scal = torch.tensor([*key1.tolist(), *key2.tolist(), int(temp[0])],
+                            dtype=torch.int64)
+        self.ids.copy_(ids)
+        self.scal.copy_(scal)
+        if self.graphs is None:
+            self._prefill()
+            for _ in range(new - 1):
+                self._decode()
+        else:
+            (prefill, _, pre_n), decode = self.graphs
+            prefill.replay()
+            _count_replay(pre_n)
+            if decode is not None:
+                graph, _, dec_n = decode
+                for _ in range(new - 1):
+                    graph.replay()
+                    _count_replay(dec_n)
+        self.runs += 1
+        return self.out.clone()
 
 
 class GPTForCausalLM(RaggedGraphSteps, Layer):
@@ -804,6 +1172,155 @@ class GPTForCausalLM(RaggedGraphSteps, Layer):
             cfg.hidden_size // cfg.num_heads,
             dtype=convert_dtype(dtype) or self.gpt.wte.weight.dtype,
             device=self.device)
+
+    # ---- the legacy paged decode (the bucketed engine's step) ---------
+    @paddle_io
+    @torch.no_grad()
+    def paged_decode_step(self, cache, seq_ids, input_ids, pad_to=None):
+        """One continuous-batching step over a shared PagedKVCache: a
+        prefill when input_ids [B, T] has T > 1 (sequences joining the
+        batch), a decode when T == 1. Rows are independent sequences of
+        ragged lengths, each attending only its own paged history.
+        Returns the next-token logits [B, vocab].
+
+        The decode is one CUDA graph per (padded batch, table width)
+        signature on the card (`CapturedDecode`: the host plans the page
+        writes, one copy carries the plan, the pools are written in
+        place); each new signature adds one to `_paged_decode_traces`.
+        The prefill runs the layers eagerly, as the reference's does.
+        `pad_to` (decode only) pads the batch with rows writing the
+        reserved pad page, so a scheduler's decode keeps one signature
+        while sequences join and leave; their logits are sliced off."""
+        B, T = input_ids.shape
+        if cache.k is None:
+            raise RuntimeError(
+                "this PagedKVCache was poisoned by an earlier failed "
+                "step — rebuild it with make_paged_cache() and "
+                "re-prefill in-flight sequences")
+        limit = self.cfg.max_position_embeddings
+        over = [s for s in seq_ids if cache.length(s) + T > limit]
+        if over:
+            # the wpe gather would index past its table
+            raise ValueError(
+                f"sequences {over!r} would exceed "
+                f"max_position_embeddings={limit} after {T} token(s); "
+                "free them or raise the limit")
+        with _eval_mode(self):
+            if T == 1:
+                return self._paged_decode_jit(cache, seq_ids, input_ids,
+                                              pad_to)
+            with cache.lock:
+                caches = [PagedCacheSlot(cache, l, list(seq_ids), None)
+                          for l in range(self.cfg.num_layers)]
+                logits, _ = self(input_ids, caches=caches)
+                return logits[:, -1, :]
+
+    def clear_decode_cache(self):
+        """Drop this model's captured decode steps: call after REPLACING
+        weight tensors mid-serving (a graph reads the parameters it was
+        captured over; weights changed in place need nothing). The next
+        decode of each signature captures again (and counts a trace)."""
+        self._decode_epoch = getattr(self, "_decode_epoch", 0) + 1
+
+    _paged_decode_traces = 0
+
+    def _paged_decode_jit(self, cache, seq_ids, input_ids, pad_to=None):
+        """The T == 1 decode under the cache's lock: plan, run (a replay
+        on the card, the body eagerly on the CPU), advance."""
+        B = len(seq_ids)
+        with cache.lock:
+            pages, in_pages, pt, lens = cache._plan_decode_host(
+                seq_ids, pad_to=pad_to)
+            n_rows, width = pt.shape
+            toks = np.zeros((n_rows,), np.int32)
+            toks[:B] = np.asarray(
+                input_ids.detach().cpu() if torch.is_tensor(input_ids)
+                else input_ids).reshape(-1)
+            host = np.concatenate([toks, pages, in_pages, lens,
+                                   pt.reshape(-1)])
+            graph, _ = self._decode_entry(cache, n_rows, width)
+            try:
+                if graph is None:
+                    logits = self._decode_body(
+                        cache, torch.from_numpy(host), n_rows, width)
+                else:
+                    logits = graph.replay(host).clone()
+            except Exception as e:
+                # the pools may be half written: make the state loud
+                cache.k = cache.v = None
+                raise RuntimeError(
+                    "the paged decode step failed after its page writes "
+                    "began — this PagedKVCache is unrecoverable; rebuild "
+                    "it with make_paged_cache() and re-prefill in-flight "
+                    "sequences") from e
+            for sid in seq_ids:
+                cache.advance(sid, 1)
+        return logits[:B]
+
+    @torch.no_grad()
+    def warm_decode(self, cache, n_rows, width):
+        """Capture the T == 1 decode of one (padded batch, table width)
+        signature over `cache` ahead of traffic, holding the cache's lock
+        (the bucketed engine's warm). True when captured now, False when
+        it already was; on the CPU it records the signature."""
+        with cache.lock, _eval_mode(self):
+            return self._decode_entry(cache, n_rows, width)[1]
+
+    def _decode_entry(self, cache, n_rows, width):
+        """(the signature's CapturedDecode, None on the CPU; whether it is
+        new). The key holds the pools' addresses, which a graph writes,
+        and `clear_decode_cache`'s epoch."""
+        states = _graph_state(cache).steps
+        key = ("decode", id(self), getattr(self, "_decode_epoch", 0),
+               int(n_rows), int(width)) \
+            + tuple(t.data_ptr() for t in cache.k + cache.v)
+        if key in states:
+            return states[key], False
+        states[key] = CapturedDecode(self, cache, n_rows, width) \
+            if cache.device.type == "cuda" else None
+        self._paged_decode_traces += 1
+        return states[key], True
+
+    def _decode_body(self, cache, dev, n_rows, width):
+        """The decode's layers and head on the int32 plan `dev`
+        (tokens, pages, in_pages, lengths [B] each, the page table
+        [B, W]): logits [B, V]."""
+        toks, pages, in_pages, lens = dev[:4 * n_rows].view(4, n_rows)
+        pt = dev[4 * n_rows:].view(n_rows, width)
+        slots = [PagedJitSlot(cache.k[l], cache.v[l], pages, in_pages, pt,
+                              lens) for l in range(self.cfg.num_layers)]
+        hidden, _ = self.gpt(toks[:, None], None, slots)
+        return hidden[:, -1] @ self.gpt.wte.weight.T
+
+    # ---- static-cache generation ---------------------------------------
+    @paddle_io
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_k=None, top_p=None):
+        """Temperature / top-k / top-p sampling over a STATIC KV cache:
+        one prefill over the prompt [B, T], then max_new_tokens - 1
+        decode steps, on the card two CUDA graphs a (B, T,
+        max_new_tokens, top_k, top_p) signature, captured at its first
+        call and kept in `_gen_jit` (`GenerateProgram`). The prefill's
+        and the decode's keys come from `generation_key()`. Returns the
+        prompt and the new tokens, int64 [B, T + max_new_tokens]."""
+        cfg = self.cfg
+        ids = torch.as_tensor(input_ids, device=self.device).long()
+        B, T = ids.shape
+        if T + max_new_tokens > cfg.max_position_embeddings:
+            raise ValueError(
+                f"prompt {T} + max_new_tokens {max_new_tokens} exceeds "
+                f"max_position_embeddings {cfg.max_position_embeddings}")
+        sig = (B, T, int(max_new_tokens), top_k, top_p)
+        programs = getattr(self, "_gen_jit", None)
+        if programs is None:
+            programs = self._gen_jit = {}
+        with _eval_mode(self):
+            if sig not in programs:
+                programs[sig] = GenerateProgram(self, *sig)
+            new = programs[sig].run(ids, generation_key(),
+                                    generation_key(), temperature)
+        return torch.cat([ids, new], dim=1)
 
     @torch.no_grad()
     def paged_ragged_step(self, cache, rows, pad_to_tokens=None,

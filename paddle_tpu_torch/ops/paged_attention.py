@@ -34,9 +34,16 @@ The claims ledger (`set_claim` / `outstanding_claims`) keeps admission
 reservations pool-wide; `lock` serializes allocator mutations;
 `pool_stats` snapshots the pool (HybridCache reports it with its state
 gauges). `rollback` moves a sequence's write cursor back (the
-speculative-decoding rejection path). Chain export/adoption,
-`plan_decode` and the legacy gather attention are not ported yet
-(ROADMAP.md queue A).
+speculative-decoding rejection path).
+
+The legacy bucketed path (`GPTForCausalLM.paged_decode_step`) reads the
+pools through `paged_attention`, a plain gather of each row's pages and
+a float32 masked softmax (the reference's is plain JAX, no Pallas
+kernel): `plan_decode` plans one decode token a row (padded rows write
+the pad page and have length 0), `batch_views` builds the page tables
+(width rounded up to a power of two) and `attend` runs one layer;
+`extend` writes a prefill's K/V sequence by sequence. Chain export and
+adoption are not ported yet (ROADMAP.md queue A, item A.8).
 """
 import threading
 from collections import OrderedDict
@@ -49,9 +56,36 @@ from ..framework.dtype import convert_dtype
 from .attention_core import MXU_ROWS, choose_q_block
 from .kernels.paged_attention import build_block_plan
 
-__all__ = ["PagedKVCache"]
+__all__ = ["PagedKVCache", "paged_attention"]
 
 _ROOT = 0  # prefix-chain id of the empty prefix
+
+
+def paged_attention(q, k_pages, v_pages, page_table, lengths, scale=None):
+    """Decode attention over paged K/V: q [B, H, D] (one token a row);
+    k_pages / v_pages [n_pages, page_size, H, D]; page_table [B, W] page
+    ids (0-padded); lengths [B] the tokens each row sees. One gather of
+    each row's pages, scores and softmax in float32 under a `t < length`
+    mask of the finite -1e30 (a row of length 0, a pad row, gets a
+    uniform softmax, never NaN). Returns [B, H, D] in q's dtype. With q
+    [B, T, H, D] and lengths [B, T] each of a row's T queries attends
+    under its own length (a prefill: one gather for all of them)."""
+    if q.dim() == 3:
+        return paged_attention(q[:, None], k_pages, v_pages, page_table,
+                               lengths[:, None], scale)[:, 0]
+    B, _, H, D = q.shape
+    P = k_pages.shape[1]
+    W = page_table.shape[1]
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(D))
+    k = k_pages[page_table].reshape(B, W * P, H, D)
+    v = v_pages[page_table].reshape(B, W * P, H, D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    t = torch.arange(W * P, device=q.device)
+    s = torch.where(t < lengths[:, None, :, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
 
 
 class PagedKVCache:
@@ -117,6 +151,18 @@ class PagedKVCache:
 
     def n_free_pages(self):
         return len(self._free)
+
+    def device_arrays(self):
+        """The pool's per-layer K and V tensors (a list copy)."""
+        return list(self.k) + list(self.v)
+
+    def can_allocate(self, n_tokens, reserved=0):
+        """Admission control: True when a new sequence of n_tokens fits
+        the free list plus the prefix registry's evictable retention,
+        after `reserved` pages of outstanding claims (the bucketed
+        engine's gate)."""
+        return self.pages_needed(n_tokens) + int(reserved) \
+            <= len(self._free) + self.n_evictable_pages()
 
     def n_evictable_pages(self):
         """Registered pages held ONLY by the registry: reclaimable on
@@ -372,6 +418,94 @@ class PagedKVCache:
                     registered_pages=len(self._chain_info),
                     shared_pages=self.shared_page_count(),
                     evictable_pages=self.n_evictable_pages())
+
+    # ---- writes and the decode step's plan ----------------------------
+    def extend(self, seq_id, layer, k_new, v_new):
+        """Append k / v [T, H, D] to one layer, in place. Call for every
+        layer with the same T before advance()."""
+        self._ensure_capacity(seq_id, k_new.shape[0])
+        pos = self._len[seq_id]
+        T, P = k_new.shape[0], self.page_size
+        table = self._tables[seq_id]
+        kp, vp = self.k[layer], self.v[layer]
+        off = 0
+        while off < T:
+            page = table[(pos + off) // P]
+            in_page = (pos + off) % P
+            n = min(P - in_page, T - off)
+            kp[page, in_page:in_page + n] = k_new[off:off + n].to(kp.dtype)
+            vp[page, in_page:in_page + n] = v_new[off:off + n].to(vp.dtype)
+            off += n
+
+    def plan_decode(self, seq_ids, pad_to=None):
+        """Plan ONE decode step: capacity for one new token a sequence,
+        then (pages [B], in_pages [B], page_table [B, W], lengths [B]),
+        int32 tensors on the pools' device: the write coordinates and the
+        read views. Lengths are pre-write; advance(sid, 1) after the step.
+        pad_to > B appends rows that write the reserved pad page 0 (slot
+        0, empty table, length 0): a scheduler's decode keeps one shape
+        while sequences join and leave; their outputs are garbage."""
+        return tuple(torch.from_numpy(a).to(self.device)
+                     for a in self._plan_decode_host(seq_ids, pad_to))
+
+    def _plan_decode_host(self, seq_ids, pad_to=None):
+        """plan_decode's arrays as host int32 numpy arrays (what a
+        captured decode step copies in at once)."""
+        if len(set(seq_ids)) != len(seq_ids):
+            # two rows would scatter to one (page, slot), then advance
+            # twice
+            raise ValueError(f"duplicate seq_ids in decode batch: "
+                             f"{seq_ids!r}")
+        for s in seq_ids:
+            self._ensure_capacity(s, 1)
+        P = self.page_size
+        B = len(seq_ids)
+        n_pad = 0
+        if pad_to is not None:
+            if pad_to < B:
+                raise ValueError(f"pad_to={pad_to} < batch size {B}")
+            n_pad = int(pad_to) - B
+        pages = np.asarray(
+            [self._tables[s][self._len[s] // P] for s in seq_ids]
+            + [0] * n_pad, np.int32)
+        in_pages = np.asarray([self._len[s] % P for s in seq_ids]
+                              + [0] * n_pad, np.int32)
+        pt, lens = self._views_host(seq_ids)
+        if n_pad:
+            pt = np.concatenate([pt, np.zeros((n_pad, pt.shape[1]),
+                                              np.int32)])
+            lens = np.concatenate([lens, np.zeros((n_pad,), np.int32)])
+        return pages, in_pages, pt, lens
+
+    def _views_host(self, seq_ids):
+        if not seq_ids:
+            raise ValueError("batch_views() needs at least one sequence")
+        tables = [self._tables[s] for s in seq_ids]
+        width = max(1, max(len(t) for t in tables))
+        width = 1 << (width - 1).bit_length()  # bucket: power of two
+        pt = np.zeros((len(seq_ids), width), np.int32)
+        for i, t in enumerate(tables):
+            pt[i, :len(t)] = t
+        lens = np.asarray([self._len[s] for s in seq_ids], np.int32)
+        return pt, lens
+
+    def batch_views(self, seq_ids):
+        """(page_table [B, W] int32, lengths [B] int32) on the pools'
+        device for a decode batch: tables pad with the reserved page 0
+        and W rounds up to the next power of two, so a captured step
+        serves every length up to that bucket. Build once a step and
+        pass to attend() for every layer."""
+        return tuple(torch.from_numpy(a).to(self.device)
+                     for a in self._views_host(seq_ids))
+
+    def attend(self, layer, q, seq_ids=None, views=None):
+        """Decode attention for one layer: q [B, H, D] against each
+        sequence's paged history (`views`: batch_views(seq_ids), built
+        once a step)."""
+        if views is None:
+            views = self.batch_views(seq_ids)
+        pt, lens = views
+        return paged_attention(q, self.k[layer], self.v[layer], pt, lens)
 
     # ---- the ragged step's plan ---------------------------------------
     def advance(self, seq_id, n_tokens):

@@ -148,6 +148,18 @@ bit for bit, #10 once a group a step; `dynamic_decode` with a GRU
 decoder on the card against the CPU, sequences equal and scores within
 1e-5; `paddle.device`'s memory queries equal torch.cuda's, and its
 `Event` times a product.
+
+The data pipeline's rest and the legacy generation path (plain torch
+ops, no kernel of their own): the device prefetch ring's staged batches
+equal their host batches after the consumer has run a long kernel on
+each and dropped it while the allocator churns (the event wait and
+`record_stream` keep the side stream from reusing a batch's memory
+early); a replayed `paged_decode_step` (a captured (batch, width)
+signature) against its body run eagerly on a copy of the pools with the
+plan the replay copied in, logits and pools bit for bit; a replayed
+`generate` (the prefill graph and the decode graph replayed back to
+back) against its two bodies run eagerly on the same buffers, tokens bit
+for bit.
 """
 import numpy as np
 import pytest
@@ -2480,3 +2492,91 @@ def test_device_memory_queries_equal_torch_cuda_on_card():
     end.synchronize()
     assert 0 < start.elapsed_time(end) < 1000
     assert paddle.get_cuda_rng_state()
+
+
+@pytest.mark.cuda
+def test_prefetch_ring_batches_survive_allocator_churn_on_card():
+    """40 host batches of int32 through the ring (depth 2): the consumer
+    reads each behind a 2 ms device sleep, drops it and churns the
+    allocator with same-sized blocks; every (exact, integer) sum equals
+    its host batch's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paddle_tpu_torch.io.device_prefetch import device_prefetch_iterator
+    rng = np.random.RandomState(0)
+    host = [rng.randint(0, 1 << 20, 1 << 18).astype(np.int32)
+            for _ in range(40)]
+    sums = []
+    for (b,) in device_prefetch_iterator(([h] for h in host), depth=2):
+        assert b.value.is_cuda
+        torch.cuda._sleep(2_000_000)  # the consumer is behind
+        sums.append(b.value.long().sum())  # exact: integers
+        del b
+        churn = [torch.empty(1 << 18, dtype=torch.int32, device="cuda")
+                 for _ in range(4)]
+        for c in churn:
+            c.fill_(-1)
+        del churn
+    got = torch.stack(sums).cpu().numpy()
+    want = np.array([h.astype(np.int64).sum() for h in host])
+    np.testing.assert_array_equal(got, want)
+
+
+def _decode_gpt():
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(vocab_size=96, hidden_size=64, num_layers=2,
+                    num_heads=4, max_position_embeddings=64,
+                    initializer_range=0.5)
+    return GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=3)
+
+
+@pytest.mark.cuda
+def test_replayed_paged_decode_equals_eager_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import types
+    model = _decode_gpt()
+    cache = model.make_paged_cache(32, 4)
+    rng = np.random.RandomState(1)
+    for sid, n in (("a", 9), ("b", 3), ("c", 6)):
+        cache.add_sequence(sid)
+        model.paged_decode_step(cache, [sid], torch.from_numpy(
+            rng.randint(0, 96, (1, n))).cuda())
+    sids = ["a", "b", "c"]
+    model.paged_decode_step(cache, sids, torch.tensor([[1], [2], [3]],
+                                                      device="cuda"),
+                            pad_to=4)  # the capture
+    n = model._paged_decode_traces
+    shadow = types.SimpleNamespace(k=[t.clone() for t in cache.k],
+                                   v=[t.clone() for t in cache.v])
+    got = model.paged_decode_step(cache, sids, torch.tensor(
+        [[4], [5], [6]], device="cuda"), pad_to=4)
+    assert model._paged_decode_traces == n  # a replay
+    (graph,) = [g for k, g in cache._ragged_graphs.steps.items()
+                if k[0] == "decode" and k[3] == 4 and g.replays]
+    dev = torch.from_numpy(graph.host.copy()).cuda()
+    with torch.no_grad():
+        want = model._decode_body(shadow, dev, 4, dev.numel() // 4 - 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[:3])
+    for a, b in zip(cache.k + cache.v, shadow.k + shadow.v):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_replayed_generate_equals_eager_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = _decode_gpt()
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 96, (3, 7))).cuda()
+    model.generate(ids, max_new_tokens=9, temperature=0.8, top_k=20)
+    got = model.generate(ids, max_new_tokens=9, temperature=0.8, top_k=20)
+    (prog,) = model._gen_jit.values()
+    assert prog.graphs is not None and prog.runs == 2
+    with torch.no_grad():
+        prog._prefill()
+        for _ in range(8):
+            prog._decode()
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 7:], prog.out)
