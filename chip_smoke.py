@@ -482,7 +482,33 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    card against CPU, TF32 off: generate(top_k=1) tokens equal (or
    phase 5's gap rule at a first mismatch), paged_decode_step logits
    (three prefills, 8 decode steps padded to 4 rows) within 1e-4;
-21. the smoke's run time and the kernels line (each flash kernel
+21. the serving front door (ServingRouter, the prefill/decode handoff
+   and the serving observatory) on phase 4's weights: (a) 16 greedy
+   requests (phase 4's prompts and 8 behind one 64-token system prompt,
+   64 tokens each) through one GenerationEngine of 8 slots and through a
+   disaggregated pair (a prefill engine of 4 slots, a decode engine of
+   4, a prefill chunk of 32) over one pool of 512 pages of 16, prefix
+   cache off: the one engine runs the requests untimed (captures
+   inline), then timed; the pair (`ServingRouter.disaggregated`) has its
+   cache warmed for every signature it can take, then `router.warm`;
+   held: no capture in the pair's run (retraces 0 after the warm), #1 =
+   replays x 24
+   and no other kernel, one handoff a request, each adopted chain the
+   exporter's page ids, pages drawn equal in both topologies and none
+   copied, streams equal or `bf16_rule` ties; printed: requests/s and
+   TTFT p50 / p99 of both; (b) the port's tools/load_harness.py trace
+   (seed 0, 64 requests at 8 req/s, x10 over indices 0.4-0.7, prompts
+   lognormal mean 128 sigma 0.6 clipped at 1024, outputs mean 32 sigma
+   0.5 clipped at 128, vocab 50304, the reference's SLO tiers) driven
+   open-loop through a pair of (a)'s shape with max_queue 8, its cache
+   warmed for the trace's lengths, the metrics JSONL (PADDLE_TPU_METRICS_FILE) passing
+   tools/check_metrics_schema.py run as a script; printed: goodput,
+   attainment by class, TTFT / TPOT p50 / p99, rejected and expired
+   fractions, peak in flight, pressure events, kv_peak_occupancy,
+   fragmentation; (c) phase 13's SSM as a disaggregated pair over one
+   RecurrentStateCache against one engine: streams equal or ties, #11 =
+   (replays + captures) x 24;
+22. the smoke's run time and the kernels line (each flash kernel
    three times: head_dim 64, with the suffix "_d128" head_dim 128, with
    "_f16" float16; #10's bf16 variant as "fused_pass2_bf16_state"; the
    tree update as "tree_update"; K2 as "stochastic_round"), then, last,
@@ -497,7 +523,8 @@ update, SSM serving in phase 13's wave B for #11, phase 16's O1-float16
 AMP run for #2-#4 in float16, phase 18 (a)'s two routes for #5-#10
 and (b)'s training for #9-#10, and this slice's: phase 19 (a)'s fit for
 #10, (b)'s ring-fed loop for #2-#8 at head_dim 128 and the tree update,
-phase 20 (b)'s ragged engine's timed wave for #1, each added to its
+phase 20 (b)'s ragged engine's timed wave for #1, phase 21 (a)'s pair
+and (b)'s open-loop run for #1 and (c)'s SSM pair for #11, each added to its
 kernel's launches in the kernels line) runs with the launch counts set
 to 0 just before it and read just after; a CUDA graph's replay adds the launches
 its capture recorded (the wrappers count launches, and a capture, which
@@ -6730,6 +6757,372 @@ def phase_legacy_generation(torch, km, mods, state, prompts):
 
 
 
+# phase 21: the serving front door. A pool of 512 pages of 16 for both
+# topologies; the disaggregated pair (prefill engine, decode engine over
+# one cache) against one engine of 8 slots
+ROUTER_POOL = dict(n_pages=512, page_size=16)
+ROUTER_SINGLE = dict(max_batch=8, prefill_chunk=32, max_new_tokens=NEW_TOKENS)
+ROUTER_PAIR = dict(max_batch=4, prefill_batch=4, prefill_chunk=32)
+SYSTEM_PROMPT = 64  # tokens the 8 extra requests share
+# the open-loop trace (tools/load_harness.py `generate_trace`, the port's)
+LOAD_TRACE = dict(n_requests=64, rate_rps=8.0, burst=(0.4, 0.7, 10.0),
+                  prompt_mean=128.0, prompt_sigma=0.6, max_prompt=1024,
+                  out_mean=32.0, out_sigma=0.5, max_out=128, vocab=50304)
+LOAD_QUEUE = 8  # the pair's admission queue in 21 (b): the burst overflows
+
+
+def pow2_upto(lo, hi):
+    out, v = [], lo
+    while v <= hi:
+        out.append(v)
+        v *= 2
+    return out
+
+
+def warm_pair_signatures(model, cache, max_len):
+    """Capture every (tokens, rows, width) signature a disaggregated pair
+    of ROUTER_PAIR's shape can step through over `cache`, before its
+    traffic: token buckets from MIN_Q_TOKENS to the prefill chunk (a
+    prefill step carries at most a chunk; a decode step at most 4 rows),
+    rows 1 to 4, table widths from 2 pages (the first chunk of a prompt
+    of 32 or more) to the pages of `max_len` tokens. Returns (captured,
+    seconds)."""
+    from paddle_tpu_torch.ops.attention_core import MIN_Q_TOKENS
+    t = time.perf_counter()
+    chunk, rows = ROUTER_PAIR["prefill_chunk"], ROUTER_PAIR["max_batch"]
+    widths = pow2_upto(2, 1 << (-(-max_len // P) - 1).bit_length())
+    n = 0
+    for T in pow2_upto(MIN_Q_TOKENS, chunk):
+        for B in pow2_upto(1, rows):
+            for W in widths:
+                n += model.warm_ragged(cache, T, B, W)
+    return n, time.perf_counter() - t
+
+
+def timed_wave(server, prompts, new=NEW_TOKENS):
+    """All `prompts` submitted at once to an engine or a router: (streams,
+    seconds from the first submit to the last result, TTFTs sorted: each
+    handle's first token handed to its stream less its submit, host
+    stamps)."""
+    t = time.perf_counter()
+    hs = [server.submit(p, max_new_tokens=new) for p in prompts]
+    streams = [h.result(timeout=900).tolist() for h in hs]
+    return streams, time.perf_counter() - t, \
+        sorted(h.t_first - h.t_submit for h in hs)
+
+
+def pct(sorted_vals, p):
+    return sorted_vals[min(len(sorted_vals) - 1,
+                           int(round(p / 100 * (len(sorted_vals) - 1))))]
+
+
+def router_prompts(prompts, vocab):
+    """Phase 4's 8 prompts and 8 sharing a 64-token system prompt."""
+    rng = np.random.default_rng(SEED + 21)
+    system = rng.integers(0, vocab, SYSTEM_PROMPT)
+    return list(prompts) + [np.concatenate([system,
+                                            rng.integers(0, vocab, n)])
+                            for n in (8, 16, 24, 40, 56, 72, 96, 128)]
+
+
+def spy_chains(cache):
+    """Record each chain `cache` exports and check each adoption lands
+    the very page ids exported (no copy). Returns (exported, adopted)
+    lists the spies fill."""
+    exported, adopted = [], []
+    real_export, real_adopt = cache.export_chain, cache.adopt_chain
+
+    def export(sid):
+        chain = real_export(sid)
+        exported.append(list(chain.pages))
+        return chain
+
+    def adopt(sid, chain):
+        held = all(cache._ref.get(pg, 0) >= 1 for pg in chain.pages)
+        n = real_adopt(sid, chain)
+        adopted.append((list(cache._tables[sid]), held))
+        return n
+
+    cache.export_chain, cache.adopt_chain = export, adopt
+    return exported, adopted
+
+
+def phase_router_parity(torch, km, mods, state, prompts):
+    """21 (a): the same 16 greedy requests through one GenerationEngine of
+    8 slots and through a disaggregated pair (prefill_batch 4, max_batch
+    4, prefill chunk 32) over one pool of the same size, GPT-medium bf16,
+    prefix cache off (so both draw the same pages). The single engine
+    runs the requests once untimed (its signatures captured inline); the
+    pair (`ServingRouter.disaggregated`) has its cache warmed for every
+    signature it can take, then `router.warm` runs for each prompt
+    length. Held: streams equal or bf16 near-ties; one handoff a request,
+    each adopted chain the exporter's page ids; pages drawn equal; no
+    capture in the pair's run, and each engine's `retraces` no more than
+    the warm's captures; #1 = (replays) x 24 there, nothing else.
+    Returns (the model, #1's launches)."""
+    from paddle_tpu_torch.inference import ServingRouter
+    GenerationEngine, GPTForCausalLM, gpt_medium, load_state, _ = mods
+    cfg = gpt_medium()
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16)
+    load_state(model, state)
+    reqs = router_prompts(prompts, cfg.vocab_size)
+    max_len = max(p.size for p in reqs) + NEW_TOKENS
+    lengths = sorted({p.size for p in reqs})
+    runs = {}
+
+    single = GenerationEngine(model, **ROUTER_POOL, **ROUTER_SINGLE,
+                              prefix_cache=False, name="single")
+    try:
+        timed_wave(single, reqs)  # untimed: its signatures captured inline
+        before = single.retraces, single.cache.pool_stats()["pages_drawn"]
+        streams, wall, ttft = timed_wave(single, reqs)
+        runs["single"] = dict(streams=streams, wall=wall, ttft=ttft,
+                              drawn=single.cache.pool_stats()["pages_drawn"]
+                              - before[1],
+                              retraces=single.retraces - before[0])
+        print(f"  (a) one engine (8 slots): the untimed wave captured "
+              f"{before[0]} signatures inline, the timed wave "
+              f"{runs['single']['retraces']}", flush=True)
+    finally:
+        single.shutdown()
+    del single
+    torch.cuda.empty_cache()
+
+    router = ServingRouter.disaggregated(
+        model, **ROUTER_POOL, **ROUTER_PAIR, prefix_cache=False,
+        max_new_tokens=NEW_TOKENS, name="pair", fleet_snapshot_s=1.0)
+    pre, dec = router.engines
+    cache = pre.cache
+    try:
+        built = model._ragged_traces
+        caps, cap_s = warm_pair_signatures(model, cache, max_len)
+        fresh = sum(router.warm(n, NEW_TOKENS) for n in lengths)
+        exported, adopted = spy_chains(cache)
+        traces = model._ragged_traces
+        steps = pre.steps + dec.steps
+        drawn = cache.pool_stats()["pages_drawn"]
+        zero_counts(km)
+        streams, wall, ttft = timed_wave(router, reqs)
+        launches = counts(km)
+        stats = cache.pool_stats()
+        runs["pair"] = dict(streams=streams, wall=wall, ttft=ttft,
+                            drawn=stats["pages_drawn"] - drawn)
+        replays = pre.steps + dec.steps - steps
+        captured = model._ragged_traces - traces
+        routing = router.load_report()["routing"]
+    finally:
+        router.shutdown()
+    del cache.export_chain, cache.adopt_chain  # the spies: back to the class
+    # each engine folds every capture of the shared model since it was
+    # built into `retraces`: the warm's, then any in the run
+    warmed = traces - built
+    retraces = pre.retraces - warmed, dec.retraces - warmed
+    n = launches.pop("ragged_paged_attention")
+    check(not any(launches.values()),
+          f"21 (a): other kernels ran while the pair served: {launches}")
+    print(f"  (a) the pair: {caps} signatures captured before its traffic "
+          f"in {cap_s:.1f}s, router.warm captured {fresh} more; the timed "
+          f"wave: {replays} graph replays ({pre.name} and {dec.name}), "
+          f"captures {captured}, retraces after the warm {retraces[0]} / "
+          f"{retraces[1]}, ragged_paged_attention launches {n}", flush=True)
+    check(fresh == 0 and captured == 0 and retraces == (0, 0),
+          f"21 (a): the pair captured {fresh} at warm and {captured} in "
+          f"its run (retraces after the warm {retraces})")
+    check(n == replays * cfg.num_layers,
+          f"21 (a): #1 launches {n} != {replays} replays x "
+          f"{cfg.num_layers}")
+    check(routing["handoffs"] == len(reqs) == len(exported) == len(adopted),
+          f"21 (a): {routing['handoffs']} handoffs, {len(exported)} "
+          f"exported, {len(adopted)} adopted, {len(reqs)} requests")
+    same = sorted(map(tuple, exported)) == sorted(tuple(t)
+                                                  for t, _ in adopted)
+    check(same and all(h for _, h in adopted),
+          "21 (a): an adopted chain's pages are not the exported ones")
+    check(stats["cow_copies"] == 0
+          and runs["pair"]["drawn"] == runs["single"]["drawn"],
+          f"21 (a): pages drawn {runs['pair']['drawn']} (pair) and "
+          f"{runs['single']['drawn']} (one engine), "
+          f"{stats['cow_copies']} copies")
+    check(all(len(st) == NEW_TOKENS for r in runs.values()
+              for st in r["streams"]), "21 (a): stream lengths")
+    equal = first_mismatches(torch, model, reqs, runs["pair"]["streams"],
+                             runs["single"]["streams"], [None] * len(reqs),
+                             "21 (a) pair vs one engine", bf16_rule)
+    print(f"  (a) streams equal: {equal}/{len(reqs)} (the rest excused "
+          f"by the near-tie rule above); handoffs {routing['handoffs']} = "
+          f"requests; every adopted chain holds the exporter's page ids; "
+          f"pages drawn {runs['pair']['drawn']} in both topologies, 0 "
+          f"copied")
+    for label, r in runs.items():
+        print(f"  (a) {label}: {len(reqs) / r['wall']:.2f} requests/s "
+              f"({len(reqs) * NEW_TOKENS / r['wall']:.1f} output tokens/s, "
+              f"{r['wall']:.3f}s), TTFT p50 {pct(r['ttft'], 50) * 1e3:.1f}"
+              f" ms p99 {pct(r['ttft'], 99) * 1e3:.1f} ms", flush=True)
+    return model, n
+
+
+def phase_open_loop(torch, km, model):
+    """21 (b): the port's tools/load_harness.py trace (LOAD_TRACE, seed 0)
+    driven open-loop through a disaggregated pair of (a)'s shape with
+    max_queue 8, its cache warmed for the trace's lengths first, the
+    metrics JSONL written and checked by tools/check_metrics_schema.py.
+    Returns #1's launches."""
+    import subprocess
+    import tempfile
+
+    from paddle_tpu_torch.inference import ServingRouter
+    from paddle_tpu_torch.profiler import mem_observatory
+    from paddle_tpu_torch.tools.load_harness import (generate_trace,
+                                                     run_harness)
+    kw = dict(LOAD_TRACE)
+    trace = generate_trace(SEED, kw.pop("n_requests"), **kw)
+    max_len = max(r["prompt"].size + r["max_new"] for r in trace)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "metrics.jsonl")
+        os.environ["PADDLE_TPU_METRICS_FILE"] = path
+        router = ServingRouter.disaggregated(
+            model, **ROUTER_POOL, **ROUTER_PAIR, max_queue=LOAD_QUEUE,
+            max_new_tokens=LOAD_TRACE["max_out"], name="load",
+            fleet_snapshot_s=1.0)
+        pre, dec = router.engines
+        cache = pre.cache
+        try:
+            caps, cap_s = warm_pair_signatures(model, cache, max_len)
+            traces, steps = model._ragged_traces, pre.steps + dec.steps
+            zero_counts(km)
+            summary = run_harness(router, trace, seed=SEED,
+                                  burst=LOAD_TRACE["burst"])
+            launches = counts(km)
+            peaks = [e.kv_peak_occupancy() for e in router.engines]
+            frag = mem_observatory.fragmentation(cache)
+        finally:
+            router.shutdown()
+            del os.environ["PADDLE_TPU_METRICS_FILE"]
+        with open(path) as f:
+            kinds = {}
+            for line in f:
+                k = json.loads(line)["kind"]
+                kinds[k] = kinds.get(k, 0) + 1
+        lint = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "tools",
+                "check_metrics_schema.py"), path],
+            capture_output=True, text=True, timeout=300)
+    replays = pre.steps + dec.steps - steps
+    captured = model._ragged_traces - traces
+    n = launches.pop("ragged_paged_attention")
+    check(lint.returncode == 0,
+          f"21 (b): the metrics JSONL fails the schema: "
+          f"{(lint.stdout + lint.stderr)[-600:]}")
+    check(not any(launches.values()),
+          f"21 (b): other kernels ran: {launches}")
+    check(n == (replays + captured) * model.cfg.num_layers,
+          f"21 (b): #1 launches {n} != (replays {replays} + captures "
+          f"{captured}) x {model.cfg.num_layers}")
+    check(summary["requests"] == len(trace), "21 (b): requests offered")
+    print(f"  (b) {caps} signatures captured before the trace in "
+          f"{cap_s:.1f}s", flush=True)
+    print(f"  (b) {len(trace)} requests over {trace[-1]['t']:.2f}s "
+          f"({LOAD_TRACE['rate_rps']} req/s, x{LOAD_TRACE['burst'][2]} over "
+          f"indices {LOAD_TRACE['burst'][0]}-{LOAD_TRACE['burst'][1]}), "
+          f"max_queue {LOAD_QUEUE}: goodput "
+          f"{summary['goodput_tokens_per_s']} tokens/s, attainment "
+          f"{summary['attainment_by_class']}, TTFT p50 / p99 "
+          f"{summary['ttft_p50_s'] * 1e3:.1f} / "
+          f"{summary['ttft_p99_s'] * 1e3:.1f} ms, TPOT p50 / p99 "
+          f"{summary['tpot_p50_s'] * 1e3:.2f} / "
+          f"{summary['tpot_p99_s'] * 1e3:.2f} ms, rejected "
+          f"{summary['rejected_fraction']}, expired "
+          f"{summary['expired_fraction']}, peak in flight "
+          f"{summary['peak_in_flight']}, pressure events "
+          f"{summary.get('pressure_events')}, completed "
+          f"{summary['completed']}, submit lateness p99 "
+          f"{summary['submit_lateness_p99_s'] * 1e3:.2f} ms, "
+          f"{summary['duration_s']:.2f}s", flush=True)
+    print(f"  (b) phases {summary['phases']}; kv_peak_occupancy "
+          f"{peaks[0]:.4f} (prefill engine) / {peaks[1]:.4f} (decode); "
+          f"fragmentation at the end {frag['fragmentation']} "
+          f"({frag['free_runs']} free runs, largest {frag['largest_free_run']}"
+          f" of {frag['free_pages']}); {replays} replays, {captured} "
+          f"captures, #1 launches {n}; metrics JSONL {kinds}: "
+          f"{lint.stdout.strip()}", flush=True)
+    return n
+
+
+def phase_ssm_pair(torch, km, smods, prompts):
+    """21 (c): phase 13's Mamba-130M-shaped SSM (bf16, numpy-seeded) as a
+    disaggregated pair over one RecurrentStateCache (65 slots) against
+    one engine: greedy streams equal or bf16 near-ties; one handoff a
+    request; #11 = (replays + captures) x 24 over the pair's run, nothing
+    else. Returns #11's launches."""
+    from paddle_tpu_torch.inference import ServingRouter
+    GenerationEngine, SSMConfig, SSMForCausalLM, load_state, _ = smods
+    cfg = SSMConfig(**MAMBA_130M)
+    model = SSMForCausalLM(cfg, dtype=torch.bfloat16)
+    load_state(model, ssm_numpy_state(model, SEED))
+    pool = dict(n_pages=SSM_SERVE["n_pages"], page_size=16)
+    single = GenerationEngine(model, **pool, **ROUTER_SINGLE, name="ssm_one")
+    try:
+        want, wall_one, _ = timed_wave(single, prompts)
+    finally:
+        single.shutdown()
+    router = ServingRouter.disaggregated(
+        model, **pool, max_new_tokens=NEW_TOKENS, name="ssm_pair",
+        **ROUTER_PAIR)
+    pre, dec = router.engines
+    try:
+        traces, steps = model._ragged_traces, pre.steps + dec.steps
+        zero_counts(km)
+        got, wall, _ = timed_wave(router, prompts)
+        launches = counts(km)
+        handoffs = router.load_report()["routing"]["handoffs"]
+        strategy = pre.cache_strategy
+    finally:
+        router.shutdown()
+    replays = pre.steps + dec.steps - steps
+    captured = model._ragged_traces - traces
+    n = launches.pop(SCAN_KERNEL[0])
+    check(strategy == "recurrent", f"21 (c): strategy {strategy}")
+    check(not any(launches.values()), f"21 (c): other kernels ran: "
+                                      f"{launches}")
+    check(n > 0 and n == (replays + captured) * cfg.num_layers,
+          f"21 (c): #11 launches {n} != (replays {replays} + captures "
+          f"{captured}) x {cfg.num_layers}")
+    check(handoffs == len(prompts), f"21 (c): {handoffs} handoffs")
+    equal = first_mismatches(torch, model, prompts, got, want,
+                             [None] * len(prompts), "21 (c) SSM pair vs "
+                             "one engine", bf16_rule)
+    print(f"  (c) SSM pair: streams equal {equal}/{len(prompts)} (the rest "
+          f"excused above); handoffs {handoffs}, each moving one state "
+          f"blob ({pre.cache.state_bytes_per_slot()} bytes); {replays} "
+          f"replays + {captured} captures, ssm_scan launches {n}; "
+          f"{len(prompts) / wall:.2f} requests/s (one engine "
+          f"{len(prompts) / wall_one:.2f})", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return n
+
+
+def phase_front_door(torch, km, mods, smods, state, prompts):
+    """Phase 21: (a), (b), (c). Returns (#1's launches, #11's)."""
+    t0 = time.perf_counter()
+    print("  (a) one engine against a disaggregated pair, GPT-medium bf16, "
+          f"{len(prompts) + 8} greedy requests of {NEW_TOKENS} tokens",
+          flush=True)
+    model, paged = phase_router_parity(torch, km, mods, state, prompts)
+    torch.cuda.empty_cache()
+    print("  (b) the open-loop trace through a pair with max_queue "
+          f"{LOAD_QUEUE}", flush=True)
+    paged += phase_open_loop(torch, km, model)
+    del model
+    torch.cuda.empty_cache()
+    print("  (c) the Mamba-130M-shaped SSM as a disaggregated pair",
+          flush=True)
+    scan = phase_ssm_pair(torch, km, smods, prompts)
+    print(f"  phase 21 took {time.perf_counter() - t0:.1f}s")
+    return paged, scan
+
+
 
 def main():
     import torch
@@ -6765,18 +7158,27 @@ def main():
              load_paddle_tpu_state, ssm_mod)
     km = (fa, pa, fk, lk, xk, sk, srk, tk)
     t_start = time.perf_counter()
+    marks = []  # (phase, seconds since the start) as each phase begins
+
+    def mark(phase):
+        marks.append((phase, time.perf_counter() - t_start))
+
     card = card_line()
+    mark("1")
     print(f"[1] card: {card}", flush=True)
 
+    mark("2")
     t = time.perf_counter()
     logs = _build.build()
     print(f"[2] built {sorted(logs)} in {time.perf_counter() - t:.1f}s")
     phase_registers(logs, ln_main_labels(lk), scan_main_labels(sk))
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    mark("3")
     print("[3] ragged paged attention: kernel vs plain twin", flush=True)
     phase_kernel(torch, pa, flush)
 
+    mark("4")
     print("[4] GPT-medium bf16 through GenerationEngine", flush=True)
     zero_counts(km)
     with switches(False):
@@ -6787,6 +7189,7 @@ def main():
     check(not any(served.values()),
           f"other kernels ran while serving GPT: {served}")
 
+    mark("4b")
     print(f"[4b] GPT-medium bf16, speculative: a {DRAFT_LAYERS}-layer "
           f"self-draft, k = {SPEC_K}", flush=True)
     with switches(False):
@@ -6794,27 +7197,33 @@ def main():
     del model
     torch.cuda.empty_cache()
 
+    mark("5")
     print("[5] 2-layer float32: card vs CPU greedy and sampled streams",
           flush=True)
     phase_agreement(torch, pa, mods, prompts, state)
 
+    mark("6")
     print("[6] flash attention: kernels vs plain twins", flush=True)
     flash_main = phase_flash(torch, fa, flush)
 
+    mark("7")
     print("[7] GPT-medium bf16 through TrainStep: the default (fused) "
           "epilogue, fused_update=False, then the default epilogue with "
           "PADDLE_TPU_PALLAS_LN=1 and PADDLE_TPU_PALLAS_XENT=1", flush=True)
     captured = {}
     train_main, _, train_switched, train_bf16_state, train_k2 = phase_train(
         torch, km, tmods, state, captured)
+    mark("7 (cont.)")
     print("[7] (cont.) run_steps(4) against 4 calls, accumulate(2) against "
           "the whole batch, on the switched route", flush=True)
     phase_train_flavors(torch, km, tmods, state)
+    mark("7d")
     print("[7d] captured train steps: replays against the eager body, "
           "bit for bit; eager against replayed wall and device ms",
           flush=True)
     with switches(False):
         captured_main = phase_captured(torch, km, tmods, state)
+    mark("6 (cont.)")
     print("[6] (cont.) flash forward, dQ and dK/dV: kernels vs plain twins "
           "on layer 0's inputs of the first phase-7 training step",
           flush=True)
@@ -6823,12 +7232,14 @@ def main():
         flash_main[64][name]["max_abs_err"] = max(
             flash_main[64][name]["max_abs_err"], err)
 
+    mark("7b")
     print("[7b] GPT-1.3B bf16 (head_dim 128) through TrainStep with "
           "PADDLE_TPU_PALLAS_LN=1 and PADDLE_TPU_PALLAS_XENT=1; then 2 of its "
           "layers in float32, card vs CPU", flush=True)
     train_1p3b, train_1p3b_sr, bench, state_1p3b, cfg_1p3b = \
         phase_train_1p3b(torch, km, tmods, gpt_1p3b)
 
+    mark("8")
     print("[8] 2-layer float32 training: card vs CPU, each epilogue, and "
           "the LayerNorm and xent kernels switched on; the eager loop, Lamb "
           "and bf16 moments", flush=True)
@@ -6836,52 +7247,62 @@ def main():
     phase_optimizer_agreement(torch, km, tmods, state)
     phase_flavor_agreement(torch, km, tmods, state)
 
+    mark("9")
     print("[9] fused epilogue: kernels vs plain twins", flush=True)
     fused_main = phase_fused(torch, fk, fu, (SGD, Momentum, AdamW), tmods,
                              flush)
 
+    mark("9b")
     print("[9b] the tree update and stochastic rounding (K2): kernels vs "
           "plain twins", flush=True)
     tree_main = phase_tree_update(torch, tk, tmods, gpt_1p3b, flush)
     sr_main = phase_stochastic_round(torch, srk, flush)
 
+    mark("10")
     print("[10] GradScaler on the card: a non-finite step is skipped (in "
           "TrainStep on each epilogue, and around the eager step)",
           flush=True)
     phase_scaler(torch, km, tmods, state)
     phase_eager_scaler(torch, tmods, state)
 
+    mark("11")
     print("[11] LayerNorm and softmax cross-entropy: kernels vs plain twins",
           flush=True)
     norm_xent = phase_norm_xent(torch, lk, xk, flush)
     phase_chunked_xent(torch, xk, flush)
 
+    mark("12")
     floor_ms = cuda_ms(torch, lambda: torch.cuda._sleep(0), 20, flush)
     print(f"[12] selective scan: kernel vs plain twin (the timing's floor, "
           f"an empty kernel timed the same way: {floor_ms:.5f} ms)",
           flush=True)
     scan_cases = phase_scan(torch, sk, flush)
 
+    mark("13")
     print("[13] Mamba-130M-shaped SSM bf16 through GenerationEngine",
           flush=True)
     scan_launches, scan_held = phase_ssm_serve(torch, sk, flush, km,
                                                smods)
 
+    mark("14")
     print("[14] 2-layer float32 SSM, pure and hybrid: card vs CPU greedy "
           "and sampled "
           "streams", flush=True)
     phase_ssm_agreement(torch, km, smods, prompts)
 
+    mark("15")
     print("[15] the Paddle dygraph surface: GPT-medium bf16 as a Layer "
           "through the eager loop and TrainStep, save / load, a user "
           "Layer card vs CPU, host cost", flush=True)
     phase_dygraph(torch, km, state, train_main)
 
+    mark("16")
     print("[16] examples/bench_bert.py's ERNIE-base MLM step: TrainStep in "
           "bf16, the AMP eager loop (O1 bf16, O2 bf16, O1 fp16), card vs "
           "CPU, the float16 flash kernels", flush=True)
     bert = phase_bert(torch, km, fa, flush)
 
+    mark("17")
     print("[17] examples/train_vision_hapi.py's ResNet-50 through "
           "Model.fit / evaluate (CIFAR-10's shape, float32), its TrainStep "
           "at ImageNet's shape (float32, O1 bf16), the eager loop, "
@@ -6889,6 +7310,7 @@ def main():
           flush=True)
     vision = phase_vision(torch, km)
 
+    mark("18")
     print("[18] the recurrent slice: Transformer-base seq2seq (TrainStep on "
           "the default route and with PADDLE_TPU_PALLAS_LN=1 and "
           "PADDLE_TPU_PALLAS_XENT=1, greedy decode), an LSTM seq2seq with "
@@ -6896,6 +7318,7 @@ def main():
           "device queries", flush=True)
     phase_seq2seq(torch, km, card)
 
+    mark("19")
     print("[19] the data path: (a) phase 17's ResNet-50 fit through "
           f"DataLoader(num_workers={DATA_PATH['workers']}, "
           f"prefetch_to_device={DATA_PATH['depth']}); (b) bench.py's "
@@ -6906,13 +7329,21 @@ def main():
                                         cfg_1p3b, bench["dots"])
     del state_1p3b
 
+    mark("20")
     print("[20] the legacy generation path: static-cache generate, the "
           "bucketed GenerationEngine, InferenceEngine, card vs CPU",
           flush=True)
     legacy_launches = phase_legacy_generation(torch, km, mods, state,
                                               prompts)
+
+    mark("21")
+    print("[21] the serving front door: one engine against a "
+          "disaggregated pair (ServingRouter), the open-loop load trace, "
+          "the SSM pair", flush=True)
+    router_launches, router_scan = phase_front_door(torch, km, mods, smods,
+                                                    state, prompts)
     # the new phases' launches, added to the main paths' counts
-    extra = {"ragged_paged_attention": legacy_launches,
+    extra = {"ragged_paged_attention": legacy_launches + router_launches,
              "fused_pass2": data_path["launches"]["fused_pass2"]}
     extra.update({name + "_d128": prefetch_loop["launches"][name]
                   for name, _ in FLASH_KERNELS})
@@ -6981,13 +7412,18 @@ def main():
     kernels.append({
         "name": SCAN_KERNEL[0], "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ssm_scan.cu",
-        "replaces": SCAN_KERNEL[1], "launches": scan_launches,
+        "replaces": SCAN_KERNEL[1],
+        "launches": scan_launches + router_scan,
         "max_abs_err": max(m["max_abs_err"] for m in
                            scan_cases + list(scan_held.values())),
         "ms": scan_main["ms"], "plain_ms": scan_main["plain_ms"],
         "bound_ms": scan_main["bound_ms"], "bound_by": scan_main["bound_by"],
         "library_ms": None})
-    print(f"[21] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
+    mark("22")
+    print("  seconds a phase (from its start to the next's): " + ", ".join(
+        f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])),
+        flush=True)
+    print(f"[22] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
           f"run time); paged "
           f"attention times are of the served decode step's layer-0 call, "
           f"flash times of the training shapes [8, 1024, 16, 64] (and, "

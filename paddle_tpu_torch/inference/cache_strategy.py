@@ -11,7 +11,9 @@ allocator/ledger surface, so a model may bring any pool that has it:
                            advance / rollback
     prefix cache           match_prefix(_credit) / acquire_prefix /
                            register_prefix (may be inert)
-    telemetry              pool_stats / shared_page_count / n_pages
+    disaggregation         export_chain / adopt_chain / release_chain
+    telemetry              pool_stats / shared_page_count / n_pages /
+                           device_arrays
 
 A strategy with attention pages (paged, hybrid) also has `page_size`
 and `plan_ragged`; one with SSM state (recurrent, hybrid) has
@@ -32,9 +34,17 @@ updates them IN PLACE: the SSM step writes each row's new state and
 conv tail with `index_copy_`, and the pools are allocated once on an
 explicit device and never replaced.
 
-Not ported yet (ROADMAP.md queue A, item A.8): the prefill/decode handoff,
-`export_chain` / `adopt_chain` / `release_chain` and the chain handles.
+The prefill/decode handoff moves a sequence between two engines over ONE
+pool: `export_chain(sid)` detaches it into a chain handle that keeps its
+admission claim counted in `outstanding_claims()`, `adopt_chain(sid2,
+chain)` attaches it under a new id on the same pool (another pool
+refuses), `release_chain(chain)` drops it. A paged chain
+(ops/paged_attention.py `KVChainHandle`) moves page ids; a recurrent
+one (`RecurrentChainHandle`) one state blob a layer, copied out of the
+slot at export and back into a fresh slot at adoption; a hybrid one
+(`HybridChainHandle`) both.
 """
+import itertools
 import threading
 
 import numpy as np
@@ -43,13 +53,49 @@ import torch
 from ..device import resolve_device
 from ..framework.dtype import convert_dtype
 
-__all__ = ["strategy_of", "RecurrentStateCache", "HybridCache"]
+__all__ = ["strategy_of", "RecurrentChainHandle", "RecurrentStateCache",
+           "HybridChainHandle", "HybridCache"]
 
 
 def strategy_of(cache):
     """The cache's strategy name ("paged" | "recurrent" | "hybrid").
     Defaults to "paged" for strategy-unaware caches."""
     return str(getattr(cache, "strategy", "paged"))
+
+
+_CHAIN_IDS = itertools.count()
+
+
+class RecurrentChainHandle:
+    """A detached SSM decode state between two sequences, the recurrent
+    strategy's handoff unit, with the fields of
+    `ops.paged_attention.KVChainHandle`: `pages` is always empty and what
+    moves is one state blob a layer (`conv_state` [L, d_conv - 1,
+    d_inner], `ssm_state` [L, d_inner, d_state], device tensors copied
+    out of the slot at export), `state_bytes` its size. The slot was
+    freed at export; drawn 0 against claim 1 keeps one slot reserved in
+    `outstanding_claims()` until adoption or release."""
+
+    __slots__ = ("chain_id", "pages", "length", "drawn", "claim",
+                 "consumed", "request_id", "t_export", "draft_chain",
+                 "ready", "conv_state", "ssm_state", "state_bytes")
+
+    strategy = "recurrent"
+
+    def __init__(self, length, claim, conv_state, ssm_state, state_bytes):
+        self.chain_id = next(_CHAIN_IDS)
+        self.pages = ()
+        self.length = length
+        self.drawn = 0
+        self.claim = claim
+        self.consumed = False
+        self.request_id = None
+        self.t_export = None
+        self.draft_chain = None
+        self.ready = None  # CUDA event the adopting stream waits on
+        self.conv_state = conv_state
+        self.ssm_state = ssm_state
+        self.state_bytes = state_bytes
 
 
 class RecurrentStateCache:
@@ -99,7 +145,12 @@ class RecurrentStateCache:
         self._slot = {}    # seq_id -> slot
         self._len = {}     # seq_id -> tokens consumed so far
         self._claims = {}  # seq_id -> slots reserved at admission
+        self._chains = {}  # chain_id -> in-flight RecurrentChainHandle
         self._stats = {"slots_drawn": 0}
+
+    def device_arrays(self):
+        """The pool's per-layer conv and SSM state tensors (a list)."""
+        return list(self.conv) + list(self.ssm)
 
     # ---- geometry ----------------------------------------------------
     def state_bytes_per_slot(self):
@@ -150,6 +201,10 @@ class RecurrentStateCache:
         token count."""
         return 1
 
+    def pages_held(self, seq_id):
+        self._slot[seq_id]  # KeyError for an unknown sequence
+        return 1
+
     def n_free_pages(self):
         return len(self._free)
 
@@ -167,9 +222,13 @@ class RecurrentStateCache:
     def outstanding_claims(self):
         """Slots admission promised but the pool has not handed out: a
         live sequence draws its slot at admission (add_sequence), so
-        only a claim above one slot counts."""
-        return sum(max(c - 1, 0) for s, c in list(self._claims.items())
-                   if s in self._slot)
+        only a claim above one slot counts, plus one slot for each
+        exported chain in flight (its slot was freed with the blob)."""
+        out = sum(max(c - 1, 0) for s, c in list(self._claims.items())
+                  if s in self._slot)
+        out += sum(max(h.claim - h.drawn, 0)
+                   for h in list(self._chains.values()))
+        return out
 
     # ---- prefix cache (inert) ----------------------------------------
     def match_prefix(self, token_ids, max_tokens=None):
@@ -183,6 +242,59 @@ class RecurrentStateCache:
 
     def register_prefix(self, seq_id, token_ids):
         return None
+
+    # ---- chain handoff (prefill/decode disaggregation) ----------------
+    def export_chain(self, seq_id):
+        """Detach a sequence's state into a RecurrentChainHandle: each
+        layer's slot row is copied into one blob pair (on the pool's
+        device, in stream order), the slot returns to the free list and
+        the handle's claim keeps one slot reserved for the adoption."""
+        slot = self._slot.pop(seq_id)
+        conv = torch.stack([pool[slot] for pool in self.conv])
+        ssm = torch.stack([pool[slot] for pool in self.ssm])
+        handle = RecurrentChainHandle(
+            length=self._len.pop(seq_id),
+            claim=max(self._claims.pop(seq_id, 1), 1),
+            conv_state=conv, ssm_state=ssm,
+            state_bytes=self.state_bytes_per_slot())
+        self._free.append(slot)
+        self._chains[handle.chain_id] = handle
+        return handle
+
+    def adopt_chain(self, seq_id, chain):
+        """Attach an exported blob to a fresh sequence id on THIS pool: a
+        slot is drawn (the chain's reserved claim guarantees one), each
+        layer's blob copied back into it in place, the claim resumed.
+        Returns the adopted token length."""
+        if chain.consumed:
+            raise ValueError("adopt_chain: chain handle already "
+                             "consumed (adopted or released)")
+        if self._chains.pop(chain.chain_id, None) is None:
+            raise ValueError(
+                "adopt_chain: chain was not exported from THIS pool — "
+                "share the RecurrentStateCache between the two engines "
+                "instead")
+        if seq_id in self._slot:
+            raise ValueError(f"adopt_chain: sequence {seq_id!r} "
+                             "already present")
+        chain.consumed = True
+        self.add_sequence(seq_id)
+        slot = self._slot[seq_id]
+        for layer in range(self.n_layers):
+            self.conv[layer][slot].copy_(chain.conv_state[layer])
+            self.ssm[layer][slot].copy_(chain.ssm_state[layer])
+        self._len[seq_id] = chain.length
+        if chain.claim:
+            self._claims[seq_id] = chain.claim
+        return chain.length
+
+    def release_chain(self, chain):
+        """Drop an exported chain that will never be adopted: its
+        reserved slot leaves the claims."""
+        if chain.consumed:
+            return
+        chain.consumed = True
+        self._chains.pop(chain.chain_id, None)
 
     # ---- telemetry ----------------------------------------------------
     def pool_stats(self):
@@ -257,6 +369,34 @@ class RecurrentStateCache:
                 "n_rows": n_real}
 
 
+class HybridChainHandle:
+    """The hybrid strategy's handoff unit: the paged sub-chain (page ids)
+    and the recurrent one (state blobs) move as ONE unit. pages / length /
+    drawn / claim are the paged side's; `state_bytes` the recurrent
+    side's."""
+
+    __slots__ = ("chain_id", "pages", "length", "drawn", "claim",
+                 "consumed", "request_id", "t_export", "draft_chain",
+                 "ready", "paged_chain", "rec_chain", "state_bytes")
+
+    strategy = "hybrid"
+
+    def __init__(self, paged_chain, rec_chain):
+        self.chain_id = next(_CHAIN_IDS)
+        self.pages = paged_chain.pages
+        self.length = paged_chain.length
+        self.drawn = paged_chain.drawn
+        self.claim = paged_chain.claim
+        self.consumed = False
+        self.request_id = None
+        self.t_export = None
+        self.draft_chain = None
+        self.ready = None
+        self.paged_chain = paged_chain
+        self.rec_chain = rec_chain
+        self.state_bytes = rec_chain.state_bytes
+
+
 class HybridCache:
     """Both ledgers at once for models interleaving SSM and attention
     layers: a PagedKVCache over the ATTENTION layers and a
@@ -310,6 +450,9 @@ class HybridCache:
     def pages_needed(self, n_tokens):
         return self.paged.pages_needed(n_tokens)
 
+    def pages_held(self, seq_id):
+        return self.paged.pages_held(seq_id)
+
     def n_free_pages(self):
         return self.paged.n_free_pages()
 
@@ -338,6 +481,27 @@ class HybridCache:
     def register_prefix(self, seq_id, token_ids):
         return None
 
+    # ---- chain handoff -----------------------------------------------
+    def export_chain(self, seq_id):
+        return HybridChainHandle(self.paged.export_chain(seq_id),
+                                 self.recurrent.export_chain(seq_id))
+
+    def adopt_chain(self, seq_id, chain):
+        if chain.consumed:
+            raise ValueError("adopt_chain: chain handle already "
+                             "consumed (adopted or released)")
+        n = self.paged.adopt_chain(seq_id, chain.paged_chain)
+        self.recurrent.adopt_chain(seq_id, chain.rec_chain)
+        chain.consumed = True
+        return n
+
+    def release_chain(self, chain):
+        if chain.consumed:
+            return
+        chain.consumed = True
+        self.paged.release_chain(chain.paged_chain)
+        self.recurrent.release_chain(chain.rec_chain)
+
     # ---- serving-step plans ------------------------------------------
     def plan_ragged(self, rows, pad_to_tokens=None, pad_to_rows=None,
                     q_heads=None):
@@ -350,6 +514,10 @@ class HybridCache:
                                         pad_to_rows=pad_to_rows)
 
     # ---- telemetry ----------------------------------------------------
+    def device_arrays(self):
+        """Both halves' tensors."""
+        return self.paged.device_arrays() + self.recurrent.device_arrays()
+
     def pool_stats(self):
         """The paged pool's snapshot plus the slot and state gauges,
         stamped "hybrid"."""

@@ -51,6 +51,32 @@ included: ragged paged attention, the selective scan; a replay adds the
 launches its capture recorded), `_spec_proposed` / `_spec_accepted`
 (draft tokens proposed and accepted).
 
+The serving observatory (profiler/serve_observatory.py) traces every
+request from submit to its terminal state (one `kind:"request"` record),
+each step emits a `kind:"serve"` record and the `serve.*` metrics
+(`serve.ttft_s` / `serve.tpot_s` / `serve.latency_s` histograms,
+`serve.queue_depth`, ...), and every `kv_snapshot_every` steps a
+`kind:"kvcache"` and a `kind:"memory"` record. TTFT is stamped when the
+first token is handed to the stream, after the step's tokens reached the
+host. `load_report()`, `slo_report()`, `kv_peak_occupancy()` and
+`observatory_snapshot()` are host reads only (no device access, a
+bounded wait for the engine's lock): what the router ranks engines by.
+
+Prefill/decode disaggregation (inference/frontdoor.py `ServingRouter`):
+engines built over ONE cache (`cache=`) share its pool and claims
+ledger. `set_handoff(fn)` makes an engine the prefill role: a prompt
+whose last chunk produced its first token is streamed, exported
+(`cache.export_chain`: page ids, or a recurrent state blob) and handed
+to `fn(seq, chain)`, which calls a decode-role engine's `adopt()`; that
+engine's scheduler attaches the chain (`adopt_chain`) before its next
+step. On the card both engines' steps are issued on the device's default
+stream, and the chain carries a CUDA event recorded after the prefill
+engine's last step, which the adopting stream waits on. Two engines over
+one cache share its captured steps (keyed by model, signature and
+pools): `paged_ragged_step` holds the cache's lock from the plan through
+the replay and the copy of the step's outputs, so the shared static
+buffers are never replayed by one engine while the other reads them.
+
 `GenerationEngine(ragged=False)` runs the reference's legacy bucketed
 loop instead (`_admit`, `_decode_step`): a queued prompt is prefilled
 whole, eagerly, between decode steps, and one decode step advances every
@@ -67,12 +93,6 @@ dispatcher thread coalesces same-signature requests into padded bucket
 batches and runs one captured program a bucket (`_as_jitted`: a frozen
 eval-mode parameter snapshot). `_SchedulerLifecycle` is both engines'
 drain / shutdown core.
-
-Not ported yet (ROADMAP.md queue A): the engine's `cache=`,
-`prefix_cache=` and `kv_snapshot_every` options (the signature takes
-them in the reference's order; a value other than the reference's
-default raises NotImplementedError, A.7), prefill/decode handoff and
-the router (A.8), and the observatory records and `load_report` (A.10).
 """
 import functools
 import itertools
@@ -93,6 +113,10 @@ from ..ops.kernels.paged_attention import (ragged_paged_attention,
                                            ragged_work_plan)
 from ..ops.kernels.ssm_scan import ssm_scan
 from ..ops.threefry import sampling_key_data
+from ..profiler import flight_recorder as _flight
+from ..profiler import mem_observatory as _mobs
+from ..profiler import monitor as _monitor
+from ..profiler import serve_observatory as _obs
 from .cache_strategy import strategy_of
 from .speculative import SpeculativeConfig, accept_length
 
@@ -314,6 +338,24 @@ class _Bucket:
         return self.outputs
 
 
+def _trace_outcome(exc):
+    """A rejection's request-record outcome: a deadline expiry is
+    "expired", work shed by shutdown "cancelled", anything else
+    "error"."""
+    if isinstance(exc, DeadlineExceeded):
+        return "expired"
+    if isinstance(exc, EngineStopped):
+        return "cancelled"
+    return "error"
+
+
+def _finish_trace(trace, exc):
+    """Close a request trace from a rejection path."""
+    if trace is not None:
+        trace.finish(_trace_outcome(exc),
+                     error=f"{type(exc).__name__}: {exc}")
+
+
 def _resolve_future(fut, value):
     """set_result that tolerates a caller's concurrent cancel()."""
     try:
@@ -335,7 +377,11 @@ class GenerationHandle:
     the full generated sequence (np.int64 array, prompt excluded).
     `t_submit`/`t_first` are host perf_counter stamps of the submit and
     of the first token; `sampling` the request's SamplingParams and
-    `key` its uint32[2] key data."""
+    `key` its uint32[2] key data; `deadline_ms` the submit's value,
+    `trace` the request's serve_observatory trace, `request_id` its id
+    (the trace's, stamped at submit before the scheduler can see the
+    request) and `router` the ServingRouter's name when one routed
+    it."""
 
     def __init__(self, prompt, max_new_tokens, eos_token_id):
         self.prompt = prompt
@@ -348,8 +394,13 @@ class GenerationHandle:
         self.t_submit = time.perf_counter()
         self.t_first = None
         self.deadline = None  # perf_counter bound (submit deadline_ms=)
+        self.deadline_ms = None  # the submit's value: one request, one
+        # SLO class, whatever time remains at the handoff
+        self.trace = None       # serve_observatory RequestTrace
         self.sampling = GREEDY  # SamplingParams (submit sampling=)
         self.key = None         # uint32[2] per-request key data
+        self.request_id = None  # the trace's id, stamped at submit
+        self.router = None      # the routing ServingRouter's name
 
     def _push(self, tok):
         with self._cv:
@@ -387,14 +438,16 @@ class GenerationHandle:
 
 class _ActiveSeq:
     __slots__ = ("sid", "handle", "generated", "last", "filled",
-                 "sampling", "key", "draft_sid", "dlen")
+                 "cached", "sampling", "key", "draft_sid", "dlen")
 
-    def __init__(self, sid, handle, filled):
+    def __init__(self, sid, handle, filled, cached=None):
         self.sid = sid
         self.handle = handle
         self.generated = []
         self.last = None
         self.filled = filled  # prompt tokens whose KV is in the pool
+        # prompt tokens served by the prefix cache (at admission: filled)
+        self.cached = filled if cached is None else cached
         self.sampling = handle.sampling  # SamplingParams
         self.key = handle.key            # uint32[2] key data
         # speculative decoding: the DRAFT cache's twin sequence id (None:
@@ -491,6 +544,11 @@ class _SchedulerLifecycle:
         """Last resort: the loop core itself raised. Fail every
         outstanding request with the cause chained and refuse new
         submits."""
+        _monitor.counter("serve.errors").inc()
+        _flight.record_event("serve_scheduler_crashed",
+                             engine=getattr(self, "name", "serve"),
+                             type=type(exc).__name__,
+                             message=str(exc)[:300])
         err = ServingError(
             "scheduler thread crashed; this engine is dead — rebuild it")
         err.__cause__ = exc
@@ -537,10 +595,9 @@ class InferenceEngine(_SchedulerLifecycle):
     finishes everything in flight; `shutdown()` drains (or cancels,
     `wait=False`) and joins the thread; `pause()` / `resume()` hold
     dispatch. Plain counters: `retraces` (programs captured), `batches`
-    and `rows` (dispatched; rows / batches is the mean batch). Not ported
-    yet:
-    `load_report` and `observatory_snapshot` (the serving observatory,
-    ROADMAP.md queue A, item A.10)."""
+    and `rows` (dispatched; rows / batches is the mean batch); each
+    request's submit-to-result time goes to the `serve.latency_s`
+    histogram, which `load_report()` reads."""
 
     def __init__(self, model, batch_sizes=(1, 2, 4, 8), seq_buckets=None,
                  seq_axis=1, max_queue=64, max_wait_ms=2.0, pad_value=0,
@@ -566,6 +623,7 @@ class InferenceEngine(_SchedulerLifecycle):
         self._inflight = 0       # requests claimed, not yet resolved
         self._expired_reqs = deque()  # deferred rejections (dispatcher)
         self._pending_results = deque()  # dispatched, to resolve
+        _obs.register_engine(self)  # debug payloads read load_report
         self._thread = threading.Thread(
             target=_run_scheduler, args=(weakref.ref(self), self.device),
             name="serve-dispatch", daemon=True)
@@ -839,9 +897,11 @@ class InferenceEngine(_SchedulerLifecycle):
                     f"batch dim (expected leading {b}); the engine can "
                     "only serve batch-leading outputs")
         off = 0
+        now = time.perf_counter()
         for r in batch:
             sl = [h[off:off + r.n].copy() for h in host]
             off += r.n
+            _monitor.histogram("serve.latency_s").observe(now - r.t_submit)
             _resolve_future(r.future, sl[0] if single else sl)
         with self._cv:
             self._inflight -= len(batch)
@@ -882,14 +942,33 @@ class InferenceEngine(_SchedulerLifecycle):
             _reject_future(r.future, exc)
 
     def load_report(self):
-        raise NotImplementedError(
-            "InferenceEngine.load_report: the serving observatory is not "
-            "ported yet (ROADMAP.md queue A, item A.10)")
+        """The admission snapshot: queue depth against capacity, claimed
+        but unresolved requests, captured buckets, and the recent tail
+        latency of the process-wide `serve.latency_s` histogram. Host
+        reads only; the wait for the engine's lock is bounded (a wedged
+        dispatcher is reported, not waited on)."""
+        if not self._cv.acquire(timeout=1.0):
+            return {"engine": self.name,
+                    "unavailable": "engine lock held > 1s (wedged?)"}
+        try:
+            q = len(self._buf)
+            inflight = self._inflight
+            stopping = self._stopping
+        finally:
+            self._cv.release()
+        lat = _monitor.get_metric("serve.latency_s")
+        return {
+            "engine": self.name, "stopping": stopping,
+            "queue_depth": q, "max_queue": self.max_queue,
+            "inflight": inflight, "pipeline": self.pipeline,
+            "buckets_compiled": len(self._exec),
+            "latency_p50_s": lat.percentile(50) if lat else 0.0,
+            "latency_p99_s": lat.percentile(99) if lat else 0.0,
+        }
 
     def observatory_snapshot(self):
-        raise NotImplementedError(
-            "InferenceEngine.observatory_snapshot: the serving observatory "
-            "is not ported yet (ROADMAP.md queue A, item A.10)")
+        """What a debug payload records for this engine."""
+        return {"load_report": self.load_report()}
 
 
 class GenerationEngine(_SchedulerLifecycle):
@@ -909,23 +988,22 @@ class GenerationEngine(_SchedulerLifecycle):
     finish in-flight work before stopping. `speculative` (a
     SpeculativeConfig; paged strategy only) decodes speculatively with a
     draft model over its own page pool, `draft_cache` when given (else
-    one the draft model makes)."""
+    one the draft model makes).
+
+    `cache` is a pool the model made (`model.make_paged_cache`) to share
+    with other engines (a disaggregated pair); else the engine makes its
+    own of `n_pages` x `page_size`. `prefix_cache=False` turns the
+    refcounted prefix cache off (it rides the ragged path only).
+    `kv_snapshot_every` is the cadence, in steps, of the pool's
+    `kind:"kvcache"` / `kind:"memory"` records (the first step always
+    snapshots). `set_handoff` / `adopt` are the two roles of a
+    disaggregated pair (module docstring)."""
 
     def __init__(self, model, n_pages=256, page_size=16, max_batch=8,
                  max_queue=64, max_new_tokens=64, eos_token_id=None,
                  cache=None, name=None, ragged=None, prefill_chunk=32,
                  prefix_cache=True, kv_snapshot_every=8,
                  speculative=None, draft_cache=None):
-        for key, value, default in (
-                ("cache", cache, None),
-                ("prefix_cache", prefix_cache, True),
-                ("kv_snapshot_every", kv_snapshot_every, 8)):
-            if value is not default and value != default:
-                raise NotImplementedError(
-                    f"GenerationEngine({key}={value!r}): only the "
-                    f"reference's default {default!r} is ported yet "
-                    "(ROADMAP.md queue A, item A.7: the caches and the "
-                    "observatory come with A.8 and A.10)")
         self.name = name or f"gen{next(_ENGINE_IDS)}"
         self.ragged = bool(hasattr(model, "paged_ragged_step")
                            if ragged is None else ragged)
@@ -936,9 +1014,10 @@ class GenerationEngine(_SchedulerLifecycle):
                     f"GenerationEngine needs a model with {need}() "
                     "(e.g. models.gpt.GPTForCausalLM)")
         # the prefix cache rides the ragged path only (the reference's)
-        self.prefix_cache = self.ragged
+        self.prefix_cache = bool(prefix_cache) and self.ragged
         self.model = model
-        self.cache = model.make_paged_cache(n_pages, page_size)
+        self.cache = cache if cache is not None else \
+            model.make_paged_cache(n_pages, page_size)
         # "paged" | "recurrent" | "hybrid": selects the step accounting
         self.cache_strategy = strategy_of(self.cache)
         self.max_batch = int(max_batch)
@@ -995,10 +1074,31 @@ class GenerationEngine(_SchedulerLifecycle):
         self._active = []        # decoding, in row order
         self._prefilling = []    # admitted, prompt KV still chunking in
         self._admitting = 0      # popped from pending, not yet resolved
+        self._handoff_fn = None  # set_handoff: this engine = prefill role
+        self._adopted = deque()  # chains handed to this engine (decode
+        # role), attached by the scheduler thread before its next step
+        self._step_prefix_hits = 0  # prefix tokens since the last record
         self._cv = threading.Condition()
         self._stopping = False
         self._abort = False      # no-wait shutdown: fail active too
         self._next_sid = 0
+        # the pool's kvcache / memory records every kv_snapshot_every
+        # steps (the first step always), and the peak live pages
+        self.kv_snapshot_every = max(1, int(kv_snapshot_every))
+        self._step_i = 0
+        self._kv_peak_held = 0
+        _obs.register_engine(self)
+        # the memory ledger's tags (a pair sharing one pool registers it
+        # under both engines' tags; records dedup by tensor identity)
+        if self.cache_strategy == "hybrid":
+            _mobs.register(f"kv_pool.{self.name}", self.cache.paged)
+            _mobs.register("ssm_state", self.cache.recurrent)
+        elif self.cache_strategy == "recurrent":
+            _mobs.register("ssm_state", self.cache)
+        else:
+            _mobs.register(f"kv_pool.{self.name}", self.cache)
+        if self._draft_cache is not None:
+            _mobs.register("draft_pool", self._draft_cache)
         self._thread = threading.Thread(
             target=_run_scheduler,
             args=(weakref.ref(self), self.cache.device),
@@ -1007,11 +1107,16 @@ class GenerationEngine(_SchedulerLifecycle):
 
     # -- admission -------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens=None, eos_token_id=None,
-               deadline_ms=None, sampling=None):
+               deadline_ms=None, sampling=None, slo_class=None,
+               router=None):
         """Queue one prompt (1-D int array) for generation; returns a
         GenerationHandle. Rejects at once (QueueFullError) when the
-        queue is full, and checks the context and pool limits up
-        front."""
+        queue is full, and checks the context and pool limits up front.
+        A `deadline_ms` that passes while the request is queued expires
+        it (DeadlineExceeded); its request record states whether the
+        deadline was met. `slo_class` / `router` are the ServingRouter's
+        stamps: they land on the handle and the trace here, with
+        `handle.request_id`, before the request is queued."""
         prompt = np.asarray(prompt_ids).astype(np.int64).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must have at least one token")
@@ -1078,14 +1183,36 @@ class GenerationEngine(_SchedulerLifecycle):
         if deadline_ms is not None:
             handle.deadline = time.perf_counter() \
                 + float(deadline_ms) / 1000.0
+            handle.deadline_ms = float(deadline_ms)
+        handle.trace = _obs.start_request(
+            self.name, prompt_tokens=int(prompt.size),
+            max_new_tokens=max_new,
+            deadline_s=None if deadline_ms is None
+            else float(deadline_ms) / 1000.0)
+        handle.request_id = handle.trace.request_id
+        handle.trace.cache_strategy = self.cache_strategy
+        if slo_class is not None:
+            handle.trace.slo_class = str(slo_class)
+        if router is not None:
+            handle.router = str(router)
+        reject = None
         with self._cv:
             if self._stopping:
-                raise EngineStopped("engine is drained/shut down")
-            if len(self._pending) >= self.max_queue:
-                raise QueueFullError(
+                reject = EngineStopped("engine is drained/shut down")
+            elif len(self._pending) >= self.max_queue:
+                _monitor.counter("serve.rejected").inc()
+                reject = QueueFullError(
                     f"generation queue full ({self.max_queue} waiting)")
-            self._pending.append(handle)
-            self._cv.notify_all()
+            else:
+                self._pending.append(handle)
+                _monitor.counter("serve.requests").inc()
+                _monitor.gauge("serve.queue_depth").set(len(self._pending))
+                self._cv.notify_all()
+        if reject is not None:
+            # the trace closes outside the lock: finish() may append to
+            # the metrics file
+            handle.trace.finish("rejected", error=str(reject))
+            raise reject
         return handle
 
     # -- warming: step signatures captured ahead of traffic --------------
@@ -1230,8 +1357,10 @@ class GenerationEngine(_SchedulerLifecycle):
         batch took a signature no earlier step or warm took."""
         n = self._model_traces()
         if n > self._synced_traces:
-            self.retraces += n - self._synced_traces
+            d = n - self._synced_traces
+            self.retraces += d
             self._synced_traces = n
+            _monitor.counter("serve.retraces").inc(d)
 
     def _fail_warm(self, exc):
         with self._cv:
@@ -1244,12 +1373,14 @@ class GenerationEngine(_SchedulerLifecycle):
         """One warm+admit+step iteration (False = the thread exits)."""
         with self._cv:
             if not self._pending and not self._active \
-                    and not self._prefilling and not self._warm_queue:
+                    and not self._prefilling and not self._warm_queue \
+                    and not self._adopted:
                 if self._stopping:
                     return False
                 self._cv.wait(0.05)  # idle: wait for work
                 if not self._pending and not self._active \
-                        and not self._prefilling and not self._warm_queue:
+                        and not self._prefilling and not self._warm_queue \
+                        and not self._adopted:
                     return True  # still idle: let the runner drop its ref
         if self._abort:
             # shutdown(wait=False): fail the active set and exit
@@ -1259,6 +1390,7 @@ class GenerationEngine(_SchedulerLifecycle):
         try:
             self._warm_queued()
             if self.ragged:
+                self._drain_adopted()
                 self._admit_ragged()
                 busy = self._active or self._prefilling
                 if busy:
@@ -1275,6 +1407,7 @@ class GenerationEngine(_SchedulerLifecycle):
                     if self._pending and not self._stopping:
                         self._cv.wait(0.01)
         except Exception as e:
+            _monitor.counter("serve.errors").inc()
             self._fail_all(e)
         return True
 
@@ -1291,9 +1424,11 @@ class GenerationEngine(_SchedulerLifecycle):
         elif handle.deadline is not None \
                 and time.perf_counter() > handle.deadline:
             outcome = "expired"
+            _monitor.counter("serve.expired").inc()
         if outcome is None:
             return None
         self._pending.popleft()
+        _monitor.gauge("serve.queue_depth").set(len(self._pending))
         self._admitting += 1
         return outcome, handle
 
@@ -1303,6 +1438,8 @@ class GenerationEngine(_SchedulerLifecycle):
             if outcome == "expired":
                 _reject_future(handle.future, DeadlineExceeded(
                     "deadline passed before admission"))
+            if handle.trace is not None:
+                handle.trace.finish(outcome)
             handle._close()
         finally:
             with self._cv:
@@ -1351,6 +1488,10 @@ class GenerationEngine(_SchedulerLifecycle):
                         self.cache.set_claim(sid, need)
                     self._pending.popleft()
                     self._admitting += 1  # drain() must see the handoff
+                    _monitor.gauge("serve.queue_depth").set(
+                        len(self._pending))
+                    if handle.trace is not None:
+                        handle.trace.admitted()
             if doomed is not None:
                 self._close_doomed(doomed)
                 continue
@@ -1366,8 +1507,11 @@ class GenerationEngine(_SchedulerLifecycle):
                     with self.cache.lock:
                         self.cache.free_sequence(sid)
                     _reject_future(handle.future, e)
+                    _finish_trace(handle.trace, e)
                     handle._close()
                     continue
+                _monitor.histogram("serve.ttft_s").observe(
+                    time.perf_counter() - handle.t_submit)
                 self._sync_retraces()
                 seq = _ActiveSeq(sid, handle, handle.prompt.size)
                 self._active.append(seq)
@@ -1393,16 +1537,36 @@ class GenerationEngine(_SchedulerLifecycle):
         nxt = torch.argmax(logits, dim=-1).cpu().tolist()
         self.steps += 1
         self._sync_retraces()
+        now = time.perf_counter()
         # slot-accurate pad accounting: the step computes pad_to rows x
         # the power-of-two table width x page_size score slots, of which
         # only each real row's len + 1 lie inside a causal bound (shorter
         # rows pay for the longest row's table, pad rows for everything:
         # the waste the ragged kernel skips token by token)
         width = self._pow2(max(self.cache.pages_held(s) for s in sids))
-        self._attn_computed += int(pad_to) * width * self.cache.page_size
-        self._attn_useful += sum(l + 1 for l in lens)
+        computed = int(pad_to) * width * self.cache.page_size
+        useful = sum(l + 1 for l in lens)
+        self._attn_computed += computed
+        self._attn_useful += useful
+        _monitor.histogram("serve.batch_size").observe(b)
+        _monitor.counter("serve.pad_tokens").inc(int(pad_to - b))
+        _monitor.export_step(
+            {"engine": self.name, "requests": b, "batch_size": b,
+             "bucket_batch": int(pad_to),
+             "cache_strategy": self.cache_strategy,
+             "queue_depth": len(self._pending),
+             "pad_tokens": int(pad_to - b),
+             "pad_token_fraction": max(0.0, 1.0 - useful / computed),
+             "prefix_hits": 0, "shared_pages": 0,
+             "chunked_prefill_tokens": 0,
+             "proposed_tokens": 0, "accepted_tokens": 0,
+             "accept_rate": 0.0,
+             # a decode batch's latency_s: the mean in-flight age
+             "latency_s": sum(now - s.handle.t_submit
+                              for s in self._active) / b}, kind="serve")
         for seq, tok in zip(list(self._active), nxt):
             self._emit(seq, int(tok))
+        self._note_kv_step()
 
     def _admit_ragged(self):
         """Move queued prompts into the prefilling set; no compute here,
@@ -1420,14 +1584,19 @@ class GenerationEngine(_SchedulerLifecycle):
                             >= self.max_batch:
                         return
                     handle = self._pending[0]
+                    # one locked section from the prefix match to the
+                    # claim: an engine sharing this pool cannot admit
+                    # into the same pages between the two
                     with self.cache.lock:
-                        # at most prompt-1 cached tokens: the last prompt
-                        # token must run through the model to give the
-                        # first sampled token's logits
-                        _, matched_full, pinned = \
-                            self.cache.match_prefix_credit(
-                                handle.prompt,
-                                max_tokens=handle.prompt.size - 1)
+                        matched_full = pinned = 0
+                        if self.prefix_cache:
+                            # at most prompt-1 cached tokens: the last
+                            # prompt token must run through the model to
+                            # give the first sampled token's logits
+                            _, matched_full, pinned = \
+                                self.cache.match_prefix_credit(
+                                    handle.prompt,
+                                    max_tokens=handle.prompt.size - 1)
                         need = self.cache.pages_needed(
                             handle.prompt.size + handle.max_new_tokens) \
                             - matched_full
@@ -1440,9 +1609,11 @@ class GenerationEngine(_SchedulerLifecycle):
                             return  # wait for evictions to free pages
                         sid = self._new_sid()
                         self.cache.add_sequence(sid)
-                        cached = self.cache.acquire_prefix(
-                            sid, handle.prompt,
-                            max_tokens=handle.prompt.size - 1)
+                        cached = 0
+                        if self.prefix_cache:
+                            cached = self.cache.acquire_prefix(
+                                sid, handle.prompt,
+                                max_tokens=handle.prompt.size - 1)
                         self.cache.set_claim(sid, need)
                         # TWO-POOL admission (speculative decoding): the
                         # draft's cache is a second claims ledger, gated
@@ -1465,6 +1636,15 @@ class GenerationEngine(_SchedulerLifecycle):
                                 dc.add_sequence(draft_sid)
                                 dc.set_claim(draft_sid, dneed)
                     self._pending.popleft()
+                    _monitor.gauge("serve.queue_depth").set(
+                        len(self._pending))
+                    if handle.trace is not None:
+                        handle.trace.admitted()
+                    if cached:
+                        _monitor.counter("serve.prefix_hits").inc(cached)
+                        self._step_prefix_hits += cached
+                        if handle.trace is not None:
+                            handle.trace.note_prefix(cached)
                     # appended under self._cv: drain() never sees "queue
                     # empty, nothing in flight" mid-admission
                     seq = _ActiveSeq(sid, handle, cached)
@@ -1608,6 +1788,8 @@ class GenerationEngine(_SchedulerLifecycle):
                     self.cache.free_sequence(s.sid)
                 self._free_draft(s)
                 self._prefilling.remove(s)
+                if s.handle.trace is not None:
+                    s.handle.trace.finish("cancelled")
                 s.handle._close()
         launched = ragged_paged_attention.launches + ssm_scan.launches
         spec_on = self._draft_cache is not None
@@ -1635,6 +1817,8 @@ class GenerationEngine(_SchedulerLifecycle):
             n = min(budget, s.handle.prompt.size - s.filled)
             rows.append((s.sid, s.handle.prompt[s.filled:s.filled + n]))
             metas.append(("prefill", s, n))
+            if s.handle.trace is not None:
+                s.handle.trace.note_chunk()
             budget -= n
         if not rows:
             return  # nothing in flight: no draft step ran either
@@ -1645,8 +1829,7 @@ class GenerationEngine(_SchedulerLifecycle):
         if self.cache_strategy == "recurrent":
             # no kv pages to walk: the scan runs pad_t constant-cost
             # state updates, t_real of them for real tokens
-            self._attn_computed += pad_t
-            self._attn_useful += t_real
+            computed, useful = int(pad_t), int(t_real)
         else:
             # each token computes ceil(bound / P) pages of score slots
             # (the kernel's work formula); pad slots compute nothing
@@ -1654,8 +1837,10 @@ class GenerationEngine(_SchedulerLifecycle):
             bounds = np.concatenate(
                 [self.cache.length(sid) + np.arange(1, len(toks) + 1)
                  for sid, toks in rows])
-            self._attn_computed += int(ragged_work_plan(bounds, P).sum()) * P
-            self._attn_useful += int(bounds.sum())
+            computed = int(ragged_work_plan(bounds, P).sum()) * P
+            useful = int(bounds.sum())
+        self._attn_computed += computed
+        self._attn_useful += useful
         # per-row sampling config, [pad_b]-shaped like the row axis: pad
         # and greedy rows carry temperature 0 (the argmax lane), sampled
         # rows their request's config and key (the step folds in the
@@ -1677,10 +1862,34 @@ class GenerationEngine(_SchedulerLifecycle):
         # the step's one device-to-host read: int32s, per token on a
         # speculative engine (the verify lane), else per row
         toks = out[2 if spec_on else 1].cpu().tolist()
+        # after the read: the step's tokens are on the host, so TTFT and
+        # the emits below stamp tokens that a caller can have
+        now = time.perf_counter()
         self.kernel_launches += ragged_paged_attention.launches \
             + ssm_scan.launches - launched
         self.steps += 1
         self._sync_retraces()
+        prefill_toks = sum(n for k, _, n in metas if k == "prefill")
+        _monitor.histogram("serve.batch_size").observe(b_real)
+        if prefill_toks:
+            _monitor.counter("serve.chunked_prefill_tokens").inc(
+                prefill_toks)
+        shared = self.cache.shared_page_count()
+        _monitor.gauge("serve.shared_pages").set(shared)
+        hits, self._step_prefix_hits = self._step_prefix_hits, 0
+        rec = {"engine": self.name, "requests": b_real,
+               "batch_size": b_real, "bucket_batch": int(pad_b),
+               "cache_strategy": self.cache_strategy,
+               "queue_depth": len(self._pending),
+               "pad_tokens": 0,
+               "pad_token_fraction": max(0.0, 1.0 - useful / computed)
+               if computed else 0.0,
+               "pad_slots": int(pad_t - t_real),
+               "prefix_hits": hits, "shared_pages": shared,
+               "chunked_prefill_tokens": prefill_toks,
+               "latency_s": sum(now - s.handle.t_submit
+                                for _, s, _ in metas) / b_real}
+        step_prop = step_acc = 0
         off = 0
         for i, (kind, s, n) in enumerate(metas):
             row0 = off
@@ -1691,8 +1900,8 @@ class GenerationEngine(_SchedulerLifecycle):
                 samples = toks[row0:row0 + n]
                 m = accept_length(d, samples)
                 k_eff = n - 1
-                self._spec_proposed += k_eff
-                self._spec_accepted += m - 1
+                step_prop += k_eff
+                step_acc += m - 1
                 # roll BOTH write cursors back before emitting (a finish
                 # inside the emit loop frees the sequence, and prefix
                 # registration walks the pages at the accepted boundary):
@@ -1707,6 +1916,8 @@ class GenerationEngine(_SchedulerLifecycle):
                         with self._draft_cache.lock:
                             self._draft_cache.rollback(s.draft_sid, over)
                         s.dlen -= over
+                if s.handle.trace is not None:
+                    s.handle.trace.note_speculation(k_eff, m - 1)
                 for t in samples[:m]:
                     self._emit(s, t)
                     if s not in self._active:
@@ -1719,10 +1930,303 @@ class GenerationEngine(_SchedulerLifecycle):
             if s.filled < s.handle.prompt.size:
                 continue  # mid-prompt chunk: its sampled token is not real
             # prompt complete: stream the first token and join the
-            # decode batch (prefix registration waits for eviction)
+            # decode batch (prefix registration waits for eviction), or,
+            # on a prefill-role engine, hand the chain off
             self._prefilling.remove(s)
+            _monitor.histogram("serve.ttft_s").observe(
+                now - s.handle.t_submit)
+            if self._handoff_fn is not None:
+                self._handoff_seq(s, tok)
+                continue
             self._active.append(s)
             self._emit(s, tok)
+        self._spec_proposed += step_prop
+        self._spec_accepted += step_acc
+        rec["proposed_tokens"] = int(step_prop)
+        rec["accepted_tokens"] = int(step_acc)
+        rec["accept_rate"] = (step_acc / step_prop) if step_prop else 0.0
+        _monitor.export_step(rec, kind="serve")
+        self._note_kv_step()
+
+    # -- prefill/decode disaggregation (inference/frontdoor.py) ----------
+    def _release_chain_pair(self, chain):
+        """Release a handed-off chain and its draft rider back to their
+        pools (a cancelled adoption, a failed dispatch, shutdown)."""
+        try:
+            with self.cache.lock:
+                self.cache.release_chain(chain)
+        except Exception:
+            pass
+        dchain = getattr(chain, "draft_chain", None)
+        if dchain is not None and self._draft_cache is not None:
+            try:
+                with self._draft_cache.lock:
+                    self._draft_cache.release_chain(dchain)
+            except Exception:
+                pass
+
+    def set_handoff(self, fn):
+        """Make this engine the PREFILL role of a disaggregated pair: when
+        a prompt's last chunk gives its first token, the token is
+        streamed, the sequence's chain exported (`cache.export_chain`)
+        and `fn(seq, chain)` called on the scheduler thread, holding no
+        lock, to place it on a decode-role engine (`ServingRouter`'s
+        dispatcher calls `adopt`). `fn` raising fails the request and
+        releases the chain. None unwires."""
+        if fn is not None and not self.ragged:
+            raise ValueError(
+                "prefill-role handoff needs the ragged engine path")
+        self._handoff_fn = fn
+
+    def adopt(self, handle, chain, last_token, generated, cached=0):
+        """DECODE-role entry (any thread): take a chain another engine
+        prefilled over the SAME cache. The scheduler thread attaches it
+        under a fresh sid (`adopt_chain`: pages, refcounts and claim
+        carry over) before its next step, and the sequence decodes on as
+        if it had been prefilled here. The request's trace splits here:
+        the prefill half closes with outcome "handoff", a decode half
+        with the same request_id and submit time rides the handle, and a
+        fleet_observatory Journey joins the two at the terminal."""
+        if not self.ragged:
+            raise ValueError(
+                "decode-role adoption needs the ragged engine path")
+        old, new, journey = handle.trace, None, None
+        if old is not None:
+            from ..profiler import fleet_observatory as _fobs
+            new = _obs.start_request(
+                self.name, prompt_tokens=old.prompt_tokens,
+                max_new_tokens=old.max_new_tokens,
+                deadline_s=old.deadline_s)
+            new.request_id = old.request_id
+            new.t_submit = old.t_submit
+            new.slo_class = old.slo_class
+            new.cache_strategy = self.cache_strategy
+            new.prefix_hit_tokens = old.prefix_hit_tokens
+            new.generated_tokens = len(generated)
+            new.proposed_tokens = old.proposed_tokens
+            new.accepted_tokens = old.accepted_tokens
+            new.handoff_of = old.engine
+            old.handoff_of = self.name
+            journey = _fobs.Journey(
+                handle=handle, prefill_trace=old, decode_engine=self.name,
+                chain=chain, page_size=int(self.cache.page_size))
+            new.journey = journey
+        with self._cv:
+            if self._stopping:
+                raise EngineStopped("decode engine is drained/shut down")
+            if new is not None:
+                handle.trace = new
+            self._adopted.append((handle, chain, int(last_token),
+                                  list(generated), int(cached)))
+            self._cv.notify_all()
+        if old is not None:  # outside the lock: finish() writes a file
+            old.finish("handoff")
+
+    def _drain_adopted(self):
+        """Move handed-off chains into the decode batch (scheduler
+        thread, before admission), up to max_batch; an over-capacity
+        chain waits in the queue, its pages and claim parked in the
+        handle. On the card the engine's stream first waits for the
+        event the exporting engine recorded after its last write."""
+        while True:
+            with self._cv:
+                if not self._adopted:
+                    return
+                if len(self._active) + len(self._prefilling) \
+                        >= self.max_batch:
+                    return
+                handle, chain, last, generated, cached = \
+                    self._adopted.popleft()
+            if handle.future.cancelled():
+                self._release_chain_pair(chain)
+                if handle.trace is not None:
+                    handle.trace.finish("cancelled")
+                handle._close()
+                continue
+            if chain.ready is not None:
+                torch.cuda.current_stream(self.cache.device).wait_event(
+                    chain.ready)
+            sid = self._new_sid()
+            with self.cache.lock:
+                self.cache.adopt_chain(sid, chain)
+            # the speculative rider: adopt the draft chain with the
+            # target's (a pair shares one draft pool); a chain without
+            # one gets a fresh draft twin when the draft pool has room,
+            # else decodes without speculation
+            draft_sid, dlen = None, 0
+            dchain = getattr(chain, "draft_chain", None)
+            if self._draft_cache is not None:
+                dc = self._draft_cache
+                if dchain is not None:
+                    try:
+                        with dc.lock:
+                            dc.adopt_chain(f"{sid}.d", dchain)
+                        draft_sid, dlen = f"{sid}.d", int(dchain.length)
+                    except ValueError:
+                        with dc.lock:
+                            dc.release_chain(dchain)
+                if draft_sid is None:
+                    dneed = dc.pages_needed(
+                        handle.prompt.size + handle.max_new_tokens
+                        + self.speculative.k)
+                    with dc.lock:
+                        if dneed + dc.outstanding_claims() <= \
+                                dc.n_free_pages() + dc.n_evictable_pages():
+                            draft_sid = f"{sid}.d"
+                            dc.add_sequence(draft_sid)
+                            dc.set_claim(draft_sid, dneed)
+            trace = handle.trace
+            if trace is not None:
+                trace.admitted()  # the decode side's admission
+                if trace.journey is not None:
+                    trace.journey.adopted()  # the handoff gap's end
+            seq = _ActiveSeq(sid, handle, int(handle.prompt.size), cached)
+            seq.generated = list(generated)
+            seq.last = last
+            seq.draft_sid = draft_sid
+            seq.dlen = dlen
+            self._active.append(seq)
+
+    def _handoff_seq(self, seq, tok):
+        """The prefill role's epilogue (scheduler thread): the prompt's
+        last chunk gave the first token. Stream it, then hand the chain
+        to the decode engine, unless the request already ended
+        (cancelled, eos at the first token, max_new_tokens 1), which
+        finishes here as on a single engine."""
+        h = seq.handle
+        if h.future.cancelled():
+            with self.cache.lock:
+                self.cache.free_sequence(seq.sid)
+            self._free_draft(seq)
+            if h.trace is not None:
+                h.trace.finish("cancelled")
+            h._close()
+        else:
+            self._push_token(seq, tok)
+            if self._finished(seq, tok):
+                self._retire(seq)
+            else:
+                self._export(seq)
+        with self._cv:
+            self._cv.notify_all()  # slot freed or pages handed off
+
+    def _export(self, seq):
+        h = seq.handle
+        with self.cache.lock:
+            chain = self.cache.export_chain(seq.sid)
+        # the journey's riders, stamped at the export: the id that joins
+        # the route, request and journey records, and the measured start
+        # of the handoff gap
+        chain.request_id = getattr(h.trace, "request_id", None) \
+            or h.request_id
+        chain.t_export = time.perf_counter()
+        if self.cache.device.type == "cuda":
+            # the adopting engine's stream waits for this step's writes
+            chain.ready = torch.cuda.Event()
+            chain.ready.record(torch.cuda.current_stream(self.cache.device))
+        if seq.draft_sid is not None and self._draft_cache is not None:
+            with self._draft_cache.lock:
+                chain.draft_chain = \
+                    self._draft_cache.export_chain(seq.draft_sid)
+            seq.draft_sid = None
+        try:
+            self._handoff_fn(seq, chain)  # holding no lock
+        except Exception as e:
+            self._release_chain_pair(chain)
+            _reject_future(h.future, e)
+            _finish_trace(h.trace, e)
+            h._close()
+
+    # -- the observatory -------------------------------------------------
+    def _note_kv_step(self):
+        """Per-step pool bookkeeping: the peak of LIVE pages (free and
+        evictable registry pages excluded) and, every kv_snapshot_every
+        steps, the pool's `kind:"kvcache"` and `kind:"memory"` records.
+        Host arithmetic."""
+        self._step_i += 1
+        live = self.cache.n_pages - 1 - self.cache.n_free_pages() \
+            - self.cache.n_evictable_pages()
+        if live > self._kv_peak_held:
+            self._kv_peak_held = live
+        if (self._step_i - 1) % self.kv_snapshot_every == 0:
+            _obs.record_pool_stats(
+                self.name, self.cache,
+                extra={"queue_depth": len(self._pending),
+                       "active": len(self._active)
+                       + len(self._prefilling)})
+            _mobs.record_memory(source="serve", step=self._step_i,
+                                engine=self.name, cache=self.cache)
+
+    def kv_peak_occupancy(self):
+        """The peak LIVE fraction of the usable pool (pad page and
+        evictable registry pages excluded) at any step so far."""
+        return self._kv_peak_held / max(self.cache.n_pages - 1, 1)
+
+    def load_report(self):
+        """The admission snapshot the router ranks engines by: queue
+        depth, active slots, free / reserved / admittable pages by the
+        claims arithmetic admission uses, the pool's bytes, and recent
+        TTFT / TPOT tails from the process-wide histograms. Callable from
+        any thread; host reads only, and the wait for the engine's lock
+        is bounded (a wedged scheduler is reported, not waited on)."""
+        if not self._cv.acquire(timeout=1.0):
+            return {"engine": self.name,
+                    "unavailable": "engine lock held > 1s (wedged?)"}
+        try:
+            pending = len(self._pending)
+            seqs = list(self._active) + list(self._prefilling)
+            stopping = self._stopping
+        finally:
+            self._cv.release()
+        outstanding = self.cache.outstanding_claims()
+        free = self.cache.n_free_pages()
+        evictable = self.cache.n_evictable_pages()
+        admittable = max(free + evictable - outstanding, 0)
+        ttft = _monitor.get_metric("serve.ttft_s")
+        tpot = _monitor.get_metric("serve.tpot_s")
+        rep = {
+            "engine": self.name, "stopping": stopping,
+            "queue_depth": pending, "max_queue": int(self.max_queue),
+            "active": len(seqs), "max_batch": self.max_batch,
+            "slots_free": max(self.max_batch - len(seqs), 0),
+            "cache_strategy": self.cache_strategy,
+            "free_pages": free, "evictable_pages": evictable,
+            "reserved_pages": outstanding,
+            "admittable_pages": admittable,
+            "admittable_tokens": admittable * self.cache.page_size,
+            "kv_peak_occupancy": self.kv_peak_occupancy(),
+            "ttft_p50_s": ttft.percentile(50) if ttft else 0.0,
+            "ttft_p99_s": ttft.percentile(99) if ttft else 0.0,
+            "tpot_p50_s": tpot.percentile(50) if tpot else 0.0,
+            "tpot_p99_s": tpot.percentile(99) if tpot else 0.0,
+            "speculative": self._draft_cache is not None,
+            "proposed_tokens": int(self._spec_proposed),
+            "accepted_tokens": int(self._spec_accepted),
+            "accept_rate": (self._spec_accepted / self._spec_proposed)
+            if self._spec_proposed else 0.0,
+        }
+        hbm = _mobs.pool_hbm(self.cache)
+        rep["hbm_total_bytes"] = int(hbm.get("hbm_total_bytes", 0))
+        rep["hbm_free_bytes"] = int(hbm.get("hbm_free_bytes", 0))
+        rep["hbm_headroom_bytes"] = int(hbm.get("hbm_headroom_bytes", 0))
+        if self.cache_strategy != "paged":
+            stats = self.cache.pool_stats()
+            for key in ("state_bytes", "state_bytes_total", "free_slots",
+                        "held_slots"):
+                rep[key] = stats[key]
+        return rep
+
+    @staticmethod
+    def slo_report():
+        """Deadline attainment and the goodput split
+        (`serve_observatory.slo_report`: process-wide, across engines)."""
+        return _obs.slo_report()
+
+    def observatory_snapshot(self):
+        """What a debug payload records for this engine: the admission
+        snapshot and the pool's state."""
+        return {"load_report": self.load_report(),
+                "pool_stats": self.cache.pool_stats()}
 
     def pad_token_fraction(self):
         """Measured fraction of this engine's step work spent on no real
@@ -1742,29 +2246,55 @@ class GenerationEngine(_SchedulerLifecycle):
                 self.cache.free_sequence(seq.sid)
             self._free_draft(seq)
             self._active.remove(seq)
+            if h.trace is not None:  # tokens already generated: waste
+                h.trace.finish("cancelled")
             h._close()
             with self._cv:
                 self._cv.notify_all()  # pages freed: admission may go on
             return
+        self._push_token(seq, tok)
+        if self._finished(seq, tok):
+            self._active.remove(seq)
+            self._retire(seq)
+            with self._cv:
+                self._cv.notify_all()  # pages freed: admission may go on
+
+    def _push_token(self, seq, tok):
+        """Stream one generated token (stamping the handle's and the
+        trace's first-token times at the first)."""
+        h = seq.handle
         if h.t_first is None:
             h.t_first = time.perf_counter()
+        if h.trace is not None:
+            h.trace.first_token()
+            h.trace.note_token(self.cache.pages_held(seq.sid))
+        _monitor.counter("serve.generated_tokens").inc()
         seq.generated.append(tok)
         seq.last = tok
         h._push(tok)
-        if (h.eos_token_id is not None and tok == h.eos_token_id) \
-                or len(seq.generated) >= h.max_new_tokens:
-            # register the finished prompt's pages for future sharers
-            # BEFORE freeing: the registry hold keeps them alive
-            with self.cache.lock:
-                if self.prefix_cache and seq.filled >= h.prompt.size:
-                    self.cache.register_prefix(seq.sid, h.prompt)
-                self.cache.free_sequence(seq.sid)
-            self._free_draft(seq)
-            self._active.remove(seq)
-            _resolve_future(h.future, np.asarray(seq.generated, np.int64))
-            h._close()
-            with self._cv:
-                self._cv.notify_all()  # pages freed: admission may go on
+
+    @staticmethod
+    def _finished(seq, tok):
+        h = seq.handle
+        return (h.eos_token_id is not None and tok == h.eos_token_id) \
+            or len(seq.generated) >= h.max_new_tokens
+
+    def _retire(self, seq):
+        """A finished sequence: register its prompt's pages for future
+        sharers BEFORE freeing them (the registry's hold keeps them),
+        close its trace, resolve its handle."""
+        h = seq.handle
+        with self.cache.lock:
+            if self.prefix_cache and seq.filled >= h.prompt.size:
+                self.cache.register_prefix(seq.sid, h.prompt)
+            self.cache.free_sequence(seq.sid)
+        self._free_draft(seq)
+        _monitor.histogram("serve.latency_s").observe(
+            time.perf_counter() - h.t_submit)
+        if h.trace is not None:  # the record exists before the result
+            h.trace.finish("completed")
+        _resolve_future(h.future, np.asarray(seq.generated, np.int64))
+        h._close()
 
     def _fail_all(self, exc):
         """A failed step may leave the pools half written: fail every
@@ -1773,19 +2303,27 @@ class GenerationEngine(_SchedulerLifecycle):
             seqs = list(self._active) + list(self._prefilling)
             self._active, self._prefilling = [], []
             pend, self._pending = list(self._pending), deque()
+            adopted, self._adopted = list(self._adopted), deque()
         for seq in seqs:
             self._free_quietly(seq.sid)
             self._free_draft(seq)
             _reject_future(seq.handle.future, exc)
+            _finish_trace(seq.handle.trace, exc)
             seq.handle._close()
+        for item in adopted:  # queued adoptions: chains back to the pool
+            self._release_chain_pair(item[1])
+            _reject_future(item[0].future, exc)
+            _finish_trace(item[0].trace, exc)
+            item[0]._close()
         for h in pend:
             _reject_future(h.future, exc)
+            _finish_trace(h.trace, exc)
             h._close()
 
     # -- lifecycle (drain / shutdown: _SchedulerLifecycle) ---------------
     def _outstanding(self):
         return bool(self._pending or self._active or self._prefilling
-                    or self._admitting)
+                    or self._admitting or self._adopted)
 
     def _take_pending(self):
         self._abort = True  # the loop thread fails _active itself
@@ -1800,6 +2338,10 @@ class GenerationEngine(_SchedulerLifecycle):
         out += [(s.handle, s.sid, s.draft_sid)
                 for s in self._active + self._prefilling]
         self._active, self._prefilling = [], []
+        while self._adopted:
+            item = self._adopted.popleft()
+            self._release_chain_pair(item[1])
+            out.append((item[0], None, None))
         return out
 
     def _reject_detached(self, items, exc):
@@ -1808,6 +2350,7 @@ class GenerationEngine(_SchedulerLifecycle):
                 self._free_quietly(sid)
             self._free_draft_sid(dsid)
             _reject_future(h.future, exc)
+            _finish_trace(h.trace, exc)
             h._close()
 
     def _free_quietly(self, sid):

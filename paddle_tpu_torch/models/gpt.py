@@ -64,6 +64,7 @@ over one to one.
 """
 import contextlib
 import functools
+import gc
 import math
 import threading
 import time
@@ -312,8 +313,7 @@ class CapturedStep:
                 schedule, pool.shape[2], pool.shape[3], device)
         before = captured_launches(side).copy()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=state.pool, stream=side,
-                              capture_error_mode="thread_local"):
+        with graph_capture(self.graph, state):
             if self.scratch is not None:
                 self.scratch[1].zero_()
             self.hidden = model._ragged_body(
@@ -342,8 +342,7 @@ class CapturedStep:
                 model._ragged_head(self.hidden, self.static, *self.dims,
                                    sampled=sampled, per_token=per_token)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=state.pool, stream=side,
-                                  capture_error_mode="thread_local"):
+            with graph_capture(graph, state):
                 out = model._ragged_head(self.hidden, self.static,
                                          *self.dims, sampled=sampled,
                                          per_token=per_token)
@@ -382,6 +381,35 @@ class _GraphState:
         if device.type == "cuda":
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(device)
+
+
+_gc_lock = threading.Lock()
+_gc_paused = [0, False]  # captures under way, whether the collector was on
+
+
+@contextlib.contextmanager
+def graph_capture(graph, state):
+    """torch.cuda.graph into `state`'s pool on its side stream, with
+    Python's collector paused until no capture is under way: a collection
+    in the capturing thread may free an unreachable cycle that holds
+    another CUDA graph, whose destruction is not permitted while the
+    thread captures and invalidates the capture. torch's gc.collect() on
+    entering a capture misses a cycle that another thread, such as the
+    other engine of a pair, lets go of meanwhile."""
+    with _gc_lock:
+        if _gc_paused[0] == 0:
+            _gc_paused[1] = gc.isenabled()
+            gc.disable()
+        _gc_paused[0] += 1
+    try:
+        with torch.cuda.graph(graph, pool=state.pool, stream=state.stream,
+                              capture_error_mode="thread_local"):
+            yield
+    finally:
+        with _gc_lock:
+            _gc_paused[0] -= 1
+            if _gc_paused[0] == 0 and _gc_paused[1]:
+                gc.enable()
 
 
 def _graph_state(cache):
@@ -442,8 +470,12 @@ class RaggedGraphSteps:
     temperature > 0): greedy (an argmax) unless some row samples, per
     row unless a speculative engine asks per token. The captures live on
     the cache, keyed by the model, the signature and the pools' addresses
-    (`_ragged_sig`), which the graphs hold: two engines over one model
-    never share one. On the CPU the step runs eagerly, with the same
+    (`_ragged_sig`), which the graphs hold: two engines over one model and
+    caches of their own never share one; two engines over one cache (a
+    disaggregated pair) do, and `paged_ragged_step` holds the cache's
+    lock from the plan through the replay and the copy of its outputs,
+    so neither replays the shared static buffers while the other reads
+    them. On the CPU the step runs eagerly, with the same
     signature bookkeeping. Every new signature adds one to
     `_ragged_traces`, which the engine folds into its `retraces`. A model
     provides `_ragged_pools(cache)`, `_ragged_pad_plan(cache, T, B, W)`
@@ -966,8 +998,7 @@ def capture_graph(state, body):
     current.wait_stream(side)
     before = captured_launches(side).copy()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=state.pool, stream=side,
-                          capture_error_mode="thread_local"):
+    with graph_capture(graph, state):
         out = body()
     return graph, out, dict(captured_launches(side) - before)
 

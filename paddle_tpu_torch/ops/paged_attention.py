@@ -42,9 +42,15 @@ a float32 masked softmax (the reference's is plain JAX, no Pallas
 kernel): `plan_decode` plans one decode token a row (padded rows write
 the pad page and have length 0), `batch_views` builds the page tables
 (width rounded up to a power of two) and `attend` runs one layer;
-`extend` writes a prefill's K/V sequence by sequence. Chain export and
-adoption are not ported yet (ROADMAP.md queue A, item A.8).
+`extend` writes a prefill's K/V sequence by sequence.
+
+The prefill/decode handoff (`export_chain` / `adopt_chain` /
+`release_chain`, `KVChainHandle`) moves a written sequence between two
+engines over ONE pool: page ids move, refcounts and the admission claim
+carry over, nothing is copied; a chain in flight keeps its claim counted
+in `outstanding_claims()`, and another pool refuses to adopt it.
 """
+import itertools
 import threading
 from collections import OrderedDict
 
@@ -56,9 +62,44 @@ from ..framework.dtype import convert_dtype
 from .attention_core import MXU_ROWS, choose_q_block
 from .kernels.paged_attention import build_block_plan
 
-__all__ = ["PagedKVCache", "paged_attention"]
+__all__ = ["KVChainHandle", "PagedKVCache", "paged_attention"]
 
 _ROOT = 0  # prefix-chain id of the empty prefix
+
+_CHAIN_IDS = itertools.count()
+
+
+class KVChainHandle:
+    """A detached, fully written KV chain between two sequences (the
+    prefill-to-decode handoff unit): the exported sequence's page list,
+    token length, cumulative draw count and admission claim. While the
+    handle is live the pool keeps every page's hold and counts the claim
+    in `outstanding_claims()`. Consume it once, by `adopt_chain` (same
+    pool only) or `release_chain`.
+
+    Riders the engines stamp: `request_id` and `t_export` (the journey's
+    id and the measured start of the handoff gap), `draft_chain` (a
+    speculative engine's draft twin) and `ready` (a CUDA event recorded
+    on the exporting engine's stream after its last write to these
+    pages, which the adopting engine's stream waits on)."""
+
+    __slots__ = ("chain_id", "pages", "length", "drawn", "claim",
+                 "consumed", "request_id", "t_export", "draft_chain",
+                 "ready")
+
+    strategy = "paged"
+
+    def __init__(self, pages, length, drawn, claim):
+        self.chain_id = next(_CHAIN_IDS)
+        self.pages = pages
+        self.length = length
+        self.drawn = drawn
+        self.claim = claim
+        self.consumed = False
+        self.request_id = None
+        self.t_export = None
+        self.draft_chain = None
+        self.ready = None
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths, scale=None):
@@ -117,6 +158,7 @@ class PagedKVCache:
         # admission (see set_claim)
         self._drawn = {}    # seq_id -> pages DRAWN from the pool (a
         # shared prefix page is held but was never drawn)
+        self._chains = {}   # chain_id -> exported KVChainHandle in flight
         # prefix registry: a trie of page-sized token blocks; each node
         # holds one registry reference on its page; _lru orders nodes
         # for reclaim (oldest unused first)
@@ -187,12 +229,64 @@ class PagedKVCache:
         self._claims[seq_id] = int(n_pages)
 
     def outstanding_claims(self):
-        """Sum of max(claim - pages drawn, 0) over claimed sequences:
-        the pages admission promised but the pool has not handed out
-        yet."""
+        """Sum of max(claim - pages drawn, 0) over claimed sequences and
+        exported chains in flight: the pages admission promised but the
+        pool has not handed out yet. Snapshot copies make it safe from
+        any thread."""
         drawn = dict(self._drawn)
-        return sum(max(c - drawn.get(s, 0), 0)
-                   for s, c in list(self._claims.items()))
+        out = sum(max(c - drawn.get(s, 0), 0)
+                  for s, c in list(self._claims.items()))
+        out += sum(max(h.claim - h.drawn, 0)
+                   for h in list(self._chains.values()))
+        return out
+
+    # ---- chain handoff (prefill/decode disaggregation) ----------------
+    def export_chain(self, seq_id):
+        """Detach a sequence's written chain into a KVChainHandle without
+        touching a refcount or copying a page: the handle inherits every
+        page hold, the length, the draw count and the claim, and the
+        sequence id leaves the pool."""
+        handle = KVChainHandle(
+            pages=self._tables.pop(seq_id),
+            length=self._len.pop(seq_id),
+            drawn=self._drawn.pop(seq_id),
+            claim=self._claims.pop(seq_id, 0))
+        self._chains[handle.chain_id] = handle
+        return handle
+
+    def adopt_chain(self, seq_id, chain):
+        """Attach an exported chain to a fresh sequence id on THIS pool:
+        the page ids move, nothing is copied, the refcounts stay what
+        export left and the claim resumes under the new id. Returns the
+        adopted token length."""
+        if chain.consumed:
+            raise ValueError("adopt_chain: chain handle already "
+                             "consumed (adopted or released)")
+        if self._chains.pop(chain.chain_id, None) is None:
+            raise ValueError(
+                "adopt_chain: chain was not exported from THIS pool — "
+                "cross-pool handoff would need a device copy; share "
+                "the PagedKVCache between the two engines instead")
+        if seq_id in self._tables:
+            raise ValueError(f"adopt_chain: sequence {seq_id!r} "
+                             "already present")
+        chain.consumed = True
+        self._tables[seq_id] = chain.pages
+        self._len[seq_id] = chain.length
+        self._drawn[seq_id] = chain.drawn
+        if chain.claim:
+            self._claims[seq_id] = chain.claim
+        return chain.length
+
+    def release_chain(self, chain):
+        """Drop an exported chain that will never be adopted: every page
+        loses the handle's hold and the claim goes."""
+        if chain.consumed:
+            return
+        chain.consumed = True
+        self._chains.pop(chain.chain_id, None)
+        for page in chain.pages:
+            self._deref(page)
 
     def _deref(self, page):
         self._ref[page] -= 1
@@ -290,6 +384,12 @@ class PagedKVCache:
                 out.append((best, self._chain_info[best]["page"], best_n))
             break
         return out
+
+    def match_prefix(self, token_ids, max_tokens=None):
+        """A peek (no side effects): (cached tokens, fully matched pages)
+        for this prompt (the router's prefix affinity reads it)."""
+        n, full, _ = self.match_prefix_credit(token_ids, max_tokens)
+        return n, full
 
     def match_prefix_credit(self, token_ids, max_tokens=None):
         """(cached tokens, fully-matched pages, pinned) for this prompt,

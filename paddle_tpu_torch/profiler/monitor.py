@@ -3,15 +3,31 @@ JSONL per-step exporter.
 
 Counterpart: paddle_tpu/profiler/monitor.py, the parts the training
 health path writes to (`Counter`, `Gauge`, `Histogram`, `counter` /
-`gauge` / `histogram`, `metrics_snapshot`, `reset_metrics`,
-`export_step`). Every update is also a sample in the flight recorder's
-ring (flight_recorder.py).
+`gauge` / `histogram`, `get_metric`, `metrics_snapshot`,
+`reset_metrics`, `export_step`, `set_clock_offset` / `clock_offset`).
+Every update is also a sample in the flight recorder's ring
+(flight_recorder.py).
+
+Serving signals (inference/serving.py, inference/frontdoor.py):
+`serve.queue_depth` / `serve.shared_pages` / `serve.kv_*_pages` gauges,
+`serve.batch_size` / `serve.latency_s` / `serve.ttft_s` /
+`serve.tpot_s` histograms, `serve.requests` / `serve.rejected` /
+`serve.expired` / `serve.retraces` / `serve.errors` /
+`serve.prefix_hits` / `serve.chunked_prefill_tokens` /
+`serve.generated_tokens` / `serve.goodput_tokens` /
+`serve.wasted_tokens` / `serve.route_*` counters; the serving and fleet
+observatories (profiler/serve_observatory.py, fleet_observatory.py)
+emit the `kind:"request"`, `"kvcache"`, `"route"`, `"journey"` and
+`"fleet"` records, the memory observatory `kind:"memory"`.
 
 Exporter: with `PADDLE_TPU_METRICS_FILE` set, `export_step(record)`
 appends ONE JSON object per line, tagged with a wall-clock `ts`, the
 process `rank` (PADDLE_TPU_PROCESS_ID or PADDLE_TRAINER_ID) and a
 `kind` ("health": one per resolved health vector; "event": an anomaly,
-flight_recorder.record_event), the reference's record shapes.
+flight_recorder.record_event; "serve", "request", "kvcache", "memory",
+"route", "journey", "fleet", "harness": the serving path's), the
+reference's record shapes. A nonzero `set_clock_offset` stamps
+`clock_offset_s` on every record.
 """
 import collections
 import json
@@ -22,8 +38,21 @@ import time
 from . import flight_recorder
 
 __all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge",
-           "histogram", "metrics_snapshot", "reset_metrics",
-           "rank", "metrics_file", "export_step"]
+           "histogram", "get_metric", "metrics_snapshot", "reset_metrics",
+           "rank", "metrics_file", "export_step", "set_clock_offset",
+           "clock_offset"]
+
+# this rank's estimated wall-clock offset against rank 0 (seconds);
+# stamped on every exported record when nonzero
+_clock_offset = [0.0]
+
+
+def set_clock_offset(offset_s):
+    _clock_offset[0] = float(offset_s)
+
+
+def clock_offset():
+    return _clock_offset[0]
 
 _lock = threading.RLock()
 _export_lock = threading.Lock()  # file appends only: registry ops must
@@ -158,6 +187,12 @@ def histogram(name):
     return _get_or_create(name, Histogram)
 
 
+def get_metric(name):
+    """The registered metric `name`, or None (a read: nothing is
+    created)."""
+    return _registry.get(name)
+
+
 def metrics_snapshot():
     """{name: scalar (counter/gauge) or stats dict (histogram)} — JSON
     serializable, sorted by name."""
@@ -197,6 +232,8 @@ def export_step(record, kind="step", _ring=True):
     Returns False when the env var is unset or the write failed; never
     raises — telemetry must not take down a train loop."""
     rec = {"ts": time.time(), "rank": rank(), "kind": kind}
+    if _clock_offset[0]:
+        rec["clock_offset_s"] = _clock_offset[0]
     rec.update(record)
     if _ring:  # events ring-record themselves (flight_recorder)
         flight_recorder.record_record(rec)

@@ -189,31 +189,123 @@ def _tiny_gpt():
                           device="cpu")
 
 
+def _tiny_pair():
+    """The reference's tiny GPT and the port's with its weights."""
+    from paddle_tpu.models.gpt import GPTForCausalLM as RefGPT
+    from paddle_tpu_torch.models import load_paddle_tpu_state
+    paddle.seed(0)
+    ref = RefGPT(RefGPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                              num_heads=2, max_position_embeddings=16,
+                              dropout=0.0))
+    ref.eval()
+    port = _tiny_gpt()
+    load_paddle_tpu_state(port, {k: np.asarray(v.numpy())
+                                 for k, v in ref.state_dict().items()})
+    return ref, port
+
+
+def _serve_twice(eng, prompt, new=3):
+    """The same prompt twice on `eng`, one after the other (the first
+    registers its prefix when it finishes): the two streams."""
+    return [np.asarray(eng.submit(prompt, max_new_tokens=new).result(60))
+            .tolist() for _ in range(2)]
+
+
+def _option_run(Engine, model, kw, prompt, recorder, mem):
+    """What one engine option does, on either package's engine over its
+    tiny GPT: the streams and the pool and record counts the option
+    governs."""
+    if "cache" in kw:
+        cache = model.make_paged_cache(8, 4)
+        a = Engine(model, cache=cache, name="share_a")
+        b = Engine(model, cache=cache, name="share_b")
+        try:
+            assert a.cache is cache and b.cache is cache
+            out = np.asarray(a.submit(prompt, max_new_tokens=2).result(60))
+            free = (a.load_report()["free_pages"],
+                    b.load_report()["free_pages"], cache.n_free_pages())
+        finally:
+            a.shutdown()
+            b.shutdown()
+        return dict(streams=[out.tolist()], free=free)
+    eng = Engine(model, n_pages=8, page_size=4, **kw)
+    try:
+        # a default name counts the package's engines so far
+        res = dict(ragged=eng.ragged,
+                   name=eng.name if "name" in kw else None)
+        if "kv_snapshot_every" not in kw:
+            res["streams"] = _serve_twice(eng, prompt)
+        if "prefix_cache" in kw:
+            default = Engine(model, n_pages=8, page_size=4)
+            try:
+                res["default_streams"] = _serve_twice(default, prompt)
+                res["hits"] = (
+                    eng.cache.prefix_stats()["prefix_hit_tokens"],
+                    default.cache.prefix_stats()["prefix_hit_tokens"])
+            finally:
+                default.shutdown()
+        if "kv_snapshot_every" in kw:
+            recorder.reset()
+            mem.reset()
+            res["streams"] = [np.asarray(eng.submit(
+                prompt, max_new_tokens=6).result(60)).tolist()]
+            res["kvcache"] = sum(
+                1 for r in recorder.snapshot()["records"]
+                if r.get("kind") == "kvcache"
+                and r.get("engine") == eng.name)
+            res["memory_steps"] = [r["step"] for r in mem.records_tail()
+                                   if r.get("engine") == eng.name]
+            res["every"] = eng.kv_snapshot_every
+    finally:
+        eng.shutdown()
+    return res
+
+
 @pytest.mark.parametrize("kw", [
-    dict(cache=object()), dict(name="gen0"), dict(ragged=True),
+    dict(cache=True), dict(name="gen0"), dict(ragged=True),
     dict(ragged=False), dict(prefix_cache=False),
     dict(kv_snapshot_every=4)],
     ids=["cache", "name", "ragged-true", "ragged-false", "prefix_cache",
          "kv_snapshot_every"])
 def test_generation_engine_refuses_unported_options(kw):
-    if set(kw) & {"name", "ragged"}:
-        # ported since (the legacy bucketed path): taken, not refused
-        eng = GenerationEngine(_tiny_gpt(), n_pages=8, page_size=4, **kw)
-        try:
-            assert eng.name == kw.get("name", eng.name)
-            assert eng.ragged == kw.get("ragged", True)
-        finally:
-            eng.shutdown()
-        return
-    with pytest.raises(NotImplementedError, match=r"queue A, item A\.7"):
-        GenerationEngine(_tiny_gpt(), n_pages=8, page_size=4, **kw)
+    """Every option of the reference's engine is taken (none is refused
+    since the router's slice) and does what the reference's does, both
+    engines run on the same prompt over the same float32 weights: the
+    greedy streams are equal; `cache` a pool the model made, shared by
+    two engines (one claims ledger, the same free pages); `prefix_cache=
+    False` the reference's prefix hits on a repeated prompt (none), where
+    the default takes the reference's; `kv_snapshot_every=k` the
+    reference's kvcache records and the steps of its memory records."""
+    from paddle_tpu.profiler import flight_recorder as ref_recorder
+    from paddle_tpu.profiler import mem_observatory as ref_mem
+    from paddle_tpu_torch.profiler import flight_recorder, mem_observatory
+    ref, port = _tiny_pair()
+    prompt = np.arange(1, 10) % 64
+    want = _option_run(RefEngine, ref, kw, prompt, ref_recorder, ref_mem)
+    got = _option_run(GenerationEngine, port, kw, prompt,
+                      flight_recorder, mem_observatory)
+    assert got == want
+    if "cache" in kw:
+        assert len(set(got["free"])) == 1
+    if "prefix_cache" in kw:
+        assert got["hits"][0] == 0 < got["hits"][1]
+        assert got["streams"] == got["default_streams"]
+    if "kv_snapshot_every" in kw:
+        assert got["every"] == 4 and got["kvcache"] > 1
+        assert got["memory_steps"] == list(
+            range(1, got["memory_steps"][-1] + 1, 4))
 
 
 def test_generation_engine_eighth_positional_is_the_cache():
     # the reference's eighth parameter is `cache`: a value there must not
     # bind to prefill_chunk as it did
-    with pytest.raises(NotImplementedError, match="cache="):
-        GenerationEngine(_tiny_gpt(), 8, 4, 2, 8, 4, None, 16)
+    model = _tiny_gpt()
+    cache = model.make_paged_cache(8, 4)
+    eng = GenerationEngine(model, 8, 4, 2, 8, 4, None, cache)
+    try:
+        assert eng.cache is cache and eng.prefill_chunk == 32
+    finally:
+        eng.shutdown()
     eng = GenerationEngine(_tiny_gpt(), 8, 4, 2, 8, 4, None, None, None,
                            None, 16, True, 8)
     try:

@@ -160,6 +160,17 @@ plan the replay copied in, logits and pools bit for bit; a replayed
 `generate` (the prefill graph and the decode graph replayed back to
 back) against its two bodies run eagerly on the same buffers, tokens bit
 for bit.
+
+The serving front door (host code over kernel #1, no kernel of its own),
+on a float32 GPT of head_dim 64 with TF32 off: a disaggregated pair
+(two engines over one cache, sharing its captured steps from two
+scheduler threads) under a load of 16 requests, and 48 short prompts
+handed off back to back over a 12-page pool, each stream equal to a
+single engine's (or, at a first mismatch, a top-2 logit gap within
+1e-3), every exported chain's event complete, the pool drained; the
+engines' and the router's reports, the fleet snapshot and the memory
+record taken mid-traffic under `torch.cuda.set_sync_debug_mode("error")`
+(no synchronizing call).
 """
 import numpy as np
 import pytest
@@ -2580,3 +2591,234 @@ def test_replayed_generate_equals_eager_on_card():
             prog._decode()
     torch.cuda.synchronize()
     assert torch.equal(got[:, 7:], prog.out)
+
+
+# -- the serving front door on the card (ServingRouter, A.8 / A.10) --------
+
+def _router_gpt():
+    """A float32 GPT whose heads take kernel #1 (head_dim 64), weights of
+    std 0.5 (greedy streams vary, top-2 gaps are wide)."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(vocab_size=256, hidden_size=256, num_layers=2,
+                    num_heads=4, max_position_embeddings=512,
+                    initializer_range=0.5)
+    return GPTForCausalLM(cfg, seed=5)
+
+
+def _streams(engine_or_router, prompts, new):
+    handles = [engine_or_router.submit(p, max_new_tokens=new)
+               for p in prompts]
+    return [h.result(timeout=300).tolist() for h in handles]
+
+
+def _hold_streams(model, prompts, got, want):
+    """Each stream of `got` equals `want`'s, or at the first mismatch the
+    card's own top-2 logit gap there is a near-tie (<= 1e-3: float32
+    sums over batches of another shape, in another order)."""
+    for p, a, b in zip(prompts, got, want):
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            assert len(a) == len(b)
+            continue
+        ctx = np.concatenate([p, np.asarray(b[:i])])
+        cache = model.make_paged_cache(2 + len(ctx) // 16, 16)
+        cache.add_sequence("s")
+        last, _ = model.paged_ragged_step(cache, [("s", ctx)])
+        top = torch.topk(last[0].float(), 2).values
+        assert float(top[0] - top[1]) <= 1e-3, (i, a[i], b[i])
+
+
+@pytest.mark.cuda
+def test_disaggregated_pair_under_load_equals_one_engine_on_card():
+    """Two engines over one cache share its captured steps from two
+    scheduler threads: `paged_ragged_step` holds the cache's lock from
+    the plan through the replay and the copy of the outputs. Under a
+    load of 16 requests every stream equals a single engine's, every
+    request was handed off once, and the decode engine's retraces are
+    the signatures captured on the shared cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    from paddle_tpu_torch.inference import GenerationEngine, ServingRouter
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _router_gpt()
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, 256, n) for n in
+               (20, 35, 64, 90, 17, 128, 33, 48, 70, 25, 100, 40, 55, 12,
+                80, 60)]
+    single = GenerationEngine(model, n_pages=256, page_size=16, max_batch=8,
+                              max_new_tokens=12, prefill_chunk=32,
+                              prefix_cache=False)
+    try:
+        want = _streams(single, prompts, 12)
+    finally:
+        single.shutdown()
+    router = ServingRouter.disaggregated(
+        model, n_pages=256, page_size=16, max_batch=4, prefill_batch=4,
+        max_new_tokens=12, prefill_chunk=32, prefix_cache=False,
+        name="card_pair")
+    try:
+        got = _streams(router, prompts, 12)
+        rep = router.load_report()
+    finally:
+        router.shutdown()
+    _hold_streams(model, prompts, got, want)
+    assert rep["routing"]["handoffs"] == len(prompts)
+    pre, dec = router.engines
+    assert pre.cache is dec.cache
+    steps = pre.cache._ragged_graphs.steps
+    # each engine counts every capture of the model after its own
+    # construction (the reference's): the decode engine, which steps
+    # last, has seen them all
+    assert dec.retraces == len(steps) > 0 and pre.retraces <= len(steps)
+    assert all(s is not None for s in steps.values())
+    assert pre.cache.outstanding_claims() == 0
+    assert pre.cache.n_free_pages() == 255 and not pre.cache._chains
+
+
+@pytest.mark.cuda
+def test_back_to_back_handoffs_on_card():
+    """48 short prompts handed off back to back: the decode engine's
+    first replay of each reads pages the prefill engine's last chunk
+    wrote (the chain's event orders it), and pages the decode engine
+    frees are drawn again by the prefill engine at once. Every stream
+    equals a single engine's; the pool drains to empty."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    from paddle_tpu_torch.inference import GenerationEngine, ServingRouter
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _router_gpt()
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(0, 256, n) for n in rng.randint(3, 12, 48)]
+    single = GenerationEngine(model, n_pages=40, page_size=16, max_batch=8,
+                              max_new_tokens=4, prefill_chunk=16,
+                              prefix_cache=False)
+    try:
+        want = _streams(single, prompts, 4)
+    finally:
+        single.shutdown()
+    # a small pool: pages are recycled between the two engines at once
+    router = ServingRouter.disaggregated(
+        model, n_pages=12, page_size=16, max_batch=8, prefill_batch=8,
+        max_new_tokens=4, prefill_chunk=16, prefix_cache=False,
+        name="card_b2b")
+    pre, dec = router.engines
+    exported = []
+    real = pre.cache.export_chain
+
+    def export(sid):
+        chain = real(sid)
+        exported.append(chain)
+        return chain
+
+    pre.cache.export_chain = export
+    try:
+        got = _streams(router, prompts, 4)
+    finally:
+        router.shutdown()
+    _hold_streams(model, prompts, got, want)
+    assert len(exported) == len(prompts)
+    assert all(c.ready is not None and c.ready.query() for c in exported)
+    assert pre.cache.pool_stats()["pages_drawn"] >= len(prompts)
+    assert pre.cache.n_free_pages() == 11
+    assert pre.cache.outstanding_claims() == 0
+
+
+@pytest.mark.cuda
+def test_a_collection_during_a_capture_destroys_no_graph_on_card():
+    """A step captured while an unreachable cycle holds another CUDA
+    graph and Python's collector is due at every allocation (threshold
+    1), as when the other engine of a pair lets go of a cache mid-capture:
+    the collector stays paused until the capture ends, so no graph is
+    destroyed inside it (CUDA refuses that and invalidates the capture);
+    the cycle goes at the next collection, and the new step replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    import gc
+    model = _router_gpt()
+    other = torch.cuda.CUDAGraph()
+    x = torch.zeros(4, device="cuda")
+    with torch.cuda.graph(other, stream=torch.cuda.Stream()):
+        x.add_(1)
+    held = [other]
+    del other
+    real = model._ragged_body
+
+    def body(*args, **kw):
+        if held and torch.cuda.is_current_stream_capturing():
+            cycle = [held.pop()]
+            cycle.append(cycle)  # only the collector frees the graph now
+            del cycle
+            for _ in range(100):
+                [[]]  # allocations: a collector at threshold 1 runs
+        return real(*args, **kw)
+
+    cache = model.make_paged_cache(8, 16)
+    model._ragged_body = body
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        assert model.warm_ragged(cache, 16, 1, 1)
+    finally:
+        gc.set_threshold(*threshold)
+        del model._ragged_body
+    assert not held and gc.isenabled()
+    gc.collect()
+    step = model.ragged_graph(cache, 16, 1, 1)
+    last, nxt = step.replay(model._ragged_pad_plan(cache, 16, 1, 1)[0])
+    torch.cuda.synchronize()
+    assert torch.isfinite(last).all() and nxt.numel() == 1
+
+
+@pytest.mark.cuda
+def test_reports_do_not_wait_on_the_card():
+    """load_report, slo_report, observatory_snapshot, kv_peak_occupancy,
+    the router's ranking and fleet snapshot and the memory record are
+    host reads: with both engines mid-traffic (their scheduler threads
+    parked on the cache's lock, which the test holds) they run under
+    torch.cuda.set_sync_debug_mode("error"), which raises at any
+    synchronizing call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import time
+
+    from paddle_tpu_torch.inference import ServingRouter
+    from paddle_tpu_torch.profiler import mem_observatory
+    from paddle_tpu_torch.profiler import serve_observatory as sobs
+    model = _router_gpt()
+    router = ServingRouter.disaggregated(
+        model, n_pages=256, page_size=16, max_batch=4, max_new_tokens=64,
+        prefill_chunk=32, name="card_sync")
+    pre, dec = router.engines
+    rng = np.random.RandomState(13)
+    prompt = rng.randint(0, 256, 40)
+    try:
+        handles = [router.submit(rng.randint(0, 256, 50), max_new_tokens=64)
+                   for _ in range(6)]
+        while dec.load_report()["active"] < 2:
+            time.sleep(0.005)
+        with pre.cache.lock:
+            time.sleep(0.2)  # both scheduler threads reach the lock
+            busy = dec.load_report()["active"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for eng in router.engines:
+                    eng.load_report()
+                    eng.observatory_snapshot()
+                    eng.kv_peak_occupancy()
+                    eng.slo_report()
+                router.load_report()
+                router.slo_report()
+                router._rank([pre], prompt, 8, "interactive", 0)
+                router._fleet_mon.snapshot()
+                sobs.debug_payload()
+                rec = mem_observatory.record_memory(
+                    "serve", engine=dec.name, cache=dec.cache)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert busy >= 2
+        assert rec is not None and rec["measured"] is True
+        assert rec["attributed_bytes"] <= rec["device_bytes_in_use"]
+        for h in handles:
+            assert len(h.result(timeout=300)) == 64
+    finally:
+        router.shutdown()

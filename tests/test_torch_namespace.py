@@ -4,15 +4,19 @@
   subpackages the reference's `__init__` imports resolve as attributes:
   `p.inference`, `p.models`, `p.reader`, `p.callbacks`, ..., and
   `p.jit` holds `DeferredLoss`, `WarmHandle` and `warm`.
-- Every subpackage of `paddle_tpu`, and every public name of its `jit`
-  and `inference` namespaces, exists in the port, or is listed in
-  UNPORTED under the ROADMAP.md queue item that ports it; a listed name
-  that the port has gained fails the test, so the lists only shrink.
+- Every subpackage of `paddle_tpu` (every module in its directory, found
+  by `pkgutil.iter_modules`, whether or not an import has bound it yet),
+  and every public name of its `jit` and `inference` namespaces, exists
+  in the port (a subpackage: `importlib.util.find_spec`, without
+  importing it), or is listed in UNPORTED under the ROADMAP.md queue item
+  that ports it; a listed name that the port has gained fails the test,
+  so the lists only shrink.
 """
+import importlib.util
 import os
+import pkgutil
 import subprocess
 import sys
-import types
 
 import pytest
 
@@ -32,8 +36,8 @@ UNPORTED = {
         "A.13": ["distributed"],
         "A.14": ["onnx", "static"],
         "A.15": ["compat", "cost_model", "dataset", "distribution", "fft",
-                 "hub", "incubate", "signal", "sparse", "sysconfig",
-                 "text", "utils", "version"],
+                 "hub", "incubate", "linalg", "signal", "sparse",
+                 "sysconfig", "text", "utils", "version"],
     },
     "jit": {
         "A.14": ["InputSpec", "ProgramTranslator", "StaticFunction",
@@ -44,7 +48,6 @@ UNPORTED = {
                  "set_verbosity", "to_static"],
     },
     "inference": {
-        "A.8": ["ServingRouter"],
         "A.14": ["Config", "DataType", "PlaceType", "PrecisionType",
                  "Predictor", "PredictorPool", "Tensor",
                  "convert_to_mixed_precision", "create_predictor",
@@ -55,10 +58,13 @@ UNPORTED = {
 
 
 def _subpackages(pkg):
-    """Names of the modules directly under `pkg` bound on it."""
-    return {k for k, v in vars(pkg).items()
-            if isinstance(v, types.ModuleType)
-            and v.__name__ == f"{pkg.__name__}.{k}"}
+    """Names of the modules directly under `pkg`, from its directory: the
+    same set whatever another test file has imported."""
+    return {m.name for m in pkgutil.iter_modules(pkg.__path__)}
+
+
+def _has_subpackage(name):
+    return importlib.util.find_spec(f"paddle_tpu_torch.{name}") is not None
 
 
 def _public(mod):
@@ -78,15 +84,14 @@ def _unported(kind):
     ("inference", _public(paddle_tpu.inference),
      paddle_tpu_torch.inference)], ids=["subpackages", "jit", "inference"])
 def test_reference_names_exist_or_are_listed(kind, ref, port):
-    owner = paddle_tpu_torch if port is None else port
-    missing = {n for n in ref if not hasattr(owner, n)}
+    if port is None:
+        missing = {n for n in ref if not _has_subpackage(n)}
+    else:
+        missing = {n for n in ref if not hasattr(port, n)}
     listed = _unported(kind)
     assert missing == listed, (
         f"{kind}: missing and not listed {sorted(missing - listed)}; "
         f"listed but present {sorted(listed - missing)}")
-    if port is None:  # a subpackage the port has is a module of its own
-        for n in ref - listed:
-            assert isinstance(getattr(owner, n), types.ModuleType), n
 
 
 def test_bare_import_resolves_the_subpackages():
@@ -96,7 +101,9 @@ def test_bare_import_resolves_the_subpackages():
         " p.inference.BucketLadder, p.models.GPTForCausalLM,"
         " p.jit.DeferredLoss, p.jit.WarmHandle, p.jit.warm.join,"
         " p.jit.TrainStep, p.reader.shuffle, p.callbacks.EarlyStopping,"
-        " p.io.DataLoader.from_generator, p.profiler.monitor, p.ops]\n"
+        " p.io.DataLoader.from_generator, p.profiler.monitor, p.ops,"
+        " p.inference.ServingRouter, p.profiler.serve_observatory,"
+        " p.profiler.fleet_observatory, p.profiler.mem_observatory]\n"
         "import sys\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules), 'the port imported the reference'\n"
@@ -104,7 +111,7 @@ def test_bare_import_resolves_the_subpackages():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["ok", "13"]
+    assert out.stdout.split() == ["ok", "17"]
 
 
 def test_callbacks_alias_the_hapi_classes():
