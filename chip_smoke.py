@@ -17,7 +17,9 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    LayerNorm layouts summed up on one line); a tensor-core kernel (a
    name with "_tc_kernel"), a main-path LayerNorm layout, a main-path
    scan kernel (the served steps', the full forward's) or a main-path
-   tree-update variant (TREE_MAIN) that spills fails the run;
+   tree-update variant (TREE_MAIN) that spills fails the run; the
+   device times the smoke reads from the profiler's Kineto events
+   (device_events) equal prof.events()' on a small profile;
 3. the ragged paged-attention kernel against its plain PyTorch twin at
    serving shapes (16 heads, head_dim 64, page 16), in bfloat16 and
    float32: pure decode, a prefill chunk mixed with decode rows, pad
@@ -83,7 +85,9 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    5 tokens, the per-token sampled head) replayed and held against its
    eager layers and head bit for bit;
 5. the same prompts at GPT-medium width with 2 layers in float32, once
-   on the card (kernel) and once on the CPU (plain twin): greedy
+   on the card (kernel) and once on the CPU (plain twin; the CPU half,
+   which needs no card, is served beside phase 2's build from the same
+   weights, held equal to phase 4's first 2 blocks): greedy
    streams must be equal; at a mismatch the CPU's top-2 logit gap at
    that token is printed and must be at most 1e-3 (a near-tie); then
    every request sampled (seeds 200-207): equal, or the CPU's top-2 gap
@@ -141,8 +145,9 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
 7b. GPT-1.3B (gpt_1p3b(), head_dim 128) at full width and depth
    (vocab 50304, hidden 2048, 24 layers, 16 heads; 1,313,722,368
    parameters with the tied head; max_position_embeddings 1024 as
-   bench.py sets it) in bfloat16, the reference's init drawn with
-   numpy (timed), trained by the default fused TrainStep with both
+   bench.py sets it) in bfloat16, the reference's init drawn on the
+   card from a seeded CUDA generator (timed), trained by the default
+   fused TrainStep with both
    switches set (the port's fastest route), AdamW(lr=1e-4,
    multi_precision=True), on bench.py's batch 4 x 1024 (ids from
    RandomState(0), labels = ids): 2 warm-up, 5 timed, 1 profiled step.
@@ -212,7 +217,8 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
 8. GPT-medium width with 2 layers in float32, 3 train steps (batch
    2 x 256) on the card (kernels) and on the CPU (twins) from the same
    weights, on each epilogue and on the default one with both switches
-   set: losses and health vectors agree to rtol 1e-3; the same for the
+   set (one function: the CPU runs it once, its reference for all
+   three): losses and health vectors agree to rtol 1e-3; the same for the
    eager loop (AdamW, and Adam, with L2Decay, ClipGradByNorm and a
    step-decay scheduler; losses), Lamb on TrainStep's tree path and
    AdamW on the fused epilogue with bf16 moments; and remat "dots" with
@@ -315,7 +321,8 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
 14. the same prompts through 2-layer float32 SSMs at that width, pure
    and hybrid (attn_every 2, 12 heads: head_dim 64, so kernels #1 and
    #11 both run), weights of std 0.5 so that the greedy streams vary
-   (checked), on the card and on the CPU: greedy streams equal, or the
+   (checked), on the card and on the CPU (the CPU halves served beside
+   phase 2's build): greedy streams equal, or the
    CPU's top-2 gap at the first mismatch at most 1e-3; with every stream
    equal, the real slots' conv tails and states after the run within
    1e-3 of each pool's largest entry; every request sampled (seeds
@@ -508,7 +515,31 @@ paddle_tpu. Phases, in order; any failure ends the run non-zero:
    fragmentation; (c) phase 13's SSM as a disaggregated pair over one
    RecurrentStateCache against one engine: streams equal or ties, #11 =
    (replays + captures) x 24;
-22. the smoke's run time and the kernels line (each flash kernel
+22. the profiler on bench.py's stages (A.12): (a) 7c's step (GPT-1.3B
+   bf16, remat "dots", bench.py's optimizer, both switches) in bench.py's
+   steady loop through the prefetch ring, under Profiler(targets=[CPU,
+   GPU], make_scheduler(closed=1, ready=1, record=4),
+   export_chrome_tracing) opened before the first call and a RecordEvent
+   a step, with the metrics JSONL and the device-time probe every 2
+   steps; held: losses bit-equal to the same steps from a snapshot
+   without telemetry, launches 6 x 7c's a step (the wrappers) and 4 x
+   them in the device trace, every JSONL record through
+   tools/check_metrics_schema.py, the probed steps' records carrying
+   step_time_device_s, the probe's median within 10% of the trace's
+   device ms a step, mem_report()'s params tag the parameter bytes, ms a
+   step with telemetry on within 2% of off; (b) GPT-medium bf16 served
+   under the Profiler (two requests, each warmed, served in a first
+   window whose counts are printed, then again in the held one: CUPTI
+   lost a #1 launch of the first window's first step): serve.batch
+   spans = steps, #1 in the trace = steps x 24, no capture; (c) a debug bundle
+   after (a) (no allocation), a Watchdog quiet over steps and firing once
+   in a pause, dumps from another thread and a SIGQUIT dump on the
+   capturing thread during a TrainStep capture (the replay equal to the
+   eager body), nan@train.step#3 on replayed steps (retraces 1, step 3
+   flagged first), oom@train.step (DeviceOOMError, a device_oom event),
+   FLAGS_check_nan_inf on an eager op on the card (the reference's
+   event);
+23. the smoke's run time and the kernels line (each flash kernel
    three times: head_dim 64, with the suffix "_d128" head_dim 128, with
    "_f16" float16; #10's bf16 variant as "fused_pass2_bf16_state"; the
    tree update as "tree_update"; K2 as "stochastic_round"), then, last,
@@ -539,6 +570,7 @@ peaks: 3.35 TB/s of HBM, 989 TFLOP/s bf16 and float16 (tensor cores),
 """
 import contextlib
 import copy
+import io
 import json
 import os
 import re
@@ -694,8 +726,10 @@ def phase_registers(logs, ln_main, scan_main):
           f"registers; spilling: {spilling or 'none'}")
 
 
-def cuda_ms(torch, fn, iters, flush, clean=False, spin=2_000_000):
-    """Mean device time of fn() in ms over iters calls, by CUDA events.
+def cuda_ms(torch, fn, iters, flush, clean=False, spin=2_000_000,
+            warmup=2):
+    """Mean device time of fn() in ms over iters calls (after `warmup`
+    untimed ones), by CUDA events.
     Before each call the L2 is flushed (flush.zero_(), which leaves it
     full of dirty lines that fn's misses write back; with clean=True by
     reading the buffer instead) and the card is parked on a spin of
@@ -704,7 +738,7 @@ def cuda_ms(torch, fn, iters, flush, clean=False, spin=2_000_000):
     start event fires: the time excludes the host's launch cost, except
     where fn itself waits on the device (the plain twin reads bounds to
     the host) or enqueues for longer than the spin."""
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     total = 0.0
@@ -934,6 +968,55 @@ def numpy_state(model, seed):
             state[name] = np.zeros(shape, np.float32)
         else:
             state[name] = rng.standard_normal(shape, dtype=np.float32) * std
+    return state
+
+
+class Background:
+    """fn() on a thread of its own; result() waits for it and re-raises
+    its error."""
+
+    def __init__(self, fn):
+        import threading
+        self._out = self._err = None
+        self._thread = threading.Thread(target=self._run, args=(fn,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, fn):
+        try:
+            self._out = fn()
+        except BaseException as e:  # re-raised in result()
+            self._err = e
+
+    def result(self):
+        self._thread.join()
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
+def card_state(torch, model, seed):
+    """The reference's GPT init as numpy_state draws it (Normal(0,
+    initializer_range) weights and embeddings, zero biases, LayerNorm
+    weight 1 and bias 0), drawn on the card in float32 from a seeded CUDA
+    generator: GPT-1.3B's 1.3e9 numpy draws took ~20 s of the host. The
+    card-vs-CPU slices copy their layers from it."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    std = float(model.cfg.initializer_range)
+    state = {}
+    for name, p in model.named_parameters():
+        owner, leaf = name.split(".")[-2:]
+        if owner.startswith("ln_"):
+            fill = torch.ones if leaf == "weight" else torch.zeros
+            state[name] = fill(p.shape, dtype=torch.float32, device="cuda")
+        elif leaf == "bias":
+            state[name] = torch.zeros(p.shape, dtype=torch.float32,
+                                      device="cuda")
+        else:
+            state[name] = torch.empty(p.shape, dtype=torch.float32,
+                                      device="cuda").normal_(
+                0.0, std, generator=gen)
     return state
 
 
@@ -1366,16 +1449,27 @@ def phase_serve(torch, pa, flush, km, mods):
     return n, held, prompts, state, model
 
 
+def device_events(prof):
+    """[(name, start µs, duration µs)] of the device operations in a
+    profiled window (kernels, copies, memsets, and the device-side spans
+    of record_function ranges), read from the profiler's Kineto events:
+    the events `prof.events()` builds its FunctionEvents from, without
+    the CPU operator tree it also builds (the smoke's slowest host work
+    before)."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def device_us_by_name(prof):
     """{kernel name: device microseconds} over a profiled window."""
-    from torch.autograd import DeviceType
     by_name = {}
-    for e in prof.events():
+    for name, _, us in device_events(prof):
         # the epilogue's record_function range also shows on the device
         # as an annotation spanning its kernels: not a kernel
-        if e.device_type == DeviceType.CUDA and e.name != EPILOGUE:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us()
+        if name != EPILOGUE:
+            by_name[name] = by_name.get(name, 0.0) + us
     return by_name
 
 
@@ -1675,29 +1769,65 @@ def phase_speculative(torch, pa, mods, model, state, prompts):
     torch.cuda.empty_cache()
 
 
-def phase_agreement(torch, pa, mods, prompts, state):
+AGREE_LAYERS = 2  # the card-vs-CPU slices' depth
+
+
+def agreement_cpu_half(torch, pa, mods):
+    """Phase 5's CPU half (run beside the build; it needs no card): the
+    2-layer float32 GPT-medium on the CPU (twins) from numpy_state drawn
+    on the 2-layer model itself, which is phase 4's state cut to its first
+    2 blocks (numpy_state draws in named_parameters order, wte, wpe and
+    the first blocks first; phase 5 holds the equality), serving phase 4's
+    prompts greedy and sampled, no kernel launched. Returns (the prompts,
+    the 2-layer state, (model, greedy streams, sampled streams))."""
+    GenerationEngine, GPTForCausalLM, gpt_medium, load_state, _ = mods
+    cfg = gpt_medium()
+    cfg.num_layers = AGREE_LAYERS
+    prompts = make_prompts(cfg.vocab_size)
+    model = GPTForCausalLM(cfg, device="cpu")
+    small = numpy_state(model, SEED)
+    load_state(model, small)
+    before = pa.ragged_paged_attention.launches
+    streams = serve(GenerationEngine, model, prompts)[2]
+    samp = wave_sampling(len(prompts), range(len(prompts)), seed=200)
+    sampled = serve(GenerationEngine, model, prompts, sampling=samp)[2]
+    check(pa.ragged_paged_attention.launches == before,
+          f"cpu: {pa.ragged_paged_attention.launches - before} launches")
+    return prompts, small, (model, streams, sampled)
+
+
+def phase_agreement(torch, pa, mods, prompts, state, cpu_half):
+    """The 2-layer float32 GPT-medium served on the card (kernels)
+    against `cpu_half` (agreement_cpu_half, run beside the build) on the
+    same weights: its weights phase 4's first 2 blocks exactly, its
+    prompts phase 4's; greedy streams equal or the CPU's top-2 gap at the
+    first mismatch within GAP_LIMIT, sampled streams by the same rule."""
     GenerationEngine, GPTForCausalLM, gpt_medium, load_state, _ = mods
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = gpt_medium()
-    cfg.num_layers = 2
+    cfg.num_layers = AGREE_LAYERS
     small = first_layers(state, cfg.num_layers)
-    runs = {}
+    cpu_prompts, cpu_small, cpu_run = cpu_half
+    check(cpu_small.keys() == small.keys() and all(
+        np.array_equal(cpu_small[k], small[k]) for k in small),
+        "5: the CPU half's weights are not phase 4's first blocks")
+    check(len(cpu_prompts) == len(prompts) and all(
+        np.array_equal(a, b) for a, b in zip(cpu_prompts, prompts)),
+        "5: the CPU half's prompts are not phase 4's")
+    runs = {"cpu": cpu_run}
     samp = wave_sampling(len(prompts), range(len(prompts)), seed=200)
-    for device in ("cuda", "cpu"):
-        model = GPTForCausalLM(cfg, device=device)
-        load_state(model, small)
-        pa.ragged_paged_attention.launches = 0
-        eng, _, streams, _, _ = serve(GenerationEngine, model, prompts)
-        # on the card: a launch a layer for each replay and for the eager
-        # run before each capture
-        want = (eng.steps + eng.retraces) * cfg.num_layers \
-            if device == "cuda" else 0
-        check(pa.ragged_paged_attention.launches == want,
-              f"{device}: {pa.ragged_paged_attention.launches} launches, "
-              f"want {want}")
-        sampled = serve(GenerationEngine, model, prompts, sampling=samp)[2]
-        runs[device] = (model, streams, sampled)
+    model = GPTForCausalLM(cfg, device="cuda")
+    load_state(model, small)
+    pa.ragged_paged_attention.launches = 0
+    eng, _, streams, _, _ = serve(GenerationEngine, model, prompts)
+    # a launch a layer for each replay and for the eager run before each
+    # capture
+    want = (eng.steps + eng.retraces) * cfg.num_layers
+    check(pa.ragged_paged_attention.launches == want,
+          f"cuda: {pa.ragged_paged_attention.launches} launches, want {want}")
+    sampled = serve(GenerationEngine, model, prompts, sampling=samp)[2]
+    runs["cuda"] = (model, streams, sampled)
     cpu_model, cpu, cpu_sampled = runs["cpu"]
     equal = first_mismatches(torch, cpu_model, prompts, runs["cuda"][2],
                              cpu_sampled, samp, "sampled (seeds 200-207)",
@@ -1759,8 +1889,9 @@ BENCH_1P3B_LAUNCHES = {"flash_attention_fwd": 48, "flash_attention_dq": 24,
 BENCH_LOSS_RTOL = 1e-3  # 7c's step-1 loss against 7b's bench-optimizer run
 GPT_1P3B_PARAMS = 1_313_722_368  # vocab 50304, 1024 positions, tied head
 # GPT-1.3B's loss at its last timed step as recorded before the LayerNorm kernels' row
-# layouts (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5): printed
-# beside each run's, not held
+# layouts, from numpy-drawn weights (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+# section 5): printed beside each run's (now from card-drawn weights of the
+# same distribution), not held
 GPT_1P3B_RECORDED_LAST_LOSS = 6.7104
 EPILOGUE = "TrainStep.epilogue"  # TrainStep's record_function range
 AGREE = dict(layers=2, batch=2, seq=256, steps=3, rtol=1e-3)
@@ -2184,7 +2315,6 @@ def train_run(torch, km, tmods, state, fused, switched=False,
 
 def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
                name, make_opt, chunk):
-    from torch.autograd import DeviceType
     from paddle_tpu_torch.ops.chunked_xent import _pick_chunk
     from paddle_tpu_torch.jit.api import HEALTH_KEYS
     from paddle_tpu_torch.optimizer.lr import LRScheduler
@@ -2299,10 +2429,9 @@ def _train_run(torch, km, tmods, state, fused, switched, capture, cfg, run,
     flop = 6 * n_params * tokens + 6 * cfg.num_layers * B * T * T \
         * cfg.hidden_size
     peak = torch.cuda.max_memory_allocated() / 2**30
-    ops = [e for e in prof.events()
-           if e.device_type == DeviceType.CUDA and e.name != EPILOGUE]
+    ops = [e for e in device_events(prof) if e[0] != EPILOGUE]
     n_kernels = sum(1 for e in ops
-                    if not e.name.startswith(("Memcpy", "Memset")))
+                    if not e[0].startswith(("Memcpy", "Memset")))
     epi_us, epi_how = epilogue_us(prof, ops)
     res = dict(label=label, ms=step_s * 1e3, tokens_s=tokens / step_s,
                mfu=flop / step_s / 989e12, peak_gib=peak,
@@ -2341,11 +2470,11 @@ def epilogue_us(prof, ops):
     port's ctypes wrappers did; without one, the CPU range's
     device_time_total counts the kernels of the torch ops inside it."""
     from torch.autograd import DeviceType
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.name == EPILOGUE and e.device_type == DeviceType.CUDA]
+    spans = [(t, t + us) for name, t, us in device_events(prof)
+             if name == EPILOGUE]
     if spans:
-        return sum(e.time_range.elapsed_us() for e in ops
-                   if any(a <= e.time_range.start < b for a, b in spans)), \
+        return sum(us for _, t, us in ops
+                   if any(a <= t < b for a, b in spans)), \
             "device operations inside the range's device-side span"
     return sum(getattr(e, "device_time_total", 0) for e in prof.events()
                if e.name == EPILOGUE and e.device_type == DeviceType.CPU), \
@@ -2616,13 +2745,16 @@ ALL_ROUTES = ((True, False), (False, False), (True, True))
 def phase_train_agreement(torch, km, tmods, state, cfg=None,
                           routes=ALL_ROUTES):
     """GPT-medium width (or `cfg`'s), 2 layers, float32, batch 2 x 256, 3
-    AdamW steps from the same weights, on the card (kernels) and on the
-    CPU (plain twins), for each (fused, switched) of `routes`: each
-    epilogue, and the fused one with the LayerNorm and xent switches set
-    (512 x 50304 logits: the xent route applies). TF32 is off, so the
-    card's float32 products are float32. Losses and health vectors agree
-    to rtol 1e-3 (float32 sums in other orders, amplified where Adam
-    divides small moments)."""
+    AdamW steps from the same weights, on the card (kernels) for each
+    (fused, switched) of `routes`: each epilogue, and the fused one with
+    the LayerNorm and xent switches set (512 x 50304 logits: the xent
+    route applies), each against the CPU's run (plain twins). The routes
+    compute one function (AdamW on the same weights and batch; the
+    switched kernels' twins are the compositions they replace), so the
+    CPU runs it once, on the first route, and that run is every card
+    route's reference. TF32 is off, so the card's float32 products are
+    float32. Losses and health vectors agree to rtol 1e-3 (float32 sums
+    in other orders, amplified where Adam divides small moments)."""
     from paddle_tpu_torch.jit.api import HEALTH_KEYS
     GPTForCausalLM, gpt_medium, load_state, TrainStep, AdamW, F = tmods
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2635,9 +2767,9 @@ def phase_train_agreement(torch, km, tmods, state, cfg=None,
     print(f"  TF32 off: the card's float32 products run in float32; hidden "
           f"{cfg.hidden_size}, head_dim {cfg.hidden_size // cfg.num_heads}")
     n_ln = 2 * cfg.num_layers + 1
-    for fused, switched in routes:
-        runs = {}
-        for device in ("cuda", "cpu"):
+    runs = {}
+    for r, (fused, switched) in enumerate(routes):
+        for device in ("cuda", "cpu") if r == 0 else ("cuda",):
             model = GPTForCausalLM(cfg, device=device)
             load_state(model, small)
             step = TrainStep(model, lm_loss(F),
@@ -2837,7 +2969,8 @@ def phase_eager_scaler(torch, tmods, state):
 def phase_train_1p3b(torch, km, tmods, gpt_1p3b):
     """GPT-1.3B (gpt_1p3b(), head_dim 128) at full width and depth in
     bf16, with max_position_embeddings 1024 as bench.py sets it: the
-    reference's init drawn with numpy, then the port's fastest route
+    reference's init drawn on the card (card_state), then the port's
+    fastest route
     (the default fused TrainStep with PADDLE_TPU_PALLAS_LN=1 and
     PADDLE_TPU_PALLAS_XENT=1) on bench.py's batch 4 x 1024: 2 warm-up,
     5 timed and 1 profiled step, the launch counts set to 0 just before
@@ -2853,11 +2986,12 @@ def phase_train_1p3b(torch, km, tmods, gpt_1p3b):
     check(n_params == GPT_1P3B_PARAMS,
           f"GPT-1.3B has {n_params} parameters, want {GPT_1P3B_PARAMS}")
     t = time.perf_counter()
-    state = numpy_state(model, SEED)
+    state = card_state(torch, model, SEED)
+    torch.cuda.synchronize()
     print(f"  {n_params} parameters (vocab {cfg.vocab_size}, hidden "
           f"{cfg.hidden_size}, {cfg.num_layers} layers, {cfg.num_heads} "
           f"heads, head_dim {cfg.hidden_size // cfg.num_heads}, tied head); "
-          f"weights drawn with numpy in {time.perf_counter() - t:.1f}s",
+          f"weights drawn on the card in {time.perf_counter() - t:.1f}s",
           flush=True)
     del model
     torch.cuda.empty_cache()
@@ -3772,8 +3906,11 @@ def time_tree(torch, tk, label, leaves, opt, lr, flush, library=None):
     ms = cuda_ms(torch, lambda: tk.tree_update(opt, *leaves, rows,
                                                with_stats=True), 10, flush,
                  spin=TREE_SPIN)
+    # the twin of the main path's stochastic rounding takes seconds a call
+    # (~150 int64 torch kernels an element): one warm-up, one timed call
     plain = cuda_ms(torch, lambda: tk.tree_update_reference(
-        opt, *twin, rows, with_stats=True), 3, flush, spin=TREE_SPIN)
+        opt, *twin, rows, with_stats=True), 1, flush, spin=TREE_SPIN,
+        warmup=1)
     lib = None
     if library is not None:
         try:
@@ -4511,44 +4648,72 @@ def phase_ssm_serve(torch, sk, flush, km, smods):
     return n, held
 
 
-def phase_ssm_agreement(torch, km, smods, prompts):
+SSM_AGREE_KINDS = (("pure", {}), ("hybrid", dict(attn_every=2,
+                                                   num_heads=12)))
+
+
+def ssm_agree_cfg(SSMConfig, extra):
+    return SSMConfig(**dict(MAMBA_130M, num_layers=2,
+                            initializer_range=SSM_AGREE_STD, **extra))
+
+
+def ssm_serve_half(torch, km, smods, prompts, cfg, device):
+    """One device's half of phase 14 for `cfg`: the model from
+    ssm_numpy_state, the sampled wave (seeds 300-307), then the greedy
+    wave with its launches held ((replays + captures) x layers of each
+    kind on the card, 0 on the CPU). Returns (model, greedy streams,
+    the slots' pools after the run, sampled streams)."""
+    GenerationEngine, _, SSMForCausalLM, load_state, _ = smods
+    pa, sk = km[1], km[5]
+    model = SSMForCausalLM(cfg, device=device)
+    load_state(model, ssm_numpy_state(model, SEED))
+    samp = wave_sampling(len(prompts), range(len(prompts)), seed=300)
+    sampled = serve(GenerationEngine, model, prompts, SSM_SERVE, samp)[2]
+    before = (sk.ssm_scan.launches, pa.ragged_paged_attention.launches)
+    eng, _, streams, _, _ = serve(GenerationEngine, model, prompts,
+                                  SSM_SERVE)
+    on_card = device == "cuda"
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(2))
+    runs_ = (eng.steps + eng.retraces) * on_card
+    want = (runs_ * (2 - n_attn), runs_ * n_attn)
+    got = (sk.ssm_scan.launches - before[0],
+           pa.ragged_paged_attention.launches - before[1])
+    check(got == want, f"ssm {device}: (scan, paged) launches {got}, want "
+                       f"{want}")
+    rec = getattr(eng.cache, "recurrent", eng.cache)
+    return (model, streams, [t[1:].cpu() for t in rec.conv + rec.ssm],
+            sampled)
+
+
+def ssm_agreement_cpu_half(torch, km, smods, prompts):
+    """Phase 14's CPU halves (twins; run beside the build), pure and
+    hybrid: {kind: ssm_serve_half on the CPU}."""
+    SSMConfig = smods[1]
+    return {kind: ssm_serve_half(torch, km, smods, prompts,
+                                 ssm_agree_cfg(SSMConfig, extra), "cpu")
+            for kind, extra in SSM_AGREE_KINDS}
+
+
+def phase_ssm_agreement(torch, km, smods, prompts, cpu_halves):
     """2-layer float32 pure and hybrid (attn_every=2, 12 heads: head_dim
     64, so #1 and #11 both run) SSMs at Mamba-130M's width, served on the
-    card (kernels) and on the CPU (twins): greedy streams equal, or the
+    card (kernels) against `cpu_halves` (the CPU's twins, run beside the
+    build on the same weights and prompts): greedy streams equal, or the
     CPU's top-2 gap at the first mismatch within GAP_LIMIT; with every
     stream equal, the real slots' conv tails and states after the run
     within SSM_STATE_RTOL of their largest entry. The weights are drawn
     with std SSM_AGREE_STD: at the reference's 0.02 a greedy stream
     repeats its last prompt token whatever the mixers add, so equal
     streams would not show that the card's steps are right."""
-    GenerationEngine, SSMConfig, SSMForCausalLM, load_state, _ = smods
-    pa, sk = km[1], km[5]
+    SSMConfig = smods[1]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for kind, extra in (("pure", {}), ("hybrid", dict(attn_every=2,
-                                                       num_heads=12))):
-        cfg = SSMConfig(**dict(MAMBA_130M, num_layers=2,
-                               initializer_range=SSM_AGREE_STD, **extra))
-        runs, sampled = {}, {}
+    for kind, extra in SSM_AGREE_KINDS:
+        cfg = ssm_agree_cfg(SSMConfig, extra)
         samp = wave_sampling(len(prompts), range(len(prompts)), seed=300)
-        for device in ("cuda", "cpu"):
-            model = SSMForCausalLM(cfg, device=device)
-            load_state(model, ssm_numpy_state(model, SEED))
-            sampled[device] = serve(GenerationEngine, model, prompts,
-                                    SSM_SERVE, samp)[2]
-            zero_counts(km)
-            eng, _, streams, _, _ = serve(GenerationEngine, model, prompts,
-                                          SSM_SERVE)
-            on_card = device == "cuda"
-            n_attn = sum(cfg.is_attn_layer(i) for i in range(2))
-            runs_ = (eng.steps + eng.retraces) * on_card
-            want = (runs_ * (2 - n_attn), runs_ * n_attn)
-            got = (sk.ssm_scan.launches, pa.ragged_paged_attention.launches)
-            check(got == want, f"{kind} {device}: (scan, paged) launches "
-                               f"{got}, want {want}")
-            rec = getattr(eng.cache, "recurrent", eng.cache)
-            runs[device] = (model, streams,
-                            [t[1:].cpu() for t in rec.conv + rec.ssm])
+        card = ssm_serve_half(torch, km, smods, prompts, cfg, "cuda")
+        runs = {"cuda": card[:3], "cpu": cpu_halves[kind][:3]}
+        sampled = {"cuda": card[3], "cpu": cpu_halves[kind][3]}
         cpu_model, cpu, cpu_pools = runs["cpu"]
         gpu, gpu_pools = runs["cuda"][1], runs["cuda"][2]
         equal = first_mismatches(torch, cpu_model, prompts, sampled["cuda"],
@@ -4942,9 +5107,7 @@ def bert_loss_fn(F):
 
 def flash_kernel_names(prof):
     """Names of the flash kernels the profiler saw run on the card."""
-    from torch.autograd import DeviceType
-    return {e.name for e in prof.events()
-            if e.device_type == DeviceType.CUDA and "flash_" in e.name}
+    return {name for name, _, _ in device_events(prof) if "flash_" in name}
 
 
 def phase_bert(torch, km, fa, flush):
@@ -7124,6 +7287,581 @@ def phase_front_door(torch, km, mods, smods, state, prompts):
 
 
 
+# -- phase 22: the profiler on bench.py's stages -------------------------------
+
+# (a): steps the Profiler covers (its scheduler: 1 closed, 1 ready, 4
+# recorded), the probe's cadence, the steps timed with telemetry on and off
+PROFILED = dict(steps=6, closed=1, ready=1, record=4, probe_every=2,
+                cost_steps=12, cost_rounds=2)
+TELEMETRY_COST_LIMIT = 0.02   # telemetry on vs off, relative ms a step
+DEVICE_TIME_REL = 0.10        # the probe's device time vs the trace's
+# a device kernel's name (substring) -> the wrapper whose launch it is;
+# ln_bwd's finalize is the second CUDA launch of every #6 call
+TRACE_KERNELS = {"flash_fwd": "flash_attention_fwd",
+                 "flash_dq": "flash_attention_dq",
+                 "flash_dkv": "flash_attention_dkv",
+                 "ln_fwd": "layer_norm_fwd", "ln_bwd": "layer_norm_bwd",
+                 "ln_finalize": "layer_norm_bwd",
+                 "xent_fwd": "softmax_xent_fwd",
+                 "xent_bwd": "softmax_xent_bwd",
+                 "tree_update": "tree_update",
+                 "paged_cc": "ragged_paged_attention"}
+# (b): phase 4's prompts served one at a time, each warmed first
+PROFILED_SERVE = dict(prompts=(2, 5), new=8)
+# (c): the watchdog's timeout and the pause that must trip it
+WATCHDOG = dict(timeout_s=0.5, pause_s=1.5, steps=8)
+NAN_STEP = 3  # nan@train.step#k on the float drill's replayed steps
+
+
+def trace_launches(prof_or_kernels):
+    """{wrapper name: CUDA launches} in a device trace's kernels
+    ({kernel name: (launches, µs)}), by TRACE_KERNELS."""
+    out = {}
+    for name, (n, _) in prof_or_kernels.items():
+        for part, wrapper in TRACE_KERNELS.items():
+            if part in name:
+                out[wrapper] = out.get(wrapper, 0) + n
+    return out
+
+
+def trace_graph_launches(path, part):
+    """A device trace file's kernels grouped by the launch that made them
+    (their correlation id: one group a CUDA graph replay), in launch
+    order: [(kernels named with `part`, all kernels)] (a diagnostic)."""
+    with open(path) as f:
+        evs = [e for e in json.load(f)["traceEvents"]
+               if e.get("cat") == "kernel"]
+    groups = {}
+    for e in sorted(evs, key=lambda e: e["ts"]):
+        g = groups.setdefault(e.get("args", {}).get("correlation"), [0, 0])
+        g[0] += part in e.get("name", "")
+        g[1] += 1
+    return [tuple(g) for g in groups.values()]
+
+
+def telemetry_env(on, metrics=None, probe_every=None):
+    """The telemetry switches: on, the metrics file and the probe every
+    `probe_every` steps (None: its default cadence, 16; memory and
+    rankstat records at their defaults); off, every cadence 0 and no
+    file."""
+    probe = None if on and probe_every is None else \
+        str(probe_every) if on else "0"
+    env = {"PADDLE_TPU_METRICS_FILE": metrics if on else None,
+           "PADDLE_TPU_DEVICE_TIME_EVERY": probe,
+           "PADDLE_TPU_MEMORY_EVERY": None if on else "0",
+           "PADDLE_TPU_RANKSTAT_EVERY": None if on else "0"}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+@contextlib.contextmanager
+def step_telemetry(api, on):
+    """TrainStep's per-step telemetry as it ships (on), or skipped (off:
+    jit/api.py's export_step_metrics a no-op), the baseline its cost is
+    held against."""
+    real = api.export_step_metrics
+    if not on:
+        api.export_step_metrics = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        api.export_step_metrics = real
+
+
+def ring_steps(torch, step, host, n):
+    """n steps of bench.py's steady loop (bench.py:426): the batches
+    through device_prefetch_iterator(depth=2, sharding_fn=
+    step.input_sharding). Returns the losses (device tensors)."""
+    from paddle_tpu_torch.io.device_prefetch import device_prefetch_iterator
+    losses = []
+    for ids, labels in device_prefetch_iterator(
+            ((a, a) for a in host[:n]), depth=2,
+            sharding_fn=step.input_sharding):
+        losses.append(step(ids, labels))
+    return losses
+
+
+def check_fast_device_events(torch):
+    """device_events (the Kineto events) against prof.events() on a
+    small profile: the same device microseconds by name."""
+    a = torch.randn(1024, 1024, device="cuda")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            a = torch.tanh(a @ a)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    slow = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name != EPILOGUE:
+            slow[e.name] = slow.get(e.name, 0.0) + e.time_range.elapsed_us()
+    fast = device_us_by_name(prof)
+    check(fast.keys() == slow.keys() and all(
+        abs(fast[k] - slow[k]) <= 1e-3 * max(1.0, slow[k]) for k in fast),
+        f"22: the Kineto events' device times {fast} differ from "
+        f"prof.events()' {slow}")
+
+
+def profiler_bench(torch, km, tmods, state, cfg, out_dir):
+    """22 (a): bench.py's steady stage on 7c's step (GPT-1.3B bf16, remat
+    "dots", the chunked loss, bench.py's Momentum, both switches) fed
+    through the prefetch ring, under Profiler(targets=[CPU, GPU],
+    make_scheduler(closed=1, ready=1, record=4), export_chrome_tracing)
+    opened before the step's first call (the capture runs under it), a
+    RecordEvent around each step, the metrics JSONL on and the probe
+    every 2 steps. Holds: losses bit-equal to the same steps run again
+    from a snapshot_state taken before the first, without the Profiler
+    and telemetry; the wrappers' launches 6 x 7c's per-step constants and
+    the device trace's over the 4 recorded steps 4 x them; every JSONL
+    record passes tools/check_metrics_schema.py, each probed step record
+    carries step_time_device_s; device_time_summary()'s median within 10%
+    of the trace's device ms a step; mem_report()'s params tag the step's
+    parameter bytes exactly; ms a step with telemetry on within 2% of off
+    (the Profiler closed; off skips export_step_metrics and the probe). Returns (the step, its launches, the
+    measurements)."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.jit import DeferredLoss
+    from paddle_tpu_torch.jit import api as jit_api
+    from paddle_tpu_torch.profiler import (dist_observatory, mem_observatory,
+                                           monitor, statistic)
+    P = profiler
+    metrics = os.path.join(out_dir, "metrics.jsonl")
+    os.environ["PADDLE_PROFILER_DIR"] = os.path.join(out_dir, "device")
+    n = PROFILED["steps"]
+    rng = np.random.RandomState(SEED + 40)
+    host = [rng.randint(0, cfg.vocab_size, size=(BENCH_1P3B["batch"],
+                                                 BENCH_1P3B["seq"])
+                        ).astype(np.int32)
+            for _ in range(n + PROFILED["cost_steps"])]
+    with switches(True):
+        model, step = bench_step(torch, tmods, state, cfg, "dots")
+        snap = step.snapshot_state()
+        telemetry_env(True, metrics, PROFILED["probe_every"])
+        monitor.reset_metrics()
+        statistic.reset_statistics()
+        dist_observatory.reset()
+        zero_counts(km)
+        blocked0 = monitor.host_blocked_s()
+        prof = P.Profiler(targets=[P.ProfilerTarget.CPU,
+                                   P.ProfilerTarget.GPU],
+                          scheduler=P.make_scheduler(
+                              closed=PROFILED["closed"],
+                              ready=PROFILED["ready"],
+                              record=PROFILED["record"]),
+                          on_trace_ready=P.export_chrome_tracing(
+                              os.path.join(out_dir, "unified")))
+        prof.start()
+        losses = []
+        first_rec = PROFILED["closed"] + PROFILED["ready"]
+        from paddle_tpu_torch.io.device_prefetch import \
+            device_prefetch_iterator
+        for i, (ids, labels) in enumerate(device_prefetch_iterator(
+                ((a, a) for a in host[:n]), depth=2,
+                sharding_fn=step.input_sharding)):
+            if i == first_rec:  # the previous (probed) step has finished
+                t_rec = time.perf_counter()
+            with P.RecordEvent("bench.step"):
+                losses.append(step(ids, labels))
+            if i + 1 < n:
+                prof.step()
+        DeferredLoss(losses[-1]).resolve()  # bench.py's one read
+        rec_ms = (time.perf_counter() - t_rec) / (n - first_rec) * 1e3
+        blocked = monitor.host_blocked_s() - blocked0
+        prof.stop()
+        launches = counts(km)
+        kernels = prof.device_kernels()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = prof.summary()
+        telemetry_env(False)
+        probe = dist_observatory.device_time_summary()
+        rep = mem_observatory.mem_report()
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in step.params.values())
+        # the same steps again from the snapshot, no Profiler, no telemetry
+        step.set_tree_state(snap["params"], snap["opt_state"])
+        step._step_i = 0
+        again = ring_steps(torch, step, host, n)
+        a, b = torch.stack(losses), torch.stack(again)
+        check(torch.isfinite(a).all() and torch.equal(a, b),
+              f"22 (a): the profiled losses {a.tolist()} differ from the "
+              f"same steps without telemetry {b.tolist()}")
+        # telemetry's cost: the Profiler closed, on (as it ships: the
+        # step records, the probe at its default cadence) vs off (no
+        # export_step_metrics, every cadence 0), interleaved
+        ms = {True: [], False: []}
+        for _ in range(PROFILED["cost_rounds"]):
+            for on in (False, True):
+                telemetry_env(on, metrics)
+                with step_telemetry(jit_api, on):
+                    ring_steps(torch, step, host[n:], 2)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    ring_steps(torch, step, host[n:], PROFILED["cost_steps"])
+                    torch.cuda.synchronize()
+                ms[on].append((time.perf_counter() - t)
+                              / PROFILED["cost_steps"] * 1e3)
+        telemetry_env(False)
+    rec_steps = PROFILED["record"]
+    for name, per_step in BENCH_1P3B_LAUNCHES.items():
+        check(launches[name] == n * per_step,
+              f"22 (a): {name}: {launches[name]} launches, want {n} x "
+              f"{per_step}")
+    traced = trace_launches(kernels)
+    want = {k: rec_steps * v for k, v in BENCH_1P3B_LAUNCHES.items() if v}
+    want["layer_norm_bwd"] *= 2  # each call's kernel and its finalize
+    got = {k: traced.get(k, 0) for k in want}
+    check(got == want, f"22 (a): the device trace's launches over "
+                       f"{rec_steps} recorded steps {got}, want {want}")
+    with open(metrics) as f:
+        recs = [json.loads(line) for line in f]
+    lint = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "check_metrics_schema.py"),
+         metrics], capture_output=True, text=True, timeout=300)
+    check(lint.returncode == 0, f"22 (a): the metrics JSONL fails the "
+                                f"schema: {(lint.stdout + lint.stderr)[-600:]}")
+    step_recs = [r for r in recs if r["kind"] == "step"]
+    probed = [r["step"] for r in step_recs if "step_time_device_s" in r]
+    want_probed = [i for i in range(2, n + 1) if i % PROFILED[
+        "probe_every"] == 0]
+    check(probed[:len(want_probed)] == want_probed,
+          f"22 (a): probed step records {probed}, want {want_probed}")
+    kinds = sorted({r["kind"] for r in recs})
+    trace_ms = sum(us for _, us in kernels.values()) / rec_steps / 1e3
+    check(probe.get("samples", 0) >= 1, f"22 (a): no device-time probe: "
+                                        f"{probe}")
+    probe_ms = probe["step_time_device_s"] * 1e3
+    rel = abs(probe_ms - trace_ms) / trace_ms
+    check(rel <= DEVICE_TIME_REL,
+          f"22 (a): the probe's device ms a step {probe_ms:.3f} is {rel:.3f} "
+          f"from the trace's {trace_ms:.3f}")
+    check(rep["tags"].get("params") == param_bytes,
+          f"22 (a): mem_report params {rep['tags'].get('params')}, the "
+          f"step's parameter bytes {param_bytes}")
+    on, off = np.mean(ms[True]), np.mean(ms[False])
+    cost = (on - off) / off
+    check(cost <= TELEMETRY_COST_LIMIT,
+          f"22 (a): telemetry on {ms[True]} ms a step against off "
+          f"{ms[False]}: {cost:+.4f} > {TELEMETRY_COST_LIMIT}")
+    trace_bytes = sum(os.path.getsize(p) for p in prof.device_traces)
+    unified = os.path.join(out_dir, "unified", "paddle_tpu_trace.rank0.json")
+    print(f"  (a) {n} steps under the Profiler (the capture in its closed "
+          f"step, steps 3-6 recorded): {rec_ms:.2f} ms a step recorded "
+          f"(wall, steps 3-6 to the last loss's read), stop() "
+          f"{prof.stop_s:.2f}s (the trace's flush), host_blocked_s "
+          f"{blocked:.4f}; losses bit-equal to the same steps without "
+          f"telemetry ({a[0].item():.6f} -> {a[-1].item():.6f})", flush=True)
+    print(f"  (a) the device trace over {rec_steps} recorded steps: launches "
+          f"{got} (= {rec_steps} x 7c's a step); {trace_ms:.3f} device ms "
+          f"a step; the probe's median {probe_ms:.3f} ms over "
+          f"{probe['samples']} samples (rel {rel:.4f}, limit "
+          f"{DEVICE_TIME_REL}), MFU measured {probe['mfu_measured']:.4f}")
+    print(f"  (a) trace files: device {trace_bytes / 2**20:.1f} MiB "
+          f"({len(prof.device_traces)} file), unified host trace "
+          f"{os.path.getsize(unified) / 2**10:.1f} KiB; metrics JSONL "
+          f"{len(recs)} records ({', '.join(kinds)}) pass the schema, "
+          f"probed steps {probed}; mem_report params {param_bytes} B "
+          f"(attributed {rep['attributed_bytes']}, in use "
+          f"{rep['device_bytes_in_use']})")
+    print(f"  (a) telemetry's cost, the Profiler closed: on (step records, "
+          f"the probe every 16) {[round(x, 3) for x in ms[True]]} ms a "
+          f"step, off (no export_step_metrics, no probe) "
+          f"{[round(x, 3) for x in ms[False]]}: {cost:+.4f} (limit "
+          f"{TELEMETRY_COST_LIMIT})")
+    print("  (a) the summary's head:\n    " + "\n    ".join(
+        summary.splitlines()[:12]))
+    del model
+    return step, launches, dict(ms=rec_ms, trace_ms=trace_ms,
+                                probe_ms=probe_ms, cost=cost)
+
+
+def profiler_serve(torch, km, mods, state, prompts):
+    """22 (b): phase 4's GPT-medium bf16 engine under the Profiler (every
+    step recorded, one window): PROFILED_SERVE's prompts, each warmed
+    (`engine.warm`) and then served alone, so no step captures. Holds:
+    the serve.batch spans = the engine's steps, the trace's #1 launches =
+    (replays + captures) x 24 with captures 0, retraces 0 over the wave.
+    Returns #1's launches (the wrappers' count)."""
+    from paddle_tpu_torch import profiler as P
+    from paddle_tpu_torch.profiler import statistic
+    GenerationEngine, GPTForCausalLM, gpt_medium, load_state, _ = mods
+    model = GPTForCausalLM(gpt_medium(), dtype=torch.bfloat16)
+    load_state(model, state)
+    eng = GenerationEngine(model, **SERVE)
+    picks = [prompts[i] for i in PROFILED_SERVE["prompts"]]
+    try:
+        for p in picks:
+            eng.warm(len(p), PROFILED_SERVE["new"])
+        traces, steps = eng.retraces, eng.steps
+        spans0 = sum(r["count"] for r in statistic.get_events("serve.batch"))
+        zero_counts(km)
+        prof = P.Profiler(targets=[P.ProfilerTarget.CPU,
+                                   P.ProfilerTarget.GPU])
+        prof.start()
+        t = time.perf_counter()
+        for p in picks:
+            eng.submit(p, max_new_tokens=PROFILED_SERVE["new"]).result(300)
+        wave_s = time.perf_counter() - t
+        prof.stop()
+        n1 = counts(km)["ragged_paged_attention"]
+        retraces, served = eng.retraces - traces, eng.steps - steps
+    finally:
+        eng.shutdown()
+    spans = sum(r["count"] for r in statistic.get_events("serve.batch")) \
+        - spans0
+    traced = trace_launches(prof.device_kernels()).get(
+        "ragged_paged_attention", 0)
+    L = model.cfg.num_layers
+    if traced != served * L:  # which launches the trace lacks
+        print(f"  (b) (#1, all kernels) in the device trace by launch: "
+              f"{trace_graph_launches(prof.device_traces[-1], 'paged_cc')}",
+              flush=True)
+    check(retraces == 0, f"22 (b): {retraces} captures in the wave")
+    check(spans == served, f"22 (b): {spans} serve.batch spans, {served} "
+                           f"engine steps")
+    check(traced == n1 == served * L,
+          f"22 (b): #1 launches in the trace {traced}, counted {n1}, want "
+          f"(replays {served} + captures 0) x {L}")
+    print(f"  (b) {len(picks)} requests x {PROFILED_SERVE['new']} tokens, "
+          f"one at a time after engine.warm: {served} steps in "
+          f"{wave_s:.2f}s under the Profiler (its first window), {spans} "
+          f"serve.batch spans, #1 {traced} launches in the device trace "
+          f"(= {served} x {L}), retraces 0, stop() {prof.stop_s:.2f}s",
+          flush=True)
+    del model
+    return n1
+
+
+def float_drill(torch, TrainStep, monitor_health=True, loss=None):
+    """A float regression's TrainStep on the card (Linear(64, 8), SGD):
+    the fault drills' model (nan@train.step poisons a float batch)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.optimizer import SGD
+    torch.manual_seed(SEED)
+    net = nn.Linear(64, 8)
+    step = TrainStep(net, loss or (lambda out, y: ((out - y) ** 2).mean()),
+                     SGD(learning_rate=0.01, parameters=net.parameters()),
+                     monitor_health=monitor_health)
+    rng = np.random.RandomState(SEED + 41)
+    batches = [(torch.from_numpy(rng.randn(32, 64).astype(np.float32)).cuda(),
+                torch.from_numpy(rng.randn(32, 8).astype(np.float32)).cuda())
+               for _ in range(6)]
+    return step, batches
+
+
+def profiler_forensics(torch, tmods, bench, out_dir):
+    """22 (c): after (a), a dump's bundle (the ring's step records, the
+    text of each registered program still alive, mem_state.json), and a
+    dump makes no allocation; a Watchdog (0.5 s) that stays quiet over replayed steps
+    and fires once in a 1.5 s pause; dumps from another thread and a
+    SIGQUIT dump on the capturing thread while a TrainStep captures,
+    the capture valid (its replay equals the eager body, retraces 1);
+    nan@train.step#3 on replayed steps (the poison copied into the
+    static batch buffer: retraces stays 1, the health vector flags step
+    3 first); oom@train.step raising DeviceOOMError naming its site with
+    a device_oom event; FLAGS_check_nan_inf on an eager op on the card
+    recording the reference's nan_detected event."""
+    import signal
+    import threading
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import fault_injection
+    from paddle_tpu_torch.profiler import flight_recorder, mem_observatory
+    TrainStep = tmods[3]
+    base = os.path.join(out_dir, "bundles")
+    stats = torch.cuda.memory_stats()
+    d = flight_recorder.dump("after_bench", base_dir=base)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] \
+        - stats["allocation.all.allocated"]
+    check(d is not None and allocs == 0,
+          f"22 (c): the dump {d} made {allocs} allocations")
+    files = sorted(os.listdir(d))
+    ring = json.load(open(os.path.join(d, "ring.json")))
+    mani = json.load(open(os.path.join(d, "MANIFEST.json")))
+    hlo = sorted(os.listdir(os.path.join(d, "hlo")))
+    mem = json.load(open(os.path.join(d, "mem_state.json")))
+    check(any(r.get("kind") == "step" for r in ring["records"])
+          and "train.step" in mani["hlo"]
+          and sorted(mani["hlo"]) == sorted(ring["executables"])
+          and all(f"{t}.txt" in hlo for t in mani["hlo"])
+          and "params" in mem["ledger"],
+          f"22 (c): bundle {files}, hlo {hlo}, manifest {mani.get('hlo')}, "
+          f"live programs {ring['executables']}")
+    text = open(os.path.join(d, "hlo", "train.step.txt")).read()
+    check("tree_update" in text, f"22 (c): train.step.txt: {text[:300]}")
+    print(f"  (c) dump after (a): {files}; programs {mani['hlo']}; "
+          f"{sum(r.get('kind') == 'step' for r in ring['records'])} step "
+          f"records in the ring; no allocation", flush=True)
+    # the watchdog: quiet over steps, one expiry in a pause
+    step, batches = float_drill(torch, TrainStep)
+    step(*batches[0])  # the capture
+    wd = flight_recorder.Watchdog(WATCHDOG["timeout_s"],
+                                  base_dir=base).start()
+    try:
+        for i in range(WATCHDOG["steps"]):
+            step(*batches[i % len(batches)])
+            torch.cuda.synchronize()
+            time.sleep(WATCHDOG["timeout_s"] / 5)
+        quiet = not wd.fired
+        time.sleep(WATCHDOG["pause_s"])
+        fired = wd.fired
+    finally:
+        wd.stop()
+    expired = [e for e in flight_recorder.snapshot()["events"]
+               if e["event"] == "watchdog_expired"]
+    check(quiet and fired and len(expired) == 1,
+          f"22 (c): watchdog quiet over steps {quiet}, fired in the pause "
+          f"{fired}, expiries {len(expired)}")
+    print(f"  (c) Watchdog({WATCHDOG['timeout_s']}s): quiet over "
+          f"{WATCHDOG['steps']} replayed steps, one expiry in a "
+          f"{WATCHDOG['pause_s']}s pause (hang_s "
+          f"{expired[0]['hang_s']})", flush=True)
+    # dumps while a TrainStep captures: another thread's, and SIGQUIT's
+    # (the handler runs on the capturing thread, inside the capture: the
+    # loss sends the signal when it runs under capture)
+    saved = (os.environ.get("PADDLE_TPU_DEBUG_DUMP"), sys.excepthook,
+             threading.excepthook, signal.getsignal(signal.SIGQUIT),
+             signal.getsignal(signal.SIGTERM))
+    flight_recorder.install(base_dir=base)
+    sent = []
+
+    def loss(out, y):
+        if torch.cuda.is_current_stream_capturing() and not sent:
+            sent.append(1)
+            os.kill(os.getpid(), signal.SIGQUIT)
+        return ((out - y) ** 2).mean()
+
+    step, batches = float_drill(torch, TrainStep, loss=loss)
+    stop = threading.Event()
+    dumps = []
+
+    def dumper():
+        while True:
+            dumps.append(flight_recorder.dump("during_capture"))
+            if stop.wait(0.02):
+                return
+
+    th = threading.Thread(target=dumper)
+    th.start()
+    try:
+        step(*batches[0])
+    finally:
+        stop.set()
+        th.join()
+        env, sys.excepthook, threading.excepthook, quit_h, term_h = saved
+        signal.signal(signal.SIGQUIT, quit_h)
+        signal.signal(signal.SIGTERM, term_h)
+        if env is None:
+            del os.environ["PADDLE_TPU_DEBUG_DUMP"]
+        else:
+            os.environ["PADDLE_TPU_DEBUG_DUMP"] = env
+    snap = step.snapshot_state()
+    i0 = step._step_i
+    replayed = step(*batches[1])
+    step.set_tree_state(snap["params"], snap["opt_state"])
+    step._step_i = i0
+    eager = step._eager_call(*batches[1])
+    sig = os.path.exists(os.path.join(base, "sigquit", "MANIFEST.json"))
+    check(step.retraces == 1 and torch.equal(replayed, eager) and sent
+          and sig and all(dumps) and len(dumps) >= 1,
+          f"22 (c): the capture under dumps: retraces {step.retraces}, "
+          f"replay {replayed.item()} vs eager {eager.item()}, SIGQUIT sent "
+          f"{bool(sent)}, its bundle {sig}, dumps {len(dumps)}")
+    print(f"  (c) a capture under {len(dumps)} dumps from another thread and "
+          f"a SIGQUIT dump on its own thread: valid (replay bit-equal to "
+          f"the eager body, retraces 1)", flush=True)
+    # nan@train.step#k on replayed steps
+    step, batches = float_drill(torch, TrainStep)
+    fault_injection.configure(f"nan@train.step#{NAN_STEP}")
+    try:
+        for x, y in batches[:NAN_STEP + 1]:
+            step(x, y)
+    finally:
+        fault_injection.configure("")
+    step.flush_health()
+    finite = [bool(np.isfinite(h["loss"])) for h in step.health_log]
+    check(step.retraces == 1 and finite[:NAN_STEP - 1] == [True] * (
+        NAN_STEP - 1) and not finite[NAN_STEP - 1]
+        and step.health_log[NAN_STEP - 1]["found_inf"] == 1.0,
+        f"22 (c): nan@train.step#{NAN_STEP}: retraces {step.retraces}, "
+        f"finite {finite}, health {step.health_log[NAN_STEP - 1]}")
+    print(f"  (c) nan@train.step#{NAN_STEP} on replayed steps: retraces 1, "
+          f"the health vector flags step {NAN_STEP} first (finite "
+          f"{finite})", flush=True)
+    # oom@train.step, its bundle under `base`
+    fault_injection.configure("oom@train.step#2")
+    os.environ["PADDLE_TPU_DEBUG_DUMP"] = base
+    try:
+        step(*batches[0])
+        err = None
+        try:
+            step(*batches[1])
+        except mem_observatory.DeviceOOMError as e:
+            err = e
+    finally:
+        fault_injection.configure("")
+        if saved[0] is None:
+            del os.environ["PADDLE_TPU_DEBUG_DUMP"]
+        else:
+            os.environ["PADDLE_TPU_DEBUG_DUMP"] = saved[0]
+    ev = [e for e in flight_recorder.snapshot()["events"]
+          if e["event"] == "device_oom"]
+    check(err is not None and err.site == "train.step"
+          and err.requested_bytes == 8 << 30 and ev
+          and ev[-1]["site"] == "train.step" and err.bundle_dir
+          and os.path.exists(os.path.join(err.bundle_dir, "mem_state.json")),
+          f"22 (c): oom@train.step: {err!r}, events {ev}")
+    print(f"  (c) oom@train.step#2: {type(err).__name__} at "
+          f"{err.site}, requested {err.requested_bytes} B, top holders "
+          f"{err.top_holders}, a device_oom event and bundle "
+          f"{err.bundle_dir}", flush=True)
+    # FLAGS_check_nan_inf on an eager op on the card
+    flight_recorder.reset()
+    paddle.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        x = paddle.to_tensor(np.array([-1.0, 4.0], np.float32),
+                             place="gpu")
+        raised = False
+        try:
+            paddle.log(x)
+        except FloatingPointError:
+            raised = True
+    finally:
+        paddle.set_flags({"FLAGS_check_nan_inf": False})
+    ev = [{k: v for k, v in e.items() if k != "ts"}
+          for e in flight_recorder.snapshot()["events"]
+          if e["event"] == "nan_detected"]
+    want = [{"event": "nan_detected", "op": "log", "n_nan": 1, "n_inf": 0,
+             "where": "eager"}]
+    check(raised and ev == want, f"22 (c): FLAGS_check_nan_inf on the "
+                                 f"card: raised {raised}, events {ev}")
+    print(f"  (c) FLAGS_check_nan_inf: paddle.log of a negative on the card "
+          f"raises FloatingPointError, event {ev[0]}", flush=True)
+
+
+def phase_profiler(torch, km, tmods, mods, state_1p3b, cfg_1p3b, state,
+                   prompts):
+    """Phase 22: the profiler on bench.py's stages, (a)-(c) above, its
+    files (traces, metrics, bundles) under build/phase22. Returns the
+    launches to add to the kernels line ((a)'s wrappers' and (b)'s
+    #1)."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase22")
+    os.makedirs(out_dir, exist_ok=True)
+    step, launches, _ = profiler_bench(torch, km, tmods, state_1p3b,
+                                       cfg_1p3b, out_dir)
+    launches = dict(launches)
+    launches["ragged_paged_attention"] = profiler_serve(torch, km, mods,
+                                                        state, prompts)
+    profiler_forensics(torch, tmods, step, out_dir)
+    del step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7162,6 +7900,7 @@ def main():
 
     def mark(phase):
         marks.append((phase, time.perf_counter() - t_start))
+        print(f"  ({phase} starts at {marks[-1][1]:.1f}s)", flush=True)
 
     card = card_line()
     mark("1")
@@ -7169,9 +7908,20 @@ def main():
 
     mark("2")
     t = time.perf_counter()
+    # the CPU halves of phases 5 and 14 need no card: they run beside the
+    # build, whose nvcc processes leave most cores idle after the first
+    # ~20 s (one compile, flash_attention.cu, takes the rest)
+    halves = Background(lambda: (
+        agreement_cpu_half(torch, pa, mods),
+        ssm_agreement_cpu_half(torch, km, smods,
+                               make_prompts(gpt_medium().vocab_size))))
     logs = _build.build()
     print(f"[2] built {sorted(logs)} in {time.perf_counter() - t:.1f}s")
     phase_registers(logs, ln_main_labels(lk), scan_main_labels(sk))
+    gpt_half, ssm_halves = halves.result()
+    print(f"  the CPU halves of phases 5 and 14 (served beside the build) "
+          f"done at {time.perf_counter() - t:.1f}s", flush=True)
+    check_fast_device_events(torch)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     mark("3")
@@ -7200,7 +7950,7 @@ def main():
     mark("5")
     print("[5] 2-layer float32: card vs CPU greedy and sampled streams",
           flush=True)
-    phase_agreement(torch, pa, mods, prompts, state)
+    phase_agreement(torch, pa, mods, prompts, state, gpt_half)
 
     mark("6")
     print("[6] flash attention: kernels vs plain twins", flush=True)
@@ -7288,7 +8038,7 @@ def main():
     print("[14] 2-layer float32 SSM, pure and hybrid: card vs CPU greedy "
           "and sampled "
           "streams", flush=True)
-    phase_ssm_agreement(torch, km, smods, prompts)
+    phase_ssm_agreement(torch, km, smods, prompts, ssm_halves)
 
     mark("15")
     print("[15] the Paddle dygraph surface: GPT-medium bf16 as a Layer "
@@ -7327,7 +8077,6 @@ def main():
     data_path = phase_data_path(torch, km, vision["cifar"])
     prefetch_loop = phase_prefetch_loop(torch, km, tmods, state_1p3b,
                                         cfg_1p3b, bench["dots"])
-    del state_1p3b
 
     mark("20")
     print("[20] the legacy generation path: static-cache generate, the "
@@ -7342,14 +8091,27 @@ def main():
           "the SSM pair", flush=True)
     router_launches, router_scan = phase_front_door(torch, km, mods, smods,
                                                     state, prompts)
+
+    mark("22")
+    print("[22] the profiler on bench.py's stages: (a) 7c's steady loop "
+          "through the prefetch ring under Profiler + RecordEvent, the "
+          "metrics JSONL and the device-time probe; (b) GPT-medium served "
+          "under the Profiler; (c) forensics: a debug bundle, the "
+          "watchdog, dumps during a capture, nan / oom faults, "
+          "FLAGS_check_nan_inf", flush=True)
+    profiled = phase_profiler(torch, km, tmods, mods, state_1p3b, cfg_1p3b,
+                              state, prompts)
+    del state_1p3b
     # the new phases' launches, added to the main paths' counts
-    extra = {"ragged_paged_attention": legacy_launches + router_launches,
+    extra = {"ragged_paged_attention": legacy_launches + router_launches
+             + profiled["ragged_paged_attention"],
              "fused_pass2": data_path["launches"]["fused_pass2"]}
     extra.update({name + "_d128": prefetch_loop["launches"][name]
-                  for name, _ in FLASH_KERNELS})
-    extra.update({name: prefetch_loop["launches"][name]
+                  + profiled[name] for name, _ in FLASH_KERNELS})
+    extra.update({name: prefetch_loop["launches"][name] + profiled[name]
                   for name, _ in NORM_KERNELS + XENT_KERNELS})
-    extra[TREE_KERNEL[0]] = prefetch_loop["launches"][TREE_KERNEL[0]]
+    extra[TREE_KERNEL[0]] = prefetch_loop["launches"][TREE_KERNEL[0]] \
+        + profiled[TREE_KERNEL[0]]
 
     main_step = held["decode"]
     kernels = [{
@@ -7419,11 +8181,11 @@ def main():
         "ms": scan_main["ms"], "plain_ms": scan_main["plain_ms"],
         "bound_ms": scan_main["bound_ms"], "bound_by": scan_main["bound_by"],
         "library_ms": None})
-    mark("22")
+    mark("end")
     print("  seconds a phase (from its start to the next's): " + ", ".join(
         f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])),
         flush=True)
-    print(f"[22] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
+    print(f"[23] done in {time.perf_counter() - t_start:.1f}s (the smoke's "
           f"run time); paged "
           f"attention times are of the served decode step's layer-0 call, "
           f"flash times of the training shapes [8, 1024, 16, 64] (and, "

@@ -202,19 +202,18 @@ def get_flags(flags=None):
 
 
 def set_flags(flags):
-    """Set flags by name. FLAGS_check_nan_inf=True raises
-    NotImplementedError: the NaN/Inf check (framework/debug.py) waits
-    for ROADMAP.md's A.12."""
+    """Set flags by name. FLAGS_check_nan_inf arms (or disarms) the
+    NaN/Inf check of every eager op (framework/debug.py)."""
     import torch
     for k, v in dict(flags).items():
-        if k == "FLAGS_check_nan_inf" and v:
-            raise NotImplementedError(
-                "FLAGS_check_nan_inf: the NaN/Inf check of "
-                "framework/debug.py is not ported yet (ROADMAP.md, A.12)")
         if k == "FLAGS_cudnn_deterministic":
             torch.backends.cudnn.deterministic = True if v else False
-        else:
-            _FLAGS[k] = v
+            continue
+        _FLAGS[k] = v
+        if k == "FLAGS_check_nan_inf":
+            from .framework.debug import set_nan_inf_check
+            # (`bool` is paddle.bool in this module)
+            set_nan_inf_check(True if v else False)
 
 
 def set_printoptions(precision=None, threshold=None, edgeitems=None,

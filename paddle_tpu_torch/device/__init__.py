@@ -10,13 +10,13 @@ caller asks for it, with `set_device("cpu")` or `device="cpu"`, as the
 parity tests do.
 
 The memory stats read torch's caching allocator on a CUDA device
-(`torch.cuda.memory_stats`: what `torch.cuda.max_memory_allocated`
-reads too). On the CPU they keep the reference's documented answer: the
+(`torch.cuda.memory_stats_as_nested_dict`: the counters
+`torch.cuda.max_memory_allocated` reads, without their flattening). On the CPU they keep the reference's documented answer: the
 process's peak RSS for `max_memory_allocated`, 0 for the others.
 `max_memory_allocated` and `memory_allocated` set the
-`device.peak_bytes` / `device.bytes_in_use` gauges (profiler/monitor);
-the reference's "device.memory" span waits for profiler/statistic.py
-(ROADMAP.md, A.12). `Stream` and `Event` are torch.cuda's on a CUDA
+`device.peak_bytes` / `device.bytes_in_use` gauges (profiler/monitor),
+and `max_memory_allocated` records a "device.memory" span
+(profiler/statistic.py), as the reference's. `Stream` and `Event` are torch.cuda's on a CUDA
 device, and host-side shims on the CPU (an `Event` there takes the host
 clock when recorded, as the reference's does).
 """
@@ -170,22 +170,29 @@ def _stats_device(device):
 
 
 def _cuda_stat(device, key):
-    """A torch.cuda.memory_stats counter of a CUDA device, else None."""
+    """A torch.cuda.memory_stats counter of a CUDA device ("a.b.c"), else
+    None: read from the allocator's nested dict (memory_stats flattens
+    its ~100 keys in Python on every call)."""
     dev = _stats_device(device)
     if dev.type != "cuda":
         return None
-    return int(torch.cuda.memory_stats(dev).get(key, 0))
+    stats = torch.cuda.memory_stats_as_nested_dict(dev)
+    for part in key.split("."):
+        stats = stats.get(part, {})
+    return int(stats or 0)
 
 
 def max_memory_allocated(device=None):
     """Peak bytes held by live tensors since the start (or the last
     `torch.cuda.reset_peak_memory_stats`); the process's peak RSS on
     the CPU."""
-    from ..profiler import monitor
+    from ..profiler import monitor, statistic
+    t0 = time.perf_counter()
     peak = _cuda_stat(device, "allocated_bytes.all.peak")
     if peak is None:
         import resource
         peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    statistic.record_span("device.memory", time.perf_counter() - t0)
     monitor.gauge("device.peak_bytes").set(int(peak))
     return int(peak)
 

@@ -1,6 +1,6 @@
 """Framework core of the port. Counterpart:
 paddle_tpu/framework/__init__.py."""
-from . import dtype, io, random
+from . import debug, dtype, fault_injection, io, random
 from .core import (Tensor, Parameter, apply_op, no_grad, enable_grad,
                    set_grad_enabled, is_grad_enabled, to_tensor)
 from .dtype import (float16, bfloat16, float32, float64, int8, int16,

@@ -46,6 +46,7 @@ import torch
 from ..device import place_name, resolve_device
 from .dtype import convert_dtype, get_default_dtype, to_paddle_dtype
 from .. import amp as _amp
+from . import debug as _debug
 
 __all__ = ["Tensor", "Parameter", "apply_op", "no_grad", "enable_grad",
            "set_grad_enabled", "is_grad_enabled", "to_tensor", "unwrap",
@@ -542,11 +543,17 @@ def apply_op(fn, *tensors, n_outputs=None, op_name=None):
     op; when any output needs grad, every output is marked
     stop_gradient=False, as the reference marks them. With `op_name`,
     float inputs are first cast to the dtype the amp policy gives the op
-    (none while auto_cast is off)."""
+    (none while auto_cast is off). While FLAGS_check_nan_inf is armed,
+    each output goes through framework/debug.py `check_numerics` (named
+    `op_name`, else `fn`'s qualified name)."""
     args = [t.value if isinstance(t, Tensor) else t for t in tensors]
     if op_name is not None and _amp._state.enabled:
         args = _amp.cast_inputs(op_name, *args)
     out = fn(*args)
+    if _debug._nan_check_enabled[0]:  # FLAGS_check_nan_inf
+        for o in (out if isinstance(out, (tuple, list)) else (out,)):
+            _debug.check_numerics(
+                o, op_name or getattr(fn, "__qualname__", "op"))
     if isinstance(out, (tuple, list)):
         rec = any(isinstance(o, torch.Tensor) and o.requires_grad
                   for o in out)

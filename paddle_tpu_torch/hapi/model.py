@@ -27,10 +27,13 @@ its compiled step:
   the user set stays) and takes it back before an evaluation and when
   fit returns, so the loader never pins a dropped step.
 
+Each epoch's end publishes the rank's skew telemetry
+(`dist_observatory.emit_rankstat`, a `kind:"rankstat"` record), as the
+reference's does.
+
 Not ported yet: `fit(resume=)` (checkpoints and the elastic controller,
 ROADMAP.md queue A, item A.13) and `save(training=False)` (`jit.save`,
-A.14) raise NotImplementedError; the reference's epoch-end
-`dist_observatory.emit_rankstat` waits for A.12.
+A.14) raise NotImplementedError.
 """
 import os
 import warnings
@@ -40,6 +43,7 @@ import torch
 
 from ..framework.core import Tensor, no_grad, unwrap
 from ..io import DataLoader
+from ..profiler import dist_observatory as _dobs
 from . import callbacks as cb_mod
 
 __all__ = ["Model"]
@@ -279,8 +283,12 @@ class Model:
                 micro = []
             if "loss" in logs:  # the epoch's end: the deliberate read
                 logs["loss"] = _resolve_scalars(logs["loss"])
-            # the reference publishes its rank's skew telemetry here
-            # (profiler/dist_observatory.py emit_rankstat): ROADMAP.md A.12
+            if step > 0:
+                # the epoch's end: this rank's skew telemetry, even when
+                # the epoch was shorter than the rankstat cadence (host
+                # arithmetic, no device read)
+                _dobs.emit_rankstat(
+                    step=getattr(self._train_step, "_step_i", steps_done))
             if getattr(self._train_step, "monitor_health", False):
                 health = self._train_step.flush_health()
                 if health:

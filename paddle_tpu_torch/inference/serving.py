@@ -117,6 +117,7 @@ from ..profiler import flight_recorder as _flight
 from ..profiler import mem_observatory as _mobs
 from ..profiler import monitor as _monitor
 from ..profiler import serve_observatory as _obs
+from ..profiler import statistic as _stat
 from .cache_strategy import strategy_of
 from .speculative import SpeculativeConfig, accept_length
 
@@ -313,7 +314,7 @@ class _Bucket:
     __slots__ = ("fn", "graph", "inputs", "outputs", "capture_s",
                  "replays")
 
-    def __init__(self, fn, specs, device, state):
+    def __init__(self, fn, specs, device, state, tag=None):
         self.fn, self.graph, self.outputs = fn, None, None
         self.inputs = [torch.zeros(shape, dtype=dtype, device=device)
                        for shape, dtype in specs]
@@ -322,7 +323,9 @@ class _Bucket:
         if device.type == "cuda":
             t = time.perf_counter()
             self.graph, self.outputs, _ = capture_graph(
-                state, lambda: fn(*self.inputs))
+                state, lambda: fn(*self.inputs), tag=tag,
+                static={"specs": tuple((tuple(sh), str(dt))
+                                       for sh, dt in specs)})
             self.capture_s = time.perf_counter() - t
 
     def run(self, cols):
@@ -718,7 +721,8 @@ class InferenceEngine(_SchedulerLifecycle):
             entry = self._exec.get(sig)
             if entry is not None:
                 return entry, False
-            entry = _Bucket(self._fn, specs, self.device, self._graphs)
+            entry = _Bucket(self._fn, specs, self.device, self._graphs,
+                            tag=f"serve.{self.name}.batch{specs[0][0][0]}")
             self._exec[sig] = entry
             self.retraces += 1
         return entry, True
@@ -864,7 +868,11 @@ class InferenceEngine(_SchedulerLifecycle):
             cols.append(np.ascontiguousarray(col))
         entry, _ = self._ensure_compiled(
             [(c.shape, torch.from_numpy(c[:0]).dtype) for c in cols])
-        out = entry.run(cols)
+        _stat.begin_span("serve.batch")
+        try:
+            out = entry.run(cols)
+        finally:
+            _stat.end_span()
         single = not isinstance(out, (list, tuple))
         outs = [out] if single else list(out)
         event = None
@@ -1856,9 +1864,21 @@ class GenerationEngine(_SchedulerLifecycle):
                 top_ks[i] = sp.top_k or 0
                 top_ps[i] = 1.0 if sp.top_p is None else sp.top_p
                 keys[i] = s.key
-        out = self.model.paged_ragged_step(
-            self.cache, rows, pad_to_tokens=pad_t, pad_to_rows=pad_b,
-            sampling=(temps, top_ks, top_ps, keys), return_per_token=spec_on)
+        _stat.begin_span("serve.batch")  # the step's host dispatch
+        try:
+            out = self.model.paged_ragged_step(
+                self.cache, rows, pad_to_tokens=pad_t, pad_to_rows=pad_b,
+                sampling=(temps, top_ks, top_ps, keys),
+                return_per_token=spec_on)
+        except RuntimeError as e:
+            if _mobs.is_oom(e):
+                # allocator exhaustion mid-step: the memory observatory's
+                # forensics (the KV pool is usually the top holder)
+                # before the scheduler's crash path sees it
+                raise _mobs.oom_error(e, site="serve.ragged_step") from e
+            raise
+        finally:
+            _stat.end_span()
         # the step's one device-to-host read: int32s, per token on a
         # speculative engine (the verify lane), else per row
         toks = out[2 if spec_on else 1].cpu().tolist()

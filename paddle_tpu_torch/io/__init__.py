@@ -23,9 +23,9 @@ passes its step's `input_sharding`, `set_batch_sharding` sets one by
 hand); its batches are assembled on the host and the ring makes the one
 copy to the card. The legacy loaders `DataLoader.from_generator` /
 `from_dataset` are `_GeneratorLoader`. Each batch's host wait lands in
-the `dataloader.wait_s` histogram and the `dataloader.batches` counter
-(profiler/monitor.py); the reference's `dataloader.next` span waits for
-profiler/statistic.py (ROADMAP.md queue A, item A.12).
+the `dataloader.next` span (profiler/statistic.py), the
+`dataloader.wait_s` histogram and the `dataloader.batches` counter
+(profiler/monitor.py).
 """
 import bisect
 import itertools
@@ -38,6 +38,7 @@ import torch
 
 from ..framework.core import Tensor
 from ..profiler import monitor as _monitor
+from ..profiler import statistic as _stat
 
 __all__ = ["Dataset", "IterableDataset", "TensorDataset", "ChainDataset",
            "ComposeDataset", "ConcatDataset", "Subset", "random_split",
@@ -461,7 +462,9 @@ class DataLoader:
                 batch = next(inner)
             except StopIteration:
                 return
-            wait.observe(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            _stat.record_span("dataloader.next", dt)
+            wait.observe(dt)
             count.inc()
             yield batch
 

@@ -31,20 +31,24 @@ or a device; on one card `TrainStep.input_sharding` returns None.
 Telemetry (profiler/monitor.py): the `prefetch.h2d_bytes` counter counts
 real host-to-device traffic only (not the free pass-throughs), the
 `prefetch.depth` gauge the ring's fill level (a gauge pinned at 0 means
-the consumer is data-bound). The reference's `prefetch.h2d` span and
-its memory-observatory registration of the staged batches wait for the
-profiler's statistic.py and mem_observatory.py (ROADMAP.md queue A, item
-A.12).
+the consumer is data-bound); the `prefetch.h2d` span (profiler/
+statistic.py) the host seconds of staging a batch (issuing its copies),
+and the memory observatory's `prefetch` tag the staged batch's tensors
+(per-tensor weakrefs: the bytes fall to zero once the consumer drops
+them).
 """
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..framework.core import Tensor, _wrap
+from ..profiler import mem_observatory as _mobs
 from ..profiler import monitor as _monitor
+from ..profiler import statistic as _stat
 
 __all__ = ["DevicePrefetchRing", "device_prefetch_iterator"]
 
@@ -87,6 +91,7 @@ class DevicePrefetchRing:
                     batch = next(it)
                 except StopIteration:
                     break
+                t0 = time.perf_counter()
                 if self._stream is None:
                     item = (self._stage(batch), None)
                 else:
@@ -95,6 +100,8 @@ class DevicePrefetchRing:
                         event = torch.cuda.Event()
                         event.record(self._stream)
                     item = (staged, event)
+                _stat.record_span("prefetch.h2d", time.perf_counter() - t0)
+                _mobs.register_arrays("prefetch", _tensors(item[0]))
                 if not self._offer(item):
                     return
                 _monitor.gauge("prefetch.depth").set(self._q.qsize())
@@ -209,3 +216,17 @@ def device_prefetch_iterator(source, depth=2, sharding_fn=None):
             yield batch
     finally:
         ring.close()
+
+
+def _tensors(x):
+    """The torch tensors of a staged batch (the memory observatory's
+    `prefetch` tag)."""
+    if isinstance(x, Tensor):
+        return [x.value]
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    return []

@@ -50,6 +50,7 @@ import collections
 import gc
 import math
 import os
+import threading
 import time
 import warnings
 
@@ -57,19 +58,28 @@ import numpy as np
 import torch
 
 from .. import amp as _amp
+from .. import device as _device
+from ..framework import debug as _debug
+from ..framework import fault_injection as _fault
 from ..framework.core import paddle_io
 from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByValue,
                        clip_grads_tree, global_grad_norm)
-from ..ops.kernels import (captured_constants, captured_launches,
-                           tables_set_aside)
+from ..ops.kernels import (capture_guard, captured_constants,
+                           captured_launches, tables_set_aside)
 from ..ops.kernels.tree_update import SCAL_WORDS, scalar_rows
+from ..profiler import compile_observatory as _observatory
 from ..profiler import cost as _cost
+from ..profiler import dist_observatory as _dobs
+from ..profiler import flight_recorder as _flight
+from ..profiler import mem_observatory as _mobs
 from ..profiler import monitor as _monitor
+from ..profiler import statistic as _stat
 from ..profiler.health import AnomalyDetector
+from . import warm as _warm
 from .scalars import StepScalars
-from .warm import WarmHandle, done_handle
 
-__all__ = ["TrainStep", "epilogue_leaf_meta"]
+__all__ = ["TrainStep", "epilogue_leaf_meta", "export_step_metrics",
+           "device_probe_open", "device_probe_close", "fire_step_faults"]
 
 HEALTH_KEYS = ("loss", "grad_norm", "param_norm", "update_ratio",
                "found_inf")
@@ -105,6 +115,205 @@ def epilogue_leaf_meta(named, optimizer):
             None if all(v == 1.0 for v in ls.values()) else ls)
 
 
+def _step_arg_names(n_batch):
+    """Forensics labels of a program's batch tensors (the signature the
+    compilation observatory keeps: the batch, not the state)."""
+    return tuple(f"batch{i}" for i in range(n_batch))
+
+
+def device_probe_open(step_obj, step_i):
+    """Open the device-time probe's window for this step, or None when it
+    is not due (one int modulo: dist_observatory.device_probe_due,
+    PADDLE_TPU_DEVICE_TIME_EVERY). On the card a timing CUDA event is
+    recorded on the step's stream before the step's work (it completes
+    once the previous step's work has, so the window is this step's
+    device time, the pipeline excluded); on the CPU the host clock."""
+    if not _dobs.device_probe_due(step_i):
+        return None
+    start = end = None
+    if step_obj._device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    return time.perf_counter(), _dobs.eager_wait_s(), start, end
+
+
+def device_probe_close(step_obj, step_i, window, info, compiled_now=False):
+    """Close the probe's window: on the card record the end event after
+    the step's work and wait for it (the probe's one wait, on its
+    cadence only; no other step reads the device), the window being the
+    events' elapsed time; hand it to the distributed observatory
+    (step_time_device_s / mfu_measured / overlap_fraction, carried by
+    this step's record). A step that captured its program records
+    nothing (the window would time the capture)."""
+    if window is None or compiled_now:
+        return None
+    t0, wait0, start, end = window
+    drain = 0.0
+    if start is not None:
+        end.record()
+        t = time.perf_counter()
+        end.synchronize()
+        drain = time.perf_counter() - t
+        dt = start.elapsed_time(end) / 1e3
+    else:
+        dt = time.perf_counter() - t0
+    return _dobs.record_device_time(step_obj, step_i, dt, info,
+                                    coll_wait0=wait0, drain_s=drain)
+
+
+def export_step_metrics(step, dispatch_s, info, compiled_now):
+    """Per-step telemetry of a TrainStep (the reference's): the
+    `train.step_s` histogram, the cost tally's FLOPs / MFU gauges, and
+    one `kind:"step"` record (tools/check_metrics_schema.py), ringed in
+    the flight recorder always and written to PADDLE_TPU_METRICS_FILE
+    when set; then the rankstat and memory cadences.
+
+    step_time_s is the host time since the previous step's dispatch
+    returned: with replays queued back to back it converges on the
+    device's step time. A step that captured its program, and the step
+    after a probe (whose wait drained the queue), fall back to their own
+    dispatch time less the capture. A probed step subtracts the probe's
+    own wait and carries the probe's measured device time."""
+    now = time.perf_counter()
+    prev = getattr(step, "_last_step_end", None)
+    step._last_step_end = now
+    compile_s = float(info.get("compile_s", 0.0)) if compiled_now else 0.0
+    probe = getattr(step, "_last_device_probe", None)
+    if probe is not None and probe.get("step") != int(step._step_i):
+        probe = None
+    prev_drained = getattr(step, "_probe_drained", False)
+    step._probe_drained = probe is not None
+    if probe is not None and prev is not None:
+        step_time = max(now - prev - probe.get("probe_drain_s", 0.0), 0.0)
+        steady = True
+    else:
+        steady = prev is not None and not compiled_now \
+            and not prev_drained and probe is None
+        if steady:
+            step_time = now - prev
+        else:
+            step_time = max(dispatch_s - compile_s, 0.0)
+    flops = float(info.get("flops", 0.0))
+    m = _cost.mfu(flops, step_time) if steady else 0.0
+    if not (prev_drained and probe is None):
+        _monitor.histogram("train.step_s").observe(step_time)
+    _monitor.gauge("train.flops_per_step").set(flops)
+    _monitor.gauge("train.bytes_per_step").set(float(info.get("bytes", 0.0)))
+    _monitor.gauge("train.mfu").set(m)
+    rec = {
+        "step": int(step._step_i),
+        "step_time_s": float(step_time),
+        "compile_s": float(compile_s),
+        "cache_hit": bool((not compiled_now) or info.get("cache_hit", False)),
+        "peak_bytes": int(_device.max_memory_allocated(step._device)),
+        "flops": flops,
+        "mfu": float(m)}
+    # the fused epilogue's share: epilogue_bytes the two passes' bytes
+    # (FusedEpilogue.bytes_per_step) over the program's measured bytes
+    eb = int(getattr(step, "_epilogue_bytes", 0) or 0)
+    if eb:
+        total_b = float(info.get("bytes", 0.0))
+        share = min(eb / total_b, 1.0) if total_b > 0 else 0.0
+        rec["epilogue_bytes"] = eb
+        rec["epilogue_share"] = float(share)
+        _monitor.gauge("train.epilogue_share").set(float(share))
+        if steady:
+            _stat.record_span("update.epilogue", step_time * share)
+    if probe is not None:
+        rec["step_time_device_s"] = probe["step_time_device_s"]
+        rec["mfu_measured"] = probe["mfu_measured"]
+        rec["overlap_fraction"] = probe["overlap_fraction"]
+    _monitor.export_step(rec)
+    _dobs.maybe_rankstat(int(step._step_i))
+    _mobs.maybe_memory(int(step._step_i), source="train")
+
+
+def fire_step_faults(step_obj, batch):
+    """The `train.step` fault site (framework/fault_injection.py) every
+    dispatch passes: hard actions (kill, delay, ...) run inside fire();
+    the soft `nan` writes NaN into the first floating batch tensor (a new
+    tensor of its shape, which a replay copies into the program's static
+    batch buffer: nothing is captured again), so the whole gradient goes
+    non-finite; the soft `oom` arms a flag the dispatch raises as a
+    synthetic allocator exhaustion from inside its try block. Returns the
+    (possibly poisoned) batch."""
+    acts = _fault.fire("train.step")
+    if not acts:
+        return batch
+    if "oom" in acts:
+        step_obj._oom_fault = True
+    if "nan" not in acts:
+        return batch
+    out = list(batch)
+    for i, b in enumerate(out):
+        if b.is_floating_point():
+            out[i] = torch.full_like(b, float("nan"))
+            return tuple(out)
+    raise ValueError(
+        "nan@train.step fault needs at least one floating-point batch "
+        "input to poison (integer-id models: inject at the loss level or "
+        "use a float-input model in the drill)")
+
+
+def _aligned(t, align=256):
+    """A tensor's bytes rounded up to `align` (its slice's start in the
+    pinned arena stays aligned for every dtype)."""
+    n = t.numel() * t.element_size()
+    return (n + align - 1) // align * align
+
+
+class _PinnedLease:
+    """A pinned host buffer lent to one capture's saved state; `release`
+    records an event on the current stream, which the next lease waits
+    for (the copies into and out of the buffer are asynchronous)."""
+
+    def __init__(self, arena, buffer, owned):
+        self.arena, self.buffer, self._owned = arena, buffer, owned
+
+    def release(self):
+        if not self._owned:
+            return
+        self._owned = False
+        if torch.cuda.is_initialized():
+            self.arena.done = torch.cuda.Event()
+            self.arena.done.record()
+        self.arena.lock.release()
+
+
+class _PinnedArena:
+    """A TrainStep's pinned host buffer for its pre-capture state copies,
+    grown to the largest state that step has saved and reused by its
+    later captures (a pinned allocation costs about a second a few GB; a
+    pageable copy waits on every tensor). It is the step's state in page-
+    locked host memory (GPT-1.3B with bench.py's Momentum: the bf16
+    parameters and the velocity, ~5.3 GB) and is freed with the step. A
+    second capture under way on another thread gets a buffer of its
+    own."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.buffer = None
+        self.done = None
+
+    def lease(self, nbytes):
+        nbytes = max(int(nbytes), 1)
+        if not torch.cuda.is_initialized() or \
+                not self.lock.acquire(blocking=False):
+            pin = torch.cuda.is_initialized()
+            return _PinnedLease(self, torch.empty(
+                nbytes, dtype=torch.uint8, pin_memory=pin), False)
+        if self.done is not None:
+            self.done.synchronize()  # the last lease's copies are done
+            self.done = None
+        if self.buffer is None or self.buffer.numel() < nbytes:
+            self.buffer = None
+            self.buffer = torch.empty(nbytes, dtype=torch.uint8,
+                                      pin_memory=True)
+        return _PinnedLease(self, self.buffer, True)
+
+
+
 class _Program:
     """One signature's program of a TrainStep: on the card a CUDA graph,
     its static inputs (the batch is copied in before each replay) and
@@ -119,7 +328,8 @@ class _Program:
     run's cost and seconds only."""
 
     __slots__ = ("kind", "count", "graph", "inputs", "outputs", "launches",
-                 "constants", "info", "cost", "counted", "replays", "amp")
+                 "constants", "info", "cost", "counted", "replays", "amp",
+                 "__weakref__")
 
     def __init__(self, kind, count):
         self.kind, self.count = kind, count
@@ -146,6 +356,24 @@ class _Program:
     def set_cost(self, cost):
         self.cost = cost
         self.info.update(flops=cost["flops"], bytes=cost["bytes accessed"])
+
+    def as_text(self):
+        """The program's description (what `TrainStep.compiled_text`
+        lists, and a debug bundle writes): its graph's replays, capture
+        and pool, and the kernel launches its capture recorded."""
+        if self.graph is None:
+            return (f"{_TAGS[self.kind]}: no CUDA graph (the CPU runs the "
+                    f"body eagerly); {self.info.get('compile_s', 0.0):.3f}"
+                    " s first run\n")
+        lines = [f"graph 0: {self.replays} replays, capture "
+                 f"{self.info['capture_s']:.3f} s after a "
+                 f"{self.info['warm_s']:.3f} s eager run, pool "
+                 f"{self.info['pool_bytes'] / 2**20:.1f} MiB added"]
+        for wrapper, n in sorted(self.launches.items(),
+                                 key=lambda kv: kv[0].__name__):
+            lines.append(f"  {wrapper.__module__}.{wrapper.__name__}:"
+                         f" {n} launches")
+        return "\n".join(lines) + "\n"
 
 
 class TrainStep:
@@ -276,11 +504,24 @@ class TrainStep:
         self.last_compile_s = 0.0
         self._graphs = {kind: {} for kind in _TAGS}
         self._pool = self._side = None
+        self._pinned = _PinnedArena()
         self.monitor_health = bool(monitor_health)
         self._health_pending = collections.deque()
         self.health_log = []
         self.last_health = None
         self.anomalies = AnomalyDetector() if self.monitor_health else None
+        self._oom_fault = False
+        # the memory observatory's tags: getters (the step held weakly)
+        # that read the current stores at report time
+        _mobs.register("params", self, lambda s: list(s.params.values()))
+        _mobs.register("opt_state", self, lambda s: s._opt_tensors())
+        self._epilogue_bytes = 0
+        if self._fused is not None:
+            self._epilogue_bytes = self._fused.bytes_per_step(
+                scaling=self._scaling(),
+                need_norm=self.monitor_health or isinstance(
+                    optimizer._grad_clip, ClipGradByGlobalNorm),
+                master_keys=set(self._opt_store["masters"]))
 
     def _build_fused(self, fused_update):
         """The FusedEpilogue for this (optimizer, clip, params) config,
@@ -343,6 +584,20 @@ class TrainStep:
         if self._fused is not None:
             return self._fused.state_view(self._opt_store)
         return self._opt_store
+
+    def _opt_tensors(self):
+        """The optimizer state's tensors (the flat stores on the fused
+        path, each leaf's state and master on the tree path)."""
+        if self._fused is not None:
+            out = [t for m in self._opt_store["moments"] for t in m.values()]
+            return out + list(self._opt_store["masters"].values())
+        out = []
+        for leaf in self._opt_store.values():
+            if isinstance(leaf, dict):
+                out += [leaf["master"], *leaf["state"]]
+            else:
+                out += list(leaf)
+        return out
 
     @property
     def scaler_state(self):
@@ -510,22 +765,83 @@ class TrainStep:
     def _dispatch(self, kind, count, batch, data_per_step=False,
                   eager=False):
         """Write the call's scalars, run its program (eagerly with
-        `eager`), advance the step index and queue the health vectors;
-        returns the loss ([n] losses for run_steps)."""
+        `eager`) under its span (`train.step`, `train.run_steps`,
+        `train.accumulate`), advance the step index, queue the health
+        vectors, then the step telemetry (the reference's: heartbeat,
+        the `train.step` fault site, the OOM forensics at this choke
+        point, the device-time probe on its cadence, the `kind:"step"`
+        record, or `kind:"scan"` for run_steps); returns the loss ([n]
+        losses for run_steps). Telemetry never changes what the step
+        computes."""
         steps = count if kind == "run_steps" else 1
         first = self._step_i + 1
+        tag = _TAGS[kind]
+        if _fault.active():  # fault drills only; two dict reads when off
+            batch = fire_step_faults(self, batch)
+        probe = device_probe_open(self, first) \
+            if kind != "run_steps" else None
         self._write_scalars(kind, count, first)
-        if eager:
-            out = self._body(kind, count, batch, data_per_step)
-        else:
-            out = self._run(kind, count, batch, data_per_step)
+        _flight.heartbeat(first)  # the watchdog's liveness pulse
+        _stat.begin_span(tag)
+        try:
+            try:
+                if self._oom_fault:
+                    # oom@train.step: the synthetic exhaustion raised from
+                    # inside the real dispatch, so the forensics below
+                    # are the path tested
+                    self._oom_fault = False
+                    raise torch.cuda.OutOfMemoryError(
+                        "CUDA out of memory. Tried to allocate 8.00 GiB "
+                        "(injected: oom@train.step)")
+                if eager:
+                    out = self._body(kind, count, batch, data_per_step)
+                    prog, compiled_now = None, False
+                else:
+                    out, prog, compiled_now = self._run(
+                        kind, count, batch, data_per_step)
+            except RuntimeError as e:
+                if _mobs.is_oom(e):
+                    raise _mobs.oom_error(e, site=tag) from e
+                raise
+        finally:
+            dispatch_s = _stat.end_span()
         self._step_i += steps
         loss, vec = out
         if vec is not None:
             rows = [vec] if vec.dim() == 1 else list(vec)
             for i, v in enumerate(rows):
                 self._queue_health(first + i, v)
+        if _debug.jit_nan_checks_enabled():
+            self._check_loss(loss, tag)
+        if eager:
+            return loss
+        info = prog.info
+        if kind == "run_steps":
+            dt = dispatch_s - (info["compile_s"] if compiled_now else 0.0)
+            dt = max(dt, 0.0)
+            _monitor.histogram("train.run_steps_s").observe(dt)
+            _monitor.export_step({"steps": count, "dispatch_s": float(dt),
+                                  "flops": float(info.get("flops", 0.0))},
+                                 kind="scan")
+            return loss
+        device_probe_close(self, self._step_i, probe, info,
+                           compiled_now=compiled_now)
+        export_step_metrics(self, dispatch_s, info, compiled_now)
         return loss
+
+    def _check_loss(self, loss, tag):
+        """enable_jit_nan_checks' read of the step's loss (a device read
+        a step, only while armed): a non-finite loss is flight-recorded
+        as `nan_detected`, dumped as a bundle and raised."""
+        if bool(torch.isfinite(loss).all()):
+            return
+        err = FloatingPointError(
+            f"a non-finite loss in the {tag} program at step "
+            f"{self._step_i}: {loss.tolist()}")
+        _flight.record_event("nan_detected", where=tag,
+                             step=int(self._step_i), error=str(err)[:300])
+        _flight.dump("nan", exc=err)
+        raise err
 
     def _write_scalars(self, kind, count, first):
         lr = self._lr()
@@ -548,19 +864,11 @@ class TrainStep:
         forward updates in place) (and the grad buckets and the scalars
         block with `with_grads`)."""
         if self._fused is not None:
-            out = list(self._params_store.values())
-            for m in self._opt_store["moments"]:
-                out += list(m.values())
-            out += list(self._opt_store["masters"].values())
+            out = list(self._params_store.values()) + self._opt_tensors()
             if with_grads:
                 out += list(self._grad_store.values())
         else:
-            out = list(self._named.values())
-            for leaf in self._opt_store.values():
-                if isinstance(leaf, dict):
-                    out += [leaf["master"], *leaf["state"]]
-                else:
-                    out += list(leaf)
+            out = list(self._named.values()) + self._opt_tensors()
         out += list(self._scaler_state.values())
         out += [b for b in self.model.buffers() if b is not None]
         if with_grads:
@@ -568,10 +876,13 @@ class TrainStep:
         return out
 
     def _run(self, kind, count, batch, data_per_step):
+        """The signature's program run for this call: (outputs, program,
+        whether this call made it)."""
         cache = self._graphs[kind]
         sig = self._signature(count, batch, data_per_step)
         prog = cache.get(sig)
-        if prog is None:
+        compiled_now = prog is None
+        if compiled_now:
             prog, out = self._capture(kind, count, batch, data_per_step,
                                       real=True)
             cache[sig] = prog
@@ -582,7 +893,7 @@ class TrainStep:
         else:
             out = prog.replay(batch)
         self._count_use(prog)
-        return out
+        return out, prog, compiled_now
 
     def _count_use(self, prog):
         """Fold a program's warm-up and capture seconds into retraces /
@@ -609,14 +920,34 @@ class TrainStep:
             self._side = torch.cuda.Stream(self._device)
             self._pool = torch.cuda.graph_pool_handle()
         saved = self._save_state() if cuda or not real else None
+        try:
+            return self._capture_saved(prog, kind, count, batch,
+                                       data_per_step, real, saved)
+        finally:
+            if saved is not None:
+                saved[2].release()
+
+    def _capture_saved(self, prog, kind, count, batch, data_per_step, real,
+                       saved):
+        cuda = self._device.type == "cuda"
+        tag = _TAGS[kind]
+        sig = _observatory.abstract_signature(batch, static={
+            "count": count, "data_per_step": bool(data_per_step),
+            "monitor_health": self.monitor_health,
+            "scaling": self._scaling(),
+            "switches": tuple(os.environ.get(k) for k in _SWITCHES)})
+        sig_key, _ = _observatory.compile_started(
+            tag, sig, arg_names=_step_arg_names(len(batch)))
         t0 = time.perf_counter()
         try:
             with tables_set_aside():
-                out = self._measured_run(prog, kind, count, batch,
-                                         data_per_step)
+                with _stat.span("jit.trace_lower"):
+                    out = self._measured_run(prog, kind, count, batch,
+                                             data_per_step)
                 t1 = time.perf_counter()
                 if cuda:
-                    self._record_graph(prog, batch, data_per_step)
+                    with _stat.span("jit.compile"):
+                        self._record_graph(prog, batch, data_per_step)
         except BaseException:
             if cuda:
                 captured_constants(self._side)  # the failed capture's
@@ -630,7 +961,14 @@ class TrainStep:
             self._restore_state(saved)
             out = None
         prog.info.update(warm_s=t1 - t0, capture_s=t2 - t1,
-                         compile_s=t2 - t0)
+                         compile_s=t2 - t0, cache_hit=False)
+        _monitor.counter("jit.retraces").inc()
+        _monitor.counter("jit.cache_miss").inc()
+        _monitor.histogram("jit.compile_s").observe(t2 - t0)
+        _flight.register_executable(tag, prog)
+        _observatory.record_compile(
+            tag, sig, sig_key, t1 - t0, t2 - t1, False, prog,
+            cost=prog.cost, arg_names=_step_arg_names(len(batch)))
         return prog, out
 
     def _end_failed_capture(self):
@@ -681,8 +1019,9 @@ class TrainStep:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         side.wait_stream(cur)
-        with torch.cuda.graph(graph, pool=self._pool, stream=side,
-                              capture_error_mode="thread_local"):
+        with capture_guard(), torch.cuda.graph(
+                graph, pool=self._pool, stream=side,
+                capture_error_mode="thread_local"):
             prog.outputs = self._body(prog.kind, prog.count, prog.inputs,
                                       data_per_step)
         cur.wait_stream(side)
@@ -694,17 +1033,40 @@ class TrainStep:
     def _save_state(self):
         """Host copies of the state an eager run changes: every state
         tensor (on the host, so that a capture's peak memory is the
-        steady state's) and the Dropout generators' states."""
-        with torch.no_grad():
-            return ([t.detach().to("cpu", copy=True)
-                     for t in self._state_tensors()],
-                    [g.get_state() for g in _dropout_generators(self.model)])
+        steady state's) and the Dropout generators' states, and the lease
+        of the host memory they live in (released when the capture is
+        done). CUDA tensors are copied into slices of the step's pinned
+        arena (`_PinnedArena`) on the current stream without a wait:
+        the eager run is ordered after them (its side stream waits for
+        the current one)."""
+        tensors = self._state_tensors()
+        cuda = [t for t in tensors if t.is_cuda]
+        lease = self._pinned.lease(sum(_aligned(t) for t in cuda))
+        try:
+            with torch.no_grad():
+                copies, off = [], 0
+                for t in tensors:
+                    if t.is_cuda:
+                        n = t.numel() * t.element_size()
+                        c = lease.buffer[off:off + n].view(t.dtype).view(
+                            t.shape)
+                        c.copy_(t, non_blocking=True)
+                        off += _aligned(t)
+                    else:
+                        c = t.detach().clone()
+                    copies.append(c)
+        except BaseException:
+            lease.release()
+            raise
+        return (copies,
+                [g.get_state() for g in _dropout_generators(self.model)],
+                lease)
 
     def _restore_state(self, saved):
-        tensors, gens = saved
+        tensors, gens, _ = saved
         with torch.no_grad():
             for t, s in zip(self._state_tensors(), tensors):
-                t.copy_(s)
+                t.copy_(s, non_blocking=True)
         for g, st in zip(_dropout_generators(self.model), gens):
             g.set_state(st)
 
@@ -881,22 +1243,20 @@ class TrainStep:
         return self._warm("accumulate", k, batch)
 
     def _warm(self, kind, count, batch, data_per_step=False):
-        tag = _TAGS[kind]
-        t = time.perf_counter()
         cache = self._graphs[kind]
         sig = self._signature(count, batch, data_per_step)
         prog = cache.get(sig)
         if prog is not None:
-            return done_handle(tag, (prog, prog.info))
-        handle = WarmHandle(tag, submit_ts=t)
-        try:
-            prog = self._warm_program(kind, count, batch, data_per_step)
-            cache[sig] = prog
-        except Exception as e:
-            handle._finish(None, e)
-            raise
-        handle._finish((prog, prog.info), None)
-        return handle
+            return _warm.done_handle(_TAGS[kind], (prog, prog.info))
+
+        def thunk():
+            new = self._warm_program(kind, count, batch, data_per_step)
+            return new, new.info
+
+        def install(entry):
+            cache.setdefault(sig, entry[0])
+        return _warm.submit_cached(cache, sig, _TAGS[kind], thunk,
+                                   install=install)
 
     def _warm_program(self, kind, count, batch, data_per_step):
         """A new program of a signature that no call has run: made by
@@ -951,15 +1311,7 @@ class TrainStep:
         elif prog is None or prog.graph is None:
             lines.append("no graph captured for this signature yet")
         else:
-            lines.append(f"graph 0: {prog.replays} replays, capture "
-                         f"{prog.info['capture_s']:.3f} s after a "
-                         f"{prog.info['warm_s']:.3f} s eager run, pool "
-                         f"{prog.info['pool_bytes'] / 2**20:.1f} MiB "
-                         "added")
-            for wrapper, n in sorted(prog.launches.items(),
-                                     key=lambda kv: kv[0].__name__):
-                lines.append(f"  {wrapper.__module__}.{wrapper.__name__}:"
-                             f" {n} launches")
+            return "\n".join(lines) + "\n" + prog.as_text()
         return "\n".join(lines) + "\n"
 
     # -- health --------------------------------------------------------------

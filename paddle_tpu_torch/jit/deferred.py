@@ -5,9 +5,9 @@ each batch's loss: a Paddle Tensor over the device value that, on the
 card, starts the value's copy to pinned host memory behind a CUDA event
 when it is made, so that reading it later (`float()`, `.item()`,
 `.numpy()`, `resolve()`) waits at most for what is still in flight. The
-first read resolves it, once; the seconds the host waited land in the
-`host.blocked_s` histogram (profiler/monitor.py; the reference's
-`host.block` span waits for profiler/statistic.py, ROADMAP.md A.12).
+first read resolves it, once; the seconds the host waited are recorded
+as the `host.block` span (profiler/statistic.py) and in the
+`host.blocked_s` histogram (profiler/monitor.py, `host_blocked_s()`).
 """
 import time
 
@@ -15,6 +15,7 @@ import torch
 
 from ..framework.core import Tensor, _wrap, unwrap
 from ..profiler import monitor as _monitor
+from ..profiler import statistic as _stat
 
 __all__ = ["DeferredLoss"]
 
@@ -42,8 +43,9 @@ class DeferredLoss(Tensor):
                 self._resolved = _wrap(self._host).numpy()
             else:
                 self._resolved = super().numpy()
-            _monitor.histogram("host.blocked_s").observe(
-                time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            _stat.record_span("host.block", dt)
+            _monitor.histogram("host.blocked_s").observe(dt)
         return self._resolved
 
     def item(self, *args):

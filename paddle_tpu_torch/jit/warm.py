@@ -1,19 +1,35 @@
-"""Handles of the train step's warm-ups and the join of a warm set.
+"""The warm pipeline: single-flight captures, their handles and the
+join of a warm set.
 
-Counterpart: paddle_tpu/jit/warm.py `WarmHandle`, `done_handle` and
-`join`. The reference compiles in the background, on a thread pool, and
-its handles resolve when XLA is done. A CUDA graph is captured on the
-calling thread's stream, so the port captures at the call: every handle
+Counterpart: paddle_tpu/jit/warm.py, whole. The reference compiles in
+the background, on a thread pool, and its handles resolve when XLA is
+done. A CUDA graph is captured on the calling thread's stream, so the
+port runs every thunk on the calling thread: `submit` and
+`submit_cached` keep the reference's single-flight table, keyed by
+(owner, signature), and its handle API, and return a handle that is
+already done (ROADMAP.md section C lists this difference); `workers()`
+is 1 and `shutdown()` has no executor to stop. The entry of a handle
 that `TrainStep.warm`, `warm_run_steps` and `warm_accumulate` return is
-already done (ROADMAP.md section C lists this difference). Their entry is
 (the captured program, its info dict), as the reference's is (the
-compiled executable, its info).
+compiled executable, its info). Metrics: `warm.submitted` /
+`warm.joined` counters, `warm.inflight` gauge, `warm.wall_s` histogram.
 """
+import threading
 import time
 
 from ..profiler import monitor as _monitor
 
-__all__ = ["WarmHandle", "done_handle", "join"]
+__all__ = ["WarmHandle", "submit", "submit_cached", "done_handle", "join",
+           "workers", "inflight_count", "shutdown"]
+
+_lock = threading.Lock()
+_inflight = {}  # (owner-key, sig) -> WarmHandle, while its thunk runs
+
+
+def workers():
+    """Threads that run warm thunks: 1, the calling thread (a capture
+    belongs to the stream of the thread that makes it)."""
+    return 1
 
 
 class WarmHandle:
@@ -28,20 +44,23 @@ class WarmHandle:
         self.submit_ts = time.perf_counter() if submit_ts is None \
             else submit_ts
         self.done_ts = None
+        self._done = threading.Event()
         self._entry = None
         self._error = None
 
     def _finish(self, entry, error):
         self._entry, self._error = entry, error
         self.done_ts = time.perf_counter()
+        self._done.set()
 
     def done(self):
-        return self.done_ts is not None
+        return self._done.is_set()
 
     def result(self, timeout=None):
         """The (program, info) entry; re-raises the capture's error. A
-        handle is done when it is returned, so nothing waits."""
-        if not self.done():
+        handle joined while another thread's capture runs waits for it
+        (up to `timeout` seconds)."""
+        if not self._done.wait(timeout):
             raise TimeoutError(f"warm-up of {self.tag!r} has not finished")
         if self._error is not None:
             raise self._error
@@ -52,6 +71,66 @@ class WarmHandle:
         """The capture's info dict (warm_s, capture_s, compile_s, ...),
         None when it failed."""
         return self._entry[1] if self._entry is not None else None
+
+
+def submit(key, tag, thunk, install=None, inline=True):
+    """Run `thunk` (a capture returning its (program, info) entry) on the
+    calling thread, single-flight per `key`: while a thunk for `key` runs
+    (another thread's), a further submit returns the SAME handle
+    (`warm.joined` counts those) instead of capturing twice. `install`
+    runs with the finished entry before the key leaves the table.
+    `inline` is the reference's dispatch-path flag: here every thunk runs
+    inline. Returns (handle, submitted_now)."""
+    del inline
+    with _lock:
+        h = _inflight.get(key)
+        if h is not None:
+            _monitor.counter("warm.joined").inc()
+            return h, False
+        h = WarmHandle(tag)
+        _inflight[key] = h
+        _monitor.counter("warm.submitted").inc()
+        _monitor.gauge("warm.inflight").set(len(_inflight))
+    entry, error = None, None
+    try:
+        entry = thunk()
+        if install is not None:
+            install(entry)
+    except BaseException as e:  # joiners must see the real error
+        error = e
+    finally:
+        h._finish(entry, error)
+        with _lock:
+            _inflight.pop(key, None)
+            _monitor.gauge("warm.inflight").set(len(_inflight))
+    return h, True
+
+
+def submit_cached(cache, sig, tag, thunk, install=None, inline=True):
+    """Single-flight submit keyed to an owner's program cache: an entry
+    already in `cache` returns a done handle (fresh=False, no warm-set
+    cost); otherwise the thunk runs under `(id(cache), sig)` and installs
+    into `cache[sig]` (or through `install`)."""
+    entry = cache.get(sig)
+    if entry is not None:
+        return done_handle(tag, entry)
+    if install is None:
+        def install(entry):
+            cache.setdefault(sig, entry)
+    handle, _ = submit((id(cache), sig), tag, thunk, install=install,
+                       inline=inline)
+    return handle
+
+
+def inflight_count():
+    with _lock:
+        return len(_inflight)
+
+
+def shutdown(wait=True):
+    """The reference tears down its compile executor; the port has none
+    (thunks run on the calling thread)."""
+    del wait
 
 
 def done_handle(tag, entry):

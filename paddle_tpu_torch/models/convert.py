@@ -15,7 +15,8 @@ __all__ = ["load_paddle_tpu_state", "load_paddle_tpu_opt_state"]
 
 def load_paddle_tpu_state(model, state):
     """Copy `state` (name -> numpy array, e.g. `{k: v.numpy() for k, v
-    in ref.state_dict().items()}`) into `model`'s parameters (any
+    in ref.state_dict().items()}`, or torch tensor, on any device) into
+    `model`'s parameters (any
     Layer's, a user-defined one's too; `paddle.load` of a reference file
     with `set_state_dict` is the other way in) and into the buffers it
     names (BatchNorm's `_mean` / `_variance`, which a parameters-only
@@ -30,14 +31,15 @@ def load_paddle_tpu_state(model, state):
         raise KeyError(f"state does not match the model: missing "
                        f"{missing}, extra {extra}")
     own.update(buffers)
-    arrays = {k: np.asarray(state[k]) for k in own}
-    bad = [(k, a.shape, tuple(own[k].shape)) for k, a in arrays.items()
-           if a.shape != tuple(own[k].shape)]
+    arrays = {k: state[k] if isinstance(state[k], torch.Tensor)
+              else np.asarray(state[k]) for k in own}
+    bad = [(k, tuple(a.shape), tuple(own[k].shape))
+           for k, a in arrays.items() if tuple(a.shape) != tuple(own[k].shape)]
     if bad:
         raise ValueError(f"shape mismatch (name, state, model): {bad}")
     with torch.no_grad():
         for k, a in arrays.items():
-            own[k].copy_(_tensor(a))
+            own[k].copy_(a if isinstance(a, torch.Tensor) else _tensor(a))
 
 
 def _tensor(a):

@@ -64,7 +64,6 @@ over one to one.
 """
 import contextlib
 import functools
-import gc
 import math
 import threading
 import time
@@ -83,7 +82,7 @@ from ..nn import functional as F
 from ..nn.functional.attention import _sdpa_reference
 from ..ops.attention_core import NEG_INF
 from ..ops.chunked_xent import chunked_softmax_xent
-from ..ops.kernels import captured_launches, sm_count
+from ..ops.kernels import capture_guard, captured_launches, sm_count
 from ..ops.kernels.paged_attention import (H100_SMS, graph_scratch,
                                            ragged_capacity,
                                            ragged_paged_attention,
@@ -91,6 +90,8 @@ from ..ops.kernels.paged_attention import (H100_SMS, graph_scratch,
 from ..ops.paged_attention import PagedKVCache, paged_attention
 from ..ops.threefry import (categorical, fold_in, gumbel, key_words,
                             sampling_key_data)
+from ..profiler import compile_observatory as _observatory
+from ..profiler import flight_recorder as _flight
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "StaticCacheSlot",
            "PagedCacheSlot", "PagedJitSlot", "RaggedSlot",
@@ -103,6 +104,9 @@ __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "StaticCacheSlot",
 # the finite mask of the legacy paths' scores (the reference's -1e30): a
 # row with nothing visible gets a uniform softmax, never NaN
 _MASKED = -1e30
+# the compilation observatory's tag of a served step's capture (the
+# reference's RAGGED_TAG)
+RAGGED_TAG = "serve.ragged_step"
 
 
 class GPTConfig:
@@ -285,7 +289,7 @@ class CapturedStep:
 
     __slots__ = ("graph", "static", "mirror", "host", "copied", "hidden",
                  "heads", "dims", "launches", "capture_ms", "scratch",
-                 "replays", "variant")
+                 "replays", "variant", "info", "__weakref__")
 
     def __init__(self, model, cache, n_tokens, n_rows, width,
                  per_token=False):
@@ -312,6 +316,7 @@ class CapturedStep:
             self.scratch = schedule.scratch = graph_scratch(
                 schedule, pool.shape[2], pool.shape[3], device)
         before = captured_launches(side).copy()
+        t_eager, reserved = time.perf_counter() - t, _pool_bytes(device)
         self.graph = torch.cuda.CUDAGraph()
         with graph_capture(self.graph, state):
             if self.scratch is not None:
@@ -324,6 +329,29 @@ class CapturedStep:
         self.capture_ms = (time.perf_counter() - t) * 1e3
         self.replays = 0
         self.variant = None
+        self.info = {"pool_bytes": _pool_bytes(device) - reserved}
+        _observatory.record_capture(
+            RAGGED_TAG, {"tokens": n_tokens, "rows": n_rows, "width": width,
+                         "pages": cache.n_pages, "page_size":
+                         cache.page_size}, t_eager,
+            self.capture_ms / 1e3 - t_eager, self.launches,
+            self.info["pool_bytes"])
+        _flight.register_executable(RAGGED_TAG, self)
+
+    def as_text(self):
+        """The step's description for a debug bundle: its signature, the
+        launches its layers' capture recorded, its heads, capture and
+        replays."""
+        lines = [f"{RAGGED_TAG} (tokens, rows, width) {self.dims}: "
+                 f"{self.replays} replays, captured in "
+                 f"{self.capture_ms:.1f} ms, pool "
+                 f"{self.info['pool_bytes'] / 2**20:.1f} MiB added; heads "
+                 f"{sorted(self.heads)}"]
+        for wrapper, n in sorted(self.launches.items(),
+                                 key=lambda kv: kv[0].__name__):
+            lines.append(f"  {wrapper.__module__}.{wrapper.__name__}:"
+                         f" {n} launches")
+        return "\n".join(lines) + "\n"
 
     def ensure_heads(self, model, cache, per_token):
         """Capture the (greedy, sampled) heads of `per_token` if this
@@ -383,33 +411,21 @@ class _GraphState:
             self.stream = torch.cuda.Stream(device)
 
 
-_gc_lock = threading.Lock()
-_gc_paused = [0, False]  # captures under way, whether the collector was on
-
-
 @contextlib.contextmanager
 def graph_capture(graph, state):
-    """torch.cuda.graph into `state`'s pool on its side stream, with
-    Python's collector paused until no capture is under way: a collection
-    in the capturing thread may free an unreachable cycle that holds
-    another CUDA graph, whose destruction is not permitted while the
-    thread captures and invalidates the capture. torch's gc.collect() on
-    entering a capture misses a cycle that another thread, such as the
-    other engine of a pair, lets go of meanwhile."""
-    with _gc_lock:
-        if _gc_paused[0] == 0:
-            _gc_paused[1] = gc.isenabled()
-            gc.disable()
-        _gc_paused[0] += 1
-    try:
-        with torch.cuda.graph(graph, pool=state.pool, stream=state.stream,
-                              capture_error_mode="thread_local"):
-            yield
-    finally:
-        with _gc_lock:
-            _gc_paused[0] -= 1
-            if _gc_paused[0] == 0 and _gc_paused[1]:
-                gc.enable()
+    """torch.cuda.graph into `state`'s pool on its side stream, under
+    ops/kernels' `capture_guard` (Python's collector paused until no
+    capture is under way)."""
+    with capture_guard(), torch.cuda.graph(
+            graph, pool=state.pool, stream=state.stream,
+            capture_error_mode="thread_local"):
+        yield
+
+
+def _pool_bytes(device):
+    """The caching allocator's reserved bytes (a graph pool's growth is
+    the difference across its capture; a host read)."""
+    return torch.cuda.memory_reserved(device)
 
 
 def _graph_state(cache):
@@ -984,23 +1000,32 @@ def _sample_static(last, key, temp, top_k, top_p):
     return torch.argmax(noise + arr, dim=-1)
 
 
-def capture_graph(state, body):
+def capture_graph(state, body, tag=None, static=None):
     """body() run once eagerly on `state`'s side stream (kernel builds,
     library workspaces), then captured there into its graph pool (a
     `_GraphState`: a cache's, a GenerateProgram's, an InferenceEngine's).
-    Returns (graph, body's outputs, the kernel launches the capture
-    recorded, which each replay adds to the wrappers')."""
+    With `tag`, the capture is one `kind:"compile"` record of the
+    compilation observatory (signature: the `static` dict). Returns
+    (graph, body's outputs, the kernel launches the capture recorded,
+    which each replay adds to the wrappers')."""
     side = state.stream
     current = torch.cuda.current_stream(side.device)
+    t = time.perf_counter()
     side.wait_stream(current)
     with torch.cuda.stream(side):
         body()
     current.wait_stream(side)
     before = captured_launches(side).copy()
+    t_eager, reserved = time.perf_counter() - t, _pool_bytes(side.device)
     graph = torch.cuda.CUDAGraph()
     with graph_capture(graph, state):
         out = body()
-    return graph, out, dict(captured_launches(side) - before)
+    launches = dict(captured_launches(side) - before)
+    if tag is not None:
+        _observatory.record_capture(
+            tag, static or {}, t_eager, time.perf_counter() - t - t_eager,
+            launches, _pool_bytes(side.device) - reserved)
+    return graph, out, launches
 
 
 def _count_replay(launches):
@@ -1032,7 +1057,9 @@ class CapturedDecode:
         self.copied = torch.cuda.Event()
         self.graph, self.logits, self.launches = capture_graph(
             _graph_state(cache),
-            lambda: model._decode_body(cache, self.static, n_rows, width))
+            lambda: model._decode_body(cache, self.static, n_rows, width),
+            tag="serve.decode_step", static={"rows": n_rows,
+                                             "width": width})
         self.capture_ms = (time.perf_counter() - t) * 1e3
         self.replays = 0
 
@@ -1081,8 +1108,12 @@ class GenerateProgram:
         if dev.type == "cuda":
             t = time.perf_counter()
             state = _GraphState(dev)
-            self.graphs = (capture_graph(state, self._prefill),
-                           capture_graph(state, self._decode)
+            sig = {"batch": B, "prompt": T, "new": new, "top_k": top_k,
+                   "top_p": top_p}
+            self.graphs = (capture_graph(state, self._prefill,
+                                         "generate.prefill", sig),
+                           capture_graph(state, self._decode,
+                                         "generate.decode", sig)
                            if new > 1 else None)
             self.info["capture_s"] = time.perf_counter() - t
 

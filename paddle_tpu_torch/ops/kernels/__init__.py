@@ -4,6 +4,7 @@ built and loaded by _build.py. Below: what every wrapper shares."""
 import collections
 import contextlib
 import functools
+import gc
 import threading
 
 import torch
@@ -63,6 +64,33 @@ def captured_launches(stream=None):
     only grows): a capture's own are the difference across it."""
     with _LOCK:
         return _CAPTURED[_handle(stream)]
+
+
+_gc_lock = threading.Lock()
+_gc_paused = [0, False]  # captures under way, whether the collector was on
+
+
+@contextlib.contextmanager
+def capture_guard():
+    """Around a CUDA graph capture (TrainStep's, the model's
+    `graph_capture`): Python's collector paused until no capture is
+    under way. A collection in any thread may free an unreachable cycle
+    that holds another CUDA graph, whose destruction is not permitted
+    while a stream captures, and invalidates the capture; torch's
+    gc.collect() on entering a capture misses a cycle that another
+    thread, such as the other engine of a pair, lets go of meanwhile."""
+    with _gc_lock:
+        if _gc_paused[0] == 0:
+            _gc_paused[1] = gc.isenabled()
+            gc.disable()
+        _gc_paused[0] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_paused[0] -= 1
+            if _gc_paused[0] == 0 and _gc_paused[1]:
+                gc.enable()
 
 
 def count_launch(wrapper):
@@ -152,6 +180,7 @@ def count_cost(flops, nbytes):
     for tally in _COSTS:
         tally[0] += flops
         tally[1] += nbytes
+        tally[2] += 1
 
 
 def current_stream(device):

@@ -25,6 +25,7 @@ tally:
 `mfu(flops_per_step, step_time_s)` divides by the card's nominal dense
 bf16 peak (`PEAK_BF16_FLOPS`, by `torch.cuda.get_device_name`).
 """
+import collections
 import contextlib
 
 import torch
@@ -49,11 +50,12 @@ PEAK_BF16_FLOPS = {
 
 class _BytesMode(TorchDispatchMode):
     """Sums the bytes of the tensors that every non-view aten op reads
-    and writes (a view moves none)."""
+    and writes (a view moves none), and counts those ops by name."""
 
     def __init__(self):
         super().__init__()
         self.bytes = 0
+        self.ops = collections.Counter()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -61,6 +63,7 @@ class _BytesMode(TorchDispatchMode):
             self.bytes += sum(t.numel() * t.element_size()
                               for t in tree_leaves((args, kwargs, out))
                               if isinstance(t, torch.Tensor))
+            self.ops[func.__name__.split(".")[0]] += 1
         return out
 
 
@@ -68,8 +71,11 @@ class _BytesMode(TorchDispatchMode):
 def measure():
     """Count the products and bytes of what runs inside; yields a dict
     that holds, on exit, {"flops", "bytes accessed", "kernel flops",
-    "kernel bytes"} (the last two the hand-written kernels' share)."""
-    tally = [0, 0]
+    "kernel bytes"} (the last two the hand-written kernels' share),
+    "ops" (the non-view aten ops and hand-written kernel launches run)
+    and "op_counts" ({name: count} of those; a hand-written kernel as
+    "kernels")."""
+    tally = [0, 0, 0]
     flops, nbytes = FlopCounterMode(display=False), _BytesMode()
     out = {}
     _kernels._COSTS.append(tally)
@@ -78,10 +84,14 @@ def measure():
             yield out
     finally:
         _kernels._COSTS.remove(tally)
+    ops = dict(nbytes.ops)
+    if tally[2]:
+        ops["kernels"] = tally[2]
     out.update({"flops": float(flops.get_total_flops() + tally[0]),
                 "bytes accessed": float(nbytes.bytes + tally[1]),
                 "kernel flops": float(tally[0]),
-                "kernel bytes": float(tally[1])})
+                "kernel bytes": float(tally[1]),
+                "ops": sum(ops.values()), "op_counts": ops})
 
 
 def cost_analysis(program):

@@ -1,36 +1,41 @@
-"""The memory observatory, its pool half: a tagged ledger of the
-device tensors long-lived holders own, the page pools' measured
-fragmentation and byte gauges, and the periodic `kind:"memory"` record.
+"""The memory observatory: a tagged device-memory ledger, pool
+fragmentation telemetry, and OOM forensics.
 
-Counterpart: paddle_tpu/profiler/mem_observatory.py, the parts the
-serving engines and the router read:
+Counterpart: paddle_tpu/profiler/mem_observatory.py, whole:
 
-- **Tagged ledger**: a holder registers under a stable tag
-  (`kv_pool.<engine>`, `draft_pool`, `ssm_state`) through a bounded
-  weakref registry. `register(tag, owner, getter)` holds the owner weakly
-  and asks the getter for its CURRENT tensors at report time;
+- **Tagged ledger**: a holder registers under a stable tag (`params` /
+  `opt_state` from the train step's stores, `kv_pool.<engine>`,
+  `draft_pool`, `ssm_state`, `prefetch`) through a bounded weakref
+  registry. `register(tag, owner, getter)` holds the owner weakly and
+  asks the getter for its CURRENT tensors at report time;
   `register_arrays(tag, tensors)` holds a transient set by per-tensor
-  weakrefs. Nothing in the ledger extends a buffer's lifetime. `ledger()`
-  / `tag_bytes()` report each tag's own view (tensor `nbytes`).
+  weakrefs. Nothing in the ledger extends a buffer's lifetime.
+  `mem_report()` splits the device's bytes in use into attributed
+  (deduplicated by tensor identity) and unattributed, the latter
+  bounded by the capture ledger's pools (`executable_peak_bytes`: the
+  bytes each captured program's graph pool took, compile_observatory).
+  The device numbers are the CUDA caching allocator's counters
+  (`torch.cuda.memory_stats`: a host read, no device synchronization);
+  on the CPU they fall back to the ledger's (`measured: false`).
 - **Pool gauges**: `fragmentation(cache)` walks a page pool's free page
   ids into contiguous runs (`fragmentation = 1 - largest_run / free`);
-  `pool_hbm(cache)` gives the pool's total / free / headroom bytes from
-  its tensors' `nbytes` (free + evictable pages, headroom less the
-  outstanding admission claims; slots for a recurrent pool).
-- **`record_memory`**: one `kind:"memory"` record: the ledger's bytes
-  deduplicated by tensor identity, the device's bytes in use, peak and
-  limit from `torch.cuda.memory_stats` (allocator counters: no device
-  synchronization) for a CUDA pool, and the pool's occupancy,
-  fragmentation and byte gauges. On the CPU the device totals fall back
-  to the ledger's (`measured: false`).
+  `pool_hbm(cache)` gives the pool's total / free / headroom bytes.
+- **Periodic `kind:"memory"` records**: `maybe_memory(step)` (the train
+  step's cadence: the first step, then every PADDLE_TPU_MEMORY_EVERY-th,
+  default 16, 0 off) and `record_memory`.
+- **OOM forensics**: the dispatch choke points (TrainStep's dispatch,
+  the served ragged step) route an allocator exhaustion
+  (`torch.cuda.OutOfMemoryError`, or the `oom@train.step` fault's
+  synthetic one) through `oom_error(exc, site)`: a `device_oom` event, a
+  debug bundle whose `mem_state.json` carries the ledger, and a
+  `DeviceOOMError` naming the top three holders and the requested bytes
+  (`parse_requested_bytes` reads torch's "Tried to allocate 2.00 GiB").
 
-`mem_state()` is registered with the flight recorder as a state
-provider. The attribution report `mem_report` and the OOM forensics
-(`DeviceOOMError`, `is_oom`, `oom_error`, `parse_requested_bytes`,
-`maybe_memory`) are ROADMAP.md queue A, item A.12. Every helper is host
-arithmetic and never raises.
+Every helper is host arithmetic and never raises.
 """
 import collections
+import os
+import re
 import threading
 import weakref
 
@@ -39,10 +44,11 @@ import torch
 from . import flight_recorder as _fr
 from . import monitor as _monitor
 
-__all__ = ["register", "register_arrays", "deregister", "registered_tags",
-           "tag_bytes", "ledger", "fragmentation", "pool_hbm",
-           "record_memory", "records_tail", "mem_state", "reset",
-           "MAX_TAGS", "MEMORY_RING"]
+__all__ = ["DeviceOOMError", "register", "register_arrays", "deregister",
+           "registered_tags", "tag_bytes", "ledger", "mem_report",
+           "fragmentation", "pool_hbm", "maybe_memory", "record_memory",
+           "records_tail", "is_oom", "parse_requested_bytes",
+           "oom_error", "mem_state", "reset", "MAX_TAGS", "MEMORY_RING"]
 
 MAX_TAGS = 64      # registry bound: the oldest tag is evicted beyond it
 MEMORY_RING = 256  # emitted memory records kept for the state provider
@@ -50,8 +56,35 @@ MEMORY_RING = 256  # emitted memory records kept for the state provider
 _lock = threading.RLock()
 _tags = collections.OrderedDict()  # tag -> _TagEntry, registration order
 _records = collections.deque(maxlen=MEMORY_RING)
-_state = {"peaks": {}}  # tag -> the most bytes seen at any record
+_state = {
+    "emitted": set(),   # cadence sources that have emitted once
+    "peaks": {},        # tag -> the most bytes seen at any report
+    "last_oom": None,   # the most recent OOM's context (mem_state.json)
+}
 _state_registered = [False]
+
+
+class DeviceOOMError(RuntimeError):
+    """A device allocation failed: raised by the instrumented dispatch
+    choke points after the memory observatory dumped a debug bundle.
+    Carries `site`, `requested_bytes` (parsed from the message, 0 when
+    it names none), `top_holders` ([(tag, bytes)], the ledger's three
+    largest) and `bundle_dir` (None when dumping was off)."""
+
+    def __init__(self, message, site=None, requested_bytes=0,
+                 top_holders=None, bundle_dir=None):
+        super().__init__(message)
+        self.site = site
+        self.requested_bytes = int(requested_bytes)
+        self.top_holders = list(top_holders or [])
+        self.bundle_dir = bundle_dir
+
+
+def _env_int(name, default):
+    try:
+        return int(os.environ.get(name, default))
+    except (TypeError, ValueError):
+        return default
 
 
 class _TagEntry:
@@ -155,7 +188,27 @@ def tag_bytes():
 
 def _device_of(cache):
     dev = getattr(cache, "device", None)
-    return dev if isinstance(dev, torch.device) else None
+    if isinstance(dev, torch.device):
+        return dev
+    if torch.cuda._is_compiled() and torch.cuda.is_initialized():
+        return torch.device("cuda", torch.cuda.current_device())
+    return None
+
+
+def _executable_peak_bytes():
+    """Sum over the capture ledger's tags of each tag's largest pool
+    bytes: the bound on legitimate unattributed resident bytes."""
+    try:
+        from . import compile_observatory as _cobs
+        peaks = {}
+        for r in _cobs.ledger():
+            p = float(r.get("peak_memory_bytes", 0.0) or 0.0)
+            t = r.get("tag", "?")
+            if p > peaks.get(t, 0.0):
+                peaks[t] = p
+        return int(sum(peaks.values()))
+    except Exception:
+        return 0
 
 
 def _attribution(device=None):
@@ -189,6 +242,27 @@ def _attribution(device=None):
         peak = max(attributed, max(_state["peaks"].values(), default=0))
     return (tags, attributed, max(in_use, attributed),
             max(peak, attributed), limit, measured)
+
+
+def mem_report(device=None):
+    """The attribution split: {"measured", "tags" (each tag's bytes),
+    "attributed_bytes" (deduplicated by tensor identity),
+    "device_bytes_in_use", "device_peak_bytes", "device_bytes_limit",
+    "unattributed_bytes", "executable_peak_bytes"}. `device` None: the
+    current CUDA device if CUDA is initialized, else the ledger alone.
+    Never raises; host reads only."""
+    if device is None:
+        device = _device_of(None)
+    elif not isinstance(device, torch.device):
+        device = torch.device(device)
+    tags, attributed, in_use, peak, limit, measured = _attribution(device)
+    return {"measured": measured, "tags": tags,
+            "attributed_bytes": int(attributed),
+            "device_bytes_in_use": int(in_use),
+            "device_peak_bytes": int(peak),
+            "device_bytes_limit": int(limit),
+            "unattributed_bytes": int(max(in_use - attributed, 0)),
+            "executable_peak_bytes": _executable_peak_bytes()}
 
 
 def _free_page_ids(cache):
@@ -287,26 +361,37 @@ def pool_hbm(cache):
                 "hbm_headroom_bytes": 0}
 
 
+def maybe_memory(step_i, source="train", engine=None, cache=None):
+    """Cadence gate of the per-step call sites (`TrainStep`'s step
+    telemetry): a memory record on the first step seen for this source,
+    then every PADDLE_TPU_MEMORY_EVERY-th (default 16; 0 disables)."""
+    every = _env_int("PADDLE_TPU_MEMORY_EVERY", 16)
+    if every <= 0:
+        return None
+    key = f"{source}.{engine or ''}"
+    if key in _state["emitted"] and step_i % every != 0:
+        return None
+    return record_memory(source=source, step=step_i, engine=engine,
+                         cache=cache)
+
+
 def record_memory(source, step=None, engine=None, cache=None):
     """Build and export ONE `kind:"memory"` record (the reference's
     fields): the ledger's split, and with a cache its occupancy, measured
     fragmentation and byte gauges. Returns the record, None on failure."""
     try:
-        tags, attributed, in_use, peak, limit, measured = _attribution(
-            _device_of(cache))
+        rep = mem_report(_device_of(cache))
         rec = {
             "source": str(source),
             "step": int(step or 0),
-            "measured": bool(measured),
-            "tags": {t: int(b) for t, b in tags.items()},
-            "attributed_bytes": int(attributed),
-            "unattributed_bytes": int(max(in_use - attributed, 0)),
-            "device_bytes_in_use": int(in_use),
-            "device_peak_bytes": int(peak),
-            "device_bytes_limit": int(limit),
-            # the compile ledger's executable peaks are A.12's: a
-            # captured graph's pool is allocator memory, counted in use
-            "executable_peak_bytes": 0,
+            "measured": bool(rep["measured"]),
+            "tags": {t: int(b) for t, b in rep["tags"].items()},
+            "attributed_bytes": rep["attributed_bytes"],
+            "unattributed_bytes": rep["unattributed_bytes"],
+            "device_bytes_in_use": rep["device_bytes_in_use"],
+            "device_peak_bytes": rep["device_peak_bytes"],
+            "device_bytes_limit": rep["device_bytes_limit"],
+            "executable_peak_bytes": rep["executable_peak_bytes"],
         }
         if engine is not None:
             rec["engine"] = str(engine)
@@ -327,11 +412,12 @@ def record_memory(source, step=None, engine=None, cache=None):
                 rec["held_slots"] = int(stats.get("held_slots", 0))
                 rec["state_bytes_total"] = int(
                     stats.get("state_bytes_total", 0))
-        _monitor.gauge("mem.attributed_bytes").set(attributed)
+        _monitor.gauge("mem.attributed_bytes").set(rep["attributed_bytes"])
         _monitor.gauge("mem.unattributed_bytes").set(
             rec["unattributed_bytes"])
         if "fragmentation" in rec:
             _monitor.gauge("mem.kv_fragmentation").set(rec["fragmentation"])
+        _state["emitted"].add(f"{source}.{engine or ''}")
         _ensure_state_provider()
         _monitor.export_step(rec, kind="memory")
         with _lock:
@@ -347,10 +433,99 @@ def records_tail():
         return [dict(r) for r in _records]
 
 
+# -- OOM forensics ---------------------------------------------------------
+
+_OOM_MARKERS = ("RESOURCE_EXHAUSTED", "resource_exhausted",
+                "Out of memory", "out of memory", "OutOfMemory")
+
+# "Tried to allocate 2.00 GiB" (torch's caching allocator), "while trying
+# to allocate 8589934592 bytes", "Failed to allocate request for 8.00GiB"
+_SIZE_RE = re.compile(
+    r"alloca\w*\s+(?:request\s+)?(?:for\s+|of\s+)?"
+    r"([\d.]+)\s*([KMGT]i?B?|bytes?|B)\b", re.IGNORECASE)
+_UNITS = {"b": 1, "byte": 1, "bytes": 1,
+          "k": 1000, "kb": 1000, "kib": 1024,
+          "m": 1000**2, "mb": 1000**2, "mib": 1024**2,
+          "g": 1000**3, "gb": 1000**3, "gib": 1024**3,
+          "t": 1000**4, "tb": 1000**4, "tib": 1024**4}
+
+
+def is_oom(exc):
+    """True when `exc` is a device allocator exhaustion
+    (`torch.cuda.OutOfMemoryError`, or a message in the reference's
+    phrasings); a DeviceOOMError is already wrapped and answers False."""
+    if isinstance(exc, DeviceOOMError):
+        return False
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return True
+    msg = f"{type(exc).__name__}: {exc}"
+    return any(m in msg for m in _OOM_MARKERS)
+
+
+def parse_requested_bytes(msg):
+    """The allocation size the message names, in bytes (0 when it names
+    none): every phrasing spells the request after an 'allocat*' verb
+    with a unit."""
+    m = _SIZE_RE.search(str(msg) or "")
+    if not m:
+        return 0
+    try:
+        unit = m.group(2).lower()
+        scale = _UNITS.get(unit.rstrip("s") + (
+            "s" if unit in ("bytes",) else ""), None)
+        if scale is None:
+            scale = _UNITS.get(unit, 1)
+        return int(float(m.group(1)) * scale)
+    except (TypeError, ValueError):
+        return 0
+
+
+def oom_error(exc, site):
+    """Forensics of one allocator exhaustion: the OOM's context (site,
+    requested bytes), a `device_oom` event, a debug bundle (its
+    `mem_state.json` carries the ledger), and a `DeviceOOMError` naming
+    the top three holders, which the caller raises `from` the original.
+    Never raises itself."""
+    requested = parse_requested_bytes(exc)
+    top = []
+    try:
+        top = sorted(((t, v["bytes"]) for t, v in ledger().items()),
+                     key=lambda kv: -kv[1])[:3]
+    except Exception:
+        pass
+    _state["last_oom"] = {
+        "site": str(site),
+        "requested_bytes": int(requested),
+        "error": f"{type(exc).__name__}: {exc}"[:500],
+        "top_holders": [[t, int(b)] for t, b in top],
+    }
+    _ensure_state_provider()
+    try:
+        _fr.record_event(
+            "device_oom", site=str(site), requested_bytes=int(requested),
+            top_holders=[f"{t}={b}" for t, b in top], error=str(exc)[:300])
+    except Exception:
+        pass
+    bundle = None
+    try:
+        bundle = _fr.dump("oom", exc=exc)
+    except Exception:
+        pass
+    holders = ", ".join(f"{t}={b / 2**20:.1f}MiB" for t, b in top) \
+        or "ledger empty"
+    req = f" (requested {requested} bytes)" if requested else ""
+    msg = (f"device out of memory at {site}{req}; top holders: {holders}"
+           + (f"; debug bundle: {bundle}" if bundle else ""))
+    return DeviceOOMError(msg, site=site, requested_bytes=requested,
+                          top_holders=top, bundle_dir=bundle)
+
+
 def mem_state():
-    """The state provider's payload: the full ledger, each registered
-    pool owner's `pool_stats()`, per-tag peak bytes and the record
-    tail. Never raises."""
+    """The debug bundle's `mem_state.json` (and the state provider's
+    payload): the attribution report, the full ledger, each registered
+    pool owner's `pool_stats()`, the capture ledger's per-tag pool bytes,
+    per-tag peak bytes, the record tail and the last OOM's context.
+    Never raises."""
     pools = {}
     for tag, entry in _entries():
         owner = entry.owner() if entry.owner is not None else None
@@ -360,9 +535,21 @@ def mem_state():
             pools[tag] = owner.pool_stats()
         except Exception:
             pools[tag] = {"error": "pool_stats refused"}
-    return {"ledger": ledger(), "pools": pools,
+    exec_peaks = {}
+    try:
+        from . import compile_observatory as _cobs
+        for r in _cobs.ledger():
+            p = float(r.get("peak_memory_bytes", 0.0) or 0.0)
+            t = r.get("tag", "?")
+            if p > exec_peaks.get(t, 0.0):
+                exec_peaks[t] = p
+    except Exception:
+        pass
+    return {"report": mem_report(), "ledger": ledger(), "pools": pools,
+            "executable_peaks": exec_peaks,
             "tag_peaks": dict(_state["peaks"]),
-            "records_tail": records_tail()}
+            "records_tail": records_tail(),
+            "last_oom": _state["last_oom"]}
 
 
 def _ensure_state_provider():
@@ -377,8 +564,11 @@ def _ensure_state_provider():
 
 
 def reset():
-    """Drop the registry, the record ring and the peaks (tests)."""
+    """Drop the registry, the record ring, the peaks, the cadence marks
+    and the OOM context (tests)."""
     with _lock:
         _tags.clear()
         _records.clear()
+        _state["emitted"] = set()
         _state["peaks"] = {}
+        _state["last_oom"] = None

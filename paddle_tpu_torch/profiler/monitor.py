@@ -1,12 +1,17 @@
 """The metrics registry: counters, gauges and histograms, and the
 JSONL per-step exporter.
 
-Counterpart: paddle_tpu/profiler/monitor.py, the parts the training
-health path writes to (`Counter`, `Gauge`, `Histogram`, `counter` /
-`gauge` / `histogram`, `get_metric`, `metrics_snapshot`,
-`reset_metrics`, `export_step`, `set_clock_offset` / `clock_offset`).
-Every update is also a sample in the flight recorder's ring
-(flight_recorder.py).
+Counterpart: paddle_tpu/profiler/monitor.py, whole. Every update is
+also a sample in the flight recorder's ring (flight_recorder.py).
+
+Training signals (jit/api.py `TrainStep`, profiler/dist_observatory.py):
+`train.step_s` histogram, `train.flops_per_step` / `train.bytes_per_step`
+/ `train.mfu` / `train.epilogue_share` gauges, the sampled probe's
+`train.step_time_device_s` / `train.mfu_measured` /
+`train.overlap_fraction` gauges; `jit.retraces` / `jit.cache_miss`
+counters and `jit.compile_s` (a capture's seconds); `host.blocked_s`
+(every blocking device read, `jit.DeferredLoss`; `host_blocked_s()`
+sums it), `prefetch.h2d_bytes` / `prefetch.depth`, `dataloader.wait_s`.
 
 Serving signals (inference/serving.py, inference/frontdoor.py):
 `serve.queue_depth` / `serve.shared_pages` / `serve.kv_*_pages` gauges,
@@ -23,10 +28,12 @@ emit the `kind:"request"`, `"kvcache"`, `"route"`, `"journey"` and
 Exporter: with `PADDLE_TPU_METRICS_FILE` set, `export_step(record)`
 appends ONE JSON object per line, tagged with a wall-clock `ts`, the
 process `rank` (PADDLE_TPU_PROCESS_ID or PADDLE_TRAINER_ID) and a
-`kind` ("health": one per resolved health vector; "event": an anomaly,
-flight_recorder.record_event; "serve", "request", "kvcache", "memory",
-"route", "journey", "fleet", "harness": the serving path's), the
-reference's record shapes. A nonzero `set_clock_offset` stamps
+`kind` ("step": one per optimizer step, "scan": one per `run_steps`;
+"compile": one per captured program; "health": one per resolved health
+vector; "rankstat", "memory": periodic; "event": an anomaly,
+flight_recorder.record_event; "serve", "request", "kvcache", "route",
+"journey", "fleet", "harness": the serving path's), the reference's
+record shapes (tools/check_metrics_schema.py). A nonzero `set_clock_offset` stamps
 `clock_offset_s` on every record.
 """
 import collections
@@ -39,8 +46,8 @@ from . import flight_recorder
 
 __all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge",
            "histogram", "get_metric", "metrics_snapshot", "reset_metrics",
-           "rank", "metrics_file", "export_step", "set_clock_offset",
-           "clock_offset"]
+           "rank", "metrics_file", "export_step", "host_blocked_s",
+           "set_clock_offset", "clock_offset"]
 
 # this rank's estimated wall-clock offset against rank 0 (seconds);
 # stamped on every exported record when nonzero
@@ -204,6 +211,14 @@ def metrics_snapshot():
 def reset_metrics():
     with _lock:
         _registry.clear()
+
+
+def host_blocked_s():
+    """Total seconds the host has waited on device reads (the
+    `host.blocked_s` histogram's sum, which `jit.DeferredLoss` feeds):
+    ~0 in a step loop that never reads a loss between steps."""
+    m = get_metric("host.blocked_s")
+    return float(m.sum) if m is not None else 0.0
 
 
 def rank():

@@ -6,8 +6,10 @@ On the CPU the memory queries keep the reference's documented answers:
 the process's peak RSS for `max_memory_allocated`, 0 for the others
 (the CUDA answers are held against torch.cuda's by the card tests).
 `CUDAPlace` prints the CUDA device, where the reference's prints its
-TPU (a deliberate difference, ROADMAP.md queue C); `set_flags` refuses
-FLAGS_check_nan_inf=True until the NaN/Inf check is ported (A.12).
+TPU (a deliberate difference, ROADMAP.md queue C);
+`set_flags({"FLAGS_check_nan_inf": True})` arms the NaN/Inf check of
+every eager op, as the reference's: `paddle.log` of a negative number
+then raises and records the reference's `nan_detected` event.
 """
 import numpy as np
 import pytest
@@ -175,8 +177,28 @@ def test_flags_match_reference():
     assert port.get_flags("FLAGS_eager_delete_tensor_gb") == {
         "FLAGS_eager_delete_tensor_gb": 1.0}
     port.set_flags({"FLAGS_eager_delete_tensor_gb": 0.0})
-    with pytest.raises(NotImplementedError, match="A.12"):
-        port.set_flags({"FLAGS_check_nan_inf": True})
+    # FLAGS_check_nan_inf arms the eager ops' check, on both packages
+    from paddle_tpu.profiler import flight_recorder as ref_flight
+    from paddle_tpu_torch.profiler import flight_recorder as port_flight
+    events = []
+    for pkg, fr in ((ref, ref_flight), (port, port_flight)):
+        fr.reset()
+        pkg.set_flags({"FLAGS_check_nan_inf": True})
+        try:
+            assert pkg.get_flags("FLAGS_check_nan_inf") == {
+                "FLAGS_check_nan_inf": True}
+            x = pkg.to_tensor(np.array([-1.0, 4.0], np.float32))
+            assert _np(pkg.sqrt(pkg.abs(x))).tolist() == [1.0, 2.0]
+            with pytest.raises(FloatingPointError, match="1 NaNs, 0 Infs"):
+                pkg.log(x)
+        finally:
+            pkg.set_flags({"FLAGS_check_nan_inf": False})
+        events.append([{k: v for k, v in e.items() if k != "ts"}
+                       for e in fr.snapshot()["events"]])
+        assert _np(pkg.log(x))[1] == np.float32(np.log(4.0))  # disarmed
+    assert events[0] == events[1] == [
+        {"event": "nan_detected", "op": "log", "n_nan": 1, "n_inf": 0,
+         "where": "eager"}]
     assert port.get_flags("FLAGS_check_nan_inf") == {
         "FLAGS_check_nan_inf": False}
 

@@ -2822,3 +2822,181 @@ def test_reports_do_not_wait_on_the_card():
             assert len(h.result(timeout=300)) == 64
     finally:
         router.shutdown()
+
+
+def _float_drill(loss=None, monitor_health=True):
+    """A float regression's TrainStep on the card (Linear(64, 8), SGD)
+    and 6 batches: the profiler slice's drill model."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import SGD
+    torch.manual_seed(0)
+    net = nn.Linear(64, 8)
+    step = TrainStep(net, loss or (lambda out, y: ((out - y) ** 2).mean()),
+                     SGD(learning_rate=0.01, parameters=net.parameters()),
+                     monitor_health=monitor_health)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batches = [(torch.randn(32, 64, device="cuda", generator=g),
+                torch.randn(32, 8, device="cuda", generator=g))
+               for _ in range(6)]
+    return step, batches
+
+
+@pytest.mark.cuda
+def test_step_telemetry_never_syncs_off_the_probe_cadence_on_card(
+        tmp_path, monkeypatch):
+    """The train step's telemetry (the kind:"step" record, the metrics
+    file, the memory and rankstat cadences, the spans, the heartbeat) on
+    replayed steps off the probe's cadence: no synchronizing call under
+    torch.cuda.set_sync_debug_mode("error"); the probed step then
+    carries its measured device time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    from paddle_tpu_torch.profiler import dist_observatory
+    monkeypatch.setenv("PADDLE_TPU_METRICS_FILE", str(tmp_path / "m.jsonl"))
+    monkeypatch.setenv("PADDLE_TPU_DEVICE_TIME_EVERY", "8")
+    monkeypatch.setenv("PADDLE_TPU_MEMORY_EVERY", "2")
+    monkeypatch.setenv("PADDLE_TPU_RANKSTAT_EVERY", "2")
+    dist_observatory.reset()
+    step, batches = _float_drill(monitor_health=False)
+    step(*batches[0])  # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(2, 8):  # steps 2-7: off the probe's cadence
+            step(*batches[i % 6])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    step(*batches[0])  # step 8: the probe's one wait
+    import json
+    recs = [json.loads(line) for line in open(tmp_path / "m.jsonl")]
+    steps = {r["step"]: r for r in recs if r["kind"] == "step"}
+    assert sorted(steps) == list(range(1, 9))
+    assert [s for s, r in steps.items() if "step_time_device_s" in r] == [8]
+    assert steps[8]["step_time_device_s"] > 0
+    assert {r["kind"] for r in recs} >= {"step", "compile", "memory",
+                                        "rankstat"}
+
+
+@pytest.mark.cuda
+def test_a_dump_during_a_capture_leaves_it_valid_on_card(tmp_path):
+    """Debug bundles written while a TrainStep captures (from another
+    thread, and from the SIGQUIT handler on the capturing thread itself,
+    inside the capture) leave the capture valid: its replay equals the
+    eager body bit for bit. A dump makes no allocation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    import os
+    import signal
+    import sys
+    import threading
+    from paddle_tpu_torch.profiler import flight_recorder
+    saved = (os.environ.get("PADDLE_TPU_DEBUG_DUMP"), sys.excepthook,
+             threading.excepthook, signal.getsignal(signal.SIGQUIT),
+             signal.getsignal(signal.SIGTERM))
+    flight_recorder.install(base_dir=str(tmp_path))
+    sent = []
+
+    def loss(out, y):
+        if torch.cuda.is_current_stream_capturing() and not sent:
+            sent.append(1)
+            os.kill(os.getpid(), signal.SIGQUIT)
+        return ((out - y) ** 2).mean()
+
+    step, batches = _float_drill(loss=loss)
+    stop, dumps = threading.Event(), []
+
+    def dumper():
+        while True:
+            dumps.append(flight_recorder.dump("during_capture"))
+            if stop.wait(0.02):
+                return
+
+    th = threading.Thread(target=dumper)
+    th.start()
+    try:
+        step(*batches[0])
+    finally:
+        stop.set()
+        th.join()
+        env, sys.excepthook, threading.excepthook, quit_h, term_h = saved
+        signal.signal(signal.SIGQUIT, quit_h)
+        signal.signal(signal.SIGTERM, term_h)
+        if env is None:
+            os.environ.pop("PADDLE_TPU_DEBUG_DUMP", None)
+        else:
+            os.environ["PADDLE_TPU_DEBUG_DUMP"] = env
+    assert sent and dumps and all(dumps)
+    assert (tmp_path / "sigquit" / "MANIFEST.json").exists()
+    snap, i0 = step.snapshot_state(), step._step_i
+    replayed = step(*batches[1])
+    step.set_tree_state(snap["params"], snap["opt_state"])
+    step._step_i = i0
+    eager = step._eager_call(*batches[1])
+    assert step.retraces == 1 and torch.equal(replayed, eager)
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    flight_recorder.dump("after", base_dir=str(tmp_path))
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
+
+
+@pytest.mark.cuda
+def test_nan_fault_poisons_a_replayed_step_on_card():
+    """nan@train.step#3 on replayed steps: the NaN goes into the captured
+    program's static batch buffer (nothing is captured again: retraces
+    stays 1) and the health vector flags step 3 first; oom@train.step
+    raises DeviceOOMError naming its site."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs)")
+    from paddle_tpu_torch.framework import fault_injection
+    from paddle_tpu_torch.profiler import mem_observatory
+    step, batches = _float_drill()
+    fault_injection.configure("nan@train.step#3")
+    try:
+        for x, y in batches[:4]:
+            step(x, y)
+    finally:
+        fault_injection.configure("")
+    step.flush_health()
+    finite = [bool(np.isfinite(h["loss"])) for h in step.health_log]
+    assert step.retraces == 1 and finite == [True, True, False, False]
+    assert step.health_log[2]["found_inf"] == 1.0
+    fault_injection.configure("oom@train.step#1")
+    try:
+        with pytest.raises(mem_observatory.DeviceOOMError) as info:
+            step(*batches[0])
+    finally:
+        fault_injection.configure("")
+    assert info.value.site == "train.step"
+    assert info.value.requested_bytes == 8 << 30
+
+
+@pytest.mark.cuda
+def test_a_profiler_window_records_its_first_graph_replay_on_card(tmp_path,
+                                                                  monkeypatch):
+    """A window that Profiler.start() opens recording, after an earlier
+    trace, holds every kernel of its first launch, a CUDA graph replay
+    (the warm-up before Kineto's start); CUPTI stays attached between
+    traces (TEARDOWN_CUPTI=0, the port's default)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUPTI, CUDA graphs)")
+    import os
+    from paddle_tpu_torch import profiler
+    monkeypatch.setenv("PADDLE_PROFILER_DIR", str(tmp_path))
+    assert os.environ.get("TEARDOWN_CUPTI") == "0"
+    x = torch.ones(1024, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(100):
+            x.mul_(1.0)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        (x + 1).sum().item()
+    prof = profiler.Profiler(targets=[profiler.ProfilerTarget.CPU,
+                                      profiler.ProfilerTarget.GPU])
+    prof.start()
+    graph.replay()
+    prof.stop()
+    assert sum(n for n, _ in prof.device_kernels().values()) == 100

@@ -22,11 +22,15 @@ import pytest
 
 import paddle_tpu
 import paddle_tpu.inference
+import paddle_tpu.framework
 import paddle_tpu.jit
+import paddle_tpu.profiler
 
 import paddle_tpu_torch
+import paddle_tpu_torch.framework
 import paddle_tpu_torch.inference
 import paddle_tpu_torch.jit
+import paddle_tpu_torch.profiler
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,6 +57,14 @@ UNPORTED = {
                  "convert_to_mixed_precision", "create_predictor",
                  "get_num_bytes_of_data_type", "get_trt_compile_version",
                  "get_trt_runtime_version", "get_version"],
+    },
+    "profiler": {},
+    "framework": {
+        # XLA's persistent compile cache and jax shims: no counterpart
+        # for CUDA graphs (ROADMAP.md, A.12's leftovers)
+        "A.12, not applicable": ["compile_cache", "disable_compile_cache",
+                                 "enable_compile_cache", "jax_compat"],
+        "A.6": ["split_key"],
     },
 }
 
@@ -82,7 +94,11 @@ def _unported(kind):
     ("subpackages", _subpackages(paddle_tpu), None),
     ("jit", _public(paddle_tpu.jit), paddle_tpu_torch.jit),
     ("inference", _public(paddle_tpu.inference),
-     paddle_tpu_torch.inference)], ids=["subpackages", "jit", "inference"])
+     paddle_tpu_torch.inference),
+    ("profiler", _public(paddle_tpu.profiler), paddle_tpu_torch.profiler),
+    ("framework", _public(paddle_tpu.framework) | _subpackages(
+        paddle_tpu.framework), paddle_tpu_torch.framework)],
+    ids=["subpackages", "jit", "inference", "profiler", "framework"])
 def test_reference_names_exist_or_are_listed(kind, ref, port):
     if port is None:
         missing = {n for n in ref if not _has_subpackage(n)}
